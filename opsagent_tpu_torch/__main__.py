@@ -1,0 +1,48 @@
+"""Command line: ``python -m opsagent_tpu_torch serve-engine --model-name
+bench-8b --port 8000`` serves OpenAI chat completions from the port's engine
+on the GPU (``--device cpu`` for the CPU)."""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+from .serving.api import ServingStack, make_server
+from .serving.engine import Engine, EngineConfig
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="python -m opsagent_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    se = sub.add_parser(
+        "serve-engine", help="serve OpenAI chat completions from the engine"
+    )
+    se.add_argument("--model-name", default="tiny-test", help="model preset")
+    se.add_argument("--host", default="0.0.0.0")
+    se.add_argument("--port", type=int, default=8000)
+    se.add_argument("--device", default=None, help="cuda (default) or cpu")
+    se.add_argument("--seed", type=int, default=0, help="random-weight seed")
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO)
+    engine = Engine(EngineConfig(
+        model=args.model_name, device=args.device, seed=args.seed
+    ))
+    stack = ServingStack(engine)
+    server = make_server(stack, args.host, args.port)
+    host, port = server.server_address[:2]
+    print(f"serving {args.model_name} on http://{host}:{port} "
+          f"({engine.impl_info()})", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        stack.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,357 @@
+// Paged GQA attention over a paged KV cache, for NVIDIA Hopper (sm_90a).
+//
+// Two entry points share one device function, `attend_tile`:
+//
+//   opsagent_paged_ragged_attention  replaces  paged_ragged_attention_pallas_dma
+//       (opsagent_tpu/ops/paged_attention_pallas.py, body _kernel_ragged_dma):
+//       ragged query rows (decode rows at q_len 1 beside prefill chunks) over
+//       paged KV, causal inside the chunk. One launch per layer per mixed tick.
+//   opsagent_paged_decode_attention  replaces  paged_decode_attention_pallas_dma
+//       (same file, body _kernel_dma): one query per sequence over its
+//       `lengths[b]` cached tokens. One launch per layer per decode step.
+//
+// Contract (identical to the TPU kernels and to the plain PyTorch versions
+// in opsagent_tpu_torch/ops/attention.py): pages [N, P, K, D] contiguous;
+// page_table [B, MaxP] int32 with -1 = unassigned (read as page 0); query
+// s of row b sees cache positions t <= start[b] + s and t < start[b] +
+// q_lens[b], clamped to MaxP * P. Softmax is online in f32, q is cast to
+// f32 and scaled by D^-1/2 before the product, probabilities stay f32 for
+// the product with V, and the output is written in q's dtype. Rows with
+// no visible position (s >= q_len, q_len 0, length 0) are written as exact
+// zeros.
+//
+// Design. The TPU kernels dot every query head against all K kv heads of a
+// page and mask the wrong groups away; here each thread block owns one
+// (sequence, kv head, tile of query rows), so no product is wasted. The
+// rows of a tile are (s, g) pairs of that kv head's group of G = H / K query
+// heads: the G heads of one position share every K/V row the block loads.
+// The block walks only the positions its rows can see, 32 at a time (one
+// per lane), gathering each position's [D] row of this kv head through the
+// page table into shared memory as f32. Each warp owns RPW rows and keeps
+// their running max, sum and [D] accumulator in registers: lane j scores
+// position j against the row's query, the warp reduces max and sum with
+// shuffles, and every lane then accumulates its D/32 output dims over the
+// 32 positions.
+//
+// What bounds it on the H100: reading the K/V rows, 2 * K * D * bytes per
+// cached position per sequence, at 3.35 TB/s. Decode is that and nothing
+// else. A long prefill chunk also does 4 * D f32 operations per (query
+// head, visible position), which at 64 query rows per tile is far below
+// the tensor cores' rate.
+//
+// What this simple design leaves on the table, for later work:
+//   - the products run on CUDA cores in f32, not on tensor cores (wgmma);
+//   - loads are synchronous (load, barrier, compute): no TMA or cp.async
+//     pipeline overlaps the next chunk's gather with this chunk's math;
+//   - one block per (sequence, kv head) in decode: with B * K blocks a
+//     small batch leaves most SMs idle on long contexts, where a split over
+//     pages (flash-decoding, the natural form of the TPU grid kernels) would
+//     fill them;
+//   - prefill tiles of 64 rows each re-read their sequence's K/V (through
+//     L2) once per tile.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kWarps = 4;                  // warps per block
+constexpr int kThreads = kWarps * kWarp;
+constexpr int kChunk = kWarp;              // cache positions per pass: one per lane
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRaggedRowsPerWarp = 16;     // 64 query rows per prefill tile
+constexpr int kDecodeRowsPerWarp = 1;      // G query heads per decode block
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// Load VEC consecutive elements (16 bytes) starting at `src` as f32.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* __restrict__ src, float (&dst)[VEC]) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) dst[i] = to_f32(e[i]);
+}
+
+template <int D, int RPW>
+constexpr int smem_bytes() {
+  // q tile [R][D], K chunk [kChunk][D + 1] (padded: lane j reads row j),
+  // V chunk [kChunk][D], all f32.
+  return (kWarps * RPW * D + kChunk * (D + 1) + kChunk * D) * 4;
+}
+
+// One block: sequence rows `q` [S, H, D] (this sequence only), kv head `kh`,
+// query rows [tile * R, tile * R + R) of the (s, g) enumeration r = s * G + g.
+template <typename T, int D, int RPW>
+__device__ __forceinline__ void attend_tile(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ table_row,
+    T* __restrict__ out, int S, int H, int K, int P, int max_pages, int kh,
+    int tile, int start, int qlen, float scale) {
+  constexpr int R = kWarps * RPW;
+  constexpr int DPL = (D + kWarp - 1) / kWarp;   // output dims per lane
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VPR = D / VEC;                   // 16-byte vectors per row
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + R * D;
+  float* v_s = k_s + kChunk * (D + 1);
+
+  const int G = H / K;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int cap = max_pages * P;
+  const int row0 = tile * R;
+
+  // Positions the tile must read: up to the last valid row's window.
+  const int s_first = row0 / G;
+  const int s_last = min(min((row0 + R - 1) / G, S - 1), qlen - 1);
+  const int tile_limit = s_first <= s_last ? min(start + s_last + 1, cap) : 0;
+
+  for (int i = tid; i < R * VPR; i += kThreads) {
+    const int r = i / VPR, c = (i % VPR) * VEC;
+    const int gr = row0 + r, s = gr / G, g = gr % G;
+    float vals[VEC];
+    if (s < S) {
+      load_vec<T, VEC>(q + (static_cast<size_t>(s) * H + kh * G + g) * D + c, vals);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) vals[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) q_s[r * D + c + e] = vals[e] * scale;
+  }
+
+  float m[RPW], l[RPW], acc[RPW][DPL];
+  int lim[RPW];
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int s = (row0 + warp * RPW + rr) / G;
+    lim[rr] = (s < S && s < qlen) ? min(start + s + 1, cap) : 0;
+    m[rr] = -CUDART_INF_F;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
+  }
+
+  for (int c0 = 0; c0 < tile_limit; c0 += kChunk) {
+    __syncthreads();  // q tile written / previous chunk consumed
+    for (int i = tid; i < kChunk * VPR; i += kThreads) {
+      const int j = i / VPR, c = (i % VPR) * VEC;
+      const int t = c0 + j;
+      float kv[VEC], vv[VEC];
+      if (t < tile_limit) {
+        const int page = max(table_row[t / P], 0);
+        const size_t off = ((static_cast<size_t>(page) * P + t % P) * K + kh) * D + c;
+        load_vec<T, VEC>(k_pages + off, kv);
+        load_vec<T, VEC>(v_pages + off, vv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kv[e] = vv[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        k_s[j * (D + 1) + c + e] = kv[e];
+        v_s[j * D + c + e] = vv[e];
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr) {
+      if (c0 >= lim[rr]) continue;  // warp-uniform: the row sees nothing here
+      const float* qr = q_s + (warp * RPW + rr) * D;
+      const float* kr = k_s + lane * (D + 1);
+      float score = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) score += qr[d] * kr[d];
+      const bool visible = c0 + lane < lim[rr];
+      score = visible ? score : -CUDART_INF_F;
+      const float m_new = fmaxf(m[rr], warp_max(score));  // finite: lane 0 is visible
+      const float alpha = expf(m[rr] - m_new);
+      const float p = visible ? expf(score - m_new) : 0.f;
+      l[rr] = l[rr] * alpha + warp_sum(p);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[rr][i] *= alpha;
+#pragma unroll 8
+      for (int j = 0; j < kChunk; ++j) {
+        const float pj = __shfl_sync(kFull, p, j);
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const int d = lane + i * kWarp;
+          if (d < D) acc[rr][i] += pj * v_s[j * D + d];
+        }
+      }
+      m[rr] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int gr = row0 + warp * RPW + rr;
+    const int s = gr / G, g = gr % G;
+    if (s >= S) continue;
+    T* o = out + (static_cast<size_t>(s) * H + kh * G + g) * D;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane + i * kWarp;
+      if (d < D) store(o + d, l[rr] > 0.f ? acc[rr][i] / l[rr] : 0.f);
+    }
+  }
+}
+
+template <typename T, int D, int RPW>
+__global__ void __launch_bounds__(kThreads) ragged_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ table,
+    const int* __restrict__ start, const int* __restrict__ q_lens,
+    T* __restrict__ out, int S, int H, int K, int P, int max_pages, float scale) {
+  const int b = blockIdx.z;
+  const size_t seq = static_cast<size_t>(b) * S * H * D;
+  attend_tile<T, D, RPW>(q + seq, k_pages, v_pages,
+                         table + static_cast<size_t>(b) * max_pages, out + seq,
+                         S, H, K, P, max_pages, blockIdx.y, blockIdx.x,
+                         start[b], q_lens[b], scale);
+}
+
+template <typename T, int D, int RPW>
+__global__ void __launch_bounds__(kThreads) decode_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ table,
+    const int* __restrict__ lengths, T* __restrict__ out, int H, int K, int P,
+    int max_pages, float scale) {
+  const int b = blockIdx.z;
+  const int len = lengths[b];
+  const size_t seq = static_cast<size_t>(b) * H * D;
+  // One query at position len - 1: it sees t < len.
+  attend_tile<T, D, RPW>(q + seq, k_pages, v_pages,
+                         table + static_cast<size_t>(b) * max_pages, out + seq,
+                         1, H, K, P, max_pages, blockIdx.y, blockIdx.x,
+                         max(len - 1, 0), len > 0 ? 1 : 0, scale);
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int bytes) {
+  // Above 48 KB a block's dynamic shared memory needs an explicit opt-in.
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, int D>
+cudaError_t launch_ragged(const void* q, const void* k, const void* v,
+                          const int* table, const int* start, const int* q_lens,
+                          void* out, int B, int S, int H, int K, int P,
+                          int max_pages, float scale, cudaStream_t stream) {
+  constexpr int RPW = kRaggedRowsPerWarp;
+  constexpr int bytes = smem_bytes<D, RPW>();
+  auto kernel = ragged_kernel<T, D, RPW>;
+  const cudaError_t err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int rows = S * (H / K);
+  const dim3 grid((rows + kWarps * RPW - 1) / (kWarps * RPW), K, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      table, start, q_lens, static_cast<T*>(out), S, H, K, P, max_pages, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_decode(const void* q, const void* k, const void* v,
+                          const int* table, const int* lengths, void* out,
+                          int B, int H, int K, int P, int max_pages, float scale,
+                          cudaStream_t stream) {
+  constexpr int RPW = kDecodeRowsPerWarp;
+  constexpr int bytes = smem_bytes<D, RPW>();
+  auto kernel = decode_kernel<T, D, RPW>;
+  const cudaError_t err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((H / K + kWarps * RPW - 1) / (kWarps * RPW), K, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      table, lengths, static_cast<T*>(out), H, K, P, max_pages, scale);
+  return cudaGetLastError();
+}
+
+enum DType { kFloat32 = 0, kBFloat16 = 1 };
+
+template <typename T>
+cudaError_t dispatch_ragged(int D, const void* q, const void* k, const void* v,
+                            const int* table, const int* start, const int* q_lens,
+                            void* out, int B, int S, int H, int K, int P,
+                            int max_pages, float scale, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_ragged<T, 16>(q, k, v, table, start, q_lens, out, B, S, H, K, P, max_pages, scale, stream);
+    case 32: return launch_ragged<T, 32>(q, k, v, table, start, q_lens, out, B, S, H, K, P, max_pages, scale, stream);
+    case 64: return launch_ragged<T, 64>(q, k, v, table, start, q_lens, out, B, S, H, K, P, max_pages, scale, stream);
+    case 128: return launch_ragged<T, 128>(q, k, v, table, start, q_lens, out, B, S, H, K, P, max_pages, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_decode(int D, const void* q, const void* k, const void* v,
+                            const int* table, const int* lengths, void* out,
+                            int B, int H, int K, int P, int max_pages, float scale,
+                            cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_decode<T, 16>(q, k, v, table, lengths, out, B, H, K, P, max_pages, scale, stream);
+    case 32: return launch_decode<T, 32>(q, k, v, table, lengths, out, B, H, K, P, max_pages, scale, stream);
+    case 64: return launch_decode<T, 64>(q, k, v, table, lengths, out, B, H, K, P, max_pages, scale, stream);
+    case 128: return launch_decode<T, 128>(q, k, v, table, lengths, out, B, H, K, P, max_pages, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Plain C interface, bound with ctypes. Every call launches on `stream`, does
+// not synchronise, and returns cudaGetLastError() (0 = launched).
+extern "C" int opsagent_paged_ragged_attention(
+    const void* q, const void* k_pages, const void* v_pages, const void* table,
+    const void* start, const void* q_lens, void* out, int B, int S, int H,
+    int K, int D, int P, int max_pages, float scale, int dtype, void* stream) {
+  if (B == 0 || S == 0) return cudaSuccess;
+  const auto* tb = static_cast<const int*>(table);
+  const auto* st = static_cast<const int*>(start);
+  const auto* ql = static_cast<const int*>(q_lens);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return dispatch_ragged<float>(D, q, k_pages, v_pages, tb, st, ql, out, B, S, H, K, P, max_pages, scale, s);
+  if (dtype == kBFloat16)
+    return dispatch_ragged<__nv_bfloat16>(D, q, k_pages, v_pages, tb, st, ql, out, B, S, H, K, P, max_pages, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int opsagent_paged_decode_attention(
+    const void* q, const void* k_pages, const void* v_pages, const void* table,
+    const void* lengths, void* out, int B, int H, int K, int D, int P,
+    int max_pages, float scale, int dtype, void* stream) {
+  if (B == 0) return cudaSuccess;
+  const auto* tb = static_cast<const int*>(table);
+  const auto* ln = static_cast<const int*>(lengths);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return dispatch_decode<float>(D, q, k_pages, v_pages, tb, ln, out, B, H, K, P, max_pages, scale, s);
+  if (dtype == kBFloat16)
+    return dispatch_decode<__nv_bfloat16>(D, q, k_pages, v_pages, tb, ln, out, B, H, K, P, max_pages, scale, s);
+  return cudaErrorInvalidValue;
+}

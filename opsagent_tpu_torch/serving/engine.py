@@ -1,0 +1,393 @@
+"""Single-process serving engine over the paged KV cache (the port's
+counterpart of ``opsagent_tpu/serving/engine.py``).
+
+Synchronous: every method returns with its device work done and its tokens
+on the host. Two device programs carry the traffic:
+
+- ``step_mixed``: one forward over decode lanes (one token each) and
+  prefill chunks together, through the ragged paged-attention kernel;
+- ``step_block``: up to ``decode_block`` decode + sample steps with the loop
+  state on the device and one host pull, through the decode kernel.
+
+No async runtime, pipelining, grammar fast-forward, speculation, offload,
+snapshots or constrained decoding in this port yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.config import ModelConfig, get_config_preset
+from ..models.llama import Llama
+from .decode_loop import decode_block
+from .kvcache import InvalidRequest, OutOfPages, PageAllocator
+from .sampler import SamplingParams, sample
+from .tokenizer import ByteTokenizer, Tokenizer
+
+
+@dataclass
+class EngineConfig:
+    model: str = "tiny-test"
+    dtype: torch.dtype = torch.bfloat16
+    page_size: int = 16
+    num_pages: int = 2048
+    max_pages_per_seq: int = 320   # 5120 tokens
+    max_batch_size: int = 8
+    # Decode steps per step_block call: one host pull per block.
+    decode_block: int = 32
+    # Query-axis buckets of the mixed step: a chunk pads to the smallest
+    # bucket holding it; the largest caps a chunk.
+    mixed_buckets: tuple[int, ...] = (16, 32, 64, 128)
+    # Per-mixed-step token budget: decode lanes first, then prefill chunks.
+    max_step_tokens: int = 256
+    prefix_cache: bool = True
+    seed: int = 0
+    device: str | None = None      # None = cuda; "cpu" only on request
+    # Paged attention: "cuda" (the hand-written kernels; the default on a
+    # GPU) or "plain" (the plain PyTorch versions: the only choice on the
+    # CPU, and the reference build on a GPU). "" resolves by device.
+    attn_impl: str = ""
+
+
+@dataclass
+class Sequence:
+    """Host-side state of one in-flight generation."""
+
+    seq_id: int
+    prompt_len: int
+    prompt_ids: list[int] = field(default_factory=list)
+    tokens: list[int] = field(default_factory=list)   # generated tokens
+    params: SamplingParams = field(default_factory=SamplingParams)
+    done: bool = False
+    finish_reason: str = ""        # "stop" | "length"
+
+
+class Engine:
+    def __init__(
+        self,
+        cfg: EngineConfig,
+        model_cfg: ModelConfig | None = None,
+        model: Llama | None = None,
+        tokenizer: Tokenizer | None = None,
+    ):
+        """``model``: a ready ``Llama`` on the engine's device (tests and
+        the reference engine share one); otherwise random weights from
+        ``cfg.seed`` are built on the device."""
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.model_cfg = model_cfg or (
+            model.cfg if model is not None else get_config_preset(cfg.model)
+        )
+        impl = cfg.attn_impl or ("plain" if self.device.type == "cpu" else "cuda")
+        if impl not in ("cuda", "plain"):
+            raise ValueError(f"attn_impl={impl!r}: expected 'cuda' or 'plain'")
+        if impl == "cuda" and self.device.type != "cuda":
+            raise ValueError("attn_impl='cuda' needs a CUDA device")
+        self.attn_impl = impl
+        self.tokenizer = tokenizer or ByteTokenizer(self.model_cfg.vocab_size)
+        with torch.inference_mode():
+            self.model = model if model is not None else Llama(
+                self.model_cfg, cfg.dtype, self.device, seed=cfg.seed
+            )
+            self.cache = self.model.make_cache(cfg.num_pages, cfg.page_size)
+        self.alloc = PageAllocator(
+            cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq,
+            prefix_cache=cfg.prefix_cache,
+        )
+        self.sequences: dict[int, Sequence] = {}
+        self._prefilling: dict[int, int] = {}   # seq_id -> prompt tokens done
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 1
+        )
+
+    def impl_info(self) -> dict[str, str]:
+        """The resolved execution modes (served on ``/healthz``)."""
+        return {
+            "attn_impl": self.attn_impl,
+            "device": str(self.device),
+            "dtype": str(self.cfg.dtype).removeprefix("torch."),
+        }
+
+    # -- host <-> device helpers --------------------------------------------
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _sampling_arrays(
+        self, seqs: list[Sequence | None], B: int
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        temps = np.zeros((B,), np.float32)
+        top_k = np.zeros((B,), np.int32)
+        top_p = np.ones((B,), np.float32)
+        for i, s in enumerate(seqs):
+            if s is not None:
+                temps[i] = s.params.temperature
+                top_k[i] = s.params.top_k
+                top_p[i] = s.params.top_p
+        return temps, top_k, top_p
+
+    # -- request lifecycle -------------------------------------------------
+    def add_request(
+        self, prompt_ids: list[int], sampling: SamplingParams | None = None
+    ) -> int:
+        """Admit a request and prefill it whole (mixed steps with no decode
+        lanes), sampling its first token. Returns the sequence id; raises
+        OutOfPages when the page pool is full."""
+        seq_id = self.begin_request(prompt_ids, sampling)
+        while seq_id in self._prefilling:
+            self.step_mixed([], {seq_id: self.cfg.mixed_buckets[-1]})
+        return seq_id
+
+    def begin_request(
+        self, prompt_ids: list[int], sampling: SamplingParams | None = None
+    ) -> int:
+        """Stage 1 of admission: allocate pages, reusing cached prefix pages,
+        and register the sequence as prefilling. No device work: mixed steps
+        then run its prompt in chunks."""
+        sampling = sampling or SamplingParams()
+        n = len(prompt_ids)
+        window = self.model_cfg.max_position
+        if n == 0:
+            raise InvalidRequest("empty prompt")
+        if n >= window:
+            raise InvalidRequest(
+                f"prompt of {n} tokens exceeds the model's "
+                f"{window}-position context window"
+            )
+        if n + sampling.max_tokens > window:
+            from dataclasses import replace
+
+            sampling = replace(sampling, max_tokens=window - n)
+        # Reuse full pages of the prompt minus its last token: at least one
+        # token must run through the model to produce the next logits.
+        prefix_pages = self.alloc.match_prefix(prompt_ids[: n - 1])
+        matched = len(prefix_pages) * self.cfg.page_size
+        seq_id = self.alloc.allocate(n, prefix_pages=prefix_pages)
+        self.sequences[seq_id] = Sequence(
+            seq_id, n, prompt_ids=list(prompt_ids), params=sampling
+        )
+        self._prefilling[seq_id] = matched
+        return seq_id
+
+    def prefill_progress(self, seq_id: int) -> tuple[int, int]:
+        """(prompt tokens already in cache, prompt length)."""
+        return self._prefilling[seq_id], self.sequences[seq_id].prompt_len
+
+    def _drop_admission(self, seq_id: int) -> None:
+        self.sequences.pop(seq_id, None)
+        self._prefilling.pop(seq_id, None)
+        self.alloc.free(seq_id)
+
+    def abort_request(self, seq_id: int) -> None:
+        """Abandon a sequence that is still prefilling."""
+        if seq_id in self._prefilling:
+            self._drop_admission(seq_id)
+
+    def _mixed_bucket(self, n: int) -> int:
+        for b in self.cfg.mixed_buckets:
+            if n <= b:
+                return b
+        return self.cfg.mixed_buckets[-1]
+
+    def _host_written(self, seq: Sequence) -> int:
+        """Tokens in the sequence's pages: the prompt and every accepted
+        token but the last (it is written by the next step)."""
+        return seq.prompt_len + max(0, len(seq.tokens) - 1)
+
+    def _accept_token(self, seq: Sequence, token: int) -> None:
+        seq.tokens.append(token)
+        if token == self.tokenizer.eos_id:
+            seq.done, seq.finish_reason = True, "stop"
+        elif len(seq.tokens) >= seq.params.max_tokens:
+            seq.done, seq.finish_reason = True, "length"
+        elif seq.params.stop and self._hit_stop_string(seq):
+            seq.done, seq.finish_reason = True, "stop"
+
+    def _hit_stop_string(self, seq: Sequence) -> bool:
+        """Check the decoded tail for a stop string (a char may span up to 4
+        byte tokens, so the window is sized in tokens)."""
+        longest = max(len(s) for s in seq.params.stop)
+        tail = self.tokenizer.decode(seq.tokens[-(longest * 4 + 8):])
+        return any(s in tail for s in seq.params.stop)
+
+    # -- mixed prefill + decode step ----------------------------------------
+    def step_mixed(
+        self, decode_ids: list[int], prefill_chunks: dict[int, int]
+    ) -> tuple[dict[int, list[int]], dict[int, bool]]:
+        """ONE forward that advances every given decode lane by a token and
+        runs one prefill chunk for each admitting sequence in
+        ``prefill_chunks`` ({seq_id: chunk tokens}). Chunk rows pad to the
+        smallest mixed bucket holding the largest chunk; decode rows ride at
+        q_len 1.
+
+        Returns ``(decode_out, prefill_out)``: ``decode_out`` maps each
+        advanced decode sequence to its new token; ``prefill_out`` maps each
+        chunk's sequence to True (prompt done, first token sampled) or
+        False (more chunks to go)."""
+        decode = [
+            self.sequences[s] for s in decode_ids
+            if s in self.sequences and not self.sequences[s].done
+        ]
+        B = self.cfg.max_batch_size
+        if len(decode) + len(prefill_chunks) > B:
+            raise ValueError(
+                f"mixed batch of {len(decode)} decode + {len(prefill_chunks)} "
+                f"prefill rows exceeds max_batch_size={B}"
+            )
+        # Book the token each decode row is about to write; a row that
+        # cannot grow finishes as truncated instead of failing the step.
+        grown: list[Sequence] = []
+        for s in decode:
+            try:
+                self.alloc.extend(s.seq_id, 1)
+                grown.append(s)
+            except OutOfPages:
+                s.done, s.finish_reason = True, "length"
+        decode = grown
+        decode_out: dict[int, list[int]] = {}
+        prefill_out: dict[int, bool] = {}
+        if not decode and not prefill_chunks:
+            return decode_out, prefill_out
+        chunks: list[tuple[int, Sequence, int, int]] = []
+        smax = 1
+        for sid, want in prefill_chunks.items():
+            seq, done = self.sequences[sid], self._prefilling[sid]
+            c = min(want, self.cfg.mixed_buckets[-1], seq.prompt_len - done)
+            chunks.append((sid, seq, done, c))
+            smax = max(smax, c)
+        S = self._mixed_bucket(smax)
+        tokens = np.full((B, S), self.tokenizer.pad_id, np.int64)
+        starts = np.zeros((B,), np.int32)
+        qlens = np.zeros((B,), np.int32)
+        tables = np.full((B, self.cfg.max_pages_per_seq), -1, np.int32)
+        for i, s in enumerate(decode):
+            tokens[i, 0] = s.tokens[-1] if s.tokens else self.tokenizer.bos_id
+            # extend(1) made length = written + 1; the row writes at written.
+            starts[i] = self.alloc.length(s.seq_id) - 1
+            qlens[i] = 1
+            tables[i] = self.alloc.page_table_row(s.seq_id)
+        base = len(decode)
+        for j, (sid, seq, done, c) in enumerate(chunks):
+            tokens[base + j, :c] = seq.prompt_ids[done:done + c]
+            starts[base + j] = done
+            qlens[base + j] = c
+            tables[base + j] = self.alloc.page_table_row(sid)
+        slots: list[Sequence | None] = decode + [seq for _, seq, _, _ in chunks]
+        temps, top_k, top_p = self._sampling_arrays(slots, B)
+        try:
+            with torch.inference_mode():
+                logits = self.model.mixed_step(
+                    self._dev(tokens), self._dev(starts), self._dev(qlens),
+                    self.cache, self._dev(tables),
+                    plain=self.attn_impl == "plain",
+                )
+                # Every row samples; rows whose chunk does not finish the
+                # prompt discard their token below.
+                sampled = sample(
+                    logits, self._generator, self._dev(temps),
+                    self._dev(top_k), self._dev(top_p),
+                ).cpu().numpy()
+        except Exception:
+            # Undo the decode rows' bookings (tokens never written) and drop
+            # the chunk admissions before the failure propagates.
+            for s in decode:
+                if not s.done:
+                    self.alloc.truncate(s.seq_id, self.alloc.length(s.seq_id) - 1)
+            for sid, *_ in chunks:
+                self._drop_admission(sid)
+            raise
+        for i, s in enumerate(decode):
+            self._accept_token(s, int(sampled[i]))
+            decode_out[s.seq_id] = [int(sampled[i])]
+        for j, (sid, seq, done, c) in enumerate(chunks):
+            prefill_out[sid] = done + c >= seq.prompt_len
+            if not prefill_out[sid]:
+                self._prefilling[sid] = done + c
+                continue
+            del self._prefilling[sid]
+            self._accept_token(seq, int(sampled[base + j]))
+        return decode_out, prefill_out
+
+    # -- block decode --------------------------------------------------------
+    def step_block(self, seq_ids: list[int] | None = None) -> dict[int, list[int]]:
+        """Advance running sequences by up to ``cfg.decode_block`` tokens in
+        one device-resident loop with one host pull. Returns {seq_id:
+        accepted tokens}."""
+        running = [
+            s for s in self.sequences.values()
+            if not s.done and s.seq_id not in self._prefilling
+        ] if seq_ids is None else [
+            self.sequences[i] for i in seq_ids if not self.sequences[i].done
+        ]
+        B = self.cfg.max_batch_size
+        running = running[:B]
+        tokens = np.zeros((B,), np.int64)
+        write_at = np.zeros((B,), np.int32)
+        budgets = np.zeros((B,), np.int32)
+        lanes: list[Sequence | None] = [None] * B
+        for i, s in enumerate(running):
+            want = min(self.cfg.decode_block, s.params.max_tokens - len(s.tokens))
+            got = self.alloc.extend_upto(s.seq_id, want) if want > 0 else 0
+            if got == 0:
+                s.done, s.finish_reason = True, "length"
+                self.alloc.truncate(s.seq_id, self._host_written(s))
+                continue
+            lanes[i] = s
+            tokens[i] = s.tokens[-1] if s.tokens else self.tokenizer.bos_id
+            write_at[i] = self._host_written(s)
+            budgets[i] = got
+        if not budgets.any():
+            return {}
+        table, _, active = self.alloc.batch_views(
+            [s.seq_id if s is not None else None for s in lanes], B
+        )
+        temps, top_k, top_p = self._sampling_arrays(lanes, B)
+        with torch.inference_mode():
+            toks = decode_block(
+                self.model, self._dev(tokens), self._dev(write_at),
+                self._dev(active), self._dev(budgets), self.cache,
+                self._dev(table), self._generator, self._dev(temps),
+                self._dev(top_k), self._dev(top_p),
+                self.tokenizer.eos_id, self.tokenizer.pad_id,
+                n_steps=int(budgets.max()), greedy=bool(np.all(temps <= 0.0)),
+                plain=self.attn_impl == "plain",
+            ).cpu().numpy()
+        out: dict[int, list[int]] = {}
+        for i, s in enumerate(lanes):
+            if s is None:
+                continue
+            n0 = len(s.tokens)
+            for j in range(int(budgets[i])):
+                self._accept_token(s, int(toks[i, j]))
+                if s.done:
+                    break
+            out[s.seq_id] = s.tokens[n0:]
+            if s.done:
+                # Roll the block's booking back to what was written.
+                self.alloc.truncate(s.seq_id, self._host_written(s))
+        return out
+
+    def finish(self, seq_id: int) -> list[int]:
+        """Release a sequence; returns its generated tokens. Full pages go
+        to the prefix trie keyed by the tokens they hold (the prompt and all
+        generated tokens but the last, which was never written)."""
+        seq = self.sequences.pop(seq_id)
+        self.alloc.free(seq_id, tokens=seq.prompt_ids + seq.tokens[:-1])
+        return seq.tokens
+
+    def generate(
+        self,
+        prompts: list[list[int]],
+        sampling: SamplingParams | None = None,
+    ) -> list[list[int]]:
+        """Synchronous batch generation: admit every prompt, then block
+        decode until all are done."""
+        ids = [self.add_request(p, sampling) for p in prompts]
+        pending = {i for i in ids if not self.sequences[i].done}
+        while pending:
+            self.step_block(sorted(pending))
+            pending = {i for i in pending if not self.sequences[i].done}
+        return [self.finish(i) for i in ids]

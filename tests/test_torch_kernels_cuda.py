@@ -1,0 +1,104 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: these tests skip without a GPU. They import neither JAX nor
+the JAX package, so they run where only the port is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances are the reference's own (opsagent_tpu/ops/attention.py:620):
+1e-5 in f32, 1e-2 in bf16.
+"""
+
+import pytest
+import torch
+
+from opsagent_tpu_torch.ops import paged_attention as pa
+from opsagent_tpu_torch.serving.engine import Engine, EngineConfig
+from opsagent_tpu_torch.serving.sampler import SamplingParams
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _case(gen, B, S, H, K, D, P, starts, q_lens, dtype):
+    owned = [-(-(s + q) // P) for s, q in zip(starts, q_lens)]
+    max_pages = max(owned) + 1
+    N = sum(owned) + 2
+    perm = torch.randperm(N, generator=gen, device="cuda").int()
+    table = torch.full((B, max_pages), -1, dtype=torch.int32, device="cuda")
+    at = 0
+    for b, n in enumerate(owned):
+        table[b, :n] = perm[at:at + n]
+        at += n
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    ints = dict(dtype=torch.int32, device="cuda")
+    return (randn(B, S, H, D), randn(N, P, K, D), randn(N, P, K, D), table,
+            torch.tensor(starts, **ints), torch.tensor(q_lens, **ints))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,D,P", [(4, 2, 16, 4), (8, 2, 32, 8),
+                                     (32, 8, 64, 16), (32, 8, 128, 16)])
+def test_ragged_kernel_matches_plain(gen, dtype, H, K, D, P):
+    q, k, v, table, start, q_lens = _case(
+        gen, 4, 24, H, K, D, P, [0, 37, 5, 300], [24, 1, 0, 17], dtype
+    )
+    before = pa.LAUNCHES["paged_ragged_attention"]
+    got = pa.paged_ragged_attention_cuda(q, k, v, table, start, q_lens)
+    want = pa.paged_ragged_attention_cuda(q, k, v, table, start, q_lens, plain=True)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_ragged_attention"] == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got[2] == 0).all() and (got[1, 1:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,D,P", [(4, 2, 16, 4), (32, 8, 128, 16)])
+def test_decode_kernel_matches_plain(gen, dtype, H, K, D, P):
+    lengths = [1, 0, 33, 700]
+    q, k, v, table, _, _ = _case(
+        gen, 4, 1, H, K, D, P, [max(n - 1, 0) for n in lengths],
+        [1 if n else 0 for n in lengths], dtype,
+    )
+    q = q[:, 0]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = pa.paged_decode_attention_cuda(q, k, v, table, lens)
+    want = pa.paged_decode_attention_cuda(q, k, v, table, lens, plain=True)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got[1] == 0).all()
+
+
+def test_wrapper_raises_on_what_the_kernel_does_not_take(gen):
+    q, k, v, table, start, q_lens = _case(
+        gen, 2, 4, 4, 2, 16, 4, [0, 3], [4, 1], torch.float32
+    )
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_ragged_attention_cuda(q, k, v, table.long(), start, q_lens)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_ragged_attention_cuda(
+            q[..., :8].contiguous(), k[..., :8].contiguous(),
+            v[..., :8].contiguous(), table, start, q_lens,
+        )
+
+
+def test_engine_kernel_path_matches_plain_path(gen):
+    prompts = [[257] + list(range(10, 50)), [257, 5, 6, 7]]
+    outs = []
+    for impl in ("cuda", "plain"):
+        eng = Engine(EngineConfig(model="tiny-test", dtype=torch.float32,
+                                  page_size=4, num_pages=64, decode_block=4,
+                                  attn_impl=impl))
+        outs.append(eng.generate(prompts, SamplingParams(max_tokens=12)))
+    assert outs[0] == outs[1]
