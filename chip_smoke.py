@@ -6,19 +6,27 @@
 Phases, each printing one JSON line with its seconds:
 
 1. device: requires CUDA; reads the card's name and power limit.
-2. build: compiles the paged-attention kernels from ``opsagent_tpu_torch/csrc``.
+2. build: compiles every kernel source in ``opsagent_tpu_torch/csrc``, one
+   ``nvcc`` per source, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card, in
-   bf16 and f32, at the widths of bench-8b (Llama-3-8B), bench-1b and
-   tiny-test; errors, times, and the bound for the main path's shapes.
+   bf16 and f32. Paged attention over bf16/f32 pages and over int8 pages at
+   the widths of bench-8b (Llama-3-8B), bench-1b and tiny-test; then (the
+   ``matmul`` line) the quantized matmul, int8 and int4 with one whole-axis
+   group and with groups of 128, at every bench-8b projection shape with
+   T in {1, 8, 1024}, at a ragged In and at tiny-test widths. Errors,
+   times, and the bound for the main path's shapes.
 4. e2e: bench-8b widths cut to 2 layers, f32: ``Engine.generate`` through the
    kernels gives exactly the greedy tokens of the same engine through the
-   plain versions, with a prefix-cache hit.
-5. serve: bench-8b at full depth, bf16, random weights from ``--seed``,
-   behind the HTTP server; four concurrent chat completions. The kernels'
-   launch counts of this run are checked and reported. With ``--profile``
-   the run is traced with ``torch.profiler`` and a ``profile`` line gives
-   device time by kernel group (the trace slows the run: its tokens/s and
-   TTFT are not the untraced ones).
+   plain versions, with a prefix-cache hit: unquantized, with (int8
+   weights, int8 KV) and with (int4 weights, int8 KV).
+5. serve: bench-8b at full depth, bf16 activations, random weights from
+   ``--seed``, behind the HTTP server; four concurrent chat completions,
+   once unquantized, once with int8 weights and int8 KV, once with int4
+   weights and int8 KV. The kernels' launch counts of each run are checked
+   and reported. With ``--profile`` each run is traced with
+   ``torch.profiler`` and a ``profile`` line gives device time by kernel
+   group (the trace slows the run: its tokens/s and TTFT are not the
+   untraced ones).
 
 Then, on lines of their own: the card's name and power limit as nvidia-smi
 prints them, the ``{"kernels": [...]}`` table, and last
@@ -29,6 +37,7 @@ those lines.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -46,8 +55,11 @@ import torch.nn.functional as F
 
 from opsagent_tpu_torch.models.config import BENCH_8B, get_config_preset
 from opsagent_tpu_torch.models.llama import Llama
+from opsagent_tpu_torch.models.quant import quantize_weight, quantize_weight4
+from opsagent_tpu_torch.ops import cuda_build
 from opsagent_tpu_torch.ops import paged_attention as pa
-from opsagent_tpu_torch.ops.attention import _gather_kv
+from opsagent_tpu_torch.ops import quant_matmul as qm
+from opsagent_tpu_torch.ops.attention import QuantizedPages, _gather_kv, write_kv_pages
 from opsagent_tpu_torch.serving.api import ServingStack, make_server
 from opsagent_tpu_torch.serving.engine import Engine, EngineConfig
 from opsagent_tpu_torch.serving.sampler import SamplingParams
@@ -55,11 +67,21 @@ from opsagent_tpu_torch.serving.sampler import SamplingParams
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-SOURCE = "opsagent_tpu_torch/csrc/paged_attention.cu"
-REPLACES = {
-    "paged_ragged_attention": "opsagent_tpu/ops/paged_attention_pallas.py:830",
-    "paged_decode_attention": "opsagent_tpu/ops/paged_attention_pallas.py:310",
+# Quantized matmul, as allclose(rtol=atol=tol) over outputs of unit scale:
+# the JAX test's own 1e-3 in f32; 1e-2 in bf16, where one ulp of the bf16
+# output is up to 2^-7 relative.
+MM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
+PAGED = "opsagent_tpu/ops/paged_attention_pallas.py"
+KERNELS = {  # name: (source in csrc/, the TPU kernel it replaces)
+    "paged_ragged_attention": ("paged_attention.cu", f"{PAGED}:830"),
+    "paged_decode_attention": ("paged_attention.cu", f"{PAGED}:310"),
+    # The QuantizedPages branches of the same two kernels.
+    "paged_ragged_attention_int8": ("paged_attention.cu", f"{PAGED}:895"),
+    "paged_decode_attention_int8": ("paged_attention.cu", f"{PAGED}:373"),
+    "quant_matmul_int8": ("quant_matmul.cu", "opsagent_tpu/ops/quant_matmul_pallas.py:51"),
+    "quant_matmul_int4": ("quant_matmul.cu", "opsagent_tpu/ops/quant_matmul_pallas.py:117"),
 }
+SERVES = (("", ""), ("int8", "int8"), ("int4", "int8"))  # (quantize, kv_quantize)
 
 
 class CheckFailed(RuntimeError):
@@ -77,20 +99,41 @@ def emit(obj: dict) -> None:
 
 def time_ms(fn, iters: int = 20) -> float:
     """Mean device time of one call, by CUDA events over ``iters`` calls
-    after a warm-up call."""
-    fn()
+    after a warm-up call. ``fn`` takes the call's index."""
+    fn(0)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(i)
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
 
 
-# -- phase 3: kernels against their plain versions ---------------------------
+def reset_launch_counts() -> None:
+    pa.reset_launch_counts()
+    qm.reset_launch_counts()
+
+
+def launch_counts() -> dict[str, int]:
+    return {**pa.LAUNCHES, **qm.LAUNCHES}
+
+
+# -- phase 2: build ---------------------------------------------------------------
+def phase_build() -> dict:
+    """One nvcc per source, all started together; ptxas's reports go to
+    stderr."""
+    sources = sorted({src for src, _ in KERNELS.values()})
+    with ThreadPoolExecutor(len(sources)) as ex:
+        built = list(ex.map(lambda s: cuda_build.build(s, verbose=True), sources))
+    for _, log in built:
+        print(log, file=sys.stderr)
+    return {"libraries": [lib.name for lib, _ in built]}
+
+
+# -- phase 3: attention kernels against their plain versions -------------------
 def make_case(gen, B, S, H, K, D, P, starts, q_lens, dtype):
     """Random paged inputs: each row owns cdiv(start + q_len, P) pages in
     random order, then two -1 slots past its pages."""
@@ -116,17 +159,34 @@ def make_case(gen, B, S, H, K, D, P, starts, q_lens, dtype):
     )
 
 
+def quantize_case(c):
+    """The case with int8 pages: each row's visible K/V rows, read out of
+    its pages, written through the plain quantized write path."""
+    k, v, table = c["k"], c["v"], c["table"]
+    N, P, K, D = k.shape
+    ctx = (c["start"] + c["q_lens"]).int()
+    slot = torch.arange(max(int(ctx.max()), 1), device="cuda")
+    page = table.long().clamp(min=0)[:, (slot // P).clamp(max=table.shape[1] - 1)]
+    qk, qv = (QuantizedPages(torch.zeros(N, P, K, D, dtype=torch.int8, device="cuda"),
+                             torch.ones(N, P, K, device="cuda")) for _ in range(2))
+    write_kv_pages(qk, qv, k[page, slot % P], v[page, slot % P], table,
+                   torch.zeros_like(ctx), valid_len=ctx)
+    return {**c, "k": qk, "v": qv}
+
+
 def attention_bound_ms(c, int_arrays: int) -> tuple[float, str]:
     """Least time for this input (ragged ``[B, S, H, D]`` or decode
     ``[B, H, D]`` q). Bytes, each once: the K/V rows each sequence can see,
     the table entries of the pages that hold them, the valid query rows
     (a padding row's output is zeros whatever q holds there), the
     ``int_arrays`` int32 ``[B]`` inputs the kernel reads, and the whole
-    output written. Operations: 4 * D per (query head, valid query row,
+    output written. An int8 K or V row costs D + 4 bytes (its codes and
+    its f32 scale). Operations: 4 * D per (query head, valid query row,
     position it sees)."""
     q, k = c["q"], c["k"]
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     P, K = k.shape[1], k.shape[2]
+    row_bytes = D + 4 if isinstance(k, QuantizedPages) else D * k.element_size()
     cap = c["table"].shape[1] * P
     rows = list(zip(c["start"].tolist(), c["q_lens"].tolist()))
     visible = [min(s + n, cap) if n > 0 else 0 for s, n in rows]
@@ -134,7 +194,7 @@ def attention_bound_ms(c, int_arrays: int) -> tuple[float, str]:
     nbytes = (
         sum(n for _, n in rows) * H * D * elt
         + q.numel() * elt
-        + 2 * sum(visible) * K * D * k.element_size()
+        + 2 * sum(visible) * K * row_bytes
         + sum(math.ceil(v / P) for v in visible) * 4
         + int_arrays * B * 4
     )
@@ -146,11 +206,12 @@ def attention_bound_ms(c, int_arrays: int) -> tuple[float, str]:
 
 def ragged_sdpa(c):
     """The PyTorch yardstick: scaled_dot_product_attention over K/V that
-    are already gathered and expanded to the query heads, with the ragged
-    causal mask (fully masked rows come out NaN: timing only)."""
+    are already gathered (int8 pages: dequantized to q's dtype) and
+    expanded to the query heads, with the ragged causal mask (fully masked
+    rows come out NaN: timing only)."""
     q = c["q"]
     B, S, H, D = q.shape
-    k_seq, v_seq = _gather_kv(c["k"], c["v"], c["table"], None)
+    k_seq, v_seq = _gather_kv(c["k"], c["v"], c["table"], None, q.dtype)
     G = H // k_seq.shape[2]
     kh = k_seq.transpose(1, 2).repeat_interleave(G, dim=1)
     vh = v_seq.transpose(1, 2).repeat_interleave(G, dim=1)
@@ -164,7 +225,7 @@ def ragged_sdpa(c):
 
 
 def run_kernel_case(name, c, dtype, timed):
-    if name == "paged_ragged_attention":
+    if name.startswith("paged_ragged_attention"):
         args = (c["q"], c["k"], c["v"], c["table"], c["start"], c["q_lens"])
         fn = pa.paged_ragged_attention_cuda
     else:
@@ -178,9 +239,10 @@ def run_kernel_case(name, c, dtype, timed):
           f"{name} {tuple(c['q'].shape)} {dtype}: max err {err} > {TOL[dtype]}")
     out = {"max_abs_err": err}
     if timed:
-        out["ms"] = time_ms(lambda: fn(*args))
-        out["plain_ms"] = time_ms(lambda: fn(*args, plain=True), iters=3)
-        out["library_ms"] = time_ms(c["sdpa"])
+        sdpa = c["sdpa"]
+        out["ms"] = time_ms(lambda i: fn(*args))
+        out["plain_ms"] = time_ms(lambda i: fn(*args, plain=True), iters=3)
+        out["library_ms"] = time_ms(lambda i: sdpa())
         out["bound_ms"], out["bound_by"] = c["bound"]
     return out
 
@@ -214,6 +276,21 @@ def phase_kernels(seed: int) -> dict:
     ]
     results: dict[str, dict] = {}
     cases = []
+
+    def attend(name, c, dtype, timed, int_arrays, **where):
+        """The case through the kernel, then, with its pages quantized,
+        through the int8 instance; times the main path's shapes."""
+        for suffix, case in (("", c), ("_int8", quantize_case(c))):
+            if timed:
+                q = case["q"] if case["q"].ndim == 4 else case["q"][:, None]
+                case["bound"] = attention_bound_ms(case, int_arrays)
+                case["sdpa"] = ragged_sdpa({**case, "q": q})
+            r = run_kernel_case(name + suffix, case, dtype, timed)
+            cases.append(dict(kernel=name + suffix, **where, dtype=str(dtype)[6:],
+                              err=r["max_abs_err"], tol=TOL[dtype]))
+            if timed:
+                results[name + suffix] = r
+
     for dtype in (torch.bfloat16, torch.float32):
         for wname, H, K, D, P in widths:
             main = wname == "bench-8b" and dtype == torch.bfloat16
@@ -221,62 +298,141 @@ def phase_kernels(seed: int) -> dict:
                 if wname != "bench-8b" and S != 16:
                     continue
                 c = make_case(gen, 8, S, H, K, D, P, starts, lens, dtype)
-                timed = main and S == 128   # the main path's prefill chunk shape
-                if timed:
-                    c["bound"] = attention_bound_ms(c, int_arrays=2)  # start, q_lens
-                    c["sdpa"] = ragged_sdpa(c)
-                r = run_kernel_case("paged_ragged_attention", c, dtype, timed)
-                cases.append(dict(kernel="ragged", width=wname, S=S,
-                                  dtype=str(dtype)[6:], err=r["max_abs_err"],
-                                  tol=TOL[dtype]))
-                if timed:
-                    results["paged_ragged_attention"] = r
+                # S = 128 is the main path's prefill chunk shape; the
+                # kernel reads start and q_lens.
+                attend("paged_ragged_attention", c, dtype, main and S == 128, 2,
+                       width=wname, S=S)
                 del c
             c = decode_case(gen, 8, H, K, D, P, decode_lengths, dtype)
-            if main:
-                c["bound"] = attention_bound_ms(c, int_arrays=1)  # lengths
-                c["sdpa"] = ragged_sdpa({**c, "q": c["q"][:, None]})
-            r = run_kernel_case("paged_decode_attention", c, dtype, main)
-            cases.append(dict(kernel="decode", width=wname, dtype=str(dtype)[6:],
-                              err=r["max_abs_err"], tol=TOL[dtype]))
-            if main:
-                results["paged_decode_attention"] = r
+            attend("paged_decode_attention", c, dtype, main, 1, width=wname)  # lengths
             del c
     emit({"phase": "kernels_cases", "cases": cases})
+    return results
+
+
+# -- phase 3: the quantized matmul against its plain version -------------------
+MM_SHAPES = {  # bench-8b's projections: (In, Out)
+    "wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "wg/wu": (4096, 14336),
+    "wd": (14336, 4096), "lm_head": (4096, 128256),
+}
+MM_EXTRA = {"ragged In": (300, 520), "tiny wq": (64, 64), "tiny wg": (64, 128),
+            "tiny wd": (128, 64), "tiny lm_head": (64, 512)}
+MM_MODES = (("int8", 8, 0), ("int4 G=1", 4, 0), ("int4 g128", 4, 128))
+
+
+def quantized_weight(gen, In, Out, bits, group):
+    w = torch.randn(In, Out, generator=gen, device="cuda")
+    return quantize_weight(w) if bits == 8 else quantize_weight4(w, group=group)
+
+
+def matmul_bound_ms(x, w) -> tuple[float, str]:
+    """Bytes, each once: the codes, the scales, x and y. Operations:
+    2 * T * In * Out."""
+    T, In = x.shape
+    Out = w.shape[1]
+    nbytes = (w.q.numel() + w.scale.numel() * 4
+              + (T * In + T * Out) * x.element_size())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * T * In * Out / PEAK_OPS[x.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_matmul(gen, w, x, bits, group) -> dict:
+    """Kernel, plain version, and cuBLAS over the weight already
+    dequantized to x's dtype. The kernel cycles over copies of the weight
+    that together pass 100 MB, twice the L2, since serving finds each
+    weight cold."""
+    In, Out = w.shape
+    extra = min(3, math.ceil(100e6 / w.q.numel()) - 1)
+    copies = [w] + [quantized_weight(gen, In, Out, bits, group) for _ in range(extra)]
+    w_x = w.dequantize().to(x.dtype)
+    out = {"T": x.shape[0], "In": In, "Out": Out}
+    out["ms"] = time_ms(lambda i: qm.quant_matmul_cuda(x, copies[i % len(copies)]))
+    out["plain_ms"] = time_ms(lambda i: qm.quant_matmul_cuda(x, w, plain=True), iters=3)
+    out["library_ms"] = time_ms(lambda i: x @ w_x)
+    out["bound_ms"], out["bound_by"] = matmul_bound_ms(x, w)
+    return out
+
+
+def phase_matmul(seed: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    results: dict[str, dict] = {}
+    cases = []
+    for label, (In, Out) in {**MM_SHAPES, **MM_EXTRA}.items():
+        tiny = label in MM_EXTRA
+        for mode, bits, group in MM_MODES:
+            w = quantized_weight(gen, In, Out, bits, group)
+            name = f"quant_matmul_int{bits}"
+            # Inputs scaled so that the outputs have unit scale.
+            col = w.dequantize().norm(dim=0).mean().item()
+            for dtype in (torch.bfloat16, torch.float32):
+                for T in ((1, 8, 96) if tiny else (1, 8, 1024)):
+                    x = (torch.randn(T, In, generator=gen, device="cuda") / col).to(dtype)
+                    got = qm.quant_matmul_cuda(x, w)
+                    want = qm.quant_matmul_cuda(x, w, plain=True)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs()
+                    tol = MM_TOL[dtype]
+                    ok = bool((err <= tol + tol * want.float().abs()).all())
+                    check(ok and got.dtype == dtype,
+                          f"{name} {mode} T={T} [{In}, {Out}] {dtype}: "
+                          f"max err {err.max().item()} beyond rtol=atol={tol}")
+                    cases.append(dict(kernel=name, mode=mode, shape=label, T=T,
+                                      dtype=str(dtype)[6:],
+                                      err=err.max().item(), tol=tol))
+                    # The main path's rows: wg at a decode step (T = 8) and
+                    # at a full mixed tick (T = 1024), bf16, with the serve
+                    # phase's weights (int4: one whole-axis group).
+                    if (label == "wg/wu" and dtype == torch.bfloat16 and T in (8, 1024)
+                            and mode != "int4 g128"):
+                        r = time_matmul(gen, w, x, bits, group)
+                        r["max_abs_err"] = err.max().item()
+                        results[f"{name}_T{T}"] = r
+                    del x, got, want, err
+            del w
+    emit({"phase": "matmul_cases", "cases": cases})
     return results
 
 
 # -- phase 4: end-to-end equality through kernels and plain versions -----------
 def phase_e2e(seed: int) -> dict:
     cfg = replace(BENCH_8B, name="bench-8b-2l", num_layers=2)
-    model = Llama(cfg, torch.float32, "cuda", seed=seed)
     gen = torch.Generator().manual_seed(seed)
     p0 = [257] + torch.randint(0, 256, (299,), generator=gen).tolist()
     p1 = [257] + torch.randint(0, 256, (199,), generator=gen).tolist()
     p2 = p0[:100] + torch.randint(0, 256, (60,), generator=gen).tolist()
     greedy = SamplingParams(max_tokens=16)
-    out = {}
-    for impl in ("cuda", "plain"):
-        eng = Engine(
-            EngineConfig(model=cfg.name, dtype=torch.float32, device="cuda",
-                         attn_impl=impl, seed=seed, num_pages=256),
-            model_cfg=cfg, model=model,
-        )
-        # p2 is admitted after p0 finished and donated its pages: a hit.
-        toks = eng.generate([p0, p1], greedy) + eng.generate([p2], greedy)
-        out[impl] = (toks, eng.alloc.hit_tokens)
-        del eng
-    (tk, hk), (tp, hp) = out["cuda"], out["plain"]
-    check(all(len(t) == 16 for t in tk), f"kernel path lengths {[len(t) for t in tk]}")
-    check(tk == tp, f"kernel-path tokens {tk} != plain-path tokens {tp}")
-    check(hk > 0 and hp == hk, f"prefix hits {hk} / {hp}")
-    return {"tokens_equal": True, "prefix_hit_tokens": hk, "tokens": tk}
+    report = {}
+    for quantize, kv_quantize in SERVES:
+        model = Llama(cfg, torch.float32, "cuda", seed=seed, quantize=quantize)
+        out = {}
+        for impl in ("cuda", "plain"):
+            eng = Engine(
+                EngineConfig(model=cfg.name, dtype=torch.float32, device="cuda",
+                             attn_impl=impl, seed=seed, num_pages=256,
+                             quantize=quantize, kv_quantize=kv_quantize),
+                model_cfg=cfg, model=model,
+            )
+            # p2 is admitted after p0 finished and donated its pages: a hit.
+            toks = eng.generate([p0, p1], greedy) + eng.generate([p2], greedy)
+            out[impl] = (toks, eng.alloc.hit_tokens)
+            del eng
+        del model
+        torch.cuda.empty_cache()
+        label = f"weights {quantize or 'f32'}, kv {kv_quantize or 'f32'}"
+        (tk, hk), (tp, hp) = out["cuda"], out["plain"]
+        check(all(len(t) == 16 for t in tk), f"{label}: kernel path lengths {[len(t) for t in tk]}")
+        check(tk == tp, f"{label}: kernel-path tokens {tk} != plain-path tokens {tp}")
+        check(hk > 0 and hp == hk, f"{label}: prefix hits {hk} / {hp}")
+        report[label] = {"tokens_equal": True, "prefix_hit_tokens": hk, "tokens": tk}
+    return report
 
 
 # -- phase 5: serving at full width -------------------------------------------
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names)
     ("paged_ragged_attention", ("ragged_kernel",)),
     ("paged_decode_attention", ("decode_kernel",)),
+    ("quant_matmul", ("qmm_",)),
     ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")),
 )
 
@@ -295,9 +451,21 @@ def device_time_by_group(prof) -> dict:
     return out
 
 
-def phase_serve(seed: int, smi: str, profile: bool = False) -> dict:
+def expected_kernels(quantize: str, kv_quantize: str) -> set[str]:
+    """The kernels a serve run of this configuration must launch; it must
+    launch no other."""
+    suffix = "_int8" if kv_quantize else ""
+    names = {f"paged_ragged_attention{suffix}", f"paged_decode_attention{suffix}"}
+    if quantize:
+        names.add(f"quant_matmul_{quantize}")
+    return names
+
+
+def phase_serve(seed: int, smi: str, profile: bool = False,
+                quantize: str = "", kv_quantize: str = "") -> dict:
     engine = Engine(EngineConfig(model="bench-8b", dtype=torch.bfloat16,
-                                 device="cuda", seed=seed))
+                                 device="cuda", seed=seed, quantize=quantize,
+                                 kv_quantize=kv_quantize))
     cfg = get_config_preset("bench-8b")
     stack = ServingStack(engine)
     server = make_server(stack, "127.0.0.1", 0)
@@ -329,7 +497,7 @@ def phase_serve(seed: int, smi: str, profile: bool = False) -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        pa.reset_launch_counts()
+        reset_launch_counts()
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA,
@@ -340,7 +508,8 @@ def phase_serve(seed: int, smi: str, profile: bool = False) -> dict:
                 replies = list(ex.map(post, bodies))
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(pa.LAUNCHES)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
     finally:
         server.shutdown()
         server.server_close()
@@ -358,23 +527,33 @@ def phase_serve(seed: int, smi: str, profile: bool = False) -> dict:
         check(u["completion_tokens"] >= 1
               and u["total_tokens"] == u["prompt_tokens"] + u["completion_tokens"],
               f"usage {u}")
+    # One attention launch per layer per forward; quantized weights add one
+    # matmul per projection (7 per layer) and one for the lm_head.
+    expected = expected_kernels(quantize, kv_quantize)
     for name, n in launches.items():
-        check(n > 0 and n % cfg.num_layers == 0,
-              f"{name} launched {n} times, not a positive multiple of {cfg.num_layers}")
+        if name not in expected:
+            check(n == 0, f"{name} launched {n} times in a run that must not use it")
+            continue
+        every = 7 * cfg.num_layers + 1 if name.startswith("quant_matmul") else cfg.num_layers
+        check(n > 0 and n % every == 0,
+              f"{name} launched {n} times, not a positive multiple of {every}")
     completion = sum(r["usage"]["completion_tokens"] for _, r in replies)
     if profile:
         groups = device_time_by_group(prof)
-        emit({"phase": "profile", "card": smi, "wall_ms": wall * 1e3,
-              "device_ms": groups, "device_busy_share":
-              sum(groups.values()) / (wall * 1e3)})
+        emit({"phase": "profile", "quantize": quantize or "none",
+              "kv_quantize": kv_quantize or "none", "card": smi,
+              "wall_ms": wall * 1e3, "device_ms": groups,
+              "device_busy_share": sum(groups.values()) / (wall * 1e3)})
     return {
+        "quantize": quantize or "none",
+        "kv_quantize": kv_quantize or "none",
         "card": smi,
         "prompt_tokens": [r["usage"]["prompt_tokens"] for _, r in replies],
         "completion_tokens": completion,
         "wall_s": wall,
         "completion_tok_per_s": completion / wall,
         "ttft_p50_s": statistics.median(r["ttft_s"] for _, r in replies),
-        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated_bytes": peak,
         "launches": launches,
     }
 
@@ -383,7 +562,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve phase and report device time by kernel group")
+                    help="trace the serve phases and report device time by kernel group")
     args = ap.parse_args()
 
     t = time.perf_counter()
@@ -403,9 +582,8 @@ def main() -> int:
           "capability": list(torch.cuda.get_device_capability(0))})
 
     t = time.perf_counter()
-    lib, log = pa.build(verbose=True)
-    print(log, file=sys.stderr)
-    emit({"phase": "build", "seconds": time.perf_counter() - t, "library": lib.name})
+    built = phase_build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t, **built})
 
     t = time.perf_counter()
     kernels = phase_kernels(args.seed)
@@ -413,19 +591,38 @@ def main() -> int:
           **kernels})
 
     t = time.perf_counter()
-    e2e = phase_e2e(args.seed)
+    matmuls = phase_matmul(args.seed)
     torch.cuda.empty_cache()
-    emit({"phase": "e2e", "seconds": time.perf_counter() - t, **e2e})
+    emit({"phase": "matmul", "seconds": time.perf_counter() - t, "card": smi,
+          **matmuls})
 
     t = time.perf_counter()
-    serve = phase_serve(args.seed, smi, args.profile)
-    emit({"phase": "serve", "seconds": time.perf_counter() - t, **serve})
+    e2e = phase_e2e(args.seed)
+    emit({"phase": "e2e", "seconds": time.perf_counter() - t, **e2e})
 
+    launches = {name: 0 for name in KERNELS}
+    for quantize, kv_quantize in SERVES:
+        t = time.perf_counter()
+        serve = phase_serve(args.seed, smi, args.profile, quantize, kv_quantize)
+        # The server's handler class holds the engine in a reference
+        # cycle: collect it before the next configuration measures its
+        # peak memory.
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "serve", "seconds": time.perf_counter() - t, **serve})
+        for name in expected_kernels(quantize, kv_quantize):
+            launches[name] += serve["launches"][name]
+
+    # A matmul's row is its decode-step shape (T = 8); the matmul phase
+    # line also gives the mixed-tick shape (T = 1024).
+    timed = {**kernels, **{name: matmuls[f"{name}_T8"] for name in qm.LAUNCHES}}
     rows = []
-    for name, r in kernels.items():
+    for name, (source, replaces) in KERNELS.items():
+        r = timed[name]
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": serve["launches"][name],
+            "name": name, "route": "cuda",
+            "source": f"opsagent_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -23,11 +23,22 @@ def main(argv: list[str] | None = None) -> int:
     se.add_argument("--port", type=int, default=8000)
     se.add_argument("--device", default=None, help="cuda (default) or cpu")
     se.add_argument("--seed", type=int, default=0, help="random-weight seed")
+    se.add_argument(
+        "--quantize", default="", choices=("", "int8", "int4"),
+        help="weight-only quantization: int8 halves the weight bytes each "
+             "step streams, int4 (group-wise scales) halves them again",
+    )
+    se.add_argument(
+        "--kv-quantize", default="", choices=("", "int8"),
+        help="KV-cache quantization: int8 pages + per-token scales, about "
+             "half the KV bytes of bf16",
+    )
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
     engine = Engine(EngineConfig(
-        model=args.model_name, device=args.device, seed=args.seed
+        model=args.model_name, device=args.device, seed=args.seed,
+        quantize=args.quantize, kv_quantize=args.kv_quantize,
     ))
     stack = ServingStack(engine)
     server = make_server(stack, args.host, args.port)

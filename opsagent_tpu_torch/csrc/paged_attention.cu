@@ -11,7 +11,9 @@
 //       `lengths[b]` cached tokens. One launch per layer per decode step.
 //
 // Contract (identical to the TPU kernels and to the plain PyTorch versions
-// in opsagent_tpu_torch/ops/attention.py): pages [N, P, K, D] contiguous;
+// in opsagent_tpu_torch/ops/attention.py): pages [N, P, K, D] contiguous,
+// in q's dtype, or int8 with f32 scale planes [N, P, K] (the TPU kernels'
+// QuantizedPages branch: one scale per token and kv head);
 // page_table [B, MaxP] int32 with -1 = unassigned (read as page 0); query
 // s of row b sees cache positions t <= start[b] + s and t < start[b] +
 // q_lens[b], clamped to MaxP * P. Softmax is online in f32, q is cast to
@@ -31,10 +33,18 @@
 // their running max, sum and [D] accumulator in registers: lane j scores
 // position j against the row's query, the warp reduces max and sum with
 // shuffles, and every lane then accumulates its D/32 output dims over the
-// 32 positions.
+// 32 positions. int8 pages are dequantized as they are gathered: code *
+// scale of that token and kv head in f32, rounded to q's dtype, which is
+// how the plain version (and the JAX package's gather reader) dequantizes
+// them. The TPU kernel instead scales in score space, s = (q . k_int8) *
+// k_scale and acc += (p * v_scale) . v_int8, all in f32: the same numbers
+// in f32, and in bf16 they differ by the rounding of K and V to bf16,
+// which moves a bf16 output by an ulp (0.0156 at |out| >= 2) where the
+// kernel and the plain version must agree to 1e-2.
 //
 // What bounds it on the H100: reading the K/V rows, 2 * K * D * bytes per
-// cached position per sequence, at 3.35 TB/s. Decode is that and nothing
+// cached position per sequence (2 * K * (D + 4) with int8 pages), at
+// 3.35 TB/s. Decode is that and nothing
 // else. A long prefill chunk also does 4 * D f32 operations per (query
 // head, visible position), which at 64 query rows per tile is far below
 // the tensor cores' rate.
@@ -55,6 +65,7 @@
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -68,6 +79,12 @@ constexpr int kDecodeRowsPerWarp = 1;      // G query heads per decode block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+// x rounded to T and read back as f32.
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
@@ -101,16 +118,21 @@ constexpr int smem_bytes() {
 
 // One block: sequence rows `q` [S, H, D] (this sequence only), kv head `kh`,
 // query rows [tile * R, tile * R + R) of the (s, g) enumeration r = s * G + g.
-template <typename T, int D, int RPW>
+// Pages hold PT: T itself, or int8 with scale planes k_scale / v_scale.
+template <typename T, typename PT, int D, int RPW>
 __device__ __forceinline__ void attend_tile(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ table_row,
+    const T* __restrict__ q, const PT* __restrict__ k_pages,
+    const PT* __restrict__ v_pages, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ table_row,
     T* __restrict__ out, int S, int H, int K, int P, int max_pages, int kh,
     int tile, int start, int qlen, float scale) {
+  constexpr bool kInt8 = std::is_same_v<PT, int8_t>;
   constexpr int R = kWarps * RPW;
   constexpr int DPL = (D + kWarp - 1) / kWarp;   // output dims per lane
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;                   // 16-byte vectors per row
+  constexpr int VPR = D / VEC;                   // 16-byte vectors per q row
+  constexpr int PVEC = 16 / sizeof(PT);
+  constexpr int PVPR = D / PVEC;                 // 16-byte vectors per page row
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + R * D;
@@ -156,21 +178,29 @@ __device__ __forceinline__ void attend_tile(
 
   for (int c0 = 0; c0 < tile_limit; c0 += kChunk) {
     __syncthreads();  // q tile written / previous chunk consumed
-    for (int i = tid; i < kChunk * VPR; i += kThreads) {
-      const int j = i / VPR, c = (i % VPR) * VEC;
+    for (int i = tid; i < kChunk * PVPR; i += kThreads) {
+      const int j = i / PVPR, c = (i % PVPR) * PVEC;
       const int t = c0 + j;
-      float kv[VEC], vv[VEC];
+      float kv[PVEC], vv[PVEC];
       if (t < tile_limit) {
         const int page = max(table_row[t / P], 0);
-        const size_t off = ((static_cast<size_t>(page) * P + t % P) * K + kh) * D + c;
-        load_vec<T, VEC>(k_pages + off, kv);
-        load_vec<T, VEC>(v_pages + off, vv);
+        const size_t row = (static_cast<size_t>(page) * P + t % P) * K + kh;
+        load_vec<PT, PVEC>(k_pages + row * D + c, kv);
+        load_vec<PT, PVEC>(v_pages + row * D + c, vv);
+        if constexpr (kInt8) {
+          const float ks = __ldg(k_scale + row), vs = __ldg(v_scale + row);
+#pragma unroll
+          for (int e = 0; e < PVEC; ++e) {
+            kv[e] = round_as(kv[e] * ks, q);
+            vv[e] = round_as(vv[e] * vs, q);
+          }
+        }
       } else {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) kv[e] = vv[e] = 0.f;
+        for (int e = 0; e < PVEC; ++e) kv[e] = vv[e] = 0.f;
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < PVEC; ++e) {
         k_s[j * (D + 1) + c + e] = kv[e];
         v_s[j * D + c + e] = vv[e];
       }
@@ -220,31 +250,33 @@ __device__ __forceinline__ void attend_tile(
   }
 }
 
-template <typename T, int D, int RPW>
+template <typename T, typename PT, int D, int RPW>
 __global__ void __launch_bounds__(kThreads) ragged_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ table,
+    const T* __restrict__ q, const PT* __restrict__ k_pages,
+    const PT* __restrict__ v_pages, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ table,
     const int* __restrict__ start, const int* __restrict__ q_lens,
     T* __restrict__ out, int S, int H, int K, int P, int max_pages, float scale) {
   const int b = blockIdx.z;
   const size_t seq = static_cast<size_t>(b) * S * H * D;
-  attend_tile<T, D, RPW>(q + seq, k_pages, v_pages,
+  attend_tile<T, PT, D, RPW>(q + seq, k_pages, v_pages, k_scale, v_scale,
                          table + static_cast<size_t>(b) * max_pages, out + seq,
                          S, H, K, P, max_pages, blockIdx.y, blockIdx.x,
                          start[b], q_lens[b], scale);
 }
 
-template <typename T, int D, int RPW>
+template <typename T, typename PT, int D, int RPW>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ table,
+    const T* __restrict__ q, const PT* __restrict__ k_pages,
+    const PT* __restrict__ v_pages, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ table,
     const int* __restrict__ lengths, T* __restrict__ out, int H, int K, int P,
     int max_pages, float scale) {
   const int b = blockIdx.z;
   const int len = lengths[b];
   const size_t seq = static_cast<size_t>(b) * H * D;
   // One query at position len - 1: it sees t < len.
-  attend_tile<T, D, RPW>(q + seq, k_pages, v_pages,
+  attend_tile<T, PT, D, RPW>(q + seq, k_pages, v_pages, k_scale, v_scale,
                          table + static_cast<size_t>(b) * max_pages, out + seq,
                          1, H, K, P, max_pages, blockIdx.y, blockIdx.x,
                          max(len - 1, 0), len > 0 ? 1 : 0, scale);
@@ -256,102 +288,118 @@ cudaError_t prepare(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, int D>
-cudaError_t launch_ragged(const void* q, const void* k, const void* v,
-                          const int* table, const int* start, const int* q_lens,
-                          void* out, int B, int S, int H, int K, int P,
-                          int max_pages, float scale, cudaStream_t stream) {
+// The arguments every launch shares: pages and scale planes (null unless
+// the pages are int8), page table, output and shapes.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* k_scale;
+  const float* v_scale;
+  const int* table;
+  void* out;
+  int B, H, K, P, max_pages;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename PT, int D>
+cudaError_t launch_ragged(const Args& a, const int* start, const int* q_lens, int S) {
   constexpr int RPW = kRaggedRowsPerWarp;
   constexpr int bytes = smem_bytes<D, RPW>();
-  auto kernel = ragged_kernel<T, D, RPW>;
+  auto kernel = ragged_kernel<T, PT, D, RPW>;
   const cudaError_t err = prepare(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const int rows = S * (H / K);
-  const dim3 grid((rows + kWarps * RPW - 1) / (kWarps * RPW), K, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      table, start, q_lens, static_cast<T*>(out), S, H, K, P, max_pages, scale);
+  const int rows = S * (a.H / a.K);
+  const dim3 grid((rows + kWarps * RPW - 1) / (kWarps * RPW), a.K, a.B);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const PT*>(a.k), static_cast<const PT*>(a.v),
+      a.k_scale, a.v_scale, a.table, start, q_lens, static_cast<T*>(a.out), S, a.H, a.K,
+      a.P, a.max_pages, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          const int* table, const int* lengths, void* out,
-                          int B, int H, int K, int P, int max_pages, float scale,
-                          cudaStream_t stream) {
+template <typename T, typename PT, int D>
+cudaError_t launch_decode(const Args& a, const int* lengths) {
   constexpr int RPW = kDecodeRowsPerWarp;
   constexpr int bytes = smem_bytes<D, RPW>();
-  auto kernel = decode_kernel<T, D, RPW>;
+  auto kernel = decode_kernel<T, PT, D, RPW>;
   const cudaError_t err = prepare(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((H / K + kWarps * RPW - 1) / (kWarps * RPW), K, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      table, lengths, static_cast<T*>(out), H, K, P, max_pages, scale);
+  const dim3 grid((a.H / a.K + kWarps * RPW - 1) / (kWarps * RPW), a.K, a.B);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const PT*>(a.k), static_cast<const PT*>(a.v),
+      a.k_scale, a.v_scale, a.table, lengths, static_cast<T*>(a.out), a.H, a.K, a.P,
+      a.max_pages, a.scale);
   return cudaGetLastError();
 }
 
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
 
-template <typename T>
-cudaError_t dispatch_ragged(int D, const void* q, const void* k, const void* v,
-                            const int* table, const int* start, const int* q_lens,
-                            void* out, int B, int S, int H, int K, int P,
-                            int max_pages, float scale, cudaStream_t stream) {
+struct Ragged {
+  const Args& a;
+  const int* start;
+  const int* q_lens;
+  int S;
+  template <typename T, typename PT, int D>
+  cudaError_t run() const { return launch_ragged<T, PT, D>(a, start, q_lens, S); }
+};
+
+struct Decode {
+  const Args& a;
+  const int* lengths;
+  template <typename T, typename PT, int D>
+  cudaError_t run() const { return launch_decode<T, PT, D>(a, lengths); }
+};
+
+// Calls fn.run<T, PT, D>() for the runtime head dim and page type, or
+// returns cudaErrorInvalidValue.
+template <typename T, typename Fn>
+cudaError_t by_head_dim(int D, bool int8_pages, const Fn& fn) {
   switch (D) {
-    case 16: return launch_ragged<T, 16>(q, k, v, table, start, q_lens, out, B, S, H, K, P, max_pages, scale, stream);
-    case 32: return launch_ragged<T, 32>(q, k, v, table, start, q_lens, out, B, S, H, K, P, max_pages, scale, stream);
-    case 64: return launch_ragged<T, 64>(q, k, v, table, start, q_lens, out, B, S, H, K, P, max_pages, scale, stream);
-    case 128: return launch_ragged<T, 128>(q, k, v, table, start, q_lens, out, B, S, H, K, P, max_pages, scale, stream);
+    case 16: return int8_pages ? fn.template run<T, int8_t, 16>() : fn.template run<T, T, 16>();
+    case 32: return int8_pages ? fn.template run<T, int8_t, 32>() : fn.template run<T, T, 32>();
+    case 64: return int8_pages ? fn.template run<T, int8_t, 64>() : fn.template run<T, T, 64>();
+    case 128: return int8_pages ? fn.template run<T, int8_t, 128>() : fn.template run<T, T, 128>();
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t dispatch_decode(int D, const void* q, const void* k, const void* v,
-                            const int* table, const int* lengths, void* out,
-                            int B, int H, int K, int P, int max_pages, float scale,
-                            cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_decode<T, 16>(q, k, v, table, lengths, out, B, H, K, P, max_pages, scale, stream);
-    case 32: return launch_decode<T, 32>(q, k, v, table, lengths, out, B, H, K, P, max_pages, scale, stream);
-    case 64: return launch_decode<T, 64>(q, k, v, table, lengths, out, B, H, K, P, max_pages, scale, stream);
-    case 128: return launch_decode<T, 128>(q, k, v, table, lengths, out, B, H, K, P, max_pages, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <typename Fn>
+cudaError_t dispatch(int dtype, int D, bool int8_pages, const Fn& fn) {
+  if (dtype == kFloat32) return by_head_dim<float>(D, int8_pages, fn);
+  if (dtype == kBFloat16) return by_head_dim<__nv_bfloat16>(D, int8_pages, fn);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes. Every call launches on `stream`, does
-// not synchronise, and returns cudaGetLastError() (0 = launched).
+// not synchronise, and returns cudaGetLastError() (0 = launched). `dtype` is
+// q's (0 = f32, 1 = bf16); pages are in q's dtype when `k_scale` and
+// `v_scale` are null, else int8 with those f32 scale planes [N, P, K].
 extern "C" int opsagent_paged_ragged_attention(
-    const void* q, const void* k_pages, const void* v_pages, const void* table,
-    const void* start, const void* q_lens, void* out, int B, int S, int H,
-    int K, int D, int P, int max_pages, float scale, int dtype, void* stream) {
+    const void* q, const void* k_pages, const void* v_pages, const void* k_scale,
+    const void* v_scale, const void* table, const void* start, const void* q_lens,
+    void* out, int B, int S, int H, int K, int D, int P, int max_pages, float scale,
+    int dtype, void* stream) {
   if (B == 0 || S == 0) return cudaSuccess;
-  const auto* tb = static_cast<const int*>(table);
+  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale), static_cast<const int*>(table), out,
+               B, H, K, P, max_pages, scale, static_cast<cudaStream_t>(stream)};
   const auto* st = static_cast<const int*>(start);
   const auto* ql = static_cast<const int*>(q_lens);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return dispatch_ragged<float>(D, q, k_pages, v_pages, tb, st, ql, out, B, S, H, K, P, max_pages, scale, s);
-  if (dtype == kBFloat16)
-    return dispatch_ragged<__nv_bfloat16>(D, q, k_pages, v_pages, tb, st, ql, out, B, S, H, K, P, max_pages, scale, s);
-  return cudaErrorInvalidValue;
+  return dispatch(dtype, D, k_scale != nullptr, Ragged{a, st, ql, S});
 }
 
 extern "C" int opsagent_paged_decode_attention(
-    const void* q, const void* k_pages, const void* v_pages, const void* table,
-    const void* lengths, void* out, int B, int H, int K, int D, int P,
-    int max_pages, float scale, int dtype, void* stream) {
+    const void* q, const void* k_pages, const void* v_pages, const void* k_scale,
+    const void* v_scale, const void* table, const void* lengths, void* out, int B, int H,
+    int K, int D, int P, int max_pages, float scale, int dtype, void* stream) {
   if (B == 0) return cudaSuccess;
-  const auto* tb = static_cast<const int*>(table);
+  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale), static_cast<const int*>(table), out,
+               B, H, K, P, max_pages, scale, static_cast<cudaStream_t>(stream)};
   const auto* ln = static_cast<const int*>(lengths);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return dispatch_decode<float>(D, q, k_pages, v_pages, tb, ln, out, B, H, K, P, max_pages, scale, s);
-  if (dtype == kBFloat16)
-    return dispatch_decode<__nv_bfloat16>(D, q, k_pages, v_pages, tb, ln, out, B, H, K, P, max_pages, scale, s);
-  return cudaErrorInvalidValue;
+  return dispatch(dtype, D, k_scale != nullptr, Decode{a, ln});
 }

@@ -4,6 +4,12 @@
 ``final_norm [d]``, ``lm_head [d, V]`` and, under ``layers``, stacked
 per-layer leaves ``[L, ...]`` in ``x @ w`` orientation (``wq [L, d, q]``).
 The port keeps that orientation, so conversion only unstacks the layer axis.
+
+A quantized leaf (``QuantizedLinear`` / ``QuantizedLinear4``, read
+duck-typed by its ``.q`` and ``.scale``) becomes ``<name>.q`` and
+``<name>.scale``: int8 ``q [L, In, Out]`` with ``scale [L, 1, Out]``, int4
+``q [L, In/2, Out]`` with ``scale [L, G, 1, Out]``, and a 2-D quantized
+``lm_head``. Load them into a ``Llama`` built with the same ``quantize``.
 """
 
 from __future__ import annotations
@@ -30,17 +36,26 @@ def params_from_jax(
             f"parameter leaves {sorted(extra) or ['moe_layers']} belong to "
             "configurations this port does not serve yet"
         )
-    state = {
-        name: torch.from_numpy(np.array(tree[name]))
-        for name in ("embed", "final_norm", "lm_head")
-    }
+    state: dict[str, torch.Tensor] = {}
+    for name in ("embed", "final_norm", "lm_head"):
+        for key, a in _arrays(name, tree[name]):
+            state[key] = torch.from_numpy(np.array(a))
     for name in LAYER_LEAVES:
-        stacked = np.asarray(layers[name])
-        if stacked.shape[0] != cfg.num_layers:
-            raise ValueError(
-                f"layers.{name} has {stacked.shape[0]} layers, "
-                f"{cfg.name} has {cfg.num_layers}"
-            )
-        for i in range(cfg.num_layers):
-            state[f"layers.{i}.{name}"] = torch.from_numpy(np.array(stacked[i]))
+        for key, stacked in _arrays(name, layers[name]):
+            if stacked.shape[0] != cfg.num_layers:
+                raise ValueError(
+                    f"layers.{name} has {stacked.shape[0]} layers, "
+                    f"{cfg.name} has {cfg.num_layers}"
+                )
+            for i in range(cfg.num_layers):
+                state[f"layers.{i}.{key}"] = torch.from_numpy(np.array(stacked[i]))
     return state
+
+
+def _arrays(name: str, leaf: Any) -> list[tuple[str, np.ndarray]]:
+    """A plain leaf -> [(name, array)]; a quantized one -> its codes and
+    scales under ``name.q`` and ``name.scale``."""
+    if hasattr(leaf, "q") and hasattr(leaf, "scale"):
+        return [(f"{name}.q", np.asarray(leaf.q)),
+                (f"{name}.scale", np.asarray(leaf.scale))]
+    return [(name, np.asarray(leaf))]

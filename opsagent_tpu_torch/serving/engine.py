@@ -9,6 +9,11 @@ on the host. Two device programs carry the traffic:
 - ``step_block``: up to ``decode_block`` decode + sample steps with the loop
   state on the device and one host pull, through the decode kernel.
 
+``EngineConfig.quantize`` and ``kv_quantize`` select int8/int4 weights
+(every projection through the quantized matmul kernel) and int8 KV pages
+(the attention kernels' int8 instances); ``attn_impl`` picks kernels or
+plain versions for all of them at once.
+
 No async runtime, pipelining, grammar fast-forward, speculation, offload,
 snapshots or constrained decoding in this port yet.
 """
@@ -47,10 +52,19 @@ class EngineConfig:
     prefix_cache: bool = True
     seed: int = 0
     device: str | None = None      # None = cuda; "cpu" only on request
-    # Paged attention: "cuda" (the hand-written kernels; the default on a
-    # GPU) or "plain" (the plain PyTorch versions: the only choice on the
-    # CPU, and the reference build on a GPU). "" resolves by device.
+    # Kernels: "cuda" (the hand-written kernels for paged attention and,
+    # with quantized weights, every projection; the default on a GPU) or
+    # "plain" (the plain PyTorch versions: the only choice on the CPU, and
+    # the reference build on a GPU). "" resolves by device.
     attn_impl: str = ""
+    # Weight-only quantization: "" (compute dtype), "int8" (per-output-
+    # channel scales) or "int4" (group-wise scales), models.quant. Random
+    # weights are built directly in quantized form on the device.
+    quantize: str = ""
+    # KV-cache quantization: "" (pages in the compute dtype) or "int8"
+    # (int8 pages + one f32 scale per token and kv head,
+    # ops.attention.QuantizedPages): D + 4 bytes per row against 2 * D.
+    kv_quantize: str = ""
 
 
 @dataclass
@@ -88,12 +102,21 @@ class Engine:
         if impl == "cuda" and self.device.type != "cuda":
             raise ValueError("attn_impl='cuda' needs a CUDA device")
         self.attn_impl = impl
+        # Llama and PagedKVCache validate quantize and kv_quantize.
+        if model is not None and model.quantize != cfg.quantize:
+            raise ValueError(
+                f"quantize={cfg.quantize!r} but the given model holds "
+                f"{model.quantize or 'unquantized'!r} weights"
+            )
         self.tokenizer = tokenizer or ByteTokenizer(self.model_cfg.vocab_size)
         with torch.inference_mode():
             self.model = model if model is not None else Llama(
-                self.model_cfg, cfg.dtype, self.device, seed=cfg.seed
+                self.model_cfg, cfg.dtype, self.device, seed=cfg.seed,
+                quantize=cfg.quantize,
             )
-            self.cache = self.model.make_cache(cfg.num_pages, cfg.page_size)
+            self.cache = self.model.make_cache(
+                cfg.num_pages, cfg.page_size, cfg.kv_quantize
+            )
         self.alloc = PageAllocator(
             cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq,
             prefix_cache=cfg.prefix_cache,
@@ -110,6 +133,8 @@ class Engine:
             "attn_impl": self.attn_impl,
             "device": str(self.device),
             "dtype": str(self.cfg.dtype).removeprefix("torch."),
+            "quantize": self.cfg.quantize or "none",
+            "kv_quantize": self.cfg.kv_quantize or "none",
         }
 
     # -- host <-> device helpers --------------------------------------------

@@ -185,3 +185,135 @@ def test_causal_prefill_matches_jax():
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
     ).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+# -- int8 QuantizedPages ---------------------------------------------------
+def _quantized_pages(shape, jax_side):
+    """Empty int8 pages [*shape] with scale planes of 1.0, as make_cache
+    builds them."""
+    if jax_side:
+        return jattn.QuantizedPages(
+            jnp.zeros(shape, jnp.int8), jnp.ones(shape[:-1], jnp.float32)
+        )
+    return tattn.QuantizedPages(
+        torch.zeros(shape, dtype=torch.int8), torch.ones(shape[:-1])
+    )
+
+
+def test_quantized_write_kv_pages_matches_jax(case):
+    """Codes and scales land at the same flat slots, exactly; padded
+    tokens and unassigned pages write nothing."""
+    c, t = case, _t(case)
+    rng = np.random.default_rng(3)
+    k_new = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    v_new = rng.standard_normal((B, S, K, D)).astype(np.float32) * 4
+    shape = (L, N, P, K, D)
+    jk, jv = jattn.write_kv_pages(
+        _quantized_pages(shape, True), _quantized_pages(shape, True), k_new, v_new,
+        c["table"], c["start"], valid_len=c["q_lens"], layer=jnp.int32(LAYER),
+    )
+    tk, tv = _quantized_pages(shape, False), _quantized_pages(shape, False)
+    tattn.write_kv_pages(
+        tk, tv, torch.from_numpy(k_new), torch.from_numpy(v_new), t["table"],
+        t["start"], valid_len=t["q_lens"], layer=LAYER,
+    )
+    for got, want in ((tk, jk), (tv, jv)):
+        np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+        np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    assert (tk.q[0] == 0).all() and (tk.scale[0] == 1).all()
+
+
+def _quantized_case(seed, D, B, S, H, K, P, MaxP, N, start, q_lens):
+    """Each row's cached prefix and chunk written through the quantized
+    write path (per-token absmax scales, as the engine writes them), on
+    both sides from the same numpy rows."""
+    rng = np.random.default_rng(seed)
+    start, q_lens = np.array(start, np.int32), np.array(q_lens, np.int32)
+    table = np.full((B, MaxP), -1, np.int32)
+    free = list(rng.permutation(N))
+    for b in range(B):
+        for i in range(-(-(start[b] + q_lens[b]) // P)):
+            table[b, i] = free.pop()
+    total = int((start + q_lens).max())
+    kw = rng.standard_normal((B, total, K, D)).astype(np.float32)
+    vw = rng.standard_normal((B, total, K, D)).astype(np.float32)
+    zero = np.zeros(B, np.int32)
+    jk, jv = jattn.write_kv_pages(
+        _quantized_pages((N, P, K, D), True), _quantized_pages((N, P, K, D), True),
+        kw, vw, table, zero, valid_len=start + q_lens,
+    )
+    tk, tv = _quantized_pages((N, P, K, D), False), _quantized_pages((N, P, K, D), False)
+    tattn.write_kv_pages(
+        tk, tv, torch.from_numpy(kw), torch.from_numpy(vw), torch.from_numpy(table),
+        torch.from_numpy(zero), valid_len=torch.from_numpy(start + q_lens),
+    )
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    return q, (jk, jv), (tk, tv), table, start, q_lens
+
+
+def test_quantized_ragged_plain_matches_jax_pallas():
+    """As tests/test_pallas_paged.py's int8 ragged case, at D = 128: the
+    plain reader over int8 pages against the ragged DMA kernel (interpret)
+    and the JAX gather reader on the same quantized cache, f32 to 2e-5."""
+    B_, S_, H_, K_, D_, P_, MaxP_, N_ = 3, 8, 4, 2, 128, 4, 8, 26
+    q, (jk, jv), (tk, tv), table, start, q_lens = _quantized_case(
+        23, D_, B_, S_, H_, K_, P_, MaxP_, N_, [9, 0, 4], [1, 8, 0]
+    )
+    got = tattn.paged_ragged_attention(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(table),
+        torch.from_numpy(start), torch.from_numpy(q_lens),
+    ).numpy()
+    pallas = np.asarray(paged_ragged_attention_pallas_dma(
+        q, jk, jv, table, start, q_lens, interpret=True
+    ))
+    oracle = np.asarray(jattn.paged_ragged_attention(q, jk, jv, table, start, q_lens))
+    ok = np.arange(S_)[None, :] < q_lens[:, None]
+    np.testing.assert_allclose(got[ok], pallas[ok], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got[ok], oracle[ok], rtol=2e-5, atol=2e-5)
+    assert (got[~ok] == 0).all()
+
+
+def test_quantized_decode_plain_matches_jax_pallas():
+    B_, H_, K_, D_, P_, MaxP_, N_ = 3, 8, 2, 128, 4, 8, 26
+    lengths = np.array([10, 0, 23], np.int32)
+    q, (jk, jv), (tk, tv), table, _, _ = _quantized_case(
+        24, D_, B_, 1, H_, K_, P_, MaxP_, N_,
+        np.maximum(lengths - 1, 0), (lengths > 0).astype(np.int32),
+    )
+    q = np.ascontiguousarray(q[:, 0])
+    got = tattn.paged_decode_attention(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(table), torch.from_numpy(lengths)
+    ).numpy()
+    pallas = np.asarray(paged_decode_attention_pallas_dma(
+        q, jk, jv, table, lengths, interpret=True
+    ))
+    oracle = np.asarray(jattn.paged_decode_attention(q, jk, jv, table, lengths))
+    ok = lengths > 0
+    np.testing.assert_allclose(got[ok], pallas[ok], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got[ok], oracle[ok], rtol=2e-5, atol=2e-5)
+    assert (got[~ok] == 0).all()
+
+
+def test_quantized_wrappers_and_cache_write():
+    """The wrappers take the plain version for CPU QuantizedPages, with the
+    layer axis; the cache's scratch-slot write gives the same codes and
+    scales as the masked write_pages."""
+    t = _t(_case(5))
+    rng = np.random.default_rng(6)
+    new = torch.from_numpy(rng.standard_normal((B, S, K, D)).astype(np.float32))
+    cache = PagedKVCache(TINY_TEST, N, P, torch.float32, torch.device("cpu"), "int8")
+    flat = tattn.flat_slot_indices(t["table"], t["start"], S, P, N, valid_len=t["q_lens"])
+    cache.write(LAYER, new, new * 2, flat.reshape(-1))
+    pages = _quantized_pages((L, N, P, K, D), False)
+    tattn.write_pages(pages, new, t["table"], t["start"], valid_len=t["q_lens"], layer=LAYER)
+    assert torch.equal(cache.k.q, pages.q) and torch.equal(cache.k.scale, pages.scale)
+    assert (cache.k.scale[0] == 1).all() and (cache.v.q[0] == 0).all()
+    args = (t["q"], cache.k, cache.v, t["table"], t["start"], t["q_lens"])
+    assert torch.equal(
+        paged_ragged_attention_cuda(*args, layer=LAYER),
+        tattn.paged_ragged_attention(*args, layer=LAYER),
+    )
+    q = t["q"][:, 0].contiguous()
+    want = tattn.paged_decode_attention(q, cache.v[LAYER], cache.v[LAYER], t["table"], t["lengths"])
+    got = paged_decode_attention_cuda(q, cache.v, cache.v, t["table"], t["lengths"], layer=LAYER)
+    assert torch.equal(got, want)

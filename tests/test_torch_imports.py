@@ -19,8 +19,16 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "opsagent_tpu"))
-print(len(names), bad)
+print(",".join(names), bad)
 """
+# Modules each slice added; the walk must reach them.
+REQUIRED = (
+    "opsagent_tpu_torch.ops.paged_attention",
+    "opsagent_tpu_torch.ops.cuda_build",
+    "opsagent_tpu_torch.ops.quant_matmul",
+    "opsagent_tpu_torch.models.quant",
+    "opsagent_tpu_torch.models.convert",
+)
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -30,6 +38,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
-    count, bad = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 15          # every module of the package was imported
+    names, bad = res.stdout.strip().split(" ", 1)
+    names = names.split(",")
+    assert len(names) >= 18          # every module of the package was imported
+    assert set(REQUIRED) <= set(names)
     assert bad == "[]"

@@ -5,19 +5,26 @@ the JAX package, so they run where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances are the reference's own (opsagent_tpu/ops/attention.py:620):
-1e-5 in f32, 1e-2 in bf16.
+Attention tolerances are the reference's own (opsagent_tpu/ops/attention.py:620):
+1e-5 in f32, 1e-2 in bf16 (int8 pages: the plain version dequantizes to bf16
+first, the kernel keeps f32). Quantized matmul: rtol = atol = 1e-3 in f32
+(tests/test_quant_matmul_pallas.py's own) and 1e-2 in bf16 (one bf16 ulp is
+up to 2^-7 relative), over outputs of unit scale.
 """
 
 import pytest
 import torch
 
+from opsagent_tpu_torch.models.quant import quantize_weight, quantize_weight4
 from opsagent_tpu_torch.ops import paged_attention as pa
+from opsagent_tpu_torch.ops import quant_matmul as qm
+from opsagent_tpu_torch.ops.attention import QuantizedPages, write_kv_pages
 from opsagent_tpu_torch.serving.engine import Engine, EngineConfig
 from opsagent_tpu_torch.serving.sampler import SamplingParams
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+MM_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -93,12 +100,84 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(gen):
         )
 
 
-def test_engine_kernel_path_matches_plain_path(gen):
+@pytest.mark.parametrize("quantize,kv_quantize", [("", ""), ("int8", "int8"), ("int4", "int8")])
+def test_engine_kernel_path_matches_plain_path(gen, quantize, kv_quantize):
     prompts = [[257] + list(range(10, 50)), [257, 5, 6, 7]]
     outs = []
     for impl in ("cuda", "plain"):
         eng = Engine(EngineConfig(model="tiny-test", dtype=torch.float32,
                                   page_size=4, num_pages=64, decode_block=4,
-                                  attn_impl=impl))
+                                  attn_impl=impl, quantize=quantize,
+                                  kv_quantize=kv_quantize))
         outs.append(eng.generate(prompts, SamplingParams(max_tokens=12)))
     assert outs[0] == outs[1]
+
+
+def _quantize_pages(k, v, table, starts, q_lens):
+    """int8 copies of the case's pages, written through the plain quantized
+    write path from the same rows (each row's visible positions)."""
+    N, P, K, D = k.shape
+    T = int((starts + q_lens).max())
+    slot = torch.arange(T, device="cuda")
+    page = table.long().clamp(min=0)[:, (slot // P).clamp(max=table.shape[1] - 1)]
+    qk, qv = (QuantizedPages(torch.zeros(N, P, K, D, dtype=torch.int8, device="cuda"),
+                             torch.ones(N, P, K, device="cuda")) for _ in range(2))
+    # Each row's [T, K, D] rows as they stand in its pages.
+    write_kv_pages(qk, qv, k[page, slot % P], v[page, slot % P], table,
+                   torch.zeros_like(starts), valid_len=starts + q_lens)
+    return qk, qv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,D,P", [(4, 2, 16, 4), (32, 8, 128, 16)])
+def test_int8_page_kernels_match_plain(gen, dtype, H, K, D, P):
+    q, k, v, table, start, q_lens = _case(
+        gen, 4, 24, H, K, D, P, [0, 37, 5, 300], [24, 1, 0, 17], dtype
+    )
+    qk, qv = _quantize_pages(k, v, table, start, q_lens)
+    before = dict(pa.LAUNCHES)
+    got = pa.paged_ragged_attention_cuda(q, qk, qv, table, start, q_lens)
+    want = pa.paged_ragged_attention_cuda(q, qk, qv, table, start, q_lens, plain=True)
+    lens = (start + q_lens).int()
+    dgot = pa.paged_decode_attention_cuda(q[:, 0].contiguous(), qk, qv, table, lens)
+    dwant = pa.paged_decode_attention_cuda(q[:, 0].contiguous(), qk, qv, table, lens, plain=True)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_ragged_attention_int8"] == before["paged_ragged_attention_int8"] + 1
+    assert pa.LAUNCHES["paged_decode_attention_int8"] == before["paged_decode_attention_int8"] + 1
+    assert pa.LAUNCHES["paged_ragged_attention"] == before["paged_ragged_attention"]
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (dgot.float() - dwant.float()).abs().max().item() <= TOL[dtype]
+    assert (got[2] == 0).all() and (got[1, 1:] == 0).all()
+
+
+def _weight(gen, In, Out, bits, group):
+    w = torch.randn(In, Out, generator=gen, device="cuda")
+    return quantize_weight(w) if bits == 8 else quantize_weight4(w, group=group)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,group", [(8, 0), (4, 128), (4, 0)])
+@pytest.mark.parametrize("T,In,Out", [(1, 256, 384), (8, 4096, 1024), (96, 300, 520), (5, 64, 512)])
+def test_quant_matmul_kernel_matches_plain(gen, dtype, bits, group, T, In, Out):
+    w = _weight(gen, In, Out, bits, group)
+    x = torch.randn(T, In, generator=gen, device="cuda").to(dtype)
+    x = x / w.dequantize().norm(dim=0).mean()          # outputs of unit scale
+    name = f"quant_matmul_int{bits}"
+    before = qm.LAUNCHES[name]
+    got = qm.quant_matmul_cuda(x, w)
+    want = qm.quant_matmul_cuda(x, w, plain=True)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES[name] == before + 1
+    assert got.dtype == dtype and got.shape == (T, Out)
+    tol = MM_TOL[dtype]
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_quant_matmul_raises_on_what_the_kernel_does_not_take(gen):
+    w = _weight(gen, 64, 32, 8, 0)
+    with pytest.raises(ValueError, match="In=48"):
+        qm.quant_matmul_cuda(torch.randn(2, 48, device="cuda"), w)
+    with pytest.raises(TypeError, match="float16"):
+        qm.quant_matmul_cuda(torch.randn(2, 64, device="cuda").half(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quant_matmul_cuda(torch.randn(64, 2, device="cuda").t(), w)
