@@ -9,24 +9,32 @@ Phases, each printing one JSON line with its seconds:
 2. build: compiles every kernel source in ``opsagent_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card, in
-   bf16 and f32. Paged attention over bf16/f32 pages and over int8 pages at
-   the widths of bench-8b (Llama-3-8B), bench-1b and tiny-test; then (the
-   ``matmul`` line) the quantized matmul, int8 and int4 with one whole-axis
-   group and with groups of 128, at every bench-8b projection shape with
-   T in {1, 8, 1024}, at a ragged In and at tiny-test widths. Errors,
-   times, and the bound for the main path's shapes.
-4. e2e: bench-8b widths cut to 2 layers, f32: ``Engine.generate`` through the
+   bf16 and f32. Paged attention, both forms (the "dma" kernels and the
+   split-KV "grid" kernels), over bf16/f32 pages and over int8 pages at the
+   widths of bench-8b (Llama-3-8B), Qwen2.5-7B (G = 7), bench-1b and
+   tiny-test; then (the ``matmul`` line) the quantized matmul, int8 and
+   int4 with one whole-axis group and with groups of 128, at every
+   bench-8b projection shape with T in {1, 8, 1024}, at a ragged In and at
+   tiny-test widths. Errors, times, and the bound for the main path's
+   shapes.
+4. e2e: 2-layer f32 cuts of bench-8b (dma kernels; unquantized, int8
+   weights + int8 KV, int4 weights + int8 KV) and of Qwen2.5-7B (grid
+   kernels; unquantized, int8 + int8 KV): ``Engine.generate`` through the
    kernels gives exactly the greedy tokens of the same engine through the
-   plain versions, with a prefix-cache hit: unquantized, with (int8
-   weights, int8 KV) and with (int4 weights, int8 KV).
-5. serve: bench-8b at full depth, bf16 activations, random weights from
-   ``--seed``, behind the HTTP server; four concurrent chat completions,
-   once unquantized, once with int8 weights and int8 KV, once with int4
-   weights and int8 KV. The kernels' launch counts of each run are checked
-   and reported. With ``--profile`` each run is traced with
-   ``torch.profiler`` and a ``profile`` line gives device time by kernel
-   group (the trace slows the run: its tokens/s and TTFT are not the
-   untraced ones).
+   plain versions, with a prefix-cache hit.
+5. hf: the HF-written fixtures ``tests/fixtures/tiny-{llama,qwen2,qwen3}-hf``
+   loaded by the port's loader onto the card: last-position logits through
+   the kernels within 2e-4 of HF's, and greedy tokens equal to HF's under
+   both paged backends.
+6. serve: behind the HTTP server, random weights from ``--seed``, bf16
+   activations, four concurrent chat completions per run: bench-8b at full
+   depth on the dma kernels (unquantized, int8 weights + int8 KV, int4
+   weights + int8 KV) and Qwen2.5-7B-Instruct at full depth on the grid
+   kernels (unquantized, int8 weights + int8 KV). The kernels' launch
+   counts of each run are checked and reported. With ``--profile`` each
+   run is traced with ``torch.profiler`` and a ``profile`` line gives
+   device time by kernel group (the trace slows the run: its tokens/s and
+   TTFT are not the untraced ones).
 
 Then, on lines of their own: the card's name and power limit as nvidia-smi
 prints them, the ``{"kernels": [...]}`` table, and last
@@ -38,8 +46,10 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -50,11 +60,13 @@ from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import replace
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from opsagent_tpu_torch.models.config import BENCH_8B, get_config_preset
+from opsagent_tpu_torch.models.config import BENCH_8B, QWEN25_7B, config_from_hf, get_config_preset
 from opsagent_tpu_torch.models.llama import Llama
+from opsagent_tpu_torch.models.loader import load_checkpoint
 from opsagent_tpu_torch.models.quant import quantize_weight, quantize_weight4
 from opsagent_tpu_torch.ops import cuda_build
 from opsagent_tpu_torch.ops import paged_attention as pa
@@ -80,8 +92,31 @@ KERNELS = {  # name: (source in csrc/, the TPU kernel it replaces)
     "paged_decode_attention_int8": ("paged_attention.cu", f"{PAGED}:373"),
     "quant_matmul_int8": ("quant_matmul.cu", "opsagent_tpu/ops/quant_matmul_pallas.py:51"),
     "quant_matmul_int4": ("quant_matmul.cu", "opsagent_tpu/ops/quant_matmul_pallas.py:117"),
+    # The grid forms and their QuantizedPages operands.
+    "paged_ragged_attention_grid": ("paged_attention_grid.cu", f"{PAGED}:571"),
+    "paged_decode_attention_grid": ("paged_attention_grid.cu", f"{PAGED}:957"),
+    "paged_ragged_attention_grid_int8": ("paged_attention_grid.cu", f"{PAGED}:629"),
+    "paged_decode_attention_grid_int8": ("paged_attention_grid.cu", f"{PAGED}:1006"),
 }
-SERVES = (("", ""), ("int8", "int8"), ("int4", "int8"))  # (quantize, kv_quantize)
+# (model, paged backend, quantize, kv_quantize) of each serve run.
+SERVES = (
+    ("bench-8b", "dma", "", ""),
+    ("bench-8b", "dma", "int8", "int8"),
+    ("bench-8b", "dma", "int4", "int8"),
+    ("qwen2.5-7b-instruct", "grid", "", ""),
+    ("qwen2.5-7b-instruct", "grid", "int8", "int8"),
+)
+# (2-layer cut, paged backend, quantize, kv_quantize) of each e2e check.
+E2E = (
+    (BENCH_8B, "dma", "", ""),
+    (BENCH_8B, "dma", "int8", "int8"),
+    (BENCH_8B, "dma", "int4", "int8"),
+    (QWEN25_7B, "grid", "", ""),
+    (QWEN25_7B, "grid", "int8", "int8"),
+)
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+HF_FIXTURES = ("tiny-llama-hf", "tiny-qwen2-hf", "tiny-qwen3-hf")
+HF_LOGIT_TOL = 2e-4     # tests/test_checkpoint_golden.py's own
 
 
 class CheckFailed(RuntimeError):
@@ -224,13 +259,20 @@ def ragged_sdpa(c):
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
 
+def wrapper(name):
+    """The wrapper of a kernel row: ragged or decode, dma or grid form."""
+    ragged, decode = pa.PAGED_BACKENDS["grid" if "_grid" in name else "dma"]
+    return ragged if name.startswith("paged_ragged") else decode
+
+
+def kernel_args(name, c):
+    if name.startswith("paged_ragged"):
+        return (c["q"], c["k"], c["v"], c["table"], c["start"], c["q_lens"])
+    return (c["q"], c["k"], c["v"], c["table"], c["lengths"])
+
+
 def run_kernel_case(name, c, dtype, timed):
-    if name.startswith("paged_ragged_attention"):
-        args = (c["q"], c["k"], c["v"], c["table"], c["start"], c["q_lens"])
-        fn = pa.paged_ragged_attention_cuda
-    else:
-        args = (c["q"], c["k"], c["v"], c["table"], c["lengths"])
-        fn = pa.paged_decode_attention_cuda
+    fn, args = wrapper(name), kernel_args(name, c)
     got = fn(*args)
     want = fn(*args, plain=True)
     torch.cuda.synchronize()
@@ -244,19 +286,24 @@ def run_kernel_case(name, c, dtype, timed):
         out["plain_ms"] = time_ms(lambda i: fn(*args, plain=True), iters=3)
         out["library_ms"] = time_ms(lambda i: sdpa())
         out["bound_ms"], out["bound_by"] = c["bound"]
+        if "_grid" in name:
+            # The dma form of the same function on the same inputs.
+            dma = wrapper(name.replace("_grid", ""))
+            out["dma_ms"] = time_ms(lambda i: dma(*args))
     return out
 
 
 def decode_case(gen, B, H, K, D, P, lengths, dtype):
     """Decode inputs as a ragged case with one query per row: lengths
     include the new token, so start = length - 1 and q_len = 1 (0 for an
-    empty row)."""
+    empty row). The last row's second page slot is -1 (read as page 0)."""
     c = make_case(
         gen, B, 1, H, K, D, P, [max(n - 1, 0) for n in lengths],
         [1 if n else 0 for n in lengths], dtype,
     )
     c["lengths"] = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     c["q"] = c["q"][:, 0]
+    c["table"][-1, 1] = -1
     return c
 
 
@@ -271,40 +318,46 @@ def phase_kernels(seed: int) -> dict:
     decode_lengths = [1, 17, 300, 1024, 2049, 4096, 0, 77]
     widths = [  # (name, H, K, D, P)
         ("bench-8b", 32, 8, 128, 16),
+        ("qwen2.5-7b", 28, 4, 128, 16),
         ("bench-1b", 32, 8, 64, 16),
         ("tiny-test", 4, 2, 16, 4),
     ]
+    # Each form is timed at the widths of the serve path it runs on.
+    timed_width = {"dma": "bench-8b", "grid": "qwen2.5-7b"}
     results: dict[str, dict] = {}
     cases = []
 
-    def attend(name, c, dtype, timed, int_arrays, **where):
-        """The case through the kernel, then, with its pages quantized,
-        through the int8 instance; times the main path's shapes."""
+    def attend(base, c, dtype, wname, int_arrays, full, **where):
+        """The case through both forms of the kernel, then, with its pages
+        quantized, through their int8 instances; times the main path's
+        shapes (``full``: the main path's shape at bf16)."""
         for suffix, case in (("", c), ("_int8", quantize_case(c))):
-            if timed:
-                q = case["q"] if case["q"].ndim == 4 else case["q"][:, None]
-                case["bound"] = attention_bound_ms(case, int_arrays)
-                case["sdpa"] = ragged_sdpa({**case, "q": q})
-            r = run_kernel_case(name + suffix, case, dtype, timed)
-            cases.append(dict(kernel=name + suffix, **where, dtype=str(dtype)[6:],
-                              err=r["max_abs_err"], tol=TOL[dtype]))
-            if timed:
-                results[name + suffix] = r
+            for form in ("dma", "grid"):
+                name = base + ("_grid" if form == "grid" else "") + suffix
+                timed = full and dtype == torch.bfloat16 and wname == timed_width[form]
+                if timed:
+                    q = case["q"] if case["q"].ndim == 4 else case["q"][:, None]
+                    case["bound"] = attention_bound_ms(case, int_arrays)
+                    case["sdpa"] = ragged_sdpa({**case, "q": q})
+                r = run_kernel_case(name, case, dtype, timed)
+                cases.append(dict(kernel=name, width=wname, **where, dtype=str(dtype)[6:],
+                                  err=r["max_abs_err"], tol=TOL[dtype]))
+                if timed:
+                    results[name] = r
+            case.pop("sdpa", None)
 
     for dtype in (torch.bfloat16, torch.float32):
         for wname, H, K, D, P in widths:
-            main = wname == "bench-8b" and dtype == torch.bfloat16
             for S, (starts, lens) in ragged_rows.items():
-                if wname != "bench-8b" and S != 16:
+                if wname not in timed_width.values() and S != 16:
                     continue
                 c = make_case(gen, 8, S, H, K, D, P, starts, lens, dtype)
                 # S = 128 is the main path's prefill chunk shape; the
-                # kernel reads start and q_lens.
-                attend("paged_ragged_attention", c, dtype, main and S == 128, 2,
-                       width=wname, S=S)
+                # kernels read start and q_lens.
+                attend("paged_ragged_attention", c, dtype, wname, 2, S == 128, S=S)
                 del c
             c = decode_case(gen, 8, H, K, D, P, decode_lengths, dtype)
-            attend("paged_decode_attention", c, dtype, main, 1, width=wname)  # lengths
+            attend("paged_decode_attention", c, dtype, wname, 1, True)  # lengths
             del c
     emit({"phase": "kernels_cases", "cases": cases})
     return results
@@ -396,21 +449,22 @@ def phase_matmul(seed: int) -> dict:
 
 # -- phase 4: end-to-end equality through kernels and plain versions -----------
 def phase_e2e(seed: int) -> dict:
-    cfg = replace(BENCH_8B, name="bench-8b-2l", num_layers=2)
     gen = torch.Generator().manual_seed(seed)
     p0 = [257] + torch.randint(0, 256, (299,), generator=gen).tolist()
     p1 = [257] + torch.randint(0, 256, (199,), generator=gen).tolist()
     p2 = p0[:100] + torch.randint(0, 256, (60,), generator=gen).tolist()
     greedy = SamplingParams(max_tokens=16)
     report = {}
-    for quantize, kv_quantize in SERVES:
+    for base, backend, quantize, kv_quantize in E2E:
+        cfg = replace(base, name=f"{base.name}-2l", num_layers=2)
         model = Llama(cfg, torch.float32, "cuda", seed=seed, quantize=quantize)
         out = {}
         for impl in ("cuda", "plain"):
             eng = Engine(
                 EngineConfig(model=cfg.name, dtype=torch.float32, device="cuda",
                              attn_impl=impl, seed=seed, num_pages=256,
-                             quantize=quantize, kv_quantize=kv_quantize),
+                             quantize=quantize, kv_quantize=kv_quantize,
+                             paged_backend=backend),
                 model_cfg=cfg, model=model,
             )
             # p2 is admitted after p0 finished and donated its pages: a hit.
@@ -419,7 +473,8 @@ def phase_e2e(seed: int) -> dict:
             del eng
         del model
         torch.cuda.empty_cache()
-        label = f"weights {quantize or 'f32'}, kv {kv_quantize or 'f32'}"
+        label = (f"{cfg.name} {backend}, weights {quantize or 'f32'}, "
+                 f"kv {kv_quantize or 'f32'}")
         (tk, hk), (tp, hp) = out["cuda"], out["plain"]
         check(all(len(t) == 16 for t in tk), f"{label}: kernel path lengths {[len(t) for t in tk]}")
         check(tk == tp, f"{label}: kernel-path tokens {tk} != plain-path tokens {tp}")
@@ -428,10 +483,53 @@ def phase_e2e(seed: int) -> dict:
     return report
 
 
-# -- phase 5: serving at full width -------------------------------------------
+# -- phase 5: HF checkpoints against HF's own outputs ----------------------------
+def phase_hf() -> dict:
+    """Each fixture loaded by the port's loader onto the card: its prompt
+    as one mixed step through each backend's kernels gives HF's last
+    logits, and the engine (``--model-name auto``) HF's greedy tokens."""
+    report = {}
+    for name in HF_FIXTURES:
+        path = os.path.join(FIXTURES, name)
+        golden = np.load(os.path.join(path, "golden.npz"))
+        prompt, want = golden["prompt"].tolist(), golden["greedy"].tolist()
+        cfg = config_from_hf(path)
+        model = Llama(cfg, torch.float32, "cuda", seed=None)
+        model.load_state_dict(load_checkpoint(path, cfg, torch.float32, "cuda"))
+        last = torch.from_numpy(golden["last_logits"]).to("cuda")
+        row = {}
+        for backend in ("dma", "grid"):
+            cache = model.make_cache(16, 4)
+            with torch.inference_mode():
+                logits = model.mixed_step(
+                    torch.tensor([prompt], device="cuda"),
+                    torch.zeros(1, dtype=torch.int32, device="cuda"),
+                    torch.tensor([len(prompt)], dtype=torch.int32, device="cuda"),
+                    cache, torch.arange(16, dtype=torch.int32, device="cuda")[None],
+                    backend=backend,
+                )[0]
+            err = (logits - last).abs().max().item()
+            check(err <= HF_LOGIT_TOL, f"{name} {backend}: last logits off by {err}")
+            eng = Engine(EngineConfig(
+                model="auto", checkpoint=path, dtype=torch.float32, device="cuda",
+                page_size=4, num_pages=64, max_pages_per_seq=16, max_batch_size=2,
+                paged_backend=backend,
+            ))
+            got = eng.generate([prompt], SamplingParams(max_tokens=len(want)))[0]
+            check(got == want, f"{name} {backend}: greedy {got} != HF's {want}")
+            row[backend] = {"last_logits_max_err": err, "greedy_equal": True}
+            del eng
+        report[name] = row
+    return report
+
+
+# -- phase 6: serving at full width -------------------------------------------
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names)
     ("paged_ragged_attention", ("ragged_kernel",)),
     ("paged_decode_attention", ("decode_kernel",)),
+    ("paged_ragged_attention_grid", ("ragged_split_kernel",)),
+    ("paged_decode_attention_grid", ("decode_split_kernel",)),
+    ("paged_attention_grid_combine", ("combine_kernel",)),
     ("quant_matmul", ("qmm_",)),
     ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")),
 )
@@ -451,22 +549,25 @@ def device_time_by_group(prof) -> dict:
     return out
 
 
-def expected_kernels(quantize: str, kv_quantize: str) -> set[str]:
+def expected_kernels(backend: str, quantize: str, kv_quantize: str) -> set[str]:
     """The kernels a serve run of this configuration must launch; it must
     launch no other."""
+    form = "_grid" if backend == "grid" else ""
     suffix = "_int8" if kv_quantize else ""
-    names = {f"paged_ragged_attention{suffix}", f"paged_decode_attention{suffix}"}
+    names = {f"paged_ragged_attention{form}{suffix}", f"paged_decode_attention{form}{suffix}"}
     if quantize:
         names.add(f"quant_matmul_{quantize}")
     return names
 
 
-def phase_serve(seed: int, smi: str, profile: bool = False,
-                quantize: str = "", kv_quantize: str = "") -> dict:
-    engine = Engine(EngineConfig(model="bench-8b", dtype=torch.bfloat16,
+def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
+                quantize: str, kv_quantize: str) -> dict:
+    engine = Engine(EngineConfig(model=model, dtype=torch.bfloat16,
                                  device="cuda", seed=seed, quantize=quantize,
-                                 kv_quantize=kv_quantize))
-    cfg = get_config_preset("bench-8b")
+                                 kv_quantize=kv_quantize, paged_backend=backend))
+    cfg = get_config_preset(model)
+    weights = sum(t.numel() * t.element_size() for t in itertools.chain(
+        engine.model.parameters(), engine.model.buffers()))
     stack = ServingStack(engine)
     server = make_server(stack, "127.0.0.1", 0)
     port = server.server_address[1]
@@ -480,7 +581,7 @@ def phase_serve(seed: int, smi: str, profile: bool = False,
         return "".join(letters[i] for i in idx)
 
     bodies = [
-        {"model": "bench-8b", "temperature": 0, "max_tokens": 64,
+        {"model": model, "temperature": 0, "max_tokens": 64,
          "messages": [{"role": "user", "content": prompt(n)}]}
         for n in (300, 800, 1500, 3000)
     ]
@@ -529,7 +630,7 @@ def phase_serve(seed: int, smi: str, profile: bool = False,
               f"usage {u}")
     # One attention launch per layer per forward; quantized weights add one
     # matmul per projection (7 per layer) and one for the lm_head.
-    expected = expected_kernels(quantize, kv_quantize)
+    expected = expected_kernels(backend, quantize, kv_quantize)
     for name, n in launches.items():
         if name not in expected:
             check(n == 0, f"{name} launched {n} times in a run that must not use it")
@@ -540,14 +641,19 @@ def phase_serve(seed: int, smi: str, profile: bool = False,
     completion = sum(r["usage"]["completion_tokens"] for _, r in replies)
     if profile:
         groups = device_time_by_group(prof)
-        emit({"phase": "profile", "quantize": quantize or "none",
+        emit({"phase": "profile", "model": model, "paged_backend": backend,
+              "quantize": quantize or "none",
               "kv_quantize": kv_quantize or "none", "card": smi,
               "wall_ms": wall * 1e3, "device_ms": groups,
               "device_busy_share": sum(groups.values()) / (wall * 1e3)})
     return {
+        "model": model,
+        "layers": cfg.num_layers,
+        "paged_backend": backend,
         "quantize": quantize or "none",
         "kv_quantize": kv_quantize or "none",
         "card": smi,
+        "weights_bytes": weights,
         "prompt_tokens": [r["usage"]["prompt_tokens"] for _, r in replies],
         "completion_tokens": completion,
         "wall_s": wall,
@@ -600,17 +706,22 @@ def main() -> int:
     e2e = phase_e2e(args.seed)
     emit({"phase": "e2e", "seconds": time.perf_counter() - t, **e2e})
 
+    t = time.perf_counter()
+    hf = phase_hf()
+    emit({"phase": "hf", "seconds": time.perf_counter() - t, **hf})
+
     launches = {name: 0 for name in KERNELS}
-    for quantize, kv_quantize in SERVES:
+    for model, backend, quantize, kv_quantize in SERVES:
         t = time.perf_counter()
-        serve = phase_serve(args.seed, smi, args.profile, quantize, kv_quantize)
+        serve = phase_serve(args.seed, smi, args.profile, model, backend,
+                            quantize, kv_quantize)
         # The server's handler class holds the engine in a reference
         # cycle: collect it before the next configuration measures its
         # peak memory.
         gc.collect()
         torch.cuda.empty_cache()
         emit({"phase": "serve", "seconds": time.perf_counter() - t, **serve})
-        for name in expected_kernels(quantize, kv_quantize):
+        for name in expected_kernels(backend, quantize, kv_quantize):
             launches[name] += serve["launches"][name]
 
     # A matmul's row is its decode-step shape (T = 8); the matmul phase
@@ -626,6 +737,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"dma_ms": r["dma_ms"]} if "dma_ms" in r else {}),
         })
     print(smi)
     emit({"kernels": rows})

@@ -55,59 +55,22 @@
 //     pipeline overlaps the next chunk's gather with this chunk's math;
 //   - one block per (sequence, kv head) in decode: with B * K blocks a
 //     small batch leaves most SMs idle on long contexts, where a split over
-//     pages (flash-decoding, the natural form of the TPU grid kernels) would
-//     fill them;
+//     pages (flash-decoding, the natural form of the TPU grid kernels, as
+//     paged_attention_grid.cu does it) would fill them;
 //   - prefill tiles of 64 rows each re-read their sequence's K/V (through
 //     L2) once per tile.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#include <cstdint>
-#include <type_traits>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
+using namespace attn;
+
 constexpr int kWarps = 4;                  // warps per block
 constexpr int kThreads = kWarps * kWarp;
 constexpr int kChunk = kWarp;              // cache positions per pass: one per lane
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRaggedRowsPerWarp = 16;     // 64 query rows per prefill tile
 constexpr int kDecodeRowsPerWarp = 1;      // G query heads per decode block
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
-// x rounded to T and read back as f32.
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// Load VEC consecutive elements (16 bytes) starting at `src` as f32.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* __restrict__ src, float (&dst)[VEC]) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) dst[i] = to_f32(e[i]);
-}
 
 template <int D, int RPW>
 constexpr int smem_bytes() {
@@ -282,12 +245,6 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
                          max(len - 1, 0), len > 0 ? 1 : 0, scale);
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int bytes) {
-  // Above 48 KB a block's dynamic shared memory needs an explicit opt-in.
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 // The arguments every launch shares: pages and scale planes (null unless
 // the pages are int8), page table, output and shapes.
 struct Args {
@@ -334,8 +291,6 @@ cudaError_t launch_decode(const Args& a, const int* lengths) {
   return cudaGetLastError();
 }
 
-enum DType { kFloat32 = 0, kBFloat16 = 1 };
-
 struct Ragged {
   const Args& a;
   const int* start;
@@ -351,26 +306,6 @@ struct Decode {
   template <typename T, typename PT, int D>
   cudaError_t run() const { return launch_decode<T, PT, D>(a, lengths); }
 };
-
-// Calls fn.run<T, PT, D>() for the runtime head dim and page type, or
-// returns cudaErrorInvalidValue.
-template <typename T, typename Fn>
-cudaError_t by_head_dim(int D, bool int8_pages, const Fn& fn) {
-  switch (D) {
-    case 16: return int8_pages ? fn.template run<T, int8_t, 16>() : fn.template run<T, T, 16>();
-    case 32: return int8_pages ? fn.template run<T, int8_t, 32>() : fn.template run<T, T, 32>();
-    case 64: return int8_pages ? fn.template run<T, int8_t, 64>() : fn.template run<T, T, 64>();
-    case 128: return int8_pages ? fn.template run<T, int8_t, 128>() : fn.template run<T, T, 128>();
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename Fn>
-cudaError_t dispatch(int dtype, int D, bool int8_pages, const Fn& fn) {
-  if (dtype == kFloat32) return by_head_dim<float>(D, int8_pages, fn);
-  if (dtype == kBFloat16) return by_head_dim<__nv_bfloat16>(D, int8_pages, fn);
-  return cudaErrorInvalidValue;
-}
 
 }  // namespace
 

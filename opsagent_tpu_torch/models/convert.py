@@ -4,6 +4,9 @@
 ``final_norm [d]``, ``lm_head [d, V]`` and, under ``layers``, stacked
 per-layer leaves ``[L, ...]`` in ``x @ w`` orientation (``wq [L, d, q]``).
 The port keeps that orientation, so conversion only unstacks the layer axis.
+Qwen2's biases (``bq bk bv``) and Qwen3's q/k norms (``qn kn``) carry
+across when the tree has them; a tree with tied embeddings has no
+``lm_head``.
 
 A quantized leaf (``QuantizedLinear`` / ``QuantizedLinear4``, read
 duck-typed by its ``.q`` and ``.scale``) becomes ``<name>.q`` and
@@ -22,6 +25,8 @@ import torch
 from .config import ModelConfig
 
 LAYER_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "wg", "wu", "wd")
+# Leaves of the attention variants: Qwen2 biases, Qwen3 q/k norms.
+OPTIONAL_LAYER_LEAVES = ("bq", "bk", "bv", "qn", "kn")
 
 
 def params_from_jax(
@@ -30,7 +35,7 @@ def params_from_jax(
     """JAX parameter tree of numpy arrays -> ``Llama.load_state_dict``
     input (CPU tensors; ``load_state_dict`` casts and moves them)."""
     layers = tree["layers"]
-    extra = set(layers) - set(LAYER_LEAVES)
+    extra = set(layers) - set(LAYER_LEAVES) - set(OPTIONAL_LAYER_LEAVES)
     if extra or "moe_layers" in tree:
         raise NotImplementedError(
             f"parameter leaves {sorted(extra) or ['moe_layers']} belong to "
@@ -38,9 +43,11 @@ def params_from_jax(
         )
     state: dict[str, torch.Tensor] = {}
     for name in ("embed", "final_norm", "lm_head"):
+        if name not in tree:
+            continue  # lm_head, with tied embeddings
         for key, a in _arrays(name, tree[name]):
             state[key] = torch.from_numpy(np.array(a))
-    for name in LAYER_LEAVES:
+    for name in (*LAYER_LEAVES, *(n for n in OPTIONAL_LAYER_LEAVES if n in layers)):
         for key, stacked in _arrays(name, layers[name]):
             if stacked.shape[0] != cfg.num_layers:
                 raise ValueError(

@@ -1,16 +1,20 @@
 """Llama-family dense decoder (GQA + RoPE + SwiGLU + RMSNorm) in PyTorch.
 
 The port's counterpart of ``opsagent_tpu/models/llama.py`` for dense
-configurations. Weights keep the JAX orientation (``x @ w`` with ``w``
-``[in, out]``), so a JAX parameter tree carries across unchanged
-(``models.convert``). The layer stack is a Python loop over ``nn.Module``
-layers where JAX scans stacked arrays.
+configurations: Llama and Mistral, Qwen2's q/k/v biases, Qwen3's per-head
+q/k RMSNorm, tied embeddings and llama3/YaRN rope scaling. Weights keep the
+JAX orientation (``x @ w`` with ``w`` ``[in, out]``), so a JAX parameter
+tree carries across unchanged (``models.convert``) and an HF checkpoint
+loads with its matrices transposed (``models.loader``). The layer stack is
+a Python loop over ``nn.Module`` layers where JAX scans stacked arrays.
 
 Entry points over the same weights:
 
 - ``mixed_step``: ragged rows (decode rows at q_len 1 beside prefill chunks)
-  over the paged cache, through the ragged paged-attention kernel;
-- ``decode_step``: one token per sequence, through the decode kernel;
+  over the paged cache, through the ragged paged-attention kernel of the
+  chosen backend ("dma" or "grid", ``ops.paged_attention.PAGED_BACKENDS``);
+- ``decode_step``: one token per sequence, through that backend's decode
+  kernel;
 - ``forward_full``: all positions, plain causal attention, no cache (the
   oracle).
 
@@ -33,12 +37,9 @@ from ..ops.attention import (
     flat_slot_indices,
     quantize_kv_rows,
 )
-from ..ops.paged_attention import (
-    paged_decode_attention_cuda,
-    paged_ragged_attention_cuda,
-)
+from ..ops.paged_attention import PAGED_BACKENDS
 from ..ops.quant_matmul import quant_matmul_cuda
-from ..ops.rope import apply_rope, rope_table
+from ..ops.rope import apply_rope, rope_table, yarn_get_mscale
 from .config import ModelConfig
 from .quant import QuantizedBase, QuantizedLinear, QuantizedLinear4, pack_int4
 
@@ -51,17 +52,24 @@ def _check_supported(cfg: ModelConfig) -> None:
         name for name, on in (
             ("moe", cfg.moe is not None),
             ("mla", cfg.mla is not None),
-            ("qk_norm", cfg.qk_norm),
-            ("rope_scaling", cfg.rope_scaling is not None),
-            ("attn_bias", cfg.attn_bias),
-            ("tie_embeddings", cfg.tie_embeddings),
         ) if on
     ]
     if unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsupported)} not ported yet; "
-            "this port serves dense Llama configurations"
+            f"{cfg.name}: {', '.join(unsupported)} not ported yet "
+            "(ROADMAP queue 1 item 9); this port serves dense configurations"
         )
+
+
+def _yarn_q_scale(cfg: ModelConfig) -> float:
+    """YaRN's softmax-scale correction (HF: softmax_scale *= mscale^2),
+    folded into q so the attention's D^-1/2 stays as it is; 1.0 unless
+    YaRN with ``mscale_all_dim`` applies."""
+    rs = cfg.rope_scaling
+    if rs is None or rs.rope_type != "yarn" or not rs.mscale_all_dim:
+        return 1.0
+    ms = yarn_get_mscale(rs.factor, rs.mscale_all_dim)
+    return ms * ms
 
 
 def _mm(x: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
@@ -182,6 +190,13 @@ class DecoderLayer(nn.Module):
         self.wk = linear(d, cfg.kv_size)
         self.wv = linear(d, cfg.kv_size)
         self.wo = linear(cfg.q_size, d)
+        if cfg.attn_bias:
+            self.bq = _vector(cfg.q_size, dtype, device)
+            self.bk = _vector(cfg.kv_size, dtype, device)
+            self.bv = _vector(cfg.kv_size, dtype, device)
+        if cfg.qk_norm:
+            self.qn = _vector(cfg.head_dim_, dtype, device)
+            self.kn = _vector(cfg.head_dim_, dtype, device)
         self.mlp_norm = _vector(d, dtype, device)
         self.wg = linear(d, f)
         self.wu = linear(d, f)
@@ -193,10 +208,19 @@ class DecoderLayer(nn.Module):
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         B, S, _ = h.shape
         K, D = cfg.num_kv_heads, cfg.head_dim_
-        q = _mm(h, self.wq, plain).view(B, S, cfg.num_heads, D)
-        k = _mm(h, self.wk, plain).view(B, S, K, D)
-        v = _mm(h, self.wv, plain).view(B, S, K, D)
-        return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+        q, k, v = (_mm(h, w, plain) for w in (self.wq, self.wk, self.wv))
+        if cfg.attn_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q, k = q.view(B, S, cfg.num_heads, D), k.view(B, S, K, D)
+        if cfg.qk_norm:
+            # Qwen3: per-head RMSNorm over the head dim, before RoPE.
+            q = rms_norm(q, self.qn, cfg.rms_norm_eps)
+            k = rms_norm(k, self.kn, cfg.rms_norm_eps)
+        q = apply_rope(q, cos, sin)
+        q_scale = _yarn_q_scale(cfg)
+        if q_scale != 1.0:
+            q = q * q_scale
+        return q, apply_rope(k, cos, sin), v.view(B, S, K, D)
 
     def mlp(self, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
         gate = F.silu(_mm(h, self.wg, plain)) * _mm(h, self.wu, plain)
@@ -205,12 +229,14 @@ class DecoderLayer(nn.Module):
 
 class Llama(nn.Module):
     """Dense decoder. ``seed`` fills the weights with the fan-in-scaled
-    normal init of ``opsagent_tpu``'s ``init_params`` (norms at 1), drawn
-    on ``device`` from a ``torch.Generator``, so an 8B model is built on the
-    card in seconds; ``seed=None`` leaves them uninitialized for
-    ``load_state_dict``. ``quantize`` ("int8" or "int4") builds the
+    normal init of ``opsagent_tpu``'s ``init_params`` (norms at 1, biases
+    at 0), drawn on ``device`` from a ``torch.Generator``, so an 8B model is
+    built on the card in seconds; ``seed=None`` leaves them uninitialized
+    for ``load_state_dict``. ``quantize`` ("int8" or "int4") builds the
     projections and the lm_head as quantized weights, which a seed fills
-    directly in quantized form (``init_random``)."""
+    directly in quantized form (``init_random``). With tied embeddings
+    there is no ``lm_head``: the head is ``x @ embed.T``, full precision
+    under ``quantize`` too."""
 
     def __init__(
         self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
@@ -235,22 +261,28 @@ class Llama(nn.Module):
             for _ in range(cfg.num_layers)
         )
         self.final_norm = _vector(d, dtype, device)
-        self.lm_head = _linear(d, v, dtype, device, quantize)
+        if not cfg.tie_embeddings:
+            self.lm_head = _linear(d, v, dtype, device, quantize)
         if seed is not None:
             self.init_random(seed)
 
     @torch.no_grad()
     def init_random(self, seed: int) -> None:
-        """Norms at 1; the embedding and plain weights normal with std
-        fan_in^-1/2; quantized weights as ``init_params_random_quantized``
-        makes them: uniform codes in [-127, 127] (int4: [-7, 7], packed,
-        one whole-axis group) and one scale per tensor, chosen so the
-        dequantized std matches the fan-in scaling. No full-precision copy
-        of a quantized weight is ever built."""
+        """Norms (and Qwen3's q/k norms) at 1, q/k/v biases at 0; the
+        embedding and plain weights normal with std fan_in^-1/2; quantized
+        weights as ``init_params_random_quantized`` makes them: uniform
+        codes in [-127, 127] (int4: [-7, 7], packed, one whole-axis group)
+        and one scale per tensor, chosen so the dequantized std matches the
+        fan-in scaling. No full-precision copy of a quantized weight is
+        ever built."""
         gen = torch.Generator(device=self.embed.device).manual_seed(seed)
         for name, p in self.named_parameters():
-            if name.endswith("norm"):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.endswith("norm") or leaf in ("qn", "kn"):
                 p.fill_(1.0)
+                continue
+            if leaf in ("bq", "bk", "bv"):
+                p.zero_()
                 continue
             # Fan-in is the contraction dim: [in, out] weights, and the
             # embedding's row width.
@@ -283,7 +315,9 @@ class Llama(nn.Module):
         )
 
     def _rope(self, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return rope_table(positions, self.cfg.head_dim_, self.cfg.rope_theta)
+        return rope_table(
+            positions, self.cfg.head_dim_, self.cfg.rope_theta, self.cfg.rope_scaling
+        )
 
     def _run_stack(self, x: torch.Tensor, attn_fn, plain: bool) -> torch.Tensor:
         eps = self.cfg.rms_norm_eps
@@ -295,6 +329,8 @@ class Llama(nn.Module):
 
     def _lm_head(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.rms_norm_eps)
+        if self.cfg.tie_embeddings:
+            return (x @ self.embed.T.to(x.dtype)).float()
         return _mm(x, self.lm_head, plain).float()
 
     def forward_full(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -319,13 +355,16 @@ class Llama(nn.Module):
         cache: PagedKVCache,
         page_table: torch.Tensor,   # [B, MaxP] int32
         plain: bool = False,
+        backend: str = "dma",
     ) -> torch.Tensor:
         """One forward over decode rows (q_len 1) and prefill chunks (q_len
         up to S) together: writes each row's valid K/V at ``start`` and
         returns the logits of its last valid position [B, V] f32. Rows with
         q_len 0 write nothing; their logits are discarded by the caller.
+        ``backend`` picks the paged-attention kernels ("dma" or "grid");
         ``plain`` runs attention and the quantized matmuls through their
         plain PyTorch versions."""
+        ragged_attention = PAGED_BACKENDS[backend][0]
         B, S = tokens.shape
         pos = start.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
         cos, sin = self._rope(pos)
@@ -338,7 +377,7 @@ class Llama(nn.Module):
             q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain)
             cache.write(li, k, v, flat)
             # cache.k[li] is a view: the attention reads the rows just written.
-            attn = paged_ragged_attention_cuda(
+            attn = ragged_attention(
                 q, cache.k[li], cache.v[li], page_table, start, q_lens,
                 plain=plain,
             )
@@ -356,9 +395,12 @@ class Llama(nn.Module):
         page_table: torch.Tensor,   # [B, MaxP] int32
         active: torch.Tensor,       # [B] bool; inactive rows write nothing
         plain: bool = False,
+        backend: str = "dma",
     ) -> torch.Tensor:
         """One token per sequence: writes its K/V at ``lengths`` and returns
-        the next-token logits [B, V] f32."""
+        the next-token logits [B, V] f32 (``backend`` and ``plain`` as in
+        ``mixed_step``)."""
+        decode_attention = PAGED_BACKENDS[backend][1]
         B = tokens.shape[0]
         cos, sin = self._rope(lengths.long()[:, None])
         valid = active.to(torch.int32)
@@ -372,7 +414,7 @@ class Llama(nn.Module):
             q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain)
             cache.write(li, k, v, flat)
             # cache.k[li] is a view: the attention reads the row just written.
-            attn = paged_decode_attention_cuda(
+            attn = decode_attention(
                 q[:, 0], cache.k[li], cache.v[li], page_table, seen,
                 plain=plain,
             )

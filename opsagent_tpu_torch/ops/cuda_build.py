@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` source is compiled on its own with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into a shared library with a plain C
 interface, at first use, under ``build/opsagent_tpu_torch/`` in the
 checkout, and loaded with ``ctypes``. Nothing is compiled when a module is
-imported. The library name carries a hash of its source, so an edited
-source never loads a stale build.
+imported. The library name carries a hash of its source and of the shared
+``csrc/*.cuh`` headers, so an edited source never loads a stale build.
 """
 
 from __future__ import annotations
@@ -44,7 +44,9 @@ def build(source: str, verbose: bool = False) -> tuple[Path, str]:
     yet. Returns (library path, compiler output; with ``verbose`` it
     includes ptxas's register and shared-memory report)."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    # The shared headers are part of every source's build.
+    text = [src.read_bytes()] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(text)).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib.exists() and not verbose:
         return lib, ""

@@ -1,16 +1,26 @@
 """The paged-attention CUDA kernels: bind, launch, count.
 
-``csrc/paged_attention.cu`` holds two hand-written kernels for Hopper
-(``sm_90a``), each with instances for pages in q's dtype and for int8
-``QuantizedPages``. ``cuda_build`` compiles it at first use and binds it
-with ``ctypes``; nothing is compiled when this module is imported.
+Two hand-written forms for Hopper (``sm_90a``) of the same two functions,
+each with instances for pages in q's dtype and for int8 ``QuantizedPages``:
 
-Each wrapper takes its kernel's plain PyTorch version (``ops/attention.py``)
-for CPU tensors, or when the caller passes ``plain=True`` (the explicit way
-to build a reference on the card). For CUDA tensors it launches the kernel
-on the current stream or raises; there is no fallback. ``LAUNCHES`` counts
-the kernel launches of each wrapper, int8-page launches under their own
-names.
+- ``csrc/paged_attention.cu`` (the "dma" backend, the counterparts of the
+  JAX package's ``pallas-dma`` kernels): one block per (sequence, kv head,
+  query-row tile) walks the whole sequence;
+- ``csrc/paged_attention_grid.cu`` (the "grid" backend, the counterparts
+  of its ``pallas`` grid kernels): the page-slot axis becomes a split of
+  the KV sequence, partials go to a workspace and a combine pass reduces
+  them.
+
+``cuda_build`` compiles each source at first use and binds it with
+``ctypes``; nothing is compiled when this module is imported.
+
+Each wrapper takes its kernel's plain PyTorch version (``ops/attention.py``;
+both forms share it) for CPU tensors, or when the caller passes
+``plain=True`` (the explicit way to build a reference on the card). For
+CUDA tensors it launches the kernel on the current stream or raises; there
+is no fallback. ``LAUNCHES`` counts the kernel launches of each wrapper,
+int8-page launches under their own names; a grid call (split pass and
+combine) counts once.
 """
 
 from __future__ import annotations
@@ -23,15 +33,32 @@ from . import cuda_build
 from .attention import QuantizedPages, paged_decode_attention, paged_ragged_attention
 
 SOURCE = "paged_attention.cu"
+GRID_SOURCE = "paged_attention_grid.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Query rows per tile of the grid kernels' split pass (kWarps * rows per
+# warp in csrc/paged_attention_grid.cu).
+GRID_TILE_ROWS = {"ragged": 64, "decode": 8}
+# The split pass aims at this many blocks per SM ...
+GRID_BLOCKS_PER_SM = 2
+# ... within this much f32 workspace for the partials.
+GRID_WORKSPACE_BYTES = 64 << 20
 
 LAUNCHES: dict[str, int] = {
     "paged_ragged_attention": 0,
     "paged_decode_attention": 0,
     "paged_ragged_attention_int8": 0,
     "paged_decode_attention_int8": 0,
+    "paged_ragged_attention_grid": 0,
+    "paged_decode_attention_grid": 0,
+    "paged_ragged_attention_grid_int8": 0,
+    "paged_decode_attention_grid_int8": 0,
 }
+
+# Grid-kernel workspaces, one per (device, size), allocated at the first
+# call of that shape and kept. Calls reuse one safely because they run in
+# order on the device's current stream, as the engine launches them.
+_workspaces: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -49,6 +76,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         [p] * 8 + [i] * 6 + [ctypes.c_float, i, p]
     )
     lib.opsagent_paged_decode_attention.restype = i
+
+
+def _bind_grid(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.opsagent_paged_ragged_attention_grid.argtypes = (
+        [p] * 10 + [i] * 9 + [ctypes.c_float, i, p]
+    )
+    lib.opsagent_paged_ragged_attention_grid.restype = i
+    lib.opsagent_paged_decode_attention_grid.argtypes = (
+        [p] * 9 + [i] * 8 + [ctypes.c_float, i, p]
+    )
+    lib.opsagent_paged_decode_attention_grid.restype = i
 
 
 def _layer_view(pages, layer: int | None):
@@ -179,3 +218,118 @@ def paged_decode_attention_cuda(
     cuda_build.raise_on(rc, "paged_decode_attention")
     _count("paged_decode_attention", ks)
     return out
+
+
+def grid_splits(
+    blocks: int, rows: int, D: int, max_pages: int, P: int, sms: int,
+) -> tuple[int, int]:
+    """(splits, span) of a grid call whose split pass has ``blocks`` blocks
+    per split over ``rows`` query rows: enough splits for
+    ``GRID_BLOCKS_PER_SM`` blocks per SM, no more than ``max_pages`` (a
+    split holds whole pages) nor than fit ``GRID_WORKSPACE_BYTES`` of
+    partials (``rows * (D + 2)`` floats per split); ``span`` is the cache
+    positions of one split, and no split lies wholly past ``max_pages``."""
+    max_pages = max(max_pages, 1)  # an empty table still takes one split
+    want = -(-GRID_BLOCKS_PER_SM * sms // max(blocks, 1))
+    fit = GRID_WORKSPACE_BYTES // max(rows * (D + 2) * 4, 1)
+    n = max(1, min(want, fit, max_pages))
+    pages = -(-max_pages // n)
+    return -(-max_pages // pages), pages * P
+
+
+def _workspace(device: torch.device, numel: int) -> torch.Tensor:
+    ws = _workspaces.get((device, numel))
+    if ws is None:
+        ws = torch.empty(numel, dtype=torch.float32, device=device)
+        _workspaces[(device, numel)] = ws
+    return ws
+
+
+def _grid_plan(
+    q: torch.Tensor, form: str, S: int, K: int, P: int, max_pages: int,
+) -> tuple[int, int, torch.Tensor]:
+    """(splits, span, workspace) of one grid call."""
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    tiles = -(-S * (H // K) // GRID_TILE_ROWS[form])
+    rows = B * S * H
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits, span = grid_splits(B * K * tiles, rows, D, max_pages, P, sms)
+    return splits, span, _workspace(q.device, splits * rows * (D + 2))
+
+
+def paged_ragged_attention_grid_cuda(
+    q: torch.Tensor,            # [B, S, H, D]
+    k_pages,                    # [N, P, K, D] or [L, N, P, K, D] with layer,
+    v_pages,                    # or QuantizedPages of that shape
+    page_table: torch.Tensor,   # [B, MaxP] int32
+    start: torch.Tensor,        # [B] int32
+    q_lens: torch.Tensor,       # [B] int32
+    layer: int | None = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Ragged paged attention (``ops.attention.paged_ragged_attention``'s
+    contract) through the split-KV grid kernel."""
+    if plain or q.device.type == "cpu":
+        return paged_ragged_attention(
+            q, k_pages, v_pages, page_table, start, q_lens, layer=layer
+        )
+    k_pages, v_pages = _layer_view(k_pages, layer), _layer_view(v_pages, layer)
+    B, S, H, D = q.shape
+    ints = {"page_table": page_table, "start": start, "q_lens": q_lens}
+    _check(q, k_pages, v_pages, ints, B)
+    (kv, ks), (vv, vs) = _planes(k_pages), _planes(v_pages)
+    N, P, K, _ = kv.shape
+    max_pages = page_table.shape[1]
+    splits, span, ws = _grid_plan(q, "ragged", S, K, P, max_pages)
+    out = torch.empty_like(q)
+    ptr = cuda_build.ptr
+    rc = cuda_build.library(GRID_SOURCE, _bind_grid).opsagent_paged_ragged_attention_grid(
+        ptr(q), ptr(kv), ptr(vv), ptr(ks), ptr(vs), ptr(page_table), ptr(start),
+        ptr(q_lens), ptr(ws), ptr(out), B, S, H, K, D, P, max_pages, splits, span,
+        D ** -0.5, _DTYPE_CODES[q.dtype], cuda_build.stream(q.device),
+    )
+    cuda_build.raise_on(rc, "paged_ragged_attention_grid")
+    _count("paged_ragged_attention_grid", ks)
+    return out
+
+
+def paged_decode_attention_grid_cuda(
+    q: torch.Tensor,            # [B, H, D]
+    k_pages,                    # [N, P, K, D] or [L, N, P, K, D] with layer,
+    v_pages,                    # or QuantizedPages of that shape
+    page_table: torch.Tensor,   # [B, MaxP] int32
+    lengths: torch.Tensor,      # [B] int32, including the new token
+    layer: int | None = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Paged decode attention (``ops.attention.paged_decode_attention``'s
+    contract) through the split-KV grid kernel."""
+    if plain or q.device.type == "cpu":
+        return paged_decode_attention(
+            q, k_pages, v_pages, page_table, lengths, layer=layer
+        )
+    k_pages, v_pages = _layer_view(k_pages, layer), _layer_view(v_pages, layer)
+    B, H, D = q.shape
+    ints = {"page_table": page_table, "lengths": lengths}
+    _check(q, k_pages, v_pages, ints, B)
+    (kv, ks), (vv, vs) = _planes(k_pages), _planes(v_pages)
+    N, P, K, _ = kv.shape
+    max_pages = page_table.shape[1]
+    splits, span, ws = _grid_plan(q, "decode", 1, K, P, max_pages)
+    out = torch.empty_like(q)
+    ptr = cuda_build.ptr
+    rc = cuda_build.library(GRID_SOURCE, _bind_grid).opsagent_paged_decode_attention_grid(
+        ptr(q), ptr(kv), ptr(vv), ptr(ks), ptr(vs), ptr(page_table), ptr(lengths),
+        ptr(ws), ptr(out), B, H, K, D, P, max_pages, splits, span,
+        D ** -0.5, _DTYPE_CODES[q.dtype], cuda_build.stream(q.device),
+    )
+    cuda_build.raise_on(rc, "paged_decode_attention_grid")
+    _count("paged_decode_attention_grid", ks)
+    return out
+
+
+# The attention functions of each paged backend: (ragged, decode).
+PAGED_BACKENDS = {
+    "dma": (paged_ragged_attention_cuda, paged_decode_attention_cuda),
+    "grid": (paged_ragged_attention_grid_cuda, paged_decode_attention_grid_cuda),
+}

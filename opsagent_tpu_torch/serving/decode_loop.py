@@ -34,9 +34,11 @@ def decode_block(
     n_steps: int,
     greedy: bool = False,
     plain: bool = False,
+    backend: str = "dma",
 ) -> torch.Tensor:
     """Returns the block's tokens [B, n_steps] int64 on the device, pad past
-    each row's finish. ``greedy`` replaces the sampler with an argmax."""
+    each row's finish. ``greedy`` replaces the sampler with an argmax;
+    ``plain`` and ``backend`` pass to ``Llama.decode_step``."""
     tok = tokens.long()
     at = write_at.to(torch.int32)
     act = active & (budgets > 0)
@@ -45,7 +47,7 @@ def decode_block(
         (tok.shape[0], n_steps), dtype=torch.long, device=tok.device
     )
     for step in range(n_steps):
-        logits = model.decode_step(tok, at, cache, page_table, act, plain)
+        logits = model.decode_step(tok, at, cache, page_table, act, plain, backend)
         if greedy:
             nxt = logits.argmax(dim=-1)
         else:

@@ -11,8 +11,10 @@ on the host. Two device programs carry the traffic:
 
 ``EngineConfig.quantize`` and ``kv_quantize`` select int8/int4 weights
 (every projection through the quantized matmul kernel) and int8 KV pages
-(the attention kernels' int8 instances); ``attn_impl`` picks kernels or
-plain versions for all of them at once.
+(the attention kernels' int8 instances); ``paged_backend`` picks the
+paged-attention kernels ("dma" or "grid"); ``attn_impl`` picks kernels or
+plain versions for all of them at once. ``checkpoint`` loads an HF
+safetensors directory instead of random weights.
 
 No async runtime, pipelining, grammar fast-forward, speculation, offload,
 snapshots or constrained decoding in this port yet.
@@ -26,8 +28,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.config import ModelConfig, get_config_preset
+from ..models.config import ModelConfig, resolve_model
 from ..models.llama import Llama
+from ..models.loader import load_checkpoint
+from ..ops.paged_attention import PAGED_BACKENDS
 from .decode_loop import decode_block
 from .kvcache import InvalidRequest, OutOfPages, PageAllocator
 from .sampler import SamplingParams, sample
@@ -36,7 +40,10 @@ from .tokenizer import ByteTokenizer, Tokenizer
 
 @dataclass
 class EngineConfig:
+    # A preset name, or "auto" for the checkpoint's own config.json.
     model: str = "tiny-test"
+    # HF safetensors directory; "" = random weights from ``seed``.
+    checkpoint: str = ""
     dtype: torch.dtype = torch.bfloat16
     page_size: int = 16
     num_pages: int = 2048
@@ -65,6 +72,12 @@ class EngineConfig:
     # (int8 pages + one f32 scale per token and kv head,
     # ops.attention.QuantizedPages): D + 4 bytes per row against 2 * D.
     kv_quantize: str = ""
+    # Paged-attention kernels: "dma" (one block per sequence walks its
+    # pages, the counterparts of the JAX package's pallas-dma kernels) or
+    # "grid" (split over the KV sequence, the counterparts of its pallas
+    # grid kernels). Both have the same plain version, which attn_impl
+    # "plain" runs whatever the backend.
+    paged_backend: str = "dma"
 
 
 @dataclass
@@ -89,13 +102,20 @@ class Engine:
         tokenizer: Tokenizer | None = None,
     ):
         """``model``: a ready ``Llama`` on the engine's device (tests and
-        the reference engine share one); otherwise random weights from
-        ``cfg.seed`` are built on the device."""
+        the reference engine share one); otherwise the weights of
+        ``cfg.checkpoint`` or, without one, random weights from ``cfg.seed``
+        are built on the device."""
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.model_cfg = model_cfg or (
-            model.cfg if model is not None else get_config_preset(cfg.model)
+            model.cfg if model is not None
+            else resolve_model(cfg.model, cfg.checkpoint)
         )
+        if cfg.paged_backend not in PAGED_BACKENDS:
+            raise ValueError(
+                f"paged_backend={cfg.paged_backend!r}: expected one of "
+                f"{sorted(PAGED_BACKENDS)}"
+            )
         impl = cfg.attn_impl or ("plain" if self.device.type == "cpu" else "cuda")
         if impl not in ("cuda", "plain"):
             raise ValueError(f"attn_impl={impl!r}: expected 'cuda' or 'plain'")
@@ -110,10 +130,7 @@ class Engine:
             )
         self.tokenizer = tokenizer or ByteTokenizer(self.model_cfg.vocab_size)
         with torch.inference_mode():
-            self.model = model if model is not None else Llama(
-                self.model_cfg, cfg.dtype, self.device, seed=cfg.seed,
-                quantize=cfg.quantize,
-            )
+            self.model = model if model is not None else self._build_model()
             self.cache = self.model.make_cache(
                 cfg.num_pages, cfg.page_size, cfg.kv_quantize
             )
@@ -127,10 +144,26 @@ class Engine:
             cfg.seed + 1
         )
 
+    def _build_model(self) -> Llama:
+        """Random weights from the seed, built on the device; or the
+        checkpoint's, read (and quantized) on the host, then copied into a
+        model built on the device, so the device never holds two copies."""
+        cfg = self.cfg
+        if not cfg.checkpoint:
+            return Llama(self.model_cfg, cfg.dtype, self.device, seed=cfg.seed,
+                         quantize=cfg.quantize)
+        state = load_checkpoint(cfg.checkpoint, self.model_cfg, cfg.dtype,
+                                device="cpu", quantize=cfg.quantize)
+        model = Llama(self.model_cfg, cfg.dtype, self.device, seed=None,
+                      quantize=cfg.quantize)
+        model.load_state_dict(state)
+        return model
+
     def impl_info(self) -> dict[str, str]:
         """The resolved execution modes (served on ``/healthz``)."""
         return {
             "attn_impl": self.attn_impl,
+            "paged_backend": self.cfg.paged_backend,
             "device": str(self.device),
             "dtype": str(self.cfg.dtype).removeprefix("torch."),
             "quantize": self.cfg.quantize or "none",
@@ -308,6 +341,7 @@ class Engine:
                     self._dev(tokens), self._dev(starts), self._dev(qlens),
                     self.cache, self._dev(tables),
                     plain=self.attn_impl == "plain",
+                    backend=self.cfg.paged_backend,
                 )
                 # Every row samples; rows whose chunk does not finish the
                 # prompt discard their token below.
@@ -378,7 +412,7 @@ class Engine:
                 self._dev(top_k), self._dev(top_p),
                 self.tokenizer.eos_id, self.tokenizer.pad_id,
                 n_steps=int(budgets.max()), greedy=bool(np.all(temps <= 0.0)),
-                plain=self.attn_impl == "plain",
+                plain=self.attn_impl == "plain", backend=self.cfg.paged_backend,
             ).cpu().numpy()
         out: dict[int, list[int]] = {}
         for i, s in enumerate(lanes):

@@ -1,9 +1,12 @@
 """The port's paged attention against the JAX package's, on the CPU.
 
 Same numpy inputs (seeded) through the JAX oracles, the JAX Pallas kernels
-in interpret mode, and the port's plain versions and kernel wrappers (which
-take the plain versions for CPU tensors). f32 at 1e-5, the reference's own
-tolerance (opsagent_tpu/ops/attention.py:620). Rows the JAX side leaves as
+in interpret mode (the DMA form and the grid form), and the port's plain
+versions and kernel wrappers of both backends (which take the plain
+versions for CPU tensors). f32 at 1e-5, the reference's own tolerance
+(opsagent_tpu/ops/attention.py:620); bf16 at 1e-2 (one bf16 ulp of an
+output below 2 is 2^-7); int8 pages at 2e-5 in f32 (the JAX kernels scale
+in score space, the port dequantizes rows). Rows the JAX side leaves as
 garbage (s >= q_len, length 0) are compared only on the port's side, where
 they must be exact zeros.
 """
@@ -15,15 +18,22 @@ import torch
 
 from opsagent_tpu.ops import attention as jattn
 from opsagent_tpu.ops.paged_attention_pallas import (
+    paged_decode_attention_pallas,
     paged_decode_attention_pallas_dma,
+    paged_ragged_attention_pallas,
     paged_ragged_attention_pallas_dma,
 )
 from opsagent_tpu_torch.models.config import TINY_TEST
 from opsagent_tpu_torch.models.llama import PagedKVCache
 from opsagent_tpu_torch.ops import attention as tattn
 from opsagent_tpu_torch.ops.paged_attention import (
+    GRID_TILE_ROWS,
+    GRID_WORKSPACE_BYTES,
+    grid_splits,
     paged_decode_attention_cuda,
+    paged_decode_attention_grid_cuda,
     paged_ragged_attention_cuda,
+    paged_ragged_attention_grid_cuda,
 )
 
 B, S, H, K, D, P, MAXP, L, N = 3, 8, 4, 2, 16, 4, 6, 2, 20
@@ -317,3 +327,110 @@ def test_quantized_wrappers_and_cache_write():
     want = tattn.paged_decode_attention(q, cache.v[LAYER], cache.v[LAYER], t["table"], t["lengths"])
     got = paged_decode_attention_cuda(q, cache.v, cache.v, t["table"], t["lengths"], layer=LAYER)
     assert torch.equal(got, want)
+
+
+# -- grid form: the port's grid wrappers against JAX's grid kernels ---------
+def _grid_case(seed, B, S, H, K, D, P, MaxP, N, start, q_lens, dtype, quantized):
+    """Pages written through each side's own write path from the same
+    numpy rows (quantized: per-token absmax int8, as the engine writes
+    them); q in ``dtype``. Returns (jax args, port args)."""
+    rng = np.random.default_rng(seed)
+    start, q_lens = np.array(start, np.int32), np.array(q_lens, np.int32)
+    table = np.full((B, MaxP), -1, np.int32)
+    free = list(rng.permutation(N))
+    for b in range(B):
+        for i in range(min(-(-(start[b] + q_lens[b]) // P), MaxP)):
+            table[b, i] = free.pop()
+    total = max(int((start + q_lens).max()), 1)
+    kw = rng.standard_normal((B, total, K, D)).astype(np.float32)
+    vw = rng.standard_normal((B, total, K, D)).astype(np.float32)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    zero, valid = np.zeros(B, np.int32), start + q_lens
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    if quantized:
+        jk, jv = (_quantized_pages((N, P, K, D), True) for _ in range(2))
+        tk, tv = (_quantized_pages((N, P, K, D), False) for _ in range(2))
+    else:
+        jk = jv = jnp.zeros((N, P, K, D), jdt)
+        tk, tv = (torch.zeros(N, P, K, D, dtype=dtype) for _ in range(2))
+    jk, jv = jattn.write_kv_pages(jk, jv, jnp.asarray(kw, jdt), jnp.asarray(vw, jdt),
+                                  table, zero, valid_len=valid)
+    tattn.write_kv_pages(tk, tv, torch.from_numpy(kw).to(dtype), torch.from_numpy(vw).to(dtype),
+                         torch.from_numpy(table), torch.from_numpy(zero),
+                         valid_len=torch.from_numpy(valid))
+    jax_args = (jnp.asarray(q, jdt), jk, jv, table, start, q_lens)
+    port_args = (torch.from_numpy(q).to(dtype), tk, tv, torch.from_numpy(table),
+                 torch.from_numpy(start), torch.from_numpy(q_lens))
+    return jax_args, port_args
+
+
+GRID_TOL = {(torch.float32, False): 1e-5, (torch.bfloat16, False): 1e-2,
+            (torch.float32, True): 2e-5}
+
+
+@pytest.mark.parametrize("dtype,quantized", sorted(GRID_TOL, key=str))
+@pytest.mark.parametrize("H,K", [(4, 2), (14, 2)])   # G = 2 and G = 7
+def test_ragged_grid_matches_jax_grid_kernel(dtype, quantized, H, K):
+    """Decode rows (q_len 1) beside chunks that start mid-page, a q_len 0
+    row, and a row whose context runs past MaxP * P."""
+    B_, S_, D_, P_, MaxP_, N_ = 4, 8, 16, 4, 6, 40
+    jargs, targs = _grid_case(7, B_, S_, H, K, D_, P_, MaxP_, N_,
+                              [9, 0, 3, 20], [1, 8, 0, 8], dtype, quantized)
+    got = paged_ragged_attention_grid_cuda(*targs).float().numpy()
+    want = np.asarray(paged_ragged_attention_pallas(*jargs, interpret=True)).astype(np.float32)
+    q_lens = targs[5].numpy()
+    ok = np.arange(S_)[None, :] < q_lens[:, None]
+    tol = GRID_TOL[(dtype, quantized)]
+    np.testing.assert_allclose(got[ok], want[ok], rtol=tol, atol=tol)
+    assert (got[~ok] == 0).all()
+
+
+@pytest.mark.parametrize("dtype,quantized", sorted(GRID_TOL, key=str))
+@pytest.mark.parametrize("H,K", [(4, 2), (14, 2)])
+def test_decode_grid_matches_jax_grid_kernel(dtype, quantized, H, K):
+    """Lengths 0, mid-page, a page boundary, and past MaxP * P."""
+    B_, D_, P_, MaxP_, N_ = 4, 16, 4, 6, 40
+    lengths = np.array([10, 0, 16, 27], np.int32)
+    jargs, targs = _grid_case(8, B_, 1, H, K, D_, P_, MaxP_, N_,
+                              np.maximum(lengths - 1, 0), (lengths > 0).astype(np.int32),
+                              dtype, quantized)
+    jq, jk, jv, table = jargs[:4]
+    tq, tk, tv, ttable = targs[:4]
+    got = paged_decode_attention_grid_cuda(
+        tq[:, 0].contiguous(), tk, tv, ttable, torch.from_numpy(lengths)
+    ).float().numpy()
+    want = np.asarray(paged_decode_attention_pallas(
+        jq[:, 0], jk, jv, table, lengths, interpret=True
+    )).astype(np.float32)
+    ok = lengths > 0
+    tol = GRID_TOL[(dtype, quantized)]
+    np.testing.assert_allclose(got[ok], want[ok], rtol=tol, atol=tol)
+    assert (got[~ok] == 0).all()
+
+
+def test_grid_wrappers_take_plain_version_with_layer_axis(case):
+    t = _t(case)
+    args = (t["q"], t["k"], t["v"], t["table"], t["start"], t["q_lens"])
+    assert torch.equal(paged_ragged_attention_grid_cuda(*args, layer=LAYER),
+                       tattn.paged_ragged_attention(*args, layer=LAYER))
+    q = t["q"][:, 0].contiguous()
+    dargs = (q, t["k"], t["v"], t["table"], t["lengths"])
+    assert torch.equal(paged_decode_attention_grid_cuda(*dargs, layer=LAYER),
+                       tattn.paged_decode_attention(*dargs, layer=LAYER))
+
+
+@pytest.mark.parametrize("blocks,rows,max_pages,want_splits", [
+    (8 * 4 * 1, 8 * 28, 320, 9),         # Qwen2.5-7B decode at B = 8: split
+    (8 * 4 * 14, 8 * 128 * 28, 258, 1),  # its full ragged tick: enough blocks
+    (8, 2 ** 18, 2048, 1),               # the workspace bound holds one split
+    (8, 2 ** 15, 2048, 3),               # ... or three
+    (16, 8 * 4, 3, 3),                   # never more splits than pages
+])
+def test_grid_splits(blocks, rows, max_pages, want_splits):
+    D, P = 128, 16
+    splits, span = grid_splits(blocks, rows, D, max_pages, P, sms=132)
+    assert splits == want_splits
+    assert span % P == 0 and (splits - 1) * span < max_pages * P <= splits * span
+    assert splits == 1 or splits * rows * (D + 2) * 4 <= GRID_WORKSPACE_BYTES
+    assert GRID_TILE_ROWS == {"ragged": 64, "decode": 8}
+    assert grid_splits(blocks, rows, D, 0, P, sms=132) == (1, P)   # an empty table

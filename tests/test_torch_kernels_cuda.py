@@ -5,9 +5,10 @@ the JAX package, so they run where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Attention tolerances are the reference's own (opsagent_tpu/ops/attention.py:620):
-1e-5 in f32, 1e-2 in bf16 (int8 pages: the plain version dequantizes to bf16
-first, the kernel keeps f32). Quantized matmul: rtol = atol = 1e-3 in f32
+Attention tolerances, for both the dma and the grid kernels, are the
+reference's own (opsagent_tpu/ops/attention.py:620): 1e-5 in f32, 1e-2 in
+bf16 (int8 pages: kernel and plain version both round the dequantized rows
+to q's dtype). Quantized matmul: rtol = atol = 1e-3 in f32
 (tests/test_quant_matmul_pallas.py's own) and 1e-2 in bf16 (one bf16 ulp is
 up to 2^-7 relative), over outputs of unit scale.
 """
@@ -181,3 +182,73 @@ def test_quant_matmul_raises_on_what_the_kernel_does_not_take(gen):
         qm.quant_matmul_cuda(torch.randn(2, 64, device="cuda").half(), w)
     with pytest.raises(ValueError, match="contiguous"):
         qm.quant_matmul_cuda(torch.randn(64, 2, device="cuda").t(), w)
+
+
+# -- grid form (split over the KV sequence) ------------------------------------
+GRID_WIDTHS = [(4, 2, 16, 4), (8, 2, 32, 8), (32, 8, 64, 16), (32, 8, 128, 16),
+               (28, 4, 128, 16), (14, 2, 64, 16)]   # the last two: G = 7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,D,P", GRID_WIDTHS)
+def test_grid_kernels_match_plain(gen, dtype, H, K, D, P):
+    """Ragged rows (a full chunk, a decode row, a q_len 0 row, a chunk at a
+    long context) and decode lengths 1, 0, 33 and 700, over pages in q's
+    dtype and over int8 pages."""
+    q, k, v, table, start, q_lens = _case(
+        gen, 4, 24, H, K, D, P, [0, 37, 5, 700], [24, 1, 0, 17], dtype
+    )
+    lens = torch.tensor([1, 0, 33, 700], dtype=torch.int32, device="cuda")
+    qd = q[:, 0].contiguous()
+    for suffix, (kp, vp) in (("", (k, v)), ("_int8", _quantize_pages(k, v, table, start, q_lens))):
+        before = dict(pa.LAUNCHES)
+        got = pa.paged_ragged_attention_grid_cuda(q, kp, vp, table, start, q_lens)
+        want = pa.paged_ragged_attention_grid_cuda(q, kp, vp, table, start, q_lens, plain=True)
+        dgot = pa.paged_decode_attention_grid_cuda(qd, kp, vp, table, lens)
+        dwant = pa.paged_decode_attention_grid_cuda(qd, kp, vp, table, lens, plain=True)
+        torch.cuda.synchronize()
+        for name in ("paged_ragged_attention_grid", "paged_decode_attention_grid"):
+            assert pa.LAUNCHES[name + suffix] == before[name + suffix] + 1
+        assert pa.LAUNCHES["paged_ragged_attention"] == before["paged_ragged_attention"]
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+        assert (dgot.float() - dwant.float()).abs().max().item() <= TOL[dtype]
+        assert (got[2] == 0).all() and (got[1, 1:] == 0).all() and (dgot[1] == 0).all()
+
+
+def test_grid_kernels_split_long_decode_and_tolerate_short_tables(gen):
+    """A batch of two at 4096 tokens splits over many pages; a length past
+    MaxP * P reads the whole table, as the plain version does."""
+    q, k, v, table, _, _ = _case(gen, 2, 1, 28, 4, 128, 16, [4095, 100], [1, 1],
+                                 torch.float32)
+    lens = torch.tensor([4096, 5000], dtype=torch.int32, device="cuda")
+    got = pa.paged_decode_attention_grid_cuda(q[:, 0], k, v, table, lens)
+    want = pa.paged_decode_attention_grid_cuda(q[:, 0], k, v, table, lens, plain=True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("quantize,kv_quantize", [("", ""), ("int8", "int8")])
+def test_engine_grid_path_matches_plain_path(gen, quantize, kv_quantize):
+    from dataclasses import replace
+
+    from opsagent_tpu_torch.models.config import QWEN25_7B
+    from opsagent_tpu_torch.models.llama import Llama
+
+    # Qwen2.5's biases and G = 7, narrowed, with a tied head.
+    cfg = replace(QWEN25_7B, num_layers=1, hidden_size=256, intermediate_size=512,
+                  num_heads=14, num_kv_heads=2, head_dim=32, vocab_size=512,
+                  tie_embeddings=True)
+    model = Llama(cfg, torch.float32, "cuda", seed=0, quantize=quantize)
+    prompts = [[257] + list(range(10, 50)), [257, 5, 6, 7]]
+    outs = []
+    for impl in ("cuda", "plain"):
+        eng = Engine(EngineConfig(model=cfg.name, dtype=torch.float32, page_size=4,
+                                  num_pages=64, decode_block=4, attn_impl=impl,
+                                  quantize=quantize, kv_quantize=kv_quantize,
+                                  paged_backend="grid"), model_cfg=cfg, model=model)
+        before = dict(pa.LAUNCHES)
+        outs.append(eng.generate(prompts, SamplingParams(max_tokens=12)))
+        grid = [n for n in pa.LAUNCHES if "grid" in n and pa.LAUNCHES[n] > before[n]]
+        dma = [n for n in pa.LAUNCHES if "grid" not in n and pa.LAUNCHES[n] > before[n]]
+        assert not dma and (bool(grid) == (impl == "cuda"))
+    assert outs[0] == outs[1]

@@ -115,5 +115,7 @@ def test_mixed_and_decode_steps_match_jax(pair):
 def test_unported_configs_raise():
     from dataclasses import replace
 
-    with pytest.raises(NotImplementedError, match="qk_norm"):
-        Llama(replace(TINY_TEST, qk_norm=True), torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="moe"):
+        Llama(replace(TINY_TEST, moe=object()), torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="mla"):
+        Llama(replace(TINY_TEST, mla=object()), torch.float32, "cpu")
