@@ -7,7 +7,8 @@ Phases, each printing one JSON line with its seconds:
 
 1. device: requires CUDA; reads the card's name and power limit.
 2. build: compiles every kernel source in ``opsagent_tpu_torch/csrc``, one
-   ``nvcc`` per source, all started together.
+   ``nvcc`` per source, all started together; reports ptxas's registers
+   and spills of the tensor-core instances (the bf16 ragged kernels).
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 and f32. Paged attention, both forms (the "dma" kernels and the
    split-KV "grid" kernels), over bf16/f32 pages and over int8 pages at the
@@ -21,7 +22,9 @@ Phases, each printing one JSON line with its seconds:
    weights + int8 KV, int4 weights + int8 KV) and of Qwen2.5-7B (grid
    kernels; unquantized, int8 + int8 KV): ``Engine.generate`` through the
    kernels gives exactly the greedy tokens of the same engine through the
-   plain versions, with a prefix-cache hit.
+   plain versions, with a prefix-cache hit. Then (``e2e_bf16``) the same
+   two cuts in bf16, bf16 pages and int8 KV: the first mixed step's
+   last-position logits through the kernels against the plain path's.
 5. hf: the HF-written fixtures ``tests/fixtures/tiny-{llama,qwen2,qwen3}-hf``
    loaded by the port's loader onto the card: last-position logits through
    the kernels within 2e-4 of HF's, and greedy tokens equal to HF's under
@@ -50,6 +53,8 @@ import itertools
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -114,6 +119,11 @@ E2E = (
     (QWEN25_7B, "grid", "", ""),
     (QWEN25_7B, "grid", "int8", "int8"),
 )
+# (2-layer cut, paged backend) of each bf16 logits check, each with bf16
+# pages and with int8 KV; the q_lens of its first mixed step, all rows
+# from position 0.
+E2E_BF16 = ((BENCH_8B, "dma"), (QWEN25_7B, "grid"))
+E2E_BF16_Q_LENS = [128, 128, 77, 1, 33, 0, 128, 5]
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
 HF_FIXTURES = ("tiny-llama-hf", "tiny-qwen2-hf", "tiny-qwen3-hf")
 HF_LOGIT_TOL = 2e-4     # tests/test_checkpoint_golden.py's own
@@ -157,15 +167,57 @@ def launch_counts() -> dict[str, int]:
 
 
 # -- phase 2: build ---------------------------------------------------------------
+def demangle(names: list[str]) -> list[str]:
+    """C++ names through the toolkit's cu++filt (or c++filt); the mangled
+    names where neither is there."""
+    nvcc_dir = os.path.dirname(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc")
+    for tool in (os.path.join(nvcc_dir, "cu++filt"), shutil.which("c++filt")):
+        if tool and os.path.exists(tool):
+            res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                                 text=True, timeout=60)
+            out = res.stdout.splitlines()
+            if res.returncode == 0 and len(out) == len(names):
+                return out
+    return names
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Registers and spills of every kernel in ptxas's ``-v`` report."""
+    rows: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line):
+            name = m.group(1)
+            rows.setdefault(name, {"kernel": name})
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            rows[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            rows[name]["registers"] = int(m.group(1))
+    out = [r for r in rows.values() if "registers" in r]
+    for r, full in zip(out, demangle([r["kernel"] for r in out])):
+        # "void <unnamed>::ragged_kernel<__nv_bfloat16, signed char, (int)128,
+        # (int)16>(...)" -> "ragged_kernel<__nv_bfloat16, signed char, 128, 16>"
+        full = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\(int\)|^void ", "", full)
+        r["kernel"] = full.split(">(")[0] + ">" if ">(" in full else full
+    return out
+
+
 def phase_build() -> dict:
     """One nvcc per source, all started together; ptxas's reports go to
-    stderr."""
+    stderr, and the registers and spills of the tensor-core instances (the
+    bf16 ragged kernels of both forms) into the phase line."""
     sources = sorted({src for src, _ in KERNELS.values()})
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(lambda s: cuda_build.build(s, verbose=True), sources))
+    tensor_core = []
     for _, log in built:
         print(log, file=sys.stderr)
-    return {"libraries": [lib.name for lib, _ in built]}
+        tensor_core += [r for r in ptxas_report(log)
+                        if "ragged" in r["kernel"] and "bfloat16" in r["kernel"]
+                        and "decode" not in r["kernel"]]
+    check(len(tensor_core) >= 16,
+          f"ptxas reported {len(tensor_core)} bf16 ragged instances, expected 16")
+    return {"libraries": [lib.name for lib, _ in built], "ptxas_tensor_core": tensor_core}
 
 
 # -- phase 3: attention kernels against their plain versions -------------------
@@ -483,6 +535,63 @@ def phase_e2e(seed: int) -> dict:
     return report
 
 
+def phase_e2e_bf16(seed: int) -> dict:
+    """The first mixed step of eight fresh prompts (``E2E_BF16_Q_LENS``,
+    S = 128) through a 2-layer bf16 cut, on each backend's kernels (the
+    tensor-core ragged instances) and on the plain path: the last-position
+    logits of every row with a prompt, with bf16 pages and with int8 KV.
+    Tolerance: the kernel path may differ from the plain path by no more
+    than the plain path differs from the same weights computed in f32,
+    the cost of bf16 itself; the kernels agree with their plain versions
+    to a bf16 ulp of the attention output, far inside it. Greedy-token
+    agreement is reported, not checked: a near-tie may flip."""
+    gen = torch.Generator().manual_seed(seed)
+    B, S, P = len(E2E_BF16_Q_LENS), 128, 16
+    pages = S // P
+    table = torch.arange(B * pages, dtype=torch.int32, device="cuda").reshape(B, pages)
+    start = torch.zeros(B, dtype=torch.int32, device="cuda")
+    q_lens = torch.tensor(E2E_BF16_Q_LENS, dtype=torch.int32, device="cuda")
+    valid = q_lens > 0
+    report = {}
+    for base, backend in E2E_BF16:
+        cfg = replace(base, name=f"{base.name}-2l", num_layers=2)
+        model = Llama(cfg, torch.bfloat16, "cuda", seed=seed)
+        ref = Llama(cfg, torch.float32, "cuda", seed=None)
+        ref.load_state_dict({k: v.float() if v.is_floating_point() else v
+                             for k, v in model.state_dict().items()})
+        tokens = torch.randint(0, 256, (B, S), generator=gen).to("cuda")
+        for kv_quantize in ("", "int8"):
+            def last_logits(m, plain):
+                cache = m.make_cache(B * pages, P, kv_quantize)
+                with torch.inference_mode():
+                    return m.mixed_step(tokens, start, q_lens, cache, table,
+                                        plain=plain, backend=backend)[valid]
+            name = ("paged_ragged_attention" + ("_grid" if backend == "grid" else "")
+                    + ("_int8" if kv_quantize else ""))
+            before = pa.LAUNCHES[name]
+            got = last_logits(model, False)
+            launched = pa.LAUNCHES[name] - before
+            want = last_logits(model, True)
+            f32 = last_logits(ref, True)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            bf16_err = (want - f32).abs().max().item()
+            label = f"{cfg.name} {backend}, kv {kv_quantize or 'bf16'}"
+            check(launched == cfg.num_layers, f"{label}: {name} launched {launched} times")
+            check(math.isfinite(err) and err <= bf16_err,
+                  f"{label}: kernel-path logits off the plain path's by {err}, "
+                  f"more than bf16 costs against f32 ({bf16_err})")
+            report[label] = {
+                "max_abs_err": err, "plain_vs_f32_max_abs_err": bf16_err,
+                "max_abs_logit": want.abs().max().item(),
+                "greedy_agree": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+            }
+            del got, want, f32
+        del model, ref
+        torch.cuda.empty_cache()
+    return report
+
+
 # -- phase 5: HF checkpoints against HF's own outputs ----------------------------
 def phase_hf() -> dict:
     """Each fixture loaded by the port's loader onto the card: its prompt
@@ -705,6 +814,10 @@ def main() -> int:
     t = time.perf_counter()
     e2e = phase_e2e(args.seed)
     emit({"phase": "e2e", "seconds": time.perf_counter() - t, **e2e})
+
+    t = time.perf_counter()
+    e2e_bf16 = phase_e2e_bf16(args.seed)
+    emit({"phase": "e2e_bf16", "seconds": time.perf_counter() - t, **e2e_bf16})
 
     t = time.perf_counter()
     hf = phase_hf()

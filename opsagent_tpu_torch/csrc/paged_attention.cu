@@ -16,9 +16,10 @@
 // QuantizedPages branch: one scale per token and kv head);
 // page_table [B, MaxP] int32 with -1 = unassigned (read as page 0); query
 // s of row b sees cache positions t <= start[b] + s and t < start[b] +
-// q_lens[b], clamped to MaxP * P. Softmax is online in f32, q is cast to
-// f32 and scaled by D^-1/2 before the product, probabilities stay f32 for
-// the product with V, and the output is written in q's dtype. Rows with
+// q_lens[b], clamped to MaxP * P. Softmax is online in f32 (in attend_tile
+// q is cast to f32 and scaled by D^-1/2 before the product, probabilities
+// stay f32 for the product with V; attend_mma's numbers are in its own
+// header), and the output is written in q's dtype. Rows with
 // no visible position (s >= q_len, q_len 0, length 0) are written as exact
 // zeros.
 //
@@ -49,8 +50,13 @@
 // head, visible position), which at 64 query rows per tile is far below
 // the tensor cores' rate.
 //
-// What this simple design leaves on the table, for later work:
-//   - the products run on CUDA cores in f32, not on tensor cores (wgmma);
+// The bf16 instances of the ragged kernel (pages in bf16 or int8) run the
+// tensor-core tile routine `attend_mma` (attention_mma.cuh) over the same
+// blocks and rows: both products on mma.sync, the pages gathered with a
+// double-buffered cp.async pipeline. The f32 instances and the decode
+// kernel keep `attend_tile` below. What `attend_tile` leaves on the table,
+// for later work:
+//   - the products run on CUDA cores in f32, not on tensor cores;
 //   - loads are synchronous (load, barrier, compute): no TMA or cp.async
 //     pipeline overlaps the next chunk's gather with this chunk's math;
 //   - one block per (sequence, kv head) in decode: with B * K blocks a
@@ -60,7 +66,7 @@
 //   - prefill tiles of 64 rows each re-read their sequence's K/V (through
 //     L2) once per tile.
 
-#include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -222,10 +228,16 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
     T* __restrict__ out, int S, int H, int K, int P, int max_pages, float scale) {
   const int b = blockIdx.z;
   const size_t seq = static_cast<size_t>(b) * S * H * D;
-  attend_tile<T, PT, D, RPW>(q + seq, k_pages, v_pages, k_scale, v_scale,
-                         table + static_cast<size_t>(b) * max_pages, out + seq,
-                         S, H, K, P, max_pages, blockIdx.y, blockIdx.x,
-                         start[b], q_lens[b], scale);
+  const int* table_row = table + static_cast<size_t>(b) * max_pages;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    attend_mma<PT, D>(q + seq, k_pages, v_pages, k_scale, v_scale, table_row,
+                      TileOut{out + seq, nullptr, nullptr}, S, H, K, P, max_pages,
+                      blockIdx.y, blockIdx.x, start[b], q_lens[b], 0, max_pages * P, scale);
+  } else {
+    attend_tile<T, PT, D, RPW>(q + seq, k_pages, v_pages, k_scale, v_scale, table_row,
+                               out + seq, S, H, K, P, max_pages, blockIdx.y, blockIdx.x,
+                               start[b], q_lens[b], scale);
+  }
 }
 
 template <typename T, typename PT, int D, int RPW>
@@ -263,7 +275,10 @@ struct Args {
 template <typename T, typename PT, int D>
 cudaError_t launch_ragged(const Args& a, const int* start, const int* q_lens, int S) {
   constexpr int RPW = kRaggedRowsPerWarp;
-  constexpr int bytes = smem_bytes<D, RPW>();
+  static_assert(kWarps * RPW == kMmaRows && kThreads == kMmaThreads,
+                "both bodies tile the rows alike");
+  constexpr int bytes = std::is_same_v<T, __nv_bfloat16> ? mma_smem_bytes<PT, D>()
+                                                         : smem_bytes<D, RPW>();
   auto kernel = ragged_kernel<T, PT, D, RPW>;
   const cudaError_t err = prepare(kernel, bytes);
   if (err != cudaSuccess) return err;

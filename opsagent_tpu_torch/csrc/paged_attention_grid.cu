@@ -1,7 +1,7 @@
 // Paged GQA attention split over the KV sequence, for NVIDIA Hopper (sm_90a).
 //
-// Two entry points, each two launches on the caller's stream (a split pass,
-// then a combine pass):
+// Two entry points, each a split pass on the caller's stream and, when the
+// call has more than one split, a combine pass after it:
 //
 //   opsagent_paged_ragged_attention_grid  replaces  paged_ragged_attention_pallas
 //       (opsagent_tpu/ops/paged_attention_pallas.py: body _kernel_ragged, page
@@ -29,7 +29,8 @@
 // (flash-decoding). A block of the split pass owns (sequence, kv head, tile
 // of query rows, split); a split is `span` consecutive cache positions, a
 // whole number of pages, and the host picks how many from MaxP and the row
-// count so that the workspace stays bounded. The rows of a tile are (s, g)
+// count so that the workspace stays bounded and, for ragged rows, so that
+// no block walks much more than 1024 positions. The rows of a tile are (s, g)
 // pairs of one kv head's group of G = H / K query heads, so every K/V row
 // the block loads serves all G heads of a position (any G: 7 for Qwen2.5).
 // The block walks the positions of its split that its rows can see, 32 at a
@@ -53,11 +54,16 @@
 // written and read once. A long prefill chunk also does 4 * D f32
 // operations per (query head, visible position).
 //
-// Left for later work: the products run on CUDA cores in f32 (no mma.sync
-// or wgmma), loads are synchronous (no cp.async or TMA pipeline), and the
-// partials go through device memory even when there is one split.
+// The bf16 instances of the ragged split pass (pages in bf16 or int8) run
+// the tensor-core tile routine `attend_mma` (attention_mma.cuh) over their
+// split: both products on mma.sync, the pages gathered with a
+// double-buffered cp.async pipeline. The f32 instances and the decode
+// split pass keep `attend_split` below, whose products run on CUDA cores
+// in f32 with synchronous loads. With one split the split pass normalises
+// and writes q's dtype itself and the combine is not launched, so nothing
+// goes through the workspace.
 
-#include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -92,14 +98,16 @@ struct Partials {
 // One block of the split pass: sequence rows `q` [S, H, D] (this sequence
 // only, whose rows start at workspace row `row_base`), kv head `kh`, query
 // rows [tile * R, tile * R + R) of the (s, g) enumeration r = s * G + g,
-// cache positions [split * span, split * span + span).
+// cache positions [split * span, split * span + span). With one split
+// (`out` not null: this sequence's output rows) it writes the normalised
+// rows there instead of partials.
 template <typename T, typename PT, int D, int RPW>
 __device__ __forceinline__ void attend_split(
     const T* __restrict__ q, const PT* __restrict__ k_pages,
     const PT* __restrict__ v_pages, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ table_row,
-    const Partials& part, int row_base, int S, int H, int K, int P, int max_pages,
-    int kh, int tile, int split, int start, int qlen, float scale) {
+    const Partials& part, T* __restrict__ out, int row_base, int S, int H, int K, int P,
+    int max_pages, int kh, int tile, int split, int start, int qlen, float scale) {
   constexpr bool kInt8 = std::is_same_v<PT, int8_t>;
   constexpr int R = kWarps * RPW;
   constexpr int DPL = (D + kWarp - 1) / kWarp;   // output dims per lane
@@ -117,17 +125,28 @@ __device__ __forceinline__ void attend_split(
   const int tile_limit = s_first <= s_last ? min(start + s_last + 1, cap) : 0;
   const int t_begin = split * part.span;
   const int t_end = min(t_begin + part.span, tile_limit);
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
   // No position of this split is visible to the tile, so the combine reads
-  // none of its partials.
-  if (t_begin >= t_end) return;
+  // none of its partials; a normalised output is zeros.
+  if (t_begin >= t_end) {
+    if (out == nullptr) return;
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int gr = row0 + warp * RPW + rr;
+      const int s = gr / G, g = gr % G;
+      if (s >= S) continue;
+      T* o = out + (static_cast<size_t>(s) * H + kh * G + g) * D;
+      for (int d = lane; d < D; d += kWarp) store(o + d, 0.f);
+    }
+    return;
+  }
 
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + R * D;
   float* v_s = k_s + kChunk * (D + 1);
-  const int tid = threadIdx.x;
-  const int lane = tid % kWarp;
-  const int warp = tid / kWarp;
 
   for (int i = tid; i < R * VPR; i += kThreads) {
     const int r = i / VPR, c = (i % VPR) * VEC;
@@ -222,6 +241,15 @@ __device__ __forceinline__ void attend_split(
     const int gr = row0 + warp * RPW + rr;
     const int s = gr / G, g = gr % G;
     if (s >= S) continue;
+    if (out != nullptr) {
+      T* o = out + (static_cast<size_t>(s) * H + kh * G + g) * D;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + i * kWarp;
+        if (d < D) store(o + d, l[rr] > 0.f ? acc[rr][i] / l[rr] : 0.f);
+      }
+      continue;
+    }
     const size_t pr = static_cast<size_t>(split) * part.rows + row_base +
                       static_cast<size_t>(s) * H + kh * G + g;
     float* a = part.acc + pr * D;
@@ -243,13 +271,24 @@ __global__ void __launch_bounds__(kThreads) ragged_split_kernel(
     const PT* __restrict__ v_pages, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ table,
     const int* __restrict__ start, const int* __restrict__ q_lens, Partials part,
-    int S, int H, int K, int P, int max_pages, float scale) {
+    T* __restrict__ out, int S, int H, int K, int P, int max_pages, float scale) {
   const int b = blockIdx.z;
   const int kh = blockIdx.y % K, split = blockIdx.y / K;
-  attend_split<T, PT, D, RPW>(
-      q + static_cast<size_t>(b) * S * H * D, k_pages, v_pages, k_scale, v_scale,
-      table + static_cast<size_t>(b) * max_pages, part, b * S * H, S, H, K, P,
-      max_pages, kh, blockIdx.x, split, start[b], q_lens[b], scale);
+  const size_t seq = static_cast<size_t>(b) * S * H;
+  const int* table_row = table + static_cast<size_t>(b) * max_pages;
+  T* seq_out = part.splits == 1 ? out + seq * D : nullptr;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const size_t pr = static_cast<size_t>(split) * part.rows + seq;
+    const TileOut dst = seq_out != nullptr ? TileOut{seq_out, nullptr, nullptr}
+                                           : TileOut{nullptr, part.ml + 2 * pr, part.acc + pr * D};
+    attend_mma<PT, D>(q + seq * D, k_pages, v_pages, k_scale, v_scale, table_row, dst, S, H, K, P,
+                      max_pages, kh, blockIdx.x, start[b], q_lens[b], split * part.span,
+                      split * part.span + part.span, scale);
+  } else {
+    attend_split<T, PT, D, RPW>(q + seq * D, k_pages, v_pages, k_scale, v_scale, table_row,
+                                part, seq_out, static_cast<int>(seq), S, H, K, P, max_pages,
+                                kh, blockIdx.x, split, start[b], q_lens[b], scale);
+  }
 }
 
 template <typename T, typename PT, int D, int RPW>
@@ -257,16 +296,18 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const T* __restrict__ q, const PT* __restrict__ k_pages,
     const PT* __restrict__ v_pages, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ table,
-    const int* __restrict__ lengths, Partials part, int H, int K, int P,
-    int max_pages, float scale) {
+    const int* __restrict__ lengths, Partials part, T* __restrict__ out, int H, int K,
+    int P, int max_pages, float scale) {
   const int b = blockIdx.z;
   const int kh = blockIdx.y % K, split = blockIdx.y / K;
   const int len = lengths[b];
+  const size_t seq = static_cast<size_t>(b) * H;
   // One query at position len - 1: it sees t < len.
   attend_split<T, PT, D, RPW>(
-      q + static_cast<size_t>(b) * H * D, k_pages, v_pages, k_scale, v_scale,
-      table + static_cast<size_t>(b) * max_pages, part, b * H, 1, H, K, P, max_pages,
-      kh, blockIdx.x, split, max(len - 1, 0), len > 0 ? 1 : 0, scale);
+      q + seq * D, k_pages, v_pages, k_scale, v_scale,
+      table + static_cast<size_t>(b) * max_pages, part,
+      part.splits == 1 ? out + seq * D : nullptr, static_cast<int>(seq), 1, H, K, P,
+      max_pages, kh, blockIdx.x, split, max(len - 1, 0), len > 0 ? 1 : 0, scale);
 }
 
 // One warp per row r = (b * S + s) * H + h. The row sees positions < lim;
@@ -340,7 +381,10 @@ cudaError_t launch_combine(const Args& a, const int* start, const int* q_lens,
 template <typename T, typename PT, int D>
 cudaError_t launch_ragged(const Args& a, const int* start, const int* q_lens, int S) {
   constexpr int RPW = kRaggedRowsPerWarp;
-  constexpr int bytes = smem_bytes<D, RPW>();
+  static_assert(kWarps * RPW == kMmaRows && kThreads == kMmaThreads,
+                "both bodies tile the rows alike");
+  constexpr int bytes = std::is_same_v<T, __nv_bfloat16> ? mma_smem_bytes<PT, D>()
+                                                         : smem_bytes<D, RPW>();
   auto kernel = ragged_split_kernel<T, PT, D, RPW>;
   cudaError_t err = prepare(kernel, bytes);
   if (err != cudaSuccess) return err;
@@ -348,10 +392,10 @@ cudaError_t launch_ragged(const Args& a, const int* start, const int* q_lens, in
   const dim3 grid((rows + kWarps * RPW - 1) / (kWarps * RPW), a.K * a.part.splits, a.B);
   kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const PT*>(a.k), static_cast<const PT*>(a.v),
-      a.k_scale, a.v_scale, a.table, start, q_lens, a.part, S, a.H, a.K, a.P,
-      a.max_pages, a.scale);
+      a.k_scale, a.v_scale, a.table, start, q_lens, a.part, static_cast<T*>(a.out), S, a.H,
+      a.K, a.P, a.max_pages, a.scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || a.part.splits == 1) return err;
   return launch_combine<T, D>(a, start, q_lens, nullptr, S);
 }
 
@@ -365,9 +409,10 @@ cudaError_t launch_decode(const Args& a, const int* lengths) {
   const dim3 grid((a.H / a.K + kWarps * RPW - 1) / (kWarps * RPW), a.K * a.part.splits, a.B);
   kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const PT*>(a.k), static_cast<const PT*>(a.v),
-      a.k_scale, a.v_scale, a.table, lengths, a.part, a.H, a.K, a.P, a.max_pages, a.scale);
+      a.k_scale, a.v_scale, a.table, lengths, a.part, static_cast<T*>(a.out), a.H, a.K, a.P,
+      a.max_pages, a.scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || a.part.splits == 1) return err;
   return launch_combine<T, D>(a, nullptr, nullptr, lengths, 1);
 }
 
@@ -388,21 +433,24 @@ struct Decode {
 };
 
 // The workspace of `splits` splits over `rows` query rows: the max/sum
-// pairs first, then the accumulators; splits * rows * (D + 2) floats.
+// pairs first, then the accumulators; splits * rows * (D + 2) floats. One
+// split needs none (`workspace` may be null).
 Partials partials(void* workspace, int rows, int splits, int span) {
   float* ws = static_cast<float*>(workspace);
+  if (splits == 1) return Partials{nullptr, nullptr, rows, span, splits};
   return Partials{ws, ws + 2 * static_cast<size_t>(splits) * rows, rows, span, splits};
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes. Every call launches the split pass
-// and the combine on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 = launched). `dtype` is q's (0 = f32, 1 = bf16);
-// pages are in q's dtype when `k_scale` and `v_scale` are null, else int8
-// with those f32 scale planes [N, P, K]. `workspace` holds splits * B * S *
-// H * (D + 2) floats (S = 1 for decode); `span` is the cache positions of
-// one split, a positive multiple of P, and splits * span covers MaxP * P.
+// and, with more than one split, the combine on `stream`, does not
+// synchronise, and returns cudaGetLastError() (0 = launched). `dtype` is
+// q's (0 = f32, 1 = bf16); pages are in q's dtype when `k_scale` and
+// `v_scale` are null, else int8 with those f32 scale planes [N, P, K].
+// `workspace` holds splits * B * S * H * (D + 2) floats (S = 1 for decode;
+// null with one split); `span` is the cache positions of one split, a
+// positive multiple of P, and splits * span covers MaxP * P.
 extern "C" int opsagent_paged_ragged_attention_grid(
     const void* q, const void* k_pages, const void* v_pages, const void* k_scale,
     const void* v_scale, const void* table, const void* start, const void* q_lens,
@@ -410,6 +458,7 @@ extern "C" int opsagent_paged_ragged_attention_grid(
     int splits, int span, float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return cudaSuccess;
   if (splits < 1 || span < 1) return cudaErrorInvalidValue;
+  if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale), static_cast<const int*>(table), out,
                partials(workspace, B * S * H, splits, span), B, H, K, P, max_pages,
@@ -426,6 +475,7 @@ extern "C" int opsagent_paged_decode_attention_grid(
     int dtype, void* stream) {
   if (B == 0) return cudaSuccess;
   if (splits < 1 || span < 1) return cudaErrorInvalidValue;
+  if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale), static_cast<const int*>(table), out,
                partials(workspace, B * H, splits, span), B, H, K, P, max_pages, scale,

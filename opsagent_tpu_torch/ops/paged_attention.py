@@ -9,7 +9,11 @@ each with instances for pages in q's dtype and for int8 ``QuantizedPages``:
 - ``csrc/paged_attention_grid.cu`` (the "grid" backend, the counterparts
   of its ``pallas`` grid kernels): the page-slot axis becomes a split of
   the KV sequence, partials go to a workspace and a combine pass reduces
-  them.
+  them (with one split the split pass writes the output itself).
+
+The bf16 instances of both ragged kernels run both products on tensor
+cores (``csrc/attention_mma.cuh``); the f32 instances and the decode
+kernels keep CUDA-core bodies.
 
 ``cuda_build`` compiles each source at first use and binds it with
 ``ctypes``; nothing is compiled when this module is imported.
@@ -19,8 +23,8 @@ both forms share it) for CPU tensors, or when the caller passes
 ``plain=True`` (the explicit way to build a reference on the card). For
 CUDA tensors it launches the kernel on the current stream or raises; there
 is no fallback. ``LAUNCHES`` counts the kernel launches of each wrapper,
-int8-page launches under their own names; a grid call (split pass and
-combine) counts once.
+int8-page launches under their own names; a grid call (split pass and,
+with more than one split, combine) counts once.
 """
 
 from __future__ import annotations
@@ -41,8 +45,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GRID_TILE_ROWS = {"ragged": 64, "decode": 8}
 # The split pass aims at this many blocks per SM ...
 GRID_BLOCKS_PER_SM = 2
-# ... within this much f32 workspace for the partials.
+# ... within this much f32 workspace for the partials; a ragged call also
+# takes enough splits that no block walks more than this many positions.
 GRID_WORKSPACE_BYTES = 64 << 20
+GRID_RAGGED_WALK = 1024
 
 LAUNCHES: dict[str, int] = {
     "paged_ragged_attention": 0,
@@ -222,15 +228,21 @@ def paged_decode_attention_cuda(
 
 def grid_splits(
     blocks: int, rows: int, D: int, max_pages: int, P: int, sms: int,
+    walk: int | None = None,
 ) -> tuple[int, int]:
     """(splits, span) of a grid call whose split pass has ``blocks`` blocks
     per split over ``rows`` query rows: enough splits for
-    ``GRID_BLOCKS_PER_SM`` blocks per SM, no more than ``max_pages`` (a
-    split holds whole pages) nor than fit ``GRID_WORKSPACE_BYTES`` of
-    partials (``rows * (D + 2)`` floats per split); ``span`` is the cache
-    positions of one split, and no split lies wholly past ``max_pages``."""
+    ``GRID_BLOCKS_PER_SM`` blocks per SM and, given ``walk``, for no block
+    to walk more than ``walk`` of the ``max_pages * P`` positions a row may
+    see; no more than ``max_pages`` (a split holds whole pages) nor than
+    fit ``GRID_WORKSPACE_BYTES`` of partials (``rows * (D + 2)`` floats per
+    split). ``span`` is the cache positions of one split, and no split lies
+    wholly past ``max_pages``. Everything comes from shapes: no device
+    tensor is read."""
     max_pages = max(max_pages, 1)  # an empty table still takes one split
     want = -(-GRID_BLOCKS_PER_SM * sms // max(blocks, 1))
+    if walk is not None:
+        want = max(want, -(-max_pages * P // walk))
     fit = GRID_WORKSPACE_BYTES // max(rows * (D + 2) * 4, 1)
     n = max(1, min(want, fit, max_pages))
     pages = -(-max_pages // n)
@@ -247,13 +259,17 @@ def _workspace(device: torch.device, numel: int) -> torch.Tensor:
 
 def _grid_plan(
     q: torch.Tensor, form: str, S: int, K: int, P: int, max_pages: int,
-) -> tuple[int, int, torch.Tensor]:
-    """(splits, span, workspace) of one grid call."""
+) -> tuple[int, int, torch.Tensor | None]:
+    """(splits, span, workspace) of one grid call; one split needs no
+    workspace (the split pass writes the output and no combine runs)."""
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     tiles = -(-S * (H // K) // GRID_TILE_ROWS[form])
     rows = B * S * H
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits, span = grid_splits(B * K * tiles, rows, D, max_pages, P, sms)
+    walk = GRID_RAGGED_WALK if form == "ragged" else None
+    splits, span = grid_splits(B * K * tiles, rows, D, max_pages, P, sms, walk)
+    if splits == 1:
+        return splits, span, None
     return splits, span, _workspace(q.device, splits * rows * (D + 2))
 
 

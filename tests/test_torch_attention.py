@@ -27,6 +27,7 @@ from opsagent_tpu_torch.models.config import TINY_TEST
 from opsagent_tpu_torch.models.llama import PagedKVCache
 from opsagent_tpu_torch.ops import attention as tattn
 from opsagent_tpu_torch.ops.paged_attention import (
+    GRID_RAGGED_WALK,
     GRID_TILE_ROWS,
     GRID_WORKSPACE_BYTES,
     grid_splits,
@@ -419,18 +420,31 @@ def test_grid_wrappers_take_plain_version_with_layer_axis(case):
                        tattn.paged_decode_attention(*dargs, layer=LAYER))
 
 
-@pytest.mark.parametrize("blocks,rows,max_pages,want_splits", [
-    (8 * 4 * 1, 8 * 28, 320, 9),         # Qwen2.5-7B decode at B = 8: split
-    (8 * 4 * 14, 8 * 128 * 28, 258, 1),  # its full ragged tick: enough blocks
-    (8, 2 ** 18, 2048, 1),               # the workspace bound holds one split
-    (8, 2 ** 15, 2048, 3),               # ... or three
-    (16, 8 * 4, 3, 3),                   # never more splits than pages
+WALK = GRID_RAGGED_WALK
+
+
+@pytest.mark.parametrize("blocks,rows,max_pages,walk,want_splits", [
+    (8 * 4 * 1, 8 * 28, 320, None, 9),       # Qwen2.5-7B decode at B = 8: split
+    # Its full ragged tick at chip_smoke's timed MaxP: enough blocks, but the
+    # walk bound asks for 5 splits and the workspace holds 4.
+    (8 * 4 * 14, 8 * 128 * 28, 258, WALK, 4),
+    (8 * 4 * 14, 8 * 128 * 28, 320, WALK, 4),    # the engine's MaxP, Qwen's rows
+    (8 * 8 * 16, 8 * 128 * 32, 320, WALK, 3),    # ... bench-8b's rows
+    (8 * 4 * 2, 8 * 16 * 28, 320, WALK, 5),      # a 16-row bucket: the walk bound
+    (8 * 4 * 14, 8 * 128 * 28, 40, WALK, 1),     # a short table: one split
+    (8, 2 ** 18, 2048, WALK, 1),         # the workspace bound holds one split
+    (8, 2 ** 18, 2048, None, 1),
+    (8, 2 ** 15, 2048, None, 3),         # ... or three
+    (16, 8 * 4, 3, None, 3),             # never more splits than pages
 ])
-def test_grid_splits(blocks, rows, max_pages, want_splits):
+def test_grid_splits(blocks, rows, max_pages, walk, want_splits):
     D, P = 128, 16
-    splits, span = grid_splits(blocks, rows, D, max_pages, P, sms=132)
+    splits, span = grid_splits(blocks, rows, D, max_pages, P, sms=132, walk=walk)
     assert splits == want_splits
     assert span % P == 0 and (splits - 1) * span < max_pages * P <= splits * span
     assert splits == 1 or splits * rows * (D + 2) * 4 <= GRID_WORKSPACE_BYTES
+    # No block walks past the bound unless one more split would not fit.
+    assert (walk is None or span <= walk
+            or (splits + 1) * rows * (D + 2) * 4 > GRID_WORKSPACE_BYTES)
     assert GRID_TILE_ROWS == {"ragged": 64, "decode": 8}
-    assert grid_splits(blocks, rows, D, 0, P, sms=132) == (1, P)   # an empty table
+    assert grid_splits(blocks, rows, D, 0, P, sms=132, walk=walk) == (1, P)   # an empty table

@@ -55,20 +55,46 @@ def _case(gen, B, S, H, K, D, P, starts, q_lens, dtype):
             torch.tensor(starts, **ints), torch.tensor(q_lens, **ints))
 
 
+# Ragged rows (S: starts, q_lens): each set has a full chunk from position
+# 0, a decode row, a q_len 0 row, and a chunk at a longer context that
+# starts mid-page and ends off the 64-position chunk grid; at S = 128 a
+# full chunk ends at 4096 positions, which the grid form splits while the
+# other rows need one split.
+RAGGED_ROWS = {
+    24: ([0, 37, 5, 300], [24, 1, 0, 17]),
+    77: ([0, 130, 3, 1001], [77, 1, 0, 50]),
+    128: ([0, 3968, 9, 517, 0], [128, 128, 0, 99, 1]),
+}
+# Every head dim with P = 4 and 16; G = 2, 4 and 7 (a 64-row tile straddles
+# (s, g) boundaries at G = 7).
+WIDTHS = [(4, 2, 16, 4), (8, 2, 32, 8), (32, 8, 64, 16), (32, 8, 128, 16),
+                 (14, 2, 16, 16), (8, 2, 32, 4), (14, 2, 32, 16), (28, 4, 64, 4),
+                 (8, 2, 128, 4), (28, 4, 128, 16)]
+
+
+def _ragged_case(gen, S, H, K, D, P, dtype):
+    starts, q_lens = RAGGED_ROWS[S]
+    return _case(gen, len(starts), S, H, K, D, P, starts, q_lens, dtype)
+
+
+def _assert_zero_rows(got, q_lens):
+    """Rows with nothing visible (s >= q_len) are exact zeros."""
+    for b, n in enumerate(q_lens.tolist()):
+        assert (got[b, n:] == 0).all()
+
+
+@pytest.mark.parametrize("S", sorted(RAGGED_ROWS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,K,D,P", [(4, 2, 16, 4), (8, 2, 32, 8),
-                                     (32, 8, 64, 16), (32, 8, 128, 16)])
-def test_ragged_kernel_matches_plain(gen, dtype, H, K, D, P):
-    q, k, v, table, start, q_lens = _case(
-        gen, 4, 24, H, K, D, P, [0, 37, 5, 300], [24, 1, 0, 17], dtype
-    )
+@pytest.mark.parametrize("H,K,D,P", WIDTHS)
+def test_ragged_kernel_matches_plain(gen, dtype, H, K, D, P, S):
+    q, k, v, table, start, q_lens = _ragged_case(gen, S, H, K, D, P, dtype)
     before = pa.LAUNCHES["paged_ragged_attention"]
     got = pa.paged_ragged_attention_cuda(q, k, v, table, start, q_lens)
     want = pa.paged_ragged_attention_cuda(q, k, v, table, start, q_lens, plain=True)
     torch.cuda.synchronize()
     assert pa.LAUNCHES["paged_ragged_attention"] == before + 1
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
-    assert (got[2] == 0).all() and (got[1, 1:] == 0).all()
+    _assert_zero_rows(got, q_lens)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -129,12 +155,11 @@ def _quantize_pages(k, v, table, starts, q_lens):
     return qk, qv
 
 
+@pytest.mark.parametrize("S", sorted(RAGGED_ROWS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,K,D,P", [(4, 2, 16, 4), (32, 8, 128, 16)])
-def test_int8_page_kernels_match_plain(gen, dtype, H, K, D, P):
-    q, k, v, table, start, q_lens = _case(
-        gen, 4, 24, H, K, D, P, [0, 37, 5, 300], [24, 1, 0, 17], dtype
-    )
+@pytest.mark.parametrize("H,K,D,P", WIDTHS)
+def test_int8_page_kernels_match_plain(gen, dtype, H, K, D, P, S):
+    q, k, v, table, start, q_lens = _ragged_case(gen, S, H, K, D, P, dtype)
     qk, qv = _quantize_pages(k, v, table, start, q_lens)
     before = dict(pa.LAUNCHES)
     got = pa.paged_ragged_attention_cuda(q, qk, qv, table, start, q_lens)
@@ -148,7 +173,7 @@ def test_int8_page_kernels_match_plain(gen, dtype, H, K, D, P):
     assert pa.LAUNCHES["paged_ragged_attention"] == before["paged_ragged_attention"]
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     assert (dgot.float() - dwant.float()).abs().max().item() <= TOL[dtype]
-    assert (got[2] == 0).all() and (got[1, 1:] == 0).all()
+    _assert_zero_rows(got, q_lens)
 
 
 def _weight(gen, In, Out, bits, group):
@@ -185,20 +210,15 @@ def test_quant_matmul_raises_on_what_the_kernel_does_not_take(gen):
 
 
 # -- grid form (split over the KV sequence) ------------------------------------
-GRID_WIDTHS = [(4, 2, 16, 4), (8, 2, 32, 8), (32, 8, 64, 16), (32, 8, 128, 16),
-               (28, 4, 128, 16), (14, 2, 64, 16)]   # the last two: G = 7
-
-
+@pytest.mark.parametrize("S", sorted(RAGGED_ROWS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,K,D,P", GRID_WIDTHS)
-def test_grid_kernels_match_plain(gen, dtype, H, K, D, P):
-    """Ragged rows (a full chunk, a decode row, a q_len 0 row, a chunk at a
-    long context) and decode lengths 1, 0, 33 and 700, over pages in q's
-    dtype and over int8 pages."""
-    q, k, v, table, start, q_lens = _case(
-        gen, 4, 24, H, K, D, P, [0, 37, 5, 700], [24, 1, 0, 17], dtype
-    )
-    lens = torch.tensor([1, 0, 33, 700], dtype=torch.int32, device="cuda")
+@pytest.mark.parametrize("H,K,D,P", WIDTHS)
+def test_grid_kernels_match_plain(gen, dtype, H, K, D, P, S):
+    """The ragged rows of RAGGED_ROWS, and decode rows at each row's
+    context (0 for the q_len 0 row), over pages in q's dtype and over int8
+    pages."""
+    q, k, v, table, start, q_lens = _ragged_case(gen, S, H, K, D, P, dtype)
+    lens = torch.where(q_lens > 0, start + q_lens, 0).int()
     qd = q[:, 0].contiguous()
     for suffix, (kp, vp) in (("", (k, v)), ("_int8", _quantize_pages(k, v, table, start, q_lens))):
         before = dict(pa.LAUNCHES)
@@ -212,7 +232,38 @@ def test_grid_kernels_match_plain(gen, dtype, H, K, D, P):
         assert pa.LAUNCHES["paged_ragged_attention"] == before["paged_ragged_attention"]
         assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
         assert (dgot.float() - dwant.float()).abs().max().item() <= TOL[dtype]
-        assert (got[2] == 0).all() and (got[1, 1:] == 0).all() and (dgot[1] == 0).all()
+        _assert_zero_rows(got, q_lens)
+        assert (dgot[lens == 0] == 0).all()
+
+
+def _kernel_names(fn) -> list[str]:
+    """Names of the CUDA kernels that ``fn`` launches, from the profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()]
+
+
+@pytest.mark.parametrize("long_row", [False, True])
+def test_grid_ragged_skips_combine_with_one_split(gen, long_row):
+    """A full S = 128 tick of short rows at Qwen2.5-7B's width takes one
+    split: the split pass writes the output and no combine runs. A chunk
+    ending at 4096 positions takes more splits, and the combine runs."""
+    starts = [0, 37, 5, 300, 0, 64, 900, 3968 if long_row else 11]
+    q_lens = [128, 1, 0, 17, 128, 128, 99, 128]
+    q, k, v, table, start, ql = _case(gen, 8, 128, 28, 4, 128, 16, starts, q_lens,
+                                      torch.bfloat16)
+    splits, _, ws = pa._grid_plan(q, "ragged", 128, 4, 16, table.shape[1])
+    assert (splits > 1) == long_row and (ws is None) == (splits == 1)
+    args = (q, k, v, table, start, ql)
+    names = _kernel_names(lambda: pa.paged_ragged_attention_grid_cuda(*args))
+    assert any("ragged_split_kernel" in n for n in names), names
+    assert any("combine_kernel" in n for n in names) == (splits > 1), names
+    got = pa.paged_ragged_attention_grid_cuda(*args)
+    want = pa.paged_ragged_attention_grid_cuda(*args, plain=True)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[torch.bfloat16]
+    _assert_zero_rows(got, ql)
 
 
 def test_grid_kernels_split_long_decode_and_tolerate_short_tables(gen):
