@@ -8,16 +8,21 @@ Phases, each printing one JSON line with its seconds:
 1. device: requires CUDA; reads the card's name and power limit.
 2. build: compiles every kernel source in ``opsagent_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together; reports ptxas's registers
-   and spills of the tensor-core instances (the bf16 ragged kernels).
+   and spills of the tensor-core instances (the bf16 ragged kernels and
+   the quantized matmul's m128 instances).
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 and f32. Paged attention, both forms (the "dma" kernels and the
    split-KV "grid" kernels), over bf16/f32 pages and over int8 pages at the
    widths of bench-8b (Llama-3-8B), Qwen2.5-7B (G = 7), bench-1b and
    tiny-test; then (the ``matmul`` line) the quantized matmul, int8 and
    int4 with one whole-axis group and with groups of 128, at every
-   bench-8b projection shape with T in {1, 8, 1024}, at a ragged In and at
-   tiny-test widths. Errors, times, and the bound for the main path's
-   shapes.
+   bench-8b projection shape and Qwen2.5-7B's wk/wv and wg/wu with T in
+   {1, 8, 128, 1024}, at aligned and unaligned edges (a ragged In, an int4
+   group that straddles stages, an odd group) and at tiny-test widths.
+   Errors for all; in bf16, times of the mixed ticks' shapes (T = 128 and
+   1024) and of wg/wu at a decode step (T = 8), each with its instance,
+   its bound, cuBLAS's time and, at T > 16, the m64 instance's time on the
+   same inputs.
 4. e2e: 2-layer f32 cuts of bench-8b (dma kernels; unquantized, int8
    weights + int8 KV, int4 weights + int8 KV) and of Qwen2.5-7B (grid
    kernels; unquantized, int8 + int8 KV): ``Engine.generate`` through the
@@ -34,10 +39,14 @@ Phases, each printing one JSON line with its seconds:
    depth on the dma kernels (unquantized, int8 weights + int8 KV, int4
    weights + int8 KV) and Qwen2.5-7B-Instruct at full depth on the grid
    kernels (unquantized, int8 weights + int8 KV). The kernels' launch
-   counts of each run are checked and reported. With ``--profile`` each
+   counts of each run are checked and reported, and the quantized
+   matmul's by instance: the m128 instance takes every projection of every
+   mixed tick (a positive multiple of 7 x layers launches), the m16
+   instance the rest (decode steps, the lm_head). With ``--profile`` each
    run is traced with ``torch.profiler`` and a ``profile`` line gives
-   device time by kernel group (the trace slows the run: its tokens/s and
-   TTFT are not the untraced ones).
+   device time by kernel group, the quantized matmul split by instance
+   (the trace slows the run: its tokens/s and TTFT are not the untraced
+   ones).
 
 Then, on lines of their own: the card's name and power limit as nvidia-smi
 prints them, the ``{"kernels": [...]}`` table, and last
@@ -205,19 +214,24 @@ def ptxas_report(log: str) -> list[dict]:
 def phase_build() -> dict:
     """One nvcc per source, all started together; ptxas's reports go to
     stderr, and the registers and spills of the tensor-core instances (the
-    bf16 ragged kernels of both forms) into the phase line."""
+    bf16 ragged kernels of both forms, the quantized matmul's m128
+    instances) into the phase line."""
     sources = sorted({src for src, _ in KERNELS.values()})
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(lambda s: cuda_build.build(s, verbose=True), sources))
-    tensor_core = []
+    tensor_core, m128 = [], []
     for _, log in built:
         print(log, file=sys.stderr)
-        tensor_core += [r for r in ptxas_report(log)
+        report = ptxas_report(log)
+        tensor_core += [r for r in report
                         if "ragged" in r["kernel"] and "bfloat16" in r["kernel"]
                         and "decode" not in r["kernel"]]
+        m128 += [r for r in report if "qmm_m128_kernel" in r["kernel"]]
     check(len(tensor_core) >= 16,
           f"ptxas reported {len(tensor_core)} bf16 ragged instances, expected 16")
-    return {"libraries": [lib.name for lib, _ in built], "ptxas_tensor_core": tensor_core}
+    check(len(m128) == 4, f"ptxas reported {len(m128)} m128 matmul instances, expected 4")
+    return {"libraries": [lib.name for lib, _ in built], "ptxas_tensor_core": tensor_core,
+            "ptxas_quant_matmul_m128": m128}
 
 
 # -- phase 3: attention kernels against their plain versions -------------------
@@ -416,13 +430,23 @@ def phase_kernels(seed: int) -> dict:
 
 
 # -- phase 3: the quantized matmul against its plain version -------------------
-MM_SHAPES = {  # bench-8b's projections: (In, Out)
+MM_SHAPES = {  # the served projections: (In, Out)
     "wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "wg/wu": (4096, 14336),
     "wd": (14336, 4096), "lm_head": (4096, 128256),
+    "qwen wk/wv": (3584, 512), "qwen wg/wu": (3584, 18944),
 }
-MM_EXTRA = {"ragged In": (300, 520), "tiny wq": (64, 64), "tiny wg": (64, 128),
-            "tiny wd": (128, 64), "tiny lm_head": (64, 512)}
+# Edges: a ragged In (the m64 instance), an int4 group of 80 that the
+# m128 instance's 64-row stages straddle with a column edge inside a block,
+# an odd int4 group of 67 (m64), and tiny-test's widths.
+MM_EXTRA = {"ragged In": (300, 520), "uneven group": (320, 528), "odd group": (536, 256),
+            "tiny wq": (64, 64), "tiny wg": (64, 128), "tiny wd": (128, 64),
+            "tiny lm_head": (64, 512)}
 MM_MODES = (("int8", 8, 0), ("int4 G=1", 4, 0), ("int4 g128", 4, 128))
+# Timed bf16 (shape, T): the mixed ticks' projections (T = 8 x bucket, 128
+# to 1024), and wg/wu at a decode step (T = 8), the kernel table's row.
+MM_TIMED = ({(s, T) for s in ("wq/wo", "wk/wv", "wg/wu", "wd") for T in (128, 1024)}
+            | {("qwen wk/wv", 1024), ("qwen wg/wu", 1024), ("wg/wu", 8)})
+ROTATE_BYTES = 100e6    # twice the H100's L2: serving finds each weight cold
 
 
 def quantized_weight(gen, In, Out, bits, group):
@@ -444,24 +468,34 @@ def matmul_bound_ms(x, w) -> tuple[float, str]:
 
 def time_matmul(gen, w, x, bits, group) -> dict:
     """Kernel, plain version, and cuBLAS over the weight already
-    dequantized to x's dtype. The kernel cycles over copies of the weight
-    that together pass 100 MB, twice the L2, since serving finds each
-    weight cold."""
+    dequantized to x's dtype; at T > 16 also the m64 instance on the
+    same inputs. The kernels and cuBLAS each cycle over copies of the
+    weight that together pass ``ROTATE_BYTES``."""
     In, Out = w.shape
-    extra = min(3, math.ceil(100e6 / w.q.numel()) - 1)
-    copies = [w] + [quantized_weight(gen, In, Out, bits, group) for _ in range(extra)]
-    w_x = w.dequantize().to(x.dtype)
-    out = {"T": x.shape[0], "In": In, "Out": Out}
+    T = x.shape[0]
+    n = math.ceil(ROTATE_BYTES / w.q.numel())
+    copies = [w] + [quantized_weight(gen, In, Out, bits, group) for _ in range(n - 1)]
+    dense = [c.dequantize().to(x.dtype)
+             for c in copies[:math.ceil(ROTATE_BYTES / (In * Out * x.element_size()))]]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    instance, block_n = qm.plan(T, In, Out, bits, qm._group(w), x.dtype, sms)
+    out = {"T": T, "In": In, "Out": Out, "instance": instance, "block_n": block_n}
     out["ms"] = time_ms(lambda i: qm.quant_matmul_cuda(x, copies[i % len(copies)]))
     out["plain_ms"] = time_ms(lambda i: qm.quant_matmul_cuda(x, w, plain=True), iters=3)
-    out["library_ms"] = time_ms(lambda i: x @ w_x)
+    out["library_ms"] = time_ms(lambda i: x @ dense[i % len(dense)])
+    if T > 16:
+        out["m64_ms"] = time_ms(lambda i: qm._launch(x, copies[i % len(copies)], "m64", 64))
     out["bound_ms"], out["bound_by"] = matmul_bound_ms(x, w)
+    del copies, dense
     return out
 
 
-def phase_matmul(seed: int) -> dict:
+def phase_matmul(seed: int) -> tuple[list[dict], dict]:
+    """Every case against the plain version; returns the timed rows, and
+    the kernel table's row of each weight width (wg/wu, T = 8, int8 and
+    int4 with one whole-axis group, the serve phase's weights)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    results: dict[str, dict] = {}
+    timed, rows = [], {}
     cases = []
     for label, (In, Out) in {**MM_SHAPES, **MM_EXTRA}.items():
         tiny = label in MM_EXTRA
@@ -471,7 +505,7 @@ def phase_matmul(seed: int) -> dict:
             # Inputs scaled so that the outputs have unit scale.
             col = w.dequantize().norm(dim=0).mean().item()
             for dtype in (torch.bfloat16, torch.float32):
-                for T in ((1, 8, 96) if tiny else (1, 8, 1024)):
+                for T in ((1, 8, 96) if tiny else (1, 8, 128, 1024)):
                     x = (torch.randn(T, In, generator=gen, device="cuda") / col).to(dtype)
                     got = qm.quant_matmul_cuda(x, w)
                     want = qm.quant_matmul_cuda(x, w, plain=True)
@@ -485,18 +519,17 @@ def phase_matmul(seed: int) -> dict:
                     cases.append(dict(kernel=name, mode=mode, shape=label, T=T,
                                       dtype=str(dtype)[6:],
                                       err=err.max().item(), tol=tol))
-                    # The main path's rows: wg at a decode step (T = 8) and
-                    # at a full mixed tick (T = 1024), bf16, with the serve
-                    # phase's weights (int4: one whole-axis group).
-                    if (label == "wg/wu" and dtype == torch.bfloat16 and T in (8, 1024)
-                            and mode != "int4 g128"):
-                        r = time_matmul(gen, w, x, bits, group)
-                        r["max_abs_err"] = err.max().item()
-                        results[f"{name}_T{T}"] = r
+                    if dtype == torch.bfloat16 and (label, T) in MM_TIMED:
+                        r = {"kernel": name, "mode": mode, "shape": label,
+                             **time_matmul(gen, w, x, bits, group),
+                             "max_abs_err": err.max().item()}
+                        timed.append(r)
+                        if label == "wg/wu" and T == 8 and mode != "int4 g128":
+                            rows[name] = r
                     del x, got, want, err
             del w
     emit({"phase": "matmul_cases", "cases": cases})
-    return results
+    return timed, rows
 
 
 # -- phase 4: end-to-end equality through kernels and plain versions -----------
@@ -633,12 +666,16 @@ def phase_hf() -> dict:
 
 
 # -- phase 6: serving at full width -------------------------------------------
-KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names)
+KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names, spaces and "(int)" removed)
     ("paged_ragged_attention", ("ragged_kernel",)),
     ("paged_decode_attention", ("decode_kernel",)),
     ("paged_ragged_attention_grid", ("ragged_split_kernel",)),
     ("paged_decode_attention_grid", ("decode_split_kernel",)),
     ("paged_attention_grid_combine", ("combine_kernel",)),
+    # The quantized matmul by instance: m128 runs the mixed ticks'
+    # projections, m16 the decode steps' and every lm_head.
+    ("quant_matmul_m128", ("qmm_m128_kernel",)),
+    ("quant_matmul_m16", ("qmm_bf16_kernel<8,16,", "qmm_bf16_kernel<4,16,")),
     ("quant_matmul", ("qmm_",)),
     ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")),
 )
@@ -651,7 +688,7 @@ def device_time_by_group(prof) -> dict:
         us = evt.self_device_time_total
         if us <= 0:
             continue
-        name = evt.key.lower()
+        name = re.sub(r"\(int\)|\s", "", evt.key.lower())
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in name for k in keys)), "other")
         out[group] = out.get(group, 0.0) + us / 1e3
@@ -719,6 +756,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = launch_counts()
+        instances = dict(qm.INSTANCE_LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
     finally:
         server.shutdown()
@@ -747,6 +785,17 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         every = 7 * cfg.num_layers + 1 if name.startswith("quant_matmul") else cfg.num_layers
         check(n > 0 and n % every == 0,
               f"{name} launched {n} times, not a positive multiple of {every}")
+    # Every projection of every mixed tick (T = 8 x bucket > 16) on the m128
+    # instance; decode steps and every lm_head (T = 8) on m16; nothing else.
+    mixed, projections = instances["quant_matmul_m128"], 7 * cfg.num_layers
+    if quantize:
+        check(mixed > 0 and mixed % projections == 0,
+              f"quant_matmul_m128 launched {mixed} times, not a positive multiple "
+              f"of {projections}")
+    total = sum(launches[name] for name in qm.LAUNCHES)
+    check(instances["quant_matmul_m16"] == total - mixed
+          and instances["quant_matmul_m64"] == instances["quant_matmul_f32"] == 0,
+          f"quantized matmul instances {instances}")
     completion = sum(r["usage"]["completion_tokens"] for _, r in replies)
     if profile:
         groups = device_time_by_group(prof)
@@ -770,6 +819,8 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         "ttft_p50_s": statistics.median(r["ttft_s"] for _, r in replies),
         "max_memory_allocated_bytes": peak,
         "launches": launches,
+        "matmul_instances": instances,
+        "mixed_ticks": mixed // projections,
     }
 
 
@@ -806,10 +857,10 @@ def main() -> int:
           **kernels})
 
     t = time.perf_counter()
-    matmuls = phase_matmul(args.seed)
+    matmul_timed, matmul_rows = phase_matmul(args.seed)
     torch.cuda.empty_cache()
     emit({"phase": "matmul", "seconds": time.perf_counter() - t, "card": smi,
-          **matmuls})
+          "timed": matmul_timed})
 
     t = time.perf_counter()
     e2e = phase_e2e(args.seed)
@@ -838,8 +889,8 @@ def main() -> int:
             launches[name] += serve["launches"][name]
 
     # A matmul's row is its decode-step shape (T = 8); the matmul phase
-    # line also gives the mixed-tick shape (T = 1024).
-    timed = {**kernels, **{name: matmuls[f"{name}_T8"] for name in qm.LAUNCHES}}
+    # line also gives the mixed ticks' shapes (T = 128 and 1024).
+    timed = {**kernels, **matmul_rows}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timed[name]

@@ -59,8 +59,11 @@
 #pragma once
 
 #include "attention_common.cuh"
+#include "mma_ptx.cuh"
 
 namespace attn {
+
+using namespace ptx;
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * kWarp;
@@ -85,65 +88,6 @@ constexpr int mma_smem_bytes() {
   } else {
     return rows + 2 * pair;
   }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared, asynchronously; zero-filled when !valid
-// (no byte is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x, y) rounded to bf16 and packed, x in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Byte i of w, an int8 code, exactly as f32 without the quarter-rate I2F:
-// the byte offset to unsigned (w ^ 0x80808080) in the mantissa of 2^23,
-// less 2^23 + 128.
-__device__ __forceinline__ float code_f32(uint32_t w_offset, int i) {
-  return __uint_as_float(__byte_perm(w_offset, 0x4B000000u, 0x7440 + i)) - 8388736.f;
 }
 
 // (x, y) as hi = bf16 pair and lo = bf16 pair of the remainders.

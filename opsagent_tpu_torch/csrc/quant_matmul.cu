@@ -13,41 +13,72 @@
 // both sign-extended); f32 scales [1, Out] (int8) or [G, 1, Out] (int4:
 // row k takes scale row k / (In / G)). Each weight element is dequantized
 // in f32 (code * scale), cast to x's dtype, and the products accumulate in
-// f32; y [T, Out] is written in x's dtype.
+// f32; y [T, Out] is written in x's dtype. The scale stays inside the
+// product: applying it to the sums would round each weight differently.
 //
-// Design. Each thread block owns a BM x BN tile of y and walks the
-// contraction axis 32 rows at a time. The block's threads load the next
-// x tile and the next tile of weight codes into registers while the
-// tensor cores (or, for f32, the CUDA cores) work on the current one, then
-// dequantize the codes into shared memory in x's dtype: no dequantized
-// copy of the weight is ever written to device memory, as on the TPU.
-//   - bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate), operands read
-//     with ldmatrix (the weight tile is stored k-major and read with
-//     .trans); BM = 16 for decode-sized T, 64 otherwise.
-//   - f32: FMA on CUDA cores, so the product keeps full f32 (TF32 would
-//     not hold the f32 tolerance).
-// Ragged edges (T, In, Out not multiples of the tile) load zeros.
+// Four instances, chosen by the caller from shapes alone (the rule is
+// `plan` in ops/quant_matmul.py, restated and checked here):
+//   - m128, bf16 x with T > 16 (mixed ticks), when In % 8 == 0,
+//     Out % 16 == 0 and, for int4, the scale group is even and >= 16: every
+//     16-byte copy is aligned and each packed byte's two rows share one
+//     scale row. Every projection of bench-8b and Qwen2.5-7B qualifies.
+//     qmm_m128_kernel below.
+//   - m64, bf16 x with T > 16 and any other shape (a ragged In, an odd
+//     group): qmm_bf16_kernel with 64 x 64 tiles.
+//   - m16, bf16 x with T <= 16 (decode steps, the lm_head): qmm_bf16_kernel
+//     with 16 x 64 tiles.
+//   - f32 x: qmm_f32_kernel, FMA on CUDA cores, so the product keeps full
+//     f32 (TF32 would not hold the f32 tolerance).
 //
 // What bounds it on the H100: a decode step (T = 8) reads each weight
 // byte once and does 2 * T operations per byte, far below the ~295 the
 // tensor cores need per byte: it is bound by the weight bytes at
-// 3.35 TB/s. A mixed tick (T up to 1024) does 2 * T operations per byte
+// 3.35 TB/s. A mixed tick (T = 128 to 1024) does 2 * T operations per byte
 // and is bound by the tensor cores' 989 TFLOP/s.
 //
-// What this simple design leaves on the table, for later work:
-//   - one tile of 32 rows in flight per block, and few blocks when Out is
-//     narrow (Out / 64 for decode): the decode case is bound by load
-//     latency, not bandwidth; a split over the contraction axis (or a
-//     deeper cp.async / TMA pipeline) would fill the card;
-//   - mma.sync on 64 x 64 tiles, not wgmma on larger ones;
-//   - the int4 scales are read per element (through L1), not staged.
+// m128 design (the mixed ticks). A block of 8 warps (2 x 4) owns 128 rows
+// of x by BN = 128 columns of y (64 where Out / 128 * ceil(T / 128) blocks
+// would leave most SMs idle), each warp a 64 x BN/4 tile of m16n8k16
+// products (mma.sync, bf16 in, f32 accumulate). The contraction axis goes
+// 64 rows a stage through a ring of 3 stages in dynamic shared memory, each
+// holding the raw operands: the x tile (128 x 64 bf16), the codes (64 x BN
+// int8, or 32 x BN packed int4) and, for int4, the few scale rows the
+// stage touches; all filled by 16-byte cp.async, zero-filled past T, In
+// and Out. Each stage is dequantized once per block into one bf16 tile
+// (code to f32 by byte permute, times its scale in f32, rounded to bf16),
+// which all warps read with ldmatrix.trans: the cost of dequantizing is
+// spread over 128 rows of x. int8 scales sit in registers (each thread
+// dequantizes the same 8 columns every stage); int4 scales are read from
+// the staged rows, never per element from device memory. Blocks walk the
+// rows of x fastest, so the blocks in flight share weight columns and the
+// weight is read from device memory about once. Two blocks fit an SM
+// (~95 KB of shared memory each). Two barriers per 64 rows.
+//
+// Measured against alternatives on the H100
+// (scripts/ablate_quant_matmul.py): 64 x 64 warp tiles (4 warps a block),
+// 128 x 256 blocks and a 4-stage ring were all slower, and a second bf16
+// tile that lets stage s + 1 be dequantized beside stage s's products
+// gained at most 1 %; with the products removed the kernel is no faster,
+// so the stage's serial phases (wait, barrier, dequantize, barrier,
+// products), not the tensor cores, set its pace.
+//
+// What it leaves for later work: mma.sync, not wgmma with TMA and warp
+// specialisation (a producer warp would take the loads and the
+// dequantization off the consumers' path); the m16
+// instance keeps one 32-row tile in flight per block with Out / 64 blocks,
+// bound by load latency at decode, not bandwidth (a split over the
+// contraction axis is the next step).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "mma_ptx.cuh"
+
 namespace {
+
+using namespace ptx;
 
 constexpr int kBK = 32;  // contraction rows per tile
 
@@ -152,37 +183,13 @@ __device__ __forceinline__ void dequant_store(uint2 raw, int r, int k0, int n, i
   }
 }
 
-// ---- tensor-core primitives ------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // ---- bf16 activations: mma.sync ----------------------------------------------
 
-// Block tile BM x BN of y, WM x WN warps, each warp a (BM / WM) x (BN / WN)
-// tile of m16n8 products.
+// The m16 and m64 instances. Block tile BM x BN of y, WM x WN warps, each
+// warp a (BM / WM) x (BN / WN) tile of m16n8 products. The contraction axis
+// goes kBK rows a tile: the next tile's x and codes load into registers
+// while the tensor cores work on the current one, then are dequantized into
+// shared memory in x's dtype.
 template <int BITS, int BM, int BN, int WM, int WN>
 __global__ void __launch_bounds__(WM * WN * 32) qmm_bf16_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
@@ -293,6 +300,212 @@ __global__ void __launch_bounds__(WM * WN * 32) qmm_bf16_kernel(
         __nv_bfloat16* out = y + static_cast<size_t>(row) * Out + col;
         if (col < Out) out[0] = __float2bfloat16(acc[mt][nt][2 * h]);
         if (col + 1 < Out) out[1] = __float2bfloat16(acc[mt][nt][2 * h + 1]);
+      }
+}
+
+// ---- bf16 activations, T > 16: the m128 instance (mixed ticks) ---------------
+
+constexpr int kM128Rows = 128;     // rows of x per block
+constexpr int kM128K = 64;         // contraction rows per stage
+constexpr int kM128Stages = 3;     // depth of the cp.async ring
+constexpr int kM128ScaleRows = 5;  // int4 scale rows 64 contraction rows touch, group >= 16
+constexpr int kM128Threads = 256;  // 8 warps: 2 (rows) x 4 (columns)
+
+// Dynamic shared memory of one block: kM128Stages stages of raw operands
+// (x tile [128][64 + 8] bf16, codes [QROWS][BN] int8, int4 scale rows
+// [kM128ScaleRows][BN] f32), then the dequantized weight tile [64][BN + 8]
+// bf16. Padded rows keep ldmatrix free of bank conflicts; every part is a
+// multiple of 16 bytes. Two blocks fit an SM.
+template <int BITS, int BN>
+struct M128Layout {
+  static constexpr int LDA = kM128K + 8;
+  static constexpr int LDB = BN + 8;
+  static constexpr int QROWS = BITS == 8 ? kM128K : kM128K / 2;  // stored code rows a stage
+  static constexpr int X_BYTES = kM128Rows * LDA * 2;
+  static constexpr int Q_BYTES = QROWS * BN;
+  static constexpr int S_BYTES = BITS == 4 ? kM128ScaleRows * BN * 4 : 0;
+  static constexpr int STAGE = X_BYTES + Q_BYTES + S_BYTES;
+  static constexpr int SMEM = kM128Stages * STAGE + kM128K * LDB * 2;
+};
+
+template <int BITS, int BN>
+__global__ void __launch_bounds__(kM128Threads, 2) qmm_m128_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int T, int In,
+    int Out, int group) {
+  using L = M128Layout<BITS, BN>;
+  constexpr int MT = 4;                    // m16 tiles of a warp's 64 rows
+  constexpr int WTN = BN / 4, NT = WTN / 8;
+  constexpr int CH = BN / 8;               // 8-column chunks of a code row
+  constexpr int RPP = kM128Threads / CH;   // code rows the block dequantizes per pass
+  constexpr int ITEMS = L::QROWS / RPP;    // chunks each thread dequantizes per stage
+  constexpr int QCP = BN / 16;             // 16-byte copies per code row
+  constexpr int SCP = BN / 4;              // 16-byte copies per scale row
+  constexpr int XCP = kM128Rows * kM128K / 8 / kM128Threads;  // x copies per thread
+  static_assert(NT % 2 == 0 && L::QROWS % RPP == 0 && XCP * kM128Threads * 8 ==
+                kM128Rows * kM128K, "tile shape");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + kM128Stages * L::STAGE);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.x * kM128Rows, n0 = blockIdx.y * BN;
+  const int qrows = BITS == 8 ? In : In / 2;
+  const int stages = (In + kM128K - 1) / kM128K;
+  const bool one_group = BITS == 4 && group % kM128K == 0;  // one int4 scale row a stage
+  const int ch = tid % CH;  // the 8 columns this thread dequantizes, every stage
+  const int n_ch = n0 + ch * 8;
+
+  float s8[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s8[j] = BITS == 8 && n_ch + j < Out ? __ldg(scale + n_ch + j) : 0.f;
+
+  // Stage s's operands into ring slot s % kM128Stages.
+  auto issue = [&](int s) {
+    unsigned char* base = smem + (s % kM128Stages) * L::STAGE;
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
+    int8_t* qs = reinterpret_cast<int8_t*>(base + L::X_BYTES);
+    const int k0 = s * kM128K;
+#pragma unroll
+    for (int it = 0; it < XCP; ++it) {
+      const int i = tid + it * kM128Threads;
+      const int r = i / 8, c = (i % 8) * 8;
+      const bool ok = m0 + r < T && k0 + c < In;
+      cp_async16(xs + r * L::LDA + c, x + (ok ? static_cast<size_t>(m0 + r) * In + k0 + c : 0), ok);
+    }
+    const int row0 = BITS == 8 ? k0 : k0 / 2;
+#pragma unroll
+    for (int it = 0; it < (L::QROWS * QCP + kM128Threads - 1) / kM128Threads; ++it) {
+      const int i = tid + it * kM128Threads;
+      if ((L::QROWS * QCP) % kM128Threads != 0 && i >= L::QROWS * QCP) break;
+      const int r = i / QCP, c = (i % QCP) * 16;
+      const bool ok = row0 + r < qrows && n0 + c < Out;
+      cp_async16(qs + r * BN + c, q + (ok ? static_cast<size_t>(row0 + r) * Out + n0 + c : 0), ok);
+    }
+    if constexpr (BITS == 4) {
+      // The scale rows of the groups this stage's contraction rows fall in.
+      float* ss = reinterpret_cast<float*>(base + L::X_BYTES + L::Q_BYTES);
+      const int g_lo = k0 / group, g_hi = (min(k0 + kM128K, In) - 1) / group;
+      for (int i = tid; i < (g_hi - g_lo + 1) * SCP; i += kM128Threads) {
+        const int r = i / SCP, c = (i % SCP) * 4;
+        const bool ok = n0 + c < Out;
+        cp_async16(ss + r * BN + c, scale + (ok ? static_cast<size_t>(g_lo + r) * Out + n0 + c : 0),
+                   ok);
+      }
+    }
+  };
+
+  // Stage s's codes, dequantized into the bf16 tile ws [64][LDB].
+  auto dequantize = [&](int s) {
+    const unsigned char* base = smem + (s % kM128Stages) * L::STAGE;
+    const int8_t* qs = reinterpret_cast<const int8_t*>(base + L::X_BYTES);
+    const int k0 = s * kM128K;
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int r = tid / CH + it * RPP;  // stored code row of the stage
+      const uint2 raw = *reinterpret_cast<const uint2*>(qs + r * BN + ch * 8);
+      if constexpr (BITS == 8) {
+        const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+        uint4 out;
+        uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          o[e] = pack_bf16(code_f32(w[e / 2], 2 * (e % 2)) * s8[2 * e],
+                           code_f32(w[e / 2], 2 * (e % 2) + 1) * s8[2 * e + 1]);
+        }
+        *reinterpret_cast<uint4*>(ws + r * L::LDB + ch * 8) = out;
+      } else {
+        // Rows k0 + 2r (low nibbles) and k0 + 2r + 1 (high) share a group:
+        // the group is even. A group that 64 divides puts the whole stage
+        // in one scale row, with no division. Rows past In hold zero codes;
+        // they read the last staged scale row, which is finite.
+        const float* ss = reinterpret_cast<const float*>(base + L::X_BYTES + L::Q_BYTES);
+        const int gi = one_group ? 0 : min(k0 + 2 * r, In - 1) / group - k0 / group;
+        const float4 sa = *reinterpret_cast<const float4*>(ss + gi * BN + ch * 8);
+        const float4 sb = *reinterpret_cast<const float4*>(ss + gi * BN + ch * 8 + 4);
+        const float sc[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+        // Each nibble offset to unsigned (n ^ 8 = code + 8) in its own byte.
+        const uint32_t lo[2] = {(raw.x & 0x0F0F0F0Fu) ^ 0x08080808u,
+                                (raw.y & 0x0F0F0F0Fu) ^ 0x08080808u};
+        const uint32_t hi[2] = {((raw.x >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u,
+                                ((raw.y >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u};
+        constexpr float kBias = 8388616.f;  // 2^23 + 8
+        uint4 out_lo, out_hi;
+        uint32_t* ol = reinterpret_cast<uint32_t*>(&out_lo);
+        uint32_t* oh = reinterpret_cast<uint32_t*>(&out_hi);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b = 2 * (e % 2);
+          ol[e] = pack_bf16((byte_f32(lo[e / 2], b) - kBias) * sc[2 * e],
+                            (byte_f32(lo[e / 2], b + 1) - kBias) * sc[2 * e + 1]);
+          oh[e] = pack_bf16((byte_f32(hi[e / 2], b) - kBias) * sc[2 * e],
+                            (byte_f32(hi[e / 2], b + 1) - kBias) * sc[2 * e + 1]);
+        }
+        *reinterpret_cast<uint4*>(ws + (2 * r) * L::LDB + ch * 8) = out_lo;
+        *reinterpret_cast<uint4*>(ws + (2 * r + 1) * L::LDB + ch * 8) = out_hi;
+      }
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  // One commit group per stage, empty past the last, so that wait_group 1
+  // always means "stage s has landed".
+  issue(0);
+  cp_async_commit();
+  if (stages > 1) issue(1);
+  cp_async_commit();
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();  // stage s landed for every thread; stage s - 1 fully consumed
+    if (s + 2 < stages) issue(s + 2);  // into the slot stage s - 1 held
+    cp_async_commit();
+    dequantize(s);
+    __syncthreads();  // the bf16 weight tile is written
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(smem + (s % kM128Stages) * L::STAGE);
+#pragma unroll
+    for (int ks = 0; ks < kM128K / 16; ++ks) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(a[mt], xs + (wm * 64 + mt * 16 + (lane & 15)) * L::LDA + ks * 16 +
+                               (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, ws + (ks * 16 + (lane & 15)) * L::LDB + wn * WTN + np * 16 +
+                                 (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // Out % 16 == 0: a pair of columns is wholly inside or outside.
+  const int g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * 64 + mt * 16 + g + h * 8;
+        const int col = n0 + wn * WTN + nt * 8 + tig * 2;
+        if (row < T && col < Out) {
+          *reinterpret_cast<uint32_t*>(y + static_cast<size_t>(row) * Out + col) =
+              pack_bf16(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
       }
 }
 
@@ -408,21 +621,55 @@ cudaError_t launch_bf16(const void* x, const void* q, const void* scale, void* y
   return cudaGetLastError();
 }
 
+template <int BITS, int BN>
+cudaError_t launch_m128(const void* x, const void* q, const void* scale, void* y, int T,
+                        int In, int Out, int group, cudaStream_t stream) {
+  constexpr int smem = M128Layout<BITS, BN>::SMEM;
+  // Above 48 KB a block's dynamic shared memory needs an opt-in, once per
+  // instance; a refusal is returned to the caller.
+  static const cudaError_t prepared = cudaFuncSetAttribute(
+      qmm_m128_kernel<BITS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (prepared != cudaSuccess) return prepared;
+  const dim3 grid((T + kM128Rows - 1) / kM128Rows, (Out + BN - 1) / BN);
+  qmm_m128_kernel<BITS, BN><<<grid, kM128Threads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), T, In, Out, group);
+  return cudaGetLastError();
+}
+
+enum Instance { kF32 = 0, kM16 = 1, kM64 = 2, kM128 = 3 };
+
 template <int BITS>
 cudaError_t launch(const void* x, const void* q, const void* scale, void* y, int T, int In,
-                   int Out, int group, int dtype, cudaStream_t stream) {
-  if (dtype == 1) {  // bf16
-    if (T <= 16) return launch_bf16<BITS, 16, 64, 1, 4>(x, q, scale, y, T, In, Out, group, stream);
-    return launch_bf16<BITS, 64, 64, 2, 2>(x, q, scale, y, T, In, Out, group, stream);
+                   int Out, int group, int dtype, int instance, int block_n,
+                   cudaStream_t stream) {
+  if ((instance == kF32) != (dtype == 0) || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
+  switch (instance) {
+    case kF32: {
+      const dim3 grid((Out + kF32BN - 1) / kF32BN, (T + kF32BM - 1) / kF32BM);
+      qmm_f32_kernel<BITS><<<grid, kF32Threads, 0, stream>>>(
+          static_cast<const float*>(x), static_cast<const int8_t*>(q),
+          static_cast<const float*>(scale), static_cast<float*>(y), T, In, Out, group);
+      return cudaGetLastError();
+    }
+    case kM16:
+      return launch_bf16<BITS, 16, 64, 1, 4>(x, q, scale, y, T, In, Out, group, stream);
+    case kM64:
+      return launch_bf16<BITS, 64, 64, 2, 2>(x, q, scale, y, T, In, Out, group, stream);
+    case kM128:
+      // The shapes m128 takes: aligned 16-byte copies, and int4 groups
+      // whose packed rows share a scale row (see the note at the top).
+      if (In % 8 != 0 || Out % 16 != 0 || (BITS == 4 && (group % 2 != 0 || group < 16)))
+        return cudaErrorInvalidValue;
+      if (block_n == 128)
+        return launch_m128<BITS, 128>(x, q, scale, y, T, In, Out, group, stream);
+      if (block_n == 64)
+        return launch_m128<BITS, 64>(x, q, scale, y, T, In, Out, group, stream);
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (dtype == 0) {  // f32
-    const dim3 grid((Out + kF32BN - 1) / kF32BN, (T + kF32BM - 1) / kF32BM);
-    qmm_f32_kernel<BITS><<<grid, kF32Threads, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scale), static_cast<float*>(y), T, In, Out, group);
-    return cudaGetLastError();
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -430,14 +677,16 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* y, int
 // Plain C interface, bound with ctypes. Launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() (0 = launched). `bits` is 8
 // or 4; `group` is the int4 scale group In / G (ignored for int8); `dtype`
-// 0 = f32, 1 = bf16.
+// 0 = f32, 1 = bf16; `instance` one of Instance (f32 takes f32 x, the
+// others bf16); `block_n` the m128 instance's block columns, 128 or 64.
 extern "C" int opsagent_quant_matmul(const void* x, const void* q, const void* scale,
                                      void* y, int T, int In, int Out, int bits, int group,
-                                     int dtype, void* stream) {
+                                     int dtype, int instance, int block_n, void* stream) {
   if (T == 0 || Out == 0) return cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (bits == 8) return launch<8>(x, q, scale, y, T, In, Out, group, dtype, s);
+  if (bits == 8)
+    return launch<8>(x, q, scale, y, T, In, Out, group, dtype, instance, block_n, s);
   if (bits == 4 && In % 2 == 0 && group > 0 && In % group == 0)
-    return launch<4>(x, q, scale, y, T, In, Out, group, dtype, s);
+    return launch<4>(x, q, scale, y, T, In, Out, group, dtype, instance, block_n, s);
   return cudaErrorInvalidValue;
 }

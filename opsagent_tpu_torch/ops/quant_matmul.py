@@ -9,8 +9,12 @@ dequantized in f32, cast to x's dtype, and the product accumulates in f32.
 (``opsagent_tpu/ops/quant_matmul_pallas.py``), int8 and packed-int4 bodies,
 for bf16 and f32 activations. ``quant_matmul_cuda`` takes the plain version
 for CPU tensors or ``plain=True``; on a CUDA tensor it launches the kernel
-on the current stream or raises. ``LAUNCHES`` counts its launches by
-weight width.
+on the current stream or raises. ``plan`` picks the kernel's instance from
+shapes alone: ``m128`` (bf16, T > 16: the mixed ticks, every projection of
+the served models), ``m64`` (bf16, T > 16 at shapes ``m128`` does not take),
+``m16`` (bf16, T <= 16: decode steps and the lm_head) or ``f32``.
+``LAUNCHES`` counts launches by weight width, ``INSTANCE_LAUNCHES`` by
+instance.
 """
 
 from __future__ import annotations
@@ -25,21 +29,48 @@ from . import cuda_build
 SOURCE = "quant_matmul.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The kernel's instances, by their code in csrc/quant_matmul.cu.
+INSTANCES = {"f32": 0, "m16": 1, "m64": 2, "m128": 3}
+M128_ROWS = 128     # rows of x per block of the m128 instance
+
 LAUNCHES: dict[str, int] = {
     "quant_matmul_int8": 0,
     "quant_matmul_int4": 0,
 }
+INSTANCE_LAUNCHES: dict[str, int] = {f"quant_matmul_{name}": 0 for name in INSTANCES}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, INSTANCE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.opsagent_quant_matmul.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.opsagent_quant_matmul.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.opsagent_quant_matmul.restype = i
+
+
+def plan(T: int, In: int, Out: int, bits: int, group: int, dtype: torch.dtype,
+         sms: int) -> tuple[str, int]:
+    """(instance, block columns) of one call, from shapes alone.
+
+    f32 x takes ``f32`` and bf16 x with T <= 16 takes ``m16``. bf16 x with
+    T > 16 takes ``m128`` when In % 8 == 0 and Out % 16 == 0 (every 16-byte
+    copy aligned) and, for int4, the scale ``group`` is even and >= 16 (a
+    packed byte's two rows share a scale row; a stage touches at most five);
+    any other shape takes ``m64``. ``m128``'s blocks are 128 columns wide,
+    or 64 where 128-wide blocks would leave more than half of the ``sms``
+    SMs without one."""
+    if dtype == torch.float32:
+        return "f32", 64
+    if T <= 16:
+        return "m16", 64
+    if In % 8 or Out % 16 or (bits == 4 and (group % 2 or group < 16)):
+        return "m64", 64
+    blocks = -(-T // M128_ROWS) * -(-Out // 128)
+    return "m128", 128 if 2 * blocks >= sms else 64
 
 
 def quant_matmul(x: torch.Tensor, w: QuantizedBase) -> torch.Tensor:
@@ -84,15 +115,31 @@ def quant_matmul_cuda(
     _check(x, w)
     T, In = x.shape
     Out = w.shape[1]
-    bits = 4 if isinstance(w, QuantizedLinear4) else 8
-    group = w.group if bits == 4 else In
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return _launch(x, w, *plan(T, In, Out, _bits(w), _group(w), x.dtype, sms))
+
+
+def _bits(w: QuantizedBase) -> int:
+    return 4 if isinstance(w, QuantizedLinear4) else 8
+
+
+def _group(w: QuantizedBase) -> int:
+    return w.group if isinstance(w, QuantizedLinear4) else w.shape[0]
+
+
+def _launch(x: torch.Tensor, w: QuantizedBase, instance: str, block_n: int) -> torch.Tensor:
+    """One launch of ``instance`` on checked inputs."""
+    T, In = x.shape
+    Out = w.shape[1]
+    bits = _bits(w)
     y = torch.empty((T, Out), dtype=x.dtype, device=x.device)
     rc = cuda_build.library(SOURCE, _bind).opsagent_quant_matmul(
         cuda_build.ptr(x), cuda_build.ptr(w.q), cuda_build.ptr(w.scale),
-        cuda_build.ptr(y), T, In, Out, bits, group, _DTYPE_CODES[x.dtype],
-        cuda_build.stream(x.device),
+        cuda_build.ptr(y), T, In, Out, bits, _group(w), _DTYPE_CODES[x.dtype],
+        INSTANCES[instance], block_n, cuda_build.stream(x.device),
     )
     name = f"quant_matmul_int{bits}"
-    cuda_build.raise_on(rc, name)
+    cuda_build.raise_on(rc, f"{name} ({instance})")
     LAUNCHES[name] += 1
+    INSTANCE_LAUNCHES[f"quant_matmul_{instance}"] += 1
     return y

@@ -181,19 +181,37 @@ def _weight(gen, In, Out, bits, group):
     return quantize_weight(w) if bits == 8 else quantize_weight4(w, group=group)
 
 
+# (T, In, Out): T across the m16 / m128 boundary (16, 17) and at the mixed
+# ticks' 128 and 1024; the narrow projections that take 64-column m128
+# blocks (bench-8b wk/wv 4096 x 1024, Qwen2.5-7B's 3584 x 512); In = 320,
+# whose int4 group of 80 straddles the 64-row stages; Out = 528, an aligned
+# column edge inside a block; and shapes the rule sends to the m64 instance:
+# a ragged In (300 x 520) and In = 536, whose int4 group of 67 is odd.
+MM_SHAPES = [(1, 256, 384), (8, 4096, 1024), (96, 300, 520), (5, 64, 512),
+             (16, 4096, 1024), (17, 4096, 1024), (128, 4096, 4096), (1024, 4096, 1024),
+             (1024, 3584, 512), (128, 320, 528), (64, 536, 256)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits,group", [(8, 0), (4, 128), (4, 0)])
-@pytest.mark.parametrize("T,In,Out", [(1, 256, 384), (8, 4096, 1024), (96, 300, 520), (5, 64, 512)])
+@pytest.mark.parametrize("T,In,Out", MM_SHAPES)
 def test_quant_matmul_kernel_matches_plain(gen, dtype, bits, group, T, In, Out):
     w = _weight(gen, In, Out, bits, group)
     x = torch.randn(T, In, generator=gen, device="cuda").to(dtype)
     x = x / w.dequantize().norm(dim=0).mean()          # outputs of unit scale
     name = f"quant_matmul_int{bits}"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    instance, _ = qm.plan(T, In, Out, bits, qm._group(w), dtype, sms)
     before = qm.LAUNCHES[name]
+    before_instance = qm.INSTANCE_LAUNCHES[f"quant_matmul_{instance}"]
     got = qm.quant_matmul_cuda(x, w)
     want = qm.quant_matmul_cuda(x, w, plain=True)
     torch.cuda.synchronize()
     assert qm.LAUNCHES[name] == before + 1
+    assert qm.INSTANCE_LAUNCHES[f"quant_matmul_{instance}"] == before_instance + 1
+    odd_group = In == 536 and bits == 4 and group == 128
+    assert instance == ("f32" if dtype == torch.float32 else "m16" if T <= 16
+                        else "m64" if In == 300 or odd_group else "m128")
     assert got.dtype == dtype and got.shape == (T, Out)
     tol = MM_TOL[dtype]
     assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)

@@ -18,7 +18,7 @@ from opsagent_tpu.ops import attention as jattn
 from opsagent_tpu.ops.quant_matmul_pallas import quant_matmul_pallas
 from opsagent_tpu_torch.models import quant as tquant
 from opsagent_tpu_torch.ops import attention as tattn
-from opsagent_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_cuda
+from opsagent_tpu_torch.ops.quant_matmul import plan, quant_matmul, quant_matmul_cuda
 
 SCALE_TOL = 1e-7
 
@@ -172,3 +172,53 @@ def test_loading_adopts_the_int4_group_count():
     built.load_state_dict({"q": w.q, "scale": w.scale})
     assert built.scale.shape == (2, 1, 16) and built.group == 32
     assert torch.equal(built.dequantize(), w.dequantize())
+
+
+# -- which kernel instance takes a call, from shapes alone --------------------
+H100_SMS = 132
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("T,In,Out,want", [
+    # bench-8b's projections on mixed ticks (T = 8 x bucket, 128..1024):
+    # wq/wo, wk/wv, wg/wu, wd.
+    (1024, 4096, 4096, ("m128", 128)), (128, 4096, 4096, ("m128", 64)),
+    (1024, 4096, 1024, ("m128", 64)), (128, 4096, 1024, ("m128", 64)),
+    (1024, 4096, 14336, ("m128", 128)), (128, 4096, 14336, ("m128", 128)),
+    (1024, 14336, 4096, ("m128", 128)), (128, 14336, 4096, ("m128", 64)),
+    # Qwen2.5-7B's: wq/wo, wk/wv, wg/wu, wd.
+    (1024, 3584, 3584, ("m128", 128)), (1024, 3584, 512, ("m128", 64)),
+    (1024, 3584, 18944, ("m128", 128)), (1024, 18944, 3584, ("m128", 128)),
+    # Decode steps and the lm_head (T = B = 8), and the T boundary.
+    (8, 4096, 14336, ("m16", 64)), (8, 4096, 128256, ("m16", 64)),
+    (16, 4096, 1024, ("m16", 64)), (17, 4096, 1024, ("m128", 64)),
+    # Aligned edges: In % 8 == 0, Out % 16 == 0 and not a multiple of 64.
+    (96, 64, 64, ("m128", 64)), (96, 320, 528, ("m128", 64)),
+    # Unaligned: In % 8 or Out % 16.
+    (96, 300, 520, ("m64", 64)), (96, 300, 512, ("m64", 64)),
+    (96, 320, 520, ("m64", 64)),
+])
+def test_plan_routes_by_shape(T, In, Out, want):
+    assert plan(T, In, Out, 8, In, BF16, H100_SMS) == want
+    # int4 with groups of 128 (a stage-sized even group) and one whole-axis
+    # group takes the same instance.
+    assert plan(T, In, Out, 4, tquant._group_size(In, 128), BF16, H100_SMS) == want
+    assert plan(T, In, Out, 4, In, BF16, H100_SMS) == want
+
+
+@pytest.mark.parametrize("T,In,Out,group,want", [
+    (128, 320, 528, 80, "m128"),    # even group that a 64-row stage straddles
+    (128, 536, 256, 67, "m64"),     # odd group: a byte's two rows may differ
+    (128, 64, 256, 8, "m64"),       # group < 16: a stage touches > 5 rows
+])
+def test_plan_routes_int4_groups(T, In, Out, group, want):
+    assert plan(T, In, Out, 4, group, BF16, H100_SMS)[0] == want
+
+
+def test_plan_takes_f32_by_dtype_and_uses_the_sm_count():
+    assert plan(1024, 4096, 4096, 8, 4096, torch.float32, H100_SMS) == ("f32", 64)
+    assert plan(8, 4096, 4096, 4, 128, torch.float32, H100_SMS) == ("f32", 64)
+    # wk/wv at T = 1024 is 64 blocks of 128 columns: half of 128 SMs, not
+    # of 132.
+    assert plan(1024, 4096, 1024, 8, 4096, BF16, 128) == ("m128", 128)
+    assert plan(1024, 4096, 1024, 8, 4096, BF16, 129) == ("m128", 64)
