@@ -9,7 +9,7 @@ Phases, each printing one JSON line with its seconds:
 2. build: compiles every kernel source in ``opsagent_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together; reports ptxas's registers
    and spills of the tensor-core instances (the bf16 ragged kernels and
-   the quantized matmul's m128 instances).
+   the quantized matmul's m128 and m16 instances).
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 and f32. Paged attention, both forms (the "dma" kernels and the
    split-KV "grid" kernels), over bf16/f32 pages and over int8 pages at the
@@ -20,9 +20,10 @@ Phases, each printing one JSON line with its seconds:
    {1, 8, 128, 1024}, at aligned and unaligned edges (a ragged In, an int4
    group that straddles stages, an odd group) and at tiny-test widths.
    Errors for all; in bf16, times of the mixed ticks' shapes (T = 128 and
-   1024) and of wg/wu at a decode step (T = 8), each with its instance,
-   its bound, cuBLAS's time and, at T > 16, the m64 instance's time on the
-   same inputs.
+   1024) and of every served shape at a decode step (T = 8), each with its
+   instance, its bound, cuBLAS's time and the time of the older instance
+   on the same inputs (m64 at T > 16, r16 at T <= 16, with the m16
+   instance's split count).
 4. e2e: 2-layer f32 cuts of bench-8b (dma kernels; unquantized, int8
    weights + int8 KV, int4 weights + int8 KV) and of Qwen2.5-7B (grid
    kernels; unquantized, int8 + int8 KV): ``Engine.generate`` through the
@@ -42,7 +43,8 @@ Phases, each printing one JSON line with its seconds:
    counts of each run are checked and reported, and the quantized
    matmul's by instance: the m128 instance takes every projection of every
    mixed tick (a positive multiple of 7 x layers launches), the m16
-   instance the rest (decode steps, the lm_head). With ``--profile`` each
+   instance the rest (decode steps, the lm_head), and r16, m64 and f32
+   none. With ``--profile`` each
    run is traced with ``torch.profiler`` and a ``profile`` line gives
    device time by kernel group, the quantized matmul split by instance
    (the trace slows the run: its tokens/s and TTFT are not the untraced
@@ -214,24 +216,28 @@ def ptxas_report(log: str) -> list[dict]:
 def phase_build() -> dict:
     """One nvcc per source, all started together; ptxas's reports go to
     stderr, and the registers and spills of the tensor-core instances (the
-    bf16 ragged kernels of both forms, the quantized matmul's m128
+    bf16 ragged kernels of both forms, the quantized matmul's m128 and m16
     instances) into the phase line."""
     sources = sorted({src for src, _ in KERNELS.values()})
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(lambda s: cuda_build.build(s, verbose=True), sources))
-    tensor_core, m128 = [], []
+    tensor_core, m128, m16 = [], [], []
     for _, log in built:
         print(log, file=sys.stderr)
         report = ptxas_report(log)
         tensor_core += [r for r in report
                         if "ragged" in r["kernel"] and "bfloat16" in r["kernel"]
                         and "decode" not in r["kernel"]]
-        m128 += [r for r in report if "qmm_m128_kernel" in r["kernel"]]
+        # The staged kernel's first template argument is its rows of x
+        # (demangled "<128, ...", or mangled "ILi128E...").
+        m128 += [r for r in report if re.search(r"qmm_staged_kernel(<|ILi)128\D", r["kernel"])]
+        m16 += [r for r in report if re.search(r"qmm_staged_kernel(<|ILi)16\D", r["kernel"])]
     check(len(tensor_core) >= 16,
           f"ptxas reported {len(tensor_core)} bf16 ragged instances, expected 16")
     check(len(m128) == 4, f"ptxas reported {len(m128)} m128 matmul instances, expected 4")
+    check(len(m16) == 4, f"ptxas reported {len(m16)} m16 matmul instances, expected 4")
     return {"libraries": [lib.name for lib, _ in built], "ptxas_tensor_core": tensor_core,
-            "ptxas_quant_matmul_m128": m128}
+            "ptxas_quant_matmul_m128": m128, "ptxas_quant_matmul_m16": m16}
 
 
 # -- phase 3: attention kernels against their plain versions -------------------
@@ -435,17 +441,19 @@ MM_SHAPES = {  # the served projections: (In, Out)
     "wd": (14336, 4096), "lm_head": (4096, 128256),
     "qwen wk/wv": (3584, 512), "qwen wg/wu": (3584, 18944),
 }
-# Edges: a ragged In (the m64 instance), an int4 group of 80 that the
-# m128 instance's 64-row stages straddle with a column edge inside a block,
-# an odd int4 group of 67 (m64), and tiny-test's widths.
+# Edges: a ragged In (the m64 and r16 instances), an int4 group of 80 that
+# the staged instances' 64-row stages straddle with a column edge inside a
+# block, an odd int4 group of 67 (m64, r16), and tiny-test's widths.
 MM_EXTRA = {"ragged In": (300, 520), "uneven group": (320, 528), "odd group": (536, 256),
             "tiny wq": (64, 64), "tiny wg": (64, 128), "tiny wd": (128, 64),
             "tiny lm_head": (64, 512)}
 MM_MODES = (("int8", 8, 0), ("int4 G=1", 4, 0), ("int4 g128", 4, 128))
 # Timed bf16 (shape, T): the mixed ticks' projections (T = 8 x bucket, 128
-# to 1024), and wg/wu at a decode step (T = 8), the kernel table's row.
+# to 1024), and every served shape at a decode step (T = 8); wg/wu's is
+# the kernel table's row.
 MM_TIMED = ({(s, T) for s in ("wq/wo", "wk/wv", "wg/wu", "wd") for T in (128, 1024)}
-            | {("qwen wk/wv", 1024), ("qwen wg/wu", 1024), ("wg/wu", 8)})
+            | {("qwen wk/wv", 1024), ("qwen wg/wu", 1024)}
+            | {(s, 8) for s in MM_SHAPES})
 ROTATE_BYTES = 100e6    # twice the H100's L2: serving finds each weight cold
 
 
@@ -468,9 +476,10 @@ def matmul_bound_ms(x, w) -> tuple[float, str]:
 
 def time_matmul(gen, w, x, bits, group) -> dict:
     """Kernel, plain version, and cuBLAS over the weight already
-    dequantized to x's dtype; at T > 16 also the m64 instance on the
-    same inputs. The kernels and cuBLAS each cycle over copies of the
-    weight that together pass ``ROTATE_BYTES``."""
+    dequantized to x's dtype; also the older instance on the same inputs
+    (m64 at T > 16, r16 at T <= 16, beside the m16 instance's splits).
+    The kernels and cuBLAS each cycle over copies of the weight that
+    together pass ``ROTATE_BYTES``."""
     In, Out = w.shape
     T = x.shape[0]
     n = math.ceil(ROTATE_BYTES / w.q.numel())
@@ -485,6 +494,9 @@ def time_matmul(gen, w, x, bits, group) -> dict:
     out["library_ms"] = time_ms(lambda i: x @ dense[i % len(dense)])
     if T > 16:
         out["m64_ms"] = time_ms(lambda i: qm._launch(x, copies[i % len(copies)], "m64", 64))
+    else:
+        out["splits"] = qm.split_k(T, In, Out, block_n, sms) if instance == "m16" else 1
+        out["r16_ms"] = time_ms(lambda i: qm._launch(x, copies[i % len(copies)], "r16", 64))
     out["bound_ms"], out["bound_by"] = matmul_bound_ms(x, w)
     del copies, dense
     return out
@@ -674,8 +686,8 @@ KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names, spaces and "(int)"
     ("paged_attention_grid_combine", ("combine_kernel",)),
     # The quantized matmul by instance: m128 runs the mixed ticks'
     # projections, m16 the decode steps' and every lm_head.
-    ("quant_matmul_m128", ("qmm_m128_kernel",)),
-    ("quant_matmul_m16", ("qmm_bf16_kernel<8,16,", "qmm_bf16_kernel<4,16,")),
+    ("quant_matmul_m128", ("qmm_staged_kernel<128,",)),
+    ("quant_matmul_m16", ("qmm_staged_kernel<16,",)),
     ("quant_matmul", ("qmm_",)),
     ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")),
 )
@@ -786,7 +798,8 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         check(n > 0 and n % every == 0,
               f"{name} launched {n} times, not a positive multiple of {every}")
     # Every projection of every mixed tick (T = 8 x bucket > 16) on the m128
-    # instance; decode steps and every lm_head (T = 8) on m16; nothing else.
+    # instance; decode steps and every lm_head (T = 8) on m16; r16, m64 and
+    # f32 never.
     mixed, projections = instances["quant_matmul_m128"], 7 * cfg.num_layers
     if quantize:
         check(mixed > 0 and mixed % projections == 0,
@@ -794,7 +807,8 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
               f"of {projections}")
     total = sum(launches[name] for name in qm.LAUNCHES)
     check(instances["quant_matmul_m16"] == total - mixed
-          and instances["quant_matmul_m64"] == instances["quant_matmul_f32"] == 0,
+          and instances["quant_matmul_r16"] == instances["quant_matmul_m64"]
+          == instances["quant_matmul_f32"] == 0,
           f"quantized matmul instances {instances}")
     completion = sum(r["usage"]["completion_tokens"] for _, r in replies)
     if profile:

@@ -16,17 +16,19 @@
 // f32; y [T, Out] is written in x's dtype. The scale stays inside the
 // product: applying it to the sums would round each weight differently.
 //
-// Four instances, chosen by the caller from shapes alone (the rule is
-// `plan` in ops/quant_matmul.py, restated and checked here):
-//   - m128, bf16 x with T > 16 (mixed ticks), when In % 8 == 0,
-//     Out % 16 == 0 and, for int4, the scale group is even and >= 16: every
-//     16-byte copy is aligned and each packed byte's two rows share one
-//     scale row. Every projection of bench-8b and Qwen2.5-7B qualifies.
-//     qmm_m128_kernel below.
-//   - m64, bf16 x with T > 16 and any other shape (a ragged In, an odd
-//     group): qmm_bf16_kernel with 64 x 64 tiles.
-//   - m16, bf16 x with T <= 16 (decode steps, the lm_head): qmm_bf16_kernel
-//     with 16 x 64 tiles.
+// Five instances, chosen by the caller from shapes alone (the rule is
+// `plan` in ops/quant_matmul.py, restated and checked here). Two are the
+// staged kernel, qmm_staged_kernel below, which takes bf16 x when
+// In % 8 == 0, Out % 16 == 0 and, for int4, the scale group is even and
+// >= 16: every 16-byte copy is aligned and each packed byte's two rows
+// share one scale row. Every projection and lm_head of bench-8b and
+// Qwen2.5-7B qualifies.
+//   - m128, T > 16 (mixed ticks): 128 rows of x a block.
+//   - m16, T <= 16 (decode steps, the lm_head): 16 rows of x a block, the
+//     contraction axis split over blocks.
+//   - m64, T > 16 at any other shape (a ragged In, an odd group):
+//     qmm_bf16_kernel with 64 x 64 tiles.
+//   - r16, T <= 16 at any other shape: qmm_bf16_kernel with 16 x 64 tiles.
 //   - f32 x: qmm_f32_kernel, FMA on CUDA cores, so the product keeps full
 //     f32 (TF32 would not hold the f32 tolerance).
 //
@@ -36,38 +38,49 @@
 // 3.35 TB/s. A mixed tick (T = 128 to 1024) does 2 * T operations per byte
 // and is bound by the tensor cores' 989 TFLOP/s.
 //
-// m128 design (the mixed ticks). A block of 8 warps (2 x 4) owns 128 rows
-// of x by BN = 128 columns of y (64 where Out / 128 * ceil(T / 128) blocks
-// would leave most SMs idle), each warp a 64 x BN/4 tile of m16n8k16
-// products (mma.sync, bf16 in, f32 accumulate). The contraction axis goes
-// 64 rows a stage through a ring of 3 stages in dynamic shared memory, each
-// holding the raw operands: the x tile (128 x 64 bf16), the codes (64 x BN
-// int8, or 32 x BN packed int4) and, for int4, the few scale rows the
-// stage touches; all filled by 16-byte cp.async, zero-filled past T, In
-// and Out. Each stage is dequantized once per block into one bf16 tile
-// (code to f32 by byte permute, times its scale in f32, rounded to bf16),
-// which all warps read with ldmatrix.trans: the cost of dequantizing is
-// spread over 128 rows of x. int8 scales sit in registers (each thread
-// dequantizes the same 8 columns every stage); int4 scales are read from
-// the staged rows, never per element from device memory. Blocks walk the
-// rows of x fastest, so the blocks in flight share weight columns and the
-// weight is read from device memory about once. Two blocks fit an SM
-// (~95 KB of shared memory each). Two barriers per 64 rows.
+// The staged kernel. A block owns ROWS rows of x by BN = 128 columns of y
+// (64 where 128-wide column tiles would leave most SMs idle); each warp a
+// tile of m16n8k16 products (mma.sync, bf16 in, f32 accumulate). The
+// contraction axis goes 64 rows a stage through a ring of stages in
+// dynamic shared memory, each holding the raw operands: the x tile
+// (ROWS x 64 bf16), the codes (64 x BN int8, or 32 x BN packed int4) and,
+// for int4, the few scale rows the stage touches; all filled by 16-byte
+// cp.async, zero-filled past T, In and Out. Each stage is dequantized once
+// per block into one bf16 tile (code to f32 by byte permute, times its
+// scale in f32, rounded to bf16), which all warps read with
+// ldmatrix.trans. int8 scales sit in registers (each thread dequantizes
+// the same 8 columns every stage); int4 scales are read from the staged
+// rows, never per element from device memory. Two barriers per 64 rows.
 //
-// Measured against alternatives on the H100
-// (scripts/ablate_quant_matmul.py): 64 x 64 warp tiles (4 warps a block),
-// 128 x 256 blocks and a 4-stage ring were all slower, and a second bf16
-// tile that lets stage s + 1 be dequantized beside stage s's products
-// gained at most 1 %; with the products removed the kernel is no faster,
-// so the stage's serial phases (wait, barrier, dequantize, barrier,
+// m128 (the mixed ticks): 8 warps (2 x 4) of 64 x BN/4 tiles, a 3-stage
+// ring, two blocks an SM (~95 KB of shared memory each); the cost of
+// dequantizing is spread over 128 rows of x. Blocks walk the rows of x
+// fastest, so the blocks in flight share weight columns and the weight is
+// read from device memory about once. Measured against alternatives on the
+// H100 (scripts/ablate_quant_matmul.py): 64 x 64 warp tiles (4 warps a
+// block), 128 x 256 blocks and a 4-stage ring were all slower, and a
+// second bf16 tile that lets stage s + 1 be dequantized beside stage s's
+// products gained at most 1 %; with the products removed the kernel is no
+// faster, so the stage's serial phases (wait, barrier, dequantize, barrier,
 // products), not the tensor cores, set its pace.
+//
+// m16 (decode steps, lm_heads; bound by the weight bytes): 4 warps (1 x 4)
+// of 16 x BN/4 tiles, x's T <= 16 rows zero-filled to 16, a 4-stage ring,
+// three blocks an SM (~59 KB int8, ~53 KB int4). A decode step's
+// projections have too few column tiles to keep enough bytes in flight
+// (wg: 112, wk: 16), so the contraction axis is split over blockIdx.z
+// (ops/quant_matmul.py `split_k`: about two waves of blocks, each split at
+// least 4 whole stages; one split where the column tiles fill the card, as
+// the lm_head's do). One split writes y directly. More write f32 partials
+// to a workspace; the last block of a tile to arrive (an atomic counter per
+// tile, after __threadfence) adds them in split order 0 .. S - 1, read
+// past L1, writes y and resets its counter: y is bit-identical from run to
+// run, and a projection stays one launch.
 //
 // What it leaves for later work: mma.sync, not wgmma with TMA and warp
 // specialisation (a producer warp would take the loads and the
-// dequantization off the consumers' path); the m16
-// instance keeps one 32-row tile in flight per block with Out / 64 blocks,
-// bound by load latency at decode, not bandwidth (a split over the
-// contraction axis is the next step).
+// dequantization off the consumers' path); at decode, the partials'
+// round trip through L2 and the padding of T = 8 to 16 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -185,7 +198,7 @@ __device__ __forceinline__ void dequant_store(uint2 raw, int r, int k0, int n, i
 
 // ---- bf16 activations: mma.sync ----------------------------------------------
 
-// The m16 and m64 instances. Block tile BM x BN of y, WM x WN warps, each
+// The r16 and m64 instances. Block tile BM x BN of y, WM x WN warps, each
 // warp a (BM / WM) x (BN / WN) tile of m16n8 products. The contraction axis
 // goes kBK rows a tile: the next tile's x and codes load into registers
 // while the tensor cores work on the current one, then are dequantized into
@@ -303,57 +316,78 @@ __global__ void __launch_bounds__(WM * WN * 32) qmm_bf16_kernel(
       }
 }
 
-// ---- bf16 activations, T > 16: the m128 instance (mixed ticks) ---------------
+// ---- bf16 activations, aligned shapes: the m128 and m16 instances -----------
 
-constexpr int kM128Rows = 128;     // rows of x per block
-constexpr int kM128K = 64;         // contraction rows per stage
-constexpr int kM128Stages = 3;     // depth of the cp.async ring
-constexpr int kM128ScaleRows = 5;  // int4 scale rows 64 contraction rows touch, group >= 16
-constexpr int kM128Threads = 256;  // 8 warps: 2 (rows) x 4 (columns)
+constexpr int kStageK = 64;     // contraction rows per stage
+constexpr int kScaleRows = 5;   // int4 scale rows 64 contraction rows touch, group >= 16
 
-// Dynamic shared memory of one block: kM128Stages stages of raw operands
-// (x tile [128][64 + 8] bf16, codes [QROWS][BN] int8, int4 scale rows
-// [kM128ScaleRows][BN] f32), then the dequantized weight tile [64][BN + 8]
-// bf16. Padded rows keep ldmatrix free of bank conflicts; every part is a
-// multiple of 16 bytes. Two blocks fit an SM.
-template <int BITS, int BN>
-struct M128Layout {
-  static constexpr int LDA = kM128K + 8;
-  static constexpr int LDB = BN + 8;
-  static constexpr int QROWS = BITS == 8 ? kM128K : kM128K / 2;  // stored code rows a stage
-  static constexpr int X_BYTES = kM128Rows * LDA * 2;
-  static constexpr int Q_BYTES = QROWS * BN;
-  static constexpr int S_BYTES = BITS == 4 ? kM128ScaleRows * BN * 4 : 0;
-  static constexpr int STAGE = X_BYTES + Q_BYTES + S_BYTES;
-  static constexpr int SMEM = kM128Stages * STAGE + kM128K * LDB * 2;
+// The staged kernel's two instances, by the rows of x a block owns.
+//   m128 (T > 16, mixed ticks): 8 warps, 2 (rows) x 4 (columns), each a
+//     64 x BN/4 tile; a ring of 3 stages; two blocks an SM.
+//   m16 (T <= 16, decode steps and lm_heads): 4 warps, 1 x 4, each a
+//     16 x BN/4 tile; a ring of 4 stages; three blocks an SM.
+template <int ROWS>
+struct Staged {
+  static constexpr int WM = ROWS == 128 ? 2 : 1;  // warps along the rows
+  static constexpr int WN = 4;                    // warps along the columns
+  static constexpr int THREADS = WM * WN * 32;
+  static constexpr int STAGES = ROWS == 128 ? 3 : 4;
+  static constexpr int MIN_BLOCKS = ROWS == 128 ? 2 : 3;
 };
 
-template <int BITS, int BN>
-__global__ void __launch_bounds__(kM128Threads, 2) qmm_m128_kernel(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int T, int In,
-    int Out, int group) {
-  using L = M128Layout<BITS, BN>;
-  constexpr int MT = 4;                    // m16 tiles of a warp's 64 rows
-  constexpr int WTN = BN / 4, NT = WTN / 8;
+// Dynamic shared memory of one block: STAGES stages of raw operands (x tile
+// [ROWS][64 + 8] bf16, codes [QROWS][BN] int8, int4 scale rows
+// [kScaleRows][BN] f32), then the dequantized weight tile [64][BN + 8]
+// bf16. Padded rows keep ldmatrix free of bank conflicts; every part is a
+// multiple of 16 bytes.
+template <int ROWS, int BITS, int BN>
+struct StagedLayout {
+  static constexpr int LDA = kStageK + 8;
+  static constexpr int LDB = BN + 8;
+  static constexpr int QROWS = BITS == 8 ? kStageK : kStageK / 2;  // stored code rows a stage
+  static constexpr int X_BYTES = ROWS * LDA * 2;
+  static constexpr int Q_BYTES = QROWS * BN;
+  static constexpr int S_BYTES = BITS == 4 ? kScaleRows * BN * 4 : 0;
+  static constexpr int STAGE = X_BYTES + Q_BYTES + S_BYTES;
+  static constexpr int SMEM = Staged<ROWS>::STAGES * STAGE + kStageK * LDB * 2;
+};
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) owns rows [ROWS x, ROWS (x + 1))
+// of x, columns [BN y, BN (y + 1)) of y, and split z of gridDim.z: a run of
+// whole stages of the contraction axis. With one split it writes y. With
+// more, it writes its f32 sums to partial [splits, T, Out]; the last block
+// of the (x, y) tile to arrive, counted by the int counters that follow the
+// partials, adds them in split order and writes y.
+template <int ROWS, int BITS, int BN>
+__global__ void __launch_bounds__(Staged<ROWS>::THREADS, Staged<ROWS>::MIN_BLOCKS)
+qmm_staged_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                  const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int T,
+                  int In, int Out, int group, float* __restrict__ partial) {
+  using C = Staged<ROWS>;
+  using L = StagedLayout<ROWS, BITS, BN>;
+  constexpr int THREADS = C::THREADS, STAGES = C::STAGES;
+  constexpr int WTM = ROWS / C::WM, MT = WTM / 16;  // a warp's rows, in m16 tiles
+  constexpr int WTN = BN / C::WN, NT = WTN / 8;
   constexpr int CH = BN / 8;               // 8-column chunks of a code row
-  constexpr int RPP = kM128Threads / CH;   // code rows the block dequantizes per pass
+  constexpr int RPP = THREADS / CH;        // code rows the block dequantizes per pass
   constexpr int ITEMS = L::QROWS / RPP;    // chunks each thread dequantizes per stage
   constexpr int QCP = BN / 16;             // 16-byte copies per code row
   constexpr int SCP = BN / 4;              // 16-byte copies per scale row
-  constexpr int XCP = kM128Rows * kM128K / 8 / kM128Threads;  // x copies per thread
-  static_assert(NT % 2 == 0 && L::QROWS % RPP == 0 && XCP * kM128Threads * 8 ==
-                kM128Rows * kM128K, "tile shape");
+  constexpr int XCP = ROWS * kStageK / 8 / THREADS;  // x copies per thread
+  static_assert(NT % 2 == 0 && L::QROWS % RPP == 0 && XCP * THREADS * 8 == ROWS * kStageK,
+                "tile shape");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + kM128Stages * L::STAGE);
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * L::STAGE);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.x * kM128Rows, n0 = blockIdx.y * BN;
+  const int wm = warp / C::WN, wn = warp % C::WN;
+  const int m0 = blockIdx.x * ROWS, n0 = blockIdx.y * BN;
   const int qrows = BITS == 8 ? In : In / 2;
-  const int stages = (In + kM128K - 1) / kM128K;
-  const bool one_group = BITS == 4 && group % kM128K == 0;  // one int4 scale row a stage
+  // This split's stages [s0, s1): the stages shared out evenly.
+  const int splits = gridDim.z, all = (In + kStageK - 1) / kStageK;
+  const int s0 = blockIdx.z * all / splits, s1 = (blockIdx.z + 1) * all / splits;
+  const bool one_group = BITS == 4 && group % kStageK == 0;  // one int4 scale row a stage
   const int ch = tid % CH;  // the 8 columns this thread dequantizes, every stage
   const int n_ch = n0 + ch * 8;
 
@@ -361,24 +395,24 @@ __global__ void __launch_bounds__(kM128Threads, 2) qmm_m128_kernel(
 #pragma unroll
   for (int j = 0; j < 8; ++j) s8[j] = BITS == 8 && n_ch + j < Out ? __ldg(scale + n_ch + j) : 0.f;
 
-  // Stage s's operands into ring slot s % kM128Stages.
+  // Stage s's operands into ring slot s % STAGES.
   auto issue = [&](int s) {
-    unsigned char* base = smem + (s % kM128Stages) * L::STAGE;
+    unsigned char* base = smem + (s % STAGES) * L::STAGE;
     __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
     int8_t* qs = reinterpret_cast<int8_t*>(base + L::X_BYTES);
-    const int k0 = s * kM128K;
+    const int k0 = s * kStageK;
 #pragma unroll
     for (int it = 0; it < XCP; ++it) {
-      const int i = tid + it * kM128Threads;
+      const int i = tid + it * THREADS;
       const int r = i / 8, c = (i % 8) * 8;
       const bool ok = m0 + r < T && k0 + c < In;
       cp_async16(xs + r * L::LDA + c, x + (ok ? static_cast<size_t>(m0 + r) * In + k0 + c : 0), ok);
     }
     const int row0 = BITS == 8 ? k0 : k0 / 2;
 #pragma unroll
-    for (int it = 0; it < (L::QROWS * QCP + kM128Threads - 1) / kM128Threads; ++it) {
-      const int i = tid + it * kM128Threads;
-      if ((L::QROWS * QCP) % kM128Threads != 0 && i >= L::QROWS * QCP) break;
+    for (int it = 0; it < (L::QROWS * QCP + THREADS - 1) / THREADS; ++it) {
+      const int i = tid + it * THREADS;
+      if ((L::QROWS * QCP) % THREADS != 0 && i >= L::QROWS * QCP) break;
       const int r = i / QCP, c = (i % QCP) * 16;
       const bool ok = row0 + r < qrows && n0 + c < Out;
       cp_async16(qs + r * BN + c, q + (ok ? static_cast<size_t>(row0 + r) * Out + n0 + c : 0), ok);
@@ -386,8 +420,8 @@ __global__ void __launch_bounds__(kM128Threads, 2) qmm_m128_kernel(
     if constexpr (BITS == 4) {
       // The scale rows of the groups this stage's contraction rows fall in.
       float* ss = reinterpret_cast<float*>(base + L::X_BYTES + L::Q_BYTES);
-      const int g_lo = k0 / group, g_hi = (min(k0 + kM128K, In) - 1) / group;
-      for (int i = tid; i < (g_hi - g_lo + 1) * SCP; i += kM128Threads) {
+      const int g_lo = k0 / group, g_hi = (min(k0 + kStageK, In) - 1) / group;
+      for (int i = tid; i < (g_hi - g_lo + 1) * SCP; i += THREADS) {
         const int r = i / SCP, c = (i % SCP) * 4;
         const bool ok = n0 + c < Out;
         cp_async16(ss + r * BN + c, scale + (ok ? static_cast<size_t>(g_lo + r) * Out + n0 + c : 0),
@@ -398,9 +432,9 @@ __global__ void __launch_bounds__(kM128Threads, 2) qmm_m128_kernel(
 
   // Stage s's codes, dequantized into the bf16 tile ws [64][LDB].
   auto dequantize = [&](int s) {
-    const unsigned char* base = smem + (s % kM128Stages) * L::STAGE;
+    const unsigned char* base = smem + (s % STAGES) * L::STAGE;
     const int8_t* qs = reinterpret_cast<const int8_t*>(base + L::X_BYTES);
-    const int k0 = s * kM128K;
+    const int k0 = s * kStageK;
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
       const int r = tid / CH + it * RPP;  // stored code row of the stage
@@ -456,27 +490,28 @@ __global__ void __launch_bounds__(kM128Threads, 2) qmm_m128_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  // One commit group per stage, empty past the last, so that wait_group 1
-  // always means "stage s has landed".
-  issue(0);
-  cp_async_commit();
-  if (stages > 1) issue(1);
-  cp_async_commit();
-  for (int s = 0; s < stages; ++s) {
-    cp_async_wait<1>();
+  // One commit group per stage, empty past the last, so that
+  // wait_group STAGES - 2 always means "stage s has landed".
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (s0 + i < s1) issue(s0 + i);
+    cp_async_commit();
+  }
+  for (int s = s0; s < s1; ++s) {
+    cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage s landed for every thread; stage s - 1 fully consumed
-    if (s + 2 < stages) issue(s + 2);  // into the slot stage s - 1 held
+    if (s + STAGES - 1 < s1) issue(s + STAGES - 1);  // into the slot stage s - 1 held
     cp_async_commit();
     dequantize(s);
     __syncthreads();  // the bf16 weight tile is written
     const __nv_bfloat16* xs =
-        reinterpret_cast<const __nv_bfloat16*>(smem + (s % kM128Stages) * L::STAGE);
+        reinterpret_cast<const __nv_bfloat16*>(smem + (s % STAGES) * L::STAGE);
 #pragma unroll
-    for (int ks = 0; ks < kM128K / 16; ++ks) {
+    for (int ks = 0; ks < kStageK / 16; ++ks) {
       uint32_t a[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], xs + (wm * 64 + mt * 16 + (lane & 15)) * L::LDA + ks * 16 +
+        ldmatrix_x4(a[mt], xs + (wm * WTM + mt * 16 + (lane & 15)) * L::LDA + ks * 16 +
                                (lane >> 4) * 8);
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
@@ -492,21 +527,59 @@ __global__ void __launch_bounds__(kM128Threads, 2) qmm_m128_kernel(
     }
   }
 
-  // Out % 16 == 0: a pair of columns is wholly inside or outside.
+  // Out % 16 == 0: a pair of columns is wholly inside or outside. One
+  // split writes y; more write this split's sums into its partial.
   const int g = lane / 4, tig = lane % 4;
+  float* mine = partial + static_cast<size_t>(blockIdx.z) * T * Out;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + mt * 16 + g + h * 8;
+        const int row = m0 + wm * WTM + mt * 16 + g + h * 8;
         const int col = n0 + wn * WTN + nt * 8 + tig * 2;
-        if (row < T && col < Out) {
-          *reinterpret_cast<uint32_t*>(y + static_cast<size_t>(row) * Out + col) =
-              pack_bf16(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-        }
+        if (row >= T || col >= Out) continue;
+        const size_t at = static_cast<size_t>(row) * Out + col;
+        if (splits == 1)
+          *reinterpret_cast<uint32_t*>(y + at) = pack_bf16(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        else
+          *reinterpret_cast<float2*>(mine + at) = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
       }
+  if (splits == 1) return;
+
+  // The last block of this tile to arrive adds the partials in split order
+  // 0 .. splits - 1, whichever block that is: y is the same from run to
+  // run. It resets the tile's counter for the next launch.
+  __shared__ bool last;
+  int* counter = reinterpret_cast<int*>(partial + static_cast<size_t>(splits) * T * Out) +
+                 blockIdx.x * gridDim.y + blockIdx.y;
+  __threadfence();  // this block's partials are visible before its arrival counts
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * WTM + mt * 16 + g + h * 8;
+        const int col = n0 + wn * WTN + nt * 8 + tig * 2;
+        if (row >= T || col >= Out) continue;
+        const size_t at = static_cast<size_t>(row) * Out + col;
+        float2 sum = __ldcg(reinterpret_cast<const float2*>(partial + at));  // past L1
+        for (int z = 1; z < splits; ++z) {
+          const float2 p = __ldcg(reinterpret_cast<const float2*>(
+              partial + static_cast<size_t>(z) * T * Out + at));
+          sum.x += p.x;
+          sum.y += p.y;
+        }
+        *reinterpret_cast<uint32_t*>(y + at) = pack_bf16(sum.x, sum.y);
+      }
+  if (tid == 0) *counter = 0;
 }
 
 // ---- f32 activations: CUDA cores ---------------------------------------------
@@ -621,29 +694,50 @@ cudaError_t launch_bf16(const void* x, const void* q, const void* scale, void* y
   return cudaGetLastError();
 }
 
-template <int BITS, int BN>
-cudaError_t launch_m128(const void* x, const void* q, const void* scale, void* y, int T,
-                        int In, int Out, int group, cudaStream_t stream) {
-  constexpr int smem = M128Layout<BITS, BN>::SMEM;
+template <int ROWS, int BITS, int BN>
+cudaError_t launch_staged(const void* x, const void* q, const void* scale, void* y, int T,
+                          int In, int Out, int group, int splits, float* partial,
+                          cudaStream_t stream) {
+  constexpr int smem = StagedLayout<ROWS, BITS, BN>::SMEM;
   // Above 48 KB a block's dynamic shared memory needs an opt-in, once per
   // instance; a refusal is returned to the caller.
   static const cudaError_t prepared = cudaFuncSetAttribute(
-      qmm_m128_kernel<BITS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      qmm_staged_kernel<ROWS, BITS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (prepared != cudaSuccess) return prepared;
-  const dim3 grid((T + kM128Rows - 1) / kM128Rows, (Out + BN - 1) / BN);
-  qmm_m128_kernel<BITS, BN><<<grid, kM128Threads, smem, stream>>>(
+  const dim3 grid((T + ROWS - 1) / ROWS, (Out + BN - 1) / BN, splits);
+  qmm_staged_kernel<ROWS, BITS, BN><<<grid, Staged<ROWS>::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), T, In, Out, group);
+      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), T, In, Out, group,
+      partial);
   return cudaGetLastError();
 }
 
-enum Instance { kF32 = 0, kM16 = 1, kM64 = 2, kM128 = 3 };
+template <int ROWS, int BITS>
+cudaError_t launch_staged_bn(const void* x, const void* q, const void* scale, void* y, int T,
+                             int In, int Out, int group, int block_n, int splits,
+                             float* partial, cudaStream_t stream) {
+  if (block_n == 128)
+    return launch_staged<ROWS, BITS, 128>(x, q, scale, y, T, In, Out, group, splits, partial,
+                                          stream);
+  if (block_n == 64)
+    return launch_staged<ROWS, BITS, 64>(x, q, scale, y, T, In, Out, group, splits, partial,
+                                         stream);
+  return cudaErrorInvalidValue;
+}
+
+enum Instance { kF32 = 0, kM16 = 1, kM64 = 2, kM128 = 3, kR16 = 4 };
 
 template <int BITS>
 cudaError_t launch(const void* x, const void* q, const void* scale, void* y, int T, int In,
-                   int Out, int group, int dtype, int instance, int block_n,
-                   cudaStream_t stream) {
+                   int Out, int group, int dtype, int instance, int block_n, int splits,
+                   float* workspace, cudaStream_t stream) {
   if ((instance == kF32) != (dtype == 0) || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
+  const bool staged = instance == kM16 || instance == kM128;
+  // Only the staged instances split the contraction axis, into runs of
+  // whole stages, and more than one split needs the workspace.
+  if (splits < 1 || (splits > 1 && (!staged || workspace == nullptr ||
+                                    splits > (In + kStageK - 1) / kStageK)))
     return cudaErrorInvalidValue;
   switch (instance) {
     case kF32: {
@@ -653,20 +747,22 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* y, int
           static_cast<const float*>(scale), static_cast<float*>(y), T, In, Out, group);
       return cudaGetLastError();
     }
-    case kM16:
+    case kR16:
       return launch_bf16<BITS, 16, 64, 1, 4>(x, q, scale, y, T, In, Out, group, stream);
     case kM64:
       return launch_bf16<BITS, 64, 64, 2, 2>(x, q, scale, y, T, In, Out, group, stream);
+    case kM16:
     case kM128:
-      // The shapes m128 takes: aligned 16-byte copies, and int4 groups
-      // whose packed rows share a scale row (see the note at the top).
+      // The shapes the staged instances take: aligned 16-byte copies, and
+      // int4 groups whose packed rows share a scale row (see the note at
+      // the top).
       if (In % 8 != 0 || Out % 16 != 0 || (BITS == 4 && (group % 2 != 0 || group < 16)))
         return cudaErrorInvalidValue;
-      if (block_n == 128)
-        return launch_m128<BITS, 128>(x, q, scale, y, T, In, Out, group, stream);
-      if (block_n == 64)
-        return launch_m128<BITS, 64>(x, q, scale, y, T, In, Out, group, stream);
-      return cudaErrorInvalidValue;
+      if (instance == kM16)
+        return launch_staged_bn<16, BITS>(x, q, scale, y, T, In, Out, group, block_n, splits,
+                                          workspace, stream);
+      return launch_staged_bn<128, BITS>(x, q, scale, y, T, In, Out, group, block_n, splits,
+                                         workspace, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -678,15 +774,21 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* y, int
 // synchronise, and returns cudaGetLastError() (0 = launched). `bits` is 8
 // or 4; `group` is the int4 scale group In / G (ignored for int8); `dtype`
 // 0 = f32, 1 = bf16; `instance` one of Instance (f32 takes f32 x, the
-// others bf16); `block_n` the m128 instance's block columns, 128 or 64.
+// others bf16); `block_n` the staged instances' block columns, 128 or 64;
+// `splits` the staged instances' split of the contraction axis (1 for the
+// others). With splits > 1, `workspace` holds splits * T * Out floats of
+// partial sums, then one int counter per (row tile, column tile), zero
+// before the call and zero again after it.
 extern "C" int opsagent_quant_matmul(const void* x, const void* q, const void* scale,
                                      void* y, int T, int In, int Out, int bits, int group,
-                                     int dtype, int instance, int block_n, void* stream) {
+                                     int dtype, int instance, int block_n, int splits,
+                                     void* workspace, void* stream) {
   if (T == 0 || Out == 0) return cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(workspace);
   if (bits == 8)
-    return launch<8>(x, q, scale, y, T, In, Out, group, dtype, instance, block_n, s);
+    return launch<8>(x, q, scale, y, T, In, Out, group, dtype, instance, block_n, splits, ws, s);
   if (bits == 4 && In % 2 == 0 && group > 0 && In % group == 0)
-    return launch<4>(x, q, scale, y, T, In, Out, group, dtype, instance, block_n, s);
+    return launch<4>(x, q, scale, y, T, In, Out, group, dtype, instance, block_n, splits, ws, s);
   return cudaErrorInvalidValue;
 }

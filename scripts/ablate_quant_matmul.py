@@ -4,8 +4,8 @@
     python3 scripts/ablate_quant_matmul.py [variant ...]
 
 Copies ``opsagent_tpu_torch/csrc/quant_matmul.cu`` once per variant into
-``build/ablate_qmm/``, edits the copy of ``qmm_m128_kernel`` so that it
-takes one part away or is shaped another way, builds every variant in
+``build/ablate_qmm/``, edits the copy of ``qmm_staged_kernel`` (the m128
+and m16 instances alike) so that it takes one part away or is shaped another way, builds every variant in
 parallel (``-I`` the shared headers), and times the m128 instance through
 the C entry point at the mixed ticks' shapes of bench-8b (``wg`` and ``wd``
 at T = 1024, ``wq`` and ``wk`` at T = 1024, ``wg`` at T = 128), int8 and
@@ -55,69 +55,74 @@ MODES = (("int8", 8, 0), ("int4 G=1", 4, 0))
 
 _MMA = ("          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);\n"
         "          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);\n")
-_LOOP = """  issue(0);
-  cp_async_commit();
-  if (stages > 1) issue(1);
-  cp_async_commit();
-  for (int s = 0; s < stages; ++s) {
-    cp_async_wait<1>();
+_LOOP = """#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (s0 + i < s1) issue(s0 + i);
+    cp_async_commit();
+  }
+  for (int s = s0; s < s1; ++s) {
+    cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage s landed for every thread; stage s - 1 fully consumed
-    if (s + 2 < stages) issue(s + 2);  // into the slot stage s - 1 held
+    if (s + STAGES - 1 < s1) issue(s + STAGES - 1);  // into the slot stage s - 1 held
     cp_async_commit();
     dequantize(s);
     __syncthreads();  // the bf16 weight tile is written
 """
-_LOOP_DOUBLE = """  issue(0);
+_LOOP_DOUBLE = """  issue(s0);
   cp_async_commit();
-  if (stages > 1) issue(1);
+  if (s0 + 1 < s1) issue(s0 + 1);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
-  dequantize(0, ws);
-  for (int s = 0; s < stages; ++s) {
+  if (s0 < s1) dequantize(s0, ws + (s0 & 1) * kStageK * L::LDB);
+  for (int s = s0; s < s1; ++s) {
     cp_async_wait<0>();
     __syncthreads();
-    if (s + 2 < stages) issue(s + 2);
+    if (s + 2 < s1) issue(s + 2);
     cp_async_commit();
-    if (s + 1 < stages) dequantize(s + 1, ws + ((s + 1) & 1) * kM128K * L::LDB);
-    const __nv_bfloat16* wsb = ws + (s & 1) * kM128K * L::LDB;
+    if (s + 1 < s1) dequantize(s + 1, ws + ((s + 1) & 1) * kStageK * L::LDB);
+    const __nv_bfloat16* wsb = ws + (s & 1) * kStageK * L::LDB;
 """
 _B_READ = "ldmatrix_x4_trans(b, ws + (ks * 16 + (lane & 15)) * L::LDB"
-_256 = "      if (block_n == 128)\n        return launch_m128<BITS, 128>"
+_256 = "  if (block_n == 128)\n    return launch_staged<ROWS, BITS, 128>"
 VARIANTS = {  # name: (edits of quant_matmul.cu, block_n or None for the plan's, keeps the function)
     "base": ([], None, True),
     "no_dequant": ([("    dequantize(s);\n    __syncthreads();  // the bf16 weight tile is written\n",
                      "    __syncthreads();\n")], None, False),
     "no_mma": ([(_MMA, "          acc[mt][2 * np][0] += __uint_as_float(b[0] & a[mt][0] & 1u);\n")],
                None, False),
-    "warps_2x2": ([("constexpr int kM128Threads = 256;", "constexpr int kM128Threads = 128;"),
-                   ("constexpr int WTN = BN / 4, NT = WTN / 8;", "constexpr int WTN = BN / 2, NT = WTN / 8;"),
-                   ("const int wm = warp / 4, wn = warp % 4;", "const int wm = warp / 2, wn = warp % 2;")],
+    "warps_2x2": ([("static constexpr int WN = 4;", "static constexpr int WN = ROWS == 128 ? 2 : 4;")],
                   None, True),
-    "block_n256": ([("__launch_bounds__(kM128Threads, 2) qmm_m128_kernel",
-                     "__launch_bounds__(kM128Threads, BN == 256 ? 1 : 2) qmm_m128_kernel"),
-                    (_256, "      if (block_n == 256)\n        return launch_m128<BITS, 256>"
-                           "(x, q, scale, y, T, In, Out, group, stream);\n" + _256)],
+    "block_n256": ([("__launch_bounds__(Staged<ROWS>::THREADS, Staged<ROWS>::MIN_BLOCKS)",
+                     "__launch_bounds__(Staged<ROWS>::THREADS, BN == 256 ? 1 : Staged<ROWS>::MIN_BLOCKS)"),
+                    (_256, "  if (block_n == 256)\n    return launch_staged<ROWS, BITS, 256>"
+                           "(x, q, scale, y, T, In, Out, group, splits, partial, stream);\n" + _256)],
                    256, True),
-    "double_tile": ([("static constexpr int SMEM = kM128Stages * STAGE + kM128K * LDB * 2;",
-                      "static constexpr int SMEM = kM128Stages * STAGE + 2 * kM128K * LDB * 2;"),
+    "double_tile": ([("static constexpr int SMEM = Staged<ROWS>::STAGES * STAGE + kStageK * LDB * 2;",
+                      "static constexpr int SMEM = Staged<ROWS>::STAGES * STAGE + 2 * kStageK * LDB * 2;"),
                      ("auto dequantize = [&](int s) {", "auto dequantize = [&](int s, __nv_bfloat16* ws) {"),
                      (_LOOP, _LOOP_DOUBLE), (_B_READ, _B_READ.replace("(b, ws +", "(b, wsb +"))],
                     None, True),
-    "stages4": ([("constexpr int kM128Stages = 3;", "constexpr int kM128Stages = 4;")], None, True),
+    "stages4": ([("static constexpr int STAGES = ROWS == 128 ? 3 : 4;",
+                  "static constexpr int STAGES = ROWS == 128 ? 4 : 4;")], None, True),
 }
 
 
-def build(name: str) -> str:
+def edited_source(name: str) -> str:
+    """``quant_matmul.cu`` with variant ``name``'s edits."""
     edits, _, _ = VARIANTS[name]
     text = open(os.path.join(CSRC, "quant_matmul.cu")).read()
     for old, new in edits:
         if old not in text:
             raise SystemExit(f"quant_matmul.cu changed: variant {name} cannot find {old!r}")
         text = text.replace(old, new)
+    return text
+
+
+def build(name: str) -> str:
     src = os.path.join(OUT, f"{name}.cu")
     with open(src, "w") as f:
-        f.write(text)
+        f.write(edited_source(name))
     lib = os.path.join(OUT, f"lib_{name}.so")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC), "-o", lib, src]
@@ -159,7 +164,7 @@ def main() -> int:
                     c = copies[i % len(copies)]
                     rc = lib.opsagent_quant_matmul(
                         ptr(x), ptr(c.q), ptr(c.scale), ptr(y), T, In, Out, bits, qm._group(c),
-                        1, qm.INSTANCES["m128"], block_n, stream(x.device))
+                        1, qm.INSTANCES["m128"], block_n, 1, None, stream(x.device))
                     if rc:
                         raise SystemExit(f"{name} {label} T={T} {mode}: CUDA error {rc}")
 

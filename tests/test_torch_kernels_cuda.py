@@ -182,14 +182,19 @@ def _weight(gen, In, Out, bits, group):
 
 
 # (T, In, Out): T across the m16 / m128 boundary (16, 17) and at the mixed
-# ticks' 128 and 1024; the narrow projections that take 64-column m128
-# blocks (bench-8b wk/wv 4096 x 1024, Qwen2.5-7B's 3584 x 512); In = 320,
-# whose int4 group of 80 straddles the 64-row stages; Out = 528, an aligned
-# column edge inside a block; and shapes the rule sends to the m64 instance:
-# a ragged In (300 x 520) and In = 536, whose int4 group of 67 is odd.
+# ticks' 128 and 1024; the narrow projections that take 64-column blocks
+# (bench-8b wk/wv 4096 x 1024, Qwen2.5-7B's 3584 x 512); In = 320, whose
+# int4 group of 80 straddles the 64-row stages; Out = 528, an aligned
+# column edge inside a block; and shapes the rule sends to the m64 and r16
+# instances: a ragged In (300 x 520) and In = 536, whose int4 group of 67
+# is odd. At T <= 16, the m16 instance over more than one split: wk/wv
+# (16 splits), wd's In = 14336 at T = 1 (56 splits), In = 2960 (its int4
+# group of 80 straddles stages; 11 splits) with Out = 528, and wq/wo at
+# T = 16 (12 splits).
 MM_SHAPES = [(1, 256, 384), (8, 4096, 1024), (96, 300, 520), (5, 64, 512),
              (16, 4096, 1024), (17, 4096, 1024), (128, 4096, 4096), (1024, 4096, 1024),
-             (1024, 3584, 512), (128, 320, 528), (64, 536, 256)]
+             (1024, 3584, 512), (128, 320, 528), (64, 536, 256), (8, 300, 520),
+             (1, 14336, 512), (8, 2960, 528), (16, 4096, 4096)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -210,11 +215,36 @@ def test_quant_matmul_kernel_matches_plain(gen, dtype, bits, group, T, In, Out):
     assert qm.LAUNCHES[name] == before + 1
     assert qm.INSTANCE_LAUNCHES[f"quant_matmul_{instance}"] == before_instance + 1
     odd_group = In == 536 and bits == 4 and group == 128
-    assert instance == ("f32" if dtype == torch.float32 else "m16" if T <= 16
-                        else "m64" if In == 300 or odd_group else "m128")
+    assert instance == ("f32" if dtype == torch.float32
+                        else ("r16" if T <= 16 else "m64") if In == 300 or odd_group
+                        else "m16" if T <= 16 else "m128")
     assert got.dtype == dtype and got.shape == (T, Out)
     tol = MM_TOL[dtype]
     assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bits,group", [(8, 0), (4, 128)])
+@pytest.mark.parametrize("T,In,Out", [(8, 4096, 14336), (8, 4096, 1024), (1, 14336, 512),
+                                      (8, 2960, 528)])
+def test_quant_matmul_m16_splits_are_deterministic_and_reset(gen, bits, group, T, In, Out):
+    """Two calls give bit-identical y, and every split counter is zero
+    again after a call."""
+    w = _weight(gen, In, Out, bits, group)
+    x = (torch.randn(T, In, generator=gen, device="cuda")
+         / w.dequantize().norm(dim=0).mean()).bfloat16()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    instance, block_n = qm.plan(T, In, Out, bits, qm._group(w), x.dtype, sms)
+    assert instance == "m16" and qm.split_k(T, In, Out, block_n, sms) > 1
+    first = qm.quant_matmul_cuda(x, w)
+    for _ in range(3):
+        again = qm.quant_matmul_cuda(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+    for (_, partials, _), ws in qm._workspaces.items():
+        assert not ws[partials:].view(torch.int32).any()
+    want = qm.quant_matmul_cuda(x, w, plain=True)
+    tol = MM_TOL[torch.bfloat16]
+    assert torch.allclose(first.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_quant_matmul_raises_on_what_the_kernel_does_not_take(gen):

@@ -18,7 +18,8 @@ from opsagent_tpu.ops import attention as jattn
 from opsagent_tpu.ops.quant_matmul_pallas import quant_matmul_pallas
 from opsagent_tpu_torch.models import quant as tquant
 from opsagent_tpu_torch.ops import attention as tattn
-from opsagent_tpu_torch.ops.quant_matmul import plan, quant_matmul, quant_matmul_cuda
+from opsagent_tpu_torch.ops import quant_matmul as qm
+from opsagent_tpu_torch.ops.quant_matmul import plan, quant_matmul, quant_matmul_cuda, split_k
 
 SCALE_TOL = 1e-7
 
@@ -189,14 +190,20 @@ BF16 = torch.bfloat16
     # Qwen2.5-7B's: wq/wo, wk/wv, wg/wu, wd.
     (1024, 3584, 3584, ("m128", 128)), (1024, 3584, 512, ("m128", 64)),
     (1024, 3584, 18944, ("m128", 128)), (1024, 18944, 3584, ("m128", 128)),
-    # Decode steps and the lm_head (T = B = 8), and the T boundary.
-    (8, 4096, 14336, ("m16", 64)), (8, 4096, 128256, ("m16", 64)),
+    # Decode steps and the lm_head (T = B = 8), and the T boundary: m16's
+    # blocks are 128 columns wide where Out / 128 tiles fill half the SMs.
+    (8, 4096, 14336, ("m16", 128)), (8, 4096, 128256, ("m16", 128)),
+    (8, 4096, 4096, ("m16", 64)), (8, 14336, 4096, ("m16", 64)),
+    (8, 3584, 18944, ("m16", 128)), (8, 3584, 152064, ("m16", 128)),
     (16, 4096, 1024, ("m16", 64)), (17, 4096, 1024, ("m128", 64)),
     # Aligned edges: In % 8 == 0, Out % 16 == 0 and not a multiple of 64.
     (96, 64, 64, ("m128", 64)), (96, 320, 528, ("m128", 64)),
     # Unaligned: In % 8 or Out % 16.
     (96, 300, 520, ("m64", 64)), (96, 300, 512, ("m64", 64)),
     (96, 320, 520, ("m64", 64)),
+    # The same at T <= 16: r16.
+    (8, 300, 520, ("r16", 64)), (1, 300, 512, ("r16", 64)), (16, 320, 520, ("r16", 64)),
+    (8, 64, 64, ("m16", 64)), (8, 320, 528, ("m16", 64)),
 ])
 def test_plan_routes_by_shape(T, In, Out, want):
     assert plan(T, In, Out, 8, In, BF16, H100_SMS) == want
@@ -210,6 +217,9 @@ def test_plan_routes_by_shape(T, In, Out, want):
     (128, 320, 528, 80, "m128"),    # even group that a 64-row stage straddles
     (128, 536, 256, 67, "m64"),     # odd group: a byte's two rows may differ
     (128, 64, 256, 8, "m64"),       # group < 16: a stage touches > 5 rows
+    (8, 320, 528, 80, "m16"),       # the same at a decode step
+    (8, 536, 256, 67, "r16"),
+    (8, 64, 256, 8, "r16"),
 ])
 def test_plan_routes_int4_groups(T, In, Out, group, want):
     assert plan(T, In, Out, 4, group, BF16, H100_SMS)[0] == want
@@ -222,3 +232,57 @@ def test_plan_takes_f32_by_dtype_and_uses_the_sm_count():
     # of 132.
     assert plan(1024, 4096, 1024, 8, 4096, BF16, 128) == ("m128", 128)
     assert plan(1024, 4096, 1024, 8, 4096, BF16, 129) == ("m128", 64)
+
+
+# -- the m16 instance's split of the contraction axis --------------------------
+@pytest.mark.parametrize("In,Out", [
+    (4096, 128256), (3584, 152064),              # the lm_heads fill the card
+    (64, 64), (64, 128), (128, 64), (64, 512),   # tiny-test: one or two stages
+])
+def test_split_k_takes_one_split_where_it_gains_nothing(In, Out):
+    block_n = plan(8, In, Out, 8, In, BF16, H100_SMS)[1]
+    assert split_k(8, In, Out, block_n, H100_SMS) == 1
+
+
+@pytest.mark.parametrize("In,Out", [
+    (4096, 14336), (4096, 4096), (14336, 4096), (4096, 1024),   # bench-8b wg, wq, wd, wk
+    (3584, 18944), (3584, 512), (18944, 3584),                  # Qwen2.5-7B wg, wk, wd
+])
+def test_split_k_splits_the_decode_projections(In, Out):
+    for T in (1, 8, 16):
+        block_n = plan(T, In, Out, 8, In, BF16, H100_SMS)[1]
+        splits = split_k(T, In, Out, block_n, H100_SMS)
+        assert splits > 1
+        # The kernel shares the stages out evenly: the shortest split has
+        # stages // splits of them.
+        assert -(-In // qm.STAGE_ROWS) // splits >= qm.M16_MIN_STAGES
+        # No more blocks than the waves the rule aims at, unless a split
+        # would be shorter than the minimum.
+        assert splits * -(-Out // block_n) <= qm.M16_WAVES * qm.M16_BLOCKS_PER_SM * H100_SMS
+
+
+def test_split_k_follows_the_sm_count_and_the_stage_minimum():
+    # bench-8b wg: 112 column tiles of 128; 2 waves of 3 blocks on 132 SMs.
+    assert split_k(8, 4096, 14336, 128, H100_SMS) == 792 // 112
+    assert split_k(8, 4096, 14336, 128, 66) == 396 // 112
+    # bench-8b wk: 16 column tiles of 64 would take 49 splits; 64 stages
+    # allow 16 of at least 4 stages.
+    assert split_k(8, 4096, 1024, 64, H100_SMS) == 16
+    # In = 320: 5 stages, one split; In = 640: 10 stages, two.
+    assert split_k(8, 320, 528, 64, H100_SMS) == 1
+    assert split_k(8, 640, 528, 64, H100_SMS) == 2
+
+
+def test_ablation_variants_apply_to_the_kernel_source():
+    """scripts/ablate_quant_matmul.py edits the kernel's source by string;
+    every variant still finds what it edits."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "ablate_quant_matmul.py"
+    spec = importlib.util.spec_from_file_location("ablate_quant_matmul", path)
+    ablate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablate)
+    base = ablate.edited_source("base")
+    for name in ablate.VARIANTS:
+        assert (ablate.edited_source(name) == base) == (name == "base")
