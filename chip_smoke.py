@@ -19,11 +19,12 @@ Phases, each printing one JSON line with its seconds:
    bench-8b projection shape and Qwen2.5-7B's wk/wv and wg/wu with T in
    {1, 8, 128, 1024}, at aligned and unaligned edges (a ragged In, an int4
    group that straddles stages, an odd group) and at tiny-test widths.
-   Errors for all; in bf16, times of the mixed ticks' shapes (T = 128 and
-   1024) and of every served shape at a decode step (T = 8), each with its
-   instance, its bound, cuBLAS's time and the time of the older instance
-   on the same inputs (m64 at T > 16, r16 at T <= 16, with the m16
-   instance's split count).
+   Errors for all; in bf16, device times (CUDA graph replay) of the mixed
+   ticks' shapes (T = 128 and 1024) and of every served shape at a decode
+   step (T = 8), each with its instance, its bound, cuBLAS's time and the
+   time of the older instance on the same inputs (m64 at T > 16, r16 at
+   T <= 16, with the m16 instance's split count), and the kernel's time
+   through its Python wrapper, host included (``event_ms``).
 4. e2e: 2-layer f32 cuts of bench-8b (dma kernels; unquantized, int8
    weights + int8 KV, int4 weights + int8 KV) and of Qwen2.5-7B (grid
    kernels; unquantized, int8 + int8 KV): ``Engine.generate`` through the
@@ -166,6 +167,31 @@ def time_ms(fn, iters: int = 20) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``calls`` calls of ``fn`` (which takes the
+    call's index) captured into a CUDA graph after two warm-up calls, then
+    replayed ``replays`` times between CUDA events. Unlike ``time_ms`` it
+    leaves out the host's time per call, which at a decode step's shapes
+    exceeds the kernel's."""
+    fn(0)
+    fn(1)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    t1.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (calls * replays)
 
 
 def reset_launch_counts() -> None:
@@ -479,7 +505,9 @@ def time_matmul(gen, w, x, bits, group) -> dict:
     dequantized to x's dtype; also the older instance on the same inputs
     (m64 at T > 16, r16 at T <= 16, beside the m16 instance's splits).
     The kernels and cuBLAS each cycle over copies of the weight that
-    together pass ``ROTATE_BYTES``."""
+    together pass ``ROTATE_BYTES``. Their times are device times
+    (``graph_ms``); ``event_ms`` is the kernel's calls from Python, host
+    included."""
     In, Out = w.shape
     T = x.shape[0]
     n = math.ceil(ROTATE_BYTES / w.q.numel())
@@ -489,14 +517,15 @@ def time_matmul(gen, w, x, bits, group) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     instance, block_n = qm.plan(T, In, Out, bits, qm._group(w), x.dtype, sms)
     out = {"T": T, "In": In, "Out": Out, "instance": instance, "block_n": block_n}
-    out["ms"] = time_ms(lambda i: qm.quant_matmul_cuda(x, copies[i % len(copies)]))
+    out["ms"] = graph_ms(lambda i: qm.quant_matmul_cuda(x, copies[i % len(copies)]))
+    out["event_ms"] = time_ms(lambda i: qm.quant_matmul_cuda(x, copies[i % len(copies)]))
     out["plain_ms"] = time_ms(lambda i: qm.quant_matmul_cuda(x, w, plain=True), iters=3)
-    out["library_ms"] = time_ms(lambda i: x @ dense[i % len(dense)])
+    out["library_ms"] = graph_ms(lambda i: x @ dense[i % len(dense)])
     if T > 16:
-        out["m64_ms"] = time_ms(lambda i: qm._launch(x, copies[i % len(copies)], "m64", 64))
+        out["m64_ms"] = graph_ms(lambda i: qm._launch(x, copies[i % len(copies)], "m64", 64))
     else:
         out["splits"] = qm.split_k(T, In, Out, block_n, sms) if instance == "m16" else 1
-        out["r16_ms"] = time_ms(lambda i: qm._launch(x, copies[i % len(copies)], "r16", 64))
+        out["r16_ms"] = graph_ms(lambda i: qm._launch(x, copies[i % len(copies)], "r16", 64))
     out["bound_ms"], out["bound_by"] = matmul_bound_ms(x, w)
     del copies, dense
     return out
