@@ -733,10 +733,9 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* y, int
                    float* workspace, cudaStream_t stream) {
   if ((instance == kF32) != (dtype == 0) || dtype < 0 || dtype > 1)
     return cudaErrorInvalidValue;
-  const bool staged = instance == kM16 || instance == kM128;
-  // Only the staged instances split the contraction axis, into runs of
-  // whole stages, and more than one split needs the workspace.
-  if (splits < 1 || (splits > 1 && (!staged || workspace == nullptr ||
+  // Only m16 splits the contraction axis, into runs of whole stages, and
+  // more than one split needs the workspace.
+  if (splits < 1 || (splits > 1 && (instance != kM16 || workspace == nullptr ||
                                     splits > (In + kStageK - 1) / kStageK)))
     return cudaErrorInvalidValue;
   switch (instance) {
@@ -775,9 +774,9 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* y, int
 // or 4; `group` is the int4 scale group In / G (ignored for int8); `dtype`
 // 0 = f32, 1 = bf16; `instance` one of Instance (f32 takes f32 x, the
 // others bf16); `block_n` the staged instances' block columns, 128 or 64;
-// `splits` the staged instances' split of the contraction axis (1 for the
+// `splits` the m16 instance's split of the contraction axis (1 for the
 // others). With splits > 1, `workspace` holds splits * T * Out floats of
-// partial sums, then one int counter per (row tile, column tile), zero
+// partial sums, then one int counter per (16-row tile, column tile), zero
 // before the call and zero again after it.
 extern "C" int opsagent_quant_matmul(const void* x, const void* q, const void* scale,
                                      void* y, int T, int In, int Out, int bits, int group,

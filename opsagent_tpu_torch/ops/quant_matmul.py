@@ -169,10 +169,8 @@ def _launch(x: torch.Tensor, w: QuantizedBase, instance: str, block_n: int,
     bits = _bits(w)
     y = torch.empty((T, Out), dtype=x.dtype, device=x.device)
     ws = None
-    if splits > 1:
-        rows = M16_ROWS if instance == "m16" else M128_ROWS
-        tiles = -(-T // rows) * -(-Out // block_n)
-        ws = _workspace(x.device, splits * T * Out, tiles)
+    if splits > 1:  # m16 only
+        ws = _workspace(x.device, splits * T * Out, -(-T // M16_ROWS) * -(-Out // block_n))
     rc = cuda_build.library(SOURCE, _bind).opsagent_quant_matmul(
         cuda_build.ptr(x), cuda_build.ptr(w.q), cuda_build.ptr(w.scale),
         cuda_build.ptr(y), T, In, Out, bits, _group(w), _DTYPE_CODES[x.dtype],

@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time of the quantized matmul's m128 instance goes, on the GPU.
+"""Where the time of the quantized matmul's staged instances goes, on the GPU.
 
     python3 scripts/ablate_quant_matmul.py [variant ...]
 
 Copies ``opsagent_tpu_torch/csrc/quant_matmul.cu`` once per variant into
 ``build/ablate_qmm/``, edits the copy of ``qmm_staged_kernel`` (the m128
-and m16 instances alike) so that it takes one part away or is shaped another way, builds every variant in
-parallel (``-I`` the shared headers), and times the m128 instance through
-the C entry point at the mixed ticks' shapes of bench-8b (``wg`` and ``wd``
-at T = 1024, ``wq`` and ``wk`` at T = 1024, ``wg`` at T = 128), int8 and
-int4 with one whole-axis group, each weight rotated over copies that pass
-100 MB as in ``chip_smoke.py``. A variant that takes a part away computes
-wrong numbers: only the variants that keep the function are checked
-against the plain version. Prints one line per (variant, shape, width) and
-the card's name; writes ``build/ablate_qmm/ablate_quant_matmul.json``.
+and m16 instances alike) so that it takes one part away or is shaped
+another way, builds every variant in parallel (``-I`` the shared headers),
+and times it through the C entry point: the m128 instance at the mixed
+ticks' shapes of bench-8b (``wg`` and ``wd`` at T = 1024, ``wq`` and ``wk``
+at T = 1024, ``wg`` at T = 128), the m16 instance at every served shape at
+a decode step (T = 8), int8 and int4 with one whole-axis group, each
+weight rotated over copies that pass 100 MB as in ``chip_smoke.py``. Times
+are device times (``chip_smoke.graph_ms``). The m16 rows take the block
+columns and splits of ``plan`` and ``split_k``; for ``base`` also the
+other block width and half and twice the splits. A variant that takes a
+part away computes wrong numbers: only the variants that keep the function
+are checked against the plain version. Prints one line per (variant,
+shape, width, block columns, splits) and the card's name; writes
+``build/ablate_qmm/ablate_quant_matmul.json``.
 
 Variants (all by default):
   base          the kernel as it is;
@@ -24,7 +29,8 @@ Variants (all by default):
   block_n256    128 x 256 blocks (8 warps of 64 x 64, one block an SM);
   double_tile   two bf16 weight tiles: stage s + 1 is dequantized beside
                 stage s's products, one barrier a stage;
-  stages4       a ring of 4 stages (one block an SM at 128 columns).
+  stages4       m128: a ring of 4 stages (one block an SM at 128 columns);
+  m16_stages3   m16: a ring of 3 stages (four blocks an SM).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ OUT = os.path.join(ROOT, "build", "ablate_qmm")
 SHAPES = (  # (label, In, Out, T)
     ("wg/wu", 4096, 14336, 1024), ("wd", 14336, 4096, 1024), ("wq/wo", 4096, 4096, 1024),
     ("wk/wv", 4096, 1024, 1024), ("wg/wu", 4096, 14336, 128),
+    *((label, In, Out, 8) for label, (In, Out) in cs.MM_SHAPES.items()),
 )
 MODES = (("int8", 8, 0), ("int4 G=1", 4, 0))
 
@@ -105,6 +112,10 @@ VARIANTS = {  # name: (edits of quant_matmul.cu, block_n or None for the plan's,
                     None, True),
     "stages4": ([("static constexpr int STAGES = ROWS == 128 ? 3 : 4;",
                   "static constexpr int STAGES = ROWS == 128 ? 4 : 4;")], None, True),
+    "m16_stages3": ([("static constexpr int STAGES = ROWS == 128 ? 3 : 4;",
+                      "static constexpr int STAGES = 3;"),
+                     ("static constexpr int MIN_BLOCKS = ROWS == 128 ? 2 : 3;",
+                      "static constexpr int MIN_BLOCKS = ROWS == 128 ? 2 : 4;")], None, True),
 }
 
 
@@ -132,6 +143,21 @@ def build(name: str) -> str:
     return lib
 
 
+def configs(name: str, T: int, In: int, Out: int, plan_n: int, sms: int) -> list[tuple[int, int]]:
+    """(block columns, splits) at which variant ``name`` is timed."""
+    block_n = VARIANTS[name][1] or plan_n
+    if T > 16:
+        return [(block_n, 1)]
+    if name != "base":
+        return [(block_n, qm.split_k(T, In, Out, block_n, sms))]
+    out = []
+    for width in (plan_n, 192 - plan_n):  # 128 and 64, the plan's first
+        s = qm.split_k(T, In, Out, width, sms)
+        most = max(1, -(-In // qm.STAGE_ROWS) // 2)
+        out += [(width, k) for k in sorted({max(1, s // 2), s, min(2 * s, most)})]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_quant_matmul: needs an NVIDIA GPU", file=sys.stderr)
@@ -154,28 +180,32 @@ def main() -> int:
             x = (torch.randn(T, In, generator=gen, device="cuda")
                  / w.dequantize().norm(dim=0).mean()).bfloat16()
             want = qm.quant_matmul(x, w)
-            _, plan_n = qm.plan(T, In, Out, bits, qm._group(w), x.dtype, sms)
+            instance, plan_n = qm.plan(T, In, Out, bits, qm._group(w), x.dtype, sms)
             for name, lib in libs.items():
-                _, fixed_n, keeps = VARIANTS[name]
-                block_n = fixed_n or plan_n
-                y = torch.empty(T, Out, dtype=x.dtype, device="cuda")
+                keeps = VARIANTS[name][2]
+                for block_n, splits in configs(name, T, In, Out, plan_n, sms):
+                    y = torch.empty(T, Out, dtype=x.dtype, device="cuda")
+                    ws = torch.zeros(splits * T * Out + Out // 16, device="cuda")
 
-                def launch(i, lib=lib, block_n=block_n, y=y):
-                    c = copies[i % len(copies)]
-                    rc = lib.opsagent_quant_matmul(
-                        ptr(x), ptr(c.q), ptr(c.scale), ptr(y), T, In, Out, bits, qm._group(c),
-                        1, qm.INSTANCES["m128"], block_n, 1, None, stream(x.device))
-                    if rc:
-                        raise SystemExit(f"{name} {label} T={T} {mode}: CUDA error {rc}")
+                    def launch(i, lib=lib, block_n=block_n, splits=splits, y=y, ws=ws):
+                        c = copies[i % len(copies)]
+                        rc = lib.opsagent_quant_matmul(
+                            ptr(x), ptr(c.q), ptr(c.scale), ptr(y), T, In, Out, bits,
+                            qm._group(c), 1, qm.INSTANCES[instance], block_n, splits,
+                            ptr(ws), stream(x.device))
+                        if rc:
+                            raise SystemExit(f"{name} {label} T={T} {mode}: CUDA error {rc}")
 
-                launch(0)  # the first copy, the one ``want`` was computed from
-                torch.cuda.synchronize()
-                row = {"variant": name, "shape": label, "T": T, "mode": mode, "block_n": block_n}
-                if keeps:
-                    row["max_abs_err"] = (y.float() - want.float()).abs().max().item()
-                row["ms"] = cs.time_ms(launch, iters=30)
-                rows.append(row)
-                print(json.dumps(row), flush=True)
+                    launch(0)  # the first copy, the one ``want`` was computed from
+                    torch.cuda.synchronize()
+                    row = {"variant": name, "shape": label, "T": T, "mode": mode,
+                           "instance": instance, "block_n": block_n, "splits": splits}
+                    if keeps:
+                        row["max_abs_err"] = (y.float() - want.float()).abs().max().item()
+                    row["ms"] = cs.graph_ms(launch)
+                    rows.append(row)
+                    print(json.dumps(row), flush=True)
+                    del y, ws
             del copies, w, x, want
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
