@@ -45,8 +45,8 @@ Phases, each printing one JSON line with its seconds:
    matmul's by instance: the m128 instance takes every projection of every
    mixed tick (a positive multiple of 7 x layers launches), the m16
    instance the rest (decode steps, the lm_head), and r16, m64 and f32
-   none. With ``--profile`` each
-   run is traced with ``torch.profiler`` and a ``profile`` line gives
+   none. With ``--profile`` each run is traced with ``torch.profiler``
+   and a ``profile`` line gives
    device time by kernel group, the quantized matmul split by instance
    (the trace slows the run: its tokens/s and TTFT are not the untraced
    ones).
