@@ -254,10 +254,8 @@ def phase_build() -> dict:
         tensor_core += [r for r in report
                         if "ragged" in r["kernel"] and "bfloat16" in r["kernel"]
                         and "decode" not in r["kernel"]]
-        # The staged kernel's first template argument is its rows of x
-        # (demangled "<128, ...", or mangled "ILi128E...").
-        m128 += [r for r in report if re.search(r"qmm_staged_kernel(<|ILi)128\D", r["kernel"])]
-        m16 += [r for r in report if re.search(r"qmm_staged_kernel(<|ILi)16\D", r["kernel"])]
+        m128 += [r for r in report if "qmm_m128_kernel" in r["kernel"]]
+        m16 += [r for r in report if "qmm_m16_kernel" in r["kernel"]]
     check(len(tensor_core) >= 16,
           f"ptxas reported {len(tensor_core)} bf16 ragged instances, expected 16")
     check(len(m128) == 4, f"ptxas reported {len(m128)} m128 matmul instances, expected 4")
@@ -715,8 +713,8 @@ KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names, spaces and "(int)"
     ("paged_attention_grid_combine", ("combine_kernel",)),
     # The quantized matmul by instance: m128 runs the mixed ticks'
     # projections, m16 the decode steps' and every lm_head.
-    ("quant_matmul_m128", ("qmm_staged_kernel<128,",)),
-    ("quant_matmul_m16", ("qmm_staged_kernel<16,",)),
+    ("quant_matmul_m128", ("qmm_m128_kernel",)),
+    ("quant_matmul_m16", ("qmm_m16_kernel",)),
     ("quant_matmul", ("qmm_",)),
     ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")),
 )

@@ -18,11 +18,11 @@
 //
 // Five instances, chosen by the caller from shapes alone (the rule is
 // `plan` in ops/quant_matmul.py, restated and checked here). Two are the
-// staged kernel, qmm_staged_kernel below, which takes bf16 x when
-// In % 8 == 0, Out % 16 == 0 and, for int4, the scale group is even and
-// >= 16: every 16-byte copy is aligned and each packed byte's two rows
-// share one scale row. Every projection and lm_head of bench-8b and
-// Qwen2.5-7B qualifies.
+// staged kernels, qmm_m128_kernel and qmm_m16_kernel below, built from the
+// same stage functions; they take bf16 x when In % 8 == 0, Out % 16 == 0
+// and, for int4, the scale group is even and >= 16: every 16-byte copy is
+// aligned and each packed byte's two rows share one scale row. Every
+// projection and lm_head of bench-8b and Qwen2.5-7B qualifies.
 //   - m128, T > 16 (mixed ticks): 128 rows of x a block.
 //   - m16, T <= 16 (decode steps, the lm_head): 16 rows of x a block, the
 //     contraction axis split over blocks.
@@ -38,7 +38,7 @@
 // 3.35 TB/s. A mixed tick (T = 128 to 1024) does 2 * T operations per byte
 // and is bound by the tensor cores' 989 TFLOP/s.
 //
-// The staged kernel. A block owns ROWS rows of x by BN = 128 columns of y
+// The staged kernels. A block owns ROWS rows of x by BN = 128 columns of y
 // (64 where 128-wide column tiles would leave most SMs idle); each warp a
 // tile of m16n8k16 products (mma.sync, bf16 in, f32 accumulate). The
 // contraction axis goes 64 rows a stage through a ring of stages in
@@ -63,6 +63,11 @@
 // products gained at most 1 %; with the products removed the kernel is no
 // faster, so the stage's serial phases (wait, barrier, dequantize, barrier,
 // products), not the tensor cores, set its pace.
+//
+// The two kernels share the stage functions (issue_stage, dequantize_stage,
+// stage_products) but keep their own stage loops: one template body that
+// also carried m16's split ran m128 4-16 % slower at T = 1024 on the H100
+// (scripts/ab_quant_matmul.py against the source before m16 existed).
 //
 // m16 (decode steps, lm_heads; bound by the weight bytes): 4 warps (1 x 4)
 // of 16 x BN/4 tiles, x's T <= 16 rows zero-filled to 16, a 4-stage ring,
@@ -352,135 +357,171 @@ struct StagedLayout {
   static constexpr int SMEM = Staged<ROWS>::STAGES * STAGE + kStageK * LDB * 2;
 };
 
-// Block (blockIdx.x, blockIdx.y, blockIdx.z) owns rows [ROWS x, ROWS (x + 1))
-// of x, columns [BN y, BN (y + 1)) of y, and split z of gridDim.z: a run of
-// whole stages of the contraction axis. With one split it writes y. With
-// more, it writes its f32 sums to partial [splits, T, Out]; the last block
-// of the (x, y) tile to arrive, counted by the int counters that follow the
-// partials, adds them in split order and writes y.
+// The stage functions both staged kernels call. A block's ring slot
+// `base` holds one stage's raw operands; `k0` is the stage's first
+// contraction row.
+
+// Stage k0's operands into the slot at `base`, by 16-byte cp.async.
 template <int ROWS, int BITS, int BN>
-__global__ void __launch_bounds__(Staged<ROWS>::THREADS, Staged<ROWS>::MIN_BLOCKS)
-qmm_staged_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                  const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int T,
-                  int In, int Out, int group, float* __restrict__ partial) {
-  using C = Staged<ROWS>;
+__device__ __forceinline__ void issue_stage(unsigned char* base, const __nv_bfloat16* __restrict__ x,
+                                            const int8_t* __restrict__ q,
+                                            const float* __restrict__ scale, int k0, int m0,
+                                            int n0, int T, int In, int Out, int group,
+                                            int tid) {
   using L = StagedLayout<ROWS, BITS, BN>;
-  constexpr int THREADS = C::THREADS, STAGES = C::STAGES;
-  constexpr int WTM = ROWS / C::WM, MT = WTM / 16;  // a warp's rows, in m16 tiles
-  constexpr int WTN = BN / C::WN, NT = WTN / 8;
-  constexpr int CH = BN / 8;               // 8-column chunks of a code row
-  constexpr int RPP = THREADS / CH;        // code rows the block dequantizes per pass
-  constexpr int ITEMS = L::QROWS / RPP;    // chunks each thread dequantizes per stage
-  constexpr int QCP = BN / 16;             // 16-byte copies per code row
-  constexpr int SCP = BN / 4;              // 16-byte copies per scale row
+  constexpr int THREADS = Staged<ROWS>::THREADS;
+  constexpr int QCP = BN / 16;                       // 16-byte copies per code row
+  constexpr int SCP = BN / 4;                        // 16-byte copies per scale row
   constexpr int XCP = ROWS * kStageK / 8 / THREADS;  // x copies per thread
-  static_assert(NT % 2 == 0 && L::QROWS % RPP == 0 && XCP * THREADS * 8 == ROWS * kStageK,
-                "tile shape");
+  static_assert(XCP * THREADS * 8 == ROWS * kStageK, "tile shape");
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
+  int8_t* qs = reinterpret_cast<int8_t*>(base + L::X_BYTES);
+#pragma unroll
+  for (int it = 0; it < XCP; ++it) {
+    const int i = tid + it * THREADS;
+    const int r = i / 8, c = (i % 8) * 8;
+    const bool ok = m0 + r < T && k0 + c < In;
+    cp_async16(xs + r * L::LDA + c, x + (ok ? static_cast<size_t>(m0 + r) * In + k0 + c : 0), ok);
+  }
+  const int qrows = BITS == 8 ? In : In / 2;
+  const int row0 = BITS == 8 ? k0 : k0 / 2;
+#pragma unroll
+  for (int it = 0; it < (L::QROWS * QCP + THREADS - 1) / THREADS; ++it) {
+    const int i = tid + it * THREADS;
+    if ((L::QROWS * QCP) % THREADS != 0 && i >= L::QROWS * QCP) break;
+    const int r = i / QCP, c = (i % QCP) * 16;
+    const bool ok = row0 + r < qrows && n0 + c < Out;
+    cp_async16(qs + r * BN + c, q + (ok ? static_cast<size_t>(row0 + r) * Out + n0 + c : 0), ok);
+  }
+  if constexpr (BITS == 4) {
+    // The scale rows of the groups this stage's contraction rows fall in.
+    float* ss = reinterpret_cast<float*>(base + L::X_BYTES + L::Q_BYTES);
+    const int g_lo = k0 / group, g_hi = (min(k0 + kStageK, In) - 1) / group;
+    for (int i = tid; i < (g_hi - g_lo + 1) * SCP; i += THREADS) {
+      const int r = i / SCP, c = (i % SCP) * 4;
+      const bool ok = n0 + c < Out;
+      cp_async16(ss + r * BN + c, scale + (ok ? static_cast<size_t>(g_lo + r) * Out + n0 + c : 0),
+                 ok);
+    }
+  }
+}
+
+// The codes of the stage at `base`, dequantized into the bf16 tile ws
+// [64][LDB]. Thread tid dequantizes the 8 columns from (tid % (BN / 8)) * 8
+// every stage; `s8` holds their int8 scales.
+template <int ROWS, int BITS, int BN>
+__device__ __forceinline__ void dequantize_stage(const unsigned char* base, __nv_bfloat16* ws,
+                                                 int k0, int In, int group,
+                                                 const float (&s8)[8], int tid) {
+  using L = StagedLayout<ROWS, BITS, BN>;
+  constexpr int CH = BN / 8;                         // 8-column chunks of a code row
+  constexpr int RPP = Staged<ROWS>::THREADS / CH;    // code rows the block dequantizes per pass
+  constexpr int ITEMS = L::QROWS / RPP;              // chunks each thread dequantizes per stage
+  static_assert(L::QROWS % RPP == 0, "tile shape");
+  const int8_t* qs = reinterpret_cast<const int8_t*>(base + L::X_BYTES);
+  const int ch = tid % CH;
+  const bool one_group = BITS == 4 && group % kStageK == 0;  // one int4 scale row a stage
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int r = tid / CH + it * RPP;  // stored code row of the stage
+    const uint2 raw = *reinterpret_cast<const uint2*>(qs + r * BN + ch * 8);
+    if constexpr (BITS == 8) {
+      const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+      uint4 out;
+      uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[e] = pack_bf16(code_f32(w[e / 2], 2 * (e % 2)) * s8[2 * e],
+                         code_f32(w[e / 2], 2 * (e % 2) + 1) * s8[2 * e + 1]);
+      }
+      *reinterpret_cast<uint4*>(ws + r * L::LDB + ch * 8) = out;
+    } else {
+      // Rows k0 + 2r (low nibbles) and k0 + 2r + 1 (high) share a group:
+      // the group is even. A group that 64 divides puts the whole stage in
+      // one scale row, with no division. Rows past In hold zero codes; they
+      // read the last staged scale row, which is finite.
+      const float* ss = reinterpret_cast<const float*>(base + L::X_BYTES + L::Q_BYTES);
+      const int gi = one_group ? 0 : min(k0 + 2 * r, In - 1) / group - k0 / group;
+      const float4 sa = *reinterpret_cast<const float4*>(ss + gi * BN + ch * 8);
+      const float4 sb = *reinterpret_cast<const float4*>(ss + gi * BN + ch * 8 + 4);
+      const float sc[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+      // Each nibble offset to unsigned (n ^ 8 = code + 8) in its own byte.
+      const uint32_t lo[2] = {(raw.x & 0x0F0F0F0Fu) ^ 0x08080808u,
+                              (raw.y & 0x0F0F0F0Fu) ^ 0x08080808u};
+      const uint32_t hi[2] = {((raw.x >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u,
+                              ((raw.y >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u};
+      constexpr float kBias = 8388616.f;  // 2^23 + 8
+      uint4 out_lo, out_hi;
+      uint32_t* ol = reinterpret_cast<uint32_t*>(&out_lo);
+      uint32_t* oh = reinterpret_cast<uint32_t*>(&out_hi);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = 2 * (e % 2);
+        ol[e] = pack_bf16((byte_f32(lo[e / 2], b) - kBias) * sc[2 * e],
+                          (byte_f32(lo[e / 2], b + 1) - kBias) * sc[2 * e + 1]);
+        oh[e] = pack_bf16((byte_f32(hi[e / 2], b) - kBias) * sc[2 * e],
+                          (byte_f32(hi[e / 2], b + 1) - kBias) * sc[2 * e + 1]);
+      }
+      *reinterpret_cast<uint4*>(ws + (2 * r) * L::LDB + ch * 8) = out_lo;
+      *reinterpret_cast<uint4*>(ws + (2 * r + 1) * L::LDB + ch * 8) = out_hi;
+    }
+  }
+}
+
+// A warp's products over one stage: its (ROWS / WM) x (BN / WN) tile of y
+// from the x tile xs [ROWS][LDA] and the dequantized weight tile ws.
+template <int ROWS, int BITS, int BN, int MT, int NT>
+__device__ __forceinline__ void stage_products(float (&acc)[MT][NT][4],
+                                               const __nv_bfloat16* xs,
+                                               const __nv_bfloat16* ws, int wm, int wn,
+                                               int lane) {
+  using L = StagedLayout<ROWS, BITS, BN>;
+  static_assert(NT % 2 == 0, "tile shape");
+#pragma unroll
+  for (int ks = 0; ks < kStageK / 16; ++ks) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldmatrix_x4(a[mt], xs + (wm * MT * 16 + mt * 16 + (lane & 15)) * L::LDA + ks * 16 +
+                             (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, ws + (ks * 16 + (lane & 15)) * L::LDB + wn * NT * 8 + np * 16 +
+                               (lane >> 4) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
+        mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The m128 instance. Blocks (blockIdx.x, blockIdx.y) own rows
+// [128 x, 128 (x + 1)) of x and columns [BN y, BN (y + 1)) of y, and walk
+// the whole contraction axis.
+template <int BITS, int BN>
+__global__ void __launch_bounds__(Staged<128>::THREADS, Staged<128>::MIN_BLOCKS) qmm_m128_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int T, int In,
+    int Out, int group) {
+  using C = Staged<128>;
+  using L = StagedLayout<128, BITS, BN>;
+  constexpr int MT = 128 / C::WM / 16, NT = BN / C::WN / 8;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * L::STAGE);
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + C::STAGES * L::STAGE);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / C::WN, wn = warp % C::WN;
-  const int m0 = blockIdx.x * ROWS, n0 = blockIdx.y * BN;
-  const int qrows = BITS == 8 ? In : In / 2;
-  // This split's stages [s0, s1): the stages shared out evenly.
-  const int splits = gridDim.z, all = (In + kStageK - 1) / kStageK;
-  const int s0 = blockIdx.z * all / splits, s1 = (blockIdx.z + 1) * all / splits;
-  const bool one_group = BITS == 4 && group % kStageK == 0;  // one int4 scale row a stage
-  const int ch = tid % CH;  // the 8 columns this thread dequantizes, every stage
-  const int n_ch = n0 + ch * 8;
+  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * BN;
+  const int stages = (In + kStageK - 1) / kStageK;
+  const int n_ch = n0 + (tid % (BN / 8)) * 8;
 
   float s8[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) s8[j] = BITS == 8 && n_ch + j < Out ? __ldg(scale + n_ch + j) : 0.f;
-
-  // Stage s's operands into ring slot s % STAGES.
-  auto issue = [&](int s) {
-    unsigned char* base = smem + (s % STAGES) * L::STAGE;
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
-    int8_t* qs = reinterpret_cast<int8_t*>(base + L::X_BYTES);
-    const int k0 = s * kStageK;
-#pragma unroll
-    for (int it = 0; it < XCP; ++it) {
-      const int i = tid + it * THREADS;
-      const int r = i / 8, c = (i % 8) * 8;
-      const bool ok = m0 + r < T && k0 + c < In;
-      cp_async16(xs + r * L::LDA + c, x + (ok ? static_cast<size_t>(m0 + r) * In + k0 + c : 0), ok);
-    }
-    const int row0 = BITS == 8 ? k0 : k0 / 2;
-#pragma unroll
-    for (int it = 0; it < (L::QROWS * QCP + THREADS - 1) / THREADS; ++it) {
-      const int i = tid + it * THREADS;
-      if ((L::QROWS * QCP) % THREADS != 0 && i >= L::QROWS * QCP) break;
-      const int r = i / QCP, c = (i % QCP) * 16;
-      const bool ok = row0 + r < qrows && n0 + c < Out;
-      cp_async16(qs + r * BN + c, q + (ok ? static_cast<size_t>(row0 + r) * Out + n0 + c : 0), ok);
-    }
-    if constexpr (BITS == 4) {
-      // The scale rows of the groups this stage's contraction rows fall in.
-      float* ss = reinterpret_cast<float*>(base + L::X_BYTES + L::Q_BYTES);
-      const int g_lo = k0 / group, g_hi = (min(k0 + kStageK, In) - 1) / group;
-      for (int i = tid; i < (g_hi - g_lo + 1) * SCP; i += THREADS) {
-        const int r = i / SCP, c = (i % SCP) * 4;
-        const bool ok = n0 + c < Out;
-        cp_async16(ss + r * BN + c, scale + (ok ? static_cast<size_t>(g_lo + r) * Out + n0 + c : 0),
-                   ok);
-      }
-    }
-  };
-
-  // Stage s's codes, dequantized into the bf16 tile ws [64][LDB].
-  auto dequantize = [&](int s) {
-    const unsigned char* base = smem + (s % STAGES) * L::STAGE;
-    const int8_t* qs = reinterpret_cast<const int8_t*>(base + L::X_BYTES);
-    const int k0 = s * kStageK;
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int r = tid / CH + it * RPP;  // stored code row of the stage
-      const uint2 raw = *reinterpret_cast<const uint2*>(qs + r * BN + ch * 8);
-      if constexpr (BITS == 8) {
-        const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
-        uint4 out;
-        uint32_t* o = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          o[e] = pack_bf16(code_f32(w[e / 2], 2 * (e % 2)) * s8[2 * e],
-                           code_f32(w[e / 2], 2 * (e % 2) + 1) * s8[2 * e + 1]);
-        }
-        *reinterpret_cast<uint4*>(ws + r * L::LDB + ch * 8) = out;
-      } else {
-        // Rows k0 + 2r (low nibbles) and k0 + 2r + 1 (high) share a group:
-        // the group is even. A group that 64 divides puts the whole stage
-        // in one scale row, with no division. Rows past In hold zero codes;
-        // they read the last staged scale row, which is finite.
-        const float* ss = reinterpret_cast<const float*>(base + L::X_BYTES + L::Q_BYTES);
-        const int gi = one_group ? 0 : min(k0 + 2 * r, In - 1) / group - k0 / group;
-        const float4 sa = *reinterpret_cast<const float4*>(ss + gi * BN + ch * 8);
-        const float4 sb = *reinterpret_cast<const float4*>(ss + gi * BN + ch * 8 + 4);
-        const float sc[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
-        // Each nibble offset to unsigned (n ^ 8 = code + 8) in its own byte.
-        const uint32_t lo[2] = {(raw.x & 0x0F0F0F0Fu) ^ 0x08080808u,
-                                (raw.y & 0x0F0F0F0Fu) ^ 0x08080808u};
-        const uint32_t hi[2] = {((raw.x >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u,
-                                ((raw.y >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u};
-        constexpr float kBias = 8388616.f;  // 2^23 + 8
-        uint4 out_lo, out_hi;
-        uint32_t* ol = reinterpret_cast<uint32_t*>(&out_lo);
-        uint32_t* oh = reinterpret_cast<uint32_t*>(&out_hi);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int b = 2 * (e % 2);
-          ol[e] = pack_bf16((byte_f32(lo[e / 2], b) - kBias) * sc[2 * e],
-                            (byte_f32(lo[e / 2], b + 1) - kBias) * sc[2 * e + 1]);
-          oh[e] = pack_bf16((byte_f32(hi[e / 2], b) - kBias) * sc[2 * e],
-                            (byte_f32(hi[e / 2], b + 1) - kBias) * sc[2 * e + 1]);
-        }
-        *reinterpret_cast<uint4*>(ws + (2 * r) * L::LDB + ch * 8) = out_lo;
-        *reinterpret_cast<uint4*>(ws + (2 * r + 1) * L::LDB + ch * 8) = out_hi;
-      }
-    }
-  };
 
   float acc[MT][NT][4];
 #pragma unroll
@@ -490,6 +531,88 @@ qmm_staged_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
+  // Stage s's operands into ring slot s % STAGES.
+  auto issue = [&](int s) {
+    issue_stage<128, BITS, BN>(smem + (s % C::STAGES) * L::STAGE, x, q, scale, s * kStageK, m0,
+                               n0, T, In, Out, group, tid);
+  };
+  // One commit group per stage, empty past the last, so that wait_group 1
+  // always means "stage s has landed".
+  issue(0);
+  cp_async_commit();
+  if (stages > 1) issue(1);
+  cp_async_commit();
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();  // stage s landed for every thread; stage s - 1 fully consumed
+    if (s + 2 < stages) issue(s + 2);  // into the slot stage s - 1 held
+    cp_async_commit();
+    const unsigned char* slot = smem + (s % C::STAGES) * L::STAGE;
+    dequantize_stage<128, BITS, BN>(slot, ws, s * kStageK, In, group, s8, tid);
+    __syncthreads();  // the bf16 weight tile is written
+    stage_products<128, BITS, BN>(acc, reinterpret_cast<const __nv_bfloat16*>(slot), ws, wm, wn,
+                                  lane);
+  }
+
+  // Out % 16 == 0: a pair of columns is wholly inside or outside.
+  const int g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * MT * 16 + mt * 16 + g + h * 8;
+        const int col = n0 + wn * NT * 8 + nt * 8 + tig * 2;
+        if (row < T && col < Out) {
+          *reinterpret_cast<uint32_t*>(y + static_cast<size_t>(row) * Out + col) =
+              pack_bf16(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+      }
+}
+
+// The m16 instance. Blocks (blockIdx.x, blockIdx.y, blockIdx.z) own rows
+// [16 x, 16 (x + 1)) of x, columns [BN y, BN (y + 1)) of y, and split z of
+// gridDim.z: a run of whole stages of the contraction axis, the stages
+// shared out evenly. With one split a block writes y. With more, it writes
+// its f32 sums to partial [splits, T, Out]; the last block of the (x, y)
+// tile to arrive, counted by the int counters that follow the partials,
+// adds them in split order and writes y.
+template <int BITS, int BN>
+__global__ void __launch_bounds__(Staged<16>::THREADS, Staged<16>::MIN_BLOCKS) qmm_m16_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int T, int In,
+    int Out, int group, float* __restrict__ partial) {
+  using C = Staged<16>;
+  using L = StagedLayout<16, BITS, BN>;
+  constexpr int STAGES = C::STAGES;
+  constexpr int MT = 1, NT = BN / C::WN / 8;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * L::STAGE);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wn = warp % C::WN;
+  const int m0 = blockIdx.x * 16, n0 = blockIdx.y * BN;
+  const int splits = gridDim.z, all = (In + kStageK - 1) / kStageK;
+  const int s0 = blockIdx.z * all / splits, s1 = (blockIdx.z + 1) * all / splits;
+  const int n_ch = n0 + (tid % (BN / 8)) * 8;
+
+  float s8[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s8[j] = BITS == 8 && n_ch + j < Out ? __ldg(scale + n_ch + j) : 0.f;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][nt][e] = 0.f;
+
+  // Stage s's operands into ring slot s % STAGES.
+  auto issue = [&](int s) {
+    issue_stage<16, BITS, BN>(smem + (s % STAGES) * L::STAGE, x, q, scale, s * kStageK, m0, n0,
+                              T, In, Out, group, tid);
+  };
   // One commit group per stage, empty past the last, so that
   // wait_group STAGES - 2 always means "stage s has landed".
 #pragma unroll
@@ -502,29 +625,11 @@ qmm_staged_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
     __syncthreads();  // stage s landed for every thread; stage s - 1 fully consumed
     if (s + STAGES - 1 < s1) issue(s + STAGES - 1);  // into the slot stage s - 1 held
     cp_async_commit();
-    dequantize(s);
+    const unsigned char* slot = smem + (s % STAGES) * L::STAGE;
+    dequantize_stage<16, BITS, BN>(slot, ws, s * kStageK, In, group, s8, tid);
     __syncthreads();  // the bf16 weight tile is written
-    const __nv_bfloat16* xs =
-        reinterpret_cast<const __nv_bfloat16*>(smem + (s % STAGES) * L::STAGE);
-#pragma unroll
-    for (int ks = 0; ks < kStageK / 16; ++ks) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], xs + (wm * WTM + mt * 16 + (lane & 15)) * L::LDA + ks * 16 +
-                               (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, ws + (ks * 16 + (lane & 15)) * L::LDB + wn * WTN + np * 16 +
-                                 (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
+    stage_products<16, BITS, BN>(acc, reinterpret_cast<const __nv_bfloat16*>(slot), ws, 0, wn,
+                                 lane);
   }
 
   // Out % 16 == 0: a pair of columns is wholly inside or outside. One
@@ -532,20 +637,18 @@ qmm_staged_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
   const int g = lane / 4, tig = lane % 4;
   float* mine = partial + static_cast<size_t>(blockIdx.z) * T * Out;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * WTM + mt * 16 + g + h * 8;
-        const int col = n0 + wn * WTN + nt * 8 + tig * 2;
-        if (row >= T || col >= Out) continue;
-        const size_t at = static_cast<size_t>(row) * Out + col;
-        if (splits == 1)
-          *reinterpret_cast<uint32_t*>(y + at) = pack_bf16(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-        else
-          *reinterpret_cast<float2*>(mine + at) = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + g + h * 8;
+      const int col = n0 + wn * NT * 8 + nt * 8 + tig * 2;
+      if (row >= T || col >= Out) continue;
+      const size_t at = static_cast<size_t>(row) * Out + col;
+      if (splits == 1)
+        *reinterpret_cast<uint32_t*>(y + at) = pack_bf16(acc[0][nt][2 * h], acc[0][nt][2 * h + 1]);
+      else
+        *reinterpret_cast<float2*>(mine + at) = make_float2(acc[0][nt][2 * h], acc[0][nt][2 * h + 1]);
+    }
   if (splits == 1) return;
 
   // The last block of this tile to arrive adds the partials in split order
@@ -561,24 +664,22 @@ qmm_staged_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
   if (!last) return;
   __threadfence();
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * WTM + mt * 16 + g + h * 8;
-        const int col = n0 + wn * WTN + nt * 8 + tig * 2;
-        if (row >= T || col >= Out) continue;
-        const size_t at = static_cast<size_t>(row) * Out + col;
-        float2 sum = __ldcg(reinterpret_cast<const float2*>(partial + at));  // past L1
-        for (int z = 1; z < splits; ++z) {
-          const float2 p = __ldcg(reinterpret_cast<const float2*>(
-              partial + static_cast<size_t>(z) * T * Out + at));
-          sum.x += p.x;
-          sum.y += p.y;
-        }
-        *reinterpret_cast<uint32_t*>(y + at) = pack_bf16(sum.x, sum.y);
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + g + h * 8;
+      const int col = n0 + wn * NT * 8 + nt * 8 + tig * 2;
+      if (row >= T || col >= Out) continue;
+      const size_t at = static_cast<size_t>(row) * Out + col;
+      float2 sum = __ldcg(reinterpret_cast<const float2*>(partial + at));  // past L1
+      for (int z = 1; z < splits; ++z) {
+        const float2 p = __ldcg(reinterpret_cast<const float2*>(
+            partial + static_cast<size_t>(z) * T * Out + at));
+        sum.x += p.x;
+        sum.y += p.y;
       }
+      *reinterpret_cast<uint32_t*>(y + at) = pack_bf16(sum.x, sum.y);
+    }
   if (tid == 0) *counter = 0;
 }
 
@@ -694,35 +795,36 @@ cudaError_t launch_bf16(const void* x, const void* q, const void* scale, void* y
   return cudaGetLastError();
 }
 
-template <int ROWS, int BITS, int BN>
-cudaError_t launch_staged(const void* x, const void* q, const void* scale, void* y, int T,
-                          int In, int Out, int group, int splits, float* partial,
-                          cudaStream_t stream) {
-  constexpr int smem = StagedLayout<ROWS, BITS, BN>::SMEM;
-  // Above 48 KB a block's dynamic shared memory needs an opt-in, once per
-  // instance; a refusal is returned to the caller.
+// Above 48 KB a block's dynamic shared memory needs an opt-in, once per
+// instance; a refusal is returned to the caller.
+template <int BITS, int BN>
+cudaError_t launch_m128(const void* x, const void* q, const void* scale, void* y, int T,
+                        int In, int Out, int group, cudaStream_t stream) {
+  constexpr int smem = StagedLayout<128, BITS, BN>::SMEM;
   static const cudaError_t prepared = cudaFuncSetAttribute(
-      qmm_staged_kernel<ROWS, BITS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      qmm_m128_kernel<BITS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (prepared != cudaSuccess) return prepared;
-  const dim3 grid((T + ROWS - 1) / ROWS, (Out + BN - 1) / BN, splits);
-  qmm_staged_kernel<ROWS, BITS, BN><<<grid, Staged<ROWS>::THREADS, smem, stream>>>(
+  const dim3 grid((T + 127) / 128, (Out + BN - 1) / BN);
+  qmm_m128_kernel<BITS, BN><<<grid, Staged<128>::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), T, In, Out, group);
+  return cudaGetLastError();
+}
+
+template <int BITS, int BN>
+cudaError_t launch_m16(const void* x, const void* q, const void* scale, void* y, int T,
+                       int In, int Out, int group, int splits, float* partial,
+                       cudaStream_t stream) {
+  constexpr int smem = StagedLayout<16, BITS, BN>::SMEM;
+  static const cudaError_t prepared = cudaFuncSetAttribute(
+      qmm_m16_kernel<BITS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (prepared != cudaSuccess) return prepared;
+  const dim3 grid((T + 15) / 16, (Out + BN - 1) / BN, splits);
+  qmm_m16_kernel<BITS, BN><<<grid, Staged<16>::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), T, In, Out, group,
       partial);
   return cudaGetLastError();
-}
-
-template <int ROWS, int BITS>
-cudaError_t launch_staged_bn(const void* x, const void* q, const void* scale, void* y, int T,
-                             int In, int Out, int group, int block_n, int splits,
-                             float* partial, cudaStream_t stream) {
-  if (block_n == 128)
-    return launch_staged<ROWS, BITS, 128>(x, q, scale, y, T, In, Out, group, splits, partial,
-                                          stream);
-  if (block_n == 64)
-    return launch_staged<ROWS, BITS, 64>(x, q, scale, y, T, In, Out, group, splits, partial,
-                                         stream);
-  return cudaErrorInvalidValue;
 }
 
 enum Instance { kF32 = 0, kM16 = 1, kM64 = 2, kM128 = 3, kR16 = 4 };
@@ -757,11 +859,20 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* y, int
       // the top).
       if (In % 8 != 0 || Out % 16 != 0 || (BITS == 4 && (group % 2 != 0 || group < 16)))
         return cudaErrorInvalidValue;
-      if (instance == kM16)
-        return launch_staged_bn<16, BITS>(x, q, scale, y, T, In, Out, group, block_n, splits,
-                                          workspace, stream);
-      return launch_staged_bn<128, BITS>(x, q, scale, y, T, In, Out, group, block_n, splits,
-                                         workspace, stream);
+      if (instance == kM16) {
+        if (block_n == 128)
+          return launch_m16<BITS, 128>(x, q, scale, y, T, In, Out, group, splits, workspace,
+                                       stream);
+        if (block_n == 64)
+          return launch_m16<BITS, 64>(x, q, scale, y, T, In, Out, group, splits, workspace,
+                                      stream);
+        return cudaErrorInvalidValue;
+      }
+      if (block_n == 128)
+        return launch_m128<BITS, 128>(x, q, scale, y, T, In, Out, group, stream);
+      if (block_n == 64)
+        return launch_m128<BITS, 64>(x, q, scale, y, T, In, Out, group, stream);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

@@ -4,10 +4,11 @@
     python3 scripts/ablate_quant_matmul.py [variant ...]
 
 Copies ``opsagent_tpu_torch/csrc/quant_matmul.cu`` once per variant into
-``build/ablate_qmm/``, edits the copy of ``qmm_staged_kernel`` (the m128
-and m16 instances alike) so that it takes one part away or is shaped
-another way, builds every variant in parallel (``-I`` the shared headers),
-and times it through the C entry point: the m128 instance at the mixed
+``build/ablate_qmm/``, edits the copy of the staged kernels
+(``qmm_m128_kernel``, ``qmm_m16_kernel`` and the stage functions they
+share) so that they take one part away or are shaped another way, builds
+every variant in parallel (``-I`` the shared headers), and times it
+through the C entry point: the m128 instance at the mixed
 ticks' shapes of bench-8b (``wg`` and ``wd`` at T = 1024, ``wq`` and ``wk``
 at T = 1024, ``wg`` at T = 128), the m16 instance at every served shape at
 a decode step (T = 8), int8 and int4 with one whole-axis group, each
@@ -60,55 +61,62 @@ SHAPES = (  # (label, In, Out, T)
 )
 MODES = (("int8", 8, 0), ("int4 G=1", 4, 0))
 
-_MMA = ("          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);\n"
-        "          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);\n")
-_LOOP = """#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (s0 + i < s1) issue(s0 + i);
-    cp_async_commit();
-  }
-  for (int s = s0; s < s1; ++s) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage s landed for every thread; stage s - 1 fully consumed
-    if (s + STAGES - 1 < s1) issue(s + STAGES - 1);  // into the slot stage s - 1 held
-    cp_async_commit();
-    dequantize(s);
-    __syncthreads();  // the bf16 weight tile is written
-"""
-_LOOP_DOUBLE = """  issue(s0);
+_MMA = ("        mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);\n"
+        "        mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);\n")
+_DEQUANT = ("    dequantize_stage<{rows}, BITS, BN>(slot, ws, s * kStageK, In, group, s8, tid);\n"
+            "    __syncthreads();  // the bf16 weight tile is written\n")
+_LOOP = """  issue(0);
   cp_async_commit();
-  if (s0 + 1 < s1) issue(s0 + 1);
+  if (stages > 1) issue(1);
+  cp_async_commit();
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();  // stage s landed for every thread; stage s - 1 fully consumed
+    if (s + 2 < stages) issue(s + 2);  // into the slot stage s - 1 held
+    cp_async_commit();
+    const unsigned char* slot = smem + (s % C::STAGES) * L::STAGE;
+    dequantize_stage<128, BITS, BN>(slot, ws, s * kStageK, In, group, s8, tid);
+    __syncthreads();  // the bf16 weight tile is written
+    stage_products<128, BITS, BN>(acc, reinterpret_cast<const __nv_bfloat16*>(slot), ws, wm, wn,
+                                  lane);
+"""
+_LOOP_DOUBLE = """  issue(0);
+  cp_async_commit();
+  if (stages > 1) issue(1);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
-  if (s0 < s1) dequantize(s0, ws + (s0 & 1) * kStageK * L::LDB);
-  for (int s = s0; s < s1; ++s) {
+  dequantize_stage<128, BITS, BN>(smem, ws, 0, In, group, s8, tid);
+  for (int s = 0; s < stages; ++s) {
     cp_async_wait<0>();
     __syncthreads();
-    if (s + 2 < s1) issue(s + 2);
+    if (s + 2 < stages) issue(s + 2);
     cp_async_commit();
-    if (s + 1 < s1) dequantize(s + 1, ws + ((s + 1) & 1) * kStageK * L::LDB);
-    const __nv_bfloat16* wsb = ws + (s & 1) * kStageK * L::LDB;
+    if (s + 1 < stages)
+      dequantize_stage<128, BITS, BN>(smem + ((s + 1) % C::STAGES) * L::STAGE,
+                                      ws + ((s + 1) & 1) * kStageK * L::LDB, (s + 1) * kStageK,
+                                      In, group, s8, tid);
+    const unsigned char* slot = smem + (s % C::STAGES) * L::STAGE;
+    stage_products<128, BITS, BN>(acc, reinterpret_cast<const __nv_bfloat16*>(slot),
+                                  ws + (s & 1) * kStageK * L::LDB, wm, wn, lane);
 """
-_B_READ = "ldmatrix_x4_trans(b, ws + (ks * 16 + (lane & 15)) * L::LDB"
-_256 = "  if (block_n == 128)\n    return launch_staged<ROWS, BITS, 128>"
+_256 = "      if (block_n == 128)\n        return launch_m128<BITS, 128>"
 VARIANTS = {  # name: (edits of quant_matmul.cu, block_n or None for the plan's, keeps the function)
     "base": ([], None, True),
-    "no_dequant": ([("    dequantize(s);\n    __syncthreads();  // the bf16 weight tile is written\n",
-                     "    __syncthreads();\n")], None, False),
-    "no_mma": ([(_MMA, "          acc[mt][2 * np][0] += __uint_as_float(b[0] & a[mt][0] & 1u);\n")],
+    "no_dequant": ([(_DEQUANT.format(rows=rows), "    __syncthreads();\n") for rows in (128, 16)],
+                   None, False),
+    "no_mma": ([(_MMA, "        acc[mt][2 * np][0] += __uint_as_float(b[0] & a[mt][0] & 1u);\n")],
                None, False),
     "warps_2x2": ([("static constexpr int WN = 4;", "static constexpr int WN = ROWS == 128 ? 2 : 4;")],
                   None, True),
-    "block_n256": ([("__launch_bounds__(Staged<ROWS>::THREADS, Staged<ROWS>::MIN_BLOCKS)",
-                     "__launch_bounds__(Staged<ROWS>::THREADS, BN == 256 ? 1 : Staged<ROWS>::MIN_BLOCKS)"),
-                    (_256, "  if (block_n == 256)\n    return launch_staged<ROWS, BITS, 256>"
-                           "(x, q, scale, y, T, In, Out, group, splits, partial, stream);\n" + _256)],
+    "block_n256": ([("__launch_bounds__(Staged<128>::THREADS, Staged<128>::MIN_BLOCKS) qmm_m128_kernel",
+                     "__launch_bounds__(Staged<128>::THREADS, BN == 256 ? 1 : 2) qmm_m128_kernel"),
+                    (_256, "      if (block_n == 256)\n        return launch_m128<BITS, 256>"
+                           "(x, q, scale, y, T, In, Out, group, stream);\n" + _256)],
                    256, True),
     "double_tile": ([("static constexpr int SMEM = Staged<ROWS>::STAGES * STAGE + kStageK * LDB * 2;",
                       "static constexpr int SMEM = Staged<ROWS>::STAGES * STAGE + 2 * kStageK * LDB * 2;"),
-                     ("auto dequantize = [&](int s) {", "auto dequantize = [&](int s, __nv_bfloat16* ws) {"),
-                     (_LOOP, _LOOP_DOUBLE), (_B_READ, _B_READ.replace("(b, ws +", "(b, wsb +"))],
+                     (_LOOP, _LOOP_DOUBLE)],
                     None, True),
     "stages4": ([("static constexpr int STAGES = ROWS == 128 ? 3 : 4;",
                   "static constexpr int STAGES = ROWS == 128 ? 4 : 4;")], None, True),
