@@ -280,8 +280,8 @@ cudaError_t launch_ragged(const Args& a, const int* start, const int* q_lens, in
   constexpr int bytes = std::is_same_v<T, __nv_bfloat16> ? mma_smem_bytes<PT, D>()
                                                          : smem_bytes<D, RPW>();
   auto kernel = ragged_kernel<T, PT, D, RPW>;
-  const cudaError_t err = prepare(kernel, bytes);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t prepared = prepare(kernel, bytes);  // once per instance
+  if (prepared != cudaSuccess) return prepared;
   const int rows = S * (a.H / a.K);
   const dim3 grid((rows + kWarps * RPW - 1) / (kWarps * RPW), a.K, a.B);
   kernel<<<grid, kThreads, bytes, a.stream>>>(
@@ -296,8 +296,8 @@ cudaError_t launch_decode(const Args& a, const int* lengths) {
   constexpr int RPW = kDecodeRowsPerWarp;
   constexpr int bytes = smem_bytes<D, RPW>();
   auto kernel = decode_kernel<T, PT, D, RPW>;
-  const cudaError_t err = prepare(kernel, bytes);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t prepared = prepare(kernel, bytes);  // once per instance
+  if (prepared != cudaSuccess) return prepared;
   const dim3 grid((a.H / a.K + kWarps * RPW - 1) / (kWarps * RPW), a.K, a.B);
   kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const PT*>(a.k), static_cast<const PT*>(a.v),

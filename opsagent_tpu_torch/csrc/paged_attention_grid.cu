@@ -386,15 +386,15 @@ cudaError_t launch_ragged(const Args& a, const int* start, const int* q_lens, in
   constexpr int bytes = std::is_same_v<T, __nv_bfloat16> ? mma_smem_bytes<PT, D>()
                                                          : smem_bytes<D, RPW>();
   auto kernel = ragged_split_kernel<T, PT, D, RPW>;
-  cudaError_t err = prepare(kernel, bytes);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t prepared = prepare(kernel, bytes);  // once per instance
+  if (prepared != cudaSuccess) return prepared;
   const int rows = S * (a.H / a.K);
   const dim3 grid((rows + kWarps * RPW - 1) / (kWarps * RPW), a.K * a.part.splits, a.B);
   kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const PT*>(a.k), static_cast<const PT*>(a.v),
       a.k_scale, a.v_scale, a.table, start, q_lens, a.part, static_cast<T*>(a.out), S, a.H,
       a.K, a.P, a.max_pages, a.scale);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.part.splits == 1) return err;
   return launch_combine<T, D>(a, start, q_lens, nullptr, S);
 }
@@ -404,14 +404,14 @@ cudaError_t launch_decode(const Args& a, const int* lengths) {
   constexpr int RPW = kDecodeRowsPerWarp;
   constexpr int bytes = smem_bytes<D, RPW>();
   auto kernel = decode_split_kernel<T, PT, D, RPW>;
-  cudaError_t err = prepare(kernel, bytes);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t prepared = prepare(kernel, bytes);  // once per instance
+  if (prepared != cudaSuccess) return prepared;
   const dim3 grid((a.H / a.K + kWarps * RPW - 1) / (kWarps * RPW), a.K * a.part.splits, a.B);
   kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const PT*>(a.k), static_cast<const PT*>(a.v),
       a.k_scale, a.v_scale, a.table, lengths, a.part, static_cast<T*>(a.out), a.H, a.K, a.P,
       a.max_pages, a.scale);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.part.splits == 1) return err;
   return launch_combine<T, D>(a, nullptr, nullptr, lengths, 1);
 }

@@ -30,6 +30,7 @@ with more than one split, combine) counts once.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -249,6 +250,11 @@ def grid_splits(
     return -(-max_pages // pages), pages * P
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _workspace(device: torch.device, numel: int) -> torch.Tensor:
     ws = _workspaces.get((device, numel))
     if ws is None:
@@ -265,7 +271,7 @@ def _grid_plan(
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     tiles = -(-S * (H // K) // GRID_TILE_ROWS[form])
     rows = B * S * H
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    sms = _sm_count(q.device)
     walk = GRID_RAGGED_WALK if form == "ragged" else None
     splits, span = grid_splits(B * K * tiles, rows, D, max_pages, P, sms, walk)
     if splits == 1:
