@@ -245,26 +245,31 @@ def ptxas_report(log: str) -> list[dict]:
 def phase_build() -> dict:
     """One nvcc per source, all started together; ptxas's reports go to
     stderr, and the registers and spills of the tensor-core instances (the
-    bf16 ragged kernels of both forms, the quantized matmul's m128 and m16
-    instances) into the phase line."""
+    bf16 ragged and decode kernels of both forms, the quantized matmul's
+    m128 and m16 instances) into the phase line."""
     sources = sorted({src for src, _ in KERNELS.values()})
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(lambda s: cuda_build.build(s, verbose=True), sources))
-    tensor_core, m128, m16 = [], [], []
+    tensor_core, decode, m128, m16 = [], [], [], []
     for _, log in built:
         print(log, file=sys.stderr)
         report = ptxas_report(log)
         tensor_core += [r for r in report
                         if "ragged" in r["kernel"] and "bfloat16" in r["kernel"]
                         and "decode" not in r["kernel"]]
+        decode += [r for r in report
+                   if "decode" in r["kernel"] and "bfloat16" in r["kernel"]]
         m128 += [r for r in report if "qmm_m128_kernel" in r["kernel"]]
         m16 += [r for r in report if "qmm_m16_kernel" in r["kernel"]]
     check(len(tensor_core) >= 16,
           f"ptxas reported {len(tensor_core)} bf16 ragged instances, expected 16")
+    check(len(decode) == 16,
+          f"ptxas reported {len(decode)} bf16 decode instances, expected 16")
     check(len(m128) == 4, f"ptxas reported {len(m128)} m128 matmul instances, expected 4")
     check(len(m16) == 4, f"ptxas reported {len(m16)} m16 matmul instances, expected 4")
     return {"libraries": [lib.name for lib, _ in built], "ptxas_tensor_core": tensor_core,
-            "ptxas_quant_matmul_m128": m128, "ptxas_quant_matmul_m16": m16}
+            "ptxas_decode": decode, "ptxas_quant_matmul_m128": m128,
+            "ptxas_quant_matmul_m16": m16}
 
 
 # -- phase 3: attention kernels against their plain versions -------------------
@@ -736,7 +741,7 @@ KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names, spaces and "(int)"
     ("paged_decode_attention", ("decode_kernel",)),
     ("paged_ragged_attention_grid", ("ragged_split_kernel",)),
     ("paged_decode_attention_grid", ("decode_split_kernel",)),
-    ("paged_attention_grid_combine", ("combine_kernel",)),
+    ("paged_attention_combine", ("combine_kernel",)),   # both forms' split calls
     # The quantized matmul by instance: m128 runs the mixed ticks'
     # projections, m16 the decode steps' and every lm_head.
     ("quant_matmul_m128", ("qmm_m128_kernel",)),

@@ -98,6 +98,92 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
   lo = pack_bf16(x - hf.x, y - hf.y);
 }
 
+// Gather ROWS K/V rows of the pages with THREADS threads, this one `idx`:
+// rows[j] is row j's index in the [N * P * K] rows of the pages, -1 for a
+// row past the range (zero-filled; nothing is read). 16-byte cp.async
+// copies, not committed. Pages in bf16 land in ks / vs [ROWS][D + 8];
+// int8 codes in kc / vc [ROWS][D] and their f32 scales in ksc / vsc
+// [ROWS] (the other pointers are not read).
+template <typename PT, int D, int ROWS, int THREADS>
+__device__ __forceinline__ void gather_rows(
+    const int* rows, const PT* __restrict__ k_pages, const PT* __restrict__ v_pages,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    __nv_bfloat16* ks, __nv_bfloat16* vs, int8_t* kc, int8_t* vc, float* ksc, float* vsc,
+    int idx) {
+  constexpr int LD = D + 8;
+  if constexpr (!std::is_same_v<PT, int8_t>) {
+    constexpr int VPR = D / 8;                // 16-byte bf16 vectors per row
+    constexpr int N = ROWS * VPR;
+#pragma unroll
+    for (int n = 0; n < (N + THREADS - 1) / THREADS; ++n) {
+      const int i = idx + n * THREADS;
+      if (N % THREADS != 0 && i >= N) break;
+      const int j = i / VPR, c = (i % VPR) * 8;
+      const int row = rows[j];
+      const size_t at = static_cast<size_t>(max(row, 0)) * D + c;
+      cp_async16(ks + j * LD + c, k_pages + at, row >= 0);
+      cp_async16(vs + j * LD + c, v_pages + at, row >= 0);
+    }
+  } else {
+    constexpr int CPR = D / 16;               // 16-byte code vectors per row
+    constexpr int N = ROWS * CPR + ROWS;
+#pragma unroll
+    for (int n = 0; n < (N + THREADS - 1) / THREADS; ++n) {
+      const int i = idx + n * THREADS;
+      if (N % THREADS != 0 && i >= N) break;
+      if (i < ROWS * CPR) {
+        const int j = i / CPR, c = (i % CPR) * 16;
+        const int row = rows[j];
+        const size_t at = static_cast<size_t>(max(row, 0)) * D + c;
+        cp_async16(kc + j * D + c, k_pages + at, row >= 0);
+        cp_async16(vc + j * D + c, v_pages + at, row >= 0);
+      } else {
+        const int j = i - ROWS * CPR;
+        const int row = rows[j];
+        cp_async4(ksc + j, k_scale + max(row, 0), row >= 0);
+        cp_async4(vsc + j, v_scale + max(row, 0), row >= 0);
+      }
+    }
+  }
+}
+
+// Dequantize ROWS gathered int8 K/V rows (codes kc / vc [ROWS][D], scales
+// ksc / vsc [ROWS]) into bf16 kb / vb [ROWS][D + 8] with THREADS threads,
+// this one `idx`: code * scale in f32 rounded to bf16, as the plain
+// version reads them (the code reaches f32 through a byte permute, not the
+// quarter-rate I2F). The caller orders it after the gather and before the
+// reads with its own barriers.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void dequantize_rows(
+    const int8_t* kc, const int8_t* vc, const float* ksc, const float* vsc,
+    __nv_bfloat16* kb, __nv_bfloat16* vb, int idx) {
+  constexpr int LD = D + 8;
+  constexpr int VPR = D / 8;
+  static_assert(ROWS * VPR % THREADS == 0, "every thread converts whole steps");
+#pragma unroll
+  for (int n = 0; n < ROWS * VPR / THREADS; ++n) {
+    const int i = idx + n * THREADS;
+    const int j = i / VPR, c = (i % VPR) * 8;
+    const uint2 kr = *reinterpret_cast<const uint2*>(kc + j * D + c);
+    const uint2 vr = *reinterpret_cast<const uint2*>(vc + j * D + c);
+    const uint32_t kw[2] = {kr.x ^ 0x80808080u, kr.y ^ 0x80808080u};
+    const uint32_t vw[2] = {vr.x ^ 0x80808080u, vr.y ^ 0x80808080u};
+    const float kss = ksc[j], vss = vsc[j];
+    uint4 ko, vo;
+    uint32_t* kp = reinterpret_cast<uint32_t*>(&ko);
+    uint32_t* vp = reinterpret_cast<uint32_t*>(&vo);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      kp[e] = pack_bf16(code_f32(kw[e / 2], 2 * (e % 2)) * kss,
+                        code_f32(kw[e / 2], 2 * (e % 2) + 1) * kss);
+      vp[e] = pack_bf16(code_f32(vw[e / 2], 2 * (e % 2)) * vss,
+                        code_f32(vw[e / 2], 2 * (e % 2) + 1) * vss);
+    }
+    *reinterpret_cast<uint4*>(kb + j * LD + c) = ko;
+    *reinterpret_cast<uint4*>(vb + j * LD + c) = vo;
+  }
+}
+
 // Where a tile's rows go, each at its offset s * H + h inside the
 // sequence: normalised into `out` (bf16 [S, H, D]) when it is not null,
 // else as unnormalised partials, max and sum at ml[2 * row] and
@@ -199,49 +285,14 @@ __device__ __forceinline__ void attend_mma(
   }
   __syncthreads();  // rows and q tile written
 
-  // Gather the chunk whose rows are in rows_s slot `stage` into `stage`:
-  // 16-byte copies, zero-filled where the row is -1.
+  // Gather the chunk whose rows are in rows_s slot `stage` into `stage`.
   auto issue = [&](int stage) {
-    const int* rows = rows_s + stage * kMmaChunk;
-    if constexpr (!kInt8) {
-      constexpr int N = kMmaChunk * VPR;
-      bf16* ks = kv_s + stage * 2 * kMmaChunk * LD;
-      bf16* vs = ks + kMmaChunk * LD;
-#pragma unroll
-      for (int n = 0; n < (N + kMmaThreads - 1) / kMmaThreads; ++n) {
-        const int i = tid + n * kMmaThreads;
-        if (N % kMmaThreads != 0 && i >= N) break;
-        const int j = i / VPR, c = (i % VPR) * 8;
-        const int row = rows[j];
-        const size_t at = static_cast<size_t>(max(row, 0)) * D + c;
-        cp_async16(ks + j * LD + c, k_pages + at, row >= 0);
-        cp_async16(vs + j * LD + c, v_pages + at, row >= 0);
-      }
-    } else {
-      constexpr int CPR = D / 16;             // 16-byte code vectors per row
-      constexpr int N = kMmaChunk * CPR + kMmaChunk;
-      int8_t* kc = codes + stage * 2 * kMmaChunk * D;
-      int8_t* vc = kc + kMmaChunk * D;
-      float* ksc = scales + stage * 2 * kMmaChunk;
-      float* vsc = ksc + kMmaChunk;
-#pragma unroll
-      for (int n = 0; n < (N + kMmaThreads - 1) / kMmaThreads; ++n) {
-        const int i = tid + n * kMmaThreads;
-        if (N % kMmaThreads != 0 && i >= N) break;
-        if (i < kMmaChunk * CPR) {
-          const int j = i / CPR, c = (i % CPR) * 16;
-          const int row = rows[j];
-          const size_t at = static_cast<size_t>(max(row, 0)) * D + c;
-          cp_async16(kc + j * D + c, k_pages + at, row >= 0);
-          cp_async16(vc + j * D + c, v_pages + at, row >= 0);
-        } else {
-          const int j = i - kMmaChunk * CPR;
-          const int row = rows[j];
-          cp_async4(ksc + j, k_scale + max(row, 0), row >= 0);
-          cp_async4(vsc + j, v_scale + max(row, 0), row >= 0);
-        }
-      }
-    }
+    bf16* ks = kv_s + stage * 2 * kMmaChunk * LD;
+    int8_t* kc = codes + stage * 2 * kMmaChunk * D;
+    float* ksc = scales + stage * 2 * kMmaChunk;
+    gather_rows<PT, D, kMmaChunk, kMmaThreads>(
+        rows_s + stage * kMmaChunk, k_pages, v_pages, k_scale, v_scale, ks,
+        ks + kMmaChunk * LD, kc, kc + kMmaChunk * D, ksc, ksc + kMmaChunk, tid);
     cp_async_commit();
   };
 
@@ -289,29 +340,7 @@ __device__ __forceinline__ void attend_mma(
       const float* vsc = ksc + kMmaChunk;
       bf16* kb = kv_s;
       bf16* vb = kv_s + kMmaChunk * LD;
-      static_assert(kMmaChunk * VPR % kMmaThreads == 0, "every thread converts whole steps");
-#pragma unroll
-      for (int n = 0; n < kMmaChunk * VPR / kMmaThreads; ++n) {
-        const int i = tid + n * kMmaThreads;
-        const int j = i / VPR, c = (i % VPR) * 8;
-        const uint2 kr = *reinterpret_cast<const uint2*>(kc + j * D + c);
-        const uint2 vr = *reinterpret_cast<const uint2*>(vc + j * D + c);
-        const uint32_t kw[2] = {kr.x ^ 0x80808080u, kr.y ^ 0x80808080u};
-        const uint32_t vw[2] = {vr.x ^ 0x80808080u, vr.y ^ 0x80808080u};
-        const float kss = ksc[j], vss = vsc[j];
-        uint4 ko, vo;
-        uint32_t* kp = reinterpret_cast<uint32_t*>(&ko);
-        uint32_t* vp = reinterpret_cast<uint32_t*>(&vo);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          kp[e] = pack_bf16(code_f32(kw[e / 2], 2 * (e % 2)) * kss,
-                            code_f32(kw[e / 2], 2 * (e % 2) + 1) * kss);
-          vp[e] = pack_bf16(code_f32(vw[e / 2], 2 * (e % 2)) * vss,
-                            code_f32(vw[e / 2], 2 * (e % 2) + 1) * vss);
-        }
-        *reinterpret_cast<uint4*>(kb + j * LD + c) = ko;
-        *reinterpret_cast<uint4*>(vb + j * LD + c) = vo;
-      }
+      dequantize_rows<D, kMmaChunk, kMmaThreads>(kc, vc, ksc, vsc, kb, vb, tid);
       __syncthreads();
       ks = kb;
       vs = vb;

@@ -26,23 +26,17 @@
 // and sequential: one page per grid step, the softmax state carried in VMEM
 // scratch from one page to the next. On Hopper blocks run in parallel and in
 // no order, so the page-slot axis becomes a split of the KV sequence
-// (flash-decoding). A block of the split pass owns (sequence, kv head, tile
-// of query rows, split); a split is `span` consecutive cache positions, a
-// whole number of pages, and the host picks how many from MaxP and the row
-// count so that the workspace stays bounded and, for ragged rows, so that
-// no block walks much more than 1024 positions. The rows of a tile are (s, g)
-// pairs of one kv head's group of G = H / K query heads, so every K/V row
-// the block loads serves all G heads of a position (any G: 7 for Qwen2.5).
-// The block walks the positions of its split that its rows can see, 32 at a
-// time (one per lane), gathering each position's [D] row of its kv head
-// through the page table into shared memory as f32; each warp keeps RPW
-// rows' running max, sum and [D] accumulator in registers, and at the end
-// writes them, unnormalised, to the workspace. A split that starts past the
-// last position its tile can see exits at once: the counterpart of the
-// clamped index maps, under which the TPU pipeline skips the page refetch.
-// The combine pass gives one warp to each (query row, head): it reads the
-// partials of the splits that hold a position the row sees, rescales them
-// to their largest max, normalises and writes q's dtype.
+// (flash-decoding; attention_split.cuh holds the partials, the combine and
+// the CUDA-core split body). A block of the split pass owns (sequence, kv
+// head, tile of query rows, split); a split is `span` consecutive cache
+// positions, a whole number of pages, and the host picks how many from MaxP
+// and the row count so that the workspace stays bounded and no block walks
+// much more than 1024 (ragged) or 256 (decode) positions. The rows of a
+// tile are (s, g) pairs of one kv head's group of G = H / K query heads, so
+// every K/V row the block loads serves all G heads of a position (any G: 7
+// for Qwen2.5). A split that starts past the last position its tile can
+// see exits at once: the counterpart of the clamped index maps, under which
+// the TPU pipeline skips the page refetch.
 //
 // int8 pages are dequantized as they are gathered, code * scale of that
 // token and kv head in f32 rounded to q's dtype, as the plain version reads
@@ -51,219 +45,26 @@
 // What bounds it on the H100: reading the K/V rows each sequence can see,
 // 2 * K * D * bytes per position (2 * K * (D + 4) for int8 pages), at
 // 3.35 TB/s; the partials add 4 * (D + 2) bytes per (split, query row, head)
-// written and read once. A long prefill chunk also does 4 * D f32
-// operations per (query head, visible position).
+// written and read once. A long prefill chunk also does 4 * D operations
+// per (query head, visible position).
 //
-// The bf16 instances of the ragged split pass (pages in bf16 or int8) run
-// the tensor-core tile routine `attend_mma` (attention_mma.cuh) over their
-// split: both products on mma.sync, the pages gathered with a
-// double-buffered cp.async pipeline. The f32 instances and the decode
-// split pass keep `attend_split` below, whose products run on CUDA cores
-// in f32 with synchronous loads. With one split the split pass normalises
-// and writes q's dtype itself and the combine is not launched, so nothing
-// goes through the workspace.
+// The bf16 instances (pages in bf16 or int8) run tensor-core routines over
+// their split: the ragged pass `attend_mma` (attention_mma.cuh), the decode
+// pass `attend_decode` (attention_decode.cuh, through decode_split, which
+// the dma form's decode kernel shares). The f32 instances keep the
+// CUDA-core `attend_split`. With one split the split pass normalises and
+// writes q's dtype itself and the combine is not launched, so nothing goes
+// through the workspace.
 
-#include "attention_mma.cuh"
+#include "attention_split.cuh"
 
 namespace {
 
 using namespace attn;
 
-constexpr int kWarps = 4;                  // warps per block
-constexpr int kThreads = kWarps * kWarp;
-constexpr int kChunk = kWarp;              // cache positions per pass: one per lane
-// Query rows per tile: warps * rows per warp. ops/paged_attention.py mirrors
-// these (GRID_TILE_ROWS) to size the split pass on the host.
+// Query rows per ragged tile: warps * rows per warp. ops/paged_attention.py
+// mirrors it (GRID_TILE_ROWS) to size the split pass on the host.
 constexpr int kRaggedRowsPerWarp = 16;     // 64 rows per ragged tile
-constexpr int kDecodeRowsPerWarp = 2;      // 8 rows: a group of up to 8 heads per decode tile
-
-template <int D, int RPW>
-constexpr int smem_bytes() {
-  // q tile [R][D], K chunk [kChunk][D + 1] (padded: lane j reads row j),
-  // V chunk [kChunk][D], all f32.
-  return (kWarps * RPW * D + kChunk * (D + 1) + kChunk * D) * 4;
-}
-
-// The workspace of one call. Row r = (b * S + s) * H + h of split i keeps
-// its running max and sum at ml[2 * (i * rows + r)] and [... + 1], and its
-// unnormalised accumulator at acc[(i * rows + r) * D ...].
-struct Partials {
-  float* ml;
-  float* acc;
-  int rows;     // B * S * H
-  int span;     // cache positions per split, a multiple of the page size
-  int splits;
-};
-
-// One block of the split pass: sequence rows `q` [S, H, D] (this sequence
-// only, whose rows start at workspace row `row_base`), kv head `kh`, query
-// rows [tile * R, tile * R + R) of the (s, g) enumeration r = s * G + g,
-// cache positions [split * span, split * span + span). With one split
-// (`out` not null: this sequence's output rows) it writes the normalised
-// rows there instead of partials.
-template <typename T, typename PT, int D, int RPW>
-__device__ __forceinline__ void attend_split(
-    const T* __restrict__ q, const PT* __restrict__ k_pages,
-    const PT* __restrict__ v_pages, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ table_row,
-    const Partials& part, T* __restrict__ out, int row_base, int S, int H, int K, int P,
-    int max_pages, int kh, int tile, int split, int start, int qlen, float scale) {
-  constexpr bool kInt8 = std::is_same_v<PT, int8_t>;
-  constexpr int R = kWarps * RPW;
-  constexpr int DPL = (D + kWarp - 1) / kWarp;   // output dims per lane
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;                   // 16-byte vectors per q row
-  constexpr int PVEC = 16 / sizeof(PT);
-  constexpr int PVPR = D / PVEC;                 // 16-byte vectors per page row
-
-  const int G = H / K;
-  const int cap = max_pages * P;
-  const int row0 = tile * R;
-  // Positions the tile can see: up to its last valid row's window.
-  const int s_first = row0 / G;
-  const int s_last = min(min((row0 + R - 1) / G, S - 1), qlen - 1);
-  const int tile_limit = s_first <= s_last ? min(start + s_last + 1, cap) : 0;
-  const int t_begin = split * part.span;
-  const int t_end = min(t_begin + part.span, tile_limit);
-  const int tid = threadIdx.x;
-  const int lane = tid % kWarp;
-  const int warp = tid / kWarp;
-  // No position of this split is visible to the tile, so the combine reads
-  // none of its partials; a normalised output is zeros.
-  if (t_begin >= t_end) {
-    if (out == nullptr) return;
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int gr = row0 + warp * RPW + rr;
-      const int s = gr / G, g = gr % G;
-      if (s >= S) continue;
-      T* o = out + (static_cast<size_t>(s) * H + kh * G + g) * D;
-      for (int d = lane; d < D; d += kWarp) store(o + d, 0.f);
-    }
-    return;
-  }
-
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + R * D;
-  float* v_s = k_s + kChunk * (D + 1);
-
-  for (int i = tid; i < R * VPR; i += kThreads) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    const int gr = row0 + r, s = gr / G, g = gr % G;
-    float vals[VEC];
-    if (s < S) {
-      load_vec<T, VEC>(q + (static_cast<size_t>(s) * H + kh * G + g) * D + c, vals);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) vals[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) q_s[r * D + c + e] = vals[e] * scale;
-  }
-
-  float m[RPW], l[RPW], acc[RPW][DPL];
-  int lim[RPW];   // each row sees positions < lim[rr] of this split
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int s = (row0 + warp * RPW + rr) / G;
-    lim[rr] = (s < S && s < qlen) ? min(start + s + 1, t_end) : 0;
-    m[rr] = -CUDART_INF_F;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
-  }
-
-  for (int c0 = t_begin; c0 < t_end; c0 += kChunk) {
-    __syncthreads();  // q tile written / previous chunk consumed
-    for (int i = tid; i < kChunk * PVPR; i += kThreads) {
-      const int j = i / PVPR, c = (i % PVPR) * PVEC;
-      const int t = c0 + j;
-      float kv[PVEC], vv[PVEC];
-      if (t < t_end) {
-        const int page = max(table_row[t / P], 0);
-        const size_t row = (static_cast<size_t>(page) * P + t % P) * K + kh;
-        load_vec<PT, PVEC>(k_pages + row * D + c, kv);
-        load_vec<PT, PVEC>(v_pages + row * D + c, vv);
-        if constexpr (kInt8) {
-          const float ks = __ldg(k_scale + row), vs = __ldg(v_scale + row);
-#pragma unroll
-          for (int e = 0; e < PVEC; ++e) {
-            kv[e] = round_as(kv[e] * ks, q);
-            vv[e] = round_as(vv[e] * vs, q);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < PVEC; ++e) kv[e] = vv[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < PVEC; ++e) {
-        k_s[j * (D + 1) + c + e] = kv[e];
-        v_s[j * D + c + e] = vv[e];
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      if (c0 >= lim[rr]) continue;  // warp-uniform: the row sees nothing here
-      const float* qr = q_s + (warp * RPW + rr) * D;
-      const float* kr = k_s + lane * (D + 1);
-      float score = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) score += qr[d] * kr[d];
-      const bool visible = c0 + lane < lim[rr];
-      score = visible ? score : -CUDART_INF_F;
-      const float m_new = fmaxf(m[rr], warp_max(score));  // finite: lane 0 is visible
-      const float alpha = expf(m[rr] - m_new);
-      const float p = visible ? expf(score - m_new) : 0.f;
-      l[rr] = l[rr] * alpha + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[rr][i] *= alpha;
-#pragma unroll 8
-      for (int j = 0; j < kChunk; ++j) {
-        const float pj = __shfl_sync(kFull, p, j);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int d = lane + i * kWarp;
-          if (d < D) acc[rr][i] += pj * v_s[j * D + d];
-        }
-      }
-      m[rr] = m_new;
-    }
-  }
-
-  // Every real row of the tile writes its partials; the combine reads a
-  // row's split only where the row sees a position of it.
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int gr = row0 + warp * RPW + rr;
-    const int s = gr / G, g = gr % G;
-    if (s >= S) continue;
-    if (out != nullptr) {
-      T* o = out + (static_cast<size_t>(s) * H + kh * G + g) * D;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + i * kWarp;
-        if (d < D) store(o + d, l[rr] > 0.f ? acc[rr][i] / l[rr] : 0.f);
-      }
-      continue;
-    }
-    const size_t pr = static_cast<size_t>(split) * part.rows + row_base +
-                      static_cast<size_t>(s) * H + kh * G + g;
-    float* a = part.acc + pr * D;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + i * kWarp;
-      if (d < D) a[d] = acc[rr][i];
-    }
-    if (lane == 0) {
-      part.ml[2 * pr] = m[rr];
-      part.ml[2 * pr + 1] = l[rr];
-    }
-  }
-}
 
 template <typename T, typename PT, int D, int RPW>
 __global__ void __launch_bounds__(kThreads) ragged_split_kernel(
@@ -291,66 +92,15 @@ __global__ void __launch_bounds__(kThreads) ragged_split_kernel(
   }
 }
 
-template <typename T, typename PT, int D, int RPW>
+template <typename T, typename PT, int D>
 __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const T* __restrict__ q, const PT* __restrict__ k_pages,
     const PT* __restrict__ v_pages, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ table,
     const int* __restrict__ lengths, Partials part, T* __restrict__ out, int H, int K,
     int P, int max_pages, float scale) {
-  const int b = blockIdx.z;
-  const int kh = blockIdx.y % K, split = blockIdx.y / K;
-  const int len = lengths[b];
-  const size_t seq = static_cast<size_t>(b) * H;
-  // One query at position len - 1: it sees t < len.
-  attend_split<T, PT, D, RPW>(
-      q + seq * D, k_pages, v_pages, k_scale, v_scale,
-      table + static_cast<size_t>(b) * max_pages, part,
-      part.splits == 1 ? out + seq * D : nullptr, static_cast<int>(seq), 1, H, K, P,
-      max_pages, kh, blockIdx.x, split, max(len - 1, 0), len > 0 ? 1 : 0, scale);
-}
-
-// One warp per row r = (b * S + s) * H + h. The row sees positions < lim;
-// the splits holding one of them are the first cdiv(lim, span), and their
-// partials are rescaled to the largest max. `lengths` is given for decode
-// (S = 1), `start` and `q_lens` for ragged rows.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) combine_kernel(
-    Partials part, const int* __restrict__ start, const int* __restrict__ q_lens,
-    const int* __restrict__ lengths, T* __restrict__ out, int S, int H, int cap) {
-  constexpr int DPL = (D + kWarp - 1) / kWarp;
-  const int r = blockIdx.x * kWarps + threadIdx.x / kWarp;
-  if (r >= part.rows) return;
-  const int lane = threadIdx.x % kWarp;
-  const int b = r / (S * H), s = (r / H) % S;
-  const int lim = lengths != nullptr
-                      ? min(max(lengths[b], 0), cap)
-                      : (s < q_lens[b] ? min(start[b] + s + 1, cap) : 0);
-  const int live = min(part.splits, (lim + part.span - 1) / part.span);
-  float mx = -CUDART_INF_F;
-  for (int i = 0; i < live; ++i) {
-    mx = fmaxf(mx, part.ml[2 * (static_cast<size_t>(i) * part.rows + r)]);
-  }
-  float sum = 0.f;
-  float o[DPL];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) o[j] = 0.f;
-  for (int i = 0; i < live; ++i) {
-    const size_t pr = static_cast<size_t>(i) * part.rows + r;
-    const float w = expf(part.ml[2 * pr] - mx);
-    sum += part.ml[2 * pr + 1] * w;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int d = lane + j * kWarp;
-      if (d < D) o[j] += part.acc[pr * D + d] * w;
-    }
-  }
-  T* dst = out + static_cast<size_t>(r) * D;
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int d = lane + j * kWarp;
-    if (d < D) store(dst + d, sum > 0.f ? o[j] / sum : 0.f);
-  }
+  decode_split<T, PT, D>(q, k_pages, v_pages, k_scale, v_scale, table, lengths, part, out, H,
+                         K, P, max_pages, scale);
 }
 
 // The arguments every launch shares: pages and scale planes (null unless
@@ -368,15 +118,6 @@ struct Args {
   float scale;
   cudaStream_t stream;
 };
-
-template <typename T, int D>
-cudaError_t launch_combine(const Args& a, const int* start, const int* q_lens,
-                           const int* lengths, int S) {
-  const int blocks = (a.part.rows + kWarps - 1) / kWarps;
-  combine_kernel<T, D><<<blocks, kThreads, 0, a.stream>>>(
-      a.part, start, q_lens, lengths, static_cast<T*>(a.out), S, a.H, a.max_pages * a.P);
-  return cudaGetLastError();
-}
 
 template <typename T, typename PT, int D>
 cudaError_t launch_ragged(const Args& a, const int* start, const int* q_lens, int S) {
@@ -396,24 +137,24 @@ cudaError_t launch_ragged(const Args& a, const int* start, const int* q_lens, in
       a.K, a.P, a.max_pages, a.scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.part.splits == 1) return err;
-  return launch_combine<T, D>(a, start, q_lens, nullptr, S);
+  return launch_combine<T, D>(a.part, start, q_lens, nullptr, static_cast<T*>(a.out), S, a.H,
+                              a.max_pages * a.P, a.stream);
 }
 
 template <typename T, typename PT, int D>
 cudaError_t launch_decode(const Args& a, const int* lengths) {
-  constexpr int RPW = kDecodeRowsPerWarp;
-  constexpr int bytes = smem_bytes<D, RPW>();
-  auto kernel = decode_split_kernel<T, PT, D, RPW>;
+  constexpr int bytes = decode_smem<T, PT, D>();
+  auto kernel = decode_split_kernel<T, PT, D>;
   static const cudaError_t prepared = prepare(kernel, bytes);  // once per instance
   if (prepared != cudaSuccess) return prepared;
-  const dim3 grid((a.H / a.K + kWarps * RPW - 1) / (kWarps * RPW), a.K * a.part.splits, a.B);
-  kernel<<<grid, kThreads, bytes, a.stream>>>(
+  kernel<<<decode_grid(a.H, a.K, a.part.splits, a.B), kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const PT*>(a.k), static_cast<const PT*>(a.v),
       a.k_scale, a.v_scale, a.table, lengths, a.part, static_cast<T*>(a.out), a.H, a.K, a.P,
       a.max_pages, a.scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.part.splits == 1) return err;
-  return launch_combine<T, D>(a, nullptr, nullptr, lengths, 1);
+  return launch_combine<T, D>(a.part, nullptr, nullptr, lengths, static_cast<T*>(a.out), 1, a.H,
+                              a.max_pages * a.P, a.stream);
 }
 
 struct Ragged {
@@ -431,15 +172,6 @@ struct Decode {
   template <typename T, typename PT, int D>
   cudaError_t run() const { return launch_decode<T, PT, D>(a, lengths); }
 };
-
-// The workspace of `splits` splits over `rows` query rows: the max/sum
-// pairs first, then the accumulators; splits * rows * (D + 2) floats. One
-// split needs none (`workspace` may be null).
-Partials partials(void* workspace, int rows, int splits, int span) {
-  float* ws = static_cast<float*>(workspace);
-  if (splits == 1) return Partials{nullptr, nullptr, rows, span, splits};
-  return Partials{ws, ws + 2 * static_cast<size_t>(splits) * rows, rows, span, splits};
-}
 
 }  // namespace
 

@@ -4,16 +4,18 @@ Two hand-written forms for Hopper (``sm_90a``) of the same two functions,
 each with instances for pages in q's dtype and for int8 ``QuantizedPages``:
 
 - ``csrc/paged_attention.cu`` (the "dma" backend, the counterparts of the
-  JAX package's ``pallas-dma`` kernels): one block per (sequence, kv head,
-  query-row tile) walks the whole sequence;
+  JAX package's ``pallas-dma`` kernels): its ragged kernel gives one block
+  per (sequence, kv head, query-row tile) the whole sequence;
 - ``csrc/paged_attention_grid.cu`` (the "grid" backend, the counterparts
   of its ``pallas`` grid kernels): the page-slot axis becomes a split of
   the KV sequence, partials go to a workspace and a combine pass reduces
   them (with one split the split pass writes the output itself).
 
-The bf16 instances of both ragged kernels run both products on tensor
-cores (``csrc/attention_mma.cuh``); the f32 instances and the decode
-kernels keep CUDA-core bodies.
+Both decode kernels split the KV sequence the same way, over a body they
+share (``csrc/attention_split.cuh``), with splits of at most
+``DECODE_WALK`` positions. The bf16 instances run tensor-core routines:
+the ragged kernels ``csrc/attention_mma.cuh``, the decode kernels
+``csrc/attention_decode.cuh``; the f32 instances keep CUDA-core bodies.
 
 ``cuda_build`` compiles each source at first use and binds it with
 ``ctypes``; nothing is compiled when this module is imported.
@@ -23,7 +25,7 @@ both forms share it) for CPU tensors, or when the caller passes
 ``plain=True`` (the explicit way to build a reference on the card). For
 CUDA tensors it launches the kernel on the current stream or raises; there
 is no fallback. ``LAUNCHES`` counts the kernel launches of each wrapper,
-int8-page launches under their own names; a grid call (split pass and,
+int8-page launches under their own names; a split call (split pass and,
 with more than one split, combine) counts once.
 """
 
@@ -41,15 +43,18 @@ SOURCE = "paged_attention.cu"
 GRID_SOURCE = "paged_attention_grid.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Query rows per tile of the grid kernels' split pass (kWarps * rows per
-# warp in csrc/paged_attention_grid.cu).
-GRID_TILE_ROWS = {"ragged": 64, "decode": 8}
+# Query rows per tile of a split pass: the grid ragged kernel's
+# (csrc/paged_attention_grid.cu), and both decode kernels' (kDecodeRows in
+# csrc/attention_split.cuh).
+GRID_TILE_ROWS = {"ragged": 64, "decode": 16}
 # The split pass aims at this many blocks per SM ...
 GRID_BLOCKS_PER_SM = 2
 # ... within this much f32 workspace for the partials; a ragged call also
 # takes enough splits that no block walks more than this many positions.
 GRID_WORKSPACE_BYTES = 64 << 20
 GRID_RAGGED_WALK = 1024
+# Both decode kernels take enough splits that no block walks more than this.
+DECODE_WALK = 256
 
 LAUNCHES: dict[str, int] = {
     "paged_ragged_attention": 0,
@@ -80,7 +85,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     )
     lib.opsagent_paged_ragged_attention.restype = i
     lib.opsagent_paged_decode_attention.argtypes = (
-        [p] * 8 + [i] * 6 + [ctypes.c_float, i, p]
+        [p] * 9 + [i] * 8 + [ctypes.c_float, i, p]
     )
     lib.opsagent_paged_decode_attention.restype = i
 
@@ -204,7 +209,7 @@ def paged_decode_attention_cuda(
     plain: bool = False,
 ) -> torch.Tensor:
     """Paged decode attention (``ops.attention.paged_decode_attention``'s
-    contract) through the CUDA kernel."""
+    contract) through the CUDA kernel, split over the KV sequence."""
     if plain or q.device.type == "cpu":
         return paged_decode_attention(
             q, k_pages, v_pages, page_table, lengths, layer=layer
@@ -215,11 +220,13 @@ def paged_decode_attention_cuda(
     _check(q, k_pages, v_pages, ints, B)
     (kv, ks), (vv, vs) = _planes(k_pages), _planes(v_pages)
     N, P, K, _ = kv.shape
+    max_pages = page_table.shape[1]
+    splits, span, ws = _grid_plan(q, "decode", 1, K, P, max_pages)
     out = torch.empty_like(q)
     ptr = cuda_build.ptr
     rc = cuda_build.library(SOURCE, _bind).opsagent_paged_decode_attention(
         ptr(q), ptr(kv), ptr(vv), ptr(ks), ptr(vs), ptr(page_table), ptr(lengths),
-        ptr(out), B, H, K, D, P, page_table.shape[1],
+        ptr(ws), ptr(out), B, H, K, D, P, max_pages, splits, span,
         D ** -0.5, _DTYPE_CODES[q.dtype], cuda_build.stream(q.device),
     )
     cuda_build.raise_on(rc, "paged_decode_attention")
@@ -266,13 +273,14 @@ def _workspace(device: torch.device, numel: int) -> torch.Tensor:
 def _grid_plan(
     q: torch.Tensor, form: str, S: int, K: int, P: int, max_pages: int,
 ) -> tuple[int, int, torch.Tensor | None]:
-    """(splits, span, workspace) of one grid call; one split needs no
-    workspace (the split pass writes the output and no combine runs)."""
+    """(splits, span, workspace) of one split call (a grid call, or a
+    decode call of either form); one split needs no workspace (the split
+    pass writes the output and no combine runs)."""
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     tiles = -(-S * (H // K) // GRID_TILE_ROWS[form])
     rows = B * S * H
     sms = _sm_count(q.device)
-    walk = GRID_RAGGED_WALK if form == "ragged" else None
+    walk = GRID_RAGGED_WALK if form == "ragged" else DECODE_WALK
     splits, span = grid_splits(B * K * tiles, rows, D, max_pages, P, sms, walk)
     if splits == 1:
         return splits, span, None

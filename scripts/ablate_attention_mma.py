@@ -69,8 +69,8 @@ def patched_sources() -> str:
                  "          mma_bf16(o[2 * dp + 1], pl, b[2], b[3]);", "ABLATE_NO_LO")
     h = guard(h, "          mma_bf16(o[2 * dp], ph, b[0], b[1]);\n"
                  "          mma_bf16(o[2 * dp + 1], ph, b[2], b[3]);", "ABLATE_NO_PV")
-    h = guard(h, "        cp_async16(ks + j * LD + c, k_pages + at, row >= 0);\n"
-                 "        cp_async16(vs + j * LD + c, v_pages + at, row >= 0);", "ABLATE_NO_GATHER")
+    h = guard(h, "      cp_async16(ks + j * LD + c, k_pages + at, row >= 0);\n"
+                 "      cp_async16(vs + j * LD + c, v_pages + at, row >= 0);", "ABLATE_NO_GATHER")
     old = "const float p = exp2f(sc[nt][e] - base[e >> 1]);"
     if old not in h:
         raise SystemExit(f"attention_mma.cuh changed: cannot find {old!r}")

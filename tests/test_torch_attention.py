@@ -27,6 +27,7 @@ from opsagent_tpu_torch.models.config import TINY_TEST
 from opsagent_tpu_torch.models.llama import PagedKVCache
 from opsagent_tpu_torch.ops import attention as tattn
 from opsagent_tpu_torch.ops.paged_attention import (
+    DECODE_WALK,
     GRID_RAGGED_WALK,
     GRID_TILE_ROWS,
     GRID_WORKSPACE_BYTES,
@@ -446,5 +447,27 @@ def test_grid_splits(blocks, rows, max_pages, walk, want_splits):
     # No block walks past the bound unless one more split would not fit.
     assert (walk is None or span <= walk
             or (splits + 1) * rows * (D + 2) * 4 > GRID_WORKSPACE_BYTES)
-    assert GRID_TILE_ROWS == {"ragged": 64, "decode": 8}
+    assert GRID_TILE_ROWS == {"ragged": 64, "decode": 16}
     assert grid_splits(blocks, rows, D, 0, P, sms=132, walk=walk) == (1, P)   # an empty table
+
+
+# Both decode forms at the served shapes, B = 8: one tile of 16 heads per
+# (sequence, kv head), so blocks = B * K per split and rows = B * H.
+@pytest.mark.parametrize("B,K,H", [(8, 8, 32), (8, 4, 28)])   # bench-8b, Qwen2.5-7B
+@pytest.mark.parametrize("max_pages,want", [
+    (258, (17, 256)),    # chip_smoke's timed case: spans of DECODE_WALK positions
+    (320, (20, 256)),    # the engine's MaxP
+    (10, (5, 32)),       # a short table: splits enough for the SMs, whole pages each
+    (1, (1, 16)),
+    (0, (1, 16)),        # an empty table still takes one split
+])
+def test_grid_splits_decode(B, K, H, max_pages, want):
+    D, P = 128, 16
+    tiles = -(-(H // K) // GRID_TILE_ROWS["decode"])
+    assert tiles == 1
+    splits, span = grid_splits(B * K * tiles, B * H, D, max_pages, P, sms=132,
+                               walk=DECODE_WALK)
+    assert (splits, span) == want
+    assert span % P == 0 and span <= DECODE_WALK
+    assert (splits - 1) * span < max(max_pages, 1) * P <= splits * span
+    assert splits * B * H * (D + 2) * 4 <= GRID_WORKSPACE_BYTES

@@ -351,3 +351,57 @@ def test_engine_grid_path_matches_plain_path(gen, quantize, kv_quantize):
         dma = [n for n in pa.LAUNCHES if "grid" not in n and pa.LAUNCHES[n] > before[n]]
         assert not dma and (bool(grid) == (impl == "cuda"))
     assert outs[0] == outs[1]
+
+
+# -- both decode forms: the split edges ---------------------------------------
+DECODE_FORMS = {
+    "dma": (pa.paged_decode_attention_cuda, "paged_decode_attention", "decode_kernel"),
+    "grid": (pa.paged_decode_attention_grid_cuda, "paged_decode_attention_grid",
+             "decode_split_kernel"),
+}
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 8, 16])
+@pytest.mark.parametrize("form", sorted(DECODE_FORMS))
+def test_decode_split_edges(gen, form, G, D, dtype, int8):
+    """B = 8, K = 8 over a table of 160 pages of 16, so the plan takes
+    spans of several 64-position stages (the tensor-core routine's ring
+    wraps): lengths 0, 1, P, span - 1, span, span + 1, the full table and
+    past it, with a -1 slot inside the full rows' pages. Kernel against
+    plain version; the combine runs; two calls are bit-identical and
+    count one launch each."""
+    fn, name, kernel = DECODE_FORMS[form]
+    B, K, P, max_pages = 8, 8, 16, 160
+    H, cap = G * K, max_pages * P
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    splits, span, _ = pa._grid_plan(q, "decode", 1, K, P, max_pages)
+    assert splits > 1 and span >= 3 * 64 and span % P == 0
+    lengths = [0, 1, P, span - 1, span, span + 1, cap, cap + 37]
+    owned = [-(-min(n, cap) // P) for n in lengths]
+    N = sum(owned) + 2
+    perm = torch.randperm(N, generator=gen, device="cuda").int()
+    table = torch.full((B, max_pages), -1, dtype=torch.int32, device="cuda")
+    at = 0
+    for b, n in enumerate(owned):
+        table[b, :n] = perm[at:at + n]
+        at += n
+    table[6:, 5] = -1      # read as page 0, as the plain version reads it
+    k = torch.randn(N, P, K, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(N, P, K, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if int8:
+        k, v = _quantize_pages(k, v, table, lens.clamp(max=cap), torch.zeros_like(lens))
+    before = pa.LAUNCHES[name + ("_int8" if int8 else "")]
+    got = fn(q, k, v, table, lens)
+    again = fn(q, k, v, table, lens)
+    want = fn(q, k, v, table, lens, plain=True)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[name + ("_int8" if int8 else "")] == before + 2
+    assert torch.equal(got, again)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got[0] == 0).all()
+    names = _kernel_names(lambda: fn(q, k, v, table, lens))
+    assert any(kernel in n for n in names) and any("combine_kernel" in n for n in names), names
