@@ -24,9 +24,11 @@
 //   - Each warp runs its own pipeline and no block barrier is taken before
 //     the merge. Its slices are gathered with 16-byte cp.async copies
 //     (gather_rows, shared with attend_mma) into a ring of its own, in the
-//     pages' storage dtype: 3 slices deep for bf16 pages (26 KB a warp at
-//     D = 128, two blocks an SM), 4 for int8 pages (two blocks an SM), so
-//     up to 2-3 slices of every warp are in flight while one is multiplied.
+//     pages' storage dtype, 3 slices deep (26 KB a warp at D = 128 for
+//     bf16 pages, 21 KB for int8; two blocks an SM), so two slices of
+//     every warp are in flight while one is multiplied. (Measured at the
+//     served shapes, scripts/ab_attention.py: 2 or 4 slices for bf16 and
+//     4 for int8 were no faster.)
 //     Each position's row is looked up through the page table (slot read
 //     as max(slot, 0)) once: the slot a slice ahead, into a register, then
 //     the row into a 16-entry table of the warp in shared memory that the
@@ -65,11 +67,7 @@ constexpr int kDecodeRows = 16;                            // query heads of a t
 constexpr int kDecodeSlice = 16;                           // a warp's positions of a stage
 constexpr int kDecodeStage = kDecodeWarps * kDecodeSlice;  // positions of a stage
 
-// Slices in each warp's cp.async ring.
-template <typename PT>
-__host__ __device__ constexpr int decode_ring() {
-  return std::is_same_v<PT, int8_t> ? 4 : 3;
-}
+constexpr int kDecodeRing = 3;                             // slices in a warp's cp.async ring
 
 // Shared memory of one warp: the row index of each position of a slice
 // [16] int32; then for bf16 pages the ring of K and V slices [16][D + 8]
@@ -81,11 +79,10 @@ template <typename PT, int D>
 __host__ __device__ constexpr int decode_warp_bytes() {
   constexpr int rows = kDecodeSlice * 4;
   constexpr int pair = 2 * kDecodeSlice * (D + 8) * 2;
-  constexpr int ring = decode_ring<PT>();
   if constexpr (std::is_same_v<PT, int8_t>) {
-    return rows + ring * 2 * kDecodeSlice * (D + 4) + pair;
+    return rows + kDecodeRing * 2 * kDecodeSlice * (D + 4) + pair;
   } else {
-    return rows + ring * pair;
+    return rows + kDecodeRing * pair;
   }
 }
 
@@ -112,7 +109,6 @@ __device__ __forceinline__ void attend_decode(
   constexpr int LD = D + 8;                 // padded bf16 row of every smem slice
   constexpr int KQ = D / 16;                // k-steps of Q K^T
   constexpr int DT = D / 8;                 // 8-column tiles of the output
-  constexpr int RING = decode_ring<PT>();
   constexpr int SLICE = kDecodeSlice * LD;  // bf16 elements of one K or V slice
   constexpr int CODES = kDecodeSlice * D;   // int8 codes of one K or V slice
   using bf16 = __nv_bfloat16;
@@ -142,8 +138,8 @@ __device__ __forceinline__ void attend_decode(
   int* rows_s = reinterpret_cast<int*>(own);
   bf16* ring_s = reinterpret_cast<bf16*>(own + kDecodeSlice * 4);   // bf16 pages
   int8_t* codes = reinterpret_cast<int8_t*>(own + kDecodeSlice * 4);    // int8 pages
-  float* scales = reinterpret_cast<float*>(codes + RING * 2 * CODES);
-  bf16* pair = reinterpret_cast<bf16*>(scales + RING * 2 * kDecodeSlice);
+  float* scales = reinterpret_cast<float*>(codes + kDecodeRing * 2 * CODES);
+  bf16* pair = reinterpret_cast<bf16*>(scales + kDecodeRing * 2 * kDecodeSlice);
 
   // This thread's rows of every fragment: lane / 4 and lane / 4 + 8.
   // Rows past the group's heads are zero, and never written.
@@ -173,13 +169,13 @@ __device__ __forceinline__ void attend_decode(
     return t < t_end ? __ldg(table_row + t / P) : 0;
   };
   // Slice j's rows into rows_s (-1 past t_end: zero-filled), then its
-  // gather into ring stage j % RING. Warp-uniform.
+  // gather into ring stage j % kDecodeRing. Warp-uniform.
   auto issue = [&](int j, int slot) {
     const int t = pos + j * kDecodeStage;
     __syncwarp();   // the previous gather has read rows_s
     if (lane < kDecodeSlice) rows_s[lane] = t < t_end ? (max(slot, 0) * P + t % P) * K + kh : -1;
     __syncwarp();
-    const int s = j % RING;
+    const int s = j % kDecodeRing;
     bf16* ks = ring_s + s * 2 * SLICE;
     int8_t* kc = codes + s * 2 * CODES;
     float* ksc = scales + s * 2 * kDecodeSlice;
@@ -188,17 +184,17 @@ __device__ __forceinline__ void attend_decode(
                                             ksc + kDecodeSlice, lane);
   };
 
-  // Prologue: the first RING - 1 slices in flight, their slots read
+  // Prologue: the first kDecodeRing - 1 slices in flight, their slots read
   // together.
-  int slots[RING - 1];
+  int slots[kDecodeRing - 1];
 #pragma unroll
-  for (int j = 0; j < RING - 1; ++j) slots[j] = j < slices ? slot_of(j) : 0;
+  for (int j = 0; j < kDecodeRing - 1; ++j) slots[j] = j < slices ? slot_of(j) : 0;
 #pragma unroll
-  for (int j = 0; j < RING - 1; ++j) {
+  for (int j = 0; j < kDecodeRing - 1; ++j) {
     if (j < slices) issue(j, slots[j]);
     cp_async_commit();
   }
-  int slot_next = RING - 1 < slices ? slot_of(RING - 1) : 0;
+  int slot_next = kDecodeRing - 1 < slices ? slot_of(kDecodeRing - 1) : 0;
 
   float o[DT][4];
 #pragma unroll
@@ -208,29 +204,29 @@ __device__ __forceinline__ void attend_decode(
   const float sl = scale * kLog2e;
 
   for (int j = 0; j < slices; ++j) {
-    // Slice j + RING - 1 into the stage that slice j - 1 left; the slot of
+    // Slice j + kDecodeRing - 1 into the stage that slice j - 1 left; the slot of
     // the slice after it is read now, its latency behind this slice's math.
-    const int ahead = j + RING - 1;
+    const int ahead = j + kDecodeRing - 1;
     if (ahead < slices) {
       issue(ahead, slot_next);
       slot_next = ahead + 1 < slices ? slot_of(ahead + 1) : 0;
     }
     cp_async_commit();
-    cp_async_wait<RING - 1>();
+    cp_async_wait<kDecodeRing - 1>();
     __syncwarp();   // slice j landed for every lane
 
     const bf16* ks;
     const bf16* vs;
     if constexpr (kInt8) {
-      const int8_t* kc = codes + (j % RING) * 2 * CODES;
-      const float* ksc = scales + (j % RING) * 2 * kDecodeSlice;
+      const int8_t* kc = codes + (j % kDecodeRing) * 2 * CODES;
+      const float* ksc = scales + (j % kDecodeRing) * 2 * kDecodeSlice;
       dequantize_rows<D, kDecodeSlice, kWarp>(kc, kc + CODES, ksc, ksc + kDecodeSlice, pair,
                                               pair + SLICE, lane);
       __syncwarp();
       ks = pair;
       vs = pair + SLICE;
     } else {
-      ks = ring_s + (j % RING) * 2 * SLICE;
+      ks = ring_s + (j % kDecodeRing) * 2 * SLICE;
       vs = ks + SLICE;
     }
 

@@ -19,8 +19,8 @@ copies of its pages that pass 100 MB (``chip_smoke.graph_ms``,
 ``page_copies``), in the order base, new, new, base, ``N`` rounds (default
 2), each decode variant once a round after them:
 
-- ``ring_bf16_4`` / ``ring_bf16_2``: a 4- or 2-slice ring for bf16 pages
-  (3 in the source), ``ring_int8_3``: 3 for int8 pages (4);
+- ``ring2`` / ``ring4``: a 2- or 4-slice ring in each warp (3 in the
+  source);
 - ``walk128`` / ``walk512``: splits of at most 128 / 512 positions (256);
 - ``mma_s1``: the decode through the grid form's ragged kernel at S = 1
   (``attend_mma``, one query row a sequence) over the same splits.
@@ -52,11 +52,10 @@ from opsagent_tpu_torch.ops.cuda_build import CSRC, _nvcc, ptr, stream  # noqa: 
 
 OUT = os.path.join(ROOT, "build", "ab_attention")
 SOURCES = ("paged_attention.cu", "paged_attention_grid.cu")
-RING = "return std::is_same_v<PT, int8_t> ? 4 : 3;"
+RING = "constexpr int kDecodeRing = 3;"
 EDITS = {  # variant: (header, old, new)
-    "ring_bf16_4": ("attention_decode.cuh", RING, RING.replace(": 3", ": 4")),
-    "ring_bf16_2": ("attention_decode.cuh", RING, RING.replace(": 3", ": 2")),
-    "ring_int8_3": ("attention_decode.cuh", RING, RING.replace("? 4", "? 3")),
+    "ring2": ("attention_decode.cuh", RING, RING.replace("3", "2")),
+    "ring4": ("attention_decode.cuh", RING, RING.replace("3", "4")),
 }
 WALKS = {"walk128": 128, "walk512": 512}
 VARIANTS = (*EDITS, *WALKS, "mma_s1")
@@ -132,11 +131,14 @@ def launcher(side: dict, form: str, kind: str, c: dict, copies: list, sms: int,
     """fn(i) launching ``side``'s kernel on case ``c`` with the i-th page
     copy, and its output tensor."""
     q, table = c["q"], c["table"]
-    kv, ks = pa._planes(c["k"])
+    kv = pa._planes(c["k"])[0]
     P, K, max_pages = kv.shape[1], kv.shape[2], table.shape[1]
     D, H, B = q.shape[-1], q.shape[-2], q.shape[0]
     out = torch.empty_like(q)
-    scale, dt, st = D ** -0.5, 1, stream(q.device)
+    scale, dt = D ** -0.5, 1
+
+    def st():  # the current stream at each launch: graph capture swaps it
+        return stream(q.device)
 
     def pages(i):
         (k, s1), (v, s2) = (pa._planes(t) for t in copies[i % len(copies)])
@@ -148,11 +150,11 @@ def launcher(side: dict, form: str, kind: str, c: dict, copies: list, sms: int,
         if form == "dma":
             return (lambda i: side["dma"].opsagent_paged_ragged_attention(
                 ptr(q), *pages(i), *ints, ptr(out), B, S, H, K, D, P, max_pages, scale, dt,
-                st)), out
+                st())), out
         splits, span, ws = pa._grid_plan(q, "ragged", S, K, P, max_pages)
         return (lambda i: side["grid"].opsagent_paged_ragged_attention_grid(
             ptr(q), *pages(i), *ints, ptr(ws), ptr(out), B, S, H, K, D, P, max_pages, splits,
-            span, scale, dt, st)), out
+            span, scale, dt, st())), out
     lengths = c["lengths"]
     splits, span, ws = plan(c, side["tile"], walk or side["walk"], sms)
     if mma_s1:
@@ -161,30 +163,34 @@ def launcher(side: dict, form: str, kind: str, c: dict, copies: list, sms: int,
         q_lens = (lengths > 0).int()
         return (lambda i: side["grid"].opsagent_paged_ragged_attention_grid(
             ptr(q1), *pages(i), ptr(table), ptr(start), ptr(q_lens), ptr(ws), ptr(out1), B, 1,
-            H, K, D, P, max_pages, splits, span, scale, dt, st)), out
+            H, K, D, P, max_pages, splits, span, scale, dt, st())), out
     if form == "grid":
         return (lambda i: side["grid"].opsagent_paged_decode_attention_grid(
             ptr(q), *pages(i), ptr(table), ptr(lengths), ptr(ws), ptr(out), B, H, K, D, P,
-            max_pages, splits, span, scale, dt, st)), out
+            max_pages, splits, span, scale, dt, st())), out
     if side["split_dma"]:
         return (lambda i: side["dma"].opsagent_paged_decode_attention(
             ptr(q), *pages(i), ptr(table), ptr(lengths), ptr(ws), ptr(out), B, H, K, D, P,
-            max_pages, splits, span, scale, dt, st)), out
+            max_pages, splits, span, scale, dt, st())), out
     return (lambda i: side["dma"].opsagent_paged_decode_attention(
         ptr(q), *pages(i), ptr(table), ptr(lengths), ptr(out), B, H, K, D, P, max_pages,
-        scale, dt, st)), out
+        scale, dt, st())), out
 
 
 def checked(fn, out, want, label: str):
-    """``fn`` after one launch whose output agrees with ``want``."""
-    rc = fn(0)
+    """``fn``, raising on a failed launch, after one launch whose output
+    agrees with ``want``."""
+    def launch(i):
+        rc = fn(i)
+        if rc:
+            raise SystemExit(f"{label}: CUDA error {rc}")
+
+    launch(0)
     torch.cuda.synchronize()
-    if rc:
-        raise SystemExit(f"{label}: CUDA error {rc}")
     err = (out.float() - want.float()).abs().max().item()
     if not err <= cs.TOL[torch.bfloat16]:
         raise SystemExit(f"{label}: max err {err}")
-    return fn
+    return launch
 
 
 def main() -> int:
