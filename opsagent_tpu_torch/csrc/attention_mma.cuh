@@ -4,8 +4,8 @@
 //
 // `attend_mma` attends one (sequence, kv head, tile of 64 query rows) over
 // the cache positions [t_begin, t_stop) that its rows can see. It computes
-// the function of attend_tile / attend_split (same contract, same rows,
-// same masks) in the shape of FlashAttention-2:
+// the function of attend_split (same contract, same rows, same masks) in
+// the shape of FlashAttention-2:
 //
 //   - Rows. Tile rows are (s, g) pairs of one kv head's group, r = s * G + g,
 //     so any G works. Each of the 4 warps owns 16 rows, one m16 fragment;

@@ -18,8 +18,10 @@
 // code * scale in f32 rounded to q's dtype); each warp keeps RPW rows'
 // running max, sum and [D] accumulator in registers. Its products run on
 // CUDA cores in f32 with synchronous loads: the tensor cores hold no f32
-// tolerance of 1e-5, and f32 is on no served path. The bf16 split passes
-// run `attend_mma` (ragged) and `attend_decode` (decode).
+// tolerance of 1e-5, and f32 is on no served path. It is the body of every
+// f32 instance of both forms (the dma ragged kernel runs it over one split
+// that spans the table). The bf16 instances run `attend_mma` (ragged) and
+// `attend_decode` (decode).
 
 #pragma once
 

@@ -16,7 +16,7 @@
 // QuantizedPages branch: one scale per token and kv head);
 // page_table [B, MaxP] int32 with -1 = unassigned (read as page 0); query
 // s of row b sees cache positions t <= start[b] + s and t < start[b] +
-// q_lens[b], clamped to MaxP * P. Softmax is online in f32 (in attend_tile
+// q_lens[b], clamped to MaxP * P. Softmax is online in f32 (in attend_split
 // q is cast to f32 and scaled by D^-1/2 before the product, probabilities
 // stay f32 for the product with V; the tensor-core routines' numbers are
 // in their own headers), and the output is written in q's dtype. Rows with
@@ -30,13 +30,10 @@
 // of that kv head's group of G = H / K query heads: the G heads of one
 // position share every K/V row the block loads. The bf16 instances (pages
 // in bf16 or int8) run the tensor-core tile routine `attend_mma`
-// (attention_mma.cuh). The f32 instances run `attend_tile` below: the
-// block walks the positions its rows can see, 32 at a time (one per lane),
-// gathering each position's [D] row of this kv head through the page table
-// into shared memory as f32; each warp owns RPW rows and keeps their
-// running max, sum and [D] accumulator in registers. Its products run on
-// CUDA cores in f32 with synchronous loads: the tensor cores hold no f32
-// tolerance of 1e-5, and f32 is on no served path.
+// (attention_mma.cuh). The f32 instances run the CUDA-core body
+// `attend_split` (attention_split.cuh) over one split that spans the
+// table: the tensor cores hold no f32 tolerance of 1e-5, and f32 is on no
+// served path.
 //
 // Decode design. The decode kernel splits each sequence's KV positions
 // over blocks (flash-decoding; attention_split.cuh), as the grid form
@@ -73,140 +70,6 @@ using namespace attn;
 
 constexpr int kRaggedRowsPerWarp = 16;     // 64 query rows per prefill tile
 
-// One block: sequence rows `q` [S, H, D] (this sequence only), kv head `kh`,
-// query rows [tile * R, tile * R + R) of the (s, g) enumeration r = s * G + g.
-// Pages hold PT: T itself, or int8 with scale planes k_scale / v_scale.
-template <typename T, typename PT, int D, int RPW>
-__device__ __forceinline__ void attend_tile(
-    const T* __restrict__ q, const PT* __restrict__ k_pages,
-    const PT* __restrict__ v_pages, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ table_row,
-    T* __restrict__ out, int S, int H, int K, int P, int max_pages, int kh,
-    int tile, int start, int qlen, float scale) {
-  constexpr bool kInt8 = std::is_same_v<PT, int8_t>;
-  constexpr int R = kWarps * RPW;
-  constexpr int DPL = (D + kWarp - 1) / kWarp;   // output dims per lane
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;                   // 16-byte vectors per q row
-  constexpr int PVEC = 16 / sizeof(PT);
-  constexpr int PVPR = D / PVEC;                 // 16-byte vectors per page row
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + R * D;
-  float* v_s = k_s + kChunk * (D + 1);
-
-  const int G = H / K;
-  const int tid = threadIdx.x;
-  const int lane = tid % kWarp;
-  const int warp = tid / kWarp;
-  const int cap = max_pages * P;
-  const int row0 = tile * R;
-
-  // Positions the tile must read: up to the last valid row's window.
-  const int s_first = row0 / G;
-  const int s_last = min(min((row0 + R - 1) / G, S - 1), qlen - 1);
-  const int tile_limit = s_first <= s_last ? min(start + s_last + 1, cap) : 0;
-
-  for (int i = tid; i < R * VPR; i += kThreads) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    const int gr = row0 + r, s = gr / G, g = gr % G;
-    float vals[VEC];
-    if (s < S) {
-      load_vec<T, VEC>(q + (static_cast<size_t>(s) * H + kh * G + g) * D + c, vals);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) vals[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) q_s[r * D + c + e] = vals[e] * scale;
-  }
-
-  float m[RPW], l[RPW], acc[RPW][DPL];
-  int lim[RPW];
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int s = (row0 + warp * RPW + rr) / G;
-    lim[rr] = (s < S && s < qlen) ? min(start + s + 1, cap) : 0;
-    m[rr] = -CUDART_INF_F;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
-  }
-
-  for (int c0 = 0; c0 < tile_limit; c0 += kChunk) {
-    __syncthreads();  // q tile written / previous chunk consumed
-    for (int i = tid; i < kChunk * PVPR; i += kThreads) {
-      const int j = i / PVPR, c = (i % PVPR) * PVEC;
-      const int t = c0 + j;
-      float kv[PVEC], vv[PVEC];
-      if (t < tile_limit) {
-        const int page = max(table_row[t / P], 0);
-        const size_t row = (static_cast<size_t>(page) * P + t % P) * K + kh;
-        load_vec<PT, PVEC>(k_pages + row * D + c, kv);
-        load_vec<PT, PVEC>(v_pages + row * D + c, vv);
-        if constexpr (kInt8) {
-          const float ks = __ldg(k_scale + row), vs = __ldg(v_scale + row);
-#pragma unroll
-          for (int e = 0; e < PVEC; ++e) {
-            kv[e] = round_as(kv[e] * ks, q);
-            vv[e] = round_as(vv[e] * vs, q);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < PVEC; ++e) kv[e] = vv[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < PVEC; ++e) {
-        k_s[j * (D + 1) + c + e] = kv[e];
-        v_s[j * D + c + e] = vv[e];
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      if (c0 >= lim[rr]) continue;  // warp-uniform: the row sees nothing here
-      const float* qr = q_s + (warp * RPW + rr) * D;
-      const float* kr = k_s + lane * (D + 1);
-      float score = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) score += qr[d] * kr[d];
-      const bool visible = c0 + lane < lim[rr];
-      score = visible ? score : -CUDART_INF_F;
-      const float m_new = fmaxf(m[rr], warp_max(score));  // finite: lane 0 is visible
-      const float alpha = expf(m[rr] - m_new);
-      const float p = visible ? expf(score - m_new) : 0.f;
-      l[rr] = l[rr] * alpha + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[rr][i] *= alpha;
-#pragma unroll 8
-      for (int j = 0; j < kChunk; ++j) {
-        const float pj = __shfl_sync(kFull, p, j);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int d = lane + i * kWarp;
-          if (d < D) acc[rr][i] += pj * v_s[j * D + d];
-        }
-      }
-      m[rr] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int gr = row0 + warp * RPW + rr;
-    const int s = gr / G, g = gr % G;
-    if (s >= S) continue;
-    T* o = out + (static_cast<size_t>(s) * H + kh * G + g) * D;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + i * kWarp;
-      if (d < D) store(o + d, l[rr] > 0.f ? acc[rr][i] / l[rr] : 0.f);
-    }
-  }
-}
-
 template <typename T, typename PT, int D, int RPW>
 __global__ void __launch_bounds__(kThreads) ragged_kernel(
     const T* __restrict__ q, const PT* __restrict__ k_pages,
@@ -222,9 +85,11 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
                       TileOut{out + seq, nullptr, nullptr}, S, H, K, P, max_pages,
                       blockIdx.y, blockIdx.x, start[b], q_lens[b], 0, max_pages * P, scale);
   } else {
-    attend_tile<T, PT, D, RPW>(q + seq, k_pages, v_pages, k_scale, v_scale, table_row,
-                               out + seq, S, H, K, P, max_pages, blockIdx.y, blockIdx.x,
-                               start[b], q_lens[b], scale);
+    // The CUDA-core split body over one split that spans the table.
+    attend_split<T, PT, D, RPW>(q + seq, k_pages, v_pages, k_scale, v_scale, table_row,
+                                Partials{nullptr, nullptr, 0, max_pages * P, 1}, out + seq, 0,
+                                S, H, K, P, max_pages, blockIdx.y, blockIdx.x, 0, start[b],
+                                q_lens[b], scale);
   }
 }
 
