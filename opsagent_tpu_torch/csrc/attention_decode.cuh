@@ -24,11 +24,13 @@
 //   - Each warp runs its own pipeline and no block barrier is taken before
 //     the merge. Its slices are gathered with 16-byte cp.async copies
 //     (gather_rows, shared with attend_mma) into a ring of its own, in the
-//     pages' storage dtype, 3 slices deep (26 KB a warp at D = 128 for
-//     bf16 pages, 21 KB for int8; two blocks an SM), so two slices of
-//     every warp are in flight while one is multiplied. (Measured at the
-//     served shapes, scripts/ab_attention.py: 2 or 4 slices for bf16 and
-//     4 for int8 were no faster.)
+//     pages' storage dtype, 2 slices deep (17 KB a warp at D = 128 for
+//     bf16 pages, three blocks an SM; 17 KB for int8, two blocks an SM by
+//     registers): the next slice of every warp is in flight while one is
+//     multiplied, and the SM's other blocks cover the rest. At the served
+//     shapes (scripts/ab_attention.py) 3 or 4 slices were 0-10 % slower:
+//     a live block walks at most 4 slices a warp, so occupancy counts for
+//     more than depth.
 //     Each position's row is looked up through the page table (slot read
 //     as max(slot, 0)) once: the slot a slice ahead, into a register, then
 //     the row into a 16-entry table of the warp in shared memory that the
@@ -67,7 +69,7 @@ constexpr int kDecodeRows = 16;                            // query heads of a t
 constexpr int kDecodeSlice = 16;                           // a warp's positions of a stage
 constexpr int kDecodeStage = kDecodeWarps * kDecodeSlice;  // positions of a stage
 
-constexpr int kDecodeRing = 3;                             // slices in a warp's cp.async ring
+constexpr int kDecodeRing = 2;                             // slices in a warp's cp.async ring
 
 // Shared memory of one warp: the row index of each position of a slice
 // [16] int32; then for bf16 pages the ring of K and V slices [16][D + 8]

@@ -19,7 +19,7 @@ copies of its pages that pass 100 MB (``chip_smoke.graph_ms``,
 ``page_copies``), in the order base, new, new, base, ``N`` rounds (default
 2), each decode variant once a round after them:
 
-- ``ring2`` / ``ring4``: a 2- or 4-slice ring in each warp (3 in the
+- ``ring3`` / ``ring4``: a 3- or 4-slice ring in each warp (2 in the
   source);
 - ``walk128`` / ``walk512``: splits of at most 128 / 512 positions (256);
 - ``mma_s1``: the decode through the grid form's ragged kernel at S = 1
@@ -52,10 +52,10 @@ from opsagent_tpu_torch.ops.cuda_build import CSRC, _nvcc, ptr, stream  # noqa: 
 
 OUT = os.path.join(ROOT, "build", "ab_attention")
 SOURCES = ("paged_attention.cu", "paged_attention_grid.cu")
-RING = "constexpr int kDecodeRing = 3;"
+RING = "constexpr int kDecodeRing = 2;"
 EDITS = {  # variant: (header, old, new)
-    "ring2": ("attention_decode.cuh", RING, RING.replace("3", "2")),
-    "ring4": ("attention_decode.cuh", RING, RING.replace("3", "4")),
+    "ring3": ("attention_decode.cuh", RING, RING.replace("2", "3")),
+    "ring4": ("attention_decode.cuh", RING, RING.replace("2", "4")),
 }
 WALKS = {"walk128": 128, "walk512": 512}
 VARIANTS = (*EDITS, *WALKS, "mma_s1")

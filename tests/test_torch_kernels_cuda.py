@@ -355,9 +355,8 @@ def test_engine_grid_path_matches_plain_path(gen, quantize, kv_quantize):
 
 # -- both decode forms: the split edges ---------------------------------------
 DECODE_FORMS = {
-    "dma": (pa.paged_decode_attention_cuda, "paged_decode_attention", "decode_kernel"),
-    "grid": (pa.paged_decode_attention_grid_cuda, "paged_decode_attention_grid",
-             "decode_split_kernel"),
+    "dma": (pa.paged_decode_attention_cuda, "paged_decode_attention"),
+    "grid": (pa.paged_decode_attention_grid_cuda, "paged_decode_attention_grid"),
 }
 
 
@@ -371,9 +370,9 @@ def test_decode_split_edges(gen, form, G, D, dtype, int8):
     spans of several 64-position stages (the tensor-core routine's ring
     wraps): lengths 0, 1, P, span - 1, span, span + 1, the full table and
     past it, with a -1 slot inside the full rows' pages. Kernel against
-    plain version; the combine runs; two calls are bit-identical and
-    count one launch each."""
-    fn, name, kernel = DECODE_FORMS[form]
+    plain version (with more than one split only the combine writes the
+    output); two calls are bit-identical and count one launch each."""
+    fn, name = DECODE_FORMS[form]
     B, K, P, max_pages = 8, 8, 16, 160
     H, cap = G * K, max_pages * P
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
@@ -403,5 +402,3 @@ def test_decode_split_edges(gen, form, G, D, dtype, int8):
     assert torch.equal(got, again)
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     assert (got[0] == 0).all()
-    names = _kernel_names(lambda: fn(q, k, v, table, lens))
-    assert any(kernel in n for n in names) and any("combine_kernel" in n for n in names), names
