@@ -8,13 +8,18 @@ Phases, each printing one JSON line with its seconds:
 1. device: requires CUDA; reads the card's name and power limit.
 2. build: compiles every kernel source in ``opsagent_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together; reports ptxas's registers
-   and spills of the tensor-core instances (the bf16 ragged kernels and
-   the quantized matmul's m128 and m16 instances).
+   and spills of the tensor-core instances (the bf16 ragged and decode
+   kernels and the quantized matmul's m128 and m16 instances).
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 and f32. Paged attention, both forms (the "dma" kernels and the
-   split-KV "grid" kernels), over bf16/f32 pages and over int8 pages at the
-   widths of bench-8b (Llama-3-8B), Qwen2.5-7B (G = 7), bench-1b and
-   tiny-test; then (the ``matmul`` line) the quantized matmul, int8 and
+   split-KV "grid" kernels; both forms' decode kernels split the KV
+   sequence too, with a combine pass), over bf16/f32 pages and over int8
+   pages at the widths of bench-8b (Llama-3-8B), Qwen2.5-7B (G = 7),
+   bench-1b and tiny-test; the main path's bf16 shapes are timed: device
+   times by CUDA graph replay (the kernels cycling over copies of the
+   pages that pass ``ROTATE_BYTES``; SDPA over K/V gathered once), and
+   the kernels' calls from Python beside them (``event_ms``); then (the
+   ``matmul`` line) the quantized matmul, int8 and
    int4 with one whole-axis group and with groups of 128, at every
    bench-8b projection shape and Qwen2.5-7B's wk/wv and wg/wu with T in
    {1, 8, 128, 1024}, at aligned and unaligned edges (a ragged In, an int4
@@ -48,6 +53,7 @@ Phases, each printing one JSON line with its seconds:
    none. With ``--profile`` each run is traced with ``torch.profiler``
    and a ``profile`` line gives
    device time by kernel group, the quantized matmul split by instance
+   and the combine of both attention forms' split calls as one group
    (the trace slows the run: its tokens/s and TTFT are not the untraced
    ones).
 
