@@ -48,9 +48,14 @@ Phases, each printing one JSON line with its seconds:
    kernels (unquantized, int8 weights + int8 KV). The kernels' launch
    counts of each run are checked and reported, and the quantized
    matmul's by instance: the m128 instance takes every projection of every
-   mixed tick (a positive multiple of 7 x layers launches), the m16
-   instance the rest (decode steps, the lm_head), and r16, m64 and f32
-   none. With ``--profile`` each run is traced with ``torch.profiler``
+   mixed tick (7 x layers launches a tick), the m16 instance the rest
+   (decode steps, the lm_head), and r16, m64 and f32 none. The host's
+   split, untraced: ``decode_steps`` (the sum of ``n_steps`` over the
+   ``decode_block`` calls) and ``mixed_ticks``, each with its host wall
+   time per step or tick (``step_block`` and ``step_mixed`` under
+   ``time.perf_counter``), and ``decode_device_ms_per_step``, one decode
+   step plus its argmax at the serve's shapes and page table by CUDA graph
+   replay. With ``--profile`` each run is traced with ``torch.profiler``
    and a ``profile`` line gives
    device time by kernel group, the quantized matmul split by instance
    and the combine of both attention forms' split calls as one group
@@ -95,6 +100,7 @@ from opsagent_tpu_torch.ops import cuda_build
 from opsagent_tpu_torch.ops import paged_attention as pa
 from opsagent_tpu_torch.ops import quant_matmul as qm
 from opsagent_tpu_torch.ops.attention import QuantizedPages, _gather_kv, write_kv_pages
+from opsagent_tpu_torch.serving import engine as engine_module
 from opsagent_tpu_torch.serving.api import ServingStack, make_server
 from opsagent_tpu_torch.serving.engine import Engine, EngineConfig
 from opsagent_tpu_torch.serving.sampler import SamplingParams
@@ -782,6 +788,76 @@ def expected_kernels(backend: str, quantize: str, kv_quantize: str) -> set[str]:
     return names
 
 
+class TickClock:
+    """Host wall time of the engine's ticks: the engine instance's
+    ``step_block`` and ``step_mixed`` wrapped with ``time.perf_counter``
+    (both return with their device work done and their tokens on the
+    host), decode steps counted through the engine module's
+    ``decode_block`` calls (the sum of ``n_steps``), and mixed ticks as the
+    ``step_mixed`` calls that ran a forward. Keeps the arguments of the
+    block with the most active rows, for ``decode_device_ms``."""
+
+    def __init__(self, engine: Engine):
+        self.block_s = self.mixed_s = 0.0
+        self.decode_steps = self.mixed_ticks = 0
+        self.block_args = None
+        self._active = -1
+        self._decode_block = engine_module.decode_block
+        step_block, step_mixed = engine.step_block, engine.step_mixed
+
+        def timed_block(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return step_block(*args, **kwargs)
+            finally:
+                self.block_s += time.perf_counter() - t0
+
+        def timed_mixed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = step_mixed(*args, **kwargs)
+            finally:
+                self.mixed_s += time.perf_counter() - t0
+            self.mixed_ticks += any(out)
+            return out
+
+        def counted_decode_block(model, tokens, write_at, active, *args, **kwargs):
+            # args: budgets, cache, page_table, ...
+            self.decode_steps += kwargs["n_steps"]
+            n = int(active.sum())
+            if n > self._active:
+                self._active = n
+                self.block_args = (tokens.clone(), write_at.clone(), active.clone(),
+                                   args[2].clone())    # the page table
+            return self._decode_block(model, tokens, write_at, active, *args, **kwargs)
+
+        engine.step_block, engine.step_mixed = timed_block, timed_mixed
+        engine_module.decode_block = counted_decode_block
+
+    def close(self) -> None:
+        engine_module.decode_block = self._decode_block
+
+    def fields(self) -> dict:
+        return {
+            "decode_steps": self.decode_steps,
+            "decode_wall_ms_per_step": self.block_s * 1e3 / max(self.decode_steps, 1),
+            "mixed_ticks": self.mixed_ticks,
+            "mixed_wall_ms_per_tick": self.mixed_s * 1e3 / max(self.mixed_ticks, 1),
+        }
+
+
+def decode_device_ms(engine: Engine, block_args) -> float:
+    """Device time of one decode step at the serve's own shapes (B =
+    ``max_batch_size``, MaxP = ``max_pages_per_seq``, the serve's page
+    table and lengths): ``Llama.decode_step`` plus the argmax, by CUDA
+    graph replay (``graph_ms``)."""
+    tokens, write_at, active, table = block_args
+    with torch.inference_mode():
+        return graph_ms(lambda i: engine.model.decode_step(
+            tokens, write_at, engine.cache, table, active,
+            backend=engine.cfg.paged_backend).argmax(dim=-1))
+
+
 def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
                 quantize: str, kv_quantize: str) -> dict:
     engine = Engine(EngineConfig(model=model, dtype=torch.bfloat16,
@@ -790,6 +866,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
     cfg = get_config_preset(model)
     weights = sum(t.numel() * t.element_size() for t in itertools.chain(
         engine.model.parameters(), engine.model.buffers()))
+    clock = TickClock(engine)
     stack = ServingStack(engine)
     server = make_server(stack, "127.0.0.1", 0)
     port = server.server_address[1]
@@ -839,6 +916,10 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         server.server_close()
         stack.close()
         thread.join(timeout=30)
+        clock.close()
+    ticks = clock.fields()
+    check(clock.block_args is not None, "the serve ran no decode block")
+    ticks["decode_device_ms_per_step"] = decode_device_ms(engine, clock.block_args)
     for status, r in replies:
         check(status == 200, f"status {status}")
         check(r.get("object") == "chat.completion" and r["id"].startswith("chatcmpl-"),
@@ -866,9 +947,9 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
     # f32 never.
     mixed, projections = instances["quant_matmul_m128"], 7 * cfg.num_layers
     if quantize:
-        check(mixed > 0 and mixed % projections == 0,
-              f"quant_matmul_m128 launched {mixed} times, not a positive multiple "
-              f"of {projections}")
+        check(mixed == projections * ticks["mixed_ticks"] > 0,
+              f"quant_matmul_m128 launched {mixed} times, not {projections} for "
+              f"each of {ticks['mixed_ticks']} mixed ticks")
     total = sum(launches[name] for name in qm.LAUNCHES)
     check(instances["quant_matmul_m16"] == total - mixed
           and instances["quant_matmul_r16"] == instances["quant_matmul_m64"]
@@ -898,7 +979,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         "max_memory_allocated_bytes": peak,
         "launches": launches,
         "matmul_instances": instances,
-        "mixed_ticks": mixed // projections,
+        **ticks,
     }
 
 
