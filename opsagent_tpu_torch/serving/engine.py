@@ -23,6 +23,7 @@ snapshots or constrained decoding in this port yet.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 import torch
@@ -32,7 +33,7 @@ from ..models.config import ModelConfig, resolve_model
 from ..models.llama import Llama
 from ..models.loader import load_checkpoint
 from ..ops.paged_attention import PAGED_BACKENDS
-from .decode_loop import decode_block
+from .decode_loop import DecodeState, decode_block, decode_step_body
 from .kvcache import InvalidRequest, OutOfPages, PageAllocator
 from .sampler import SamplingParams, sample
 from .tokenizer import ByteTokenizer, Tokenizer
@@ -133,6 +134,12 @@ class Engine:
             self.model = model if model is not None else self._build_model()
             self.cache = self.model.make_cache(
                 cfg.num_pages, cfg.page_size, cfg.kv_quantize
+            )
+            # The block decode's loop state (made under inference mode, as
+            # the body's in-place updates need).
+            self._decode = DecodeState.empty(
+                cfg.max_batch_size, cfg.max_pages_per_seq, cfg.decode_block,
+                self.device,
             )
         self.alloc = PageAllocator(
             cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq,
@@ -404,15 +411,12 @@ class Engine:
             [s.seq_id if s is not None else None for s in lanes], B
         )
         temps, top_k, top_p = self._sampling_arrays(lanes, B)
+        greedy = bool(np.all(temps <= 0.0))
         with torch.inference_mode():
             toks = decode_block(
-                self.model, self._dev(tokens), self._dev(write_at),
-                self._dev(active), self._dev(budgets), self.cache,
-                self._dev(table), self._generator, self._dev(temps),
-                self._dev(top_k), self._dev(top_p),
-                self.tokenizer.eos_id, self.tokenizer.pad_id,
-                n_steps=int(budgets.max()), greedy=bool(np.all(temps <= 0.0)),
-                plain=self.attn_impl == "plain", backend=self.cfg.paged_backend,
+                self._decode, self._decode_body(greedy), tokens, write_at,
+                active, budgets, table, temps, top_k, top_p,
+                n_steps=int(budgets.max()),
             ).cpu().numpy()
         out: dict[int, list[int]] = {}
         for i, s in enumerate(lanes):
@@ -428,6 +432,15 @@ class Engine:
                 # Roll the block's booking back to what was written.
                 self.alloc.truncate(s.seq_id, self._host_written(s))
         return out
+
+    def _decode_body(self, greedy: bool):
+        """The block's step, eager: ``decode_step_body`` over the engine's
+        state, cache and generator."""
+        return partial(
+            decode_step_body, self.model, self._decode, self.cache,
+            self._generator, self.tokenizer.eos_id, self.tokenizer.pad_id,
+            greedy, self.attn_impl == "plain", self.cfg.paged_backend,
+        )
 
     def finish(self, seq_id: int) -> list[int]:
         """Release a sequence; returns its generated tokens. Full pages go
