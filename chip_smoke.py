@@ -747,7 +747,84 @@ def phase_hf() -> dict:
     return report
 
 
-# -- phase 6: serving at full width -------------------------------------------
+# -- phase 6: the decode graph against the eager step -----------------------------
+# (model, paged backend, quantize, kv_quantize) of each replay-vs-eager check.
+DECODE_GRAPH = (
+    ("bench-8b", "dma", "", ""),
+    ("bench-8b", "dma", "int8", "int8"),
+    ("qwen2.5-7b-instruct", "grid", "", ""),
+)
+
+
+def cache_bytes(cache) -> list[torch.Tensor]:
+    """The cache's pages (and int8 scales), the scratch slot left out."""
+    sides = (cache.k, cache.v)
+    return [t for s in sides for t in ((s.q, s.scale) if cache.quantized else (s,))]
+
+
+def phase_decode_graph(seed: int) -> dict:
+    """At full width and depth, one model and two engines over it, the
+    same seed: one replays the captured decode step (``decode_graph``),
+    the other runs the step eagerly through the same kernels. Both admit
+    the serve's four prompt lengths through mixed steps, then run one
+    greedy block: tokens, every cache byte and every launch counter's
+    change must be equal."""
+    gen = torch.Generator().manual_seed(seed)
+    report = {}
+    for name, backend, quantize, kv_quantize in DECODE_GRAPH:
+        cfg = get_config_preset(name)
+        model = Llama(cfg, torch.bfloat16, "cuda", seed=seed, quantize=quantize)
+        prompts = [[257] + torch.randint(0, 256, (n,), generator=gen).tolist()
+                   for n in (300, 800, 1500, 3000)]
+        runs = {}
+        for replay in (True, False):
+            eng = Engine(EngineConfig(model=name, dtype=torch.bfloat16, device="cuda",
+                                      seed=seed, num_pages=512, quantize=quantize,
+                                      kv_quantize=kv_quantize, paged_backend=backend,
+                                      decode_graph=replay),
+                         model_cfg=cfg, model=model)
+            t = time.perf_counter()
+            eng.warmup()
+            warm = time.perf_counter() - t
+            ids = [eng.add_request(p, SamplingParams(max_tokens=64)) for p in prompts]
+            torch.cuda.synchronize()
+            admitted = [t.clone() for t in cache_bytes(eng.cache)]
+            before = launch_counts() | dict(qm.INSTANCE_LAUNCHES)
+            t = time.perf_counter()
+            toks = eng.step_block(ids)
+            wall = time.perf_counter() - t
+            after = launch_counts() | dict(qm.INSTANCE_LAUNCHES)
+            runs[replay] = dict(
+                tokens=toks, admitted=admitted, cache=cache_bytes(eng.cache),
+                launches={k: n - before[k] for k, n in after.items() if n != before[k]},
+                steps=(eng.decode_replays, eng.decode_eager_steps), warm=warm, wall=wall)
+            del eng
+        label = f"{name} {backend}, weights {quantize or 'bf16'}, kv {kv_quantize or 'bf16'}"
+        g, e = runs[True], runs[False]
+        n_steps = e["steps"][1]
+        check(all(torch.equal(a, b) for a, b in zip(g["admitted"], e["admitted"])),
+              f"{label}: the two engines' caches differ after admission")
+        check(n_steps > 0 and g["steps"] == (n_steps, 0) and e["steps"] == (0, n_steps),
+              f"{label}: decode routes (replays, eager) {g['steps']} / {e['steps']}")
+        check(g["tokens"] == e["tokens"],
+              f"{label}: replayed tokens {g['tokens']} != eager {e['tokens']}")
+        check(all(torch.equal(a, b) for a, b in zip(g["cache"], e["cache"])),
+              f"{label}: replayed block's cache bytes differ from the eager block's")
+        check(g["launches"] == e["launches"],
+              f"{label}: launches {g['launches']} replayed, {e['launches']} eager")
+        report[label] = {
+            "tokens_equal": True, "cache_equal": True, "launches": g["launches"],
+            "decode_steps": n_steps,
+            "block_wall_ms": {"replay": g["wall"] * 1e3, "eager": e["wall"] * 1e3},
+            "warmup_s": {"replay": g["warm"], "eager": e["warm"]},
+        }
+        del runs, g, e, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
+# -- phase 7: serving at full width -------------------------------------------
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names, spaces and "(int)" removed)
     ("paged_ragged_attention", ("ragged_kernel",)),
     ("paged_decode_attention", ("decode_kernel",)),
@@ -821,15 +898,16 @@ class TickClock:
             self.mixed_ticks += any(out)
             return out
 
-        def counted_decode_block(model, tokens, write_at, active, *args, **kwargs):
-            # args: budgets, cache, page_table, ...
-            self.decode_steps += kwargs["n_steps"]
-            n = int(active.sum())
+        def counted_decode_block(state, step, tokens, write_at, active, budgets,
+                                 page_table, *args, n_steps):
+            self.decode_steps += n_steps
+            n = int((active & (budgets > 0)).sum())
             if n > self._active:
                 self._active = n
-                self.block_args = (tokens.clone(), write_at.clone(), active.clone(),
-                                   args[2].clone())    # the page table
-            return self._decode_block(model, tokens, write_at, active, *args, **kwargs)
+                self.block_args = (tokens.copy(), write_at.copy(), active.copy(),
+                                   page_table.copy())
+            return self._decode_block(state, step, tokens, write_at, active, budgets,
+                                      page_table, *args, n_steps=n_steps)
 
         engine.step_block, engine.step_mixed = timed_block, timed_mixed
         engine_module.decode_block = counted_decode_block
@@ -851,7 +929,7 @@ def decode_device_ms(engine: Engine, block_args) -> float:
     ``max_batch_size``, MaxP = ``max_pages_per_seq``, the serve's page
     table and lengths): ``Llama.decode_step`` plus the argmax, by CUDA
     graph replay (``graph_ms``)."""
-    tokens, write_at, active, table = block_args
+    tokens, write_at, active, table = (torch.from_numpy(a).to("cuda") for a in block_args)
     with torch.inference_mode():
         return graph_ms(lambda i: engine.model.decode_step(
             tokens, write_at, engine.cache, table, active,
@@ -866,6 +944,8 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
     cfg = get_config_preset(model)
     weights = sum(t.numel() * t.element_size() for t in itertools.chain(
         engine.model.parameters(), engine.model.buffers()))
+    # Before the scheduler thread starts: the capture is process-wide.
+    warmup_s = engine.warmup()
     clock = TickClock(engine)
     stack = ServingStack(engine)
     server = make_server(stack, "127.0.0.1", 0)
@@ -898,6 +978,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        routes = (engine.decode_replays, engine.decode_eager_steps)
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA,
@@ -910,6 +991,8 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         wall = time.perf_counter() - t0
         launches = launch_counts()
         instances = dict(qm.INSTANCE_LAUNCHES)
+        replays = engine.decode_replays - routes[0]
+        eager_steps = engine.decode_eager_steps - routes[1]
         peak = torch.cuda.max_memory_allocated()
     finally:
         server.shutdown()
@@ -920,6 +1003,10 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
     ticks = clock.fields()
     check(clock.block_args is not None, "the serve ran no decode block")
     ticks["decode_device_ms_per_step"] = decode_device_ms(engine, clock.block_args)
+    # Every decode step of a greedy serve is a graph replay.
+    check(replays == ticks["decode_steps"] > 0 and eager_steps == 0,
+          f"{replays} replayed and {eager_steps} eager decode steps of "
+          f"{ticks['decode_steps']}")
     for status, r in replies:
         check(status == 200, f"status {status}")
         check(r.get("object") == "chat.completion" and r["id"].startswith("chatcmpl-"),
@@ -979,6 +1066,9 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         "max_memory_allocated_bytes": peak,
         "launches": launches,
         "matmul_instances": instances,
+        "warmup_s": warmup_s,
+        "decode_replays": replays,
+        "decode_eager_steps": eager_steps,
         **ticks,
     }
 
@@ -1032,6 +1122,11 @@ def main() -> int:
     t = time.perf_counter()
     hf = phase_hf()
     emit({"phase": "hf", "seconds": time.perf_counter() - t, **hf})
+
+    t = time.perf_counter()
+    graphs = phase_decode_graph(args.seed)
+    emit({"phase": "decode_graph", "seconds": time.perf_counter() - t, "card": smi,
+          **graphs})
 
     launches = {name: 0 for name in KERNELS}
     for model, backend, quantize, kv_quantize in SERVES:

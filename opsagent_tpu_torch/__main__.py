@@ -1,7 +1,9 @@
 """Command line: ``python -m opsagent_tpu_torch serve-engine --model-name
 bench-8b --port 8000`` serves OpenAI chat completions from the port's engine
 on the GPU (``--device cpu`` for the CPU); ``--checkpoint DIR --model-name
-auto`` serves an HF safetensors checkpoint with its own config.json."""
+auto`` serves an HF safetensors checkpoint with its own config.json. The
+engine warms up (kernels built, the decode step captured as a CUDA graph on
+the GPU) before the server starts."""
 
 from __future__ import annotations
 
@@ -54,11 +56,14 @@ def main(argv: list[str] | None = None) -> int:
         seed=args.seed, quantize=args.quantize, kv_quantize=args.kv_quantize,
         paged_backend=args.paged_backend,
     ))
+    # Kernels built and the decode step captured before the scheduler
+    # thread and the HTTP server start: the capture is process-wide.
+    warm = engine.warmup()
     stack = ServingStack(engine)
     server = make_server(stack, args.host, args.port)
     host, port = server.server_address[:2]
     print(f"serving {engine.model_cfg.name} on http://{host}:{port} "
-          f"({engine.impl_info()})", flush=True)
+          f"({engine.impl_info()}; warmed up in {warm:.1f} s)", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -126,6 +126,14 @@ class PagedKVCache:
             self.k = QuantizedPages(self.k, self._ks[: self.scratch].view(shape))
             self.v = QuantizedPages(self.v, self._vs[: self.scratch].view(shape))
 
+    def buffers(self) -> tuple[torch.Tensor, ...]:
+        """The backing tensors. They are made once and only ever written
+        in place: a captured decode step (``serving.decode_graph``) holds
+        their addresses, so nothing may reallocate them."""
+        if self.quantized:
+            return self._k, self._v, self._ks, self._vs
+        return self._k, self._v
+
     def write(
         self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
         flat: torch.Tensor,

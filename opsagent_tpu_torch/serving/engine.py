@@ -22,6 +22,7 @@ snapshots or constrained decoding in this port yet.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from functools import partial
 
@@ -33,6 +34,7 @@ from ..models.config import ModelConfig, resolve_model
 from ..models.llama import Llama
 from ..models.loader import load_checkpoint
 from ..ops.paged_attention import PAGED_BACKENDS
+from .decode_graph import DecodeStepGraph
 from .decode_loop import DecodeState, decode_block, decode_step_body
 from .kvcache import InvalidRequest, OutOfPages, PageAllocator
 from .sampler import SamplingParams, sample
@@ -79,6 +81,12 @@ class EngineConfig:
     # grid kernels). Both have the same plain version, which attn_impl
     # "plain" runs whatever the backend.
     paged_backend: str = "dma"
+    # Greedy block decode on the card with the kernels: True captures the
+    # decode step as a CUDA graph (``warmup``, or the first greedy block)
+    # and replays it every step; False runs the same step eagerly through
+    # the same kernels, the reference a replay is checked against. Sampled
+    # blocks, the plain path and the CPU always run it eagerly.
+    decode_graph: bool = True
 
 
 @dataclass
@@ -141,6 +149,10 @@ class Engine:
                 cfg.max_batch_size, cfg.max_pages_per_seq, cfg.decode_block,
                 self.device,
             )
+        self._graph: DecodeStepGraph | None = None
+        # Decode steps run by graph replay and eagerly.
+        self.decode_replays = 0
+        self.decode_eager_steps = 0
         self.alloc = PageAllocator(
             cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq,
             prefix_cache=cfg.prefix_cache,
@@ -175,6 +187,7 @@ class Engine:
             "dtype": str(self.cfg.dtype).removeprefix("torch."),
             "quantize": self.cfg.quantize or "none",
             "kv_quantize": self.cfg.kv_quantize or "none",
+            "decode_graph": str(self._replays_greedy()).lower(),
         }
 
     # -- host <-> device helpers --------------------------------------------
@@ -412,11 +425,17 @@ class Engine:
         )
         temps, top_k, top_p = self._sampling_arrays(lanes, B)
         greedy = bool(np.all(temps <= 0.0))
+        n_steps = int(budgets.max())
         with torch.inference_mode():
+            if greedy and self._replays_greedy():
+                step = self._capture().replay
+                self.decode_replays += n_steps
+            else:
+                step = self._decode_body(greedy)
+                self.decode_eager_steps += n_steps
             toks = decode_block(
-                self._decode, self._decode_body(greedy), tokens, write_at,
-                active, budgets, table, temps, top_k, top_p,
-                n_steps=int(budgets.max()),
+                self._decode, step, tokens, write_at, active, budgets, table,
+                temps, top_k, top_p, n_steps=n_steps,
             ).cpu().numpy()
         out: dict[int, list[int]] = {}
         for i, s in enumerate(lanes):
@@ -432,6 +451,45 @@ class Engine:
                 # Roll the block's booking back to what was written.
                 self.alloc.truncate(s.seq_id, self._host_written(s))
         return out
+
+    # -- warmup and the decode graph ------------------------------------------
+    def warmup(self) -> float:
+        """Prepare the serving programs before the first request (the
+        counterpart of the JAX engine's ``warmup``): builds the kernels and
+        runs the greedy decode step eagerly twice, over an all -1 page table
+        with every row inactive, so that each kernel instance's one-time
+        set-up and the split calls' workspaces happen outside a capture;
+        then, on the card with the kernels, captures the step as a CUDA
+        graph. The warm steps write only the cache's scratch slot: the
+        cache's pages and the allocator are untouched. Call it before
+        other threads touch CUDA (the capture is process-wide). Returns
+        wall seconds spent."""
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            self._capture()
+        return time.perf_counter() - t0
+
+    def _replays_greedy(self) -> bool:
+        return self.attn_impl == "cuda" and self.cfg.decode_graph
+
+    def _capture(self) -> DecodeStepGraph | None:
+        """The warm steps, then the capture where greedy blocks replay;
+        once per engine. Returns the graph (None where none is made)."""
+        if self._graph is not None:
+            return self._graph
+        B, max_pages = self.cfg.max_batch_size, self.cfg.max_pages_per_seq
+        idle = np.zeros((B,), np.int32)
+        body = self._decode_body(greedy=True)
+        for _ in range(2):
+            decode_block(
+                self._decode, body, idle, idle, idle.astype(bool), idle,
+                np.full((B, max_pages), -1, np.int32), idle.astype(np.float32),
+                idle, np.ones((B,), np.float32), n_steps=1,
+            )
+        if self._replays_greedy():
+            self._graph = DecodeStepGraph(body, self._decode, self.cache)
+            torch.cuda.synchronize(self.device)
+        return self._graph
 
     def _decode_body(self, greedy: bool):
         """The block's step, eager: ``decode_step_body`` over the engine's

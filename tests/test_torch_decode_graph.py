@@ -1,5 +1,5 @@
 """The port's block decode step body against the JAX package's
-``decode_block``, on the CPU.
+``decode_block``, and the engine's warmup, on the CPU.
 
 ``tiny-test`` in f32 with the same weights on both sides (``params_from_jax``),
 over f32 or int8 KV pages filled with the same random rows, with f32 or
@@ -30,6 +30,8 @@ from opsagent_tpu_torch.models.config import TINY_TEST
 from opsagent_tpu_torch.models.convert import params_from_jax
 from opsagent_tpu_torch.models.llama import Llama
 from opsagent_tpu_torch.serving.decode_loop import DecodeState, decode_block, decode_step_body
+from opsagent_tpu_torch.serving.engine import Engine, EngineConfig
+from opsagent_tpu_torch.serving.sampler import SamplingParams
 
 PAGE, PAGES, MAXP, BLOCK = 4, 24, 6, 6
 PAD = 256
@@ -158,3 +160,47 @@ def test_decode_state_load_keeps_its_buffers():
     with pytest.raises(ValueError, match="n_steps"):
         decode_block(state, lambda: None, TOKENS, AT, ACTIVE, BUDGETS, TABLE,
                      *sampling, n_steps=BLOCK + 1)
+
+
+SHAPE = dict(page_size=4, num_pages=64, max_pages_per_seq=16, max_batch_size=4,
+             decode_block=5, seed=0)
+PROMPTS = ([257] + list(range(40, 61)), [257, 9, 8, 7, 6, 5])
+
+
+def _cache_bytes(cache):
+    sides = (cache.k, cache.v)
+    if cache.quantized:
+        return [t.clone() for s in sides for t in (s.q, s.scale)]
+    return [s.clone() for s in sides]
+
+
+def _alloc_state(eng, ids):
+    return (eng.alloc.accounting(), eng.alloc.hit_tokens,
+            [(eng.alloc.length(i), eng.alloc.page_table_row(i).tolist()) for i in ids])
+
+
+@pytest.mark.parametrize("kv_quantize", ["", "int8"])
+def test_warmup_leaves_cache_and_allocator_and_tokens_unchanged(kv_quantize):
+    """Warmup on an engine with two admitted prompts writes nothing into
+    the cache's pages (its writes go to the scratch slot) and books no
+    page; the next blocks give the tokens of an engine that never warmed
+    up. On the CPU the block runs eagerly."""
+    model = Llama(TINY_TEST, torch.float32, "cpu", seed=0)
+    cfg = EngineConfig(model="tiny-test", dtype=torch.float32, device="cpu",
+                       kv_quantize=kv_quantize, **SHAPE)
+    greedy = SamplingParams(max_tokens=12)
+    outs = []
+    for warm in (True, False):
+        eng = Engine(cfg, model=model)
+        ids = [eng.add_request(p, greedy) for p in PROMPTS]
+        if warm:
+            cache, alloc = _cache_bytes(eng.cache), _alloc_state(eng, ids)
+            eng.warmup()
+            assert all(torch.equal(a, b) for a, b in zip(cache, _cache_bytes(eng.cache)))
+            assert _alloc_state(eng, ids) == alloc
+        while any(not eng.sequences[i].done for i in ids):
+            eng.step_block()
+        assert eng.decode_replays == 0 and eng.decode_eager_steps > 0
+        outs.append([eng.finish(i) for i in ids])
+    assert outs[0] == outs[1]
+    assert all(len(t) == 12 for t in outs[0])

@@ -402,3 +402,122 @@ def test_decode_split_edges(gen, form, G, D, dtype, int8):
     assert torch.equal(got, again)
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     assert (got[0] == 0).all()
+
+
+# -- the decode step as a CUDA graph ------------------------------------------
+def _graph_and_eager_engines(backend, quantize, kv_quantize):
+    """Two engines over one 2-layer bench-1b-width bf16 model: the first
+    replays the captured decode step, the second runs it eagerly through
+    the same kernels."""
+    from dataclasses import replace
+
+    from opsagent_tpu_torch.models.config import BENCH_1B
+    from opsagent_tpu_torch.models.llama import Llama
+
+    cfg = replace(BENCH_1B, num_layers=2)
+    model = Llama(cfg, torch.bfloat16, "cuda", seed=0, quantize=quantize)
+    return [Engine(EngineConfig(model=cfg.name, dtype=torch.bfloat16, page_size=16,
+                                num_pages=64, max_pages_per_seq=16, max_batch_size=4,
+                                decode_block=8, quantize=quantize,
+                                kv_quantize=kv_quantize, paged_backend=backend,
+                                decode_graph=replay), model_cfg=cfg, model=model)
+            for replay in (True, False)]
+
+
+def _cache_bytes(cache):
+    sides = (cache.k, cache.v)
+    return [t.clone() for s in sides for t in ((s.q, s.scale) if cache.quantized else (s,))]
+
+
+def _counters():
+    return {**pa.LAUNCHES, **qm.LAUNCHES, **qm.INSTANCE_LAUNCHES}
+
+
+def _drive_blocks(eng):
+    """Two prompts, a full block (n_steps = decode_block); then one
+    sequence leaves, a third arrives, and the next block's rows and page
+    table differ, with n_steps < decode_block. Per block: tokens, cache
+    bytes and each counter's change."""
+    eng.warmup()
+    greedy = SamplingParams(max_tokens=12)
+    a = eng.add_request([257] + list(range(10, 50)), greedy)
+    b = eng.add_request([257, 5, 6, 7], greedy)
+    blocks = []
+    for _ in range(2):
+        before = _counters()
+        toks = eng.step_block()
+        torch.cuda.synchronize()
+        after = _counters()
+        blocks.append((toks, _cache_bytes(eng.cache),
+                       {k: n - before[k] for k, n in after.items() if n != before[k]}))
+        if len(blocks) == 1:
+            eng.finish(b)
+            eng.add_request([257] + list(range(60, 90)), SamplingParams(max_tokens=5))
+    return blocks, (eng.decode_replays, eng.decode_eager_steps), a
+
+
+@pytest.mark.parametrize("quantize,kv_quantize", [("", ""), ("", "int8"), ("int8", "int8")])
+@pytest.mark.parametrize("backend", ["dma", "grid"])
+def test_decode_graph_replays_the_eager_step(gen, backend, quantize, kv_quantize):
+    """Replayed blocks give the eager blocks' tokens and cache bytes bit
+    for bit, the second block reads its new rows and page table, and the
+    launch counters change by what the eager steps launch."""
+    graph_eng, eager_eng = _graph_and_eager_engines(backend, quantize, kv_quantize)
+    got, routes, a = _drive_blocks(graph_eng)
+    want, eager_routes, _ = _drive_blocks(eager_eng)
+    # Block 1: 8 steps (decode_block); block 2: a has 3 tokens left, the
+    # new sequence 4.
+    assert [len(b[0][a]) for b in got] == [8, 3]
+    assert routes == (12, 0) and eager_routes == (0, 12)
+    layers = graph_eng.model_cfg.num_layers
+    form = "_grid" if backend == "grid" else ""
+    decode = f"paged_decode_attention{form}{'_int8' if kv_quantize else ''}"
+    for (gt, gc, gl), (et, ec, el), n in zip(got, want, (8, 4)):
+        assert gt == et
+        assert all(torch.equal(x, y) for x, y in zip(gc, ec))
+        assert gl == el and gl[decode] == layers * n
+        if quantize:
+            assert gl["quant_matmul_m16"] == (7 * layers + 1) * n
+
+
+def test_decode_graph_raises_when_a_buffer_moves(gen):
+    """A state buffer rebound after capture makes the next block raise,
+    not read the old buffer and not run eagerly."""
+    eng, _ = _graph_and_eager_engines("dma", "", "")
+    eng.warmup()
+    eng.add_request([257, 5, 6, 7], SamplingParams(max_tokens=4))
+    eng._decode.tok = eng._decode.tok.clone()
+    with pytest.raises(RuntimeError, match="moved after capture"):
+        eng.step_block()
+    assert eng.decode_eager_steps == 0
+
+
+def test_failed_capture_raises_from_warmup(gen):
+    """A decode step that syncs with the host cannot be captured: warmup
+    raises (in a process of its own, so the failed capture leaves nothing
+    behind for the other tests)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = (
+        "import torch\n"
+        "from opsagent_tpu_torch.models.llama import Llama\n"
+        "from opsagent_tpu_torch.serving.engine import Engine, EngineConfig\n"
+        "step = Llama.decode_step\n"
+        "def syncing(self, *args, **kwargs):\n"
+        "    logits = step(self, *args, **kwargs)\n"
+        "    logits.sum().item()\n"
+        "    return logits\n"
+        "Llama.decode_step = syncing\n"
+        "eng = Engine(EngineConfig(model='tiny-test', dtype=torch.float32, num_pages=16))\n"
+        "try:\n"
+        "    eng.warmup()\n"
+        "except Exception as e:\n"
+        "    print('raised', type(e).__name__)\n"
+        "    raise SystemExit(0)\n"
+        "raise SystemExit('warmup did not raise')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         cwd=Path(__file__).resolve().parents[1], timeout=600)
+    assert res.returncode == 0 and "raised" in res.stdout, res.stdout + res.stderr
