@@ -41,21 +41,36 @@ Phases, each printing one JSON line with its seconds:
    loaded by the port's loader onto the card: last-position logits through
    the kernels within 2e-4 of HF's, and greedy tokens equal to HF's under
    both paged backends.
-6. serve: behind the HTTP server, random weights from ``--seed``, bf16
+6. decode_graph: at full width and depth (bench-8b on the dma kernels in
+   bf16 and with int8 weights + int8 KV, Qwen2.5-7B on the grid kernels in
+   bf16), three engines over one model with one seed, two replaying the
+   captured steps (CUDA graphs of the decode step and of each mixed
+   bucket's forward + sample) and one running the same steps eagerly
+   through the same kernels: four prompts admitted greedy through mixed
+   ticks and one greedy block give equal tokens, every cache byte and
+   every launch counter's change equal, replayed and eager; the two
+   replaying engines agree on everything, a sampled admission and block
+   included.
+7. serve: behind the HTTP server, random weights from ``--seed``, bf16
    activations, four concurrent chat completions per run: bench-8b at full
    depth on the dma kernels (unquantized, int8 weights + int8 KV, int4
    weights + int8 KV) and Qwen2.5-7B-Instruct at full depth on the grid
-   kernels (unquantized, int8 weights + int8 KV). The kernels' launch
+   kernels (unquantized, int8 weights + int8 KV), each engine warmed up
+   (``warmup_s``) before the server starts. The kernels' launch
    counts of each run are checked and reported, and the quantized
    matmul's by instance: the m128 instance takes every projection of every
    mixed tick (7 x layers launches a tick), the m16 instance the rest
-   (decode steps, the lm_head), and r16, m64 and f32 none. The host's
-   split, untraced: ``decode_steps`` (the sum of ``n_steps`` over the
-   ``decode_block`` calls) and ``mixed_ticks``, each with its host wall
-   time per step or tick (``step_block`` and ``step_mixed`` under
-   ``time.perf_counter``), and ``decode_device_ms_per_step``, one decode
-   step plus its argmax at the serve's shapes and page table by CUDA graph
-   replay. With ``--profile`` each run is traced with ``torch.profiler``
+   (decode steps, the lm_head), and r16, m64 and f32 none. Every decode
+   step and mixed tick must be a graph replay (``decode_replays`` =
+   ``decode_steps``, ``mixed_replays`` = ``mixed_ticks``, no eager ones).
+   The host's split, untraced: ``decode_steps`` (the sum of ``n_steps``
+   over the ``decode_block`` calls) and ``mixed_ticks``, each with its
+   host wall time per step or tick (``step_block`` and ``step_mixed``
+   under ``time.perf_counter``), beside their device times by CUDA graph
+   replay: ``decode_device_ms_per_step``, one decode step plus its argmax
+   at the serve's shapes and page table, and ``mixed_device_ms_per_tick``,
+   one tick at the largest bucket over the serve's last such tick's
+   inputs. With ``--profile`` each run is traced with ``torch.profiler``
    and a ``profile`` line gives
    device time by kernel group, the quantized matmul split by instance
    and the combine of both attention forms' split calls as one group
@@ -762,13 +777,51 @@ def cache_bytes(cache) -> list[torch.Tensor]:
     return [t for s in sides for t in ((s.q, s.scale) if cache.quantized else (s,))]
 
 
+def graph_run(eng: Engine, prompts: list[list[int]]) -> dict:
+    """The phase's script on one engine: warm up; admit the prompts
+    (greedy) through mixed steps; one greedy block; then two of the
+    prompts again, sampled (temperature 0.8, top-p 0.9), admitted beside
+    the running rows, and one block, sampled. Returns what each part left:
+    tokens, cache bytes (copies), launch counters' changes, routes."""
+    def counters():
+        return launch_counts() | dict(qm.INSTANCE_LAUNCHES)
+
+    def part(fn):
+        before = counters()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        after = counters()
+        return {"out": out, "wall_ms": wall * 1e3,
+                "cache": [t.clone() for t in cache_bytes(eng.cache)],
+                "launches": {k: n - before[k] for k, n in after.items() if n != before[k]}}
+
+    greedy = SamplingParams(max_tokens=64)
+    sampled = SamplingParams(temperature=0.8, top_p=0.9, max_tokens=64)
+    warm = eng.warmup()
+    admit = part(lambda: [eng.add_request(p, greedy) for p in prompts])
+    ids = admit["out"]
+    admit["out"] = [eng.sequences[i].tokens[:] for i in ids]
+    block = part(lambda: eng.step_block(ids))
+    mixed = part(lambda: [eng.add_request(p, sampled) for p in prompts[:2]])
+    mixed["out"] = [eng.sequences[i].tokens[:] for i in mixed["out"]]
+    block_sampled = part(lambda: eng.step_block())
+    return {"warmup_s": warm, "admit": admit, "block": block,
+            "admit_sampled": mixed, "block_sampled": block_sampled,
+            "routes": (eng.decode_replays, eng.decode_eager_steps,
+                       eng.mixed_replays, eng.mixed_eager_ticks)}
+
+
 def phase_decode_graph(seed: int) -> dict:
-    """At full width and depth, one model and two engines over it, the
-    same seed: one replays the captured decode step (``decode_graph``),
-    the other runs the step eagerly through the same kernels. Both admit
-    the serve's four prompt lengths through mixed steps, then run one
-    greedy block: tokens, every cache byte and every launch counter's
-    change must be equal."""
+    """At full width and depth, one model and three engines over it, the
+    same seed: two replay the captured steps (``cuda_graphs``), the third
+    runs them eagerly through the same kernels; each runs ``graph_run``.
+    Replayed against eager: the greedy admission (mixed ticks) and the
+    greedy block give equal tokens, every cache byte and every launch
+    counter's change equal. The two replaying engines agree on everything,
+    the sampled admission and block included: a sampled replay is held to
+    determinism, not to the eager path's draws (reported, not checked)."""
     gen = torch.Generator().manual_seed(seed)
     report = {}
     for name, backend, quantize, kv_quantize in DECODE_GRAPH:
@@ -776,49 +829,45 @@ def phase_decode_graph(seed: int) -> dict:
         model = Llama(cfg, torch.bfloat16, "cuda", seed=seed, quantize=quantize)
         prompts = [[257] + torch.randint(0, 256, (n,), generator=gen).tolist()
                    for n in (300, 800, 1500, 3000)]
-        runs = {}
-        for replay in (True, False):
+        runs = []
+        for replay in (True, True, False):
             eng = Engine(EngineConfig(model=name, dtype=torch.bfloat16, device="cuda",
                                       seed=seed, num_pages=512, quantize=quantize,
                                       kv_quantize=kv_quantize, paged_backend=backend,
-                                      decode_graph=replay),
+                                      cuda_graphs=replay),
                          model_cfg=cfg, model=model)
-            t = time.perf_counter()
-            eng.warmup()
-            warm = time.perf_counter() - t
-            ids = [eng.add_request(p, SamplingParams(max_tokens=64)) for p in prompts]
-            torch.cuda.synchronize()
-            admitted = [t.clone() for t in cache_bytes(eng.cache)]
-            before = launch_counts() | dict(qm.INSTANCE_LAUNCHES)
-            t = time.perf_counter()
-            toks = eng.step_block(ids)
-            wall = time.perf_counter() - t
-            after = launch_counts() | dict(qm.INSTANCE_LAUNCHES)
-            runs[replay] = dict(
-                tokens=toks, admitted=admitted, cache=cache_bytes(eng.cache),
-                launches={k: n - before[k] for k, n in after.items() if n != before[k]},
-                steps=(eng.decode_replays, eng.decode_eager_steps), warm=warm, wall=wall)
+            runs.append(graph_run(eng, prompts))
             del eng
         label = f"{name} {backend}, weights {quantize or 'bf16'}, kv {kv_quantize or 'bf16'}"
-        g, e = runs[True], runs[False]
-        n_steps = e["steps"][1]
-        check(all(torch.equal(a, b) for a, b in zip(g["admitted"], e["admitted"])),
-              f"{label}: the two engines' caches differ after admission")
-        check(n_steps > 0 and g["steps"] == (n_steps, 0) and e["steps"] == (0, n_steps),
-              f"{label}: decode routes (replays, eager) {g['steps']} / {e['steps']}")
-        check(g["tokens"] == e["tokens"],
-              f"{label}: replayed tokens {g['tokens']} != eager {e['tokens']}")
-        check(all(torch.equal(a, b) for a, b in zip(g["cache"], e["cache"])),
-              f"{label}: replayed block's cache bytes differ from the eager block's")
-        check(g["launches"] == e["launches"],
-              f"{label}: launches {g['launches']} replayed, {e['launches']} eager")
+        g, g2, e = runs
+        replays, eager = g["routes"], e["routes"]
+        check(replays[0] > 0 and replays[2] > 0 and replays[1] == replays[3] == 0
+              and eager[1] > 0 and eager[3] > 0 and eager[0] == eager[2] == 0,
+              f"{label}: routes (decode replays, eager steps, mixed replays, eager "
+              f"ticks) {replays} replayed, {eager} eager")
+
+        def same(a, b, parts):
+            return all(a[p]["out"] == b[p]["out"] and a[p]["launches"] == b[p]["launches"]
+                       and all(torch.equal(x, y) for x, y in zip(a[p]["cache"], b[p]["cache"]))
+                       for p in parts)
+
+        greedy_parts = ("admit", "block")
+        every_part = greedy_parts + ("admit_sampled", "block_sampled")
+        check(same(g, e, greedy_parts),
+              f"{label}: replayed greedy admission or block differs from the eager one "
+              f"(tokens {g['block']['out']} / {e['block']['out']})")
+        check(same(g, g2, every_part), f"{label}: two replaying engines differ")
+        check(g["routes"] == g2["routes"], f"{label}: routes {g['routes']} / {g2['routes']}")
         report[label] = {
-            "tokens_equal": True, "cache_equal": True, "launches": g["launches"],
-            "decode_steps": n_steps,
-            "block_wall_ms": {"replay": g["wall"] * 1e3, "eager": e["wall"] * 1e3},
-            "warmup_s": {"replay": g["warm"], "eager": e["warm"]},
+            "greedy_equal_to_eager": True, "deterministic": True,
+            "sampled_equal_to_eager": same(g, e, every_part),
+            "routes_replayed": g["routes"], "routes_eager": e["routes"],
+            "block_launches": g["block"]["launches"],
+            "wall_ms": {p: {"replay": g[p]["wall_ms"], "eager": e[p]["wall_ms"]}
+                        for p in every_part},
+            "warmup_s": {"replay": g["warmup_s"], "eager": e["warmup_s"]},
         }
-        del runs, g, e, model
+        del runs, g, g2, e, model
         gc.collect()
         torch.cuda.empty_cache()
     return report
@@ -936,6 +985,17 @@ def decode_device_ms(engine: Engine, block_args) -> float:
             backend=engine.cfg.paged_backend).argmax(dim=-1))
 
 
+def mixed_device_ms(engine: Engine) -> float:
+    """Device time of one mixed tick at the largest bucket, over the inputs
+    of the serve's last tick at that bucket (still in the engine's buffers
+    for it): ``Llama.mixed_step`` plus the argmax, by CUDA graph replay."""
+    state = engine._mixed[engine.cfg.mixed_buckets[-1]]
+    with torch.inference_mode():
+        return graph_ms(lambda i: engine.model.mixed_step(
+            state.tokens, state.start, state.q_lens, engine.cache, state.page_table,
+            backend=engine.cfg.paged_backend).argmax(dim=-1))
+
+
 def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
                 quantize: str, kv_quantize: str) -> dict:
     engine = Engine(EngineConfig(model=model, dtype=torch.bfloat16,
@@ -978,7 +1038,8 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        routes = (engine.decode_replays, engine.decode_eager_steps)
+        routes = (engine.decode_replays, engine.decode_eager_steps,
+                  engine.mixed_replays, engine.mixed_eager_ticks)
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA,
@@ -991,8 +1052,10 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         wall = time.perf_counter() - t0
         launches = launch_counts()
         instances = dict(qm.INSTANCE_LAUNCHES)
-        replays = engine.decode_replays - routes[0]
-        eager_steps = engine.decode_eager_steps - routes[1]
+        replays, eager_steps, mixed_replays, eager_ticks = (
+            n - was for n, was in zip((engine.decode_replays, engine.decode_eager_steps,
+                                       engine.mixed_replays, engine.mixed_eager_ticks),
+                                      routes))
         peak = torch.cuda.max_memory_allocated()
     finally:
         server.shutdown()
@@ -1003,10 +1066,14 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
     ticks = clock.fields()
     check(clock.block_args is not None, "the serve ran no decode block")
     ticks["decode_device_ms_per_step"] = decode_device_ms(engine, clock.block_args)
-    # Every decode step of a greedy serve is a graph replay.
+    ticks["mixed_device_ms_per_tick"] = mixed_device_ms(engine)
+    # Every decode step and every mixed tick of the serve is a graph replay.
     check(replays == ticks["decode_steps"] > 0 and eager_steps == 0,
           f"{replays} replayed and {eager_steps} eager decode steps of "
           f"{ticks['decode_steps']}")
+    check(mixed_replays == ticks["mixed_ticks"] > 0 and eager_ticks == 0,
+          f"{mixed_replays} replayed and {eager_ticks} eager mixed ticks of "
+          f"{ticks['mixed_ticks']}")
     for status, r in replies:
         check(status == 200, f"status {status}")
         check(r.get("object") == "chat.completion" and r["id"].startswith("chatcmpl-"),
@@ -1069,6 +1136,8 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         "warmup_s": warmup_s,
         "decode_replays": replays,
         "decode_eager_steps": eager_steps,
+        "mixed_replays": mixed_replays,
+        "mixed_eager_ticks": eager_ticks,
         **ticks,
     }
 

@@ -14,11 +14,15 @@ Two parts:
   and writes only the tensors of a ``DecodeState``, in place, and
   allocates nothing the next step reads. ``serving.decode_graph`` captures
   it as a CUDA graph, the counterpart of JAX's one XLA program per block;
-  a sampled block, the plain path and the CPU run it eagerly, so the code
-  that is captured is the code the CPU tests run;
+  the plain path and the CPU run it eagerly, so the code that is captured
+  is the code the CPU tests run;
 - ``decode_block``: the driver. It copies the host's inputs into the
   state, runs a step (the body, or a graph's replay) ``n_steps`` times and
   returns the block's tokens.
+
+``mixed_step_body`` does the same for one mixed tick's forward + sample
+over a ``MixedState``, one per query-axis bucket (JAX's prefill programs,
+one per bucket).
 """
 
 from __future__ import annotations
@@ -33,11 +37,22 @@ from ..models.llama import Llama, PagedKVCache
 from .sampler import sample
 
 
-@dataclass
-class DecodeState:
-    """The block's loop state, one set of buffers per engine. Nothing
+class StaticBuffers:
+    """Device buffers that a captured step reads and writes. Nothing
     rebinds a buffer once it is made: a captured step reads the addresses
     that its capture saw, so ``load`` copies into them."""
+
+    def buffers(self) -> tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f.name) for f in fields(self))
+
+    def _copy_in(self, pairs) -> None:
+        for buf, a in pairs:
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+
+
+@dataclass
+class DecodeState(StaticBuffers):
+    """The block's loop state, one set of buffers per engine."""
 
     tok: torch.Tensor         # [B] int64 last sampled (not yet written) token
     at: torch.Tensor          # [B] int32 tokens already written to cache
@@ -69,9 +84,6 @@ class DecodeState:
             out=zeros(batch, decode_block, dtype=torch.long),
         )
 
-    def buffers(self) -> tuple[torch.Tensor, ...]:
-        return tuple(getattr(self, f.name) for f in fields(self))
-
     def load(
         self,
         tokens: np.ndarray,       # [B] int last sampled (not yet written) token
@@ -86,13 +98,12 @@ class DecodeState:
         """Copy one block's host inputs into the buffers and start the
         block: a row is active when the host says so and it has a budget,
         no row has seen EOS, the step is 0."""
-        for buf, a in (
+        self._copy_in((
             (self.tok, tokens), (self.at, write_at),
             (self.act, active & (budgets > 0)), (self.budgets, budgets),
             (self.page_table, page_table), (self.temps, temps),
             (self.top_k, top_k), (self.top_p, top_p),
-        ):
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        ))
         self.eos.zero_()
         self.step.zero_()
 
@@ -152,3 +163,65 @@ def decode_block(
     for _ in range(n_steps):
         step()
     return state.out[:, :n_steps]
+
+
+@dataclass
+class MixedState(StaticBuffers):
+    """One mixed tick's inputs and sampled tokens at one query-axis bucket
+    ``S``; one per bucket per engine."""
+
+    tokens: torch.Tensor      # [B, S] int64 ragged rows, right-padded
+    start: torch.Tensor       # [B] int32 write offsets
+    q_lens: torch.Tensor      # [B] int32 valid rows (0 = inactive)
+    page_table: torch.Tensor  # [B, MaxP] int32
+    temps: torch.Tensor       # [B] float32
+    top_k: torch.Tensor       # [B] int32
+    top_p: torch.Tensor       # [B] float32
+    out: torch.Tensor         # [B] int64 each row's sampled token
+
+    @classmethod
+    def empty(cls, batch: int, S: int, max_pages: int, device: torch.device) -> MixedState:
+        def zeros(*shape: int, dtype: torch.dtype) -> torch.Tensor:
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return cls(
+            tokens=zeros(batch, S, dtype=torch.long), start=zeros(batch, dtype=torch.int32),
+            q_lens=zeros(batch, dtype=torch.int32),
+            page_table=zeros(batch, max_pages, dtype=torch.int32),
+            temps=zeros(batch, dtype=torch.float32), top_k=zeros(batch, dtype=torch.int32),
+            top_p=zeros(batch, dtype=torch.float32), out=zeros(batch, dtype=torch.long),
+        )
+
+    def load(
+        self,
+        tokens: np.ndarray,       # [B, S] int
+        start: np.ndarray,        # [B] int
+        q_lens: np.ndarray,       # [B] int
+        page_table: np.ndarray,   # [B, MaxP] int32
+        temps: np.ndarray,        # [B] float32
+        top_k: np.ndarray,        # [B] int
+        top_p: np.ndarray,        # [B] float32
+    ) -> None:
+        self._copy_in((
+            (self.tokens, tokens), (self.start, start), (self.q_lens, q_lens),
+            (self.page_table, page_table), (self.temps, temps),
+            (self.top_k, top_k), (self.top_p, top_p),
+        ))
+
+
+def mixed_step_body(
+    model: Llama,
+    state: MixedState,
+    cache: PagedKVCache,
+    generator: torch.Generator,
+    plain: bool = False,
+    backend: str = "dma",
+) -> None:
+    """One mixed tick over ``state``, in place: ``Llama.mixed_step`` writes
+    every row's valid K/V, and each row's token from its last valid
+    position's logits goes to ``state.out``. Every row samples; the caller
+    discards the rows whose chunk does not finish a prompt. No host sync."""
+    logits = model.mixed_step(
+        state.tokens, state.start, state.q_lens, cache, state.page_table, plain, backend,
+    )
+    state.out.copy_(sample(logits, generator, state.temps, state.top_k, state.top_p))

@@ -34,10 +34,16 @@ from ..models.config import ModelConfig, resolve_model
 from ..models.llama import Llama
 from ..models.loader import load_checkpoint
 from ..ops.paged_attention import PAGED_BACKENDS
-from .decode_graph import DecodeStepGraph
-from .decode_loop import DecodeState, decode_block, decode_step_body
+from .decode_graph import StepGraph
+from .decode_loop import (
+    DecodeState,
+    MixedState,
+    decode_block,
+    decode_step_body,
+    mixed_step_body,
+)
 from .kvcache import InvalidRequest, OutOfPages, PageAllocator
-from .sampler import SamplingParams, sample
+from .sampler import SamplingParams
 from .tokenizer import ByteTokenizer, Tokenizer
 
 
@@ -81,12 +87,13 @@ class EngineConfig:
     # grid kernels). Both have the same plain version, which attn_impl
     # "plain" runs whatever the backend.
     paged_backend: str = "dma"
-    # Greedy block decode on the card with the kernels: True captures the
-    # decode step as a CUDA graph (``warmup``, or the first greedy block)
-    # and replays it every step; False runs the same step eagerly through
-    # the same kernels, the reference a replay is checked against. Sampled
-    # blocks, the plain path and the CPU always run it eagerly.
-    decode_graph: bool = True
+    # On the card with the kernels: True captures the decode step (greedy
+    # and sampled) and each mixed bucket's forward + sample as CUDA graphs
+    # (``warmup``, or the first step that needs them) and replays them;
+    # False runs the same steps eagerly through the same kernels, the
+    # reference a replay is checked against. The plain path and the CPU
+    # always run them eagerly.
+    cuda_graphs: bool = True
 
 
 @dataclass
@@ -149,10 +156,19 @@ class Engine:
                 cfg.max_batch_size, cfg.max_pages_per_seq, cfg.decode_block,
                 self.device,
             )
-        self._graph: DecodeStepGraph | None = None
-        # Decode steps run by graph replay and eagerly.
-        self.decode_replays = 0
-        self.decode_eager_steps = 0
+            # One mixed tick's buffers per query-axis bucket.
+            self._mixed = {
+                S: MixedState.empty(
+                    cfg.max_batch_size, S, cfg.max_pages_per_seq, self.device
+                )
+                for S in cfg.mixed_buckets
+            }
+        # ("decode", greedy) and ("mixed", bucket) -> graph, made by warmup.
+        self._graphs: dict[tuple[str, object], StepGraph] = {}
+        self._warm = False
+        # Decode steps and mixed ticks run by graph replay and eagerly.
+        self.decode_replays = self.decode_eager_steps = 0
+        self.mixed_replays = self.mixed_eager_ticks = 0
         self.alloc = PageAllocator(
             cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq,
             prefix_cache=cfg.prefix_cache,
@@ -187,13 +203,10 @@ class Engine:
             "dtype": str(self.cfg.dtype).removeprefix("torch."),
             "quantize": self.cfg.quantize or "none",
             "kv_quantize": self.cfg.kv_quantize or "none",
-            "decode_graph": str(self._replays_greedy()).lower(),
+            "cuda_graphs": str(self._replays()).lower(),
         }
 
-    # -- host <-> device helpers --------------------------------------------
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
+    # -- host-side helpers ----------------------------------------------------
     def _sampling_arrays(
         self, seqs: list[Sequence | None], B: int
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -357,18 +370,18 @@ class Engine:
         temps, top_k, top_p = self._sampling_arrays(slots, B)
         try:
             with torch.inference_mode():
-                logits = self.model.mixed_step(
-                    self._dev(tokens), self._dev(starts), self._dev(qlens),
-                    self.cache, self._dev(tables),
-                    plain=self.attn_impl == "plain",
-                    backend=self.cfg.paged_backend,
-                )
+                if self._replays():
+                    step = self._prepare()[("mixed", S)].replay
+                    self.mixed_replays += 1
+                else:
+                    step = self._mixed_body(S, self._generator)
+                    self.mixed_eager_ticks += 1
+                state = self._mixed[S]
+                state.load(tokens, starts, qlens, tables, temps, top_k, top_p)
                 # Every row samples; rows whose chunk does not finish the
                 # prompt discard their token below.
-                sampled = sample(
-                    logits, self._generator, self._dev(temps),
-                    self._dev(top_k), self._dev(top_p),
-                ).cpu().numpy()
+                step()
+                sampled = state.out.cpu().numpy()
         except Exception:
             # Undo the decode rows' bookings (tokens never written) and drop
             # the chunk admissions before the failure propagates.
@@ -427,11 +440,11 @@ class Engine:
         greedy = bool(np.all(temps <= 0.0))
         n_steps = int(budgets.max())
         with torch.inference_mode():
-            if greedy and self._replays_greedy():
-                step = self._capture().replay
+            if self._replays():
+                step = self._prepare()[("decode", greedy)].replay
                 self.decode_replays += n_steps
             else:
-                step = self._decode_body(greedy)
+                step = self._decode_body(greedy, self._generator)
                 self.decode_eager_steps += n_steps
             toks = decode_block(
                 self._decode, step, tokens, write_at, active, budgets, table,
@@ -452,52 +465,77 @@ class Engine:
                 self.alloc.truncate(s.seq_id, self._host_written(s))
         return out
 
-    # -- warmup and the decode graph ------------------------------------------
+    # -- warmup and the step graphs -------------------------------------------
     def warmup(self) -> float:
         """Prepare the serving programs before the first request (the
         counterpart of the JAX engine's ``warmup``): builds the kernels and
-        runs the greedy decode step eagerly twice, over an all -1 page table
+        runs each step body eagerly twice (the decode step greedy and
+        sampled, the mixed tick at every bucket) over an all -1 page table
         with every row inactive, so that each kernel instance's one-time
         set-up and the split calls' workspaces happen outside a capture;
-        then, on the card with the kernels, captures the step as a CUDA
-        graph. The warm steps write only the cache's scratch slot: the
-        cache's pages and the allocator are untouched. Call it before
-        other threads touch CUDA (the capture is process-wide). Returns
-        wall seconds spent."""
+        then, on the card with the kernels, captures each body as a CUDA
+        graph. The warm steps write only the cache's scratch slot and draw
+        from a spare generator: the cache's pages, the allocator and the
+        engine's generator are untouched. Call it before other threads
+        touch CUDA (a capture is process-wide). Returns wall seconds
+        spent."""
         t0 = time.perf_counter()
         with torch.inference_mode():
-            self._capture()
+            self._prepare()
         return time.perf_counter() - t0
 
-    def _replays_greedy(self) -> bool:
-        return self.attn_impl == "cuda" and self.cfg.decode_graph
+    def _replays(self) -> bool:
+        return self.attn_impl == "cuda" and self.cfg.cuda_graphs
 
-    def _capture(self) -> DecodeStepGraph | None:
-        """The warm steps, then the capture where greedy blocks replay;
-        once per engine. Returns the graph (None where none is made)."""
-        if self._graph is not None:
-            return self._graph
+    def _prepare(self) -> dict[tuple[str, object], StepGraph]:
+        """The warm steps, then the captures where steps replay; once per
+        engine. Returns the graphs (none where steps run eagerly)."""
+        if self._warm:
+            return self._graphs
         B, max_pages = self.cfg.max_batch_size, self.cfg.max_pages_per_seq
         idle = np.zeros((B,), np.int32)
-        body = self._decode_body(greedy=True)
-        for _ in range(2):
-            decode_block(
-                self._decode, body, idle, idle, idle.astype(bool), idle,
-                np.full((B, max_pages), -1, np.int32), idle.astype(np.float32),
-                idle, np.ones((B,), np.float32), n_steps=1,
+        table = np.full((B, max_pages), -1, np.int32)
+        sampling = (idle.astype(np.float32), idle, np.ones((B,), np.float32))
+        spare = torch.Generator(device=self.device)
+        bodies = {}
+        for greedy in (True, False):
+            for _ in range(2):
+                decode_block(
+                    self._decode, self._decode_body(greedy, spare), idle, idle,
+                    idle.astype(bool), idle, table, *sampling, n_steps=1,
+                )
+            bodies["decode", greedy] = (
+                self._decode, self._decode_body(greedy, self._generator)
             )
-        if self._replays_greedy():
-            self._graph = DecodeStepGraph(body, self._decode, self.cache)
+        for S, state in self._mixed.items():
+            state.load(np.zeros((B, S), np.int64), idle, idle, table, *sampling)
+            for _ in range(2):
+                self._mixed_body(S, spare)()
+            bodies["mixed", S] = (state, self._mixed_body(S, self._generator))
+        if self._replays():
+            for key, (state, body) in bodies.items():
+                # The greedy decode step draws no random numbers.
+                gen = None if key == ("decode", True) else self._generator
+                self._graphs[key] = StepGraph(body, state, self.cache, gen)
             torch.cuda.synchronize(self.device)
-        return self._graph
+        self._warm = True
+        return self._graphs
 
-    def _decode_body(self, greedy: bool):
+    def _decode_body(self, greedy: bool, generator: torch.Generator):
         """The block's step, eager: ``decode_step_body`` over the engine's
-        state, cache and generator."""
+        state and cache."""
         return partial(
-            decode_step_body, self.model, self._decode, self.cache,
-            self._generator, self.tokenizer.eos_id, self.tokenizer.pad_id,
-            greedy, self.attn_impl == "plain", self.cfg.paged_backend,
+            decode_step_body, self.model, self._decode, self.cache, generator,
+            self.tokenizer.eos_id, self.tokenizer.pad_id, greedy,
+            self.attn_impl == "plain", self.cfg.paged_backend,
+        )
+
+    def _mixed_body(self, S: int, generator: torch.Generator):
+        """The mixed tick at bucket ``S``, eager: ``mixed_step_body`` over
+        that bucket's state and the engine's cache."""
+        return partial(
+            mixed_step_body, self.model, self._mixed[S], self.cache, generator,
+            self.attn_impl == "plain", self.cfg.paged_backend,
         )
 
     def finish(self, seq_id: int) -> list[int]:

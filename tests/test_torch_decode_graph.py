@@ -182,17 +182,19 @@ def _alloc_state(eng, ids):
 @pytest.mark.parametrize("kv_quantize", ["", "int8"])
 def test_warmup_leaves_cache_and_allocator_and_tokens_unchanged(kv_quantize):
     """Warmup on an engine with two admitted prompts writes nothing into
-    the cache's pages (its writes go to the scratch slot) and books no
-    page; the next blocks give the tokens of an engine that never warmed
-    up. On the CPU the block runs eagerly."""
+    the cache's pages (its writes go to the scratch slot), books no page
+    and draws nothing from the engine's generator; the next blocks give
+    the tokens of an engine that never warmed up, sampled ones included.
+    On the CPU every step runs eagerly."""
     model = Llama(TINY_TEST, torch.float32, "cpu", seed=0)
     cfg = EngineConfig(model="tiny-test", dtype=torch.float32, device="cpu",
                        kv_quantize=kv_quantize, **SHAPE)
-    greedy = SamplingParams(max_tokens=12)
+    sampling = (SamplingParams(max_tokens=12),
+                SamplingParams(temperature=0.8, top_k=20, max_tokens=12))
     outs = []
     for warm in (True, False):
         eng = Engine(cfg, model=model)
-        ids = [eng.add_request(p, greedy) for p in PROMPTS]
+        ids = [eng.add_request(p, s) for p, s in zip(PROMPTS, sampling)]
         if warm:
             cache, alloc = _cache_bytes(eng.cache), _alloc_state(eng, ids)
             eng.warmup()
@@ -200,7 +202,8 @@ def test_warmup_leaves_cache_and_allocator_and_tokens_unchanged(kv_quantize):
             assert _alloc_state(eng, ids) == alloc
         while any(not eng.sequences[i].done for i in ids):
             eng.step_block()
-        assert eng.decode_replays == 0 and eng.decode_eager_steps > 0
+        assert (eng.decode_replays, eng.mixed_replays) == (0, 0)
+        assert eng.decode_eager_steps > 0 and eng.mixed_eager_ticks > 0
         outs.append([eng.finish(i) for i in ids])
     assert outs[0] == outs[1]
     assert all(len(t) == 12 for t in outs[0])

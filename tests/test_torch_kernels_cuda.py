@@ -13,6 +13,8 @@ to q's dtype). Quantized matmul: rtol = atol = 1e-3 in f32
 up to 2^-7 relative), over outputs of unit scale.
 """
 
+from dataclasses import replace
+
 import pytest
 import torch
 
@@ -407,10 +409,8 @@ def test_decode_split_edges(gen, form, G, D, dtype, int8):
 # -- the decode step as a CUDA graph ------------------------------------------
 def _graph_and_eager_engines(backend, quantize, kv_quantize):
     """Two engines over one 2-layer bench-1b-width bf16 model: the first
-    replays the captured decode step, the second runs it eagerly through
-    the same kernels."""
-    from dataclasses import replace
-
+    replays the captured steps, the second runs them eagerly through the
+    same kernels."""
     from opsagent_tpu_torch.models.config import BENCH_1B
     from opsagent_tpu_torch.models.llama import Llama
 
@@ -420,7 +420,7 @@ def _graph_and_eager_engines(backend, quantize, kv_quantize):
                                 num_pages=64, max_pages_per_seq=16, max_batch_size=4,
                                 decode_block=8, quantize=quantize,
                                 kv_quantize=kv_quantize, paged_backend=backend,
-                                decode_graph=replay), model_cfg=cfg, model=model)
+                                cuda_graphs=replay), model_cfg=cfg, model=model)
             for replay in (True, False)]
 
 
@@ -433,51 +433,80 @@ def _counters():
     return {**pa.LAUNCHES, **qm.LAUNCHES, **qm.INSTANCE_LAUNCHES}
 
 
-def _drive_blocks(eng):
-    """Two prompts, a full block (n_steps = decode_block); then one
-    sequence leaves, a third arrives, and the next block's rows and page
-    table differ, with n_steps < decode_block. Per block: tokens, cache
-    bytes and each counter's change."""
-    eng.warmup()
-    greedy = SamplingParams(max_tokens=12)
-    a = eng.add_request([257] + list(range(10, 50)), greedy)
-    b = eng.add_request([257, 5, 6, 7], greedy)
-    blocks = []
-    for _ in range(2):
+def _drive_blocks(eng, sampling=SamplingParams(max_tokens=12)):
+    """Two prompts admitted through mixed ticks, then a full block (n_steps
+    = decode_block); then one sequence leaves, a third arrives, and the
+    next block's rows and page table differ, with n_steps < decode_block.
+    Per part: tokens, cache bytes and each counter's change."""
+    def part(fn):
         before = _counters()
-        toks = eng.step_block()
+        out = fn()
         torch.cuda.synchronize()
         after = _counters()
-        blocks.append((toks, _cache_bytes(eng.cache),
-                       {k: n - before[k] for k, n in after.items() if n != before[k]}))
-        if len(blocks) == 1:
-            eng.finish(b)
-            eng.add_request([257] + list(range(60, 90)), SamplingParams(max_tokens=5))
-    return blocks, (eng.decode_replays, eng.decode_eager_steps), a
+        return (out, _cache_bytes(eng.cache),
+                {k: n - before[k] for k, n in after.items() if n != before[k]})
+
+    def admit(prompts, sampling):
+        ids.extend(eng.add_request(p, sampling) for p in prompts)
+        return [eng.sequences[i].tokens[:] for i in ids]
+
+    eng.warmup()
+    ids = []
+    parts = [part(lambda: admit(([257] + list(range(10, 50)), [257, 5, 6, 7]), sampling))]
+    a, b = ids
+    parts.append(part(eng.step_block))
+    eng.finish(b)
+    ids.clear()
+    parts.append(part(lambda: admit(([257] + list(range(60, 90)),),
+                                    replace(sampling, max_tokens=5))))
+    parts.append(part(eng.step_block))
+    return parts, (eng.decode_replays, eng.decode_eager_steps, eng.mixed_replays,
+                   eng.mixed_eager_ticks), a
 
 
 @pytest.mark.parametrize("quantize,kv_quantize", [("", ""), ("", "int8"), ("int8", "int8")])
 @pytest.mark.parametrize("backend", ["dma", "grid"])
 def test_decode_graph_replays_the_eager_step(gen, backend, quantize, kv_quantize):
-    """Replayed blocks give the eager blocks' tokens and cache bytes bit
-    for bit, the second block reads its new rows and page table, and the
-    launch counters change by what the eager steps launch."""
+    """Replayed mixed ticks and blocks give the eager ones' tokens and
+    cache bytes bit for bit, the second block reads its new rows and page
+    table, and the launch counters change by what the eager steps launch."""
     graph_eng, eager_eng = _graph_and_eager_engines(backend, quantize, kv_quantize)
     got, routes, a = _drive_blocks(graph_eng)
     want, eager_routes, _ = _drive_blocks(eager_eng)
     # Block 1: 8 steps (decode_block); block 2: a has 3 tokens left, the
-    # new sequence 4.
-    assert [len(b[0][a]) for b in got] == [8, 3]
-    assert routes == (12, 0) and eager_routes == (0, 12)
+    # new sequence 4. Admission: one mixed tick a prompt.
+    assert [len(got[i][0][a]) for i in (1, 3)] == [8, 3]
+    assert routes == (12, 0, 3, 0) and eager_routes == (0, 12, 0, 3)
     layers = graph_eng.model_cfg.num_layers
     form = "_grid" if backend == "grid" else ""
     decode = f"paged_decode_attention{form}{'_int8' if kv_quantize else ''}"
-    for (gt, gc, gl), (et, ec, el), n in zip(got, want, (8, 4)):
+    for i, ((gt, gc, gl), (et, ec, el)) in enumerate(zip(got, want)):
         assert gt == et
         assert all(torch.equal(x, y) for x, y in zip(gc, ec))
-        assert gl == el and gl[decode] == layers * n
-        if quantize:
-            assert gl["quant_matmul_m16"] == (7 * layers + 1) * n
+        assert gl == el
+        if i in (1, 3):
+            n = (8, 4)[i // 2]
+            assert gl[decode] == layers * n
+            if quantize:
+                assert gl["quant_matmul_m16"] == (7 * layers + 1) * n
+
+
+@pytest.mark.parametrize("backend", ["dma", "grid"])
+def test_sampled_replays_are_deterministic(gen, backend):
+    """Sampled mixed ticks and blocks replay with the engine's generator
+    registered: two engines with the same seed give the same tokens and
+    cache bytes, and no step runs eagerly."""
+    runs = []
+    for _ in range(2):
+        eng, _ = _graph_and_eager_engines(backend, "", "")
+        parts, routes, _ = _drive_blocks(
+            eng, SamplingParams(temperature=0.9, top_p=0.95, max_tokens=12))
+        runs.append((parts, routes))
+    (p1, r1), (p2, r2) = runs
+    assert r1 == r2 == (12, 0, 3, 0)
+    for (t1, c1, l1), (t2, c2, l2) in zip(p1, p2):
+        assert t1 == t2 and l1 == l2
+        assert all(torch.equal(x, y) for x, y in zip(c1, c2))
 
 
 def test_decode_graph_raises_when_a_buffer_moves(gen):
