@@ -777,6 +777,12 @@ def cache_bytes(cache) -> list[torch.Tensor]:
     return [t for s in sides for t in ((s.q, s.scale) if cache.quantized else (s,))]
 
 
+def routes(eng: Engine) -> tuple[int, int, int, int]:
+    """(decode steps replayed, decode steps run eagerly, mixed ticks
+    replayed, mixed ticks run eagerly) so far."""
+    return eng.decode_replays, eng.decode_eager_steps, eng.mixed_replays, eng.mixed_eager_ticks
+
+
 def graph_run(eng: Engine, prompts: list[list[int]]) -> dict:
     """The phase's script on one engine: warm up; admit the prompts
     (greedy) through mixed steps; one greedy block; then two of the
@@ -809,8 +815,7 @@ def graph_run(eng: Engine, prompts: list[list[int]]) -> dict:
     block_sampled = part(lambda: eng.step_block())
     return {"warmup_s": warm, "admit": admit, "block": block,
             "admit_sampled": mixed, "block_sampled": block_sampled,
-            "routes": (eng.decode_replays, eng.decode_eager_steps,
-                       eng.mixed_replays, eng.mixed_eager_ticks)}
+            "routes": routes(eng)}
 
 
 def phase_decode_graph(seed: int) -> dict:
@@ -1038,8 +1043,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        routes = (engine.decode_replays, engine.decode_eager_steps,
-                  engine.mixed_replays, engine.mixed_eager_ticks)
+        routes_before = routes(engine)
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA,
@@ -1053,9 +1057,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         launches = launch_counts()
         instances = dict(qm.INSTANCE_LAUNCHES)
         replays, eager_steps, mixed_replays, eager_ticks = (
-            n - was for n, was in zip((engine.decode_replays, engine.decode_eager_steps,
-                                       engine.mixed_replays, engine.mixed_eager_ticks),
-                                      routes))
+            n - was for n, was in zip(routes(engine), routes_before))
         peak = torch.cuda.max_memory_allocated()
     finally:
         server.shutdown()

@@ -2,8 +2,8 @@
 bench-8b --port 8000`` serves OpenAI chat completions from the port's engine
 on the GPU (``--device cpu`` for the CPU); ``--checkpoint DIR --model-name
 auto`` serves an HF safetensors checkpoint with its own config.json. The
-engine warms up (kernels built, the decode step captured as a CUDA graph on
-the GPU) before the server starts."""
+engine warms up (kernels built, its decode step and mixed ticks captured as
+CUDA graphs on the GPU) before the server starts."""
 
 from __future__ import annotations
 
@@ -56,8 +56,8 @@ def main(argv: list[str] | None = None) -> int:
         seed=args.seed, quantize=args.quantize, kv_quantize=args.kv_quantize,
         paged_backend=args.paged_backend,
     ))
-    # Kernels built and the decode step captured before the scheduler
-    # thread and the HTTP server start: the capture is process-wide.
+    # Kernels built and the steps captured before the scheduler thread and
+    # the HTTP server start: a capture is process-wide.
     warm = engine.warmup()
     stack = ServingStack(engine)
     server = make_server(stack, args.host, args.port)

@@ -9,6 +9,9 @@ on the host. Two device programs carry the traffic:
 - ``step_block``: up to ``decode_block`` decode + sample steps with the loop
   state on the device and one host pull, through the decode kernel.
 
+On the card with the kernels each decode step and each mixed tick is one
+CUDA graph replay (``serving.decode_graph``), captured by ``warmup``.
+
 ``EngineConfig.quantize`` and ``kv_quantize`` select int8/int4 weights
 (every projection through the quantized matmul kernel) and int8 KV pages
 (the attention kernels' int8 instances); ``paged_backend`` picks the
