@@ -47,10 +47,13 @@ Phases, each printing one JSON line with its seconds:
    captured steps (CUDA graphs of the decode step and of each mixed
    bucket's forward + sample) and one running the same steps eagerly
    through the same kernels: four prompts admitted greedy through mixed
-   ticks and one greedy block give equal tokens, every cache byte and
-   every launch counter's change equal, replayed and eager; the two
-   replaying engines agree on everything, a sampled admission and block
-   included.
+   ticks, with two more under the ReAct ToolPrompt schema (one row on the
+   device FSM tables, one hosted behind a plain callable), and one greedy
+   block give equal tokens, every cache byte and every launch counter's
+   change equal, replayed and eager; the constrained rows' tokens are live
+   DFA prefixes, the tables load once and the hosted row takes its own
+   steps, equally in all three; the two replaying engines agree on
+   everything, a sampled admission and block included.
 7. serve: behind the HTTP server, random weights from ``--seed``, bf16
    activations, four concurrent chat completions per run: bench-8b at full
    depth on the dma kernels (unquantized, int8 weights + int8 KV, int4
@@ -70,7 +73,19 @@ Phases, each printing one JSON line with its seconds:
    replay: ``decode_device_ms_per_step``, one decode step plus its argmax
    at the serve's shapes and page table, and ``mixed_device_ms_per_tick``,
    one tick at the largest bucket over the serve's last such tick's
-   inputs. With ``--profile`` each run is traced with ``torch.profiler``
+   inputs. After the timed batch of each bf16 serve (bench-8b dma,
+   Qwen2.5-7B grid), a ``constrained`` line: four more requests, untimed
+   (two ToolPrompt json_schema completions, one streamed over SSE, one
+   json_object, one unconstrained); each constrained reply is a live
+   prefix of its DFA and parses when it stopped, every step replays, the
+   ToolPrompt rows ride the device tables (loaded once) and only the
+   json_object row (over the table budget) takes hosted steps; the line
+   gives the table bytes, the load ms, the hosted steps and the decode
+   step's device time with the rows at their FSM states and at row 0.
+   The decode step timed includes the constraint mask and the FSM
+   advance, as the step body runs them; ``decode_device_ms_alternated``
+   times it with and without them, alternated, twice each.
+   With ``--profile`` each run is traced with ``torch.profiler``
    and a ``profile`` line gives
    device time by kernel group, the quantized matmul split by instance
    and the combine of both attention forms' split calls as one group
@@ -117,8 +132,10 @@ from opsagent_tpu_torch.ops import quant_matmul as qm
 from opsagent_tpu_torch.ops.attention import QuantizedPages, _gather_kv, write_kv_pages
 from opsagent_tpu_torch.serving import engine as engine_module
 from opsagent_tpu_torch.serving.api import ServingStack, make_server
+from opsagent_tpu_torch.serving.constrained import TOOLPROMPT_SCHEMA, json_constraint
 from opsagent_tpu_torch.serving.engine import Engine, EngineConfig
-from opsagent_tpu_torch.serving.sampler import SamplingParams
+from opsagent_tpu_torch.serving.sampler import NEG_INF, SamplingParams
+from opsagent_tpu_torch.serving.tokenizer import ByteTokenizer
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -783,12 +800,15 @@ def routes(eng: Engine) -> tuple[int, int, int, int]:
     return eng.decode_replays, eng.decode_eager_steps, eng.mixed_replays, eng.mixed_eager_ticks
 
 
-def graph_run(eng: Engine, prompts: list[list[int]]) -> dict:
+def graph_run(eng: Engine, prompts: list[list[int]], constrained: list[list[int]]) -> dict:
     """The phase's script on one engine: warm up; admit the prompts
-    (greedy) through mixed steps; one greedy block; then two of the
-    prompts again, sampled (temperature 0.8, top-p 0.9), admitted beside
-    the running rows, and one block, sampled. Returns what each part left:
-    tokens, cache bytes (copies), launch counters' changes, routes."""
+    (greedy) through mixed steps, and the ``constrained`` ones under the
+    ToolPrompt schema, the first on the device tables and the second
+    hosted (behind a plain callable); one greedy block (the hosted row
+    takes one step of its own in it); then two of the prompts again,
+    sampled (temperature 0.8, top-p 0.9), admitted beside the running
+    rows, and one block, sampled. Returns what each part left: tokens,
+    cache bytes (copies), launch counters' changes, routes."""
     def counters():
         return launch_counts() | dict(qm.INSTANCE_LAUNCHES)
 
@@ -805,17 +825,25 @@ def graph_run(eng: Engine, prompts: list[list[int]]) -> dict:
 
     greedy = SamplingParams(max_tokens=64)
     sampled = SamplingParams(temperature=0.8, top_p=0.9, max_tokens=64)
+    device_row, hosted = (json_constraint(eng.tokenizer, TOOLPROMPT_SCHEMA) for _ in range(2))
+    masks = [None] * len(prompts) + [device_row, lambda toks: hosted(toks)]
     warm = eng.warmup()
-    admit = part(lambda: [eng.add_request(p, greedy) for p in prompts])
+    admit = part(lambda: [eng.add_request(p, greedy, m)
+                          for p, m in zip(prompts + constrained, masks)])
     ids = admit["out"]
     admit["out"] = [eng.sequences[i].tokens[:] for i in ids]
     block = part(lambda: eng.step_block(ids))
     mixed = part(lambda: [eng.add_request(p, sampled) for p in prompts[:2]])
     mixed["out"] = [eng.sequences[i].tokens[:] for i in mixed["out"]]
     block_sampled = part(lambda: eng.step_block())
+    dfa = device_row.fsm.dfa
+    live = all(dfa.run(dfa.start, bytes(t for t in eng.sequences[i].tokens
+                                          if t != eng.tokenizer.eos_id)) >= 0
+               for i in ids[-2:])
     return {"warmup_s": warm, "admit": admit, "block": block,
             "admit_sampled": mixed, "block_sampled": block_sampled,
-            "routes": routes(eng)}
+            "routes": routes(eng), "hosted_steps": eng.hosted_steps,
+            "fsm_loads": eng.fsm_loads, "constrained_live": live}
 
 
 def phase_decode_graph(seed: int) -> dict:
@@ -833,15 +861,17 @@ def phase_decode_graph(seed: int) -> dict:
         cfg = get_config_preset(name)
         model = Llama(cfg, torch.bfloat16, "cuda", seed=seed, quantize=quantize)
         prompts = [[257] + torch.randint(0, 256, (n,), generator=gen).tolist()
-                   for n in (300, 800, 1500, 3000)]
+                   for n in (300, 800, 1500, 3000, 200, 500)]
+        # One tokenizer: the engines share its cached ToolPrompt FSM.
+        tokenizer = ByteTokenizer(cfg.vocab_size)
         runs = []
         for replay in (True, True, False):
             eng = Engine(EngineConfig(model=name, dtype=torch.bfloat16, device="cuda",
                                       seed=seed, num_pages=512, quantize=quantize,
                                       kv_quantize=kv_quantize, paged_backend=backend,
                                       cuda_graphs=replay),
-                         model_cfg=cfg, model=model)
-            runs.append(graph_run(eng, prompts))
+                         model_cfg=cfg, model=model, tokenizer=tokenizer)
+            runs.append(graph_run(eng, prompts[:4], prompts[4:]))
             del eng
         label = f"{name} {backend}, weights {quantize or 'bf16'}, kv {kv_quantize or 'bf16'}"
         g, g2, e = runs
@@ -863,8 +893,14 @@ def phase_decode_graph(seed: int) -> dict:
               f"(tokens {g['block']['out']} / {e['block']['out']})")
         check(same(g, g2, every_part), f"{label}: two replaying engines differ")
         check(g["routes"] == g2["routes"], f"{label}: routes {g['routes']} / {g2['routes']}")
+        for run in runs:
+            check(run["constrained_live"] and run["fsm_loads"] == 1 and run["hosted_steps"] > 0
+                  and run["hosted_steps"] == g["hosted_steps"],
+                  f"{label}: constrained rows: live {run['constrained_live']}, "
+                  f"{run['fsm_loads']} table loads, {run['hosted_steps']} hosted steps")
         report[label] = {
             "greedy_equal_to_eager": True, "deterministic": True,
+            "hosted_steps": g["hosted_steps"], "constrained_live": True,
             "sampled_equal_to_eager": same(g, e, every_part),
             "routes_replayed": g["routes"], "routes_eager": e["routes"],
             "block_launches": g["block"]["launches"],
@@ -929,10 +965,7 @@ class TickClock:
     block with the most active rows, for ``decode_device_ms``."""
 
     def __init__(self, engine: Engine):
-        self.block_s = self.mixed_s = 0.0
-        self.decode_steps = self.mixed_ticks = 0
-        self.block_args = None
-        self._active = -1
+        self.reset()
         self._decode_block = engine_module.decode_block
         step_block, step_mixed = engine.step_block, engine.step_mixed
 
@@ -953,18 +986,24 @@ class TickClock:
             return out
 
         def counted_decode_block(state, step, tokens, write_at, active, budgets,
-                                 page_table, *args, n_steps):
+                                 page_table, *args, n_steps, fsm):
             self.decode_steps += n_steps
             n = int((active & (budgets > 0)).sum())
             if n > self._active:
                 self._active = n
                 self.block_args = (tokens.copy(), write_at.copy(), active.copy(),
-                                   page_table.copy())
+                                   page_table.copy(), fsm.copy())
             return self._decode_block(state, step, tokens, write_at, active, budgets,
-                                      page_table, *args, n_steps=n_steps)
+                                      page_table, *args, n_steps=n_steps, fsm=fsm)
 
         engine.step_block, engine.step_mixed = timed_block, timed_mixed
         engine_module.decode_block = counted_decode_block
+
+    def reset(self) -> None:
+        self.block_s = self.mixed_s = 0.0
+        self.decode_steps = self.mixed_ticks = 0
+        self.block_args = None
+        self._active = -1
 
     def close(self) -> None:
         engine_module.decode_block = self._decode_block
@@ -978,16 +1017,31 @@ class TickClock:
         }
 
 
-def decode_device_ms(engine: Engine, block_args) -> float:
-    """Device time of one decode step at the serve's own shapes (B =
+def decode_device_ms(engine: Engine, block_args, fsm_rows: bool = True,
+                     masked: bool = True) -> float:
+    """Device time of one greedy decode step at the serve's own shapes (B =
     ``max_batch_size``, MaxP = ``max_pages_per_seq``, the serve's page
-    table and lengths): ``Llama.decode_step`` plus the argmax, by CUDA
-    graph replay (``graph_ms``)."""
-    tokens, write_at, active, table = (torch.from_numpy(a).to("cuda") for a in block_args)
+    table and lengths): ``Llama.decode_step``, the constraint mask at each
+    row's FSM table row (all 0 unless ``fsm_rows``), the argmax and the FSM
+    advance, as the decode step body runs them, by CUDA graph replay
+    (``graph_ms``); without ``masked``, the forward and the argmax alone.
+    The step rewrites the K/V that the serve wrote at those positions, with
+    the same values."""
+    tokens, write_at, active, table, fsm = (torch.from_numpy(a).to("cuda") for a in block_args)
+    if not fsm_rows:
+        fsm = torch.zeros_like(fsm)
+    tables = engine._fsm
+
+    def step(i):
+        logits = engine.model.decode_step(tokens, write_at, engine.cache, table, active,
+                                          backend=engine.cfg.paged_backend)
+        if not masked:
+            return logits.argmax(dim=-1)
+        nxt = torch.where(tables.allowed(fsm), logits, NEG_INF).argmax(dim=-1)
+        return tables.advance(fsm, nxt)
+
     with torch.inference_mode():
-        return graph_ms(lambda i: engine.model.decode_step(
-            tokens, write_at, engine.cache, table, active,
-            backend=engine.cfg.paged_backend).argmax(dim=-1))
+        return graph_ms(step)
 
 
 def mixed_device_ms(engine: Engine) -> float:
@@ -999,6 +1053,115 @@ def mixed_device_ms(engine: Engine) -> float:
         return graph_ms(lambda i: engine.model.mixed_step(
             state.tokens, state.start, state.q_lens, engine.cache, state.page_table,
             backend=engine.cfg.paged_backend).argmax(dim=-1))
+
+
+def post_stream(port: int, body: dict) -> tuple[int, dict]:
+    """A chat completion with ``stream: true``: its status and a reply
+    assembled from its events (the deltas' text, the last event's
+    finish_reason, the event count)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions",
+        data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=600) as r:
+        status, ctype, raw = r.status, r.headers["Content-Type"], r.read().decode()
+    check(ctype == "text/event-stream", f"stream content type {ctype}")
+    data = [block.removeprefix("data: ") for block in raw.split("\n\n") if block]
+    check(data[-1] == "[DONE]", f"stream ends with {data[-1]!r}")
+    chunks = [json.loads(d) for d in data[:-1]]
+    check(chunks[0]["choices"][0]["delta"].get("role") == "assistant",
+          f"first event {chunks[0]}")
+    text = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+    return status, {"choices": [{"message": {"role": "assistant", "content": text},
+                                 "finish_reason": chunks[-1]["choices"][0]["finish_reason"]}],
+                    "events": len(chunks)}
+
+
+def constrained_batch(engine: Engine, clock: TickClock, post, post_sse, prompt,
+                      model: str, backend: str) -> dict:
+    """Four concurrent requests, untimed, after the timed batch: two
+    ToolPrompt json_schema completions (one streamed), one json_object,
+    one unconstrained, 64 greedy tokens each. Each constrained reply is a
+    live prefix of its DFA (and parses as JSON when it stopped). Every
+    decode step and mixed tick replays; the ToolPrompt rows ride the
+    device tables (loaded once), and only the json_object row (over the
+    table budget at this vocab) takes hosted steps. Returns the batch's
+    line, with the block arguments for its device times."""
+    schema = {"type": "json_schema",
+              "json_schema": {"name": "toolprompt", "schema": TOOLPROMPT_SCHEMA}}
+    kinds = (("toolprompt", False, schema), ("toolprompt", True, schema),
+             ("json_object", False, {"type": "json_object"}), ("none", False, None))
+    bodies = []
+    for (kind, streamed, rf), n in zip(kinds, (300, 800, 1500, 600)):
+        body = {"model": model, "temperature": 0, "max_tokens": 64,
+                "messages": [{"role": "user", "content": prompt(n)}]}
+        if rf:
+            body["response_format"] = rf
+        bodies.append((streamed, body))
+    clock.reset()
+    reset_launch_counts()
+    before = (*routes(engine), engine.hosted_steps, engine.fsm_loads, engine.fsm_load_s)
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        replies = list(ex.map(lambda b: (post_sse if b[0] else post)(b[1]), bodies))
+    torch.cuda.synchronize()
+    replays, eager_steps, mixed_replays, eager_ticks, hosted, loads, load_s = (
+        n - was for n, was in zip(
+            (*routes(engine), engine.hosted_steps, engine.fsm_loads, engine.fsm_load_s),
+            before))
+    launches = launch_counts()
+    ticks = clock.fields()
+    label = f"constrained batch, {model} {backend}"
+    check(replays == ticks["decode_steps"] > 0 and eager_steps == 0,
+          f"{label}: {replays} replayed and {eager_steps} eager decode steps of "
+          f"{ticks['decode_steps']}")
+    check(mixed_replays == ticks["mixed_ticks"] > 0 and eager_ticks == 0,
+          f"{label}: {mixed_replays} replayed and {eager_ticks} eager mixed ticks")
+    requests = []
+    for (kind, streamed, _), (status, r) in zip(kinds, replies):
+        check(status == 200, f"{label}: {kind} status {status}")
+        ch = r["choices"][0]
+        text, finish = ch["message"]["content"], ch["finish_reason"]
+        check(finish in ("stop", "length"), f"{label}: {kind} finish {finish}")
+        row = {"kind": kind, "streamed": streamed, "finish_reason": finish,
+               "bytes": len(text.encode())}
+        if kind != "none":
+            dfa = json_constraint(engine.tokenizer,
+                                  None if kind == "json_object" else TOOLPROMPT_SCHEMA).fsm.dfa
+            st = dfa.run(dfa.start, text.encode())
+            check(st >= 0, f"{label}: {kind} reply leaves its DFA: {text!r}")
+            if finish == "stop":
+                check(bool(dfa.accept[st]), f"{label}: {kind} stopped short: {text!r}")
+                json.loads(text)
+            row["live_prefix"] = True
+        if not streamed:
+            row["completion_tokens"] = r["usage"]["completion_tokens"]
+        requests.append(row)
+    toolprompt = json_constraint(engine.tokenizer, TOOLPROMPT_SCHEMA).fsm
+    check(engine._fsm_loaded is toolprompt and loads == 1,
+          f"{label}: {loads} table loads, the ToolPrompt tables not resident")
+    check(0 < hosted <= requests[2]["completion_tokens"] - 1,
+          f"{label}: {hosted} hosted steps for a json_object reply of "
+          f"{requests[2]['completion_tokens']} tokens")
+    expected = expected_kernels(backend, "", "")
+    for name, n in launches.items():
+        check((n > 0) == (name in expected), f"{label}: {name} launched {n} times")
+    rows = toolprompt.dfa.num_states + 1
+    V = engine.model_cfg.vocab_size
+    return {
+        "requests": requests,
+        "fsm_table_bytes": sum(t.numel() * t.element_size()
+                               for t in (engine._fsm.mask, engine._fsm.dest)),
+        "fsm_loaded_bytes": rows * V * 5,
+        "fsm_loads": loads,
+        "fsm_load_ms": load_s * 1e3,
+        "hosted_steps": hosted,
+        **{k: ticks[k] for k in ("decode_steps", "mixed_ticks")},
+        "decode_replays": replays, "decode_eager_steps": eager_steps,
+        "mixed_replays": mixed_replays, "mixed_eager_ticks": eager_ticks,
+        "launches": launches,
+        "block_args": clock.block_args,
+    }
 
 
 def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
@@ -1039,6 +1202,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         with urllib.request.urlopen(req, timeout=600) as r:
             return r.status, json.loads(r.read())
 
+    fsm_run = None
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1059,16 +1223,42 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         replays, eager_steps, mixed_replays, eager_ticks = (
             n - was for n, was in zip(routes(engine), routes_before))
         peak = torch.cuda.max_memory_allocated()
+        ticks, block_args = clock.fields(), clock.block_args
+        if not quantize:
+            # Keep the timed batch's last largest-bucket tick for
+            # mixed_device_ms: the constrained batch runs its own.
+            last_tick = engine._mixed[engine.cfg.mixed_buckets[-1]]
+            saved = [t.clone() for t in last_tick.buffers()]
+            fsm_run = constrained_batch(engine, clock, post,
+                                        lambda body: post_stream(port, body), prompt,
+                                        model, backend)
+            with torch.inference_mode():
+                for t, was in zip(last_tick.buffers(), saved):
+                    t.copy_(was)
     finally:
         server.shutdown()
         server.server_close()
         stack.close()
         thread.join(timeout=30)
         clock.close()
-    ticks = clock.fields()
-    check(clock.block_args is not None, "the serve ran no decode block")
-    ticks["decode_device_ms_per_step"] = decode_device_ms(engine, clock.block_args)
+    check(block_args is not None, "the serve ran no decode block")
+    # The step with its constraint mask and FSM advance, and without them,
+    # alternated on the same engine and inputs.
+    alternated = {"masked": [], "unmasked": []}
+    for masked in (True, False, False, True):
+        alternated["masked" if masked else "unmasked"].append(
+            decode_device_ms(engine, block_args, masked=masked))
+    ticks["decode_device_ms_per_step"] = alternated["masked"][0]
+    ticks["decode_device_ms_alternated"] = alternated
     ticks["mixed_device_ms_per_tick"] = mixed_device_ms(engine)
+    if fsm_run is not None:
+        # With the rows at their FSM states and at row 0, alternated, twice.
+        fsm_args = fsm_run.pop("block_args")
+        for key, rows in (("fsm", True), ("free", False), ("free", False), ("fsm", True)):
+            fsm_run.setdefault(f"decode_device_ms_per_step_{key}", []).append(
+                decode_device_ms(engine, fsm_args, fsm_rows=rows))
+        emit({"phase": "constrained", "model": model, "paged_backend": backend,
+              "card": smi, **fsm_run})
     # Every decode step and every mixed tick of the serve is a graph replay.
     check(replays == ticks["decode_steps"] > 0 and eager_steps == 0,
           f"{replays} replayed and {eager_steps} eager decode steps of "
@@ -1141,6 +1331,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         "mixed_replays": mixed_replays,
         "mixed_eager_ticks": eager_ticks,
         **ticks,
+        "constrained_launches": fsm_run["launches"] if fsm_run else {},
     }
 
 
@@ -1211,7 +1402,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         emit({"phase": "serve", "seconds": time.perf_counter() - t, **serve})
         for name in expected_kernels(backend, quantize, kv_quantize):
-            launches[name] += serve["launches"][name]
+            launches[name] += (serve["launches"][name]
+                               + serve["constrained_launches"].get(name, 0))
 
     # A matmul's row is its decode-step shape (T = 8); the matmul phase
     # line also gives the mixed ticks' shapes (T = 128 and 1024).

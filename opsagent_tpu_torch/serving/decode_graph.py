@@ -14,10 +14,11 @@ longer grows with the model.
 What a capture needs, and where it comes from:
 
 - static buffers: a step body reads and writes only its state
-  (``DecodeState``, ``MixedState``), the cache's backing tensors and the
-  weights, and the caller copies each step's inputs into them. None may be
-  rebound or reallocated after capture (the graph holds their addresses);
-  ``replay`` raises if a state or cache buffer was;
+  (``DecodeState``, ``MixedState``), the constraint tables (``FsmTables``),
+  the cache's backing tensors and the weights, and the caller copies each
+  step's inputs into them. None may be rebound or reallocated after
+  capture (the graph holds their addresses); ``replay`` raises if a state,
+  table or cache buffer was;
 - no host sync and no allocation the next step reads: ``Llama`` sends
   dropped rows to the cache's scratch slot, the attention kernels plan
   their splits from shapes alone, and every kernel launches on the current
@@ -50,16 +51,16 @@ COUNTERS = (paged_attention.LAUNCHES, quant_matmul.LAUNCHES, quant_matmul.INSTAN
 
 
 class StepGraph:
-    """``body`` (one step over ``state`` and ``cache``) captured as a CUDA
-    graph on the current device, with ``generator`` (the one the body
-    samples from, if any) registered. A failed capture raises from the
-    constructor; there is no fallback."""
+    """``body`` (one step over the static ``buffers`` and ``cache``)
+    captured as a CUDA graph on the current device, with ``generator`` (the
+    one the body samples from, if any) registered. A failed capture raises
+    from the constructor; there is no fallback."""
 
     def __init__(
-        self, body: Callable[[], None], state: StaticBuffers, cache: PagedKVCache,
-        generator: torch.Generator | None = None,
+        self, body: Callable[[], None], buffers: tuple[StaticBuffers, ...],
+        cache: PagedKVCache, generator: torch.Generator | None = None,
     ):
-        self._state, self._cache = state, cache
+        self._buffers, self._cache = buffers, cache
         self._pointers = self._addresses()
         before = [dict(counts) for counts in COUNTERS]
         self.graph = torch.cuda.CUDAGraph()
@@ -75,7 +76,8 @@ class StepGraph:
             self._launches.append((counts, delta))
 
     def _addresses(self) -> list[int]:
-        return [t.data_ptr() for t in (*self._state.buffers(), *self._cache.buffers())]
+        tensors = [t for b in self._buffers for t in b.buffers()]
+        return [t.data_ptr() for t in (*tensors, *self._cache.buffers())]
 
     def replay(self) -> None:
         """One step: the captured kernels over the buffers as they stand.

@@ -12,6 +12,17 @@ on the host. Two device programs carry the traffic:
 On the card with the kernels each decode step and each mixed tick is one
 CUDA graph replay (``serving.decode_graph``), captured by ``warmup``.
 
+Constrained decoding (``mask_fn``, ``serving.constrained``) runs inside
+those graphs. A row whose ``JsonConstraint`` has dense tables within the
+budget, and whose FSM is the one loaded, is a device-FSM row: its DFA
+state indexes the device tables (``FsmTables``), which mask its logits and
+advance its state every step with no host sync. One table set is resident
+at a time; it reloads when no live row uses it. Any other constrained row
+(a plain callable, a schema over the budget such as ``json_object`` at a
+128k vocab, a second schema while another is loaded) is hosted: the host
+computes its mask, and it advances one token per ``step_block`` call, in a
+one-step block of its own, beside the full block of the other rows.
+
 ``EngineConfig.quantize`` and ``kv_quantize`` select int8/int4 weights
 (every projection through the quantized matmul kernel) and int8 KV pages
 (the attention kernels' int8 instances); ``paged_backend`` picks the
@@ -19,15 +30,17 @@ paged-attention kernels ("dma" or "grid"); ``attn_impl`` picks kernels or
 plain versions for all of them at once. ``checkpoint`` loads an HF
 safetensors directory instead of random weights.
 
-No async runtime, pipelining, grammar fast-forward, speculation, offload,
-snapshots or constrained decoding in this port yet.
+No async runtime, pipelining, grammar fast-forward, speculation, offload
+or snapshots in this port yet.
 """
 
 from __future__ import annotations
 
+import logging
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from functools import partial
+from typing import Callable
 
 import numpy as np
 import torch
@@ -37,9 +50,11 @@ from ..models.config import ModelConfig, resolve_model
 from ..models.llama import Llama
 from ..models.loader import load_checkpoint
 from ..ops.paged_attention import PAGED_BACKENDS
+from .constrained import NATIVE_TABLE_BUDGET, JsonConstraint, TokenFSM, device_table_fsm
 from .decode_graph import StepGraph
 from .decode_loop import (
     DecodeState,
+    FsmTables,
     MixedState,
     decode_block,
     decode_step_body,
@@ -48,6 +63,11 @@ from .decode_loop import (
 from .kvcache import InvalidRequest, OutOfPages, PageAllocator
 from .sampler import SamplingParams
 from .tokenizer import ByteTokenizer, Tokenizer
+
+log = logging.getLogger("opsagent_tpu_torch.engine")
+
+# A constrained-decoding mask: the generated tokens -> [vocab] bool allowed.
+MaskFn = Callable[[list[int]], np.ndarray]
 
 
 @dataclass
@@ -108,8 +128,10 @@ class Sequence:
     prompt_ids: list[int] = field(default_factory=list)
     tokens: list[int] = field(default_factory=list)   # generated tokens
     params: SamplingParams = field(default_factory=SamplingParams)
+    mask_fn: MaskFn | None = None  # constrained decoding
+    on_token: Callable[[int], None] | None = None   # each accepted token
     done: bool = False
-    finish_reason: str = ""        # "stop" | "length"
+    finish_reason: str = ""        # "stop" | "length" | "error"
 
 
 class Engine:
@@ -166,12 +188,25 @@ class Engine:
                 )
                 for S in cfg.mixed_buckets
             }
+            # The constraint tables. Where steps replay, one capacity
+            # buffer of the budget's rows, made before any capture and
+            # loaded by copy; where they run eagerly, sized to each FSM
+            # loaded.
+            V = self.model_cfg.vocab_size
+            rows = NATIVE_TABLE_BUDGET // V if self._replays() else 1
+            self._fsm = FsmTables.empty(cfg.max_batch_size, V, rows, self.device)
+        self._fsm_loaded: TokenFSM | None = None
+        self._host_rows = False     # host_mask holds a hosted row's mask
         # ("decode", greedy) and ("mixed", bucket) -> graph, made by warmup.
         self._graphs: dict[tuple[str, object], StepGraph] = {}
         self._warm = False
         # Decode steps and mixed ticks run by graph replay and eagerly.
         self.decode_replays = self.decode_eager_steps = 0
         self.mixed_replays = self.mixed_eager_ticks = 0
+        # Decode steps of hosted rows (one per row per step_block call),
+        # table sets loaded, and the host seconds the loads took.
+        self.hosted_steps = self.fsm_loads = 0
+        self.fsm_load_s = 0.0
         self.alloc = PageAllocator(
             cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq,
             prefix_cache=cfg.prefix_cache,
@@ -225,22 +260,32 @@ class Engine:
 
     # -- request lifecycle -------------------------------------------------
     def add_request(
-        self, prompt_ids: list[int], sampling: SamplingParams | None = None
+        self,
+        prompt_ids: list[int],
+        sampling: SamplingParams | None = None,
+        mask_fn: MaskFn | None = None,
+        stream: Callable[[int], None] | None = None,
     ) -> int:
         """Admit a request and prefill it whole (mixed steps with no decode
         lanes), sampling its first token. Returns the sequence id; raises
         OutOfPages when the page pool is full."""
-        seq_id = self.begin_request(prompt_ids, sampling)
+        seq_id = self.begin_request(prompt_ids, sampling, mask_fn, stream)
         while seq_id in self._prefilling:
             self.step_mixed([], {seq_id: self.cfg.mixed_buckets[-1]})
         return seq_id
 
     def begin_request(
-        self, prompt_ids: list[int], sampling: SamplingParams | None = None
+        self,
+        prompt_ids: list[int],
+        sampling: SamplingParams | None = None,
+        mask_fn: MaskFn | None = None,
+        stream: Callable[[int], None] | None = None,
     ) -> int:
         """Stage 1 of admission: allocate pages, reusing cached prefix pages,
         and register the sequence as prefilling. No device work: mixed steps
-        then run its prompt in chunks."""
+        then run its prompt in chunks. ``mask_fn`` constrains the sequence's
+        tokens (a mask that raises on the empty prefix is an invalid
+        request); ``stream`` receives each accepted token."""
         sampling = sampling or SamplingParams()
         n = len(prompt_ids)
         window = self.model_cfg.max_position
@@ -251,9 +296,12 @@ class Engine:
                 f"prompt of {n} tokens exceeds the model's "
                 f"{window}-position context window"
             )
+        if mask_fn is not None:
+            try:
+                mask_fn([])
+            except Exception as e:  # noqa: BLE001 - the caller's callback
+                raise InvalidRequest(f"mask_fn failed on the empty prefix: {e}") from e
         if n + sampling.max_tokens > window:
-            from dataclasses import replace
-
             sampling = replace(sampling, max_tokens=window - n)
         # Reuse full pages of the prompt minus its last token: at least one
         # token must run through the model to produce the next logits.
@@ -261,7 +309,8 @@ class Engine:
         matched = len(prefix_pages) * self.cfg.page_size
         seq_id = self.alloc.allocate(n, prefix_pages=prefix_pages)
         self.sequences[seq_id] = Sequence(
-            seq_id, n, prompt_ids=list(prompt_ids), params=sampling
+            seq_id, n, prompt_ids=list(prompt_ids), params=sampling,
+            mask_fn=mask_fn, on_token=stream,
         )
         self._prefilling[seq_id] = matched
         return seq_id
@@ -293,6 +342,13 @@ class Engine:
 
     def _accept_token(self, seq: Sequence, token: int) -> None:
         seq.tokens.append(token)
+        if seq.on_token is not None:
+            try:
+                seq.on_token(token)
+            except Exception:  # noqa: BLE001 - ends this row, not the step
+                log.exception("stream callback of sequence %d failed", seq.seq_id)
+                seq.done, seq.finish_reason = True, "error"
+                return
         if token == self.tokenizer.eos_id:
             seq.done, seq.finish_reason = True, "stop"
         elif len(seq.tokens) >= seq.params.max_tokens:
@@ -307,6 +363,83 @@ class Engine:
         tail = self.tokenizer.decode(seq.tokens[-(longest * 4 + 8):])
         return any(s in tail for s in seq.params.stop)
 
+    # -- constrained decoding -------------------------------------------------
+    def _fsm_routes(self, seqs: list[Sequence]) -> dict[int, bool]:
+        """For each constrained sequence of ``seqs``, by id: True when it
+        rides the device tables this step, False when it is hosted. When no
+        live sequence uses the loaded table set, the first sequence whose
+        FSM has dense tables within the budget loads its own."""
+        loaded = self._fsm_loaded
+        in_use = loaded is not None and any(
+            not s.done and isinstance(s.mask_fn, JsonConstraint) and s.mask_fn.fsm is loaded
+            for s in self.sequences.values()
+        )
+        routes: dict[int, bool] = {}
+        for s in seqs:
+            if s.mask_fn is None:
+                continue
+            fsm = device_table_fsm(s.mask_fn)
+            if fsm is not None and not in_use:
+                if fsm is not loaded:
+                    self._load_fsm(fsm)
+                    loaded = fsm
+                in_use = True
+            routes[s.seq_id] = fsm is not None and fsm is loaded
+        return routes
+
+    def _load_fsm(self, fsm: TokenFSM) -> None:
+        """Copy ``fsm``'s dense tables into the device buffers, on the
+        calling thread and outside any capture. Where steps replay, into
+        the capacity buffer (the budget guarantees the room); where they
+        run eagerly, into buffers sized to the FSM."""
+        mask, dest = fsm.dense_tables()
+        t0 = time.perf_counter()
+        if mask.shape[0] > self._fsm.rows and not self._replays():
+            self._fsm = FsmTables.empty(
+                self.cfg.max_batch_size, self.model_cfg.vocab_size, mask.shape[0],
+                self.device,
+            )
+            self._host_rows = False
+        with torch.inference_mode():
+            self._fsm.load(mask, dest)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._fsm_loaded = fsm
+        self.fsm_loads += 1
+        self.fsm_load_s += time.perf_counter() - t0
+
+    def _row_mask(self, s: Sequence) -> np.ndarray | None:
+        """A hosted row's mask over the model's vocab (ids past the
+        tokenizer's, a model's padded vocab, are forbidden), or None when
+        its ``mask_fn`` raised: the row then ends with ``"error"``."""
+        try:
+            m = np.asarray(s.mask_fn(s.tokens), bool)
+        except Exception:  # noqa: BLE001 - ends this row, not the step
+            log.exception("mask_fn of sequence %d failed", s.seq_id)
+            s.done, s.finish_reason = True, "error"
+            return None
+        row = np.zeros((self.model_cfg.vocab_size,), bool)
+        n = min(len(m), len(row))
+        row[:n] = m[:n]
+        return row
+
+    def _load_host_masks(self, masks: dict[int, np.ndarray]) -> None:
+        """The host_mask buffer: ``masks`` by batch row, every other row
+        all true. No copy when both the buffer and the call are all true.
+        Under inference mode."""
+        if not masks and not self._host_rows:
+            return
+        hm = np.ones(tuple(self._fsm.host_mask.shape), bool)
+        for i, m in masks.items():
+            hm[i] = m
+        self._fsm.host_mask.copy_(torch.from_numpy(hm))
+        self._host_rows = bool(masks)
+
+    def _fsm_row(self, s: Sequence, on_device: bool) -> int:
+        """The row's FsmTables row: its DFA state + 1 on the device tables,
+        else 0 (unconstrained or hosted)."""
+        return s.mask_fn.dfa_state(s.tokens) + 1 if on_device else 0
+
     # -- mixed prefill + decode step ----------------------------------------
     def step_mixed(
         self, decode_ids: list[int], prefill_chunks: dict[int, int]
@@ -315,7 +448,8 @@ class Engine:
         runs one prefill chunk for each admitting sequence in
         ``prefill_chunks`` ({seq_id: chunk tokens}). Chunk rows pad to the
         smallest mixed bucket holding the largest chunk; decode rows ride at
-        q_len 1.
+        q_len 1. Constrained rows that emit (decode lanes, and chunks that
+        end their prompt) sample under their mask.
 
         Returns ``(decode_out, prefill_out)``: ``decode_out`` maps each
         advanced decode sequence to its new token; ``prefill_out`` maps each
@@ -331,6 +465,21 @@ class Engine:
                 f"mixed batch of {len(decode)} decode + {len(prefill_chunks)} "
                 f"prefill rows exceeds max_batch_size={B}"
             )
+        chunks: list[tuple[int, Sequence, int, int]] = []
+        smax = 1
+        for sid, want in prefill_chunks.items():
+            seq, done = self.sequences[sid], self._prefilling[sid]
+            c = min(want, self.cfg.mixed_buckets[-1], seq.prompt_len - done)
+            chunks.append((sid, seq, done, c))
+            smax = max(smax, c)
+        ending = [seq for _, seq, done, c in chunks if done + c >= seq.prompt_len]
+        ending_ids = {s.seq_id for s in ending}
+        routes = self._fsm_routes(decode + ending)
+        # Hosted rows' masks before any booking: a row whose mask fails
+        # ends here (a decode row leaves the tick).
+        host = {s.seq_id: self._row_mask(s) for s in decode + ending
+                if routes.get(s.seq_id) is False}
+        decode = [s for s in decode if not s.done]
         # Book the token each decode row is about to write; a row that
         # cannot grow finishes as truncated instead of failing the step.
         grown: list[Sequence] = []
@@ -345,18 +494,13 @@ class Engine:
         prefill_out: dict[int, bool] = {}
         if not decode and not prefill_chunks:
             return decode_out, prefill_out
-        chunks: list[tuple[int, Sequence, int, int]] = []
-        smax = 1
-        for sid, want in prefill_chunks.items():
-            seq, done = self.sequences[sid], self._prefilling[sid]
-            c = min(want, self.cfg.mixed_buckets[-1], seq.prompt_len - done)
-            chunks.append((sid, seq, done, c))
-            smax = max(smax, c)
         S = self._mixed_bucket(smax)
         tokens = np.full((B, S), self.tokenizer.pad_id, np.int64)
         starts = np.zeros((B,), np.int32)
         qlens = np.zeros((B,), np.int32)
         tables = np.full((B, self.cfg.max_pages_per_seq), -1, np.int32)
+        fsm = np.zeros((B,), np.int32)
+        emits = np.zeros((B,), bool)
         for i, s in enumerate(decode):
             tokens[i, 0] = s.tokens[-1] if s.tokens else self.tokenizer.bos_id
             # extend(1) made length = written + 1; the row writes at written.
@@ -370,6 +514,14 @@ class Engine:
             qlens[base + j] = c
             tables[base + j] = self.alloc.page_table_row(sid)
         slots: list[Sequence | None] = decode + [seq for _, seq, _, _ in chunks]
+        masks: dict[int, np.ndarray] = {}
+        for i, s in enumerate(slots):
+            if s.done or (i >= base and s.seq_id not in ending_ids):
+                continue  # a failed mask, or a chunk whose token is discarded
+            emits[i] = True
+            fsm[i] = self._fsm_row(s, routes.get(s.seq_id, False))
+            if host.get(s.seq_id) is not None:
+                masks[i] = host[s.seq_id]
         temps, top_k, top_p = self._sampling_arrays(slots, B)
         try:
             with torch.inference_mode():
@@ -379,8 +531,9 @@ class Engine:
                 else:
                     step = self._mixed_body(S, self._generator)
                     self.mixed_eager_ticks += 1
+                self._load_host_masks(masks)
                 state = self._mixed[S]
-                state.load(tokens, starts, qlens, tables, temps, top_k, top_p)
+                state.load(tokens, starts, qlens, tables, temps, top_k, top_p, fsm, emits)
                 # Every row samples; rows whose chunk does not finish the
                 # prompt discard their token below.
                 step()
@@ -403,37 +556,63 @@ class Engine:
                 self._prefilling[sid] = done + c
                 continue
             del self._prefilling[sid]
-            self._accept_token(seq, int(sampled[base + j]))
+            if not seq.done:  # a failed mask ended it already
+                self._accept_token(seq, int(sampled[base + j]))
         return decode_out, prefill_out
 
     # -- block decode --------------------------------------------------------
     def step_block(self, seq_ids: list[int] | None = None) -> dict[int, list[int]]:
         """Advance running sequences by up to ``cfg.decode_block`` tokens in
-        one device-resident loop with one host pull. Returns {seq_id:
-        accepted tokens}."""
+        one device-resident loop with one host pull; hosted constrained
+        rows advance one token first, in a one-step block of their own.
+        Returns {seq_id: accepted tokens}."""
         running = [
             s for s in self.sequences.values()
             if not s.done and s.seq_id not in self._prefilling
         ] if seq_ids is None else [
             self.sequences[i] for i in seq_ids if not self.sequences[i].done
         ]
+        running = running[:self.cfg.max_batch_size]
+        routes = self._fsm_routes(running)
+        hosted = [s for s in running if routes.get(s.seq_id) is False]
+        rest = [s for s in running if routes.get(s.seq_id) is not False]
+        out: dict[int, list[int]] = {}
+        if hosted:
+            out.update(self._decode_rows(hosted, 1, routes))
+        if rest:
+            out.update(self._decode_rows(rest, self.cfg.decode_block, routes))
+        return out
+
+    def _decode_rows(
+        self, seqs: list[Sequence], block: int, routes: dict[int, bool],
+    ) -> dict[int, list[int]]:
+        """One ``decode_block`` over ``seqs`` (batch row i = seqs[i]) of up
+        to ``block`` steps. Hosted rows (``routes`` False) sample under
+        their host-computed masks."""
         B = self.cfg.max_batch_size
-        running = running[:B]
+        masks = {i: self._row_mask(s) for i, s in enumerate(seqs)
+                 if routes.get(s.seq_id) is False}
         tokens = np.zeros((B,), np.int64)
         write_at = np.zeros((B,), np.int32)
         budgets = np.zeros((B,), np.int32)
+        fsm = np.zeros((B,), np.int32)
         lanes: list[Sequence | None] = [None] * B
-        for i, s in enumerate(running):
-            want = min(self.cfg.decode_block, s.params.max_tokens - len(s.tokens))
+        for i, s in enumerate(seqs):
+            if s.done:  # its mask failed
+                masks.pop(i, None)
+                continue
+            want = min(block, s.params.max_tokens - len(s.tokens))
             got = self.alloc.extend_upto(s.seq_id, want) if want > 0 else 0
             if got == 0:
                 s.done, s.finish_reason = True, "length"
                 self.alloc.truncate(s.seq_id, self._host_written(s))
+                masks.pop(i, None)
                 continue
             lanes[i] = s
             tokens[i] = s.tokens[-1] if s.tokens else self.tokenizer.bos_id
             write_at[i] = self._host_written(s)
             budgets[i] = got
+            fsm[i] = self._fsm_row(s, routes.get(s.seq_id, False))
         if not budgets.any():
             return {}
         table, _, active = self.alloc.batch_views(
@@ -449,9 +628,11 @@ class Engine:
             else:
                 step = self._decode_body(greedy, self._generator)
                 self.decode_eager_steps += n_steps
+            self.hosted_steps += len(masks) * n_steps
+            self._load_host_masks(masks)
             toks = decode_block(
                 self._decode, step, tokens, write_at, active, budgets, table,
-                temps, top_k, top_p, n_steps=n_steps,
+                temps, top_k, top_p, n_steps=n_steps, fsm=fsm,
             ).cpu().numpy()
         out: dict[int, list[int]] = {}
         for i, s in enumerate(lanes):
@@ -519,26 +700,26 @@ class Engine:
             for key, (state, body) in bodies.items():
                 # The greedy decode step draws no random numbers.
                 gen = None if key == ("decode", True) else self._generator
-                self._graphs[key] = StepGraph(body, state, self.cache, gen)
+                self._graphs[key] = StepGraph(body, (state, self._fsm), self.cache, gen)
             torch.cuda.synchronize(self.device)
         self._warm = True
         return self._graphs
 
     def _decode_body(self, greedy: bool, generator: torch.Generator):
         """The block's step, eager: ``decode_step_body`` over the engine's
-        state and cache."""
+        state, constraint tables and cache."""
         return partial(
             decode_step_body, self.model, self._decode, self.cache, generator,
             self.tokenizer.eos_id, self.tokenizer.pad_id, greedy,
-            self.attn_impl == "plain", self.cfg.paged_backend,
+            self.attn_impl == "plain", self.cfg.paged_backend, tables=self._fsm,
         )
 
     def _mixed_body(self, S: int, generator: torch.Generator):
         """The mixed tick at bucket ``S``, eager: ``mixed_step_body`` over
-        that bucket's state and the engine's cache."""
+        that bucket's state, the constraint tables and the engine's cache."""
         return partial(
             mixed_step_body, self.model, self._mixed[S], self.cache, generator,
-            self.attn_impl == "plain", self.cfg.paged_backend,
+            self.attn_impl == "plain", self.cfg.paged_backend, tables=self._fsm,
         )
 
     def finish(self, seq_id: int) -> list[int]:
@@ -553,10 +734,17 @@ class Engine:
         self,
         prompts: list[list[int]],
         sampling: SamplingParams | None = None,
+        mask_fn: list[MaskFn | None] | None = None,
+        stream: list[Callable[[int], None] | None] | None = None,
     ) -> list[list[int]]:
         """Synchronous batch generation: admit every prompt, then block
-        decode until all are done."""
-        ids = [self.add_request(p, sampling) for p in prompts]
+        decode until all are done. ``mask_fn`` and ``stream`` give each
+        prompt its own (a ``JsonConstraint`` follows one sequence)."""
+        none = [None] * len(prompts)
+        ids = [
+            self.add_request(p, sampling, m, f)
+            for p, m, f in zip(prompts, mask_fn or none, stream or none)
+        ]
         pending = {i for i in ids if not self.sequences[i].done}
         while pending:
             self.step_block(sorted(pending))

@@ -42,6 +42,7 @@ def sample(
     temperature: torch.Tensor,      # [B] float32
     top_k: torch.Tensor,            # [B] int (0 = off)
     top_p: torch.Tensor,            # [B] float32 (1.0 = off)
+    allowed_mask: torch.Tensor | None = None,  # [B, V] bool; False = forbidden
 ) -> torch.Tensor:
     """One token per row [B] int64:
 
@@ -49,9 +50,14 @@ def sample(
     - temperature > 0 without top-k/top-p: exact full-vocab categorical
       via Gumbel-argmax;
     - top_k > 0 and/or top_p < 1: truncated sampling over the descending
-      top-``MAX_CANDIDATES`` candidates (top_k clamped to it)."""
+      top-``MAX_CANDIDATES`` candidates (top_k clamped to it).
+
+    ``allowed_mask`` (constrained decoding) sets forbidden logits to
+    ``NEG_INF`` before any of them."""
     B, V = logits.shape
     dev = logits.device
+    if allowed_mask is not None:
+        logits = torch.where(allowed_mask, logits, NEG_INF)
     t = temperature.clamp_min(1e-6)[:, None]
     greedy = logits.argmax(dim=-1)
     noisy = (logits / t + _gumbel((B, V), generator, dev)).argmax(dim=-1)

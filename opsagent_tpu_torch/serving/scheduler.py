@@ -7,6 +7,11 @@ slots and pages allow, then runs ONE device program: a mixed step when a
 prompt is admitting (every decode lane plus prefill chunks under the
 ``max_step_tokens`` budget), else a decode block. Finished sequences release
 their pages at once, so queued requests enter mid-flight.
+
+A request's ``mask_fn`` constrains its tokens (``serving.constrained``); a
+mask that raises on admission fails the request with 400. Its
+``on_token`` receives each accepted token on the scheduler thread, after
+each mixed tick and each block's pull (a block's tokens arrive together).
 """
 
 from __future__ import annotations
@@ -16,8 +21,9 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
+from typing import Callable
 
-from .engine import Engine
+from .engine import Engine, MaskFn
 from .kvcache import InvalidRequest, OutOfPages, PromptTooLong
 from .sampler import SamplingParams
 
@@ -40,6 +46,8 @@ class RequestError(RuntimeError):
 class Request:
     prompt_ids: list[int]
     sampling: SamplingParams
+    mask_fn: MaskFn | None = None
+    on_token: Callable[[int], None] | None = None
     # filled by the scheduler:
     seq_id: int | None = None
     tokens: list[int] = field(default_factory=list)
@@ -101,7 +109,9 @@ class Scheduler:
                 self._fail(req, "admission timed out (engine saturated)", 503)
                 continue
             try:
-                seq_id = self.engine.begin_request(req.prompt_ids, req.sampling)
+                seq_id = self.engine.begin_request(
+                    req.prompt_ids, req.sampling, req.mask_fn, req.on_token
+                )
             except OutOfPages:
                 still.append(req)  # pages free as running sequences finish
                 continue
@@ -156,7 +166,11 @@ class Scheduler:
             req = self._running.pop(sid)
             req.finish_reason = self.engine.sequences[sid].finish_reason
             req.tokens = self.engine.finish(sid)
-            req.done.set()
+            if req.finish_reason == "error":
+                # Its mask or stream callback raised (logged by the engine).
+                self._fail(req, "constrained decoding or streaming failed")
+            else:
+                req.done.set()
 
     @staticmethod
     def _fail(req: Request, message: str, status: int = 500) -> None:

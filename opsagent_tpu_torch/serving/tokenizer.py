@@ -19,6 +19,7 @@ class Tokenizer(Protocol):
 
     def encode(self, text: str) -> list[int]: ...
     def decode(self, ids: list[int]) -> str: ...
+    def token_bytes(self, token_id: int) -> bytes: ...
 
 
 class ByteTokenizer:
@@ -42,3 +43,11 @@ class ByteTokenizer:
     def decode(self, ids: list[int]) -> str:
         data = bytes(i for i in ids if 0 <= i < 256)
         return data.decode("utf-8", errors="replace")
+
+    def token_bytes(self, token_id: int) -> bytes:
+        """The bytes this token adds to the output: one byte for ids
+        0..255, none for a special or padded id (constrained decoding
+        forbids those)."""
+        if 0 <= token_id < 256:
+            return bytes([token_id])
+        return b""

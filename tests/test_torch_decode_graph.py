@@ -29,7 +29,12 @@ from opsagent_tpu.serving.decode_loop import decode_block as jax_decode_block
 from opsagent_tpu_torch.models.config import TINY_TEST
 from opsagent_tpu_torch.models.convert import params_from_jax
 from opsagent_tpu_torch.models.llama import Llama
-from opsagent_tpu_torch.serving.decode_loop import DecodeState, decode_block, decode_step_body
+from opsagent_tpu_torch.serving.decode_loop import (
+    DecodeState,
+    FsmTables,
+    decode_block,
+    decode_step_body,
+)
 from opsagent_tpu_torch.serving.engine import Engine, EngineConfig
 from opsagent_tpu_torch.serving.sampler import SamplingParams
 
@@ -91,8 +96,9 @@ def _port_cache(model, pages, kv_quantize):
 def _port_block(model, cache, eos_id):
     B = len(TOKENS)
     state = DecodeState.empty(B, MAXP, BLOCK, torch.device("cpu"))
+    tables = FsmTables.empty(B, TINY_TEST.vocab_size, 1, torch.device("cpu"))
     step = partial(decode_step_body, model, state, cache, torch.Generator(), eos_id,
-                   PAD, True)
+                   PAD, True, tables=tables)
     with torch.inference_mode():
         out = decode_block(
             state, step, TOKENS, AT, ACTIVE, BUDGETS, TABLE,

@@ -29,6 +29,7 @@ REQUIRED = (
     "opsagent_tpu_torch.models.quant",
     "opsagent_tpu_torch.models.convert",
     "opsagent_tpu_torch.models.loader",
+    "opsagent_tpu_torch.serving.constrained",
 )
 
 
@@ -41,6 +42,6 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert res.returncode == 0, res.stderr
     names, bad = res.stdout.strip().split(" ", 1)
     names = names.split(",")
-    assert len(names) >= 19          # every module of the package was imported
+    assert len(names) >= 20          # every module of the package was imported
     assert set(REQUIRED) <= set(names)
     assert bad == "[]"
