@@ -90,7 +90,22 @@ Phases, each printing one JSON line with its seconds:
    device time by kernel group, the quantized matmul split by instance
    and the combine of both attention forms' split calls as one group
    (the trace slows the run: its tokens/s and TTFT are not the untraced
-   ones).
+   ones). After the Qwen2.5-7B bf16 serve, a ``bpe`` line: an engine over
+   that serve's model with ``BPETokenizer`` on ``tests/fixtures/tiny-bpe``
+   (1,027 ids against the model's 152,064) serves one json_schema request
+   over HTTP with a ChatML prompt, every step replayed; the reply parses
+   and the FSM is built from the BPE's token bytes.
+8. chat_api: bench-8b at full width and depth, dma kernels, bf16, one
+   model under a replaying and an eager engine. A forced named
+   ``tool_choice`` with ``n`` = 2 over HTTP (both choices call the tool,
+   arguments parse, choices equal); a batch of four plain rows beside a
+   ``logit_bias`` row, a penalty row, a logprobs row (top 5) and one with
+   all three, replayed and eager: greedy tokens equal, logprobs within
+   the e2e_bf16 phase's bf16 cost, every row a full first block; a -100
+   bias on a plain row's first greedy token moves it; no eager and no
+   hosted step on the replaying engine. The decode step's device time by
+   replay of the engine's graph without the extras and of its graph with
+   them (an extras row loaded), alternated (``extras_cost_ms``).
 
 Then, on lines of their own: the card's name and power limit as nvidia-smi
 prints them, the ``{"kernels": [...]}`` table, and last
@@ -132,10 +147,11 @@ from opsagent_tpu_torch.ops import quant_matmul as qm
 from opsagent_tpu_torch.ops.attention import QuantizedPages, _gather_kv, write_kv_pages
 from opsagent_tpu_torch.serving import engine as engine_module
 from opsagent_tpu_torch.serving.api import ServingStack, make_server
+from opsagent_tpu_torch.serving.chat_template import apply_chat_template
 from opsagent_tpu_torch.serving.constrained import TOOLPROMPT_SCHEMA, json_constraint
-from opsagent_tpu_torch.serving.engine import Engine, EngineConfig
+from opsagent_tpu_torch.serving.engine import Engine, EngineConfig, Sequence
 from opsagent_tpu_torch.serving.sampler import NEG_INF, SamplingParams
-from opsagent_tpu_torch.serving.tokenizer import ByteTokenizer
+from opsagent_tpu_torch.serving.tokenizer import BPETokenizer, ByteTokenizer
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -184,6 +200,7 @@ E2E = (
 E2E_BF16 = ((BENCH_8B, "dma"), (QWEN25_7B, "grid"))
 E2E_BF16_Q_LENS = [128, 128, 77, 1, 33, 0, 128, 5]
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+BPE_FIXTURE = os.path.join(FIXTURES, "tiny-bpe")
 HF_FIXTURES = ("tiny-llama-hf", "tiny-qwen2-hf", "tiny-qwen3-hf")
 HF_LOGIT_TOL = 2e-4     # tests/test_checkpoint_golden.py's own
 
@@ -1259,6 +1276,9 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
                 decode_device_ms(engine, fsm_args, fsm_rows=rows))
         emit({"phase": "constrained", "model": model, "paged_backend": backend,
               "card": smi, **fsm_run})
+    if model.startswith("qwen") and not quantize:
+        emit({"phase": "bpe", "model": model, "paged_backend": backend, "card": smi,
+              **bpe_serve(engine)})
     # Every decode step and every mixed tick of the serve is a graph replay.
     check(replays == ticks["decode_steps"] > 0 and eager_steps == 0,
           f"{replays} replayed and {eager_steps} eager decode steps of "
@@ -1334,6 +1354,267 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         "constrained_launches": fsm_run["launches"] if fsm_run else {},
     }
 
+# -- phase 7b: a byte-level-BPE tokenizer on the card ----------------------------------
+BPE_SCHEMA = {"type": "object", "properties": {"name": {"enum": ["kubectl", "trivy"]},
+                                               "ok": {"type": "boolean"}}}
+
+
+def bpe_serve(served: Engine) -> dict:
+    """One json_schema chat completion over HTTP through ``BPETokenizer``
+    on ``tests/fixtures/tiny-bpe`` (ChatML prompt), on an engine over the
+    serve's own model (its weights reused), warmed up, steps replayed.
+    The reply parses and stops; the FSM is built from the BPE's
+    ``token_bytes`` and its tables are the ones loaded; ids past the
+    tokenizer's 1,027 (the model's padded vocab) never appear."""
+    tok = BPETokenizer(BPE_FIXTURE)
+    eng = Engine(replace(served.cfg, num_pages=256), model_cfg=served.model_cfg,
+                 model=served.model, tokenizer=tok)
+    warmup_s = eng.warmup()
+    stack = ServingStack(eng)
+    server = make_server(stack, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    body = {"temperature": 0, "max_tokens": 64,
+            "messages": [{"role": "user", "content": "Pick a tool and say if it is ok."}],
+            "response_format": {"type": "json_schema",
+                                "json_schema": {"name": "pick", "schema": BPE_SCHEMA}}}
+    try:
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/v1/chat/completions",
+            data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, reply = r.status, json.loads(r.read())
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        stack.close()
+        thread.join(timeout=30)
+    ch = reply["choices"][0]
+    text = ch["message"]["content"]
+    check(status == 200 and ch["finish_reason"] == "stop", f"bpe: {status} {ch}")
+    check(json.loads(text)["name"] in ("kubectl", "trivy"), f"bpe: reply {text!r}")
+    con = json_constraint(tok, BPE_SCHEMA)
+    check(con.fsm.token_bytes == [tok.token_bytes(i) for i in range(tok.vocab_size)]
+          and eng._fsm_loaded is con.fsm, "bpe: FSM not built from the BPE token bytes")
+    prompt = apply_chat_template(tok, body["messages"], eng.model_cfg.name)
+    check(prompt[0] == tok.encode("<|im_start|>")[0]
+          and reply["usage"]["prompt_tokens"] == len(prompt), "bpe: prompt is not ChatML")
+    check(eng.decode_eager_steps == eng.mixed_eager_ticks == eng.hosted_steps == 0
+          and eng.decode_replays > 0, f"bpe: routes {routes(eng)}, {eng.hosted_steps} hosted")
+    out = {"reply": text, "prompt_tokens": len(prompt),
+           "completion_tokens": reply["usage"]["completion_tokens"],
+           "tokenizer_vocab": tok.vocab_size, "model_vocab": eng.model_cfg.vocab_size,
+           "warmup_s": warmup_s, "wall_s": wall, "routes": routes(eng)}
+    del eng
+    return out
+
+
+# -- phase 8: the rest of the chat API ----------------------------------------------
+CHAT_TOOLS = [{"type": "function", "function": {
+    "name": "kubectl", "description": "run a kubectl command",
+    "parameters": {"type": "object", "properties": {"command": {"type": "string"}}}}},
+    {"type": "function", "function": {
+        "name": "trivy", "description": "scan an image",
+        "parameters": {"type": "object", "properties": {"image": {"type": "string"}}}}}]
+# Inside a string the quote wins, after it '}' then ']' wherever the
+# grammar allows them: the envelope closes in tens of tokens. The biases
+# lie further apart than random weights' logits spread (tests/
+# test_tool_choice.py's 100 / 99 / 98 let '}' win inside a string here).
+CLOSE_BIAS = {str(ord('"')): 100, str(ord('}')): 60, str(ord(']')): 30}
+# The extras batch: four plain greedy rows, then a bias row, a penalty row,
+# a logprobs row and one with all three.
+EXTRAS_ROWS = (
+    SamplingParams(max_tokens=48),
+    SamplingParams(max_tokens=48),
+    SamplingParams(max_tokens=48),
+    SamplingParams(max_tokens=48),
+    SamplingParams(max_tokens=48, logit_bias=((ord("e"), 10.0), (ord(" "), 10.0))),
+    SamplingParams(max_tokens=48, presence_penalty=1.0, frequency_penalty=1.5),
+    SamplingParams(max_tokens=48, logprobs=True, top_logprobs=5),
+    SamplingParams(max_tokens=48, logit_bias=((ord("a"), 5.0),), presence_penalty=0.5,
+                   frequency_penalty=0.5, logprobs=True, top_logprobs=20),
+)
+
+
+def extras_batch(eng: Engine, prompts: list[list[int]], after_first_block=None) -> dict:
+    """``EXTRAS_ROWS`` over ``prompts``: admitted together in mixed ticks
+    (rows whose prompt is done decode in the next ones), then blocks until
+    every row is done. Returns each row's tokens and logprob entries and
+    the first block's length for each row."""
+    ids = [eng.begin_request(p, s) for p, s in zip(prompts, EXTRAS_ROWS)]
+    while eng._prefilling:
+        decode = [i for i in ids if i not in eng._prefilling and not eng.sequences[i].done]
+        eng.step_mixed(decode, {i: 128 for i in eng._prefilling})
+    first = eng.step_block(ids)
+    if after_first_block is not None:
+        after_first_block()
+    while any(not eng.sequences[i].done for i in ids):
+        eng.step_block([i for i in ids if not eng.sequences[i].done])
+    lps = [list(eng.sequences[i].logprob_data) for i in ids]
+    return {"tokens": [eng.finish(i) for i in ids], "logprobs": lps,
+            "first_block": [len(first.get(i, [])) for i in ids]}
+
+
+def replayed_step_ms(eng: Engine, graph, block_args, extras_row: bool, reps: int = 20) -> float:
+    """Median device time of one replay of ``graph`` (a decode step over
+    the engine's state) at a serve's block inputs, reloaded before each
+    replay (untimed), with row 0's bias, penalties and logprobs loaded
+    when ``extras_row``. Raw replays: the launch counters are left alone."""
+    tokens, write_at, active, table, fsm = block_args
+    B = len(tokens)
+    lanes = [None] * B
+    if extras_row:
+        lanes[0] = Sequence(-1, 1, params=EXTRAS_ROWS[-1], tokens=[1, 2, 3])
+    zeros = np.zeros((B,), np.float32)
+    budgets = np.full((B,), eng.cfg.decode_block, np.int32)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    with torch.inference_mode():
+        for _ in range(reps + 2):
+            eng._decode.load(tokens, write_at, active, budgets, table, zeros,
+                             zeros.astype(np.int32), zeros + 1, fsm)
+            eng._load_extras(lanes)
+            torch.cuda.synchronize()
+            t0.record()
+            graph.replay()
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+        eng._load_extras([None] * B)
+    return statistics.median(times[2:])
+
+
+def phase_chat_api(seed: int, smi: str, bf16_tol: float) -> dict:
+    """bench-8b at full width and depth on the dma kernels, bf16, one model
+    under two engines: one replays its steps (warmed up), one runs them
+    eagerly through the same kernels. (1) Over HTTP on the replaying
+    engine, an ``n`` = 2 greedy request forcing a named ``tool_choice``:
+    both choices call that tool with arguments that parse, and are equal.
+    (2) ``EXTRAS_ROWS`` as one batch on both engines: greedy tokens equal,
+    logprobs within ``bf16_tol`` (the e2e_bf16 phase's bf16 cost), every
+    row a full first block. (3) A bias of -100 on a plain row's first
+    greedy token moves it. (4) The replaying engine ran no eager step and
+    no hosted one. (5) The decode step's device time: the engine's graph
+    without the extras (what plain batches replay) and its graph with
+    them, an extras row loaded, alternated."""
+    cfg = get_config_preset("bench-8b")
+    model = Llama(cfg, torch.bfloat16, "cuda", seed=seed)
+    tokenizer = ByteTokenizer(cfg.vocab_size)
+    engines = {replay: Engine(EngineConfig(model="bench-8b", dtype=torch.bfloat16,
+                                           device="cuda", seed=seed, num_pages=1024,
+                                           paged_backend="dma", cuda_graphs=replay),
+                              model_cfg=cfg, model=model, tokenizer=tokenizer)
+               for replay in (True, False)}
+    warmup_s = {str(r): e.warmup() for r, e in engines.items()}
+    eng = engines[True]
+    reset_launch_counts()
+
+    # (1) forced tool calls, n = 2, over HTTP.
+    stack = ServingStack(eng)
+    server = make_server(stack, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    body = {"model": "bench-8b", "temperature": 0, "max_tokens": 256, "n": 2,
+            "messages": [{"role": "user", "content": "list the pods in kube-system"}],
+            "tools": CHAT_TOOLS, "logit_bias": CLOSE_BIAS,
+            "tool_choice": {"type": "function", "function": {"name": "kubectl"}}}
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/v1/chat/completions",
+            data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, reply = r.status, json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        stack.close()
+        thread.join(timeout=30)
+    choices = reply["choices"]
+    check(status == 200 and len(choices) == 2, f"chat_api: tool call {status} {reply}")
+    for ch in choices:
+        calls = ch["message"].get("tool_calls") or []
+        check(ch["finish_reason"] == "tool_calls" and calls
+              and calls[0]["function"]["name"] == "kubectl",
+              f"chat_api: choice {ch}")
+        json.loads(calls[0]["function"]["arguments"])
+    check(choices[0]["message"] == choices[1]["message"], f"chat_api: choices differ {choices}")
+    tool_call = {"arguments": choices[0]["message"]["tool_calls"][0]["function"]["arguments"],
+                 "completion_tokens": reply["usage"]["completion_tokens"],
+                 "fsm_loads": eng.fsm_loads, "hosted_steps": eng.hosted_steps}
+
+    # (2) the extras batch, replayed and eager; (5) timed after the
+    # replaying engine's first block, with its rows live.
+    gen = torch.Generator().manual_seed(seed)
+    prompts = [[257] + torch.randint(0, 256, (n,), generator=gen).tolist()
+               for n in (300, 800, 200, 500, 400, 250, 600, 350)]
+    clock = TickClock(eng)
+    timing = {}
+
+    def time_step():
+        graphs = {"plain": eng._graphs["decode", True, False].graph,
+                  "extras_row": eng._graphs["decode", True, True].graph}
+        for key in ("plain", "extras_row", "extras_row", "plain"):
+            timing.setdefault(key, []).append(replayed_step_ms(
+                eng, graphs[key], clock.block_args, key == "extras_row"))
+
+    try:
+        before = (*routes(eng), eng.hosted_steps)
+        runs = {True: extras_batch(eng, prompts, time_step)}
+        after = (*routes(eng), eng.hosted_steps)
+    finally:
+        clock.close()
+    runs[False] = extras_batch(engines[False], prompts)
+    got, want = runs[True], runs[False]
+    check(got["tokens"] == want["tokens"],
+          f"chat_api: replayed extras batch {got['tokens']} != eager {want['tokens']}")
+    lp_err = 0.0
+    for g_row, w_row in zip(got["logprobs"], want["logprobs"]):
+        check(len(g_row) == len(w_row), "chat_api: logprob entries differ in number")
+        for g, w in zip(g_row, w_row):
+            lp_err = max(lp_err, abs(g["logprob"] - w["logprob"]),
+                         *(abs(a[1] - b[1]) for a, b in zip(g["top"], w["top"])))
+    check(lp_err <= bf16_tol, f"chat_api: logprobs off by {lp_err} > {bf16_tol}")
+    check(all(n == eng.cfg.decode_block for n in got["first_block"]),
+          f"chat_api: first block lengths {got['first_block']}")
+    check(len(got["logprobs"][6]) == len(got["tokens"][6]) > 0
+          and all(len(d["top"]) == 5 for d in got["logprobs"][6]),
+          "chat_api: logprobs row entries")
+    # (3) a bias of -100 on a plain row's first greedy token.
+    first = got["tokens"][0][0]
+    moved = eng.generate([prompts[0]], SamplingParams(max_tokens=1,
+                                                      logit_bias=((first, -100.0),)))[0][0]
+    check(moved != first, f"chat_api: a -100 bias left token {first} in place")
+    # (4) no eager step, no hosted one.
+    replays, eager_steps, mixed_replays, eager_ticks, hosted = (
+        a - b for a, b in zip(after, before))
+    check(eng.decode_eager_steps == eng.mixed_eager_ticks == 0 and eng.hosted_steps == 0
+          and replays > 0 and mixed_replays > 0,
+          f"chat_api: routes {routes(eng)}, {eng.hosted_steps} hosted steps")
+    launches = launch_counts()
+    for name, n in launches.items():
+        check((n > 0) == (name in expected_kernels("dma", "", "")),
+              f"chat_api: {name} launched {n} times")
+    med = {k: statistics.median(v) for k, v in timing.items()}
+    out = {
+        "warmup_s": warmup_s, "tool_call": tool_call,
+        "extras_tokens_equal_to_eager": True, "logprobs_max_abs_err": lp_err,
+        "logprobs_tol": bf16_tol, "first_block": got["first_block"],
+        "forbidden_first_token": first, "moved_to": moved,
+        "batch_decode_replays": replays, "batch_mixed_replays": mixed_replays,
+        "hosted_steps": eng.hosted_steps, "decode_eager_steps": eng.decode_eager_steps,
+        "mixed_eager_ticks": eng.mixed_eager_ticks, "launches": launches,
+        "decode_device_ms_per_step": timing,
+        "extras_cost_ms": med["extras_row"] - med["plain"],
+        "extras_cost_share": med["extras_row"] / med["plain"] - 1,
+    }
+    del engines, eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1404,6 +1685,13 @@ def main() -> int:
         for name in expected_kernels(backend, quantize, kv_quantize):
             launches[name] += (serve["launches"][name]
                                + serve["constrained_launches"].get(name, 0))
+
+    t = time.perf_counter()
+    bf16_tol = max(r["plain_vs_f32_max_abs_err"] for r in e2e_bf16.values())
+    chat = phase_chat_api(args.seed, smi, bf16_tol)
+    emit({"phase": "chat_api", "seconds": time.perf_counter() - t, "card": smi, **chat})
+    for name, n in chat["launches"].items():
+        launches[name] += n
 
     # A matmul's row is its decode-step shape (T = 8); the matmul phase
     # line also gives the mixed ticks' shapes (T = 128 and 1024).

@@ -1,7 +1,9 @@
 """Command line: ``python -m opsagent_tpu_torch serve-engine --model-name
 bench-8b --port 8000`` serves OpenAI chat completions from the port's engine
 on the GPU (``--device cpu`` for the CPU); ``--checkpoint DIR --model-name
-auto`` serves an HF safetensors checkpoint with its own config.json. The
+auto`` serves an HF safetensors checkpoint with its own config.json, and
+its ``tokenizer.json`` when the directory holds one (``--tokenizer DIR``
+names another; without either, the byte tokenizer). The
 engine warms up (kernels built, its decode step and mixed ticks captured as
 CUDA graphs on the GPU) before the server starts."""
 
@@ -9,6 +11,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 from .serving.api import ServingStack, make_server
@@ -28,6 +31,11 @@ def main(argv: list[str] | None = None) -> int:
     se.add_argument(
         "--checkpoint", default="",
         help="HF safetensors checkpoint directory (default: random weights)",
+    )
+    se.add_argument(
+        "--tokenizer", default="",
+        help="directory of a byte-level-BPE tokenizer.json (default: the "
+             "checkpoint's, else the byte tokenizer)",
     )
     se.add_argument("--host", default="0.0.0.0")
     se.add_argument("--port", type=int, default=8000)
@@ -51,8 +59,13 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
+    tokenizer = args.tokenizer
+    if not tokenizer and args.checkpoint and os.path.exists(
+            os.path.join(args.checkpoint, "tokenizer.json")):
+        tokenizer = args.checkpoint
     engine = Engine(EngineConfig(
-        model=args.model_name, checkpoint=args.checkpoint, device=args.device,
+        model=args.model_name, checkpoint=args.checkpoint, tokenizer=tokenizer,
+        device=args.device,
         seed=args.seed, quantize=args.quantize, kv_quantize=args.kv_quantize,
         paged_backend=args.paged_backend,
     ))

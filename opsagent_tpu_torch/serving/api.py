@@ -5,12 +5,15 @@ counterpart of ``opsagent_tpu/serving/api.py``).
 ``make_server`` serves it with the standard library's threading HTTP
 server:
 
-- ``POST /v1/chat/completions``: OpenAI chat completion, ``n`` = 1, with
-  ``response_format`` (``json_object``, ``json_schema``: constrained
-  decoding) and ``stream: true`` (server-sent events, ``data: [DONE]``
-  last). ``tool_choice`` that forces a call, ``logprobs``,
-  ``logit_bias``, presence and frequency penalties and ``n`` > 1 are
-  refused with 400, never ignored;
+- ``POST /v1/chat/completions``: OpenAI chat completion with the JAX
+  package's fields and limits: ``tools`` (in the prompt, unless
+  ``tool_choice`` is ``"none"``) and a ``tool_calls`` reply;
+  ``tool_choice`` ``"required"`` or a named function (constrained decoding
+  of a ``tool_calls`` envelope); ``response_format`` (``json_object``,
+  ``json_schema``); ``logit_bias``, presence and frequency penalties;
+  ``logprobs`` with ``top_logprobs``; ``n`` choices (1..8); ``stream:
+  true`` (server-sent events, ``data: [DONE]`` last; not with logprobs or
+  ``n`` > 1). A field out of its limits answers 400 naming it;
 - ``GET /healthz``: liveness plus the engine's resolved execution modes.
 
 HTTP handler threads never touch CUDA: a stream reads the tokens that the
@@ -28,6 +31,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Iterator
 
+from ..utils.jsonrepair import parse_json
 from .chat_template import apply_chat_template
 from .constrained import JsonConstraint, device_table_fsm, json_constraint
 from .engine import Engine
@@ -53,6 +57,25 @@ class ServingStack:
         self.scheduler.stop()
 
     def _sampling_from(self, body: dict[str, Any]) -> SamplingParams:
+        logprobs = bool(body.get("logprobs", False))
+        top_lp = int(body.get("top_logprobs", 0) or 0)
+        if top_lp and not logprobs:
+            raise ValueError("top_logprobs requires logprobs: true")
+        if not 0 <= top_lp <= 20:
+            raise ValueError("top_logprobs must be in 0..20")
+        lb_raw = body.get("logit_bias") or {}
+        if not isinstance(lb_raw, dict):
+            raise ValueError("logit_bias must be an object of id -> bias")
+        logit_bias = []
+        for k, v in lb_raw.items():
+            b = float(v)
+            if not -100.0 <= b <= 100.0:
+                raise ValueError("logit_bias values must be in -100..100")
+            logit_bias.append((int(k), b))
+        pres = float(body.get("presence_penalty", 0.0) or 0.0)
+        freq = float(body.get("frequency_penalty", 0.0) or 0.0)
+        if not -2.0 <= pres <= 2.0 or not -2.0 <= freq <= 2.0:
+            raise ValueError("penalties must be in -2..2")
         stop = body.get("stop") or []
         return SamplingParams(
             temperature=float(body.get("temperature", 0.0) or 0.0),
@@ -60,73 +83,142 @@ class ServingStack:
             top_p=float(body.get("top_p", 1.0) or 1.0),
             max_tokens=int(body.get("max_tokens") or MAX_NEW_TOKENS_DEFAULT),
             stop=(stop,) if isinstance(stop, str) else tuple(stop),
+            logprobs=logprobs,
+            top_logprobs=top_lp,
+            logit_bias=tuple(logit_bias),
+            presence_penalty=pres,
+            frequency_penalty=freq,
         )
 
-    @staticmethod
-    def _refuse_unsupported(body: dict[str, Any]) -> None:
-        """Fields of the OpenAI API that this engine does not implement
-        raise ValueError naming the field, so a client never gets an answer
-        that silently ignored them."""
-        if body.get("tool_choice") not in (None, "auto", "none"):
-            raise ValueError("tool_choice that forces a call is not supported")
-        for name in ("logprobs", "top_logprobs", "logit_bias",
-                     "presence_penalty", "frequency_penalty"):
-            if body.get(name):
-                raise ValueError(f"{name} is not supported")
-        if int(body.get("n", 1) or 1) != 1:
-            raise ValueError("n must be 1")
+    def _tool_choice_constraint(self, body: dict[str, Any]) -> JsonConstraint | None:
+        """OpenAI ``tool_choice`` -> a constraint forcing a ``tool_calls``
+        envelope: ``"required"`` a call of any listed tool, ``{"type":
+        "function", "function": {"name": N}}`` a call of N, its arguments
+        under the tool's parameter schema where the compiler takes it and
+        any JSON where it does not (the JAX package's rule)."""
+        tc = body.get("tool_choice")
+        tools = body.get("tools") or []
+        if tc in (None, "auto", "none"):
+            return None
+        names = [
+            t.get("function", {}).get("name")
+            for t in tools
+            if isinstance(t, dict) and t.get("function", {}).get("name")
+        ]
+        if not names:
+            raise ValueError("tool_choice requires a non-empty tools list")
+        args_schema: Any = {}
+        if tc == "required":
+            name_schema: dict[str, Any] = {"enum": names}
+        elif isinstance(tc, dict) and tc.get("type") == "function":
+            want = tc.get("function", {}).get("name")
+            if want not in names:
+                raise ValueError(f"tool_choice names unknown function {want!r}")
+            name_schema = {"enum": [want]}
+            for t in tools:
+                if isinstance(t, dict) and t.get("function", {}).get("name") == want:
+                    args_schema = t["function"].get("parameters") or {}
+        else:
+            raise ValueError(f"unsupported tool_choice {tc!r}")
+
+        def envelope(args: Any) -> dict[str, Any]:
+            return {
+                "type": "object",
+                "properties": {
+                    "tool_calls": {
+                        "type": "array",
+                        "minItems": 1,
+                        "items": {
+                            "type": "object",
+                            "properties": {
+                                "function": {
+                                    "type": "object",
+                                    "properties": {"name": name_schema, "arguments": args},
+                                },
+                            },
+                        },
+                    },
+                },
+            }
+
+        # depth=8: the envelope takes 4 nesting levels (object -> array ->
+        # item -> function), so at the default depth "arguments" would
+        # compile at depth 0, primitives only.
+        try:
+            return json_constraint(self.engine.tokenizer, envelope(args_schema), depth=8)
+        except ValueError:
+            # A parameter schema outside the compiler's subset: the
+            # envelope and the name are still forced, the arguments are
+            # any JSON.
+            return json_constraint(self.engine.tokenizer, envelope({}), depth=8)
 
     def _constraint_from(self, body: dict[str, Any]) -> JsonConstraint | None:
-        """OpenAI ``response_format`` -> constrained-decoding mask_fn:
-        ``json_object`` constrains to any JSON value, ``json_schema`` to the
-        given schema. An unknown type, a malformed schema or one whose DFA
-        is over the limit raises ValueError."""
+        """OpenAI ``response_format`` or a forcing ``tool_choice`` ->
+        constrained-decoding mask_fn: ``json_object`` constrains to any
+        JSON value, ``json_schema`` to the given schema. Both at once, an
+        unknown type, a malformed schema or one whose DFA is over the
+        limit raises ValueError."""
         rf = body.get("response_format")
-        if not rf:
-            return None
-        if not isinstance(rf, dict):
-            raise ValueError(f"response_format must be an object, got {rf!r}")
-        kind = rf.get("type")
-        if kind == "json_object":
-            schema = None
-        elif kind == "json_schema":
-            spec = rf.get("json_schema") or {}
-            if not isinstance(spec, dict):
-                raise ValueError("response_format.json_schema must be an object")
-            if "schema" in spec:
-                schema = spec["schema"]
-            elif any(k in spec for k in ("type", "properties", "enum", "items")):
-                schema = spec  # schema passed bare, not nested under "schema"
+        mask_fn = self._tool_choice_constraint(body)
+        if rf and mask_fn is not None:
+            raise ValueError(
+                "response_format and a forcing tool_choice cannot be "
+                "combined (one constrained-decoding grammar per request)"
+            )
+        if rf:
+            if not isinstance(rf, dict):
+                raise ValueError(f"response_format must be an object, got {rf!r}")
+            kind = rf.get("type")
+            if kind == "json_object":
+                schema = None
+            elif kind == "json_schema":
+                spec = rf.get("json_schema") or {}
+                if not isinstance(spec, dict):
+                    raise ValueError("response_format.json_schema must be an object")
+                if "schema" in spec:
+                    schema = spec["schema"]
+                elif any(k in spec for k in ("type", "properties", "enum", "items")):
+                    schema = spec  # schema passed bare, not nested under "schema"
+                else:
+                    raise ValueError(
+                        "response_format.json_schema carries no schema "
+                        '(expected a "schema" member or an inline JSON schema)'
+                    )
+                if not isinstance(schema, dict):
+                    raise ValueError("json_schema.schema must be an object")
             else:
-                raise ValueError(
-                    "response_format.json_schema carries no schema "
-                    '(expected a "schema" member or an inline JSON schema)'
-                )
-            if not isinstance(schema, dict):
-                raise ValueError("json_schema.schema must be an object")
-        else:
-            raise ValueError(f"unsupported response_format type {kind!r}")
-        mask_fn = json_constraint(self.engine.tokenizer, schema or None)
-        # The dense device tables, where they fit, are built here on the
-        # handler's thread rather than on the scheduler's.
-        device_table_fsm(mask_fn)
+                raise ValueError(f"unsupported response_format type {kind!r}")
+            mask_fn = json_constraint(self.engine.tokenizer, schema or None)
+        if mask_fn is not None:
+            # The dense device tables, where they fit, are built here on
+            # the handler's thread rather than on the scheduler's.
+            device_table_fsm(mask_fn)
         return mask_fn
+
+    def _prompt_ids(self, body: dict[str, Any]) -> list[int]:
+        # tool_choice "none": the model must not see the tools at all.
+        tools = None if body.get("tool_choice") == "none" else body.get("tools")
+        return apply_chat_template(
+            self.engine.tokenizer, body.get("messages", []),
+            model_family=self.model_name, tools=tools,
+        )
 
     def _translate(
         self, body: dict[str, Any]
     ) -> tuple[SamplingParams, list[int], JsonConstraint | None]:
-        """(sampling, prompt ids, mask_fn) of a request; a malformed or
-        unsupported one raises RequestError 400."""
+        """(sampling, prompt ids, mask_fn) of a request; a malformed one
+        raises RequestError 400."""
         try:
-            self._refuse_unsupported(body)
-            sampling = self._sampling_from(body)
-            prompt_ids = apply_chat_template(
-                self.engine.tokenizer, body.get("messages", []),
-                model_family=self.model_name,
-            )
-            return sampling, prompt_ids, self._constraint_from(body)
+            return self._sampling_from(body), self._prompt_ids(body), self._constraint_from(body)
         except (ValueError, TypeError, KeyError) as e:
             raise RequestError(f"invalid request: {e}", 400) from e
+
+    @staticmethod
+    def _choices(body: dict[str, Any]) -> int:
+        try:
+            return int(body.get("n", 1) or 1)
+        except (TypeError, ValueError) as e:
+            raise RequestError(f"invalid n: {e}", 400) from e
 
     def _finalize_text(
         self, tokens: list[int], stop: tuple[str, ...], finish_reason: str
@@ -142,42 +234,125 @@ class ServingStack:
                 text, finish = text[:idx], "stop"
         return text, finish
 
+    @staticmethod
+    def _parse_tool_calls(text: str) -> list[dict[str, Any]] | None:
+        """The calls of a reply that is a ``{"tool_calls": [...]}`` object
+        (repaired by ``parse_json`` where it is sloppy), or None."""
+        t = text.strip()
+        if '"tool_calls"' not in t:
+            return None
+        try:
+            obj = parse_json(t)
+        except ValueError:
+            return None
+        calls = obj.get("tool_calls") if isinstance(obj, dict) else None
+        if not isinstance(calls, list) or not calls:
+            return None
+        out = []
+        for i, c in enumerate(calls):
+            fn = c.get("function", {}) if isinstance(c, dict) else {}
+            args = fn.get("arguments", "")
+            if not isinstance(args, str):
+                args = json.dumps(args, ensure_ascii=False)
+            out.append({
+                "id": c.get("id") or f"call_{i}",
+                "type": "function",
+                "function": {"name": fn.get("name", ""), "arguments": args},
+            })
+        return out
+
+    def _build_choice(
+        self, index: int, req: Request, sampling: SamplingParams
+    ) -> dict[str, Any]:
+        """One choice: the text, or ``tool_calls`` with finish_reason
+        "tool_calls" when the reply is a call; with ``logprobs``, one entry
+        per token of the text as it stands after the stop-string cut."""
+        tokens = req.tokens
+        text, finish = self._finalize_text(tokens, sampling.stop, req.finish_reason)
+        message: dict[str, Any] = {"role": "assistant", "content": text}
+        tool_calls = self._parse_tool_calls(text)
+        if tool_calls:
+            message = {"role": "assistant", "content": None, "tool_calls": tool_calls}
+            finish = "tool_calls"
+        choice: dict[str, Any] = {"index": index, "message": message, "finish_reason": finish}
+        if sampling.logprobs:
+            tok = self.engine.tokenizer
+            lp_toks = tokens[:-1] if tokens and tokens[-1] == tok.eos_id else tokens
+            if finish == "stop" and sampling.stop:
+                # Keep the tokens whose decode fits before the stop
+                # string's start: a token the cut splits is dropped, so
+                # the entries never run past the content.
+                full = tok.decode(lp_toks)
+                hits = [h for h in (full.find(s) for s in sampling.stop) if h >= 0]
+                if hits:
+                    cut, keep = min(hits), 0
+                    for n in range(1, len(lp_toks) + 1):
+                        if len(tok.decode(lp_toks[:n])) > cut:
+                            break
+                        keep = n
+                    lp_toks = lp_toks[:keep]
+            choice["logprobs"] = {
+                "content": [
+                    {
+                        # token_str, not decode([t]): decode skips specials
+                        # and mangles half of a multi-byte character.
+                        "token": tok.token_str(t),
+                        "logprob": d["logprob"],
+                        "top_logprobs": [
+                            {"token": tok.token_str(i), "logprob": lp} for i, lp in d["top"]
+                        ],
+                    }
+                    for t, d in zip(lp_toks, req.logprob_data)
+                ]
+            }
+        return choice
+
     def chat_completion(self, body: dict[str, Any]) -> dict[str, Any]:
-        """One OpenAI chat completion (``n`` = 1, no streaming)."""
+        """One OpenAI chat completion of ``n`` choices (no streaming): ``n``
+        requests of one prompt (the prefix cache shares its pages), each
+        with its own constraint instance (a ``JsonConstraint`` walks one
+        sequence's DFA); usage sums their tokens."""
         sampling, prompt_ids, mask_fn = self._translate(body)
+        n = self._choices(body)
+        if not 1 <= n <= 8:
+            raise RequestError("n must be in 1..8", 400)
         created = int(time.time())
-        req = self.scheduler.submit(Request(prompt_ids, sampling, mask_fn=mask_fn))
-        if not req.done.wait(600):
-            raise RequestError("generation timed out", 504)
-        if req.error:
-            raise RequestError(req.error, req.error_status)
-        text, finish = self._finalize_text(
-            req.tokens, sampling.stop, req.finish_reason
-        )
+        mask_fns = [mask_fn] + [self._constraint_from(body) for _ in range(n - 1)]
+        reqs = [self.scheduler.submit(Request(list(prompt_ids), sampling, mask_fn=m))
+                for m in mask_fns]
+        deadline = time.monotonic() + 600
+        for req in reqs:
+            if not req.done.wait(max(0.0, deadline - time.monotonic())):
+                raise RequestError("generation timed out", 504)
+        for req in reqs:
+            if req.error:
+                raise RequestError(req.error, req.error_status)
+        completion = sum(len(r.tokens) for r in reqs)
         return {
             "id": f"chatcmpl-{uuid.uuid4().hex[:24]}",
             "object": "chat.completion",
             "created": created,
             "model": body.get("model") or self.model_name,
-            "choices": [{
-                "index": 0,
-                "message": {"role": "assistant", "content": text},
-                "finish_reason": finish,
-            }],
+            "choices": [self._build_choice(i, r, sampling) for i, r in enumerate(reqs)],
             "usage": {
                 "prompt_tokens": len(prompt_ids),
-                "completion_tokens": len(req.tokens),
-                "total_tokens": len(prompt_ids) + len(req.tokens),
+                "completion_tokens": completion,
+                "total_tokens": len(prompt_ids) + completion,
             },
-            "ttft_s": req.ttft_s,
+            "ttft_s": reqs[0].ttft_s,
         }
 
     def chat_completion_stream(self, body: dict[str, Any]) -> Iterator[dict[str, Any]]:
         """One chat completion as a generator of SSE chunk dicts. Nothing
         is yielded until the admission's outcome is known: a request that
         fails admission raises RequestError from the first ``next``, so the
-        server answers it with an HTTP status, not a 200 stream."""
+        server answers it with an HTTP status, not a 200 stream. Neither
+        logprobs nor ``n`` > 1 streams: both answer 400."""
         sampling, prompt_ids, mask_fn = self._translate(body)
+        if sampling.logprobs:
+            raise RequestError("logprobs are not supported with stream: true", 400)
+        if self._choices(body) != 1:
+            raise RequestError("n > 1 is not supported with stream", 400)
         token_q: "queue.Queue[int | None]" = queue.Queue()
         req = self.scheduler.submit(
             Request(prompt_ids, sampling, mask_fn=mask_fn, on_token=token_q.put)

@@ -1,9 +1,12 @@
-"""Chat-template application per model family.
+"""Chat-template application per model family (the port's copy of
+``opsagent_tpu/serving/chat_template.py``).
 
 Renders OpenAI-style message lists (+ optional tool schemas) into the token
-stream each model family was trained on. With an ``HFTokenizer`` whose
-tokenizer ships a chat template, that template wins; otherwise family-specific
-string templates are used. The ``ByteTokenizer`` gets a simple marker-based
+stream each model family was trained on: ChatML (``render_qwen``) for Qwen
+and DeepSeek, the Llama-3 header template otherwise, as the JAX package
+renders them for a tokenizer with no chat template of its own. A
+tokenizer's own Jinja chat template is not run (the JAX package runs it
+through ``transformers``). The ``ByteTokenizer`` gets a simple marker-based
 template that is trivially learnable by test models and unambiguous to parse.
 """
 
@@ -109,13 +112,6 @@ def apply_chat_template(
     """messages -> prompt token ids ready for prefill."""
     if isinstance(tokenizer, ByteTokenizer):
         return byte_template_ids(tokenizer, messages, tools)
-    hf = getattr(tokenizer, "hf", None)
-    if hf is not None and getattr(hf, "chat_template", None):
-        return hf.apply_chat_template(
-            _merge_tools_into_system(messages, tools),
-            add_generation_prompt=True,
-            tokenize=True,
-        )
     family = model_family.lower()
     if "qwen" in family or "deepseek" in family:
         text = render_qwen(messages, tools)

@@ -32,6 +32,16 @@ before it picks, and the rows that emit advance their ``fsm`` through the
 destination table on the device. Unconstrained rows sit at row 0 with an
 all-true host row, so the same bodies, and the same graphs, serve every
 kind of row.
+
+Given ``extras``, both bodies also run the OpenAI sampler extras (JAX's
+``_bias_array`` and ``_decode_sample_lp``): each row's logits are adjusted
+by its static ``logit_bias`` row minus its presence and frequency
+penalties over the tokens it emitted (``SamplingExtras``, counted on the
+device), and the logprob of the token picked and the top 20 come from
+those adjusted logits before the constraint mask. A row that asks for
+none of them holds zeros, and its logits are bit-equal to the unadjusted
+ones. The engine captures each body with and without them: a step with
+no such row replays the graph without.
 """
 
 from __future__ import annotations
@@ -108,6 +118,83 @@ class FsmTables(StaticBuffers):
         return torch.take(self.dest, fsm.long() * self.dest.shape[1] + tok)
 
 
+# Alternatives kept per position: OpenAI caps top_logprobs at 20, and a
+# fixed width keeps the shapes static.
+LOGPROB_TOP = 20
+
+
+@dataclass
+class SamplingExtras(StaticBuffers):
+    """OpenAI ``logit_bias``, presence and frequency penalties and
+    logprobs, shared by the decode step and every mixed bucket. The
+    engine loads ``bias``, ``counts``, ``pres`` and ``freq`` for the rows
+    that ask for them and keeps every other row at zero; the bodies add
+    one to ``counts[row, token]`` for each token a row emits and write the
+    logprob outputs of every row."""
+
+    bias: torch.Tensor          # [B, V] f32 each row's static logit_bias
+    counts: torch.Tensor        # [B, V] f32 tokens each row has emitted
+    pres: torch.Tensor          # [B] f64 presence penalty
+    freq: torch.Tensor          # [B] f64 frequency penalty
+    lp: torch.Tensor            # [B, decode_block] f32 the picked token's logprob
+    lp_ids: torch.Tensor        # [B, decode_block, 20] int32 the top 20 ids
+    lp_top: torch.Tensor        # [B, decode_block, 20] f32 and their logprobs
+    mixed_lp: torch.Tensor      # [B] f32, the same for a mixed tick
+    mixed_lp_ids: torch.Tensor  # [B, 20] int32
+    mixed_lp_top: torch.Tensor  # [B, 20] f32
+
+    @classmethod
+    def empty(
+        cls, batch: int, vocab: int, decode_block: int, renderable: int,
+        device: torch.device,
+    ) -> SamplingExtras:
+        """Buffers at zero. ``renderable``: the tokenizer's vocab; ids at or
+        past it (a model's padded vocab) never appear among the top 20."""
+        def zeros(*shape: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        out = cls(
+            bias=zeros(batch, vocab), counts=zeros(batch, vocab),
+            pres=zeros(batch, dtype=torch.float64), freq=zeros(batch, dtype=torch.float64),
+            lp=zeros(batch, decode_block),
+            lp_ids=zeros(batch, decode_block, LOGPROB_TOP, dtype=torch.int32),
+            lp_top=zeros(batch, decode_block, LOGPROB_TOP), mixed_lp=zeros(batch),
+            mixed_lp_ids=zeros(batch, LOGPROB_TOP, dtype=torch.int32),
+            mixed_lp_top=zeros(batch, LOGPROB_TOP),
+        )
+        out.renderable = min(renderable, vocab)
+        return out
+
+    def adjust(self, logits: torch.Tensor) -> torch.Tensor:
+        """``logits`` + each row's static bias minus, at each token it has
+        emitted, presence + frequency x count: the JAX engine's
+        ``logits + _bias_array(...)``, the bias taken from the counts on
+        the device rather than rebuilt on the host each step. The penalty
+        is summed in f64 and rounded once, as the JAX engine's host sum of
+        Python floats is, so both give the same f32 bias."""
+        pen = torch.where(
+            self.counts > 0, self.pres[:, None] + self.freq[:, None] * self.counts, 0.0
+        ).to(torch.float32)
+        return logits + (self.bias - pen)
+
+    def logprobs(
+        self, adj: torch.Tensor, tok: torch.Tensor,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(logprob of ``tok`` [B], top-20 ids [B, 20] int32, their logprobs
+        [B, 20]) under ``log_softmax(adj)``, ids past ``renderable`` out of
+        the top 20 (JAX's ``_decode_sample_lp``)."""
+        lp = torch.log_softmax(adj.float(), dim=-1)
+        chosen = lp.gather(1, tok[:, None])[:, 0]
+        if self.renderable < lp.shape[1]:
+            lp[:, self.renderable:] = float("-inf")
+        top, ids = torch.topk(lp, LOGPROB_TOP, dim=-1)
+        return chosen, ids.to(torch.int32), top
+
+    def count(self, tok: torch.Tensor, emits: torch.Tensor) -> None:
+        """One more of ``tok`` for each row that ``emits``."""
+        self.counts.scatter_add_(1, tok[:, None], emits.to(self.counts.dtype)[:, None])
+
+
 @dataclass
 class DecodeState(StaticBuffers):
     """The block's loop state, one set of buffers per engine."""
@@ -182,22 +269,34 @@ def decode_step_body(
     backend: str = "dma",
     *,
     tables: FsmTables,
+    extras: SamplingExtras | None = None,
 ) -> None:
     """One decode + sample step over ``state``, in place: writes each
-    active row's K/V, masks the logits by ``tables`` at each row's ``fsm``,
-    samples (``greedy``: an argmax, the sampler otherwise), advances the
-    active rows' ``fsm``, writes column ``state.step`` of ``state.out``,
-    advances the write offsets, retires rows that sampled EOS or spent
-    their budget, and increments ``state.step``. ``plain`` and ``backend``
-    pass to ``Llama.decode_step``. No host sync."""
+    active row's K/V, adjusts the logits by ``extras`` (bias and
+    penalties), masks them by ``tables`` at each row's ``fsm``, samples
+    (``greedy``: an argmax, the sampler otherwise), writes the logprob
+    outputs and the counts of ``extras``, advances the active rows'
+    ``fsm``, writes column ``state.step`` of ``state.out``, advances the
+    write offsets, retires rows that sampled EOS or spent their budget,
+    and increments ``state.step``. ``plain`` and ``backend`` pass to
+    ``Llama.decode_step``. No host sync."""
     s = state
     logits = model.decode_step(s.tok, s.at, cache, s.page_table, s.act, plain, backend)
+    if extras is not None:
+        logits = extras.adjust(logits)
     allowed = tables.allowed(s.fsm)
     if greedy:
         nxt = torch.where(allowed, logits, NEG_INF).argmax(dim=-1)
     else:
         nxt = sample(logits, generator, s.temps, s.top_k, s.top_p, allowed)
     nxt = torch.where(s.act, nxt, s.tok)
+    if extras is not None:
+        col = s.step.view(1)
+        chosen, ids, top = extras.logprobs(logits, nxt)
+        extras.lp.index_copy_(1, col, chosen[:, None])
+        extras.lp_ids.index_copy_(1, col, ids[:, None])
+        extras.lp_top.index_copy_(1, col, top[:, None])
+        extras.count(nxt, s.act)
     s.fsm.copy_(torch.where(s.act, tables.advance(s.fsm, nxt), s.fsm))
     s.out.index_copy_(1, s.step.view(1), torch.where(s.act, nxt, pad_id)[:, None])
     s.at.add_(s.act.to(torch.int32))
@@ -294,17 +393,27 @@ def mixed_step_body(
     backend: str = "dma",
     *,
     tables: FsmTables,
+    extras: SamplingExtras | None = None,
 ) -> None:
     """One mixed tick over ``state``, in place: ``Llama.mixed_step`` writes
     every row's valid K/V, and each row's token from its last valid
-    position's logits, masked by ``tables`` at the row's ``fsm``, goes to
-    ``state.out``. Every row samples; the caller discards the rows whose
+    position's logits, adjusted by ``extras`` and masked by ``tables`` at
+    the row's ``fsm``, goes to ``state.out``, its logprobs to ``extras``'
+    mixed outputs. Every row samples; the caller discards the rows whose
     chunk does not finish a prompt, and only the rows that emit advance
-    their ``fsm``. No host sync."""
+    their ``fsm`` and their counts. No host sync."""
     logits = model.mixed_step(
         state.tokens, state.start, state.q_lens, cache, state.page_table, plain, backend,
     )
+    if extras is not None:
+        logits = extras.adjust(logits)
     allowed = tables.allowed(state.fsm)
     tok = sample(logits, generator, state.temps, state.top_k, state.top_p, allowed)
     state.out.copy_(tok)
+    if extras is not None:
+        chosen, ids, top = extras.logprobs(logits, tok)
+        extras.mixed_lp.copy_(chosen)
+        extras.mixed_lp_ids.copy_(ids)
+        extras.mixed_lp_top.copy_(top)
+        extras.count(tok, state.emits)
     state.fsm.copy_(torch.where(state.emits, tables.advance(state.fsm, tok), state.fsm))

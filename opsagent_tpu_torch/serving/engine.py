@@ -23,6 +23,15 @@ at a time; it reloads when no live row uses it. Any other constrained row
 computes its mask, and it advances one token per ``step_block`` call, in a
 one-step block of its own, beside the full block of the other rows.
 
+The OpenAI sampler extras (``logit_bias``, presence and frequency
+penalties, logprobs) run on the device too (``SamplingExtras``), in a
+second graph of each step body: a block or tick whose rows ask for none
+of them replays the plain graph, one with such a row the extras graph.
+The engine loads the static bias, the host's token counts and the
+penalties of the rows that ask for them, and the body keeps counting on
+the device; a row asking for logprobs reads them back with its tokens.
+Such rows keep their full block.
+
 ``EngineConfig.quantize`` and ``kv_quantize`` select int8/int4 weights
 (every projection through the quantized matmul kernel) and int8 KV pages
 (the attention kernels' int8 instances); ``paged_backend`` picks the
@@ -36,6 +45,7 @@ or snapshots in this port yet.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from dataclasses import dataclass, field, replace
@@ -56,13 +66,14 @@ from .decode_loop import (
     DecodeState,
     FsmTables,
     MixedState,
+    SamplingExtras,
     decode_block,
     decode_step_body,
     mixed_step_body,
 )
 from .kvcache import InvalidRequest, OutOfPages, PageAllocator
 from .sampler import SamplingParams
-from .tokenizer import ByteTokenizer, Tokenizer
+from .tokenizer import Tokenizer, load_tokenizer
 
 log = logging.getLogger("opsagent_tpu_torch.engine")
 
@@ -76,6 +87,9 @@ class EngineConfig:
     model: str = "tiny-test"
     # HF safetensors directory; "" = random weights from ``seed``.
     checkpoint: str = ""
+    # A directory holding a byte-level-BPE tokenizer.json; "" = the byte
+    # tokenizer over the model's vocab.
+    tokenizer: str = ""
     dtype: torch.dtype = torch.bfloat16
     page_size: int = 16
     num_pages: int = 2048
@@ -111,7 +125,8 @@ class EngineConfig:
     # "plain" runs whatever the backend.
     paged_backend: str = "dma"
     # On the card with the kernels: True captures the decode step (greedy
-    # and sampled) and each mixed bucket's forward + sample as CUDA graphs
+    # and sampled) and each mixed bucket's forward + sample, each with and
+    # without the sampler extras, as CUDA graphs
     # (``warmup``, or the first step that needs them) and replays them;
     # False runs the same steps eagerly through the same kernels, the
     # reference a replay is checked against. The plain path and the CPU
@@ -132,6 +147,13 @@ class Sequence:
     on_token: Callable[[int], None] | None = None   # each accepted token
     done: bool = False
     finish_reason: str = ""        # "stop" | "length" | "error"
+    # Per generated token, when params.logprobs: {"logprob": float,
+    # "top": [(token_id, logprob), ...][:params.top_logprobs]}.
+    logprob_data: list[dict] = field(default_factory=list)
+    # The static logit_bias row [V] (built on first use).
+    static_bias: np.ndarray | None = None
+    # {token_id: count} of the generated tokens, for the penalties.
+    penalty_counts: dict[int, int] | None = None
 
 
 class Engine:
@@ -169,7 +191,7 @@ class Engine:
                 f"quantize={cfg.quantize!r} but the given model holds "
                 f"{model.quantize or 'unquantized'!r} weights"
             )
-        self.tokenizer = tokenizer or ByteTokenizer(self.model_cfg.vocab_size)
+        self.tokenizer = tokenizer or load_tokenizer(cfg.tokenizer, self.model_cfg.vocab_size)
         with torch.inference_mode():
             self.model = model if model is not None else self._build_model()
             self.cache = self.model.make_cache(
@@ -195,9 +217,16 @@ class Engine:
             V = self.model_cfg.vocab_size
             rows = NATIVE_TABLE_BUDGET // V if self._replays() else 1
             self._fsm = FsmTables.empty(cfg.max_batch_size, V, rows, self.device)
+            self._extras = SamplingExtras.empty(
+                cfg.max_batch_size, V, cfg.decode_block, self.tokenizer.vocab_size,
+                self.device,
+            )
+        # Batch rows whose bias or penalties the last extras load set.
+        self._extras_rows: set[int] = set()
         self._fsm_loaded: TokenFSM | None = None
         self._host_rows = False     # host_mask holds a hosted row's mask
-        # ("decode", greedy) and ("mixed", bucket) -> graph, made by warmup.
+        # ("decode", greedy, extras) and ("mixed", bucket, extras) -> graph,
+        # made by warmup.
         self._graphs: dict[tuple[str, object], StepGraph] = {}
         self._warm = False
         # Decode steps and mixed ticks run by graph replay and eagerly.
@@ -342,6 +371,9 @@ class Engine:
 
     def _accept_token(self, seq: Sequence, token: int) -> None:
         seq.tokens.append(token)
+        if seq.params.presence_penalty or seq.params.frequency_penalty:
+            seq.penalty_counts = self._seen(seq)
+            seq.penalty_counts[token] = seq.penalty_counts.get(token, 0) + 1
         if seq.on_token is not None:
             try:
                 seq.on_token(token)
@@ -362,6 +394,70 @@ class Engine:
         longest = max(len(s) for s in seq.params.stop)
         tail = self.tokenizer.decode(seq.tokens[-(longest * 4 + 8):])
         return any(s in tail for s in seq.params.stop)
+
+    # -- logit bias, penalties, logprobs ---------------------------------------
+    @staticmethod
+    def _seen(s: Sequence) -> dict[int, int]:
+        """The row's {token: count} for the penalties: its generated
+        tokens, or ``penalty_history`` before the first one."""
+        if s.penalty_counts is not None:
+            return s.penalty_counts
+        seen: dict[int, int] = {}
+        for t in s.params.penalty_history:
+            seen[t] = seen.get(t, 0) + 1
+        return seen
+
+    @staticmethod
+    def _needs_bias(s: Sequence) -> bool:
+        p = s.params
+        return bool(p.logit_bias or p.presence_penalty or p.frequency_penalty)
+
+    def _wants_extras(self, lanes: list[Sequence | None]) -> bool:
+        """Whether a step over ``lanes`` takes the extras graph: a lane
+        asks for a bias, a penalty or logprobs."""
+        return any(s is not None and (s.params.logprobs or self._needs_bias(s))
+                   for s in lanes)
+
+    def _load_extras(self, lanes: list[Sequence | None]) -> bool:
+        """Load ``SamplingExtras`` for one extras step over ``lanes`` (batch
+        row i = lanes[i]; None where the row's token is not kept): the
+        static bias, the token counts and the penalties of each lane that
+        asks for them, zeros in the rows that held another's. Copies
+        nothing when no row needs one now or held one before. Returns
+        whether a lane asks for logprobs. Under inference mode."""
+        x, V = self._extras, self.model_cfg.vocab_size
+        want = {i: s for i, s in enumerate(lanes) if s is not None and self._needs_bias(s)}
+        if want or self._extras_rows:
+            for i in self._extras_rows - want.keys():
+                x.bias[i].zero_()
+            pres = np.zeros(x.pres.shape, np.float64)
+            freq = np.zeros(x.freq.shape, np.float64)
+            for i, s in want.items():
+                p = s.params
+                if s.static_bias is None:
+                    s.static_bias = np.zeros((V,), np.float32)
+                    for tid, b in p.logit_bias:
+                        if 0 <= tid < V:
+                            s.static_bias[tid] += b
+                x.bias[i].copy_(torch.from_numpy(s.static_bias))
+                if p.presence_penalty or p.frequency_penalty:
+                    counts = np.zeros((V,), np.float32)
+                    for tid, c in self._seen(s).items():
+                        if 0 <= tid < V:
+                            counts[tid] = c
+                    x.counts[i].copy_(torch.from_numpy(counts))
+                    pres[i], freq[i] = p.presence_penalty, p.frequency_penalty
+            x.pres.copy_(torch.from_numpy(pres))
+            x.freq.copy_(torch.from_numpy(freq))
+            self._extras_rows = set(want)
+        return any(s is not None and s.params.logprobs for s in lanes)
+
+    @staticmethod
+    def _logprob_entry(s: Sequence, lp, ids, top) -> dict:
+        """One token's ``logprob_data`` entry from a row's pulled outputs."""
+        n = min(s.params.top_logprobs, len(ids))
+        return {"logprob": float(lp),
+                "top": [(int(ids[k]), float(top[k])) for k in range(n)]}
 
     # -- constrained decoding -------------------------------------------------
     def _fsm_routes(self, seqs: list[Sequence]) -> dict[int, bool]:
@@ -523,21 +619,29 @@ class Engine:
             if host.get(s.seq_id) is not None:
                 masks[i] = host[s.seq_id]
         temps, top_k, top_p = self._sampling_arrays(slots, B)
+        lanes = [s if emits[i] else None for i, s in enumerate(slots)]
+        extras = self._wants_extras(lanes)
+        lp = None
         try:
             with torch.inference_mode():
                 if self._replays():
-                    step = self._prepare()[("mixed", S)].replay
+                    step = self._prepare()[("mixed", S, extras)].replay
                     self.mixed_replays += 1
                 else:
-                    step = self._mixed_body(S, self._generator)
+                    step = self._mixed_body(S, extras, self._generator)
                     self.mixed_eager_ticks += 1
                 self._load_host_masks(masks)
+                want_lp = extras and self._load_extras(lanes)
                 state = self._mixed[S]
                 state.load(tokens, starts, qlens, tables, temps, top_k, top_p, fsm, emits)
                 # Every row samples; rows whose chunk does not finish the
                 # prompt discard their token below.
                 step()
                 sampled = state.out.cpu().numpy()
+                if want_lp:
+                    x = self._extras
+                    lp = (x.mixed_lp.cpu().numpy(), x.mixed_lp_ids.cpu().numpy(),
+                          x.mixed_lp_top.cpu().numpy())
         except Exception:
             # Undo the decode rows' bookings (tokens never written) and drop
             # the chunk admissions before the failure propagates.
@@ -548,6 +652,8 @@ class Engine:
                 self._drop_admission(sid)
             raise
         for i, s in enumerate(decode):
+            if lp is not None and s.params.logprobs:
+                s.logprob_data.append(self._logprob_entry(s, *(a[i] for a in lp)))
             self._accept_token(s, int(sampled[i]))
             decode_out[s.seq_id] = [int(sampled[i])]
         for j, (sid, seq, done, c) in enumerate(chunks):
@@ -557,6 +663,9 @@ class Engine:
                 continue
             del self._prefilling[sid]
             if not seq.done:  # a failed mask ended it already
+                if lp is not None and seq.params.logprobs:
+                    seq.logprob_data.append(
+                        self._logprob_entry(seq, *(a[base + j] for a in lp)))
                 self._accept_token(seq, int(sampled[base + j]))
         return decode_out, prefill_out
 
@@ -620,26 +729,35 @@ class Engine:
         )
         temps, top_k, top_p = self._sampling_arrays(lanes, B)
         greedy = bool(np.all(temps <= 0.0))
+        extras = self._wants_extras(lanes)
         n_steps = int(budgets.max())
         with torch.inference_mode():
             if self._replays():
-                step = self._prepare()[("decode", greedy)].replay
+                step = self._prepare()[("decode", greedy, extras)].replay
                 self.decode_replays += n_steps
             else:
-                step = self._decode_body(greedy, self._generator)
+                step = self._decode_body(greedy, extras, self._generator)
                 self.decode_eager_steps += n_steps
             self.hosted_steps += len(masks) * n_steps
             self._load_host_masks(masks)
+            want_lp = extras and self._load_extras(lanes)
             toks = decode_block(
                 self._decode, step, tokens, write_at, active, budgets, table,
                 temps, top_k, top_p, n_steps=n_steps, fsm=fsm,
             ).cpu().numpy()
+            lp = None
+            if want_lp:
+                x = self._extras
+                lp = (x.lp[:, :n_steps].cpu().numpy(), x.lp_ids[:, :n_steps].cpu().numpy(),
+                      x.lp_top[:, :n_steps].cpu().numpy())
         out: dict[int, list[int]] = {}
         for i, s in enumerate(lanes):
             if s is None:
                 continue
             n0 = len(s.tokens)
             for j in range(int(budgets[i])):
+                if lp is not None and s.params.logprobs:
+                    s.logprob_data.append(self._logprob_entry(s, *(a[i, j] for a in lp)))
                 self._accept_token(s, int(toks[i, j]))
                 if s.done:
                     break
@@ -654,7 +772,8 @@ class Engine:
         """Prepare the serving programs before the first request (the
         counterpart of the JAX engine's ``warmup``): builds the kernels and
         runs each step body eagerly twice (the decode step greedy and
-        sampled, the mixed tick at every bucket) over an all -1 page table
+        sampled, the mixed tick at every bucket, each with and without the
+        sampler extras) over an all -1 page table
         with every row inactive, so that each kernel instance's one-time
         set-up and the split calls' workspaces happen outside a capture;
         then, on the card with the kernels, captures each body as a CUDA
@@ -682,44 +801,51 @@ class Engine:
         sampling = (idle.astype(np.float32), idle, np.ones((B,), np.float32))
         spare = torch.Generator(device=self.device)
         bodies = {}
-        for greedy in (True, False):
+        for greedy, extras in itertools.product((True, False), (False, True)):
             for _ in range(2):
                 decode_block(
-                    self._decode, self._decode_body(greedy, spare), idle, idle,
+                    self._decode, self._decode_body(greedy, extras, spare), idle, idle,
                     idle.astype(bool), idle, table, *sampling, n_steps=1,
                 )
-            bodies["decode", greedy] = (
-                self._decode, self._decode_body(greedy, self._generator)
+            bodies["decode", greedy, extras] = (
+                self._decode, self._decode_body(greedy, extras, self._generator)
             )
         for S, state in self._mixed.items():
             state.load(np.zeros((B, S), np.int64), idle, idle, table, *sampling)
-            for _ in range(2):
-                self._mixed_body(S, spare)()
-            bodies["mixed", S] = (state, self._mixed_body(S, self._generator))
+            for extras in (False, True):
+                for _ in range(2):
+                    self._mixed_body(S, extras, spare)()
+                bodies["mixed", S, extras] = (
+                    state, self._mixed_body(S, extras, self._generator))
         if self._replays():
             for key, (state, body) in bodies.items():
                 # The greedy decode step draws no random numbers.
-                gen = None if key == ("decode", True) else self._generator
-                self._graphs[key] = StepGraph(body, (state, self._fsm), self.cache, gen)
+                gen = None if key[:2] == ("decode", True) else self._generator
+                buffers = (state, self._fsm) + ((self._extras,) if key[2] else ())
+                self._graphs[key] = StepGraph(body, buffers, self.cache, gen)
             torch.cuda.synchronize(self.device)
         self._warm = True
         return self._graphs
 
-    def _decode_body(self, greedy: bool, generator: torch.Generator):
+    def _decode_body(self, greedy: bool, extras: bool, generator: torch.Generator):
         """The block's step, eager: ``decode_step_body`` over the engine's
-        state, constraint tables and cache."""
+        state, constraint tables and cache, and with ``extras`` its sampler
+        extras."""
         return partial(
             decode_step_body, self.model, self._decode, self.cache, generator,
             self.tokenizer.eos_id, self.tokenizer.pad_id, greedy,
             self.attn_impl == "plain", self.cfg.paged_backend, tables=self._fsm,
+            extras=self._extras if extras else None,
         )
 
-    def _mixed_body(self, S: int, generator: torch.Generator):
+    def _mixed_body(self, S: int, extras: bool, generator: torch.Generator):
         """The mixed tick at bucket ``S``, eager: ``mixed_step_body`` over
-        that bucket's state, the constraint tables and the engine's cache."""
+        that bucket's state, the constraint tables and the engine's cache,
+        and with ``extras`` its sampler extras."""
         return partial(
             mixed_step_body, self.model, self._mixed[S], self.cache, generator,
             self.attn_impl == "plain", self.cfg.paged_backend, tables=self._fsm,
+            extras=self._extras if extras else None,
         )
 
     def finish(self, seq_id: int) -> list[int]:

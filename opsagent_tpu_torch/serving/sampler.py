@@ -28,6 +28,20 @@ class SamplingParams:
     top_p: float = 1.0      # 1.0 = disabled
     max_tokens: int = 2048
     stop: tuple[str, ...] = ()
+    # OpenAI logprobs: False = off; True returns each sampled token's
+    # logprob, with top_logprobs (0..20) alternatives per position.
+    logprobs: bool = False
+    top_logprobs: int = 0
+    # OpenAI logit_bias ({token_id: -100..100}, stored as pairs for
+    # hashability) and repetition penalties (-2..2): together one additive
+    # per-token adjustment of the logits before sampling.
+    logit_bias: tuple[tuple[int, float], ...] = ()
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    # Tokens generated before an engine restart: penalty counting starts
+    # from them (the JAX package's restart recovery fills it; nothing in
+    # the port does yet).
+    penalty_history: tuple[int, ...] = ()
 
 
 def _gumbel(shape: tuple[int, ...], generator: torch.Generator, device) -> torch.Tensor:

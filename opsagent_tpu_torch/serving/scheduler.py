@@ -9,7 +9,8 @@ prompt is admitting (every decode lane plus prefill chunks under the
 their pages at once, so queued requests enter mid-flight.
 
 A request's ``mask_fn`` constrains its tokens (``serving.constrained``); a
-mask that raises on admission fails the request with 400. Its
+mask that raises on admission fails the request with 400. A request that
+asks for logprobs gets them in ``logprob_data`` when it finishes. Its
 ``on_token`` receives each accepted token on the scheduler thread, after
 each mixed tick and each block's pull (a block's tokens arrive together).
 """
@@ -51,6 +52,9 @@ class Request:
     # filled by the scheduler:
     seq_id: int | None = None
     tokens: list[int] = field(default_factory=list)
+    # Per-token logprob entries (the engine's Sequence.logprob_data), when
+    # sampling.logprobs asked for them.
+    logprob_data: list[dict] = field(default_factory=list)
     finish_reason: str = ""
     error: str = ""
     error_status: int = 500
@@ -164,7 +168,9 @@ class Scheduler:
     def _reap(self) -> None:
         for sid in [s for s in self._running if self.engine.sequences[s].done]:
             req = self._running.pop(sid)
-            req.finish_reason = self.engine.sequences[sid].finish_reason
+            seq = self.engine.sequences[sid]
+            req.finish_reason = seq.finish_reason
+            req.logprob_data = list(seq.logprob_data)
             req.tokens = self.engine.finish(sid)
             if req.finish_reason == "error":
                 # Its mask or stream callback raised (logged by the engine).

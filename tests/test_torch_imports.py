@@ -1,4 +1,6 @@
-"""The port never loads JAX or the JAX package.
+"""The port never loads JAX or the JAX package, nor the tokenizer and
+checkpoint libraries the card machine lacks (``tokenizers``,
+``transformers``, ``safetensors``, ``regex``).
 
 Checked in a fresh interpreter: this process has JAX loaded already
 (tests/conftest.py imports it).
@@ -18,7 +20,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "opsagent_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "opsagent_tpu", "tokenizers",
+                                    "transformers", "safetensors", "regex"))
 print(",".join(names), bad)
 """
 # Modules each slice added; the walk must reach them.
@@ -30,6 +33,8 @@ REQUIRED = (
     "opsagent_tpu_torch.models.convert",
     "opsagent_tpu_torch.models.loader",
     "opsagent_tpu_torch.serving.constrained",
+    "opsagent_tpu_torch.serving.tokenizer",
+    "opsagent_tpu_torch.utils.jsonrepair",
 )
 
 

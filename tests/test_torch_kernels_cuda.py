@@ -509,6 +509,35 @@ def test_sampled_replays_are_deterministic(gen, backend):
         assert all(torch.equal(x, y) for x, y in zip(c1, c2))
 
 
+@pytest.mark.parametrize("backend", ["dma", "grid"])
+def test_extras_rows_replay_the_eager_step(gen, backend):
+    """Rows with a logit bias, with penalties and with logprobs beside a
+    plain row: replayed mixed ticks and blocks give the eager ones' tokens,
+    logprob entries and cache bytes bit for bit, every step replays, and
+    no row is hosted."""
+    rows = [SamplingParams(max_tokens=12),
+            SamplingParams(max_tokens=12, logit_bias=((7, 5.0), (40, -100.0))),
+            SamplingParams(max_tokens=12, presence_penalty=1.0, frequency_penalty=1.5),
+            SamplingParams(max_tokens=12, logprobs=True, top_logprobs=20)]
+    runs = []
+    for eng in _graph_and_eager_engines(backend, "", ""):
+        eng.warmup()
+        ids = [eng.add_request([257] + list(range(10 + 7 * i, 40 + 7 * i)), s)
+               for i, s in enumerate(rows)]
+        while any(not eng.sequences[i].done for i in ids):
+            eng.step_block([i for i in ids if not eng.sequences[i].done])
+        lps = [list(eng.sequences[i].logprob_data) for i in ids]
+        runs.append(([eng.finish(i) for i in ids], lps, _cache_bytes(eng.cache),
+                     (eng.decode_replays, eng.decode_eager_steps, eng.mixed_replays,
+                      eng.mixed_eager_ticks, eng.hosted_steps)))
+    (gt, gl, gc, gr), (et, el, ec, er) = runs
+    assert gt == et and gl == el
+    assert all(torch.equal(x, y) for x, y in zip(gc, ec))
+    assert gr[0] > 0 and gr[2] > 0 and gr[1] == gr[3] == gr[4] == 0
+    assert er[0] == er[2] == er[4] == 0
+    assert len(gl[3]) == 12 and all(len(d["top"]) == 20 for d in gl[3])
+
+
 def test_decode_graph_raises_when_a_buffer_moves(gen):
     """A state buffer rebound after capture makes the next block raise,
     not read the old buffer and not run eagerly."""

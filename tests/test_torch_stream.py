@@ -1,6 +1,7 @@
 """The port's chat API over the standard-library server, on the CPU:
 ``stream: true`` (server-sent events), ``response_format`` (constrained
-decoding) and the fields the port refuses with 400 rather than ignore.
+decoding) and the fields out of the JAX package's limits, which answer 400
+naming the field rather than being ignored.
 
 ``tiny-test`` f32 from a seed, greedy.
 """
@@ -25,6 +26,7 @@ SCHEMA = {
     },
 }
 MESSAGES = [{"role": "user", "content": "list the pods"}]
+TOOLS = [{"type": "function", "function": {"name": "kubectl"}}]
 
 
 @pytest.fixture(scope="module")
@@ -148,25 +150,38 @@ def test_json_object_content_is_a_live_prefix(server):
         json.loads(text)
 
 
-@pytest.mark.parametrize("extra,field", [
-    ({"response_format": {"type": "yaml"}}, "response_format"),
+FIELDS = [  # (extra fields, the words of the 400's message, streamed or None: both)
+    ({"response_format": {"type": "yaml"}}, "response_format", None),
     ({"response_format": {"type": "json_schema", "json_schema": {"name": "s"}}},
-     "schema"),
-    ({"response_format": "json"}, "response_format"),
+     "schema", None),
+    ({"response_format": "json"}, "response_format", None),
     ({"response_format": {"type": "json_schema", "json_schema": {"schema": {
         "type": "array", "items": {"type": "array", "items": {
-            "type": "array", "items": {"type": "array"}}}}}}}, None),
-    ({"tool_choice": "required", "tools": [{"type": "function",
-                                            "function": {"name": "kubectl"}}]},
-     "tool_choice"),
-    ({"n": 2}, "n must be 1"),
-    ({"logprobs": True}, "logprobs"),
-    ({"logit_bias": {"5": 10}}, "logit_bias"),
-    ({"presence_penalty": 0.5}, "presence_penalty"),
+            "type": "array", "items": {"type": "array"}}}}}}}, None, None),
+    ({"n": 9}, "n must be in 1..8", False),
+    ({"n": 9}, "n > 1", True),
+    ({"n": 2}, "n > 1 is not supported with stream", True),
+    ({"logprobs": True}, "logprobs are not supported with stream", True),
+    ({"logprobs": True, "top_logprobs": 21}, "top_logprobs", None),
+    ({"top_logprobs": 2}, "top_logprobs requires logprobs", None),
+    ({"logit_bias": {"5": 101}}, "logit_bias", None),
+    ({"presence_penalty": 3}, "penalties", None),
+    ({"tool_choice": "required"}, "tool_choice requires a non-empty tools list", None),
+    ({"tools": TOOLS, "tool_choice": {"type": "function", "function": {"name": "nope"}}},
+     "unknown function", None),
+    ({"tools": TOOLS, "tool_choice": "required", "response_format": {"type": "json_object"}},
+     "response_format", None),
+]
+
+
+@pytest.mark.parametrize("extra,field,streamed", [
+    (extra, field, mode) for extra, field, modes in FIELDS
+    for mode in ((False, True) if modes is None else (modes,))
 ])
-@pytest.mark.parametrize("streamed", [False, True])
 def test_unsupported_or_malformed_fields_answer_400(server, monkeypatch, extra, field,
                                                     streamed):
+    """Each field the JAX package refuses: 400, with a message that names
+    it, streamed and not."""
     base, _ = server
     if field is None:
         # A schema whose DFA is over the state limit.
