@@ -56,10 +56,25 @@ Phases, each printing one JSON line with its seconds:
    everything, a sampled admission and block included.
 7. serve: behind the HTTP server, random weights from ``--seed``, bf16
    activations, four concurrent chat completions per run: bench-8b at full
-   depth on the dma kernels (unquantized, int8 weights + int8 KV, int4
-   weights + int8 KV) and Qwen2.5-7B-Instruct at full depth on the grid
-   kernels (unquantized, int8 weights + int8 KV), each engine warmed up
-   (``warmup_s``) before the server starts. The kernels' launch
+   depth on the dma kernels (int8 weights + int8 KV, int4 weights + int8
+   KV), Qwen2.5-7B-Instruct at full depth on the grid kernels
+   (unquantized, int8 weights + int8 KV), then bench-8b unquantized on the
+   dma kernels, each engine warmed up (``warmup_s``) before the server
+   starts. Each serve line has an ``obs`` block read from the serve's own
+   server over its timed window: ``/metrics`` parsed against the
+   exposition grammar of ``tests/test_metrics_conformance.py``, its
+   counters equal to the serve's own counts (decode tokens, TTFT count,
+   prefill + prefix-hit tokens, block and mixed dispatches, completed
+   requests), ``opsagent_post_warmup_compiles`` 0, MFU and HBM
+   utilization at the H100's peaks in (0, 1.05] with the drift and the
+   bytes by kind; one reply's trace spans and timeline; the flight ring's
+   dispatch events, and anomalies only of TTFT breaches past 500 ms and
+   the SLO breach a scrape evaluates. The bench-8b bf16 serve, last
+   because a capture leaves later mixed ticks slower, then sends ``POST
+   /api/debug/profile?seconds=2`` beside four more requests (the Chrome
+   trace must name its kernels and the ``engine.*`` annotations), writes a
+   memory snapshot through ``GET /api/debug/memory`` and times one more
+   batch after the capture (``profile_capture``). The kernels' launch
    counts of each run are checked and reported, and the quantized
    matmul's by instance: the m128 instance takes every projection of every
    mixed tick (7 x layers launches a tick), the m16 instance the rest
@@ -121,6 +136,7 @@ import itertools
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -128,6 +144,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
@@ -137,6 +154,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from opsagent_tpu_torch import obs
 from opsagent_tpu_torch.models.config import BENCH_8B, QWEN25_7B, config_from_hf, get_config_preset
 from opsagent_tpu_torch.models.llama import Llama
 from opsagent_tpu_torch.models.loader import load_checkpoint
@@ -178,13 +196,16 @@ KERNELS = {  # name: (source in csrc/, the TPU kernel it replaces)
     "paged_ragged_attention_grid_int8": ("paged_attention_grid.cu", f"{PAGED}:629"),
     "paged_decode_attention_grid_int8": ("paged_attention_grid.cu", f"{PAGED}:1006"),
 }
-# (model, paged backend, quantize, kv_quantize) of each serve run.
+# (model, paged backend, quantize, kv_quantize) of each serve run. The
+# bench-8b dma bf16 serve runs last: after its timed batch it runs a
+# torch.profiler capture, and a capture leaves every later mixed tick of
+# the process slower (its line reports the batch after the capture).
 SERVES = (
-    ("bench-8b", "dma", "", ""),
     ("bench-8b", "dma", "int8", "int8"),
     ("bench-8b", "dma", "int4", "int8"),
     ("qwen2.5-7b-instruct", "grid", "", ""),
     ("qwen2.5-7b-instruct", "grid", "int8", "int8"),
+    ("bench-8b", "dma", "", ""),
 )
 # (2-layer cut, paged backend, quantize, kv_quantize) of each e2e check.
 E2E = (
@@ -200,6 +221,10 @@ E2E = (
 E2E_BF16 = ((BENCH_8B, "dma"), (QWEN25_7B, "grid"))
 E2E_BF16_Q_LENS = [128, 128, 77, 1, 33, 0, 128, 5]
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+# Where the bench-8b dma bf16 serve's profiling routes write (gitignored,
+# removed once checked).
+PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_profile")
 BPE_FIXTURE = os.path.join(FIXTURES, "tiny-bpe")
 HF_FIXTURES = ("tiny-llama-hf", "tiny-qwen2-hf", "tiny-qwen3-hf")
 HF_LOGIT_TOL = 2e-4     # tests/test_checkpoint_golden.py's own
@@ -1005,6 +1030,7 @@ class TickClock:
         def counted_decode_block(state, step, tokens, write_at, active, budgets,
                                  page_table, *args, n_steps, fsm):
             self.decode_steps += n_steps
+            self.decode_blocks += 1
             n = int((active & (budgets > 0)).sum())
             if n > self._active:
                 self._active = n
@@ -1018,7 +1044,7 @@ class TickClock:
 
     def reset(self) -> None:
         self.block_s = self.mixed_s = 0.0
-        self.decode_steps = self.mixed_ticks = 0
+        self.decode_steps = self.decode_blocks = self.mixed_ticks = 0
         self.block_args = None
         self._active = -1
 
@@ -1027,6 +1053,7 @@ class TickClock:
 
     def fields(self) -> dict:
         return {
+            "decode_blocks": self.decode_blocks,
             "decode_steps": self.decode_steps,
             "decode_wall_ms_per_step": self.block_s * 1e3 / max(self.decode_steps, 1),
             "mixed_ticks": self.mixed_ticks,
@@ -1181,6 +1208,229 @@ def constrained_batch(engine: Engine, clock: TickClock, post, post_sse, prompt,
     }
 
 
+# -- phase 7: the serve's own observability ------------------------------------
+# The exposition grammar of tests/test_metrics_conformance.py (the script
+# cannot import the test): line syntax, one TYPE per family before its
+# samples, each family's samples contiguous, histogram buckets cumulative up
+# to +Inf == _count.
+METRIC_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+LABEL_NAME = r"[a-zA-Z_][a-zA-Z0-9_]*"
+LABEL_VALUE = r'"(?:[^"\\\n]|\\\\|\\"|\\n)*"'
+LABELS = rf"\{{{LABEL_NAME}={LABEL_VALUE}(?:,{LABEL_NAME}={LABEL_VALUE})*,?\}}"
+SAMPLE_VALUE = r"(?:[+-]?(?:\d+(?:\.\d+)?(?:[eE][+-]?\d+)?|Inf)|NaN)"
+SAMPLE_RE = re.compile(rf"^({METRIC_NAME})({LABELS})? ({SAMPLE_VALUE})(?: [+-]?\d+)?$")
+HELP_RE = re.compile(rf"^# HELP ({METRIC_NAME}) .*$")
+TYPE_RE = re.compile(rf"^# TYPE ({METRIC_NAME}) (counter|gauge|histogram|summary|untyped)$")
+# Anomalies a serve may raise: a request whose first token came past the
+# TTFT line (OPSAGENT_SLO_TTFT_MS, 500 ms) and the SLO breach that a scrape
+# then evaluates. A post-warmup compile or a failed request is a failure.
+SERVE_ANOMALIES = {"ttft_breach", "slo_breach"}
+
+
+def parse_exposition(text: str) -> dict[str, float]:
+    """The samples of a ``/metrics`` document, by ``name{labels}``, after
+    checking it against the exposition grammar (``check`` fails on the
+    first violation)."""
+    check(text.endswith("\n"), "exposition: no final newline")
+    types: dict[str, str] = {}
+    samples: dict[str, float] = {}
+    order: list[str] = []
+    for ln in text.split("\n")[:-1]:
+        if ln.startswith("# HELP "):
+            check(bool(HELP_RE.match(ln)), f"exposition: bad HELP line {ln!r}")
+            continue
+        if ln.startswith("# TYPE "):
+            m = TYPE_RE.match(ln)
+            check(bool(m) and m.group(1) not in types, f"exposition: bad TYPE line {ln!r}")
+            types[m.group(1)] = m.group(2)
+            continue
+        m = SAMPLE_RE.match(ln)
+        check(bool(m), f"exposition: bad sample line {ln!r}")
+        name, labels = m.group(1), m.group(2) or ""
+        h = re.search(r"_(bucket|sum|count)$", name)
+        fam = name[:h.start()] if h and types.get(name[:h.start()]) == "histogram" else name
+        check(fam in types, f"exposition: {name} before its TYPE")
+        order.append(fam)
+        check(name + labels not in samples, f"exposition: duplicate sample {ln!r}")
+        samples[name + labels] = float(m.group(3).replace("Inf", "inf"))
+    closed, prev = set(), None
+    for fam in order:
+        if fam != prev:
+            check(fam not in closed, f"exposition: {fam} interleaved with other families")
+            if prev is not None:
+                closed.add(prev)
+            prev = fam
+    for fam in (f for f, kind in types.items() if kind == "histogram"):
+        children: dict[str, list] = {}
+        for key, v in samples.items():
+            if key.startswith(fam + "_bucket{"):
+                le = re.search(rf'le="({SAMPLE_VALUE})"', key).group(1)
+                rest = re.sub(rf',?le="{re.escape(le)}"', "", key[len(fam + "_bucket"):])
+                children.setdefault("" if rest == "{}" else rest, []).append(
+                    (float(le.replace("Inf", "inf")), v))
+        for child, series in children.items():
+            series.sort()
+            counts = [c for _, c in series]
+            check(series[-1][0] == math.inf and counts == sorted(counts)
+                  and samples.get(f"{fam}_count{child}") == counts[-1]
+                  and f"{fam}_sum{child}" in samples,
+                  f"exposition: histogram {fam}{child} buckets {series}")
+    return samples
+
+
+def http_get(port: int, path: str, method: str = "GET") -> tuple[int, bytes]:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def scrape(port: int) -> dict[str, float]:
+    status, text = http_get(port, "/metrics")
+    check(status == 200, f"/metrics status {status}")
+    return parse_exposition(text.decode())
+
+
+def span_names(node: dict, out: set | None = None) -> set:
+    out = set() if out is None else out
+    out.add(node["name"])
+    for c in node.get("children", ()):
+        span_names(c, out)
+    return out
+
+
+def obs_block(port: int, before: dict, after: dict, replies, ticks: dict, decode_blocks: int,
+              t0_wall: float, label: str) -> dict:
+    """The serve's ``obs`` block, from its own server over the timed window
+    (``before``/``after``: its ``/metrics`` parsed before and after): the
+    counters held to the serve's own counts, the attribution at the H100's
+    peaks, one reply's trace and timeline, and the flight ring's events of
+    the window."""
+    def d(key):
+        return after.get(key, 0.0) - before.get(key, 0.0)
+
+    n = len(replies)
+    completion = sum(r["usage"]["completion_tokens"] for _, r in replies)
+    prompt = sum(r["usage"]["prompt_tokens"] for _, r in replies)
+    counts = {
+        "decode_tokens": d("opsagent_decode_tokens_total"),
+        "ttft_count": d("opsagent_ttft_seconds_count"),
+        "prefill_plus_prefix_hit_tokens": d("opsagent_prefill_tokens_total")
+        + d("opsagent_prefix_hit_tokens_total"),
+        "block_dispatches": d('opsagent_decode_dispatches_total{kind="block"}'),
+        "mixed_dispatches": d('opsagent_decode_dispatches_total{kind="mixed"}'),
+        "requests_completed": d('opsagent_engine_requests_total{outcome="completed"}'),
+        "post_warmup_compiles": after["opsagent_post_warmup_compiles"],
+    }
+    want = {"decode_tokens": completion, "ttft_count": n,
+            "prefill_plus_prefix_hit_tokens": prompt, "block_dispatches": decode_blocks,
+            "mixed_dispatches": ticks["mixed_ticks"], "requests_completed": n,
+            "post_warmup_compiles": 0}
+    check(counts == want, f"{label}: /metrics over the window {counts} != the serve's {want}")
+    mfu = after["opsagent_attr_mfu"]
+    hbm = after["opsagent_attr_hbm_utilization"]
+    check(0 < mfu <= 1.05 and 0 < hbm <= 1.05,
+          f"{label}: attribution mfu {mfu}, hbm utilization {hbm} outside (0, 1.05]")
+    bytes_by_kind = {k: d(f'opsagent_attr_bytes_total{{kind="{k}"}}')
+                     for k in ("weights", "weights_prefetch", "kv_read", "kv_write", "other")}
+    # One reply's trace and timeline: JAX's span names; phases partition
+    # the request's wall clock.
+    rid = replies[0][1]["id"]
+    status, raw = http_get(port, f"/api/trace/{rid}")
+    check(status == 200, f"{label}: /api/trace/{rid} status {status}")
+    trace = json.loads(raw)
+    spans = span_names(trace["root"])
+    check({"queue_wait", "generate", "prefill", "decode", "detokenize"} <= spans,
+          f"{label}: trace spans {sorted(spans)}")
+    status, raw = http_get(port, f"/api/timeline/{rid}")
+    check(status == 200, f"{label}: /api/timeline/{rid} status {status}")
+    tl = json.loads(raw)
+    phase_ms = sum(p["duration_ms"] for p in tl["phases"])
+    check(abs(phase_ms - tl["duration_ms"]) <= 0.05 * tl["duration_ms"],
+          f"{label}: timeline phases {phase_ms} ms of a {tl['duration_ms']} ms request")
+    # The flight ring's events of the window: one dispatch event per tick
+    # and block; anomalies only of SERVE_ANOMALIES, one TTFT breach per
+    # first token past the line.
+    status, raw = http_get(port, "/api/debug/flight")
+    check(status == 200, f"{label}: /api/debug/flight status {status}")
+    events = [e for e in json.loads(raw)["events"] if e["wall"] >= t0_wall]
+    ops = [e["op"] for e in events if e["kind"] == "dispatch"]
+    check(ops.count("mixed") == ticks["mixed_ticks"] and ops.count("decode_block") == decode_blocks,
+          f"{label}: flight dispatch events {ops.count('mixed')} mixed, "
+          f"{ops.count('decode_block')} blocks")
+    reasons = [e["reason"] for e in events if e["kind"] == "anomaly"]
+    ttft_line = float(os.environ.get("OPSAGENT_SLO_TTFT_MS", "500"))
+    late = sum(e["ttft_ms"] > ttft_line for e in events if e["kind"] == "ttft")
+    check(set(reasons) <= SERVE_ANOMALIES and reasons.count("ttft_breach") == late,
+          f"{label}: anomalies {reasons}, {late} first tokens past {ttft_line} ms")
+    return {
+        **counts,
+        "attr_mfu": mfu, "attr_hbm_utilization": hbm,
+        "attr_model_drift_ratio": after.get("opsagent_attr_model_drift_ratio"),
+        "attr_bytes_by_kind": bytes_by_kind,
+        "attr_flops": d("opsagent_attr_flops_total"),
+        "trace_request_id": rid, "trace_spans": sorted(spans),
+        "timeline_ms": tl["duration_ms"], "timeline_phase_ms": phase_ms,
+        "goodput": tl["goodput"],
+        "flight_dispatch_events": len(ops), "anomalies": reasons,
+        "itl_count": d("opsagent_inter_token_latency_seconds_count"),
+        "step_host_gap_count": d('opsagent_step_host_gap_seconds_count{mode="sync"}'),
+    }
+
+
+def profile_batch(port: int, post, bodies, expected: set[str], logdir: str,
+                  clock: TickClock, fresh) -> dict:
+    """Four more requests, untimed, with ``POST /api/debug/profile?seconds=2``
+    sent as they start: the Chrome trace written under the serve's profile
+    directory names the serve's kernels (``expected``, by their CUDA names)
+    and the engine's annotations; then ``GET /api/debug/memory`` writes a
+    non-empty allocator snapshot. Then four requests of new prompts of the
+    timed batch's lengths (``fresh``), for the host wall of a tick and a
+    step after a capture (``after_capture``, beside the serve line's
+    own)."""
+    out: dict = {}
+    capture = threading.Thread(target=lambda: out.update(
+        profile=http_get(port, "/api/debug/profile?seconds=2", "POST")))
+    capture.start()
+    time.sleep(0.2)
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        replies = list(ex.map(post, bodies))
+    capture.join(timeout=120)
+    status, raw = out["profile"]
+    check(status == 200, f"profile capture: {status} {raw[:200]!r}")
+    check(all(s == 200 for s, _ in replies), "profile batch: a request failed")
+    (path,) = [os.path.join(logdir, f) for f in os.listdir(logdir) if f.startswith("trace-")]
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    flat = {re.sub(r"\(int\)|\s", "", n.lower()) for n in names}
+    groups = dict(KERNEL_GROUPS)
+    group = {k: "quant_matmul" if k.startswith("quant_matmul") else k.removesuffix("_int8")
+             for k in expected}
+    missing = [k for k in expected if not any(s in n for s in groups[group[k]] for n in flat)]
+    annotations = sorted(n for n in names if n.startswith("engine."))
+    check(not missing and {"engine.mixed_step", "engine.decode_block"} <= set(annotations),
+          f"profile trace: kernels {missing} missing, annotations {annotations}")
+    status, raw = http_get(port, "/api/debug/memory")
+    check(status == 200, f"/api/debug/memory: {status} {raw[:200]!r}")
+    mem = json.loads(raw)["path"]
+    with open(mem, "rb") as f:
+        snap = pickle.load(f)
+    check(os.path.getsize(mem) > 0 and len(snap["segments"]) > 0,
+          f"memory snapshot {mem}: {os.path.getsize(mem)} bytes")
+    clock.reset()
+    with ThreadPoolExecutor(len(fresh)) as ex:
+        check(all(s == 200 for s, _ in ex.map(post, fresh)), "batch after the capture failed")
+    return {
+        "after_capture": {k: v for k, v in clock.fields().items()
+                          if k in ("mixed_ticks", "mixed_wall_ms_per_tick",
+                                   "decode_steps", "decode_wall_ms_per_step")},"trace_bytes": os.path.getsize(path), "trace_events": len(names),
+            "kernels_named": sorted(expected), "annotations": annotations,
+            "memory_snapshot_bytes": os.path.getsize(mem),
+            "memory_segments": len(snap["segments"])}
+
+
 def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
                 quantize: str, kv_quantize: str) -> dict:
     engine = Engine(EngineConfig(model=model, dtype=torch.bfloat16,
@@ -1219,10 +1469,17 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         with urllib.request.urlopen(req, timeout=600) as r:
             return r.status, json.loads(r.read())
 
-    fsm_run = None
+    fsm_run = profiled = None
+    label = f"serve {model} {backend} {quantize or 'bf16'}"
+    # The bench-8b dma bf16 serve also runs the profiling routes.
+    profiled_serve = (model, backend, quantize) == ("bench-8b", "dma", "")
+    if profiled_serve:
+        shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+        os.environ["OPSAGENT_PROFILE_DIR"] = PROFILE_DIR
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        metrics_before, t0_wall = scrape(port), time.time()
         reset_launch_counts()
         routes_before = routes(engine)
         prof = torch.profiler.profile(activities=[
@@ -1241,6 +1498,8 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
             n - was for n, was in zip(routes(engine), routes_before))
         peak = torch.cuda.max_memory_allocated()
         ticks, block_args = clock.fields(), clock.block_args
+        serve_obs = obs_block(port, metrics_before, scrape(port), replies, ticks,
+                              ticks["decode_blocks"], t0_wall, label)
         if not quantize:
             # Keep the timed batch's last largest-bucket tick for
             # mixed_device_ms: the constrained batch runs its own.
@@ -1252,7 +1511,20 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
             with torch.inference_mode():
                 for t, was in zip(last_tick.buffers(), saved):
                     t.copy_(was)
+            # No capture after warmup: the constraint tables ride the
+            # captured graphs.
+            check(obs.POST_WARMUP_COMPILES.value() == 0,
+                  f"{label}: a capture after warmup in the constrained batch")
+        if profiled_serve:
+            profiled = profile_batch(port, post, bodies,
+                                     expected_kernels(backend, quantize, kv_quantize),
+                                     PROFILE_DIR, clock,
+                                     [{**b, "messages": [{"role": "user", "content": prompt(n)}]}
+                                      for b, n in zip(bodies, (300, 800, 1500, 3000))])
     finally:
+        if profiled_serve:
+            os.environ.pop("OPSAGENT_PROFILE_DIR", None)
+            shutil.rmtree(PROFILE_DIR, ignore_errors=True)
         server.shutdown()
         server.server_close()
         stack.close()
@@ -1352,6 +1624,8 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         "mixed_eager_ticks": eager_ticks,
         **ticks,
         "constrained_launches": fsm_run["launches"] if fsm_run else {},
+        "obs": serve_obs,
+        **({"profile_capture": profiled} if profiled else {}),
     }
 
 # -- phase 7b: a byte-level-BPE tokenizer on the card ----------------------------------
@@ -1596,6 +1870,8 @@ def phase_chat_api(seed: int, smi: str, bf16_tol: float) -> dict:
     for name, n in launches.items():
         check((n > 0) == (name in expected_kernels("dma", "", "")),
               f"chat_api: {name} launched {n} times")
+    # The extras graphs were captured by warmup: no capture since.
+    check(obs.POST_WARMUP_COMPILES.value() == 0, "chat_api: a capture after warmup")
     med = {k: statistics.median(v) for k, v in timing.items()}
     out = {
         "warmup_s": warmup_s, "tool_call": tool_call,
@@ -1608,6 +1884,7 @@ def phase_chat_api(seed: int, smi: str, bf16_tol: float) -> dict:
         "decode_device_ms_per_step": timing,
         "extras_cost_ms": med["extras_row"] - med["plain"],
         "extras_cost_share": med["extras_row"] / med["plain"] - 1,
+        "post_warmup_compiles": obs.POST_WARMUP_COMPILES.value(),
     }
     del engines, eng, model
     gc.collect()

@@ -5,7 +5,10 @@ auto`` serves an HF safetensors checkpoint with its own config.json, and
 its ``tokenizer.json`` when the directory holds one (``--tokenizer DIR``
 names another; without either, the byte tokenizer). The
 engine warms up (kernels built, its decode step and mixed ticks captured as
-CUDA graphs on the GPU) before the server starts."""
+CUDA graphs on the GPU) before the server starts. The server runs the SLO
+watchdog and the 1 Hz telemetry history sampler behind ``/api/slo`` and
+``/api/metrics/history``; ``--profile-dir`` enables the profiling routes
+(``/api/debug/profile``, ``/api/debug/memory``, ``/v1/profile/*``)."""
 
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import logging
 import os
 import sys
 
+from . import obs
 from .serving.api import ServingStack, make_server
 from .serving.engine import Engine, EngineConfig
 
@@ -56,9 +60,17 @@ def main(argv: list[str] | None = None) -> int:
         help="KV-cache quantization: int8 pages + per-token scales, about "
              "half the KV bytes of bf16",
     )
+    se.add_argument(
+        "--profile-dir", default="",
+        help="directory the profiling routes write torch.profiler traces "
+             "and memory snapshots into (sets OPSAGENT_PROFILE_DIR; without "
+             "it those routes answer 403)",
+    )
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
+    if args.profile_dir:
+        os.environ["OPSAGENT_PROFILE_DIR"] = args.profile_dir
     tokenizer = args.tokenizer
     if not tokenizer and args.checkpoint and os.path.exists(
             os.path.join(args.checkpoint, "tokenizer.json")):
@@ -74,6 +86,11 @@ def main(argv: list[str] | None = None) -> int:
     warm = engine.warmup()
     stack = ServingStack(engine)
     server = make_server(stack, args.host, args.port)
+    # Continuous SLO evaluation (GET /api/slo serves the same watchdog) and
+    # the telemetry history's 1 Hz sampler.
+    watchdog, history = obs.slo.get_watchdog(), obs.history.get_history()
+    watchdog.start()
+    history.start()
     host, port = server.server_address[:2]
     print(f"serving {engine.model_cfg.name} on http://{host}:{port} "
           f"({engine.impl_info()}; warmed up in {warm:.1f} s)", flush=True)
@@ -83,6 +100,8 @@ def main(argv: list[str] | None = None) -> int:
         pass
     finally:
         server.server_close()
+        history.stop()
+        watchdog.stop()
         stack.close()
     return 0
 

@@ -67,6 +67,18 @@ class ModelConfig:
     def kv_size(self) -> int:
         return self.num_kv_heads * self.head_dim_
 
+    def num_params(self) -> int:
+        """Approximate parameter count (dense layers): what the roofline
+        attribution (obs/attribution.py) prices a weight stream by."""
+        d, f, v = self.hidden_size, self.intermediate_size, self.vocab_size
+        per_layer = (
+            d * self.q_size + 2 * d * self.kv_size + self.q_size * d  # attn
+            + 3 * d * f                                               # mlp
+            + 2 * d                                                   # norms
+        )
+        embed = v * d * (1 if self.tie_embeddings else 2)
+        return self.num_layers * per_layer + embed + d
+
 
 PRESETS: dict[str, ModelConfig] = {}
 

@@ -6,6 +6,10 @@ interface, at first use, under ``build/opsagent_tpu_torch/`` in the
 checkout, and loaded with ``ctypes``. Nothing is compiled when a module is
 imported. The library name carries a hash of its source and of the shared
 ``csrc/*.cuh`` headers, so an edited source never loads a stale build.
+
+A build is the port's counterpart of an XLA compile for the compile
+watchdog (``obs.flight``): finding the library already built is a cache
+hit, running ``nvcc`` a cache miss and a compile of its wall time.
 """
 
 from __future__ import annotations
@@ -19,7 +23,11 @@ import threading
 from pathlib import Path
 from typing import Callable
 
+import time
+
 import torch
+
+from .. import obs
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opsagent_tpu_torch"
@@ -49,7 +57,10 @@ def build(source: str, verbose: bool = False) -> tuple[Path, str]:
     digest = hashlib.sha256(b"".join(text)).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib.exists() and not verbose:
+        obs.flight.on_cache_event("cache_hits")
         return lib, ""
+    obs.flight.on_cache_event("cache_misses")
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [
@@ -64,6 +75,7 @@ def build(source: str, verbose: bool = False) -> tuple[Path, str]:
             f"nvcc {source} failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
         )
     os.replace(tmp, lib)
+    obs.flight.on_compile(time.perf_counter() - t0, what="nvcc")
     return lib, res.stdout + res.stderr
 
 

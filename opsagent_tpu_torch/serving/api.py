@@ -14,7 +14,28 @@ server:
   ``logprobs`` with ``top_logprobs``; ``n`` choices (1..8); ``stream:
   true`` (server-sent events, ``data: [DONE]`` last; not with logprobs or
   ``n`` > 1). A field out of its limits answers 400 naming it;
-- ``GET /healthz``: liveness plus the engine's resolved execution modes.
+- ``GET /v1/models`` and ``GET /healthz`` (liveness, pages, queue depth,
+  prefix-cache counters and, under ``impl``, the engine's resolved
+  execution modes), with the JAX package's bodies;
+- observability, with the JAX package's routes, status codes and bodies:
+  ``GET /metrics`` (Prometheus text), ``/api/trace/{id}`` and
+  ``/api/timeline/{id}`` (a completion's ``id`` is its trace's request
+  id), ``/api/debug/flight?n=&kind=``, ``/api/slo``,
+  ``/api/metrics/history?series=&since=&step=``; and under an
+  operator-configured profile directory (``--profile-dir`` /
+  ``OPSAGENT_PROFILE_DIR``, else 403): ``GET /api/debug/memory`` (the CUDA
+  caching allocator's snapshot), ``POST /api/debug/profile?seconds=N`` (a
+  ``torch.profiler`` Chrome trace of the next N seconds of live traffic),
+  ``POST /v1/profile/start`` and ``/v1/profile/stop``.
+
+Each request's life is a trace (``obs.trace``): the root span, a
+``generate`` span per choice with the scheduler's ``queue_wait`` and the
+engine's ``prefill`` and ``decode`` under it, then ``detokenize``. A body's
+``fleet_hop`` (or ``X-Fleet-*`` headers) adopts the router's journey id,
+as in the JAX package. Every request counts in
+``opsagent_http_requests_total{method,path,status}`` and
+``opsagent_http_request_duration_seconds{path}``, ``path`` being the
+route's pattern.
 
 HTTP handler threads never touch CUDA: a stream reads the tokens that the
 scheduler thread puts on a queue.
@@ -24,13 +45,18 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import queue
+import re
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Iterator
+from urllib.parse import parse_qs, urlsplit
 
+from .. import obs
+from ..utils import profiling
 from ..utils.jsonrepair import parse_json
 from .chat_template import apply_chat_template
 from .constrained import JsonConstraint, device_table_fsm, json_constraint
@@ -42,6 +68,21 @@ log = logging.getLogger("opsagent_tpu_torch.api")
 
 # Completion tokens when the request gives no max_tokens.
 MAX_NEW_TOKENS_DEFAULT = 1024
+# /v1/models' owned_by.
+OWNED_BY = "opsagent-tpu-torch"
+
+
+class _SpanFinisher:
+    """Duck-types ``Trace.finish()`` for a nested fleet-hop leg span: the
+    completion paths call ``owned.finish()`` in their finally blocks, and a
+    leg span that never closed would extend to "now" forever in the
+    assembled timeline."""
+
+    def __init__(self, span: Any):
+        self._span = span
+
+    def finish(self) -> None:
+        self._span.close()
 
 
 class ServingStack:
@@ -307,33 +348,102 @@ class ServingStack:
             }
         return choice
 
+    # -- tracing -------------------------------------------------------------
+    def _request_trace(
+        self, hop: dict[str, Any] | None = None,
+    ) -> tuple[Any, "obs.Span | None", str]:
+        """Trace context for one chat completion: nest under the caller's
+        current span when one is active, otherwise root a NEW trace whose
+        request id doubles as the OpenAI completion id, so ``GET
+        /api/trace/<completion id>`` finds it. Returns
+        (owned_handle_or_None, parent_span, completion_id).
+
+        ``hop`` is a fleet router's hop stamp ({request_id, hop, replica}):
+        the incoming journey id is ADOPTED instead of minting one, so the
+        spans, flight events and attribution of every participating replica
+        key to one id; when this process already holds a trace under it,
+        the new leg nests as a ``fleet_hop`` child of its root."""
+        parent = obs.current_span()
+        if parent is not None:
+            return None, parent, f"chatcmpl-{uuid.uuid4().hex[:24]}"
+        rid = str(hop.get("request_id") or "") if hop else ""
+        hop_kind = str(hop.get("hop", "")) if hop else ""
+        if rid:
+            existing = obs.get_store().get(rid)
+            if existing is not None:
+                if hop_kind == "failover":
+                    existing.anomalous = True
+                leg = existing.root.start_child(
+                    "fleet_hop", hop=hop_kind, replica=str(hop.get("replica", "")),
+                )
+                return _SpanFinisher(leg), leg, rid
+        t = obs.Trace(rid or obs.new_request_id("chatcmpl"))
+        if hop:
+            t.root.set(hop=hop_kind, replica=str(hop.get("replica", "")))
+            # A failover leg IS the anomaly: tail-based retention keeps it.
+            if hop_kind == "failover":
+                t.anomalous = True
+        obs.get_store().add(t)
+        return t, t.root, t.request_id
+
+    @staticmethod
+    def _stamp_class(parent: "obs.Span | None", body: Any) -> None:
+        """Stamp the request's SLO class on its trace (first writer
+        wins)."""
+        t = getattr(parent, "trace", None)
+        if t is not None and not getattr(t, "slo_class", ""):
+            t.slo_class = obs.slo.classify(body)
+
     def chat_completion(self, body: dict[str, Any]) -> dict[str, Any]:
         """One OpenAI chat completion of ``n`` choices (no streaming): ``n``
         requests of one prompt (the prefix cache shares its pages), each
         with its own constraint instance (a ``JsonConstraint`` walks one
-        sequence's DFA); usage sums their tokens."""
+        sequence's DFA); usage sums their tokens. Traced: see
+        ``_request_trace``."""
+        hop = body.pop("fleet_hop", None)
+        owned, parent, cid = self._request_trace(hop)
+        self._stamp_class(parent, body)
+        try:
+            return self._chat_completion_traced(body, parent, cid)
+        finally:
+            if owned is not None:
+                owned.finish()
+
+    def _chat_completion_traced(
+        self, body: dict[str, Any], parent: "obs.Span | None", cid: str
+    ) -> dict[str, Any]:
         sampling, prompt_ids, mask_fn = self._translate(body)
         n = self._choices(body)
         if not 1 <= n <= 8:
             raise RequestError("n must be in 1..8", 400)
         created = int(time.time())
         mask_fns = [mask_fn] + [self._constraint_from(body) for _ in range(n - 1)]
-        reqs = [self.scheduler.submit(Request(list(prompt_ids), sampling, mask_fn=m))
-                for m in mask_fns]
+        spans = [parent.start_child("generate", choice=i) if parent is not None else None
+                 for i in range(n)]
+        reqs = [self.scheduler.submit(Request(list(prompt_ids), sampling, mask_fn=m,
+                                              trace=spans[i]))
+                for i, m in enumerate(mask_fns)]
         deadline = time.monotonic() + 600
-        for req in reqs:
-            if not req.done.wait(max(0.0, deadline - time.monotonic())):
-                raise RequestError("generation timed out", 504)
+        try:
+            for req in reqs:
+                if not req.done.wait(max(0.0, deadline - time.monotonic())):
+                    raise RequestError("generation timed out", 504)
+        finally:
+            for span, req in zip(spans, reqs):
+                if span is not None:
+                    span.close(tokens=len(req.tokens))
         for req in reqs:
             if req.error:
                 raise RequestError(req.error, req.error_status)
         completion = sum(len(r.tokens) for r in reqs)
+        with obs.span("detokenize", parent=parent):
+            choices = [self._build_choice(i, r, sampling) for i, r in enumerate(reqs)]
         return {
-            "id": f"chatcmpl-{uuid.uuid4().hex[:24]}",
+            "id": cid,
             "object": "chat.completion",
             "created": created,
             "model": body.get("model") or self.model_name,
-            "choices": [self._build_choice(i, r, sampling) for i, r in enumerate(reqs)],
+            "choices": choices,
             "usage": {
                 "prompt_tokens": len(prompt_ids),
                 "completion_tokens": completion,
@@ -348,16 +458,20 @@ class ServingStack:
         fails admission raises RequestError from the first ``next``, so the
         server answers it with an HTTP status, not a 200 stream. Neither
         logprobs nor ``n`` > 1 streams: both answer 400."""
+        hop = body.pop("fleet_hop", None)
         sampling, prompt_ids, mask_fn = self._translate(body)
         if sampling.logprobs:
             raise RequestError("logprobs are not supported with stream: true", 400)
         if self._choices(body) != 1:
             raise RequestError("n > 1 is not supported with stream", 400)
         token_q: "queue.Queue[int | None]" = queue.Queue()
+        owned, parent, cid = self._request_trace(hop)
+        self._stamp_class(parent, body)
+        gen_span = parent.start_child("generate", stream=True) if parent is not None else None
         req = self.scheduler.submit(
-            Request(prompt_ids, sampling, mask_fn=mask_fn, on_token=token_q.put)
+            Request(prompt_ids, sampling, mask_fn=mask_fn, on_token=token_q.put,
+                    trace=gen_span)
         )
-        cid = f"chatcmpl-{uuid.uuid4().hex[:24]}"
         created = int(time.time())
         model = body.get("model") or self.model_name
 
@@ -370,7 +484,15 @@ class ServingStack:
                 "choices": [{"index": 0, "delta": delta, "finish_reason": finish}],
             }
 
-        yield from self._stream_events(req, token_q, chunk, sampling)
+        try:
+            yield from self._stream_events(req, token_q, chunk, sampling)
+        finally:
+            # However the stream ends (a client going away closes the
+            # generator here), the trace keeps whatever phases ran.
+            if gen_span is not None:
+                gen_span.close(tokens=len(req.tokens))
+            if owned is not None:
+                owned.finish()
 
     def _stream_events(self, req, token_q, chunk, sampling):
         # The scheduler sets done after the request's last token: a None
@@ -450,11 +572,61 @@ class ServingStack:
         yield chunk({}, finish="stop" if stopped else (req.finish_reason or "length"))
 
     def health(self) -> dict[str, Any]:
+        """``GET /healthz``: the JAX package's keys (the scheduler's queue
+        depth is what a fleet router's spill-over reads)."""
+        eng, sched = self.engine, self.scheduler
+        with eng.lock:
+            return {
+                "status": "ok",
+                "model": self.model_name,
+                "free_pages": eng.alloc.free_pages,
+                "running": len(eng.sequences),
+                "queued": len(sched._waiting) + sched._queue.qsize(),
+                "prefilling": len(sched._prefilling),
+                "prefix_hit_tokens": eng.alloc.hit_tokens,
+                "prefix_miss_tokens": eng.alloc.miss_tokens,
+                "prefix_evictions": eng.alloc.evictions,
+                "impl": eng.impl_info(),
+            }
+
+    def models(self) -> dict[str, Any]:
         return {
-            "status": "ok",
-            "model": self.model_name,
-            **self.engine.impl_info(),
+            "object": "list",
+            "data": [{"id": self.model_name, "object": "model", "owned_by": OWNED_BY}],
         }
+
+    def metrics_text(self) -> str:
+        """The ``/metrics`` document, the engine's gauges freshened first:
+        page residency changes while the engine idles."""
+        with self.engine.lock:
+            self.engine._observe_occupancy()
+        return obs.metrics_text()
+
+
+# (method, path pattern, handler): the JAX package's engine routes
+# (``build_engine_app``) apart from /fleet/*, which waits for the fleet's
+# slice. A pattern's ``{name}`` matches one path segment.
+ROUTES = (
+    ("POST", "/v1/chat/completions", "completions"),
+    ("GET", "/v1/models", "models"),
+    ("GET", "/healthz", "healthz"),
+    ("GET", "/metrics", "metrics"),
+    ("GET", "/api/trace/{request_id}", "trace_get"),
+    ("GET", "/api/timeline/{request_id}", "timeline_get"),
+    ("GET", "/api/debug/flight", "flight_get"),
+    ("GET", "/api/debug/memory", "memory_profile"),
+    ("GET", "/api/slo", "slo_get"),
+    ("GET", "/api/metrics/history", "history_get"),
+    ("POST", "/api/debug/profile", "profile_capture"),
+    ("POST", "/v1/profile/start", "profile_start"),
+    ("POST", "/v1/profile/stop", "profile_stop"),
+)
+_COMPILED = [
+    (method, pattern, re.compile("^" + re.sub(r"\{(\w+)\}", r"(?P<\1>[^/]+)", pattern) + "$"),
+     handler)
+    for method, pattern, handler in ROUTES
+]
+_PROFILE_OFF = {"error": {"message": "profiling not enabled: start the server with --profile-dir"}}
 
 
 def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServer:
@@ -462,11 +634,21 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
     picks a free one (read it from ``server.server_address``)."""
 
     class Handler(BaseHTTPRequestHandler):
+        _status = 0
+
+        def send_response(self, code: int, message: str | None = None) -> None:
+            self._status = code
+            super().send_response(code, message)
+
         def _reply(self, status: int, payload: dict[str, Any]) -> None:
-            data = json.dumps(payload).encode()
+            self._send(status, json.dumps(payload, default=str).encode(), "application/json")
+
+        def _send(self, status: int, data: bytes, ctype: str, **headers: str) -> None:
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
+            for k, v in headers.items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
 
@@ -496,16 +678,37 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
                 log.info("stream client went away")
                 events.close()
 
+        # -- dispatch --------------------------------------------------------
+        def _dispatch(self, method: str) -> None:
+            url = urlsplit(self.path)
+            query = {k: v[0] for k, v in parse_qs(url.query).items()}
+            label = "unmatched"
+            t0 = time.perf_counter()
+            try:
+                for m, pattern, regex, handler in _COMPILED:
+                    match = regex.match(url.path)
+                    if match is None:
+                        continue
+                    label = pattern
+                    if m == method:
+                        getattr(self, handler)(query, **match.groupdict())
+                        return
+                if label != "unmatched":
+                    self._reply(405, {"error": {"message": "method not allowed"}})
+                else:
+                    self._reply(404, {"error": {"message": "not found"}})
+            finally:
+                obs.HTTP_REQUESTS.inc(method=method, path=label, status=str(self._status))
+                obs.HTTP_LATENCY_SECONDS.observe(time.perf_counter() - t0, path=label)
+
         def do_GET(self) -> None:  # noqa: N802 - http.server's name
-            if self.path == "/healthz":
-                self._reply(200, stack.health())
-            else:
-                self._reply(404, {"error": {"message": "not found"}})
+            self._dispatch("GET")
 
         def do_POST(self) -> None:  # noqa: N802 - http.server's name
-            if self.path != "/v1/chat/completions":
-                self._reply(404, {"error": {"message": "not found"}})
-                return
+            self._dispatch("POST")
+
+        # -- chat ------------------------------------------------------------
+        def completions(self, query: dict[str, str]) -> None:
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(length) or b"{}")
@@ -514,6 +717,16 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
             except ValueError as e:
                 self._reply(400, {"error": {"message": f"invalid JSON: {e}"}})
                 return
+            # A fleet router stamps its journey in the body and as
+            # X-Fleet-* headers; the headers survive a proxy that strips
+            # unknown body fields.
+            rid = self.headers.get("X-Fleet-Request-Id")
+            if "fleet_hop" not in body and rid:
+                body["fleet_hop"] = {
+                    "request_id": rid,
+                    "hop": self.headers.get("X-Fleet-Hop", ""),
+                    "replica": self.headers.get("X-Fleet-Replica", ""),
+                }
             if body.get("stream"):
                 self._stream(body)
                 return
@@ -521,6 +734,107 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
                 self._reply(200, stack.chat_completion(body))
             except RequestError as e:
                 self._reply(e.status, {"error": {"message": str(e)}})
+
+        def models(self, query: dict[str, str]) -> None:
+            self._reply(200, stack.models())
+
+        def healthz(self, query: dict[str, str]) -> None:
+            self._reply(200, stack.health())
+
+        # -- observability ---------------------------------------------------
+        def metrics(self, query: dict[str, str]) -> None:
+            self._send(200, stack.metrics_text().encode(), "text/plain; charset=utf-8",
+                       **{"X-Prometheus-Version": "0.0.4"})
+
+        def trace_get(self, query: dict[str, str], request_id: str) -> None:
+            t = obs.get_trace(request_id)
+            if t is None:
+                self._reply(404, {"error": {"message": "unknown request_id"}})
+            else:
+                self._reply(200, t)
+
+        def timeline_get(self, query: dict[str, str], request_id: str) -> None:
+            tl = obs.timeline.assemble(request_id)
+            if tl is None:
+                self._reply(404, {"error": {"message": "unknown request_id"}})
+            else:
+                self._reply(200, tl)
+
+        def flight_get(self, query: dict[str, str]) -> None:
+            try:
+                n = int(query["n"]) if "n" in query else None
+            except ValueError:
+                self._reply(400, {"error": {"message": "n must be an integer"}})
+                return
+            rec = obs.flight.get_recorder()
+            self._reply(200, {**rec.stats(),
+                              "events": rec.snapshot(n=n, kind=query.get("kind"))})
+
+        def slo_get(self, query: dict[str, str]) -> None:
+            self._reply(200, obs.slo.evaluate())
+
+        def history_get(self, query: dict[str, str]) -> None:
+            try:
+                kwargs = obs.history.parse_query(query)
+            except ValueError as e:
+                self._reply(400, {"error": {"message": f"bad query: {e}"}})
+                return
+            self._reply(200, obs.history.query(**kwargs))
+
+        # -- profiling (operator-configured directory only) ------------------
+        def memory_profile(self, query: dict[str, str]) -> None:
+            logdir = profiling.profile_dir()
+            if not logdir:
+                self._reply(403, _PROFILE_OFF)
+                return
+            stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime())
+            path = os.path.join(logdir, f"memory-{stamp}.pickle")
+            try:
+                os.makedirs(logdir, exist_ok=True)
+                profiling.save_device_memory_profile(path)
+            except Exception as e:  # noqa: BLE001 - surfaced to the caller
+                self._reply(500, {"error": {"message": str(e)}})
+                return
+            self._reply(200, {"status": "saved", "path": path})
+
+        def profile_capture(self, query: dict[str, str]) -> None:
+            try:
+                seconds = float(query.get("seconds", "5"))
+            except ValueError:
+                self._reply(400, {"error": {"message": "seconds must be a number"}})
+                return
+            try:
+                logdir = profiling.timed_capture(seconds)
+            except ValueError as e:
+                self._reply(400, {"error": {"message": str(e)}})
+                return
+            except profiling.ProfilingDisabled as e:
+                self._reply(403, {"error": {"message": str(e)}})
+                return
+            except Exception as e:  # noqa: BLE001 - a capture already running
+                self._reply(409, {"error": {"message": str(e)}})
+                return
+            self._reply(200, {"status": "captured", "seconds": seconds, "logdir": logdir})
+
+        def profile_start(self, query: dict[str, str]) -> None:
+            logdir = profiling.profile_dir()
+            if not logdir:
+                self._reply(403, _PROFILE_OFF)
+                return
+            try:
+                profiling.start_trace(logdir)
+            except Exception as e:  # noqa: BLE001 - already tracing / bad dir
+                self._reply(409, {"error": {"message": str(e)}})
+                return
+            self._reply(200, {"status": "tracing", "logdir": logdir})
+
+        def profile_stop(self, query: dict[str, str]) -> None:
+            try:
+                profiling.stop_trace()
+            except Exception as e:  # noqa: BLE001 - not tracing / write failure
+                self._reply(409, {"error": {"message": str(e)}})
+                return
+            self._reply(200, {"status": "stopped"})
 
         def log_message(self, fmt: str, *args: Any) -> None:
             log.debug("%s " + fmt, self.address_string(), *args)

@@ -31,6 +31,11 @@ What a capture needs, and where it comes from:
   draws fresh numbers from the generator's current offset and advances it,
   as an eager step does.
 
+A capture is the port's counterpart of an XLA compile: its wall time goes
+to the compile watchdog (``obs.flight.on_compile``), so a capture after a
+completed ``Engine.warmup`` shows as ``opsagent_post_warmup_compiles`` and
+a flight anomaly.
+
 The launch counters (``ops.paged_attention.LAUNCHES``,
 ``ops.quant_matmul.LAUNCHES`` and ``INSTANCE_LAUNCHES``) count Python
 calls; a capture runs no kernel, so its counts are taken back and added
@@ -39,10 +44,12 @@ again on every replay: a counter keeps meaning kernels run.
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
 
+from .. import obs
 from ..models.llama import PagedKVCache
 from ..ops import paged_attention, quant_matmul
 from .decode_loop import StaticBuffers
@@ -62,6 +69,7 @@ class StepGraph:
     ):
         self._buffers, self._cache = buffers, cache
         self._pointers = self._addresses()
+        t0 = time.perf_counter()
         before = [dict(counts) for counts in COUNTERS]
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
@@ -74,6 +82,7 @@ class StepGraph:
             for k, n in delta.items():
                 counts[k] -= n
             self._launches.append((counts, delta))
+        obs.flight.on_compile(time.perf_counter() - t0, what="cuda_graph")
 
     def _addresses(self) -> list[int]:
         tensors = [t for b in self._buffers for t in b.buffers()]

@@ -24,6 +24,10 @@ Two parts:
 over a ``MixedState``, one per query-axis bucket (JAX's prefill programs,
 one per bucket).
 
+``record_dispatch`` and ``record_mixed_dispatch`` are the host-side
+telemetry of one block call and one mixed tick (JAX's names): the engine
+calls them around the drivers, never inside a body.
+
 Constrained decoding runs inside both bodies (JAX's ``decode_block_carry``
 and ``mixed_step_carry``): each row's ``fsm`` indexes the loaded schema's
 ``FsmTables``, whose row 0 allows everything, and a ``host_mask`` row
@@ -417,3 +421,59 @@ def mixed_step_body(
         extras.mixed_lp_top.copy_(top)
         extras.count(tok, state.emits)
     state.fsm.copy_(torch.where(state.emits, tables.advance(state.fsm, tok), state.fsm))
+
+
+# -- host-side dispatch telemetry (JAX decode_loop.py's record_dispatch) ------
+def _record_attr(kind: str, attr, attr_kw: dict | None) -> None:
+    """Forward one dispatch's composition to the goodput ledger's cost
+    model (obs/attribution.py). Host float math only; never raises into
+    the dispatch path."""
+    if attr is None:
+        return
+    try:
+        attr.dispatch(kind, **(attr_kw or {}))
+    except Exception:  # noqa: BLE001 - attribution must not kill serving
+        pass
+
+
+def record_dispatch(
+    kind: str, rows: int, steps: int, attr=None, attr_kw: dict | None = None
+) -> None:
+    """Host-side telemetry of one decode block call. Nothing records
+    inside ``decode_step_body``: where steps replay, its Python runs once,
+    at capture, so a counter there would count captures, not steps. The
+    engine calls this once per block call: ``kind`` is "block", ``rows``
+    how many lanes got a budget and ``steps`` the block's ``n_steps``.
+    ``attr``/``attr_kw`` carry the block's roofline composition to the
+    attribution ledger."""
+    from .. import obs
+
+    obs.DECODE_DISPATCHES.inc(kind=kind)
+    if rows > 0 and steps > 0:
+        obs.get_registry().histogram(
+            "opsagent_decode_dispatch_rows",
+            "Budgeted lanes per decode dispatch",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128),
+        ).observe(rows)
+    _record_attr(kind, attr, attr_kw)
+
+
+def record_mixed_dispatch(
+    decode_rows: int, prefill_tokens: int, budget: int,
+    attr=None, attr_kw: dict | None = None,
+) -> None:
+    """Composition telemetry of one mixed tick (``Engine.step_mixed``, once
+    per tick that runs a forward, outside ``mixed_step_body``): how many
+    decode lanes rode the tick, how many prefill chunk tokens shared its
+    weight stream, and what fraction of the tick's token budget
+    (``max_step_tokens``) the two together used."""
+    from .. import obs
+
+    obs.DECODE_DISPATCHES.inc(kind="mixed")
+    obs.MIXED_DECODE_LANES.observe(max(0, decode_rows))
+    obs.MIXED_PREFILL_TOKENS.observe(max(0, prefill_tokens))
+    if budget > 0:
+        obs.MIXED_BUDGET_UTILIZATION.observe(
+            min(1.0, (decode_rows + prefill_tokens) / budget)
+        )
+    _record_attr("mixed", attr, attr_kw)

@@ -39,27 +39,45 @@ paged-attention kernels ("dma" or "grid"); ``attn_impl`` picks kernels or
 plain versions for all of them at once. ``checkpoint`` loads an HF
 safetensors directory instead of random weights.
 
+Observability (``obs``, the port's copy of ``opsagent_tpu/obs``) records
+at the JAX engine's call sites, on the host, once per admission, mixed tick,
+block call, token and finish: the token and dispatch counters, TTFT and
+inter-token latency, occupancy gauges, the flight ring's events, the
+request's trace spans (``prefill``, ``decode`` with a ``mixed_step`` or
+``decode_block`` child per tick or block) and the roofline attribution of
+every tick and block (``obs.attribution``, at the H100's peaks). Nothing
+records inside a step body: where steps replay, a body's Python runs once,
+at capture. Tokens come back a block at a time, so a block's inter-token
+latencies are one gap and then near-zero ones, as in JAX's block decode.
+``warmup`` runs inside ``obs.flight.warmup_phase``: a capture after it is a
+post-warmup compile.
+
 No async runtime, pipelining, grammar fast-forward, speculation, offload
 or snapshots in this port yet.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
+import threading
 import time
 from dataclasses import dataclass, field, replace
 from functools import partial
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..models.config import ModelConfig, resolve_model
 from ..models.llama import Llama
 from ..models.loader import load_checkpoint
 from ..ops.paged_attention import PAGED_BACKENDS
+from ..utils.perf import get_perf_stats
+from ..utils.profiling import annotate, device_timer
 from .constrained import NATIVE_TABLE_BUDGET, JsonConstraint, TokenFSM, device_table_fsm
 from .decode_graph import StepGraph
 from .decode_loop import (
@@ -70,6 +88,8 @@ from .decode_loop import (
     decode_block,
     decode_step_body,
     mixed_step_body,
+    record_dispatch,
+    record_mixed_dispatch,
 )
 from .kvcache import InvalidRequest, OutOfPages, PageAllocator
 from .sampler import SamplingParams
@@ -79,6 +99,18 @@ log = logging.getLogger("opsagent_tpu_torch.engine")
 
 # A constrained-decoding mask: the generated tokens -> [vocab] bool allowed.
 MaskFn = Callable[[list[int]], np.ndarray]
+
+
+def _locked(fn):
+    """Run an Engine method under the engine's lock: the scheduler thread
+    steps the engine while HTTP threads read its gauges."""
+
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with self.lock:
+            return fn(self, *args, **kwargs)
+
+    return run
 
 
 @dataclass
@@ -154,6 +186,15 @@ class Sequence:
     static_bias: np.ndarray | None = None
     # {token_id: count} of the generated tokens, for the penalties.
     penalty_counts: dict[int, int] | None = None
+    ttft_s: float = 0.0
+    started_s: float = field(default_factory=time.perf_counter)
+    # Observability (obs.trace): the request's span handle under which the
+    # engine records its prefill and decode spans, the open decode span,
+    # and the previous accepted token's time for the inter-token latency.
+    # Untraced sequences pay one None check.
+    trace: Any = None
+    decode_span: Any = None
+    last_tok_s: float = 0.0
 
 
 class Engine:
@@ -185,6 +226,22 @@ class Engine:
         if impl == "cuda" and self.device.type != "cuda":
             raise ValueError("attn_impl='cuda' needs a CUDA device")
         self.attn_impl = impl
+        self.lock = threading.RLock()
+        # The weight stream the roofline prices: with the kernels, quantized
+        # weights run every projection through the quantized matmul kernel,
+        # whose cp.async ring overlaps the stream with compute (the JAX
+        # package's "pallas-dma"); otherwise torch.matmul ("xla": bytes/bw).
+        self.weight_stream_impl = (
+            "pallas-dma" if cfg.quantize and impl == "cuda" else "xla"
+        )
+        self.attr = obs.attribution.Attribution.for_engine(
+            self.model_cfg, cfg, weight_stream=self.weight_stream_impl
+        )
+        obs.attribution.set_current(self.attr)
+        self._evictions_seen = 0   # delta-sync base for the obs counter
+        # perf_counter when the last mixed tick's replay was enqueued (the
+        # host-gap observable); None across block calls and idle waits.
+        self._mixed_gap_stamp: float | None = None
         # Llama and PagedKVCache validate quantize and kv_quantize.
         if model is not None and model.quantize != cfg.quantize:
             raise ValueError(
@@ -288,6 +345,7 @@ class Engine:
         return temps, top_k, top_p
 
     # -- request lifecycle -------------------------------------------------
+    @_locked
     def add_request(
         self,
         prompt_ids: list[int],
@@ -303,18 +361,21 @@ class Engine:
             self.step_mixed([], {seq_id: self.cfg.mixed_buckets[-1]})
         return seq_id
 
+    @_locked
     def begin_request(
         self,
         prompt_ids: list[int],
         sampling: SamplingParams | None = None,
         mask_fn: MaskFn | None = None,
         stream: Callable[[int], None] | None = None,
+        trace: Any = None,
     ) -> int:
         """Stage 1 of admission: allocate pages, reusing cached prefix pages,
         and register the sequence as prefilling. No device work: mixed steps
         then run its prompt in chunks. ``mask_fn`` constrains the sequence's
         tokens (a mask that raises on the empty prefix is an invalid
-        request); ``stream`` receives each accepted token."""
+        request); ``stream`` receives each accepted token; ``trace`` is the
+        request's span, under which the engine records its phases."""
         sampling = sampling or SamplingParams()
         n = len(prompt_ids)
         window = self.model_cfg.max_position
@@ -339,9 +400,18 @@ class Engine:
         seq_id = self.alloc.allocate(n, prefix_pages=prefix_pages)
         self.sequences[seq_id] = Sequence(
             seq_id, n, prompt_ids=list(prompt_ids), params=sampling,
-            mask_fn=mask_fn, on_token=stream,
+            mask_fn=mask_fn, on_token=stream, trace=trace,
         )
         self._prefilling[seq_id] = matched
+        if matched:
+            get_perf_stats().record_metric("engine.prefix_hit_tokens", matched, "tok")
+            obs.PREFIX_HIT_TOKENS.inc(matched)
+        obs.flight.record(
+            "admission", seq_id=seq_id, prompt_tokens=n,
+            prefix_hit_tokens=matched, restored_tokens=0,
+            request_id=obs.flight.request_id_of(trace),
+        )
+        self._observe_occupancy()
         return seq_id
 
     def prefill_progress(self, seq_id: int) -> tuple[int, int]:
@@ -353,6 +423,7 @@ class Engine:
         self._prefilling.pop(seq_id, None)
         self.alloc.free(seq_id)
 
+    @_locked
     def abort_request(self, seq_id: int) -> None:
         """Abandon a sequence that is still prefilling."""
         if seq_id in self._prefilling:
@@ -371,6 +442,14 @@ class Engine:
 
     def _accept_token(self, seq: Sequence, token: int) -> None:
         seq.tokens.append(token)
+        obs.DECODE_TOKENS.inc()
+        now = time.perf_counter()
+        if seq.last_tok_s:
+            obs.ITL_SECONDS.observe(now - seq.last_tok_s)
+            cls = obs.trace.class_of(seq.trace)
+            if cls:
+                obs.CLASS_ITL_SECONDS.observe(now - seq.last_tok_s, **{"class": cls})
+        seq.last_tok_s = now
         if seq.params.presence_penalty or seq.params.frequency_penalty:
             seq.penalty_counts = self._seen(seq)
             seq.penalty_counts[token] = seq.penalty_counts.get(token, 0) + 1
@@ -387,6 +466,16 @@ class Engine:
             seq.done, seq.finish_reason = True, "length"
         elif seq.params.stop and self._hit_stop_string(seq):
             seq.done, seq.finish_reason = True, "stop"
+        if seq.done and seq.decode_span is not None:
+            self._close_decode_span(seq)
+
+    def _close_decode_span(self, seq: Sequence) -> None:
+        obs.attribution.record_goodput(
+            seq.decode_span.duration_s(), "decode_active",
+            slo_class=obs.trace.class_of(seq.trace),
+        )
+        seq.decode_span.close(tokens=len(seq.tokens), finish_reason=seq.finish_reason)
+        seq.decode_span = None
 
     def _hit_stop_string(self, seq: Sequence) -> bool:
         """Check the decoded tail for a stop string (a char may span up to 4
@@ -537,6 +626,7 @@ class Engine:
         return s.mask_fn.dfa_state(s.tokens) + 1 if on_device else 0
 
     # -- mixed prefill + decode step ----------------------------------------
+    @_locked
     def step_mixed(
         self, decode_ids: list[int], prefill_chunks: dict[int, int]
     ) -> tuple[dict[int, list[int]], dict[int, bool]]:
@@ -585,6 +675,7 @@ class Engine:
                 grown.append(s)
             except OutOfPages:
                 s.done, s.finish_reason = True, "length"
+                self._preempted(s)
         decode = grown
         decode_out: dict[int, list[int]] = {}
         prefill_out: dict[int, bool] = {}
@@ -622,6 +713,15 @@ class Engine:
         lanes = [s if emits[i] else None for i, s in enumerate(slots)]
         extras = self._wants_extras(lanes)
         lp = None
+        perf = get_perf_stats()
+        t_disp = time.perf_counter()
+        # Host-gap observable: time since the previous mixed tick's replay
+        # was enqueued, which in this synchronous tick spans its token pull
+        # and all host work since.
+        if self._mixed_gap_stamp is not None:
+            gap = t_disp - self._mixed_gap_stamp
+            obs.STEP_HOST_GAP_SECONDS.observe(gap, mode="sync")
+            perf.record_metric("engine.step_host_gap", gap * 1e3, "ms")
         try:
             with torch.inference_mode():
                 if self._replays():
@@ -636,7 +736,10 @@ class Engine:
                 state.load(tokens, starts, qlens, tables, temps, top_k, top_p, fsm, emits)
                 # Every row samples; rows whose chunk does not finish the
                 # prompt discard their token below.
-                step()
+                dev_out: list = [state.out]
+                with annotate("engine.mixed_step"), device_timer("mixed_step", dev_out):
+                    step()
+                self._mixed_gap_stamp = time.perf_counter()
                 sampled = state.out.cpu().numpy()
                 if want_lp:
                     x = self._extras
@@ -651,11 +754,47 @@ class Engine:
             for sid, *_ in chunks:
                 self._drop_admission(sid)
             raise
+        measured_s = time.perf_counter() - t_disp
+        perf.record_metric("engine.mixed_dispatch", measured_s * 1e3, "ms")
+        n_prefill = sum(c for *_, c in chunks)
+        if n_prefill:
+            perf.record_metric("engine.prefill_tokens", n_prefill, "tok")
+            obs.PREFILL_TOKENS.inc(n_prefill)
+        # Attribution: decode lanes attend their whole written context;
+        # chunk rows read their prefix + chunk. The tick's replay + pull
+        # wall time is a synchronous measurement: it feeds the drift gauge.
+        dec_ctx = sum(int(starts[i]) + 1 for i in range(len(decode)))
+        record_mixed_dispatch(
+            decode_rows=len(decode),
+            prefill_tokens=n_prefill,
+            budget=self.cfg.max_step_tokens,
+            attr=self.attr,
+            attr_kw=dict(
+                q_tokens=len(decode) + n_prefill,
+                kv_read_tokens=dec_ctx + sum(d + c for _, _, d, c in chunks),
+                kv_write_tokens=len(decode) + n_prefill,
+                attn_q_ctx=dec_ctx + sum(
+                    obs.attribution.prefill_attn_positions(d, c)
+                    for _, _, d, c in chunks
+                ),
+                measured_s=measured_s,
+            ),
+        )
+        obs.flight.record(
+            "dispatch", op="mixed",
+            decode_seq_ids=[s.seq_id for s in decode],
+            prefill_seq_ids=[sid for sid, *_ in chunks],
+            bucket=int(S), prefill_tokens=n_prefill,
+            budget=self.cfg.max_step_tokens,
+        )
         for i, s in enumerate(decode):
+            dspan = s.decode_span
             if lp is not None and s.params.logprobs:
                 s.logprob_data.append(self._logprob_entry(s, *(a[i] for a in lp)))
             self._accept_token(s, int(sampled[i]))
             decode_out[s.seq_id] = [int(sampled[i])]
+            if dspan is not None:
+                dspan.child("mixed_step", t_disp, time.perf_counter(), tokens=1)
         for j, (sid, seq, done, c) in enumerate(chunks):
             prefill_out[sid] = done + c >= seq.prompt_len
             if not prefill_out[sid]:
@@ -663,18 +802,28 @@ class Engine:
                 continue
             del self._prefilling[sid]
             if not seq.done:  # a failed mask ended it already
+                seq.ttft_s = time.perf_counter() - seq.started_s
+                perf.record_metric("engine.ttft", seq.ttft_s * 1e3, "ms")
+                self._first_token_obs(seq)
                 if lp is not None and seq.params.logprobs:
                     seq.logprob_data.append(
                         self._logprob_entry(seq, *(a[base + j] for a in lp)))
                 self._accept_token(seq, int(sampled[base + j]))
+        if decode:
+            perf.record_metric("engine.decode_tokens", len(decode), "tok")
+        self._observe_occupancy()
         return decode_out, prefill_out
 
     # -- block decode --------------------------------------------------------
+    @_locked
     def step_block(self, seq_ids: list[int] | None = None) -> dict[int, list[int]]:
         """Advance running sequences by up to ``cfg.decode_block`` tokens in
         one device-resident loop with one host pull; hosted constrained
         rows advance one token first, in a one-step block of their own.
         Returns {seq_id: accepted tokens}."""
+        # Host-gap continuity ends here: a block between two mixed ticks
+        # would otherwise count as a gap.
+        self._mixed_gap_stamp = None
         running = [
             s for s in self.sequences.values()
             if not s.done and s.seq_id not in self._prefilling
@@ -690,6 +839,7 @@ class Engine:
             out.update(self._decode_rows(hosted, 1, routes))
         if rest:
             out.update(self._decode_rows(rest, self.cfg.decode_block, routes))
+        self._observe_occupancy()
         return out
 
     def _decode_rows(
@@ -714,6 +864,8 @@ class Engine:
             got = self.alloc.extend_upto(s.seq_id, want) if want > 0 else 0
             if got == 0:
                 s.done, s.finish_reason = True, "length"
+                if want > 0:
+                    self._preempted(s)
                 self.alloc.truncate(s.seq_id, self._host_written(s))
                 masks.pop(i, None)
                 continue
@@ -731,6 +883,7 @@ class Engine:
         greedy = bool(np.all(temps <= 0.0))
         extras = self._wants_extras(lanes)
         n_steps = int(budgets.max())
+        t_disp = time.perf_counter()
         with torch.inference_mode():
             if self._replays():
                 step = self._prepare()[("decode", greedy, extras)].replay
@@ -741,20 +894,53 @@ class Engine:
             self.hosted_steps += len(masks) * n_steps
             self._load_host_masks(masks)
             want_lp = extras and self._load_extras(lanes)
-            toks = decode_block(
-                self._decode, step, tokens, write_at, active, budgets, table,
-                temps, top_k, top_p, n_steps=n_steps, fsm=fsm,
-            ).cpu().numpy()
+            dev_out: list = [self._decode.out]
+            with annotate("engine.decode_block"), device_timer("decode_block", dev_out):
+                toks_d = decode_block(
+                    self._decode, step, tokens, write_at, active, budgets, table,
+                    temps, top_k, top_p, n_steps=n_steps, fsm=fsm,
+                )
+            toks = toks_d.cpu().numpy()
             lp = None
             if want_lp:
                 x = self._extras
                 lp = (x.lp[:, :n_steps].cpu().numpy(), x.lp_ids[:, :n_steps].cpu().numpy(),
                       x.lp_top[:, :n_steps].cpu().numpy())
+        measured_s = time.perf_counter() - t_disp
+        get_perf_stats().record_metric("engine.block_dispatch", measured_s * 1e3, "ms")
+        # Attribution: each budgeted lane writes b tokens, its step j
+        # attending start + j + 1 positions (exact causal sum); the block
+        # streams the weights once per step, however few lanes carry a
+        # budget (inactive lanes ride the stream).
+        attr_q = attr_read = 0
+        for i, s in enumerate(lanes):
+            b = int(budgets[i])
+            if s is None or b == 0:
+                continue
+            attr_q += b
+            attr_read += b * int(write_at[i]) + b * (b + 1) // 2
+        record_dispatch(
+            "block", rows=int(np.count_nonzero(budgets)), steps=n_steps,
+            attr=self.attr,
+            attr_kw=dict(
+                weight_streams=n_steps, q_tokens=attr_q, kv_read_tokens=attr_read,
+                kv_write_tokens=attr_q, attn_q_ctx=attr_read, measured_s=measured_s,
+            ),
+        )
+        obs.flight.record(
+            "dispatch", op="decode_block",
+            seq_ids=[s.seq_id for i, s in enumerate(lanes) if s is not None and budgets[i]],
+            steps=n_steps,
+        )
         out: dict[int, list[int]] = {}
+        produced = 0
         for i, s in enumerate(lanes):
             if s is None:
                 continue
             n0 = len(s.tokens)
+            # The decode span open while the block ran, taken before the
+            # accept loop can close it (EOS mid-block).
+            dspan = s.decode_span
             for j in range(int(budgets[i])):
                 if lp is not None and s.params.logprobs:
                     s.logprob_data.append(self._logprob_entry(s, *(a[i, j] for a in lp)))
@@ -762,9 +948,14 @@ class Engine:
                 if s.done:
                     break
             out[s.seq_id] = s.tokens[n0:]
+            produced += len(out[s.seq_id])
+            if dspan is not None and out[s.seq_id]:
+                dspan.child("decode_block", t_disp, time.perf_counter(),
+                            tokens=len(out[s.seq_id]))
             if s.done:
                 # Roll the block's booking back to what was written.
                 self.alloc.truncate(s.seq_id, self._host_written(s))
+        get_perf_stats().record_metric("engine.decode_tokens", produced, "tok")
         return out
 
     # -- warmup and the step graphs -------------------------------------------
@@ -783,9 +974,15 @@ class Engine:
         touch CUDA (a capture is process-wide). Returns wall seconds
         spent."""
         t0 = time.perf_counter()
-        with torch.inference_mode():
+        # Compile-watchdog phase bracket: captures and kernel builds inside
+        # count as "warmup"; once any warmup completes, one during serving
+        # is an anomaly.
+        with obs.flight.warmup_phase(), self.lock, torch.inference_mode():
             self._prepare()
-        return time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        get_perf_stats().record_metric("engine.warmup", dt * 1e3, "ms")
+        obs.flight.record("warmup", level="full", seconds=round(dt, 3))
+        return dt
 
     def _replays(self) -> bool:
         return self.attn_impl == "cuda" and self.cfg.cuda_graphs
@@ -848,13 +1045,76 @@ class Engine:
             extras=self._extras if extras else None,
         )
 
+    @_locked
     def finish(self, seq_id: int) -> list[int]:
         """Release a sequence; returns its generated tokens. Full pages go
         to the prefix trie keyed by the tokens they hold (the prompt and all
         generated tokens but the last, which was never written)."""
         seq = self.sequences.pop(seq_id)
         self.alloc.free(seq_id, tokens=seq.prompt_ids + seq.tokens[:-1])
+        obs.flight.record(
+            "finish", seq_id=seq_id, tokens=len(seq.tokens),
+            finish_reason=seq.finish_reason,
+            request_id=obs.flight.request_id_of(seq.trace),
+        )
+        if seq.decode_span is not None:
+            # An errored sequence reaches finish() with its span open.
+            self._close_decode_span(seq)
+        self._observe_occupancy()
         return seq.tokens
+
+    # -- observability -------------------------------------------------------
+    def _observe_occupancy(self) -> None:
+        """Refresh the engine gauges (KV page utilization, batch
+        occupancy) and delta-sync the allocator's cumulative prefix-trie
+        eviction count into the obs counter. Host arithmetic, under the
+        engine lock: admission, ticks, blocks, finish and each scrape."""
+        free = self.alloc.free_pages
+        obs.KV_PAGES_FREE.set(free)
+        obs.KV_PAGE_UTILIZATION.set(1.0 - free / max(1, self.alloc.num_pages))
+        running = sum(1 for s in self.sequences.values() if not s.done)
+        obs.BATCH_OCCUPANCY.set(running / max(1, self.cfg.max_batch_size))
+        obs.RUNNING_SEQUENCES.set(len(self.sequences))
+        ev = self.alloc.evictions
+        if ev > self._evictions_seen:
+            obs.PREFIX_EVICTIONS.inc(ev - self._evictions_seen)
+            obs.flight.record("prefix_eviction", count=ev - self._evictions_seen)
+            self._evictions_seen = ev
+
+    def _first_token_obs(self, seq: Sequence) -> None:
+        """The prompt is done and its first token sampled: observe TTFT
+        (admission to first token), record the prefill span and open the
+        request's decode span (one child per tick or block; closed when the
+        sequence finishes). A TTFT past the SLO line is a flight anomaly."""
+        obs.TTFT_SECONDS.observe(seq.ttft_s)
+        cls = obs.trace.class_of(seq.trace)
+        if cls:
+            obs.CLASS_TTFT_SECONDS.observe(seq.ttft_s, **{"class": cls})
+        obs.attribution.record_goodput(seq.ttft_s, "prefill", slo_class=cls)
+        ttft_ms = round(seq.ttft_s * 1e3, 3)
+        rid = obs.flight.request_id_of(seq.trace)
+        obs.flight.record("ttft", seq_id=seq.seq_id, ttft_ms=ttft_ms, request_id=rid)
+        thr = obs.flight.ttft_threshold_s()
+        if thr > 0 and seq.ttft_s > thr:
+            obs.flight.anomaly(
+                "ttft_breach", seq_id=seq.seq_id, ttft_ms=ttft_ms,
+                threshold_ms=round(thr * 1e3, 3), request_id=rid,
+            )
+        if seq.trace is not None:
+            seq.trace.child("prefill", seq.started_s, time.perf_counter(),
+                            prompt_tokens=seq.prompt_len)
+            seq.decode_span = seq.trace.start_child("decode")
+
+    def _preempted(self, seq: Sequence) -> None:
+        """A sequence force-finished because the page pool ran dry."""
+        obs.PREEMPTIONS.inc()
+        obs.flight.record("preemption", seq_id=seq.seq_id)
+        log.warning("seq %d truncated: KV page budget exhausted", seq.seq_id)
+
+    def mixed_gap_break(self) -> None:
+        """The scheduler went idle: the next mixed tick's host gap starts
+        no earlier than now's idle wait."""
+        self._mixed_gap_stamp = None
 
     def generate(
         self,

@@ -86,6 +86,15 @@ class PageAllocator:
         self.evictions = 0    # cumulative trie-leaf evictions (stats)
 
     # -- queries -----------------------------------------------------------
+    @property
+    def free_pages(self) -> int:
+        """Pages an admission could take now: the free list plus the
+        evictable (unreferenced leaf) trie pages."""
+        return len(self._free) + sum(
+            1 for n in self._by_page.values()
+            if n.refcount == 0 and n.children == 0
+        )
+
     def accounting(self) -> dict[str, int]:
         """Page-conservation snapshot: every page is exactly one of free,
         trie-resident (shared or cached), or exclusively owned by a live

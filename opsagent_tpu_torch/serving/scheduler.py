@@ -1,6 +1,6 @@
 """Continuous-batching scheduler (the port's counterpart of
-``opsagent_tpu/serving/scheduler.py``, without its observability hooks,
-restart recovery and offload parking).
+``opsagent_tpu/serving/scheduler.py``, without its restart recovery,
+class-fair admission and offload parking).
 
 One thread owns the engine. Each tick admits waiting requests while batch
 slots and pages allow, then runs ONE device program: a mixed step when a
@@ -13,6 +13,15 @@ mask that raises on admission fails the request with 400. A request that
 asks for logprobs gets them in ``logprob_data`` when it finishes. Its
 ``on_token`` receives each accepted token on the scheduler thread, after
 each mixed tick and each block's pull (a block's tokens arrive together).
+
+Observability at the JAX scheduler's points: a request's span handle rides
+its ``Request`` (``trace``; the scheduler thread has no ambient context)
+into ``Engine.begin_request``; admission records the ``queue_wait`` span,
+``opsagent_queue_wait_seconds`` and queued goodput; each request's end
+counts ``opsagent_engine_requests_total{outcome}`` and the per-class
+``opsagent_class_requests_total``, and a failed one is a flight anomaly.
+The loop hosts the profiler's captures (``utils.profiling``), so a
+``/api/debug/profile`` trace holds the engine's ticks.
 """
 
 from __future__ import annotations
@@ -22,8 +31,11 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Any, Callable
 
+from .. import obs
+from ..utils import profiling
+from ..utils.perf import get_perf_stats
 from .engine import Engine, MaskFn
 from .kvcache import InvalidRequest, OutOfPages, PromptTooLong
 from .sampler import SamplingParams
@@ -61,6 +73,10 @@ class Request:
     ttft_s: float = 0.0
     enqueued_s: float = field(default_factory=time.perf_counter)
     done: threading.Event = field(default_factory=threading.Event)
+    # Observability: the request's span handle (obs.trace.Span), under
+    # which the scheduler records queue_wait and the engine the prefill
+    # and decode phases.
+    trace: Any = None
 
 
 class Scheduler:
@@ -110,11 +126,18 @@ class Scheduler:
                 still.append(req)
                 continue
             if now - req.enqueued_s > ADMISSION_TIMEOUT_S:
-                self._fail(req, "admission timed out (engine saturated)", 503)
+                error = "admission timed out (engine saturated)"
+                self._count(req, "timeout")
+                obs.flight.anomaly(
+                    "request_error", error=error,
+                    request_id=obs.flight.request_id_of(req.trace),
+                )
+                self._fail(req, error, 503)
                 continue
             try:
                 seq_id = self.engine.begin_request(
-                    req.prompt_ids, req.sampling, req.mask_fn, req.on_token
+                    req.prompt_ids, req.sampling, req.mask_fn, req.on_token,
+                    trace=req.trace,
                 )
             except OutOfPages:
                 still.append(req)  # pages free as running sequences finish
@@ -124,6 +147,14 @@ class Scheduler:
                 continue
             req.seq_id = seq_id
             self._prefilling[seq_id] = req
+            wait_s = now - req.enqueued_s
+            get_perf_stats().record_metric("scheduler.queue_wait", wait_s * 1e3, "ms")
+            obs.QUEUE_WAIT_SECONDS.observe(wait_s)
+            obs.attribution.record_goodput(
+                wait_s, "queued", slo_class=obs.trace.class_of(req.trace)
+            )
+            if req.trace is not None:
+                req.trace.child("queue_wait", req.enqueued_s, now)
         self._waiting = still
 
     def _mixed_tick(self) -> bool:
@@ -155,7 +186,13 @@ class Scheduler:
             _, prefill_out = eng.step_mixed(decode_ids, chunks)
         except Exception as e:
             for sid in chunks:  # the engine dropped these admissions
-                self._fail(self._prefilling.pop(sid), f"admission failed: {e}")
+                req = self._prefilling.pop(sid)
+                self._count(req, "admission_failed")
+                obs.flight.anomaly(
+                    "request_error", seq_id=sid, error=str(e),
+                    request_id=obs.flight.request_id_of(req.trace),
+                )
+                self._fail(req, f"admission failed: {e}")
             raise
         for sid, prompt_done in prefill_out.items():
             if prompt_done:
@@ -174,27 +211,56 @@ class Scheduler:
             req.tokens = self.engine.finish(sid)
             if req.finish_reason == "error":
                 # Its mask or stream callback raised (logged by the engine).
-                self._fail(req, "constrained decoding or streaming failed")
-            else:
-                req.done.set()
+                req.error = "constrained decoding or streaming failed"
+            self._count(req, "error" if req.error else "completed")
+            if req.error:
+                obs.flight.anomaly(
+                    "request_error", seq_id=sid, error=req.error,
+                    request_id=obs.flight.request_id_of(req.trace),
+                )
+            req.done.set()
 
     @staticmethod
     def _fail(req: Request, message: str, status: int = 500) -> None:
         req.error, req.error_status = message, status
         req.done.set()
 
+    @staticmethod
+    def _count(req: Request, outcome: str) -> None:
+        """A request's end: ``opsagent_engine_requests_total{outcome}`` and
+        the per-class ``opsagent_class_requests_total``."""
+        obs.ENGINE_REQUESTS.inc(outcome=outcome)
+        obs.CLASS_REQUESTS.inc(**{
+            "class": obs.trace.class_of(req.trace, "interactive"),
+            "outcome": outcome,
+        })
+
     def _loop(self) -> None:
+        profiling.host_captures()
+        try:
+            self._serve()
+        finally:
+            profiling.release_captures()
+
+    def _serve(self) -> None:
         while not self._stop.is_set():
+            profiling.service()
             try:
                 self._try_admit()
                 if not self._mixed_tick() and self._running:
                     self.engine.step_block(sorted(self._running))
                 self._reap()
                 if not self._running and not self._prefilling:
+                    # Idle: the wait must not be observed as a host gap.
+                    self.engine.mixed_gap_break()
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
             except Exception as e:  # noqa: BLE001 - the loop must survive
                 log.exception("scheduler step failed")
+                obs.flight.anomaly(
+                    "request_error", error=f"engine step failed: {e}",
+                    failed_requests=len(self._running),
+                )
                 for sid, req in list(self._running.items()):
                     req.tokens = self.engine.finish(sid)
                     self._fail(req, f"engine step failed: {e}")

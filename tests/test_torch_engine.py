@@ -118,7 +118,8 @@ def test_chat_completion_over_http(engines):
     usage = reply["usage"]
     assert 1 <= usage["completion_tokens"] <= 5
     assert usage["total_tokens"] == usage["prompt_tokens"] + usage["completion_tokens"]
-    assert health["status"] == "ok" and health["attn_impl"] == "plain"
+    # The JAX package's /healthz keys: the resolved modes nest under "impl".
+    assert health["status"] == "ok" and health["impl"]["attn_impl"] == "plain"
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):

@@ -35,6 +35,17 @@ REQUIRED = (
     "opsagent_tpu_torch.serving.constrained",
     "opsagent_tpu_torch.serving.tokenizer",
     "opsagent_tpu_torch.utils.jsonrepair",
+    "opsagent_tpu_torch.utils.logger",
+    "opsagent_tpu_torch.utils.perf",
+    "opsagent_tpu_torch.utils.profiling",
+    "opsagent_tpu_torch.obs",
+    "opsagent_tpu_torch.obs.metrics",
+    "opsagent_tpu_torch.obs.trace",
+    "opsagent_tpu_torch.obs.flight",
+    "opsagent_tpu_torch.obs.slo",
+    "opsagent_tpu_torch.obs.attribution",
+    "opsagent_tpu_torch.obs.timeline",
+    "opsagent_tpu_torch.obs.history",
 )
 
 

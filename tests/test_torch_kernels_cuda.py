@@ -550,6 +550,31 @@ def test_decode_graph_raises_when_a_buffer_moves(gen):
     assert eng.decode_eager_steps == 0
 
 
+def test_capture_after_warmup_is_a_serving_compile(gen, tmp_path, monkeypatch):
+    """The compile watchdog's CUDA-graph source: warmup's captures count as
+    phase "warmup"; one more capture after it counts one "serving" compile,
+    raises opsagent_post_warmup_compiles to 1 and is one flight anomaly."""
+    from opsagent_tpu_torch import obs
+    from opsagent_tpu_torch.serving.decode_graph import StepGraph
+
+    monkeypatch.setenv("OPSAGENT_FLIGHT_DIR", str(tmp_path))
+    obs.get_registry().reset()
+    obs.flight.get_recorder().reset()
+    obs.flight.reset_compile_watchdog()
+    eng, _ = _graph_and_eager_engines("dma", "", "")
+    eng.warmup()
+    assert obs.COMPILES.value(phase="warmup") >= len(eng._graphs) == 12
+    assert obs.COMPILES.value(phase="serving") == obs.POST_WARMUP_COMPILES.value() == 0
+    with torch.inference_mode():
+        StepGraph(eng._decode_body(True, False, eng._generator), (eng._decode, eng._fsm),
+                  eng.cache)
+    assert obs.COMPILES.value(phase="serving") == 1
+    assert obs.POST_WARMUP_COMPILES.value() == 1
+    assert obs.ANOMALIES.value(reason="post_warmup_compile") == 1
+    (event,) = obs.flight.get_recorder().snapshot(kind="anomaly")
+    assert event["reason"] == "post_warmup_compile" and event["what"] == "cuda_graph"
+
+
 def test_failed_capture_raises_from_warmup(gen):
     """A decode step that syncs with the host cannot be captured: warmup
     raises (in a process of its own, so the failed capture leaves nothing
