@@ -54,8 +54,30 @@ Phases, each printing one JSON line with its seconds:
    DFA prefixes, the tables load once and the hosted row takes its own
    steps, equally in all three; the two replaying engines agree on
    everything, a sampled admission and block included.
+6b. serve_loop: the JAX engine's default loop (async mixed ticks at depth
+   2, pipelined blocks at depth 2, grammar fast-forward on) against the
+   synchronous one (depth 1 / 0, fast-forward off), at bench-8b width: f32
+   on the dma and on the grid kernels and f32 activations with int8
+   weights + int8 KV on dma, cut to 2 layers, and bf16 on dma at full
+   depth. Two engines over
+   one model each, warmed up; one concurrent greedy batch through a
+   ServingStack: three ToolPrompt json_schema requests and a plain one
+   that outlives them (pipelined blocks after the constrained rows end).
+   In f32 every reply is equal across the loops (bf16: reported, not
+   checked: the loops compute a forced run's successor through different
+   kernels); on the default loop fast-forward dispatches are skipped (> 0;
+   0 on the reference) and blocks pipelined; no capture after warmup; no
+   page owned after either batch. On the f32 dma model: one completion
+   through the port's ``ChatClient("cuda://bench-8b")`` equals the same
+   request over HTTP, and an engine whose blocks all raise after the first
+   token is rebuilt through ``engine_factory``, warmed up, and its request
+   completes with the uninterrupted tokens. Then the ragged kernel (both
+   forms, bf16 and int8 pages) against its plain version at the
+   fast-forward shapes (bucket 16, q_len 2-13, starts 200-4000), the bf16
+   pages timed by graph replay beside their bound and SDPA.
 7. serve: behind the HTTP server, random weights from ``--seed``, bf16
-   activations, four concurrent chat completions per run: bench-8b at full
+   activations, four concurrent chat completions per run, on the default
+   loop (async ticks, pipelined blocks, fast-forward): bench-8b at full
    depth on the dma kernels (int8 weights + int8 KV, int4 weights + int8
    KV), Qwen2.5-7B-Instruct at full depth on the grid kernels
    (unquantized, int8 weights + int8 KV), then bench-8b unquantized on the
@@ -80,7 +102,13 @@ Phases, each printing one JSON line with its seconds:
    mixed tick (7 x layers launches a tick), the m16 instance the rest
    (decode steps, the lm_head), and r16, m64 and f32 none. Every decode
    step and mixed tick must be a graph replay (``decode_replays`` =
-   ``decode_steps``, ``mixed_replays`` = ``mixed_ticks``, no eager ones).
+   ``decode_steps``, ``mixed_replays`` = ``mixed_ticks``, no eager ones;
+   ``mixed_ticks`` counts the synchronous ticks, the async ticks and the
+   fast-forward appends, each a replay of a mixed graph, and the ``obs``
+   block holds each to its own dispatch counter). Each serve line then
+   gives, as information, four more requests of new prompts of the same
+   lengths on the synchronous loop (``depth1``: tok/s, TTFT p50, ticks),
+   the defaults restored after.
    The host's split, untraced: ``decode_steps`` (the sum of ``n_steps``
    over the ``decode_block`` calls) and ``mixed_ticks``, each with its
    host wall time per step or tick (``step_block`` and ``step_mixed``
@@ -168,8 +196,10 @@ from opsagent_tpu_torch.serving.api import ServingStack, make_server
 from opsagent_tpu_torch.serving.chat_template import apply_chat_template
 from opsagent_tpu_torch.serving.constrained import TOOLPROMPT_SCHEMA, json_constraint
 from opsagent_tpu_torch.serving.engine import Engine, EngineConfig, Sequence
+from opsagent_tpu_torch.serving.scheduler import Request
 from opsagent_tpu_torch.serving.sampler import NEG_INF, SamplingParams
 from opsagent_tpu_torch.serving.tokenizer import BPETokenizer, ByteTokenizer
+from opsagent_tpu_torch.utils.perf import get_perf_stats
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -956,6 +986,263 @@ def phase_decode_graph(seed: int) -> dict:
     return report
 
 
+# -- phase 6b: the JAX engine's default serve loop -----------------------------
+# (paged backend, dtype, quantize, kv_quantize, layers) of each loop check,
+# at bench-8b width. Tokens are compared across loops that compute them
+# through different kernels (a forced run's successor through the ragged
+# kernel at q_len > 1, where the reference loop takes the decode kernel):
+# f32, where those kernels differ by rounding alone, far under a greedy
+# argmax's margins, at 2 layers. The bf16 run, at full depth, reports how far
+# the two loops' greedy tokens agree, unchecked, and what each loop's batch
+# takes where the ticks are device-bound.
+SERVE_LOOP = (
+    ("dma", torch.float32, "", "", 2),
+    ("grid", torch.float32, "", "", 2),
+    ("dma", torch.float32, "int8", "int8", 2),
+    ("dma", torch.bfloat16, "", "", BENCH_8B.num_layers),
+)
+# The synchronous loop the default one is held to.
+REFERENCE_LOOP = dict(async_depth=1, pipeline_depth=0, grammar_ffwd=False)
+TOOLPROMPT_RF = {"type": "json_schema",
+                 "json_schema": {"name": "toolprompt", "schema": TOOLPROMPT_SCHEMA}}
+# The ragged kernel at the fast-forward appends' shapes: q_len 2-13 (a forced
+# run of up to 12 and its anchor token) deep in a cached sequence, bucket 16.
+FFWD_STARTS = [200, 731, 1024, 1999, 2500, 3071, 3600, 4000]
+FFWD_Q_LENS = [2, 13, 5, 9, 3, 12, 7, 13]
+
+
+def loop_batch(stack: ServingStack, bodies: list[dict]) -> list[dict]:
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        return list(ex.map(lambda b: stack.chat_completion(dict(b)), bodies))
+
+
+def loop_run(engine: Engine, bodies: list[dict], label: str) -> dict:
+    """``bodies`` as one concurrent batch through a ServingStack over the
+    warmed ``engine``: the replies (text, finish reason, completion
+    tokens), the loop's counts over the batch, the allocator afterwards."""
+    stack = ServingStack(engine)
+    try:
+        was = dict(skipped=obs.FFWD_SKIPPED_DISPATCHES.value(),
+                   compiles=obs.POST_WARMUP_COMPILES.value(),
+                   overshoot=obs.ASYNC_OVERSHOOT_TOKENS.value(),
+                   routes=routes(engine), counts=(engine.async_ticks, engine.ffwd_dispatches,
+                                                  engine.ffwd_tokens, engine.pipelined_blocks))
+        get_perf_stats().reset()
+        t0 = time.perf_counter()
+        replies = loop_batch(stack, bodies)
+        wall = time.perf_counter() - t0
+        perf = get_perf_stats().get_stats()
+    finally:
+        stack.close()
+    with engine.lock:
+        engine.drain()
+    acct = engine.alloc.accounting()
+    replays, eager_steps, mixed_replays, eager_ticks = (
+        n - w for n, w in zip(routes(engine), was["routes"]))
+    async_ticks, ffwd, ffwd_tokens, pipelined = (
+        n - w for n, w in zip((engine.async_ticks, engine.ffwd_dispatches, engine.ffwd_tokens,
+                               engine.pipelined_blocks), was["counts"]))
+    check(eager_steps == eager_ticks == 0 and replays > 0 and mixed_replays > 0,
+          f"{label}: routes {routes(engine)}")
+    check(obs.POST_WARMUP_COMPILES.value() == was["compiles"],
+          f"{label}: a capture after warmup")
+    check(acct["owned"] == 0 and acct["free"] + acct["trie"] == acct["total"],
+          f"{label}: pages after the batch {acct}")
+    return {
+        "replies": [(r["choices"][0]["message"]["content"], r["choices"][0]["finish_reason"],
+                     r["usage"]["completion_tokens"]) for r in replies],
+        "wall_s": wall,
+        "ttft_p50_s": statistics.median(r["ttft_s"] for r in replies),
+        "skipped_dispatches": obs.FFWD_SKIPPED_DISPATCHES.value() - was["skipped"],
+        "overshoot_tokens": obs.ASYNC_OVERSHOOT_TOKENS.value() - was["overshoot"],
+        "async_ticks": async_ticks, "ffwd_dispatches": ffwd, "ffwd_tokens": ffwd_tokens,
+        "pipelined_blocks": pipelined, "decode_replays": replays,
+        "mixed_replays": mixed_replays, "pages": acct,
+        # Host ms by engine stage over the batch (count, mean, p50).
+        "host_ms": {k.removeprefix("engine."): [v["count"], v["avg"], v["p50"]]
+                    for k, v in perf.items() if k.startswith("engine.") and k != "engine.ttft"
+                    and v.get("unit") == "ms" and v["count"]},
+    }
+
+
+def provider_check(stack: ServingStack, name: str) -> dict:
+    """One greedy completion through the port's ``ChatClient`` on
+    ``cuda://<name>`` (``stack`` installed under ``name``) against the same
+    request over HTTP to a server on the same stack."""
+    from opsagent_tpu_torch.llm.client import ChatClient
+    from opsagent_tpu_torch.serving import api
+
+    messages = [{"role": "user", "content": "which pods restart in kube-system?"}]
+    body = {"model": name, "messages": messages, "max_tokens": 24, "temperature": 0}
+    server = make_server(stack, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    api.install_stack(name, stack)
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/v1/chat/completions",
+            data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            http_reply = json.loads(r.read())
+        reply = ChatClient().chat_completion(f"cuda://{name}", messages, max_tokens=24,
+                                             temperature=0)
+    finally:
+        api.uninstall_stack(name)
+        server.shutdown()
+        server.server_close()
+        stack.close()
+        thread.join(timeout=30)
+    check(reply["choices"] == http_reply["choices"] and reply["usage"] == http_reply["usage"],
+          f"cuda://{name}: {reply['choices']} != HTTP {http_reply['choices']}")
+    return {"content": reply["choices"][0]["message"]["content"],
+            "completion_tokens": reply["usage"]["completion_tokens"]}
+
+
+def restart_check(factory, want: list[int], prompt: list[int]) -> dict:
+    """A stack over ``factory()``'s engine, warmed; once its request has
+    decoded a token, every block of that engine raises (a lost device):
+    the scheduler rebuilds the engine through ``factory``, warms it up
+    and re-admits the request, which completes with ``want``."""
+    engine = factory()
+    engine.warmup()
+    stack = ServingStack(engine, engine_factory=factory)
+    sched = stack.scheduler
+    try:
+        req = sched.submit(Request(list(prompt), SamplingParams(max_tokens=len(want))))
+        # Sabotaged within milliseconds of the first token: the request has
+        # hundreds of tokens to go.
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            sids = list(sched._running)
+            if sids and engine.sequences.get(sids[0]) is not None \
+                    and engine.sequences[sids[0]].tokens:
+                break
+            time.sleep(0.002)
+
+        def lost(*a, **k):
+            raise RuntimeError("device runtime lost")
+
+        engine.step_block = lost
+        check(req.done.wait(300), "restart: the request never finished")
+    finally:
+        stack.close()
+    check(not req.error and req.tokens == want and sched._restarts == 1
+          and sched.engine is not engine and sched.engine._warm,
+          f"restart: error {req.error!r}, {sched._restarts} restarts, tokens "
+          f"{req.tokens} != {want}")
+    out = {"restarts": sched._restarts, "salvaged_tokens": len(req.generated_prefix),
+           "tokens": len(req.tokens)}
+    del engine, stack, sched
+    return out
+
+
+def ffwd_shape_kernels(seed: int) -> dict:
+    """The ragged kernel, both forms, bf16 and int8 pages, at the
+    fast-forward appends' shapes (bench-8b widths, bucket 16, q_len 2-13,
+    starts 200-4000) against its plain version; the bf16 pages timed by
+    graph replay with their bound and SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    c = make_case(gen, 8, 16, 32, 8, 128, 16, FFWD_STARTS, FFWD_Q_LENS, torch.bfloat16)
+    out = {}
+    for suffix, case in (("", c), ("_int8", quantize_case(c))):
+        for form in ("", "_grid"):
+            timed = not suffix
+            if timed:
+                case["bound"] = attention_bound_ms(case, 2)
+                case["sdpa"] = ragged_sdpa(case)
+            out[f"paged_ragged_attention{form}{suffix}"] = run_kernel_case(
+                f"paged_ragged_attention{form}{suffix}", case, torch.bfloat16, timed)
+        case.pop("sdpa", None)
+    return out
+
+
+def phase_serve_loop(seed: int, smi: str) -> dict:
+    """The JAX engine's default loop against the synchronous one, at
+    bench-8b width, each configuration of ``SERVE_LOOP`` one model under
+    two engines, both warmed up: defaults
+    (``async_depth`` 2, ``pipeline_depth`` 2, grammar fast-forward on) and
+    ``REFERENCE_LOOP``. One concurrent greedy batch of three ToolPrompt
+    json_schema requests and a plain one: tokens equal (f32), fast-forward
+    dispatches skipped (> 0 on the default loop, 0 on the reference), no
+    capture after warmup, no page owned after either batch. On the first
+    configuration, a ``cuda://`` completion equal to the HTTP reply and a
+    sabotaged engine recovered through ``engine_factory``. Then the ragged
+    kernel at the fast-forward shapes (``ffwd_shape_kernels``)."""
+    gen = torch.Generator().manual_seed(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz     .,\n"
+
+    def prompt(n: int) -> str:
+        idx = torch.randint(0, len(letters), (n,), generator=gen).tolist()
+        return "".join(letters[i] for i in idx)
+
+    # The plain row outlives the constrained ones: while a constrained row
+    # runs every row rides the async ticks (fast-forward), after it the
+    # plain row decodes in pipelined blocks.
+    bodies = [{"model": "bench-8b", "temperature": 0, "max_tokens": n_out,
+               "messages": [{"role": "user", "content": prompt(n)}],
+               **({"response_format": TOOLPROMPT_RF} if constrained else {})}
+              for n, n_out, constrained in ((300, 64, True), (1500, 64, True),
+                                            (3000, 64, True), (800, 200, False))]
+    report: dict = {"configs": {}}
+    reset_launch_counts()
+    for i, (backend, dtype, quantize, kv_quantize, layers) in enumerate(SERVE_LOOP):
+        cfg = replace(BENCH_8B, num_layers=layers)
+        model = Llama(cfg, dtype, "cuda", seed=seed, quantize=quantize)
+        tokenizer = ByteTokenizer(cfg.vocab_size)
+        # The ToolPrompt FSM's dense tables, built once per tokenizer on the
+        # host, before either batch: the first batch to need them would pay
+        # the build in its TTFT.
+        json_constraint(tokenizer, TOOLPROMPT_SCHEMA).fsm.dense_tables()
+        base = EngineConfig(model="bench-8b", dtype=dtype, device="cuda", seed=seed,
+                            num_pages=1024, quantize=quantize, kv_quantize=kv_quantize,
+                            paged_backend=backend)
+        label = (f"serve_loop {backend} {str(dtype)[6:]} weights {quantize or 'unquantized'} "
+                 f"kv {kv_quantize or 'unquantized'} layers {layers}")
+
+        def make(**over):
+            return Engine(replace(base, **over), model_cfg=cfg, model=model,
+                          tokenizer=tokenizer)
+
+        runs, warmup_s = {}, {}
+        for name, over in (("default", {}), ("reference", REFERENCE_LOOP)):
+            eng = make(**over)
+            warmup_s[name] = eng.warmup()
+            runs[name] = loop_run(eng, bodies, f"{label} {name}")
+            if name == "default" and i == 0:
+                provider = provider_check(ServingStack(eng), "bench-8b")
+            del eng
+        d, r = runs["default"], runs["reference"]
+        check(d["skipped_dispatches"] > 0 and d["async_ticks"] > 0 and d["pipelined_blocks"] > 0
+              and r["skipped_dispatches"] == r["async_ticks"] == r["pipelined_blocks"] == 0,
+              f"{label}: loops {d} / {r}")
+        same = [a == b for a, b in zip(d["replies"], r["replies"])]
+        if dtype == torch.float32:
+            check(all(same), f"{label}: default loop {d['replies']} != reference {r['replies']}")
+        constrained = sum(1 for b in bodies if "response_format" in b)
+        row = {"warmup_s": warmup_s, "replies_equal": same,
+               "skipped_dispatches_per_constrained_reply": d["skipped_dispatches"] / constrained,
+               **{f"{k}_{name}": v for name, run in runs.items() for k, v in run.items()
+                  if k != "replies"},
+               "completion_tokens": [x[2] for x in d["replies"]]}
+        if i == 0:
+            row["provider"] = provider
+            uninterrupted = make(**REFERENCE_LOOP)
+            uninterrupted.warmup()   # a capture outside warmup is a serving compile
+            prompt_ids = [257] + list(range(40, 140))
+            want = uninterrupted.generate([prompt_ids], SamplingParams(max_tokens=256))[0]
+            del uninterrupted
+            row["restart"] = restart_check(make, want, prompt_ids)
+        report["configs"][label] = row
+        del model, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["launches"] = launch_counts()
+    report["ffwd_shapes"] = {"starts": FFWD_STARTS, "q_lens": FFWD_Q_LENS,
+                             "kernels": ffwd_shape_kernels(seed)}
+    report["card"] = smi
+    return report
+
+
 # -- phase 7: serving at full width -------------------------------------------
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names, spaces and "(int)" removed)
     ("paged_ragged_attention", ("ragged_kernel",)),
@@ -999,65 +1286,83 @@ def expected_kernels(backend: str, quantize: str, kv_quantize: str) -> set[str]:
 
 class TickClock:
     """Host wall time of the engine's ticks: the engine instance's
-    ``step_block`` and ``step_mixed`` wrapped with ``time.perf_counter``
-    (both return with their device work done and their tokens on the
-    host), decode steps counted through the engine module's
-    ``decode_block`` calls (the sum of ``n_steps``), and mixed ticks as the
-    ``step_mixed`` calls that ran a forward. Keeps the arguments of the
-    block with the most active rows, for ``decode_device_ms``."""
+    ``step_block``, ``step_mixed``, ``step_mixed_async`` and ``ffwd_step``
+    wrapped with ``time.perf_counter`` (a pipelined block or an async tick
+    returns with the tokens of earlier ones), decode steps counted through
+    the engine module's ``decode_block`` calls (the sum of ``n_steps``),
+    and mixed ticks as the ``step_mixed`` calls that ran a forward, the
+    async ticks enqueued and the fast-forward appends (every one a mixed
+    graph's replay). Keeps the arguments of the block with the most active
+    rows that were all seated from the host, for ``decode_device_ms``."""
 
     def __init__(self, engine: Engine):
+        self.engine = engine
         self.reset()
         self._decode_block = engine_module.decode_block
-        step_block, step_mixed = engine.step_block, engine.step_mixed
+        wrapped = {name: getattr(engine, name)
+                   for name in ("step_block", "step_mixed", "step_mixed_async", "ffwd_step")}
 
-        def timed_block(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return step_block(*args, **kwargs)
-            finally:
-                self.block_s += time.perf_counter() - t0
-
-        def timed_mixed(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                out = step_mixed(*args, **kwargs)
-            finally:
-                self.mixed_s += time.perf_counter() - t0
-            self.mixed_ticks += any(out)
-            return out
+        def timed(name, attr):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    out = wrapped[name](*args, **kwargs)
+                finally:
+                    setattr(self, attr, getattr(self, attr) + time.perf_counter() - t0)
+                if name == "step_mixed":
+                    self.sync_ticks += any(out)
+                return out
+            return run
 
         def counted_decode_block(state, step, tokens, write_at, active, budgets,
-                                 page_table, *args, n_steps, fsm):
+                                 page_table, *args, n_steps, fsm, override=None):
             self.decode_steps += n_steps
             self.decode_blocks += 1
-            n = int((active & (budgets > 0)).sum())
-            if n > self._active:
+            rows = active & (budgets > 0)
+            n = int(rows.sum())
+            # A carried row's host arrays hold no token or offset.
+            seated = override is None or bool(np.all(override[rows]))
+            if seated and n > self._active:
                 self._active = n
                 self.block_args = (tokens.copy(), write_at.copy(), active.copy(),
                                    page_table.copy(), fsm.copy())
             return self._decode_block(state, step, tokens, write_at, active, budgets,
-                                      page_table, *args, n_steps=n_steps, fsm=fsm)
+                                      page_table, *args, n_steps=n_steps, fsm=fsm,
+                                      override=override)
 
-        engine.step_block, engine.step_mixed = timed_block, timed_mixed
+        for name in wrapped:
+            setattr(engine, name, timed(name, "block_s" if name == "step_block" else "mixed_s"))
         engine_module.decode_block = counted_decode_block
 
     def reset(self) -> None:
         self.block_s = self.mixed_s = 0.0
-        self.decode_steps = self.decode_blocks = self.mixed_ticks = 0
+        self.decode_steps = self.decode_blocks = self.sync_ticks = 0
         self.block_args = None
         self._active = -1
+        eng = self.engine
+        self._base = (eng.async_ticks, eng.ffwd_dispatches, eng.ffwd_tokens,
+                      eng.pipelined_blocks)
 
     def close(self) -> None:
         engine_module.decode_block = self._decode_block
 
     def fields(self) -> dict:
+        eng = self.engine
+        async_ticks, ffwd, ffwd_tokens, pipelined = (
+            n - was for n, was in zip((eng.async_ticks, eng.ffwd_dispatches,
+                                       eng.ffwd_tokens, eng.pipelined_blocks), self._base))
+        mixed = self.sync_ticks + async_ticks + ffwd
         return {
             "decode_blocks": self.decode_blocks,
+            "pipelined_blocks": pipelined,
             "decode_steps": self.decode_steps,
             "decode_wall_ms_per_step": self.block_s * 1e3 / max(self.decode_steps, 1),
-            "mixed_ticks": self.mixed_ticks,
-            "mixed_wall_ms_per_tick": self.mixed_s * 1e3 / max(self.mixed_ticks, 1),
+            "mixed_ticks": mixed,
+            "mixed_sync_ticks": self.sync_ticks,
+            "mixed_async_ticks": async_ticks,
+            "ffwd_dispatches": ffwd,
+            "ffwd_tokens": ffwd_tokens,
+            "mixed_wall_ms_per_tick": self.mixed_s * 1e3 / max(mixed, 1),
         }
 
 
@@ -1321,12 +1626,16 @@ def obs_block(port: int, before: dict, after: dict, replies, ticks: dict, decode
         + d("opsagent_prefix_hit_tokens_total"),
         "block_dispatches": d('opsagent_decode_dispatches_total{kind="block"}'),
         "mixed_dispatches": d('opsagent_decode_dispatches_total{kind="mixed"}'),
+        "mixed_async_dispatches": d('opsagent_decode_dispatches_total{kind="mixed_async"}'),
+        "ffwd_dispatches": d('opsagent_decode_dispatches_total{kind="ffwd"}'),
         "requests_completed": d('opsagent_engine_requests_total{outcome="completed"}'),
         "post_warmup_compiles": after["opsagent_post_warmup_compiles"],
     }
     want = {"decode_tokens": completion, "ttft_count": n,
             "prefill_plus_prefix_hit_tokens": prompt, "block_dispatches": decode_blocks,
-            "mixed_dispatches": ticks["mixed_ticks"], "requests_completed": n,
+            "mixed_dispatches": ticks["mixed_sync_ticks"],
+            "mixed_async_dispatches": ticks["mixed_async_ticks"],
+            "ffwd_dispatches": ticks["ffwd_dispatches"], "requests_completed": n,
             "post_warmup_compiles": 0}
     check(counts == want, f"{label}: /metrics over the window {counts} != the serve's {want}")
     mfu = after["opsagent_attr_mfu"]
@@ -1357,9 +1666,11 @@ def obs_block(port: int, before: dict, after: dict, replies, ticks: dict, decode
     check(status == 200, f"{label}: /api/debug/flight status {status}")
     events = [e for e in json.loads(raw)["events"] if e["wall"] >= t0_wall]
     ops = [e["op"] for e in events if e["kind"] == "dispatch"]
-    check(ops.count("mixed") == ticks["mixed_ticks"] and ops.count("decode_block") == decode_blocks,
+    mixed_ops = ticks["mixed_sync_ticks"] + ticks["mixed_async_ticks"]
+    check(ops.count("mixed") == mixed_ops and ops.count("decode_block") == decode_blocks
+          and ops.count("ffwd") == ticks["ffwd_dispatches"],
           f"{label}: flight dispatch events {ops.count('mixed')} mixed, "
-          f"{ops.count('decode_block')} blocks")
+          f"{ops.count('decode_block')} blocks, {ops.count('ffwd')} ffwd")
     reasons = [e["reason"] for e in events if e["kind"] == "anomaly"]
     ttft_line = float(os.environ.get("OPSAGENT_SLO_TTFT_MS", "500"))
     late = sum(e["ttft_ms"] > ttft_line for e in events if e["kind"] == "ttft")
@@ -1376,7 +1687,11 @@ def obs_block(port: int, before: dict, after: dict, replies, ticks: dict, decode
         "goodput": tl["goodput"],
         "flight_dispatch_events": len(ops), "anomalies": reasons,
         "itl_count": d("opsagent_inter_token_latency_seconds_count"),
-        "step_host_gap_count": d('opsagent_step_host_gap_seconds_count{mode="sync"}'),
+        "step_host_gap_count": {m: d(f'opsagent_step_host_gap_seconds_count{{mode="{m}"}}')
+                                for m in ("sync", "async")},
+        "async_commits": d("opsagent_async_commits_total"),
+        "async_overlapped_commits": d("opsagent_async_overlapped_commits_total"),
+        "async_overshoot_tokens": d("opsagent_async_overshoot_tokens_total"),
     }
 
 
@@ -1410,7 +1725,7 @@ def profile_batch(port: int, post, bodies, expected: set[str], logdir: str,
              for k in expected}
     missing = [k for k in expected if not any(s in n for s in groups[group[k]] for n in flat)]
     annotations = sorted(n for n in names if n.startswith("engine."))
-    check(not missing and {"engine.mixed_step", "engine.decode_block"} <= set(annotations),
+    check(not missing and {"engine.mixed_step_async", "engine.decode_block"} <= set(annotations),
           f"profile trace: kernels {missing} missing, annotations {annotations}")
     status, raw = http_get(port, "/api/debug/memory")
     check(status == 200, f"/api/debug/memory: {status} {raw[:200]!r}")
@@ -1429,6 +1744,16 @@ def profile_batch(port: int, post, bodies, expected: set[str], logdir: str,
             "kernels_named": sorted(expected), "annotations": annotations,
             "memory_snapshot_bytes": os.path.getsize(mem),
             "memory_segments": len(snap["segments"])}
+
+
+def set_loop(engine: Engine, loop: dict) -> None:
+    """Switch an idle engine's serving loop (``async_depth``,
+    ``pipeline_depth``, ``grammar_ffwd``): the ticks and blocks in flight
+    are committed first."""
+    with engine.lock:
+        engine.drain()
+        engine._flush_and_invalidate()
+        engine.cfg = replace(engine.cfg, **loop)
 
 
 def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
@@ -1500,6 +1825,19 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         ticks, block_args = clock.fields(), clock.block_args
         serve_obs = obs_block(port, metrics_before, scrape(port), replies, ticks,
                               ticks["decode_blocks"], t0_wall, label)
+        # Information, not a claim: new prompts of the same lengths on the
+        # synchronous loop (REFERENCE_LOOP), then the defaults again.
+        loop_default = {k: getattr(engine.cfg, k) for k in REFERENCE_LOOP}
+        set_loop(engine, REFERENCE_LOOP)
+        clock.reset()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as ex:
+            depth1 = list(ex.map(post, [{**b, "messages": [{"role": "user", "content": prompt(n)}]}
+                                        for b, n in zip(bodies, (300, 800, 1500, 3000))]))
+        depth1_wall = time.perf_counter() - t0
+        check(all(st == 200 for st, _ in depth1), f"{label}: a depth-1 request failed")
+        depth1_ticks = clock.fields()
+        set_loop(engine, loop_default)
         if not quantize:
             # Keep the timed batch's last largest-bucket tick for
             # mixed_device_ms: the constrained batch runs its own.
@@ -1614,6 +1952,16 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         "wall_s": wall,
         "completion_tok_per_s": completion / wall,
         "ttft_p50_s": statistics.median(r["ttft_s"] for _, r in replies),
+        "loop": loop_default,
+        "depth1": {
+            "loop": REFERENCE_LOOP,
+            "completion_tokens": (d1 := sum(r["usage"]["completion_tokens"] for _, r in depth1)),
+            "wall_s": depth1_wall, "completion_tok_per_s": d1 / depth1_wall,
+            "ttft_p50_s": statistics.median(r["ttft_s"] for _, r in depth1),
+            **{k: depth1_ticks[k] for k in ("decode_steps", "mixed_ticks",
+                                            "decode_wall_ms_per_step",
+                                            "mixed_wall_ms_per_tick")},
+        },
         "max_memory_allocated_bytes": peak,
         "launches": launches,
         "matmul_instances": instances,
@@ -1676,7 +2024,10 @@ def bpe_serve(served: Engine) -> dict:
     check(prompt[0] == tok.encode("<|im_start|>")[0]
           and reply["usage"]["prompt_tokens"] == len(prompt), "bpe: prompt is not ChatML")
     check(eng.decode_eager_steps == eng.mixed_eager_ticks == eng.hosted_steps == 0
-          and eng.decode_replays > 0, f"bpe: routes {routes(eng)}, {eng.hosted_steps} hosted")
+          # A constrained row decodes on the async ticks (fast-forward)
+          # until it ends: its tokens may come from mixed replays alone.
+          and eng.decode_replays + eng.mixed_replays > 0,
+          f"bpe: routes {routes(eng)}, {eng.hosted_steps} hosted")
     out = {"reply": text, "prompt_tokens": len(prompt),
            "completion_tokens": reply["usage"]["completion_tokens"],
            "tokenizer_vocab": tok.vocab_size, "model_vocab": eng.model_cfg.vocab_size,
@@ -1949,6 +2300,12 @@ def main() -> int:
           **graphs})
 
     launches = {name: 0 for name in KERNELS}
+    t = time.perf_counter()
+    loop = phase_serve_loop(args.seed, smi)
+    emit({"phase": "serve_loop", "seconds": time.perf_counter() - t, **loop})
+    for name, n in loop["launches"].items():
+        launches[name] += n
+
     for model, backend, quantize, kv_quantize in SERVES:
         t = time.perf_counter()
         serve = phase_serve(args.seed, smi, args.profile, model, backend,

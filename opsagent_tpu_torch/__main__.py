@@ -5,7 +5,9 @@ auto`` serves an HF safetensors checkpoint with its own config.json, and
 its ``tokenizer.json`` when the directory holds one (``--tokenizer DIR``
 names another; without either, the byte tokenizer). The
 engine warms up (kernels built, its decode step and mixed ticks captured as
-CUDA graphs on the GPU) before the server starts. The server runs the SLO
+CUDA graphs on the GPU) before the server starts. Mixed ticks run one tick
+ahead of their commit (``--async-depth 1`` serves them synchronously). The
+server runs the SLO
 watchdog and the 1 Hz telemetry history sampler behind ``/api/slo`` and
 ``/api/metrics/history``; ``--profile-dir`` enables the profiling routes
 (``/api/debug/profile``, ``/api/debug/memory``, ``/v1/profile/*``)."""
@@ -61,6 +63,12 @@ def main(argv: list[str] | None = None) -> int:
              "half the KV bytes of bf16",
     )
     se.add_argument(
+        "--async-depth", type=int, default=2,
+        help="mixed ticks enqueued ahead of their commit: 2 (the default) "
+             "enqueues tick t+1 before tick t's tokens are pulled; 1 serves "
+             "each tick synchronously",
+    )
+    se.add_argument(
         "--profile-dir", default="",
         help="directory the profiling routes write torch.profiler traces "
              "and memory snapshots into (sets OPSAGENT_PROFILE_DIR; without "
@@ -79,7 +87,7 @@ def main(argv: list[str] | None = None) -> int:
         model=args.model_name, checkpoint=args.checkpoint, tokenizer=tokenizer,
         device=args.device,
         seed=args.seed, quantize=args.quantize, kv_quantize=args.kv_quantize,
-        paged_backend=args.paged_backend,
+        paged_backend=args.paged_backend, async_depth=args.async_depth,
     ))
     # Kernels built and the steps captured before the scheduler thread and
     # the HTTP server start: a capture is process-wide.

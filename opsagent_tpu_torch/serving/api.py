@@ -39,6 +39,11 @@ route's pattern.
 
 HTTP handler threads never touch CUDA: a stream reads the tokens that the
 scheduler thread puts on a queue.
+
+The in-process ``cuda://<name>`` provider (JAX's ``tpu://``): stacks
+installed by name (``install_stack``), or built on first use with an engine
+on the card (``get_stack``), answer the port's ``llm.ChatClient`` without
+HTTP; importing this module registers the scheme.
 """
 
 from __future__ import annotations
@@ -52,15 +57,16 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 from urllib.parse import parse_qs, urlsplit
 
 from .. import obs
+from ..llm.client import LLMError, register_provider
 from ..utils import profiling
 from ..utils.jsonrepair import parse_json
 from .chat_template import apply_chat_template
 from .constrained import JsonConstraint, device_table_fsm, json_constraint
-from .engine import Engine
+from .engine import Engine, EngineConfig
 from .sampler import SamplingParams
 from .scheduler import Request, RequestError, Scheduler
 
@@ -88,11 +94,19 @@ class _SpanFinisher:
 class ServingStack:
     """Engine + scheduler + chat glue for one hosted model."""
 
-    def __init__(self, engine: Engine):
-        self.engine = engine
+    def __init__(self, engine: Engine,
+                 engine_factory: Callable[[], Engine] | None = None):
+        """``engine_factory``: how the scheduler rebuilds the engine if it
+        fails persistently (``Scheduler._recover``); None fails the
+        requests in flight instead."""
         self.model_name = engine.model_cfg.name
-        self.scheduler = Scheduler(engine)
+        self.scheduler = Scheduler(engine, engine_factory=engine_factory)
         self.scheduler.start()
+
+    @property
+    def engine(self) -> Engine:
+        """The scheduler's engine: a restart replaces it."""
+        return self.scheduler.engine
 
     def close(self) -> None:
         self.scheduler.stop()
@@ -576,7 +590,7 @@ class ServingStack:
         depth is what a fleet router's spill-over reads)."""
         eng, sched = self.engine, self.scheduler
         with eng.lock:
-            return {
+            body = {
                 "status": "ok",
                 "model": self.model_name,
                 "free_pages": eng.alloc.free_pages,
@@ -588,6 +602,10 @@ class ServingStack:
                 "prefix_evictions": eng.alloc.evictions,
                 "impl": eng.impl_info(),
             }
+            if eng.cfg.async_depth > 1:
+                body["async"] = {"depth": eng.cfg.async_depth,
+                                 "inflight": eng.async_pending()}
+            return body
 
     def models(self) -> dict[str, Any]:
         return {
@@ -601,6 +619,69 @@ class ServingStack:
         with self.engine.lock:
             self.engine._observe_occupancy()
         return obs.metrics_text()
+
+
+# -- in-process cuda:// provider ------------------------------------------------
+_stacks: dict[str, ServingStack] = {}
+_stacks_lock = threading.Lock()
+
+
+def install_stack(name: str, stack: ServingStack) -> None:
+    """Serve ``stack`` under ``cuda://<name>`` (tests, co-hosting)."""
+    with _stacks_lock:
+        _stacks[name] = stack
+
+
+def uninstall_stack(name: str) -> None:
+    """Remove an installed stack (its owner closes it)."""
+    with _stacks_lock:
+        _stacks.pop(name, None)
+
+
+def _installed(name: str) -> ServingStack | None:
+    """The stack installed under ``name``, matched without case as a
+    fallback (the agent's token budgeting lowercases model names)."""
+    with _stacks_lock:
+        stack = _stacks.get(name)
+        if stack is None:
+            low = name.lower()
+            stack = next((s for k, s in _stacks.items() if k.lower() == low), None)
+    return stack
+
+
+def installed_stack_max_position(name: str) -> int | None:
+    """The context window of a stack already installed under ``name``, or
+    None; never builds an engine."""
+    stack = _installed(name)
+    return None if stack is None else int(stack.engine.model_cfg.max_position)
+
+
+def get_stack(name: str) -> ServingStack:
+    """The stack of ``cuda://<name>``: the installed one, or a new one over
+    an engine of preset ``name`` built on the card (default device) and
+    warmed up. Built under the lock, so that two first requests do not
+    build two."""
+    with _stacks_lock:
+        if name not in _stacks:
+            log.info("creating an in-process engine for cuda://%s", name)
+            engine = Engine(EngineConfig(model=name))
+            engine.warmup()
+            _stacks[name] = ServingStack(engine)
+        return _stacks[name]
+
+
+def _cuda_provider_factory(target: str):
+    def provider(body: dict[str, Any]) -> dict[str, Any]:
+        stack = get_stack(target or body.get("model", ""))
+        try:
+            return stack.chat_completion(body)
+        except Exception as e:  # noqa: BLE001 - the agent loop handles LLMError
+            raise LLMError(f"cuda engine error: {e}") from e
+
+    return provider
+
+
+register_provider("cuda", _cuda_provider_factory)
 
 
 # (method, path pattern, handler): the JAX package's engine routes

@@ -18,8 +18,13 @@ emit bytes that a JSON schema's automaton accepts.
    tokens it returns the ``[vocab]`` bool mask. EOS is admissible exactly
    in accepting states.
 
-The JAX package's optional C++ table builder and its forced-run tables
-(grammar fast-forward) are not part of this copy.
+4. Forced runs (grammar fast-forward): a state whose mask admits exactly
+   one token forces it at any temperature, so the engine may append a
+   whole run of forced tokens in one forward (``TokenFSM.forced_run``,
+   ``JsonConstraint.forced_run``).
+
+The JAX package's optional C++ matcher (native tables) is not part of
+this copy.
 """
 
 from __future__ import annotations
@@ -296,6 +301,11 @@ def json_quote(value: Any) -> str:
 # per state visited.
 NATIVE_TABLE_BUDGET = 64_000_000
 
+# Longest forced run one fast-forward append carries: it bounds the walk (a
+# cyclic grammar could force forever) and the append's q_len, which must fit
+# a mixed bucket.
+FORCED_RUN_CAP = 12
+
 
 class TokenFSM:
     """Lifts a byte DFA to token-level masks over a tokenizer vocabulary.
@@ -312,6 +322,9 @@ class TokenFSM:
         self.vocab_size = len(token_bytes)
         self._mask_cache: dict[int, np.ndarray] = {}
         self._dense: tuple[np.ndarray, np.ndarray] | None = None
+        self._forced: dict[int, int | None] = {}
+        self._forced_runs: dict[int, list[int]] = {}
+        self._forced_table: tuple[np.ndarray, np.ndarray] | None = None
         self._lens = np.array([len(tb) for tb in token_bytes], np.int32)
         maxlen = max(1, int(self._lens.max()))
         self._bytes = np.zeros((self.vocab_size, maxlen), np.int32)
@@ -385,6 +398,67 @@ class TokenFSM:
         self._dense = (mask, dest)
         return self._dense
 
+    # -- forced runs (grammar fast-forward) --------------------------------------
+    # A state whose mask admits exactly one token forces it: the masked sample
+    # picks it at any temperature, so the engine may emit it without a
+    # forward of its own. Runs of such states (JSON punctuation, known key
+    # names, enum tails) append in one multi-token forward.
+
+    def forced_token(self, state: int) -> int | None:
+        """The one legal token at ``state``, or None when the mask admits
+        none or several. Cached per state."""
+        if state in self._forced:
+            return self._forced[state]
+        tok: int | None = None
+        if state >= 0:
+            idx = np.flatnonzero(self.mask_for_state(state))
+            if idx.size == 1:
+                tok = int(idx[0])
+        self._forced[state] = tok
+        return tok
+
+    def forced_run(self, state: int) -> list[int]:
+        """The longest run of forced tokens from ``state``, at most
+        ``FORCED_RUN_CAP``; a forced EOS ends it (included), since no state
+        follows EOS. Empty when the state's mask is not a single token.
+        Cached per state."""
+        cached = self._forced_runs.get(state)
+        if cached is not None:
+            return cached
+        run: list[int] = []
+        st = state
+        while len(run) < FORCED_RUN_CAP:
+            tok = self.forced_token(st)
+            if tok is None:
+                break
+            run.append(tok)
+            if tok == self.eos_id:
+                break
+            st = self.advance(st, tok)
+            if st < 0:  # a forced token never leaves the DFA; defensive
+                break
+        self._forced_runs[state] = run
+        return run
+
+    def forced_run_table(self) -> tuple[np.ndarray, np.ndarray] | None:
+        """Dense ([S+1, FORCED_RUN_CAP] int32 tokens, [S+1] int32 run
+        lengths) in the numbering of ``dense_tables`` (row 0 the FREE
+        sentinel with no run, DFA state s at row s + 1). None under the
+        same budget. Built once and cached."""
+        if self._forced_table is not None:
+            return self._forced_table
+        if self.dense_tables() is None:
+            return None
+        S = self.dfa.num_states
+        toks = np.zeros((S + 1, max(1, FORCED_RUN_CAP)), np.int32)
+        lens = np.zeros((S + 1,), np.int32)
+        for s in range(S):
+            run = self.forced_run(s)
+            lens[s + 1] = len(run)
+            toks[s + 1, : len(run)] = run
+        self._forced_table = (toks, lens)
+        return self._forced_table
+
 
 class JsonConstraint:
     """Engine-facing ``mask_fn``: tracks the DFA state incrementally across
@@ -408,6 +482,12 @@ class JsonConstraint:
                 self._state = self.fsm.advance(self._state, tok)
         self._consumed = len(tokens)
         return self._state
+
+    def forced_run(self, tokens: list[int]) -> list[int]:
+        """The forced run from the state after ``tokens`` (maybe empty; at
+        most ``FORCED_RUN_CAP``; a forced EOS ends it)."""
+        st = self.dfa_state(tokens)
+        return [] if st < 0 else self.fsm.forced_run(st)
 
 
 def device_table_fsm(mask_fn) -> TokenFSM | None:

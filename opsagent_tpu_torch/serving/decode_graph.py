@@ -44,6 +44,7 @@ again on every replay: a counter keeps meaning kernels run.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable
 
@@ -74,8 +75,18 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
             self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph):
-            body()
+        # No garbage collection while the capture runs (``torch.cuda.graph``
+        # collects once as it starts): a collected graph of an older engine
+        # resets itself, and any CUDA call on any thread during a capture
+        # invalidates it.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                body()
+        finally:
+            if collecting:
+                gc.enable()
         self._launches = []
         for counts, was in zip(COUNTERS, before):
             delta = {k: n - was[k] for k, n in counts.items() if n != was[k]}

@@ -69,8 +69,48 @@ class StaticBuffers:
         return tuple(getattr(self, f.name) for f in fields(self))
 
     def _copy_in(self, pairs) -> None:
+        """Copy host arrays into the buffers, in stream order. On the card
+        each array is staged in pinned memory and copied without blocking
+        the host: a copy from pageable memory would wait for the stream to
+        drain, and so for every step already enqueued (the pipelined
+        blocks and async ticks enqueue ahead). The caching host allocator
+        keeps a staging buffer until its copy has run."""
         for buf, a in pairs:
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            src = torch.from_numpy(np.ascontiguousarray(a))
+            if buf.is_cuda:
+                buf.copy_(src.pin_memory(), non_blocking=True)
+            else:
+                buf.copy_(src)
+
+    def _staged(self, a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+        """A host array as a tensor on ``like``'s device, copied as
+        ``_copy_in`` copies."""
+        buf = torch.empty(a.shape, dtype=like.dtype, device=like.device)
+        self._copy_in(((buf, a),))
+        return buf
+
+
+def to_host(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
+    """Start copying ``t`` to the host: (host tensor, event). On the card
+    the copy goes into pinned memory without blocking the host, and the
+    event, recorded after it, says when the host tensor holds the values;
+    it is a copy, so later steps may overwrite ``t``. On the CPU the copy
+    is made at once and the event is None."""
+    if not t.is_cuda:
+        return t.clone(), None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def from_host(host: torch.Tensor, event: torch.cuda.Event | None) -> np.ndarray:
+    """Wait for ``to_host``'s copy (its event alone, not the device) and
+    return the values."""
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
 
 
 @dataclass
@@ -246,18 +286,35 @@ class DecodeState(StaticBuffers):
         top_k: np.ndarray,        # [B] int
         top_p: np.ndarray,        # [B] float32
         fsm: np.ndarray | None = None,  # [B] int FsmTables rows; None = all 0
+        override: np.ndarray | None = None,  # [B] bool; None = all rows
     ) -> None:
         """Copy one block's host inputs into the buffers and start the
-        block: a row is active when the host says so and it has a budget,
-        no row has seen EOS, the step is 0."""
+        block, the step at 0.
+
+        Without ``override`` every row starts from the host: ``tokens``,
+        ``write_at`` and ``fsm``, no EOS seen, active when the host says so
+        and it has a budget. With it (JAX's ``decode_block_carry``), only
+        the rows it marks start from the host; every other row carries its
+        last token, write offset, FSM row and EOS flag over from the
+        previous block on the device, whose tokens the host may not have
+        seen yet, and is active when ``active`` (JAX's ``alive``), not past
+        EOS and with a budget."""
+        fsm = np.zeros(len(tokens), np.int32) if fsm is None else fsm
         self._copy_in((
-            (self.tok, tokens), (self.at, write_at),
-            (self.act, active & (budgets > 0)), (self.budgets, budgets),
-            (self.page_table, page_table), (self.temps, temps),
-            (self.top_k, top_k), (self.top_p, top_p),
-            (self.fsm, np.zeros(len(tokens), np.int32) if fsm is None else fsm),
+            (self.budgets, budgets), (self.page_table, page_table),
+            (self.temps, temps), (self.top_k, top_k), (self.top_p, top_p),
         ))
-        self.eos.zero_()
+        if override is None:
+            self._copy_in(((self.tok, tokens), (self.at, write_at),
+                           (self.act, active & (budgets > 0)), (self.fsm, fsm)))
+            self.eos.zero_()
+        else:
+            ov = self._staged(override, self.act)
+            self.tok.copy_(torch.where(ov, self._staged(tokens, self.tok), self.tok))
+            self.at.copy_(torch.where(ov, self._staged(write_at, self.at), self.at))
+            self.fsm.copy_(torch.where(ov, self._staged(fsm, self.fsm), self.fsm))
+            self.eos.logical_and_(~ov)
+            self.act.copy_(self._staged(active, self.act) & ~self.eos & (self.budgets > 0))
         self.step.zero_()
 
 
@@ -323,14 +380,16 @@ def decode_block(
     top_p: np.ndarray,
     n_steps: int,
     fsm: np.ndarray | None = None,
+    override: np.ndarray | None = None,
 ) -> torch.Tensor:
-    """Load the host's inputs (``DecodeState.load``) and run ``step`` — the
-    body over ``state``, or a graph's replay of it — ``n_steps`` times.
-    Returns the block's tokens [B, n_steps] int64 on the device, pad past
-    each row's finish."""
+    """Load the host's inputs (``DecodeState.load``, with ``override`` the
+    carry form) and run ``step`` — the body over ``state``, or a graph's
+    replay of it — ``n_steps`` times. Returns the block's tokens
+    [B, n_steps] int64 on the device, pad past each row's finish."""
     if not 0 < n_steps <= state.out.shape[1]:
         raise ValueError(f"n_steps={n_steps}: the block holds 1..{state.out.shape[1]}")
-    state.load(tokens, write_at, active, budgets, page_table, temps, top_k, top_p, fsm)
+    state.load(tokens, write_at, active, budgets, page_table, temps, top_k, top_p, fsm,
+               override)
     for _ in range(n_steps):
         step()
     return state.out[:, :n_steps]
@@ -348,8 +407,14 @@ class MixedState(StaticBuffers):
     temps: torch.Tensor       # [B] float32
     top_k: torch.Tensor       # [B] int32
     top_p: torch.Tensor       # [B] float32
-    fsm: torch.Tensor         # [B] int32 FsmTables row (0 = unconstrained)
+    fsm: torch.Tensor         # [B] int32 FsmTables row (0 = unconstrained):
+                              # the host's (JAX's ov_fsm) in, the row after
+                              # the tick out
     emits: torch.Tensor       # [B] bool row's token is output (advances fsm)
+    use_carry: torch.Tensor   # [B] bool row's input token and FSM row are
+                              # the previous tick's, never seen by the host
+    carry_tok: torch.Tensor   # [B] int64 the previous tick's ``out``
+    carry_fsm: torch.Tensor   # [B] int32 the previous tick's ``fsm``
     out: torch.Tensor         # [B] int64 each row's sampled token
 
     @classmethod
@@ -363,7 +428,9 @@ class MixedState(StaticBuffers):
             page_table=zeros(batch, max_pages, dtype=torch.int32),
             temps=zeros(batch, dtype=torch.float32), top_k=zeros(batch, dtype=torch.int32),
             top_p=zeros(batch, dtype=torch.float32), fsm=zeros(batch, dtype=torch.int32),
-            emits=zeros(batch, dtype=torch.bool), out=zeros(batch, dtype=torch.long),
+            emits=zeros(batch, dtype=torch.bool), use_carry=zeros(batch, dtype=torch.bool),
+            carry_tok=zeros(batch, dtype=torch.long),
+            carry_fsm=zeros(batch, dtype=torch.int32), out=zeros(batch, dtype=torch.long),
         )
 
     def load(
@@ -377,14 +444,25 @@ class MixedState(StaticBuffers):
         top_p: np.ndarray,        # [B] float32
         fsm: np.ndarray | None = None,    # [B] int FsmTables rows; None = all 0
         emits: np.ndarray | None = None,  # [B] bool; None = none
+        use_carry: np.ndarray | None = None,  # [B] bool; None = none
+        carry: MixedState | None = None,  # the tick whose out/fsm carry over
     ) -> None:
+        """Copy one tick's host inputs into the buffers, and with ``carry``
+        that tick's sampled tokens and FSM rows into ``carry_tok`` and
+        ``carry_fsm``, on the device, in stream order: the rows marked
+        ``use_carry`` read them in place of ``tokens[:, 0]`` and ``fsm``.
+        The carry is copied first: ``carry`` may be this state."""
         B = len(start)
+        if carry is not None:
+            self.carry_tok.copy_(carry.out)
+            self.carry_fsm.copy_(carry.fsm)
         self._copy_in((
             (self.tokens, tokens), (self.start, start), (self.q_lens, q_lens),
             (self.page_table, page_table), (self.temps, temps),
             (self.top_k, top_k), (self.top_p, top_p),
             (self.fsm, np.zeros(B, np.int32) if fsm is None else fsm),
             (self.emits, np.zeros(B, bool) if emits is None else emits),
+            (self.use_carry, np.zeros(B, bool) if use_carry is None else use_carry),
         ))
 
 
@@ -402,16 +480,24 @@ def mixed_step_body(
     """One mixed tick over ``state``, in place: ``Llama.mixed_step`` writes
     every row's valid K/V, and each row's token from its last valid
     position's logits, adjusted by ``extras`` and masked by ``tables`` at
-    the row's ``fsm``, goes to ``state.out``, its logprobs to ``extras``'
+    the row's FSM row, goes to ``state.out``, its logprobs to ``extras``'
     mixed outputs. Every row samples; the caller discards the rows whose
     chunk does not finish a prompt, and only the rows that emit advance
-    their ``fsm`` and their counts. No host sync."""
+    their FSM row and their counts. No host sync.
+
+    The carry form (JAX's ``mixed_step_carry``): a row marked
+    ``use_carry`` takes its input token from ``carry_tok`` and its FSM row
+    from ``carry_fsm``, the previous tick's outputs, so that the tick can
+    be enqueued before the host has pulled them (the async mixed ticks of
+    ``serving.async_runtime``). A sync tick marks no row."""
+    state.tokens[:, 0] = torch.where(state.use_carry, state.carry_tok, state.tokens[:, 0])
     logits = model.mixed_step(
         state.tokens, state.start, state.q_lens, cache, state.page_table, plain, backend,
     )
     if extras is not None:
         logits = extras.adjust(logits)
-    allowed = tables.allowed(state.fsm)
+    fstate = torch.where(state.use_carry, state.carry_fsm, state.fsm)
+    allowed = tables.allowed(fstate)
     tok = sample(logits, generator, state.temps, state.top_k, state.top_p, allowed)
     state.out.copy_(tok)
     if extras is not None:
@@ -420,7 +506,7 @@ def mixed_step_body(
         extras.mixed_lp_ids.copy_(ids)
         extras.mixed_lp_top.copy_(top)
         extras.count(tok, state.emits)
-    state.fsm.copy_(torch.where(state.emits, tables.advance(state.fsm, tok), state.fsm))
+    state.fsm.copy_(torch.where(state.emits, tables.advance(fstate, tok), fstate))
 
 
 # -- host-side dispatch telemetry (JAX decode_loop.py's record_dispatch) ------
@@ -477,3 +563,54 @@ def record_mixed_dispatch(
             min(1.0, (decode_rows + prefill_tokens) / budget)
         )
     _record_attr("mixed", attr, attr_kw)
+
+
+def record_async_dispatch(
+    decode_rows: int, prefill_tokens: int, budget: int, depth: int,
+    attr=None, attr_kw: dict | None = None,
+) -> None:
+    """Telemetry of one async mixed tick (``serving.async_runtime``): the
+    composition series of a sync tick plus the in-flight depth, ``depth``
+    counting this tick. No ``measured_s``: the tick is enqueued, not
+    waited for, so its wall time measures no step."""
+    from .. import obs
+
+    obs.DECODE_DISPATCHES.inc(kind="mixed_async")
+    obs.MIXED_DECODE_LANES.observe(max(0, decode_rows))
+    obs.MIXED_PREFILL_TOKENS.observe(max(0, prefill_tokens))
+    if budget > 0:
+        obs.MIXED_BUDGET_UTILIZATION.observe(
+            min(1.0, (decode_rows + prefill_tokens) / budget)
+        )
+    obs.ASYNC_INFLIGHT_DEPTH.set(depth)
+    _record_attr("mixed_async", attr, attr_kw)
+
+
+def record_async_commit(overlapped: bool, depth_after: int) -> None:
+    """One committed async tick; ``overlapped`` when a newer tick was
+    still enqueued while its host work ran."""
+    from .. import obs
+
+    obs.ASYNC_COMMITS.inc()
+    if overlapped:
+        obs.ASYNC_OVERLAPPED_COMMITS.inc()
+    obs.ASYNC_INFLIGHT_DEPTH.set(depth_after)
+
+
+def record_ffwd_append(
+    seq_id: int, run_len: int, attr=None, request_id: str | None = None,
+) -> None:
+    """One forced run of ``run_len`` tokens appended by the grammar
+    fast-forward, each a forward the run skipped: the run, token and
+    skipped-dispatch counters, a ``ffwd`` flight event, and the skipped
+    dispatches charged to the attribution ledger at no weight stream (the
+    append's own dispatch carries the run's KV and attention work)."""
+    from .. import obs
+
+    obs.FFWD_RUNS.inc()
+    obs.FFWD_TOKENS.inc(run_len)
+    obs.FFWD_SKIPPED_DISPATCHES.inc(run_len)
+    obs.flight.record("ffwd", seq_id=seq_id, run_len=run_len, request_id=request_id)
+    if attr is not None:
+        for _ in range(run_len):
+            _record_attr("ffwd", attr, dict(weight_streams=0.0))

@@ -1,16 +1,37 @@
 """Single-process serving engine over the paged KV cache (the port's
 counterpart of ``opsagent_tpu/serving/engine.py``).
 
-Synchronous: every method returns with its device work done and its tokens
-on the host. Two device programs carry the traffic:
+Two device programs carry the traffic:
 
-- ``step_mixed``: one forward over decode lanes (one token each) and
+- the mixed tick: one forward over decode lanes (one token each) and
   prefill chunks together, through the ragged paged-attention kernel;
-- ``step_block``: up to ``decode_block`` decode + sample steps with the loop
+- the block: up to ``decode_block`` decode + sample steps with the loop
   state on the device and one host pull, through the decode kernel.
 
 On the card with the kernels each decode step and each mixed tick is one
 CUDA graph replay (``serving.decode_graph``), captured by ``warmup``.
+
+The JAX engine's default loop runs them ahead of the host:
+
+- ``step_mixed_async`` (``EngineConfig.async_depth`` 2,
+  ``serving.async_runtime``): tick t+1 is enqueued before tick t's tokens
+  are pulled; decode lanes read their input token from the previous
+  tick's output on the card. ``step_mixed`` is the synchronous tick.
+- ``step_block`` with ``pipeline_depth`` 2: blocks k+1..k+depth are
+  enqueued before block k's tokens reach the host. Each row holds a lane
+  whose last token, write offset, FSM row and EOS flag carry over on the
+  card (``DecodeState.load``'s carry form); pages are booked ahead for the
+  blocks in flight and rolled back after a finish the host sees late. A
+  block with a hosted or extras row runs synchronously, the pipeline
+  drained first.
+- ``ffwd_step`` (``grammar_ffwd``): a constrained row whose FSM state
+  forces a run of tokens appends the run in one forward through the mixed
+  graph of the bucket that holds it, and samples only the token after it.
+
+Tokens reach the host through pinned memory and an event per tick or
+block (``decode_loop.to_host``); nothing else waits for the card between
+an enqueue and its commit. Every entry point settles the other lanes'
+state before it touches the rows they hold.
 
 Constrained decoding (``mask_fn``, ``serving.constrained``) runs inside
 those graphs. A row whose ``JsonConstraint`` has dense tables within the
@@ -52,8 +73,7 @@ latencies are one gap and then near-zero ones, as in JAX's block decode.
 ``warmup`` runs inside ``obs.flight.warmup_phase``: a capture after it is a
 post-warmup compile.
 
-No async runtime, pipelining, grammar fast-forward, speculation, offload
-or snapshots in this port yet.
+No speculation, offload or snapshots in this port yet.
 """
 
 from __future__ import annotations
@@ -63,6 +83,7 @@ import itertools
 import logging
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field, replace
 from functools import partial
 from typing import Any, Callable
@@ -78,6 +99,7 @@ from ..models.loader import load_checkpoint
 from ..ops.paged_attention import PAGED_BACKENDS
 from ..utils.perf import get_perf_stats
 from ..utils.profiling import annotate, device_timer
+from .async_runtime import AsyncMixedRuntime
 from .constrained import NATIVE_TABLE_BUDGET, JsonConstraint, TokenFSM, device_table_fsm
 from .decode_graph import StepGraph
 from .decode_loop import (
@@ -87,9 +109,12 @@ from .decode_loop import (
     SamplingExtras,
     decode_block,
     decode_step_body,
+    from_host,
     mixed_step_body,
     record_dispatch,
+    record_ffwd_append,
     record_mixed_dispatch,
+    to_host,
 )
 from .kvcache import InvalidRequest, OutOfPages, PageAllocator
 from .sampler import SamplingParams
@@ -113,6 +138,13 @@ def _locked(fn):
     return run
 
 
+def _merge_pulls(out: dict[int, list[int]], pulled: dict[int, list[int]]) -> None:
+    """Fold pulled tokens into an accumulated result: several pulls may
+    carry tokens of one sequence, which ``dict.update`` would drop."""
+    for sid, toks in pulled.items():
+        out.setdefault(sid, []).extend(toks)
+
+
 @dataclass
 class EngineConfig:
     # A preset name, or "auto" for the checkpoint's own config.json.
@@ -129,11 +161,27 @@ class EngineConfig:
     max_batch_size: int = 8
     # Decode steps per step_block call: one host pull per block.
     decode_block: int = 32
+    # Blocks in flight beyond the one being pulled: blocks k+1..k+depth are
+    # enqueued before block k's tokens reach the host. 0 = synchronous.
+    pipeline_depth: int = 2
     # Query-axis buckets of the mixed step: a chunk pads to the smallest
     # bucket holding it; the largest caps a chunk.
     mixed_buckets: tuple[int, ...] = (16, 32, 64, 128)
     # Per-mixed-step token budget: decode lanes first, then prefill chunks.
     max_step_tokens: int = 256
+    # Depth of the async mixed ticks (serving.async_runtime): at 2 tick t+1
+    # is enqueued before tick t's tokens are pulled; EOS and stop strings
+    # are then seen a tick late (one overshoot token discarded, its page
+    # booking rolled back). 1 = the synchronous tick. Constrained rows ride
+    # it only on the device tables; hosted, logprobs and bias rows take the
+    # sync lanes.
+    async_depth: int = 2
+    # Grammar fast-forward: a constrained row whose FSM state admits one
+    # token emits the whole forced run without a forward per token, as one
+    # multi-token append through the mixed tick, sampling only the token
+    # after it. Greedy output is the same with it off. Rows off the device
+    # tables, with logprobs or with a bias decode normally.
+    grammar_ffwd: bool = True
     prefix_cache: bool = True
     seed: int = 0
     device: str | None = None      # None = cuda; "cpu" only on request
@@ -299,6 +347,21 @@ class Engine:
         )
         self.sequences: dict[int, Sequence] = {}
         self._prefilling: dict[int, int] = {}   # seq_id -> prompt tokens done
+        # Pipelined blocks: each lane's sequence (its carry lives in
+        # DecodeState's row), the blocks in flight (oldest first), and the
+        # tokens each sequence has booked in them.
+        self._lanes: list[int | None] = [None] * cfg.max_batch_size
+        self._lane_of: dict[int, int] = {}
+        self._inflight: deque[tuple] = deque()
+        self._inflight_steps: dict[int, int] = {}
+        # The async mixed ticks, and the sequences counted ffwd-ineligible.
+        self._async = AsyncMixedRuntime(self)
+        self._ffwd_noted: set[int] = set()
+        # Async ticks enqueued, fast-forward appends of their own (sync
+        # lane), forced tokens appended (both lanes), blocks enqueued ahead
+        # of a pull.
+        self.async_ticks = self.ffwd_dispatches = self.ffwd_tokens = 0
+        self.pipelined_blocks = 0
         self._generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1
         )
@@ -640,7 +703,11 @@ class Engine:
         Returns ``(decode_out, prefill_out)``: ``decode_out`` maps each
         advanced decode sequence to its new token; ``prefill_out`` maps each
         chunk's sequence to True (prompt done, first token sampled) or
-        False (more chunks to go)."""
+        False (more chunks to go). The async ticks and the pipelined blocks
+        are settled first: their state would desync the rows' pages."""
+        self._async_settle()
+        if self._inflight or self._lane_of:
+            self._flush_and_invalidate()
         decode = [
             self.sequences[s] for s in decode_ids
             if s in self.sequences and not self.sequences[s].done
@@ -724,12 +791,7 @@ class Engine:
             perf.record_metric("engine.step_host_gap", gap * 1e3, "ms")
         try:
             with torch.inference_mode():
-                if self._replays():
-                    step = self._prepare()[("mixed", S, extras)].replay
-                    self.mixed_replays += 1
-                else:
-                    step = self._mixed_body(S, extras, self._generator)
-                    self.mixed_eager_ticks += 1
+                step = self._mixed_step(S, extras)
                 self._load_host_masks(masks)
                 want_lp = extras and self._load_extras(lanes)
                 state = self._mixed[S]
@@ -817,10 +879,16 @@ class Engine:
     # -- block decode --------------------------------------------------------
     @_locked
     def step_block(self, seq_ids: list[int] | None = None) -> dict[int, list[int]]:
-        """Advance running sequences by up to ``cfg.decode_block`` tokens in
-        one device-resident loop with one host pull; hosted constrained
-        rows advance one token first, in a one-step block of their own.
-        Returns {seq_id: accepted tokens}."""
+        """Advance running sequences by up to ``cfg.decode_block`` tokens a
+        block. With ``pipeline_depth`` > 0 and every row plain or on the
+        device FSM tables, the block is enqueued behind those in flight and
+        the blocks past the depth are pulled (``_pipelined_block``): the
+        tokens returned are those of earlier blocks. Otherwise the pipeline
+        is drained and the block runs synchronously: hosted constrained
+        rows advance one token first, in a one-step block of their own,
+        and extras rows ride the extras graph. Returns {seq_id: accepted
+        tokens}."""
+        self._async_settle()
         # Host-gap continuity ends here: a block between two mixed ticks
         # would otherwise count as a gap.
         self._mixed_gap_stamp = None
@@ -832,13 +900,454 @@ class Engine:
         ]
         running = running[:self.cfg.max_batch_size]
         routes = self._fsm_routes(running)
-        hosted = [s for s in running if routes.get(s.seq_id) is False]
-        rest = [s for s in running if routes.get(s.seq_id) is not False]
         out: dict[int, list[int]] = {}
-        if hosted:
-            out.update(self._decode_rows(hosted, 1, routes))
-        if rest:
-            out.update(self._decode_rows(rest, self.cfg.decode_block, routes))
+        if self.cfg.pipeline_depth > 0 and not any(
+            routes.get(s.seq_id) is False or self._wants_extras([s]) for s in running
+        ):
+            out = self._pipelined_block(running, routes)
+        else:
+            if self._inflight or self._lane_of:
+                self._flush_and_invalidate(out)
+                running = [s for s in running if not s.done]
+            hosted = [s for s in running if routes.get(s.seq_id) is False]
+            rest = [s for s in running if routes.get(s.seq_id) is not False]
+            if hosted:
+                _merge_pulls(out, self._decode_rows(hosted, 1, routes))
+            if rest:
+                _merge_pulls(out, self._decode_rows(rest, self.cfg.decode_block, routes))
+        self._observe_occupancy()
+        return out
+
+    # -- pipelined blocks ------------------------------------------------------
+    def _pipelined_block(
+        self, running: list[Sequence], routes: dict[int, bool],
+    ) -> dict[int, list[int]]:
+        """One block enqueued behind those in flight (JAX's pipelined
+        ``step_block``), then the blocks past ``pipeline_depth`` pulled.
+        Each row holds a lane for its life: a lane seated now starts from
+        the host (its last token, written length, FSM row), every other
+        carries its state over on the card. Budgets count the tokens in
+        flight, so max_tokens is never passed; pages are booked for them
+        and rolled back when a pull finds the row finished."""
+        B, block = self.cfg.max_batch_size, self.cfg.decode_block
+        out: dict[int, list[int]] = {}
+        for lane, sid in enumerate(self._lanes):
+            if sid is not None and (sid not in self.sequences or self.sequences[sid].done):
+                self._free_lane(sid)
+        override = np.zeros((B,), bool)
+        ov_tok = np.zeros((B,), np.int64)
+        ov_at = np.zeros((B,), np.int32)
+        ov_fsm = np.zeros((B,), np.int32)
+        for s in running:
+            if s.seq_id in self._lane_of:
+                continue
+            try:
+                lane = self._lanes.index(None)
+            except ValueError:
+                break  # more running sequences than lanes: they wait
+            self._lanes[lane] = s.seq_id
+            self._lane_of[s.seq_id] = lane
+            override[lane] = True
+            ov_tok[lane] = s.tokens[-1] if s.tokens else self.tokenizer.bos_id
+            # Seated settled: the allocator's length is the written length.
+            ov_at[lane] = self.alloc.length(s.seq_id)
+            ov_fsm[lane] = self._fsm_row(s, routes.get(s.seq_id, False))
+        # Lanes outside the caller's rows keep their carry but get no budget.
+        requested = {s.seq_id for s in running}
+        alive = np.zeros((B,), bool)
+        budgets = np.zeros((B,), np.int32)
+        lane_seqs: list[int | None] = [None] * B
+        for lane, sid in enumerate(self._lanes):
+            if sid is None:
+                continue
+            alive[lane] = True
+            lane_seqs[lane] = sid
+            s = self.sequences[sid]
+            if sid not in requested or s.done:
+                continue
+            want = min(block, s.params.max_tokens - len(s.tokens)
+                       - self._inflight_steps.get(sid, 0))
+            if want <= 0:
+                continue  # the blocks in flight cover its budget
+            got = self.alloc.extend_upto(sid, want)
+            if got == 0 and self._inflight:
+                # A dry pool: the pulls may hold this row's tokens and roll
+                # other finished rows' bookings back. Drain, then retry.
+                while self._inflight:
+                    _merge_pulls(out, self._pull_oldest())
+                for lx, sx in enumerate(lane_seqs):
+                    if sx is not None and (sx not in self.sequences
+                                           or self.sequences[sx].done):
+                        alive[lx], budgets[lx], lane_seqs[lx] = False, 0, None
+                if s.done:
+                    continue
+                got = self.alloc.extend_upto(sid, want)
+            if got == 0:
+                s.done, s.finish_reason = True, "length"
+                self._preempted(s)
+                self.alloc.truncate(sid, self._host_written(s))
+                self._free_lane(sid)
+                alive[lane], override[lane], lane_seqs[lane] = False, False, None
+                continue
+            budgets[lane] = got
+        if not budgets.any():
+            # Nothing to enqueue; a pull still makes progress.
+            if self._inflight:
+                _merge_pulls(out, self._pull_oldest())
+            return out
+        table, _, _ = self.alloc.batch_views(lane_seqs, B)
+        slots = [self.sequences.get(sid) if sid is not None else None for sid in lane_seqs]
+        temps, top_k, top_p = self._sampling_arrays(slots, B)
+        greedy = bool(np.all(temps <= 0.0))
+        n_steps = int(budgets.max())
+        t_disp = time.perf_counter()
+        with torch.inference_mode():
+            step = self._decode_step(greedy, False, n_steps)
+            self._load_host_masks({})
+            with annotate("engine.decode_block"):
+                toks_d = decode_block(
+                    self._decode, step, ov_tok, ov_at, alive, budgets, table,
+                    temps, top_k, top_p, n_steps=n_steps, fsm=ov_fsm, override=override,
+                )
+                host, event = to_host(toks_d)
+        get_perf_stats().record_metric(
+            "engine.block_dispatch", (time.perf_counter() - t_disp) * 1e3, "ms")
+        # Attribution as the sync block's, each budgeted lane's start being
+        # its booked length less its budget; no measured time (enqueued).
+        attr_q = attr_read = 0
+        for lane, sid in enumerate(lane_seqs):
+            b = int(budgets[lane])
+            if sid is None or b == 0:
+                continue
+            s0 = max(0, self.alloc.length(sid) - b)
+            attr_q += b
+            attr_read += b * s0 + b * (b + 1) // 2
+        record_dispatch(
+            "block", rows=int(np.count_nonzero(budgets)), steps=n_steps, attr=self.attr,
+            attr_kw=dict(weight_streams=n_steps, q_tokens=attr_q, kv_read_tokens=attr_read,
+                         kv_write_tokens=attr_q, attn_q_ctx=attr_read),
+        )
+        obs.flight.record(
+            "dispatch", op="decode_block",
+            seq_ids=[sid for sid, b in zip(lane_seqs, budgets) if sid is not None and b],
+            steps=n_steps,
+        )
+        self.pipelined_blocks += 1
+        self._inflight.append((host, event, lane_seqs, budgets, t_disp))
+        for sid, b in zip(lane_seqs, budgets):
+            if sid is not None and b:
+                self._inflight_steps[sid] = self._inflight_steps.get(sid, 0) + int(b)
+        while len(self._inflight) > self.cfg.pipeline_depth:
+            _merge_pulls(out, self._pull_oldest())
+        return out
+
+    def _pull_oldest(self) -> dict[int, list[int]]:
+        """Pull the oldest block in flight (its event alone is waited for)
+        and fold its tokens into the host state. Blocks are pulled in
+        order, so a row's EOS is seen before any later block of it."""
+        host, event, lane_seqs, budgets, t_disp = self._inflight.popleft()
+        t0 = time.perf_counter()
+        toks = from_host(host, event)
+        perf = get_perf_stats()
+        perf.record_metric("engine.block_pull", (time.perf_counter() - t0) * 1e3, "ms")
+        out: dict[int, list[int]] = {}
+        produced = 0
+        for lane, sid in enumerate(lane_seqs):
+            if sid is None or budgets[lane] == 0:
+                continue
+            left = self._inflight_steps.get(sid, 0) - int(budgets[lane])
+            if left > 0:
+                self._inflight_steps[sid] = left
+            else:
+                self._inflight_steps.pop(sid, None)
+            s = self.sequences.get(sid)
+            if s is None or s.done:
+                continue  # finished while this block was in flight
+            n0 = len(s.tokens)
+            # The decode span open while the block ran, taken before the
+            # accept loop can close it.
+            dspan = s.decode_span
+            for j in range(int(budgets[lane])):
+                self._accept_token(s, int(toks[lane, j]))
+                if s.done:
+                    break
+            out[sid] = s.tokens[n0:]
+            produced += len(out[sid])
+            if dspan is not None and out[sid]:
+                dspan.child("decode_block", t_disp, time.perf_counter(),
+                            tokens=len(out[sid]))
+            if s.done:
+                # Roll the bookings of the blocks in flight back to what
+                # was written. Their stale writes land before any new
+                # owner's: the card runs them in stream order.
+                self.alloc.truncate(sid, self._host_written(s))
+                self._free_lane(sid)
+        perf.record_metric("engine.decode_tokens", produced, "tok")
+        self._observe_occupancy()
+        return out
+
+    def _free_lane(self, seq_id: int) -> None:
+        lane = self._lane_of.pop(seq_id, None)
+        if lane is not None:
+            self._lanes[lane] = None
+
+    def _flush_and_invalidate(self, out: dict[int, list[int]] | None = None) -> None:
+        """Pull every block in flight (their tokens merged into ``out``)
+        and drop the lanes, rolling bookings back to what was written.
+        Called before a synchronous step touches a lane's sequence: its
+        bookkeeping would desync the carry."""
+        while self._inflight:
+            pulled = self._pull_oldest()
+            if out is not None:
+                _merge_pulls(out, pulled)
+        for sid in list(self._lane_of):
+            s = self.sequences.get(sid)
+            if s is not None and not s.done:
+                self.alloc.truncate(sid, self._host_written(s))
+        self._lanes = [None] * self.cfg.max_batch_size
+        self._lane_of.clear()
+
+    @_locked
+    def drain(self) -> dict[int, list[int]]:
+        """Commit the async ticks and pull every block in flight, folding
+        their tokens into the host state; returns the decode tokens (the
+        async prefill outcomes stay for ``async_take_results``). Call before
+        reading a sequence's final state outside the serving loop."""
+        out: dict[int, list[int]] = {}
+        if self._async.pending:
+            _merge_pulls(out, self._async.drain_decode())
+        while self._inflight:
+            _merge_pulls(out, self._pull_oldest())
+        return out
+
+    # -- async mixed ticks (serving/async_runtime.py) -------------------------
+    def _async_settle(self) -> None:
+        """Commit every async tick in flight (the results wait for
+        ``async_take_results``). The sync lanes call this before they touch
+        state the lookahead may still reference."""
+        if self._async.pending:
+            self._async.flush()
+
+    @_locked
+    def step_mixed_async(
+        self, decode_ids: list[int], prefill_chunks: dict[int, int]
+    ) -> tuple[dict[int, list[int]], dict[int, bool]]:
+        """``step_mixed``'s one-tick-lookahead form: enqueue this tick and
+        return the results committed so far, which at ``async_depth`` > 1
+        lag the enqueue by up to depth - 1 ticks (lists of tokens, since
+        several commits may land in one call). Hosted rows are the caller's
+        to route away (``mixed_async_hosted``)."""
+        if self._inflight or self._lane_of:
+            self._flush_and_invalidate()
+        return self._async.step(decode_ids, prefill_chunks)
+
+    @_locked
+    def async_pending(self) -> int:
+        """Enqueued, uncommitted async ticks."""
+        return self._async.pending
+
+    @_locked
+    def async_take_results(self) -> tuple[dict[int, list[int]], dict[int, bool]]:
+        """Results committed by settles since the last pickup: a finished
+        admission must reach the scheduler even when a sync lane's settle
+        committed it."""
+        return self._async.take_results()
+
+    @_locked
+    def async_drain(self) -> tuple[dict[int, list[int]], dict[int, bool]]:
+        """Commit every async tick and return everything committed."""
+        self._async.flush()
+        return self._async.take_results()
+
+    @_locked
+    def mixed_async_hosted(self, seq_id: int) -> bool:
+        """True when the sequence cannot ride the async lane: it asks for
+        logprobs, a bias or penalties, or its constraint has no device
+        tables. Such rows route the tick to the sync lanes."""
+        s = self.sequences.get(seq_id)
+        if s is None:
+            return False
+        if s.params.logprobs or self._needs_bias(s):
+            return True
+        return s.mask_fn is not None and device_table_fsm(s.mask_fn) is None
+
+    @_locked
+    def async_row_fsm(self, seq_id: int) -> TokenFSM | None:
+        """The device-table FSM behind the sequence's constraint, or None:
+        the scheduler keeps each async tick on one table set."""
+        s = self.sequences.get(seq_id)
+        return None if s is None else device_table_fsm(s.mask_fn)
+
+    # -- grammar fast-forward --------------------------------------------------
+    def _note_ffwd_ineligible(self, s: Sequence) -> None:
+        """Count a constrained row that cannot fast-forward (hosted mask,
+        tables over the budget, logprobs, bias), once a sequence."""
+        if s.seq_id in self._ffwd_noted:
+            return
+        self._ffwd_noted.add(s.seq_id)
+        obs.ASYNC_FALLBACKS.inc(reason="ffwd_ineligible")
+
+    @_locked
+    def note_ffwd_ineligible(self, seq_id: int) -> None:
+        """The scheduler's form of ``_note_ffwd_ineligible``."""
+        s = self.sequences.get(seq_id)
+        if s is not None:
+            self._note_ffwd_ineligible(s)
+
+    def _ffwd_candidate(self, s: Sequence) -> tuple[TokenFSM, list[int]] | None:
+        """(fsm, forced run D) when the row can append a forced run now,
+        else None. The append's inputs are ``[last token] + D`` and the
+        masked sample after D is itself forced or free: a trailing EOS is
+        cut off D (the sample at an EOS-only state is EOS at any
+        temperature). D is clamped so that D and the sampled token never
+        pass max_tokens or the largest mixed bucket."""
+        if s.mask_fn is None or s.done or not s.tokens:
+            return None
+        if s.params.logprobs or self._needs_bias(s):
+            self._note_ffwd_ineligible(s)
+            return None
+        fsm = device_table_fsm(s.mask_fn)
+        if fsm is None:
+            self._note_ffwd_ineligible(s)
+            return None
+        run = s.mask_fn.forced_run(s.tokens)
+        if run and run[-1] == fsm.eos_id:
+            run = run[:-1]
+        room = s.params.max_tokens - len(s.tokens) - 1
+        run = run[: max(0, min(room, self.cfg.mixed_buckets[-1] - 1))]
+        return (fsm, run) if run else None
+
+    @_locked
+    def ffwd_step(self, seq_ids: list[int]) -> dict[int, list[int]]:
+        """Grammar fast-forward: the constrained rows whose FSM state forces
+        a run append it as one multi-token row of a mixed tick (the q_len >
+        1 path of prefill chunks) and sample only the token after it, every
+        forced token a forward skipped. Greedy output equals that with the
+        feature off. Rows with tokens in flight have stale host tokens and
+        are passed over, so nothing is settled unless a settled row has a
+        run. Returns {seq_id: accepted tokens} (empty when no row could)."""
+        if not self.cfg.grammar_ffwd:
+            return {}
+
+        def scan(skip_inflight: bool) -> list[tuple]:
+            found = []
+            for sid in seq_ids:
+                s = self.sequences.get(sid)
+                if s is None or s.done:
+                    continue
+                if skip_inflight and (sid in self._inflight_steps
+                                      or self._async.inflight_tokens(sid)):
+                    continue
+                cand = self._ffwd_candidate(s)
+                if cand is not None:
+                    found.append((s, *cand))
+            return found
+
+        if not scan(True):
+            return {}
+        self._async_settle()
+        if self._inflight or self._lane_of:
+            self._flush_and_invalidate()
+        # Re-scan on the settled state: the pulls appended tokens.
+        cands = scan(False)
+        if not cands:
+            return {}
+        # One table set a tick: the loaded one (loading one if none is in
+        # use); rows of another schema wait.
+        routes = self._fsm_routes([s for s, *_ in cands])
+        cands = [c for c in cands if routes.get(c[0].seq_id)][: self.cfg.max_batch_size]
+        rows: list[tuple[Sequence, list[int]]] = []
+        for s, _fsm, run in cands:
+            try:
+                self.alloc.extend(s.seq_id, 1 + len(run))
+            except OutOfPages:
+                # Leave the row to normal decode, which finishes it as
+                # "length" if the pool stays dry.
+                self.alloc.truncate(s.seq_id, self._host_written(s))
+                continue
+            rows.append((s, run))
+        if not rows:
+            return {}
+        B = self.cfg.max_batch_size
+        S = self._mixed_bucket(max(1 + len(r) for _, r in rows))
+        tokens = np.full((B, S), self.tokenizer.pad_id, np.int64)
+        starts = np.zeros((B,), np.int32)
+        qlens = np.zeros((B,), np.int32)
+        emits = np.zeros((B,), bool)
+        fsm = np.zeros((B,), np.int32)
+        tables = np.full((B, self.cfg.max_pages_per_seq), -1, np.int32)
+        for i, (s, run) in enumerate(rows):
+            q = 1 + len(run)
+            tokens[i, :q] = [s.tokens[-1]] + run
+            # The extend made length = written + q; the row writes its q
+            # inputs from the written offset.
+            starts[i] = self.alloc.length(s.seq_id) - q
+            qlens[i] = q
+            emits[i] = True
+            tables[i] = self.alloc.page_table_row(s.seq_id)
+            # The sample masks by the state after the run.
+            fsm[i] = s.mask_fn.dfa_state(s.tokens + run) + 1
+        slots: list[Sequence | None] = [s for s, _ in rows] + [None] * (B - len(rows))
+        temps, top_k, top_p = self._sampling_arrays(slots, B)
+        perf = get_perf_stats()
+        t_disp = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                step = self._mixed_step(S)
+                self._load_host_masks({})
+                state = self._mixed[S]
+                state.load(tokens, starts, qlens, tables, temps, top_k, top_p, fsm, emits)
+                dev_out: list = [state.out]
+                with annotate("engine.ffwd_step"), device_timer("ffwd_step", dev_out):
+                    step()
+                self._mixed_gap_stamp = time.perf_counter()
+                sampled = state.out.cpu().numpy()
+        except Exception:
+            # Nothing was accepted: roll every booking back.
+            for s, _run in rows:
+                self.alloc.truncate(s.seq_id, self._host_written(s))
+            raise
+        measured_s = time.perf_counter() - t_disp
+        perf.record_metric("engine.ffwd_dispatch", measured_s * 1e3, "ms")
+        obs.DECODE_DISPATCHES.inc(kind="ffwd")
+        n_forced = sum(len(r) for _, r in rows)
+        self.ffwd_dispatches += 1
+        self.ffwd_tokens += n_forced
+        q_total = n_forced + len(rows)
+        self.attr.dispatch(
+            "ffwd_append", q_tokens=q_total,
+            kv_read_tokens=int(sum(int(starts[i]) + int(qlens[i]) for i in range(len(rows)))),
+            kv_write_tokens=q_total,
+            attn_q_ctx=int(sum(obs.attribution.prefill_attn_positions(
+                int(starts[i]), int(qlens[i])) for i in range(len(rows)))),
+            measured_s=measured_s,
+        )
+        obs.flight.record("dispatch", op="ffwd", decode_seq_ids=[s.seq_id for s, _ in rows],
+                          bucket=int(S), forced_tokens=n_forced)
+        out: dict[int, list[int]] = {}
+        produced = 0
+        for i, (s, run) in enumerate(rows):
+            n0 = len(s.tokens)
+            dspan = s.decode_span
+            for t in run + [int(sampled[i])]:
+                if s.done:
+                    break
+                self._accept_token(s, t)
+            accepted = s.tokens[n0:]
+            if s.done:
+                # A stop string, EOS or max_tokens inside the run: the
+                # booked tail is dead, roll it back.
+                self.alloc.truncate(s.seq_id, self._host_written(s))
+            n_ff = min(len(accepted), len(run))
+            if n_ff:
+                record_ffwd_append(s.seq_id, n_ff, attr=self.attr,
+                                   request_id=obs.flight.request_id_of(s.trace))
+            if dspan is not None:
+                dspan.child("ffwd_step", t_disp, time.perf_counter(), tokens=len(accepted))
+            out[s.seq_id] = accepted
+            produced += len(accepted)
+        if produced:
+            perf.record_metric("engine.decode_tokens", produced, "tok")
         self._observe_occupancy()
         return out
 
@@ -885,12 +1394,7 @@ class Engine:
         n_steps = int(budgets.max())
         t_disp = time.perf_counter()
         with torch.inference_mode():
-            if self._replays():
-                step = self._prepare()[("decode", greedy, extras)].replay
-                self.decode_replays += n_steps
-            else:
-                step = self._decode_body(greedy, extras, self._generator)
-                self.decode_eager_steps += n_steps
+            step = self._decode_step(greedy, extras, n_steps)
             self.hosted_steps += len(masks) * n_steps
             self._load_host_masks(masks)
             want_lp = extras and self._load_extras(lanes)
@@ -987,6 +1491,23 @@ class Engine:
     def _replays(self) -> bool:
         return self.attn_impl == "cuda" and self.cfg.cuda_graphs
 
+    def _mixed_step(self, S: int, extras: bool = False):
+        """The mixed tick at bucket ``S``: its graph's replay where steps
+        replay, else its eager body; counted as one either way."""
+        if self._replays():
+            self.mixed_replays += 1
+            return self._prepare()[("mixed", S, extras)].replay
+        self.mixed_eager_ticks += 1
+        return self._mixed_body(S, extras, self._generator)
+
+    def _decode_step(self, greedy: bool, extras: bool, n_steps: int):
+        """The decode step, as ``_mixed_step``, counted ``n_steps`` times."""
+        if self._replays():
+            self.decode_replays += n_steps
+            return self._prepare()[("decode", greedy, extras)].replay
+        self.decode_eager_steps += n_steps
+        return self._decode_body(greedy, extras, self._generator)
+
     def _prepare(self) -> dict[tuple[str, object], StepGraph]:
         """The warm steps, then the captures where steps replay; once per
         engine. Returns the graphs (none where steps run eagerly)."""
@@ -1051,6 +1572,7 @@ class Engine:
         to the prefix trie keyed by the tokens they hold (the prompt and all
         generated tokens but the last, which was never written)."""
         seq = self.sequences.pop(seq_id)
+        self._ffwd_noted.discard(seq_id)
         self.alloc.free(seq_id, tokens=seq.prompt_ids + seq.tokens[:-1])
         obs.flight.record(
             "finish", seq_id=seq_id, tokens=len(seq.tokens),
@@ -1135,4 +1657,5 @@ class Engine:
         while pending:
             self.step_block(sorted(pending))
             pending = {i for i in pending if not self.sequences[i].done}
+        self.drain()
         return [self.finish(i) for i in ids]

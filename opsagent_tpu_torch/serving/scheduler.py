@@ -1,12 +1,31 @@
 """Continuous-batching scheduler (the port's counterpart of
-``opsagent_tpu/serving/scheduler.py``, without its restart recovery,
-class-fair admission and offload parking).
+``opsagent_tpu/serving/scheduler.py``, without its offload parking and its
+drain for migration).
 
 One thread owns the engine. Each tick admits waiting requests while batch
-slots and pages allow, then runs ONE device program: a mixed step when a
-prompt is admitting (every decode lane plus prefill chunks under the
-``max_step_tokens`` budget), else a decode block. Finished sequences release
-their pages at once, so queued requests enter mid-flight.
+slots and pages allow, class-fair (interactive before batch before
+background, arrival order within a class), then routes the tick as the JAX
+scheduler does:
+
+1. the async lane (``EngineConfig.async_depth`` > 1): an async mixed tick
+   when a prompt is admitting, ticks are in flight, or a running row on
+   the device FSM tables can fast-forward; a hosted row, or two schemas,
+   settle it and pass the tick on;
+2. grammar fast-forward on the running rows the async lane left;
+3. a synchronous mixed tick when a prompt is admitting (every decode lane
+   plus prefill chunks under the ``max_step_tokens`` budget);
+4. else a decode block (pipelined at ``pipeline_depth`` > 0).
+
+Finished sequences release their pages at once, so queued requests enter
+mid-flight.
+
+A failing step is first reaped (a raising stream callback or mask ends its
+own request only); the batch fails only after 3 consecutive failures that
+no request accounts for. With an ``engine_factory`` the scheduler then
+rebuilds the engine (warmed up before any re-admission) and re-admits
+every request in flight with the tokens it has so far, up to
+``max_restarts`` times (``_recover``); a request that fails keeps its
+``generated_prefix``.
 
 A request's ``mask_fn`` constrains its tokens (``serving.constrained``); a
 mask that raises on admission fails the request with 400. A request that
@@ -30,7 +49,7 @@ import logging
 import queue
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable
 
 from .. import obs
@@ -42,8 +61,12 @@ from .sampler import SamplingParams
 
 log = logging.getLogger("opsagent_tpu_torch.scheduler")
 
-# A request still waiting for a batch slot after this long fails with 503.
-ADMISSION_TIMEOUT_S = 120.0
+# Admission precedence by SLO class, lower first; an unclassed request ranks
+# as interactive.
+_CLASS_ADMIT_RANK = {"interactive": 0, "batch": 1, "background": 2}
+# Consecutive step failures no request accounts for before the batch fails
+# (or, with an engine factory, the engine is rebuilt).
+FAILURES_BEFORE_RECOVERY = 3
 
 
 class RequestError(RuntimeError):
@@ -73,15 +96,38 @@ class Request:
     ttft_s: float = 0.0
     enqueued_s: float = field(default_factory=time.perf_counter)
     done: threading.Event = field(default_factory=threading.Event)
+    # Tokens generated before an engine restart: the re-admission folds them
+    # into the prompt, and the result is generated_prefix + what follows.
+    # A stream has had them already and is not sent them again.
+    generated_prefix: list[int] = field(default_factory=list)
     # Observability: the request's span handle (obs.trace.Span), under
     # which the scheduler records queue_wait and the engine the prefill
     # and decode phases.
     trace: Any = None
 
 
+def _admit_rank(req: Request) -> int:
+    return _CLASS_ADMIT_RANK.get(obs.trace.class_of(req.trace, "interactive"), 0)
+
+
 class Scheduler:
-    def __init__(self, engine: Engine):
+    def __init__(
+        self,
+        engine: Engine,
+        admission_timeout_s: float = 120.0,
+        engine_factory: Callable[[], Engine] | None = None,
+        max_restarts: int = 3,
+    ):
+        """``admission_timeout_s``: a request still waiting for a batch slot
+        after this long fails with 503. ``engine_factory``: how to rebuild
+        the engine when it fails persistently, at most ``max_restarts``
+        times; without one, persistent failure fails the requests in
+        flight."""
         self.engine = engine
+        self.admission_timeout_s = admission_timeout_s
+        self._engine_factory = engine_factory
+        self._max_restarts = max_restarts
+        self._restarts = 0
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self._waiting: list[Request] = []
         self._prefilling: dict[int, Request] = {}  # admitted, chunks pending
@@ -112,12 +158,12 @@ class Scheduler:
     def _try_admit(self) -> None:
         """Move waiting requests into the prefilling state while batch slots
         and pages allow (page allocation only; the device work runs in
-        mixed steps)."""
-        while True:
-            try:
-                self._waiting.append(self._queue.get_nowait())
-            except queue.Empty:
-                break
+        mixed steps). Class-fair: the waiting list is sorted stably by SLO
+        class first, so an interactive request queued behind a batch
+        fan-out is admitted ahead of it."""
+        self._drain_queue()
+        if len(self._waiting) > 1:
+            self._waiting.sort(key=_admit_rank)
         still: list[Request] = []
         now = time.perf_counter()
         for req in self._waiting:
@@ -125,7 +171,7 @@ class Scheduler:
             if occupied >= self.engine.cfg.max_batch_size:
                 still.append(req)
                 continue
-            if now - req.enqueued_s > ADMISSION_TIMEOUT_S:
+            if now - req.enqueued_s > self.admission_timeout_s:
                 error = "admission timed out (engine saturated)"
                 self._count(req, "timeout")
                 obs.flight.anomaly(
@@ -145,6 +191,9 @@ class Scheduler:
             except (PromptTooLong, InvalidRequest) as e:
                 self._fail(req, f"admission failed: {e}", 400)
                 continue
+            except Exception as e:  # noqa: BLE001 - surfaced on the request
+                self._fail(req, f"admission failed: {e}")
+                continue
             req.seq_id = seq_id
             self._prefilling[seq_id] = req
             wait_s = now - req.enqueued_s
@@ -157,17 +206,17 @@ class Scheduler:
                 req.trace.child("queue_wait", req.enqueued_s, now)
         self._waiting = still
 
-    def _mixed_tick(self) -> bool:
-        """One mixed step: every running decode lane advances a token and
-        the oldest admitting prompts get chunks from what is left of the
-        ``max_step_tokens`` budget. Returns False when nothing is
-        admitting (the tick goes to block decode)."""
+    def _drain_queue(self) -> None:
+        while True:
+            try:
+                self._waiting.append(self._queue.get_nowait())
+            except queue.Empty:
+                return
+
+    def _chunks(self, decode_ids: list[int]) -> dict[int, int]:
+        """Prefill chunks for the oldest admitting prompts from what the
+        decode lanes leave of the ``max_step_tokens`` budget and the batch."""
         eng = self.engine
-        if not self._prefilling:
-            return False
-        decode_ids = sorted(
-            sid for sid in self._running if not eng.sequences[sid].done
-        )
         budget = eng.cfg.max_step_tokens - len(decode_ids)
         rows_left = eng.cfg.max_batch_size - len(decode_ids)
         cap = eng.cfg.mixed_buckets[-1]
@@ -175,40 +224,148 @@ class Scheduler:
         for sid in self._prefilling:  # admission order: oldest first
             if budget <= 0 or rows_left <= 0:
                 break
-            done, total = eng.prefill_progress(sid)
+            try:
+                # With async ticks this is planned progress: chunks in
+                # flight count as done, so a prompt is never offered twice.
+                done, total = eng.prefill_progress(sid)
+            except KeyError:
+                continue  # its last chunk is in flight, or it failed
             c = min(total - done, budget, cap)
+            if c <= 0:
+                continue
             chunks[sid] = c
             budget -= c
             rows_left -= 1
+        return chunks
+
+    def _decode_ids(self) -> list[int]:
+        eng = self.engine
+        return sorted(sid for sid in self._running
+                      if sid in eng.sequences and not eng.sequences[sid].done)
+
+    def _mixed_tick(self) -> bool:
+        """The tick's mixed lanes, in the JAX scheduler's order: the async
+        lane, then grammar fast-forward on the running rows it left, then
+        one synchronous mixed step (every decode lane plus chunks of the
+        oldest admitting prompts). Returns False when no mixed step ran
+        and the tick goes to block decode."""
+        eng = self.engine
+        if eng.cfg.async_depth > 1 and self._async_mixed_tick():
+            return True
+        if eng.cfg.grammar_ffwd and self._running:
+            eng.ffwd_step(sorted(self._running))
+        if not self._prefilling:
+            return False
+        decode_ids = self._decode_ids()
+        chunks = self._chunks(decode_ids)
         if not chunks:
             return False
         try:
             _, prefill_out = eng.step_mixed(decode_ids, chunks)
         except Exception as e:
-            for sid in chunks:  # the engine dropped these admissions
-                req = self._prefilling.pop(sid)
-                self._count(req, "admission_failed")
-                obs.flight.anomaly(
-                    "request_error", seq_id=sid, error=str(e),
-                    request_id=obs.flight.request_id_of(req.trace),
-                )
-                self._fail(req, f"admission failed: {e}")
+            # The engine dropped these admissions; fail them, then let the
+            # loop's failure accounting see the error.
+            for sid in chunks:
+                self._fail_admission(sid, e)
             raise
+        self._fold_prefill(prefill_out)
+        return True
+
+    def _fold_prefill(self, prefill_out: dict[int, bool]) -> None:
+        """Completed prompts move to running (False: more chunks to go)."""
         for sid, prompt_done in prefill_out.items():
             if prompt_done:
-                req = self._prefilling.pop(sid)
-                # Time to first token as the client sees it: from submission.
-                req.ttft_s = time.perf_counter() - req.enqueued_s
-                self._running[sid] = req
+                req = self._prefilling.pop(sid, None)
+                if req is not None:
+                    # Time to first token as the client sees it.
+                    req.ttft_s = time.perf_counter() - req.enqueued_s
+                    self._running[sid] = req
+
+    def _async_mixed_tick(self) -> bool:
+        """The one-tick-lookahead mixed tick (``async_depth`` > 1): tick t+1
+        is planned and enqueued before tick t's tokens are pulled, so the
+        host work between enqueues overlaps the card. Results lag by up to
+        depth - 1 ticks; admissions are folded in whenever they surface.
+        Returns True when the async lane took the tick (an enqueue or a
+        settle); False routes it to the sync lanes: nothing admitting,
+        nothing in flight and no row to fast-forward (pure decode belongs
+        to the blocks), or a row needing a hosted lane."""
+        eng = self.engine
+        _, p_out = eng.async_take_results()
+        self._fold_prefill(p_out)
+        # Fast-forward keeps device-table constrained rows on the async
+        # lane even in pure decode: its planner appends forced runs at
+        # every enqueue, which the pipelined blocks (host tokens behind the
+        # blocks in flight) cannot.
+        ffwd_decode = eng.cfg.grammar_ffwd and any(
+            sid in eng.sequences and not eng.sequences[sid].done
+            and eng.async_row_fsm(sid) is not None
+            for sid in self._running
+        )
+        if not self._prefilling and not eng.async_pending() and not ffwd_decode:
+            return False
+        # Hosted rows and ticks of two schemas take the sync lanes: settle
+        # the pipeline first so that they see the current host state.
+        fsm_seen = None
+        for sid in list(self._running) + list(self._prefilling):
+            hosted = eng.mixed_async_hosted(sid)
+            mismatch = False
+            if not hosted:
+                f = eng.async_row_fsm(sid)
+                if f is not None:
+                    mismatch = fsm_seen is not None and f is not fsm_seen
+                    fsm_seen = f
+            if hosted or mismatch:
+                obs.ASYNC_FALLBACKS.inc(reason="hosted" if hosted else "fsm_mismatch")
+                if hosted and eng.cfg.grammar_ffwd:
+                    # It cannot fast-forward either (counted once a row).
+                    eng.note_ffwd_ineligible(sid)
+                _, p_out = eng.async_drain()
+                self._fold_prefill(p_out)
+                return False
+        decode_ids = self._decode_ids()
+        chunks = self._chunks(decode_ids)
+        if not chunks:
+            if not ffwd_decode:
+                if not eng.async_pending():
+                    return False
+                # Every admitting prompt is planned and only commits
+                # remain: settle, and the next tick decodes in blocks.
+                _, p_out = eng.async_drain()
+                self._fold_prefill(p_out)
+                return True
+            if not decode_ids:
+                return False
+        try:
+            _, p_out = eng.step_mixed_async(decode_ids, chunks)
+        except Exception as e:
+            # The engine dropped this tick's admissions (the earlier ticks
+            # were salvaged); fail them, then let the loop account for it.
+            for sid in chunks:
+                self._fail_admission(sid, e)
+            raise
+        self._fold_prefill(p_out)
         return True
+
+    def _fail_admission(self, sid: int, e: Exception) -> None:
+        req = self._prefilling.pop(sid, None)
+        if req is None:
+            return
+        self._count(req, "admission_failed")
+        obs.flight.anomaly(
+            "request_error", seq_id=sid, error=str(e),
+            request_id=obs.flight.request_id_of(req.trace),
+        )
+        self._fail(req, f"admission failed: {e}",
+                   400 if isinstance(e, (InvalidRequest, PromptTooLong)) else 500)
 
     def _reap(self) -> None:
         for sid in [s for s in self._running if self.engine.sequences[s].done]:
             req = self._running.pop(sid)
             seq = self.engine.sequences[sid]
             req.finish_reason = seq.finish_reason
-            req.logprob_data = list(seq.logprob_data)
-            req.tokens = self.engine.finish(sid)
+            req.logprob_data = req.logprob_data + seq.logprob_data
+            req.tokens = req.generated_prefix + self.engine.finish(sid)
             if req.finish_reason == "error":
                 # Its mask or stream callback raised (logged by the engine).
                 req.error = "constrained decoding or streaming failed"
@@ -235,6 +392,88 @@ class Scheduler:
             "outcome": outcome,
         })
 
+    def _requeue_salvaged(
+        self, req: Request, partial: list[int], logprob_data: list[dict],
+    ) -> bool:
+        """Fold a salvaged generation into the request so that its
+        re-admission continues where it stopped: prompt += salvage, budget
+        -= salvage, the penalties count the salvage as output, a constraint
+        walks on from where it was, and a stream is not sent the salvage
+        again. Returns False when the budget is spent (the request is then
+        finished, not re-queued)."""
+        req.logprob_data = req.logprob_data + logprob_data[: len(partial)]
+        req.generated_prefix = req.generated_prefix + partial
+        # sampling.max_tokens is already less the earlier salvages.
+        budget = req.sampling.max_tokens - len(partial)
+        if budget <= 0:
+            req.tokens = req.generated_prefix
+            req.finish_reason = "length"
+            req.done.set()
+            return False
+        req.prompt_ids = req.prompt_ids + partial
+        req.sampling = replace(
+            req.sampling, max_tokens=budget,
+            # Folded into the prompt, still counted as output.
+            penalty_history=tuple(req.generated_prefix),
+        )
+        if req.mask_fn is not None and partial:
+            # Wrapped with this salvage alone: the inner one prepends the
+            # earlier salvages already.
+            inner = req.mask_fn
+            req.mask_fn = lambda toks, _p=list(partial), _f=inner: _f(_p + toks)
+        req.seq_id = None
+        # Time spent generating does not count against the admission
+        # timeout of the re-admission.
+        req.enqueued_s = time.perf_counter()
+        return True
+
+    def _recover(self) -> None:
+        """Rebuild the engine and re-admit every request in flight from the
+        host state it keeps: each running sequence's tokens are salvaged
+        (``_requeue_salvaged``) and the request re-enters the queue ahead of
+        the waiting ones; prefilling requests re-enter whole. The dead
+        engine's device buffers are dropped before the factory builds the
+        new one, which is warmed up (its graphs captured) before any
+        re-admission. A failed rebuild keeps the old engine: admission is
+        host-side, so queued work waits for the next attempt."""
+        self._restarts += 1
+        log.error(
+            "engine restart %d/%d: rebuilding, re-admitting %d running + %d "
+            "prefilling requests", self._restarts, self._max_restarts,
+            len(self._running), len(self._prefilling),
+        )
+        obs.flight.anomaly(
+            "engine_restart", restart=self._restarts, max_restarts=self._max_restarts,
+            running=len(self._running), prefilling=len(self._prefilling),
+        )
+        salvaged: list[Request] = []
+        for sid, req in list(self._running.items()):
+            partial: list[int] = []
+            seq = self.engine.sequences.get(sid)
+            try:
+                partial = self.engine.finish(sid)
+            except Exception:  # noqa: BLE001 - device state may be gone
+                pass
+            if self._requeue_salvaged(req, partial, seq.logprob_data if seq else []):
+                salvaged.append(req)
+        self._running.clear()
+        for req in self._prefilling.values():
+            req.seq_id = None
+            req.enqueued_s = time.perf_counter()
+            salvaged.append(req)
+        self._prefilling.clear()
+        self._waiting = salvaged + self._waiting
+        dead = self.engine
+        for buf in ("model", "cache", "_graphs", "_decode", "_mixed", "_fsm", "_extras"):
+            setattr(dead, buf, None)
+        try:
+            engine = self._engine_factory()
+            engine.warmup()
+        except Exception:  # noqa: BLE001 - the device may still be coming back
+            log.exception("engine rebuild failed; queued work waits for the next attempt")
+            return
+        self.engine = engine
+
     def _loop(self) -> None:
         profiling.host_captures()
         try:
@@ -243,37 +482,66 @@ class Scheduler:
             profiling.release_captures()
 
     def _serve(self) -> None:
+        failures = 0
         while not self._stop.is_set():
             profiling.service()
             try:
                 self._try_admit()
-                if not self._mixed_tick() and self._running:
-                    self.engine.step_block(sorted(self._running))
+                mixed = self._mixed_tick()
                 self._reap()
-                if not self._running and not self._prefilling:
+                if not self._running:
+                    if self._prefilling:
+                        continue  # keep admitting
                     # Idle: the wait must not be observed as a host gap.
                     self.engine.mixed_gap_break()
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
+                    continue
+                if not mixed:
+                    self.engine.step_block(sorted(self._running))
+                    self._reap()
+                failures = 0
             except Exception as e:  # noqa: BLE001 - the loop must survive
                 log.exception("scheduler step failed")
+                # A raising stream callback or mask has ended its own
+                # sequence: reaping it is progress, not an engine failure.
+                before = len(self._running)
+                try:
+                    self._reap()
+                except Exception:  # noqa: BLE001
+                    pass
+                if len(self._running) < before:
+                    failures = 0
+                    continue
+                failures += 1
+                if failures < FAILURES_BEFORE_RECOVERY:
+                    continue
+                failures = 0
+                if self._engine_factory is not None and self._restarts < self._max_restarts:
+                    self._recover()
+                    continue
                 obs.flight.anomaly(
-                    "request_error", error=f"engine step failed: {e}",
+                    "request_error", error=f"engine failing persistently: {e}",
                     failed_requests=len(self._running),
                 )
                 for sid, req in list(self._running.items()):
-                    req.tokens = self.engine.finish(sid)
+                    # An earlier restart's salvage reached the client
+                    # already: it stays in the result.
+                    req.tokens = list(req.generated_prefix)
+                    try:
+                        req.tokens = req.generated_prefix + self.engine.finish(sid)
+                    except Exception:  # noqa: BLE001
+                        pass
                     self._fail(req, f"engine step failed: {e}")
                 self._running.clear()
-        while not self._queue.empty():
-            self._waiting.append(self._queue.get_nowait())
+        self._drain_queue()
         for req in self._waiting:
             self._fail(req, "scheduler stopped")
         for sid, req in list(self._prefilling.items()):
             self.engine.abort_request(sid)
             self._fail(req, "scheduler stopped")
         for sid, req in list(self._running.items()):
-            req.tokens = self.engine.finish(sid)
+            req.tokens = req.generated_prefix + self.engine.finish(sid)
             self._fail(req, "scheduler stopped")
         self._prefilling.clear()
         self._running.clear()

@@ -46,6 +46,9 @@ REQUIRED = (
     "opsagent_tpu_torch.obs.attribution",
     "opsagent_tpu_torch.obs.timeline",
     "opsagent_tpu_torch.obs.history",
+    "opsagent_tpu_torch.serving.async_runtime",
+    "opsagent_tpu_torch.llm",
+    "opsagent_tpu_torch.llm.client",
 )
 
 

@@ -407,20 +407,22 @@ def test_decode_split_edges(gen, form, G, D, dtype, int8):
 
 
 # -- the decode step as a CUDA graph ------------------------------------------
-def _graph_and_eager_engines(backend, quantize, kv_quantize):
+def _graph_and_eager_engines(backend, quantize, kv_quantize, **loop):
     """Two engines over one 2-layer bench-1b-width bf16 model: the first
     replays the captured steps, the second runs them eagerly through the
-    same kernels."""
+    same kernels. Blocks are synchronous (``pipeline_depth`` 0) unless
+    ``loop`` says otherwise."""
     from opsagent_tpu_torch.models.config import BENCH_1B
     from opsagent_tpu_torch.models.llama import Llama
 
     cfg = replace(BENCH_1B, num_layers=2)
     model = Llama(cfg, torch.bfloat16, "cuda", seed=0, quantize=quantize)
+    loop = {"pipeline_depth": 0, **loop}
     return [Engine(EngineConfig(model=cfg.name, dtype=torch.bfloat16, page_size=16,
                                 num_pages=64, max_pages_per_seq=16, max_batch_size=4,
                                 decode_block=8, quantize=quantize,
                                 kv_quantize=kv_quantize, paged_backend=backend,
-                                cuda_graphs=replay), model_cfg=cfg, model=model)
+                                cuda_graphs=replay, **loop), model_cfg=cfg, model=model)
             for replay in (True, False)]
 
 
@@ -536,6 +538,56 @@ def test_extras_rows_replay_the_eager_step(gen, backend):
     assert gr[0] > 0 and gr[2] > 0 and gr[1] == gr[3] == gr[4] == 0
     assert er[0] == er[2] == er[4] == 0
     assert len(gl[3]) == 12 and all(len(d["top"]) == 20 for d in gl[3])
+
+
+@pytest.mark.parametrize("kv_quantize", ["", "int8"])
+@pytest.mark.parametrize("backend", ["dma", "grid"])
+def test_carry_fed_mixed_ticks_replay_the_eager_ones(gen, backend, kv_quantize):
+    """The default loop (async ticks at depth 2, pipelined blocks, grammar
+    fast-forward), replayed and eager: a decode lane rides another prompt's
+    admission on carry-fed async ticks (its input token read on the card
+    from the previous tick's output), the admitted prompt's first tokens
+    ride lookahead lanes, a ToolPrompt row appends forced runs (q_len > 1
+    rows of the ragged kernel deep in its sequence), then pipelined
+    blocks. Tokens, cache bytes and launch counts are equal bit for bit;
+    every tick and step of the first engine replays; no page stays owned."""
+    from opsagent_tpu_torch.serving.constrained import TOOLPROMPT_SCHEMA, json_constraint
+
+    runs = []
+    for eng in _graph_and_eager_engines(backend, "", kv_quantize, pipeline_depth=2):
+        eng.warmup()
+        before = _counters()
+        a = eng.add_request([257] + list(range(10, 50)), SamplingParams(max_tokens=24))
+        con = json_constraint(eng.tokenizer, TOOLPROMPT_SCHEMA)
+        c = eng.add_request([257, 3, 1, 4], SamplingParams(max_tokens=40), con)
+        b = eng.begin_request([257] + list(range(60, 140)), SamplingParams(max_tokens=12))
+        for _ in range(100):
+            if b not in eng._prefilling and not eng.async_pending():
+                break
+            chunks = {}
+            if b in eng._prefilling:
+                done, total = eng.prefill_progress(b)
+                chunks = {b: min(total - done, 16)} if total > done else {}
+            eng.step_mixed_async([s for s in (a, c) if not eng.sequences[s].done], chunks)
+        ids = (a, b, c)
+        while any(not eng.sequences[i].done for i in ids):
+            eng.step_block([i for i in ids if not eng.sequences[i].done])
+        eng.drain()
+        torch.cuda.synchronize()
+        after = _counters()
+        runs.append(([eng.finish(i) for i in ids], _cache_bytes(eng.cache),
+                     {k: n - before[k] for k, n in after.items() if n != before[k]},
+                     (eng.decode_replays, eng.decode_eager_steps, eng.mixed_replays,
+                      eng.mixed_eager_ticks),
+                     (eng.async_ticks, eng.ffwd_tokens, eng.pipelined_blocks),
+                     eng.alloc.accounting()["owned"]))
+    (gt, gc, gl, gr, gloop, gown), (et, ec, el, er, eloop, eown) = runs
+    assert gt == et and gl == el
+    assert all(torch.equal(x, y) for x, y in zip(gc, ec))
+    assert gr[0] > 0 and gr[2] > 0 and gr[1] == gr[3] == 0
+    assert er[0] == er[2] == 0 and er[1] == gr[0] and er[3] == gr[2]
+    assert gloop == eloop and all(n > 0 for n in gloop)
+    assert gown == eown == 0
 
 
 def test_decode_graph_raises_when_a_buffer_moves(gen):

@@ -248,7 +248,10 @@ def test_engine_gauges_and_attribution_after_a_request():
     assert snap["dispatches"] == pobs.DECODE_DISPATCHES.value(kind="mixed") + \
         pobs.DECODE_DISPATCHES.value(kind="block")
     assert snap["bytes_by_kind"]["weights"] > 0 and snap["drift_ema"] > 0
-    assert pobs.attribution.ATTR_MEASURED_STEP_SECONDS.count(op="block") >= 1
+    # The admission's synchronous mixed tick is a measured step; a pipelined
+    # block is enqueued, not waited for, so none is (as in JAX).
+    assert pobs.attribution.ATTR_MEASURED_STEP_SECONDS.count(op="mixed") >= 1
+    assert pobs.attribution.ATTR_MEASURED_STEP_SECONDS.count(op="block") == 0
 
 
 # -- routes over HTTP ------------------------------------------------------------
@@ -306,10 +309,12 @@ def test_routes_answer_as_jax_does(stacks, method, path, match):
             d["data"][0].pop("owned_by")
         assert pb == jb
     elif match == "healthz":
-        optional = {"init", "async", "host_pool", "fleet", "faults"}
+        # Both engines run async mixed ticks at depth 2: both carry "async".
+        optional = {"init", "host_pool", "fleet", "faults"}
         assert set(pb) == set(jb) - optional
         for k, v in pb.items():
             assert type(v) is type(jb[k]), k
+        assert pb["async"] == jb["async"] == {"depth": 2, "inflight": 0}
         assert pb["impl"]["attn_impl"] == "plain" and pb["queued"] == 0
     elif match == "metrics":
         assert ps == 200 and pct.startswith("text/plain") and jct.startswith("text/plain")
@@ -389,7 +394,8 @@ def test_a_capture_during_traffic_holds_the_engine_ticks(stacks, tmp_path, monke
     assert out["r"][0] == 200
     (trace,) = tmp_path.glob("trace-*.json")
     names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
-    assert {"engine.mixed_step", "engine.decode_block"} <= names
+    # The prompt is admitted through async mixed ticks (the default depth 2).
+    assert {"engine.mixed_step_async", "engine.decode_block"} <= names
 
 
 def test_scrapes_during_traffic_see_a_consistent_engine(stacks):
