@@ -15,35 +15,45 @@ Phases, each printing one JSON line with its seconds:
    split-KV "grid" kernels; both forms' decode kernels split the KV
    sequence too, with a combine pass), over bf16/f32 pages and over int8
    pages at the widths of bench-8b (Llama-3-8B), Qwen2.5-7B (G = 7),
-   bench-1b and tiny-test; the main path's bf16 shapes are timed: device
+   bench-1b and tiny-test; and the dma kernels' MLA latent instances (one
+   latent kv head of 576 columns read as k and v) at DeepSeek-V2-Lite's 16
+   and V3's 128 heads, bf16 and f32, decode lengths on page and split
+   edges and 0; the main path's bf16 shapes are timed: device
    times by CUDA graph replay (the kernels cycling over copies of the
    pages that pass ``ROTATE_BYTES``; SDPA over K/V gathered once), and
    the kernels' calls from Python beside them (``event_ms``); then (the
    ``matmul`` line) the quantized matmul, int8 and
    int4 with one whole-axis group and with groups of 128, at every
-   bench-8b projection shape and Qwen2.5-7B's wk/wv and wg/wu with T in
-   {1, 8, 128, 1024}, at aligned and unaligned edges (a ragged In, an int4
+   bench-8b projection shape, Qwen2.5-7B's wk/wv and wg/wu, and every
+   DeepSeek-V2-Lite projection (MLA, dense MLP, a routed expert's slice,
+   the shared experts, lm_head) with T in {1, 8, 128, 1024}, at aligned and unaligned edges (a ragged In, an int4
    group that straddles stages, an odd group) and at tiny-test widths.
    Errors for all; in bf16, device times (CUDA graph replay) of the mixed
-   ticks' shapes (T = 128 and 1024) and of every served shape at a decode
+   ticks' shapes (T = 128 and 1024; V2-Lite's expert slices at 1024) and
+   of every served shape at a decode
    step (T = 8), each with its instance, its bound, cuBLAS's time and the
    time of the older instance on the same inputs (m64 at T > 16, r16 at
    T <= 16, with the m16 instance's split count), and the kernel's time
    through its Python wrapper, host included (``event_ms``).
 4. e2e: 2-layer f32 cuts of bench-8b (dma kernels; unquantized, int8
-   weights + int8 KV, int4 weights + int8 KV) and of Qwen2.5-7B (grid
-   kernels; unquantized, int8 + int8 KV): ``Engine.generate`` through the
-   kernels gives exactly the greedy tokens of the same engine through the
-   plain versions, with a prefix-cache hit. Then (``e2e_bf16``) the same
-   two cuts in bf16, bf16 pages and int8 KV: the first mixed step's
-   last-position logits through the kernels against the plain path's.
-5. hf: the HF-written fixtures ``tests/fixtures/tiny-{llama,qwen2,qwen3}-hf``
-   loaded by the port's loader onto the card: last-position logits through
-   the kernels within 2e-4 of HF's, and greedy tokens equal to HF's under
-   both paged backends.
+   weights + int8 KV, int4 weights + int8 KV), of Qwen2.5-7B (grid
+   kernels; unquantized, int8 + int8 KV) and of DeepSeek-V2-Lite (one
+   dense and one MoE layer, latent kernels; unquantized, int8, int4):
+   ``Engine.generate`` through the kernels gives exactly the greedy tokens
+   of the same engine through the plain versions, with a prefix-cache
+   hit. Then (``e2e_bf16``) the same cuts in bf16, bf16 pages and int8 KV
+   (not for MLA): the first mixed step's last-position logits through the
+   kernels against the plain path's.
+5. hf: the HF-written fixtures
+   ``tests/fixtures/tiny-{llama,qwen2,qwen3,qwen3-moe}-hf`` and the DeepSeek
+   MoE fixture ``tiny-deepseek-moe`` (``tiny-moe`` preset, dma only) loaded
+   by the port's loader onto the card: last-position logits through the
+   kernels within 2e-4 of the golden ones, and greedy tokens equal to the
+   golden ones under both paged backends.
 6. decode_graph: at full width and depth (bench-8b on the dma kernels in
    bf16 and with int8 weights + int8 KV, Qwen2.5-7B on the grid kernels in
-   bf16), three engines over one model with one seed, two replaying the
+   bf16) and DeepSeek-V2-Lite at full width and 2 layers (bf16, the MoE
+   scan and the latent kernels inside the graphs), three engines over one model with one seed, two replaying the
    captured steps (CUDA graphs of the decode step and of each mixed
    bucket's forward + sample) and one running the same steps eagerly
    through the same kernels: four prompts admitted greedy through mixed
@@ -80,8 +90,10 @@ Phases, each printing one JSON line with its seconds:
    loop (async ticks, pipelined blocks, fast-forward): bench-8b at full
    depth on the dma kernels (int8 weights + int8 KV, int4 weights + int8
    KV), Qwen2.5-7B-Instruct at full depth on the grid kernels
-   (unquantized, int8 weights + int8 KV), then bench-8b unquantized on the
-   dma kernels, each engine warmed up (``warmup_s``) before the server
+   (unquantized, int8 weights + int8 KV), DeepSeek-V2-Lite at full width
+   and depth (27 layers, MLA latent cache, 64 experts top-6 + 2 shared,
+   bf16) on the dma kernels' latent instances, then bench-8b unquantized
+   on the dma kernels, each engine warmed up (``warmup_s``) before the server
    starts. Each serve line has an ``obs`` block read from the serve's own
    server over its timed window: ``/metrics`` parsed against the
    exposition grammar of ``tests/test_metrics_conformance.py``, its
@@ -117,7 +129,7 @@ Phases, each printing one JSON line with its seconds:
    at the serve's shapes and page table, and ``mixed_device_ms_per_tick``,
    one tick at the largest bucket over the serve's last such tick's
    inputs. After the timed batch of each bf16 serve (bench-8b dma,
-   Qwen2.5-7B grid), a ``constrained`` line: four more requests, untimed
+   Qwen2.5-7B grid, DeepSeek-V2-Lite), a ``constrained`` line: four more requests, untimed
    (two ToolPrompt json_schema completions, one streamed over SSE, one
    json_object, one unconstrained); each constrained reply is a live
    prefix of its DFA and parses when it stopped, every step replays, the
@@ -183,8 +195,14 @@ import torch
 import torch.nn.functional as F
 
 from opsagent_tpu_torch import obs
-from opsagent_tpu_torch.models.config import BENCH_8B, QWEN25_7B, config_from_hf, get_config_preset
-from opsagent_tpu_torch.models.llama import Llama
+from opsagent_tpu_torch.models.config import (
+    BENCH_8B,
+    DEEPSEEK_V2_LITE,
+    QWEN25_7B,
+    config_from_hf,
+    get_config_preset,
+)
+from opsagent_tpu_torch.models.llama import Llama, PagedKVCache
 from opsagent_tpu_torch.models.loader import load_checkpoint
 from opsagent_tpu_torch.models.quant import quantize_weight, quantize_weight4
 from opsagent_tpu_torch.ops import cuda_build
@@ -225,7 +243,13 @@ KERNELS = {  # name: (source in csrc/, the TPU kernel it replaces)
     "paged_decode_attention_grid": ("paged_attention_grid.cu", f"{PAGED}:957"),
     "paged_ragged_attention_grid_int8": ("paged_attention_grid.cu", f"{PAGED}:629"),
     "paged_decode_attention_grid_int8": ("paged_attention_grid.cu", f"{PAGED}:1006"),
+    # The MLA latent instances of the dma kernels: the function the JAX
+    # model's latent path calls (k = v = the latent pages); its Pallas dma
+    # kernels compute it in interpret mode.
+    "paged_ragged_attention_latent": ("paged_attention.cu", "opsagent_tpu/ops/attention.py:456"),
+    "paged_decode_attention_latent": ("paged_attention.cu", "opsagent_tpu/ops/attention.py:608"),
 }
+LATENT_KERNELS = ("paged_ragged_attention_latent", "paged_decode_attention_latent")
 # (model, paged backend, quantize, kv_quantize) of each serve run. The
 # bench-8b dma bf16 serve runs last: after its timed batch it runs a
 # torch.profiler capture, and a capture leaves every later mixed tick of
@@ -235,6 +259,7 @@ SERVES = (
     ("bench-8b", "dma", "int4", "int8"),
     ("qwen2.5-7b-instruct", "grid", "", ""),
     ("qwen2.5-7b-instruct", "grid", "int8", "int8"),
+    ("deepseek-v2-lite", "dma", "", ""),
     ("bench-8b", "dma", "", ""),
 )
 # (2-layer cut, paged backend, quantize, kv_quantize) of each e2e check.
@@ -244,11 +269,17 @@ E2E = (
     (BENCH_8B, "dma", "int4", "int8"),
     (QWEN25_7B, "grid", "", ""),
     (QWEN25_7B, "grid", "int8", "int8"),
+    # One dense layer and one MoE layer of DeepSeek-V2-Lite: the latent
+    # kernels, and with quantized weights every expert slice through the
+    # quantized matmul.
+    (DEEPSEEK_V2_LITE, "dma", "", ""),
+    (DEEPSEEK_V2_LITE, "dma", "int8", ""),
+    (DEEPSEEK_V2_LITE, "dma", "int4", ""),
 )
 # (2-layer cut, paged backend) of each bf16 logits check, each with bf16
 # pages and with int8 KV; the q_lens of its first mixed step, all rows
 # from position 0.
-E2E_BF16 = ((BENCH_8B, "dma"), (QWEN25_7B, "grid"))
+E2E_BF16 = ((BENCH_8B, "dma"), (QWEN25_7B, "grid"), (DEEPSEEK_V2_LITE, "dma"))
 E2E_BF16_Q_LENS = [128, 128, 77, 1, 33, 0, 128, 5]
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
 # Where the bench-8b dma bf16 serve's profiling routes write (gitignored,
@@ -256,7 +287,14 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fi
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                            "chip_smoke_profile")
 BPE_FIXTURE = os.path.join(FIXTURES, "tiny-bpe")
-HF_FIXTURES = ("tiny-llama-hf", "tiny-qwen2-hf", "tiny-qwen3-hf")
+# fixture: (configuration, "auto" for its config.json or a preset; backends)
+HF_FIXTURES = {
+    "tiny-llama-hf": ("auto", ("dma", "grid")),
+    "tiny-qwen2-hf": ("auto", ("dma", "grid")),
+    "tiny-qwen3-hf": ("auto", ("dma", "grid")),
+    "tiny-qwen3-moe-hf": ("auto", ("dma", "grid")),
+    "tiny-deepseek-moe": ("tiny-moe", ("dma",)),
+}
 HF_LOGIT_TOL = 2e-4     # tests/test_checkpoint_golden.py's own
 
 
@@ -362,14 +400,17 @@ def phase_build() -> dict:
     """One nvcc per source, all started together; ptxas's reports go to
     stderr, and the registers and spills of the tensor-core instances (the
     bf16 ragged and decode kernels of both forms, the quantized matmul's
-    m128 and m16 instances) into the phase line."""
+    m128 and m16 instances) and of the four latent instances (ragged and
+    decode, bf16 and f32) into the phase line."""
     sources = sorted({src for src, _ in KERNELS.values()})
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(lambda s: cuda_build.build(s, verbose=True), sources))
-    tensor_core, decode, m128, m16 = [], [], [], []
+    tensor_core, decode, m128, m16, latent = [], [], [], [], []
     for _, log in built:
         print(log, file=sys.stderr)
         report = ptxas_report(log)
+        latent += [r for r in report if "latent" in r["kernel"]]
+        report = [r for r in report if "latent" not in r["kernel"]]
         tensor_core += [r for r in report
                         if "ragged" in r["kernel"] and "bfloat16" in r["kernel"]
                         and "decode" not in r["kernel"]]
@@ -383,9 +424,10 @@ def phase_build() -> dict:
           f"ptxas reported {len(decode)} bf16 decode instances, expected 16")
     check(len(m128) == 4, f"ptxas reported {len(m128)} m128 matmul instances, expected 4")
     check(len(m16) == 4, f"ptxas reported {len(m16)} m16 matmul instances, expected 4")
+    check(len(latent) == 4, f"ptxas reported {len(latent)} latent instances, expected 4")
     return {"libraries": [lib.name for lib, _ in built], "ptxas_tensor_core": tensor_core,
             "ptxas_decode": decode, "ptxas_quant_matmul_m128": m128,
-            "ptxas_quant_matmul_m16": m16}
+            "ptxas_quant_matmul_m16": m16, "ptxas_latent": latent}
 
 
 # -- phase 3: attention kernels against their plain versions -------------------
@@ -431,7 +473,8 @@ def quantize_case(c):
 
 def attention_bound_ms(c, int_arrays: int) -> tuple[float, str]:
     """Least time for this input (ragged ``[B, S, H, D]`` or decode
-    ``[B, H, D]`` q). Bytes, each once: the K/V rows each sequence can see,
+    ``[B, H, D]`` q). Bytes, each once: the K/V rows each sequence can see
+    (the latent rows once: k and v are one array),
     the table entries of the pages that hold them, the valid query rows
     (a padding row's output is zeros whatever q holds there), the
     ``int_arrays`` int32 ``[B]`` inputs the kernel reads, and the whole
@@ -446,10 +489,11 @@ def attention_bound_ms(c, int_arrays: int) -> tuple[float, str]:
     rows = list(zip(c["start"].tolist(), c["q_lens"].tolist()))
     visible = [min(s + n, cap) if n > 0 else 0 for s, n in rows]
     elt = q.element_size()
+    planes = 1 if c["k"] is c["v"] else 2
     nbytes = (
         sum(n for _, n in rows) * H * D * elt
         + q.numel() * elt
-        + 2 * sum(visible) * K * row_bytes
+        + planes * sum(visible) * K * row_bytes
         + sum(math.ceil(v / P) for v in visible) * 4
         + int_arrays * B * 4
     )
@@ -503,6 +547,9 @@ def page_copies(c) -> list[tuple]:
         return (QuantizedPages(t.q.clone(), t.scale.clone())
                 if isinstance(t, QuantizedPages) else t.clone())
 
+    if c["k"] is c["v"]:  # latent pages: one array read as k and v
+        n = math.ceil(ROTATE_BYTES / nbytes(c["k"]))
+        return [(c["k"], c["k"])] + [(k, k) for k in (clone(c["k"]) for _ in range(n - 1))]
     n = math.ceil(ROTATE_BYTES / (nbytes(c["k"]) + nbytes(c["v"])))
     return [(c["k"], c["v"])] + [(clone(c["k"]), clone(c["v"])) for _ in range(n - 1)]
 
@@ -603,6 +650,40 @@ def phase_kernels(seed: int) -> dict:
             c = decode_case(gen, 8, H, K, D, P, decode_lengths, dtype)
             attend("paged_decode_attention", c, dtype, wname, 1, True)  # lengths
             del c
+
+    # The MLA latent instances (dma form): DeepSeek-V2-Lite's 16 heads and
+    # V3's 128 over one latent kv head of 576 columns, one page array as k
+    # and v; the ragged rows above, and decode lengths on page and split
+    # edges (DECODE_WALK positions a split) beside a zero-length row. The
+    # main path's shapes (V2-Lite, bf16: the bucket-128 tick and the
+    # decode step) are timed.
+    walk = pa.DECODE_WALK
+    latent_decode = [0, 1, 16, walk - 1, walk, walk + 1, 2049, 4096]
+
+    def latent(name, c, dtype, wname, int_arrays, timed, **where):
+        c["v"] = c["k"]
+        if timed:
+            c["bound"] = attention_bound_ms(c, int_arrays)
+            q = c["q"] if c["q"].ndim == 4 else c["q"][:, None]
+            c["sdpa"] = ragged_sdpa({**c, "q": q})
+        r = run_kernel_case(name, c, dtype, timed)
+        cases.append(dict(kernel=name, width=wname, **where, dtype=str(dtype)[6:],
+                          err=r["max_abs_err"], tol=TOL[dtype]))
+        if timed:
+            results[name] = r
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for wname, H in (("deepseek-v2-lite", 16), ("deepseek-v3", 128)):
+            main = dtype == torch.bfloat16 and wname == "deepseek-v2-lite"
+            for S, (starts, lens) in ragged_rows.items():
+                c = make_case(gen, 8, S, H, 1, pa.LATENT_DIM, 16, starts, lens, dtype)
+                latent("paged_ragged_attention_latent", c, dtype, wname, 2,
+                       main and S == 128, S=S)
+                del c
+            c = decode_case(gen, 8, H, 1, pa.LATENT_DIM, 16, latent_decode, dtype)
+            latent("paged_decode_attention_latent", c, dtype, wname, 1, main)
+            del c
+            torch.cuda.empty_cache()
     emit({"phase": "kernels_cases", "cases": cases})
     return results
 
@@ -612,6 +693,16 @@ MM_SHAPES = {  # the served projections: (In, Out)
     "wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "wg/wu": (4096, 14336),
     "wd": (14336, 4096), "lm_head": (4096, 128256),
     "qwen wk/wv": (3584, 512), "qwen wg/wu": (3584, 18944),
+}
+# DeepSeek-V2-Lite's: the MLA projections (wo over the padded head dim),
+# the dense layer's MLP, a routed expert's 2-D slice (every expert of every
+# MoE layer runs one such call for each of its three projections), the two
+# shared experts as one, and the lm_head.
+MM_V2L = {
+    "v2l wq": (2048, 3072), "v2l wdkv": (2048, 512), "v2l wkr": (2048, 64),
+    "v2l wukv": (512, 4096), "v2l wo": (3072, 2048), "v2l wg/wu": (2048, 10944),
+    "v2l wd": (10944, 2048), "v2l eg/eu": (2048, 1408), "v2l ed": (1408, 2048),
+    "v2l sg/su": (2048, 2816), "v2l sd": (2816, 2048), "v2l lm_head": (2048, 102400),
 }
 # Edges: a ragged In (the m64 and r16 instances), an int4 group of 80 that
 # the staged instances' 64-row stages straddle with a column edge inside a
@@ -625,7 +716,8 @@ MM_MODES = (("int8", 8, 0), ("int4 G=1", 4, 0), ("int4 g128", 4, 128))
 # the kernel table's row.
 MM_TIMED = ({(s, T) for s in ("wq/wo", "wk/wv", "wg/wu", "wd") for T in (128, 1024)}
             | {("qwen wk/wv", 1024), ("qwen wg/wu", 1024)}
-            | {(s, 8) for s in MM_SHAPES})
+            | {("v2l eg/eu", 1024), ("v2l ed", 1024)}
+            | {(s, 8) for s in (*MM_SHAPES, *MM_V2L)})
 
 
 def quantized_weight(gen, In, Out, bits, group):
@@ -683,7 +775,7 @@ def phase_matmul(seed: int) -> tuple[list[dict], dict]:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     timed, rows = [], {}
     cases = []
-    for label, (In, Out) in {**MM_SHAPES, **MM_EXTRA}.items():
+    for label, (In, Out) in {**MM_SHAPES, **MM_V2L, **MM_EXTRA}.items():
         tiny = label in MM_EXTRA
         for mode, bits, group in MM_MODES:
             w = quantized_weight(gen, In, Out, bits, group)
@@ -742,6 +834,7 @@ def phase_e2e(seed: int) -> dict:
             toks = eng.generate([p0, p1], greedy) + eng.generate([p2], greedy)
             out[impl] = (toks, eng.alloc.hit_tokens)
             del eng
+        refusals = mla_refusals(model, cfg) if cfg.mla is not None and not quantize else None
         del model
         torch.cuda.empty_cache()
         label = (f"{cfg.name} {backend}, weights {quantize or 'f32'}, "
@@ -751,7 +844,37 @@ def phase_e2e(seed: int) -> dict:
         check(tk == tp, f"{label}: kernel-path tokens {tk} != plain-path tokens {tp}")
         check(hk > 0 and hp == hk, f"{label}: prefix hits {hk} / {hp}")
         report[label] = {"tokens_equal": True, "prefix_hit_tokens": hk, "tokens": tk}
+        if refusals is not None:
+            report[f"{cfg.name} refusals"] = refusals
     return report
+
+
+def mla_refusals(model: Llama, cfg) -> dict:
+    """On the card the MLA path raises where its kernels do not take the
+    shape, rather than running the plain version: a materialized cache
+    (latent_cache off: head dim 192 over 16 kv heads) through the dma
+    kernels, and the latent pages as k beside other pages as v."""
+    dense = replace(cfg, mla=replace(cfg.mla, latent_cache=False))
+    cache = PagedKVCache(dense, 8, 16, model.dtype, torch.device("cuda"))
+    ints = dict(dtype=torch.int32, device="cuda")
+    table = torch.arange(8, **ints)[None]
+    out = {}
+    try:
+        with torch.inference_mode():
+            model.mixed_step(torch.ones(1, 16, dtype=torch.long, device="cuda"),
+                             torch.zeros(1, **ints), torch.full((1,), 16, **ints), cache, table)
+    except ValueError as e:
+        out["materialized_cache"] = str(e)
+    check("materialized_cache" in out and "head dim 192" in out["materialized_cache"],
+          f"a materialized MLA cache on the card: {out}")
+    pages = torch.zeros(8, 16, 1, pa.LATENT_DIM, dtype=model.dtype, device="cuda")
+    q = torch.zeros(1, cfg.num_heads, pa.LATENT_DIM, dtype=model.dtype, device="cuda")
+    try:
+        pa.paged_decode_attention_cuda(q, pages, pages.clone(), table, torch.ones(1, **ints))
+    except ValueError as e:
+        out["k_is_not_v"] = str(e)
+    check("k_is_not_v" in out, "latent pages beside other pages as v did not raise")
+    return out
 
 
 def phase_e2e_bf16(seed: int) -> dict:
@@ -779,14 +902,15 @@ def phase_e2e_bf16(seed: int) -> dict:
         ref.load_state_dict({k: v.float() if v.is_floating_point() else v
                              for k, v in model.state_dict().items()})
         tokens = torch.randint(0, 256, (B, S), generator=gen).to("cuda")
-        for kv_quantize in ("", "int8"):
+        # MLA refuses int8 KV, as in the JAX engine.
+        for kv_quantize in ("",) if cfg.mla else ("", "int8"):
             def last_logits(m, plain):
                 cache = m.make_cache(B * pages, P, kv_quantize)
                 with torch.inference_mode():
                     return m.mixed_step(tokens, start, q_lens, cache, table,
                                         plain=plain, backend=backend)[valid]
             name = ("paged_ragged_attention" + ("_grid" if backend == "grid" else "")
-                    + ("_int8" if kv_quantize else ""))
+                    + ("_int8" if kv_quantize else "") + ("_latent" if cfg.mla else ""))
             before = pa.LAUNCHES[name]
             got = last_logits(model, False)
             launched = pa.LAUNCHES[name] - before
@@ -815,18 +939,19 @@ def phase_e2e_bf16(seed: int) -> dict:
 def phase_hf() -> dict:
     """Each fixture loaded by the port's loader onto the card: its prompt
     as one mixed step through each backend's kernels gives HF's last
-    logits, and the engine (``--model-name auto``) HF's greedy tokens."""
+    logits (the MoE fixtures' golden logits likewise), and the engine
+    (``--model-name auto``, or the fixture's preset) the greedy tokens."""
     report = {}
-    for name in HF_FIXTURES:
+    for name, (how, backends) in HF_FIXTURES.items():
         path = os.path.join(FIXTURES, name)
         golden = np.load(os.path.join(path, "golden.npz"))
         prompt, want = golden["prompt"].tolist(), golden["greedy"].tolist()
-        cfg = config_from_hf(path)
+        cfg = config_from_hf(path) if how == "auto" else get_config_preset(how)
         model = Llama(cfg, torch.float32, "cuda", seed=None)
         model.load_state_dict(load_checkpoint(path, cfg, torch.float32, "cuda"))
         last = torch.from_numpy(golden["last_logits"]).to("cuda")
         row = {}
-        for backend in ("dma", "grid"):
+        for backend in backends:
             cache = model.make_cache(16, 4)
             with torch.inference_mode():
                 logits = model.mixed_step(
@@ -839,12 +964,12 @@ def phase_hf() -> dict:
             err = (logits - last).abs().max().item()
             check(err <= HF_LOGIT_TOL, f"{name} {backend}: last logits off by {err}")
             eng = Engine(EngineConfig(
-                model="auto", checkpoint=path, dtype=torch.float32, device="cuda",
+                model=how, checkpoint=path, dtype=torch.float32, device="cuda",
                 page_size=4, num_pages=64, max_pages_per_seq=16, max_batch_size=2,
                 paged_backend=backend,
-            ))
+            ), model_cfg=None if how == "auto" else cfg)
             got = eng.generate([prompt], SamplingParams(max_tokens=len(want)))[0]
-            check(got == want, f"{name} {backend}: greedy {got} != HF's {want}")
+            check(got == want, f"{name} {backend}: greedy {got} != the golden {want}")
             row[backend] = {"last_logits_max_err": err, "greedy_equal": True}
             del eng
         report[name] = row
@@ -852,11 +977,14 @@ def phase_hf() -> dict:
 
 
 # -- phase 6: the decode graph against the eager step -----------------------------
-# (model, paged backend, quantize, kv_quantize) of each replay-vs-eager check.
+# (model, paged backend, quantize, kv_quantize, layers: None = the model's
+# depth) of each replay-vs-eager check.
 DECODE_GRAPH = (
-    ("bench-8b", "dma", "", ""),
-    ("bench-8b", "dma", "int8", "int8"),
-    ("qwen2.5-7b-instruct", "grid", "", ""),
+    ("bench-8b", "dma", "", "", None),
+    ("bench-8b", "dma", "int8", "int8", None),
+    ("qwen2.5-7b-instruct", "grid", "", "", None),
+    # The MoE scan and the latent kernels inside the captured graphs.
+    ("deepseek-v2-lite", "dma", "", "", 2),
 )
 
 
@@ -929,8 +1057,10 @@ def phase_decode_graph(seed: int) -> dict:
     determinism, not to the eager path's draws (reported, not checked)."""
     gen = torch.Generator().manual_seed(seed)
     report = {}
-    for name, backend, quantize, kv_quantize in DECODE_GRAPH:
+    for name, backend, quantize, kv_quantize, layers in DECODE_GRAPH:
         cfg = get_config_preset(name)
+        if layers is not None:
+            cfg = replace(cfg, name=f"{name}-{layers}l", num_layers=layers)
         model = Llama(cfg, torch.bfloat16, "cuda", seed=seed, quantize=quantize)
         prompts = [[257] + torch.randint(0, 256, (n,), generator=gen).tolist()
                    for n in (300, 800, 1500, 3000, 200, 500)]
@@ -945,7 +1075,7 @@ def phase_decode_graph(seed: int) -> dict:
                          model_cfg=cfg, model=model, tokenizer=tokenizer)
             runs.append(graph_run(eng, prompts[:4], prompts[4:]))
             del eng
-        label = f"{name} {backend}, weights {quantize or 'bf16'}, kv {kv_quantize or 'bf16'}"
+        label = f"{cfg.name} {backend}, weights {quantize or 'bf16'}, kv {kv_quantize or 'bf16'}"
         g, g2, e = runs
         replays, eager = g["routes"], e["routes"]
         check(replays[0] > 0 and replays[2] > 0 and replays[1] == replays[3] == 0
@@ -1273,12 +1403,16 @@ def device_time_by_group(prof) -> dict:
     return out
 
 
-def expected_kernels(backend: str, quantize: str, kv_quantize: str) -> set[str]:
+def expected_kernels(backend: str, quantize: str, kv_quantize: str,
+                     latent: bool = False) -> set[str]:
     """The kernels a serve run of this configuration must launch; it must
-    launch no other."""
+    launch no other. ``latent``: an MLA model's latent cache (the dma
+    kernels' latent instances)."""
     form = "_grid" if backend == "grid" else ""
     suffix = "_int8" if kv_quantize else ""
     names = {f"paged_ragged_attention{form}{suffix}", f"paged_decode_attention{form}{suffix}"}
+    if latent:
+        names = set(LATENT_KERNELS)
     if quantize:
         names.add(f"quant_matmul_{quantize}")
     return names
@@ -1428,7 +1562,7 @@ def post_stream(port: int, body: dict) -> tuple[int, dict]:
 
 
 def constrained_batch(engine: Engine, clock: TickClock, post, post_sse, prompt,
-                      model: str, backend: str) -> dict:
+                      model: str, backend: str, latent: bool) -> dict:
     """Four concurrent requests, untimed, after the timed batch: two
     ToolPrompt json_schema completions (one streamed), one json_object,
     one unconstrained, 64 greedy tokens each. Each constrained reply is a
@@ -1492,7 +1626,7 @@ def constrained_batch(engine: Engine, clock: TickClock, post, post_sse, prompt,
     check(0 < hosted <= requests[2]["completion_tokens"] - 1,
           f"{label}: {hosted} hosted steps for a json_object reply of "
           f"{requests[2]['completion_tokens']} tokens")
-    expected = expected_kernels(backend, "", "")
+    expected = expected_kernels(backend, "", "", latent)
     for name, n in launches.items():
         check((n > 0) == (name in expected), f"{label}: {name} launched {n} times")
     rows = toolprompt.dfa.num_states + 1
@@ -1762,6 +1896,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
                                  device="cuda", seed=seed, quantize=quantize,
                                  kv_quantize=kv_quantize, paged_backend=backend))
     cfg = get_config_preset(model)
+    latent = cfg.mla is not None
     weights = sum(t.numel() * t.element_size() for t in itertools.chain(
         engine.model.parameters(), engine.model.buffers()))
     # Before the scheduler thread starts: the capture is process-wide.
@@ -1838,6 +1973,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         check(all(st == 200 for st, _ in depth1), f"{label}: a depth-1 request failed")
         depth1_ticks = clock.fields()
         set_loop(engine, loop_default)
+        # The constrained batch runs on the bf16 serves.
         if not quantize:
             # Keep the timed batch's last largest-bucket tick for
             # mixed_device_ms: the constrained batch runs its own.
@@ -1845,7 +1981,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
             saved = [t.clone() for t in last_tick.buffers()]
             fsm_run = constrained_batch(engine, clock, post,
                                         lambda body: post_stream(port, body), prompt,
-                                        model, backend)
+                                        model, backend, latent)
             with torch.inference_mode():
                 for t, was in zip(last_tick.buffers(), saved):
                     t.copy_(was)
@@ -1910,7 +2046,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
               f"usage {u}")
     # One attention launch per layer per forward; quantized weights add one
     # matmul per projection (7 per layer) and one for the lm_head.
-    expected = expected_kernels(backend, quantize, kv_quantize)
+    expected = expected_kernels(backend, quantize, kv_quantize, latent)
     for name, n in launches.items():
         if name not in expected:
             check(n == 0, f"{name} launched {n} times in a run that must not use it")
@@ -1947,6 +2083,10 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         "kv_quantize": kv_quantize or "none",
         "card": smi,
         "weights_bytes": weights,
+        # The decode step's byte floor: every weight streamed once.
+        "decode_floor_ms": weights / HBM_BYTES_PER_S * 1e3,
+        "decode_device_over_floor": ticks["decode_device_ms_per_step"]
+        / (weights / HBM_BYTES_PER_S * 1e3),
         "prompt_tokens": [r["usage"]["prompt_tokens"] for _, r in replies],
         "completion_tokens": completion,
         "wall_s": wall,
@@ -2316,12 +2456,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         emit({"phase": "serve", "seconds": time.perf_counter() - t, **serve})
-        for name in expected_kernels(backend, quantize, kv_quantize):
+        latent = get_config_preset(model).mla is not None
+        for name in expected_kernels(backend, quantize, kv_quantize, latent):
             launches[name] += (serve["launches"][name]
                                + serve["constrained_launches"].get(name, 0))
 
     t = time.perf_counter()
-    bf16_tol = max(r["plain_vs_f32_max_abs_err"] for r in e2e_bf16.values())
+    # The dense cuts' bf16 cost (the chat_api phase serves bench-8b).
+    bf16_tol = max(r["plain_vs_f32_max_abs_err"] for label, r in e2e_bf16.items()
+                   if not label.startswith(DEEPSEEK_V2_LITE.name))
     chat = phase_chat_api(args.seed, smi, bf16_tol)
     emit({"phase": "chat_api", "seconds": time.perf_counter() - t, "card": smi, **chat})
     for name, n in chat["launches"].items():

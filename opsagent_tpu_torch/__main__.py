@@ -1,8 +1,9 @@
 """Command line: ``python -m opsagent_tpu_torch serve-engine --model-name
 bench-8b --port 8000`` serves OpenAI chat completions from the port's engine
 on the GPU (``--device cpu`` for the CPU); ``--checkpoint DIR --model-name
-auto`` serves an HF safetensors checkpoint with its own config.json, and
-its ``tokenizer.json`` when the directory holds one (``--tokenizer DIR``
+auto`` serves an HF safetensors checkpoint with its own config.json (model
+types llama, mistral, qwen2, qwen3, qwen3_moe, deepseek, deepseek_v2 and
+deepseek_v3), and its ``tokenizer.json`` when the directory holds one (``--tokenizer DIR``
 names another; without either, the byte tokenizer). The
 engine warms up (kernels built, its decode step and mixed ticks captured as
 CUDA graphs on the GPU) before the server starts. Mixed ticks run one tick
@@ -32,7 +33,8 @@ def main(argv: list[str] | None = None) -> int:
     )
     se.add_argument(
         "--model-name", default="tiny-test",
-        help="model preset, or 'auto' for --checkpoint's config.json",
+        help="model preset (e.g. bench-8b, qwen2.5-7b-instruct, "
+             "deepseek-v2-lite), or 'auto' for --checkpoint's config.json",
     )
     se.add_argument(
         "--checkpoint", default="",
@@ -50,7 +52,8 @@ def main(argv: list[str] | None = None) -> int:
     se.add_argument(
         "--paged-backend", default="dma", choices=("dma", "grid"),
         help="paged-attention kernels: dma (one block walks a sequence's "
-             "pages) or grid (split over the KV sequence)",
+             "pages) or grid (split over the KV sequence); MLA models serve "
+             "on dma",
     )
     se.add_argument(
         "--quantize", default="", choices=("", "int8", "int4"),

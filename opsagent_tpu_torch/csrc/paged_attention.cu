@@ -10,6 +10,15 @@
 //       (same file, body _kernel_dma): one query per sequence over its
 //       `lengths[b]` cached tokens. One launch per layer per decode step.
 //
+//   opsagent_paged_ragged_attention_latent and
+//   opsagent_paged_decode_attention_latent  compute the same two functions
+//       at the MLA latent shape (K = 1, D = 576, one page array read as
+//       both K and V), the path on which the JAX model calls
+//       paged_ragged_attention and paged_decode_attention
+//       (opsagent_tpu/ops/attention.py) with `kc, kc`; its Pallas dma
+//       kernels compute the same in interpret mode. Design in
+//       attention_latent.cuh.
+//
 // Contract (identical to the TPU kernels and to the plain PyTorch versions
 // in opsagent_tpu_torch/ops/attention.py): pages [N, P, K, D] contiguous,
 // in q's dtype, or int8 with f32 scale planes [N, P, K] (the TPU kernels'
@@ -62,7 +71,7 @@
 // each re-read their sequence's K/V (through L2) once per tile, and the
 // block holding the longest row walks it alone.
 
-#include "attention_split.cuh"
+#include "attention_latent.cuh"
 
 namespace {
 
@@ -171,6 +180,39 @@ struct Decode {
   cudaError_t run() const { return launch_decode<T, PT, D>(a, lengths, part); }
 };
 
+template <typename T>
+cudaError_t launch_latent_ragged(const void* q, const void* pages, const int* table,
+                                 const int* start, const int* q_lens, void* out, int B, int S,
+                                 int H, int P, int max_pages, float scale, cudaStream_t stream) {
+  constexpr int bytes = latent_smem_bytes<T>();
+  auto kernel = latent_ragged_kernel<T>;
+  static const cudaError_t prepared = prepare(kernel, bytes);  // once per instance
+  if (prepared != cudaSuccess) return prepared;
+  const dim3 grid((S * H + kLatentRows - 1) / kLatentRows, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pages), table, start, q_lens,
+      static_cast<T*>(out), S, H, P, max_pages, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_latent_decode(const void* q, const void* pages, const int* table,
+                                 const int* lengths, const Partials& part, void* out, int B,
+                                 int H, int P, int max_pages, float scale, cudaStream_t stream) {
+  constexpr int bytes = latent_smem_bytes<T>();
+  auto kernel = latent_decode_kernel<T>;
+  static const cudaError_t prepared = prepare(kernel, bytes);  // once per instance
+  if (prepared != cudaSuccess) return prepared;
+  const dim3 grid((H + kLatentRows - 1) / kLatentRows, part.splits, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pages), table, lengths, part,
+      static_cast<T*>(out), H, P, max_pages, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || part.splits == 1) return err;
+  return launch_combine<T, kLatentDim>(part, nullptr, nullptr, lengths, static_cast<T*>(out), 1,
+                                       H, max_pages * P, stream);
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes. Every call launches on `stream`, does
@@ -209,4 +251,48 @@ extern "C" int opsagent_paged_decode_attention(
   const auto* ln = static_cast<const int*>(lengths);
   return dispatch(dtype, D, k_scale != nullptr,
                   Decode{a, ln, partials(workspace, B * H, splits, span)});
+}
+
+// The latent instances: q [B, S, H, 576] (decode [B, H, 576]) and pages
+// [N, P, 1, 576] in q's dtype, the one page array serving as K and V; the
+// rest as above (`workspace` holds splits * B * H * 578 floats with more
+// than one split).
+extern "C" int opsagent_paged_ragged_attention_latent(
+    const void* q, const void* pages, const void* table, const void* start,
+    const void* q_lens, void* out, int B, int S, int H, int P, int max_pages, float scale,
+    int dtype, void* stream) {
+  if (B == 0 || S == 0) return cudaSuccess;
+  const auto* tb = static_cast<const int*>(table);
+  const auto* st = static_cast<const int*>(start);
+  const auto* ql = static_cast<const int*>(q_lens);
+  auto* s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) {
+    return launch_latent_ragged<float>(q, pages, tb, st, ql, out, B, S, H, P, max_pages, scale, s);
+  }
+  if (dtype == kBFloat16) {
+    return launch_latent_ragged<__nv_bfloat16>(q, pages, tb, st, ql, out, B, S, H, P,
+                                               max_pages, scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int opsagent_paged_decode_attention_latent(
+    const void* q, const void* pages, const void* table, const void* lengths, void* workspace,
+    void* out, int B, int H, int P, int max_pages, int splits, int span, float scale, int dtype,
+    void* stream) {
+  if (B == 0) return cudaSuccess;
+  if (splits < 1 || span < 1) return cudaErrorInvalidValue;
+  if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
+  const auto* tb = static_cast<const int*>(table);
+  const auto* ln = static_cast<const int*>(lengths);
+  const Partials part = partials(workspace, B * H, splits, span);
+  auto* s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) {
+    return launch_latent_decode<float>(q, pages, tb, ln, part, out, B, H, P, max_pages, scale, s);
+  }
+  if (dtype == kBFloat16) {
+    return launch_latent_decode<__nv_bfloat16>(q, pages, tb, ln, part, out, B, H, P, max_pages,
+                                               scale, s);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -1,12 +1,19 @@
-"""Llama-family dense decoder (GQA + RoPE + SwiGLU + RMSNorm) in PyTorch.
+"""Llama-family decoder (GQA + RoPE + SwiGLU + RMSNorm) in PyTorch, with
+DeepSeek-style mixture-of-experts MLPs and multi-head latent attention.
 
-The port's counterpart of ``opsagent_tpu/models/llama.py`` for dense
-configurations: Llama and Mistral, Qwen2's q/k/v biases, Qwen3's per-head
-q/k RMSNorm, tied embeddings and llama3/YaRN rope scaling. Weights keep the
-JAX orientation (``x @ w`` with ``w`` ``[in, out]``), so a JAX parameter
-tree carries across unchanged (``models.convert``) and an HF checkpoint
-loads with its matrices transposed (``models.loader``). The layer stack is
-a Python loop over ``nn.Module`` layers where JAX scans stacked arrays.
+The port's counterpart of ``opsagent_tpu/models/llama.py``: Llama and
+Mistral, Qwen2's q/k/v biases, Qwen3's per-head q/k RMSNorm, tied
+embeddings, llama3/YaRN rope scaling; MoE layers after ``moe_layer_start``
+dense ones (DeepSeek-MoE, Qwen3-MoE, DeepSeek-V2/V3: softmax or sigmoid
+routing, group-limited top-k, shared experts, the all-experts form the JAX
+engine serves with); MLA (DeepSeek-V2/V3), materialized or, with
+``latent_cache``, over a cache of one latent per token in the
+weight-absorbed form. Weights keep the JAX orientation (``x @ w`` with
+``w`` ``[in, out]``; expert weights stacked ``[E, in, out]`` per layer), so
+a JAX parameter tree carries across unchanged (``models.convert``) and an
+HF checkpoint loads with its matrices transposed (``models.loader``). The
+layer stack is a Python loop over ``nn.Module`` layers where JAX scans
+stacked arrays.
 
 Entry points over the same weights:
 
@@ -18,10 +25,11 @@ Entry points over the same weights:
 - ``forward_full``: all positions, plain causal attention, no cache (the
   oracle).
 
-With ``quantize="int8"`` or ``"int4"`` every projection and the lm_head are
-``models.quant`` weights, and ``_mm`` sends them through the quantized
-matmul kernel; the cache made with ``kv_quantize="int8"`` holds int8 pages
-with per-(token, kv head) scales, which the attention kernels read.
+With ``quantize="int8"`` or ``"int4"`` every projection, each expert's
+and the lm_head are ``models.quant`` weights, and ``_mm`` sends them
+through the quantized matmul kernel, one 2-D expert slice a call; the
+cache made with ``kv_quantize="int8"`` holds int8 pages with per-(token, kv
+head) scales, which the attention kernels read (not with MLA, as in JAX).
 """
 
 from __future__ import annotations
@@ -47,18 +55,27 @@ QUANTIZE_MODES = ("", "int8", "int4")
 KV_QUANTIZE_MODES = ("", "int8")
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    unsupported = [
-        name for name, on in (
-            ("moe", cfg.moe is not None),
-            ("mla", cfg.mla is not None),
-        ) if on
-    ]
-    if unsupported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsupported)} not ported yet "
-            "(ROADMAP queue 1 item 9); this port serves dense configurations"
+def _layer_split(cfg: ModelConfig) -> tuple[int, int]:
+    """(dense layer count, MoE layer count): dense layers come first."""
+    if cfg.moe is None:
+        return cfg.num_layers, 0
+    return cfg.moe_layer_start, cfg.num_layers - cfg.moe_layer_start
+
+
+def _latent_cache(cfg: ModelConfig) -> bool:
+    return cfg.mla is not None and cfg.mla.latent_cache
+
+
+def _check_mla(cfg: ModelConfig) -> None:
+    m = cfg.mla
+    if m is None:
+        return
+    if cfg.head_dim_ != m.qk_head_dim:
+        raise ValueError(
+            f"mla: head_dim={cfg.head_dim_} must equal qk_head_dim={m.qk_head_dim}"
         )
+    if cfg.num_kv_heads != cfg.num_heads:
+        raise ValueError("mla: num_kv_heads must equal num_heads (no GQA)")
 
 
 def _yarn_q_scale(cfg: ModelConfig) -> float:
@@ -82,6 +99,22 @@ def _mm(x: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
     return x @ w
 
 
+def _dense_weight(w) -> torch.Tensor:
+    """A weight that code reshapes or slices (the absorbed MLA path reads
+    wukv per head): a quantized one dequantized (f32), as JAX's
+    ``_dense_weight``."""
+    return w.dequantize() if isinstance(w, QuantizedBase) else w
+
+
+def _expert(w, e: int):
+    """Expert ``e``'s 2-D slice of a stacked ``[E, In, Out]`` weight: a view
+    of the parameter, or a quantized weight over views of its codes and
+    scales."""
+    if isinstance(w, QuantizedBase):
+        return type(w)(w.q[e], w.scale[e])
+    return w[e]
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
@@ -94,7 +127,10 @@ class PagedKVCache:
     ``k[layer]``. Writes update the buffers in place. With
     ``kv_quantize="int8"``, ``k`` and ``v`` are ``QuantizedPages``: int8
     pages and f32 scale planes ``[L, N, P, K]``, codes starting at 0 and
-    scales at 1.0, as JAX's ``make_cache`` makes them.
+    scales at 1.0, as JAX's ``make_cache`` makes them. The MLA latent
+    layout (JAX's too) holds one latent per token, ``k`` ``[L, N, P, 1,
+    DL]``, which attention reads as both keys and values, beside a
+    ``[L, N, P, 1, 1]`` placeholder ``v`` that nothing writes.
 
     One scratch slot lies just past the end of each buffer (and of each
     scale plane). A write that JAX drops with its past-the-end index (an
@@ -109,7 +145,15 @@ class PagedKVCache:
     ):
         if kv_quantize not in KV_QUANTIZE_MODES:
             raise ValueError(f"kv_quantize={kv_quantize!r}: only 'int8' is supported")
-        L, K, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+        if kv_quantize and cfg.mla is not None:
+            raise ValueError("kv_quantize is not supported for MLA models")
+        L = cfg.num_layers
+        self.latent = _latent_cache(cfg)
+        if self.latent:
+            K, D, Dv = 1, cfg.mla.latent_dim, 1
+        else:
+            K, D = cfg.num_kv_heads, cfg.head_dim_
+            Dv = D
         self.num_pages, self.page_size = num_pages, page_size
         self.layer_slots = num_pages * page_size
         self.scratch = L * self.layer_slots
@@ -117,9 +161,9 @@ class PagedKVCache:
         self.quantized = kv_quantize == "int8"
         store = torch.int8 if self.quantized else dtype
         self._k = torch.zeros(self.scratch + 1, K, D, dtype=store, device=device)
-        self._v = torch.zeros_like(self._k)
+        self._v = torch.zeros(self.scratch + 1, K, Dv, dtype=store, device=device)
         self.k = self._k[: self.scratch].view(*shape, D)
-        self.v = self._v[: self.scratch].view(*shape, D)
+        self.v = self._v[: self.scratch].view(*shape, Dv)
         if self.quantized:
             self._ks = torch.ones(self.scratch + 1, K, dtype=torch.float32, device=device)
             self._vs = torch.ones_like(self._ks)
@@ -135,18 +179,23 @@ class PagedKVCache:
         return self._k, self._v
 
     def write(
-        self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
+        self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor | None,
         flat: torch.Tensor,
     ) -> None:
         """Write ``[B, S, K, D]`` rows at layer-local flat slots ``flat``
         (``[B * S]``, from ``flat_slot_indices`` with ``total=N``, where
-        ``N * P`` marks a dropped row), in place."""
+        ``N * P`` marks a dropped row), in place. The latent layout writes
+        ``k_new`` alone (``v_new`` None), as JAX's ``write_pages``."""
         idx = torch.where(
             flat < self.layer_slots, flat + layer * self.layer_slots,
             self.scratch,
         )
         K, D = self._k.shape[1:]
-        k_new, v_new = k_new.reshape(-1, K, D), v_new.reshape(-1, K, D)
+        k_new = k_new.reshape(-1, K, D)
+        if v_new is None:
+            self._k.index_copy_(0, idx, k_new.to(self._k.dtype))
+            return
+        v_new = v_new.reshape(-1, K, D)
         if self.quantized:
             (k_new, k_scale), (v_new, v_scale) = map(quantize_kv_rows, (k_new, v_new))
             self._ks.index_copy_(0, idx, k_scale)
@@ -163,57 +212,101 @@ def _vector(n: int, dtype: torch.dtype, device: torch.device) -> nn.Parameter:
 
 def _linear(
     In: int, Out: int, dtype: torch.dtype, device: torch.device, quantize: str,
+    lead: tuple[int, ...] = (),
 ):
-    """An uninitialized ``[In, Out]`` weight: a parameter in ``dtype``, or a
-    quantized weight (int4 with one whole-axis scale group; loading a
-    state dict brings its own group count)."""
+    """An uninitialized ``[*lead, In, Out]`` weight (``lead`` = (E,) for
+    stacked experts): a parameter in ``dtype``, or a quantized weight (int4
+    with one whole-axis scale group; loading a state dict brings its own
+    group count)."""
     if quantize == "int8":
         return QuantizedLinear(
-            torch.empty(In, Out, dtype=torch.int8, device=device),
-            torch.empty(1, Out, dtype=torch.float32, device=device),
+            torch.empty(*lead, In, Out, dtype=torch.int8, device=device),
+            torch.empty(*lead, 1, Out, dtype=torch.float32, device=device),
         )
     if quantize == "int4":
         return QuantizedLinear4(
-            torch.empty(In // 2, Out, dtype=torch.int8, device=device),
-            torch.empty(1, 1, Out, dtype=torch.float32, device=device),
+            torch.empty(*lead, In // 2, Out, dtype=torch.int8, device=device),
+            torch.empty(*lead, 1, 1, Out, dtype=torch.float32, device=device),
         )
     return nn.Parameter(
-        torch.empty(In, Out, dtype=dtype, device=device), requires_grad=False
+        torch.empty(*lead, In, Out, dtype=dtype, device=device), requires_grad=False
     )
 
 
 class DecoderLayer(nn.Module):
+    """One layer: attention (GQA, or MLA with ``cfg.mla``) and an MLP, dense
+    or, with ``moe``, the routed experts stacked ``[E, in, out]`` (and the
+    shared experts) of ``cfg.moe``."""
+
     def __init__(
         self, cfg: ModelConfig, dtype: torch.dtype, device: torch.device,
-        quantize: str = "",
+        quantize: str = "", moe: bool = False,
     ):
         super().__init__()
         d, f = cfg.hidden_size, cfg.intermediate_size
+        self.moe = moe
 
-        def linear(In: int, Out: int):
-            return _linear(In, Out, dtype, device, quantize)
+        def linear(In: int, Out: int, lead: tuple[int, ...] = ()):
+            return _linear(In, Out, dtype, device, quantize, lead)
 
         self.attn_norm = _vector(d, dtype, device)
-        self.wq = linear(d, cfg.q_size)
-        self.wk = linear(d, cfg.kv_size)
-        self.wv = linear(d, cfg.kv_size)
-        self.wo = linear(cfg.q_size, d)
-        if cfg.attn_bias:
-            self.bq = _vector(cfg.q_size, dtype, device)
-            self.bk = _vector(cfg.kv_size, dtype, device)
-            self.bv = _vector(cfg.kv_size, dtype, device)
-        if cfg.qk_norm:
-            self.qn = _vector(cfg.head_dim_, dtype, device)
-            self.kn = _vector(cfg.head_dim_, dtype, device)
+        if cfg.mla is not None:
+            m, H = cfg.mla, cfg.num_heads
+            dq = m.qk_head_dim
+            if m.q_lora_rank:
+                self.wdq = linear(d, m.q_lora_rank)                  # q_a_proj
+                self.q_norm = _vector(m.q_lora_rank, dtype, device)  # q_a_layernorm
+                self.wuq = linear(m.q_lora_rank, H * dq)             # q_b_proj
+            else:
+                self.wq = linear(d, H * dq)                          # q_proj
+            self.wdkv = linear(d, m.kv_lora_rank)  # kv_a_proj_with_mqa[:rkv]
+            self.wkr = linear(d, m.qk_rope_head_dim)  # kv_a_proj_with_mqa[rkv:]
+            self.kv_norm = _vector(m.kv_lora_rank, dtype, device)
+            self.wukv = linear(m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim))
+            # o_proj over the padded head dim: the pad rows meet v's zeros.
+            self.wo = linear(H * dq, d)
+        else:
+            self.wq = linear(d, cfg.q_size)
+            self.wk = linear(d, cfg.kv_size)
+            self.wv = linear(d, cfg.kv_size)
+            self.wo = linear(cfg.q_size, d)
+            if cfg.attn_bias:
+                self.bq = _vector(cfg.q_size, dtype, device)
+                self.bk = _vector(cfg.kv_size, dtype, device)
+                self.bv = _vector(cfg.kv_size, dtype, device)
+            if cfg.qk_norm:
+                self.qn = _vector(cfg.head_dim_, dtype, device)
+                self.kn = _vector(cfg.head_dim_, dtype, device)
         self.mlp_norm = _vector(d, dtype, device)
-        self.wg = linear(d, f)
-        self.wu = linear(d, f)
-        self.wd = linear(f, d)
+        if not moe:
+            self.wg = linear(d, f)
+            self.wu = linear(d, f)
+            self.wd = linear(f, d)
+            return
+        m = cfg.moe
+        fe, E = m.expert_intermediate_size or f, m.num_experts
+        # The router stays f32: tiny, and top-k is precision-sensitive.
+        self.router = nn.Parameter(
+            torch.empty(d, E, dtype=torch.float32, device=device), requires_grad=False
+        )
+        if m.scoring_func == "sigmoid":
+            self.router_bias = _vector(E, torch.float32, device)
+        self.eg = linear(d, fe, (E,))
+        self.eu = linear(d, fe, (E,))
+        self.ed = linear(fe, d, (E,))
+        if m.num_shared_experts:
+            fs = fe * m.num_shared_experts
+            self.sg = linear(d, fs)
+            self.su = linear(d, fs)
+            self.sd = linear(fs, d)
 
     def qkv_rope(
         self, h: torch.Tensor, cfg: ModelConfig, cos: torch.Tensor,
         sin: torch.Tensor, plain: bool = False,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q/k/v with RoPE applied (materialized under MLA), per head."""
+        if cfg.mla is not None:
+            return self.qkv_mla(h, cfg, cos, sin, plain)
         B, S, _ = h.shape
         K, D = cfg.num_kv_heads, cfg.head_dim_
         q, k, v = (_mm(h, w, plain) for w in (self.wq, self.wk, self.wv))
@@ -230,21 +323,173 @@ class DecoderLayer(nn.Module):
             q = q * q_scale
         return q, apply_rope(k, cos, sin), v.view(B, S, K, D)
 
+    # -- MLA (JAX's _mla_q, _mla_kv_latent, _qkv_mla, _mla_latent_parts,
+    #    _mla_latent_out) ---------------------------------------------------
+    def mla_q(self, h, cfg: ModelConfig, cos, sin, plain: bool = False):
+        """(q_nope [B, S, H, dn], roped q_rope [B, S, H, dr])."""
+        m = cfg.mla
+        B, S, _ = h.shape
+        dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+        if m.q_lora_rank:
+            cq = rms_norm(_mm(h, self.wdq, plain), self.q_norm, cfg.rms_norm_eps)
+            q = _mm(cq, self.wuq, plain)
+        else:
+            q = _mm(h, self.wq, plain)
+        q = q.view(B, S, cfg.num_heads, dn + dr)
+        return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+
+    def mla_kv_latent(self, h, cfg: ModelConfig, cos, sin, plain: bool = False):
+        """(normed kv latent [B, S, rkv], roped shared key [B, S, 1, dr])."""
+        B, S, _ = h.shape
+        ckv = rms_norm(_mm(h, self.wdkv, plain), self.kv_norm, cfg.rms_norm_eps)
+        k_rope = apply_rope(
+            _mm(h, self.wkr, plain).view(B, S, 1, cfg.mla.qk_rope_head_dim), cos, sin
+        )
+        return ckv, k_rope
+
+    def qkv_mla(self, h, cfg: ModelConfig, cos, sin, plain: bool = False):
+        """Materialized MLA (q, k, v): per-head k_nope and v from the
+        latent's up-projection, the shared rope key broadcast over the
+        heads, v zero-padded to the qk head dim."""
+        m = cfg.mla
+        B, S, _ = h.shape
+        H, dn, dr, dv = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+        q_nope, q_rope = self.mla_q(h, cfg, cos, sin, plain)
+        q = torch.cat([q_nope, q_rope], dim=-1) * _yarn_q_scale(cfg)
+        ckv, k_rope = self.mla_kv_latent(h, cfg, cos, sin, plain)
+        kv = _mm(ckv, self.wukv, plain).view(B, S, H, dn + dv)
+        k = torch.cat([kv[..., :dn], k_rope.expand(B, S, H, dr)], dim=-1)
+        v = torch.cat([kv[..., dn:], kv.new_zeros(B, S, H, dn + dr - dv)], dim=-1)
+        return q, k, v
+
+    def mla_latent_parts(self, h, cfg: ModelConfig, cos, sin, plain: bool = False):
+        """The weight-absorbed form over the latent cache: (q_lat [B, S, H,
+        DL], latent [B, S, 1, DL]). q_lat[h] = [W_uk^T q_nope[h], q_rope[h]]
+        dotted with a token's latent [c, k_rope] gives that head's score;
+        attention scales by DL^-1/2, so q_lat carries sqrt(DL / dq) and
+        YaRN's correction to restore dq^-1/2."""
+        m = cfg.mla
+        H, dn, dv, rkv = cfg.num_heads, m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank
+        q_nope, q_rope = self.mla_q(h, cfg, cos, sin, plain)
+        w = _dense_weight(self.wukv)
+        ct = torch.promote_types(q_nope.dtype, w.dtype)
+        w_uk = w.to(ct).view(rkv, H, dn + dv)[:, :, :dn]
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope.to(ct), w_uk)
+        scale = (m.latent_dim ** 0.5) / (m.qk_head_dim ** 0.5) * _yarn_q_scale(cfg)
+        q_lat = torch.cat([q_abs, q_rope.to(ct)], dim=-1) * scale
+        ckv, k_rope = self.mla_kv_latent(h, cfg, cos, sin, plain)
+        latent = torch.cat([ckv[:, :, None, :], k_rope], dim=-1)
+        return q_lat.to(h.dtype), latent.to(h.dtype)
+
+    def mla_latent_out(self, ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        """Attention over the latents ``ctx`` [B, S, H, DL] (its first rkv
+        columns are read) -> each head's v through W_uv, zero-padded to the
+        qk head dim: [B, S, H * dq] for ``wo``."""
+        m = cfg.mla
+        B, S, H, _ = ctx.shape
+        dn, dv, rkv = m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank
+        w = _dense_weight(self.wukv)
+        ct = torch.promote_types(ctx.dtype, w.dtype)
+        w_uv = w.to(ct).view(rkv, H, dn + dv)[:, :, dn:]
+        o = torch.einsum("bshr,rhv->bshv", ctx[..., :rkv].to(ct), w_uv)
+        o = torch.cat([o, o.new_zeros(B, S, H, m.qk_head_dim - dv)], dim=-1)
+        return o.reshape(B, S, H * m.qk_head_dim).to(ctx.dtype)
+
+    # -- MLPs ---------------------------------------------------------------
     def mlp(self, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
         gate = F.silu(_mm(h, self.wg, plain)) * _mm(h, self.wu, plain)
         return _mm(gate, self.wd, plain)
 
+    def moe_mlp(
+        self, h: torch.Tensor, cfg: ModelConfig, plain: bool = False,
+        with_aux: bool = False,
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """JAX's ``_moe_mlp`` in its all-experts form (the one its engine
+        serves with): f32 router logits, softmax or sigmoid scores,
+        ``router_bias`` added for selection only, group-limited top-k
+        (groups ranked by their top-2 sum under sigmoid, their max under
+        softmax), combine weights renormalized and scaled per the config,
+        every expert over every token weighted by its combine weight and
+        summed in expert order, plus the shared experts. Returns (output,
+        Switch balance loss or None). bf16/f32 experts run as batched
+        products over the stacked weights; quantized ones one 2-D slice a
+        call through ``_mm``. No step here reads the device from the host,
+        so the form runs inside a captured graph."""
+        m = cfg.moe
+        E, k = m.num_experts, m.num_experts_per_token
+        B, S, d = h.shape
+        logits = h.float() @ self.router                              # [B, S, E]
+        if m.scoring_func == "sigmoid":
+            probs = torch.sigmoid(logits)
+        else:
+            probs = torch.softmax(logits, dim=-1)
+        select = probs
+        if hasattr(self, "router_bias"):
+            select = select + self.router_bias
+        if m.n_group > 1:
+            g = select.view(B, S, m.n_group, E // m.n_group)
+            if m.scoring_func == "sigmoid":
+                group_score = g.topk(2, dim=-1).values.sum(-1)
+            else:
+                group_score = g.amax(-1)
+            keep_idx = group_score.topk(m.topk_group, dim=-1).indices
+            keep = torch.zeros_like(group_score).scatter_(-1, keep_idx, 1.0)
+            select = torch.where(keep[..., None] > 0, g, -torch.inf).view(B, S, E)
+        idx = select.topk(k, dim=-1).indices                          # [B, S, k]
+        vals = probs.gather(-1, idx)
+        if m.norm_topk_prob:
+            vals = vals / (vals.sum(-1, keepdim=True) + 1e-20)
+        if m.routed_scaling_factor != 1.0:
+            vals = vals * m.routed_scaling_factor
+        aux = None
+        if with_aux:
+            sel = torch.zeros_like(probs).scatter_(-1, idx, 1.0)
+            f_e = (sel / k).mean(dim=(0, 1))
+            aux = E * (f_e * probs.mean(dim=(0, 1))).sum()
+        T, x = B * S, h.reshape(B * S, d)
+        if isinstance(self.eg, QuantizedBase):
+            # JAX's scan: one expert at a time into an h.dtype accumulator.
+            combine = torch.zeros_like(probs).scatter_(-1, idx, vals)
+            combine = combine.view(T, E).T.to(h.dtype)                # [E, T]
+            out = torch.zeros_like(x)
+            for e in range(E):
+                y = _mm(F.silu(_mm(x, _expert(self.eg, e), plain))
+                        * _mm(x, _expert(self.eu, e), plain),
+                        _expert(self.ed, e), plain)
+                out = out + combine[e, :, None] * y
+        else:
+            xe = x.expand(E, *x.shape)
+            y = torch.bmm(F.silu(torch.bmm(xe, self.eg)) * torch.bmm(xe, self.eu), self.ed)
+            # The same sum in k adds, not E: an expert a token did not
+            # select adds a zero, so the scan's sum is the k selected terms
+            # in ascending expert order, rounded to h.dtype after each add.
+            order, perm = idx.reshape(T, k).sort(-1)
+            c = vals.reshape(T, k).gather(-1, perm).to(h.dtype)
+            terms = c[..., None] * y.transpose(0, 1).gather(1, order[..., None].expand(T, k, d))
+            out = terms[:, 0]
+            for j in range(1, k):
+                out = out + terms[:, j]
+        out = out.view(B, S, d)
+        if m.num_shared_experts:
+            out = out + _mm(
+                F.silu(_mm(h, self.sg, plain)) * _mm(h, self.su, plain), self.sd, plain
+            )
+        return out, aux
+
 
 class Llama(nn.Module):
-    """Dense decoder. ``seed`` fills the weights with the fan-in-scaled
-    normal init of ``opsagent_tpu``'s ``init_params`` (norms at 1, biases
-    at 0), drawn on ``device`` from a ``torch.Generator``, so an 8B model is
-    built on the card in seconds; ``seed=None`` leaves them uninitialized
-    for ``load_state_dict``. ``quantize`` ("int8" or "int4") builds the
-    projections and the lm_head as quantized weights, which a seed fills
-    directly in quantized form (``init_random``). With tied embeddings
-    there is no ``lm_head``: the head is ``x @ embed.T``, full precision
-    under ``quantize`` too."""
+    """The decoder. ``seed`` fills the weights with the fan-in-scaled normal
+    init of ``opsagent_tpu``'s ``init_params`` (norms at 1, biases and the
+    router's selection bias at 0), drawn on ``device`` from a
+    ``torch.Generator`` one parameter at a time, so an 8B or a 16B MoE
+    model is built on the card in seconds without a host copy;
+    ``seed=None`` leaves them uninitialized for ``load_state_dict``.
+    ``quantize`` ("int8" or "int4") builds the projections, the experts and
+    the lm_head as quantized weights, which a seed fills directly in
+    quantized form (``init_random``). With tied embeddings there is no
+    ``lm_head``: the head is ``x @ embed.T``, full precision under
+    ``quantize`` too. Layers ``moe_layer_start`` and on are MoE layers
+    under ``cfg.moe``."""
 
     def __init__(
         self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
@@ -252,7 +497,7 @@ class Llama(nn.Module):
         quantize: str = "",
     ):
         super().__init__()
-        _check_supported(cfg)
+        _check_mla(cfg)
         if quantize not in QUANTIZE_MODES:
             raise ValueError(
                 f"quantize={quantize!r}: supported values are 'int8' "
@@ -264,9 +509,10 @@ class Llama(nn.Module):
         self.embed = nn.Parameter(
             torch.empty(v, d, dtype=dtype, device=device), requires_grad=False
         )
+        dense, _ = _layer_split(cfg)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, dtype, device, quantize)
-            for _ in range(cfg.num_layers)
+            DecoderLayer(cfg, dtype, device, quantize, moe=i >= dense)
+            for i in range(cfg.num_layers)
         )
         self.final_norm = _vector(d, dtype, device)
         if not cfg.tie_embeddings:
@@ -274,44 +520,53 @@ class Llama(nn.Module):
         if seed is not None:
             self.init_random(seed)
 
+    def _fan_in(self, name: str, shape) -> int:
+        """The fan-in of a weight's init: its contraction dim ([in, out]
+        weights, stacked experts too), the embedding's row width, and for
+        MLA's padded ``wo`` the real rows, H * v_head_dim, as JAX's init."""
+        leaf = name.rsplit(".", 1)[-1]
+        if name == "embed":
+            return shape[1]
+        if leaf == "wo" and self.cfg.mla is not None:
+            return self.cfg.num_heads * self.cfg.mla.v_head_dim
+        return shape[-2]
+
     @torch.no_grad()
     def init_random(self, seed: int) -> None:
-        """Norms (and Qwen3's q/k norms) at 1, q/k/v biases at 0; the
-        embedding and plain weights normal with std fan_in^-1/2; quantized
-        weights as ``init_params_random_quantized`` makes them: uniform
-        codes in [-127, 127] (int4: [-7, 7], packed, one whole-axis group)
-        and one scale per tensor, chosen so the dequantized std matches the
-        fan-in scaling. No full-precision copy of a quantized weight is
-        ever built."""
+        """Norms (and Qwen3's q/k norms) at 1, q/k/v biases and the router's
+        selection bias at 0; the embedding, the router and plain weights
+        normal with std fan_in^-1/2; quantized weights as
+        ``init_params_random_quantized`` makes them: uniform codes in
+        [-127, 127] (int4: [-7, 7], packed, one whole-axis group) and one
+        scale per tensor, chosen so the dequantized std matches the fan-in
+        scaling. No full-precision copy of a quantized weight is ever
+        built."""
         gen = torch.Generator(device=self.embed.device).manual_seed(seed)
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf.endswith("norm") or leaf in ("qn", "kn"):
                 p.fill_(1.0)
                 continue
-            if leaf in ("bq", "bk", "bv"):
+            if leaf in ("bq", "bk", "bv", "router_bias"):
                 p.zero_()
                 continue
-            # Fan-in is the contraction dim: [in, out] weights, and the
-            # embedding's row width.
-            fan_in = p.shape[1] if name == "embed" else p.shape[0]
             p.copy_(
                 torch.randn(
                     p.shape, generator=gen, device=p.device, dtype=torch.float32
-                ).mul_(fan_in ** -0.5)
+                ).mul_(self._fan_in(name, p.shape) ** -0.5)
             )
-        for w in self.modules():
+        for name, w in self.named_modules():
             if not isinstance(w, QuantizedBase):
                 continue
-            In, Out = w.shape
+            shape = w.shape
             top = 7 if isinstance(w, QuantizedLinear4) else 127
             codes = torch.randint(
-                -top, top + 1, (In, Out), generator=gen, device=w.q.device,
+                -top, top + 1, tuple(shape), generator=gen, device=w.q.device,
                 dtype=torch.int8,
             )
             w.q.copy_(pack_int4(codes) if top == 7 else codes)
             # std(U[-top, top]) = top / sqrt(3), matched to fan_in^-1/2.
-            w.scale.fill_(In ** -0.5 * 3.0 ** 0.5 / top)
+            w.scale.fill_(self._fan_in(name, shape) ** -0.5 * 3.0 ** 0.5 / top)
             del codes
 
     def make_cache(
@@ -324,16 +579,30 @@ class Llama(nn.Module):
 
     def _rope(self, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return rope_table(
-            positions, self.cfg.head_dim_, self.cfg.rope_theta, self.cfg.rope_scaling
+            positions, self.cfg.rope_dim_, self.cfg.rope_theta, self.cfg.rope_scaling
         )
 
-    def _run_stack(self, x: torch.Tensor, attn_fn, plain: bool) -> torch.Tensor:
+    def _run_stack(
+        self, x: torch.Tensor, attn_fn, plain: bool, with_aux: bool = False,
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The layers in order, dense then MoE: (hidden states, summed MoE
+        balance loss, or None without ``with_aux``)."""
         eps = self.cfg.rms_norm_eps
+        aux = None
         for li, layer in enumerate(self.layers):
             h = rms_norm(x, layer.attn_norm, eps)
             x = x + _mm(attn_fn(h, layer, li), layer.wo, plain)
-            x = x + layer.mlp(rms_norm(x, layer.mlp_norm, eps), plain)
-        return x
+            h = rms_norm(x, layer.mlp_norm, eps)
+            if layer.moe:
+                y, layer_aux = layer.moe_mlp(h, self.cfg, plain, with_aux)
+                if with_aux:
+                    aux = layer_aux if aux is None else aux + layer_aux
+            else:
+                y = layer.mlp(h, plain)
+            x = x + y
+        if with_aux and aux is None:
+            aux = x.new_zeros((), dtype=torch.float32)
+        return x, aux
 
     def _lm_head(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.rms_norm_eps)
@@ -341,9 +610,10 @@ class Llama(nn.Module):
             return (x @ self.embed.T.to(x.dtype)).float()
         return _mm(x, self.lm_head, plain).float()
 
-    def forward_full(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward_full(self, tokens: torch.Tensor, return_aux: bool = False):
         """All-positions logits [B, S, V] f32: plain causal attention over
-        the fresh sequence, no cache."""
+        the fresh sequence, no cache (MLA materialized). ``return_aux``
+        also returns the summed MoE balance loss (0 for dense models)."""
         B, S = tokens.shape
         pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
         cos, sin = self._rope(pos)
@@ -352,8 +622,11 @@ class Llama(nn.Module):
             q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain=True)
             return causal_prefill_attention(q, k, v).reshape(B, S, -1)
 
-        x = self._run_stack(self.embed[tokens].to(self.dtype), attn_fn, True)
-        return self._lm_head(x, True)
+        x, aux = self._run_stack(
+            self.embed[tokens].to(self.dtype), attn_fn, True, return_aux
+        )
+        logits = self._lm_head(x, True)
+        return (logits, aux) if return_aux else logits
 
     def mixed_step(
         self,
@@ -366,12 +639,12 @@ class Llama(nn.Module):
         backend: str = "dma",
     ) -> torch.Tensor:
         """One forward over decode rows (q_len 1) and prefill chunks (q_len
-        up to S) together: writes each row's valid K/V at ``start`` and
-        returns the logits of its last valid position [B, V] f32. Rows with
-        q_len 0 write nothing; their logits are discarded by the caller.
-        ``backend`` picks the paged-attention kernels ("dma" or "grid");
-        ``plain`` runs attention and the quantized matmuls through their
-        plain PyTorch versions."""
+        up to S) together: writes each row's valid K/V (or latent) at
+        ``start`` and returns the logits of its last valid position [B, V]
+        f32. Rows with q_len 0 write nothing; their logits are discarded by
+        the caller. ``backend`` picks the paged-attention kernels ("dma" or
+        "grid"); ``plain`` runs attention and the quantized matmuls through
+        their plain PyTorch versions."""
         ragged_attention = PAGED_BACKENDS[backend][0]
         B, S = tokens.shape
         pos = start.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
@@ -382,6 +655,15 @@ class Llama(nn.Module):
         ).reshape(-1)
 
         def attn_fn(h, layer, li):
+            if cache.latent:
+                q_lat, latent = layer.mla_latent_parts(h, self.cfg, cos, sin, plain)
+                cache.write(li, latent, None, flat)
+                # The latent is both keys and values.
+                ctx = ragged_attention(
+                    q_lat, cache.k[li], cache.k[li], page_table, start, q_lens,
+                    plain=plain,
+                )
+                return layer.mla_latent_out(ctx, self.cfg)
             q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain)
             cache.write(li, k, v, flat)
             # cache.k[li] is a view: the attention reads the rows just written.
@@ -391,7 +673,7 @@ class Llama(nn.Module):
             )
             return attn.reshape(B, S, -1)
 
-        x = self._run_stack(self.embed[tokens].to(self.dtype), attn_fn, plain)
+        x, _ = self._run_stack(self.embed[tokens].to(self.dtype), attn_fn, plain)
         last = (q_lens.long() - 1).clamp(0, S - 1)
         return self._lm_head(x[torch.arange(B, device=x.device), last], plain)
 
@@ -405,9 +687,9 @@ class Llama(nn.Module):
         plain: bool = False,
         backend: str = "dma",
     ) -> torch.Tensor:
-        """One token per sequence: writes its K/V at ``lengths`` and returns
-        the next-token logits [B, V] f32 (``backend`` and ``plain`` as in
-        ``mixed_step``)."""
+        """One token per sequence: writes its K/V (or latent) at
+        ``lengths`` and returns the next-token logits [B, V] f32
+        (``backend`` and ``plain`` as in ``mixed_step``)."""
         decode_attention = PAGED_BACKENDS[backend][1]
         B = tokens.shape[0]
         cos, sin = self._rope(lengths.long()[:, None])
@@ -419,6 +701,14 @@ class Llama(nn.Module):
         seen = (lengths + valid).to(torch.int32)
 
         def attn_fn(h, layer, li):
+            if cache.latent:
+                q_lat, latent = layer.mla_latent_parts(h, self.cfg, cos, sin, plain)
+                cache.write(li, latent, None, flat)
+                ctx = decode_attention(
+                    q_lat[:, 0], cache.k[li], cache.k[li], page_table, seen,
+                    plain=plain,
+                )
+                return layer.mla_latent_out(ctx[:, None], self.cfg)
             q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain)
             cache.write(li, k, v, flat)
             # cache.k[li] is a view: the attention reads the row just written.
@@ -428,7 +718,7 @@ class Llama(nn.Module):
             )
             return attn.reshape(B, 1, -1)
 
-        x = self._run_stack(
+        x, _ = self._run_stack(
             self.embed[tokens[:, None]].to(self.dtype), attn_fn, plain
         )
         return self._lm_head(x[:, 0], plain)

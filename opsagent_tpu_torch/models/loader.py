@@ -1,5 +1,5 @@
 """HF safetensors checkpoints -> a ``Llama`` state dict (the port's
-counterpart of ``opsagent_tpu/models/loader.py`` for dense models).
+counterpart of ``opsagent_tpu/models/loader.py``).
 
 The HF llama-family names (``model.layers.N.self_attn.q_proj.weight``...)
 map onto the port's module names; matrices are transposed from HF's
@@ -7,7 +7,15 @@ map onto the port's module names; matrices are transposed from HF's
 index-sharded (``model.safetensors.index.json``) checkpoints load alike.
 Qwen2's q/k/v biases and Qwen3's q/k norms load when the configuration
 has them; a missing ``lm_head.weight`` is allowed only with tied
-embeddings, and tied embeddings ignore one that is present.
+embeddings, and tied embeddings ignore one that is present. MoE layers use
+the DeepSeek names (``mlp.gate.weight`` router, kept f32, with
+``e_score_correction_bias`` for a sigmoid router;
+``mlp.experts.{e}.{gate,up,down}_proj`` stacked ``[E, in, out]``;
+``mlp.shared_experts.*``); MLA layers (DeepSeek-V2/V3) as JAX's
+``_load_mla_attn_block`` lays them out: ``kv_a_proj_with_mqa`` split into
+``wdkv`` and ``wkr``, the rope columns of q and ``wkr`` permuted from HF's
+interleaved pairs to the half-split order ``apply_rope`` uses, and
+``o_proj`` expanded to per-head rows over the padded head dim (pad rows 0).
 
 The format is read here, without the ``safetensors`` package (the machine
 beside the card has none): an 8-byte little-endian header length, a JSON
@@ -58,6 +66,29 @@ _QK_NORM_NAMES = {
 }
 
 
+_MLA_NAMES = {
+    "attn_norm": "model.layers.{}.input_layernorm.weight",
+    "kv_norm": "model.layers.{}.self_attn.kv_a_layernorm.weight",
+    "wukv": "model.layers.{}.self_attn.kv_b_proj.weight",
+    "mlp_norm": "model.layers.{}.post_attention_layernorm.weight",
+}
+_MLA_LOW_RANK_Q_NAMES = {
+    "wdq": "model.layers.{}.self_attn.q_a_proj.weight",
+    "q_norm": "model.layers.{}.self_attn.q_a_layernorm.weight",
+}
+_DENSE_MLP_NAMES = {key: _LAYER_NAMES[key] for key in ("wg", "wu", "wd")}
+_SHARED_NAMES = {
+    "sg": "model.layers.{}.mlp.shared_experts.gate_proj.weight",
+    "su": "model.layers.{}.mlp.shared_experts.up_proj.weight",
+    "sd": "model.layers.{}.mlp.shared_experts.down_proj.weight",
+}
+_EXPERT_NAMES = {
+    "eg": "model.layers.{}.mlp.experts.{}.gate_proj.weight",
+    "eu": "model.layers.{}.mlp.experts.{}.up_proj.weight",
+    "ed": "model.layers.{}.mlp.experts.{}.down_proj.weight",
+}
+
+
 class CheckpointError(Exception):
     pass
 
@@ -102,6 +133,42 @@ def _shard_files(path: str) -> list[str]:
     return files
 
 
+def _rope_interleave_to_halfsplit(dr: int) -> torch.Tensor:
+    """Column permutation from HF DeepSeek's interleaved rope pairs (dims
+    2i, 2i+1 rotate together) to the half-split order ``apply_rope`` uses
+    (dim j pairs with j + dr/2): applied once to the projection's columns,
+    it is HF's runtime de-interleave."""
+    return torch.cat([torch.arange(0, dr, 2), torch.arange(1, dr, 2)])
+
+
+def _mla_layer(get, cfg: ModelConfig, i: int) -> dict[str, torch.Tensor]:
+    """Layer i's MLA attention leaves, in the port's [in, out] layout."""
+    m = cfg.mla
+    H, d = cfg.num_heads, cfg.hidden_size
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    dq, rkv = dn + dr, m.kv_lora_rank
+    perm = _rope_interleave_to_halfsplit(dr)
+    names = dict(_MLA_NAMES)
+    if m.q_lora_rank:
+        names.update(_MLA_LOW_RANK_Q_NAMES)
+    out = {}
+    for key, fmt in names.items():
+        t = get(fmt.format(i))
+        out[key] = t.T if t.ndim == 2 else t
+    q_name = "q_b_proj" if m.q_lora_rank else "q_proj"
+    w = get(f"model.layers.{i}.self_attn.{q_name}.weight").T
+    w = w.reshape(w.shape[0], H, dq)
+    out["wuq" if m.q_lora_rank else "wq"] = torch.cat(
+        [w[..., :dn], w[..., dn:][..., perm]], dim=-1
+    ).reshape(w.shape[0], H * dq)
+    w = get(f"model.layers.{i}.self_attn.kv_a_proj_with_mqa.weight").T  # [d, rkv + dr]
+    out["wdkv"] = w[:, :rkv]
+    out["wkr"] = w[:, rkv:][:, perm]
+    w = get(f"model.layers.{i}.self_attn.o_proj.weight").T.reshape(H, dv, d)
+    out["wo"] = torch.cat([w, w.new_zeros(H, dq - dv, d)], dim=1).reshape(H * dq, d)
+    return out
+
+
 def load_checkpoint(
     path: str,
     cfg: ModelConfig,
@@ -114,11 +181,6 @@ def load_checkpoint(
     on ``device`` (the card unless the caller asks for the CPU). With
     ``quantize``, the weights are quantized on the host
     (``models.quant.quantize_params``) before they move to the device."""
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts and latent-attention checkpoints "
-            "are not ported yet (ROADMAP queue 1 item 9)"
-        )
     device = resolve_device(device)
     tensors: dict[str, torch.Tensor] = {}
     for file in _shard_files(path):
@@ -129,19 +191,42 @@ def load_checkpoint(
             raise CheckpointError(f"missing tensor {name} in checkpoint {path}")
         return tensors[name]
 
-    names = dict(_LAYER_NAMES)
+    attn_names = {k: v for k, v in _LAYER_NAMES.items() if k not in _DENSE_MLP_NAMES}
     if cfg.attn_bias:
-        names.update(_BIAS_NAMES)
+        attn_names.update(_BIAS_NAMES)
     if cfg.qk_norm:
-        names.update(_QK_NORM_NAMES)
+        attn_names.update(_QK_NORM_NAMES)
+    dense = cfg.moe_layer_start if cfg.moe is not None else cfg.num_layers
     host: dict[str, torch.Tensor] = {
         "embed": get("model.embed_tokens.weight"),
         "final_norm": get("model.norm.weight"),
     }
+    # Entries that keep f32 whatever the compute dtype: the router.
+    exact: set[str] = set()
     for i in range(cfg.num_layers):
+        names = {} if cfg.mla is not None else dict(attn_names)
+        if cfg.mla is not None:
+            host.update({f"layers.{i}.{k}": t for k, t in _mla_layer(get, cfg, i).items()})
+        if i < dense:
+            names.update(_DENSE_MLP_NAMES)
+        elif cfg.moe.num_shared_experts:
+            names.update(_SHARED_NAMES)
         for key, fmt in names.items():
             t = get(fmt.format(i))
             host[f"layers.{i}.{key}"] = t.T if t.ndim == 2 else t
+        if i < dense:
+            continue
+        for key, fmt in _EXPERT_NAMES.items():
+            host[f"layers.{i}.{key}"] = torch.stack([
+                get(fmt.format(i, e)).T for e in range(cfg.moe.num_experts)
+            ])
+        host[f"layers.{i}.router"] = get(f"model.layers.{i}.mlp.gate.weight").T
+        exact.add(f"layers.{i}.router")
+        if cfg.moe.scoring_func == "sigmoid":
+            host[f"layers.{i}.router_bias"] = get(
+                f"model.layers.{i}.mlp.gate.e_score_correction_bias"
+            )
+            exact.add(f"layers.{i}.router_bias")
     head = tensors.get("lm_head.weight")
     if not cfg.tie_embeddings:
         if head is None:
@@ -155,7 +240,10 @@ def load_checkpoint(
             f"embed shape {(v, d)} does not match config "
             f"({cfg.vocab_size}, {cfg.hidden_size})"
         )
-    state = {k: t.to(dtype).contiguous() for k, t in host.items()}
+    state = {
+        k: t.to(torch.float32 if k in exact else dtype).contiguous()
+        for k, t in host.items()
+    }
     if quantize:
         state = quantize_params(state, quantize)
     return {k: t.to(device) for k, t in state.items()}

@@ -11,6 +11,10 @@ a JAX tree carries across unchanged (``models.convert``):
   odd row), and f32 ``scale [G, 1, out]``, one scale per (group of
   ``in / G`` contraction rows, output channel).
 
+A layer's stacked expert weights keep a leading expert axis in both
+buffers (``q [E, in, out]`` with ``scale [E, 1, out]``, int4 ``scale [E, G,
+1, out]``), each expert's slice quantized on its own, as JAX's are.
+
 ``models.llama._mm`` sends every quantized projection through
 ``ops.quant_matmul.quant_matmul_cuda``. Codes and scales come out of the
 same f32 arithmetic as the JAX functions (``torch.round`` rounds half to
@@ -27,14 +31,20 @@ from torch import nn
 
 INT4_GROUP = 128  # contraction-axis group size (GPTQ/AWQ convention)
 
-# The large matmuls of a dense Llama; embed and the norms stay in the
-# compute dtype (the embedding gather reads one row per token).
-_QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd", "lm_head"})
+# The large matmuls: attention, dense MLP, routed and shared experts, the MLA
+# projections and the lm_head. The embedding, the norms, the biases and the
+# f32 router stay exact (the embedding gather reads one row per token;
+# routing is precision-sensitive).
+_QUANT_KEYS = frozenset({
+    "wq", "wk", "wv", "wo", "wg", "wu", "wd",
+    "eg", "eu", "ed", "sg", "su", "sd", "lm_head",
+    "wdq", "wuq", "wdkv", "wkr", "wukv",
+})
 
 
 class QuantizedBase(nn.Module):
     """The {q, scale} buffer pair of a quantized weight. ``shape`` is the
-    logical ``[in, out]`` of the weight it stands for."""
+    logical ``[..., in, out]`` of the weight it stands for."""
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor):
         super().__init__()
@@ -61,57 +71,59 @@ class QuantizedBase(nn.Module):
 
 
 class QuantizedLinear(QuantizedBase):
-    """int8 weight [in, out] + per-output-channel f32 scale [1, out]."""
+    """int8 weight [..., in, out] + per-output-channel f32 scale [..., 1, out]."""
 
     def dequantize(self) -> torch.Tensor:
         return self.q.to(self.scale.dtype) * self.scale
 
 
 class QuantizedLinear4(QuantizedBase):
-    """Packed int4 weight [in/2, out] + group scales [G, 1, out]."""
+    """Packed int4 weight [..., in/2, out] + group scales [..., G, 1, out]."""
 
     @property
     def shape(self) -> torch.Size:
-        half, out = self.q.shape
-        return torch.Size((2 * half, out))
+        *lead, half, out = self.q.shape
+        return torch.Size((*lead, 2 * half, out))
 
     @property
     def group(self) -> int:
-        return self.shape[0] // self.scale.shape[0]
+        return self.shape[-2] // self.scale.shape[-3]
 
     def dequantize(self) -> torch.Tensor:
-        half, Out = self.q.shape
-        In, G = 2 * half, self.scale.shape[0]
-        w = unpack_int4(self.q).to(self.scale.dtype).reshape(G, In // G, Out)
-        return (w * self.scale).reshape(In, Out)
+        *lead, In, Out = self.shape
+        G = self.scale.shape[-3]
+        w = unpack_int4(self.q).to(self.scale.dtype).reshape(*lead, G, In // G, Out)
+        return (w * self.scale).reshape(*lead, In, Out)
 
 
 def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
     """Symmetric per-output-channel int8: scale = absmax / 127 over the
-    contraction axis (axis 0 of ``[in, out]``)."""
+    contraction axis (axis -2 of ``[..., in, out]``)."""
     wf = w.float()
-    absmax = wf.abs().amax(dim=0, keepdim=True)
+    absmax = wf.abs().amax(dim=-2, keepdim=True)
     scale = torch.where(absmax > 0, absmax / 127.0, 1.0)
     q = torch.clamp(torch.round(wf / scale), -127, 127)
     return QuantizedLinear(q.to(torch.int8), scale.float())
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
-    """[-8, 7]-valued [in, out] -> packed int8 [in/2, out] (even rows in the
-    low nibble, odd rows in the high)."""
-    In, Out = q.shape
+    """[-8, 7]-valued [..., in, out] -> packed int8 [..., in/2, out] (even
+    rows in the low nibble, odd rows in the high)."""
+    *lead, In, Out = q.shape
     if In % 2:
         raise ValueError(f"int4 packing needs an even contraction dim, got {In}")
-    q = q.to(torch.int8).reshape(In // 2, 2, Out)
-    return (q[:, 1] << 4) | (q[:, 0] & 0x0F)
+    q = q.to(torch.int8).reshape(*lead, In // 2, 2, Out)
+    return (q[..., 1, :] << 4) | (q[..., 0, :] & 0x0F)
 
 
 def unpack_int4(p: torch.Tensor) -> torch.Tensor:
-    """Packed int8 [in/2, out] -> int8 [in, out]. Arithmetic shifts
-    sign-extend: ``(p << 4) >> 4`` is the low nibble, ``p >> 4`` the high."""
+    """Packed int8 [..., in/2, out] -> int8 [..., in, out]. Arithmetic
+    shifts sign-extend: ``(p << 4) >> 4`` is the low nibble, ``p >> 4`` the
+    high."""
+    *lead, half, Out = p.shape
     low = (p << 4) >> 4
     high = p >> 4
-    return torch.stack([low, high], dim=1).reshape(2 * p.shape[0], p.shape[1])
+    return torch.stack([low, high], dim=-2).reshape(*lead, 2 * half, Out)
 
 
 def _group_size(In: int, group: int) -> int:
@@ -133,14 +145,14 @@ def _group_size(In: int, group: int) -> int:
 def quantize_weight4(w: torch.Tensor, group: int = INT4_GROUP) -> QuantizedLinear4:
     """Symmetric group-wise int4: scale = group absmax / 7, values clipped
     to [-7, 7]."""
-    In, Out = w.shape
+    *lead, In, Out = w.shape
     g = _group_size(In, group) if group else In
     G = In // g
-    wg = w.float().reshape(G, g, Out)
-    absmax = wg.abs().amax(dim=1, keepdim=True)              # [G, 1, out]
+    wg = w.float().reshape(*lead, G, g, Out)
+    absmax = wg.abs().amax(dim=-2, keepdim=True)             # [..., G, 1, out]
     scale = torch.where(absmax > 0, absmax / 7.0, 1.0)
     q = torch.clamp(torch.round(wg / scale), -7, 7)
-    return QuantizedLinear4(pack_int4(q.reshape(In, Out)), scale.float())
+    return QuantizedLinear4(pack_int4(q.reshape(*lead, In, Out)), scale.float())
 
 
 def quantize_params(

@@ -11,6 +11,15 @@ each with instances for pages in q's dtype and for int8 ``QuantizedPages``:
   the KV sequence, partials go to a workspace and a combine pass reduces
   them (with one split the split pass writes the output itself).
 
+The dma source also holds the latent instances of both functions, for
+multi-head latent attention: pages ``[N, P, 1, 576]`` (DeepSeek-V2/V3's
+``kv_lora_rank`` 512 + rope 64) read as both keys and values, which is how
+the JAX model calls ``paged_ragged_attention`` and
+``paged_decode_attention`` on that path (``csrc/attention_latent.cuh``).
+The dma wrappers take that shape only with one kv head and the same pages
+as k and v, and count it under ``*_latent``; the grid wrappers do not take
+it.
+
 Both decode kernels split the KV sequence the same way, over a body they
 share (``csrc/attention_split.cuh``), with splits of at most
 ``DECODE_WALK`` positions. The bf16 instances run tensor-core routines:
@@ -42,6 +51,9 @@ from .attention import QuantizedPages, paged_decode_attention, paged_ragged_atte
 SOURCE = "paged_attention.cu"
 GRID_SOURCE = "paged_attention_grid.cu"
 HEAD_DIMS = (16, 32, 64, 128)
+# The MLA latent (kv_lora_rank 512 + qk_rope_head_dim 64): the dma kernels'
+# latent instances, one kv head, k and v the same pages.
+LATENT_DIM = 576
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Query rows per tile of a split pass: the grid ragged kernel's
 # (csrc/paged_attention_grid.cu), and both decode kernels' (kDecodeRows in
@@ -65,6 +77,8 @@ LAUNCHES: dict[str, int] = {
     "paged_decode_attention_grid": 0,
     "paged_ragged_attention_grid_int8": 0,
     "paged_decode_attention_grid_int8": 0,
+    "paged_ragged_attention_latent": 0,
+    "paged_decode_attention_latent": 0,
 }
 
 # Grid-kernel workspaces, one per (device, size), allocated at the first
@@ -88,6 +102,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         [p] * 9 + [i] * 8 + [ctypes.c_float, i, p]
     )
     lib.opsagent_paged_decode_attention.restype = i
+    lib.opsagent_paged_ragged_attention_latent.argtypes = (
+        [p] * 6 + [i] * 5 + [ctypes.c_float, i, p]
+    )
+    lib.opsagent_paged_ragged_attention_latent.restype = i
+    lib.opsagent_paged_decode_attention_latent.argtypes = (
+        [p] * 6 + [i] * 6 + [ctypes.c_float, i, p]
+    )
+    lib.opsagent_paged_decode_attention_latent.restype = i
 
 
 def _bind_grid(lib: ctypes.CDLL) -> None:
@@ -119,8 +141,12 @@ def _planes(
 
 def _check(
     q: torch.Tensor, k_pages, v_pages, ints: dict[str, torch.Tensor], batch: int,
+    latent: bool = False,
 ) -> None:
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernels do not take. ``latent``: the caller
+    has the dma kernels' latent instances, which take head dim
+    ``LATENT_DIM`` with one kv head, pages in q's dtype and the same pages
+    as k and v."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q dtype {q.dtype}: the kernels take float32 or bfloat16")
     if isinstance(k_pages, QuantizedPages) != isinstance(v_pages, QuantizedPages):
@@ -141,8 +167,15 @@ def _check(
                                  f"expected float32 [{N}, {P}, {K}]")
         planes.update(k_scale=ks, v_scale=vs)
     H = q.shape[-2]
-    if q.shape[-1] != D or D not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} (pages {D}): expected one of {HEAD_DIMS}")
+    if q.shape[-1] == D == LATENT_DIM and latent:
+        if K != 1 or ks is not None or kv.data_ptr() != vv.data_ptr():
+            raise ValueError(
+                f"head dim {LATENT_DIM} is the MLA latent: it takes one kv head, "
+                "pages in q's dtype and the same pages as k and v"
+            )
+    elif q.shape[-1] != D or D not in HEAD_DIMS:
+        want = (*HEAD_DIMS, LATENT_DIM) if latent else HEAD_DIMS
+        raise ValueError(f"head dim {q.shape[-1]} (pages {D}): expected one of {want}")
     if H % K:
         raise ValueError(f"{H} query heads are not a multiple of {K} kv heads")
     floats = {"q": q, **planes}
@@ -184,11 +217,20 @@ def paged_ragged_attention_cuda(
     k_pages, v_pages = _layer_view(k_pages, layer), _layer_view(v_pages, layer)
     B, S, H, D = q.shape
     ints = {"page_table": page_table, "start": start, "q_lens": q_lens}
-    _check(q, k_pages, v_pages, ints, B)
+    _check(q, k_pages, v_pages, ints, B, latent=True)
     (kv, ks), (vv, vs) = _planes(k_pages), _planes(v_pages)
     N, P, K, _ = kv.shape
     out = torch.empty_like(q)
     ptr = cuda_build.ptr
+    if D == LATENT_DIM:
+        rc = cuda_build.library(SOURCE, _bind).opsagent_paged_ragged_attention_latent(
+            ptr(q), ptr(kv), ptr(page_table), ptr(start), ptr(q_lens), ptr(out),
+            B, S, H, P, page_table.shape[1], D ** -0.5, _DTYPE_CODES[q.dtype],
+            cuda_build.stream(q.device),
+        )
+        cuda_build.raise_on(rc, "paged_ragged_attention_latent")
+        LAUNCHES["paged_ragged_attention_latent"] += 1
+        return out
     rc = cuda_build.library(SOURCE, _bind).opsagent_paged_ragged_attention(
         ptr(q), ptr(kv), ptr(vv), ptr(ks), ptr(vs), ptr(page_table), ptr(start),
         ptr(q_lens), ptr(out), B, S, H, K, D, P, page_table.shape[1],
@@ -217,13 +259,22 @@ def paged_decode_attention_cuda(
     k_pages, v_pages = _layer_view(k_pages, layer), _layer_view(v_pages, layer)
     B, H, D = q.shape
     ints = {"page_table": page_table, "lengths": lengths}
-    _check(q, k_pages, v_pages, ints, B)
+    _check(q, k_pages, v_pages, ints, B, latent=True)
     (kv, ks), (vv, vs) = _planes(k_pages), _planes(v_pages)
     N, P, K, _ = kv.shape
     max_pages = page_table.shape[1]
     splits, span, ws = _grid_plan(q, "decode", 1, K, P, max_pages)
     out = torch.empty_like(q)
     ptr = cuda_build.ptr
+    if D == LATENT_DIM:
+        rc = cuda_build.library(SOURCE, _bind).opsagent_paged_decode_attention_latent(
+            ptr(q), ptr(kv), ptr(page_table), ptr(lengths), ptr(ws), ptr(out),
+            B, H, P, max_pages, splits, span, D ** -0.5, _DTYPE_CODES[q.dtype],
+            cuda_build.stream(q.device),
+        )
+        cuda_build.raise_on(rc, "paged_decode_attention_latent")
+        LAUNCHES["paged_decode_attention_latent"] += 1
+        return out
     rc = cuda_build.library(SOURCE, _bind).opsagent_paged_decode_attention(
         ptr(q), ptr(kv), ptr(vv), ptr(ks), ptr(vs), ptr(page_table), ptr(lengths),
         ptr(ws), ptr(out), B, H, K, D, P, max_pages, splits, span,

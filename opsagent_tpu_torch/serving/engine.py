@@ -57,7 +57,11 @@ Such rows keep their full block.
 (every projection through the quantized matmul kernel) and int8 KV pages
 (the attention kernels' int8 instances); ``paged_backend`` picks the
 paged-attention kernels ("dma" or "grid"); ``attn_impl`` picks kernels or
-plain versions for all of them at once. ``checkpoint`` loads an HF
+plain versions for all of them at once. As in the JAX engine, a MoE model
+serves through the all-experts form (``grouped_dispatch_min_tokens`` set to
+0), an MLA model through one backend (JAX's gather, here the dma kernels'
+latent instances: a ``grid`` request is logged and served on ``dma``), and
+MLA refuses ``kv_quantize``. ``checkpoint`` loads an HF
 safetensors directory instead of random weights.
 
 Observability (``obs``, the port's copy of ``opsagent_tpu/obs``) records
@@ -257,17 +261,33 @@ class Engine:
         the reference engine share one); otherwise the weights of
         ``cfg.checkpoint`` or, without one, random weights from ``cfg.seed``
         are built on the device."""
-        self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.model_cfg = model_cfg or (
             model.cfg if model is not None
             else resolve_model(cfg.model, cfg.checkpoint)
         )
+        if self.model_cfg.moe is not None:
+            # Serving pins the exact all-experts form, as the JAX engine
+            # does: a request's output must not depend on the chunking.
+            self.model_cfg = replace(
+                self.model_cfg,
+                moe=replace(self.model_cfg.moe, grouped_dispatch_min_tokens=0),
+            )
         if cfg.paged_backend not in PAGED_BACKENDS:
             raise ValueError(
                 f"paged_backend={cfg.paged_backend!r}: expected one of "
                 f"{sorted(PAGED_BACKENDS)}"
             )
+        if self.model_cfg.mla is not None:
+            if cfg.kv_quantize:
+                raise ValueError("kv_quantize is not supported for MLA models")
+            if cfg.paged_backend != "dma":
+                # The latent instances are the dma kernels' (the JAX engine
+                # forces its gather backend for MLA the same way).
+                log.info("mla model: forcing dma paged attention (was %s)",
+                         cfg.paged_backend)
+                cfg = replace(cfg, paged_backend="dma")
+        self.cfg = cfg
         impl = cfg.attn_impl or ("plain" if self.device.type == "cpu" else "cuda")
         if impl not in ("cuda", "plain"):
             raise ValueError(f"attn_impl={impl!r}: expected 'cuda' or 'plain'")

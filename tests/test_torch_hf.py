@@ -1,13 +1,16 @@
 """The port's HF checkpoint path against the JAX package's and against HF's
 own outputs, on the CPU.
 
-The fixtures ``tests/fixtures/tiny-{llama,qwen2,qwen3}-hf`` were written by
-the HuggingFace implementations with their last-position logits and greedy
-continuation (``golden.npz``). The port's ``config_from_hf`` and
-``load_checkpoint`` must give what the JAX package's give
-(``params_from_jax`` of its tree, bit for bit), its own safetensors reader
-the bytes ``safetensors`` reads, and the model HF's logits to 2e-4 (the JAX
-test's tolerance) and greedy tokens exactly, under both paged backends.
+The fixtures ``tests/fixtures/tiny-{llama,qwen2,qwen3,qwen3-moe}-hf`` were
+written by the HuggingFace implementations with their last-position logits
+and greedy continuation (``golden.npz``); ``tiny-deepseek-moe`` pins the
+DeepSeek MoE names (``tiny-moe`` preset) the same way. The port's
+``config_from_hf`` and ``load_checkpoint`` must give what the JAX
+package's give (``params_from_jax`` of its tree, bit for bit), also for
+DeepSeek-V2/V3 (MLA + MoE) configs and checkpoints synthesized here with
+the JAX package's ``save_checkpoint``; its own safetensors reader the bytes
+``safetensors`` reads; and the model HF's logits to 2e-4 (the JAX test's
+tolerance) and greedy tokens exactly, under both paged backends.
 """
 
 import dataclasses
@@ -37,6 +40,49 @@ from opsagent_tpu_torch.serving.sampler import SamplingParams
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 DENSE = ["tiny-llama-hf", "tiny-qwen2-hf", "tiny-qwen3-hf"]
+# MoE fixtures and the configuration each is served with: its own
+# config.json ("auto"), or a preset.
+MOE_FIXTURES = {"tiny-qwen3-moe-hf": "auto", "tiny-deepseek-moe": "tiny-moe"}
+
+# HF config.json fields of the DeepSeek generations (V2-Lite's and V3's
+# published values; the dense DeepSeek-MoE's), cut to tiny widths.
+DEEPSEEK_HF = {
+    "deepseek": dict(
+        model_type="deepseek", vocab_size=512, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=4,
+        n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=2,
+        moe_intermediate_size=32, first_k_dense_replace=1, moe_layer_freq=1,
+        norm_topk_prob=False, scoring_func="softmax", rms_norm_eps=1e-6,
+        rope_theta=10000.0, max_position_embeddings=2048, tie_word_embeddings=False,
+    ),
+    "deepseek_v2": dict(
+        model_type="deepseek_v2", vocab_size=512, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=4,
+        n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=2,
+        moe_intermediate_size=32, first_k_dense_replace=1, moe_layer_freq=1,
+        norm_topk_prob=False, scoring_func="softmax", topk_method="greedy",
+        n_group=1, topk_group=1, routed_scaling_factor=1.0,
+        q_lora_rank=None, kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+        v_head_dim=16, rms_norm_eps=1e-6, rope_theta=10000.0,
+        max_position_embeddings=2048, tie_word_embeddings=False,
+        rope_scaling={"type": "yarn", "factor": 40, "original_max_position_embeddings": 64,
+                      "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
+                      "mscale_all_dim": 0.707},
+    ),
+    "deepseek_v3": dict(
+        model_type="deepseek_v3", vocab_size=512, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=4,
+        n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=1,
+        moe_intermediate_size=32, first_k_dense_replace=1, moe_layer_freq=1,
+        norm_topk_prob=True, scoring_func="sigmoid", topk_method="noaux_tc",
+        n_group=4, topk_group=2, routed_scaling_factor=2.5,
+        q_lora_rank=24, kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+        v_head_dim=16, rms_norm_eps=1e-6, rope_theta=10000.0,
+        max_position_embeddings=2048, tie_word_embeddings=False,
+        rope_scaling={"type": "yarn", "factor": 40, "original_max_position_embeddings": 64,
+                      "beta_fast": 32, "beta_slow": 1, "mscale": 1.0, "mscale_all_dim": 1.0},
+    ),
+}
 
 
 def _path(name):
@@ -56,17 +102,50 @@ def test_config_from_hf_matches_jax(name):
 
 
 def test_config_from_hf_refuses_what_it_does_not_serve(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        config_from_hf(_path("tiny-qwen3-moe-hf"))
-    hf = json.load(open(os.path.join(_path("tiny-qwen2-hf"), "config.json")))
-    for edit, error in (({"model_type": "gpt2"}, ValueError),
-                        ({"model_type": "deepseek_v3"}, NotImplementedError),
-                        ({"sliding_window": 512, "use_sliding_window": True}, ValueError)):
-        (tmp_path / "config.json").write_text(json.dumps({**hf, **edit}))
-        with pytest.raises(error):
+    """The JAX package's refusals, with its exception type: an unknown
+    model type, active sliding-window attention, interleaved dense and MoE
+    layers, an unknown router scoring."""
+    qwen2 = json.load(open(os.path.join(_path("tiny-qwen2-hf"), "config.json")))
+    qwen3_moe = json.load(open(os.path.join(_path("tiny-qwen3-moe-hf"), "config.json")))
+    cases = (
+        (qwen2, {"model_type": "gpt2"}, "gpt2"),
+        (qwen2, {"sliding_window": 512, "use_sliding_window": True}, "sliding-window"),
+        (qwen3_moe, {"mlp_only_layers": [0]}, "mlp_only_layers"),
+        (qwen3_moe, {"decoder_sparse_step": 2}, "decoder_sparse_step"),
+        (DEEPSEEK_HF["deepseek_v2"], {"moe_layer_freq": 2}, "moe_layer_freq"),
+        (DEEPSEEK_HF["deepseek_v3"], {"scoring_func": "softmax_plus"}, "scoring_func"),
+    )
+    for base, edit, match in cases:
+        (tmp_path / "config.json").write_text(json.dumps({**base, **edit}))
+        with pytest.raises(ValueError, match=match):
             config_from_hf(str(tmp_path))
+        with pytest.raises(ValueError):
+            jax_config_from_hf(str(tmp_path))
+    # The DeepSeek MoE fixture's config.json names no HF model type (it is
+    # served with the tiny-moe preset): both packages refuse it.
+    for derive in (config_from_hf, jax_config_from_hf):
+        with pytest.raises(ValueError, match="deepseek-moe"):
+            derive(_path("tiny-deepseek-moe"))
     with pytest.raises(ValueError, match="--checkpoint"):
         resolve_model("auto")
+
+
+@pytest.mark.parametrize("model_type", sorted(DEEPSEEK_HF))
+def test_config_from_hf_serves_the_moe_and_mla_types_as_jax(tmp_path, model_type):
+    """The four types that were refused before MoE and MLA were ported
+    (qwen3_moe through its fixture, the DeepSeek generations through
+    synthesized config.json files) derive JAX's configuration; V2/V3 serve
+    from the latent cache."""
+    (tmp_path / "config.json").write_text(json.dumps(DEEPSEEK_HF[model_type]))
+    got = config_from_hf(str(tmp_path))
+    assert dataclasses.asdict(got) == dataclasses.asdict(jax_config_from_hf(str(tmp_path)))
+    assert got.moe is not None and got.moe_layer_start == 1
+    assert (got.mla is not None and got.mla.latent_cache) == (model_type != "deepseek")
+    assert resolve_model("auto", str(tmp_path)) == got
+    moe = config_from_hf(_path("tiny-qwen3-moe-hf"))
+    assert dataclasses.asdict(moe) == dataclasses.asdict(
+        jax_config_from_hf(_path("tiny-qwen3-moe-hf")))
+    assert moe.moe.num_experts == 4 and moe.qk_norm and moe.moe_layer_start == 0
 
 
 @pytest.mark.parametrize("name", DENSE + ["tiny-qwen3-moe-hf"])
@@ -107,6 +186,80 @@ def test_load_checkpoint_matches_jax(name):
     for key, t in want.items():
         assert got[key].is_contiguous()
         assert torch.equal(got[key], t), key
+
+
+def _fixture_cfgs(name):
+    """(port config, JAX config) a MoE fixture is served with."""
+    from opsagent_tpu.models.config import get_config_preset as jax_preset
+    from opsagent_tpu_torch.models.config import get_config_preset
+
+    how = MOE_FIXTURES[name]
+    if how == "auto":
+        return config_from_hf(_path(name)), jax_config_from_hf(_path(name))
+    return get_config_preset(how), jax_preset(how)
+
+
+@pytest.mark.parametrize("name", sorted(MOE_FIXTURES))
+def test_load_checkpoint_matches_jax_for_moe_fixtures(name):
+    cfg, jcfg = _fixture_cfgs(name)
+    got = load_checkpoint(_path(name), cfg, torch.float32, device="cpu")
+    want = params_from_jax(jax_load_checkpoint(_path(name), jcfg, jnp.float32), cfg)
+    assert sorted(got) == sorted(want)
+    for key, t in want.items():
+        assert got[key].is_contiguous() and torch.equal(got[key], t), key
+    # The router stays f32 under a bf16 load.
+    bf16 = load_checkpoint(_path(name), cfg, torch.bfloat16, device="cpu")
+    first = cfg.moe_layer_start
+    assert bf16[f"layers.{first}.router"].dtype == torch.float32
+    assert bf16[f"layers.{first}.eg"].dtype == torch.bfloat16
+
+
+def _synthesized_deepseek(tmp_path, model_type):
+    """A DeepSeek-V2/V3 checkpoint directory: config.json and the JAX
+    package's init_params written by its save_checkpoint (HF names:
+    kv_a_proj_with_mqa, interleaved rope columns, o_proj over v_head_dim,
+    e_score_correction_bias, experts)."""
+    import jax
+
+    from opsagent_tpu.models import llama as jllama
+    from opsagent_tpu.models.loader import save_checkpoint
+
+    (tmp_path / "config.json").write_text(json.dumps(DEEPSEEK_HF[model_type]))
+    jcfg = jax_config_from_hf(str(tmp_path))
+    params = jllama.init_params(jcfg, jax.random.PRNGKey(4), dtype=jnp.float32)
+    if "router_bias" in params["moe_layers"]:
+        params["moe_layers"]["router_bias"] = jnp.asarray(
+            np.linspace(-0.1, 0.1, 16).reshape(2, 8), jnp.float32)
+    save_checkpoint(str(tmp_path / "model.safetensors"), params, cfg=jcfg)
+    return config_from_hf(str(tmp_path)), jcfg
+
+
+@pytest.mark.parametrize("model_type", ["deepseek_v2", "deepseek_v3"])
+def test_load_checkpoint_matches_jax_for_deepseek_mla(tmp_path, model_type):
+    """The rope de-interleave, the kv_a split, the padded o_proj, the
+    experts and the selection bias load as JAX's loader lays them out,
+    quantized too; the loaded model's logits equal JAX's on that tree."""
+    cfg, jcfg = _synthesized_deepseek(tmp_path, model_type)
+    path = str(tmp_path)
+    tree = jax_load_checkpoint(path, jcfg, jnp.float32)
+    got = load_checkpoint(path, cfg, torch.float32, device="cpu")
+    want = params_from_jax(tree, cfg)
+    assert sorted(got) == sorted(want)
+    for key, t in want.items():
+        assert torch.equal(got[key], t), key
+    quant = load_checkpoint(path, cfg, torch.float32, device="cpu", quantize="int4")
+    want_q = quantize_params(got, "int4")
+    assert sorted(quant) == sorted(want_q) and all(torch.equal(quant[k], want_q[k]) for k in want_q)
+    from opsagent_tpu.models import llama as jllama
+
+    model = Llama(cfg, torch.float32, "cpu", seed=None)
+    model.load_state_dict(got)
+    tokens = np.array([[5, 6, 7, 8, 9, 10, 11]], np.int32)
+    np.testing.assert_allclose(
+        model.forward_full(torch.from_numpy(tokens).long()).numpy(),
+        np.asarray(jllama.forward_full(tree, jcfg, tokens, dtype=jnp.float32)),
+        rtol=1e-4, atol=1e-4,
+    )
 
 
 def test_load_checkpoint_tied_quantized_and_errors(tmp_path):
@@ -195,6 +348,35 @@ def test_engine_generate_matches_golden_greedy(name, backend):
     ))
     assert eng.model_cfg == config_from_hf(_path(name))
     assert eng.impl_info()["paged_backend"] == backend
+    want = golden["greedy"].tolist()
+    got = eng.generate([golden["prompt"].tolist()], SamplingParams(max_tokens=len(want)))[0]
+    assert got == want
+
+
+@pytest.mark.parametrize("backend", ["dma", "grid"])
+@pytest.mark.parametrize("name", sorted(MOE_FIXTURES))
+def test_moe_fixture_matches_golden(name, backend):
+    """The MoE fixtures through the port's loader: forward_full's and one
+    mixed step's last-position logits within 2e-4 of golden.npz, and the
+    engine's greedy continuation token for token."""
+    cfg, _ = _fixture_cfgs(name)
+    golden = _golden(name)
+    model = Llama(cfg, torch.float32, "cpu", seed=None)
+    model.load_state_dict(load_checkpoint(_path(name), cfg, torch.float32, device="cpu"))
+    prompt = torch.from_numpy(golden["prompt"].astype(np.int64))[None]
+    np.testing.assert_allclose(model.forward_full(prompt)[0, -1].numpy(),
+                               golden["last_logits"], rtol=2e-4, atol=2e-4)
+    n = prompt.shape[1]
+    step = model.mixed_step(prompt, torch.zeros(1, dtype=torch.int32),
+                            torch.tensor([n], dtype=torch.int32), model.make_cache(8, 4),
+                            torch.arange(8, dtype=torch.int32)[None], backend=backend)
+    np.testing.assert_allclose(step[0].numpy(), golden["last_logits"], rtol=2e-4, atol=2e-4)
+    how = MOE_FIXTURES[name]
+    eng = Engine(EngineConfig(
+        model=how, checkpoint=_path(name), dtype=torch.float32, device="cpu",
+        page_size=4, num_pages=64, max_pages_per_seq=16, max_batch_size=2,
+        decode_block=4, paged_backend=backend,
+    ), model_cfg=None if how == "auto" else cfg)
     want = golden["greedy"].tolist()
     got = eng.generate([golden["prompt"].tolist()], SamplingParams(max_tokens=len(want)))[0]
     assert got == want

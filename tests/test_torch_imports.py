@@ -29,6 +29,8 @@ REQUIRED = (
     "opsagent_tpu_torch.ops.paged_attention",
     "opsagent_tpu_torch.ops.cuda_build",
     "opsagent_tpu_torch.ops.quant_matmul",
+    "opsagent_tpu_torch.models.config",
+    "opsagent_tpu_torch.models.llama",
     "opsagent_tpu_torch.models.quant",
     "opsagent_tpu_torch.models.convert",
     "opsagent_tpu_torch.models.loader",

@@ -197,6 +197,14 @@ MM_SHAPES = [(1, 256, 384), (8, 4096, 1024), (96, 300, 520), (5, 64, 512),
              (16, 4096, 1024), (17, 4096, 1024), (128, 4096, 4096), (1024, 4096, 1024),
              (1024, 3584, 512), (128, 320, 528), (64, 536, 256), (8, 300, 520),
              (1, 14336, 512), (8, 2960, 528), (16, 4096, 4096)]
+# DeepSeek-V2-Lite's projections at a decode step and a bucket-128 mixed
+# tick: MLA wq, wdkv, wkr, wukv, wo (over the padded head dim), the dense
+# layer's wg/wu and wd, a routed expert's slice, the shared experts as one,
+# and the lm_head.
+V2_LITE_PROJ = [(2048, 3072), (2048, 512), (2048, 64), (512, 4096), (3072, 2048),
+                (2048, 10944), (10944, 2048), (2048, 1408), (1408, 2048),
+                (2048, 2816), (2816, 2048), (2048, 102400)]
+MM_SHAPES += [(T, In, Out) for T in (8, 1024) for In, Out in V2_LITE_PROJ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -656,3 +664,139 @@ def test_failed_capture_raises_from_warmup(gen):
     res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          cwd=Path(__file__).resolve().parents[1], timeout=600)
     assert res.returncode == 0 and "raised" in res.stdout, res.stdout + res.stderr
+
+
+# -- the MLA latent instances (K = 1, D = 576, k and v the same pages) -------
+LATENT_RAGGED = {  # (starts, q_lens): chunks from mid-page, decode rows, an
+    # inactive row, a chunk that crosses a split of the table
+    "mixed": ([5, 0, 37, 0, 250], [24, 0, 1, 1, 24]),
+    "decode_rows": ([0, 15, 16, 255, 1023], [1, 1, 1, 1, 1]),
+}
+
+
+def _latent_pages(gen, B, S, H, P, starts, q_lens, dtype):
+    q, k, _, table, start, ql = _case(gen, B, S, H, 1, pa.LATENT_DIM, P, starts, q_lens, dtype)
+    return q, k, table, start, ql
+
+
+@pytest.mark.parametrize("rows", sorted(LATENT_RAGGED))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [16, 128])
+def test_latent_ragged_kernel_matches_plain(gen, H, dtype, rows):
+    starts, q_lens = LATENT_RAGGED[rows]
+    S = max(q_lens)
+    q, pages, table, start, ql = _latent_pages(gen, len(starts), S, H, 16, starts, q_lens, dtype)
+    before = pa.LAUNCHES["paged_ragged_attention_latent"]
+    got = pa.paged_ragged_attention_cuda(q, pages, pages, table, start, ql)
+    want = pa.paged_ragged_attention_cuda(q, pages, pages, table, start, ql, plain=True)
+    assert pa.LAUNCHES["paged_ragged_attention_latent"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    valid = torch.arange(S, device="cuda")[None, :] < ql[:, None]
+    assert not got[~valid].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [16, 128])
+def test_latent_decode_kernel_split_edges(gen, H, dtype):
+    """Lengths 0, 1, a page, a split (DECODE_WALK) and one either side, the
+    full table and past it, a -1 slot read as page 0; two calls
+    bit-identical."""
+    P, walk = 16, pa.DECODE_WALK
+    lengths = [0, 1, P, walk - 1, walk, walk + 1, 3 * walk + 5]
+    starts = [max(n - 1, 0) for n in lengths]
+    q, pages, table, _, _ = _latent_pages(gen, len(lengths), 1, H, P, starts,
+                                          [1 if n else 0 for n in lengths], dtype)
+    q = q[:, 0].contiguous()
+    table[-1, 1] = -1
+    full = table.shape[1] * P
+    lengths += [full, full + 7]
+    table = torch.cat([table, table[:2]])
+    q = torch.cat([q, q[:2]])
+    L = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = pa.paged_decode_attention_cuda(q, pages, pages, table, L)
+    again = pa.paged_decode_attention_cuda(q, pages, pages, table, L)
+    want = pa.paged_decode_attention_cuda(q, pages, pages, table, L, plain=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.equal(got, again) and not got[0].any()
+
+
+def test_latent_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    """576 is taken only as the latent: one kv head, pages in q's dtype,
+    the same pages as k and v, and only by the dma kernels."""
+    q, pages, table, start, ql = _latent_pages(gen, 2, 4, 16, 16, [0, 3], [4, 1],
+                                               torch.bfloat16)
+    with pytest.raises(ValueError, match="same pages"):
+        pa.paged_ragged_attention_cuda(q, pages, pages.clone(), table, start, ql)
+    two = torch.cat([pages, pages], dim=2).contiguous()
+    with pytest.raises(ValueError, match="one kv head"):
+        pa.paged_ragged_attention_cuda(q, two, two, table, start, ql)
+    qp = QuantizedPages(torch.zeros(pages.shape, dtype=torch.int8, device="cuda"),
+                        torch.ones(pages.shape[:3], device="cuda"))
+    with pytest.raises(ValueError, match="MLA latent"):
+        pa.paged_decode_attention_cuda(q[:, 0].contiguous(), qp, qp, table, start + ql)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_ragged_attention_grid_cuda(q, pages, pages, table, start, ql)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_decode_attention_cuda(q[:, 0, :, :192].contiguous(),
+                                       pages[..., :192].contiguous(),
+                                       pages[..., :192].contiguous(), table, start + ql)
+
+
+def _narrow_v2_lite():
+    """DeepSeek-V2-Lite's latent (512 + 64) and router, narrower elsewhere:
+    2 layers (one dense, one MoE), 4 heads, 8 experts of 128."""
+    from opsagent_tpu_torch.models.config import MLAConfig, MoEConfig, get_config_preset
+
+    v2 = get_config_preset("deepseek-v2-lite")
+    return replace(
+        v2, name="v2-lite-narrow", vocab_size=512, hidden_size=256, intermediate_size=512,
+        num_layers=2, num_heads=4, num_kv_heads=4, head_dim=96,
+        moe=MoEConfig(num_experts=8, num_experts_per_token=2, num_shared_experts=2,
+                      expert_intermediate_size=128),
+        mla=MLAConfig(q_lora_rank=0, kv_lora_rank=512, qk_nope_head_dim=32,
+                      qk_rope_head_dim=64, v_head_dim=32, latent_cache=True),
+    )
+
+
+@pytest.mark.parametrize("quantize", ["", "int8", "int4"])
+def test_mla_moe_engine_kernel_path_matches_plain_path(gen, quantize):
+    """f32 greedy tokens through the latent kernels (and the quantized
+    matmul over each expert slice) equal the plain path's."""
+    from opsagent_tpu_torch.models.llama import Llama
+
+    cfg = _narrow_v2_lite()
+    model = Llama(cfg, torch.float32, "cuda", seed=0, quantize=quantize)
+    prompts = [[257] + list(range(10, 50)), [257, 5, 6, 7]]
+    outs = []
+    for impl in ("cuda", "plain"):
+        pa.reset_launch_counts()
+        eng = Engine(EngineConfig(model=cfg.name, dtype=torch.float32, page_size=16,
+                                  num_pages=64, decode_block=4, attn_impl=impl,
+                                  quantize=quantize), model_cfg=cfg, model=model)
+        outs.append(eng.generate(prompts, SamplingParams(max_tokens=12)))
+        latent = pa.LAUNCHES["paged_decode_attention_latent"]
+        assert (latent > 0) == (impl == "cuda")
+    assert outs[0] == outs[1]
+
+
+def test_mla_moe_decode_graph_replays_the_eager_step(gen):
+    """The MoE scan and the latent kernels inside the captured graphs:
+    replayed ticks and blocks equal the eager ones in tokens, cache bytes
+    and launch counts."""
+    from opsagent_tpu_torch.models.llama import Llama
+
+    cfg = _narrow_v2_lite()
+    model = Llama(cfg, torch.bfloat16, "cuda", seed=0)
+    graph_eng, eager_eng = [
+        Engine(EngineConfig(model=cfg.name, dtype=torch.bfloat16, page_size=16, num_pages=64,
+                            max_pages_per_seq=16, max_batch_size=4, decode_block=8,
+                            pipeline_depth=0, cuda_graphs=replay), model_cfg=cfg, model=model)
+        for replay in (True, False)
+    ]
+    got, routes, _ = _drive_blocks(graph_eng)
+    want, eager_routes, _ = _drive_blocks(eager_eng)
+    assert routes == (12, 0, 3, 0) and eager_routes == (0, 12, 0, 3)
+    for (gt, gc, gl), (et, ec, el) in zip(got, want):
+        assert gt == et and gl == el
+        assert all(torch.equal(x, y) for x, y in zip(gc, ec))
+    assert got[1][2]["paged_decode_attention_latent"] == cfg.num_layers * 8

@@ -113,9 +113,26 @@ def test_mixed_and_decode_steps_match_jax(pair):
 
 
 def test_unported_configs_raise():
+    """MoE and MLA configurations, refused before they were ported, now
+    build and give JAX's logits (tiny-moe, tiny-mla; tests/test_torch_moe.py
+    and tests/test_torch_mla.py hold every path); what JAX refuses still
+    raises: MLA whose head dim is not its qk head dim, or with GQA."""
     from dataclasses import replace
 
-    with pytest.raises(NotImplementedError, match="moe"):
-        Llama(replace(TINY_TEST, moe=object()), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="mla"):
-        Llama(replace(TINY_TEST, mla=object()), torch.float32, "cpu")
+    from opsagent_tpu.models.config import get_config_preset as jax_preset
+    from opsagent_tpu_torch.models.config import get_config_preset
+
+    tokens = np.random.default_rng(0).integers(0, 500, (2, 7)).astype(np.int32)
+    for name in ("tiny-moe", "tiny-mla"):
+        jcfg, cfg = jax_preset(name), get_config_preset(name)
+        params = jllama.init_params(jcfg, jax.random.PRNGKey(1), dtype=jnp.float32)
+        model = Llama(cfg, torch.float32, "cpu", seed=None)
+        model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg))
+        want = np.asarray(jllama.forward_full(params, jcfg, tokens, dtype=jnp.float32))
+        np.testing.assert_allclose(model.forward_full(_t(tokens).long()).numpy(), want,
+                                   rtol=TOL, atol=TOL)
+    mla = get_config_preset("tiny-mla")
+    with pytest.raises(ValueError, match="qk_head_dim"):
+        Llama(replace(mla, head_dim=16), torch.float32, "cpu")
+    with pytest.raises(ValueError, match="no GQA"):
+        Llama(replace(mla, num_kv_heads=2), torch.float32, "cpu")
