@@ -400,8 +400,9 @@ def phase_build() -> dict:
     """One nvcc per source, all started together; ptxas's reports go to
     stderr, and the registers and spills of the tensor-core instances (the
     bf16 ragged and decode kernels of both forms, the quantized matmul's
-    m128 and m16 instances) and of the four latent instances (ragged and
-    decode, bf16 and f32) into the phase line."""
+    m128 and m16 instances) and of the six latent kernels (ragged and
+    decode: f32 on CUDA cores, bf16 on warpgroups with their merge
+    kernels; the bf16 ones must not spill) into the phase line."""
     sources = sorted({src for src, _ in KERNELS.values()})
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(lambda s: cuda_build.build(s, verbose=True), sources))
@@ -424,7 +425,13 @@ def phase_build() -> dict:
           f"ptxas reported {len(decode)} bf16 decode instances, expected 16")
     check(len(m128) == 4, f"ptxas reported {len(m128)} m128 matmul instances, expected 4")
     check(len(m16) == 4, f"ptxas reported {len(m16)} m16 matmul instances, expected 4")
-    check(len(latent) == 4, f"ptxas reported {len(latent)} latent instances, expected 4")
+    # f32 ragged and decode (CUDA cores); bf16 ragged and decode
+    # (warpgroups) and their merge kernels.
+    check(len(latent) == 6, f"ptxas reported {len(latent)} latent kernels, expected 6")
+    for r in latent:
+        if "_wg_kernel" in r["kernel"]:
+            check(r.get("spill_stores", 0) == 0 and r.get("spill_loads", 0) == 0,
+                  f"{r['kernel']} spills: {r}")
     return {"libraries": [lib.name for lib, _ in built], "ptxas_tensor_core": tensor_core,
             "ptxas_decode": decode, "ptxas_quant_matmul_m128": m128,
             "ptxas_quant_matmul_m16": m16, "ptxas_latent": latent}
@@ -598,6 +605,31 @@ def decode_case(gen, B, H, K, D, P, lengths, dtype):
     return c
 
 
+def latent_plan_bytes(c, blocks: int) -> dict:
+    """The bf16 latent kernels' plan on case ``c`` (``pa.latent_plan``):
+    busy blocks, tiles cut between blocks and the bytes of their partials
+    (written once and read once by the merge), beside the latent bytes the
+    call must read (each visible position's row once)."""
+    q, P = c["q"], c["k"].shape[1]
+    cap = c["table"].shape[1] * P
+    if q.ndim == 4:
+        starts, q_lens = c["start"].tolist(), c["q_lens"].tolist()
+        lens = pa.latent_lens(q.shape[1], q.shape[2], cap, start=starts, q_lens=q_lens)
+        seen = [min(s + n, cap) if n else 0 for s, n in zip(starts, q_lens)]
+        rows = min(pa.LATENT_TILE_ROWS, q.shape[1] * q.shape[2])
+    else:
+        lengths = c["lengths"].tolist()
+        lens = pa.latent_lens(1, q.shape[1], cap, lengths=lengths)
+        seen = [min(max(n, 0), cap) for n in lengths]
+        rows = min(pa.LATENT_TILE_ROWS, q.shape[1])
+    per, runs = pa.latent_plan(lens, blocks)
+    cut = sum(u["cut"] for units in runs for u in units)
+    return {"blocks": blocks, "per": per, "busy_blocks": sum(1 for r in runs if r),
+            "tiles": len(lens), "cut_pieces": cut,
+            "partial_bytes": 2 * cut * rows * (pa.LATENT_DIM + 2) * 4,
+            "latent_bytes": sum(seen) * pa.LATENT_DIM * 2}
+
+
 def phase_kernels(seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     # Rows: decode rows (q_len 1) beside prefill chunks, a row that starts
@@ -654,9 +686,10 @@ def phase_kernels(seed: int) -> dict:
     # The MLA latent instances (dma form): DeepSeek-V2-Lite's 16 heads and
     # V3's 128 over one latent kv head of 576 columns, one page array as k
     # and v; the ragged rows above, and decode lengths on page and split
-    # edges (DECODE_WALK positions a split) beside a zero-length row. The
-    # main path's shapes (V2-Lite, bf16: the bucket-128 tick and the
-    # decode step) are timed.
+    # edges (DECODE_WALK positions a split of the f32 instance; the bf16
+    # plan cuts at its own runs) beside a zero-length row. The main path's
+    # shapes (V2-Lite, bf16: the bucket-128 tick and the decode step) are
+    # timed, each with its plan's cut tiles and partial bytes.
     walk = pa.DECODE_WALK
     latent_decode = [0, 1, 16, walk - 1, walk, walk + 1, 2049, 4096]
 
@@ -667,6 +700,8 @@ def phase_kernels(seed: int) -> dict:
             q = c["q"] if c["q"].ndim == 4 else c["q"][:, None]
             c["sdpa"] = ragged_sdpa({**c, "q": q})
         r = run_kernel_case(name, c, dtype, timed)
+        if timed:
+            r["plan"] = latent_plan_bytes(c, pa.latent_blocks(pa._sm_count(c["q"].device)))
         cases.append(dict(kernel=name, width=wname, **where, dtype=str(dtype)[6:],
                           err=r["max_abs_err"], tol=TOL[dtype]))
         if timed:
@@ -1375,6 +1410,9 @@ def phase_serve_loop(seed: int, smi: str) -> dict:
 
 # -- phase 7: serving at full width -------------------------------------------
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names, spaces and "(int)" removed)
+    # The latent kernels first: their names hold the dma groups' keys.
+    ("paged_ragged_attention_latent", ("latent_ragged",)),
+    ("paged_decode_attention_latent", ("latent_decode",)),
     ("paged_ragged_attention", ("ragged_kernel",)),
     ("paged_decode_attention", ("decode_kernel",)),
     ("paged_ragged_attention_grid", ("ragged_split_kernel",)),
@@ -2483,7 +2521,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("event_ms", "dma_ms") if k in r},
+            **{k: r[k] for k in ("event_ms", "dma_ms", "plan") if k in r},
         })
     print(smi)
     emit({"kernels": rows})

@@ -1,111 +1,128 @@
 // The MLA latent instances of the dma paged-attention kernels (the
 // *_latent entry points of paged_attention.cu), for NVIDIA Hopper (sm_90a).
 //
-// Multi-head latent attention (DeepSeek-V2/V3) caches one latent per token,
-// [kv_lora_rank 512 | rope key 64] = 576 columns, and attends in the
-// weight-absorbed form: every query head dots its 576-column latent query
-// with the token's latent, and averages the latents themselves. So the
-// function is the paged attention of attend_split at K = 1, D = 576, with
-// the one page array read as both keys and values (the JAX model passes
-// `kc, kc` to paged_ragged_attention and paged_decode_attention), scale
-// D^-1/2, all 576 output columns written, and rows with no visible position
-// written as zeros.
+// What they replace. Multi-head latent attention (DeepSeek-V2/V3) caches
+// one latent per token, [kv_lora_rank 512 | rope key 64] = 576 columns, and
+// attends in the weight-absorbed form: the JAX model calls
+// paged_ragged_attention and paged_decode_attention
+// (opsagent_tpu/ops/attention.py) with `kc, kc`, and on the TPU their
+// Pallas dma kernels (paged_*_attention_pallas_dma) compute it. So the
+// function is paged attention at K = 1, D = 576, with one page array read
+// as both keys and values, scale D^-1/2, all 576 output columns written,
+// and rows with no visible position written as zeros.
 //
-// Why not an instance of attend_mma / attend_decode at D = 576: those keep
-// a query tile's whole output row in registers, D / 8 = 72 n8 tiles a warp,
-// 288 f32 accumulators a thread, which spills. Here the four warps of a
-// block share a 16-row tile and split the work by phase:
+// What bounds it on the H100. Ragged (a prefill chunk beside decode rows):
+// the products, 4 * 576 operations per (query row, visible position), at
+// the bf16 tensor-core rate. Decode at 16 heads: the latent rows, 1152
+// bytes per cached position, read once at 3.35 TB/s. Two things stand in
+// the way: a latent row is 1152 bytes that every query row of a sequence
+// needs, and a tile's output row is 576 f32 accumulators, which no single
+// warp can keep in registers.
 //
-//   - A stage is C cache positions (64 for bf16, 32 for f32). Each
-//     position's latent row is looked up through the page table (slot read
-//     as max(slot, 0)) and gathered once into shared memory ([C][576], rows
-//     padded by 16 bytes so ldmatrix has no bank conflicts); it serves as
-//     both K and V. Positions past the range are zero-filled.
-//   - Scores. bf16: warp w computes S = Q L^T for positions [16w, 16w + 16)
-//     of the stage on mma.sync m16n8k16 (36 k-steps x 2 n8 tiles), q from
-//     shared memory through ldmatrix. f32: on CUDA cores, lane j takes
-//     position j against four rows a warp. D^-1/2 is applied to the f32
-//     scores, which go to shared memory masked per row (-inf past the
-//     row's limit).
-//   - The online softmax of each row in f32, base 2, by eight threads a
-//     row over the stage's scores: running max and sum in shared memory, a
-//     row that has seen nothing keeps max -inf and probabilities 0.
-//   - O += P L. bf16: warp w owns output columns [144w, 144w + 144), 18 n8
-//     tiles = 72 f32 accumulators a thread; P as hi + lo bf16 halves
-//     (attention_mma.cuh says why), both from shared memory through
-//     ldmatrix, L through ldmatrix.trans. f32: thread i owns columns i,
-//     i + 128, ... for all 16 rows.
-//   - Output: with `out`, the normalised rows in q's dtype (zeros where the
-//     sum is 0); otherwise unnormalised partials (max in natural-log units,
-//     sum, accumulator) in the layout combine_kernel reads.
+// bf16: one kernel body serves both functions (decode is the ragged form at
+// S = 1 whose rows all see `lengths[b]` positions).
 //
-// The ragged kernel gives one block to each (sequence, tile of 16 (s, h)
-// rows) and walks the tile's whole visible range, as the dma ragged kernel
-// does; the decode kernel gives one to each (sequence, split, tile of 16
-// heads), splits chosen by the host as for the other decode instances,
-// and reduces the splits with combine_kernel<T, 576>.
+//   - Tiles. A tile is 64 consecutive (s, h) query rows of one sequence (r
+//     = s * H + h): 4 query positions at V2-Lite's H = 16, 64 heads of one
+//     position at V3's 128; each row keeps its own causal limit. A gathered
+//     latent row serves 64 query rows. Decode at
+//     H = 16 fills 16 of the 64 rows; the other 48 cost tensor-core time
+//     that a memory-bound call has to spare.
+//   - Plan. The work of the call is laid out on one axis, tile after tile,
+//     each tile costing its visible positions plus kLatCost (its q load and
+//     output; kLatEmptyCost for a tile that only writes zeros); block k of
+//     a fixed grid (one block an SM, from the host's shapes) takes the run
+//     [k * per, (k + 1) * per), per = max(cdiv(total, blocks), kLatMinRun).
+//     Every block finds its run from start / q_lens (lengths) on the
+//     device, so the grid and workspace depend on shapes alone and the call
+//     replays in a CUDA graph. A tile that a block holds whole is written
+//     normalised; a tile cut between blocks leaves a partial (max, sum, 576
+//     accumulators of each row) in slot 2k (the block's first tile) or
+//     2k + 1 (its last), and the block where the tile starts leaves a task
+//     for the merge kernel, which reduces each cut tile once (grid: blocks
+//     x 9 column blocks). So long walks are split, and partials are written
+//     only where a run is cut: at most 2 * blocks tiles of 64 * 578 floats.
+//   - Block. 384 threads: two consumer warpgroups and one producer
+//     warpgroup (setmaxnreg moves registers to the consumers: 224 a thread
+//     there, 56 in the producer). The producer walks the same units, loads
+//     each tile's q (64 x 576 bf16, 72 KB) once, then gathers the latent
+//     rows through the page table (slots looked up a stage ahead, one lane
+//     a position) into a ring of kLatRing stages of kLatStage positions
+//     (36 KB each) with 16-byte cp.async copies; positions past the piece
+//     are zero-filled. Each stage's landing is signalled on an mbarrier by
+//     cp.async.mbarrier.arrive; consumers release a stage (and q, after the
+//     unit's last scores) on others. No block-wide barrier runs after the
+//     plan.
+//   - Consumers. Each warpgroup computes half of the stage's scores S = Q
+//     L^T (18 of the 36 k-steps, wgmma m64n32k16, Q and L in shared memory,
+//     K-major); the halves are swapped through shared memory and added, so
+//     both hold the same scores (a + b == b + a). Then the online softmax
+//     in f32 (base 2, each row across the four lanes that hold it; the
+//     accumulators are rescaled only when a warp's max moved), and O += P L
+//     for its own columns, with P from registers (the score accumulators
+//     re-packed as A fragments, hi + lo bf16 halves as in
+//     attention_mma.cuh: one bf16 P misses the 1e-2 tolerance) and the same
+//     L tile read MN-major (transposed B): warpgroup 0 columns [0, 320) on
+//     m64n256k16 + m64n64k16, 160 f32 accumulators a thread, warpgroup 1
+//     columns [320, 576) on m64n256k16. The 576 columns split at 64-column
+//     blocks because an MN-major operand starts on a swizzle atom.
+//     Splitting the columns over two warpgroups is how DeepSeek's FlashMLA
+//     divides the same latent on Hopper. Everything that steers a loop is
+//     warp-uniform (broadcast from lane 0), and rows past a tile's end are
+//     stored under predicates: a lane-dependent branch in this function
+//     makes ptxas serialize every wgmma chain in it.
+//   - Shared memory, 1024-byte aligned, every tile in the 128-byte swizzled
+//     layout wgmma reads: a tile of R rows is 9 column blocks of [R][64]
+//     bf16, 16-byte chunk c of row r at c ^ (r % 8). q 73,728 bytes, the
+//     ring 3 x 36,864, the score halves 2 x 2 x 8,192, barriers and plan
+//     scratch: 218.3 KB, one block an SM.
+//   - What still bounds it (measured by ablation on the H100, PERF.md):
+//     a stage is a chain of dependent steps (wait, 18 wgmma, swap, softmax,
+//     8 wgmma) that the two warpgroups run in step, about 2 us at the timed
+//     ragged shape against 0.2 us of pipeline overhead, and the gather is
+//     not fully hidden behind it; every tile the plan gives a block costs
+//     its q load and output store (kLatCost); the merge is a second launch.
 //
-// What bounds it on the H100: the latent rows, 576 * bytes per position,
-// read once per tile that sees them (the bound counts them once, k and v
-// being one array); the products, 4 * 576 operations per (row, position).
-// This design is made to be right, not fast: the gather is synchronous
-// with the math (no cp.async ring), and every stage takes three block
-// barriers.
+// f32 (on no served path): PR 15's CUDA-core body, one block per (tile of
+// 16 rows, sequence) or (tile, split, sequence) with the decode's splits
+// chosen by the host and reduced by combine_kernel<float, 576>.
 
 #pragma once
 
 #include "attention_split.cuh"
+#include "wgmma_ptx.cuh"
 
 namespace attn {
 
 constexpr int kLatentDim = 576;
-constexpr int kLatentRows = 16;               // query rows of a tile
-constexpr int kLatentLD = kLatentDim + 8;     // padded bf16 row in shared memory
 
-template <typename T>
-__host__ __device__ constexpr int latent_chunk() {
-  return std::is_same_v<T, __nv_bfloat16> ? 64 : 32;
-}
+// -- f32: CUDA cores ----------------------------------------------------------
 
-// Dynamic shared memory of one block. bf16: latents [C][LD] bf16, q
-// [16][LD] bf16, scores [16][C] f32, P hi and lo [2][16][C + 8] bf16. f32:
-// latents [C][D + 1] f32, q [16][D] f32, scores and then P [16][C] f32.
-// Both then the rows of the stage [C] int32 and the rows' max, sum and
-// rescale [3][16] f32.
-template <typename T>
-__host__ __device__ constexpr int latent_smem_bytes() {
-  constexpr int C = latent_chunk<T>();
-  constexpr int D = kLatentDim, R = kLatentRows;
-  constexpr int tail = C * 4 + 3 * R * 4;
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return C * kLatentLD * 2 + R * kLatentLD * 2 + R * C * 4 + 2 * R * (C + 8) * 2 + tail;
-  } else {
-    return C * (D + 1) * 4 + R * D * 4 + R * C * 4 + tail;
-  }
+constexpr int kLatentRows = 16;     // query rows of an f32 tile
+constexpr int kLatentChunk = 32;    // cache positions of an f32 stage: one a lane
+
+// Latents [C][D + 1], q [16][D], scores and then P [16][C], the stage's
+// rows [C] int32 and the rows' max, sum and rescale [3][16], all f32.
+constexpr int latent_f32_smem_bytes() {
+  constexpr int C = kLatentChunk, D = kLatentDim, R = kLatentRows;
+  return C * (D + 1) * 4 + R * D * 4 + R * C * 4 + C * 4 + 3 * R * 4;
 }
 
 // One block of kThreads threads over a tile of up to 16 query rows: row r
-// is q[(row0 + r) * D ...] of this sequence's rows `q`, real for r < rows,
-// and sees the positions t in [t_begin, min(lim_s[r], t_end)) (lim_s in
-// shared memory, written before the call). Normalised rows go to
-// out[(row0 + r) * D ...] when `out` is not null; otherwise partials at
-// workspace row split * part.rows + row_base + row0 + r.
-template <typename T>
-__device__ __forceinline__ void attend_latent(
-    const T* __restrict__ q, const T* __restrict__ pages, const int* __restrict__ table_row,
-    int P, int row0, int rows, const int* lim_s, int t_begin, int t_end, T* __restrict__ out,
-    const Partials& part, int split, int row_base, float scale) {
-  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-  constexpr int D = kLatentDim, R = kLatentRows, C = latent_chunk<T>();
-  constexpr int LD = kLatentLD;
-  constexpr int LDP = C + 8;                      // padded bf16 row of P
-  constexpr int COLS = D / kWarps;                // bf16: a warp's output columns
-  constexpr int CT = COLS / 8;                    // ... in n8 tiles
-  constexpr int CPT = (D + kThreads - 1) / kThreads;  // f32: a thread's columns
-  using bf16 = __nv_bfloat16;
+// is q[(row0 + r) * D ...], real for r < rows, and sees the positions t in
+// [t_begin, min(lim_s[r], t_end)) (lim_s in shared memory, written before
+// the call). Normalised rows go to out[(row0 + r) * D ...] when `out` is
+// not null; otherwise partials at workspace row split * part.rows +
+// row_base + row0 + r.
+__device__ __forceinline__ void attend_latent_f32(
+    const float* __restrict__ q, const float* __restrict__ pages,
+    const int* __restrict__ table_row, int P, int row0, int rows, const int* lim_s, int t_begin,
+    int t_end, float* __restrict__ out, const Partials& part, int split, int row_base,
+    float scale) {
+  constexpr int D = kLatentDim, R = kLatentRows, C = kLatentChunk;
+  constexpr int CPT = (D + kThreads - 1) / kThreads;  // a thread's columns
   static_assert(kThreads == R * 8, "eight threads a row in the softmax");
-  static_assert(!kBf16 || C == 16 * kWarps, "bf16: one 16-position slice a warp");
-  static_assert(kBf16 || C == kWarp, "f32: one position a lane");
+  static_assert(C == kWarp, "one position a lane");
 
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
@@ -115,46 +132,28 @@ __device__ __forceinline__ void attend_latent(
     // Nothing of the range is visible: a normalised output is zeros;
     // partials are not read.
     if (out != nullptr) {
-      for (int i = tid; i < rows * D; i += kThreads) store(out + static_cast<size_t>(row0) * D + i, 0.f);
+      for (int i = tid; i < rows * D; i += kThreads) out[static_cast<size_t>(row0) * D + i] = 0.f;
     }
     return;
   }
 
   extern __shared__ __align__(16) unsigned char latent_smem[];
-  // bf16 layout
-  bf16* lat_h = reinterpret_cast<bf16*>(latent_smem);
-  bf16* q_h = lat_h + C * LD;
-  float* s_h = reinterpret_cast<float*>(q_h + R * LD);
-  bf16* p_hi = reinterpret_cast<bf16*>(s_h + R * C);
-  bf16* p_lo = p_hi + R * LDP;
-  // f32 layout
-  float* lat_f = reinterpret_cast<float*>(latent_smem);
-  float* q_f = lat_f + C * (D + 1);
-  float* s_f = q_f + R * D;
-  unsigned char* tail = kBf16 ? reinterpret_cast<unsigned char*>(p_lo + R * LDP)
-                              : reinterpret_cast<unsigned char*>(s_f + R * C);
-  int* rows_s = reinterpret_cast<int*>(tail);
+  float* lat = reinterpret_cast<float*>(latent_smem);
+  float* q_s = lat + C * (D + 1);
+  float* s_s = q_s + R * D;
+  int* rows_s = reinterpret_cast<int*>(s_s + R * C);
   float* m_s = reinterpret_cast<float*>(rows_s + C);
   float* l_s = m_s + R;
   float* a_s = l_s + R;
-  float* s_s = kBf16 ? s_h : s_f;
 
   // The q tile, rows past `rows` zero.
-  const T* q0 = q + static_cast<size_t>(row0) * D;
-  if constexpr (kBf16) {
-    for (int i = tid; i < R * (D / 8); i += kThreads) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      cp_async16(q_h + r * LD + c, q0 + static_cast<size_t>(min(r, rows - 1)) * D + c, r < rows);
-    }
-    cp_async_commit();
-  } else {
-    for (int i = tid; i < R * (D / 4); i += kThreads) {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < rows) load_vec<float, 4>(q0 + static_cast<size_t>(r) * D + c, v);
+  const float* q0 = q + static_cast<size_t>(row0) * D;
+  for (int i = tid; i < R * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r < rows) load_vec<float, 4>(q0 + static_cast<size_t>(r) * D + c, v);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) q_f[r * D + c + e] = v[e];
-    }
+    for (int e = 0; e < 4; ++e) q_s[r * D + c + e] = v[e];
   }
   if (tid < R) {
     m_s[tid] = -CUDART_INF_F;
@@ -162,17 +161,11 @@ __device__ __forceinline__ void attend_latent(
   }
   const float sl = scale * kLog2e;
 
-  float o[kBf16 ? CT : 1][4];       // bf16: the warp's columns of the m16 tile
-  float acc[kBf16 ? 1 : R][CPT];    // f32: the thread's columns of every row
-  if constexpr (kBf16) {
+  float acc[R][CPT];
 #pragma unroll
-    for (int ct = 0; ct < CT; ++ct) o[ct][0] = o[ct][1] = o[ct][2] = o[ct][3] = 0.f;
-  } else {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int i = 0; i < CPT; ++i) acc[r][i] = 0.f;
-    }
+    for (int i = 0; i < CPT; ++i) acc[r][i] = 0.f;
   }
 
   for (int c0 = t_begin; c0 < t_end; c0 += C) {
@@ -183,57 +176,25 @@ __device__ __forceinline__ void attend_latent(
     }
     __syncthreads();
     // The stage's latent rows, once: they are both K and V.
-    if constexpr (kBf16) {
-      for (int i = tid; i < C * (D / 8); i += kThreads) {
-        const int j = i / (D / 8), c = (i % (D / 8)) * 8;
-        const int row = rows_s[j];
-        cp_async16(lat_h + j * LD + c, pages + static_cast<size_t>(max(row, 0)) * D + c, row >= 0);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-    } else {
-      for (int i = tid; i < C * (D / 4); i += kThreads) {
-        const int j = i / (D / 4), c = (i % (D / 4)) * 4;
-        const int row = rows_s[j];
-        float v[4] = {0.f, 0.f, 0.f, 0.f};
-        if (row >= 0) load_vec<float, 4>(pages + static_cast<size_t>(row) * D + c, v);
+    for (int i = tid; i < C * (D / 4); i += kThreads) {
+      const int j = i / (D / 4), c = (i % (D / 4)) * 4;
+      const int row = rows_s[j];
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (row >= 0) load_vec<float, 4>(pages + static_cast<size_t>(row) * D + c, v);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) lat_f[j * (D + 1) + c + e] = v[e];
-      }
+      for (int e = 0; e < 4; ++e) lat[j * (D + 1) + c + e] = v[e];
     }
     __syncthreads();
 
-    // Scores, masked per row, in base-2 units.
-    if constexpr (kBf16) {
-      float sc[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const bf16* ks = lat_h + warp * 16 * LD;
-#pragma unroll 4
-      for (int kq = 0; kq < D / 16; ++kq) {
-        uint32_t a[4], b[4];
-        ldmatrix_x4(a, q_h + (lane & 15) * LD + kq * 16 + (lane >> 4) * 8);
-        ldmatrix_x4(b, ks + ((lane >> 4) * 8 + (lane & 7)) * LD + kq * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(sc[0], a, b[0], b[1]);
-        mma_bf16(sc[1], a, b[2], b[3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = lane / 4 + 8 * (e >> 1);
-          const int j = warp * 16 + nt * 8 + 2 * (lane & 3) + (e & 1);
-          const int t = c0 + j;
-          s_s[r * C + j] = t < min(lim_s[r], t_end) ? sc[nt][e] * sl : -CUDART_INF_F;
-        }
-      }
-    } else {
+    // Scores, masked per row, in base-2 units: lane j takes position j
+    // against four rows a warp.
+    {
       const int t = c0 + lane;
-      const float* kr = lat_f + lane * (D + 1);
+      const float* kr = lat + lane * (D + 1);
 #pragma unroll
       for (int rr = 0; rr < R / kWarps; ++rr) {
         const int r = warp * (R / kWarps) + rr;
-        const float* qr = q_f + r * D;
+        const float* qr = q_s + r * D;
         float dot = 0.f;
 #pragma unroll 8
         for (int d = 0; d < D; ++d) dot += qr[d] * kr[d];
@@ -267,18 +228,8 @@ __device__ __forceinline__ void attend_latent(
       }
 #pragma unroll
       for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(kFull, sum, off);
-      if constexpr (kBf16) {
 #pragma unroll
-        for (int e = 0; e < PER; e += 2) {
-          uint32_t hi, lo;
-          split_bf16(v[e], v[e + 1], hi, lo);
-          *reinterpret_cast<uint32_t*>(p_hi + r * LDP + sub * PER + e) = hi;
-          *reinterpret_cast<uint32_t*>(p_lo + r * LDP + sub * PER + e) = lo;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < PER; ++e) s_s[r * C + sub * PER + e] = v[e];
-      }
+      for (int e = 0; e < PER; ++e) s_s[r * C + sub * PER + e] = v[e];
       if (sub == 0) {   // after the shuffles: every lane of the row has read m_s[r]
         m_s[r] = m_new;
         l_s[r] = l_s[r] * alpha + sum;
@@ -287,98 +238,45 @@ __device__ __forceinline__ void attend_latent(
     }
     __syncthreads();
 
-    // O = O * alpha + P L.
-    if constexpr (kBf16) {
-      const float al0 = a_s[lane / 4], al1 = a_s[lane / 4 + 8];
+    // O = O * alpha + P L: thread i owns columns i, i + 128, ... of all rows.
 #pragma unroll
-      for (int ct = 0; ct < CT; ++ct) {
-        o[ct][0] *= al0;
-        o[ct][1] *= al0;
-        o[ct][2] *= al1;
-        o[ct][3] *= al1;
-      }
-      const bf16* vs = lat_h + warp * COLS;
+    for (int r = 0; r < R; ++r) {
+      const float al = a_s[r];
 #pragma unroll
-      for (int kc = 0; kc < C / 16; ++kc) {
-        uint32_t ph[4], pl[4];
-        ldmatrix_x4(ph, p_hi + (lane & 15) * LDP + kc * 16 + (lane >> 4) * 8);
-        ldmatrix_x4(pl, p_lo + (lane & 15) * LDP + kc * 16 + (lane >> 4) * 8);
+      for (int i = 0; i < CPT; ++i) acc[r][i] *= al;
+    }
+    for (int j = 0; j < C; ++j) {
+      const float* lr = lat + j * (D + 1);
 #pragma unroll
-        for (int dp = 0; dp < CT / 2; ++dp) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vs + (kc * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
-          mma_bf16(o[2 * dp], ph, b[0], b[1]);
-          mma_bf16(o[2 * dp + 1], ph, b[2], b[3]);
-          mma_bf16(o[2 * dp], pl, b[0], b[1]);
-          mma_bf16(o[2 * dp + 1], pl, b[2], b[3]);
-        }
-      }
-    } else {
+      for (int i = 0; i < CPT; ++i) {
+        const int c = tid + i * kThreads;
+        if (c >= D) break;
+        const float lv = lr[c];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float al = a_s[r];
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) acc[r][i] *= al;
-      }
-      for (int j = 0; j < C; ++j) {
-        const float* lr = lat_f + j * (D + 1);
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) {
-          const int c = tid + i * kThreads;
-          if (c >= D) break;
-          const float lv = lr[c];
-#pragma unroll
-          for (int r = 0; r < R; ++r) acc[r][i] += s_s[r * C + j] * lv;
-        }
+        for (int r = 0; r < R; ++r) acc[r][i] += s_s[r * C + j] * lv;
       }
     }
   }
   __syncthreads();  // the last stage's max and sum written
 
   // Output: normalised rows, or partials.
-  if constexpr (kBf16) {
+  for (int r = 0; r < rows; ++r) {
+    const float l = l_s[r];
+    const size_t row = static_cast<size_t>(row0) + r;
+    const size_t pr = static_cast<size_t>(split) * part.rows + row_base + row;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = lane / 4 + 8 * i;
-      if (r >= rows) continue;
-      const float l = l_s[r];
-      const size_t row = static_cast<size_t>(row0) + r;
-      const size_t pr = static_cast<size_t>(split) * part.rows + row_base + row;
-#pragma unroll
-      for (int ct = 0; ct < CT; ++ct) {
-        const int c = warp * COLS + ct * 8 + 2 * (lane & 3);
-        const float x = o[ct][2 * i], y = o[ct][2 * i + 1];
-        if (out != nullptr) {
-          const float inv = l > 0.f ? 1.f / l : 0.f;
-          *reinterpret_cast<uint32_t*>(out + row * D + c) = pack_bf16(x * inv, y * inv);
-        } else {
-          *reinterpret_cast<float2*>(part.acc + pr * D + c) = make_float2(x, y);
-        }
-      }
-      if (out == nullptr && warp == 0 && (lane & 3) == 0) {
-        part.ml[2 * pr] = m_s[r] * kLn2;
-        part.ml[2 * pr + 1] = l;
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * kThreads;
+      if (c >= D) break;
+      if (out != nullptr) {
+        out[row * D + c] = l > 0.f ? acc[r][i] / l : 0.f;
+      } else {
+        part.acc[pr * D + c] = acc[r][i];
       }
     }
-  } else {
-    for (int r = 0; r < rows; ++r) {
-      const float l = l_s[r];
-      const size_t row = static_cast<size_t>(row0) + r;
-      const size_t pr = static_cast<size_t>(split) * part.rows + row_base + row;
-#pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        const int c = tid + i * kThreads;
-        if (c >= D) break;
-        if (out != nullptr) {
-          store(out + row * D + c, l > 0.f ? acc[r][i] / l : 0.f);
-        } else {
-          part.acc[pr * D + c] = acc[r][i];
-        }
-      }
-      if (out == nullptr && tid == 0) {
-        part.ml[2 * pr] = m_s[r] * kLn2;
-        part.ml[2 * pr + 1] = l;
-      }
+    if (out == nullptr && tid == 0) {
+      part.ml[2 * pr] = m_s[r] * kLn2;
+      part.ml[2 * pr + 1] = l;
     }
   }
 }
@@ -386,11 +284,10 @@ __device__ __forceinline__ void attend_latent(
 // Ragged rows: one block per (tile of 16 (s, h) rows, sequence). With one
 // kv head the (s, h) enumeration is the row index s * H + h itself. Query
 // s sees t <= start + s and t < start + q_len, clamped to MaxP * P.
-template <typename T>
 __global__ void __launch_bounds__(kThreads) latent_ragged_kernel(
-    const T* __restrict__ q, const T* __restrict__ pages, const int* __restrict__ table,
-    const int* __restrict__ start, const int* __restrict__ q_lens, T* __restrict__ out, int S,
-    int H, int P, int max_pages, float scale) {
+    const float* __restrict__ q, const float* __restrict__ pages, const int* __restrict__ table,
+    const int* __restrict__ start, const int* __restrict__ q_lens, float* __restrict__ out,
+    int S, int H, int P, int max_pages, float scale) {
   __shared__ int lim_s[kLatentRows];
   const int b = blockIdx.y;
   const int first = blockIdx.x * kLatentRows;
@@ -406,17 +303,16 @@ __global__ void __launch_bounds__(kThreads) latent_ragged_kernel(
   const int t_end = s_last >= first / H ? min(st + s_last + 1, cap) : 0;
   __syncthreads();
   const size_t seq = static_cast<size_t>(b) * S * H * kLatentDim;
-  attend_latent<T>(q + seq, pages, table + static_cast<size_t>(b) * max_pages, P, first, rows,
-                   lim_s, 0, t_end, out + seq, Partials{nullptr, nullptr, 0, cap, 1}, 0, 0,
-                   scale);
+  attend_latent_f32(q + seq, pages, table + static_cast<size_t>(b) * max_pages, P, first, rows,
+                    lim_s, 0, t_end, out + seq, Partials{nullptr, nullptr, 0, cap, 1}, 0, 0,
+                    scale);
 }
 
 // Decode: one block per (tile of 16 heads, split, sequence); the query
 // sees t < lengths[b], clamped to MaxP * P, of its split's positions.
-template <typename T>
 __global__ void __launch_bounds__(kThreads) latent_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ pages, const int* __restrict__ table,
-    const int* __restrict__ lengths, Partials part, T* __restrict__ out, int H, int P,
+    const float* __restrict__ q, const float* __restrict__ pages, const int* __restrict__ table,
+    const int* __restrict__ lengths, Partials part, float* __restrict__ out, int H, int P,
     int max_pages, float scale) {
   __shared__ int lim_s[kLatentRows];
   const int b = blockIdx.z, split = blockIdx.y;
@@ -428,10 +324,593 @@ __global__ void __launch_bounds__(kThreads) latent_decode_kernel(
   if (threadIdx.x < kLatentRows) lim_s[threadIdx.x] = t_end;
   __syncthreads();
   const size_t seq = static_cast<size_t>(b) * H;
-  T* seq_out = part.splits == 1 ? out + seq * kLatentDim : nullptr;
-  attend_latent<T>(q + seq * kLatentDim, pages, table + static_cast<size_t>(b) * max_pages, P,
-                   first, rows, lim_s, t_begin, t_end, seq_out, part, split,
-                   static_cast<int>(seq), scale);
+  float* seq_out = part.splits == 1 ? out + seq * kLatentDim : nullptr;
+  attend_latent_f32(q + seq * kLatentDim, pages, table + static_cast<size_t>(b) * max_pages, P,
+                    first, rows, lim_s, t_begin, t_end, seq_out, part, split,
+                    static_cast<int>(seq), scale);
+}
+
+// -- bf16: warpgroups -----------------------------------------------------------
+// ops/paged_attention.py mirrors the plan's constants (LATENT_*) and the
+// plan itself (latent_plan), and sizes the workspace.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kLatTile = 64;          // query rows of a tile: wgmma's m64
+constexpr int kLatStage = 32;         // cache positions of a ring stage
+constexpr int kLatRing = 3;           // stages in the ring
+constexpr int kLatCost = 128;         // a tile's fixed cost in the plan, in positions
+constexpr int kLatEmptyCost = 32;     // ... a tile that sees nothing: zeros, no q load
+constexpr int kLatMinRun = 128;       // least positions of a block's run
+constexpr int kLatThreads = 384;      // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kLatProducerRegs = 56;  // setmaxnreg: 128 * 56 + 256 * 224 = 384 * 168
+constexpr int kLatConsumerRegs = 224;
+constexpr int kLatMergeThreads = 256; // a merge block: (row, 4 columns) items of a cut tile
+constexpr int kLatSplitCols = 320;    // warpgroup 0's columns; warpgroup 1 the rest
+constexpr int kLatSwap = 1;           // named barrier: both warpgroups' score halves written
+constexpr int kLatChunks = kLatentDim / 8;                   // 16-byte chunks of a row
+constexpr int kLatQBytes = kLatTile * kLatentDim * 2;        // 73,728
+constexpr int kLatStageBytes = kLatStage * kLatentDim * 2;   // 36,864
+constexpr int kLatSwapBytes = 2 * 2 * kLatTile * kLatStage * 4;   // [parity][warpgroup] halves
+constexpr int kLatSmemBytes = 1024 + kLatQBytes + kLatRing * kLatStageBytes + kLatSwapBytes +
+                              (2 * kLatRing + 2) * 8 + 16 * 8;
+static_assert(kLatSmemBytes <= 232448, "one block an SM");
+static_assert(kLatStage == 32 && kLatSplitCols % 64 == 0, "wgmma tiles: m64n32k16 scores");
+static_assert(kLatCost >= 1 && kLatEmptyCost >= 1,
+              "a tile ends before its run's end when the run ends the call");
+
+// A tile's cost on the plan's axis.
+__device__ __forceinline__ long long latent_cost(int len) {
+  return len + (len > 0 ? kLatCost : kLatEmptyCost);
+}
+
+// Byte offset of 16-byte chunk c of row r in a swizzled tile of `rows` rows.
+__device__ __forceinline__ int lat_swz(int rows, int r, int c) {
+  return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// A call's shapes. Ragged: `start` and `q_lens`; decode: `start` holds
+// lengths and q_lens is null (S = 1).
+struct LatentJob {
+  const int* start;
+  const int* q_lens;
+  int S, H;
+  int tiles;   // tiles of a sequence: cdiv(S * H, 64)
+  int items;   // B * tiles
+  int cap;     // MaxP * P
+};
+
+// The positions the rows of tile `item` (sequence * tiles + tile) see: up
+// to its last real, valid row's window.
+__device__ __forceinline__ int latent_len(const LatentJob& j, int item) {
+  const int b = item / j.tiles, first = (item % j.tiles) * kLatTile;
+  if (j.q_lens == nullptr) return min(max(__ldg(j.start + b), 0), j.cap);
+  const int rows = min(kLatTile, j.S * j.H - first);
+  const int s_last = min((first + rows - 1) / j.H, __ldg(j.q_lens + b) - 1);
+  return s_last >= first / j.H ? min(__ldg(j.start + b) + s_last + 1, j.cap) : 0;
+}
+
+// A block's run on the plan's axis, [begin, end); `item` is the first tile
+// that reaches into it (-1: the block has no run) and `pre` its offset.
+struct LatentRun {
+  long long per, begin, end, pre;
+  int item;
+};
+
+// All threads of the block: the total cost, then the tile holding the
+// run's first position (two block scans over the tiles). `red` holds
+// kLatThreads / 32 + 2 values in shared memory.
+__device__ LatentRun latent_run(const LatentJob& j, int block, int blocks, long long* red) {
+  constexpr int NT = kLatThreads, W = NT / kWarp;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  long long sum = 0;
+  for (int i = tid; i < j.items; i += NT) sum += latent_cost(latent_len(j, i));
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+  if (lane == 0) red[warp] = sum;
+  __syncthreads();
+  long long total = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) total += red[w];
+  LatentRun run;
+  run.per = max((total + blocks - 1) / blocks, static_cast<long long>(kLatMinRun));
+  run.begin = block * run.per;
+  run.end = min(run.begin + run.per, total);
+  run.item = -1;
+  run.pre = 0;
+  if (run.begin >= total) return run;
+  long long carry = 0;
+  for (int base = 0; base < j.items; base += NT) {
+    __syncthreads();  // red read by every thread
+    const int i = base + tid;
+    const long long c = i < j.items ? latent_cost(latent_len(j, i)) : 0;
+    long long x = c;   // inclusive scan in the warp
+#pragma unroll
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const long long y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == kWarp - 1) red[warp] = x;
+    if (tid == 0) red[W] = -1;
+    __syncthreads();
+    long long before = carry + x - c, chunk = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      if (w < warp) before += red[w];
+      chunk += red[w];
+    }
+    __syncthreads();
+    if (c > 0 && before <= run.begin && run.begin < before + c) {
+      red[W] = i;
+      red[W + 1] = before;
+    }
+    __syncthreads();
+    if (red[W] >= 0) {
+      run.item = static_cast<int>(red[W]);
+      run.pre = red[W + 1];
+      return run;
+    }
+    carry += chunk;
+  }
+  return run;  // not reached: begin < total lies in some tile
+}
+
+// A tile's piece in a block's run.
+struct LatentUnit {
+  long long pre;   // the tile's offset on the plan's axis
+  int item, len;   // the tile and the positions its rows see
+  int lo, hi;      // the piece's positions
+  int slot;        // its partials' slot, when cut
+  bool cut;        // the tile's positions are split over blocks
+};
+
+// The block's next unit (a piece with positions, or an empty tile that
+// starts in the run, whose zeros it writes); advances (item, pre).
+__device__ __forceinline__ bool latent_next(const LatentJob& j, const LatentRun& run, int block,
+                                            int& item, long long& pre, LatentUnit& u) {
+  while (item < j.items && pre < run.end) {
+    const int len = latent_len(j, item);
+    const long long lo = max(run.begin - pre, 0LL);
+    const long long hi = min(run.end - pre, static_cast<long long>(len));
+    const bool take = lo < hi || (len == 0 && pre >= run.begin);
+    if (take) {
+      u.pre = pre;
+      u.item = item;
+      u.len = len;
+      u.lo = static_cast<int>(lo);
+      u.hi = static_cast<int>(max(hi, lo));
+      // Cut: the tile reaches past the run on either side (no 64-bit
+      // division here: it would branch inside the consumers' loop).
+      u.cut = pre < run.begin || pre + max(len, 1) > run.end;
+      u.slot = 2 * block + (pre < run.begin ? 0 : 1);
+    }
+    pre += latent_cost(len);
+    ++item;
+    if (take) return true;
+  }
+  return false;
+}
+
+// The producer warpgroup: each unit's q tile, then its latent rows into
+// the ring; warp w copies rows w, w + 4, ... of q and positions [8w, 8w +
+// 8) of each stage, every lane arriving on the stage's barrier.
+// The workspace of a bf16 call over `blocks` blocks: partial
+// accumulators [2 * blocks][64][576], their (max, sum) pairs [2 * blocks][64]
+// [2], then each block's merge task (the tile cut at the end of its run if
+// the tile starts in the run: its item, or -1 for none; its offset in the
+// run; its positions; the plan's per).
+__device__ __forceinline__ int4* latent_tasks(float* ws, int blocks) {
+  return reinterpret_cast<int4*>(ws + 2 * static_cast<size_t>(blocks) * kLatTile *
+                                           (kLatentDim + 2));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void latent_produce(
+    const bf16* __restrict__ q, const bf16* __restrict__ pages, const int* __restrict__ table,
+    const LatentJob& job, const LatentRun& run, int P, int max_pages, unsigned char* q_s,
+    unsigned char* ring, uint64_t* full, uint64_t* empty, uint64_t* q_full, uint64_t* q_empty,
+    int4* tasks) {
+  constexpr int PW = kLatStage / 4;   // positions of a stage a warp copies
+  const int lane = threadIdx.x % kWarp, w = (threadIdx.x / kWarp) % 4;
+  int item = run.item, it = 0, qn = 0;
+  long long pre = run.pre;
+  LatentUnit u;
+  int4 task = make_int4(-1, 0, 0, 1);   // the merge's: a cut tile that starts in the run
+  while (latent_next(job, run, blockIdx.x, item, pre, u)) {
+    if (u.cut && u.pre >= run.begin) {
+      task = make_int4(u.item, static_cast<int>(u.pre - run.begin), u.len,
+                       static_cast<int>(run.per));
+    }
+    if (u.lo >= u.hi) continue;   // an empty tile: zeros, no loads
+    const int b = u.item / job.tiles, first = (u.item % job.tiles) * kLatTile;
+    const int rows = min(kLatTile, job.S * job.H - first);
+    // q's rows past `rows` are not loaded: their outputs are not written.
+    mbar_wait(q_empty, (qn & 1) ^ 1);
+    const bf16* q0 = q + (static_cast<size_t>(b) * job.S * job.H + first) * kLatentDim;
+    for (int r = w; r < rows; r += 4) {
+      for (int c = lane; c < kLatChunks; c += kWarp) {
+        cp_async16(q_s + lat_swz(kLatTile, r, c), q0 + static_cast<size_t>(r) * kLatentDim + c * 8,
+                   true);
+      }
+    }
+    cp_async_mbar_arrive(q_full);
+    ++qn;
+    const int* trow = table + static_cast<size_t>(b) * max_pages;
+    const int hi = u.hi;
+    auto row_of = [&](int t) { return t < hi ? max(__ldg(trow + t / P), 0) * P + t % P : -1; };
+    const int mine = PW * w + lane % PW;   // the position this lane looks up
+    int next = row_of(u.lo + mine);
+    for (int c0 = u.lo; c0 < hi; c0 += kLatStage, ++it) {
+      const int s = it % kLatRing;
+      const int cur = next;
+      if (c0 + kLatStage < hi) next = row_of(c0 + kLatStage + mine);   // a stage ahead
+      mbar_wait(empty + s, ((it / kLatRing) & 1) ^ 1);
+      unsigned char* dst = ring + s * kLatStageBytes;
+#pragma unroll 2
+      for (int p = PW * w, i = 0; i < PW; ++p, ++i) {
+        const int row = __shfl_sync(kFull, cur, i);
+        const bf16* src = pages + static_cast<size_t>(max(row, 0)) * kLatentDim;
+        for (int c = lane; c < kLatChunks; c += kWarp) {
+          cp_async16(dst + lat_swz(kLatStage, p, c), src + c * 8, row >= 0);
+        }
+      }
+      cp_async_mbar_arrive(full + s);
+    }
+  }
+  if (threadIdx.x == 256) tasks[blockIdx.x] = task;
+  cp_async_wait<0>();
+}
+
+// A consumer warpgroup: columns [64 * CB0, 64 * (CB0 + NB)) of every unit.
+template <int NB, int CB0, bool kDecode>
+__device__ __forceinline__ void latent_consume(
+    const LatentJob& job, const LatentRun& run, float* __restrict__ ws, bf16* __restrict__ out,
+    const unsigned char* q_s, const unsigned char* ring, float* swap, uint64_t* full,
+    uint64_t* empty, uint64_t* q_full, uint64_t* q_empty, float scale) {
+  constexpr int NO = NB * 32;            // accumulators a thread: 64 rows x 64 NB columns / 128
+  constexpr int C = kLatStage;
+  constexpr int NS = C / 2;              // score accumulators a thread
+  constexpr int KS = kLatentDim / 16;    // k-steps of the scores
+  static_assert(NB == 4 || NB == 5, "n256, and n64 for a fifth column block");
+  constexpr int CW = CB0 == 0 ? 0 : 1;   // this warpgroup
+  const int lane = threadIdx.x % kWarp, wt = threadIdx.x % 128;
+  const int r0 = 16 * (wt / kWarp) + lane / 4;   // rows r0 and r0 + 8
+  const float sl = scale * kLog2e;
+  const uint32_t q_addr = smem_u32(q_s), ring_addr = smem_u32(ring);
+  float* ml = ws + 2 * static_cast<size_t>(gridDim.x) * kLatTile * kLatentDim;
+  int item = run.item, it = 0, qn = 0;
+  long long pre = run.pre;
+  LatentUnit u;
+  float o[NO];
+  // Everything that steers the loops is broadcast from lane 0, so that
+  // the compiler sees it warp-uniform and keeps the wgmma chains whole.
+  while (__shfl_sync(kFull, latent_next(job, run, blockIdx.x, item, pre, u), 0)) {
+    u.lo = __shfl_sync(kFull, u.lo, 0);
+    u.hi = __shfl_sync(kFull, u.hi, 0);
+    u.cut = __shfl_sync(kFull, u.cut, 0);
+    u.len = __shfl_sync(kFull, u.len, 0);
+    const int b = u.item / job.tiles, first = (u.item % job.tiles) * kLatTile;
+    const int rows = min(kLatTile, job.S * job.H - first);
+    const int st = __ldg(job.start + b), ql = kDecode ? 0 : __ldg(job.q_lens + b);
+    int lim[2];   // each row's visible positions, within the piece
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i, s = (first + r) / job.H;
+      const int seen = kDecode ? u.len : (s < ql ? min(st + s + 1, job.cap) : 0);
+      lim[i] = min(r < rows ? seen : 0, u.hi);
+    }
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < NO; ++k) o[k] = 0.f;
+    if (u.lo < u.hi) mbar_wait(q_full, qn++ & 1);
+    for (int c0 = u.lo; c0 < u.hi; c0 += C, ++it) {
+      const int s = it % kLatRing;
+      const uint32_t st = ring_addr + s * kLatStageBytes;
+      mbar_wait(full + s, (it / kLatRing) & 1);
+      fence_proxy_async();
+
+      // S = Q L^T, K-major both: this warpgroup takes half of the 576
+      // columns (18 k-steps), the halves are swapped through shared memory
+      // and added, so both hold the same scores (a + b == b + a) for half
+      // the products and half the length of a wgmma chain.
+      float sc[NS];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS / 2; ++ks) {
+        const int kg = CW * (KS / 2) + ks;
+        const uint32_t qa = q_addr + (kg >> 2) * (kLatTile * 128) + (kg & 3) * 32;
+        const uint32_t ka = st + (kg >> 2) * (C * 128) + (kg & 3) * 32;
+        wgmma_ss_n32(sc, wgmma_desc(qa, 16, 1024), wgmma_desc(ka, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int k = 0; k < NS; ++k) fence_operand(sc[k]);
+      __syncwarp();
+      if (c0 + C >= u.hi) mbar_arrive_lane0(q_empty);   // the unit's last read of q
+      float* half = swap + (it & 1) * (2 * NS * 128);  // [parity][warpgroup][k][128 threads]
+#pragma unroll
+      for (int k = 0; k < NS; ++k) half[(CW * NS + k) * 128 + wt] = sc[k];
+      named_sync(kLatSwap, 256);
+#pragma unroll
+      for (int k = 0; k < NS; ++k) sc[k] += half[((1 - CW) * NS + k) * 128 + wt];
+
+      // Masked scores in base-2 units; the online softmax of rows r0, r0 + 8
+      // over the four lanes that hold each.
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+        const int i = (k >> 1) & 1;
+        const int t = c0 + 8 * (k >> 2) + 2 * (lane & 3) + (k & 1);
+        sc[k] = t < lim[i] ? sc[k] * sl : -CUDART_INF_F;
+        mx[i] = fmaxf(mx[i], sc[k]);
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+        const float mn = fmaxf(m[i], mx[i]);
+        alpha[i] = mn == -CUDART_INF_F ? 1.f : fast_exp2(m[i] - mn);
+        m[i] = mn;
+      }
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+        const int i = (k >> 1) & 1;
+        sc[k] = m[i] == -CUDART_INF_F ? 0.f : fast_exp2(sc[k] - m[i]);
+        sum[i] += sc[k];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(kFull, sum[i], 1);
+        sum[i] += __shfl_xor_sync(kFull, sum[i], 2);
+        l[i] = l[i] * alpha[i] + sum[i];
+      }
+      // Once a row's max settles, alpha is 1: skip the rescale when it is
+      // for the whole warp (a warp-uniform branch).
+      if (!__all_sync(kFull, alpha[0] == 1.f && alpha[1] == 1.f)) {
+#pragma unroll
+        for (int k = 0; k < NO; ++k) o[k] *= alpha[(k >> 1) & 1];
+      }
+
+      // P as A fragments (hi + lo), O += P L with L MN-major.
+      uint32_t ph[C / 16][4], pl[C / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], ph[kk][e], pl[kk][e]);
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk) {
+        const uint32_t va = st + CB0 * (C * 128) + kk * 16 * 128;
+        const uint64_t vd = wgmma_desc(va, C * 128, 1024);
+        wgmma_rs_n256(o, ph[kk], vd);
+        wgmma_rs_n256(o, pl[kk], vd);
+        if constexpr (NB == 5) {
+          const uint64_t vd4 = wgmma_desc(va + 4 * (C * 128), C * 128, 1024);
+          wgmma_rs_n64(o + 128, ph[kk], vd4);
+          wgmma_rs_n64(o + 128, pl[kk], vd4);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int k = 0; k < NO; ++k) fence_operand(o[k]);
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(ph[kk][e]);
+          fence_operand(pl[kk][e]);
+        }
+      }
+      __syncwarp();
+      mbar_arrive_lane0(empty + s);
+    }
+
+    // The rows: normalised, or the partials of a cut tile. A warp with no
+    // row of the tile skips; rows past the tile's end are predicated off
+    // store by store (a lane-dependent branch here would make ptxas
+    // serialize the wgmma chains above).
+    const size_t seq_row = static_cast<size_t>(b) * job.S * job.H + first;
+    const int j = lane & 3;
+    if (u.len == 0) {
+      // An empty tile: zeros, row-major, 16 bytes a thread.
+      constexpr int CH = NO / 4;   // this warpgroup's 16-byte chunks of a row
+#pragma unroll 4
+      for (int k = threadIdx.x % 128; k < kLatTile * CH; k += 128) {
+        const int r = k / CH;
+        st_if(out + (seq_row + r) * kLatentDim + CB0 * 64 + 8 * (k % CH), make_uint4(0, 0, 0, 0),
+              r < rows);
+      }
+    } else if (__any_sync(kFull, r0 < rows)) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + 8 * i;
+        const bool real = r < rows;
+        if (u.cut) {
+          const size_t pr = static_cast<size_t>(u.slot) * kLatTile + r;
+          float* acc = ws + pr * kLatentDim + CB0 * 64;
+#pragma unroll
+          for (int g = 0; g < NO / 16; ++g) {
+            float2 w[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              w[k] = make_float2(o[16 * g + 4 * k + 2 * i], o[16 * g + 4 * k + 2 * i + 1]);
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k) st_if(acc + 8 * (4 * g + k) + 2 * j, w[k].x, w[k].y, real);
+          }
+          // The row's four lanes write the same (max, sum).
+          if constexpr (CB0 == 0) st_if(ml + 2 * pr, m[i], l[i], real);
+        } else {
+          const float inv = l[i] > 0.f ? __fdividef(1.f, l[i]) : 0.f;
+          bf16* dst = out + (seq_row + r) * kLatentDim + CB0 * 64;
+#pragma unroll
+          for (int g = 0; g < NO / 16; ++g) {
+            uint32_t w[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              w[k] = pack_bf16(o[16 * g + 4 * k + 2 * i] * inv,
+                               o[16 * g + 4 * k + 2 * i + 1] * inv);
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k) st_if(dst + 8 * (4 * g + k) + 2 * j, w[k], real);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool kDecode>
+__device__ __forceinline__ void latent_wg(const bf16* __restrict__ q,
+                                          const bf16* __restrict__ pages,
+                                          const int* __restrict__ table, const LatentJob& job,
+                                          float* __restrict__ ws, bf16* __restrict__ out, int P,
+                                          int max_pages, float scale) {
+  extern __shared__ __align__(16) unsigned char lat_raw[];
+  unsigned char* q_s = lat_raw + ((1024 - (smem_u32(lat_raw) & 1023)) & 1023);
+  unsigned char* ring = q_s + kLatQBytes;
+  float* swap = reinterpret_cast<float*>(ring + kLatRing * kLatStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kLatRing * kLatStageBytes + kLatSwapBytes);
+  uint64_t* empty = full + kLatRing;
+  uint64_t* q_full = empty + kLatRing;
+  uint64_t* q_empty = q_full + 1;
+  long long* red = reinterpret_cast<long long*>(q_empty + 1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kLatRing; ++s) {
+      mbar_init(full + s, 128);     // the producer's threads, as their copies land
+      mbar_init(empty + s, 8);      // the consumers' warps
+    }
+    mbar_init(q_full, 128);
+    mbar_init(q_empty, 8);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const LatentRun run = latent_run(job, blockIdx.x, gridDim.x, red);
+  if (__shfl_sync(kFull, run.item, 0) < 0) {
+    if (threadIdx.x == 0) latent_tasks(ws, gridDim.x)[blockIdx.x] = make_int4(-1, 0, 0, 1);
+    return;
+  }
+  const int wg = __shfl_sync(kFull, threadIdx.x / 128, 0);   // warp-uniform
+  if (wg == 2) {
+    setmaxnreg_dec<kLatProducerRegs>();
+    latent_produce(q, pages, table, job, run, P, max_pages, q_s, ring, full, empty, q_full,
+                   q_empty, latent_tasks(ws, gridDim.x));
+  } else if (wg == 0) {
+    setmaxnreg_inc<kLatConsumerRegs>();
+    latent_consume<kLatSplitCols / 64, 0, kDecode>(job, run, ws, out, q_s, ring, swap, full,
+                                                   empty, q_full, q_empty, scale);
+  } else {
+    setmaxnreg_inc<kLatConsumerRegs>();
+    latent_consume<(kLatentDim - kLatSplitCols) / 64, kLatSplitCols / 64, kDecode>(
+        job, run, ws, out, q_s, ring, swap, full, empty, q_full, q_empty, scale);
+  }
+}
+
+// Block (x, y): block x's merge task, columns [64 y, 64 y + 64) of its
+// rows, each (row, 4 columns) folded over the pieces as the main kernel
+// folds positions (running max, rescaled sums).
+__device__ __forceinline__ void latent_merge(float* __restrict__ ws, bf16* __restrict__ out,
+                                             const LatentJob& job, int blocks) {
+  constexpr int QC = 16;   // float4 chunks of 64 columns
+  const int k0 = blockIdx.x;
+  const int4 task = latent_tasks(ws, blocks)[k0];
+  if (task.x < 0) return;
+  // The blocks from k0 on that hold the tile's positions.
+  const int pieces = static_cast<int>((static_cast<long long>(task.y) + task.z - 1) / task.w) + 1;
+  const int first = (task.x % job.tiles) * kLatTile;
+  const int rows = min(kLatTile, job.S * job.H - first);
+  const float* ml = ws + 2 * static_cast<size_t>(blocks) * kLatTile * kLatentDim;
+  const size_t seq_row = static_cast<size_t>(task.x / job.tiles) * job.S * job.H + first;
+  for (int i = threadIdx.x; i < rows * QC; i += kLatMergeThreads) {
+    const int r = i / QC, c = (blockIdx.y * QC + i % QC) * 4;
+    // Piece j's row: block k0's slot 2 k0 + 1, then block k0 + j's slot 2 (k0 + j).
+    const float* m0 = ml + 2 * ((2 * k0 + 1) * kLatTile + r);
+    const float* a0 = ws + ((2 * k0 + 1) * kLatTile + r) * static_cast<size_t>(kLatentDim) + c;
+    constexpr int SLOT2 = 2 * kLatTile;   // rows from slot 2k to slot 2(k + 1)
+    // Folded online (running max, rescaled sums): no load waits on another.
+    float mx = -CUDART_INF_F, den = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+    for (int j = 0; j < pieces; ++j) {
+      const int d = j == 0 ? 0 : j * SLOT2 - kLatTile;   // rows past piece 0's
+      const float2 p = __ldg(reinterpret_cast<const float2*>(m0 + 2 * d));
+      const float4 v =
+          __ldg(reinterpret_cast<const float4*>(a0 + static_cast<size_t>(d) * kLatentDim));
+      const float mn = fmaxf(mx, p.x);
+      const bool none = mn == -CUDART_INF_F;   // nothing seen yet
+      const float keep = none ? 1.f : exp2f(mx - mn), w = none ? 0.f : exp2f(p.x - mn);
+      mx = mn;
+      den = den * keep + w * p.y;
+      a.x = a.x * keep + w * v.x;
+      a.y = a.y * keep + w * v.y;
+      a.z = a.z * keep + w * v.z;
+      a.w = a.w * keep + w * v.w;
+    }
+    const float inv = den > 0.f ? 1.f / den : 0.f;
+    *reinterpret_cast<uint2*>(out + (seq_row + r) * kLatentDim + c) =
+        make_uint2(pack_bf16(a.x * inv, a.y * inv), pack_bf16(a.z * inv, a.w * inv));
+  }
+}
+
+// Two names for each kernel, so a profile tells the ragged call from the
+// decode call.
+__global__ void __launch_bounds__(kLatThreads, 1) latent_ragged_wg_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ pages, const int* __restrict__ table,
+    LatentJob job, float* __restrict__ ws, bf16* __restrict__ out, int P, int max_pages,
+    float scale) {
+  latent_wg<false>(q, pages, table, job, ws, out, P, max_pages, scale);
+}
+
+__global__ void __launch_bounds__(kLatThreads, 1) latent_decode_wg_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ pages, const int* __restrict__ table,
+    LatentJob job, float* __restrict__ ws, bf16* __restrict__ out, int P, int max_pages,
+    float scale) {
+  latent_wg<true>(q, pages, table, job, ws, out, P, max_pages, scale);
+}
+
+__global__ void __launch_bounds__(kLatMergeThreads) latent_ragged_merge_kernel(
+    float* __restrict__ ws, bf16* __restrict__ out, LatentJob job, int blocks) {
+  latent_merge(ws, out, job, blocks);
+}
+
+__global__ void __launch_bounds__(kLatMergeThreads) latent_decode_merge_kernel(
+    float* __restrict__ ws, bf16* __restrict__ out, LatentJob job, int blocks) {
+  latent_merge(ws, out, job, blocks);
+}
+
+// Both passes of a bf16 call over `blocks` blocks; `ws` holds 2 * blocks *
+// 64 * 578 + 4 * blocks floats. Decode: `start` holds lengths, q_lens is
+// null, S = 1.
+template <bool kDecode>
+cudaError_t launch_latent_wg(const void* q, const void* pages, const int* table,
+                             const int* start, const int* q_lens, float* ws, void* out, int B,
+                             int S, int H, int P, int max_pages, int blocks, float scale,
+                             cudaStream_t stream) {
+  auto kernel = kDecode ? latent_decode_wg_kernel : latent_ragged_wg_kernel;
+  auto merge = kDecode ? latent_decode_merge_kernel : latent_ragged_merge_kernel;
+  static const cudaError_t prepared = prepare(kernel, kLatSmemBytes);  // once per instance
+  if (prepared != cudaSuccess) return prepared;
+  const int tiles = (S * H + kLatTile - 1) / kLatTile;
+  const LatentJob job{start, q_lens, S, H, tiles, B * tiles, max_pages * P};
+  kernel<<<blocks, kLatThreads, kLatSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(pages), table, job, ws,
+      static_cast<bf16*>(out), P, max_pages, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  merge<<<dim3(blocks, kLatentDim / 64), kLatMergeThreads, 0, stream>>>(
+      ws, static_cast<bf16*>(out), job, blocks);
+  return cudaGetLastError();
 }
 
 }  // namespace attn

@@ -180,37 +180,37 @@ struct Decode {
   cudaError_t run() const { return launch_decode<T, PT, D>(a, lengths, part); }
 };
 
-template <typename T>
-cudaError_t launch_latent_ragged(const void* q, const void* pages, const int* table,
-                                 const int* start, const int* q_lens, void* out, int B, int S,
-                                 int H, int P, int max_pages, float scale, cudaStream_t stream) {
-  constexpr int bytes = latent_smem_bytes<T>();
-  auto kernel = latent_ragged_kernel<T>;
-  static const cudaError_t prepared = prepare(kernel, bytes);  // once per instance
+// f32 latent calls: the CUDA-core kernels, the decode split as planned by
+// the host and reduced by combine_kernel<float, 576>.
+cudaError_t launch_latent_ragged_f32(const void* q, const void* pages, const int* table,
+                                     const int* start, const int* q_lens, void* out, int B,
+                                     int S, int H, int P, int max_pages, float scale,
+                                     cudaStream_t stream) {
+  constexpr int bytes = latent_f32_smem_bytes();
+  static const cudaError_t prepared = prepare(latent_ragged_kernel, bytes);
   if (prepared != cudaSuccess) return prepared;
   const dim3 grid((S * H + kLatentRows - 1) / kLatentRows, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pages), table, start, q_lens,
-      static_cast<T*>(out), S, H, P, max_pages, scale);
+  latent_ragged_kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(pages), table, start, q_lens,
+      static_cast<float*>(out), S, H, P, max_pages, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_latent_decode(const void* q, const void* pages, const int* table,
-                                 const int* lengths, const Partials& part, void* out, int B,
-                                 int H, int P, int max_pages, float scale, cudaStream_t stream) {
-  constexpr int bytes = latent_smem_bytes<T>();
-  auto kernel = latent_decode_kernel<T>;
-  static const cudaError_t prepared = prepare(kernel, bytes);  // once per instance
+cudaError_t launch_latent_decode_f32(const void* q, const void* pages, const int* table,
+                                     const int* lengths, const Partials& part, void* out, int B,
+                                     int H, int P, int max_pages, float scale,
+                                     cudaStream_t stream) {
+  constexpr int bytes = latent_f32_smem_bytes();
+  static const cudaError_t prepared = prepare(latent_decode_kernel, bytes);
   if (prepared != cudaSuccess) return prepared;
   const dim3 grid((H + kLatentRows - 1) / kLatentRows, part.splits, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pages), table, lengths, part,
-      static_cast<T*>(out), H, P, max_pages, scale);
+  latent_decode_kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(pages), table, lengths, part,
+      static_cast<float*>(out), H, P, max_pages, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || part.splits == 1) return err;
-  return launch_combine<T, kLatentDim>(part, nullptr, nullptr, lengths, static_cast<T*>(out), 1,
-                                       H, max_pages * P, stream);
+  return launch_combine<float, kLatentDim>(part, nullptr, nullptr, lengths,
+                                           static_cast<float*>(out), 1, H, max_pages * P, stream);
 }
 
 }  // namespace
@@ -255,44 +255,48 @@ extern "C" int opsagent_paged_decode_attention(
 
 // The latent instances: q [B, S, H, 576] (decode [B, H, 576]) and pages
 // [N, P, 1, 576] in q's dtype, the one page array serving as K and V; the
-// rest as above (`workspace` holds splits * B * H * 578 floats with more
-// than one split).
+// rest as above. bf16 runs the warpgroup kernels over `blocks` blocks (one
+// an SM) with `workspace` holding 2 * blocks * 64 * 578 floats, both calls;
+// f32 ragged takes neither, f32 decode takes `splits` and `span` as above
+// (`workspace`: splits * B * H * 578 floats with more than one split).
 extern "C" int opsagent_paged_ragged_attention_latent(
     const void* q, const void* pages, const void* table, const void* start,
-    const void* q_lens, void* out, int B, int S, int H, int P, int max_pages, float scale,
-    int dtype, void* stream) {
+    const void* q_lens, void* workspace, void* out, int B, int S, int H, int P, int max_pages,
+    int blocks, float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return cudaSuccess;
   const auto* tb = static_cast<const int*>(table);
   const auto* st = static_cast<const int*>(start);
   const auto* ql = static_cast<const int*>(q_lens);
   auto* s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) {
-    return launch_latent_ragged<float>(q, pages, tb, st, ql, out, B, S, H, P, max_pages, scale, s);
+    return launch_latent_ragged_f32(q, pages, tb, st, ql, out, B, S, H, P, max_pages, scale, s);
   }
   if (dtype == kBFloat16) {
-    return launch_latent_ragged<__nv_bfloat16>(q, pages, tb, st, ql, out, B, S, H, P,
-                                               max_pages, scale, s);
+    if (blocks < 1 || workspace == nullptr) return cudaErrorInvalidValue;
+    return launch_latent_wg<false>(q, pages, tb, st, ql, static_cast<float*>(workspace), out, B,
+                                   S, H, P, max_pages, blocks, scale, s);
   }
   return cudaErrorInvalidValue;
 }
 
 extern "C" int opsagent_paged_decode_attention_latent(
     const void* q, const void* pages, const void* table, const void* lengths, void* workspace,
-    void* out, int B, int H, int P, int max_pages, int splits, int span, float scale, int dtype,
-    void* stream) {
+    void* out, int B, int H, int P, int max_pages, int splits, int span, int blocks, float scale,
+    int dtype, void* stream) {
   if (B == 0) return cudaSuccess;
-  if (splits < 1 || span < 1) return cudaErrorInvalidValue;
-  if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
   const auto* tb = static_cast<const int*>(table);
   const auto* ln = static_cast<const int*>(lengths);
-  const Partials part = partials(workspace, B * H, splits, span);
   auto* s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) {
-    return launch_latent_decode<float>(q, pages, tb, ln, part, out, B, H, P, max_pages, scale, s);
+    if (splits < 1 || span < 1) return cudaErrorInvalidValue;
+    if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
+    return launch_latent_decode_f32(q, pages, tb, ln, partials(workspace, B * H, splits, span),
+                                    out, B, H, P, max_pages, scale, s);
   }
   if (dtype == kBFloat16) {
-    return launch_latent_decode<__nv_bfloat16>(q, pages, tb, ln, part, out, B, H, P, max_pages,
-                                               scale, s);
+    if (blocks < 1 || workspace == nullptr) return cudaErrorInvalidValue;
+    return launch_latent_wg<true>(q, pages, tb, ln, nullptr, static_cast<float*>(workspace), out,
+                                  B, 1, H, P, max_pages, blocks, scale, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -18,7 +18,10 @@ the JAX model calls ``paged_ragged_attention`` and
 ``paged_decode_attention`` on that path (``csrc/attention_latent.cuh``).
 The dma wrappers take that shape only with one kv head and the same pages
 as k and v, and count it under ``*_latent``; the grid wrappers do not take
-it.
+it. In bf16 both functions run one warpgroup kernel over 64-row tiles on
+a fixed grid of ``latent_blocks`` blocks, each of which finds its share of
+the call's positions on the device (``latent_plan`` mirrors that plan),
+and a merge kernel for the tiles cut between blocks.
 
 Both decode kernels split the KV sequence the same way, over a body they
 share (``csrc/attention_split.cuh``), with splits of at most
@@ -67,6 +70,16 @@ GRID_WORKSPACE_BYTES = 64 << 20
 GRID_RAGGED_WALK = 1024
 # Both decode kernels take enough splits that no block walks more than this.
 DECODE_WALK = 256
+# The bf16 latent kernels' plan (csrc/attention_latent.cuh kLatTile,
+# kLatCost, kLatEmptyCost, kLatMinRun): 64-row tiles, each costing its
+# visible positions plus LATENT_COST (LATENT_EMPTY_COST when it sees none:
+# it only writes zeros), cut into runs of at least LATENT_MIN_RUN
+# positions, one run a block; a cut tile leaves LATENT_TILE_ROWS *
+# (LATENT_DIM + 2) floats of partials in one of two slots a block.
+LATENT_TILE_ROWS = 64
+LATENT_COST = 128
+LATENT_EMPTY_COST = 32
+LATENT_MIN_RUN = 128
 
 LAUNCHES: dict[str, int] = {
     "paged_ragged_attention": 0,
@@ -103,11 +116,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     )
     lib.opsagent_paged_decode_attention.restype = i
     lib.opsagent_paged_ragged_attention_latent.argtypes = (
-        [p] * 6 + [i] * 5 + [ctypes.c_float, i, p]
+        [p] * 7 + [i] * 6 + [ctypes.c_float, i, p]
     )
     lib.opsagent_paged_ragged_attention_latent.restype = i
     lib.opsagent_paged_decode_attention_latent.argtypes = (
-        [p] * 6 + [i] * 6 + [ctypes.c_float, i, p]
+        [p] * 6 + [i] * 7 + [ctypes.c_float, i, p]
     )
     lib.opsagent_paged_decode_attention_latent.restype = i
 
@@ -223,9 +236,10 @@ def paged_ragged_attention_cuda(
     out = torch.empty_like(q)
     ptr = cuda_build.ptr
     if D == LATENT_DIM:
+        blocks, ws = _latent_workspace(q)
         rc = cuda_build.library(SOURCE, _bind).opsagent_paged_ragged_attention_latent(
-            ptr(q), ptr(kv), ptr(page_table), ptr(start), ptr(q_lens), ptr(out),
-            B, S, H, P, page_table.shape[1], D ** -0.5, _DTYPE_CODES[q.dtype],
+            ptr(q), ptr(kv), ptr(page_table), ptr(start), ptr(q_lens), ptr(ws), ptr(out),
+            B, S, H, P, page_table.shape[1], blocks, D ** -0.5, _DTYPE_CODES[q.dtype],
             cuda_build.stream(q.device),
         )
         cuda_build.raise_on(rc, "paged_ragged_attention_latent")
@@ -263,13 +277,16 @@ def paged_decode_attention_cuda(
     (kv, ks), (vv, vs) = _planes(k_pages), _planes(v_pages)
     N, P, K, _ = kv.shape
     max_pages = page_table.shape[1]
-    splits, span, ws = _grid_plan(q, "decode", 1, K, P, max_pages)
+    blocks, ws = _latent_workspace(q) if D == LATENT_DIM else (0, None)
+    splits, span = 1, max(max_pages, 1) * P   # taken by split calls only
+    if ws is None:
+        splits, span, ws = _grid_plan(q, "decode", 1, K, P, max_pages)
     out = torch.empty_like(q)
     ptr = cuda_build.ptr
     if D == LATENT_DIM:
         rc = cuda_build.library(SOURCE, _bind).opsagent_paged_decode_attention_latent(
             ptr(q), ptr(kv), ptr(page_table), ptr(lengths), ptr(ws), ptr(out),
-            B, H, P, max_pages, splits, span, D ** -0.5, _DTYPE_CODES[q.dtype],
+            B, H, P, max_pages, splits, span, blocks, D ** -0.5, _DTYPE_CODES[q.dtype],
             cuda_build.stream(q.device),
         )
         cuda_build.raise_on(rc, "paged_decode_attention_latent")
@@ -319,6 +336,75 @@ def _workspace(device: torch.device, numel: int) -> torch.Tensor:
         ws = torch.empty(numel, dtype=torch.float32, device=device)
         _workspaces[(device, numel)] = ws
     return ws
+
+
+def latent_blocks(sms: int) -> int:
+    """Blocks of a bf16 latent call: one an SM, within
+    ``GRID_WORKSPACE_BYTES`` of partials (two cut tiles a block)."""
+    return max(1, min(sms, GRID_WORKSPACE_BYTES // latent_workspace_bytes(1)))
+
+
+def latent_workspace_bytes(blocks: int) -> int:
+    """Two cut tiles' partials a block and its merge task (four int32), the
+    layout in ``csrc/attention_latent.cuh`` (``latent_tasks``)."""
+    return (2 * blocks * LATENT_TILE_ROWS * (LATENT_DIM + 2) + 4 * blocks) * 4
+
+
+def _latent_workspace(q: torch.Tensor) -> tuple[int, torch.Tensor | None]:
+    """(blocks, workspace) of a latent call: bf16 runs the warpgroup
+    kernels; f32 (blocks 0, no workspace) the CUDA-core ones."""
+    if q.dtype != torch.bfloat16:
+        return 0, None
+    blocks = latent_blocks(_sm_count(q.device))
+    return blocks, _workspace(q.device, latent_workspace_bytes(blocks) // 4)
+
+
+def latent_lens(
+    S: int, H: int, cap: int, start=None, q_lens=None, lengths=None,
+) -> list[int]:
+    """The positions each 64-row tile of a latent call sees, tile after
+    tile of each sequence (the kernels' ``latent_len``): ragged rows from
+    ``start`` and ``q_lens``, decode (S = 1) from ``lengths``."""
+    tiles = -(-S * H // LATENT_TILE_ROWS)
+    out = []
+    for b in range(len(lengths if lengths is not None else start)):
+        for tile in range(tiles):
+            first = tile * LATENT_TILE_ROWS
+            if lengths is not None:
+                out.append(min(max(int(lengths[b]), 0), cap))
+                continue
+            rows = min(LATENT_TILE_ROWS, S * H - first)
+            s_last = min((first + rows - 1) // H, int(q_lens[b]) - 1)
+            out.append(min(int(start[b]) + s_last + 1, cap) if s_last >= first // H else 0)
+    return out
+
+
+def latent_plan(lens: list[int], blocks: int) -> tuple[int, list[list[dict]]]:
+    """The plan every block of a bf16 latent call computes on the device
+    (``latent_run`` / ``latent_next``): ``per`` and, for each block, its
+    units, each a tile's piece ``[lo, hi)`` of its positions (an empty
+    tile: a unit with no positions that writes its zeros), whether the
+    tile is cut over blocks, and the partials slot it then writes."""
+    costs = [n + (LATENT_COST if n else LATENT_EMPTY_COST) for n in lens]
+    total = sum(costs)
+    per = max(-(-total // blocks), LATENT_MIN_RUN)
+    pres = [sum(costs[:i]) for i in range(len(costs))]
+    runs = []
+    for k in range(blocks):
+        begin, end = k * per, min((k + 1) * per, total)
+        units = []
+        for item, (n, pre) in enumerate(zip(lens, pres)):
+            if pre >= end or pre + costs[item] <= begin:
+                continue
+            lo, hi = max(begin - pre, 0), min(end - pre, n)
+            if lo < hi or (n == 0 and pre >= begin):
+                units.append(dict(
+                    item=item, lo=lo, hi=max(hi, lo),
+                    cut=pre // per != (pre + max(n, 1) - 1) // per,
+                    slot=2 * k + (0 if pre < begin else 1),
+                ))
+        runs.append(units)
+    return per, runs
 
 
 def _grid_plan(

@@ -742,6 +742,109 @@ def test_latent_wrappers_raise_on_what_the_kernels_do_not_take(gen):
                                        pages[..., :192].contiguous(), table, start + ql)
 
 
+# The bf16 latent kernels' plan (ops/paged_attention.py latent_plan): 64-row
+# tiles cut into runs of at least LATENT_MIN_RUN positions a block.
+LATENT_STRADDLE = {  # (S, starts, q_lens): 64-row tiles over 4 positions at
+    # H = 16, with q_len 1, 3, 5 and 77 and S * H not a multiple of 64
+    "h16": (77, [0, 7, 300, 1000], [1, 3, 5, 77]),
+    "tail": (5, [2, 40, 0], [5, 3, 1]),
+}
+
+
+def _latent_ragged(gen, S, H, starts, q_lens):
+    q, pages, table, start, ql = _latent_pages(gen, len(starts), S, H, 16, starts, q_lens,
+                                               torch.bfloat16)
+    got = pa.paged_ragged_attention_cuda(q, pages, pages, table, start, ql)
+    want = pa.paged_ragged_attention_cuda(q, pages, pages, table, start, ql, plain=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    valid = torch.arange(S, device="cuda")[None, :] < ql[:, None]
+    assert not got[~valid].any()
+    return q, pages, table, start, ql, got
+
+
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("case", sorted(LATENT_STRADDLE))
+def test_latent_tiles_straddle_query_positions(gen, case, H):
+    S, starts, q_lens = LATENT_STRADDLE[case]
+    _latent_ragged(gen, S, H, starts, q_lens)
+
+
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("runs", [1, 2, 5])
+def test_latent_ragged_walks_at_the_run_edges(gen, runs, edge):
+    """One 64-row tile whose positions end one before, on and one past a
+    cut between blocks' runs, beside a chunk at the same edge."""
+    L = runs * pa.LATENT_MIN_RUN + edge
+    _latent_ragged(gen, 4, 16, [L - 4, L - 64], [4, 64])
+
+
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("runs", [1, 3])
+def test_latent_decode_walks_at_the_run_edges(gen, runs, edge):
+    L = runs * pa.LATENT_MIN_RUN + edge
+    _latent_decode(gen, 16, [L, 1, L])
+
+
+def _latent_decode(gen, H, lengths):
+    P = 16
+    starts = [max(n - 1, 0) for n in lengths]
+    q, pages, table, _, _ = _latent_pages(gen, len(lengths), 1, H, P, starts,
+                                          [1 if n else 0 for n in lengths], torch.bfloat16)
+    q = q[:, 0].contiguous()
+    L = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = pa.paged_decode_attention_cuda(q, pages, pages, table, L)
+    want = pa.paged_decode_attention_cuda(q, pages, pages, table, L, plain=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    assert not got[L == 0].any()
+    return q, pages, table, L, got
+
+
+LATENT_DECODE_PLANS = {
+    "all_zero": [0] * 8,
+    "long_beside_empty": [8192, 0, 0, 0, 0, 0],
+    "b1": [300],
+    "b32": [(37 * i) % 1025 for i in range(32)],
+}
+
+
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("plan", sorted(LATENT_DECODE_PLANS))
+def test_latent_decode_plan_edges(gen, plan, H):
+    _latent_decode(gen, H, LATENT_DECODE_PLANS[plan])
+
+
+def test_latent_calls_bit_identical_and_replayed_as_eager(gen):
+    """Two calls are bit-identical, and a CUDA graph of a ragged and a
+    decode call replays to the eager outputs: the grid and workspace come
+    from shapes, the plan from the device tensors."""
+    S, starts, q_lens = 128, [3968, 0, 5, 1000, 3001, 0, 200, 17], [128, 128, 0, 1, 77, 1, 128, 33]
+    q, pages, table, start, ql, eager = _latent_ragged(gen, S, 16, starts, q_lens)
+    dq, dpages, dtable, L, d_eager = _latent_decode(gen, 16, [0, 1, 16, 255, 256, 257, 2049, 4096])
+    assert torch.equal(pa.paged_ragged_attention_cuda(q, pages, pages, table, start, ql), eager)
+    assert torch.equal(pa.paged_decode_attention_cuda(dq, dpages, dpages, dtable, L), d_eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm the launch path off the capture
+        pa.paged_ragged_attention_cuda(q, pages, pages, table, start, ql)
+        pa.paged_decode_attention_cuda(dq, dpages, dpages, dtable, L)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        r = pa.paged_ragged_attention_cuda(q, pages, pages, table, start, ql)
+        d = pa.paged_decode_attention_cuda(dq, dpages, dpages, dtable, L)
+    r.zero_()
+    d.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(r, eager) and torch.equal(d, d_eager)
+    # New lengths in the same tensors: the replay plans them on the device.
+    L.copy_(torch.tensor([4096, 0, 0, 0, 0, 0, 0, 5], dtype=torch.int32, device="cuda"))
+    graph.replay()
+    want = pa.paged_decode_attention_cuda(dq, dpages, dpages, dtable, L, plain=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
 def _narrow_v2_lite():
     """DeepSeek-V2-Lite's latent (512 + 64) and router, narrower elsewhere:
     2 layers (one dense, one MoE), 4 heads, 8 experts of 128."""
