@@ -85,6 +85,36 @@ Phases, each printing one JSON line with its seconds:
    forms, bf16 and int8 pages) against its plain version at the
    fast-forward shapes (bucket 16, q_len 2-13, starts 200-4000), the bf16
    pages timed by graph replay beside their bound and SDPA.
+6c. offload: the host KV tier at bench-8b width. At full depth in bf16
+   pages, an engine with the tier and one without (and a cold one), over
+   one model: four sessions' first turns (993-2993 prompt tokens, 16
+   greedy tokens) equal on both; the longest history parked to host RAM
+   (``park_chain`` + ``offload_flush``, timed: spill GB/s), its next turn
+   admitted (the admission's restore timed: restore GB/s): the restored
+   pages hold the parked bytes exactly and the continuation equals the
+   never-parked engine's, whose next turn hits its HBM trie; the cold
+   engine re-prefills the same tokens (``reprefill_ms`` against
+   ``restore_ms``, TTFT re-prefilled against restored); an untimed round
+   trip first allocates the pinned blocks. The serve loop's ``host_ms``
+   over one concurrent batch with the tier on and off. The same round trip
+   in int8 pages. At 2 layers in f32: six concurrent sessions in 400
+   pages (of the 753 their prompts need) through the scheduler: pressure
+   parking fires, every reply equals the run with ample pages, no
+   ``restore_reprefill``; a park and restore on a replaying engine and an
+   eager one: tokens and every cache byte equal, all steps replayed. Then
+   DeepSeek-V2-Lite's latent pages (27 layers, one 576-column latent a
+   token) gathered and scattered bit-exactly at bucket 1, 8 and a partial
+   bucket with a duplicated id, the scratch slot untouched. No capture
+   after warmup anywhere.
+6d. snapshot: bench-8b at full width and ``SNAPSHOT_LAYERS`` (8) layers with
+   int8 weights and int8 KV, warmed; ``snapshot``
+   into ``build/chip_smoke_snapshot`` (write s, bytes), ``verify_snapshot``
+   (full digests); then this script in a fresh process
+   (``--restore-snapshot``) with an empty kernel directory
+   (``OPSAGENT_KERNEL_DIR``): ``Engine.from_snapshot`` with warmup and one
+   greedy request, whose tokens equal the source engine's, with no nvcc
+   run (the snapshot's libraries pre-seeded) and its restore-to-first-
+   token seconds. The snapshot and the kernel directory are deleted after.
 7. serve: behind the HTTP server, random weights from ``--seed``, bf16
    activations, four concurrent chat completions per run, on the default
    loop (async ticks, pipelined blocks, fast-forward): bench-8b at full
@@ -214,8 +244,10 @@ from opsagent_tpu_torch.serving.api import ServingStack, make_server
 from opsagent_tpu_torch.serving.chat_template import apply_chat_template
 from opsagent_tpu_torch.serving.constrained import TOOLPROMPT_SCHEMA, json_constraint
 from opsagent_tpu_torch.serving.engine import Engine, EngineConfig, Sequence
+from opsagent_tpu_torch.serving.offload import PageCopyEngine
 from opsagent_tpu_torch.serving.scheduler import Request
 from opsagent_tpu_torch.serving.sampler import NEG_INF, SamplingParams
+from opsagent_tpu_torch.serving.snapshot import verify_snapshot
 from opsagent_tpu_torch.serving.tokenizer import BPETokenizer, ByteTokenizer
 from opsagent_tpu_torch.utils.perf import get_perf_stats
 
@@ -1408,6 +1440,332 @@ def phase_serve_loop(seed: int, smi: str) -> dict:
     return report
 
 
+# -- phase 6c: the host KV tier ----------------------------------------------------
+# Turn-1 prompt lengths: one past a page boundary, so that 16 greedy tokens
+# fill the prompt's last page and decoding books no page.
+OFFLOAD_SESSIONS = (993, 1793, 2401, 2993)
+PRESSURE_SESSIONS = (993, 1393, 1793, 2193, 2593, 2993)
+PRESSURE_PAGES = 400         # of the 753 the six prompts need
+TURN1 = SamplingParams(max_tokens=16)
+TURN2 = SamplingParams(max_tokens=32)
+CONT = [10, 257, 33, 44, 55]  # the next turn's new tokens
+
+
+def random_prompt(gen: torch.Generator, n: int, vocab: int) -> list[int]:
+    return [257] + torch.randint(300, vocab, (n - 1,), generator=gen).tolist()
+
+
+def page_bytes(eng: Engine, pages: list[int]) -> dict[str, torch.Tensor]:
+    return {n: leaf[:, pages].clone() for n, leaf in eng.cache.page_leaves().items()}
+
+
+def synced(fn):
+    """(fn's result, host seconds with the card synchronized after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def prefill(eng: Engine, sid: int, upto: int | None = None) -> None:
+    """Mixed ticks of the sequence's prompt until ``upto`` of its tokens
+    are in cache (all of them and its first token when None)."""
+    while sid in eng._prefilling and (upto is None or eng._prefilling[sid] < upto):
+        eng.step_mixed([], {sid: eng.cfg.mixed_buckets[-1]})
+
+
+def finish_turn(eng: Engine, sid: int) -> list[int]:
+    while not eng.sequences[sid].done:
+        eng.step_block([sid])
+    eng.drain()
+    return eng.finish(sid)
+
+
+def park_round_trip(eng: Engine, ref: Engine, cold: Engine | None, prompts, label: str) -> dict:
+    """Turn 1 of ``prompts`` on ``eng`` (host tier on) and ``ref`` (off),
+    equal; the longest session's history parked to host RAM on ``eng``
+    (spill timed), then its turn 2 admitted: the restored pages hold the
+    pre-park bytes, and the continuation equals ``ref``'s, whose turn 2
+    hits its HBM trie. With ``cold`` (an engine holding none of it) the
+    same turn 2 re-prefilled: its prefill of the restored tokens and its
+    TTFT beside the restore's."""
+    outs = eng.generate(prompts, TURN1)
+    check(outs == ref.generate(prompts, TURN1), f"{label}: turn 1 differs")
+    hist = prompts[-1] + outs[-1][:-1]
+    P = eng.cfg.page_size
+    pages = eng.alloc.match_prefix(hist)
+    check(len(pages) == len(hist) // P, f"{label}: {len(pages)} trie pages")
+    before = page_bytes(eng, pages)
+    nbytes = sum(t.numel() * t.element_size() for t in before.values())
+    parked, dispatch_s = synced(lambda: eng.park_chain(hist))
+    landed, land_s = synced(eng.offload_flush)
+    spill_s = dispatch_s + land_s
+    check(parked == len(pages) * P and landed == len(pages), f"{label}: parked {parked}, "
+          f"landed {landed} of {len(pages)} pages")
+    prompt2 = hist + CONT
+    ttft_t0 = time.perf_counter()
+    sid, restore_s = synced(lambda: eng.begin_request(prompt2, TURN2))
+    restored = eng._prefilling[sid]
+    check(restored == len(pages) * P, f"{label}: restored {restored} tokens")
+    after = page_bytes(eng, eng.alloc.pages_of(sid)[: len(pages)])
+    check(all(torch.equal(before[n], after[n]) for n in before),
+          f"{label}: restored pages differ from the parked ones")
+    prefill(eng, sid)
+    torch.cuda.synchronize()
+    ttft_restored = time.perf_counter() - ttft_t0
+    got = finish_turn(eng, sid)
+    rsid = ref.begin_request(prompt2, TURN2)
+    prefill(ref, rsid)
+    want = finish_turn(ref, rsid)
+    check(got == want, f"{label}: parked continuation {got} != never parked {want}")
+    row = {"tokens_parked": parked, "pages": len(pages), "bytes": nbytes,
+           "spill_ms": spill_s * 1e3, "spill_dispatch_ms": dispatch_s * 1e3,
+           "spill_land_ms": land_s * 1e3, "spill_gbps": nbytes / spill_s / 1e9,
+           "restore_ms": restore_s * 1e3, "restore_gbps": nbytes / restore_s / 1e9,
+           "ttft_restored_ms": ttft_restored * 1e3, "continuation_equal": True}
+    if cold is not None:
+        t0 = time.perf_counter()
+        csid, _ = synced(lambda: cold.begin_request(prompt2, TURN2))
+        _, reprefill_s = synced(lambda: prefill(cold, csid, upto=restored))
+        # Ticks of up to a bucket each: the last one may run to the end of
+        # the prompt (and sample its first token).
+        row["reprefill_tokens"] = cold._prefilling.get(csid, len(prompt2))
+        row["reprefill_ms"] = reprefill_s * 1e3
+        prefill(cold, csid)
+        torch.cuda.synchronize()
+        row["ttft_reprefill_ms"] = (time.perf_counter() - t0) * 1e3
+        # Information: the cold prefill runs other chunks than the trie
+        # hit's, so in bf16 its tokens may differ.
+        row["reprefill_continuation_equal"] = finish_turn(cold, csid) == want
+        row["restore_vs_reprefill"] = row["reprefill_ms"] / row["restore_ms"]
+    return row
+
+
+def loop_bodies(gen: torch.Generator) -> list[dict]:
+    letters = "abcdefghijklmnopqrstuvwxyz     .,\n"
+    return [{"model": "bench-8b", "temperature": 0, "max_tokens": 64,
+             "messages": [{"role": "user", "content": "".join(
+                 letters[i] for i in torch.randint(0, len(letters), (n,), generator=gen))}]}
+            for n in (1000, 1800, 2400, 3000)]
+
+
+def pressure_run(engine: Engine, prompts: list[list[int]]) -> list[list[int]]:
+    stack = ServingStack(engine)
+    try:
+        reqs = [stack.scheduler.submit(Request(list(p), TURN1)) for p in prompts]
+        for r in reqs:
+            check(r.done.wait(600) and not r.error, f"pressure: {r.error!r}")
+    finally:
+        stack.close()
+    return [r.tokens for r in reqs]
+
+
+def phase_offload(seed: int, smi: str) -> dict:
+    """The host KV tier at bench-8b width: a park round trip at full depth
+    in bf16 pages (timed: spill and restore GB/s, restore against the
+    re-prefill of the same tokens, TTFT restored against re-prefilled) and
+    in int8 pages; the serve loop's host ms with the tier on and off; then,
+    at 2 layers in f32, pressure parking of six concurrent sessions in too
+    few pages (every reply equal to the never-parked run's) and decode
+    replayed after a restore against eager; and the copies of DeepSeek-V2-
+    Lite's latent pages. Launches counted over all of it."""
+    gen = torch.Generator().manual_seed(seed + 17)
+    report: dict = {"card": smi}
+    reset_launch_counts()
+    model = Llama(BENCH_8B, torch.bfloat16, "cuda", seed=seed)
+    prompts = [random_prompt(gen, n, BENCH_8B.vocab_size) for n in OFFLOAD_SESSIONS]
+    base = EngineConfig(model="bench-8b", device="cuda", seed=seed, num_pages=1024)
+
+    def make(**over):
+        eng = Engine(replace(base, **over), model_cfg=BENCH_8B, model=model)
+        eng.warmup()
+        return eng
+
+    compiles = obs.POST_WARMUP_COMPILES.value()
+    fallbacks = obs.OFFLOAD_RESTORE_FALLBACKS.value()
+    eng, ref, cold = make(offload=True), make(), make()
+    # An untimed round trip first: the pinned host blocks are allocated
+    # once, by the first copies of their size.
+    park_round_trip(eng, ref, None, prompts[:3], "offload bf16 warm")
+    report["bf16"] = park_round_trip(eng, ref, cold, prompts, "offload bf16")
+    report["host_ms_tier_on"] = loop_run(eng, loop_bodies(torch.Generator().manual_seed(seed)),
+                                         "offload tier on")["host_ms"]
+    report["host_ms_tier_off"] = loop_run(ref, loop_bodies(torch.Generator().manual_seed(seed)),
+                                          "offload tier off")["host_ms"]
+    del eng, ref, cold
+    eng, ref = make(offload=True, kv_quantize="int8"), make(kv_quantize="int8")
+    report["int8"] = park_round_trip(eng, ref, None, prompts[1:], "offload int8 kv")
+    del eng, ref, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = replace(BENCH_8B, num_layers=2)
+    model = Llama(cut, torch.float32, "cuda", seed=seed)
+    prompts = [random_prompt(gen, n, cut.vocab_size) for n in PRESSURE_SESSIONS]
+    base = EngineConfig(model="bench-8b", dtype=torch.float32, device="cuda", seed=seed,
+                        num_pages=1024)
+    parks = obs.OFFLOAD_PARKS.value(trigger="pressure")
+    tight = make(offload=True, num_pages=PRESSURE_PAGES)
+    got = pressure_run(tight, prompts)
+    want = pressure_run(make(), prompts)
+    report["pressure"] = {
+        "pages": PRESSURE_PAGES, "prompt_tokens": list(PRESSURE_SESSIONS),
+        "parks": obs.OFFLOAD_PARKS.value(trigger="pressure") - parks,
+        "restored_tokens": tight.offload.restored_tokens,
+        "replies_equal": got == want,
+    }
+    check(report["pressure"]["parks"] >= 1 and tight.offload.restored_tokens > 0,
+          f"pressure parking never fired: {report['pressure']}")
+    check(got == want, "pressure: a parked session's reply differs from the never-parked run's")
+    del tight
+
+    runs = []
+    for replay in (True, False):
+        eng = make(offload=True, cuda_graphs=replay)
+        sid = eng.add_request(prompts[2], TURN1)
+        hist = prompts[2] + finish_turn(eng, sid)[:-1]
+        check(eng.park_chain(hist) > 0, "replay: nothing parked")
+        sid = eng.add_request(hist + CONT, TURN2)
+        check(eng.offload.restored_pages == eng.offload.spilled_pages > 0,
+              f"replay: restored {eng.offload.restored_pages} pages")
+        tokens = finish_turn(eng, sid)
+        runs.append((tokens, [t.clone() for t in cache_bytes(eng.cache)], routes(eng)))
+        del eng
+    (gt, gc_, groutes), (et, ec, eroutes) = runs
+    check(gt == et and all(torch.equal(a, b) for a, b in zip(gc_, ec)),
+          "replay after a restore differs from eager")
+    check(groutes[1] == groutes[3] == 0 and eroutes[0] == eroutes[2] == 0,
+          f"replay routes {groutes} / eager {eroutes}")
+    report["replay_after_restore"] = {"tokens_equal": True, "cache_equal": True,
+                                      "routes_replayed": groutes, "routes_eager": eroutes}
+    del runs, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The latent layout at DeepSeek-V2-Lite's page shape.
+    lgen = torch.Generator().manual_seed(seed + 18)
+    cache = PagedKVCache(DEEPSEEK_V2_LITE, 64, 16, torch.bfloat16, torch.device("cuda"))
+    for buf in cache.buffers():
+        buf.copy_(torch.randn(buf.shape, generator=lgen))
+    copier = PageCopyEngine(copy_pages=8)
+    copier.warm(cache)
+    leaves = cache.page_leaves()
+    for pages in ([3], list(range(8, 16)), [5, 9, 5, 30, 41]):
+        before = {n: leaf.clone() for n, leaf in leaves.items()}
+        scratch = [b[-1].clone() for b in cache.buffers()]
+        copier.dispatch_gather(cache, pages, list(range(len(pages))))
+        trees = [t for _, t in copier.flush()]
+        check(all(torch.equal(t[n], before[n][:, p].cpu())
+                  for t, p in zip(trees, pages) for n in before), f"latent gather {pages}")
+        dst = [63 - i for i in range(len(trees))]
+        copier.scatter(cache, dst, trees)
+        torch.cuda.synchronize()
+        check(all(torch.equal(leaf[:, d].cpu(), t[n])
+                  for n, leaf in leaves.items() for d, t in zip(dst, trees)),
+              f"latent scatter {pages}")
+        check(all(torch.equal(b[-1], x) for b, x in zip(cache.buffers(), scratch)),
+              "latent copies wrote the scratch slot")
+    report["latent_pages"] = {"layers": DEEPSEEK_V2_LITE.num_layers,
+                              "page_bytes": sum(leaf[:, 0].numel() * leaf.element_size()
+                                                for leaf in cache.page_leaves().values()),
+                              "bit_exact": True}
+    del cache, copier, leaves
+    check(obs.POST_WARMUP_COMPILES.value() == compiles, "offload: a capture after warmup")
+    check(obs.OFFLOAD_RESTORE_FALLBACKS.value() == fallbacks, "offload: a restore_reprefill")
+    report["launches"] = launch_counts()
+    for name in expected_kernels("dma", "", "int8") | expected_kernels("dma", "", ""):
+        check(report["launches"][name] > 0, f"offload: {name} never launched")
+    return report
+
+
+# -- phase 6d: engine snapshots ------------------------------------------------------
+SNAPSHOT_LAYERS = 8
+SNAPSHOT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            "chip_smoke_snapshot")
+
+
+def snapshot_prompt() -> list[int]:
+    return [257] + list(range(300, 1800))
+
+
+def phase_snapshot(seed: int, smi: str) -> dict:
+    """bench-8b at full width and ``SNAPSHOT_LAYERS`` layers (at full depth
+    8.6 GB of leaves, whose write and digests would dominate the run) with
+    int8 weights and int8 KV: ``snapshot create`` of a
+    warmed engine, ``verify``, and in a fresh process (its kernel directory
+    empty) ``Engine.from_snapshot`` with warmup and one greedy request: the
+    tokens equal the source engine's and no nvcc runs (the snapshot's
+    libraries pre-seeded)."""
+    cfg = replace(BENCH_8B, num_layers=SNAPSHOT_LAYERS)
+    reset_launch_counts()
+    eng = Engine(EngineConfig(model="bench-8b", device="cuda", seed=seed, quantize="int8",
+                              kv_quantize="int8", num_pages=512), model_cfg=cfg)
+    eng.warmup()
+    want = eng.generate([snapshot_prompt()], TURN2)[0]
+    launches = launch_counts()
+    kernels = os.path.join(os.path.dirname(SNAPSHOT_DIR), "chip_smoke_kernels")
+    shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+    shutil.rmtree(kernels, ignore_errors=True)
+    try:
+        man, write_s = synced(lambda: eng.snapshot(SNAPSHOT_DIR))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rep = verify_snapshot(SNAPSHOT_DIR)
+        verify_s = time.perf_counter() - t0
+        check(rep["ok"], f"snapshot verify: {rep['errors']}")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--restore-snapshot", SNAPSHOT_DIR],
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "OPSAGENT_KERNEL_DIR": kernels})
+        process_s = time.perf_counter() - t0
+        check(child.returncode == 0, f"snapshot restore process failed:\n{child.stderr[-4000:]}")
+        got = json.loads(child.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+        shutil.rmtree(kernels, ignore_errors=True)
+    check(got["tokens"] == want, f"restored greedy {got['tokens']} != source {want}")
+    check(got["cache_misses"] == 0 and got["cache_hits"] > 0
+          and got["preseeded"] == man["compile_cache"]["entries"] > 0,
+          f"snapshot restore built kernels: {got}")
+    for name, n in got.pop("launches").items():
+        launches[name] += n
+    for name in expected_kernels("dma", "int8", "int8"):
+        check(launches[name] > 0, f"snapshot: {name} never launched")
+    return {"card": smi, "layers": SNAPSHOT_LAYERS, "write_s": write_s, "verify_s": verify_s,
+            "weights_bytes": sum(r["nbytes"] for r in man["leaves"]),
+            "leaves": len(man["leaves"]), "kernel_libraries": man["compile_cache"]["entries"],
+            "kernel_bytes": man["compile_cache"]["bytes"], "restore_process_s": process_s,
+            **got, "tokens": len(want), "tokens_equal": True, "launches": launches}
+
+
+def snapshot_child(path: str) -> int:
+    """The restore side of ``phase_snapshot``, in its own process: restore
+    with warmup, one greedy request; prints its tokens, seconds, the kernel
+    build events and launches as one JSON line."""
+    if not torch.cuda.is_available():
+        return 1
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = Engine.from_snapshot(path, warmup=True)
+    restore_s = time.perf_counter() - t0
+    sid = eng.begin_request(snapshot_prompt(), TURN2)
+    prefill(eng, sid)
+    torch.cuda.synchronize()
+    first_token_s = time.perf_counter() - t0
+    tokens = finish_turn(eng, sid)
+    emit({"tokens": tokens, "restore_s": restore_s, "restore_to_first_token_s": first_token_s,
+          "init": eng.init_stats,
+          "cache_misses": obs.COMPILE_CACHE_EVENTS.value(event="cache_misses"),
+          "cache_hits": obs.COMPILE_CACHE_EVENTS.value(event="cache_hits"),
+          "preseeded": eng.init_stats["kernel_cache_preseeded"],
+          "launches": launch_counts()})
+    return 0
+
+
 # -- phase 7: serving at full width -------------------------------------------
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names, spaces and "(int)" removed)
     # The latent kernels first: their names hold the dma groups' keys.
@@ -2427,7 +2785,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve phases and report device time by kernel group")
+    ap.add_argument("--restore-snapshot", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.restore_snapshot:
+        return snapshot_child(args.restore_snapshot)
 
     t = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2483,6 +2844,16 @@ def main() -> int:
     emit({"phase": "serve_loop", "seconds": time.perf_counter() - t, **loop})
     for name, n in loop["launches"].items():
         launches[name] += n
+
+    for run in (phase_offload, phase_snapshot):
+        t = time.perf_counter()
+        out = run(args.seed, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": run.__name__.removeprefix("phase_"),
+              "seconds": time.perf_counter() - t, **out})
+        for name, n in out["launches"].items():
+            launches[name] += n
 
     for model, backend, quantize, kv_quantize in SERVES:
         t = time.perf_counter()

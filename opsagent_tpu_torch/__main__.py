@@ -11,11 +11,22 @@ ahead of their commit (``--async-depth 1`` serves them synchronously). The
 server runs the SLO
 watchdog and the 1 Hz telemetry history sampler behind ``/api/slo`` and
 ``/api/metrics/history``; ``--profile-dir`` enables the profiling routes
-(``/api/debug/profile``, ``/api/debug/memory``, ``/v1/profile/*``)."""
+(``/api/debug/profile``, ``/api/debug/memory``, ``/v1/profile/*``).
+``--offload`` adds the host KV tier (``--host-pool-bytes``,
+``--offload-copy-pages``); ``--restore-snapshot DIR`` serves an engine
+restored from a snapshot.
+
+``python -m opsagent_tpu_torch snapshot create --out DIR --model-name
+bench-8b`` builds and warms an engine and writes its snapshot (weights in
+the JAX package's leaf layout, the kernel libraries, the KV plan);
+``snapshot verify DIR [--quick]`` checks one (the port's or the JAX
+package's): exit 0 when it is whole, 1 when it is not, 2 when it cannot be
+read."""
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -77,21 +88,108 @@ def main(argv: list[str] | None = None) -> int:
              "and memory snapshots into (sets OPSAGENT_PROFILE_DIR; without "
              "it those routes answer 403)",
     )
+    se.add_argument(
+        "--offload", action="store_true",
+        help="the host KV tier: evicted and parked pages kept in host RAM "
+             "and restored by a copy instead of a re-prefill",
+    )
+    se.add_argument(
+        "--host-pool-bytes", type=int, default=0,
+        help="host pool byte bound (default: OPSAGENT_KV_HOST_POOL_BYTES, "
+             "else 1 GiB)",
+    )
+    se.add_argument("--offload-copy-pages", type=int, default=8,
+                    help="pages per host<->device copy")
+    se.add_argument(
+        "--restore-snapshot", default="",
+        help="serve an engine restored from this snapshot directory, with "
+             "its model and engine configuration (--device and "
+             "--host-pool-bytes apply)",
+    )
+    sn = sub.add_parser("snapshot", help="engine snapshots: create, verify")
+    snsub = sn.add_subparsers(dest="snapshot_cmd", required=True)
+    snc = snsub.add_parser(
+        "create", help="build and warm an engine, then write its snapshot")
+    snc.add_argument("--out", required=True, help="snapshot directory")
+    snc.add_argument("--model-name", default="tiny-test")
+    snc.add_argument("--checkpoint", default="")
+    snc.add_argument("--tokenizer", default="")
+    snc.add_argument("--device", default=None, help="cuda (default) or cpu")
+    snc.add_argument("--seed", type=int, default=0)
+    snc.add_argument("--max-batch-size", type=int, default=8)
+    snc.add_argument("--paged-backend", default="dma", choices=("dma", "grid"))
+    snc.add_argument("--quantize", default="", choices=("", "int8", "int4"))
+    snc.add_argument("--kv-quantize", default="", choices=("", "int8"))
+    snc.add_argument("--offload", action="store_true")
+    snc.add_argument("--async-depth", type=int, default=2)
+    snv = snsub.add_parser(
+        "verify", help="check a snapshot's manifest, fingerprint and weight "
+                       "leaves (exit 0 ok / 1 failed / 2 unreadable)")
+    snv.add_argument("path", help="snapshot directory")
+    snv.add_argument("--quick", action="store_true",
+                     help="sizes only, no per-leaf content digests")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    if args.profile_dir:
-        os.environ["OPSAGENT_PROFILE_DIR"] = args.profile_dir
+    if args.command == "snapshot":
+        return _snapshot(args)
+    return _serve(args)
+
+
+def _snapshot(args: argparse.Namespace) -> int:
+    if args.snapshot_cmd == "verify":
+        from .serving.snapshot.manifest import SnapshotError, verify_snapshot
+
+        try:
+            report = verify_snapshot(args.path, quick=args.quick)
+        except SnapshotError as e:
+            print(f"snapshot unreadable: {e}", file=sys.stderr)
+            return 2
+        print(json.dumps(report, indent=2))
+        return 0 if report["ok"] else 1
     tokenizer = args.tokenizer
     if not tokenizer and args.checkpoint and os.path.exists(
             os.path.join(args.checkpoint, "tokenizer.json")):
         tokenizer = args.checkpoint
     engine = Engine(EngineConfig(
         model=args.model_name, checkpoint=args.checkpoint, tokenizer=tokenizer,
-        device=args.device,
-        seed=args.seed, quantize=args.quantize, kv_quantize=args.kv_quantize,
-        paged_backend=args.paged_backend, async_depth=args.async_depth,
+        device=args.device, seed=args.seed, max_batch_size=args.max_batch_size,
+        paged_backend=args.paged_backend, quantize=args.quantize,
+        kv_quantize=args.kv_quantize, offload=args.offload,
+        async_depth=args.async_depth,
     ))
+    # Warm first: the kernel libraries the snapshot carries are built.
+    engine.warmup()
+    man = engine.snapshot(args.out)
+    print(json.dumps({
+        "path": os.path.abspath(args.out), "fingerprint": man["fingerprint"],
+        "leaves": len(man["leaves"]),
+        "compile_cache_entries": man["compile_cache"]["entries"],
+    }, indent=2))
+    return 0
+
+
+def _serve(args: argparse.Namespace) -> int:
+    if args.profile_dir:
+        os.environ["OPSAGENT_PROFILE_DIR"] = args.profile_dir
+    tokenizer = args.tokenizer
+    if not tokenizer and args.checkpoint and os.path.exists(
+            os.path.join(args.checkpoint, "tokenizer.json")):
+        tokenizer = args.checkpoint
+    if args.restore_snapshot:
+        # The snapshot's configuration holds (the host tier is on when it
+        # was created with --offload); the pool's bound is the caller's.
+        engine = Engine.from_snapshot(args.restore_snapshot, device=args.device,
+                                      host_pool_bytes=args.host_pool_bytes)
+    else:
+        engine = Engine(EngineConfig(
+            model=args.model_name, checkpoint=args.checkpoint, tokenizer=tokenizer,
+            device=args.device,
+            seed=args.seed, quantize=args.quantize, kv_quantize=args.kv_quantize,
+            paged_backend=args.paged_backend, async_depth=args.async_depth,
+            offload=args.offload, host_pool_bytes=args.host_pool_bytes,
+            offload_copy_pages=args.offload_copy_pages,
+        ))
     # Kernels built and the steps captured before the scheduler thread and
     # the HTTP server start: a capture is process-wide.
     warm = engine.warmup()

@@ -98,3 +98,79 @@ def _arrays(name: str, leaf: Any) -> list[tuple[str, np.ndarray]]:
         return [(f"{name}.q", np.asarray(leaf.q)),
                 (f"{name}.scale", np.asarray(leaf.scale))]
     return [(name, np.asarray(leaf))]
+
+
+# -- the other direction: the JAX package's stacked leaves --------------------
+# numpy's names of the dtypes such leaves (and KV pages) hold: the names a
+# snapshot manifest and the KV wire format record.
+DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+               torch.float32: "float32", torch.int8: "int8", torch.int32: "int32"}
+
+
+def leaf_bytes(t: torch.Tensor) -> bytes:
+    """A tensor's raw row-major bytes, as numpy's ``tobytes`` of the same
+    array gives them (bf16 as its 16-bit words)."""
+    return t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def _stack_names(cfg: ModelConfig, moe: bool) -> list[str]:
+    """The leaf names of one stack of ``cfg``'s JAX parameter tree."""
+    if cfg.mla is not None:
+        names = list(MLA_LEAVES) + (["wdq", "q_norm", "wuq"] if cfg.mla.q_lora_rank else ["wq"])
+    else:
+        names = list(ATTN_LEAVES)
+        if cfg.attn_bias:
+            names += ["bq", "bk", "bv"]
+        if cfg.qk_norm:
+            names += ["qn", "kn"]
+    if not moe:
+        return names + list(DENSE_MLP_LEAVES)
+    names += list(MOE_LEAVES)
+    if cfg.moe.scoring_func == "sigmoid":
+        names.append("router_bias")
+    if cfg.moe.num_shared_experts:
+        names += ["sg", "su", "sd"]
+    return names
+
+
+def jax_leaves(cfg: ModelConfig, quantize: str = "") -> list[tuple[str, str, int, int]]:
+    """The JAX package's parameter leaves in its flatten order (sorted dict
+    keys; a quantized weight's codes, then its scale), each as (keystr
+    path, the port's state-dict key with ``{i}`` for the layer, first port
+    layer, layer count; count 0 for a leaf without a layer axis). The
+    paths equal ``opsagent_tpu/serving/snapshot/writer.py``'s
+    ``spec_leaf_paths``."""
+    from .quant import _QUANT_KEYS
+
+    dense = cfg.moe_layer_start if cfg.moe is not None else cfg.num_layers
+    tree: dict[str, tuple[list[str], int, int]] = {
+        "embed": ([], 0, 0), "final_norm": ([], 0, 0),
+        "layers": (_stack_names(cfg, False), 0, dense),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ([], 0, 0)
+    if cfg.moe is not None and cfg.num_layers > dense:
+        tree["moe_layers"] = (_stack_names(cfg, True), dense, cfg.num_layers - dense)
+    out: list[tuple[str, str, int, int]] = []
+
+    def add(path: str, key: str, name: str, first: int, count: int) -> None:
+        if quantize and name in _QUANT_KEYS:
+            out.append((f"{path}[<flat index 0>]", f"{key}.q", first, count))
+            out.append((f"{path}[<flat index 1>]", f"{key}.scale", first, count))
+        else:
+            out.append((path, key, first, count))
+
+    for top in sorted(tree):
+        names, first, count = tree[top]
+        if not names:
+            add(f"['{top}']", top, top, 0, 0)
+            continue
+        for name in sorted(names):
+            add(f"['{top}']['{name}']", f"layers.{{i}}.{name}", name, first, count)
+    return out
+
+
+def spec_leaf_paths(cfg: ModelConfig, quantize: str = "") -> list[str]:
+    """Keystr of every JAX parameter leaf, in flatten order: the leaf-file
+    contract of an engine snapshot."""
+    return [path for path, *_ in jax_leaves(cfg, quantize)]

@@ -178,6 +178,17 @@ class PagedKVCache:
             return self._k, self._v, self._ks, self._vs
         return self._k, self._v
 
+    def page_leaves(self) -> dict[str, torch.Tensor]:
+        """The ``[L, N, P, ...]`` views of the pages (never the scratch
+        slot), named and ordered as the JAX package's cache tree flattens:
+        ``k``, ``v``; for int8 pages ``k.q``, ``k.scale``, ``v.q``,
+        ``v.scale``. The views share the buffers, so an in-place write to
+        one writes the cache (the host KV tier's page copies)."""
+        if self.quantized:
+            return {"k.q": self.k.q, "k.scale": self.k.scale,
+                    "v.q": self.v.q, "v.scale": self.v.scale}
+        return {"k": self.k, "v": self.v}
+
     def write(
         self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor | None,
         flat: torch.Tensor,

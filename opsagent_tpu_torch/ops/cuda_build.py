@@ -6,6 +6,9 @@ interface, at first use, under ``build/opsagent_tpu_torch/`` in the
 checkout, and loaded with ``ctypes``. Nothing is compiled when a module is
 imported. The library name carries a hash of its source and of the shared
 ``csrc/*.cuh`` headers, so an edited source never loads a stale build.
+``OPSAGENT_KERNEL_DIR`` names another directory for the libraries. An
+engine snapshot carries the built libraries (``built_libraries``), and a
+restore copies them back here, so that the restored engine runs no nvcc.
 
 A build is the port's counterpart of an XLA compile for the compile
 watchdog (``obs.flight``): finding the library already built is a cache
@@ -30,7 +33,8 @@ import torch
 from .. import obs
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opsagent_tpu_torch"
+BUILD_DIR = Path(os.environ.get("OPSAGENT_KERNEL_DIR")
+                 or Path(__file__).resolve().parents[2] / "build" / "opsagent_tpu_torch")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -52,10 +56,7 @@ def build(source: str, verbose: bool = False) -> tuple[Path, str]:
     yet. Returns (library path, compiler output; with ``verbose`` it
     includes ptxas's register and shared-memory report)."""
     src = CSRC / source
-    # The shared headers are part of every source's build.
-    text = [src.read_bytes()] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
-    digest = hashlib.sha256(b"".join(text)).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    lib = library_path(source)
     if lib.exists() and not verbose:
         obs.flight.on_cache_event("cache_hits")
         return lib, ""
@@ -77,6 +78,21 @@ def build(source: str, verbose: bool = False) -> tuple[Path, str]:
     os.replace(tmp, lib)
     obs.flight.on_compile(time.perf_counter() - t0, what="nvcc")
     return lib, res.stdout + res.stderr
+
+
+def library_path(source: str) -> Path:
+    """Where the build of this version of ``csrc/<source>`` lives: the
+    name carries a hash of the source and the shared headers."""
+    src = CSRC / source
+    text = [src.read_bytes()] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(text)).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def built_libraries() -> list[Path]:
+    """The libraries of the current sources that are built."""
+    return [p for p in (library_path(s.name) for s in sorted(CSRC.glob("*.cu")))
+            if p.exists()]
 
 
 def library(source: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:

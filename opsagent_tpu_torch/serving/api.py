@@ -15,8 +15,15 @@ server:
   true`` (server-sent events, ``data: [DONE]`` last; not with logprobs or
   ``n`` > 1). A field out of its limits answers 400 naming it;
 - ``GET /v1/models`` and ``GET /healthz`` (liveness, pages, queue depth,
-  prefix-cache counters and, under ``impl``, the engine's resolved
-  execution modes), with the JAX package's bodies;
+  prefix-cache counters, under ``impl`` the engine's resolved execution
+  modes, under ``init`` how the engine came up, and with the host KV tier
+  its ``host_pool``), with the JAX package's bodies;
+- the engine side of the fleet's data plane, in the JAX package's wire
+  format (``fleet/transfer.py``): ``GET /fleet/digests`` (the replica's
+  prefix digest), ``POST /fleet/park`` (park a token chain to host RAM),
+  ``POST /fleet/kv/export`` (one chain ``{"tokens", "park"}`` or several
+  ``{"chains": [{"tokens", "start_page"}], "park"}``) and ``POST
+  /fleet/kv/import`` (records into the host pool, checked first);
 - observability, with the JAX package's routes, status codes and bodies:
   ``GET /metrics`` (Prometheus text), ``/api/trace/{id}`` and
   ``/api/timeline/{id}`` (a completion's ``id`` is its trace's request
@@ -37,13 +44,15 @@ as in the JAX package. Every request counts in
 ``opsagent_http_request_duration_seconds{path}``, ``path`` being the
 route's pattern.
 
-HTTP handler threads never touch CUDA: a stream reads the tokens that the
-scheduler thread puts on a queue.
+HTTP handler threads touch CUDA only in the ``/fleet/*`` page copies, under
+the engine lock: a stream reads the tokens that the scheduler thread puts
+on a queue.
 
 The in-process ``cuda://<name>`` provider (JAX's ``tpu://``): stacks
 installed by name (``install_stack``), or built on first use with an engine
 on the card (``get_stack``), answer the port's ``llm.ChatClient`` without
-HTTP; importing this module registers the scheme.
+HTTP; importing this module registers the scheme. ``park_session`` is the
+agent loop's tool-time signal to such a stack (``ServingStack.park``).
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ from ..utils.jsonrepair import parse_json
 from .chat_template import apply_chat_template
 from .constrained import JsonConstraint, device_table_fsm, json_constraint
 from .engine import Engine, EngineConfig
+from .fleet.transfer import pack_entries, unpack_entries
 from .sampler import SamplingParams
 from .scheduler import Request, RequestError, Scheduler
 
@@ -602,10 +612,71 @@ class ServingStack:
                 "prefix_evictions": eng.alloc.evictions,
                 "impl": eng.impl_info(),
             }
+            # Cold-start provenance: weights and warmup seconds, and
+            # whether the engine came up fresh or from a snapshot.
+            body["init"] = dict(eng.init_stats)
+            if eng.offload is not None:
+                body["host_pool"] = eng.offload.stats()
             if eng.cfg.async_depth > 1:
                 body["async"] = {"depth": eng.cfg.async_depth,
                                  "inflight": eng.async_pending()}
             return body
+
+    # -- host KV tier and the fleet's data plane -----------------------------
+    def park(self, messages: list[dict[str, Any]], tools: Any = None) -> int:
+        """Tool-time parking: tokenize the session's history as admission
+        would and park its KV chain (copy the trie-resident pages to the
+        host pool, free the HBM) while the agent's tool runs; the next
+        turn restores the chain with a page copy. Returns tokens parked
+        (0 with the host tier off: the call is always safe)."""
+        eng = self.engine
+        if eng.offload is None:
+            return 0
+        try:
+            ids = apply_chat_template(eng.tokenizer, messages or [],
+                                      model_family=self.model_name, tools=tools)
+        except Exception:  # noqa: BLE001 - parking is best-effort
+            return 0
+        return eng.park_chain(ids)
+
+    def fleet_digests(self) -> dict[str, Any]:
+        eng = self.engine
+        return {"model": self.model_name, "page_size": int(eng.cfg.page_size),
+                "digests": eng.prefix_digests()}
+
+    def fleet_park(self, tokens: list[int]) -> int:
+        eng = self.engine
+        n = eng.park_chain(tokens)
+        eng.offload_flush()
+        return n
+
+    def fleet_export(self, reqs: list[tuple[list[int], int]], park: bool) -> list[list[dict]] | None:
+        """Each (tokens, start_page) chain's host-pool pages as transfer
+        records, after parking it (``park``: the sender hands the session
+        off) or copying its trie pages without evicting them (a peer's
+        fault-in must not cost this replica its cache). None with the host
+        tier off."""
+        eng = self.engine
+        if eng.offload is None:
+            return None
+        out = []
+        for tokens, start_page in reqs:
+            if park:
+                eng.park_chain(tokens)
+                eng.offload_flush()
+            else:
+                eng.replicate_chain(tokens)
+            out.append(pack_entries(eng.offload.pool.match(tokens, start_page=start_page)))
+        return out
+
+    def fleet_import(self, records: list[dict[str, Any]]) -> int | None:
+        """Checked transfer records into the host pool; returns pages
+        imported (None with the host tier off)."""
+        eng = self.engine
+        if eng.offload is None:
+            return None
+        return sum(1 for toks, tree in unpack_entries(records, eng.cache)
+                   if eng.offload.pool.put(toks, tree))
 
     def models(self) -> dict[str, Any]:
         return {
@@ -656,6 +727,21 @@ def installed_stack_max_position(name: str) -> int | None:
     return None if stack is None else int(stack.engine.model_cfg.max_position)
 
 
+def park_session(model: str, messages: list[dict[str, Any]], tools: Any = None) -> int:
+    """The agent loop's tool-time signal: park the session's KV to the host
+    tier while the tool runs (``ServingStack.park``). ``model`` may carry
+    its scheme (``cuda://``; JAX's ``tpu://`` is taken too). Looks up an
+    installed stack only, never builds an engine, and never raises."""
+    stack = _installed(model.split("://", 1)[-1])
+    if stack is None:
+        return 0
+    try:
+        return stack.park(messages, tools=tools)
+    except Exception:  # noqa: BLE001 - parking is an optimization
+        log.exception("tool-time parking failed (ignored)")
+        return 0
+
+
 def get_stack(name: str) -> ServingStack:
     """The stack of ``cuda://<name>``: the installed one, or a new one over
     an engine of preset ``name`` built on the card (default device) and
@@ -685,8 +771,9 @@ register_provider("cuda", _cuda_provider_factory)
 
 
 # (method, path pattern, handler): the JAX package's engine routes
-# (``build_engine_app``) apart from /fleet/*, which waits for the fleet's
-# slice. A pattern's ``{name}`` matches one path segment.
+# (``build_engine_app``) apart from /fleet/drain and /fleet/promote, which
+# come with the fleet's router (ROADMAP item 13(b)). A pattern's ``{name}``
+# matches one path segment.
 ROUTES = (
     ("POST", "/v1/chat/completions", "completions"),
     ("GET", "/v1/models", "models"),
@@ -701,6 +788,10 @@ ROUTES = (
     ("POST", "/api/debug/profile", "profile_capture"),
     ("POST", "/v1/profile/start", "profile_start"),
     ("POST", "/v1/profile/stop", "profile_stop"),
+    ("GET", "/fleet/digests", "fleet_digests"),
+    ("POST", "/fleet/park", "fleet_park"),
+    ("POST", "/fleet/kv/export", "fleet_kv_export"),
+    ("POST", "/fleet/kv/import", "fleet_kv_import"),
 )
 _COMPILED = [
     (method, pattern, re.compile("^" + re.sub(r"\{(\w+)\}", r"(?P<\1>[^/]+)", pattern) + "$"),
@@ -788,8 +879,8 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
         def do_POST(self) -> None:  # noqa: N802 - http.server's name
             self._dispatch("POST")
 
-        # -- chat ------------------------------------------------------------
-        def completions(self, query: dict[str, str]) -> None:
+        def _body(self) -> dict[str, Any] | None:
+            """The request's JSON object, or None after a 400 reply."""
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(length) or b"{}")
@@ -797,6 +888,13 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
                     raise ValueError("body must be a JSON object")
             except ValueError as e:
                 self._reply(400, {"error": {"message": f"invalid JSON: {e}"}})
+                return None
+            return body
+
+        # -- chat ------------------------------------------------------------
+        def completions(self, query: dict[str, str]) -> None:
+            body = self._body()
+            if body is None:
                 return
             # A fleet router stamps its journey in the body and as
             # X-Fleet-* headers; the headers survive a proxy that strips
@@ -916,6 +1014,56 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
                 self._reply(409, {"error": {"message": str(e)}})
                 return
             self._reply(200, {"status": "stopped"})
+
+        # -- fleet data plane (the engine side) -------------------------------
+        def fleet_digests(self, query: dict[str, str]) -> None:
+            self._reply(200, stack.fleet_digests())
+
+        def fleet_park(self, query: dict[str, str]) -> None:
+            body = self._body()
+            if body is None:
+                return
+            try:
+                tokens = [int(t) for t in body.get("tokens") or []]
+            except (TypeError, ValueError):
+                self._reply(400, {"error": {"message": "tokens must be an int list"}})
+                return
+            self._reply(200, {"parked_tokens": stack.fleet_park(tokens)})
+
+        def fleet_kv_export(self, query: dict[str, str]) -> None:
+            # {"tokens": [...], "park": true}: one chain (migration);
+            # {"chains": [{"tokens": [...], "start_page": N}], "park": false}:
+            # several (a peer's page fault-in).
+            body = self._body()
+            if body is None:
+                return
+            batched = body.get("chains") is not None
+            chains = body["chains"] if batched else [
+                {"tokens": body.get("tokens") or [], "start_page": 0}]
+            try:
+                reqs = [([int(t) for t in c.get("tokens") or []],
+                         max(0, int(c.get("start_page", 0)))) for c in chains]
+            except (TypeError, ValueError, AttributeError):
+                self._reply(400, {"error": {"message": "tokens must be an int list"}})
+                return
+            results = stack.fleet_export(reqs, bool(body.get("park", True)))
+            page_size = int(stack.engine.cfg.page_size)
+            if results is None:
+                self._reply(200, {"results": [{"pages": []} for _ in reqs], "offload": False}
+                            if batched else {"pages": [], "offload": False})
+            elif batched:
+                self._reply(200, {"results": [{"pages": p} for p in results],
+                                  "page_size": page_size})
+            else:
+                self._reply(200, {"pages": results[0], "page_size": page_size})
+
+        def fleet_kv_import(self, query: dict[str, str]) -> None:
+            body = self._body()
+            if body is None:
+                return
+            n = stack.fleet_import(body.get("pages") or [])
+            self._reply(200, {"imported": 0, "offload": False} if n is None
+                        else {"imported": n})
 
         def log_message(self, fmt: str, *args: Any) -> None:
             log.debug("%s " + fmt, self.address_string(), *args)

@@ -77,7 +77,17 @@ latencies are one gap and then near-zero ones, as in JAX's block decode.
 ``warmup`` runs inside ``obs.flight.warmup_phase``: a capture after it is a
 post-warmup compile.
 
-No speculation, offload or snapshots in this port yet.
+The host KV tier (``serving.offload``, ``EngineConfig.offload``, with the
+prefix cache): a trie eviction spills the page to a bounded host-RAM pool;
+``park_chain`` (a session blocked on a tool) and ``park_sequence`` (the
+scheduler's pressure parking) free a session's pages after copying them
+out; an admission restores pooled pages of its prompt with a page copy
+instead of re-prefilling them. ``snapshot`` and ``from_snapshot``
+(``serving.snapshot``) write and restore the weights in the JAX package's
+leaf layout and the built kernel libraries, so that a restored engine runs
+no ``nvcc``; warmup recaptures the graphs.
+
+No speculation in this port yet.
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ from __future__ import annotations
 import functools
 import itertools
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -121,6 +132,7 @@ from .decode_loop import (
     to_host,
 )
 from .kvcache import InvalidRequest, OutOfPages, PageAllocator
+from .offload import HostPagePool, OffloadManager, PageCopyEngine, chain_key_hex
 from .sampler import SamplingParams
 from .tokenizer import Tokenizer, load_tokenizer
 
@@ -216,6 +228,17 @@ class EngineConfig:
     # reference a replay is checked against. The plain path and the CPU
     # always run them eagerly.
     cuda_graphs: bool = True
+    # The host KV tier (serving.offload), with prefix_cache only: trie
+    # evictions spill page content to a bounded host pool instead of
+    # dropping it, parking (park_chain / park_sequence) frees a session's
+    # HBM while it waits, and admission restores pooled pages with a copy
+    # instead of re-prefilling them.
+    offload: bool = False
+    # Pages per copy (the copy engine's largest bucket): page-id vectors
+    # pad to (1, offload_copy_pages).
+    offload_copy_pages: int = 8
+    # Host pool byte bound; 0 = $OPSAGENT_KV_HOST_POOL_BYTES or 1 GiB.
+    host_pool_bytes: int = 0
 
 
 @dataclass
@@ -317,8 +340,22 @@ class Engine:
                 f"{model.quantize or 'unquantized'!r} weights"
             )
         self.tokenizer = tokenizer or load_tokenizer(cfg.tokenizer, self.model_cfg.vocab_size)
+        t_load = time.perf_counter()
         with torch.inference_mode():
             self.model = model if model is not None else self._build_model()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        # /healthz "init": how this engine came up. warmup() adds its wall
+        # time; a snapshot restore stamps its source, fingerprint and the
+        # kernel libraries it pre-seeded.
+        self.init_stats: dict[str, Any] = {
+            "weights_load_s": round(time.perf_counter() - t_load, 3),
+            "warmup_s": 0.0,
+            "restore_source": "",
+            "snapshot_fingerprint": "",
+            "kernel_cache_preseeded": 0,
+        }
+        with torch.inference_mode():
             self.cache = self.model.make_cache(
                 cfg.num_pages, cfg.page_size, cfg.kv_quantize
             )
@@ -365,6 +402,21 @@ class Engine:
             cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq,
             prefix_cache=cfg.prefix_cache,
         )
+        # The host KV tier: spills ride every trie eviction, restores ride
+        # admission (begin_request).
+        self.offload: OffloadManager | None = None
+        if cfg.offload and cfg.prefix_cache:
+            self.offload = OffloadManager(
+                HostPagePool(cfg.page_size, capacity_bytes=cfg.host_pool_bytes or None),
+                PageCopyEngine(copy_pages=cfg.offload_copy_pages),
+                cfg.page_size,
+            )
+            self.alloc.attach_host_pool(self.offload.pool)
+            self.alloc.set_spill(self._spill_page)
+        # (page, chain) pairs of evictions whose spill waits for the end of
+        # a park (one gather a bucket of pages); None outside one.
+        self._spill_batch: list[tuple[int, list[int]]] | None = None
+        self._digests_truncated = False
         self.sequences: dict[int, Sequence] = {}
         self._prefilling: dict[int, int] = {}   # seq_id -> prompt tokens done
         # Pipelined blocks: each lane's sequence (its carry lives in
@@ -452,13 +504,16 @@ class Engine:
         mask_fn: MaskFn | None = None,
         stream: Callable[[int], None] | None = None,
         trace: Any = None,
+        expect_restore: bool = False,
     ) -> int:
-        """Stage 1 of admission: allocate pages, reusing cached prefix pages,
-        and register the sequence as prefilling. No device work: mixed steps
-        then run its prompt in chunks. ``mask_fn`` constrains the sequence's
-        tokens (a mask that raises on the empty prefix is an invalid
-        request); ``stream`` receives each accepted token; ``trace`` is the
-        request's span, under which the engine records its phases."""
+        """Stage 1 of admission: allocate pages, reusing cached prefix pages
+        and restoring pages of the host tier, and register the sequence as
+        prefilling; mixed steps then run the rest of its prompt in chunks.
+        ``mask_fn`` constrains the sequence's tokens (a mask that raises on
+        the empty prefix is an invalid request); ``stream`` receives each
+        accepted token; ``trace`` is the request's span, under which the
+        engine records its phases; ``expect_restore`` marks a parked
+        session's return, whose restore falling short is an anomaly."""
         sampling = sampling or SamplingParams()
         n = len(prompt_ids)
         window = self.model_cfg.max_position
@@ -476,26 +531,73 @@ class Engine:
                 raise InvalidRequest(f"mask_fn failed on the empty prefix: {e}") from e
         if n + sampling.max_tokens > window:
             sampling = replace(sampling, max_tokens=window - n)
+        if self.offload is not None:
+            # Land the spills that are done; wait only for one that holds a
+            # page of this prompt (a page parked during the last tick must
+            # be matchable), not for the ticks in flight.
+            self.offload.flush(wait=self.offload.pending_for(prompt_ids[: n - 1]))
         # Reuse full pages of the prompt minus its last token: at least one
         # token must run through the model to produce the next logits.
         prefix_pages = self.alloc.match_prefix(prompt_ids[: n - 1])
         matched = len(prefix_pages) * self.cfg.page_size
         seq_id = self.alloc.allocate(n, prefix_pages=prefix_pages)
+        restored = self._restore_from_host(seq_id, prompt_ids, n, len(prefix_pages), matched)
+        if expect_restore and matched + restored < (
+                (n - 1) // self.cfg.page_size) * self.cfg.page_size:
+            # A parked session came back and its host pages were gone
+            # (dropped under the byte bound, or a failed restore): it
+            # re-prefills, and that cost is recorded, not hidden.
+            obs.OFFLOAD_RESTORE_FALLBACKS.inc()
+            obs.flight.anomaly(
+                "restore_reprefill", seq_id=seq_id, prompt_tokens=n,
+                prefix_hit_tokens=matched, restored_tokens=restored,
+                request_id=obs.flight.request_id_of(trace),
+            )
         self.sequences[seq_id] = Sequence(
             seq_id, n, prompt_ids=list(prompt_ids), params=sampling,
             mask_fn=mask_fn, on_token=stream, trace=trace,
         )
-        self._prefilling[seq_id] = matched
+        self._prefilling[seq_id] = matched + restored
         if matched:
             get_perf_stats().record_metric("engine.prefix_hit_tokens", matched, "tok")
             obs.PREFIX_HIT_TOKENS.inc(matched)
         obs.flight.record(
             "admission", seq_id=seq_id, prompt_tokens=n,
-            prefix_hit_tokens=matched, restored_tokens=0,
+            prefix_hit_tokens=matched, restored_tokens=restored,
             request_id=obs.flight.request_id_of(trace),
         )
         self._observe_occupancy()
         return seq_id
+
+    def _restore_from_host(
+        self, seq_id: int, prompt_ids: list[int], n: int, shared_pages: int,
+        matched: int,
+    ) -> int:
+        """Restore instead of re-prefill: pages of the prompt past the trie
+        hit that the host pool holds are copied into the sequence's fresh
+        pages and registered into the trie (``promote_prefix``), so that
+        prefill starts after them and concurrent admissions hit them.
+        Returns the tokens restored (0 on a miss or a failure: the chunked
+        prefill then covers them)."""
+        if self.offload is None:
+            return 0
+        seq_pages = self.alloc.pages_of(seq_id)
+        entries = self.offload.pool.match(
+            prompt_ids[: n - 1], start_page=shared_pages,
+            max_pages=len(seq_pages) - shared_pages,
+        )
+        if not entries:
+            return 0
+        dst = seq_pages[shared_pages: shared_pages + len(entries)]
+        try:
+            restored = self.offload.restore(self.cache, dst, entries, seq_id=seq_id)
+        except Exception:  # noqa: BLE001 - falls back to re-prefill
+            log.exception("host->device KV restore failed; re-prefilling "
+                          "(the prefill chunks overwrite the pages)")
+            return 0
+        self.alloc.promote_prefix(seq_id, prompt_ids[: matched + restored])
+        get_perf_stats().record_metric("engine.restore_tokens", restored, "tok")
+        return restored
 
     def prefill_progress(self, seq_id: int) -> tuple[int, int]:
         """(prompt tokens already in cache, prompt length)."""
@@ -1503,10 +1605,43 @@ class Engine:
         # is an anomaly.
         with obs.flight.warmup_phase(), self.lock, torch.inference_mode():
             self._prepare()
+            if self.offload is not None:
+                # Staging and pinned buffers of every copy bucket.
+                self.offload.copier.warm(self.cache)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         get_perf_stats().record_metric("engine.warmup", dt * 1e3, "ms")
         obs.flight.record("warmup", level="full", seconds=round(dt, 3))
+        self.init_stats["warmup_s"] = round(self.init_stats["warmup_s"] + dt, 3)
         return dt
+
+    # -- snapshot and restore (serving/snapshot) -----------------------------
+    def snapshot(self, path: str) -> dict:
+        """Write this engine's restart snapshot under ``path``: the weights
+        in the JAX package's leaf layout, the built kernel libraries and
+        the paged-KV plan. Returns the manifest."""
+        from .snapshot.writer import write_snapshot
+
+        with self.lock:
+            return write_snapshot(self, path)
+
+    @classmethod
+    def from_snapshot(
+        cls, path: str, warmup: bool = False, tokenizer: Tokenizer | None = None,
+        device: str | None = None, host_pool_bytes: int = 0,
+    ) -> "Engine":
+        """Restore an engine from a snapshot directory (the port's or the
+        JAX package's): weight files memory-mapped into the model, the
+        kernel libraries pre-seeded so that no ``nvcc`` runs, ``warmup``
+        to recapture the graphs. Refuses a mismatched fingerprint, device
+        count or leaf order, and a truncated leaf, with a
+        ``SnapshotError``. ``host_pool_bytes`` bounds the host tier of a
+        snapshot taken with ``offload`` (not part of the fingerprint)."""
+        from .snapshot.restore import restore_engine
+
+        return restore_engine(path, warmup=warmup, tokenizer=tokenizer, device=device,
+                              host_pool_bytes=host_pool_bytes)
 
     def _replays(self) -> bool:
         return self.attn_impl == "cuda" and self.cfg.cuda_graphs
@@ -1604,6 +1739,144 @@ class Engine:
             self._close_decode_span(seq)
         self._observe_occupancy()
         return seq.tokens
+
+    # -- host KV tier (serving/offload) ----------------------------------------
+    def _spill_page(self, page: int, chain_tokens: list[int]) -> None:
+        """The allocator's eviction hook: enqueue a device->host copy of the
+        page being dropped, keyed by its token chain. Runs under the engine
+        lock inside allocate/extend, so the gather precedes any later write
+        to the recycled page (a park collects its pages and spills them
+        together before it returns)."""
+        if self._spill_batch is not None:
+            self._spill_batch.append((page, chain_tokens))
+        elif self.offload is not None:
+            self.offload.spill(self.cache, [(page, chain_tokens)])
+
+    @_locked
+    def offload_flush(self) -> int:
+        """Land every pending device->host page copy in the host pool (the
+        scheduler's idle ticks; admission lands what it needs itself).
+        Returns pages landed."""
+        if self.offload is None:
+            return 0
+        return self.offload.flush()
+
+    def prefix_digests(self, cap: int | None = None) -> list[str]:
+        """This replica's cached state for a fleet registry: the hex chain
+        keys (``offload.chain_key_hex``) of every trie-resident page chain
+        and every host-pool page, at most ``cap`` (argument, else
+        ``OPSAGENT_FLEET_DIGEST_CAP``, else 4096; the newest kept).
+        ``digests_truncated`` says whether the cap clipped them."""
+        if cap is None:
+            try:
+                cap = int(os.environ.get("OPSAGENT_FLEET_DIGEST_CAP", ""))
+            except ValueError:
+                cap = 0
+            if cap <= 0:
+                cap = 4096
+        with self.lock:
+            keys = [chain_key_hex(c) for c in self.alloc.trie_chains()]
+        if self.offload is not None:
+            keys.extend(self.offload.pool.digests())
+        self._digests_truncated = len(keys) > cap
+        if self._digests_truncated:
+            keys = keys[-cap:]
+        return keys
+
+    def digests_truncated(self) -> bool:
+        """Whether the last ``prefix_digests`` was clipped by its cap."""
+        return self._digests_truncated
+
+    @_locked
+    def replicate_chain(self, token_ids: list[int]) -> int:
+        """Copy this token chain's trie-resident pages into the host pool
+        without evicting them (a peer can then be sent the chain while
+        local sessions keep decoding on it; ``park_chain`` frees them).
+        Returns pages newly copied."""
+        if self.offload is None:
+            return 0
+        self.offload.flush()
+        pages = self.alloc.match_prefix(token_ids)
+        if not pages:
+            return 0
+        P = self.cfg.page_size
+        have = set(self.offload.pool.digests())
+        chains = [(pg, token_ids[: (i + 1) * P]) for i, pg in enumerate(pages)
+                  if chain_key_hex(token_ids[: (i + 1) * P]) not in have]
+        if not chains:
+            return 0
+        self.offload.spill(self.cache, chains, trigger="replicate")
+        return self.offload.flush()
+
+    @_locked
+    def park_chain(self, token_ids: list[int]) -> int:
+        """Tool-time parking: free the HBM pages holding this token
+        history's KV (the session's trie-resident state) after copying
+        them to the host pool, while the session's ReAct loop blocks on a
+        tool. Returns tokens parked (0 with the tier off or nothing
+        evictable)."""
+        if self.offload is None:
+            return 0
+        pages = self.alloc.match_prefix(token_ids)
+        if not pages:
+            return 0
+        self._spill_batch = []
+        try:
+            n = self.alloc.evict_chain(pages)
+        finally:
+            batch, self._spill_batch = self._spill_batch, None
+        # Nothing is enqueued between the evictions and this gather.
+        self.offload.spill(self.cache, batch, trigger="tool")
+        if n:
+            obs.OFFLOAD_PARKS.inc(trigger="tool")
+            obs.flight.record("park", trigger="tool", pages=n,
+                              tokens=n * self.cfg.page_size)
+            self._observe_occupancy()
+        return n * self.cfg.page_size
+
+    @_locked
+    def park_sequence(self, seq_id: int) -> Sequence | None:
+        """Pressure parking: copy a live sequence's written pages to the
+        host pool and free all its HBM state. The scheduler re-queues the
+        request with the generated tokens folded into its prompt, and the
+        re-admission restores the pages instead of re-prefilling them.
+        Returns the parked Sequence, or None when it finished while the
+        pipelines settled (the caller reaps it)."""
+        if self.offload is None:
+            raise RuntimeError("park_sequence requires the offload tier")
+        # Settle the async ticks and the pipelined blocks first: they may
+        # still append tokens to this sequence, and their pulls roll page
+        # bookings back to what was written.
+        self._async_settle()
+        while self._inflight or self._lane_of:
+            try:
+                self._flush_and_invalidate()
+            except Exception:  # noqa: BLE001 - the row's own failure
+                log.exception("stream callback raised while settling for parking")
+        seq = self.sequences.get(seq_id)
+        if seq is None or seq.done or seq_id in self._prefilling:
+            return None
+        del self.sequences[seq_id]
+        self._ffwd_noted.discard(seq_id)
+        written = seq.prompt_ids + seq.tokens[:-1]
+        P = self.cfg.page_size
+        pages = self.alloc.pages_of(seq_id)
+        chains = [(pages[i], written[: (i + 1) * P])
+                  for i in range(min(len(written) // P, len(pages)))]
+        if chains:
+            self.offload.spill(self.cache, chains, trigger="pressure")
+        # A plain free, no trie donation: the content lives in the host
+        # tier now, and an HBM copy would defeat the parking.
+        self.alloc.free(seq_id)
+        obs.OFFLOAD_PARKS.inc(trigger="pressure")
+        obs.flight.record("park", trigger="pressure", seq_id=seq_id, pages=len(chains),
+                          tokens=len(chains) * P, generated=len(seq.tokens))
+        if seq.decode_span is not None:
+            obs.attribution.record_goodput(seq.decode_span.duration_s(), "decode_active")
+            seq.decode_span.close(tokens=len(seq.tokens), finish_reason="parked")
+            seq.decode_span = None
+        self._observe_occupancy()
+        return seq
 
     # -- observability -------------------------------------------------------
     def _observe_occupancy(self) -> None:

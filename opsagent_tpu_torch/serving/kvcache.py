@@ -1,5 +1,6 @@
 """Host-side paged KV-cache bookkeeping, with prefix caching (the port's
-copy of ``opsagent_tpu/serving/kvcache.py``, without the host-offload tier).
+copy of ``opsagent_tpu/serving/kvcache.py``, with its hooks for the
+host-RAM tier of ``serving/offload``).
 
 The device holds the pages (``models.llama.PagedKVCache``); this module owns
 the free list, per-sequence page tables, and the **prefix trie**: finished
@@ -84,6 +85,48 @@ class PageAllocator:
         self.hit_tokens = 0   # cumulative prefix-cache hits (stats)
         self.miss_tokens = 0
         self.evictions = 0    # cumulative trie-leaf evictions (stats)
+        # Host KV tier hooks (serving/offload): ``_spill`` is called with
+        # (page, full token chain) right before a trie node's content leaves
+        # HBM, so that the host tier can keep it; ``_host_pool`` is a
+        # HostPagePool surfaced through accounting().
+        self._spill = None
+        self._host_pool = None
+
+    # -- offload tier hooks ------------------------------------------------
+    def set_spill(self, fn) -> None:
+        """Install the device->host spill hook: ``fn(page, chain_tokens)``
+        fires inside every trie eviction before the page returns to the
+        free list (chain_tokens = the page-aligned token prefix whose KV
+        the page holds). Exceptions are swallowed: a lost spill costs a
+        future re-prefill, never correctness."""
+        self._spill = fn
+
+    def attach_host_pool(self, pool) -> None:
+        """Surface a HostPagePool's residency in ``accounting()``."""
+        self._host_pool = pool
+
+    def _chain_tokens(self, node: TrieNode) -> list[int]:
+        """The full page-aligned token prefix ``node``'s page covers, by its
+        parent links; empty when the chain is broken (a live node's never
+        is: a parent with children is not evictable)."""
+        keys: list[tuple[int, ...]] = []
+        cur: TrieNode | None = node
+        while cur is not None:
+            keys.append(cur.key)
+            if cur.parent < 0:
+                return [t for k in reversed(keys) for t in k]
+            cur = self._by_page.get(cur.parent)
+        return []
+
+    def trie_chains(self) -> list[list[int]]:
+        """The full page-aligned token chain of every trie-resident page
+        (a replica's prefix digest is made of their keys)."""
+        out: list[list[int]] = []
+        for node in self._by_page.values():
+            chain = self._chain_tokens(node)
+            if chain:
+                out.append(chain)
+        return out
 
     # -- queries -----------------------------------------------------------
     @property
@@ -104,15 +147,26 @@ class PageAllocator:
         owned = sum(
             len(s.pages) - s.num_shared for s in self._seqs.values()
         )
-        return {
+        out = {
             "free": len(self._free),
             "trie": len(self._by_page),
             "owned": owned,
             "total": len(self._free) + len(self._by_page) + owned,
         }
+        if self._host_pool is not None:
+            # Tier 2 rides along, outside the HBM conservation sum: host
+            # pages are copies, not allocations.
+            st = self._host_pool.stats()
+            out["host_pool_pages"] = st["pages"]
+            out["host_pool_bytes"] = st["bytes"]
+            out["host_pool_capacity_bytes"] = st["capacity_bytes"]
+        return out
 
     def pages_needed(self, num_tokens: int) -> int:
         return -(-num_tokens // self.page_size)
+
+    def can_admit(self, num_tokens: int) -> bool:
+        return self.pages_needed(num_tokens) <= self.free_pages
 
     def length(self, seq_id: int) -> int:
         return self._seqs[seq_id].length
@@ -152,12 +206,102 @@ class PageAllocator:
         return self._free.pop()
 
     def _evict(self, node: TrieNode) -> None:
+        if self._spill is not None:
+            # Host tier: copy the content out before the page is reused;
+            # the chain is read before the node leaves the trie.
+            try:
+                chain = self._chain_tokens(node)
+                if chain:
+                    self._spill(node.page, chain)
+            except Exception:  # noqa: BLE001 - offload is best-effort
+                pass
         self.evictions += 1
         del self._trie[(node.parent, node.key)]
         del self._by_page[node.page]
         if node.parent >= 0 and node.parent in self._by_page:
             self._by_page[node.parent].children -= 1
         self._free.append(node.page)
+
+    def evict_chain(self, pages: list[int]) -> int:
+        """Evict a matched prefix chain (a ``match_prefix`` result) and the
+        trie subtree below its tail, spilling every page through the
+        offload hook: tool-time parking frees the HBM a blocked session
+        will not touch for seconds. The subtree matters because the parked
+        history is re-tokenized from chat messages, so the session's own
+        generated pages usually sit below the matched chain as a divergent
+        continuation. Pages another live sequence references (refcount >
+        0) stay, as does everything above them. Returns pages evicted."""
+        if not pages:
+            return 0
+        kids: dict[int, list[int]] = {}
+        for node in self._by_page.values():
+            kids.setdefault(node.parent, []).append(node.page)
+        n = 0
+
+        def _evict_down(page: int) -> bool:
+            nonlocal n
+            node = self._by_page.get(page)
+            if node is None:
+                return True
+            clear = True
+            for c in kids.get(page, ()):
+                clear = _evict_down(c) and clear
+            if clear and node.refcount == 0 and node.children == 0:
+                self._evict(node)
+                n += 1
+                return True
+            return False
+
+        # The tail's whole subtree first (leaves first), then up the chain.
+        if not _evict_down(pages[-1]):
+            return n
+        for p in reversed(pages[:-1]):
+            node = self._by_page.get(p)
+            if node is None or node.refcount > 0 or node.children > 0:
+                break
+            self._evict(node)
+            n += 1
+        return n
+
+    def promote_prefix(self, seq_id: int, tokens: list[int]) -> int:
+        """Register a live sequence's leading full pages into the trie as
+        shared references (extending ``num_shared``), so that pages just
+        restored from the host tier are prefix hits for concurrent
+        admissions at once. ``tokens`` bounds the promotion. Stops where an
+        equal chain already sits under a different page (a live page table
+        cannot be rewritten). Returns the number of pages promoted."""
+        if not self.prefix_cache:
+            return 0
+        seq = self._seqs[seq_id]
+        P = self.page_size
+        stamp = next(self._clock)
+        full = min(len(tokens) // P, len(seq.pages))
+        parent = -1 if seq.num_shared == 0 else seq.pages[seq.num_shared - 1]
+        promoted = 0
+        for i in range(seq.num_shared, full):
+            key = tuple(tokens[i * P: (i + 1) * P])
+            page = seq.pages[i]
+            node = self._trie.get((parent, key))
+            if node is not None and node.page != page:
+                break
+            if node is None:
+                node = TrieNode(page=page, parent=parent, key=key,
+                                refcount=1, last_use=stamp)
+                self._trie[(parent, key)] = node
+                self._by_page[page] = node
+                if parent >= 0 and parent in self._by_page:
+                    self._by_page[parent].children += 1
+            else:
+                node.refcount += 1
+                node.last_use = stamp
+            seq.num_shared = i + 1
+            promoted += 1
+            parent = page
+        return promoted
+
+    def pages_of(self, seq_id: int) -> list[int]:
+        """A copy of a sequence's page list (restore targeting)."""
+        return list(self._seqs[seq_id].pages)
 
     def _register_pages(self, seq: SeqAlloc, tokens: list[int]) -> list[int]:
         """Donate a finished sequence's full pages to the trie; returns the

@@ -1,6 +1,5 @@
 """Continuous-batching scheduler (the port's counterpart of
-``opsagent_tpu/serving/scheduler.py``, without its offload parking and its
-drain for migration).
+``opsagent_tpu/serving/scheduler.py``, without its drain for migration).
 
 One thread owns the engine. Each tick admits waiting requests while batch
 slots and pages allow, class-fair (interactive before batch before
@@ -17,7 +16,12 @@ scheduler does:
 4. else a decode block (pipelined at ``pipeline_depth`` > 0).
 
 Finished sequences release their pages at once, so queued requests enter
-mid-flight.
+mid-flight. With the engine's host KV tier, an admission that finds no
+pages parks the coldest running session (``_park_coldest``: its pages
+copied to host RAM, its request re-queued with its tokens folded into the
+prompt) and retries once; the parked request's re-admission restores its
+pages instead of re-prefilling them. Idle ticks land pending page copies
+(``Engine.offload_flush``).
 
 A failing step is first reaped (a raising stream callback or mask ends its
 own request only); the batch fails only after 3 consecutive failures that
@@ -100,6 +104,9 @@ class Request:
     # into the prompt, and the result is generated_prefix + what follows.
     # A stream has had them already and is not sent them again.
     generated_prefix: list[int] = field(default_factory=list)
+    # Pressure-parked to the host KV tier: the re-admission is expected to
+    # restore its pages, and one that re-prefills instead is an anomaly.
+    parked: bool = False
     # Observability: the request's span handle (obs.trace.Span), under
     # which the scheduler records queue_wait and the engine the prefill
     # and decode phases.
@@ -181,10 +188,14 @@ class Scheduler:
                 self._fail(req, error, 503)
                 continue
             try:
-                seq_id = self.engine.begin_request(
-                    req.prompt_ids, req.sampling, req.mask_fn, req.on_token,
-                    trace=req.trace,
-                )
+                try:
+                    seq_id = self._begin(req)
+                except OutOfPages:
+                    # Park the coldest running session to host RAM rather
+                    # than queue behind the pages it pins, and retry once.
+                    if not self._park_coldest():
+                        raise
+                    seq_id = self._begin(req)
             except OutOfPages:
                 still.append(req)  # pages free as running sequences finish
                 continue
@@ -205,6 +216,44 @@ class Scheduler:
             if req.trace is not None:
                 req.trace.child("queue_wait", req.enqueued_s, now)
         self._waiting = still
+
+    def _begin(self, req: Request) -> int:
+        return self.engine.begin_request(
+            req.prompt_ids, req.sampling, req.mask_fn, req.on_token,
+            trace=req.trace, expect_restore=req.parked,
+        )
+
+    def _park_coldest(self) -> bool:
+        """Pressure parking (host KV tier): park the running session that
+        produced a token least recently (``Engine.park_sequence``) and
+        re-queue its request with the salvage folded in, at the back of
+        the queue, so that the prompt the parking made room for admits
+        first. Returns True when a session was parked."""
+        eng = self.engine
+        if eng.offload is None or not self._running:
+            return False
+        best: tuple[float, int] | None = None
+        for sid in self._running:
+            seq = eng.sequences.get(sid)
+            if seq is None or seq.done:
+                continue
+            last = seq.last_tok_s or seq.started_s
+            if best is None or last < best[0]:
+                best = (last, sid)
+        if best is None:
+            return False
+        sid = best[1]
+        try:
+            parked = eng.park_sequence(sid)
+        except Exception:  # noqa: BLE001 - parking is best-effort
+            log.exception("pressure parking of seq %d failed", sid)
+            return False
+        if parked is None:
+            return False  # it finished while the pipelines settled: reap it
+        req = self._running.pop(sid)
+        if self._requeue_salvaged(req, parked.tokens, parked.logprob_data, parked=True):
+            self._waiting.append(req)
+        return True
 
     def _drain_queue(self) -> None:
         while True:
@@ -394,12 +443,14 @@ class Scheduler:
 
     def _requeue_salvaged(
         self, req: Request, partial: list[int], logprob_data: list[dict],
+        parked: bool = False,
     ) -> bool:
         """Fold a salvaged generation into the request so that its
         re-admission continues where it stopped: prompt += salvage, budget
         -= salvage, the penalties count the salvage as output, a constraint
         walks on from where it was, and a stream is not sent the salvage
-        again. Returns False when the budget is spent (the request is then
+        again. Shared by engine restarts and pressure parking (``parked``).
+        Returns False when the budget is spent (the request is then
         finished, not re-queued)."""
         req.logprob_data = req.logprob_data + logprob_data[: len(partial)]
         req.generated_prefix = req.generated_prefix + partial
@@ -422,6 +473,7 @@ class Scheduler:
             inner = req.mask_fn
             req.mask_fn = lambda toks, _p=list(partial), _f=inner: _f(_p + toks)
         req.seq_id = None
+        req.parked = parked or req.parked
         # Time spent generating does not count against the admission
         # timeout of the re-admission.
         req.enqueued_s = time.perf_counter()
@@ -494,6 +546,11 @@ class Scheduler:
                         continue  # keep admitting
                     # Idle: the wait must not be observed as a host gap.
                     self.engine.mixed_gap_break()
+                    # Land pending device->host page copies, then wait.
+                    try:
+                        self.engine.offload_flush()
+                    except Exception:  # noqa: BLE001 - best-effort
+                        log.exception("offload flush failed")
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue

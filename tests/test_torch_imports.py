@@ -1,6 +1,6 @@
 """The port never loads JAX or the JAX package, nor the tokenizer and
 checkpoint libraries the card machine lacks (``tokenizers``,
-``transformers``, ``safetensors``, ``regex``).
+``transformers``, ``safetensors``, ``regex``, ``ml_dtypes``).
 
 Checked in a fresh interpreter: this process has JAX loaded already
 (tests/conftest.py imports it).
@@ -21,7 +21,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "opsagent_tpu", "tokenizers",
-                                    "transformers", "safetensors", "regex"))
+                                    "transformers", "safetensors", "regex",
+                                    "ml_dtypes"))
 print(",".join(names), bad)
 """
 # Modules each slice added; the walk must reach them.
@@ -51,6 +52,16 @@ REQUIRED = (
     "opsagent_tpu_torch.serving.async_runtime",
     "opsagent_tpu_torch.llm",
     "opsagent_tpu_torch.llm.client",
+    "opsagent_tpu_torch.serving.offload",
+    "opsagent_tpu_torch.serving.offload.pool",
+    "opsagent_tpu_torch.serving.offload.copy",
+    "opsagent_tpu_torch.serving.offload.manager",
+    "opsagent_tpu_torch.serving.fleet",
+    "opsagent_tpu_torch.serving.fleet.transfer",
+    "opsagent_tpu_torch.serving.snapshot",
+    "opsagent_tpu_torch.serving.snapshot.manifest",
+    "opsagent_tpu_torch.serving.snapshot.writer",
+    "opsagent_tpu_torch.serving.snapshot.restore",
 )
 
 

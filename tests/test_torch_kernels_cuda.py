@@ -903,3 +903,90 @@ def test_mla_moe_decode_graph_replays_the_eager_step(gen):
         assert gt == et and gl == el
         assert all(torch.equal(x, y) for x, y in zip(gc, ec))
     assert got[1][2]["paged_decode_attention_latent"] == cfg.num_layers * 8
+
+
+# -- the host KV tier's page copies (serving/offload/copy.py) ------------------
+def _filled_cache(gen, layout):
+    """A 24-page cache with every page byte random: bench-1b width at 2
+    layers in bf16 pages or int8 pages + f32 scales, or the V2-Lite latent
+    layout (one 576-column latent and its placeholder v)."""
+    from opsagent_tpu_torch.models.config import BENCH_1B
+    from opsagent_tpu_torch.models.llama import PagedKVCache
+
+    cfg = _narrow_v2_lite() if layout == "latent" else replace(BENCH_1B, num_layers=2)
+    cache = PagedKVCache(cfg, 24, 16, torch.bfloat16, torch.device("cuda"),
+                         "int8" if layout == "int8" else "")
+    for buf in cache.buffers():
+        if buf.dtype == torch.int8:
+            buf.copy_(torch.randint(-127, 128, buf.shape, generator=gen, device="cuda"))
+        else:
+            buf.copy_(torch.randn(buf.shape, generator=gen, device="cuda"))
+    return cache
+
+
+@pytest.mark.parametrize("pages", [[5], list(range(8, 16)), [3, 17, 3], [20, 1, 6, 11, 2, 9, 14, 0, 7, 19]])
+@pytest.mark.parametrize("layout", ["bf16", "int8", "latent"])
+def test_page_copies_are_bit_exact(gen, layout, pages):
+    """Gather at bucket 1, at the full bucket of 8, at a partial bucket
+    (duplicated ids among the real ones and in the padding) and across two
+    buckets: each host page equals the device page byte for byte; a
+    scatter into other pages writes exactly them, every other page and the
+    scratch slot untouched."""
+    from opsagent_tpu_torch.serving.offload import PageCopyEngine
+
+    cache = _filled_cache(gen, layout)
+    copier = PageCopyEngine(copy_pages=8)
+    copier.warm(cache)
+    leaves = cache.page_leaves()
+    whole = {name: leaf.clone() for name, leaf in leaves.items()}
+    scratch = [b[-1].clone() for b in cache.buffers()]
+    copier.dispatch_gather(cache, pages, list(range(len(pages))))
+    got = copier.flush(wait=True)
+    assert [m for m, _ in got] == list(range(len(pages))) and copier.pending_pages == 0
+    for (j, tree), page in zip(got, pages):
+        assert list(tree) == list(leaves)
+        for name, leaf in leaves.items():
+            assert tree[name].device.type == "cpu"
+            assert torch.equal(tree[name], leaf[:, page].cpu()), (name, page)
+    dst = [23 - i for i in range(len(set(pages)))]
+    trees = [t for (j, t) in got if pages.index(pages[j]) == j]
+    copier.scatter(cache, dst, trees)
+    torch.cuda.synchronize()
+    for b, x in zip(cache.buffers(), scratch):
+        assert torch.equal(b[-1], x)            # the scratch slot
+    untouched = [p for p in range(24) if p not in dst]
+    for name, leaf in leaves.items():
+        for d, tree in zip(dst, trees):
+            assert torch.equal(leaf[:, d].cpu(), tree[name])
+        assert torch.equal(leaf[:, untouched], whole[name][:, untouched])
+
+
+@pytest.mark.parametrize("kv_quantize", ["", "int8"])
+def test_graph_replay_after_a_restore_equals_eager(gen, kv_quantize):
+    """A session parked to the host pool and restored at its next turn's
+    admission: the replaying engine gives the eager one's tokens and every
+    cache byte, and its steps all replay (the restore wrote the pages in
+    place, so the captured graphs still hold the cache)."""
+    runs = []
+    for eng in _graph_and_eager_engines("dma", "", kv_quantize, offload=True,
+                                        offload_copy_pages=4):
+        eng.warmup()
+        prompt = [257] + list(range(10, 70))
+        sid = eng.add_request(prompt, SamplingParams(max_tokens=9))
+        while not eng.sequences[sid].done:
+            eng.step_block([sid])
+        out = eng.finish(sid)
+        hist = prompt + out[:-1]
+        assert eng.park_chain(hist) > 0
+        sid = eng.add_request(hist + [33, 34], SamplingParams(max_tokens=12))
+        assert eng.offload.restored_pages == eng.offload.spilled_pages > 0
+        while not eng.sequences[sid].done:
+            eng.step_block([sid])
+        torch.cuda.synchronize()
+        runs.append((eng.sequences[sid].tokens[:], _cache_bytes(eng.cache),
+                     eng.decode_eager_steps + eng.mixed_eager_ticks,
+                     eng.decode_replays + eng.mixed_replays))
+    (gt, gc, g_eager, g_replays), (et, ec, _, _) = runs
+    assert gt == et
+    assert all(torch.equal(x, y) for x, y in zip(gc, ec))
+    assert g_eager == 0 and g_replays > 0
