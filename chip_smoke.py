@@ -85,6 +85,25 @@ Phases, each printing one JSON line with its seconds:
    forms, bf16 and int8 pages) against its plain version at the
    fast-forward shapes (bucket 16, q_len 2-13, starts 200-4000), the bf16
    pages timed by graph replay beside their bound and SDPA.
+6b'. agent: the port's agent stack. (a) The trained tiny agent
+   (``tests/fixtures/tiny-agent-hf``, f32 on the dma kernels, installed as
+   ``cuda://tiny-agent``) runs its instruction through the port's
+   ``assistant_with_config`` with the replay kubectl, which refuses every
+   command but the trained one: the memorized final answer, the tool run
+   once, and one transcript with the conveyor on, with it off and on an
+   engine through the plain path (``attn_impl="plain"``, no kernel
+   launched); then the port's agent server: ``/login``, ``POST
+   /api/execute`` on ``cuda://tiny-agent`` (its own system prompt) gives
+   the same answer, the request's trace holds ``llm_turn`` (the engine's
+   spans under it) and ``tool_exec``, and ``/metrics`` counts its
+   iterations and tool calls. (b) bench-8b at full width and depth, bf16,
+   dma, random weights from ``--seed``: the loop at
+   ``AGENT_FULL_ITERATIONS`` iterations and ``AGENT_FULL_TOKENS`` tokens a
+   reply with every tool an in-process stub, on two fresh engines over one
+   model (conveyor on, off): one transcript, every constrained reply a
+   live prefix of the ToolPrompt DFA (JSON where it stopped); its line
+   (``agent_full_width``, with the card) gives each turn's TTFT and decode
+   tokens/s, the stub tools' calls and time and the parked tokens.
 6c. offload: the host KV tier at bench-8b width. At full depth in bf16
    pages, an engine with the tier and one without (and a cold one), over
    one model: four sessions' first turns (993-2993 prompt tokens, 16
@@ -2780,6 +2799,283 @@ def phase_chat_api(seed: int, smi: str, bf16_tol: float) -> dict:
 
 
 
+# -- phase 6e: the agent stack ---------------------------------------------------
+AGENT_FIXTURE = os.path.join(FIXTURES, "tiny-agent-hf")
+# The trained tiny agent's episode (scripts/train_tiny_agent.py's constants).
+AGENT_SYS_PROMPT = ("You are a k8s ops agent. Reply with ToolPrompt JSON; use the kubectl "
+                    "tool, then give final_answer.")
+AGENT_INSTRUCTION = "count namespaces"
+AGENT_KUBECTL_CMD = "kubectl get namespaces --no-headers | wc -l"
+AGENT_FINAL_ANSWER = "There are 3 namespaces in the cluster."
+AGENT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_agent")
+# The full-width run: the loop's iteration cap and reply budget.
+AGENT_FULL_ITERATIONS = 3
+AGENT_FULL_TOKENS = 256
+AGENT_FULL_INSTRUCTION = "count the namespaces, then list the pods of kube-system"
+
+
+def agent_run(model: str, system: str, user: str, max_tokens: int, iterations: int,
+              conveyor: bool) -> dict:
+    """One ReAct episode through the port's own loop (``conveyor``: the
+    stream with early tool launches, else the blocking path): the answer,
+    the transcript, and the flight ring's events of the run."""
+    from opsagent_tpu_torch.agent.react import assistant_with_config
+
+    os.environ["OPSAGENT_CONVEYOR"] = "1" if conveyor else "0"
+    obs.flight.get_recorder().reset()
+    messages = [{"role": "system", "content": system}, {"role": "user", "content": user}]
+    t0 = time.perf_counter()
+    answer, history = assistant_with_config(model, messages, max_tokens, False, False,
+                                            iterations, "", "")
+    return {"answer": answer, "history": history, "wall_s": time.perf_counter() - t0,
+            "events": obs.flight.get_recorder().snapshot()}
+
+
+def agent_turns(events: list[dict]) -> dict:
+    """Per model turn of a run, from its flight events: TTFT, and decode
+    tokens/s from the first token to the finish; with the tools' time and
+    the tokens parked at tool entry or launch."""
+    ttft = {e["seq_id"]: e for e in events if e["kind"] == "ttft"}
+    turns = []
+    for e in events:
+        if e["kind"] == "finish" and e["seq_id"] in ttft:
+            first = ttft[e["seq_id"]]
+            span = e["ts"] - first["ts"]
+            turns.append({"ttft_ms": first["ttft_ms"], "tokens": e["tokens"],
+                          "decode_tok_s": (e["tokens"] - 1) / span if span > 0 else None,
+                          "finish_reason": e["finish_reason"]})
+    tools = [e for e in events if e["kind"] == "tool_exec"]
+    return {"turns": turns,
+            "tool_calls": sum(1 for e in tools if e["phase"] == "exit"),
+            "tool_ms": sum(e.get("duration_ms", 0.0) for e in tools if e["phase"] == "exit"),
+            "parked_tokens": sum(e.get("parked_tokens", 0) for e in tools
+                                 if e["phase"] == "enter")}
+
+
+def agent_server_check(name: str, ran: list[str]) -> dict:
+    """``/login``, then ``POST /api/execute`` on ``cuda://<name>`` through the
+    port's agent server (the server's own system prompt): its message, its
+    trace's spans and the ``/metrics`` counters against the transcript."""
+    from opsagent_tpu_torch.server.app import build_server
+    from opsagent_tpu_torch.utils.globalstore import set_global
+
+    set_global("jwtKey", "chip-smoke-key")
+    server = build_server("127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+
+    def call(path, body=None, token=""):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", method="POST" if body is not None else "GET",
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json", "X-API-Key": "local",
+                     **({"Authorization": f"Bearer {token}"} if token else {})})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    try:
+        token = call("/login", {"username": "admin", "password": "novastar"})["token"]
+        before = scrape(port)
+        n_ran = len(ran)
+        reply = call("/api/execute?show-thought=true",
+                     {"instructions": AGENT_INSTRUCTION, "currentModel": f"cuda://{name}"},
+                     token)
+        after = scrape(port)
+        trace = call(f"/api/trace/{reply['request_id']}", token=token)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(reply["message"] == AGENT_FINAL_ANSWER,
+          f"agent server: message {reply['message']!r}")
+    children = trace["root"].get("children", [])
+    turns = [c for c in children if c["name"] == "llm_turn"]
+    tools = [c for c in children if c["name"] == "tool_exec"]
+    engine_spans = set()
+    for t in turns:
+        for c in t.get("children", []):
+            span_names(c, engine_spans)
+    check(len(turns) >= 2 and len(tools) == 1
+          and {"generate", "prefill", "decode"} <= engine_spans,
+          f"agent server: trace {[c['name'] for c in children]}, under llm_turn "
+          f"{sorted(engine_spans)}")
+    iterations = after["opsagent_agent_iterations_total"] - before.get(
+        "opsagent_agent_iterations_total", 0.0)
+    key = 'opsagent_agent_tool_calls_total{tool="kubectl",outcome="ok"}'
+    tool_ok = after.get(key, 0.0) - before.get(key, 0.0)
+    check(iterations == len(turns) and tool_ok == len(tools) == len(reply["tools_history"])
+          and ran[n_ran:] == [AGENT_KUBECTL_CMD],
+          f"agent server: {iterations} iterations / {len(turns)} turns, {tool_ok} tool calls / "
+          f"{reply['tools_history']}, ran {ran[n_ran:]}")
+    return {"message": reply["message"], "llm_turns": len(turns), "tool_exec": len(tools),
+            "engine_spans": sorted(engine_spans), "iterations_counted": iterations,
+            "tool_calls_counted": tool_ok}
+
+
+def phase_agent(seed: int, smi: str) -> dict:
+    """The port's agent stack on the card.
+
+    (a) The trained tiny agent (``tests/fixtures/tiny-agent-hf``, f32, dma
+    kernels, installed as ``cuda://tiny-agent``) runs its instruction
+    through the port's ``assistant_with_config`` with the replay kubectl
+    (refusing any other command): the memorized final answer, the tool run
+    once, one transcript with the conveyor on and off and on an engine
+    through the plain path (``attn_impl="plain"``, which launches no
+    kernel); then through the port's agent server: ``/login``,
+    ``/api/execute``, the request's trace and ``/metrics``.
+    (b) bench-8b at full width and depth, bf16, dma, random weights: the
+    loop (``AGENT_FULL_ITERATIONS``, ``AGENT_FULL_TOKENS``) with every tool
+    an in-process stub, on two fresh engines over one model (conveyor on,
+    conveyor off): one transcript, every constrained reply a live prefix of
+    the ToolPrompt DFA (JSON where it stopped), and its turns' TTFT and
+    decode tokens/s, the stub tools' time and the parked tokens."""
+    from opsagent_tpu_torch import tools as tool_pkg
+    from opsagent_tpu_torch.agent.prompts import REACT_SYSTEM_PROMPT, SUMMARIZE_PROMPT
+    from opsagent_tpu_torch.serving import api
+    from opsagent_tpu_torch.tools.replay import NAMESPACES_SCRIPT, install_replay_kubectl
+
+    saved_tools = dict(tool_pkg.get_tools())
+    saved_env = {k: os.environ.get(k) for k in ("PATH", "OPSAGENT_CONVEYOR")}
+    launches = {name: 0 for name in KERNELS}
+    report: dict = {}
+    try:
+        # -- (a) the trained tiny agent ----------------------------------------
+        install_replay_kubectl(NAMESPACES_SCRIPT, os.path.join(AGENT_DIR, "bin"))
+        replay = tool_pkg.default_registry()["kubectl"]
+        ran: list[str] = []
+
+        def kubectl(cmd: str) -> str:
+            ran.append(cmd)
+            if cmd != AGENT_KUBECTL_CMD:
+                raise tool_pkg.ToolError(f"refused: {cmd}")
+            return replay(cmd)
+
+        tool_pkg.copilot_tools["kubectl"] = kubectl
+        user = f"Here are the instructions: {AGENT_INSTRUCTION}"
+        runs = {}
+        for impl in ("cuda", "plain"):
+            eng = Engine(EngineConfig(model="auto", checkpoint=AGENT_FIXTURE,
+                                      tokenizer=AGENT_FIXTURE, dtype=torch.float32,
+                                      device="cuda", attn_impl=impl, offload=True))
+            eng.warmup()
+            stack = ServingStack(eng)
+            api.install_stack("tiny-agent", stack)
+            try:
+                reset_launch_counts()
+                for conveyor in ((True, False) if impl == "cuda" else (True,)):
+                    n = len(ran)
+                    run = agent_run("cuda://tiny-agent", AGENT_SYS_PROMPT, user, 256, 4, conveyor)
+                    final = json.loads(run["answer"]).get("final_answer")
+                    check(final == AGENT_FINAL_ANSWER and ran[n:] == [AGENT_KUBECTL_CMD],
+                          f"tiny agent {impl} conveyor={conveyor}: final {final!r}, "
+                          f"ran {ran[n:]}")
+                    runs[impl, conveyor] = run
+                if impl == "cuda":
+                    server = agent_server_check("tiny-agent", ran)
+                counts = launch_counts()
+            finally:
+                api.uninstall_stack("tiny-agent")
+                stack.close()
+                del eng
+            if impl == "cuda":
+                for name, c in counts.items():
+                    launches[name] += c
+                # Every reply decodes under the ToolPrompt schema, on mixed
+                # ticks (a constrained row never takes a decode block): the
+                # dma ragged kernel carries the whole turn.
+                check(counts["paged_ragged_attention"] > 0,
+                      f"tiny agent: dma kernels launched {counts}")
+            else:
+                check(not any(counts.values()), f"tiny agent plain path launched {counts}")
+        on, off, plain = runs["cuda", True], runs["cuda", False], runs["plain", True]
+        check(on["history"] == off["history"] == plain["history"]
+              and on["answer"] == off["answer"] == plain["answer"],
+              "tiny agent: transcripts differ between conveyor on, off and the plain path")
+        report["tiny_agent"] = {
+            "final_answer": AGENT_FINAL_ANSWER, "messages": len(on["history"]),
+            "conveyor_on_equals_off": True, "kernels_equal_plain": True,
+            "wall_s": {"conveyor": on["wall_s"], "blocking": off["wall_s"],
+                       "plain": plain["wall_s"]},
+            **agent_turns(on["events"]), "server": server,
+        }
+
+        # -- (b) bench-8b at full width --------------------------------------------
+        stub_obs = "default\nkube-system\nmonitoring"
+        tool_pkg.copilot_tools.clear()
+        tool_pkg.copilot_tools.update({name: (lambda arg: stub_obs)
+                                       for name in tool_pkg.default_registry()})
+        model = Llama(BENCH_8B, torch.bfloat16, "cuda", seed=seed)
+        tokenizer = ByteTokenizer(BENCH_8B.vocab_size)
+        dfa = json_constraint(tokenizer, TOOLPROMPT_SCHEMA).fsm.dfa
+        json_constraint(tokenizer, TOOLPROMPT_SCHEMA).fsm.dense_tables()
+        full = {}
+        for conveyor in (True, False):
+            eng = Engine(EngineConfig(model="bench-8b", dtype=torch.bfloat16, device="cuda",
+                                      seed=seed, offload=True),
+                         model_cfg=BENCH_8B, model=model, tokenizer=tokenizer)
+            warm = eng.warmup()
+            stack = ServingStack(eng)
+            api.install_stack("bench-8b", stack)
+            try:
+                reset_launch_counts()
+                full[conveyor] = agent_run(
+                    "cuda://bench-8b", REACT_SYSTEM_PROMPT,
+                    f"Here are the instructions: {AGENT_FULL_INSTRUCTION}", AGENT_FULL_TOKENS,
+                    AGENT_FULL_ITERATIONS, conveyor)
+                full[conveyor]["warmup_s"] = warm
+                for name, c in launch_counts().items():
+                    launches[name] += c
+            finally:
+                api.uninstall_stack("bench-8b")
+                stack.close()
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+        on, off = full[True], full[False]
+        check(on["history"] == off["history"] and on["answer"] == off["answer"],
+              "bench-8b agent: transcripts differ with the conveyor on and off")
+        replies = 0
+        for prev, msg in zip(on["history"], on["history"][1:]):
+            if msg["role"] != "assistant" or prev["content"] == SUMMARIZE_PROMPT:
+                continue      # the summarization turn decodes unconstrained
+            replies += 1
+            st = dfa.run(dfa.start, msg["content"].encode())
+            check(st >= 0, f"bench-8b agent: a reply leaves the ToolPrompt DFA: "
+                           f"{msg['content']!r}")
+            if dfa.accept[st]:
+                json.loads(msg["content"])
+        check(replies > 0, "bench-8b agent: no constrained reply")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        turns = agent_turns(on["events"])
+        report["full_width"] = {
+            "model": "bench-8b", "layers": BENCH_8B.num_layers, "dtype": "bfloat16",
+            "card": smi, "conveyor_on_equals_off": True, "constrained_replies": replies,
+            "turn_count": len(turns["turns"]),
+            "ttft_ms": [t["ttft_ms"] for t in turns["turns"]],
+            "decode_tok_s": [t["decode_tok_s"] for t in turns["turns"]],
+            "completion_tokens": [t["tokens"] for t in turns["turns"]],
+            "finish_reasons": [t["finish_reason"] for t in turns["turns"]],
+            "stub_tool_calls": turns["tool_calls"], "stub_tool_ms": turns["tool_ms"],
+            "parked_tokens": turns["parked_tokens"],
+            "loop_wall_s": {"conveyor": on["wall_s"], "blocking": off["wall_s"]},
+            "warmup_s": on["warmup_s"],
+        }
+    finally:
+        tool_pkg.copilot_tools.clear()
+        tool_pkg.copilot_tools.update(saved_tools)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(AGENT_DIR, ignore_errors=True)
+    report["launches"] = launches
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2843,6 +3139,14 @@ def main() -> int:
     loop = phase_serve_loop(args.seed, smi)
     emit({"phase": "serve_loop", "seconds": time.perf_counter() - t, **loop})
     for name, n in loop["launches"].items():
+        launches[name] += n
+
+    t = time.perf_counter()
+    agent = phase_agent(args.seed, smi)
+    emit({"phase": "agent", "seconds": time.perf_counter() - t, "card": smi,
+          "tiny_agent": agent["tiny_agent"], "launches": agent["launches"]})
+    emit({"phase": "agent_full_width", **agent["full_width"]})
+    for name, n in agent["launches"].items():
         launches[name] += n
 
     for run in (phase_offload, phase_snapshot):

@@ -8,3 +8,6 @@ for ``device="cpu"``; see ``device.resolve_device``.
 """
 
 __version__ = "0.1.0"
+
+# The version the agent CLI and /api/version report (the JAX package's).
+VERSION = "v0.1.0"

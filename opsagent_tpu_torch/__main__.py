@@ -21,7 +21,12 @@ bench-8b`` builds and warms an engine and writes its snapshot (weights in
 the JAX package's leaf layout, the kernel libraries, the KV plan);
 ``snapshot verify DIR [--quick]`` checks one (the port's or the JAX
 package's): exit 0 when it is whole, 1 when it is not, 2 when it cannot be
-read."""
+read.
+
+The agent's commands (``server``, ``execute``, ``analyze``, ``audit``,
+``diagnose``, ``generate``, ``version``, and ``--config FILE`` before them)
+are ``cli/main.py``'s: ``python -m opsagent_tpu_torch execute --model
+cuda://bench-8b "count the namespaces"``."""
 
 from __future__ import annotations
 
@@ -32,11 +37,18 @@ import os
 import sys
 
 from . import obs
+from .cli.main import COMMANDS as AGENT_COMMANDS
 from .serving.api import ServingStack, make_server
 from .serving.engine import Engine, EngineConfig
 
 
 def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    first = next((a for a in argv if not a.startswith("-")), "")
+    if argv[:1] == ["--config"] or first in AGENT_COMMANDS:
+        from .cli.main import main as agent_main
+
+        return agent_main(argv)
     parser = argparse.ArgumentParser(prog="python -m opsagent_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     se = sub.add_parser(

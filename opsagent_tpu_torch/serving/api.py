@@ -793,19 +793,128 @@ ROUTES = (
     ("POST", "/fleet/kv/export", "fleet_kv_export"),
     ("POST", "/fleet/kv/import", "fleet_kv_import"),
 )
-_COMPILED = [
-    (method, pattern, re.compile("^" + re.sub(r"\{(\w+)\}", r"(?P<\1>[^/]+)", pattern) + "$"),
-     handler)
-    for method, pattern, handler in ROUTES
-]
-_PROFILE_OFF = {"error": {"message": "profiling not enabled: start the server with --profile-dir"}}
+
+
+def compile_routes(routes: tuple[tuple[str, str, str], ...]) -> list[tuple[str, str, re.Pattern, str]]:
+    """(method, pattern, regex, handler) for each route; a pattern's
+    ``{name}`` matches one path segment. The agent server
+    (``server/app.py``) shares this with the engine's."""
+    return [
+        (method, pattern, re.compile("^" + re.sub(r"\{(\w+)\}", r"(?P<\1>[^/]+)", pattern) + "$"),
+         handler)
+        for method, pattern, handler in routes
+    ]
+
+
+def find_route(compiled: list, method: str, path: str) -> tuple[str | None, dict[str, str], str]:
+    """(handler, path parameters, pattern) of the route ``method path``
+    takes; the handler is None when the path matches only under another
+    method (405), the pattern ``unmatched`` when no route has the path
+    (404)."""
+    label = "unmatched"
+    for m, pattern, regex, handler in compiled:
+        match = regex.match(path)
+        if match is None:
+            continue
+        label = pattern
+        if m == method:
+            return handler, match.groupdict(), pattern
+    return None, {}, label
+
+
+_COMPILED = compile_routes(ROUTES)
+_PROFILE_OFF = "profiling not enabled: start the server with --profile-dir"
+
+
+class ObsRoutes:
+    """The observability routes both HTTP servers answer, with the JAX
+    package's status codes: ``/api/trace/{id}``, ``/api/timeline/{id}``,
+    ``/api/debug/flight``, ``/api/slo``, ``/api/metrics/history``,
+    ``/api/debug/memory`` and ``/api/debug/profile``. A server mixes this
+    into its ``BaseHTTPRequestHandler`` and supplies ``_reply(status,
+    payload)`` and ``_error(status, message)`` (the two servers' error
+    bodies differ, as the JAX package's do), and may restate the class
+    attributes below."""
+
+    HISTORY_ERROR = "bad query: {}"          # the 400 of a bad history query
+    PROFILE_OFF = _PROFILE_OFF               # the 403 of the memory route
+    PROFILE_DENIED: tuple[type[BaseException], ...] = (profiling.ProfilingDisabled,)
+
+    def trace_get(self, query: dict[str, str], request_id: str) -> None:
+        t = obs.get_trace(request_id)
+        if t is None:
+            self._error(404, "unknown request_id")
+        else:
+            self._reply(200, t)
+
+    def timeline_get(self, query: dict[str, str], request_id: str) -> None:
+        tl = obs.timeline.assemble(request_id)
+        if tl is None:
+            self._error(404, "unknown request_id")
+        else:
+            self._reply(200, tl)
+
+    def flight_get(self, query: dict[str, str]) -> None:
+        try:
+            n = int(query["n"]) if "n" in query else None
+        except ValueError:
+            self._error(400, "n must be an integer")
+            return
+        rec = obs.flight.get_recorder()
+        self._reply(200, {**rec.stats(), "events": rec.snapshot(n=n, kind=query.get("kind"))})
+
+    def slo_get(self, query: dict[str, str]) -> None:
+        self._reply(200, obs.slo.evaluate())
+
+    def history_get(self, query: dict[str, str]) -> None:
+        try:
+            kwargs = obs.history.parse_query(query)
+        except ValueError as e:
+            self._error(400, self.HISTORY_ERROR.format(e))
+            return
+        self._reply(200, obs.history.query(**kwargs))
+
+    # -- profiling (operator-configured directory only) ----------------------
+    def memory_profile(self, query: dict[str, str]) -> None:
+        logdir = profiling.profile_dir()
+        if not logdir:
+            self._error(403, self.PROFILE_OFF)
+            return
+        stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime())
+        path = os.path.join(logdir, f"memory-{stamp}.pickle")
+        try:
+            os.makedirs(logdir, exist_ok=True)
+            profiling.save_device_memory_profile(path)
+        except Exception as e:  # noqa: BLE001 - surfaced to the caller
+            self._error(500, str(e))
+            return
+        self._reply(200, {"status": "saved", "path": path})
+
+    def profile_capture(self, query: dict[str, str]) -> None:
+        try:
+            seconds = float(query.get("seconds", "5"))
+        except ValueError:
+            self._error(400, "seconds must be a number")
+            return
+        try:
+            logdir = profiling.timed_capture(seconds)
+        except ValueError as e:
+            self._error(400, str(e))
+            return
+        except self.PROFILE_DENIED as e:
+            self._error(403, str(e))
+            return
+        except Exception as e:  # noqa: BLE001 - a capture already running
+            self._error(409, str(e))
+            return
+        self._reply(200, {"status": "captured", "seconds": seconds, "logdir": logdir})
 
 
 def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServer:
     """A threading HTTP server for ``stack`` bound to (host, port); port 0
     picks a free one (read it from ``server.server_address``)."""
 
-    class Handler(BaseHTTPRequestHandler):
+    class Handler(ObsRoutes, BaseHTTPRequestHandler):
         _status = 0
 
         def send_response(self, code: int, message: str | None = None) -> None:
@@ -814,6 +923,9 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
 
         def _reply(self, status: int, payload: dict[str, Any]) -> None:
             self._send(status, json.dumps(payload, default=str).encode(), "application/json")
+
+        def _error(self, status: int, message: str) -> None:
+            self._reply(status, {"error": {"message": message}})
 
         def _send(self, status: int, data: bytes, ctype: str, **headers: str) -> None:
             self.send_response(status)
@@ -854,21 +966,15 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
         def _dispatch(self, method: str) -> None:
             url = urlsplit(self.path)
             query = {k: v[0] for k, v in parse_qs(url.query).items()}
-            label = "unmatched"
             t0 = time.perf_counter()
+            handler, params, label = find_route(_COMPILED, method, url.path)
             try:
-                for m, pattern, regex, handler in _COMPILED:
-                    match = regex.match(url.path)
-                    if match is None:
-                        continue
-                    label = pattern
-                    if m == method:
-                        getattr(self, handler)(query, **match.groupdict())
-                        return
-                if label != "unmatched":
-                    self._reply(405, {"error": {"message": "method not allowed"}})
+                if handler is not None:
+                    getattr(self, handler)(query, **params)
+                elif label != "unmatched":
+                    self._error(405, "method not allowed")
                 else:
-                    self._reply(404, {"error": {"message": "not found"}})
+                    self._error(404, "not found")
             finally:
                 obs.HTTP_REQUESTS.inc(method=method, path=label, status=str(self._status))
                 obs.HTTP_LATENCY_SECONDS.observe(time.perf_counter() - t0, path=label)
@@ -925,80 +1031,11 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
             self._send(200, stack.metrics_text().encode(), "text/plain; charset=utf-8",
                        **{"X-Prometheus-Version": "0.0.4"})
 
-        def trace_get(self, query: dict[str, str], request_id: str) -> None:
-            t = obs.get_trace(request_id)
-            if t is None:
-                self._reply(404, {"error": {"message": "unknown request_id"}})
-            else:
-                self._reply(200, t)
-
-        def timeline_get(self, query: dict[str, str], request_id: str) -> None:
-            tl = obs.timeline.assemble(request_id)
-            if tl is None:
-                self._reply(404, {"error": {"message": "unknown request_id"}})
-            else:
-                self._reply(200, tl)
-
-        def flight_get(self, query: dict[str, str]) -> None:
-            try:
-                n = int(query["n"]) if "n" in query else None
-            except ValueError:
-                self._reply(400, {"error": {"message": "n must be an integer"}})
-                return
-            rec = obs.flight.get_recorder()
-            self._reply(200, {**rec.stats(),
-                              "events": rec.snapshot(n=n, kind=query.get("kind"))})
-
-        def slo_get(self, query: dict[str, str]) -> None:
-            self._reply(200, obs.slo.evaluate())
-
-        def history_get(self, query: dict[str, str]) -> None:
-            try:
-                kwargs = obs.history.parse_query(query)
-            except ValueError as e:
-                self._reply(400, {"error": {"message": f"bad query: {e}"}})
-                return
-            self._reply(200, obs.history.query(**kwargs))
-
         # -- profiling (operator-configured directory only) ------------------
-        def memory_profile(self, query: dict[str, str]) -> None:
-            logdir = profiling.profile_dir()
-            if not logdir:
-                self._reply(403, _PROFILE_OFF)
-                return
-            stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime())
-            path = os.path.join(logdir, f"memory-{stamp}.pickle")
-            try:
-                os.makedirs(logdir, exist_ok=True)
-                profiling.save_device_memory_profile(path)
-            except Exception as e:  # noqa: BLE001 - surfaced to the caller
-                self._reply(500, {"error": {"message": str(e)}})
-                return
-            self._reply(200, {"status": "saved", "path": path})
-
-        def profile_capture(self, query: dict[str, str]) -> None:
-            try:
-                seconds = float(query.get("seconds", "5"))
-            except ValueError:
-                self._reply(400, {"error": {"message": "seconds must be a number"}})
-                return
-            try:
-                logdir = profiling.timed_capture(seconds)
-            except ValueError as e:
-                self._reply(400, {"error": {"message": str(e)}})
-                return
-            except profiling.ProfilingDisabled as e:
-                self._reply(403, {"error": {"message": str(e)}})
-                return
-            except Exception as e:  # noqa: BLE001 - a capture already running
-                self._reply(409, {"error": {"message": str(e)}})
-                return
-            self._reply(200, {"status": "captured", "seconds": seconds, "logdir": logdir})
-
         def profile_start(self, query: dict[str, str]) -> None:
             logdir = profiling.profile_dir()
             if not logdir:
-                self._reply(403, _PROFILE_OFF)
+                self._error(403, _PROFILE_OFF)
                 return
             try:
                 profiling.start_trace(logdir)

@@ -4,7 +4,9 @@
 Models emit JSON wrapped in markdown fences, with unescaped newlines inside
 strings, trailing commas, or stray prose around the object. ``parse_json``
 recovers a parseable object from such output: the chat API reads a
-``tool_calls`` reply with it.
+``tool_calls`` reply with it, the agent loop a ToolPrompt reply.
+``extract_field`` pulls one field out of JSON-ish text that even the repair
+cannot parse.
 """
 
 from __future__ import annotations
@@ -152,3 +154,39 @@ def parse_json(s: str) -> Any:
         return json.loads(cleaned)
     except json.JSONDecodeError as e:
         raise ValueError(f"unparseable JSON after repair: {e}") from e
+
+
+def extract_field(s: str, field: str) -> str:
+    """Extract a top-level string field from JSON-ish text.
+
+    Tries full parse (strict then repaired) and a dict lookup; falls back to a
+    regex over the raw text that tolerates escaped quotes in the value.
+    Returns "" when the field cannot be found.
+    """
+    for attempt in (s, None):
+        try:
+            obj = json.loads(s) if attempt is not None else json.loads(clean_json(s))
+        except (json.JSONDecodeError, TypeError):
+            continue
+        if isinstance(obj, dict) and field in obj:
+            v = obj[field]
+            if isinstance(v, str):
+                return v
+            return json.dumps(v, ensure_ascii=False)
+    # Regex fallback: "field" : "value with \" escapes"
+    pat = re.compile(
+        r'"' + re.escape(field) + r'"\s*:\s*"((?:[^"\\]|\\.)*)"', re.DOTALL
+    )
+    m = pat.search(s)
+    if m:
+        raw = m.group(1)
+        try:
+            return json.loads('"' + raw + '"')
+        except json.JSONDecodeError:
+            return raw
+    # Non-string value fallback: "field": {...} / [...] / number / bool
+    pat2 = re.compile(r'"' + re.escape(field) + r'"\s*:\s*([\[{].*?[\]}]|[^,}\]]+)', re.DOTALL)
+    m = pat2.search(s)
+    if m:
+        return m.group(1).strip()
+    return ""

@@ -1,6 +1,7 @@
-"""The port never loads JAX or the JAX package, nor the tokenizer and
-checkpoint libraries the card machine lacks (``tokenizers``,
-``transformers``, ``safetensors``, ``regex``, ``ml_dtypes``).
+"""The port never loads JAX or the JAX package, nor the tokenizer, checkpoint,
+HTTP and YAML libraries the card machine lacks (``tokenizers``,
+``transformers``, ``safetensors``, ``regex``, ``ml_dtypes``, ``aiohttp``,
+``yaml``, ``tiktoken``).
 
 Checked in a fresh interpreter: this process has JAX loaded already
 (tests/conftest.py imports it).
@@ -22,7 +23,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "opsagent_tpu", "tokenizers",
                                     "transformers", "safetensors", "regex",
-                                    "ml_dtypes"))
+                                    "ml_dtypes", "aiohttp", "yaml", "tiktoken"))
 print(",".join(names), bad)
 """
 # Modules each slice added; the walk must reach them.
@@ -62,6 +63,37 @@ REQUIRED = (
     "opsagent_tpu_torch.serving.snapshot.manifest",
     "opsagent_tpu_torch.serving.snapshot.writer",
     "opsagent_tpu_torch.serving.snapshot.restore",
+    "opsagent_tpu_torch.serving.faults",
+    "opsagent_tpu_torch.utils.globalstore",
+    "opsagent_tpu_torch.utils.yamlutil",
+    "opsagent_tpu_torch.utils.yamlio",
+    "opsagent_tpu_torch.utils.term",
+    "opsagent_tpu_torch.utils.config",
+    "opsagent_tpu_torch.llm.tokens",
+    "opsagent_tpu_torch.tools",
+    "opsagent_tpu_torch.tools.proc",
+    "opsagent_tpu_torch.tools.kubectl",
+    "opsagent_tpu_torch.tools.python_tool",
+    "opsagent_tpu_torch.tools.trivy",
+    "opsagent_tpu_torch.tools.jq",
+    "opsagent_tpu_torch.tools.search",
+    "opsagent_tpu_torch.tools.replay",
+    "opsagent_tpu_torch.k8s",
+    "opsagent_tpu_torch.k8s.client",
+    "opsagent_tpu_torch.agent",
+    "opsagent_tpu_torch.agent.prompts",
+    "opsagent_tpu_torch.agent.funcall",
+    "opsagent_tpu_torch.agent.react",
+    "opsagent_tpu_torch.agent.conveyor",
+    "opsagent_tpu_torch.workflows",
+    "opsagent_tpu_torch.workflows.flows",
+    "opsagent_tpu_torch.server",
+    "opsagent_tpu_torch.server.jwtauth",
+    "opsagent_tpu_torch.server.handlers",
+    "opsagent_tpu_torch.server.app",
+    "opsagent_tpu_torch.cli",
+    "opsagent_tpu_torch.cli.main",
+    "opsagent_tpu_torch.__main__",
 )
 
 
