@@ -134,6 +134,25 @@ Phases, each printing one JSON line with its seconds:
    greedy request, whose tokens equal the source engine's, with no nvcc
    run (the snapshot's libraries pre-seeded) and its restore-to-first-
    token seconds. The snapshot and the kernel directory are deleted after.
+6e. fleet: two in-process replicas r0 and r1, bench-8b bf16 at full width
+   and depth (weights of their own, one seed), dma kernels, host tier on,
+   behind the fleet router's HTTP server, and a third replica (2 layers)
+   joining over HTTP with ``FleetMembership``; every engine warmed up
+   before any scheduler thread. Four two-turn sessions of 2,000-3,000
+   tokens (turn 2 on turn 1's replica by affinity, its prefix hit covering
+   turn 1's pages), a forced mis-route through ``migrate_chain`` (pages,
+   bytes, ms, GB/s; TTFT restored against a cold re-prefill), a page-store
+   fault-in of a chain held only in the owner's host pool (TTFT against a
+   re-prefill), a ``fleet.stream_disconnect`` failover over the router's
+   SSE (resumed text byte-identical), and ``POST /fleet/drain/r0`` at the
+   first token of four 128-token streams (its wall ms; no request error,
+   each stream exactly its request's tokens, r0 deregistered; agreement
+   with the never-drained run reported: a drained stream's next tokens
+   come from a re-prefill in bf16); then the same drain on an f32 fleet
+   at full width and 2 layers, equal to the never-drained run token for
+   token. Every other reply equal to a single replica's, no capture after
+   warmup, only the dma ragged and decode kernels launched. Replies render
+   every token (``FleetTokenizer``).
 7. serve: behind the HTTP server, random weights from ``--seed``, bf16
    activations, four concurrent chat completions per run, on the default
    loop (async ticks, pipelined blocks, fast-forward): bench-8b at full
@@ -1785,6 +1804,433 @@ def snapshot_child(path: str) -> int:
     return 0
 
 
+# -- phase 6e: the fleet ------------------------------------------------------------
+# Turn-1 prompt lengths of the affinity sessions, in characters of random
+# text (the byte tokenizer: one token each, plus the chat template's).
+FLEET_SESSIONS = (2000, 2400, 2700, 3000)
+FLEET_TOKENS = 16
+DRAIN_PROMPTS = (40, 48, 52, 60)   # one mixed-tick chunk each, whatever the timing
+DRAIN_TOKENS = 128
+# Tokens each stream has before the drain: its first (from its prompt's
+# tick). The pipelined decode blocks then in flight (two of 32 steps) settle
+# in the drain, and the sessions move with their other tokens still to go;
+# one block pulled later, the blocks behind it would finish them.
+DRAIN_AFTER = 1
+JOIN_LAYERS = 2                    # the replica that joins over HTTP
+DRAIN_F32_LAYERS = 2               # the drain held token for token
+FLEET_HOST_POOL = 8 << 30
+
+
+class FleetTokenizer(ByteTokenizer):
+    """The byte tokenizer, each id past ASCII rendered as ``<id>``: a reply's
+    text then shows every token it generated, so that text equality is
+    token equality (random weights mostly sample ids past the bytes)."""
+
+    def decode(self, ids: list[int]) -> str:
+        return "".join(chr(i) if i < 128 else f"<{i}>" for i in ids)
+
+
+def random_text(gen: torch.Generator, n: int) -> str:
+    letters = "abcdefghijklmnopqrstuvwxyz     .,\n"
+    return "".join(letters[i] for i in torch.randint(0, len(letters), (n,), generator=gen).tolist())
+
+
+def router_call(url: str, path: str, body: dict | None = None) -> dict:
+    req = urllib.request.Request(url + path, data=None if body is None else json.dumps(body).encode(),
+                                 method="POST" if body is not None else "GET",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def router_sse(url: str, body: dict, path: str = "/v1/chat/completions") -> str:
+    """A streamed completion through the router: its text; fails on an error
+    event, a second role event or a missing finish."""
+    req = urllib.request.Request(url + path, data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        raw = r.read().decode()
+    data = [b.removeprefix("data: ") for b in raw.split("\n\n") if b]
+    check(data[-1] == "[DONE]", f"fleet stream ends with {data[-1]!r}")
+    chunks = [json.loads(d) for d in data[:-1]]
+    errors = [c for c in chunks if "error" in c]
+    heads = [c for c in chunks if "role" in c["choices"][0].get("delta", {})]
+    finals = [c for c in chunks if c["choices"][0].get("finish_reason")]
+    check(not errors and len(heads) == 1 and len(finals) == 1,
+          f"fleet stream: errors {errors}, {len(heads)} role and {len(finals)} finish events")
+    return "".join(c["choices"][0]["delta"].get("content") or "" for c in chunks)
+
+
+def stack_stream(stack: ServingStack, body: dict) -> str:
+    chunks = list(stack.chat_completion_stream({**body, "stream": True}))
+    check(all("error" not in c for c in chunks), "reference stream errored")
+    return "".join(c["choices"][0]["delta"].get("content") or "" for c in chunks)
+
+
+def reply_text(resp: dict) -> str:
+    return resp["choices"][0]["message"]["content"] or ""
+
+
+def drain_run(url: str, router, src: ServingStack, ref: ServingStack, bodies: list[dict],
+              exact: bool) -> dict:
+    """``bodies`` streamed through the router onto r0 (``src``) and, once
+    every stream is admitted and past its first token, ``POST
+    /fleet/drain/r0``: no request error, r0 deregistered, and each stream's
+    text is its request's tokens (none lost or repeated across the
+    move). ``exact``: every text equals the never-drained run on ``ref``
+    (the same streams at once); otherwise that agreement is reported."""
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        want = list(ex.map(lambda b: stack_stream(ref, b), bodies))
+    reqs: list[Request] = []
+    submit = src.scheduler.submit
+    src.scheduler.submit = lambda req: (reqs.append(req), submit(req))[1]
+    eng = src.engine
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        futures = [ex.submit(router_sse, url, b, "/v1/chat/completions?replica=r0")
+                   for b in bodies]
+        # Every stream admitted and past its first token (a stream may end
+        # early, at EOS).
+        seen: set[int] = set()
+        live: list[int] = []
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            seqs = list(eng.sequences.items())
+            seen |= {sid for sid, _ in seqs}
+            live = [len(q.tokens) for _, q in seqs]
+            if len(seen) == len(bodies) and live and min(live) >= DRAIN_AFTER:
+                break
+            time.sleep(0.002)
+        t0 = time.perf_counter()
+        out = router_call(url, "/fleet/drain/r0", {})
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        got = [f.result(timeout=600) for f in futures]
+    tok = eng.tokenizer
+    own = [tok.decode([t for t in r.tokens if t != tok.eos_id]) for r in reqs]
+    check(out["errors"] == 0 and 1 <= out["migrated_sessions"] <= len(live)
+          and sum(1 for r in reqs if r.generated_prefix) == out["migrated_sessions"],
+          f"drain: {out} with {len(live)} streams decoding")
+    check(sorted(got) == sorted(own), "drain: a stream lost or repeated a token across the move")
+    check(router.registry.get("r0") is None, "drain: r0 still registered")
+    first_diff = []
+    for g, w in zip(got, want):
+        a, b = re.findall(r"<\d+>|.", g, re.S), re.findall(r"<\d+>|.", w, re.S)
+        first_diff.append(next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                               None if len(a) == len(b) else min(len(a), len(b))))
+    if exact:
+        check(got == want, f"drain: streamed texts differ from the never-drained run at tokens "
+                           f"{first_diff}")
+    return {"streams": len(bodies), "tokens": DRAIN_TOKENS, "after_tokens": DRAIN_AFTER,
+            "decoding_at_drain": len(live), "tokens_at_drain": live, "wall_ms": drain_ms,
+            "migrated_sessions": out["migrated_sessions"], "errors": out["errors"],
+            "salvaged_tokens": [len(r.generated_prefix) for r in reqs],
+            "texts_equal_never_drained": [d is None for d in first_diff],
+            "first_differing_token": first_diff}
+
+
+def drain_exact(seed: int, gen: torch.Generator) -> dict:
+    """The drain held to the never-drained run token for token: r0, r1 and
+    a single-replica reference over one bench-8b model at full width, f32,
+    ``DRAIN_F32_LAYERS`` layers, host tier on, behind a router of their
+    own. In bf16 a drained stream's next tokens come from another kernel
+    path (its tail re-prefilled in a mixed tick, not decoded) and from
+    another batch, and random weights' greedy choices turn on the last
+    bf16 bit; in f32 they do not."""
+    from opsagent_tpu_torch.serving.fleet.router import FleetRouter, build_router_app
+
+    cut = replace(BENCH_8B, num_layers=DRAIN_F32_LAYERS)
+    model = Llama(cut, torch.float32, "cuda", seed=seed)
+    tok = FleetTokenizer(cut.vocab_size)
+    cfg = EngineConfig(model="bench-8b", dtype=torch.float32, device="cuda", seed=seed,
+                       num_pages=512, offload=True)
+    engines = {name: Engine(cfg, model_cfg=cut, model=model, tokenizer=tok)
+               for name in ("r0", "r1", "reference")}
+    for eng in engines.values():
+        eng.warmup()
+    stacks = {name: ServingStack(eng) for name, eng in engines.items()}
+    router = FleetRouter()
+    for rid in ("r0", "r1"):
+        router.add_local(stacks[rid], rid)
+    server = build_router_app(router, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        bodies = [{"model": "bench-8b", "temperature": 0, "max_tokens": DRAIN_TOKENS,
+                   "messages": [{"role": "user", "content": random_text(gen, n)}]}
+                  for n in DRAIN_PROMPTS]
+        out = drain_run(f"http://127.0.0.1:{server.server_address[1]}", router, stacks["r0"],
+                        stacks["reference"], bodies, exact=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        for st in stacks.values():
+            st.close()
+        obs.flight.set_journey_provider(None)
+        for eng in engines.values():
+            eng.pagestore = None
+    return {"layers": DRAIN_F32_LAYERS, "dtype": "float32", **out}
+
+
+def phase_fleet(seed: int, smi: str) -> dict:
+    """The port's fleet on the card: two in-process replicas r0 and r1, each
+    bench-8b bf16 at full width and depth over weights of its own (one
+    seed), dma kernels, the default loop and the host tier on, behind the
+    router's HTTP server (``FleetRouter``, ``build_router_app``); a third
+    leg joining over HTTP (the port's engine server with
+    ``FleetMembership``, bench-8b cut to ``JOIN_LAYERS`` layers, standby:
+    forced routes only). Beside them a single replica over r0's weights
+    (the reference) and a cold engine over r1's (re-prefill times). Every
+    engine is warmed up (its graphs captured) before any scheduler thread
+    runs. Checks: affinity (four two-turn sessions, turn 2 on turn 1's
+    replica by affinity with a prefix hit over turn 1's pages, every reply
+    equal to the single replica's), a forced mis-route (``migrate_chain``
+    ships the chain, the receiver restores it, equal replies; pages, bytes,
+    ms, GB/s, TTFT against a cold re-prefill), the page store (a chain only
+    in the owner's host pool faulted in by the other replica, equal reply,
+    TTFT against a re-prefill), chaos (``fleet.stream_disconnect`` over the
+    router's SSE fails over, byte-identical text, the fault counted once),
+    a drain (four streams of ``DRAIN_TOKENS`` on r0, ``POST
+    /fleet/drain/r0`` after ``DRAIN_AFTER`` tokens each, ``drain_run``;
+    then ``drain_exact`` in f32), and the kernels (each full-width replica replayed only, the dma ragged
+    and decode kernels launched, no other kernel, no capture after
+    warmup). Replies render every token (``FleetTokenizer``)."""
+    from opsagent_tpu_torch.serving import faults
+    from opsagent_tpu_torch.serving.fleet.client import FleetMembership
+    from opsagent_tpu_torch.serving.fleet.router import FleetRouter, build_router_app
+    from opsagent_tpu_torch.serving.fleet.transfer import migrate_chain
+
+    gen = torch.Generator().manual_seed(seed + 19)
+    tok = FleetTokenizer(BENCH_8B.vocab_size)
+    base = EngineConfig(model="bench-8b", device="cuda", seed=seed, num_pages=1024,
+                        offload=True, host_pool_bytes=FLEET_HOST_POOL)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    models = [Llama(BENCH_8B, torch.bfloat16, "cuda", seed=seed) for _ in range(2)]
+    cut = replace(BENCH_8B, num_layers=JOIN_LAYERS)
+    engines = {
+        "r0": Engine(base, model_cfg=BENCH_8B, model=models[0], tokenizer=tok),
+        "r1": Engine(base, model_cfg=BENCH_8B, model=models[1], tokenizer=tok),
+        "reference": Engine(base, model_cfg=BENCH_8B, model=models[0], tokenizer=tok),
+        "cold": Engine(replace(base, offload=False), model_cfg=BENCH_8B, model=models[1],
+                       tokenizer=tok),
+        "joined": Engine(replace(base, offload=False, num_pages=256), model_cfg=cut,
+                         model=Llama(cut, torch.bfloat16, "cuda", seed=seed), tokenizer=tok),
+    }
+    # Every capture before any scheduler thread: a capture is process-wide.
+    warmup_s = {name: eng.warmup() for name, eng in engines.items()}
+    graphs = {name: len(eng._graphs) for name, eng in engines.items()}
+    compiles = obs.POST_WARMUP_COMPILES.value()
+    routes0 = {name: routes(engines[name]) for name in ("r0", "r1")}
+    torch.cuda.synchronize()
+    report: dict = {"card": smi, "warmup_s": warmup_s,
+                    "peak_gb_after_warmup": torch.cuda.max_memory_allocated() / 1e9}
+    stacks = {name: ServingStack(engines[name]) for name in engines}
+    router = FleetRouter()
+    handles = {rid: router.add_local(stacks[rid], rid) for rid in ("r0", "r1")}
+    server = build_router_app(router, "127.0.0.1", 0)
+    server_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server_thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    membership = FleetMembership(stacks["joined"], router_url=url, advertise_url="",
+                                 replica_id="joined", role="standby", heartbeat_interval_s=0.2)
+    joined_server = make_server(stacks["joined"], "127.0.0.1", 0, membership=membership)
+    # Advertised once the port is known, before the registration.
+    membership.advertise_url = f"http://127.0.0.1:{joined_server.server_address[1]}"
+    joined_thread = threading.Thread(target=joined_server.serve_forever, daemon=True)
+    joined_thread.start()
+    ref, cold = stacks["reference"], stacks["cold"]
+
+    def body(messages, max_tokens=FLEET_TOKENS):
+        return {"model": "bench-8b", "messages": messages, "max_tokens": max_tokens,
+                "temperature": 0}
+
+    def admission_hit(request_id: str) -> int:
+        hits = [e["prefix_hit_tokens"] for e in obs.flight.get_recorder().snapshot(kind="admission")
+                if e.get("request_id") == request_id]
+        return hits[-1] if hits else -1
+
+    try:
+        membership.start()
+        check(membership.registered, "joined replica did not register")
+        P = base.page_size
+        # -- 1. affinity ------------------------------------------------------------
+        sessions, rows = [], []
+        for n in FLEET_SESSIONS:
+            messages = [{"role": "user", "content": random_text(gen, n)}]
+            want1 = reply_text(ref.chat_completion(body(messages)))
+            turn2 = messages + [{"role": "assistant", "content": want1},
+                                {"role": "user", "content": "and the next step?"}]
+            want2 = reply_text(ref.chat_completion(body(turn2)))
+            r1 = router_call(url, "/v1/chat/completions", body(messages))
+            router._pins.clear()     # only the digests can route turn 2 home
+            r2 = router_call(url, "/v1/chat/completions", body(turn2))
+            ids1 = handles["r0"].tokenize({"messages": messages})
+            covered = (len(ids1) - 1) // P * P
+            hit = admission_hit(r2["id"])
+            check(reply_text(r1) == want1 and reply_text(r2) == want2,
+                  f"affinity: session of {n} characters differs from the single replica")
+            check(r2["fleet"] == {"replica": r1["fleet"]["replica"], "policy": "affinity"},
+                  f"affinity: turn 2 routed {r2['fleet']} after {r1['fleet']}")
+            check(hit >= covered, f"affinity: turn 2 prefix hit {hit} < turn 1's pages {covered}")
+            sessions.append({"messages": turn2, "reply2": want2, "owner": r1["fleet"]["replica"]})
+            rows.append({"prompt_tokens": len(ids1), "replica": r1["fleet"]["replica"],
+                         "turn2_prefix_hit_tokens": hit, "turn2_ttft_ms": r2["ttft_s"] * 1e3,
+                         "turn1_ttft_ms": r1["ttft_s"] * 1e3})
+        report["affinity"] = {"sessions": rows, "replies_equal": True}
+
+        def next_turn(s, text):
+            return s["messages"] + [{"role": "assistant", "content": s["reply2"]},
+                                    {"role": "user", "content": text}]
+
+        # -- 2. forced mis-route: migrate_chain ----------------------------------------
+        s = sessions[0]
+        src = s["owner"]
+        dst = "r1" if src == "r0" else "r0"
+        turn3 = next_turn(s, "now the third turn")
+        want3 = reply_text(ref.chat_completion(body(turn3)))
+        ids3 = handles[src].tokenize({"messages": turn3})
+        restored0 = engines[dst].offload.restored_tokens
+        torch.cuda.synchronize()
+        # park=False: the source copies its trie pages to its pool and
+        # keeps them (a two-turn history branches in the trie, so parking
+        # the next turn's chain frees only its tail).
+        pages = migrate_chain(handles[src], handles[dst], ids3, reason="misroute",
+                              session=router.session_key(body(turn3)), park=False)
+        mig = [e for e in obs.flight.get_recorder().snapshot(kind="session_migrate")
+               if e["phase"] == "exit"][-1]
+        r3 = router_call(url, f"/v1/chat/completions?replica={dst}", body(turn3))
+        restored = engines[dst].offload.restored_tokens - restored0
+        c3 = cold.chat_completion(body(turn3))
+        # The shipped chain may end with the prompt's last page, which
+        # admission leaves to the prefill (its last token makes the logits).
+        check(pages > 0 and mig["pages"] == pages and restored >= (pages - 1) * P,
+              f"mis-route: {pages} pages shipped, {restored} tokens restored")
+        check(reply_text(r3) == want3 and r3["fleet"] == {"replica": dst, "policy": "forced"},
+              f"mis-route: reply differs from the single replica ({r3['fleet']})")
+        report["misroute"] = {
+            "src": src, "dst": dst, "prompt_tokens": len(ids3), "pages": pages,
+            "bytes": mig["bytes"], "ms": mig["ms"], "gbps": mig["bytes"] / mig["ms"] / 1e6,
+            "restored_tokens": restored, "ttft_restored_ms": r3["ttft_s"] * 1e3,
+            "ttft_reprefill_ms": c3["ttft_s"] * 1e3, "reply_equal": True,
+            "reprefill_reply_equal": reply_text(c3) == want3,
+        }
+
+        # -- 4. page store: fault-in from the owner's host pool --------------------------
+        # A one-turn session on r0, its history parked whole to r0's host
+        # pool (tool-time parking), its next turn forced onto r1.
+        src, dst = "r0", "r1"
+        messages = [{"role": "user", "content": random_text(gen, FLEET_SESSIONS[1])}]
+        want1 = reply_text(ref.chat_completion(body(messages)))
+        r1t = router_call(url, f"/v1/chat/completions?replica={src}", body(messages))
+        turn3 = messages + [{"role": "assistant", "content": want1},
+                            {"role": "user", "content": "a second turn elsewhere"}]
+        want3 = reply_text(ref.chat_completion(body(turn3)))
+        ids3 = handles[src].tokenize({"messages": turn3})
+        parked = handles[src].park_tokens(ids3)
+        check(reply_text(r1t) == want1 and parked > 0
+              and not engines[src].alloc.match_prefix(ids3)
+              and engines[src].offload.pool.coverage(ids3) > 0,
+              f"page store: {parked} tokens parked, {len(engines[src].alloc.match_prefix(ids3))} "
+              f"trie pages left, {engines[src].offload.pool.coverage(ids3)} pool pages, "
+              f"reply equal {reply_text(r1t) == want1}")
+        stats0 = dict(engines[dst].pagestore.stats())
+        restored0 = engines[dst].offload.restored_tokens
+        r3 = router_call(url, f"/v1/chat/completions?replica={dst}", body(turn3))
+        landed = engines[dst].pagestore.stats()["remote_hit_pages"] - stats0["remote_hit_pages"]
+        fetch = [e for e in obs.flight.get_recorder().snapshot(kind="page_fault_in")
+                 if e.get("phase") == "exit" and e.get("replica") == dst][-1]
+        c3 = cold.chat_completion(body(turn3))
+        check(landed > 0 and fetch["outcome"] == "hit"
+              and engines[dst].offload.restored_tokens - restored0 >= (landed - 1) * P,
+              f"page store: {landed} pages landed ({fetch})")
+        check(reply_text(r3) == want3, "page store: faulted-in reply differs from the single replica")
+        report["pagestore"] = {
+            "src": src, "dst": dst, "prompt_tokens": len(ids3), "parked_tokens": parked,
+            "pages_landed": landed, "bytes": fetch["bytes"], "fetch_ms": fetch["ms"],
+            "gbps": fetch["bytes"] / fetch["ms"] / 1e6,
+            "ttft_faulted_in_ms": r3["ttft_s"] * 1e3, "ttft_reprefill_ms": c3["ttft_s"] * 1e3,
+            "reply_equal": True, "reprefill_reply_equal": reply_text(c3) == want3,
+        }
+
+        # -- 5. chaos: a mid-SSE disconnect fails over ------------------------------------
+        chaos_body = body([{"role": "user", "content": random_text(gen, 700)}], 48)
+        undisturbed = router_sse(url, chaos_body)
+        failovers0 = obs.FLEET_FAILOVERS.value()
+        faults.configure("fleet.stream_disconnect@9")
+        try:
+            resumed = router_sse(url, chaos_body)
+        finally:
+            faults.reset()
+        fired = scrape(server.server_address[1]).get(
+            'opsagent_fault_injections_total{point="fleet.stream_disconnect"}', 0.0)
+        check(resumed == undisturbed and fired == 1
+              and obs.FLEET_FAILOVERS.value() - failovers0 == 1,
+              f"chaos: resumed text equal {resumed == undisturbed}, fault fired {fired}")
+        report["chaos"] = {"point": "fleet.stream_disconnect@9", "fired": fired,
+                           "failovers": obs.FLEET_FAILOVERS.value() - failovers0,
+                           "chars": len(resumed), "text_equal": True}
+
+        # -- the joined replica: a forced route over HTTP ----------------------------------
+        jbody = body([{"role": "user", "content": random_text(gen, 300)}], 16)
+        jr = router_call(url, "/v1/chat/completions?replica=joined", jbody)
+        direct = stacks["joined"].chat_completion(dict(jbody))
+        snap = router_call(url, "/api/fleet")
+        row = next(r for r in snap["replicas"] if r["id"] == "joined")
+        health = json.loads(http_get(joined_server.server_address[1], "/healthz")[1])
+        check(reply_text(jr) == reply_text(direct) and jr["fleet"]["replica"] == "joined"
+              and row["role"] == "standby" and health["fleet"]["registered"]
+              and membership.last_heartbeat_ok, f"joined replica: {row} {health.get('fleet')}")
+        report["joined"] = {"layers": JOIN_LAYERS, "row": {k: row[k] for k in (
+            "role", "state", "digest_count", "health", "clock_offset_s", "clock_rtt_s")},
+            "healthz_fleet": health["fleet"], "reply_equal": True}
+
+        # -- 3. drain: four streams on r0, POST /fleet/drain/r0 mid-decode ------------------
+        drain_bodies = [body([{"role": "user", "content": random_text(gen, n)}], DRAIN_TOKENS)
+                        for n in DRAIN_PROMPTS]
+        migrated0 = engines["r1"].offload.restored_tokens
+        report["drain"] = drain_run(url, router, stacks["r0"], ref, drain_bodies, exact=False)
+        report["drain"]["restored_tokens_on_r1"] = engines["r1"].offload.restored_tokens - migrated0
+
+        # -- 6. kernels --------------------------------------------------------------------
+        for name in ("r0", "r1"):
+            eng = engines[name]
+            replays, eager, mixed_replays, eager_ticks = (
+                a - b for a, b in zip(routes(eng), routes0[name]))
+            check(eng.attn_impl == "cuda" and eager == eager_ticks == 0
+                  and replays > 0 and mixed_replays > 0,
+                  f"kernels: {name} routes {routes(eng)} from {routes0[name]}")
+            report.setdefault("replays", {})[name] = {"decode": replays, "mixed": mixed_replays}
+        check(all(len(eng._graphs) == graphs[name] for name, eng in engines.items())
+              and obs.POST_WARMUP_COMPILES.value() == compiles, "fleet: a capture after warmup")
+    finally:
+        membership.stop()
+        for srv, th in ((server, server_thread), (joined_server, joined_thread)):
+            srv.shutdown()
+            srv.server_close()
+            th.join(timeout=30)
+        for st in stacks.values():
+            st.close()
+        # The router registered itself as the flight recorder's journey
+        # provider, and each replica's page store reaches the router's
+        # handles: drop both, so that the engines free now.
+        obs.flight.set_journey_provider(None)
+        for eng in engines.values():
+            eng.pagestore = None
+    del engines, stacks, models, handles, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["drain_exact"] = drain_exact(seed, gen)
+    check(obs.POST_WARMUP_COMPILES.value() == compiles, "fleet: a capture after warmup")
+    report["launches"] = launch_counts()
+    expected = expected_kernels("dma", "", "")
+    for name, n in report["launches"].items():
+        check((n > 0) == (name in expected), f"fleet: {name} launched {n} times")
+    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
 # -- phase 7: serving at full width -------------------------------------------
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names, spaces and "(int)" removed)
     # The latent kernels first: their names hold the dma groups' keys.
@@ -2799,7 +3245,7 @@ def phase_chat_api(seed: int, smi: str, bf16_tol: float) -> dict:
 
 
 
-# -- phase 6e: the agent stack ---------------------------------------------------
+# -- phase 6b': the agent stack --------------------------------------------------
 AGENT_FIXTURE = os.path.join(FIXTURES, "tiny-agent-hf")
 # The trained tiny agent's episode (scripts/train_tiny_agent.py's constants).
 AGENT_SYS_PROMPT = ("You are a k8s ops agent. Reply with ToolPrompt JSON; use the kubectl "
@@ -3149,7 +3595,7 @@ def main() -> int:
     for name, n in agent["launches"].items():
         launches[name] += n
 
-    for run in (phase_offload, phase_snapshot):
+    for run in (phase_offload, phase_snapshot, phase_fleet):
         t = time.perf_counter()
         out = run(args.seed, smi)
         gc.collect()

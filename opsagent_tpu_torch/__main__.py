@@ -14,7 +14,18 @@ watchdog and the 1 Hz telemetry history sampler behind ``/api/slo`` and
 (``/api/debug/profile``, ``/api/debug/memory``, ``/v1/profile/*``).
 ``--offload`` adds the host KV tier (``--host-pool-bytes``,
 ``--offload-copy-pages``); ``--restore-snapshot DIR`` serves an engine
-restored from a snapshot.
+restored from a snapshot. ``--join-fleet URL`` registers the replica with a
+fleet router (``--advertise``, ``--replica-id``, ``--replica-role
+decode|prefill|standby``), heartbeats its load and prefix digests, and with
+``--offload`` faults missing prefix chains in from peer replicas.
+
+``python -m opsagent_tpu_torch serve-router --port 8090`` runs the fleet
+router (``serving/fleet/router.py``): sessions spread over the replicas
+that join it by prefix affinity, then least load, with sticky pinning,
+queue spill-over with page migration, drain, retries, failover, hedging and
+shedding (``--queue-spill``, ``--prefill-threshold``, ``--max-retries``,
+``--hedge-queue-depth``, ``--shed-queue-depth``, ``--heartbeat-ttl``;
+``--tokenizer`` and ``--model-name`` must match the replicas').
 
 ``python -m opsagent_tpu_torch snapshot create --out DIR --model-name
 bench-8b`` builds and warms an engine and writes its snapshot (weights in
@@ -25,7 +36,8 @@ read.
 
 The agent's commands (``server``, ``execute``, ``analyze``, ``audit``,
 ``diagnose``, ``generate``, ``version``, and ``--config FILE`` before them)
-are ``cli/main.py``'s: ``python -m opsagent_tpu_torch execute --model
+and the operator commands (``slo-check``, ``top``, ``perf-check``,
+``timeline``, ``fleet-kv``, ``fleet-flight``) are ``cli/main.py``'s: ``python -m opsagent_tpu_torch execute --model
 cuda://bench-8b "count the namespaces"``."""
 
 from __future__ import annotations
@@ -118,6 +130,63 @@ def main(argv: list[str] | None = None) -> int:
              "its model and engine configuration (--device and "
              "--host-pool-bytes apply)",
     )
+    se.add_argument(
+        "--join-fleet", default="",
+        help="fleet router base URL (serve-router): register this replica, "
+             "heartbeat load + prefix digests, accept routed traffic and "
+             "KV-page transfers",
+    )
+    se.add_argument("--advertise", default="",
+                    help="URL the router reaches this replica at "
+                         "(default: http://<host>:<port>)")
+    se.add_argument("--replica-id", default="",
+                    help="stable replica identity in the fleet (default: random)")
+    se.add_argument(
+        "--replica-role", default="decode", choices=("decode", "prefill", "standby"),
+        help="decode replicas serve sessions end-to-end; prefill replicas take "
+             "the router's long cold admissions and hand their KV to a decode "
+             "replica; standby replicas are registered but unroutable until "
+             "promoted to decode",
+    )
+    sr = sub.add_parser(
+        "serve-router",
+        help="run the fleet router: spreads sessions over the engine replicas "
+             "that join it (prefix affinity, least load, sticky pinning, KV-page "
+             "session migration, drain)",
+    )
+    sr.add_argument("--port", type=int, default=8090)
+    sr.add_argument("--host", default="0.0.0.0")
+    sr.add_argument(
+        "--tokenizer", default="",
+        help="tokenizer.json directory for affinity scoring; must match the "
+             "replicas' (else scores are zero and placement is least-loaded); "
+             "default: the byte tokenizer",
+    )
+    sr.add_argument("--model-name", default="",
+                    help="model family for chat-template rendering in affinity "
+                         "scoring (the replicas' --model-name)")
+    sr.add_argument("--no-affinity", action="store_true", default=False,
+                    help="disable prefix-affinity scoring (least-loaded only)")
+    sr.add_argument("--queue-spill", type=int, default=None,
+                    help="queue depth past which a pinned/affinity replica spills "
+                         "the route to the rest of the fleet (default: the "
+                         "replica's registered capacity)")
+    sr.add_argument("--prefill-threshold", type=int, default=256,
+                    help="prompt tokens at which a cold admission goes to a "
+                         "role=prefill replica first (when one is registered)")
+    sr.add_argument("--heartbeat-ttl", type=float, default=None,
+                    help="seconds without a heartbeat before a replica is reaped "
+                         "(default 10, or OPSAGENT_FLEET_HEARTBEAT_TTL_S)")
+    sr.add_argument("--max-retries", type=int, default=2,
+                    help="connect-phase re-routes per request before the error "
+                         "reaches the client")
+    sr.add_argument("--hedge-queue-depth", type=int, default=None,
+                    help="TTFT hedging: race a duplicate of a queued cold "
+                         "non-streaming admission on a second replica once the "
+                         "chosen replica's queue is this deep (default: off)")
+    sr.add_argument("--shed-queue-depth", type=int, default=None,
+                    help="overload shedding: 429 + Retry-After for new admissions "
+                         "once every replica's queue is this deep (default: off)")
     sn = sub.add_parser("snapshot", help="engine snapshots: create, verify")
     snsub = sn.add_subparsers(dest="snapshot_cmd", required=True)
     snc = snsub.add_parser(
@@ -145,6 +214,18 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO)
     if args.command == "snapshot":
         return _snapshot(args)
+    if args.command == "serve-router":
+        from .serving.fleet.router import run_router_server
+
+        run_router_server(
+            host=args.host, port=args.port, tokenizer=args.tokenizer,
+            model_name=args.model_name, affinity=not args.no_affinity,
+            queue_spill=args.queue_spill, prefill_threshold=args.prefill_threshold,
+            heartbeat_ttl_s=args.heartbeat_ttl, max_retries=args.max_retries,
+            hedge_queue_depth=args.hedge_queue_depth,
+            shed_queue_depth=args.shed_queue_depth,
+        )
+        return 0
     return _serve(args)
 
 
@@ -206,7 +287,22 @@ def _serve(args: argparse.Namespace) -> int:
     # the HTTP server start: a capture is process-wide.
     warm = engine.warmup()
     stack = ServingStack(engine)
-    server = make_server(stack, args.host, args.port)
+    membership = None
+    if args.join_fleet:
+        from .serving.fleet.client import FleetMembership
+
+        membership = FleetMembership(
+            stack, router_url=args.join_fleet,
+            advertise_url=args.advertise or f"http://{args.host}:{args.port}",
+            replica_id=args.replica_id, role=args.replica_role,
+        )
+        if engine.offload is not None:
+            # Fleet-global KV: admission misses ask the router's page
+            # directory and fetch chains from the owning peer.
+            from .serving.fleet.pagestore import http_client
+
+            engine.pagestore = http_client(args.join_fleet, membership.replica_id, engine)
+    server = make_server(stack, args.host, args.port, membership=membership)
     # Continuous SLO evaluation (GET /api/slo serves the same watchdog) and
     # the telemetry history's 1 Hz sampler.
     watchdog, history = obs.slo.get_watchdog(), obs.history.get_history()
@@ -215,11 +311,17 @@ def _serve(args: argparse.Namespace) -> int:
     host, port = server.server_address[:2]
     print(f"serving {engine.model_cfg.name} on http://{host}:{port} "
           f"({engine.impl_info()}; warmed up in {warm:.1f} s)", flush=True)
+    if membership is not None:
+        # Joined after the socket is bound: the router may reach the
+        # advertised URL the moment the registration lands.
+        membership.start()
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        if membership is not None:
+            membership.stop()
         server.server_close()
         history.stop()
         watchdog.stop()

@@ -4,7 +4,12 @@
 opsagent_tpu_torch <command>``, with ``--config`` (a ``config.yaml``: jwt,
 server, log) and the common flags ``--model``, ``--max-tokens``,
 ``--count-tokens``, ``--verbose``, ``--max-iterations``, ``--api-key``,
-``--base-url`` and ``--metrics``.
+``--base-url`` and ``--metrics``; and the operator commands, with the JAX
+package's flags, output and exit codes: ``slo-check`` (``cli/slocheck.py``),
+``top`` (``cli/top.py``), ``perf-check`` (``cli/perfcheck.py``),
+``timeline`` (a request's lifecycle as an ASCII Gantt, a fleet router's
+stitched timeline as a multi-lane one), ``fleet-kv`` (a router's page
+directory) and ``fleet-flight`` (a router's merged flight ledger).
 
 ``--model cuda://<name>`` runs the model on the port's engine in this
 process: a preset's engine is built on the card (``serving.api.get_stack``),
@@ -28,7 +33,8 @@ from ..utils.globalstore import set_global
 from ..utils.logger import get_logger, init_logger
 from ..utils.perf import get_perf_stats
 
-COMMANDS = ("server", "execute", "analyze", "audit", "diagnose", "generate", "version")
+COMMANDS = ("server", "execute", "analyze", "audit", "diagnose", "generate", "version",
+            "slo-check", "top", "perf-check", "timeline", "fleet-kv", "fleet-flight")
 
 
 def _add_common(parser: argparse.ArgumentParser) -> None:
@@ -98,7 +104,235 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(ge)
 
     sub.add_parser("version", help="print version")
+
+    sc = sub.add_parser(
+        "slo-check",
+        help="evaluate the declared serving SLOs (bench/CI gate: exit 0 "
+             "pass, 1 breach, 2 no data)",
+    )
+    sc.add_argument("--url", default="",
+                    help="base URL of a running server; fetches GET /api/slo")
+    sc.add_argument("--bench", default="",
+                    help="BENCH json/jsonl file; reads the extra.slo verdicts")
+    sc.add_argument(
+        "--class", dest="slo_class", default="",
+        choices=["", "interactive", "batch", "background"],
+        help="gate one SLO class's attainment/burn (from the per-class "
+             "report) instead of the global verdicts",
+    )
+
+    tp = sub.add_parser(
+        "top",
+        help="live fleet cockpit: replica table, per-class SLO rows "
+             "with history sparklines, anomaly tail (ANSI, no curses)",
+    )
+    tp.add_argument("--url", default="http://127.0.0.1:8090",
+                    help="base URL of a fleet router (or a single engine/agent "
+                         "server — the replica table degrades gracefully)")
+    tp.add_argument("--interval", type=float, default=2.0, help="seconds between frames")
+    tp.add_argument("--frames", type=int, default=0,
+                    help="render N frames then exit (0 = until interrupted)")
+    tp.add_argument("--no-color", action="store_true", default=False,
+                    help="disable ANSI colors even on a TTY")
+
+    pc = sub.add_parser(
+        "perf-check",
+        help="compare a fresh bench jsonl against the committed "
+             "BENCH_r*_local.jsonl baseline with noise tolerances "
+             "(CI gate: exit 0 pass, 1 regression, 2 nothing comparable)",
+    )
+    pc.add_argument("current",
+                    help="fresh bench jsonl (result lines), or a fleet router URL "
+                         "(http://...: live rows from GET /api/fleet/bench)")
+    pc.add_argument("--baseline", default="",
+                    help="baseline jsonl (default: newest committed BENCH_r*_local.jsonl)")
+    pc.add_argument("--tolerance", type=float, default=None,
+                    help="global relative tolerance (default 10%%, TTFT series 25%%)")
+    pc.add_argument("--tolerances", default="",
+                    help="JSON file of {metric substring: tolerance} overrides")
+
+    tl = sub.add_parser(
+        "timeline",
+        help="render a request's lifecycle timeline as an ASCII Gantt "
+             "(queue -> prefill -> decode -> tool-blocked, with the "
+             "goodput split)",
+    )
+    tl.add_argument("request_id", help="request id (chatcmpl-... / req-...)")
+    tl.add_argument("--url", default="",
+                    help="base URL of a running server; fetches "
+                         "GET /api/timeline/{request_id}")
+    tl.add_argument("--token", default="",
+                    help="bearer token for the agent server's JWT-guarded /api/ tree")
+    tl.add_argument("--file", default="",
+                    help="read the timeline JSON from a file instead (e.g. the "
+                         "'timeline' line of a flight anomaly dump)")
+    tl.add_argument("--width", type=int, default=64, help="gantt bar width")
+    tl.add_argument("--json", action="store_true", default=False,
+                    help="print the raw timeline JSON instead of the gantt")
+
+    fkv = sub.add_parser(
+        "fleet-kv",
+        help="dump the fleet router's global KV page directory (which "
+             "replica owns which prefix chains, tier footprints, "
+             "advertisement staleness)",
+    )
+    fkv.add_argument("--url", default="http://127.0.0.1:8090",
+                     help="fleet router base URL; fetches GET /api/fleet/directory")
+    fkv.add_argument("--limit", type=int, default=256,
+                     help="max chain rows to fetch (the directory can hold thousands)")
+    fkv.add_argument("--json", action="store_true", default=False,
+                     help="print the raw directory JSON instead of the table")
+
+    ffl = sub.add_parser(
+        "fleet-flight",
+        help="dump the fleet flight ledger: every replica's flight "
+             "ring merged into one replica-tagged, skew-corrected, "
+             "time-ordered event stream",
+    )
+    ffl.add_argument("--url", default="http://127.0.0.1:8090",
+                     help="fleet router base URL; fetches GET /api/fleet/flight")
+    ffl.add_argument("--n", type=int, default=64,
+                     help="merged event tail length (0 = everything in the rings)")
+    ffl.add_argument("--kind", default="", help="filter by event kind")
+    ffl.add_argument("--request-id", default="",
+                     help="filter to one journey's events (implies no tail cap)")
+    ffl.add_argument("--json", action="store_true", default=False,
+                     help="print the raw ledger JSON instead of the table")
     return p
+
+
+def _fetch_json(url: str, timeout: float, token: str = "") -> Any:
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url)
+    if token:
+        req.add_header("Authorization", f"Bearer {token}")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:  # noqa: S310 - operator URL
+        return json.loads(resp.read().decode())
+
+
+def run_ops_command(args: argparse.Namespace) -> int:
+    """The operator commands: ``slo-check``, ``top``, ``perf-check``,
+    ``timeline``, ``fleet-kv`` and ``fleet-flight``, with the JAX package's
+    output and exit codes."""
+    import json
+
+    if args.command == "slo-check":
+        from .slocheck import run_slo_check
+
+        return run_slo_check(url=args.url, bench=args.bench, slo_class=args.slo_class)
+    if args.command == "top":
+        from .top import run_top
+
+        return run_top(args.url, interval_s=args.interval, frames=args.frames,
+                       color=False if args.no_color else None)
+    if args.command == "perf-check":
+        from .perfcheck import run_perf_check
+
+        return run_perf_check(args.current, baseline=args.baseline,
+                              tolerance=args.tolerance, tolerances_file=args.tolerances)
+    if args.command == "timeline":
+        from ..obs import timeline as obs_timeline
+
+        if args.file:
+            with open(args.file) as f:
+                data = json.load(f)
+            # A bare timeline, or a flight dump's "timeline" context line.
+            tl_data = data.get("timeline", data) if isinstance(data, dict) else data
+        elif args.url:
+            try:
+                tl_data = _fetch_json(
+                    args.url.rstrip("/") + f"/api/timeline/{args.request_id}", 10, args.token)
+            except Exception as e:  # noqa: BLE001 - CLI surface
+                print(f"timeline fetch failed: {e}", file=sys.stderr)
+                return 1
+        else:
+            # Same-process assembly (after an in-process cuda:// run).
+            tl_data = obs_timeline.assemble(args.request_id)
+            if tl_data is None:
+                print(f"unknown request_id {args.request_id!r} in this process; pass "
+                      "--url for a running server or --file for a dump", file=sys.stderr)
+                return 1
+        if args.json:
+            print(json.dumps(tl_data, indent=2))
+        elif isinstance(tl_data, dict) and tl_data.get("fleet"):
+            # A router's stitched timeline: one lane per replica plus the
+            # router-side windows.
+            print(obs_timeline.render_fleet_gantt(tl_data, width=args.width))
+        else:
+            print(obs_timeline.render_gantt(tl_data, width=args.width))
+        return 0
+    if args.command == "fleet-kv":
+        try:
+            snap = _fetch_json(args.url.rstrip("/") + f"/api/fleet/directory?limit={args.limit}",
+                               10)
+        except Exception as e:  # noqa: BLE001 - CLI surface
+            print(f"directory fetch failed: {e}", file=sys.stderr)
+            return 1
+        if args.json:
+            print(json.dumps(snap, indent=2))
+            return 0
+        st = snap.get("stats", {})
+        print(
+            f"directory: {st.get('chains', 0)} chains over "
+            f"{st.get('replicas', 0)} replicas | lookups "
+            f"{st.get('lookups', 0)} (hits {st.get('hits', 0)}, misses "
+            f"{st.get('misses', 0)}), stale evictions "
+            f"{st.get('stale_evictions', 0)}"
+        )
+        replicas = snap.get("replicas", [])
+        if replicas:
+            print(f"\n{'replica':<16} {'role':<8} {'state':<9} "
+                  f"{'digests':>8} {'pool pages':>11} {'hb age':>8}")
+            for r in replicas:
+                digests = str(r.get("digest_count", 0))
+                if r.get("digest_truncated"):
+                    digests += "+"
+                print(
+                    f"{r.get('id', '?'):<16} {r.get('role', '?'):<8} "
+                    f"{r.get('state', '?'):<9} {digests:>8} "
+                    f"{r.get('host_pool_pages', 0):>11} "
+                    f"{r.get('heartbeat_age_s', 0):>7.1f}s"
+                )
+        rows = snap.get("rows", [])
+        if rows:
+            print(f"\n{'chain':<14} {'owners (freshest first)'}")
+            for row in rows:
+                owners = ", ".join(f"{o.get('id', '?')} ({o.get('age_s', 0):.1f}s)"
+                                   for o in row.get("owners", []))
+                print(f"{row.get('chain', '?')[:12]:<14} {owners}")
+            if snap.get("truncated"):
+                print(f"... truncated at {len(rows)} rows (raise --limit for more)")
+        return 0
+    # fleet-flight
+    from urllib.parse import quote
+
+    url = (args.url.rstrip("/") + f"/api/fleet/flight?n={args.n}"
+           + (f"&kind={quote(args.kind)}" if args.kind else "")
+           + (f"&request_id={quote(args.request_id)}" if args.request_id else ""))
+    try:
+        ledger = _fetch_json(url, 15)
+    except Exception as e:  # noqa: BLE001 - CLI surface
+        print(f"fleet flight fetch failed: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(ledger, indent=2))
+        return 0
+    offsets = ledger.get("clock_offset_s", {})
+    if offsets:
+        print("clock offsets: " + ", ".join(
+            f"{r}={o * 1e3:+.1f}ms" for r, o in sorted(offsets.items())))
+    events = ledger.get("events", [])
+    print(f"{len(events)} events from {len(ledger.get('replicas', []))} replicas\n")
+    for e in events:
+        wall = e.get("wall_corrected", e.get("wall", 0.0))
+        extras = " ".join(f"{k}={v}" for k, v in e.items()
+                          if k not in ("kind", "source", "replica", "wall",
+                                       "wall_corrected", "ts", "id"))
+        print(f"{wall:>17.6f} {e.get('source', '?'):<10} "
+              f"{e.get('kind', '?'):<18} {extras}")
+    return 0
 
 
 def _cfg_int(value: Any, default: int) -> int:
@@ -157,6 +391,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "version":
         print(f"opsagent {VERSION}")
         return 0
+
+    if args.command in COMMANDS[COMMANDS.index("slo-check"):]:
+        return run_ops_command(args)
 
     install_checkpoint_stack(args)
 

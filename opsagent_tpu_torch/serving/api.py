@@ -22,8 +22,13 @@ server:
   format (``fleet/transfer.py``): ``GET /fleet/digests`` (the replica's
   prefix digest), ``POST /fleet/park`` (park a token chain to host RAM),
   ``POST /fleet/kv/export`` (one chain ``{"tokens", "park"}`` or several
-  ``{"chains": [{"tokens", "start_page"}], "park"}``) and ``POST
-  /fleet/kv/import`` (records into the host pool, checked first);
+  ``{"chains": [{"tokens", "start_page"}], "park"}``), ``POST
+  /fleet/kv/import`` (records into the host pool, checked first), ``POST
+  /fleet/drain`` (a router's drain notice: the ``/healthz`` ``fleet`` block
+  turns draining) and ``POST /fleet/promote`` (a router-side role change);
+  a replica that joined a fleet (``make_server(..., membership=)``,
+  ``fleet/client.py``) shows its membership under ``/healthz`` ``fleet``,
+  and armed fault points under ``faults``;
 - observability, with the JAX package's routes, status codes and bodies:
   ``GET /metrics`` (Prometheus text), ``/api/trace/{id}`` and
   ``/api/timeline/{id}`` (a completion's ``id`` is its trace's request
@@ -75,6 +80,7 @@ from ..utils import profiling
 from ..utils.jsonrepair import parse_json
 from .chat_template import apply_chat_template
 from .constrained import JsonConstraint, device_table_fsm, json_constraint
+from . import faults
 from .engine import Engine, EngineConfig
 from .fleet.transfer import pack_entries, unpack_entries
 from .sampler import SamplingParams
@@ -771,9 +777,7 @@ register_provider("cuda", _cuda_provider_factory)
 
 
 # (method, path pattern, handler): the JAX package's engine routes
-# (``build_engine_app``) apart from /fleet/drain and /fleet/promote, which
-# come with the fleet's router (ROADMAP item 13(b)). A pattern's ``{name}``
-# matches one path segment.
+# (``build_engine_app``). A pattern's ``{name}`` matches one path segment.
 ROUTES = (
     ("POST", "/v1/chat/completions", "completions"),
     ("GET", "/v1/models", "models"),
@@ -792,6 +796,8 @@ ROUTES = (
     ("POST", "/fleet/park", "fleet_park"),
     ("POST", "/fleet/kv/export", "fleet_kv_export"),
     ("POST", "/fleet/kv/import", "fleet_kv_import"),
+    ("POST", "/fleet/drain", "fleet_drain"),
+    ("POST", "/fleet/promote", "fleet_promote"),
 )
 
 
@@ -910,9 +916,13 @@ class ObsRoutes:
         self._reply(200, {"status": "captured", "seconds": seconds, "logdir": logdir})
 
 
-def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServer:
+def make_server(stack: ServingStack, host: str, port: int,
+                membership: Any = None) -> ThreadingHTTPServer:
     """A threading HTTP server for ``stack`` bound to (host, port); port 0
-    picks a free one (read it from ``server.server_address``)."""
+    picks a free one (read it from ``server.server_address``).
+    ``membership`` is the replica's fleet membership (``serve-engine
+    --join-fleet``, ``fleet/client.py``): it feeds the ``/healthz`` ``fleet``
+    block and takes ``/fleet/drain`` and ``/fleet/promote``."""
 
     class Handler(ObsRoutes, BaseHTTPRequestHandler):
         _status = 0
@@ -1024,7 +1034,14 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
             self._reply(200, stack.models())
 
         def healthz(self, query: dict[str, str]) -> None:
-            self._reply(200, stack.health())
+            body = stack.health()
+            if membership is not None:
+                body["fleet"] = membership.healthz_block()
+            if faults.active():
+                # Which fault points are armed and what has fired: injected
+                # pain told apart from real pain.
+                body["faults"] = faults.summary()
+            self._reply(200, body)
 
         # -- observability ---------------------------------------------------
         def metrics(self, query: dict[str, str]) -> None:
@@ -1101,6 +1118,29 @@ def make_server(stack: ServingStack, host: str, port: int) -> ThreadingHTTPServe
             n = stack.fleet_import(body.get("pages") or [])
             self._reply(200, {"imported": 0, "offload": False} if n is None
                         else {"imported": n})
+
+        def fleet_drain(self, query: dict[str, str]) -> None:
+            # A router's drain notice: the /healthz fleet block turns
+            # draining (the router stops routing here; work in flight
+            # finishes).
+            if membership is not None:
+                membership.draining = True
+            self._reply(200, {"status": "draining",
+                              "running": len(stack.engine.sequences)})
+
+        def fleet_promote(self, query: dict[str, str]) -> None:
+            # A router-side role change (standby -> decode), kept in the
+            # membership so that a later re-register carries it.
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(length) or b"{}")
+            except ValueError:
+                body = {}
+            role = str((body if isinstance(body, dict) else {}).get("role", "decode"))
+            if membership is not None:
+                membership.promote(role)
+            self._reply(200, {"status": "ok",
+                              "role": membership.role if membership is not None else role})
 
         def log_message(self, fmt: str, *args: Any) -> None:
             log.debug("%s " + fmt, self.address_string(), *args)

@@ -82,7 +82,11 @@ prefix cache): a trie eviction spills the page to a bounded host-RAM pool;
 ``park_chain`` (a session blocked on a tool) and ``park_sequence`` (the
 scheduler's pressure parking) free a session's pages after copying them
 out; an admission restores pooled pages of its prompt with a page copy
-instead of re-prefilling them. ``snapshot`` and ``from_snapshot``
+instead of re-prefilling them. With a fleet page store
+(``Engine.pagestore``, ``serving/fleet/pagestore.py``), an admission whose
+prompt misses the trie and the pool first faults the chain in from a peer
+replica into the pool (``fault_in_prefix``), before it takes the engine
+lock. ``snapshot`` and ``from_snapshot``
 (``serving.snapshot``) write and restore the weights in the JAX package's
 leaf layout and the built kernel libraries, so that a restored engine runs
 no ``nvcc``; warmup recaptures the graphs.
@@ -413,6 +417,10 @@ class Engine:
             )
             self.alloc.attach_host_pool(self.offload.pool)
             self.alloc.set_spill(self._spill_page)
+        # The fleet-global KV fault-in client (serving/fleet/pagestore.py),
+        # wired by a fleet router (in-process) or serve-engine --join-fleet;
+        # None: admission looks at the trie and the host pool only.
+        self.pagestore: Any = None
         # (page, chain) pairs of evictions whose spill waits for the end of
         # a park (one gather a bucket of pages); None outside one.
         self._spill_batch: list[tuple[int, list[int]]] | None = None
@@ -496,7 +504,6 @@ class Engine:
             self.step_mixed([], {seq_id: self.cfg.mixed_buckets[-1]})
         return seq_id
 
-    @_locked
     def begin_request(
         self,
         prompt_ids: list[int],
@@ -531,6 +538,19 @@ class Engine:
                 raise InvalidRequest(f"mask_fn failed on the empty prefix: {e}") from e
         if n + sampling.max_tokens > window:
             sampling = replace(sampling, max_tokens=window - n)
+        # Fleet-global KV: a prompt that misses the trie and the host pool
+        # faults its chain in from a peer before the engine lock is taken
+        # (the fetch is network or peer-engine work and must not hold up
+        # this engine's ticks); the pages land in the host pool, where the
+        # locked admission below restores them. Never raises.
+        self.fault_in_prefix(prompt_ids, request_id=obs.flight.request_id_of(trace) or "")
+        return self._admit(prompt_ids, sampling, mask_fn, stream, trace, expect_restore)
+
+    @_locked
+    def _admit(self, prompt_ids: list[int], sampling: SamplingParams,
+               mask_fn: MaskFn | None, stream: Callable[[int], None] | None,
+               trace: Any, expect_restore: bool) -> int:
+        n = len(prompt_ids)
         if self.offload is not None:
             # Land the spills that are done; wait only for one that holds a
             # page of this prompt (a page parked during the last tick must
@@ -1786,6 +1806,34 @@ class Engine:
     def digests_truncated(self) -> bool:
         """Whether the last ``prefix_digests`` was clipped by its cap."""
         return self._digests_truncated
+
+    def fault_in_prefix(self, prompt_ids: list[int], request_id: str = "") -> int:
+        """Fleet-global KV fault-in: when the usable prefix of
+        ``prompt_ids`` misses the HBM trie and the host pool, ask the fleet
+        page directory who owns the missing chain and fetch it from that
+        peer into the host pool (``fleet/pagestore.py``), where the
+        admission's host restore lands it. Probes under the engine lock,
+        fetches outside it. Returns pages landed; 0 on a miss or any
+        failure, never raises. ``request_id`` tags the fault-in's flight
+        events with the journey of the admission."""
+        if self.pagestore is None or self.offload is None:
+            return 0
+        try:
+            usable = prompt_ids[: len(prompt_ids) - 1]
+            total = len(usable) // self.cfg.page_size
+            if total == 0:
+                return 0
+            with self.lock:
+                self.offload.flush()
+                matched = len(self.alloc.match_prefix(usable))
+            covered = self.offload.pool.coverage(usable, start_page=matched)
+            if matched + covered >= total:
+                return 0  # the local tiers cover it
+            return self.pagestore.fault_in(usable, start_page=matched + covered,
+                                           request_id=request_id)
+        except Exception:  # noqa: BLE001 - never raises into admission
+            log.exception("page fault-in probe failed; re-prefilling")
+            return 0
 
     @_locked
     def replicate_chain(self, token_ids: list[int]) -> int:

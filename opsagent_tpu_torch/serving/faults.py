@@ -17,14 +17,29 @@ Spec grammar (``OPSAGENT_FAULTS`` env var, or ``configure()``):
                           stream advanced once per hit (deterministic given
                           the per-point hit order)
 
-Fault points wired in the port:
+Example: ``fleet.stream_disconnect@5;client.heartbeat_drop@2..4``.
 
+Wired fault points, at the JAX package's seams:
+
+    fleet.connect             HttpReplica._call: connection refused
+    fleet.timeout             HttpReplica._call: request timeout
+    fleet.stream_disconnect   router stream pump: mid-SSE disconnect
+    transfer.corrupt          KV import: one payload byte flipped
+    transfer.truncate         KV import: last leaf of a record dropped
+    client.heartbeat_drop     fleet membership: heartbeat silently dropped
+    sched.step_fault          scheduler tick raises (forced engine restart
+                              after the loop's failure threshold)
+    sched.out_of_pages        admission raises OutOfPages (page storm)
     tool.exec                 agent tool exec: subprocess failure
     tool.timeout              agent tool exec: subprocess timeout
+    pagestore.fetch_timeout   fleet page fault-in: peer fetch times out
+                              (admission degrades to local re-prefill)
+    pagestore.stale_entry     fleet page fault-in: the peer answers as
+                              if the chain were LRU-evicted (directory
+                              row evicted, admission re-prefills)
 
-(both in ``agent/react.py``'s blocking tool path and in
-``agent/conveyor.py``'s early-launch worker). The JAX package's scheduler,
-fleet and KV-transfer points come with the port's fleet router.
+(the tool points in ``agent/react.py``'s blocking tool path and in
+``agent/conveyor.py``'s early-launch worker).
 
 Every firing records a ``fault_injected`` flight event and increments
 ``opsagent_fault_injections_total{point=...}``.

@@ -17,6 +17,12 @@ through ``torch.frombuffer(..., dtype=torch.bfloat16)``.
 A record whose leaf count does not match the local cache, whose payload
 does not decode, or whose digest does not match is rejected, counted and
 anomaly-dumped: the receiver then re-prefills, it never restores corrupt KV.
+
+``migrate_chain`` ships one token chain between two replica handles
+(``fleet/router.py``): the source parks or copies the chain's pages into its
+host pool under its engine lock, on its engine's stream, and packs them; the
+destination checks them and puts them in its pool, where its next admission
+of the chain restores them.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import base64
 import hashlib
 import logging
+import time
 from typing import Any
 
 import numpy as np
@@ -31,6 +38,7 @@ import torch
 
 from ... import obs
 from ...models.convert import DTYPE_NAMES, leaf_bytes
+from .. import faults
 from ..offload.pool import HostPage, HostTree
 
 log = logging.getLogger("opsagent_tpu_torch.fleet.transfer")
@@ -82,13 +90,16 @@ def unpack_entries(records: list[dict[str, Any]], template: Any) -> list[tuple[l
     ``template``'s leaves (the engine's ``PagedKVCache``; its shapes are
     not read). A record is checked before it is kept: its leaf count
     against the cache's, its payload, and its digest when it has one
-    (records of older senders have none). The fleet's fault injection
-    (``transfer.truncate`` / ``transfer.corrupt``) comes with ROADMAP item
-    13(b)."""
+    (records of older senders have none). The fault points
+    ``transfer.truncate`` (the last leaf lost in transit) and
+    ``transfer.corrupt`` (one payload bit flipped) fire here, as in the JAX
+    package."""
     names = list(template.page_leaves())
     out: list[tuple[list[int], HostTree]] = []
     for rec in records:
         specs = list(rec.get("leaves") or [])
+        if faults.fire("transfer.truncate", tokens=len(rec.get("tokens") or ())):
+            specs = specs[:-1]   # injected: last leaf lost in transit
         if len(names) != len(specs):
             _reject(rec, "structure_mismatch", record_leaves=len(specs),
                     local_leaves=len(names))
@@ -98,6 +109,10 @@ def unpack_entries(records: list[dict[str, Any]], template: Any) -> list[tuple[l
         except (KeyError, ValueError, TypeError) as e:
             _reject(rec, "undecodable_payload", error=str(e)[:120])
             continue
+        if blobs and faults.fire("transfer.corrupt", tokens=len(rec.get("tokens") or ())):
+            b = bytearray(blobs[0])      # injected: flip one payload bit
+            b[len(b) // 2] ^= 0x01
+            blobs[0] = bytes(b)
         digest = rec.get("digest")
         if digest is not None:
             got = _record_digest(np.asarray(rec.get("tokens") or [], np.int32), blobs)
@@ -122,5 +137,48 @@ def records_nbytes(records: list[dict[str, Any]]) -> int:
     return sum((len(s.get("data", "")) * 3) // 4
                for rec in records for s in rec.get("leaves", ()))
 
-# migrate_chain (one chain shipped from a source replica to a destination
-# through the router's handles) comes with the router, ROADMAP item 13(b).
+
+def migrate_chain(
+    src: Any, dst: Any, token_ids: list[int], reason: str,
+    session: str = "", park: bool = True, request_id: str = "",
+) -> int:
+    """Ship one token chain's KV pages from replica handle ``src`` to
+    ``dst`` (``fleet/router.py``). With ``park`` the source first evicts the
+    chain from its HBM trie into its host pool (``Engine.park_chain``);
+    otherwise it copies what the trie holds (``replicate_chain``). Returns
+    pages shipped, 0 on any failure: migration rides on a correct
+    re-prefill, so it never raises into routing. ``request_id`` tags the
+    ``session_migrate`` flight events with the journey the transfer
+    serves."""
+    t0 = time.perf_counter()
+    rid_field = {"request_id": request_id} if request_id else {}
+    obs.flight.record(
+        "session_migrate", phase="enter", reason=reason, session=session,
+        src=getattr(src, "replica_id", "?"), dst=getattr(dst, "replica_id", "?"),
+        tokens=len(token_ids), **rid_field,
+    )
+    pages = nbytes = 0
+    err = ""
+    try:
+        records = src.export_pages(token_ids, park=park)
+        if records:
+            pages = dst.import_pages(records)
+            nbytes = records_nbytes(records)
+    except Exception as e:  # noqa: BLE001 - re-prefill covers correctness
+        err = str(e)
+        log.exception("chain migration failed (receiver will re-prefill)")
+    dt = time.perf_counter() - t0
+    if pages:
+        obs.FLEET_MIGRATIONS.inc(reason=reason)
+        obs.FLEET_TRANSFER_PAGES.inc(pages)
+        obs.FLEET_TRANSFER_BYTES.inc(nbytes)
+        obs.FLEET_TRANSFER_SECONDS.observe(dt)
+    if request_id:
+        obs.FLEET_HOP_SECONDS.observe(dt, hop="migrate")
+    obs.flight.record(
+        "session_migrate", phase="exit", reason=reason, session=session,
+        src=getattr(src, "replica_id", "?"), dst=getattr(dst, "replica_id", "?"),
+        pages=pages, bytes=nbytes, ms=round(dt * 1e3, 3),
+        **({"error": err} if err else {}), **rid_field,
+    )
+    return pages

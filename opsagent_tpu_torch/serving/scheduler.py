@@ -1,5 +1,5 @@
 """Continuous-batching scheduler (the port's counterpart of
-``opsagent_tpu/serving/scheduler.py``, without its drain for migration).
+``opsagent_tpu/serving/scheduler.py``).
 
 One thread owns the engine. Each tick admits waiting requests while batch
 slots and pages allow, class-fair (interactive before batch before
@@ -31,6 +31,16 @@ every request in flight with the tokens it has so far, up to
 ``max_restarts`` times (``_recover``); a request that fails keeps its
 ``generated_prefix``.
 
+A fleet drain (``drain_for_migration``) stops the loop without failing
+anything: it settles the engine's ticks and blocks in flight, parks every
+running session's pages to the host tier, and hands every request that
+still needs tokens back with its salvage folded in (``_requeue_salvaged``,
+the restart flow), for another replica's scheduler to admit.
+
+Fault points (``serving/faults.py``): ``sched.out_of_pages`` at each
+admission attempt and ``sched.step_fault`` once a tick with work in flight,
+as in the JAX scheduler.
+
 A request's ``mask_fn`` constrains its tokens (``serving.constrained``); a
 mask that raises on admission fails the request with 400. A request that
 asks for logprobs gets them in ``logprob_data`` when it finishes. Its
@@ -58,6 +68,7 @@ from typing import Any, Callable
 
 from .. import obs
 from ..utils import profiling
+from . import faults
 from ..utils.perf import get_perf_stats
 from .engine import Engine, MaskFn
 from .kvcache import InvalidRequest, OutOfPages, PromptTooLong
@@ -142,6 +153,9 @@ class Scheduler:
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread: threading.Thread | None = None
+        # Fleet drain: the loop exits without failing the requests in
+        # flight; drain_for_migration() parks and returns them.
+        self._draining = False
 
     # -- public ------------------------------------------------------------
     def start(self) -> None:
@@ -160,6 +174,76 @@ class Scheduler:
         self._queue.put(req)
         self._wake.set()
         return req
+
+    def drain_for_migration(self) -> list[Request]:
+        """Fleet drain (``serving/fleet``): stop the loop without failing
+        anything, park every running session's KV to the host tier, and
+        return every request that still needs tokens, for the fleet router
+        to admit on another replica. No token is lost or repeated: a
+        running request's generated tokens fold into its prompt
+        (``_requeue_salvaged``: budget, penalties, constraint and stream
+        carried on), so the admission elsewhere continues where this
+        replica stopped. Requests that finish while the engine settles are
+        reaped here with their full result. Without the host tier the
+        salvage still folds in and the target re-prefills it."""
+        self._draining = True
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+        eng = self.engine
+        out: list[Request] = []
+        self._drain_queue()
+        # Settle the ticks and blocks in flight: their tokens land in the
+        # sequences, and finished admissions move to running.
+        _, p_out = eng.async_drain()
+        self._fold_prefill(p_out)
+        with eng.lock:
+            eng.drain()
+            eng._flush_and_invalidate()
+        for sid, req in list(self._running.items()):
+            parked = None
+            if eng.offload is not None:
+                try:
+                    parked = eng.park_sequence(sid)
+                except Exception:  # noqa: BLE001 - falls back to the salvage
+                    log.exception("drain parking of seq %d failed", sid)
+            if parked is not None:
+                self._running.pop(sid)
+                if self._requeue_salvaged(req, parked.tokens, parked.logprob_data,
+                                          parked=True):
+                    out.append(req)
+                continue
+            seq = eng.sequences.get(sid)
+            if seq is not None and seq.done:
+                continue  # reaped below with its full result
+            partial: list[int] = []
+            lp: list[dict] = list(seq.logprob_data) if seq is not None else []
+            try:
+                partial = eng.finish(sid)
+            except Exception:  # noqa: BLE001 - device state may be gone
+                pass
+            self._running.pop(sid, None)
+            if self._requeue_salvaged(req, partial, lp):
+                out.append(req)
+        self._reap()
+        for sid, req in list(self._prefilling.items()):
+            try:
+                eng.abort_request(sid)
+            except Exception:  # noqa: BLE001
+                pass
+            req.seq_id = None
+            req.enqueued_s = time.perf_counter()
+            out.append(req)
+        self._prefilling.clear()
+        out.extend(self._waiting)
+        self._waiting = []
+        try:
+            eng.offload_flush()  # land the parked pages in the host pool
+        except Exception:  # noqa: BLE001 - best-effort
+            log.exception("offload flush after a drain failed")
+        return out
 
     # -- loop --------------------------------------------------------------
     def _try_admit(self) -> None:
@@ -218,6 +302,7 @@ class Scheduler:
         self._waiting = still
 
     def _begin(self, req: Request) -> int:
+        faults.maybe_raise("sched.out_of_pages", OutOfPages, "injected OutOfPages storm")
         return self.engine.begin_request(
             req.prompt_ids, req.sampling, req.mask_fn, req.on_token,
             trace=req.trace, expect_restore=req.parked,
@@ -539,6 +624,12 @@ class Scheduler:
             profiling.service()
             try:
                 self._try_admit()
+                if self._running or self._prefilling:
+                    # Counted only with work in flight: idle ticks spin at
+                    # a rate of their own, which would tie hit-count
+                    # selectors to the wall clock.
+                    faults.maybe_raise("sched.step_fault", RuntimeError,
+                                       "injected scheduler step fault")
                 mixed = self._mixed_tick()
                 self._reap()
                 if not self._running:
@@ -591,6 +682,13 @@ class Scheduler:
                         pass
                     self._fail(req, f"engine step failed: {e}")
                 self._running.clear()
+        if self._draining:
+            # Fleet drain: every request in flight stays intact for
+            # drain_for_migration() to park and hand over.
+            log.info("scheduler loop stopped for a drain (%d running, %d prefilling, "
+                     "%d waiting)", len(self._running), len(self._prefilling),
+                     len(self._waiting))
+            return
         self._drain_queue()
         for req in self._waiting:
             self._fail(req, "scheduler stopped")

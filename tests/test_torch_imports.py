@@ -5,8 +5,12 @@ HTTP and YAML libraries the card machine lacks (``tokenizers``,
 
 Checked in a fresh interpreter: this process has JAX loaded already
 (tests/conftest.py imports it).
+
+A second check reads every module's source: no import statement anywhere in
+it, a lazy one inside a function included, names one of those packages.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -94,7 +98,16 @@ REQUIRED = (
     "opsagent_tpu_torch.cli",
     "opsagent_tpu_torch.cli.main",
     "opsagent_tpu_torch.__main__",
+    "opsagent_tpu_torch.serving.fleet.registry",
+    "opsagent_tpu_torch.serving.fleet.pagestore",
+    "opsagent_tpu_torch.serving.fleet.client",
+    "opsagent_tpu_torch.serving.fleet.router",
+    "opsagent_tpu_torch.cli.top",
+    "opsagent_tpu_torch.cli.slocheck",
+    "opsagent_tpu_torch.cli.perfcheck",
 )
+BANNED = ("jax", "jaxlib", "opsagent_tpu", "tokenizers", "transformers", "safetensors",
+          "regex", "ml_dtypes", "aiohttp", "yaml", "tiktoken")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -109,3 +122,25 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(names) >= 20          # every module of the package was imported
     assert set(REQUIRED) <= set(names)
     assert bad == "[]"
+
+
+def test_port_sources_import_no_banned_package_even_lazily():
+    root = os.path.join(REPO, "opsagent_tpu_torch")
+    found = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            with open(path, encoding="utf-8") as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                else:
+                    continue
+                found += [(os.path.relpath(path, REPO), n) for n in names
+                          if n.split(".")[0] in BANNED]
+    assert found == []
