@@ -134,6 +134,17 @@ Phases, each printing one JSON line with its seconds:
    greedy request, whose tokens equal the source engine's, with no nvcc
    run (the snapshot's libraries pre-seeded) and its restore-to-first-
    token seconds. The snapshot and the kernel directory are deleted after.
+6d'. autoscale: elastic scale-out at bench-8b's full width and
+   ``AUTOSCALE_LAYERS`` (8) layers, bf16, dma. Replica r0 behind the
+   router's HTTP server writes its snapshot; with the shed watermark at 0
+   one request is shed (429, counted once), ``Autoscaler.tick()`` launches
+   a ``SubprocessLauncher`` child (``python -m opsagent_tpu_torch
+   serve-engine --restore-snapshot ...``, standby, its kernel directory
+   empty) that joins over HTTP, and a later tick promotes it once its
+   ``/healthz`` answers (launch to request-ready seconds). A constrained
+   request forced onto the child answers equal to r0's, routed ones too;
+   the child's ``/metrics`` shows no nvcc run; idle ticks drain and retire
+   it with no failed request, and its process exits.
 6e. fleet: two in-process replicas r0 and r1, bench-8b bf16 at full width
    and depth (weights of their own, one seed), dma kernels, host tier on,
    behind the fleet router's HTTP server, and a third replica (2 layers)
@@ -152,7 +163,27 @@ Phases, each printing one JSON line with its seconds:
    at full width and 2 layers, equal to the never-drained run token for
    token. Every other reply equal to a single replica's, no capture after
    warmup, only the dma ragged and decode kernels launched. Replies render
-   every token (``FleetTokenizer``).
+   every token (``FleetTokenizer``). Before the drain, the audit fan-out
+   (``agent/fanout``) over r0 and r1: a ``FANOUT_RESOURCES``-resource
+   synthetic cluster audited twice, interactive probes streaming beside
+   the second audit; every child ok, recall 1.0, at least 90 % of the
+   children avoid re-prefilling the shared prefix, the canonical reports
+   byte-identical, no probe shed, no capture after warmup (audit wall,
+   probes' TTFT p50, prefix-hit tokens, launches by kernel).
+6f. prefill_lane: the split prefill lane (``mixed_batching=False``). The
+   ragged kernel at a bucket-4096 chunk behind a cached prefix against its
+   plain version (dma at bench-8b's width, grid at Qwen2.5-7B's, bf16 and
+   int8 pages; the latent instance at DeepSeek-V2-Lite's 16 heads), timed
+   beside its bound and SDPA; ``m128`` at T = 4 x 4096 against its plain
+   version, timed beside cuBLAS. f32 at 2 layers (bench-8b dma, also int8
+   weights + int8 KV; Qwen2.5-7B grid): the split lane's greedy tokens
+   equal the default loop's. bf16 at full width and depth, bench-8b dma
+   and Qwen2.5-7B grid, one model under a split-lane engine and a
+   default-loop engine: four completions of 304-3004 prompt tokens and
+   four of 2,600-3,000, TTFT p50 and prefill tokens/s on both, where the
+   greedy tokens part, the device ms of one bucket-4096 chunk of one and
+   of four rows, peak GB; the split serves launch the backend's ragged
+   kernel, run no mixed tick and replay every decode step.
 7. serve: behind the HTTP server, random weights from ``--seed``, bf16
    activations, four concurrent chat completions per run, on the default
    loop (async ticks, pipelined blocks, fast-forward): bench-8b at full
@@ -1804,6 +1835,157 @@ def snapshot_child(path: str) -> int:
     return 0
 
 
+# -- phase 6d': elastic scale-out -------------------------------------------------
+AUTOSCALE_LAYERS = 8
+AUTOSCALE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             "chip_smoke_autoscale")
+AUTOSCALE_READY_S = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_autoscale(seed: int, smi: str) -> dict:
+    """Elastic scale-out (``serving/fleet/autoscale.py``) at bench-8b's full
+    width, ``AUTOSCALE_LAYERS`` layers, bf16, dma: replica r0 behind the
+    router's HTTP server writes its snapshot; with the shed watermark at 0
+    one request is shed (429, counted once) and ``Autoscaler.tick()``
+    launches a ``SubprocessLauncher`` child (``python -m opsagent_tpu_torch
+    serve-engine --restore-snapshot ... --replica-role standby`` on the
+    card, its kernel directory empty) that joins over HTTP; a later tick
+    promotes it once its ``/healthz`` answers. A constrained request forced
+    onto the child answers equal to r0's (the byte tokenizer renders a
+    constrained reply's every token), its ``/metrics`` shows no nvcc run;
+    idle ticks retire it through the router's drain with no failed
+    request, and the child process exits."""
+    from opsagent_tpu_torch.serving.fleet.autoscale import Autoscaler, SubprocessLauncher
+    from opsagent_tpu_torch.serving.fleet.router import FleetRouter, build_router_app
+
+    cut = replace(BENCH_8B, num_layers=AUTOSCALE_LAYERS)
+    reset_launch_counts()
+    eng = Engine(EngineConfig(model="bench-8b", device="cuda", seed=seed, num_pages=512),
+                 model_cfg=cut)
+    eng.warmup()
+    snap, kernels = os.path.join(AUTOSCALE_DIR, "snapshot"), os.path.join(AUTOSCALE_DIR, "kernels")
+    shutil.rmtree(AUTOSCALE_DIR, ignore_errors=True)
+    os.makedirs(kernels)
+    man, write_s = synced(lambda: eng.snapshot(snap))
+    stack = ServingStack(eng)
+    router = FleetRouter()
+    router.add_local(stack, "r0")
+    server = build_router_app(router, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    log_path = os.path.join(AUTOSCALE_DIR, "child.log")
+    child_log = open(log_path, "w")
+    launcher = SubprocessLauncher(snap, url, port_base=free_port(), stdout=child_log,
+                                  stderr=subprocess.STDOUT,
+                                  env={**os.environ, "OPSAGENT_KERNEL_DIR": kernels})
+    scaler = Autoscaler(router, launcher, cooldown_s=0.0, scale_down_after=2)
+    router.autoscaler = scaler
+    errors0 = obs.FLEET_REQUESTS.value(outcome="error")
+    shed0 = sum(obs.FLEET_SHED.value(**{"class": c}) for c in obs.SLO_CLASSES)
+    body = {"model": "bench-8b", "temperature": 0, "max_tokens": 48,
+            "response_format": TOOLPROMPT_RF,
+            "messages": [{"role": "user", "content": "list the pods of the payments namespace"}]}
+    report: dict = {"card": smi, "layers": AUTOSCALE_LAYERS, "snapshot_write_s": write_s,
+                    "snapshot_bytes": sum(r["nbytes"] for r in man["leaves"])}
+    proc = None
+    try:
+        router.shed_queue_depth = 0
+        try:
+            router_call(url, "/v1/chat/completions", body)
+            status = 200
+        except urllib.error.HTTPError as e:
+            status = e.code
+        shed = sum(obs.FLEET_SHED.value(**{"class": c}) for c in obs.SLO_CLASSES) - shed0
+        check(status == 429 and shed == 1 and scaler.snapshot()["shed_pending"] == 1,
+              f"autoscale: status {status}, {shed} sheds counted")
+        t0 = time.perf_counter()
+        out = scaler.tick()
+        check(out["launched"] == "scale-1", f"autoscale: first tick {out}")
+        proc = launcher._procs["scale-1"]
+        promoted: list[str] = []
+        while not promoted and time.perf_counter() - t0 < AUTOSCALE_READY_S:
+            time.sleep(0.25)
+            check(proc.poll() is None, f"autoscale: the child exited with {proc.returncode}")
+            promoted = scaler.tick()["promoted"]
+        ready_s = time.perf_counter() - t0
+        check(promoted == ["scale-1"], f"autoscale: not promoted in {ready_s:.1f} s")
+        info = router.registry.get("scale-1")
+        check(info is not None and info.role == "decode" and not info.local,
+              f"autoscale: scale-1 registered as {info}")
+        router.shed_queue_depth = None
+        got = router_call(url, "/v1/chat/completions?replica=scale-1", body)
+        want = router_call(url, "/v1/chat/completions?replica=r0", body)
+        check(got["fleet"]["replica"] == "scale-1" and reply_text(got) == reply_text(want)
+              and got["usage"] == want["usage"],
+              f"autoscale: the child's reply {reply_text(got)!r} != r0's {reply_text(want)!r}")
+        routed = [router_call(url, "/v1/chat/completions", body) for _ in range(4)]
+        check(all(reply_text(r) == reply_text(want) for r in routed),
+              "autoscale: a routed reply differs")
+        with urllib.request.urlopen(launcher.url_of("scale-1") + "/metrics", timeout=60) as r:
+            metrics = parse_exposition(r.read().decode())
+        misses = metrics.get('opsagent_compile_cache_events_total{event="cache_misses"}', 0.0)
+        hits = metrics.get('opsagent_compile_cache_events_total{event="cache_hits"}', 0.0)
+        check(misses == 0 and hits > 0, f"autoscale: the child built kernels ({misses} misses)")
+        retired: list[str] = []
+        for _ in range(2 * scaler.scale_down_after + 2):
+            retired += scaler.tick()["retired"]
+            if retired:
+                break
+        check(retired == ["scale-1"], f"autoscale: retired {retired}")
+        proc.wait(timeout=60)
+        drains = [e for e in obs.flight.get_recorder().snapshot(kind="replica_drain")
+                  if e.get("replica") == "scale-1" and e.get("phase") == "exit"]
+        check(router.registry.get("scale-1") is None and drains and drains[-1]["errors"] == 0
+              and obs.FLEET_REQUESTS.value(outcome="error") == errors0,
+              f"autoscale: scale-down drain {drains[-1:] if drains else None}")
+        report.update({
+            "shed_status": status, "sheds": shed, "launch_to_ready_s": ready_s,
+            "router_healthz_autoscale": router_call(url, "/healthz")["autoscale"],
+            "reply_equal": True, "routed_replies": len(routed),
+            "child_cache_misses": misses, "child_cache_hits": hits,
+            "retired": retired, "child_returncode": proc.returncode,
+            "scale_events": {d: obs.FLEET_SCALE_EVENTS.value(direction=d)
+                             for d in ("up", "promote", "down")},
+        })
+    except BaseException:
+        child_log.flush()
+        with open(log_path) as f:
+            print(f.read()[-6000:], file=sys.stderr)
+        raise
+    finally:
+        scaler.stop()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        child_log.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        stack.close()
+        obs.flight.set_journey_provider(None)
+        shutil.rmtree(AUTOSCALE_DIR, ignore_errors=True)
+    del eng, stack, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    # r0's replies are constrained: they ride mixed ticks (the ragged
+    # kernel) and take no decode block.
+    report["launches"] = launch_counts()
+    check(report["launches"]["paged_ragged_attention"] > 0
+          and set(k for k, v in report["launches"].items() if v)
+          <= set(expected_kernels("dma", "", "")),
+          f"autoscale: launches {report['launches']}")
+    return report
+
+
 # -- phase 6e: the fleet ------------------------------------------------------------
 # Turn-1 prompt lengths of the affinity sessions, in characters of random
 # text (the byte tokenizer: one token each, plus the chat template's).
@@ -1925,6 +2107,89 @@ def drain_run(url: str, router, src: ServingStack, ref: ServingStack, bodies: li
             "salvaged_tokens": [len(r.generated_prefix) for r in reqs],
             "texts_equal_never_drained": [d is None for d in first_diff],
             "first_differing_token": first_diff}
+
+
+FANOUT_RESOURCES = 32
+FANOUT_TOKENS = 16
+
+
+def fanout_run(router, seed: int) -> dict:
+    """The audit fan-out (``agent/fanout``) over the fleet phase's router and
+    its two full-depth bench-8b replicas: a ``FANOUT_RESOURCES``-resource
+    synthetic cluster audited twice, interactive probes streaming through
+    the router beside the second audit. Checks: every child ok, recall 1.0,
+    at least 90 % of the children avoided re-prefilling the shared prefix
+    (the prime landed it on both replicas), the canonical reports
+    byte-identical, no probe shed or failed, no capture after warmup, the
+    dma kernels only."""
+    from opsagent_tpu_torch.agent.fanout import FanoutConfig, SynthCluster, run_audit
+
+    cluster = SynthCluster(resources=FANOUT_RESOURCES, seed=seed)
+    cfg = FanoutConfig(max_inflight=8, max_tokens=FANOUT_TOKENS)
+    compiles = obs.POST_WARMUP_COMPILES.value()
+    launches0 = launch_counts()
+    t0 = time.perf_counter()
+    rep1 = run_audit(router, cluster, cfg)
+    wall1 = time.perf_counter() - t0
+    ttft_ms: list[float] = []
+    failed: list[str] = []
+    stop = threading.Event()
+
+    def probe() -> None:
+        i = 0
+        while not stop.is_set():
+            i += 1
+            t = time.perf_counter()
+            try:
+                chunks = router.complete_stream({
+                    "model": "bench-8b", "temperature": 0.0, "max_tokens": 8,
+                    "stream": True, "slo_class": "interactive",
+                    "messages": [{"role": "user", "content": f"status of probe {i}"}]})
+                next(chunks)
+                ttft_ms.append((time.perf_counter() - t) * 1e3)
+                for _ in chunks:
+                    pass
+            except Exception as e:  # noqa: BLE001 - counted, checked below
+                failed.append(f"{type(e).__name__}: {e}")
+            stop.wait(0.05)
+
+    th = threading.Thread(target=probe, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    rep2 = run_audit(router, cluster, cfg)
+    wall2 = time.perf_counter() - t0
+    stop.set()
+    th.join(timeout=120)
+    n = cluster.resources
+    for label, rep in (("first", rep1), ("second", rep2)):
+        check(rep.stats["outcomes"] == {"ok": n, "shed": 0, "failed": 0},
+              f"fanout {label} audit: outcomes {rep.stats['outcomes']}")
+        check(rep.recall(cluster) == 1.0, f"fanout {label} audit: recall {rep.recall(cluster)}")
+        check(rep.stats["avoided_children"] >= 0.9 * n,
+              f"fanout {label} audit: {rep.stats['avoided_children']} of {n} children "
+              f"avoided re-prefill")
+    check(rep1.canonical == rep2.canonical, "fanout: the canonical reports differ")
+    check(ttft_ms and not failed, f"fanout probes: {len(ttft_ms)} answered, failed {failed[:3]}")
+    check(obs.POST_WARMUP_COMPILES.value() == compiles, "fanout: a capture after warmup")
+    launches = {k: v - launches0[k] for k, v in launch_counts().items()
+                if v - launches0[k]}
+    expected = expected_kernels("dma", "", "")
+    check(set(launches) <= set(expected) and launches.get("paged_ragged_attention", 0) > 0,
+          f"fanout: launches {launches}")
+    ttft_ms.sort()
+    return {
+        "resources": n, "children_ok": n, "recall": 1.0,
+        "audit_wall_s": [wall1, wall2], "scatter_s": [rep1.stats["scatter_s"],
+                                                      rep2.stats["scatter_s"]],
+        "primes": rep2.stats["primes"],
+        "shared_prefix_tokens": rep2.stats["shared_prefix_tokens"],
+        "prefix_hit_tokens": [rep1.stats["prefix_hit_tokens"], rep2.stats["prefix_hit_tokens"]],
+        "avoided_children": [rep1.stats["avoided_children"], rep2.stats["avoided_children"]],
+        "canonical_bytes": len(rep2.canonical.encode()), "canonical_equal": True,
+        "findings": rep2.report["summary"]["findings"],
+        "probes": len(ttft_ms), "probe_ttft_p50_ms": ttft_ms[len(ttft_ms) // 2],
+        "probe_ttft_max_ms": ttft_ms[-1], "probe_failures": 0, "launches": launches,
+    }
 
 
 def drain_exact(seed: int, gen: torch.Generator) -> dict:
@@ -2184,6 +2449,9 @@ def phase_fleet(seed: int, smi: str) -> dict:
             "role", "state", "digest_count", "health", "clock_offset_s", "clock_rtt_s")},
             "healthz_fleet": health["fleet"], "reply_equal": True}
 
+        # -- 7. the audit fan-out over r0 and r1 -------------------------------------------
+        report["fanout"] = fanout_run(router, seed)
+
         # -- 3. drain: four streams on r0, POST /fleet/drain/r0 mid-decode ------------------
         drain_bodies = [body([{"role": "user", "content": random_text(gen, n)}], DRAIN_TOKENS)
                         for n in DRAIN_PROMPTS]
@@ -2228,6 +2496,232 @@ def phase_fleet(seed: int, smi: str) -> dict:
     report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     gc.collect()
     torch.cuda.empty_cache()
+    return report
+
+
+# -- phase 6f: the split prefill lane ---------------------------------------------
+LANE_PROMPTS = (300, 800, 1500, 3000)    # characters, as the serve phases
+LANE_BATCH4 = (2600, 2750, 2900, 3000)   # one bucket-4096 chunk of four rows
+LANE_TOKENS = 64
+LANE_SERVES = (("bench-8b", BENCH_8B, "dma"), ("qwen2.5-7b", QWEN25_7B, "grid"))
+LANE_F32 = (  # (config, backend, quantize, kv_quantize) at 2 layers, f32
+    (BENCH_8B, "dma", "", ""), (BENCH_8B, "dma", "int8", "int8"), (QWEN25_7B, "grid", "", ""))
+# The ragged rows at a bucket-4096 chunk: a cached prefix, then the chunk.
+LANE_STARTS, LANE_Q_LENS = [1024, 37], [4096, 3001]
+LANE_MM_T = 4 * 4096                     # prefill_batch x the largest bucket
+
+
+def lane_kernels(seed: int) -> dict:
+    """The split lane's kernel shapes against their plain versions: the
+    ragged kernel at a bucket-4096 chunk behind a cached prefix (dma at
+    bench-8b's width, grid at Qwen2.5-7B's, bf16 and int8 pages; the latent
+    instance at DeepSeek-V2-Lite's 16 heads), each timed by graph replay
+    beside its bound and SDPA; and the quantized matmul's ``m128`` at
+    T = 4 x 4096 (int8 and int4, bench-8b's wg/wu)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    out: dict = {}
+    for wname, H, K, form in (("bench-8b", 32, 8, "dma"), ("qwen2.5-7b", 28, 4, "grid")):
+        c = make_case(gen, 2, 4096, H, K, 128, 16, LANE_STARTS, LANE_Q_LENS, torch.bfloat16)
+        for suffix, case in (("", c), ("_int8", quantize_case(c))):
+            name = "paged_ragged_attention" + ("_grid" if form == "grid" else "") + suffix
+            case["bound"] = attention_bound_ms(case, 2)
+            case["sdpa"] = ragged_sdpa(case)
+            out[name] = {"width": wname, **run_kernel_case(name, case, torch.bfloat16, True)}
+            case.pop("sdpa")
+            torch.cuda.empty_cache()
+        del c
+    c = make_case(gen, 2, 4096, 16, 1, pa.LATENT_DIM, 16, LANE_STARTS, LANE_Q_LENS,
+                  torch.bfloat16)
+    c["v"] = c["k"]
+    c["bound"] = attention_bound_ms(c, 2)
+    c["sdpa"] = ragged_sdpa(c)
+    r = run_kernel_case("paged_ragged_attention_latent", c, torch.bfloat16, True)
+    r["plan"] = latent_plan_bytes(c, pa.latent_blocks(pa._sm_count(c["q"].device)))
+    out["paged_ragged_attention_latent"] = {"width": "deepseek-v2-lite", **r}
+    del c
+    torch.cuda.empty_cache()
+    In, Out = MM_SHAPES["wg/wu"]
+    for mode, bits, group in MM_MODES[:2]:
+        w = quantized_weight(gen, In, Out, bits, group)
+        col = w.dequantize().norm(dim=0).mean().item()
+        x = (torch.randn(LANE_MM_T, In, generator=gen, device="cuda") / col).to(torch.bfloat16)
+        got = qm.quant_matmul_cuda(x, w)
+        want = qm.quant_matmul_cuda(x, w, plain=True)
+        err = (got.float() - want.float()).abs()
+        tol = MM_TOL[torch.bfloat16]
+        check(bool((err <= tol + tol * want.float().abs()).all()),
+              f"m128 {mode} T={LANE_MM_T}: max err {err.max().item()} beyond rtol=atol={tol}")
+        name = f"quant_matmul_int{bits}"
+        r = time_matmul(gen, w, x, bits, group)
+        check(r["instance"] == "m128", f"{name} T={LANE_MM_T}: instance {r['instance']}")
+        out[f"{name} {mode}"] = {**r, "max_abs_err": err.max().item()}
+        del w, x, got, want, err
+        torch.cuda.empty_cache()
+    return out
+
+
+def lane_batch(engine: Engine, bodies: list[dict], label: str, split: bool) -> dict:
+    """``bodies`` as one concurrent batch through a ServingStack over the
+    warmed ``engine``: the replies' tokens (``FleetTokenizer`` text), TTFT
+    p50 and the batch's prefill rate (its prompt tokens over the last
+    first token's TTFT); the split engine dispatches split-lane chunks and
+    no mixed tick, the default engine mixed ticks only, every decode step a
+    replay, no capture after warmup."""
+    compiles = obs.POST_WARMUP_COMPILES.value()
+    routes0, chunks0 = routes(engine), engine.prefill_dispatches
+    form = "_grid" if engine.cfg.paged_backend == "grid" else ""
+    ragged = f"paged_ragged_attention{form}{'_int8' if engine.cfg.kv_quantize else ''}"
+    ragged0 = launch_counts()[ragged]
+    stack = ServingStack(engine)
+    try:
+        t0 = time.perf_counter()
+        replies = loop_batch(stack, bodies)
+        wall = time.perf_counter() - t0
+    finally:
+        stack.close()
+    replays, eager, mixed_replays, eager_ticks = (n - w for n, w in zip(routes(engine), routes0))
+    chunks = engine.prefill_dispatches - chunks0
+    check(eager == eager_ticks == 0 and replays > 0
+          and ((chunks > 0 and mixed_replays == 0) if split
+               else (chunks == 0 and mixed_replays > 0)),
+          f"{label}: {chunks} split-lane chunks, routes {routes(engine)} from {routes0}")
+    # The split engine runs no mixed tick: its ragged launches are the
+    # split lane's chunks, one per layer each.
+    check(launch_counts()[ragged] - ragged0 >= (chunks * engine.model_cfg.num_layers
+                                                if split else 1),
+          f"{label}: {launch_counts()[ragged] - ragged0} {ragged} launches for {chunks} chunks")
+    check(obs.POST_WARMUP_COMPILES.value() == compiles, f"{label}: a capture after warmup")
+    ttfts = [r["ttft_s"] for r in replies]
+    prompt_tokens = sum(r["usage"]["prompt_tokens"] for r in replies)
+    return {
+        "texts": [reply_text(r) for r in replies], "wall_s": wall,
+        "ttft_p50_s": statistics.median(ttfts), "ttft_max_s": max(ttfts),
+        "prompt_tokens": prompt_tokens, "prefill_tok_s": prompt_tokens / max(ttfts),
+        "completion_tokens": sum(r["usage"]["completion_tokens"] for r in replies),
+        "split_chunks": chunks, "mixed_ticks": mixed_replays, "decode_steps": replays,
+    }
+
+
+def token_diff(a: str, b: str) -> int | None:
+    """The first token at which two ``FleetTokenizer`` texts part, or None."""
+    x, y = re.findall(r"<\d+>|.", a, re.S), re.findall(r"<\d+>|.", b, re.S)
+    return next((i for i, (p, q) in enumerate(zip(x, y)) if p != q),
+                None if len(x) == len(y) else min(len(x), len(y)))
+
+
+def chunk_device_ms(engine: Engine, rows: int) -> float:
+    """Device ms of one split-lane chunk at the largest bucket over ``rows``
+    rows of fresh prompts (idle tables: the writes drop, the attention
+    walks every position), by CUDA events, median of 3 after one warm."""
+    S = engine.cfg.prefill_buckets[-1]
+    stage = engine._staged
+    toks = stage(np.full((rows, S), 257, np.int64))
+    start = stage(np.zeros((rows,), np.int32))
+    lens = stage(np.full((rows,), S, np.int32))
+    table = stage(np.full((rows, engine.cfg.max_pages_per_seq), -1, np.int32))
+    times = []
+    with torch.inference_mode():
+        for i in range(4):
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            engine.model.prefill_with_prefix(toks, start, lens, engine.cache, table, False,
+                                             engine.cfg.paged_backend)
+            t1.record()
+            t1.synchronize()
+            if i:
+                times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def phase_prefill_lane(seed: int, smi: str) -> dict:
+    """The split prefill lane (``EngineConfig(mixed_batching=False)``:
+    ``Scheduler._advance_prefill``, ``Engine.prefill_batch``,
+    ``Llama.prefill_with_prefix``, ``paged_prefix_attention``) on the card.
+    First its kernel shapes against the plain versions (``lane_kernels``).
+    Then f32 at 2 layers (bench-8b dma, unquantized and int8 + int8 KV;
+    Qwen2.5-7B grid): four concurrent completions on the split lane equal
+    the default loop's token for token. Then bench-8b on dma and Qwen2.5-7B
+    on grid at full width and depth in bf16, one model under a split-lane
+    engine and a default-loop engine: four completions of 304-3004 prompt
+    tokens, then four of 2,600-3,000 (one bucket-4096 chunk of four rows),
+    each batch's TTFT p50 and prefill rate on both, where the greedy tokens
+    part (bf16: a prompt chunked at 128 rows and one of 4096 round
+    differently, and random weights' argmax turns on the last bit), the
+    device ms of one bucket-4096 chunk of one and four rows, peak GB. The
+    split serves launch their backend's ragged kernel and no plain version."""
+    report: dict = {"card": smi, "kernels": lane_kernels(seed)}
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    gen = torch.Generator().manual_seed(seed + 21)
+
+    def bodies(sizes, model, max_tokens=LANE_TOKENS):
+        return [{"model": model, "temperature": 0, "max_tokens": max_tokens,
+                 "messages": [{"role": "user", "content": random_text(gen, n)}]}
+                for n in sizes]
+
+    f32 = {}
+    for base, backend, quantize, kv_quantize in LANE_F32:
+        cut = replace(base, num_layers=2)
+        model = Llama(cut, torch.float32, "cuda", seed=seed, quantize=quantize)
+        tok = FleetTokenizer(cut.vocab_size)
+        engines = {
+            split: Engine(EngineConfig(model=base.name, dtype=torch.float32, device="cuda",
+                                       seed=seed, quantize=quantize, kv_quantize=kv_quantize,
+                                       paged_backend=backend, mixed_batching=not split),
+                          model_cfg=cut, model=model, tokenizer=tok)
+            for split in (True, False)}
+        for eng in engines.values():
+            eng.warmup()
+        batch = bodies(LANE_PROMPTS, base.name, 32)
+        got = {split: lane_batch(eng, batch, f"lane f32 {base.name} {backend} split={split}",
+                                 split) for split, eng in engines.items()}
+        label = f"{base.name} {backend} {quantize or 'f32'} kv {kv_quantize or 'f32'}"
+        check(got[True]["texts"] == got[False]["texts"],
+              f"lane f32 {label}: split-lane tokens differ from the default loop's at "
+              f"{[token_diff(a, b) for a, b in zip(got[True]['texts'], got[False]['texts'])]}")
+        f32[label] = {"tokens_equal": True, "split_chunks": got[True]["split_chunks"]}
+        del engines, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["f32_2_layers"] = f32
+
+    torch.cuda.reset_peak_memory_stats()
+    for name, cfg, backend in LANE_SERVES:
+        model = Llama(cfg, torch.bfloat16, "cuda", seed=seed)
+        tok = FleetTokenizer(cfg.vocab_size)
+        engines = {
+            split: Engine(EngineConfig(model=name, device="cuda", seed=seed,
+                                       paged_backend=backend, mixed_batching=not split),
+                          model_cfg=cfg, model=model, tokenizer=tok)
+            for split in (True, False)}
+        warm = {split: eng.warmup() for split, eng in engines.items()}
+        row: dict = {"layers": cfg.num_layers, "backend": backend,
+                     "warmup_s": {"split": warm[True], "default": warm[False]}}
+        for label, sizes in (("serve", LANE_PROMPTS), ("batch4", LANE_BATCH4)):
+            batch = bodies(sizes, name)
+            runs = {split: lane_batch(eng, batch, f"lane {name} {label} split={split}", split)
+                    for split, eng in engines.items()}
+            s, d = runs[True], runs[False]
+            row[label] = {
+                "prompt_tokens": s["prompt_tokens"],
+                "ttft_p50_s": {"split": s["ttft_p50_s"], "default": d["ttft_p50_s"]},
+                "ttft_max_s": {"split": s["ttft_max_s"], "default": d["ttft_max_s"]},
+                "prefill_tok_s": {"split": s["prefill_tok_s"], "default": d["prefill_tok_s"]},
+                "wall_s": {"split": s["wall_s"], "default": d["wall_s"]},
+                "split_chunks": s["split_chunks"], "default_mixed_ticks": d["mixed_ticks"],
+                "first_differing_token": [token_diff(a, b) for a, b in zip(s["texts"],
+                                                                          d["texts"])],
+            }
+        row["chunk_4096_device_ms"] = {str(r): chunk_device_ms(engines[True], r) for r in (1, 4)}
+        report[name] = row
+        del engines, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["launches"] = launch_counts()
+    for name in (*expected_kernels("dma", "", ""), *expected_kernels("grid", "", ""),
+                 "paged_ragged_attention_int8", "quant_matmul_int8"):
+        check(report["launches"][name] > 0, f"prefill_lane: {name} never launched")
     return report
 
 
@@ -3595,7 +4089,7 @@ def main() -> int:
     for name, n in agent["launches"].items():
         launches[name] += n
 
-    for run in (phase_offload, phase_snapshot, phase_fleet):
+    for run in (phase_offload, phase_snapshot, phase_autoscale, phase_fleet, phase_prefill_lane):
         t = time.perf_counter()
         out = run(args.seed, smi)
         gc.collect()

@@ -25,7 +25,10 @@ that join it by prefix affinity, then least load, with sticky pinning,
 queue spill-over with page migration, drain, retries, failover, hedging and
 shedding (``--queue-spill``, ``--prefill-threshold``, ``--max-retries``,
 ``--hedge-queue-depth``, ``--shed-queue-depth``, ``--heartbeat-ttl``;
-``--tokenizer`` and ``--model-name`` must match the replicas').
+``--tokenizer`` and ``--model-name`` must match the replicas'), and with
+``--autoscale-snapshot DIR`` launches standby replicas from that snapshot on
+shed pressure (``--autoscale-max-replicas``, ``--autoscale-port-base``,
+``--autoscale-cooldown``; ``serving/fleet/autoscale.py``).
 
 ``python -m opsagent_tpu_torch snapshot create --out DIR --model-name
 bench-8b`` builds and warms an engine and writes its snapshot (weights in
@@ -37,7 +40,8 @@ read.
 The agent's commands (``server``, ``execute``, ``analyze``, ``audit``,
 ``diagnose``, ``generate``, ``version``, and ``--config FILE`` before them)
 and the operator commands (``slo-check``, ``top``, ``perf-check``,
-``timeline``, ``fleet-kv``, ``fleet-flight``) are ``cli/main.py``'s: ``python -m opsagent_tpu_torch execute --model
+``timeline``, ``fleet-kv``, ``fleet-flight``, ``audit-fanout``) are
+``cli/main.py``'s: ``python -m opsagent_tpu_torch execute --model
 cuda://bench-8b "count the namespaces"``."""
 
 from __future__ import annotations
@@ -187,6 +191,18 @@ def main(argv: list[str] | None = None) -> int:
     sr.add_argument("--shed-queue-depth", type=int, default=None,
                     help="overload shedding: 429 + Retry-After for new admissions "
                          "once every replica's queue is this deep (default: off)")
+    sr.add_argument("--autoscale-snapshot", default="",
+                    help="elastic scale-out: launch standby replicas from this "
+                         "`snapshot create` directory when shed pressure appears, "
+                         "promote them once request-ready (default: off; pair with "
+                         "--shed-queue-depth, the scale-up signal)")
+    sr.add_argument("--autoscale-max-replicas", type=int, default=4,
+                    help="upper bound on autoscaler-launched replicas")
+    sr.add_argument("--autoscale-port-base", type=int, default=8400,
+                    help="first port for autoscaler-launched engine servers "
+                         "(sequential from here)")
+    sr.add_argument("--autoscale-cooldown", type=float, default=30.0,
+                    help="seconds between autoscaler launches")
     sn = sub.add_parser("snapshot", help="engine snapshots: create, verify")
     snsub = sn.add_subparsers(dest="snapshot_cmd", required=True)
     snc = snsub.add_parser(
@@ -224,6 +240,10 @@ def main(argv: list[str] | None = None) -> int:
             heartbeat_ttl_s=args.heartbeat_ttl, max_retries=args.max_retries,
             hedge_queue_depth=args.hedge_queue_depth,
             shed_queue_depth=args.shed_queue_depth,
+            autoscale_snapshot=args.autoscale_snapshot,
+            autoscale_max_replicas=args.autoscale_max_replicas,
+            autoscale_port_base=args.autoscale_port_base,
+            autoscale_cooldown_s=args.autoscale_cooldown,
         )
         return 0
     return _serve(args)

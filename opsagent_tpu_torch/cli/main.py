@@ -9,7 +9,9 @@ package's flags, output and exit codes: ``slo-check`` (``cli/slocheck.py``),
 ``top`` (``cli/top.py``), ``perf-check`` (``cli/perfcheck.py``),
 ``timeline`` (a request's lifecycle as an ASCII Gantt, a fleet router's
 stitched timeline as a multi-lane one), ``fleet-kv`` (a router's page
-directory) and ``fleet-flight`` (a router's merged flight ledger).
+directory), ``fleet-flight`` (a router's merged flight ledger) and
+``audit-fanout`` (``cli/fanout.py``: one audit fanned out over a synthetic
+cluster through an in-process fleet, the canonical report on stdout).
 
 ``--model cuda://<name>`` runs the model on the port's engine in this
 process: a preset's engine is built on the card (``serving.api.get_stack``),
@@ -34,7 +36,8 @@ from ..utils.logger import get_logger, init_logger
 from ..utils.perf import get_perf_stats
 
 COMMANDS = ("server", "execute", "analyze", "audit", "diagnose", "generate", "version",
-            "slo-check", "top", "perf-check", "timeline", "fleet-kv", "fleet-flight")
+            "slo-check", "top", "perf-check", "timeline", "fleet-kv", "fleet-flight",
+            "audit-fanout")
 
 
 def _add_common(parser: argparse.ArgumentParser) -> None:
@@ -198,6 +201,32 @@ def build_parser() -> argparse.ArgumentParser:
                      help="filter to one journey's events (implies no tail cap)")
     ffl.add_argument("--json", action="store_true", default=False,
                      help="print the raw ledger JSON instead of the table")
+
+    af = sub.add_parser(
+        "audit-fanout",
+        help="fan one audit out over a synthetic cluster: N batch-class "
+             "child sessions sharing one prefix chain through an "
+             "in-process fleet, reduced to one deterministic report "
+             "(exit 0 all children ok, 1 any finding_unavailable)",
+    )
+    af.add_argument("--model", default="tiny-test")
+    af.add_argument("--resources", type=int, default=64,
+                    help="synthetic cluster size (= fan-out children)")
+    af.add_argument("--seed", type=int, default=0)
+    af.add_argument("--issue-fraction", type=float, default=0.25,
+                    help="fraction of resources given an injected issue")
+    af.add_argument("--replicas", type=int, default=2,
+                    help="in-process decode replicas behind the router")
+    af.add_argument("--max-inflight", type=int, default=8,
+                    help="bounded scatter concurrency (the fan-out admission gate)")
+    af.add_argument("--max-tokens", type=int, default=16)
+    af.add_argument("--flight-sample", type=int, default=0,
+                    help=">1: sample admission/dispatch flight kinds 1-in-N during "
+                         "the wave (flood control)")
+    af.add_argument("--json", action="store_true",
+                    help="print the canonical byte-stable report form")
+    af.add_argument("--out", default="", help="also write the canonical report here")
+    af.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
 
 
@@ -214,10 +243,20 @@ def _fetch_json(url: str, timeout: float, token: str = "") -> Any:
 
 def run_ops_command(args: argparse.Namespace) -> int:
     """The operator commands: ``slo-check``, ``top``, ``perf-check``,
-    ``timeline``, ``fleet-kv`` and ``fleet-flight``, with the JAX package's
-    output and exit codes."""
+    ``timeline``, ``fleet-kv``, ``fleet-flight`` and ``audit-fanout``, with
+    the JAX package's output and exit codes."""
     import json
 
+    if args.command == "audit-fanout":
+        from .fanout import run_audit_fanout
+
+        return run_audit_fanout(
+            model=args.model, resources=args.resources, seed=args.seed,
+            issue_fraction=args.issue_fraction, replicas=args.replicas,
+            max_inflight=args.max_inflight, max_tokens=args.max_tokens,
+            flight_sample=args.flight_sample, as_json=args.json, out=args.out,
+            device=args.device,
+        )
     if args.command == "slo-check":
         from .slocheck import run_slo_check
 

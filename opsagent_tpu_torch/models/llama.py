@@ -22,6 +22,10 @@ Entry points over the same weights:
   chosen backend ("dma" or "grid", ``ops.paged_attention.PAGED_BACKENDS``);
 - ``decode_step``: one token per sequence, through that backend's decode
   kernel;
+- ``prefill_with_prefix``: the split prefill lane's chunks (JAX's, over the
+  ragged contract with ``q_lens = lengths``), through the same ragged
+  kernel; ``prefill``: JAX's fresh-prompt form over the fresh K/V, plain
+  PyTorch, which the engine does not call;
 - ``forward_full``: all positions, plain causal attention, no cache (the
   oracle).
 
@@ -34,6 +38,8 @@ head) scales, which the attention kernels read (not with MLA, as in JAX).
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
 import torch.nn.functional as F
@@ -43,6 +49,7 @@ from ..ops.attention import (
     QuantizedPages,
     causal_prefill_attention,
     flat_slot_indices,
+    paged_prefix_attention,
     quantize_kv_rows,
 )
 from ..ops.paged_attention import PAGED_BACKENDS
@@ -358,10 +365,13 @@ class DecoderLayer(nn.Module):
         )
         return ckv, k_rope
 
-    def qkv_mla(self, h, cfg: ModelConfig, cos, sin, plain: bool = False):
+    def qkv_mla(self, h, cfg: ModelConfig, cos, sin, plain: bool = False,
+                with_latent: bool = False):
         """Materialized MLA (q, k, v): per-head k_nope and v from the
         latent's up-projection, the shared rope key broadcast over the
-        heads, v zero-padded to the qk head dim."""
+        heads, v zero-padded to the qk head dim. ``with_latent`` also
+        returns the token's latent [c, k_rope] [B, S, 1, DL] (JAX's
+        ``_qkv_mla(with_latent=True)``)."""
         m = cfg.mla
         B, S, _ = h.shape
         H, dn, dr, dv = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
@@ -371,6 +381,9 @@ class DecoderLayer(nn.Module):
         kv = _mm(ckv, self.wukv, plain).view(B, S, H, dn + dv)
         k = torch.cat([kv[..., :dn], k_rope.expand(B, S, H, dr)], dim=-1)
         v = torch.cat([kv[..., dn:], kv.new_zeros(B, S, H, dn + dr - dv)], dim=-1)
+        if with_latent:
+            latent = torch.cat([ckv[:, :, None, :], k_rope], dim=-1).to(h.dtype)
+            return q, k, v, latent
         return q, k, v
 
     def mla_latent_parts(self, h, cfg: ModelConfig, cos, sin, plain: bool = False):
@@ -639,6 +652,107 @@ class Llama(nn.Module):
         logits = self._lm_head(x, True)
         return (logits, aux) if return_aux else logits
 
+    def prefill(
+        self,
+        tokens: torch.Tensor,       # [B, S] int, right-padded
+        lengths: torch.Tensor,      # [B] int32 valid lengths
+        cache: PagedKVCache,
+        page_table: torch.Tensor,   # [B, MaxP] int32
+        plain: bool = False,
+    ) -> torch.Tensor:
+        """JAX's ``prefill``: a fresh prompt's full-sequence forward that
+        attends causally over the fresh K/V (``causal_prefill_attention``),
+        writes each row's valid K/V at position 0 on (MLA: attends in the
+        materialized form and writes only the latent to a latent cache), and
+        returns the logits of each row's last valid position [B, V] f32.
+        The engine does not call it: every split-lane chunk, a fresh
+        prompt's too, runs ``prefill_with_prefix`` with ``start`` 0, through
+        the ragged kernels. It is plain PyTorch throughout, so on a CUDA
+        tensor it raises unless ``plain`` asks for that reference."""
+        if tokens.is_cuda and not plain:
+            raise ValueError(
+                "Llama.prefill attends in plain PyTorch; on the card the engine "
+                "prefills through prefill_with_prefix (start 0) and its kernels "
+                "(pass plain=True for the reference)"
+            )
+        B, S = tokens.shape
+        start = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+        cos, sin = self._rope(torch.arange(S, device=tokens.device)[None, :].expand(B, S))
+        flat = flat_slot_indices(
+            page_table, start, S, cache.page_size, cache.num_pages, valid_len=lengths,
+        ).reshape(-1)
+
+        def attn_fn(h, layer, li):
+            if cache.latent:
+                q, k, v, latent = layer.qkv_mla(h, self.cfg, cos, sin, True, with_latent=True)
+                cache.write(li, latent, None, flat)
+            else:
+                q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, True)
+                cache.write(li, k, v, flat)
+            return causal_prefill_attention(q, k, v).reshape(B, S, -1)
+
+        x, _ = self._run_stack(self.embed[tokens].to(self.dtype), attn_fn, True)
+        last = (lengths.long() - 1).clamp(0, S - 1)
+        return self._lm_head(x[torch.arange(B, device=x.device), last], True)
+
+    def _paged_forward(
+        self, tokens: torch.Tensor, start: torch.Tensor, q_lens: torch.Tensor,
+        cache: PagedKVCache, page_table: torch.Tensor, plain: bool, attention,
+    ) -> torch.Tensor:
+        """Ragged rows over the paged cache: each row's valid K/V (or latent)
+        written at ``start``, ``attention(q, k_pages, v_pages, page_table,
+        start, q_lens, plain=...)`` over the pages, and the logits of each
+        row's last valid position [B, V] f32."""
+        B, S = tokens.shape
+        pos = start.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
+        cos, sin = self._rope(pos)
+        flat = flat_slot_indices(
+            page_table, start, S, cache.page_size, cache.num_pages,
+            valid_len=q_lens,
+        ).reshape(-1)
+
+        def attn_fn(h, layer, li):
+            if cache.latent:
+                q_lat, latent = layer.mla_latent_parts(h, self.cfg, cos, sin, plain)
+                cache.write(li, latent, None, flat)
+                # The latent is both keys and values.
+                ctx = attention(
+                    q_lat, cache.k[li], cache.k[li], page_table, start, q_lens,
+                    plain=plain,
+                )
+                return layer.mla_latent_out(ctx, self.cfg)
+            q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain)
+            cache.write(li, k, v, flat)
+            # cache.k[li] is a view: the attention reads the rows just written.
+            attn = attention(
+                q, cache.k[li], cache.v[li], page_table, start, q_lens,
+                plain=plain,
+            )
+            return attn.reshape(B, S, -1)
+
+        x, _ = self._run_stack(self.embed[tokens].to(self.dtype), attn_fn, plain)
+        last = (q_lens.long() - 1).clamp(0, S - 1)
+        return self._lm_head(x[torch.arange(B, device=x.device), last], plain)
+
+    def prefill_with_prefix(
+        self,
+        tokens: torch.Tensor,       # [B, S] int tail tokens, right-padded
+        start: torch.Tensor,        # [B] int32 cached-prefix lengths
+        lengths: torch.Tensor,      # [B] int32 valid tail lengths
+        cache: PagedKVCache,
+        page_table: torch.Tensor,   # [B, MaxP] int32 prefix pages + tail pages
+        plain: bool = False,
+        backend: str = "dma",
+    ) -> torch.Tensor:
+        """JAX's ``prefill_with_prefix``, the split prefill lane's program:
+        forwards only each row's tail, writes its K/V (or latent) at
+        ``start`` and attends over the cached prefix plus the tail through
+        ``paged_prefix_attention`` (the ``backend``'s ragged kernel on the
+        card). Returns the last valid tail position's logits [B, V] f32;
+        rows with length 0 write nothing."""
+        attention = partial(paged_prefix_attention, backend=backend)
+        return self._paged_forward(tokens, start, lengths, cache, page_table, plain, attention)
+
     def mixed_step(
         self,
         tokens: torch.Tensor,       # [B, S] int ragged rows, right-padded
@@ -656,37 +770,8 @@ class Llama(nn.Module):
         the caller. ``backend`` picks the paged-attention kernels ("dma" or
         "grid"); ``plain`` runs attention and the quantized matmuls through
         their plain PyTorch versions."""
-        ragged_attention = PAGED_BACKENDS[backend][0]
-        B, S = tokens.shape
-        pos = start.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
-        cos, sin = self._rope(pos)
-        flat = flat_slot_indices(
-            page_table, start, S, cache.page_size, cache.num_pages,
-            valid_len=q_lens,
-        ).reshape(-1)
-
-        def attn_fn(h, layer, li):
-            if cache.latent:
-                q_lat, latent = layer.mla_latent_parts(h, self.cfg, cos, sin, plain)
-                cache.write(li, latent, None, flat)
-                # The latent is both keys and values.
-                ctx = ragged_attention(
-                    q_lat, cache.k[li], cache.k[li], page_table, start, q_lens,
-                    plain=plain,
-                )
-                return layer.mla_latent_out(ctx, self.cfg)
-            q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain)
-            cache.write(li, k, v, flat)
-            # cache.k[li] is a view: the attention reads the rows just written.
-            attn = ragged_attention(
-                q, cache.k[li], cache.v[li], page_table, start, q_lens,
-                plain=plain,
-            )
-            return attn.reshape(B, S, -1)
-
-        x, _ = self._run_stack(self.embed[tokens].to(self.dtype), attn_fn, plain)
-        last = (q_lens.long() - 1).clamp(0, S - 1)
-        return self._lm_head(x[torch.arange(B, device=x.device), last], plain)
+        return self._paged_forward(tokens, start, q_lens, cache, page_table, plain,
+                                   PAGED_BACKENDS[backend][0])
 
     def decode_step(
         self,

@@ -232,6 +232,35 @@ def paged_ragged_attention(
     return out.to(q.dtype)
 
 
+def paged_prefix_attention(
+    q: torch.Tensor,            # [B, S, H, D] tail queries, right-padded
+    k_pages,                    # [N, P, K, D] or [L, N, P, K, D] with layer,
+    v_pages,                    # or QuantizedPages of that shape
+    page_table: torch.Tensor,   # [B, MaxP]
+    start: torch.Tensor,        # [B] cached-prefix lengths (the tail begins here)
+    lengths: torch.Tensor,      # [B] valid tail lengths
+    layer: int | None = None,
+    backend: str = "dma",
+    plain: bool = False,
+) -> torch.Tensor:
+    """Tail-prefill attention over paged KV holding [prefix + tail], the
+    split prefill lane's admission (JAX's ``paged_prefix_attention``, which
+    XLA computes): each row's tail queries attend causally over its cached
+    prefix pages and the tail written this call. It is the ragged contract
+    with ``q_lens = lengths``: on the CPU (or with ``plain``) the plain
+    ``paged_ragged_attention``; on a CUDA tensor the ragged kernel of
+    ``backend`` (``ops.paged_attention.PAGED_BACKENDS``: the dma kernel, with
+    its latent instance for MLA, or the grid kernel), which raises on a shape
+    it does not take."""
+    if plain or q.device.type == "cpu":
+        return paged_ragged_attention(q, k_pages, v_pages, page_table, start, lengths,
+                                      layer=layer)
+    from .paged_attention import PAGED_BACKENDS
+
+    return PAGED_BACKENDS[backend][0](q, k_pages, v_pages, page_table, start, lengths,
+                                      layer=layer)
+
+
 def paged_decode_attention(
     q: torch.Tensor,            # [B, H, D] one new token per sequence
     k_pages,                    # [N, P, K, D] or [L, N, P, K, D] with layer,

@@ -21,8 +21,9 @@ Two parts:
   returns the block's tokens.
 
 ``mixed_step_body`` does the same for one mixed tick's forward + sample
-over a ``MixedState``, one per query-axis bucket (JAX's prefill programs,
-one per bucket).
+over a ``MixedState``, one per query-axis bucket (JAX's mixed programs, one
+per bucket); its sampling tail, ``pick_rows``, also picks the first token of
+a split-lane prefill chunk (``Engine.prefill_batch``).
 
 ``record_dispatch`` and ``record_mixed_dispatch`` are the host-side
 telemetry of one block call and one mixed tick (JAX's names): the engine
@@ -494,19 +495,38 @@ def mixed_step_body(
     logits = model.mixed_step(
         state.tokens, state.start, state.q_lens, cache, state.page_table, plain, backend,
     )
+    fstate = torch.where(state.use_carry, state.carry_fsm, state.fsm)
+    tok = pick_rows(logits, fstate, state.emits, state.temps, state.top_k, state.top_p,
+                    generator, tables, extras)
+    state.out.copy_(tok)
+    state.fsm.copy_(torch.where(state.emits, tables.advance(fstate, tok), fstate))
+
+
+def pick_rows(
+    logits: torch.Tensor,       # [B, V] f32 each row's last position
+    fsm: torch.Tensor,          # [B] int32 FsmTables rows
+    emits: torch.Tensor,        # [B] bool rows whose token is output
+    temps: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    generator: torch.Generator,
+    tables: FsmTables,
+    extras: SamplingExtras | None = None,
+) -> torch.Tensor:
+    """The token of each row of a mixed tick or a split-lane prefill chunk
+    [B] int64: the logits adjusted by ``extras``, masked by ``tables`` at
+    ``fsm``, sampled; with ``extras`` the logprobs go to its mixed outputs
+    and the rows that ``emits`` count their token. No host sync."""
     if extras is not None:
         logits = extras.adjust(logits)
-    fstate = torch.where(state.use_carry, state.carry_fsm, state.fsm)
-    allowed = tables.allowed(fstate)
-    tok = sample(logits, generator, state.temps, state.top_k, state.top_p, allowed)
-    state.out.copy_(tok)
+    tok = sample(logits, generator, temps, top_k, top_p, tables.allowed(fsm))
     if extras is not None:
         chosen, ids, top = extras.logprobs(logits, tok)
         extras.mixed_lp.copy_(chosen)
         extras.mixed_lp_ids.copy_(ids)
         extras.mixed_lp_top.copy_(top)
-        extras.count(tok, state.emits)
-    state.fsm.copy_(torch.where(state.emits, tables.advance(fstate, tok), fstate))
+        extras.count(tok, emits)
+    return tok
 
 
 # -- host-side dispatch telemetry (JAX decode_loop.py's record_dispatch) ------

@@ -28,6 +28,13 @@ The JAX engine's default loop runs them ahead of the host:
   forces a run of tokens appends the run in one forward through the mixed
   graph of the bucket that holds it, and samples only the token after it.
 
+With ``EngineConfig.mixed_batching`` off (and on a tick the mixed lanes
+pass over) admissions take the split prefill lane, JAX's prefill programs:
+``prefill_batch`` runs one chunk of up to ``prefill_batch`` admitting
+prompts, each up to the largest of ``prefill_buckets`` (4096) tokens,
+through ``Llama.prefill_with_prefix`` and the backend's ragged kernel,
+eagerly, and samples a finished prompt's first token as a mixed tick does.
+
 Tokens reach the host through pinned memory and an event per tick or
 block (``decode_loop.to_host``); nothing else waits for the card between
 an enqueue and its commit. Every entry point settles the other lanes'
@@ -130,6 +137,7 @@ from .decode_loop import (
     decode_step_body,
     from_host,
     mixed_step_body,
+    pick_rows,
     record_dispatch,
     record_ffwd_append,
     record_mixed_dispatch,
@@ -189,6 +197,16 @@ class EngineConfig:
     mixed_buckets: tuple[int, ...] = (16, 32, 64, 128)
     # Per-mixed-step token budget: decode lanes first, then prefill chunks.
     max_step_tokens: int = 256
+    # Mixed prefill + decode ticks (JAX's mixed batching): the scheduler
+    # seats admitting prompts' chunks in the decode lanes' tick. False
+    # admits every prompt through the split prefill lane instead
+    # (``prefill_batch``), as does a tick the mixed lanes pass over.
+    mixed_batching: bool = True
+    # The split lane: up to prefill_batch admitting prompts' next chunks in
+    # one dispatch, rows padded to a power of two, the chunk padded to the
+    # smallest of prefill_buckets holding it (the largest caps a chunk).
+    prefill_batch: int = 4
+    prefill_buckets: tuple[int, ...] = (64, 128, 256, 512, 1024, 2048, 4096)
     # Depth of the async mixed ticks (serving.async_runtime): at 2 tick t+1
     # is enqueued before tick t's tokens are pulled; EOS and stop strings
     # are then seen a tick late (one overshoot token discarded, its page
@@ -274,6 +292,8 @@ class Sequence:
     trace: Any = None
     decode_span: Any = None
     last_tok_s: float = 0.0
+    # The exception a raising ``on_token`` callback ended the row with.
+    error: Exception | None = None
 
 
 class Engine:
@@ -442,8 +462,15 @@ class Engine:
         # of a pull.
         self.async_ticks = self.ffwd_dispatches = self.ffwd_tokens = 0
         self.pipelined_blocks = 0
+        # Split-lane chunk dispatches (``prefill_batch``).
+        self.prefill_dispatches = 0
         self._generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1
+        )
+        # The split lane samples eagerly, outside the graphs that replay
+        # with the engine's generator registered: a generator of its own.
+        self._prefill_generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 2
         )
 
     def _build_model(self) -> Llama:
@@ -497,11 +524,15 @@ class Engine:
         stream: Callable[[int], None] | None = None,
     ) -> int:
         """Admit a request and prefill it whole (mixed steps with no decode
-        lanes), sampling its first token. Returns the sequence id; raises
+        lanes, or with ``mixed_batching`` off the split lane's chunks),
+        sampling its first token. Returns the sequence id; raises
         OutOfPages when the page pool is full."""
         seq_id = self.begin_request(prompt_ids, sampling, mask_fn, stream)
         while seq_id in self._prefilling:
-            self.step_mixed([], {seq_id: self.cfg.mixed_buckets[-1]})
+            if self.cfg.mixed_batching:
+                self.step_mixed([], {seq_id: self.cfg.mixed_buckets[-1]})
+            else:
+                self.prefill_step(seq_id)
         return seq_id
 
     def begin_request(
@@ -661,9 +692,9 @@ class Engine:
         if seq.on_token is not None:
             try:
                 seq.on_token(token)
-            except Exception:  # noqa: BLE001 - ends this row, not the step
+            except Exception as e:  # noqa: BLE001 - ends this row, not the step
                 log.exception("stream callback of sequence %d failed", seq.seq_id)
-                seq.done, seq.finish_reason = True, "error"
+                seq.done, seq.finish_reason, seq.error = True, "error", e
                 return
         if token == self.tokenizer.eos_id:
             seq.done, seq.finish_reason = True, "stop"
@@ -829,6 +860,205 @@ class Engine:
         """The row's FsmTables row: its DFA state + 1 on the device tables,
         else 0 (unconstrained or hosted)."""
         return s.mask_fn.dfa_state(s.tokens) + 1 if on_device else 0
+
+    # -- the split prefill lane ------------------------------------------------
+    def _bucket(self, n: int) -> int:
+        """Smallest prefill bucket holding n tokens (a longer tail is
+        chunked through the largest)."""
+        for b in self.cfg.prefill_buckets:
+            if n <= b:
+                return b
+        return self.cfg.prefill_buckets[-1]
+
+    @_locked
+    def next_prefill_bucket(self, seq_id: int) -> int:
+        """The bucket the admitting sequence's next chunk pads to: the
+        scheduler's grouping key for a batched chunk."""
+        seq, done = self.sequences[seq_id], self._prefilling[seq_id]
+        return self._bucket(min(seq.prompt_len - done, self.cfg.prefill_buckets[-1]))
+
+    @_locked
+    def prefill_batch(self, seq_ids: list[int]) -> dict[int, bool | Exception]:
+        """One prefill chunk for each given admitting sequence in one
+        dispatch (JAX's ``prefill_batch``; grouping same-bucket chunks is the
+        caller's job, smaller chunks ride as padding). Rows pad to a power of
+        two, padding rows writing through -1 tables; every row runs
+        ``Llama.prefill_with_prefix`` (``start`` = tokens already in the
+        cache, 0 for a fresh prompt) through the backend's ragged kernel,
+        eagerly (no graph). A chunk that ends its prompt samples the first
+        token with a mixed tick's sampler, constraint tables and extras
+        (``pick_rows``).
+
+        Returns {seq_id: prompt done | Exception}: a row whose ``mask_fn``
+        or stream callback raises on the first token fails alone (its pages
+        freed, its sequence dropped). A failed dispatch drops every row
+        before the exception propagates. Async ticks in flight are settled
+        first; pipelined blocks stay in flight (they hold other rows)."""
+        self._async_settle()
+        self._mixed_gap_stamp = None   # host-gap continuity ends here
+        try:
+            return self._prefill_chunk(seq_ids)
+        except Exception:
+            for sid in seq_ids:
+                self._drop_admission(sid)
+            raise
+
+    def prefill_step(self, seq_id: int) -> bool:
+        """One chunk of one admitting sequence (JAX's ``prefill_step``):
+        True when its prompt is done and its first token sampled. The
+        chunk runs as a one-row ``prefill_batch``, a fresh prompt's too
+        (JAX runs that one through its ``prefill`` program). On failure the
+        sequence is dropped and the exception propagates."""
+        out = self.prefill_batch([seq_id])[seq_id]
+        if isinstance(out, Exception):
+            raise out
+        return out
+
+    def _staged(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device (through pinned memory on the
+        card, so that the copy does not wait for the work enqueued)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _prefill_chunk(self, seq_ids: list[int]) -> dict[int, bool | Exception]:
+        B, V = self.cfg.max_batch_size, self.model_cfg.vocab_size
+        if not 0 < len(seq_ids) <= B:
+            raise ValueError(f"prefill batch of {len(seq_ids)} rows: expected 1.."
+                             f"max_batch_size={B}")
+        seqs = [self.sequences[s] for s in seq_ids]
+        dones = [self._prefilling[s] for s in seq_ids]
+        chunks = [min(seq.prompt_len - d, self.cfg.prefill_buckets[-1])
+                  for seq, d in zip(seqs, dones)]
+        bucket = self._bucket(max(chunks))
+        Bp = 1
+        while Bp < len(seq_ids):
+            Bp *= 2
+        tokens = np.full((Bp, bucket), self.tokenizer.pad_id, np.int64)
+        starts = np.zeros((Bp,), np.int32)
+        lens = np.zeros((Bp,), np.int32)
+        tables = np.full((Bp, self.cfg.max_pages_per_seq), -1, np.int32)
+        for i, (sid, seq, d, c) in enumerate(zip(seq_ids, seqs, dones, chunks)):
+            tokens[i, :c] = seq.prompt_ids[d:d + c]
+            starts[i], lens[i] = d, c
+            tables[i] = self.alloc.page_table_row(sid)
+        ending = [i for i, (seq, d, c) in enumerate(zip(seqs, dones, chunks))
+                  if d + c >= seq.prompt_len]
+        # A constrained row's mask_fn is screened before the dispatch: one
+        # that raises fails its own row only.
+        bad: dict[int, Exception] = {}
+        for i in ending:
+            if seqs[i].mask_fn is not None:
+                try:
+                    seqs[i].mask_fn(seqs[i].tokens)
+                except Exception as e:  # noqa: BLE001 - the caller's callback
+                    bad[i] = e
+        ending = [i for i in ending if i not in bad]
+        routes = self._fsm_routes([seqs[i] for i in ending])
+        fsm = np.zeros((B,), np.int32)
+        emits = np.zeros((B,), bool)
+        masks: dict[int, np.ndarray] = {}
+        for i in ending:
+            s = seqs[i]
+            emits[i] = True
+            fsm[i] = self._fsm_row(s, routes.get(s.seq_id, False))
+            if routes.get(s.seq_id) is False:
+                masks[i] = self._row_mask(s)
+        lanes: list[Sequence | None] = [s if emits[i] else None for i, s in enumerate(seqs)]
+        temps, top_k, top_p = self._sampling_arrays(lanes, B)
+        extras = self._wants_extras(lanes)
+        sampled = lp = None
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            dev_out: list = []
+            with annotate("engine.prefill_chunk"), device_timer("prefill_chunk", dev_out):
+                logits = self.model.prefill_with_prefix(
+                    self._staged(tokens), self._staged(starts), self._staged(lens),
+                    self.cache, self._staged(tables), self.attn_impl == "plain",
+                    self.cfg.paged_backend,
+                )
+                dev_out.append(logits)
+                if ending:
+                    # Every batch row samples (padding rows greedily, their
+                    # tokens discarded): the sampler's buffers are [B].
+                    rows = logits[:B] if Bp >= B else torch.cat(
+                        [logits, logits.new_zeros((B - Bp, V))])
+                    self._load_host_masks(masks)
+                    want_lp = extras and self._load_extras(lanes)
+                    tok = pick_rows(
+                        rows, self._staged(fsm), self._staged(emits), self._staged(temps),
+                        self._staged(top_k), self._staged(top_p), self._prefill_generator,
+                        self._fsm, self._extras if extras else None,
+                    )
+                    sampled = tok.cpu().numpy()
+                    if want_lp:
+                        x = self._extras
+                        lp = (x.mixed_lp.cpu().numpy(), x.mixed_lp_ids.cpu().numpy(),
+                              x.mixed_lp_top.cpu().numpy())
+        self.prefill_dispatches += 1
+        n_tokens = int(sum(chunks))
+        perf = get_perf_stats()
+        perf.record_metric("engine.prefill_chunk", (time.perf_counter() - t0) * 1e3, "ms")
+        perf.record_metric("engine.prefill_tokens", n_tokens, "tok")
+        obs.PREFILL_TOKENS.inc(n_tokens)
+        obs.flight.record(
+            "dispatch", op="prefill_batch", seq_ids=list(seq_ids), bucket=bucket,
+            rows=len(seq_ids), prefill_tokens=n_tokens,
+        )
+        self.attr.dispatch(
+            "prefill_batch",
+            q_tokens=n_tokens,
+            kv_read_tokens=int(sum(d + c for d, c in zip(dones, chunks))),
+            kv_write_tokens=n_tokens,
+            attn_q_ctx=int(sum(obs.attribution.prefill_attn_positions(d, c)
+                               for d, c in zip(dones, chunks))),
+        )
+        out: dict[int, bool | Exception] = {}
+        for i, (sid, seq, d, c) in enumerate(zip(seq_ids, seqs, dones, chunks)):
+            if i in bad:
+                self._drop_admission(sid)
+                out[sid] = bad[i]
+                continue
+            if d + c < seq.prompt_len:
+                self._prefilling[sid] = d + c
+                out[sid] = False
+                continue
+            del self._prefilling[sid]
+            seq.ttft_s = time.perf_counter() - seq.started_s
+            perf.record_metric("engine.ttft", seq.ttft_s * 1e3, "ms")
+            self._first_token_obs(seq)
+            if lp is not None and seq.params.logprobs:
+                seq.logprob_data.append(self._logprob_entry(seq, *(a[i] for a in lp)))
+            self._accept_token(seq, int(sampled[i]))
+            if seq.error is not None:
+                # The stream callback raised on the first token.
+                self._drop_admission(sid)
+                out[sid] = seq.error
+                continue
+            out[sid] = True
+        self._observe_occupancy()
+        return out
+
+    def _warm_prefill_lane(self) -> None:
+        """Run each split-lane program once, every (rows, bucket) the
+        scheduler can dispatch, over idle rows and -1 tables: the kernels'
+        one-time set-up and the allocator's blocks at each shape, outside
+        the serving window. The pages and the allocator are untouched."""
+        ceil = 1
+        while ceil < min(self.cfg.prefill_batch, self.cfg.max_batch_size):
+            ceil *= 2
+        rows = 1
+        while rows <= ceil:
+            for bucket in self.cfg.prefill_buckets:
+                zero = np.zeros((rows,), np.int32)
+                self.model.prefill_with_prefix(
+                    self._staged(np.zeros((rows, bucket), np.int64)), self._staged(zero),
+                    self._staged(zero), self.cache,
+                    self._staged(np.full((rows, self.cfg.max_pages_per_seq), -1, np.int32)),
+                    False, self.cfg.paged_backend,
+                )
+            rows *= 2
 
     # -- mixed prefill + decode step ----------------------------------------
     @_locked
@@ -1367,8 +1597,9 @@ class Engine:
         forced token a forward skipped. Greedy output equals that with the
         feature off. Rows with tokens in flight have stale host tokens and
         are passed over, so nothing is settled unless a settled row has a
-        run. Returns {seq_id: accepted tokens} (empty when no row could)."""
-        if not self.cfg.grammar_ffwd:
+        run. Returns {seq_id: accepted tokens} (empty when no row could, and
+        always with ``mixed_batching`` off: the appends ride mixed ticks)."""
+        if not (self.cfg.grammar_ffwd and self.cfg.mixed_batching):
             return {}
 
         def scan(skip_inflight: bool) -> list[tuple]:
@@ -1616,15 +1847,21 @@ class Engine:
         then, on the card with the kernels, captures each body as a CUDA
         graph. The warm steps write only the cache's scratch slot and draw
         from a spare generator: the cache's pages, the allocator and the
-        engine's generator are untouched. Call it before other threads
-        touch CUDA (a capture is process-wide). Returns wall seconds
-        spent."""
+        engine's generator are untouched. With ``mixed_batching`` off and
+        the kernels, each split-lane program (``prefill_batch``: every
+        padded row count and bucket) also runs once, eagerly. Call it
+        before other threads touch CUDA (a capture is process-wide).
+        Returns wall seconds spent."""
         t0 = time.perf_counter()
         # Compile-watchdog phase bracket: captures and kernel builds inside
         # count as "warmup"; once any warmup completes, one during serving
         # is an anomaly.
         with obs.flight.warmup_phase(), self.lock, torch.inference_mode():
             self._prepare()
+            if self.attn_impl == "cuda" and not self.cfg.mixed_batching:
+                # The split lane admits every prompt: its programs run
+                # once here (eagerly; they are never captured).
+                self._warm_prefill_lane()
             if self.offload is not None:
                 # Staging and pinned buffers of every copy bucket.
                 self.offload.copier.warm(self.cache)

@@ -22,8 +22,9 @@ Modules:
   re-prefill (tier order: HBM trie -> host pool -> peer fetch ->
   re-prefill).
 
-The JAX package's autoscaler (``fleet/autoscale.py``) is ROADMAP item 13(c)
-in the port.
+- ``autoscale`` — elastic scale-out: shed pressure launches standby
+  replicas restored from a snapshot (``SubprocessLauncher``), promoted once
+  request-ready; idle scaler-launched replicas retire through the drain.
 """
 
 from .pagestore import (  # noqa: F401

@@ -621,6 +621,10 @@ class FleetRouter:
         self._participants: OrderedDict[str, dict[str, Any]] = \
             OrderedDict()
         self._max_map = 8192
+        # Elastic scale-out (serving/fleet/autoscale.py): None = a static
+        # fleet; an Autoscaler hears every shed (note_shed) and shows on
+        # /healthz.
+        self.autoscaler: Any = None
         # Anomaly dumps in this process gain the triggering request's
         # cross-replica journey (obs/flight.py _dump_context).
         obs.flight.set_journey_provider(self.journey_of)
@@ -1105,6 +1109,10 @@ class FleetRouter:
             return
         retry_after = int(min(30, max(1, min(depths))))
         obs.FLEET_SHED.inc(**{"class": cls})
+        if self.autoscaler is not None:
+            # Shed = demand the fleet turned away, the scale-up signal:
+            # noted before the 429 leaves.
+            self.autoscaler.note_shed(cls)
         obs.FLEET_REQUESTS.inc(outcome="shed")
         obs.CLASS_REQUESTS.inc(**{"class": cls, "outcome": "shed"})
         fanout_id = _fanout_of(body)
@@ -1936,6 +1944,8 @@ def build_router_app(
                 "shed_queue_depth": router.shed_queue_depth,
                 "directory": router.registry.directory.stats(),
             }
+            if router.autoscaler is not None:
+                out["autoscale"] = router.autoscaler.snapshot()
             if faults.active():
                 out["faults"] = faults.summary()
             self._reply(out)
@@ -2111,12 +2121,21 @@ def run_router_server(
     max_retries: int = DEFAULT_MAX_RETRIES,
     hedge_queue_depth: int | None = None,
     shed_queue_depth: int | None = None,
+    autoscale_snapshot: str = "",
+    autoscale_max_replicas: int = 4,
+    autoscale_port_base: int = 8400,
+    autoscale_cooldown_s: float = 30.0,
 ) -> None:
     """``python -m opsagent_tpu_torch serve-router``: the fleet front-end as
     a process. The tokenizer (a tokenizer.json directory, or the byte
     tokenizer by default) must match the replicas': affinity scores hash
     token chains, so a mismatched tokenizer zeroes every score and
-    placement falls back to least-loaded (correct, but cold)."""
+    placement falls back to least-loaded (correct, but cold).
+
+    ``autoscale_snapshot`` (a ``snapshot create`` directory) turns on
+    elastic scale-out: shed pressure launches standby replicas from the
+    snapshot as local ``serve-engine`` subprocesses and promotes them into
+    the decode set once request-ready; the scaler stops with the server."""
     from ..tokenizer import load_tokenizer
 
     router = FleetRouter(
@@ -2131,6 +2150,19 @@ def run_router_server(
         shed_queue_depth=shed_queue_depth,
     )
     server = build_router_app(router, host, port)
+    scaler = None
+    if autoscale_snapshot:
+        from .autoscale import Autoscaler, SubprocessLauncher
+
+        launcher = SubprocessLauncher(
+            snapshot_path=autoscale_snapshot,
+            router_url=f"http://127.0.0.1:{server.server_address[1]}",
+            port_base=autoscale_port_base,
+        )
+        scaler = Autoscaler(router, launcher, max_replicas=autoscale_max_replicas,
+                            cooldown_s=autoscale_cooldown_s)
+        router.autoscaler = scaler
+        scaler.start()
     # The router samples its own process series (fleet shed/hedge/failover
     # rates) at 1 Hz behind /api/metrics/history.
     history = obs.history.get_history()
@@ -2141,5 +2173,7 @@ def run_router_server(
     except KeyboardInterrupt:
         pass
     finally:
+        if scaler is not None:
+            scaler.stop()
         server.server_close()
         history.stop()

@@ -13,7 +13,16 @@ scheduler does:
 2. grammar fast-forward on the running rows the async lane left;
 3. a synchronous mixed tick when a prompt is admitting (every decode lane
    plus prefill chunks under the ``max_step_tokens`` budget);
-4. else a decode block (pipelined at ``pipeline_depth`` > 0).
+4. else the split prefill lane when a prompt is admitting
+   (``_advance_prefill``: one chunk batch through ``Engine.prefill_batch``;
+   every admission with ``EngineConfig.mixed_batching`` off, which also
+   turns lanes 1-3 off), then a decode block (pipelined at
+   ``pipeline_depth`` > 0).
+
+The JAX scheduler also sends a tick with a hosted constrained row, a
+logprobs row or a biased row to the split lane; the port's mixed ticks seat
+those rows (their graphs carry the mask and the sampler extras), so they
+stay on lane 3.
 
 Finished sequences release their pages at once, so queued requests enter
 mid-flight. With the engine's host KV tier, an admission that finds no
@@ -384,6 +393,8 @@ class Scheduler:
         oldest admitting prompts). Returns False when no mixed step ran
         and the tick goes to block decode."""
         eng = self.engine
+        if not eng.cfg.mixed_batching:
+            return False
         if eng.cfg.async_depth > 1 and self._async_mixed_tick():
             return True
         if eng.cfg.grammar_ffwd and self._running:
@@ -404,6 +415,38 @@ class Scheduler:
             raise
         self._fold_prefill(prefill_out)
         return True
+
+    def _advance_prefill(self) -> None:
+        """The split prefill lane (JAX's ``_advance_prefill``): one chunk for
+        a batch of admitting requests, the oldest plus up to
+        ``prefill_batch`` - 1 more whose next chunk pads to the same bucket,
+        in one dispatch (``Engine.prefill_batch``). One chunk batch a tick:
+        long prompts interleave with decode blocks, and concurrent
+        admissions share dispatches."""
+        if not self._prefilling:
+            return
+        eng = self.engine
+        first = next(iter(self._prefilling))
+        batch = [first]
+        try:
+            bucket = eng.next_prefill_bucket(first)
+            for sid in self._prefilling:
+                if len(batch) >= min(eng.cfg.prefill_batch, eng.cfg.max_batch_size):
+                    break
+                if sid != first and eng.next_prefill_bucket(sid) == bucket:
+                    batch.append(sid)
+            results = eng.prefill_batch(batch)
+        except Exception as e:  # noqa: BLE001 - the engine dropped the rows
+            for sid in batch:
+                self._fail_admission(sid, e)
+            return
+        for sid, res in results.items():
+            if isinstance(res, Exception):
+                # A row-local failure (its mask_fn or stream callback
+                # raised): only this request fails.
+                self._fail_admission(sid, res)
+            elif res:
+                self._fold_prefill({sid: True})
 
     def _fold_prefill(self, prefill_out: dict[int, bool]) -> None:
         """Completed prompts move to running (False: more chunks to go)."""
@@ -631,6 +674,8 @@ class Scheduler:
                     faults.maybe_raise("sched.step_fault", RuntimeError,
                                        "injected scheduler step fault")
                 mixed = self._mixed_tick()
+                if not mixed:
+                    self._advance_prefill()
                 self._reap()
                 if not self._running:
                     if self._prefilling:

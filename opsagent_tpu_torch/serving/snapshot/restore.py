@@ -71,6 +71,7 @@ def engine_config_from_manifest(man: dict[str, Any], device: str | None = None) 
     kw = {k: v for k, v in e.items() if k in names and k != "dtype"}
     kw["dtype"] = _DTYPES[e["dtype"]]
     kw["mixed_buckets"] = tuple(kw["mixed_buckets"])
+    kw["prefill_buckets"] = tuple(kw["prefill_buckets"])
     backend = man.get("torch", {}).get("paged_backend")
     if backend:
         kw["paged_backend"] = backend

@@ -57,11 +57,9 @@ ENGINE_FINGERPRINT_FIELDS = (
     "quantize", "kv_quantize",
 )
 # Those the port's EngineConfig lacks, at the values of its engine: one
-# device, no speculation, mixed ticks, the JAX defaults otherwise.
+# device, no speculation.
 PORT_ENGINE_FIELDS = {
-    "tp": 1, "dp": 1, "sp": 1, "ep": 1, "speculative_k": 0,
-    "speculative_ngram": 2, "prefill_batch": 4,
-    "prefill_buckets": [64, 128, 256, 512, 1024, 2048, 4096], "mixed_batching": True,
+    "tp": 1, "dp": 1, "sp": 1, "ep": 1, "speculative_k": 0, "speculative_ngram": 2,
 }
 
 

@@ -105,6 +105,11 @@ REQUIRED = (
     "opsagent_tpu_torch.cli.top",
     "opsagent_tpu_torch.cli.slocheck",
     "opsagent_tpu_torch.cli.perfcheck",
+    "opsagent_tpu_torch.serving.fleet.autoscale",
+    "opsagent_tpu_torch.agent.fanout",
+    "opsagent_tpu_torch.agent.fanout.orchestrator",
+    "opsagent_tpu_torch.agent.fanout.synthcluster",
+    "opsagent_tpu_torch.cli.fanout",
 )
 BANNED = ("jax", "jaxlib", "opsagent_tpu", "tokenizers", "transformers", "safetensors",
           "regex", "ml_dtypes", "aiohttp", "yaml", "tiktoken")

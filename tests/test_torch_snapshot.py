@@ -110,6 +110,37 @@ def test_port_snapshot_verifies_and_restores_in_jax(tmp_path):
     assert jeng.generate(PROMPTS, JaxSamplingParams(max_tokens=8)) == want
 
 
+def test_split_lane_settings_cross_both_ways(tmp_path):
+    """``mixed_batching``, ``prefill_batch`` and ``prefill_buckets`` travel
+    in the manifest's engine block: a JAX snapshot with mixed batching off
+    restores into a port engine that admits through the split prefill lane,
+    with the JAX engine's greedy tokens; a port snapshot with it off reads
+    back as such in the JAX package and in the port, and restores in the
+    JAX package to the port's tokens."""
+    lane = dict(mixed_batching=False, prefill_batch=2, prefill_buckets=(8, 16))
+    kw = dict(model="tiny-test", dtype=jnp.float32, tp=1, seed=0, **lane,
+              **{k: v for k, v in BASE.items() if k != "mixed_buckets"})
+    jeng = JaxEngine(JaxEngineConfig(**kw))
+    want = jeng.generate(PROMPTS, JaxSamplingParams(max_tokens=8))
+    path = str(tmp_path / "jax-snap")
+    jeng.snapshot(path)
+    eng = Engine.from_snapshot(path, device="cpu")
+    assert {k: getattr(eng.cfg, k) for k in lane} == lane
+    assert _greedy(eng) == want
+    assert eng.prefill_dispatches > 0 and eng.mixed_eager_ticks == 0
+    eng, path, man = _snap(tmp_path, **lane)
+    ours = _greedy(eng)
+    assert man["engine"]["prefill_buckets"] == [8, 16]
+    assert man["engine"]["mixed_batching"] is False and man["engine"]["prefill_batch"] == 2
+    cfg = jrestore.engine_config_from_manifest(man)
+    assert {k: getattr(cfg, k) for k in lane} == lane
+    restored = Engine.from_snapshot(path, device="cpu")
+    assert {k: getattr(restored.cfg, k) for k in lane} == lane
+    params = jrestore.restore_params(man, path, jrestore.model_config_from_manifest(man), cfg)
+    jeng = JaxEngine(cfg, model_cfg=jrestore.model_config_from_manifest(man), params=params)
+    assert jeng.generate(PROMPTS, JaxSamplingParams(max_tokens=8)) == ours
+
+
 @pytest.mark.parametrize("quantize", ["", "int8", "int4"])
 def test_port_snapshot_round_trip(tmp_path, quantize):
     eng, path, man = _snap(tmp_path, quantize=quantize, kv_quantize="int8" if quantize else "")
