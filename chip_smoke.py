@@ -184,6 +184,32 @@ Phases, each printing one JSON line with its seconds:
    greedy tokens part, the device ms of one bucket-4096 chunk of one and
    of four rows, peak GB; the split serves launch the backend's ragged
    kernel, run no mixed tick and replay every decode step.
+6g. train: the port's trainer. bench-1b at full width and depth, bf16,
+   remat, 10 steps on one fixed random batch of 4 x 1024 tokens (loss and
+   grad norm finite, the last loss below the first; median step ms over
+   steps 3-10, tokens/s, MFU at 989 TFLOP/s, peak GB); DeepSeek-V2-Lite's
+   width cut to its dense layer and 2 MoE layers, bf16, 2 x 512 tokens
+   (the grouped dispatch), 5 steps (balance loss finite and above 0, loss
+   falling), then one MoE layer in the grouped form without drops against
+   the all-experts form, and both forms' device ms at T = 1024 and 4096;
+   tiny-test f32: a step on the card against the CPU (1e-5) and a resume
+   from ``save_train_state`` against the uninterrupted run (1e-6); the tiny
+   agent trained on the card from the port's own init on
+   ``tests/fixtures/tiny-agent-train.npz``, written by ``save_checkpoint``,
+   loaded as ``--checkpoint`` loads it and run through the agent loop: the
+   memorized answer, the replay kubectl once.
+6h. speculative: prompt-lookup speculation (k = 4, n-gram 2). f32 at
+   bench-8b's width and 2 layers: greedy tokens equal speculating through
+   the kernels, through the plain path and without speculation. bf16 at
+   full depth, dma: replayed and eager speculation equal; four concurrent
+   128-token greedy completions with repeated-span prompts through a
+   ServingStack with and without speculation (tok/s, TTFT, acceptance as
+   (mean tokens an iteration - 1) / k, every step replayed, no capture
+   after warmup); one verify forward's device ms against one decode
+   step's. The same with int8 weights. Then the ragged kernels (dma and
+   grid, bf16 and int8 pages) at B = 8 rows of q_len 5 and ``m128`` at
+   T = 40 against their plain versions (1e-2), timed beside their bound
+   and SDPA or cuBLAS.
 7. serve: behind the HTTP server, random weights from ``--seed``, bf16
    activations, four concurrent chat completions per run, on the default
    loop (async ticks, pipelined blocks, fast-forward): bench-8b at full
@@ -2916,16 +2942,24 @@ def post_stream(port: int, body: dict) -> tuple[int, dict]:
                     "events": len(chunks)}
 
 
+def span_count(node: dict, name: str) -> int:
+    """Spans called ``name`` in a trace tree."""
+    return (node.get("name") == name) + sum(span_count(c, name)
+                                            for c in node.get("children", []))
+
+
 def constrained_batch(engine: Engine, clock: TickClock, post, post_sse, prompt,
-                      model: str, backend: str, latent: bool) -> dict:
+                      model: str, backend: str, latent: bool, port: int) -> dict:
     """Four concurrent requests, untimed, after the timed batch: two
     ToolPrompt json_schema completions (one streamed), one json_object,
     one unconstrained, 64 greedy tokens each. Each constrained reply is a
     live prefix of its DFA (and parses as JSON when it stopped). Every
     decode step and mixed tick replays; the ToolPrompt rows ride the
     device tables (loaded once), and only the json_object row (over the
-    table budget at this vocab) takes hosted steps. Returns the batch's
-    line, with the block arguments for its device times."""
+    table budget at this vocab) takes hosted steps: one for each decode
+    block its trace shows (none when its reply ended inside mixed ticks,
+    beside prompts still admitting). Returns the batch's line, with the
+    block arguments for its device times."""
     schema = {"type": "json_schema",
               "json_schema": {"name": "toolprompt", "schema": TOOLPROMPT_SCHEMA}}
     kinds = (("toolprompt", False, schema), ("toolprompt", True, schema),
@@ -2978,9 +3012,13 @@ def constrained_batch(engine: Engine, clock: TickClock, post, post_sse, prompt,
     toolprompt = json_constraint(engine.tokenizer, TOOLPROMPT_SCHEMA).fsm
     check(engine._fsm_loaded is toolprompt and loads == 1,
           f"{label}: {loads} table loads, the ToolPrompt tables not resident")
-    check(0 < hosted <= requests[2]["completion_tokens"] - 1,
-          f"{label}: {hosted} hosted steps for a json_object reply of "
-          f"{requests[2]['completion_tokens']} tokens")
+    rid = replies[2][1]["id"]
+    status, raw = http_get(port, f"/api/trace/{rid}")
+    check(status == 200, f"{label}: /api/trace/{rid} status {status}")
+    json_blocks = span_count(json.loads(raw)["root"], "decode_block")
+    check(hosted == json_blocks <= requests[2]["completion_tokens"] - 1,
+          f"{label}: {hosted} hosted steps, {json_blocks} decode blocks for a json_object "
+          f"reply of {requests[2]['completion_tokens']} tokens")
     expected = expected_kernels(backend, "", "", latent)
     for name, n in launches.items():
         check((n > 0) == (name in expected), f"{label}: {name} launched {n} times")
@@ -3336,7 +3374,7 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
             saved = [t.clone() for t in last_tick.buffers()]
             fsm_run = constrained_batch(engine, clock, post,
                                         lambda body: post_stream(port, body), prompt,
-                                        model, backend, latent)
+                                        model, backend, latent, port)
             with torch.inference_mode():
                 for t, was in zip(last_tick.buffers(), saved):
                     t.copy_(was)
@@ -4016,6 +4054,524 @@ def phase_agent(seed: int, smi: str) -> dict:
     return report
 
 
+# -- phase 9: training (item 12) ----------------------------------------------------
+TRAIN_BATCH = (4, 1024)            # bench-1b: B x S tokens, one fixed random batch
+TRAIN_STEPS = 10
+TRAIN_TIMED_FROM = 2               # median step time over steps 3..10
+TRAIN_MOE_BATCH = (2, 512)         # V2-Lite cut: T = 1024, past grouped_dispatch_min_tokens
+TRAIN_MOE_STEPS = 5
+TRAIN_MOE_LAYERS = 3               # its first dense layer and 2 MoE layers
+TRAIN_AGENT_DATA = os.path.join(FIXTURES, "tiny-agent-train.npz")
+TRAIN_AGENT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                               "chip_smoke_train_agent")
+TRAIN_LR = 1e-3
+
+
+def train_run(cfg, tc, batch, steps: int, seed: int, model=None) -> dict:
+    """``steps`` train steps of ``cfg`` in bf16 on one fixed random batch:
+    each step's loss, balance loss, grad norm and host-clock ms (the step
+    ends in a synchronize), and the peak GB."""
+    from opsagent_tpu_torch.training import init_train_state, make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    torch.cuda.reset_peak_memory_stats()
+    model, optimizer = init_train_state(cfg, tc, seed=seed, dtype=torch.bfloat16,
+                                        device="cuda", model=model)
+    step = make_train_step(cfg, tc)
+    tokens = torch.randint(0, cfg.vocab_size, batch, generator=gen, device="cuda")
+    mask = torch.ones(batch, device="cuda")
+    rows = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = step(model, optimizer, tokens, mask)
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     **{k: float(v) for k, v in m.items()}})
+    losses = [r["loss"] for r in rows]
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows)
+          and losses[-1] < losses[0], f"{cfg.name} training: losses {losses}")
+    return {"model": model, "optimizer": optimizer, "rows": rows,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def moe_forms_ms(layer, cfg, T: int, gen) -> dict:
+    """One MoE layer's forward at T tokens in the grouped form (capacity
+    factor E/k: no assignment dropped; and at the config's own factor) and
+    the all-experts form, by CUDA graph replay, and the difference of the
+    first and the last on the same hidden states."""
+    m = cfg.moe
+    grouped = replace(cfg, moe=replace(m, grouped_dispatch_min_tokens=1,
+                                       capacity_factor=m.num_experts / m.num_experts_per_token))
+    default = replace(cfg, moe=replace(m, grouped_dispatch_min_tokens=1))
+    every = replace(cfg, moe=replace(m, grouped_dispatch_min_tokens=0))
+    h = torch.randn(1, T, cfg.hidden_size, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        a = layer.moe_mlp(h, grouped, plain=True)[0].float()
+        b = layer.moe_mlp(h, every, plain=True)[0].float()
+        out = {"T": T, "max_abs_err": (a - b).abs().max().item(),
+               "max_abs": b.abs().max().item(),
+               "grouped_ms": graph_ms(lambda i: layer.moe_mlp(h, grouped, plain=True)[0],
+                                      calls=5, replays=3),
+               "capacity_factor": m.capacity_factor,
+               "grouped_default_capacity_ms": graph_ms(
+                   lambda i: layer.moe_mlp(h, default, plain=True)[0], calls=5, replays=3),
+               "all_experts_ms": graph_ms(lambda i: layer.moe_mlp(h, every, plain=True)[0],
+                                          calls=5, replays=3)}
+    return out
+
+
+def resume_check(seed: int) -> dict:
+    """tiny-test f32: one train step on the card against the port on the CPU
+    from the same weights (loss and parameters within 1e-5); then save,
+    restore and resume on the card against the uninterrupted run (within
+    1e-6: the embedding's backward adds with atomics, in any order). At
+    JAX's default learning rate (1e-5), as the CPU tests: AdamW's first
+    step moves a parameter by about ±lr whatever its gradient, so the
+    rounding of a near-zero gradient reaches the parameter as a share of
+    lr (6.1e-6 of a 1e-3 step)."""
+    from opsagent_tpu_torch.training import (
+        TrainConfig, init_train_state, make_train_step, restore_train_state,
+        save_train_state,
+    )
+
+    cfg = get_config_preset("tiny-test")
+    tc = TrainConfig(remat=False)
+    step = make_train_step(cfg, tc)
+    gen = torch.Generator().manual_seed(seed + 31)
+    batches = [(torch.randint(0, cfg.vocab_size, (2, 64), generator=gen), torch.ones(2, 64))
+               for _ in range(4)]
+    cpu = Llama(cfg, torch.float32, "cpu", seed=seed)
+    card = Llama(cfg, torch.float32, "cuda", seed=None)
+    card.load_state_dict(cpu.state_dict())
+    out = {}
+    for label, model in (("cpu", cpu), ("cuda", card)):
+        model, opt = init_train_state(cfg, tc, model=model)
+        out[label] = (float(step(model, opt, *batches[0])["loss"]),
+                      {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    loss_err = abs(out["cpu"][0] - out["cuda"][0])
+    param_err = max((out["cpu"][1][k] - out["cuda"][1][k]).abs().max().item()
+                    for k in out["cpu"][1])
+    check(loss_err <= 1e-5 and param_err <= 1e-5,
+          f"train step cuda vs cpu: loss {loss_err}, parameters {param_err}")
+    ckpt = os.path.join(TRAIN_AGENT_DIR, "resume")
+    model, opt = init_train_state(cfg, tc, seed=seed, dtype=torch.float32, device="cuda")
+    for b in batches[:2]:
+        step(model, opt, *b)
+    save_train_state(ckpt, 2, model, opt)
+    for b in batches[2:]:
+        step(model, opt, *b)
+    fresh, fresh_opt = init_train_state(cfg, tc, seed=seed + 1, dtype=torch.float32,
+                                        device="cuda")
+    _, _, at = restore_train_state(ckpt, fresh, fresh_opt)
+    for b in batches[2:]:
+        step(fresh, fresh_opt, *b)
+    resume_err = max((p - q).abs().max().item() for p, q in
+                     zip(model.state_dict().values(), fresh.state_dict().values()))
+    check(at == 2 and resume_err <= 1e-6, f"resume: step {at}, parameters {resume_err}")
+    return {"step_loss_cuda_vs_cpu": loss_err, "step_params_cuda_vs_cpu": param_err,
+            "resume_max_abs_err": resume_err}
+
+
+def train_agent(seed: int) -> dict:
+    """The tiny agent trained on the card from the port's own init (f32, the
+    committed rows and recipe of ``tests/fixtures/tiny-agent-train.npz``),
+    written with ``save_checkpoint`` beside the fixture's config and
+    tokenizer, loaded as ``--checkpoint`` loads it, and run through the
+    port's agent loop with the replay kubectl (refusing any other
+    command): the memorized final answer, the tool run once."""
+    from argparse import Namespace
+
+    from opsagent_tpu_torch import tools as tool_pkg
+    from opsagent_tpu_torch.cli.main import install_checkpoint_stack
+    from opsagent_tpu_torch.models.loader import save_checkpoint
+    from opsagent_tpu_torch.serving import api
+    from opsagent_tpu_torch.tools.replay import NAMESPACES_SCRIPT, install_replay_kubectl
+    from opsagent_tpu_torch.training import TrainConfig, init_train_state, make_train_step
+
+    data = np.load(TRAIN_AGENT_DATA)
+    cfg = config_from_hf(AGENT_FIXTURE)
+    tc = TrainConfig(learning_rate=float(data["lr"]), weight_decay=float(data["weight_decay"]),
+                     remat=False)
+    model, opt = init_train_state(cfg, tc, seed=seed, dtype=torch.float32, device="cuda")
+    step = make_train_step(cfg, tc)
+    tokens = torch.from_numpy(data["tokens"]).cuda()
+    mask = torch.from_numpy(data["mask"]).cuda()
+    every, target = int(data["check_every"]), float(data["target_loss"])
+    t0 = time.perf_counter()
+    loss, steps = float("inf"), 0
+    for i in range(int(data["max_steps"])):
+        m = step(model, opt, tokens, mask)
+        steps = i + 1
+        if i % every == 0 or i == int(data["max_steps"]) - 1:
+            loss = float(m["loss"])
+            if loss < target:
+                break
+    train_s = time.perf_counter() - t0
+    check(loss < target, f"tiny agent training: loss {loss} after {steps} steps")
+    shutil.rmtree(TRAIN_AGENT_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_AGENT_DIR)
+    for f in ("config.json", "tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(AGENT_FIXTURE, f), TRAIN_AGENT_DIR)
+    save_checkpoint(os.path.join(TRAIN_AGENT_DIR, "model.safetensors"), model, cfg)
+    del model, opt
+
+    saved_tools = dict(tool_pkg.get_tools())
+    saved_env = {k: os.environ.get(k) for k in ("PATH", "OPSAGENT_CONVEYOR")}
+    ran: list[str] = []
+    try:
+        install_replay_kubectl(NAMESPACES_SCRIPT, os.path.join(TRAIN_AGENT_DIR, "bin"))
+        replay = tool_pkg.default_registry()["kubectl"]
+
+        def kubectl(cmd: str) -> str:
+            ran.append(cmd)
+            if cmd != AGENT_KUBECTL_CMD:
+                raise tool_pkg.ToolError(f"refused: {cmd}")
+            return replay(cmd)
+
+        tool_pkg.copilot_tools["kubectl"] = kubectl
+        reset_launch_counts()
+        install_checkpoint_stack(Namespace(model="cuda://tiny-agent-trained",
+                                           checkpoint=TRAIN_AGENT_DIR, device="cuda"))
+        try:
+            run = agent_run("cuda://tiny-agent-trained", AGENT_SYS_PROMPT,
+                            f"Here are the instructions: {AGENT_INSTRUCTION}", 256, 4, True)
+        finally:
+            stack = api._installed("tiny-agent-trained")
+            api.uninstall_stack("tiny-agent-trained")
+            if stack is not None:
+                stack.close()
+        launches = launch_counts()
+    finally:
+        tool_pkg.copilot_tools.clear()
+        tool_pkg.copilot_tools.update(saved_tools)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    final = json.loads(run["answer"]).get("final_answer")
+    check(final == AGENT_FINAL_ANSWER and ran == [AGENT_KUBECTL_CMD],
+          f"trained tiny agent: final {final!r}, ran {ran}")
+    check(launches["paged_ragged_attention"] > 0, f"trained tiny agent: launches {launches}")
+    return {"steps": steps, "final_loss": loss, "train_s": train_s,
+            "rows": list(data["tokens"].shape), "final_answer": final,
+            "agent_wall_s": run["wall_s"], "launches": launches}
+
+
+def phase_train(seed: int, smi: str) -> dict:
+    """The port's trainer on the card (``opsagent_tpu_torch/training``).
+
+    (a) bench-1b at full width and depth, bf16, remat on: ``TRAIN_STEPS``
+    steps on one fixed random batch of ``TRAIN_BATCH``: loss and grad norm
+    finite, the last loss below the first; the median step over steps
+    3-10, tokens/s, MFU as 6 · N · tokens over the step time at 989
+    TFLOP/s (N = ``num_params()``), peak GB.
+    (b) DeepSeek-V2-Lite's width cut to its dense layer and 2 MoE layers,
+    bf16, ``TRAIN_MOE_BATCH`` (T = 1024 tokens: the grouped dispatch):
+    ``TRAIN_MOE_STEPS`` steps, the balance loss finite and above 0, the
+    loss falling; then an MoE layer in the grouped form without drops
+    against the all-experts form (within 2e-2 of the output's scale), and
+    both forms' device ms at T = 1024 and 4096.
+    (c) tiny-test f32: a step on the card against the CPU, and a resume
+    from a checkpoint against the uninterrupted run.
+    (d) the tiny agent trained on the card, exported, loaded as
+    ``--checkpoint`` and run through the agent loop."""
+    from opsagent_tpu_torch.training import TrainConfig
+
+    out: dict = {"card": smi}
+    cfg = get_config_preset("bench-1b")
+    tc = TrainConfig(learning_rate=TRAIN_LR, remat=True)
+    r = train_run(cfg, tc, TRAIN_BATCH, TRAIN_STEPS, seed)
+    del r["model"], r["optimizer"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(x["ms"] for x in r["rows"][TRAIN_TIMED_FROM:])
+    tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    n = cfg.num_params()
+    out["bench_1b"] = {
+        "layers": cfg.num_layers, "params": n, "batch": list(TRAIN_BATCH), "remat": True,
+        "lr": TRAIN_LR, "step_ms_median": step_ms, "first_step_ms": r["rows"][0]["ms"],
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "mfu": 6 * n * tokens / (step_ms / 1e3) / PEAK_OPS[torch.bfloat16],
+        "peak_gb": r["peak_gb"], "loss": [x["loss"] for x in r["rows"]],
+        "grad_norm": [x["grad_norm"] for x in r["rows"]],
+    }
+
+    cfg = replace(DEEPSEEK_V2_LITE, num_layers=TRAIN_MOE_LAYERS)
+    r = train_run(cfg, tc, TRAIN_MOE_BATCH, TRAIN_MOE_STEPS, seed)
+    aux = [x["moe_aux"] for x in r["rows"]]
+    check(all(math.isfinite(a) and a > 0 for a in aux), f"V2-Lite training: moe_aux {aux}")
+    model = r.pop("model")
+    del r["optimizer"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer = model.layers[cfg.moe_layer_start]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 32)
+    forms = [moe_forms_ms(layer, cfg, T, gen) for T in (1024, 4096)]
+    for f in forms:
+        check(f["max_abs_err"] <= 2e-2 * f["max_abs"],
+              f"grouped vs all-experts at T={f['T']}: {f['max_abs_err']} of {f['max_abs']}")
+    del model, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(x["ms"] for x in r["rows"][1:])
+    out["v2_lite_cut"] = {
+        "layers": cfg.num_layers, "batch": list(TRAIN_MOE_BATCH), "step_ms_median": step_ms,
+        "loss": [x["loss"] for x in r["rows"]], "moe_aux": aux, "peak_gb": r["peak_gb"],
+        "moe_forms": forms,
+    }
+    out["resume"] = resume_check(seed)
+    out["tiny_agent"] = train_agent(seed)
+    out["launches"] = {name: out["tiny_agent"]["launches"].get(name, 0) for name in KERNELS}
+    shutil.rmtree(TRAIN_AGENT_DIR, ignore_errors=True)
+    return out
+
+
+# -- phase 10: speculative decoding (item 10) ---------------------------------------
+SPEC_K, SPEC_NGRAM = 4, 2
+SPEC_TOKENS = 128                  # each of four concurrent greedy completions
+SPEC_SPAN = 64                     # characters of a span each prompt repeats
+SPEC_F32_LAYERS = 2
+SPEC_F32_TOKENS = 64
+SPEC_KERNEL_STARTS = [1024, 377, 2048, 0, 3000, 511, 1500, 64]   # B = 8 rows
+
+
+def spec_bodies(gen: torch.Generator) -> list[dict]:
+    """Four greedy chat completions whose prompts repeat a span: the
+    continuation of a repeated span can be looked up in the prompt."""
+    bodies = []
+    for _ in range(4):
+        span = random_text(gen, SPEC_SPAN)
+        bodies.append({"messages": [{"role": "user",
+                                     "content": span * 3 + random_text(gen, 16) + span[:24]}],
+                       "max_tokens": SPEC_TOKENS, "temperature": 0})
+    return bodies
+
+
+def spec_ids(gen: torch.Generator, vocab: int) -> list[list[int]]:
+    """Token prompts with a repeated span, for ``Engine.generate``."""
+    out = []
+    for n in (40, 56, 72, 88):
+        span = torch.randint(0, vocab, (n,), generator=gen).tolist()
+        out.append(span * 3 + span[: n // 3])
+    return out
+
+
+def spec_counts(eng: Engine) -> tuple[int, ...]:
+    return (eng.spec_blocks, eng.spec_replays, eng.spec_eager_steps, eng.decode_replays,
+            eng.decode_eager_steps)
+
+
+def spec_serve(engine: Engine, bodies: list[dict], label: str) -> dict:
+    """``bodies`` as one concurrent batch through a ServingStack over the
+    warmed ``engine``: the replies, tokens/s over the batch's wall time,
+    the speculative blocks and iterations, the acceptance rate ((mean
+    tokens an iteration - 1) / k), no capture after warmup, no page owned
+    after."""
+    was, compiles = spec_counts(engine), obs.POST_WARMUP_COMPILES.value()
+    get_perf_stats().reset()
+    stack = ServingStack(engine)
+    try:
+        t0 = time.perf_counter()
+        replies = loop_batch(stack, bodies)
+        wall = time.perf_counter() - t0
+    finally:
+        stack.close()
+    with engine.lock:
+        engine.drain()
+    perf = get_perf_stats().get_stats()
+    blocks, replays, eager, dec_replays, dec_eager = (
+        n - w for n, w in zip(spec_counts(engine), was))
+    acct = engine.alloc.accounting()
+    check(obs.POST_WARMUP_COMPILES.value() == compiles, f"{label}: a capture after warmup")
+    check(eager == dec_eager == 0, f"{label}: eager steps {eager} / {dec_eager}")
+    check(acct["owned"] == 0, f"{label}: pages after the batch {acct}")
+    tokens = sum(r["usage"]["completion_tokens"] for r in replies)
+    out = {"replies": [r["choices"][0]["message"]["content"] for r in replies],
+           "completion_tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
+           "ttft_p50_s": statistics.median(r["ttft_s"] for r in replies),
+           "spec_blocks": blocks, "spec_iterations": replays, "decode_steps": dec_replays}
+    if engine.cfg.speculative_k:
+        check(blocks > 0 and replays > 0, f"{label}: {blocks} speculative blocks")
+        st = perf["engine.spec_step_tokens"]
+        out["tokens_per_iteration"] = st["avg"]
+        out["acceptance"] = (st["avg"] - 1) / engine.cfg.speculative_k
+    return out
+
+
+def verify_vs_decode_ms(model: Llama, backend: str, gen) -> dict:
+    """Device ms of one verify forward (B = 8 rows of k + 1 positions after
+    ~1,000-3,000 cached tokens) plus its argmax against one decode step
+    plus its argmax on the same rows, by CUDA graph replay, over a cache
+    of their own."""
+    B, P = len(SPEC_KERNEL_STARTS), 16
+    pages = [math.ceil((s + SPEC_K + 1) / P) for s in SPEC_KERNEL_STARTS]
+    cache = model.make_cache(sum(pages) + 1, P)
+    table = torch.full((B, max(pages)), -1, dtype=torch.int32, device="cuda")
+    at = 1
+    for b, n in enumerate(pages):
+        table[b, :n] = torch.arange(at, at + n, dtype=torch.int32)
+        at += n
+    start = torch.tensor(SPEC_KERNEL_STARTS, dtype=torch.int32, device="cuda")
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, SPEC_K + 1), generator=gen,
+                           device="cuda")
+    valid = torch.full((B,), SPEC_K + 1, dtype=torch.int32, device="cuda")
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    with torch.inference_mode():
+        out = {"verify_ms": graph_ms(lambda i: model.verify_step(
+                   tokens, start, valid, cache, table, backend=backend).argmax(-1),
+                   calls=5, replays=4),
+               "decode_ms": graph_ms(lambda i: model.decode_step(
+                   tokens[:, 0], start, cache, table, active, backend=backend).argmax(-1),
+                   calls=5, replays=4)}
+    del cache
+    return out
+
+
+def spec_kernels(seed: int) -> dict:
+    """The kernels at a verify chunk's shapes against their plain versions
+    (within 1e-2): the dma ragged kernel at bench-8b's width and the grid
+    one at Qwen2.5-7B's, B = 8 rows of q_len k + 1 = 5, bf16 and int8
+    pages, timed by graph replay beside their bound and SDPA; ``m128`` at
+    T = 8 x 5 = 40 (int8 and int4, bench-8b's wg/wu) beside cuBLAS."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    out: dict = {}
+    q_lens = [SPEC_K + 1] * len(SPEC_KERNEL_STARTS)
+    for wname, H, K, form in (("bench-8b", 32, 8, "dma"), ("qwen2.5-7b", 28, 4, "grid")):
+        c = make_case(gen, len(q_lens), SPEC_K + 1, H, K, 128, 16, SPEC_KERNEL_STARTS, q_lens,
+                      torch.bfloat16)
+        for suffix, case in (("", c), ("_int8", quantize_case(c))):
+            name = "paged_ragged_attention" + ("_grid" if form == "grid" else "") + suffix
+            case["bound"] = attention_bound_ms(case, 2)
+            case["sdpa"] = ragged_sdpa(case)
+            out[name] = {"width": wname, **run_kernel_case(name, case, torch.bfloat16, True)}
+            case.pop("sdpa")
+        del c
+        torch.cuda.empty_cache()
+    In, Out = MM_SHAPES["wg/wu"]
+    T = len(q_lens) * (SPEC_K + 1)
+    for mode, bits, group in MM_MODES[:2]:
+        w = quantized_weight(gen, In, Out, bits, group)
+        col = w.dequantize().norm(dim=0).mean().item()
+        x = (torch.randn(T, In, generator=gen, device="cuda") / col).to(torch.bfloat16)
+        got = qm.quant_matmul_cuda(x, w)
+        want = qm.quant_matmul_cuda(x, w, plain=True)
+        err = (got.float() - want.float()).abs()
+        tol = MM_TOL[torch.bfloat16]
+        check(bool((err <= tol + tol * want.float().abs()).all()),
+              f"m128 {mode} T={T}: max err {err.max().item()} beyond rtol=atol={tol}")
+        r = time_matmul(gen, w, x, bits, group)
+        check(r["instance"] == "m128", f"quant_matmul T={T}: instance {r['instance']}")
+        out[f"quant_matmul_int{bits} {mode}"] = {**r, "max_abs_err": err.max().item()}
+        del w, x, got, want, err
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_speculative(seed: int, smi: str) -> dict:
+    """Prompt-lookup speculative decoding on the card (``speculative_k`` =
+    ``SPEC_K``, ``speculative_ngram`` = ``SPEC_NGRAM``).
+
+    f32 at bench-8b's full width and ``SPEC_F32_LAYERS`` layers, one model:
+    ``Engine.generate`` over four prompts with repeated spans gives the
+    same greedy tokens speculating through the kernels (replayed), through
+    the plain path, and without speculation. bf16 at full depth on the dma
+    kernels, one model: a speculating engine replayed and one eager give
+    the same tokens; then four concurrent greedy completions of
+    ``SPEC_TOKENS`` tokens through a ServingStack with and without
+    speculation (tokens/s, TTFT, the acceptance rate, token agreement),
+    every step replayed, no capture after warmup; one verify forward's
+    device ms against one decode step's. The same serve with int8 weights.
+    Then ``spec_kernels``."""
+    out: dict = {"card": smi, "k": SPEC_K, "ngram": SPEC_NGRAM}
+    launches = {name: 0 for name in KERNELS}
+    gen = torch.Generator().manual_seed(seed + 41)
+    spec = dict(speculative_k=SPEC_K, speculative_ngram=SPEC_NGRAM)
+    greedy = SamplingParams(max_tokens=SPEC_F32_TOKENS)
+
+    cfg = replace(BENCH_8B, num_layers=SPEC_F32_LAYERS)
+    model = Llama(cfg, torch.float32, "cuda", seed=seed)
+    tokenizer = ByteTokenizer(cfg.vocab_size)
+    prompts = spec_ids(gen, cfg.vocab_size)
+    toks = {}
+    for label, kw in (("spec", spec), ("spec_plain", dict(spec, attn_impl="plain")),
+                      ("no_spec", {})):
+        eng = Engine(EngineConfig(model="bench-8b", dtype=torch.float32, device="cuda",
+                                  seed=seed, **kw), model_cfg=cfg, model=model,
+                     tokenizer=tokenizer)
+        eng.warmup()
+        was = spec_counts(eng)
+        toks[label] = eng.generate(prompts, greedy)
+        toks[label + "_counts"] = [n - w for n, w in zip(spec_counts(eng), was)]
+        del eng
+    check(toks["spec"] == toks["spec_plain"] == toks["no_spec"],
+          "f32: speculative tokens differ between the kernels, the plain path and no "
+          "speculation")
+    check(toks["spec_counts"][0] > 0 and toks["spec_counts"][1] > 0
+          and toks["spec_counts"][2] == 0 and toks["spec_plain_counts"][2] > 0,
+          f"f32: routes {toks['spec_counts']} / {toks['spec_plain_counts']}")
+    out["f32_2_layers"] = {"tokens_equal": True, "spec_blocks": toks["spec_counts"][0],
+                           "spec_iterations": toks["spec_counts"][1],
+                           "no_spec_decode_steps": toks["no_spec_counts"][3]}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for quantize in ("", "int8"):
+        label = f"bench-8b {quantize or 'bf16'}"
+        model = Llama(BENCH_8B, torch.bfloat16, "cuda", seed=seed, quantize=quantize)
+        tokenizer = ByteTokenizer(BENCH_8B.vocab_size)
+        line: dict = {"layers": BENCH_8B.num_layers, "quantize": quantize or "none"}
+
+        def engine(cuda_graphs=True, **kw):
+            eng = Engine(EngineConfig(model="bench-8b", dtype=torch.bfloat16, device="cuda",
+                                      seed=seed, quantize=quantize, cuda_graphs=cuda_graphs,
+                                      **kw),
+                         model_cfg=BENCH_8B, model=model, tokenizer=tokenizer)
+            eng.warmup()
+            return eng
+
+        if not quantize:
+            ids = spec_ids(gen, BENCH_8B.vocab_size)
+            replayed, eager = engine(**spec), engine(cuda_graphs=False, **spec)
+            a = replayed.generate(ids, SamplingParams(max_tokens=SPEC_F32_TOKENS))
+            b = eager.generate(ids, SamplingParams(max_tokens=SPEC_F32_TOKENS))
+            check(a == b and eager.spec_eager_steps > 0 and replayed.spec_replays > 0,
+                  f"{label}: speculative replay and eager differ")
+            line["replay_equals_eager"] = True
+            del replayed, eager
+            gc.collect()
+        bodies = spec_bodies(gen)
+        eng = engine(**spec)
+        reset_launch_counts()
+        line["spec"] = spec_serve(eng, bodies, f"{label} spec")
+        counts = launch_counts()
+        for name, c in counts.items():
+            launches[name] += c
+        check(counts["paged_ragged_attention"] > 0
+              and (not quantize or counts["quant_matmul_int8"] > 0),
+              f"{label}: launches {counts}")
+        line["launches"] = counts
+        del eng
+        gc.collect()
+        eng = engine()
+        line["no_spec"] = spec_serve(eng, bodies, f"{label} no spec")
+        del eng
+        gc.collect()
+        a, b = line["spec"].pop("replies"), line["no_spec"].pop("replies")
+        line["replies_equal_no_spec"] = sum(x == y for x, y in zip(a, b))
+        line["speedup"] = line["spec"]["tok_s"] / line["no_spec"]["tok_s"]
+        line.update(verify_vs_decode_ms(model, "dma", torch.Generator(device="cuda")
+                                        .manual_seed(seed + 42)))
+        out[label.replace(" ", "_")] = line
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["spec_kernels"] = spec_kernels(seed)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4089,7 +4645,8 @@ def main() -> int:
     for name, n in agent["launches"].items():
         launches[name] += n
 
-    for run in (phase_offload, phase_snapshot, phase_autoscale, phase_fleet, phase_prefill_lane):
+    for run in (phase_offload, phase_snapshot, phase_autoscale, phase_fleet, phase_prefill_lane,
+                phase_train, phase_speculative):
         t = time.perf_counter()
         out = run(args.seed, smi)
         gc.collect()

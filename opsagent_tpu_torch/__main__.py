@@ -105,6 +105,13 @@ def main(argv: list[str] | None = None) -> int:
              "half the KV bytes of bf16",
     )
     se.add_argument(
+        "--speculative-k", type=int, default=0,
+        help="prompt-lookup speculative decoding: draft k tokens a decode "
+             "iteration from the sequence's own history and verify them in "
+             "one forward (greedy blocks only, exact there); pays on "
+             "repetitive outputs. 0 disables",
+    )
+    se.add_argument(
         "--async-depth", type=int, default=2,
         help="mixed ticks enqueued ahead of their commit: 2 (the default) "
              "enqueues tick t+1 before tick t's tokens are pulled; 1 serves "
@@ -217,6 +224,7 @@ def main(argv: list[str] | None = None) -> int:
     snc.add_argument("--paged-backend", default="dma", choices=("dma", "grid"))
     snc.add_argument("--quantize", default="", choices=("", "int8", "int4"))
     snc.add_argument("--kv-quantize", default="", choices=("", "int8"))
+    snc.add_argument("--speculative-k", type=int, default=0)
     snc.add_argument("--offload", action="store_true")
     snc.add_argument("--async-depth", type=int, default=2)
     snv = snsub.add_parser(
@@ -269,7 +277,7 @@ def _snapshot(args: argparse.Namespace) -> int:
         device=args.device, seed=args.seed, max_batch_size=args.max_batch_size,
         paged_backend=args.paged_backend, quantize=args.quantize,
         kv_quantize=args.kv_quantize, offload=args.offload,
-        async_depth=args.async_depth,
+        async_depth=args.async_depth, speculative_k=args.speculative_k,
     ))
     # Warm first: the kernel libraries the snapshot carries are built.
     engine.warmup()
@@ -301,7 +309,7 @@ def _serve(args: argparse.Namespace) -> int:
             seed=args.seed, quantize=args.quantize, kv_quantize=args.kv_quantize,
             paged_backend=args.paged_backend, async_depth=args.async_depth,
             offload=args.offload, host_pool_bytes=args.host_pool_bytes,
-            offload_copy_pages=args.offload_copy_pages,
+            offload_copy_pages=args.offload_copy_pages, speculative_k=args.speculative_k,
         ))
     # Kernels built and the steps captured before the scheduler thread and
     # the HTTP server start: a capture is process-wide.

@@ -26,8 +26,13 @@ Entry points over the same weights:
   ragged contract with ``q_lens = lengths``), through the same ragged
   kernel; ``prefill``: JAX's fresh-prompt form over the fresh K/V, plain
   PyTorch, which the engine does not call;
+- ``verify_step``: a speculative draft chunk per row over the paged cache,
+  through the same ragged kernel, with the logits of every chunk position;
 - ``forward_full``: all positions, plain causal attention, no cache (the
-  oracle).
+  oracle and the training loss path, with ``remat`` to recompute each
+  layer's activations in the backward). A MoE layer there switches to the
+  capacity-bucketed grouped dispatch (``_moe_grouped_dispatch``) once a
+  forward holds ``grouped_dispatch_min_tokens`` tokens, as JAX's does.
 
 With ``quantize="int8"`` or ``"int4"`` every projection, each expert's
 and the lm_head are ``models.quant`` weights, and ``_mm`` sends them
@@ -38,11 +43,13 @@ head) scales, which the attention kernels read (not with MLA, as in JAX).
 
 from __future__ import annotations
 
+import math
 from functools import partial
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.attention import (
@@ -104,6 +111,16 @@ def _mm(x: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
         y = quant_matmul_cuda(x.reshape(-1, x.shape[-1]), w, plain=plain)
         return y.reshape(*x.shape[:-1], y.shape[-1])
     return x @ w
+
+
+def _ein(x: torch.Tensor, w) -> torch.Tensor:
+    """Batched expert product ``[E, C, in] @ [E, in, out]`` (JAX's ``_ein``):
+    a quantized stack is dequantized to x's dtype first. JAX keeps stacked
+    leaves on XLA, never on its quantized matmul kernel, so this is plain
+    PyTorch on the card too."""
+    if isinstance(w, QuantizedBase):
+        w = w.dequantize().to(x.dtype)
+    return torch.bmm(x, w)
 
 
 def _dense_weight(w) -> torch.Tensor:
@@ -428,17 +445,18 @@ class DecoderLayer(nn.Module):
         self, h: torch.Tensor, cfg: ModelConfig, plain: bool = False,
         with_aux: bool = False,
     ) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """JAX's ``_moe_mlp`` in its all-experts form (the one its engine
-        serves with): f32 router logits, softmax or sigmoid scores,
+        """JAX's ``_moe_mlp``: f32 router logits, softmax or sigmoid scores,
         ``router_bias`` added for selection only, group-limited top-k
         (groups ranked by their top-2 sum under sigmoid, their max under
         softmax), combine weights renormalized and scaled per the config,
         every expert over every token weighted by its combine weight and
-        summed in expert order, plus the shared experts. Returns (output,
-        Switch balance loss or None). bf16/f32 experts run as batched
-        products over the stacked weights; quantized ones one 2-D slice a
-        call through ``_mm``. No step here reads the device from the host,
-        so the form runs inside a captured graph."""
+        summed in expert order (the all-experts form the engines serve
+        with) or, from ``grouped_dispatch_min_tokens`` tokens on, the
+        grouped dispatch; plus the shared experts. Returns (output, Switch
+        balance loss or None). bf16/f32 experts run as batched products
+        over the stacked weights; quantized ones, in the all-experts form,
+        one 2-D slice a call through ``_mm``. No step here reads the device
+        from the host, so the form runs inside a captured graph."""
         m = cfg.moe
         E, k = m.num_experts, m.num_experts_per_token
         B, S, d = h.shape
@@ -471,7 +489,9 @@ class DecoderLayer(nn.Module):
             f_e = (sel / k).mean(dim=(0, 1))
             aux = E * (f_e * probs.mean(dim=(0, 1))).sum()
         T, x = B * S, h.reshape(B * S, d)
-        if isinstance(self.eg, QuantizedBase):
+        if 0 < m.grouped_dispatch_min_tokens <= T:
+            out = self._moe_grouped_dispatch(x, cfg, vals.reshape(T, k), idx.reshape(T, k))
+        elif isinstance(self.eg, QuantizedBase):
             # JAX's scan: one expert at a time into an h.dtype accumulator.
             combine = torch.zeros_like(probs).scatter_(-1, idx, vals)
             combine = combine.view(T, E).T.to(h.dtype)                # [E, T]
@@ -499,6 +519,40 @@ class DecoderLayer(nn.Module):
                 F.silu(_mm(h, self.sg, plain)) * _mm(h, self.su, plain), self.sd, plain
             )
         return out, aux
+
+    def _moe_grouped_dispatch(
+        self, x: torch.Tensor, cfg: ModelConfig, vals: torch.Tensor, idx: torch.Tensor,
+    ) -> torch.Tensor:
+        """JAX's ``_moe_grouped_dispatch`` over tokens ``x`` [T, d] with
+        combine weights ``vals`` and expert ids ``idx`` [T, k]: each (token,
+        choice) assignment takes the next slot of its expert's queue of C =
+        max(1, min(T, ceil(T·k/E · capacity_factor))) slots, counted in
+        token-major order; the experts run as three batched products over
+        [E, C, d]; each assignment's output comes back weighted by its
+        combine weight, and a token's k terms are summed in choice order.
+        An assignment past its expert's capacity is dropped: it is copied
+        to a sentinel row E·C that is cut off, and adds nothing. Every step
+        is differentiable (training runs it), and none reads the device
+        from the host."""
+        m = cfg.moe
+        E, k = m.num_experts, m.num_experts_per_token
+        T, d = x.shape
+        C = max(1, min(T, math.ceil(T * k / E * m.capacity_factor)))
+        flat_e = idx.reshape(T * k)
+        flat_w = vals.reshape(T * k).to(x.dtype)
+        # [T*k, E] by comparison: F.one_hot checks its range on the host.
+        onehot = (flat_e[:, None] == torch.arange(E, device=x.device)).long()
+        pos = ((onehot.cumsum(0) - 1) * onehot).sum(-1)                 # slot in queue
+        keep = pos < C
+        dest = torch.where(keep, flat_e * C + pos, E * C)
+        src = x.repeat_interleave(k, dim=0)                             # token-major
+        disp = x.new_zeros(E * C + 1, d).index_copy(0, dest, src)[: E * C].view(E, C, d)
+        up = F.silu(_ein(disp, self.eg)) * _ein(disp, self.eu)
+        y = _ein(up, self.ed).reshape(E * C, d)
+        per_pair = torch.where(
+            keep[:, None], y[torch.where(keep, dest, 0)], x.new_zeros(())
+        ) * flat_w[:, None]
+        return per_pair.view(T, k, d).sum(1)
 
 
 class Llama(nn.Module):
@@ -606,24 +660,42 @@ class Llama(nn.Module):
             positions, self.cfg.rope_dim_, self.cfg.rope_theta, self.cfg.rope_scaling
         )
 
+    def _layer(
+        self, layer: DecoderLayer, li: int, x: torch.Tensor, attn_fn, plain: bool,
+        with_aux: bool,
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """One layer's body: (hidden states after it, its MoE balance loss
+        or None)."""
+        eps = self.cfg.rms_norm_eps
+        h = rms_norm(x, layer.attn_norm, eps)
+        x = x + _mm(attn_fn(h, layer, li), layer.wo, plain)
+        h = rms_norm(x, layer.mlp_norm, eps)
+        if layer.moe:
+            y, aux = layer.moe_mlp(h, self.cfg, plain, with_aux)
+        else:
+            y, aux = layer.mlp(h, plain), None
+        return x + y, aux
+
     def _run_stack(
         self, x: torch.Tensor, attn_fn, plain: bool, with_aux: bool = False,
+        remat: bool = False,
     ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The layers in order, dense then MoE: (hidden states, summed MoE
-        balance loss, or None without ``with_aux``)."""
-        eps = self.cfg.rms_norm_eps
+        balance loss, or None without ``with_aux``). ``remat`` runs each
+        layer under activation checkpointing (JAX's ``jax.checkpoint`` of
+        the scanned body): the backward recomputes the layer's activations
+        instead of keeping them."""
         aux = None
         for li, layer in enumerate(self.layers):
-            h = rms_norm(x, layer.attn_norm, eps)
-            x = x + _mm(attn_fn(h, layer, li), layer.wo, plain)
-            h = rms_norm(x, layer.mlp_norm, eps)
-            if layer.moe:
-                y, layer_aux = layer.moe_mlp(h, self.cfg, plain, with_aux)
-                if with_aux:
-                    aux = layer_aux if aux is None else aux + layer_aux
+            if remat:
+                x, layer_aux = checkpoint(
+                    self._layer, layer, li, x, attn_fn, plain, with_aux,
+                    use_reentrant=False,
+                )
             else:
-                y = layer.mlp(h, plain)
-            x = x + y
+                x, layer_aux = self._layer(layer, li, x, attn_fn, plain, with_aux)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
         if with_aux and aux is None:
             aux = x.new_zeros((), dtype=torch.float32)
         return x, aux
@@ -634,10 +706,13 @@ class Llama(nn.Module):
             return (x @ self.embed.T.to(x.dtype)).float()
         return _mm(x, self.lm_head, plain).float()
 
-    def forward_full(self, tokens: torch.Tensor, return_aux: bool = False):
+    def forward_full(
+        self, tokens: torch.Tensor, return_aux: bool = False, remat: bool = False,
+    ):
         """All-positions logits [B, S, V] f32: plain causal attention over
         the fresh sequence, no cache (MLA materialized). ``return_aux``
-        also returns the summed MoE balance loss (0 for dense models)."""
+        also returns the summed MoE balance loss (0 for dense models);
+        ``remat`` checkpoints each layer (the training step's option)."""
         B, S = tokens.shape
         pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
         cos, sin = self._rope(pos)
@@ -647,7 +722,7 @@ class Llama(nn.Module):
             return causal_prefill_attention(q, k, v).reshape(B, S, -1)
 
         x, aux = self._run_stack(
-            self.embed[tokens].to(self.dtype), attn_fn, True, return_aux
+            self.embed[tokens].to(self.dtype), attn_fn, True, return_aux, remat
         )
         logits = self._lm_head(x, True)
         return (logits, aux) if return_aux else logits
@@ -695,14 +770,14 @@ class Llama(nn.Module):
         last = (lengths.long() - 1).clamp(0, S - 1)
         return self._lm_head(x[torch.arange(B, device=x.device), last], True)
 
-    def _paged_forward(
+    def _paged_hidden(
         self, tokens: torch.Tensor, start: torch.Tensor, q_lens: torch.Tensor,
         cache: PagedKVCache, page_table: torch.Tensor, plain: bool, attention,
     ) -> torch.Tensor:
         """Ragged rows over the paged cache: each row's valid K/V (or latent)
         written at ``start``, ``attention(q, k_pages, v_pages, page_table,
-        start, q_lens, plain=...)`` over the pages, and the logits of each
-        row's last valid position [B, V] f32."""
+        start, q_lens, plain=...)`` over the pages; the final hidden states
+        [B, S, d] before the last norm."""
         B, S = tokens.shape
         pos = start.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
         cos, sin = self._rope(pos)
@@ -731,8 +806,41 @@ class Llama(nn.Module):
             return attn.reshape(B, S, -1)
 
         x, _ = self._run_stack(self.embed[tokens].to(self.dtype), attn_fn, plain)
+        return x
+
+    def _paged_forward(
+        self, tokens: torch.Tensor, start: torch.Tensor, q_lens: torch.Tensor,
+        cache: PagedKVCache, page_table: torch.Tensor, plain: bool, attention,
+    ) -> torch.Tensor:
+        """``_paged_hidden``, then the logits of each row's last valid
+        position [B, V] f32."""
+        x = self._paged_hidden(tokens, start, q_lens, cache, page_table, plain, attention)
+        S = tokens.shape[1]
         last = (q_lens.long() - 1).clamp(0, S - 1)
-        return self._lm_head(x[torch.arange(B, device=x.device), last], plain)
+        return self._lm_head(x[torch.arange(x.shape[0], device=x.device), last], plain)
+
+    def verify_step(
+        self,
+        tokens: torch.Tensor,       # [B, S] int draft-chunk inputs
+        start: torch.Tensor,        # [B] int32 write offsets
+        valid: torch.Tensor,        # [B] int32 valid chunk lengths
+        cache: PagedKVCache,
+        page_table: torch.Tensor,   # [B, MaxP] int32
+        plain: bool = False,
+        backend: str = "dma",
+    ) -> torch.Tensor:
+        """JAX's ``verify_step``, the speculative verify forward: each
+        row's S-token draft chunk in one pass over the paged cache, its
+        valid K/V (or latent) written at ``start``, attention through the
+        ``backend``'s ragged kernel as ``prefill_with_prefix``'s. Returns
+        the logits of every chunk position [B, S, V] f32: position j's
+        argmax is the model's greedy token after the chunk's first j + 1
+        inputs. Rejected positions' K/V is overwritten later, since the
+        write offset advances by the accepted count only; positions past
+        ``valid`` write nothing and their logits are not read."""
+        attention = partial(paged_prefix_attention, backend=backend)
+        x = self._paged_hidden(tokens, start, valid, cache, page_table, plain, attention)
+        return self._lm_head(x, plain)
 
     def prefill_with_prefix(
         self,

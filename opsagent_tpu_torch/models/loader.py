@@ -17,11 +17,15 @@ the DeepSeek names (``mlp.gate.weight`` router, kept f32, with
 interleaved pairs to the half-split order ``apply_rope`` uses, and
 ``o_proj`` expanded to per-head rows over the padded head dim (pad rows 0).
 
-The format is read here, without the ``safetensors`` package (the machine
-beside the card has none): an 8-byte little-endian header length, a JSON
-header of ``{name: {dtype, shape, data_offsets}}``, then the raw tensor
-bytes, mapped with ``numpy.memmap``. F32, F16 and BF16 are read; BF16 as
-uint16 viewed as ``torch.bfloat16``.
+The format is read and written here, without the ``safetensors`` package
+(the machine beside the card has none): an 8-byte little-endian header
+length, a JSON header of ``{name: {dtype, shape, data_offsets}}``, then the
+raw little-endian tensor bytes, mapped with ``numpy.memmap``. F32, F16 and
+BF16 are read; BF16 as uint16 viewed as ``torch.bfloat16``.
+``save_checkpoint`` writes a model back out under the names JAX's
+``save_checkpoint`` writes (the inverse of the load, the MLA split
+included), so a trained or fine-tuned port model serves from
+``--checkpoint`` and loads in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ _DTYPES = {
     "F16": (np.float16, torch.float16),
     "BF16": (np.uint16, torch.bfloat16),
 }
+_NAMES = {dtype: (name, np_dtype) for name, (np_dtype, dtype) in _DTYPES.items()}
 
 # Port name -> HF name, per layer ({} = layer index).
 _LAYER_NAMES = {
@@ -247,3 +252,112 @@ def load_checkpoint(
     if quantize:
         state = quantize_params(state, quantize)
     return {k: t.to(device) for k, t in state.items()}
+
+
+def write_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> None:
+    """Write ``tensors`` as one ``.safetensors`` file: the header (padded
+    with spaces to 8 bytes, as the format's writers pad it), then each
+    tensor's little-endian bytes in the header's order."""
+    header: dict[str, dict] = {"__metadata__": {"format": "pt"}}
+    blobs, offset = [], 0
+    for name, t in tensors.items():
+        if t.dtype not in _NAMES:
+            raise CheckpointError(f"tensor {name} has dtype {t.dtype}; the writer takes "
+                                  f"{sorted(_DTYPES)}")
+        code, _ = _NAMES[t.dtype]
+        t = t.detach().to("cpu").contiguous()
+        a = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+        raw = a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": code, "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def _mla_names(cfg: ModelConfig, i: int, get) -> dict[str, torch.Tensor]:
+    """Layer i's MLA attention leaves under HF's names (the inverse of
+    ``_mla_layer``): the rope columns back to HF's interleaved order,
+    ``wdkv`` and ``wkr`` joined into ``kv_a_proj_with_mqa``, ``wo``'s pad
+    rows cut."""
+    m = cfg.mla
+    H = cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    dq = dn + dr
+    inv = torch.argsort(_rope_interleave_to_halfsplit(dr))
+    names = dict(_MLA_NAMES)
+    if m.q_lora_rank:
+        names.update(_MLA_LOW_RANK_Q_NAMES)
+    out = {}
+    for key, fmt in names.items():
+        t = get(key)
+        out[fmt.format(i)] = t.T if t.ndim == 2 else t
+    q_key, q_name = ("wuq", "q_b_proj") if m.q_lora_rank else ("wq", "q_proj")
+    w = get(q_key)
+    w = w.reshape(w.shape[0], H, dq)
+    w = torch.cat([w[..., :dn], w[..., dn:][..., inv]], dim=-1).reshape(w.shape[0], H * dq)
+    out[f"model.layers.{i}.self_attn.{q_name}.weight"] = w.T
+    out[f"model.layers.{i}.self_attn.kv_a_proj_with_mqa.weight"] = torch.cat(
+        [get("wdkv"), get("wkr")[:, inv]], dim=1).T
+    wo = get("wo")
+    out[f"model.layers.{i}.self_attn.o_proj.weight"] = (
+        wo.reshape(H, dq, -1)[:, :dv].reshape(H * dv, -1).T)
+    return out
+
+
+def save_checkpoint(
+    path: str, state: dict[str, torch.Tensor] | torch.nn.Module, cfg: ModelConfig,
+) -> None:
+    """Write a full-precision ``Llama`` (or its state dict) as one HF-named
+    safetensors file at ``path``, each tensor in its own dtype: the names
+    JAX's ``save_checkpoint`` writes (llama and DeepSeek MoE naming, the
+    MLA split), matrices transposed back to HF's ``[out, in]``. It loads in
+    the port's ``load_checkpoint`` and in JAX's to the same parameters."""
+    if isinstance(state, torch.nn.Module):
+        state = state.state_dict()
+    if any(k.endswith((".q", ".scale")) for k in state):
+        raise CheckpointError("save_checkpoint writes full-precision weights only")
+
+    def layer_get(i: int):
+        return lambda key: state[f"layers.{i}.{key}"]
+
+    attn_names = {k: v for k, v in _LAYER_NAMES.items() if k not in _DENSE_MLP_NAMES}
+    if cfg.attn_bias:
+        attn_names.update(_BIAS_NAMES)
+    if cfg.qk_norm:
+        attn_names.update(_QK_NORM_NAMES)
+    dense = cfg.moe_layer_start if cfg.moe is not None else cfg.num_layers
+    flat: dict[str, torch.Tensor] = {}
+    for i in range(cfg.num_layers):
+        get = layer_get(i)
+        names = {} if cfg.mla is not None else dict(attn_names)
+        if cfg.mla is not None:
+            flat.update(_mla_names(cfg, i, get))
+        if i < dense:
+            names.update(_DENSE_MLP_NAMES)
+        elif cfg.moe.num_shared_experts:
+            names.update(_SHARED_NAMES)
+        for key, fmt in names.items():
+            t = get(key)
+            flat[fmt.format(i)] = t.T if t.ndim == 2 else t
+        if i < dense:
+            continue
+        if cfg.moe.scoring_func == "sigmoid":
+            flat[f"model.layers.{i}.mlp.gate.e_score_correction_bias"] = get("router_bias")
+        flat[f"model.layers.{i}.mlp.gate.weight"] = get("router").T
+        for key, fmt in _EXPERT_NAMES.items():
+            stacked = get(key)
+            for e in range(stacked.shape[0]):
+                flat[fmt.format(i, e)] = stacked[e].T
+    flat["model.embed_tokens.weight"] = state["embed"]
+    flat["model.norm.weight"] = state["final_norm"]
+    if not cfg.tie_embeddings:
+        flat["lm_head.weight"] = state["lm_head"].T
+    write_safetensors(path, flat)

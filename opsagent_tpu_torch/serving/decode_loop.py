@@ -25,6 +25,13 @@ over a ``MixedState``, one per query-axis bucket (JAX's mixed programs, one
 per bucket); its sampling tail, ``pick_rows``, also picks the first token of
 a split-lane prefill chunk (``Engine.prefill_batch``).
 
+``speculative_step_body`` is the greedy block's speculative iteration
+(JAX's ``speculative_block_carry`` scan body): prompt-lookup drafts
+(``ngram_draft``) verified in one ``Llama.verify_step``, 1 to k + 1 tokens
+a row, over a ``SpecState`` beside the ``DecodeState`` whose carry it
+shares; ``speculative_block`` drives it as ``decode_block`` drives the
+decode step.
+
 ``record_dispatch`` and ``record_mixed_dispatch`` are the host-side
 telemetry of one block call and one mixed tick (JAX's names): the engine
 calls them around the drivers, never inside a body.
@@ -527,6 +534,166 @@ def pick_rows(
         extras.mixed_lp_top.copy_(top)
         extras.count(tok, emits)
     return tok
+
+
+# -- speculative decoding (prompt lookup, JAX's ngram_draft and
+#    speculative_block_carry) ----------------------------------------------
+def ngram_draft(
+    hist: torch.Tensor,     # [B, H] token history (prompt + accepted tokens)
+    at: torch.Tensor,       # [B] written-token counts (hist[:, :at] is real)
+    tok: torch.Tensor,      # [B] next input token (not yet in hist)
+    k: int,                 # draft length
+    ngram: int,             # match length, tok its last item
+) -> torch.Tensor:
+    """Prompt-lookup drafting on the device: the last earlier occurrence of
+    each row's trailing ``ngram`` (history tail + ``tok``) and the k tokens
+    that followed it [B, k], or -1 where none is found (a -1 draft never
+    matches the model's pick, so it fails verification). The candidate
+    must end strictly before the tail itself, and its k tokens must be
+    written history."""
+    B, H = hist.shape
+    g = ngram
+    iota_g = torch.arange(g, device=hist.device)
+    gpos = at.long()[:, None] - (g - 1) + iota_g[None, :]
+    gram = hist.gather(1, gpos.clamp(0, H - 1))
+    gram = torch.cat([gram[:, :-1], tok.to(hist.dtype)[:, None]], dim=1)
+    W = H - g + 1
+    eq = torch.ones((B, W), dtype=torch.bool, device=hist.device)
+    for i in range(g):
+        eq &= hist[:, i: W + i] == gram[:, i: i + 1]
+    jpos = torch.arange(W, device=hist.device)[None, :]
+    ok = eq & (jpos + g + k - 1 <= at.long()[:, None] - 1)
+    j = torch.where(ok, jpos, -1).amax(dim=1)
+    dpos = j[:, None] + g + torch.arange(k, device=hist.device)[None, :]
+    draft = hist.gather(1, dpos.clamp(0, H - 1))
+    return torch.where(j[:, None] >= 0, draft, -1)
+
+
+@dataclass
+class SpecState(StaticBuffers):
+    """The speculative block's buffers beside a ``DecodeState``, whose
+    ``tok``, ``at``, ``eos``, ``act``, ``budgets``, ``page_table`` and
+    ``step`` it shares: so a row's carry passes between speculative and
+    plain blocks on the device, as JAX's one carry does."""
+
+    hist: torch.Tensor        # [B, H + 1] int64 each row's tokens by position;
+                              # column H takes the writes JAX drops
+    emitted: torch.Tensor     # [B] int32 tokens emitted in this block
+    out: torch.Tensor         # [B, n_steps, k + 1] int64, pad past each count
+    counts: torch.Tensor      # [B, n_steps] int32 tokens each step emitted
+
+    @classmethod
+    def empty(
+        cls, batch: int, history: int, n_steps: int, k: int, device: torch.device,
+    ) -> SpecState:
+        return cls(
+            hist=torch.zeros((batch, history + 1), dtype=torch.long, device=device),
+            emitted=torch.zeros((batch,), dtype=torch.int32, device=device),
+            out=torch.zeros((batch, n_steps, k + 1), dtype=torch.long, device=device),
+            counts=torch.zeros((batch, n_steps), dtype=torch.int32, device=device),
+        )
+
+    @property
+    def k(self) -> int:
+        return self.out.shape[2] - 1
+
+    def load(self, history: dict[int, list[int]]) -> None:
+        """Start a block: no token emitted yet, and each row in ``history``
+        (the rows the host seats now: JAX's override rows) gets its tokens
+        by position; every other row keeps the history it carries."""
+        self.emitted.zero_()
+        if not history:
+            return
+        H = self.hist.shape[1] - 1
+        rows = np.fromiter(history, np.int64, len(history))
+        ids = np.zeros((len(rows), H + 1), np.int64)
+        for n, row in enumerate(rows):
+            toks = history[int(row)][:H]
+            ids[n, : len(toks)] = toks
+        self.hist.index_copy_(0, self._staged(rows, self.hist),
+                              self._staged(ids, self.hist))
+
+
+def speculative_step_body(
+    model: Llama,
+    state: DecodeState,
+    spec: SpecState,
+    cache: PagedKVCache,
+    eos_id: int,
+    pad_id: int,
+    ngram: int,
+    plain: bool = False,
+    backend: str = "dma",
+) -> None:
+    """One greedy speculative iteration over ``state`` and ``spec``, in place
+    (JAX's ``speculative_block_carry`` scan body): draft k tokens from each
+    row's history (``ngram_draft``), verify [tok, draft] in one
+    ``Llama.verify_step`` over min(k + 1, tokens left) positions, and emit
+    the longest accepted prefix of the draft plus the model's own next
+    token, stopping after an EOS and at the row's budget: 1 to k + 1
+    tokens a row per weight stream. The accepted inputs join the history,
+    the write offset advances by the count (a rejected position's K/V is
+    overwritten later), and column ``state.step`` of ``spec.out`` and
+    ``spec.counts`` get the step's tokens and counts. No host sync."""
+    s, k = state, spec.k
+    iota = torch.arange(k + 1, device=s.tok.device)[None, :]
+    rem = s.budgets - spec.emitted
+    hist = spec.hist[:, :-1]
+    draft = ngram_draft(hist, s.at, s.tok, k, ngram)
+    inputs = torch.cat([s.tok[:, None], draft], dim=1)               # [B, k+1]
+    valid = torch.where(s.act, rem.clamp(max=k + 1), 0).to(torch.int32)
+    logits = model.verify_step(inputs, s.at, valid, cache, s.page_table, plain, backend)
+    a = logits.argmax(dim=-1)                                        # [B, k+1]
+    ones = torch.ones_like(a[:, :1])
+    can = torch.cat([ones, (draft == a[:, :k]).long().cumprod(1)], dim=1)
+    no_eos_before = torch.cat([ones, (a[:, :k] != eos_id).long()], dim=1).cumprod(1)
+    emit = ((can * no_eos_before) > 0) & (iota < rem[:, None]) & s.act[:, None]
+    n_emit = emit.sum(1, dtype=torch.int32)
+    # The accepted inputs land in the history at at .. at + n_emit - 1;
+    # the rest at the scratch column, as JAX drops them.
+    H = hist.shape[1]
+    wpos = s.at.long()[:, None] + iota
+    spec.hist.scatter_(1, torch.where((iota < n_emit[:, None]) & (wpos < H), wpos, H),
+                       inputs)
+    spec.out.index_copy_(1, s.step.view(1), torch.where(emit, a, pad_id)[:, None])
+    spec.counts.index_copy_(1, s.step.view(1), n_emit[:, None])
+    last = a.gather(1, (n_emit.long() - 1).clamp(0, k)[:, None])[:, 0]
+    s.eos.logical_or_((emit & (a == eos_id)).any(1))
+    s.tok.copy_(torch.where(n_emit > 0, last, s.tok))
+    s.at.add_(n_emit)
+    spec.emitted.add_(n_emit)
+    s.act.logical_and_(~s.eos & (spec.emitted < s.budgets))
+    s.step.add_(1)
+
+
+def speculative_block(
+    state: DecodeState,
+    spec: SpecState,
+    step: Callable[[], None],
+    tokens: np.ndarray,
+    write_at: np.ndarray,
+    active: np.ndarray,
+    budgets: np.ndarray,
+    page_table: np.ndarray,
+    n_steps: int,
+    history: dict[int, list[int]],
+    override: np.ndarray | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Load a greedy block (``DecodeState.load``, with ``override`` the carry
+    form, and ``SpecState.load`` with the seated rows' ``history``) and run
+    ``step`` (the speculative body or its graph's replay) ``n_steps``
+    times. Returns the tokens [B, n_steps, k + 1] and each step's counts
+    [B, n_steps] on the device."""
+    if not 0 < n_steps <= spec.out.shape[1]:
+        raise ValueError(f"n_steps={n_steps}: the block holds 1..{spec.out.shape[1]}")
+    B = len(tokens)
+    greedy = np.zeros(B, np.float32)
+    state.load(tokens, write_at, active, budgets, page_table, greedy,
+               np.zeros(B, np.int32), np.ones(B, np.float32), override=override)
+    spec.load(history)
+    for _ in range(n_steps):
+        step()
+    return spec.out[:, :n_steps], spec.counts[:, :n_steps]
 
 
 # -- host-side dispatch telemetry (JAX decode_loop.py's record_dispatch) ------

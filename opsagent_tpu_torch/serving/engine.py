@@ -98,7 +98,16 @@ lock. ``snapshot`` and ``from_snapshot``
 leaf layout and the built kernel libraries, so that a restored engine runs
 no ``nvcc``; warmup recaptures the graphs.
 
-No speculation in this port yet.
+Speculative decoding (``EngineConfig.speculative_k`` > 0, JAX's
+prompt-lookup speculation, off by default as there): a block whose rows
+are all greedy, none constrained and none with the sampler extras runs
+``decode_loop.speculative_step_body`` in place of the decode step, each
+iteration drafting k tokens from the row's own history and verifying
+them in one ``Llama.verify_step`` through the ragged kernel, so a weight
+stream emits 1 to k + 1 tokens a row. It is captured and replayed like
+the decode step, shares its loop state (a row's carry passes between
+speculative and plain blocks on the card) and gives the same greedy
+tokens. Any other block decodes as before.
 """
 
 from __future__ import annotations
@@ -133,6 +142,7 @@ from .decode_loop import (
     FsmTables,
     MixedState,
     SamplingExtras,
+    SpecState,
     decode_block,
     decode_step_body,
     from_host,
@@ -141,6 +151,8 @@ from .decode_loop import (
     record_dispatch,
     record_ffwd_append,
     record_mixed_dispatch,
+    speculative_block,
+    speculative_step_body,
     to_host,
 )
 from .kvcache import InvalidRequest, OutOfPages, PageAllocator
@@ -261,6 +273,14 @@ class EngineConfig:
     offload_copy_pages: int = 8
     # Host pool byte bound; 0 = $OPSAGENT_KV_HOST_POOL_BYTES or 1 GiB.
     host_pool_bytes: int = 0
+    # Speculative decoding (prompt lookup): draft this many tokens an
+    # iteration from the row's own history (the last earlier occurrence of
+    # its trailing speculative_ngram tokens) and verify them in one forward,
+    # 1 to k + 1 tokens a weight stream. Greedy blocks only, exact there;
+    # 0 = off, the JAX engine's default (its lookups hit rarely on the
+    # agent workload: speculation pays on repetitive continuations).
+    speculative_k: int = 0
+    speculative_ngram: int = 2
 
 
 @dataclass
@@ -464,6 +484,19 @@ class Engine:
         self.pipelined_blocks = 0
         # Split-lane chunk dispatches (``prefill_batch``).
         self.prefill_dispatches = 0
+        # Speculative blocks: iterations sized so that a block whose every
+        # draft is accepted emits decode_block tokens (JAX's _spec_steps);
+        # the drafting history is a row's tokens by position over the whole
+        # window. Blocks run, and iterations replayed and run eagerly.
+        self._spec_steps = max(1, cfg.decode_block // (cfg.speculative_k + 1))
+        self._spec: SpecState | None = None
+        if cfg.speculative_k > 0:
+            with torch.inference_mode():
+                self._spec = SpecState.empty(
+                    cfg.max_batch_size, cfg.max_pages_per_seq * cfg.page_size,
+                    self._spec_steps, cfg.speculative_k, self.device,
+                )
+        self.spec_blocks = self.spec_replays = self.spec_eager_steps = 0
         self._generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1
         )
@@ -1371,19 +1404,37 @@ class Engine:
         slots = [self.sequences.get(sid) if sid is not None else None for sid in lane_seqs]
         temps, top_k, top_p = self._sampling_arrays(slots, B)
         greedy = bool(np.all(temps <= 0.0))
+        # JAX's routing: speculate when every seated lane is greedy and none
+        # holds a constrained row.
+        speculate = self._speculates(greedy, [self.sequences.get(sid) for sid in self._lanes])
         n_steps = int(budgets.max())
+        counts = None
         t_disp = time.perf_counter()
         with torch.inference_mode():
-            step = self._decode_step(greedy, False, n_steps)
             self._load_host_masks({})
             with annotate("engine.decode_block"):
-                toks_d = decode_block(
-                    self._decode, step, ov_tok, ov_at, alive, budgets, table,
-                    temps, top_k, top_p, n_steps=n_steps, fsm=ov_fsm, override=override,
-                )
-                host, event = to_host(toks_d)
+                if speculate:
+                    # An iteration emits at least one token a live row.
+                    n_steps = min(self._spec_steps, n_steps)
+                    history = {int(lane): self._history(self.sequences[self._lanes[lane]])
+                               for lane in np.flatnonzero(override)}
+                    toks_d, counts_d = speculative_block(
+                        self._decode, self._spec, self._spec_step(n_steps), ov_tok, ov_at,
+                        alive, budgets, table, n_steps, history, override=override,
+                    )
+                    host, _ = to_host(toks_d)
+                    counts, event = to_host(counts_d)
+                else:
+                    step = self._decode_step(greedy, False, n_steps)
+                    toks_d = decode_block(
+                        self._decode, step, ov_tok, ov_at, alive, budgets, table,
+                        temps, top_k, top_p, n_steps=n_steps, fsm=ov_fsm, override=override,
+                    )
+                    host, event = to_host(toks_d)
         get_perf_stats().record_metric(
             "engine.block_dispatch", (time.perf_counter() - t_disp) * 1e3, "ms")
+        if speculate:
+            self._count_spec_block()
         # Attribution as the sync block's, each budgeted lane's start being
         # its booked length less its budget; no measured time (enqueued).
         attr_q = attr_read = 0
@@ -1395,17 +1446,18 @@ class Engine:
             attr_q += b
             attr_read += b * s0 + b * (b + 1) // 2
         record_dispatch(
-            "block", rows=int(np.count_nonzero(budgets)), steps=n_steps, attr=self.attr,
+            "spec" if speculate else "block", rows=int(np.count_nonzero(budgets)),
+            steps=int(budgets.max()), attr=self.attr,
             attr_kw=dict(weight_streams=n_steps, q_tokens=attr_q, kv_read_tokens=attr_read,
                          kv_write_tokens=attr_q, attn_q_ctx=attr_read),
         )
         obs.flight.record(
-            "dispatch", op="decode_block",
+            "dispatch", op="spec" if speculate else "decode_block",
             seq_ids=[sid for sid, b in zip(lane_seqs, budgets) if sid is not None and b],
-            steps=n_steps,
+            steps=int(budgets.max()),
         )
         self.pipelined_blocks += 1
-        self._inflight.append((host, event, lane_seqs, budgets, t_disp))
+        self._inflight.append((host, event, lane_seqs, budgets, t_disp, counts))
         for sid, b in zip(lane_seqs, budgets):
             if sid is not None and b:
                 self._inflight_steps[sid] = self._inflight_steps.get(sid, 0) + int(b)
@@ -1417,9 +1469,11 @@ class Engine:
         """Pull the oldest block in flight (its event alone is waited for)
         and fold its tokens into the host state. Blocks are pulled in
         order, so a row's EOS is seen before any later block of it."""
-        host, event, lane_seqs, budgets, t_disp = self._inflight.popleft()
+        host, event, lane_seqs, budgets, t_disp, counts = self._inflight.popleft()
         t0 = time.perf_counter()
         toks = from_host(host, event)
+        if counts is not None:
+            counts = counts.numpy()  # copied before the event
         perf = get_perf_stats()
         perf.record_metric("engine.block_pull", (time.perf_counter() - t0) * 1e3, "ms")
         out: dict[int, list[int]] = {}
@@ -1439,10 +1493,8 @@ class Engine:
             # The decode span open while the block ran, taken before the
             # accept loop can close it.
             dspan = s.decode_span
-            for j in range(int(budgets[lane])):
-                self._accept_token(s, int(toks[lane, j]))
-                if s.done:
-                    break
+            self._accept_block(s, toks[lane], budgets[lane],
+                               None if counts is None else counts[lane])
             out[sid] = s.tokens[n0:]
             produced += len(out[sid])
             if dspan is not None and out[sid]:
@@ -1454,9 +1506,59 @@ class Engine:
                 # owner's: the card runs them in stream order.
                 self.alloc.truncate(sid, self._host_written(s))
                 self._free_lane(sid)
+            elif counts is not None:
+                # A speculative row emits at most its booking (draft
+                # misses): roll back to what the blocks in flight may still
+                # write, plus the k + 1 positions a verify writes past its
+                # accepted count, or unspent bookings would drift without
+                # bound and cut long generations short (JAX's rule).
+                keep = (self._host_written(s) + self._inflight_steps.get(sid, 0)
+                        + self.cfg.speculative_k + 1)
+                if self.alloc.length(sid) > keep:
+                    self.alloc.truncate(sid, keep)
         perf.record_metric("engine.decode_tokens", produced, "tok")
         self._observe_occupancy()
         return out
+
+    def _accept_block(
+        self, s: Sequence, toks: np.ndarray, budget: int, counts: np.ndarray | None,
+    ) -> None:
+        """Accept one row of a pulled block until the row finishes: a plain
+        block's ``budget`` tokens, or each speculative iteration's
+        ``counts`` tokens (pad past each count), recording each live
+        iteration's count as ``engine.spec_step_tokens``: its mean less 1,
+        over k, is the draft acceptance rate."""
+        if counts is None:
+            for j in range(int(budget)):
+                self._accept_token(s, int(toks[j]))
+                if s.done:
+                    return
+            return
+        perf = get_perf_stats()
+        for st, c in enumerate(counts):
+            if c > 0:
+                perf.record_metric("engine.spec_step_tokens", float(c), "tok")
+            for j in range(int(c)):
+                self._accept_token(s, int(toks[st, j]))
+                if s.done:
+                    return
+
+    def _speculates(self, greedy: bool, rows: list[Sequence | None]) -> bool:
+        """Whether a block over ``rows`` speculates: JAX's rule, greedy rows
+        with ``speculative_k`` > 0 and none constrained."""
+        return self._spec is not None and greedy and not any(
+            s is not None and s.mask_fn is not None for s in rows
+        )
+
+    @staticmethod
+    def _history(s: Sequence) -> list[int]:
+        """A row's tokens by position, for drafting: the prompt and every
+        accepted token."""
+        return s.prompt_ids + s.tokens
+
+    def _count_spec_block(self) -> None:
+        self.spec_blocks += 1
+        get_perf_stats().record_metric("engine.spec_blocks", 1, "blk")
 
     def _free_lane(self, seq_id: int) -> None:
         lane = self._lane_of.pop(seq_id, None)
@@ -1764,19 +1866,34 @@ class Engine:
         temps, top_k, top_p = self._sampling_arrays(lanes, B)
         greedy = bool(np.all(temps <= 0.0))
         extras = self._wants_extras(lanes)
+        speculate = not extras and self._speculates(greedy, lanes)
         n_steps = int(budgets.max())
+        counts = None
         t_disp = time.perf_counter()
         with torch.inference_mode():
-            step = self._decode_step(greedy, extras, n_steps)
+            if speculate:
+                # An iteration emits at least one token a live row.
+                n_steps = min(self._spec_steps, n_steps)
+                step = self._spec_step(n_steps)
+            else:
+                step = self._decode_step(greedy, extras, n_steps)
             self.hosted_steps += len(masks) * n_steps
             self._load_host_masks(masks)
             want_lp = extras and self._load_extras(lanes)
             dev_out: list = [self._decode.out]
             with annotate("engine.decode_block"), device_timer("decode_block", dev_out):
-                toks_d = decode_block(
-                    self._decode, step, tokens, write_at, active, budgets, table,
-                    temps, top_k, top_p, n_steps=n_steps, fsm=fsm,
-                )
+                if speculate:
+                    history = {i: self._history(s) for i, s in enumerate(lanes) if s is not None}
+                    toks_d, counts_d = speculative_block(
+                        self._decode, self._spec, step, tokens, write_at, active, budgets,
+                        table, n_steps, history,
+                    )
+                    counts = counts_d.cpu().numpy()
+                else:
+                    toks_d = decode_block(
+                        self._decode, step, tokens, write_at, active, budgets, table,
+                        temps, top_k, top_p, n_steps=n_steps, fsm=fsm,
+                    )
             toks = toks_d.cpu().numpy()
             lp = None
             if want_lp:
@@ -1785,6 +1902,8 @@ class Engine:
                       x.lp_top[:, :n_steps].cpu().numpy())
         measured_s = time.perf_counter() - t_disp
         get_perf_stats().record_metric("engine.block_dispatch", measured_s * 1e3, "ms")
+        if speculate:
+            self._count_spec_block()
         # Attribution: each budgeted lane writes b tokens, its step j
         # attending start + j + 1 positions (exact causal sum); the block
         # streams the weights once per step, however few lanes carry a
@@ -1797,17 +1916,17 @@ class Engine:
             attr_q += b
             attr_read += b * int(write_at[i]) + b * (b + 1) // 2
         record_dispatch(
-            "block", rows=int(np.count_nonzero(budgets)), steps=n_steps,
-            attr=self.attr,
+            "spec" if speculate else "block", rows=int(np.count_nonzero(budgets)),
+            steps=int(budgets.max()), attr=self.attr,
             attr_kw=dict(
                 weight_streams=n_steps, q_tokens=attr_q, kv_read_tokens=attr_read,
                 kv_write_tokens=attr_q, attn_q_ctx=attr_read, measured_s=measured_s,
             ),
         )
         obs.flight.record(
-            "dispatch", op="decode_block",
+            "dispatch", op="spec" if speculate else "decode_block",
             seq_ids=[s.seq_id for i, s in enumerate(lanes) if s is not None and budgets[i]],
-            steps=n_steps,
+            steps=int(budgets.max()),
         )
         out: dict[int, list[int]] = {}
         produced = 0
@@ -1818,19 +1937,24 @@ class Engine:
             # The decode span open while the block ran, taken before the
             # accept loop can close it (EOS mid-block).
             dspan = s.decode_span
-            for j in range(int(budgets[i])):
-                if lp is not None and s.params.logprobs:
-                    s.logprob_data.append(self._logprob_entry(s, *(a[i, j] for a in lp)))
-                self._accept_token(s, int(toks[i, j]))
-                if s.done:
-                    break
+            if lp is not None:
+                for j in range(int(budgets[i])):
+                    if s.params.logprobs:
+                        s.logprob_data.append(self._logprob_entry(s, *(a[i, j] for a in lp)))
+                    self._accept_token(s, int(toks[i, j]))
+                    if s.done:
+                        break
+            else:
+                self._accept_block(s, toks[i], budgets[i],
+                                   None if counts is None else counts[i])
             out[s.seq_id] = s.tokens[n0:]
             produced += len(out[s.seq_id])
             if dspan is not None and out[s.seq_id]:
                 dspan.child("decode_block", t_disp, time.perf_counter(),
                             tokens=len(out[s.seq_id]))
-            if s.done:
-                # Roll the block's booking back to what was written.
+            if s.done or counts is not None:
+                # Roll the block's booking back to what was written (a
+                # speculative row may have spent less than it booked).
                 self.alloc.truncate(s.seq_id, self._host_written(s))
         get_perf_stats().record_metric("engine.decode_tokens", produced, "tok")
         return out
@@ -1841,7 +1965,8 @@ class Engine:
         counterpart of the JAX engine's ``warmup``): builds the kernels and
         runs each step body eagerly twice (the decode step greedy and
         sampled, the mixed tick at every bucket, each with and without the
-        sampler extras) over an all -1 page table
+        sampler extras, and with ``speculative_k`` the speculative
+        iteration) over an all -1 page table
         with every row inactive, so that each kernel instance's one-time
         set-up and the split calls' workspaces happen outside a capture;
         then, on the card with the kernels, captures each body as a CUDA
@@ -1920,6 +2045,15 @@ class Engine:
         self.decode_eager_steps += n_steps
         return self._decode_body(greedy, extras, self._generator)
 
+    def _spec_step(self, n_steps: int):
+        """The speculative iteration, as ``_decode_step``, counted
+        ``n_steps`` times."""
+        if self._replays():
+            self.spec_replays += n_steps
+            return self._prepare()[("spec", True, False)].replay
+        self.spec_eager_steps += n_steps
+        return self._spec_body()
+
     def _prepare(self) -> dict[tuple[str, object], StepGraph]:
         """The warm steps, then the captures where steps replay; once per
         engine. Returns the graphs (none where steps run eagerly)."""
@@ -1940,6 +2074,11 @@ class Engine:
             bodies["decode", greedy, extras] = (
                 self._decode, self._decode_body(greedy, extras, self._generator)
             )
+        if self._spec is not None:
+            for _ in range(2):
+                speculative_block(self._decode, self._spec, self._spec_body(), idle, idle,
+                                  idle.astype(bool), idle, table, 1, {})
+            bodies["spec", True, False] = ((self._decode, self._spec), self._spec_body())
         for S, state in self._mixed.items():
             state.load(np.zeros((B, S), np.int64), idle, idle, table, *sampling)
             for extras in (False, True):
@@ -1949,9 +2088,12 @@ class Engine:
                     state, self._mixed_body(S, extras, self._generator))
         if self._replays():
             for key, (state, body) in bodies.items():
-                # The greedy decode step draws no random numbers.
-                gen = None if key[:2] == ("decode", True) else self._generator
-                buffers = (state, self._fsm) + ((self._extras,) if key[2] else ())
+                # The greedy steps draw no random numbers.
+                gen = None if key[1] is True else self._generator
+                if key[0] == "spec":
+                    buffers = state
+                else:
+                    buffers = (state, self._fsm) + ((self._extras,) if key[2] else ())
                 self._graphs[key] = StepGraph(body, buffers, self.cache, gen)
             torch.cuda.synchronize(self.device)
         self._warm = True
@@ -1966,6 +2108,15 @@ class Engine:
             self.tokenizer.eos_id, self.tokenizer.pad_id, greedy,
             self.attn_impl == "plain", self.cfg.paged_backend, tables=self._fsm,
             extras=self._extras if extras else None,
+        )
+
+    def _spec_body(self):
+        """The speculative iteration, eager: ``speculative_step_body`` over
+        the engine's decode state, speculative buffers and cache."""
+        return partial(
+            speculative_step_body, self.model, self._decode, self._spec, self.cache,
+            self.tokenizer.eos_id, self.tokenizer.pad_id, self.cfg.speculative_ngram,
+            self.attn_impl == "plain", self.cfg.paged_backend,
         )
 
     def _mixed_body(self, S: int, extras: bool, generator: torch.Generator):

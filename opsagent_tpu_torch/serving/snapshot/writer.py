@@ -57,10 +57,8 @@ ENGINE_FINGERPRINT_FIELDS = (
     "quantize", "kv_quantize",
 )
 # Those the port's EngineConfig lacks, at the values of its engine: one
-# device, no speculation.
-PORT_ENGINE_FIELDS = {
-    "tp": 1, "dp": 1, "sp": 1, "ep": 1, "speculative_k": 0, "speculative_ngram": 2,
-}
+# device.
+PORT_ENGINE_FIELDS = {"tp": 1, "dp": 1, "sp": 1, "ep": 1}
 
 
 def model_config_dict(model_cfg: Any) -> dict[str, Any]:

@@ -68,6 +68,10 @@ REQUIRED = (
     "opsagent_tpu_torch.serving.snapshot.writer",
     "opsagent_tpu_torch.serving.snapshot.restore",
     "opsagent_tpu_torch.serving.faults",
+    "opsagent_tpu_torch.serving.decode_loop",
+    "opsagent_tpu_torch.training",
+    "opsagent_tpu_torch.training.trainer",
+    "opsagent_tpu_torch.training.checkpoint",
     "opsagent_tpu_torch.utils.globalstore",
     "opsagent_tpu_torch.utils.yamlutil",
     "opsagent_tpu_torch.utils.yamlio",
