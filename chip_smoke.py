@@ -210,6 +210,26 @@ Phases, each printing one JSON line with its seconds:
    grid, bf16 and int8 pages) at B = 8 rows of q_len 5 and ``m128`` at
    T = 40 against their plain versions (1e-2), timed beside their bound
    and SDPA or cuBLAS.
+6i. parallel: the device mesh (``parallel/``, ``serving/spmd.py``) with
+   two ranks, processes of this script (``--parallel-rank``), sharing the
+   one card over gloo (NCCL takes no two ranks on one device): it checks
+   correctness and each rank's memory, not collective speed. First, in
+   this process: the attention kernels through the tp wrappers at a tp = 2
+   rank's shapes (bench-8b H 16 / K 4, Qwen2.5-7B K 2 / G 7; bf16 and int8
+   pages; dma and grid) and the quantized matmul at its column (Out 2048,
+   512, 7168, through ``quant_matmul_tp``) and row shards (In 2048, 7168),
+   int8 and int4, m16 and m128, against their plain versions; one rank's
+   greedy tokens of each f32 check. Then the ranks: which gloo
+   collectives take CUDA tensors (the phase fails if
+   ``collectives.GLOO_CUDA_DIRECT`` disagrees); bench-8b at 2 layers, f32,
+   tp = 2 (a mixed admission of three prompts and their decode blocks),
+   sp = 2 (a 4096-token prompt through the split lane by ring attention)
+   and DeepSeek-V2-Lite at 2 layers, ep = 2: tokens equal to one rank's,
+   every op's outputs equal on both ranks; bench-8b at full depth, bf16,
+   tp = 2, eager: four concurrent 64-token completions through the
+   leader's ServingStack (tok/s, TTFT p50, each rank's weights (half of
+   one rank's) and peak memory, staged copies, launches equal on both
+   ranks and added to the kernel table's). One JSON line a check.
 7. serve: behind the HTTP server, random weights from ``--seed``, bf16
    activations, four concurrent chat completions per run, on the default
    loop (async ticks, pipelined blocks, fast-forward): bench-8b at full
@@ -314,9 +334,11 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import replace
+from datetime import timedelta
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from opsagent_tpu_torch import obs
@@ -334,7 +356,10 @@ from opsagent_tpu_torch.ops import cuda_build
 from opsagent_tpu_torch.ops import paged_attention as pa
 from opsagent_tpu_torch.ops import quant_matmul as qm
 from opsagent_tpu_torch.ops.attention import QuantizedPages, _gather_kv, write_kv_pages
+from opsagent_tpu_torch.parallel import collectives
+from opsagent_tpu_torch.parallel.mesh import init_distributed
 from opsagent_tpu_torch.serving import engine as engine_module
+from opsagent_tpu_torch.serving import spmd
 from opsagent_tpu_torch.serving.api import ServingStack, make_server
 from opsagent_tpu_torch.serving.chat_template import apply_chat_template
 from opsagent_tpu_torch.serving.constrained import TOOLPROMPT_SCHEMA, json_constraint
@@ -4572,15 +4597,420 @@ def phase_speculative(seed: int, smi: str) -> dict:
     return out
 
 
+# -- the parallel phase: several ranks in lockstep on the one card -------------
+PARALLEL_RANKS = 2
+# NCCL does not take two ranks on one device: the ranks share it over gloo,
+# which measures correctness and memory per rank, not collective speed.
+PARALLEL_BACKEND = "gloo"
+PARALLEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            "chip_smoke_parallel")
+PARALLEL_TIMEOUT_S = 600
+PARALLEL_TOKENS = 16              # greedy tokens of the f32 equality checks
+PARALLEL_LONG = 4096              # the sp = 2 prompt: one fresh 4096-token chunk
+PARALLEL_SERVE_TOKENS = 64        # each of the four concurrent completions
+PARALLEL_SERVE_CHARS = (300, 500, 800, 1200)
+PARALLEL_TP_SHAPES = {  # the column and row shards at tp = 2 of bench-8b: (In, Out)
+    "wq (column)": (4096, 2048), "wk/wv (column)": (4096, 512),
+    "wg/wu (column)": (4096, 7168), "wo (row)": (2048, 4096), "wd (row)": (7168, 4096),
+}
+
+
+def parallel_prompts(seed: int, vocab: int = 256) -> list[list[int]]:
+    gen = torch.Generator().manual_seed(seed + 5)
+    return [[257] + torch.randint(0, vocab, (n,), generator=gen).tolist()
+            for n in (299, 199, 120)]
+
+
+def parallel_long_prompt(seed: int) -> list[int]:
+    gen = torch.Generator().manual_seed(seed + 6)
+    return [257] + torch.randint(0, 256, (PARALLEL_LONG - 1,), generator=gen).tolist()
+
+
+def parallel_configs() -> dict:
+    """The f32 equality checks' models: 2-layer cuts at full width."""
+    return {
+        "tp2": replace(BENCH_8B, name=f"{BENCH_8B.name}-2l", num_layers=2),
+        "sp2": replace(BENCH_8B, name=f"{BENCH_8B.name}-2l", num_layers=2),
+        "ep2": replace(DEEPSEEK_V2_LITE, name=f"{DEEPSEEK_V2_LITE.name}-2l", num_layers=2),
+    }
+
+
+def parallel_engine_config(check: str, cfg, seed: int, **mesh) -> EngineConfig:
+    extra = dict(mixed_batching=False) if check == "sp2" else {}
+    return EngineConfig(model=cfg.name, dtype=torch.float32, device="cuda", seed=seed,
+                        num_pages=512, cuda_graphs=False, **extra, **mesh)
+
+
+def parallel_drive(eng: Engine, check: str, seed: int) -> list[list[int]]:
+    """The greedy run of one f32 check: a mixed admission of three prompts
+    and their decode blocks, or (sp2) the long prompt's split-lane chunk
+    and its block."""
+    greedy = SamplingParams(max_tokens=PARALLEL_TOKENS)
+    if check == "sp2":
+        return eng.generate([parallel_long_prompt(seed)], greedy)
+    return eng.generate(parallel_prompts(seed), greedy)
+
+
+def parallel_references(seed: int) -> dict:
+    """The one-rank tokens of each f32 check (tp = sp = ep = 1), the same
+    engine configuration but for the mesh."""
+    out = {}
+    for check, cfg in parallel_configs().items():
+        eng = Engine(parallel_engine_config(check, cfg, seed), model_cfg=cfg)
+        out[check] = parallel_drive(eng, check, seed)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_attention(seed: int) -> dict:
+    """(b) The attention kernels through the tp wrappers at a tp = 2 rank's
+    shapes, against their plain versions: bench-8b (H 16, K 4) and
+    Qwen2.5-7B (K 2, G 7), bf16 q over bf16 and int8 pages, dma and grid."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 71)
+    out = {}
+    for cfg in (BENCH_8B, QWEN25_7B):
+        H, K, D = cfg.num_heads // 2, cfg.num_kv_heads // 2, cfg.head_dim_
+        for pages in ("bf16", "int8"):
+            rag = make_case(gen, 4, 64, H, K, D, 16, [0, 100, 1000, 3000], [64, 1, 37, 16],
+                            torch.bfloat16)
+            dec = decode_case(gen, 8, H, K, D, 16, [1, 17, 256, 257, 1000, 2048, 3000, 4096],
+                              torch.bfloat16)
+            if pages == "int8":
+                rag, dec = quantize_case(rag), quantize_case(dec)
+            for backend in ("dma", "grid"):
+                contract = dict(tp=2, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                                backend=backend)
+                for form, c, fn, args in (
+                        ("ragged", rag, pa.paged_ragged_attention_tp, kernel_args("paged_ragged", rag)),
+                        ("decode", dec, pa.paged_decode_attention_tp, kernel_args("paged_decode", dec))):
+                    got = fn(*args, **contract)
+                    want = fn(*args, **contract, plain=True)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    label = f"{cfg.name} tp=2 H={H} K={K} {pages} pages {backend} {form}"
+                    check(math.isfinite(err) and err <= TOL[torch.bfloat16],
+                          f"{label}: max err {err} > {TOL[torch.bfloat16]}")
+                    out[label] = err
+    return out
+
+
+def shard_matmul(seed: int) -> dict:
+    """(c) The quantized matmul at a tp = 2 rank's column shards (through
+    ``quant_matmul_tp``) and row shards (the local product before the
+    all-reduce) of bench-8b, int8 and int4 (groups of 128), at a decode
+    step (T = 8: m16) and a mixed tick (T = 128: m128), bf16, against the
+    plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 72)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, (In, Out) in PARALLEL_TP_SHAPES.items():
+        for bits, group in ((8, 0), (4, 128)):
+            w = quantized_weight(gen, In, Out, bits, group)
+            col = w.dequantize().norm(dim=0).mean().item()
+            for T in (8, 128):
+                x = (torch.randn(T, In, generator=gen, device="cuda") / col).to(torch.bfloat16)
+                instance = qm.plan(T, In, Out, bits, qm._group(w), x.dtype, sms)[0]
+                check(instance == ("m16" if T <= 16 else "m128"),
+                      f"{label} T={T}: instance {instance}")
+                got = (qm.quant_matmul_tp(x, w) if "column" in label
+                       else qm.quant_matmul_cuda(x, w))
+                want = qm.quant_matmul_cuda(x, w, plain=True)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                tol = MM_TOL[torch.bfloat16]
+                check(bool((err <= tol + tol * want.float().abs()).all()),
+                      f"{label} int{bits} T={T}: max err {err.max().item()}")
+                out[f"{label} int{bits} T={T} {instance}"] = err.max().item()
+            del w
+    return out
+
+
+def parallel_bodies(seed: int) -> list[dict]:
+    gen = torch.Generator().manual_seed(seed + 7)
+    return [{"messages": [{"role": "user", "content": random_text(gen, n)}],
+             "max_tokens": PARALLEL_SERVE_TOKENS, "temperature": 0}
+            for n in PARALLEL_SERVE_CHARS]
+
+
+def serve_batch(eng: Engine, seed: int) -> dict:
+    """The parallel phase's four completions through a ServingStack over
+    the warmed engine ``eng``: tok/s, TTFT p50, the replies' texts."""
+    stack = ServingStack(eng)
+    try:
+        t0 = time.perf_counter()
+        replies = loop_batch(stack, parallel_bodies(seed))
+        wall = time.perf_counter() - t0
+    finally:
+        stack.close()
+    toks = sum(r["usage"]["completion_tokens"] for r in replies)
+    check(toks == PARALLEL_SERVE_TOKENS * len(replies),
+          f"parallel serve: {toks} completion tokens")
+    return {"tok_s": toks / wall, "ttft_p50_s": statistics.median(r["ttft_s"] for r in replies),
+            "wall_s": wall, "completion_tokens": toks,
+            "texts": [r["choices"][0]["message"]["content"] for r in replies]}
+
+
+def one_rank_serve(seed: int) -> dict:
+    """What the tp = 2 serve is compared with: the same four completions
+    from bench-8b at one rank on one card, eager as the ranks are."""
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(EngineConfig(model=BENCH_8B.name, dtype=torch.bfloat16, device="cuda",
+                              seed=seed, cuda_graphs=False), model_cfg=BENCH_8B)
+    out = {"warmup_s": eng.warmup(), **serve_batch(eng, seed)}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_parallel_ranks(seed: int, backend: str) -> list[dict]:
+    """Start the ranks (this script with ``--parallel-rank``), wait for
+    them, and return their reports. A rank that fails, or outlives
+    ``PARALLEL_TIMEOUT_S``, fails the phase; every rank is stopped."""
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    port = free_port()
+    procs = []
+    try:
+        for r in range(PARALLEL_RANKS):
+            log = open(os.path.join(PARALLEL_DIR, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                 "--parallel-rank", str(r), "--parallel-port", str(port),
+                 "--parallel-backend", backend],
+                env={**os.environ, "LOCAL_RANK": str(r)}, stdout=log,
+                stderr=subprocess.STDOUT), log))
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        while any(p.poll() is None for p, _ in procs) and time.monotonic() < deadline:
+            if any(p.returncode not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    reports = []
+    for r, (p, _) in enumerate(procs):
+        with open(os.path.join(PARALLEL_DIR, f"rank{r}.log")) as f:
+            tail = f.read()[-3000:]
+        check(p.returncode == 0, f"parallel rank {r} exited {p.returncode}:\n{tail}")
+        with open(os.path.join(PARALLEL_DIR, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def phase_parallel(seed: int, smi: str, backend: str = PARALLEL_BACKEND) -> dict:
+    """Two ranks, each a process with its shard: on the one card over gloo
+    (the default), or with ``backend`` nccl on a card each (a machine with
+    several cards)."""
+    out = {"card": smi, "backend": backend, "ranks": PARALLEL_RANKS,
+           "note": ("two ranks share one card over gloo: correctness and memory per "
+                    "rank, not collective speed") if backend == "gloo" else
+                   "a card a rank: NCCL over the host's links"}
+    t = time.perf_counter()
+    out["shard_attention"] = shard_attention(seed)
+    out["shard_matmul"] = shard_matmul(seed)
+    emit({"phase": "parallel", "check": "shard_kernels", "card": smi,
+          "seconds": time.perf_counter() - t, "attention": out["shard_attention"],
+          "matmul": out["shard_matmul"]})
+    t = time.perf_counter()
+    refs = parallel_references(seed)
+    out["references_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    reports = run_parallel_ranks(seed, backend)
+    out["ranks_s"] = time.perf_counter() - t
+    lead = reports[0]
+    probe = lead["gloo_cuda"]
+    emit({"phase": "parallel", "check": "gloo_cuda", "direct": probe,
+          "staged_by_design": sorted(set(collectives.HOST_STAGED)
+                                     - set(collectives.GLOO_CUDA_DIRECT))})
+    for check_name in ("tp2", "sp2", "ep2"):
+        got = lead[check_name]["tokens"]
+        check(got == refs[check_name],
+              f"parallel {check_name}: tokens {got} != one rank's {refs[check_name]}")
+        check(all(r[check_name]["digest"] == lead[check_name]["digest"] for r in reports),
+              f"parallel {check_name}: the ranks' outputs differ")
+        emit({"phase": "parallel", "check": check_name, "tokens_equal_one_rank": True,
+              "ranks_equal": True, "ops": lead[check_name]["ops"],
+              "seconds": [r[check_name]["seconds"] for r in reports],
+              "host_staged": [r[check_name]["host_staged"] for r in reports],
+              "tokens": got})
+    serve = [r["serve"] for r in reports]
+    check(all(s["digest"] == serve[0]["digest"] for s in serve),
+          "parallel serve: the ranks' outputs differ")
+    check(all(s["launches"] == serve[0]["launches"] for s in serve),
+          f"parallel serve: the ranks launched unlike kernels {[s['launches'] for s in serve]}")
+    line = {k: serve[0][k] for k in ("tok_s", "ttft_p50_s", "wall_s", "completion_tokens",
+                                     "warmup_s", "ops")}
+    texts = serve[0].pop("texts")
+    if backend == "nccl":
+        # Across cards the serve's speed means something: beside it, one
+        # rank's. bf16 sums the row-parallel partials in another order, so
+        # the replies' agreement is reported, not checked.
+        one = one_rank_serve(seed)
+        line["one_rank"] = {k: one[k] for k in ("tok_s", "ttft_p50_s", "wall_s", "warmup_s",
+                                                "peak_gb")}
+        line["replies_equal_one_rank"] = sum(a == b for a, b in zip(texts, one["texts"]))
+    line.update(card=smi, backend=backend, ranks_equal=True,
+                peak_gb=[s["peak_gb"] for s in serve],
+                weights_gb=[s["weights_gb"] for s in serve],
+                one_rank_weights_gb=serve[0]["one_rank_weights_gb"],
+                host_staged=[s["host_staged"] for s in serve],
+                launches=[s["launches"] for s in serve])
+    emit({"phase": "parallel", "check": "serve", **line})
+    out["serve"] = line
+    out["launches"] = {name: sum(s["launches"].get(name, 0) for s in serve) for name in KERNELS}
+    return out
+
+
+# -- a rank of the parallel phase ---------------------------------------------
+def gloo_cuda_probe() -> dict:
+    """Whether the gloo collectives that ``collectives.GLOO_CUDA_DIRECT``
+    names take CUDA tensors as they are, on a group of their own with a
+    short timeout: True, or the error. send/recv are not probed: on CUDA
+    tensors gloo fails them with ``writev ... Bad address``, raised or, from
+    its I/O thread, as an abort of the process."""
+    group = dist.new_group(backend="gloo", timeout=timedelta(seconds=30))
+    x = torch.full((4,), float(dist.get_rank() + 1), device="cuda")
+    res = {}
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return float(y[0]) == 3.0
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=1, group=group)
+        return float(y[0]) == 2.0
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x, group=group)
+        return [float(p[0]) for p in parts] == [1.0, 2.0]
+
+    for name, fn in (("all_reduce", all_reduce), ("broadcast", broadcast),
+                     ("all_gather", all_gather)):
+        try:
+            ok = fn()
+            torch.cuda.synchronize()
+            res[name] = True if ok else "wrong values"
+        except Exception as e:  # noqa: BLE001 - the probe reports the backend's refusal
+            res[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    return res
+
+
+def digest(outputs: list) -> str:
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for op, arrays in spmd.on_host(outputs):
+        h.update(op.encode())
+        for a in arrays:
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def rank_check(check_name: str, seed: int) -> dict:
+    """One f32 check at this rank: the leader drives, the follower follows."""
+    cfg = parallel_configs()[check_name]
+    mesh = {"tp2": dict(tp=2), "sp2": dict(sp=2), "ep2": dict(ep=2)}[check_name]
+    collectives.reset_counts()
+    eng = Engine(parallel_engine_config(check_name, cfg, seed, **mesh), model_cfg=cfg)
+    eng.spmd_outputs = []
+    out = {}
+    if eng.mesh.leader:
+        out["tokens"] = parallel_drive(eng, check_name, seed)
+        eng.stop_followers()
+    else:
+        eng.follow()
+    out.update(ops=len(eng.spmd_outputs), digest=digest(eng.spmd_outputs),
+               host_staged=sum(collectives.HOST_STAGED.values()))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_serve(seed: int) -> dict:
+    """(d) bench-8b at full width and depth, bf16, tp = 2, eager: four
+    concurrent completions through the leader's ServingStack."""
+    collectives.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(EngineConfig(model=BENCH_8B.name, dtype=torch.bfloat16, device="cuda",
+                              seed=seed, tp=2, cuda_graphs=False), model_cfg=BENCH_8B)
+    model = eng.model
+    weights = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    one_rank = sum(math.prod(model._shape(n, p.shape)) * p.element_size()
+                   for n, p in model.named_parameters())
+    eng.spmd_outputs = []
+    out = {"weights_gb": weights / 1e9, "one_rank_weights_gb": one_rank / 1e9}
+    # The serve's launches, its warmup's included (a follower cannot tell
+    # the warmup's ops from the serve's).
+    reset_launch_counts()
+    if eng.mesh.leader:
+        out["warmup_s"] = eng.warmup()
+        out.update(serve_batch(eng, seed))
+        out["launches"] = launch_counts()
+        with eng.lock:
+            eng.drain()
+        eng.stop_followers()
+    else:
+        eng.follow()
+        out["launches"] = launch_counts()
+    torch.cuda.synchronize()
+    for name in ("paged_ragged_attention", "paged_decode_attention"):
+        check(out["launches"].get(name, 0) > 0, f"parallel serve: no {name} launch")
+    out.update(ops=len(eng.spmd_outputs), digest=digest(eng.spmd_outputs),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               host_staged=dict(collectives.HOST_STAGED))
+    ratio = out["weights_gb"] / out["one_rank_weights_gb"]
+    check(0.49 < ratio < 0.52, f"parallel serve: a rank holds {ratio:.4f} of the weights")
+    return out
+
+
+def parallel_rank(rank: int, port: int, seed: int, backend: str) -> int:
+    """One rank of the parallel phase: the gloo probe, the f32 checks (tp,
+    sp, ep) and the full-width serve, its report in ``PARALLEL_DIR``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"127.0.0.1:{port}", PARALLEL_RANKS, rank, backend=backend)
+    report = {"rank": rank, "gloo_cuda": gloo_cuda_probe()}
+    for name, direct in report["gloo_cuda"].items():
+        check(direct is True, f"gloo {name} on CUDA tensors: {direct}")
+    for name in ("tp2", "sp2", "ep2"):
+        t = time.perf_counter()
+        report[name] = rank_check(name, seed)
+        report[name]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    report["serve"] = rank_serve(seed)
+    report["serve"]["seconds"] = time.perf_counter() - t
+    with open(os.path.join(PARALLEL_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve phases and report device time by kernel group")
     ap.add_argument("--restore-snapshot", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-rank", type=int, default=-1, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-backend", default=PARALLEL_BACKEND, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.restore_snapshot:
         return snapshot_child(args.restore_snapshot)
+    if args.parallel_rank >= 0:
+        return parallel_rank(args.parallel_rank, args.parallel_port, args.seed,
+                             args.parallel_backend)
 
     t = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4646,7 +5076,7 @@ def main() -> int:
         launches[name] += n
 
     for run in (phase_offload, phase_snapshot, phase_autoscale, phase_fleet, phase_prefill_lane,
-                phase_train, phase_speculative):
+                phase_train, phase_speculative, phase_parallel):
         t = time.perf_counter()
         out = run(args.seed, smi)
         gc.collect()

@@ -19,6 +19,18 @@ fleet router (``--advertise``, ``--replica-id``, ``--replica-role
 decode|prefill|standby``), heartbeats its load and prefix digests, and with
 ``--offload`` faults missing prefix chains in from peer replicas.
 
+Several ranks serve one model in lockstep (``serving/spmd.py``): ``--tp``,
+``--sp`` and ``--ep`` shape the mesh (tensor-parallel heads and columns,
+ring-attention prefill, expert-parallel experts; ``--tp 0`` takes every
+rank the others leave), ``--dist-backend`` picks the process groups'
+backend (``nccl`` between cards, ``gloo`` on the CPU or for ranks sharing
+a card), and ``--eager`` runs the steps without CUDA graphs, which a mesh
+with collectives requires. Launch the ranks under torch's launch variables
+(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``;
+``torchrun --nproc-per-node 2 -m opsagent_tpu_torch serve-engine --tp 2
+--eager``), or with ``--nproc N``, which spawns the N ranks itself. Rank 0
+binds the port and joins the fleet; the others follow its steps.
+
 ``python -m opsagent_tpu_torch serve-router --port 8090`` runs the fleet
 router (``serving/fleet/router.py``): sessions spread over the replicas
 that join it by prefix affinity, then least load, with sticky pinning,
@@ -152,6 +164,22 @@ def main(argv: list[str] | None = None) -> int:
                          "(default: http://<host>:<port>)")
     se.add_argument("--replica-id", default="",
                     help="stable replica identity in the fleet (default: random)")
+    se.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel ranks (0 = every rank the other axes leave)")
+    se.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel ranks of a fresh prompt's prefill "
+                         "attention (ring attention)")
+    se.add_argument("--ep", type=int, default=1,
+                    help="expert-parallel ranks for MoE models (experts shard over ep)")
+    se.add_argument("--dist-backend", default="nccl", choices=("nccl", "gloo"),
+                    help="process-group backend of a job of several ranks: nccl "
+                         "between cards, gloo on the CPU or for ranks sharing a card")
+    se.add_argument("--nproc", type=int, default=0,
+                    help="spawn this many ranks on this host (torch's launch "
+                         "variables set for each) and serve from rank 0")
+    se.add_argument("--eager", action="store_true",
+                    help="run the steps without CUDA graphs (required at tp, sp or "
+                         "ep > 1)")
     se.add_argument(
         "--replica-role", default="decode", choices=("decode", "prefill", "standby"),
         help="decode replicas serve sessions end-to-end; prefill replicas take "
@@ -234,6 +262,7 @@ def main(argv: list[str] | None = None) -> int:
     snv.add_argument("--quick", action="store_true",
                      help="sizes only, no per-leaf content digests")
     args = parser.parse_args(argv)
+    args.argv = argv
 
     logging.basicConfig(level=logging.INFO)
     if args.command == "snapshot":
@@ -291,6 +320,17 @@ def _snapshot(args: argparse.Namespace) -> int:
 
 
 def _serve(args: argparse.Namespace) -> int:
+    if args.nproc > 1:
+        from .serving.spmd import spawn_ranks
+
+        argv = args.argv
+        cut = argv.index("--nproc") if "--nproc" in argv else None
+        rest = (argv[:cut] + argv[cut + 2:] if cut is not None
+                else [a for a in argv if not a.startswith("--nproc=")])
+        return spawn_ranks(args.nproc, ["-m", "opsagent_tpu_torch", *rest])
+    from .parallel.mesh import init_distributed
+
+    init_distributed(backend=args.dist_backend)
     if args.profile_dir:
         os.environ["OPSAGENT_PROFILE_DIR"] = args.profile_dir
     tokenizer = args.tokenizer
@@ -310,7 +350,20 @@ def _serve(args: argparse.Namespace) -> int:
             paged_backend=args.paged_backend, async_depth=args.async_depth,
             offload=args.offload, host_pool_bytes=args.host_pool_bytes,
             offload_copy_pages=args.offload_copy_pages, speculative_k=args.speculative_k,
+            tp=args.tp, sp=args.sp, ep=args.ep, cuda_graphs=not args.eager,
         ))
+    if not engine.mesh.leader:
+        # A follower runs the leader's steps on its shards until it stops.
+        engine.follow()
+        return 0
+    try:
+        return _lead(args, engine)
+    finally:
+        engine.stop_followers()
+
+
+def _lead(args: argparse.Namespace, engine: Engine) -> int:
+    """Rank 0 (or the only rank): warm up, serve, join the fleet."""
     # Kernels built and the steps captured before the scheduler thread and
     # the HTTP server start: a capture is process-wide.
     warm = engine.warmup()

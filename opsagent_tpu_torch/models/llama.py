@@ -39,6 +39,22 @@ and the lm_head are ``models.quant`` weights, and ``_mm`` sends them
 through the quantized matmul kernel, one 2-D expert slice a call; the
 cache made with ``kv_quantize="int8"`` holds int8 pages with per-(token, kv
 head) scales, which the attention kernels read (not with MLA, as in JAX).
+
+With a ``mesh`` (``parallel.mesh``) the model is this rank's shard, placed
+as JAX's ``param_specs`` / ``cache_specs`` / ``quantize_specs`` place it
+(the port's copies below): Megatron column-parallel ``wq``/``wk``/``wv``/
+``wg``/``wu`` (and ``bq``/``bk``/``bv``, MLA's ``wq``/``wuq``/``wukv``, the
+shared experts' ``sg``/``su``) hold H/tp heads or f/tp columns; the
+row-parallel ``wo``/``wd``/``sd`` and the experts' ``ed`` hold their input
+rows, each followed by an all-reduce over ``tp``; the routed experts' ``E``
+axis shards over ``ep`` (E/ep experts of fe/tp columns; their weighted sum
+is all-reduced over ``ep``); the embedding holds V/tp rows (a lookup masks
+the ids outside them, then all-reduces) and the head V/tp columns (the
+logits all-gathered over ``tp``). The router, the norms, MLA's ``wdq``/
+``wdkv``/``wkr`` and its latent cache are whole on every rank; GQA pages
+hold K/tp kv heads. Each rank's attention runs the hand-written kernels on
+its own heads (``ops.paged_attention``'s ``*_tp`` wrappers), its
+column-parallel quantized products through ``quant_matmul_tp``.
 """
 
 from __future__ import annotations
@@ -59,11 +75,23 @@ from ..ops.attention import (
     paged_prefix_attention,
     quantize_kv_rows,
 )
-from ..ops.paged_attention import PAGED_BACKENDS
-from ..ops.quant_matmul import quant_matmul_cuda
+from ..ops.paged_attention import (
+    PAGED_BACKENDS,
+    paged_decode_attention_tp,
+    paged_ragged_attention_tp,
+)
+from ..ops.quant_matmul import quant_matmul_cuda, quant_matmul_tp
 from ..ops.rope import apply_rope, rope_table, yarn_get_mscale
+from ..parallel.collectives import all_gather, all_reduce_sum
+from ..parallel.mesh import AXES, Mesh, shard_tensor
 from .config import ModelConfig
-from .quant import QuantizedBase, QuantizedLinear, QuantizedLinear4, pack_int4
+from .quant import (
+    QuantizedBase,
+    QuantizedLinear,
+    QuantizedLinear4,
+    pack_int4,
+    quantize_specs,
+)
 
 QUANTIZE_MODES = ("", "int8", "int4")
 KV_QUANTIZE_MODES = ("", "int8")
@@ -92,6 +120,30 @@ def _check_mla(cfg: ModelConfig) -> None:
         raise ValueError("mla: num_kv_heads must equal num_heads (no GQA)")
 
 
+def _check_shards(cfg: ModelConfig, mesh: Mesh | None) -> None:
+    """Raise unless every sharded dimension of ``cfg`` divides over its
+    mesh axis (heads, kv heads, vocab, MLP widths over ``tp``; experts over
+    ``ep``). The serve path's mesh: pp stays 1."""
+    if mesh is None:
+        return
+    tp, ep = mesh.shape[AXES.tp], mesh.shape[AXES.ep]
+    if mesh.shape[AXES.pp] > 1:
+        raise ValueError("pipeline stages (pp > 1) are training's; see ROADMAP item 11 (b)")
+    dims = {"num_heads": (cfg.num_heads, tp), "num_kv_heads": (cfg.num_kv_heads, tp),
+            "vocab_size": (cfg.vocab_size, tp),
+            "intermediate_size": (cfg.intermediate_size, tp)}
+    if cfg.moe is not None:
+        m = cfg.moe
+        dims["num_experts"] = (m.num_experts, ep)
+        fe = m.expert_intermediate_size or cfg.intermediate_size
+        dims["expert_intermediate_size"] = (fe, tp)
+    elif ep > 1:
+        raise ValueError(f"ep={ep} needs a MoE model; {cfg.name} has no experts")
+    for name, (size, n) in dims.items():
+        if size % n:
+            raise ValueError(f"{cfg.name}: {name}={size} does not divide over {n} ranks")
+
+
 def _yarn_q_scale(cfg: ModelConfig) -> float:
     """YaRN's softmax-scale correction (HF: softmax_scale *= mscale^2),
     folded into q so the attention's D^-1/2 stays as it is; 1.0 unless
@@ -111,6 +163,15 @@ def _mm(x: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
         y = quant_matmul_cuda(x.reshape(-1, x.shape[-1]), w, plain=plain)
         return y.reshape(*x.shape[:-1], y.shape[-1])
     return x @ w
+
+
+def _col(x: torch.Tensor, w, plain: bool, tp: int) -> torch.Tensor:
+    """A column-parallel product: ``_mm``, a quantized weight's through
+    ``quant_matmul_tp`` when its columns shard over ``tp`` > 1."""
+    if tp > 1 and isinstance(w, QuantizedBase):
+        y = quant_matmul_tp(x.reshape(-1, x.shape[-1]), w, plain=plain)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    return _mm(x, w, plain)
 
 
 def _ein(x: torch.Tensor, w) -> torch.Tensor:
@@ -145,6 +206,164 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * scale).to(x.dtype) * w
 
 
+# -- placement (the port's copies of JAX's spec tables) ------------------------
+# A spec is a tuple of one mesh axis name or None per dimension of a leaf
+# of JAX's parameter tree (stacked leaves lead with their layer axis).
+def _attn_block_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    """JAX's ``_attn_block_specs``."""
+    if cfg.mla is not None:
+        # Megatron MLA: wuq/wq/wukv column-parallel over heads, wo
+        # row-parallel; the down-projections and the shared rope key
+        # replicated.
+        block = {
+            "attn_norm": (None, None),
+            "wdkv": (None, None, None),
+            "wkr": (None, None, None),
+            "kv_norm": (None, None),
+            "wukv": (None, None, "tp"),
+            "wo": (None, "tp", None),
+            "mlp_norm": (None, None),
+        }
+        if cfg.mla.q_lora_rank:
+            block["wdq"] = (None, None, None)
+            block["q_norm"] = (None, None)
+            block["wuq"] = (None, None, "tp")
+        else:
+            block["wq"] = (None, None, "tp")
+        return block
+    block = {
+        "attn_norm": (None, None),
+        "wq": (None, None, "tp"),
+        "wk": (None, None, "tp"),
+        "wv": (None, None, "tp"),
+        "wo": (None, "tp", None),
+        "mlp_norm": (None, None),
+    }
+    if cfg.attn_bias:
+        block["bq"] = (None, "tp")
+        block["bk"] = (None, "tp")
+        block["bv"] = (None, "tp")
+    if cfg.qk_norm:
+        # Per-head-dim vectors: replicated.
+        block["qn"] = (None, None)
+        block["kn"] = (None, None)
+    return block
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """JAX's ``param_specs``: column-parallel wq/wk/wv/wg/wu over ``tp``,
+    row-parallel wo/wd; the experts' E axis over ``ep`` and their
+    intermediate axis over ``tp``; the embedding over vocab rows, the
+    lm_head over vocab columns."""
+    layers = _attn_block_specs(cfg)
+    layers.update({"wg": (None, None, "tp"), "wu": (None, None, "tp"),
+                   "wd": (None, "tp", None)})
+    specs: dict = {"embed": ("tp", None), "layers": layers, "final_norm": (None,)}
+    _, Lm = _layer_split(cfg)
+    if Lm:
+        moe_layers = _attn_block_specs(cfg)
+        if cfg.moe.scoring_func == "sigmoid":
+            moe_layers["router_bias"] = (None, None)
+        moe_layers.update({
+            "router": (None, None, None),
+            "eg": (None, "ep", None, "tp"),
+            "eu": (None, "ep", None, "tp"),
+            "ed": (None, "ep", "tp", None),
+        })
+        if cfg.moe.num_shared_experts:
+            moe_layers["sg"] = (None, None, "tp")
+            moe_layers["su"] = (None, None, "tp")
+            moe_layers["sd"] = (None, "tp", None)
+        specs["moe_layers"] = moe_layers
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "tp")
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, kv_quantize: str = "") -> dict:
+    """JAX's ``cache_specs``: pages over the kv-head axis; int8 scale
+    planes with their values; the MLA latent cache replicated."""
+    if _latent_cache(cfg):
+        return {"k": (None,) * 5, "v": (None,) * 5}
+    if kv_quantize:
+        spec = {"q": (None, None, None, "tp", None), "scale": (None, None, None, "tp")}
+        return {"k": spec, "v": spec}
+    return {"k": (None, None, None, "tp", None), "v": (None, None, None, "tp", None)}
+
+
+def state_specs(cfg: ModelConfig, quantize: str = "") -> dict[str, tuple]:
+    """The spec of every entry of a ``Llama`` state dict (layer leaves
+    without JAX's layer axis; a quantized weight's ``.q`` and ``.scale`` by
+    ``quantize_specs``)."""
+    specs = param_specs(cfg)
+    if quantize:
+        specs = quantize_specs(specs, quantize)
+    dense, _ = _layer_split(cfg)
+    out: dict[str, tuple] = {}
+
+    def add(key: str, spec, drop: int) -> None:
+        if isinstance(spec, dict):
+            for part, s in spec.items():
+                out[f"{key}.{part}"] = tuple(s)[drop:]
+        else:
+            out[key] = tuple(spec)[drop:]
+
+    for name in ("embed", "final_norm", "lm_head"):
+        if name in specs:
+            add(name, specs[name], 0)
+    for i in range(cfg.num_layers):
+        stack = specs["moe_layers" if i >= dense else "layers"]
+        for name, spec in stack.items():
+            add(f"layers.{i}.{name}", spec, 1)
+    return out
+
+
+def _row_sharded(spec: tuple) -> str | None:
+    """The axis a ``[..., In, Out]`` weight's contraction rows shard over."""
+    return spec[-2] if len(spec) >= 2 else None
+
+
+def local_state(state: dict[str, torch.Tensor], cfg: ModelConfig, mesh: Mesh | None,
+                quantize: str = "") -> dict[str, torch.Tensor]:
+    """This rank's shards of a full ``Llama`` state dict (``shard_params``
+    by ``state_specs``). An int4 weight whose contraction rows shard keeps
+    the scale groups of its rows: its group size must divide In/tp, else
+    a group would straddle two ranks and this raises; a weight with one
+    whole-axis group keeps that group on every rank."""
+    if mesh is None or mesh.size == 1:
+        return state
+    specs = state_specs(cfg, quantize)
+    out: dict[str, torch.Tensor] = {}
+    for key, t in state.items():
+        spec = specs[key]
+        if quantize == "int4" and key.endswith(".scale"):
+            axis = _row_sharded(specs[key[: -len("scale")] + "q"])
+            n = 1 if axis is None else mesh.shape[axis]
+            G = t.shape[-3]
+            if n > 1 and G > 1:
+                if G % n:
+                    raise ValueError(
+                        f"{key}: {G} int4 scale groups do not divide over {axis}={n}: "
+                        "a group would straddle a shard boundary (the group size "
+                        "must divide In/tp)")
+                spec = (*spec[:-3], axis, *spec[-2:])
+        out[key] = shard_tensor(t, spec, mesh)
+    return out
+
+
+def _full_shape(shape, spec: tuple, mesh: Mesh | None) -> tuple[int, ...]:
+    """A shard's full shape under ``spec``."""
+    if mesh is None:
+        return tuple(shape)
+    return tuple(s * (1 if d >= len(spec) or spec[d] is None else mesh.shape[spec[d]])
+                 for d, s in enumerate(shape))
+
+
+def _reduce(x: torch.Tensor, mesh: Mesh | None, axis: str) -> torch.Tensor:
+    """The sum of a partial result over ``axis`` (x itself at one rank)."""
+    return x if mesh is None else all_reduce_sum(x, mesh, axis)
+
+
 class PagedKVCache:
     """The paged KV cache: ``k`` and ``v`` are ``[L, N, P, K, D]``, the JAX
     layout, and attention reads the contiguous per-layer view
@@ -154,7 +373,9 @@ class PagedKVCache:
     scales at 1.0, as JAX's ``make_cache`` makes them. The MLA latent
     layout (JAX's too) holds one latent per token, ``k`` ``[L, N, P, 1,
     DL]``, which attention reads as both keys and values, beside a
-    ``[L, N, P, 1, 1]`` placeholder ``v`` that nothing writes.
+    ``[L, N, P, 1, 1]`` placeholder ``v`` that nothing writes. At ``tp`` > 1
+    each rank holds its K/tp kv heads (the scale planes with them); the
+    latent cache is whole on every rank (``cache_specs``).
 
     One scratch slot lies just past the end of each buffer (and of each
     scale plane). A write that JAX drops with its past-the-end index (an
@@ -166,6 +387,7 @@ class PagedKVCache:
     def __init__(
         self, cfg: ModelConfig, num_pages: int, page_size: int,
         dtype: torch.dtype, device: torch.device, kv_quantize: str = "",
+        tp: int = 1,
     ):
         if kv_quantize not in KV_QUANTIZE_MODES:
             raise ValueError(f"kv_quantize={kv_quantize!r}: only 'int8' is supported")
@@ -176,7 +398,9 @@ class PagedKVCache:
         if self.latent:
             K, D, Dv = 1, cfg.mla.latent_dim, 1
         else:
-            K, D = cfg.num_kv_heads, cfg.head_dim_
+            if cfg.num_kv_heads % tp:
+                raise ValueError(f"{cfg.num_kv_heads} kv heads do not divide over tp={tp}")
+            K, D = cfg.num_kv_heads // tp, cfg.head_dim_
             Dv = D
         self.num_pages, self.page_size = num_pages, page_size
         self.layer_slots = num_pages * page_size
@@ -271,22 +495,27 @@ def _linear(
 class DecoderLayer(nn.Module):
     """One layer: attention (GQA, or MLA with ``cfg.mla``) and an MLP, dense
     or, with ``moe``, the routed experts stacked ``[E, in, out]`` (and the
-    shared experts) of ``cfg.moe``."""
+    shared experts) of ``cfg.moe``. With a ``mesh``, this rank's shard of
+    it (the module docstring)."""
 
     def __init__(
         self, cfg: ModelConfig, dtype: torch.dtype, device: torch.device,
-        quantize: str = "", moe: bool = False,
+        quantize: str = "", moe: bool = False, mesh: Mesh | None = None,
     ):
         super().__init__()
-        d, f = cfg.hidden_size, cfg.intermediate_size
-        self.moe = moe
+        tp = 1 if mesh is None else mesh.shape[AXES.tp]
+        ep = 1 if mesh is None else mesh.shape[AXES.ep]
+        d, f = cfg.hidden_size, cfg.intermediate_size // tp
+        self.moe, self.mesh, self.tp = moe, mesh, tp
+        # This rank's query and kv heads.
+        self.heads, self.kv_heads = cfg.num_heads // tp, cfg.num_kv_heads // tp
 
         def linear(In: int, Out: int, lead: tuple[int, ...] = ()):
             return _linear(In, Out, dtype, device, quantize, lead)
 
         self.attn_norm = _vector(d, dtype, device)
         if cfg.mla is not None:
-            m, H = cfg.mla, cfg.num_heads
+            m, H = cfg.mla, self.heads
             dq = m.qk_head_dim
             if m.q_lora_rank:
                 self.wdq = linear(d, m.q_lora_rank)                  # q_a_proj
@@ -301,14 +530,15 @@ class DecoderLayer(nn.Module):
             # o_proj over the padded head dim: the pad rows meet v's zeros.
             self.wo = linear(H * dq, d)
         else:
-            self.wq = linear(d, cfg.q_size)
-            self.wk = linear(d, cfg.kv_size)
-            self.wv = linear(d, cfg.kv_size)
-            self.wo = linear(cfg.q_size, d)
+            q_size, kv_size = cfg.q_size // tp, cfg.kv_size // tp
+            self.wq = linear(d, q_size)
+            self.wk = linear(d, kv_size)
+            self.wv = linear(d, kv_size)
+            self.wo = linear(q_size, d)
             if cfg.attn_bias:
-                self.bq = _vector(cfg.q_size, dtype, device)
-                self.bk = _vector(cfg.kv_size, dtype, device)
-                self.bv = _vector(cfg.kv_size, dtype, device)
+                self.bq = _vector(q_size, dtype, device)
+                self.bk = _vector(kv_size, dtype, device)
+                self.bv = _vector(kv_size, dtype, device)
             if cfg.qk_norm:
                 self.qn = _vector(cfg.head_dim_, dtype, device)
                 self.kn = _vector(cfg.head_dim_, dtype, device)
@@ -319,16 +549,18 @@ class DecoderLayer(nn.Module):
             self.wd = linear(f, d)
             return
         m = cfg.moe
-        fe, E = m.expert_intermediate_size or f, m.num_experts
+        fe, E = (m.expert_intermediate_size or cfg.intermediate_size) // tp, m.num_experts
         # The router stays f32: tiny, and top-k is precision-sensitive.
         self.router = nn.Parameter(
             torch.empty(d, E, dtype=torch.float32, device=device), requires_grad=False
         )
         if m.scoring_func == "sigmoid":
             self.router_bias = _vector(E, torch.float32, device)
-        self.eg = linear(d, fe, (E,))
-        self.eu = linear(d, fe, (E,))
-        self.ed = linear(fe, d, (E,))
+        # This rank's experts: E/ep of them, from expert0 on.
+        self.expert0 = (0 if mesh is None else mesh.coords[AXES.ep]) * (E // ep)
+        self.eg = linear(d, fe, (E // ep,))
+        self.eu = linear(d, fe, (E // ep,))
+        self.ed = linear(fe, d, (E // ep,))
         if m.num_shared_experts:
             fs = fe * m.num_shared_experts
             self.sg = linear(d, fs)
@@ -343,11 +575,11 @@ class DecoderLayer(nn.Module):
         if cfg.mla is not None:
             return self.qkv_mla(h, cfg, cos, sin, plain)
         B, S, _ = h.shape
-        K, D = cfg.num_kv_heads, cfg.head_dim_
-        q, k, v = (_mm(h, w, plain) for w in (self.wq, self.wk, self.wv))
+        K, D = self.kv_heads, cfg.head_dim_
+        q, k, v = (self.col(h, w, plain) for w in (self.wq, self.wk, self.wv))
         if cfg.attn_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q, k = q.view(B, S, cfg.num_heads, D), k.view(B, S, K, D)
+        q, k = q.view(B, S, self.heads, D), k.view(B, S, K, D)
         if cfg.qk_norm:
             # Qwen3: per-head RMSNorm over the head dim, before RoPE.
             q = rms_norm(q, self.qn, cfg.rms_norm_eps)
@@ -367,10 +599,10 @@ class DecoderLayer(nn.Module):
         dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
         if m.q_lora_rank:
             cq = rms_norm(_mm(h, self.wdq, plain), self.q_norm, cfg.rms_norm_eps)
-            q = _mm(cq, self.wuq, plain)
+            q = self.col(cq, self.wuq, plain)
         else:
-            q = _mm(h, self.wq, plain)
-        q = q.view(B, S, cfg.num_heads, dn + dr)
+            q = self.col(h, self.wq, plain)
+        q = q.view(B, S, self.heads, dn + dr)
         return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
 
     def mla_kv_latent(self, h, cfg: ModelConfig, cos, sin, plain: bool = False):
@@ -391,11 +623,11 @@ class DecoderLayer(nn.Module):
         ``_qkv_mla(with_latent=True)``)."""
         m = cfg.mla
         B, S, _ = h.shape
-        H, dn, dr, dv = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+        H, dn, dr, dv = self.heads, m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
         q_nope, q_rope = self.mla_q(h, cfg, cos, sin, plain)
         q = torch.cat([q_nope, q_rope], dim=-1) * _yarn_q_scale(cfg)
         ckv, k_rope = self.mla_kv_latent(h, cfg, cos, sin, plain)
-        kv = _mm(ckv, self.wukv, plain).view(B, S, H, dn + dv)
+        kv = self.col(ckv, self.wukv, plain).view(B, S, H, dn + dv)
         k = torch.cat([kv[..., :dn], k_rope.expand(B, S, H, dr)], dim=-1)
         v = torch.cat([kv[..., dn:], kv.new_zeros(B, S, H, dn + dr - dv)], dim=-1)
         if with_latent:
@@ -410,7 +642,7 @@ class DecoderLayer(nn.Module):
         attention scales by DL^-1/2, so q_lat carries sqrt(DL / dq) and
         YaRN's correction to restore dq^-1/2."""
         m = cfg.mla
-        H, dn, dv, rkv = cfg.num_heads, m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank
+        H, dn, dv, rkv = self.heads, m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank
         q_nope, q_rope = self.mla_q(h, cfg, cos, sin, plain)
         w = _dense_weight(self.wukv)
         ct = torch.promote_types(q_nope.dtype, w.dtype)
@@ -436,10 +668,18 @@ class DecoderLayer(nn.Module):
         o = torch.cat([o, o.new_zeros(B, S, H, m.qk_head_dim - dv)], dim=-1)
         return o.reshape(B, S, H * m.qk_head_dim).to(ctx.dtype)
 
+    def col(self, h: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
+        return _col(h, w, plain, self.tp)
+
+    def row(self, h: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
+        """A row-parallel product: ``_mm`` over this rank's input rows, the
+        partial sums all-reduced over ``tp``."""
+        return _reduce(_mm(h, w, plain), self.mesh, AXES.tp)
+
     # -- MLPs ---------------------------------------------------------------
     def mlp(self, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        gate = F.silu(_mm(h, self.wg, plain)) * _mm(h, self.wu, plain)
-        return _mm(gate, self.wd, plain)
+        gate = F.silu(self.col(h, self.wg, plain)) * self.col(h, self.wu, plain)
+        return self.row(gate, self.wd, plain)
 
     def moe_mlp(
         self, h: torch.Tensor, cfg: ModelConfig, plain: bool = False,
@@ -456,7 +696,12 @@ class DecoderLayer(nn.Module):
         balance loss or None). bf16/f32 experts run as batched products
         over the stacked weights; quantized ones, in the all-experts form,
         one 2-D slice a call through ``_mm``. No step here reads the device
-        from the host, so the form runs inside a captured graph."""
+        from the host, so the form runs inside a captured graph.
+
+        With a mesh, this rank's E/ep experts (of fe/tp columns) add their
+        terms, and the sum is all-reduced over ``ep`` and, with the shared
+        experts' partial sums, over ``tp``: the same sum in another
+        order."""
         m = cfg.moe
         E, k = m.num_experts, m.num_experts_per_token
         B, S, d = h.shape
@@ -489,36 +734,47 @@ class DecoderLayer(nn.Module):
             f_e = (sel / k).mean(dim=(0, 1))
             aux = E * (f_e * probs.mean(dim=(0, 1))).sum()
         T, x = B * S, h.reshape(B * S, d)
+        El, e0 = self.eg.shape[0], self.expert0
         if 0 < m.grouped_dispatch_min_tokens <= T:
+            if self.mesh is not None:
+                raise ValueError(
+                    "the grouped MoE dispatch is training's; it does not run at a "
+                    "mesh yet (ROADMAP item 11 (b))")
             out = self._moe_grouped_dispatch(x, cfg, vals.reshape(T, k), idx.reshape(T, k))
         elif isinstance(self.eg, QuantizedBase):
             # JAX's scan: one expert at a time into an h.dtype accumulator.
             combine = torch.zeros_like(probs).scatter_(-1, idx, vals)
             combine = combine.view(T, E).T.to(h.dtype)                # [E, T]
             out = torch.zeros_like(x)
-            for e in range(E):
-                y = _mm(F.silu(_mm(x, _expert(self.eg, e), plain))
-                        * _mm(x, _expert(self.eu, e), plain),
+            for e in range(El):
+                y = _mm(F.silu(self.col(x, _expert(self.eg, e), plain))
+                        * self.col(x, _expert(self.eu, e), plain),
                         _expert(self.ed, e), plain)
-                out = out + combine[e, :, None] * y
+                out = out + combine[e0 + e, :, None] * y
         else:
-            xe = x.expand(E, *x.shape)
+            xe = x.expand(El, *x.shape)
             y = torch.bmm(F.silu(torch.bmm(xe, self.eg)) * torch.bmm(xe, self.eu), self.ed)
             # The same sum in k adds, not E: an expert a token did not
             # select adds a zero, so the scan's sum is the k selected terms
             # in ascending expert order, rounded to h.dtype after each add.
+            # Another rank's expert adds a zero here too.
             order, perm = idx.reshape(T, k).sort(-1)
             c = vals.reshape(T, k).gather(-1, perm).to(h.dtype)
+            if El < E:
+                order = order - e0
+                c = torch.where((order >= 0) & (order < El), c, 0.0)
+                order = order.clamp(0, El - 1)
             terms = c[..., None] * y.transpose(0, 1).gather(1, order[..., None].expand(T, k, d))
             out = terms[:, 0]
             for j in range(1, k):
                 out = out + terms[:, j]
-        out = out.view(B, S, d)
+        out = _reduce(out.view(B, S, d), self.mesh, AXES.ep)
         if m.num_shared_experts:
             out = out + _mm(
-                F.silu(_mm(h, self.sg, plain)) * _mm(h, self.su, plain), self.sd, plain
+                F.silu(self.col(h, self.sg, plain)) * self.col(h, self.su, plain), self.sd,
+                plain,
             )
-        return out, aux
+        return _reduce(out, self.mesh, AXES.tp), aux
 
     def _moe_grouped_dispatch(
         self, x: torch.Tensor, cfg: ModelConfig, vals: torch.Tensor, idx: torch.Tensor,
@@ -567,12 +823,18 @@ class Llama(nn.Module):
     quantized form (``init_random``). With tied embeddings there is no
     ``lm_head``: the head is ``x @ embed.T``, full precision under
     ``quantize`` too. Layers ``moe_layer_start`` and on are MoE layers
-    under ``cfg.moe``."""
+    under ``cfg.moe``.
+
+    ``mesh`` (``parallel.mesh``, more than one rank): this rank's shard
+    (the module docstring). A seed draws each full parameter from the same
+    generator as the one-rank model, one at a time, and keeps this rank's
+    slice, so the shards are slices of the one-rank model;
+    ``load_full_state_dict`` slices a full state dict the same way."""
 
     def __init__(
         self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device | None = None, seed: int | None = 0,
-        quantize: str = "",
+        quantize: str = "", mesh: Mesh | None = None,
     ):
         super().__init__()
         _check_mla(cfg)
@@ -582,21 +844,41 @@ class Llama(nn.Module):
                 "(per-channel) and 'int4' (group-wise)"
             )
         device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        _check_shards(cfg, self.mesh)
+        self.tp = 1 if self.mesh is None else self.mesh.shape[AXES.tp]
         self.cfg, self.dtype, self.quantize = cfg, dtype, quantize
-        d, v = cfg.hidden_size, cfg.vocab_size
+        d, v = cfg.hidden_size, cfg.vocab_size // self.tp
         self.embed = nn.Parameter(
             torch.empty(v, d, dtype=dtype, device=device), requires_grad=False
         )
         dense, _ = _layer_split(cfg)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, dtype, device, quantize, moe=i >= dense)
+            DecoderLayer(cfg, dtype, device, quantize, moe=i >= dense, mesh=self.mesh)
             for i in range(cfg.num_layers)
         )
         self.final_norm = _vector(d, dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = _linear(d, v, dtype, device, quantize)
+        self._specs = state_specs(cfg, quantize) if self.mesh is not None else {}
         if seed is not None:
             self.init_random(seed)
+
+    def _local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a full tensor drawn for ``name``."""
+        if self.mesh is None:
+            return full
+        return shard_tensor(full, self._specs[name], self.mesh)
+
+    def _shape(self, name: str, shape) -> tuple[int, ...]:
+        """The full shape of the entry ``name`` whose shard has ``shape``."""
+        return _full_shape(shape, self._specs.get(name, ()), self.mesh)
+
+    def load_full_state_dict(self, state: dict[str, torch.Tensor]) -> None:
+        """Load a full (one-rank) state dict: each entry sliced to this
+        rank's shard (``local_state``), e.g. ``models.convert``'s
+        ``params_from_jax`` of a JAX tree."""
+        self.load_state_dict(local_state(state, self.cfg, self.mesh, self.quantize))
 
     def _fan_in(self, name: str, shape) -> int:
         """The fan-in of a weight's init: its contraction dim ([in, out]
@@ -628,20 +910,21 @@ class Llama(nn.Module):
             if leaf in ("bq", "bk", "bv", "router_bias"):
                 p.zero_()
                 continue
-            p.copy_(
-                torch.randn(
-                    p.shape, generator=gen, device=p.device, dtype=torch.float32
-                ).mul_(self._fan_in(name, p.shape) ** -0.5)
-            )
+            shape = self._shape(name, p.shape)
+            p.copy_(self._local(name, torch.randn(
+                shape, generator=gen, device=p.device, dtype=torch.float32
+            ).mul_(self._fan_in(name, shape) ** -0.5)))
         for name, w in self.named_modules():
             if not isinstance(w, QuantizedBase):
                 continue
-            shape = w.shape
+            shape = self._shape(f"{name}.q", w.shape)
             top = 7 if isinstance(w, QuantizedLinear4) else 127
-            codes = torch.randint(
+            # The logical codes' slice, then packing: a shard's packed rows
+            # are the packed rows of its logical rows.
+            codes = self._local(f"{name}.q", torch.randint(
                 -top, top + 1, tuple(shape), generator=gen, device=w.q.device,
                 dtype=torch.int8,
-            )
+            ))
             w.q.copy_(pack_int4(codes) if top == 7 else codes)
             # std(U[-top, top]) = top / sqrt(3), matched to fan_in^-1/2.
             w.scale.fill_(self._fan_in(name, shape) ** -0.5 * 3.0 ** 0.5 / top)
@@ -652,7 +935,7 @@ class Llama(nn.Module):
     ) -> PagedKVCache:
         return PagedKVCache(
             self.cfg, num_pages, page_size, self.dtype, self.embed.device,
-            kv_quantize,
+            kv_quantize, tp=self.tp,
         )
 
     def _rope(self, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -668,7 +951,7 @@ class Llama(nn.Module):
         or None)."""
         eps = self.cfg.rms_norm_eps
         h = rms_norm(x, layer.attn_norm, eps)
-        x = x + _mm(attn_fn(h, layer, li), layer.wo, plain)
+        x = x + layer.row(attn_fn(h, layer, li), layer.wo, plain)
         h = rms_norm(x, layer.mlp_norm, eps)
         if layer.moe:
             y, aux = layer.moe_mlp(h, self.cfg, plain, with_aux)
@@ -700,11 +983,29 @@ class Llama(nn.Module):
             aux = x.new_zeros((), dtype=torch.float32)
         return x, aux
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens`` in the model's dtype. At tp > 1
+        the vocab-parallel lookup: ids outside this rank's rows give zeros,
+        and the ranks' rows are all-reduced (one of them is not zero)."""
+        if self.tp == 1:
+            return self.embed[tokens].to(self.dtype)
+        rows = self.embed.shape[0]
+        local = tokens - self.mesh.coords[AXES.tp] * rows
+        mine = (local >= 0) & (local < rows)
+        x = torch.where(mine[..., None], self.embed[local.clamp(0, rows - 1)], 0.0)
+        return _reduce(x.to(self.dtype), self.mesh, AXES.tp)
+
     def _lm_head(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        """f32 logits over the whole vocab; at tp > 1 each rank's vocab
+        columns all-gathered over ``tp``."""
         x = rms_norm(x, self.final_norm, self.cfg.rms_norm_eps)
         if self.cfg.tie_embeddings:
-            return (x @ self.embed.T.to(x.dtype)).float()
-        return _mm(x, self.lm_head, plain).float()
+            logits = (x @ self.embed.T.to(x.dtype)).float()
+        else:
+            logits = _col(x, self.lm_head, plain, self.tp).float()
+        if self.tp == 1:
+            return logits
+        return all_gather(logits, self.mesh, AXES.tp, dim=-1)
 
     def forward_full(
         self, tokens: torch.Tensor, return_aux: bool = False, remat: bool = False,
@@ -721,9 +1022,7 @@ class Llama(nn.Module):
             q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain=True)
             return causal_prefill_attention(q, k, v).reshape(B, S, -1)
 
-        x, aux = self._run_stack(
-            self.embed[tokens].to(self.dtype), attn_fn, True, return_aux, remat
-        )
+        x, aux = self._run_stack(self._embed(tokens), attn_fn, True, return_aux, remat)
         logits = self._lm_head(x, True)
         return (logits, aux) if return_aux else logits
 
@@ -734,17 +1033,23 @@ class Llama(nn.Module):
         cache: PagedKVCache,
         page_table: torch.Tensor,   # [B, MaxP] int32
         plain: bool = False,
+        prefill_attn=None,
     ) -> torch.Tensor:
         """JAX's ``prefill``: a fresh prompt's full-sequence forward that
-        attends causally over the fresh K/V (``causal_prefill_attention``),
+        attends causally over the fresh K/V (``causal_prefill_attention``,
+        or ``prefill_attn(q, k, v, lengths)``: the engine passes ring
+        attention over ``sp``, ``parallel.ring.make_ring_attention``),
         writes each row's valid K/V at position 0 on (MLA: attends in the
         materialized form and writes only the latent to a latent cache), and
         returns the logits of each row's last valid position [B, V] f32.
-        The engine does not call it: every split-lane chunk, a fresh
-        prompt's too, runs ``prefill_with_prefix`` with ``start`` 0, through
-        the ragged kernels. It is plain PyTorch throughout, so on a CUDA
-        tensor it raises unless ``plain`` asks for that reference."""
-        if tokens.is_cuda and not plain:
+        Without ``prefill_attn`` the engine does not call it: every
+        split-lane chunk, a fresh prompt's too, runs ``prefill_with_prefix``
+        with ``start`` 0, through the ragged kernels; and the causal
+        attention is plain PyTorch, so on a CUDA tensor it raises unless
+        ``plain`` asks for that reference. With ``prefill_attn`` (the
+        engine's fresh chunks at sp > 1) the projections run as the other
+        entry points' do."""
+        if tokens.is_cuda and not plain and prefill_attn is None:
             raise ValueError(
                 "Llama.prefill attends in plain PyTorch; on the card the engine "
                 "prefills through prefill_with_prefix (start 0) and its kernels "
@@ -759,16 +1064,32 @@ class Llama(nn.Module):
 
         def attn_fn(h, layer, li):
             if cache.latent:
-                q, k, v, latent = layer.qkv_mla(h, self.cfg, cos, sin, True, with_latent=True)
+                q, k, v, latent = layer.qkv_mla(h, self.cfg, cos, sin, plain,
+                                                with_latent=True)
                 cache.write(li, latent, None, flat)
             else:
-                q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, True)
+                q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain)
                 cache.write(li, k, v, flat)
+            if prefill_attn is not None:
+                return prefill_attn(q, k, v, lengths).reshape(B, S, -1)
             return causal_prefill_attention(q, k, v).reshape(B, S, -1)
 
-        x, _ = self._run_stack(self.embed[tokens].to(self.dtype), attn_fn, True)
+        x, _ = self._run_stack(self._embed(tokens), attn_fn, plain)
         last = (lengths.long() - 1).clamp(0, S - 1)
-        return self._lm_head(x[torch.arange(B, device=x.device), last], True)
+        return self._lm_head(x[torch.arange(B, device=x.device), last], plain)
+
+    def _shard_contract(self, backend: str) -> dict:
+        return dict(tp=self.tp, num_heads=self.cfg.num_heads,
+                    num_kv_heads=self.cfg.num_kv_heads, backend=backend)
+
+    def _ragged(self, attention, backend: str):
+        """The ragged attention of this rank: ``attention``, or at tp > 1 the
+        tensor-parallel wrapper of the backend's kernel over this rank's
+        heads (not the latent cache's, whose one kv head every rank
+        holds)."""
+        if self.tp == 1 or _latent_cache(self.cfg):
+            return attention
+        return partial(paged_ragged_attention_tp, **self._shard_contract(backend))
 
     def _paged_hidden(
         self, tokens: torch.Tensor, start: torch.Tensor, q_lens: torch.Tensor,
@@ -805,7 +1126,7 @@ class Llama(nn.Module):
             )
             return attn.reshape(B, S, -1)
 
-        x, _ = self._run_stack(self.embed[tokens].to(self.dtype), attn_fn, plain)
+        x, _ = self._run_stack(self._embed(tokens), attn_fn, plain)
         return x
 
     def _paged_forward(
@@ -838,7 +1159,7 @@ class Llama(nn.Module):
         inputs. Rejected positions' K/V is overwritten later, since the
         write offset advances by the accepted count only; positions past
         ``valid`` write nothing and their logits are not read."""
-        attention = partial(paged_prefix_attention, backend=backend)
+        attention = self._ragged(partial(paged_prefix_attention, backend=backend), backend)
         x = self._paged_hidden(tokens, start, valid, cache, page_table, plain, attention)
         return self._lm_head(x, plain)
 
@@ -858,7 +1179,7 @@ class Llama(nn.Module):
         ``paged_prefix_attention`` (the ``backend``'s ragged kernel on the
         card). Returns the last valid tail position's logits [B, V] f32;
         rows with length 0 write nothing."""
-        attention = partial(paged_prefix_attention, backend=backend)
+        attention = self._ragged(partial(paged_prefix_attention, backend=backend), backend)
         return self._paged_forward(tokens, start, lengths, cache, page_table, plain, attention)
 
     def mixed_step(
@@ -879,7 +1200,7 @@ class Llama(nn.Module):
         "grid"); ``plain`` runs attention and the quantized matmuls through
         their plain PyTorch versions."""
         return self._paged_forward(tokens, start, q_lens, cache, page_table, plain,
-                                   PAGED_BACKENDS[backend][0])
+                                   self._ragged(PAGED_BACKENDS[backend][0], backend))
 
     def decode_step(
         self,
@@ -895,6 +1216,8 @@ class Llama(nn.Module):
         ``lengths`` and returns the next-token logits [B, V] f32
         (``backend`` and ``plain`` as in ``mixed_step``)."""
         decode_attention = PAGED_BACKENDS[backend][1]
+        if self.tp > 1 and not cache.latent:
+            decode_attention = partial(paged_decode_attention_tp, **self._shard_contract(backend))
         B = tokens.shape[0]
         cos, sin = self._rope(lengths.long()[:, None])
         valid = active.to(torch.int32)
@@ -922,7 +1245,5 @@ class Llama(nn.Module):
             )
             return attn.reshape(B, 1, -1)
 
-        x, _ = self._run_stack(
-            self.embed[tokens[:, None]].to(self.dtype), attn_fn, plain
-        )
+        x, _ = self._run_stack(self._embed(tokens[:, None]), attn_fn, plain)
         return self._lm_head(x[:, 0], plain)

@@ -155,6 +155,35 @@ def quantize_weight4(w: torch.Tensor, group: int = INT4_GROUP) -> QuantizedLinea
     return QuantizedLinear4(pack_int4(q.reshape(*lead, In, Out)), scale.float())
 
 
+def quantize_specs(specs: dict, mode: str = "int8") -> dict:
+    """JAX's ``quantize_specs`` over the port's spec tables
+    (``models.llama.param_specs``): each quantized leaf's spec becomes
+    ``{"q": spec, "scale": scale spec}``. The codes keep the weight's
+    spec; an int8 scale ``[..., 1, out]`` drops the contraction axis's
+    entry and shards with the output axis; an int4 scale ``[..., G, 1,
+    out]`` replicates over its group and broadcast axes (tiny, and
+    sharding G would tie every model dim to tp), the output axis following
+    the weight."""
+
+    def walk(tree: dict) -> dict:
+        out: dict = {}
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                out[key] = walk(leaf)
+            elif key in _QUANT_KEYS:
+                parts = list(leaf)
+                if mode == "int4":
+                    scale = (*parts[:-2], None, None, parts[-1])
+                else:
+                    scale = (*parts[:-2], None, parts[-1])
+                out[key] = {"q": tuple(leaf), "scale": scale}
+            else:
+                out[key] = leaf
+        return out
+
+    return walk(specs)
+
+
 def quantize_params(
     state: dict[str, torch.Tensor], mode: str = "int8"
 ) -> dict[str, torch.Tensor]:

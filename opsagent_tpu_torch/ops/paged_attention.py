@@ -500,3 +500,70 @@ PAGED_BACKENDS = {
     "dma": (paged_ragged_attention_cuda, paged_decode_attention_cuda),
     "grid": (paged_ragged_attention_grid_cuda, paged_decode_attention_grid_cuda),
 }
+
+
+# -- tensor parallelism (JAX's paged_*_attention_pallas_tp) --------------------
+def _check_shard(q_heads: int, pages, tp: int, num_heads: int, num_kv_heads: int) -> None:
+    """The shard contract of a tensor-parallel call: the model's heads and
+    kv heads divide over ``tp``, this rank holds H/tp query heads and
+    K/tp kv heads, so each shard keeps the model's G = H/K."""
+    if tp < 1 or num_heads % tp or num_kv_heads % tp:
+        raise ValueError(f"{num_heads} heads / {num_kv_heads} kv heads do not divide "
+                         f"over tp={tp}")
+    kv_heads = _planes(pages)[0].shape[-2]
+    if q_heads != num_heads // tp or kv_heads != num_kv_heads // tp:
+        raise ValueError(
+            f"shard holds {q_heads} query and {kv_heads} kv heads: at tp={tp} a shard "
+            f"of {num_heads}/{num_kv_heads} heads holds {num_heads // tp}/"
+            f"{num_kv_heads // tp}")
+    if q_heads // kv_heads != num_heads // num_kv_heads:
+        raise ValueError(f"a shard's group {q_heads}/{kv_heads} is not the model's "
+                         f"{num_heads}/{num_kv_heads}")
+
+
+def paged_ragged_attention_tp(
+    q: torch.Tensor,            # [B, S, H/tp, D] this rank's query heads
+    k_pages,                    # [N, P, K/tp, D] (or [L, ...] with layer)
+    v_pages,
+    page_table: torch.Tensor,   # [B, MaxP] int32, the same on every rank
+    start: torch.Tensor,        # [B] int32
+    q_lens: torch.Tensor,       # [B] int32
+    *,
+    tp: int,
+    num_heads: int,
+    num_kv_heads: int,
+    layer: int | None = None,
+    backend: str = "dma",
+    plain: bool = False,
+) -> torch.Tensor:
+    """JAX's ``paged_ragged_attention_pallas_tp`` under SPMD: each rank runs
+    the ``backend``'s ragged kernel (``PAGED_BACKENDS``) on its own query
+    heads against its own kv heads. The GQA groups stay whole in each
+    shard, so no collective is needed (the all-reduce comes at ``wo``).
+    Checks the shard contract; the kernel raises on a shape it does not
+    take, and a CUDA tensor never takes the plain version unasked."""
+    _check_shard(q.shape[-2], k_pages, tp, num_heads, num_kv_heads)
+    return PAGED_BACKENDS[backend][0](q, k_pages, v_pages, page_table, start, q_lens,
+                                      layer=layer, plain=plain)
+
+
+def paged_decode_attention_tp(
+    q: torch.Tensor,            # [B, H/tp, D] this rank's query heads
+    k_pages,                    # [N, P, K/tp, D] (or [L, ...] with layer)
+    v_pages,
+    page_table: torch.Tensor,   # [B, MaxP] int32, the same on every rank
+    lengths: torch.Tensor,      # [B] int32
+    *,
+    tp: int,
+    num_heads: int,
+    num_kv_heads: int,
+    layer: int | None = None,
+    backend: str = "dma",
+    plain: bool = False,
+) -> torch.Tensor:
+    """JAX's ``paged_decode_attention_pallas_tp`` under SPMD: the
+    ``backend``'s decode kernel on this rank's heads, as
+    ``paged_ragged_attention_tp``."""
+    _check_shard(q.shape[-2], k_pages, tp, num_heads, num_kv_heads)
+    return PAGED_BACKENDS[backend][1](q, k_pages, v_pages, page_table, lengths,
+                                      layer=layer, plain=plain)

@@ -182,3 +182,24 @@ def _launch(x: torch.Tensor, w: QuantizedBase, instance: str, block_n: int,
     LAUNCHES[name] += 1
     INSTANCE_LAUNCHES[f"quant_matmul_{instance}"] += 1
     return y
+
+
+def quant_matmul_tp(
+    x: torch.Tensor,            # [T, In] the whole input, on every rank
+    w: QuantizedBase,           # this rank's columns: [In, Out/tp]
+    plain: bool = False,
+) -> torch.Tensor:
+    """JAX's ``quant_matmul_pallas_tp``, the column-parallel form, under
+    SPMD: ``w`` holds this rank's output columns (its scales with them),
+    ``x`` is whole, and each rank's kernel call emits its own output
+    columns [T, Out/tp]; no collective. Checks the shard contract (x's
+    contraction axis whole; an int4 weight's scale groups whole over it);
+    ``quant_matmul_cuda`` raises on a shape the kernel does not take."""
+    In = w.shape[-2]
+    if x.shape[-1] != In:
+        raise ValueError(f"x In={x.shape[-1]}: a column shard contracts the whole "
+                         f"input axis of {In}")
+    if isinstance(w, QuantizedLinear4) and In % w.scale.shape[-3]:
+        raise ValueError(f"{w.scale.shape[-3]} int4 scale groups split the "
+                         f"{In}-row contraction axis unevenly")
+    return quant_matmul_cuda(x, w, plain=plain)

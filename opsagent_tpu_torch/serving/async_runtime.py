@@ -383,13 +383,16 @@ class AsyncMixedRuntime:
         t_disp = time.perf_counter()
         try:
             with torch.inference_mode(), annotate("engine.mixed_step_async"):
-                step = eng._mixed_step(S)
                 eng._load_host_masks({})
                 state = eng._mixed[S]
-                state.load(tokens, starts, qlens, tables, temps, top_k, top_p, ov_fsm,
-                           emits, use_carry, carry=self._prev_state)
-                step()
-                host, event = to_host(state.out)
+                carry = next((b for b, st in eng._mixed.items() if st is self._prev_state),
+                             None)
+                out = eng._device(
+                    "mixed", S, False,
+                    (tokens, starts, qlens, tables, temps, top_k, top_p, ov_fsm, emits,
+                     use_carry), carry,
+                )
+                host, event = to_host(out)
         except Exception:
             # Salvage what the earlier ticks produced, then roll this one
             # back: its bookings are for tokens it never wrote, and its

@@ -125,6 +125,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import obs
 from ..device import resolve_device
@@ -132,6 +133,9 @@ from ..models.config import ModelConfig, resolve_model
 from ..models.llama import Llama
 from ..models.loader import load_checkpoint
 from ..ops.paged_attention import PAGED_BACKENDS
+from ..parallel.mesh import AXES, Mesh, make_mesh, rank_device
+from ..parallel.ring import make_ring_attention
+from . import faults, spmd
 from ..utils.perf import get_perf_stats
 from ..utils.profiling import annotate, device_timer
 from .async_runtime import AsyncMixedRuntime
@@ -281,6 +285,18 @@ class EngineConfig:
     # agent workload: speculation pays on repetitive continuations).
     speculative_k: int = 0
     speculative_ngram: int = 2
+    # The device mesh (parallel.mesh), JAX's fields, counted in ranks of
+    # the job (one process each, torch.distributed's world): tensor-
+    # parallel ranks (0 = every rank the other axes leave; lowered until
+    # the kv heads and the vocab divide), data-parallel ranks (replicas of
+    # every step), sequence-parallel ranks of a fresh prompt's prefill
+    # attention (ring attention; sp divides every prefill bucket), and
+    # expert-parallel ranks of a MoE model's experts. Several ranks serve
+    # in lockstep (serving.spmd): rank 0 leads, the others ``follow``.
+    tp: int = 0
+    dp: int = 1
+    sp: int = 1
+    ep: int = 1
 
 
 @dataclass
@@ -327,12 +343,17 @@ class Engine:
         """``model``: a ready ``Llama`` on the engine's device (tests and
         the reference engine share one); otherwise the weights of
         ``cfg.checkpoint`` or, without one, random weights from ``cfg.seed``
-        are built on the device."""
-        self.device = resolve_device(cfg.device)
+        are built on the device. In a job of several ranks every rank
+        builds its engine (its shard); rank 0 serves, the others
+        ``follow``."""
         self.model_cfg = model_cfg or (
             model.cfg if model is not None
             else resolve_model(cfg.model, cfg.checkpoint)
         )
+        self.mesh = self._make_mesh(cfg)
+        self._check_mesh(cfg)
+        # A rank of a job on the card serves on cuda:{LOCAL_RANK % cards}.
+        self.device = resolve_device(rank_device(cfg.device))
         if self.model_cfg.moe is not None:
             # Serving pins the exact all-experts form, as the JAX engine
             # does: a request's output must not depend on the chunking.
@@ -385,6 +406,10 @@ class Engine:
             )
         self.tokenizer = tokenizer or load_tokenizer(cfg.tokenizer, self.model_cfg.vocab_size)
         t_load = time.perf_counter()
+        if model is not None and self.mesh.size > 1 and (
+                model.mesh is None or model.mesh.shape != self.mesh.shape):
+            raise ValueError(f"the given model is not sharded over the engine's mesh "
+                             f"{self.mesh.shape}")
         with torch.inference_mode():
             self.model = model if model is not None else self._build_model()
             if self.device.type == "cuda":
@@ -505,20 +530,72 @@ class Engine:
         self._prefill_generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 2
         )
+        # sp > 1: a fresh prompt's split-lane chunk attends by ring attention
+        # over sp (JAX's prefill_attn); the mixed ticks, decode and prefix
+        # chunks stay on the paged kernels.
+        self._prefill_attn = (make_ring_attention(self.mesh)
+                              if self.mesh.shape[AXES.sp] > 1 else None)
+        # Lockstep (serving.spmd): the leader publishes every device step to
+        # the followers. ``spmd_outputs`` (a list, when set) records each
+        # op's outputs on this rank.
+        self._channel = spmd.StepChannel(self.mesh) if self.mesh.size > 1 else None
+        self._stopped = False
+        self.spmd_outputs: list | None = None
+
+    def _make_mesh(self, cfg: EngineConfig) -> Mesh:
+        """The engine's mesh: the JAX engine's validation and its fall-back
+        that lowers tp until the kv heads and the vocab divide, counting
+        the job's ranks where JAX counts devices."""
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        slots = cfg.dp * cfg.sp * cfg.ep
+        if cfg.sp > 1:
+            bad = [b for b in cfg.prefill_buckets if b % cfg.sp]
+            if bad:
+                raise ValueError(
+                    f"sp={cfg.sp} must divide every prefill bucket "
+                    f"(offending: {bad})"
+                )
+            if slots * max(1, cfg.tp) > n:
+                raise ValueError(
+                    f"dp={cfg.dp} * sp={cfg.sp} * ep={cfg.ep} * "
+                    f"tp={max(1, cfg.tp)} exceeds {n} ranks"
+                )
+        tp = cfg.tp if cfg.tp > 0 else max(1, n // slots if n % slots == 0 else 1)
+        while tp > 1 and (self.model_cfg.num_kv_heads % tp != 0
+                          or self.model_cfg.vocab_size % tp != 0):
+            tp -= 1
+        return make_mesh(tp=tp, dp=cfg.dp, sp=cfg.sp, ep=cfg.ep)
+
+    def _check_mesh(self, cfg: EngineConfig) -> None:
+        """What this slice refuses at a mesh: CUDA graphs wherever a step
+        holds a collective (tp, sp or ep > 1: the engine runs eagerly and
+        must be asked to), and the host KV tier at more than one rank."""
+        sharded = {a: self.mesh.shape[a] for a in (AXES.tp, AXES.sp, AXES.ep)
+                   if self.mesh.shape[a] > 1}
+        if sharded and cfg.cuda_graphs:
+            raise ValueError(
+                f"cuda_graphs=True at a mesh over {sharded}: the steps hold "
+                "collectives, which this engine does not capture (gloo's cannot "
+                "be); pass cuda_graphs=False to run the steps eagerly")
+        if self.mesh.size > 1 and cfg.offload:
+            raise ValueError(
+                f"offload=True at a mesh of {self.mesh.size} ranks: the host KV "
+                "tier runs on a one-rank engine only (ROADMAP item 11 (b))")
 
     def _build_model(self) -> Llama:
         """Random weights from the seed, built on the device; or the
         checkpoint's, read (and quantized) on the host, then copied into a
-        model built on the device, so the device never holds two copies."""
+        model built on the device, so the device never holds two copies.
+        At a mesh, this rank's shard of either."""
         cfg = self.cfg
         if not cfg.checkpoint:
             return Llama(self.model_cfg, cfg.dtype, self.device, seed=cfg.seed,
-                         quantize=cfg.quantize)
+                         quantize=cfg.quantize, mesh=self.mesh)
         state = load_checkpoint(cfg.checkpoint, self.model_cfg, cfg.dtype,
                                 device="cpu", quantize=cfg.quantize)
         model = Llama(self.model_cfg, cfg.dtype, self.device, seed=None,
-                      quantize=cfg.quantize)
-        model.load_state_dict(state)
+                      quantize=cfg.quantize, mesh=self.mesh)
+        model.load_full_state_dict(state)
         return model
 
     def impl_info(self) -> dict[str, str]:
@@ -531,6 +608,8 @@ class Engine:
             "quantize": self.cfg.quantize or "none",
             "kv_quantize": self.cfg.kv_quantize or "none",
             "cuda_graphs": str(self._replays()).lower(),
+            "mesh": ",".join(f"{a}={n}" for a, n in self.mesh.shape.items() if n > 1)
+                    or "one rank",
         }
 
     # -- host-side helpers ----------------------------------------------------
@@ -786,8 +865,8 @@ class Engine:
         x, V = self._extras, self.model_cfg.vocab_size
         want = {i: s for i, s in enumerate(lanes) if s is not None and self._needs_bias(s)}
         if want or self._extras_rows:
-            for i in self._extras_rows - want.keys():
-                x.bias[i].zero_()
+            bias: dict[int, np.ndarray] = {}
+            counts: dict[int, np.ndarray] = {}
             pres = np.zeros(x.pres.shape, np.float64)
             freq = np.zeros(x.freq.shape, np.float64)
             for i, s in want.items():
@@ -797,16 +876,16 @@ class Engine:
                     for tid, b in p.logit_bias:
                         if 0 <= tid < V:
                             s.static_bias[tid] += b
-                x.bias[i].copy_(torch.from_numpy(s.static_bias))
+                bias[i] = s.static_bias
                 if p.presence_penalty or p.frequency_penalty:
-                    counts = np.zeros((V,), np.float32)
+                    row = np.zeros((V,), np.float32)
                     for tid, c in self._seen(s).items():
                         if 0 <= tid < V:
-                            counts[tid] = c
-                    x.counts[i].copy_(torch.from_numpy(counts))
+                            row[tid] = c
+                    counts[i] = row
                     pres[i], freq[i] = p.presence_penalty, p.frequency_penalty
-            x.pres.copy_(torch.from_numpy(pres))
-            x.freq.copy_(torch.from_numpy(freq))
+            self._device("extras", sorted(self._extras_rows - want.keys()), bias, counts,
+                         pres, freq)
             self._extras_rows = set(want)
         return any(s is not None and s.params.logprobs for s in lanes)
 
@@ -848,16 +927,7 @@ class Engine:
         run eagerly, into buffers sized to the FSM."""
         mask, dest = fsm.dense_tables()
         t0 = time.perf_counter()
-        if mask.shape[0] > self._fsm.rows and not self._replays():
-            self._fsm = FsmTables.empty(
-                self.cfg.max_batch_size, self.model_cfg.vocab_size, mask.shape[0],
-                self.device,
-            )
-            self._host_rows = False
-        with torch.inference_mode():
-            self._fsm.load(mask, dest)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._device("fsm", mask, dest)
         self._fsm_loaded = fsm
         self.fsm_loads += 1
         self.fsm_load_s += time.perf_counter() - t0
@@ -886,7 +956,7 @@ class Engine:
         hm = np.ones(tuple(self._fsm.host_mask.shape), bool)
         for i, m in masks.items():
             hm[i] = m
-        self._fsm.host_mask.copy_(torch.from_numpy(hm))
+        self._device("host_masks", hm)
         self._host_rows = bool(masks)
 
     def _fsm_row(self, s: Sequence, on_device: bool) -> int:
@@ -956,7 +1026,7 @@ class Engine:
         return t
 
     def _prefill_chunk(self, seq_ids: list[int]) -> dict[int, bool | Exception]:
-        B, V = self.cfg.max_batch_size, self.model_cfg.vocab_size
+        B = self.cfg.max_batch_size
         if not 0 < len(seq_ids) <= B:
             raise ValueError(f"prefill batch of {len(seq_ids)} rows: expected 1.."
                              f"max_batch_size={B}")
@@ -1002,28 +1072,20 @@ class Engine:
         temps, top_k, top_p = self._sampling_arrays(lanes, B)
         extras = self._wants_extras(lanes)
         sampled = lp = None
+        want_lp = False
+        if ending:
+            self._load_host_masks(masks)
+            want_lp = extras and self._load_extras(lanes)
         t0 = time.perf_counter()
         with torch.inference_mode():
             dev_out: list = []
             with annotate("engine.prefill_chunk"), device_timer("prefill_chunk", dev_out):
-                logits = self.model.prefill_with_prefix(
-                    self._staged(tokens), self._staged(starts), self._staged(lens),
-                    self.cache, self._staged(tables), self.attn_impl == "plain",
-                    self.cfg.paged_backend,
+                tok = self._device(
+                    "prefill", tokens, starts, lens, tables,
+                    (fsm, emits, temps, top_k, top_p, extras) if ending else None,
                 )
-                dev_out.append(logits)
+                dev_out.append(tok)
                 if ending:
-                    # Every batch row samples (padding rows greedily, their
-                    # tokens discarded): the sampler's buffers are [B].
-                    rows = logits[:B] if Bp >= B else torch.cat(
-                        [logits, logits.new_zeros((B - Bp, V))])
-                    self._load_host_masks(masks)
-                    want_lp = extras and self._load_extras(lanes)
-                    tok = pick_rows(
-                        rows, self._staged(fsm), self._staged(emits), self._staged(temps),
-                        self._staged(top_k), self._staged(top_p), self._prefill_generator,
-                        self._fsm, self._extras if extras else None,
-                    )
                     sampled = tok.cpu().numpy()
                     if want_lp:
                         x = self._extras
@@ -1196,18 +1258,18 @@ class Engine:
             perf.record_metric("engine.step_host_gap", gap * 1e3, "ms")
         try:
             with torch.inference_mode():
-                step = self._mixed_step(S, extras)
                 self._load_host_masks(masks)
                 want_lp = extras and self._load_extras(lanes)
-                state = self._mixed[S]
-                state.load(tokens, starts, qlens, tables, temps, top_k, top_p, fsm, emits)
                 # Every row samples; rows whose chunk does not finish the
                 # prompt discard their token below.
-                dev_out: list = [state.out]
+                dev_out: list = [self._mixed[S].out]
                 with annotate("engine.mixed_step"), device_timer("mixed_step", dev_out):
-                    step()
+                    out = self._device(
+                        "mixed", S, extras,
+                        (tokens, starts, qlens, tables, temps, top_k, top_p, fsm, emits),
+                    )
                 self._mixed_gap_stamp = time.perf_counter()
-                sampled = state.out.cpu().numpy()
+                sampled = out.cpu().numpy()
                 if want_lp:
                     x = self._extras
                     lp = (x.mixed_lp.cpu().numpy(), x.mixed_lp_ids.cpu().numpy(),
@@ -1418,17 +1480,16 @@ class Engine:
                     n_steps = min(self._spec_steps, n_steps)
                     history = {int(lane): self._history(self.sequences[self._lanes[lane]])
                                for lane in np.flatnonzero(override)}
-                    toks_d, counts_d = speculative_block(
-                        self._decode, self._spec, self._spec_step(n_steps), ov_tok, ov_at,
-                        alive, budgets, table, n_steps, history, override=override,
+                    toks_d, counts_d = self._device(
+                        "spec", n_steps, ov_tok, ov_at, alive, budgets, table, history,
+                        override,
                     )
                     host, _ = to_host(toks_d)
                     counts, event = to_host(counts_d)
                 else:
-                    step = self._decode_step(greedy, False, n_steps)
-                    toks_d = decode_block(
-                        self._decode, step, ov_tok, ov_at, alive, budgets, table,
-                        temps, top_k, top_p, n_steps=n_steps, fsm=ov_fsm, override=override,
+                    toks_d = self._device(
+                        "decode", greedy, False, n_steps, ov_tok, ov_at, alive, budgets,
+                        table, temps, top_k, top_p, ov_fsm, override,
                     )
                     host, event = to_host(toks_d)
         get_perf_stats().record_metric(
@@ -1768,15 +1829,15 @@ class Engine:
         t_disp = time.perf_counter()
         try:
             with torch.inference_mode():
-                step = self._mixed_step(S)
                 self._load_host_masks({})
-                state = self._mixed[S]
-                state.load(tokens, starts, qlens, tables, temps, top_k, top_p, fsm, emits)
-                dev_out: list = [state.out]
+                dev_out: list = [self._mixed[S].out]
                 with annotate("engine.ffwd_step"), device_timer("ffwd_step", dev_out):
-                    step()
+                    out = self._device(
+                        "mixed", S, False,
+                        (tokens, starts, qlens, tables, temps, top_k, top_p, fsm, emits),
+                    )
                 self._mixed_gap_stamp = time.perf_counter()
-                sampled = state.out.cpu().numpy()
+                sampled = out.cpu().numpy()
         except Exception:
             # Nothing was accepted: roll every booking back.
             for s, _run in rows:
@@ -1874,9 +1935,6 @@ class Engine:
             if speculate:
                 # An iteration emits at least one token a live row.
                 n_steps = min(self._spec_steps, n_steps)
-                step = self._spec_step(n_steps)
-            else:
-                step = self._decode_step(greedy, extras, n_steps)
             self.hosted_steps += len(masks) * n_steps
             self._load_host_masks(masks)
             want_lp = extras and self._load_extras(lanes)
@@ -1884,15 +1942,15 @@ class Engine:
             with annotate("engine.decode_block"), device_timer("decode_block", dev_out):
                 if speculate:
                     history = {i: self._history(s) for i, s in enumerate(lanes) if s is not None}
-                    toks_d, counts_d = speculative_block(
-                        self._decode, self._spec, step, tokens, write_at, active, budgets,
-                        table, n_steps, history,
+                    toks_d, counts_d = self._device(
+                        "spec", n_steps, tokens, write_at, active, budgets, table, history,
+                        None,
                     )
                     counts = counts_d.cpu().numpy()
                 else:
-                    toks_d = decode_block(
-                        self._decode, step, tokens, write_at, active, budgets, table,
-                        temps, top_k, top_p, n_steps=n_steps, fsm=fsm,
+                    toks_d = self._device(
+                        "decode", greedy, extras, n_steps, tokens, write_at, active,
+                        budgets, table, temps, top_k, top_p, fsm, None,
                     )
             toks = toks_d.cpu().numpy()
             lp = None
@@ -1982,11 +2040,7 @@ class Engine:
         # count as "warmup"; once any warmup completes, one during serving
         # is an anomaly.
         with obs.flight.warmup_phase(), self.lock, torch.inference_mode():
-            self._prepare()
-            if self.attn_impl == "cuda" and not self.cfg.mixed_batching:
-                # The split lane admits every prompt: its programs run
-                # once here (eagerly; they are never captured).
-                self._warm_prefill_lane()
+            self._device("warmup")
             if self.offload is not None:
                 # Staging and pinned buffers of every copy bucket.
                 self.offload.copier.warm(self.cache)
@@ -2005,6 +2059,10 @@ class Engine:
         the paged-KV plan. Returns the manifest."""
         from .snapshot.writer import write_snapshot
 
+        if self.mesh.size > 1:
+            raise ValueError(
+                f"snapshot at a mesh of {self.mesh.size} ranks: snapshots hold one "
+                "rank's weights; sharded snapshots wait for ROADMAP item 11 (b)")
         with self.lock:
             return write_snapshot(self, path)
 
@@ -2024,6 +2082,154 @@ class Engine:
 
         return restore_engine(path, warmup=warmup, tokenizer=tokenizer, device=device,
                               host_pool_bytes=host_pool_bytes)
+
+    # -- the device steps: one choke point (serving.spmd) ---------------------
+    def _device(self, op: str, *args):
+        """Run the device op ``op`` (``_op_<op>``) over its host inputs
+        ``args``: every step and every load of the step state goes through
+        here. At a mesh of several ranks the leader first publishes the
+        record, and each follower runs the same op on its shard
+        (``follow``)."""
+        if self._channel is not None:
+            if not self.mesh.leader:
+                raise RuntimeError("a follower rank runs steps through follow() only")
+            self._channel.publish(op, args)
+        with torch.inference_mode():
+            out = getattr(self, f"_op_{op}")(*args)
+        if self.spmd_outputs is not None:
+            self.spmd_outputs.append((op, spmd.kept(out)))
+        return out
+
+    def follow(self) -> int:
+        """A follower rank's loop: receive the leader's step records and run
+        each op on this rank's shards, until a ``stop`` record. Returns the
+        ops run. An op that raises ends the loop with the exception (the
+        leader then raises from its next collective)."""
+        if self._channel is None or self.mesh.leader:
+            raise RuntimeError("follow() runs on a follower rank of a mesh")
+        ran = 0
+        with self.lock:
+            while True:
+                op, args = self._channel.receive()
+                if op == spmd.STOP:
+                    return ran
+                faults.maybe_raise("spmd.follower_step", RuntimeError, op=op)
+                with torch.inference_mode():
+                    out = getattr(self, f"_op_{op}")(*args)
+                if self.spmd_outputs is not None:
+                    self.spmd_outputs.append((op, spmd.kept(out)))
+                ran += 1
+
+    def stop_followers(self) -> None:
+        """The leader's last record: the followers' ``follow`` returns.
+        Once; a one-rank engine has none."""
+        if self._channel is not None and self.mesh.leader and not self._stopped:
+            self._stopped = True
+            self._channel.publish(spmd.STOP, ())
+
+    def _op_fsm(self, mask: np.ndarray, dest: np.ndarray) -> None:
+        """Load a constraint's dense tables (``_load_fsm``). Where steps
+        replay, into the capacity buffer (the budget guarantees the room);
+        where they run eagerly, into buffers sized to the FSM."""
+        if mask.shape[0] > self._fsm.rows and not self._replays():
+            self._fsm = FsmTables.empty(
+                self.cfg.max_batch_size, self.model_cfg.vocab_size, mask.shape[0],
+                self.device,
+            )
+            self._host_rows = False
+        self._fsm.load(mask, dest)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _op_host_masks(self, hm: np.ndarray) -> None:
+        self._fsm.host_mask.copy_(torch.from_numpy(hm))
+
+    def _op_extras(self, zero: list[int], bias: dict[int, np.ndarray],
+                   counts: dict[int, np.ndarray], pres: np.ndarray,
+                   freq: np.ndarray) -> None:
+        """``SamplingExtras``' rows: ``zero`` rows' bias cleared, ``bias``
+        and ``counts`` rows set, the penalties loaded."""
+        x = self._extras
+        for i in zero:
+            x.bias[i].zero_()
+        for i, row in bias.items():
+            x.bias[i].copy_(torch.from_numpy(row))
+        for i, row in counts.items():
+            x.counts[i].copy_(torch.from_numpy(row))
+        x.pres.copy_(torch.from_numpy(pres))
+        x.freq.copy_(torch.from_numpy(freq))
+
+    def _op_prefill(self, tokens, starts, lens, tables, sampling) -> torch.Tensor:
+        """A split-lane chunk (``_prefill_chunk``): the forward, and with
+        ``sampling`` (fsm, emits, temps, top_k, top_p, extras) each row's
+        first token [B]; without it the logits. A chunk of fresh prompts
+        at sp > 1 runs ``Llama.prefill`` with ring attention, as JAX's
+        fresh ``prefill_step`` does; every other chunk the prefix form
+        through the ragged kernel."""
+        plain = self.attn_impl == "plain"
+        if self._prefill_attn is not None and not starts.any():
+            logits = self.model.prefill(
+                self._staged(tokens), self._staged(lens), self.cache, self._staged(tables),
+                plain, prefill_attn=self._prefill_attn,
+            )
+        else:
+            logits = self.model.prefill_with_prefix(
+                self._staged(tokens), self._staged(starts), self._staged(lens),
+                self.cache, self._staged(tables), plain, self.cfg.paged_backend,
+            )
+        if sampling is None:
+            return logits
+        fsm, emits, temps, top_k, top_p, extras = sampling
+        # Every batch row samples (padding rows greedily, their tokens
+        # discarded): the sampler's buffers are [B].
+        B, Bp, V = self.cfg.max_batch_size, logits.shape[0], logits.shape[1]
+        rows = logits[:B] if Bp >= B else torch.cat([logits, logits.new_zeros((B - Bp, V))])
+        return pick_rows(
+            rows, self._staged(fsm), self._staged(emits), self._staged(temps),
+            self._staged(top_k), self._staged(top_p), self._prefill_generator,
+            self._fsm, self._extras if extras else None,
+        )
+
+    def _op_mixed(self, S: int, extras: bool, inputs: tuple,
+                  carry: int | None = None) -> torch.Tensor:
+        """One mixed tick at bucket ``S``: the step state loaded from the
+        host ``inputs`` (``MixedState.load``'s arguments from ``tokens`` to
+        ``use_carry``), with ``carry`` the bucket whose previous tick's
+        outputs carry over (the async ticks), then the tick; its tokens [B]
+        on the device."""
+        step = self._mixed_step(S, extras)
+        state = self._mixed[S]
+        state.load(*inputs, carry=None if carry is None else self._mixed[carry])
+        step()
+        return state.out
+
+    def _op_decode(self, greedy: bool, extras: bool, n_steps: int, tokens, write_at,
+                   active, budgets, table, temps, top_k, top_p, fsm, override):
+        """A decode block (``decode_block``; ``override`` its carry form):
+        its tokens [B, n_steps] on the device."""
+        return decode_block(
+            self._decode, self._decode_step(greedy, extras, n_steps), tokens, write_at,
+            active, budgets, table, temps, top_k, top_p, n_steps=n_steps, fsm=fsm,
+            override=override,
+        )
+
+    def _op_spec(self, n_steps: int, tokens, write_at, active, budgets, table, history,
+                 override):
+        """A speculative block (``speculative_block``): its tokens and each
+        step's counts on the device."""
+        return speculative_block(
+            self._decode, self._spec, self._spec_step(n_steps), tokens, write_at, active,
+            budgets, table, n_steps, history, override=override,
+        )
+
+    def _op_warmup(self) -> None:
+        """``warmup``'s device work: the warm steps and the captures, and
+        with the kernels and the split lane its programs."""
+        self._prepare()
+        if self.attn_impl == "cuda" and not self.cfg.mixed_batching:
+            # The split lane admits every prompt: its programs run once here
+            # (eagerly; they are never captured).
+            self._warm_prefill_lane()
 
     def _replays(self) -> bool:
         return self.attn_impl == "cuda" and self.cfg.cuda_graphs

@@ -37,6 +37,8 @@ Wired fault points, at the JAX package's seams:
     pagestore.stale_entry     fleet page fault-in: the peer answers as
                               if the chain were LRU-evicted (directory
                               row evicted, admission re-prefills)
+    spmd.follower_step        a follower rank's step raises (the leader
+                              must raise from its next collective)
 
 (the tool points in ``agent/react.py``'s blocking tool path and in
 ``agent/conveyor.py``'s early-launch worker).

@@ -32,9 +32,17 @@ from .. import faults
 log = get_logger("fleet.client")
 
 DEFAULT_HEARTBEAT_INTERVAL_S = 3.0
-# The mesh a port replica registers: one engine on one card (the JAX
-# package's replicas report their tp/sp/ep shape here).
+# The mesh of a one-rank engine (the JAX package's replicas report their
+# tp/sp/ep shape, as a port replica does its engine's, ``replica_mesh``).
 SINGLE_CARD_MESH = {"tp": 1, "sp": 1, "ep": 1}
+
+
+def replica_mesh(engine: Any) -> dict[str, int]:
+    """The tp/sp/ep shape a replica registers: its engine's mesh."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None:
+        return dict(SINGLE_CARD_MESH)
+    return {a: int(mesh.shape[a]) for a in SINGLE_CARD_MESH}
 REGISTER_BACKOFF_BASE_S = 1.0
 REGISTER_BACKOFF_CAP_S = 30.0
 
@@ -122,7 +130,7 @@ class FleetMembership:
                 "role": self.role,
                 "capacity": int(eng.cfg.max_batch_size),
                 "page_size": int(eng.cfg.page_size),
-                "mesh": dict(SINGLE_CARD_MESH),
+                "mesh": replica_mesh(eng),
             })
         return body
 

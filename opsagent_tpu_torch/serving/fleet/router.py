@@ -75,7 +75,7 @@ from ... import obs
 from ...utils.logger import get_logger
 from .. import faults
 from ..scheduler import RequestError
-from .client import SINGLE_CARD_MESH
+from .client import replica_mesh
 from .registry import ReplicaInfo, ReplicaRegistry, prompt_chain_keys
 from .transfer import migrate_chain, pack_entries, unpack_entries
 
@@ -190,7 +190,7 @@ class LocalReplica:
             role=self.role,
             capacity=int(eng.cfg.max_batch_size),
             page_size=int(eng.cfg.page_size),
-            mesh=dict(SINGLE_CARD_MESH),
+            mesh=replica_mesh(eng),
             digests=set(self.prefix_digests()),
             load=self.load_snapshot(),
             local=True,

@@ -147,9 +147,17 @@ def migrate_chain(
     chain from its HBM trie into its host pool (``Engine.park_chain``);
     otherwise it copies what the trie holds (``replicate_chain``). Returns
     pages shipped, 0 on any failure: migration rides on a correct
-    re-prefill, so it never raises into routing. ``request_id`` tags the
+    re-prefill, so it never raises into routing, except that it refuses an
+    engine on a mesh of several ranks. ``request_id`` tags the
     ``session_migrate`` flight events with the journey the transfer
     serves."""
+    for handle in (src, dst):
+        mesh = getattr(getattr(getattr(handle, "stack", None), "engine", None), "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            raise ValueError(
+                f"session migration with replica {getattr(handle, 'replica_id', '?')}: "
+                f"its engine runs on a mesh of {mesh.size} ranks, whose KV shards "
+                "the page wire format does not carry yet (ROADMAP item 11 (b))")
     t0 = time.perf_counter()
     rid_field = {"request_id": request_id} if request_id else {}
     obs.flight.record(

@@ -142,12 +142,17 @@ def restore_engine(path: str, warmup: bool = False, tokenizer: Any = None,
             f"refusing restore from {path}: config fingerprint {fp} != manifest "
             f"fingerprint {man['fingerprint']} (the manifest's configs were "
             "edited after the snapshot was written, or the file is corrupt)")
-    mesh = man.get("jax", {}).get("mesh", {})
-    sharded = {k: v for k, v in {**{a: man["engine"].get(a) or 1 for a in _SHARD_AXES},
-                                 **mesh}.items() if int(v) > 1}
+    axes: dict[str, int] = {}
+    for block in (man["engine"], man.get("jax", {}).get("mesh", {}),
+                  man.get("torch", {}).get("mesh", {})):
+        for a, v in block.items():
+            if a in _SHARD_AXES or block is not man["engine"]:
+                axes[a] = max(axes.get(a, 1), int(v or 1))
+    sharded = {a: v for a, v in axes.items() if v > 1}
     if sharded:
         raise _refuse(f"refusing restore from {path}: its weights are laid out "
-                      f"over {sharded}; the port's engine runs on one device")
+                      f"over {sharded}; restoring a sharded snapshot waits for ROADMAP "
+                      "item 11 (b)")
     dev = resolve_device(device)
     if "torch" in man:
         want = int(man["torch"]["count"])

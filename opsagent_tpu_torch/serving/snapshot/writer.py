@@ -56,8 +56,8 @@ ENGINE_FINGERPRINT_FIELDS = (
     "prefix_cache", "offload", "offload_copy_pages",
     "quantize", "kv_quantize",
 )
-# Those the port's EngineConfig lacks, at the values of its engine: one
-# device.
+# The mesh fields, recorded as the engine resolved them (EngineConfig's tp
+# 0 means "every rank"); a snapshot is written at one rank only.
 PORT_ENGINE_FIELDS = {"tp": 1, "dp": 1, "sp": 1, "ep": 1}
 
 
@@ -65,10 +65,13 @@ def model_config_dict(model_cfg: Any) -> dict[str, Any]:
     return dataclasses.asdict(model_cfg)
 
 
-def engine_config_dict(cfg: Any) -> dict[str, Any]:
+def engine_config_dict(cfg: Any, mesh: dict[str, int] | None = None) -> dict[str, Any]:
+    """The manifest's engine block; ``mesh`` the engine's resolved mesh
+    axes (one rank without it)."""
     out: dict[str, Any] = {}
+    axes = {**PORT_ENGINE_FIELDS, **(mesh or {})}
     for name in ENGINE_FINGERPRINT_FIELDS:
-        v = getattr(cfg, name) if hasattr(cfg, name) else PORT_ENGINE_FIELDS[name]
+        v = axes[name] if name in axes else getattr(cfg, name)
         out[name] = list(v) if isinstance(v, tuple) else v
     out["dtype"] = DTYPE_NAMES[cfg.dtype]
     return out
@@ -133,7 +136,7 @@ def write_snapshot(engine: Any, path: str) -> dict[str, Any]:
         kv_leaves.append({"path": kp, "dtype": DTYPE_NAMES[leaf.dtype],
                           "shape": list(leaf.shape)})
     model = model_config_dict(model_cfg)
-    eng_dict = engine_config_dict(cfg)
+    eng_dict = engine_config_dict(cfg, engine.mesh.describe())
     dev = engine.device
     man = {
         "format": FORMAT_VERSION,
@@ -154,6 +157,7 @@ def write_snapshot(engine: Any, path: str) -> dict[str, Any]:
             "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
             "count": torch.cuda.device_count() if dev.type == "cuda" else 0,
             "paged_backend": cfg.paged_backend,
+            "mesh": engine.mesh.describe(),
         },
     }
     write_manifest(path, man)

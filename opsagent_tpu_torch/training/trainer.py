@@ -10,10 +10,13 @@ optax's ``adamw``: decoupled decay on every parameter, moments in the
 parameters' dtype). ``remat`` recomputes each layer's activations in the
 backward (JAX's ``jax.checkpoint`` of the scanned layer body).
 
-The port has no device mesh yet: it trains as JAX does on a one-device
-mesh (dp = sp = pp = 1), where ``ring_attention`` and ``pp_microbatches``
-have no effect. Only full-precision weights train; JAX's ``init_params``
-is float-only too.
+The port has a device mesh for serving (``parallel.mesh``, ROADMAP item
+11 (a)); training's mesh paths (the dp gradient all-reduce, ring
+attention's backward, the GPipe schedule over pp, ep in training) wait for
+item 11 (b). So it trains as JAX does on a one-device mesh (dp = sp = pp =
+1), where ``ring_attention`` and ``pp_microbatches`` have no effect, and
+``init_train_state`` refuses a mesh of several ranks. Only full-precision
+weights train; JAX's ``init_params`` is float-only too.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.llama import Llama
+from ..parallel.mesh import Mesh
 
 
 @dataclass(frozen=True)
@@ -38,8 +42,8 @@ class TrainConfig:
     # the loss is 0 for dense models.
     moe_aux_weight: float = 0.01
     # Ring attention over the sp axis, and GPipe microbatches over pp: no
-    # effect without a mesh that has sp > 1 or pp > 1, as in JAX, and the
-    # port builds none yet.
+    # effect without a mesh that has sp > 1 or pp > 1, as in JAX; the
+    # port's training takes no such mesh until ROADMAP item 11 (b).
     ring_attention: bool = False
     pp_microbatches: int = 4
 
@@ -73,12 +77,22 @@ def init_train_state(
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device | None = None,
     model: Llama | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[Llama, torch.optim.AdamW]:
     """(model, optimizer): a ``Llama`` from ``seed`` on ``device`` (the card
     unless the caller asks for the CPU), or the given ``model``, with
     gradients turned on for its float parameters (the port builds every
     parameter without them: serving never differentiates). A quantized
-    model is refused."""
+    model is refused, and so is a ``mesh`` (or a sharded ``model``) of more
+    than one rank: the training mesh paths are ROADMAP item 11 (b)."""
+    sharded = {a: n for a, n in (mesh.shape if mesh is not None else {}).items() if n > 1}
+    if not sharded and model is not None and model.mesh is not None:
+        sharded = {a: n for a, n in model.mesh.shape.items() if n > 1}
+    if sharded:
+        raise ValueError(
+            f"training at a mesh over {sharded}: the port trains on one device; the "
+            "dp gradient all-reduce, ring attention's backward, the pp schedule and "
+            "ep in training wait for ROADMAP item 11 (b)")
     if model is None:
         model = Llama(cfg, dtype, device, seed=seed)
     if model.quantize:

@@ -32,6 +32,10 @@ print(",".join(names), bad)
 """
 # Modules each slice added; the walk must reach them.
 REQUIRED = (
+    "opsagent_tpu_torch.parallel.mesh",
+    "opsagent_tpu_torch.parallel.collectives",
+    "opsagent_tpu_torch.parallel.ring",
+    "opsagent_tpu_torch.serving.spmd",
     "opsagent_tpu_torch.ops.paged_attention",
     "opsagent_tpu_torch.ops.cuda_build",
     "opsagent_tpu_torch.ops.quant_matmul",
