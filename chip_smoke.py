@@ -230,6 +230,16 @@ Phases, each printing one JSON line with its seconds:
    leader's ServingStack (tok/s, TTFT p50, each rank's weights (half of
    one rank's) and peak memory, staged copies, launches equal on both
    ranks and added to the kernel table's). One JSON line a check.
+6j. train_parallel: training at a mesh (``training/``,
+   ``parallel/pipeline.py``), two ranks of this script (``--parallel-job
+   train``) sharing the one card over gloo. One rank's f32 step of each
+   reference first, in this process, written beside the ranks; then each
+   rank's f32 step at full width (bench-1b cut to 4 layers at pp, dp, tp
+   and sp = 2 with the ring; the V2-Lite cut at ep = 2 and at pp = 2)
+   held to the same slice of one rank's (loss, moe_aux, grad norm,
+   every parameter); then bench-1b at full depth in bf16, five steps at
+   pp = 2 and dp = 2 (the loss falls, the replicated parameters bit-equal
+   on both ranks; step ms, tokens/s, peak GB a rank, staged copies).
 7. serve: behind the HTTP server, random weights from ``--seed``, bf16
    activations, four concurrent chat completions per run, on the default
    loop (async ticks, pipelined blocks, fast-forward): bench-8b at full
@@ -4766,21 +4776,25 @@ def one_rank_serve(seed: int) -> dict:
     return out
 
 
-def run_parallel_ranks(seed: int, backend: str) -> list[dict]:
-    """Start the ranks (this script with ``--parallel-rank``), wait for
-    them, and return their reports. A rank that fails, or outlives
-    ``PARALLEL_TIMEOUT_S``, fails the phase; every rank is stopped."""
-    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
-    os.makedirs(PARALLEL_DIR)
+def run_parallel_ranks(seed: int, backend: str, job: str = "serve") -> list[dict]:
+    """Start the ranks (this script with ``--parallel-rank``) on ``job``
+    ("serve": the parallel phase's; "train": the train_parallel phase's,
+    whose directory the phase has prepared), wait for them, and return
+    their reports. A rank that fails, or outlives ``PARALLEL_TIMEOUT_S``,
+    fails the phase; every rank is stopped."""
+    where = PARALLEL_DIR if job == "serve" else TRAIN_PARALLEL_DIR
+    if job == "serve":
+        shutil.rmtree(where, ignore_errors=True)
+        os.makedirs(where)
     port = free_port()
     procs = []
     try:
         for r in range(PARALLEL_RANKS):
-            log = open(os.path.join(PARALLEL_DIR, f"rank{r}.log"), "w")
+            log = open(os.path.join(where, f"rank{r}.log"), "w")
             procs.append((subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
                  "--parallel-rank", str(r), "--parallel-port", str(port),
-                 "--parallel-backend", backend],
+                 "--parallel-backend", backend, "--parallel-job", job],
                 env={**os.environ, "LOCAL_RANK": str(r)}, stdout=log,
                 stderr=subprocess.STDOUT), log))
         deadline = time.monotonic() + PARALLEL_TIMEOUT_S
@@ -4796,10 +4810,10 @@ def run_parallel_ranks(seed: int, backend: str) -> list[dict]:
             log.close()
     reports = []
     for r, (p, _) in enumerate(procs):
-        with open(os.path.join(PARALLEL_DIR, f"rank{r}.log")) as f:
+        with open(os.path.join(where, f"rank{r}.log")) as f:
             tail = f.read()[-3000:]
-        check(p.returncode == 0, f"parallel rank {r} exited {p.returncode}:\n{tail}")
-        with open(os.path.join(PARALLEL_DIR, f"rank{r}.json")) as f:
+        check(p.returncode == 0, f"{job} rank {r} exited {p.returncode}:\n{tail}")
+        with open(os.path.join(where, f"rank{r}.json")) as f:
             reports.append(json.load(f))
     return reports
 
@@ -4996,6 +5010,305 @@ def parallel_rank(rank: int, port: int, seed: int, backend: str) -> int:
     return 0
 
 
+# -- the train_parallel phase: training at a mesh, two ranks on the one card ----
+TRAIN_PARALLEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                  "chip_smoke_train_parallel")
+TP_F32_LAYERS = 4                  # bench-1b cut for the f32 equality checks
+TP_F32_BATCH = (4, 256)
+TP_MOE_BATCH = (2, 512)            # V2-Lite cut: T = 1024, the grouped dispatch
+TP_BF16_STEPS = 5                  # bench-1b at full depth, on TRAIN_BATCH
+TP_LOSS_TOL, TP_NORM_RTOL, TP_PARAM_TOL = 1e-5, 1e-4, 1e-4   # the CPU tests'
+# The f32 references (one rank): a config, its TrainConfig changes.
+TP_REFS = {
+    "bench1b": ("bench1b", {}),
+    "v2lite": ("v2lite", {}),
+    # Pipelining the MoE stack re-schedules the one-rank step only without
+    # the balance loss (a per-microbatch statistic) and without drops (a
+    # microbatch's capacity is its own): the cut with capacity E / k.
+    "v2lite_nodrop": ("v2lite_nodrop", {"moe_aux_weight": 0.0}),
+}
+# The f32 checks at two ranks: their reference, mesh and TrainConfig changes.
+TP_CHECKS = {
+    "bench1b_pp2": ("bench1b", {"pp": 2}, {"pp_microbatches": 2}),
+    "bench1b_dp2": ("bench1b", {"dp": 2}, {}),
+    "bench1b_tp2": ("bench1b", {"tp": 2}, {}),
+    "bench1b_sp2_ring": ("bench1b", {"sp": 2}, {"ring_attention": True}),
+    "v2lite_ep2": ("v2lite", {"ep": 2}, {}),
+    "v2lite_pp2": ("v2lite_nodrop", {"pp": 2}, {"pp_microbatches": 2}),
+}
+TP_BF16 = {"pp2": ({"pp": 2}, {"pp_microbatches": 4}), "dp2": ({"dp": 2}, {})}
+
+
+def tp_config(key: str):
+    if key == "bench1b":
+        return replace(get_config_preset("bench-1b"), num_layers=TP_F32_LAYERS)
+    cfg = replace(DEEPSEEK_V2_LITE, num_layers=TRAIN_MOE_LAYERS)
+    if key == "v2lite_nodrop":
+        m = cfg.moe
+        cfg = replace(cfg, moe=replace(m, capacity_factor=m.num_experts / m.num_experts_per_token))
+    return cfg
+
+
+def tp_batch(seed: int, cfg, shape: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """One fixed batch with about a third of the targets masked off (the
+    loss is the global token-mean), made on the host from the seed."""
+    gen = torch.Generator().manual_seed(seed + 33)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen)
+    mask = (torch.rand(shape, generator=gen) < 0.7).float()
+    return tokens.cuda(), mask.cuda()
+
+
+def tp_train_config(change: dict):
+    from opsagent_tpu_torch.training import TrainConfig
+
+    return TrainConfig(**{"learning_rate": TRAIN_LR, "remat": False, **change})
+
+
+def train_parallel_references(seed: int) -> dict:
+    """(a) One rank's f32 step of each reference on the card, from the seed:
+    its metrics, updated parameters and first moment's noise band, written
+    beside the ranks (``ref_<key>.pt``); each model is freed before the
+    next."""
+    from opsagent_tpu_torch.training import init_train_state, make_train_step
+    from opsagent_tpu_torch.training.parity import noise_band
+
+    shutil.rmtree(TRAIN_PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_PARALLEL_DIR)
+    out = {}
+    for key, (cfg_key, change) in TP_REFS.items():
+        t = time.perf_counter()
+        cfg, tc = tp_config(cfg_key), tp_train_config(change)
+        batch = tp_batch(seed, cfg, TP_MOE_BATCH if cfg.moe else TP_F32_BATCH)
+        model, opt = init_train_state(cfg, tc, seed=seed, dtype=torch.float32, device="cuda")
+        m = make_train_step(cfg, tc)(model, opt, *batch)
+        metrics = {k: float(v) for k, v in m.items()}
+        # AdamW's first moment: its largest a tensor, and its noise band
+        # (``training.parity``) as flat indices and values.
+        mu_max, band = {}, {}
+        for k, p in model.named_parameters():
+            mu = opt.state[p]["exp_avg"].flatten()
+            mu_max[k] = mu.abs().max().item()
+            idx = noise_band(mu, mu_max[k]).nonzero()[:, 0]
+            band[k] = (idx.cpu(), mu[idx].cpu())
+        torch.save({"metrics": metrics,
+                    "state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                    "mu_max": mu_max, "band": band},
+                   os.path.join(TRAIN_PARALLEL_DIR, f"ref_{key}.pt"))
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[key] = {**metrics, "seconds": time.perf_counter() - t}
+    return out
+
+
+def phase_train_parallel(seed: int, smi: str, backend: str = PARALLEL_BACKEND) -> dict:
+    """Training at a mesh (``opsagent_tpu_torch/training``,
+    ``parallel/pipeline.py``), two ranks on the one card over gloo (or a
+    card each with ``backend`` nccl).
+
+    (a) f32 equality at full width: bench-1b cut to ``TP_F32_LAYERS``
+    layers, batch ``TP_F32_BATCH``, one step at lr 1e-3 at pp = 2 (two
+    microbatches), dp = 2, tp = 2 and sp = 2 with the ring; the V2-Lite
+    cut (its dense layer and 2 MoE layers, T = 1024 tokens: the grouped
+    dispatch) at ep = 2, and at pp = 2 without the balance loss or drops.
+    Each rank's loss, moe_aux, grad norm and updated shards are held to
+    the same slice of one rank's step from the same seed at the CPU tests'
+    tolerances; an element whose gradient is summation noise by its first
+    moment, and its parameter within lr (``training.parity``).
+    (b) bf16 at full depth: bench-1b (16 layers, remat) at pp = 2 (four
+    microbatches) and dp = 2 on ``TRAIN_BATCH``, ``TP_BF16_STEPS`` steps:
+    the loss finite and falling, the ranks' replicated parameters
+    bit-equal after the last step; the median step, tokens/s, peak GB a
+    rank and the host-staged copies, beside the one-rank step of the train
+    phase."""
+    out = {"card": smi, "backend": backend, "ranks": PARALLEL_RANKS,
+           "note": ("two ranks share one card over gloo: correctness, memory and the "
+                    "schedule's host cost, neither collective speed nor the bubble's "
+                    "cost") if backend == "gloo" else "a card a rank: NCCL"}
+    t = time.perf_counter()
+    out["references"] = train_parallel_references(seed)
+    out["references_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    reports = run_parallel_ranks(seed, backend, job="train")
+    out["ranks_s"] = time.perf_counter() - t
+    for name in TP_CHECKS:
+        rows = [r[name] for r in reports]
+        line = {"phase": "train_parallel", "check": name, "card": smi,
+                **{k: rows[0][k] for k in ("mesh", "loss", "ref_loss", "moe_aux",
+                                           "ref_moe_aux", "grad_norm", "ref_grad_norm")},
+                "max_param_err": max(r["max_param_err"] for r in rows),
+                "noise_band": sum(r["noise_band"] for r in rows),
+                "band_moment_err_over_largest": max(r["band_moment_err_over_largest"]
+                                                    for r in rows),
+                "elements": sum(r["elements"] for r in rows),
+                "seconds": [r["seconds"] for r in rows],
+                "host_staged": [r["host_staged"] for r in rows]}
+        emit(line)
+        out[name] = line
+    for name in TP_BF16:
+        rows = [r[f"bf16_{name}"] for r in reports]
+        losses = rows[0]["loss"]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"train_parallel bf16 {name}: losses {losses}")
+        check(all(r["replicated_digest"] == rows[0]["replicated_digest"] for r in rows),
+              f"train_parallel bf16 {name}: the ranks' replicated parameters differ")
+        step_ms = max(statistics.median(r["ms"][1:]) for r in rows)
+        tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+        line = {"phase": "train_parallel", "check": f"bf16_{name}", "card": smi,
+                "mesh": rows[0]["mesh"], "layers": rows[0]["layers"],
+                "batch": list(TRAIN_BATCH), "steps": TP_BF16_STEPS, "loss": losses,
+                "grad_norm": rows[0]["grad_norm"], "step_ms_median": step_ms,
+                "first_step_ms": [r["ms"][0] for r in rows],
+                "tokens_per_s": tokens / (step_ms / 1e3),
+                "peak_gb": [r["peak_gb"] for r in rows],
+                "replicated_params": rows[0]["replicated_params"],
+                "replicated_bit_equal": True,
+                "host_staged": [r["host_staged"] for r in rows],
+                "note": out["note"]}
+        emit(line)
+        out[f"bf16_{name}"] = line
+    shutil.rmtree(TRAIN_PARALLEL_DIR, ignore_errors=True)
+    out["launches"] = {name: 0 for name in KERNELS}
+    return out
+
+
+def tp_rank_check(name: str, seed: int) -> dict:
+    """(a) One f32 check at this rank: the step at the check's mesh from
+    the seed, held to the slice of the one-rank reference."""
+    from opsagent_tpu_torch.models.llama import local_state
+    from opsagent_tpu_torch.parallel.mesh import make_mesh
+    from opsagent_tpu_torch.training import init_train_state, make_train_step
+    from opsagent_tpu_torch.training.parity import moment_bound, param_bound
+
+    ref_key, shape, change = TP_CHECKS[name]
+    cfg_key, ref_change = TP_REFS[ref_key]
+    cfg, tc = tp_config(cfg_key), tp_train_config({**ref_change, **change})
+    collectives.reset_counts()
+    mesh = make_mesh(tp=shape.get("tp", 1), dp=shape.get("dp", 1), sp=shape.get("sp", 1),
+                     pp=shape.get("pp", 1), ep=shape.get("ep", 1))
+    model, opt = init_train_state(cfg, tc, seed=seed, dtype=torch.float32, device="cuda",
+                                  mesh=mesh)
+    m = make_train_step(cfg, tc)(model, opt, *tp_batch(
+        seed, cfg, TP_MOE_BATCH if cfg.moe else TP_F32_BATCH))
+    got = {k: float(v) for k, v in m.items()}
+    ref = torch.load(os.path.join(TRAIN_PARALLEL_DIR, f"ref_{ref_key}.pt"), mmap=True,
+                     weights_only=True)
+    want = ref["metrics"]
+    check(abs(got["loss"] - want["loss"]) <= TP_LOSS_TOL,
+          f"train_parallel {name}: loss {got['loss']} vs one rank's {want['loss']}")
+    if shape.get("pp", 1) == 1:
+        # At pp > 1 the balance loss is JAX's per-microbatch statistic.
+        check(abs(got["moe_aux"] - want["moe_aux"]) <= TP_LOSS_TOL,
+              f"train_parallel {name}: moe_aux {got['moe_aux']} vs {want['moe_aux']}")
+    check(abs(got["grad_norm"] - want["grad_norm"]) <= TP_NORM_RTOL * want["grad_norm"],
+          f"train_parallel {name}: grad_norm {got['grad_norm']} vs {want['grad_norm']}")
+    mine = local_state(ref["state"], cfg, mesh)
+    worst, moment_worst, loose, total = 0.0, 0.0, 0, 0
+    for k, p in model.named_parameters():
+        w = mine[k].to(p.device)
+        # The reference's band: its first moment there, NaN elsewhere.
+        idx, vals = ref["band"][k]
+        dense = torch.full((ref["state"][k].numel(),), math.nan, device=p.device)
+        dense[idx.to(p.device)] = vals.to(p.device)
+        mu = local_state({k: dense.view(ref["state"][k].shape)}, cfg, mesh)[k]
+        band = ~mu.isnan()
+        err = (p.detach() - w).abs()
+        bad = err > param_bound(band, tc.learning_rate, TP_PARAM_TOL)
+        if bool(bad.any()):
+            i = tuple(int(x) for x in torch.nonzero(bad)[0])
+            check(False, f"train_parallel {name}: {k}{list(i)} parts from one rank's by "
+                         f"{err[i].item()} (band {bool(band[i])})")
+        if bool(band.any()):
+            largest = ref["mu_max"][k]
+            m_err = (opt.state[p]["exp_avg"][band] - mu[band]).abs()
+            over = m_err > moment_bound(mu[band], largest, TP_NORM_RTOL)
+            check(not bool(over.any()),
+                  f"train_parallel {name}: {k}'s first moment parts from one rank's by "
+                  f"{m_err.max().item()} in the noise band (largest {largest})")
+            moment_worst = max(moment_worst, m_err.max().item() / largest)
+        worst = max(worst, err[~band].max().item() if (~band).any() else 0.0)
+        loose += int(band.sum())
+        total += p.numel()
+    del model, opt, mine, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mesh": shape, "loss": got["loss"], "ref_loss": want["loss"],
+            "moe_aux": got["moe_aux"], "ref_moe_aux": want["moe_aux"],
+            "grad_norm": got["grad_norm"], "ref_grad_norm": want["grad_norm"],
+            "max_param_err": worst, "noise_band": loose, "elements": total,
+            "band_moment_err_over_largest": moment_worst,
+            "host_staged": dict(collectives.HOST_STAGED)}
+
+
+def tp_rank_bf16(name: str, seed: int) -> dict:
+    """(b) bench-1b at full depth in bf16 at this rank: ``TP_BF16_STEPS``
+    steps on one fixed batch; each step's ms (the step's collectives keep
+    the ranks together; it ends in a synchronize), loss and grad norm, the
+    peak GB, and a digest of the replicated parameters after the last."""
+    import hashlib
+
+    from opsagent_tpu_torch.models.llama import staged, state_specs
+    from opsagent_tpu_torch.parallel.mesh import make_mesh
+    from opsagent_tpu_torch.training import init_train_state, make_train_step
+
+    shape, change = TP_BF16[name]
+    cfg = get_config_preset("bench-1b")
+    tc = tp_train_config({"remat": True, **change})
+    collectives.reset_counts()
+    mesh = make_mesh(tp=1, dp=shape.get("dp", 1), pp=shape.get("pp", 1))
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = init_train_state(cfg, tc, seed=seed, dtype=torch.bfloat16, device="cuda",
+                                  mesh=mesh)
+    step = make_train_step(cfg, tc)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH, generator=gen, device="cuda")
+    mask = torch.ones(TRAIN_BATCH, device="cuda")
+    rows = []
+    for _ in range(TP_BF16_STEPS):
+        t0 = time.perf_counter()
+        m = step(model, opt, tokens, mask)
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     **{k: float(v) for k, v in m.items()}})
+    specs = state_specs(cfg)
+    h = hashlib.blake2b(digest_size=16)
+    replicated = []
+    for k, v in sorted(model.state_dict().items()):
+        if (all(a is None or mesh.shape[a] == 1 for a in specs[k])
+                and not (mesh.shape["pp"] > 1 and staged(cfg, k))):
+            h.update(k.encode())
+            h.update(v.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            replicated.append(k)
+    out = {"mesh": shape, "layers": cfg.num_layers, "ms": [r["ms"] for r in rows],
+           "loss": [r["loss"] for r in rows], "grad_norm": [r["grad_norm"] for r in rows],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "replicated_digest": h.hexdigest(), "replicated_params": len(replicated),
+           "host_staged": dict(collectives.HOST_STAGED)}
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_parallel_rank(rank: int, port: int, seed: int, backend: str) -> int:
+    """One rank of the train_parallel phase: the f32 checks, then the bf16
+    runs, its report in ``TRAIN_PARALLEL_DIR``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"127.0.0.1:{port}", PARALLEL_RANKS, rank, backend=backend)
+    report: dict = {"rank": rank}
+    for name in TP_CHECKS:
+        t = time.perf_counter()
+        report[name] = tp_rank_check(name, seed)
+        report[name]["seconds"] = time.perf_counter() - t
+    for name in TP_BF16:
+        report[f"bf16_{name}"] = tp_rank_bf16(name, seed)
+    with open(os.path.join(TRAIN_PARALLEL_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5005,12 +5318,14 @@ def main() -> int:
     ap.add_argument("--parallel-rank", type=int, default=-1, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-backend", default=PARALLEL_BACKEND, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-job", default="serve", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.restore_snapshot:
         return snapshot_child(args.restore_snapshot)
     if args.parallel_rank >= 0:
-        return parallel_rank(args.parallel_rank, args.parallel_port, args.seed,
-                             args.parallel_backend)
+        rank_job = parallel_rank if args.parallel_job == "serve" else train_parallel_rank
+        return rank_job(args.parallel_rank, args.parallel_port, args.seed,
+                        args.parallel_backend)
 
     t = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5076,7 +5391,7 @@ def main() -> int:
         launches[name] += n
 
     for run in (phase_offload, phase_snapshot, phase_autoscale, phase_fleet, phase_prefill_lane,
-                phase_train, phase_speculative, phase_parallel):
+                phase_train, phase_speculative, phase_parallel, phase_train_parallel):
         t = time.perf_counter()
         out = run(args.seed, smi)
         gc.collect()

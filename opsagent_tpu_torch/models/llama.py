@@ -82,7 +82,7 @@ from ..ops.paged_attention import (
 )
 from ..ops.quant_matmul import quant_matmul_cuda, quant_matmul_tp
 from ..ops.rope import apply_rope, rope_table, yarn_get_mscale
-from ..parallel.collectives import all_gather, all_reduce_sum
+from ..parallel.collectives import all_gather, gather, reduce_sum, replicate
 from ..parallel.mesh import AXES, Mesh, shard_tensor
 from .config import ModelConfig
 from .quant import (
@@ -120,15 +120,51 @@ def _check_mla(cfg: ModelConfig) -> None:
         raise ValueError("mla: num_kv_heads must equal num_heads (no GQA)")
 
 
+def check_stages(cfg: ModelConfig, pp: int) -> None:
+    """JAX's pipeline checks: the stack that pipelines (the layers, or a
+    MoE model's MoE layers) divides over ``pp``."""
+    if pp <= 1:
+        return
+    if cfg.moe is not None:
+        _, lm = _layer_split(cfg)
+        if lm % pp:
+            raise ValueError(f"moe layers {lm} not divisible by pp={pp}")
+    elif cfg.num_layers % pp:
+        raise ValueError(f"num_layers={cfg.num_layers} not divisible by pp={pp}")
+
+
+def stage_layers(cfg: ModelConfig, mesh: Mesh | None) -> list[int]:
+    """The layers this rank's pipeline stage holds (JAX's ``param_specs_pp``
+    over the stacked axis): every layer at pp = 1; otherwise stage s's L/pp
+    consecutive layers, or for a MoE model the dense prefix (replicated
+    over pp; it runs on stage 0) and stage s's share of the MoE layers."""
+    pp = 1 if mesh is None else mesh.shape[AXES.pp]
+    if pp == 1:
+        return list(range(cfg.num_layers))
+    check_stages(cfg, pp)
+    dense, n = _layer_split(cfg)
+    first, s = (dense, n) if cfg.moe is not None else (0, cfg.num_layers)
+    per = s // pp
+    stage = mesh.coords[AXES.pp]
+    return list(range(first)) + list(range(first + stage * per, first + (stage + 1) * per))
+
+
+def staged(cfg: ModelConfig, name: str) -> bool:
+    """Whether the state entry ``name`` lies on the pipelined stack (split
+    over pp) rather than replicated over pp."""
+    if not name.startswith("layers."):
+        return False
+    return cfg.moe is None or int(name.split(".")[1]) >= _layer_split(cfg)[0]
+
+
 def _check_shards(cfg: ModelConfig, mesh: Mesh | None) -> None:
     """Raise unless every sharded dimension of ``cfg`` divides over its
     mesh axis (heads, kv heads, vocab, MLP widths over ``tp``; experts over
-    ``ep``). The serve path's mesh: pp stays 1."""
+    ``ep``; the pipelined stack over ``pp``)."""
     if mesh is None:
         return
     tp, ep = mesh.shape[AXES.tp], mesh.shape[AXES.ep]
-    if mesh.shape[AXES.pp] > 1:
-        raise ValueError("pipeline stages (pp > 1) are training's; see ROADMAP item 11 (b)")
+    check_stages(cfg, mesh.shape[AXES.pp])
     dims = {"num_heads": (cfg.num_heads, tp), "num_kv_heads": (cfg.num_kv_heads, tp),
             "vocab_size": (cfg.vocab_size, tp),
             "intermediate_size": (cfg.intermediate_size, tp)}
@@ -326,15 +362,19 @@ def _row_sharded(spec: tuple) -> str | None:
 def local_state(state: dict[str, torch.Tensor], cfg: ModelConfig, mesh: Mesh | None,
                 quantize: str = "") -> dict[str, torch.Tensor]:
     """This rank's shards of a full ``Llama`` state dict (``shard_params``
-    by ``state_specs``). An int4 weight whose contraction rows shard keeps
+    by ``state_specs``; at pp > 1 only the layers of this rank's stage,
+    ``stage_layers``). An int4 weight whose contraction rows shard keeps
     the scale groups of its rows: its group size must divide In/tp, else
     a group would straddle two ranks and this raises; a weight with one
     whole-axis group keeps that group on every rank."""
     if mesh is None or mesh.size == 1:
         return state
     specs = state_specs(cfg, quantize)
+    held = set(stage_layers(cfg, mesh))
     out: dict[str, torch.Tensor] = {}
     for key, t in state.items():
+        if key.startswith("layers.") and int(key.split(".")[1]) not in held:
+            continue
         spec = specs[key]
         if quantize == "int4" and key.endswith(".scale"):
             axis = _row_sharded(specs[key[: -len("scale")] + "q"])
@@ -360,8 +400,9 @@ def _full_shape(shape, spec: tuple, mesh: Mesh | None) -> tuple[int, ...]:
 
 
 def _reduce(x: torch.Tensor, mesh: Mesh | None, axis: str) -> torch.Tensor:
-    """The sum of a partial result over ``axis`` (x itself at one rank)."""
-    return x if mesh is None else all_reduce_sum(x, mesh, axis)
+    """The sum of a partial result over ``axis`` (x itself at one rank); in
+    training its gradient passes through (``collectives.reduce_sum``)."""
+    return reduce_sum(x, mesh, axis)
 
 
 class PagedKVCache:
@@ -576,14 +617,16 @@ class DecoderLayer(nn.Module):
             return self.qkv_mla(h, cfg, cos, sin, plain)
         B, S, _ = h.shape
         K, D = self.kv_heads, cfg.head_dim_
+        h = self.enter(h)
         q, k, v = (self.col(h, w, plain) for w in (self.wq, self.wk, self.wv))
         if cfg.attn_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         q, k = q.view(B, S, self.heads, D), k.view(B, S, K, D)
         if cfg.qk_norm:
-            # Qwen3: per-head RMSNorm over the head dim, before RoPE.
-            q = rms_norm(q, self.qn, cfg.rms_norm_eps)
-            k = rms_norm(k, self.kn, cfg.rms_norm_eps)
+            # Qwen3: per-head RMSNorm over the head dim, before RoPE (the
+            # whole weight on this rank's heads).
+            q = rms_norm(q, self.enter(self.qn), cfg.rms_norm_eps)
+            k = rms_norm(k, self.enter(self.kn), cfg.rms_norm_eps)
         q = apply_rope(q, cos, sin)
         q_scale = _yarn_q_scale(cfg)
         if q_scale != 1.0:
@@ -599,9 +642,9 @@ class DecoderLayer(nn.Module):
         dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
         if m.q_lora_rank:
             cq = rms_norm(_mm(h, self.wdq, plain), self.q_norm, cfg.rms_norm_eps)
-            q = self.col(cq, self.wuq, plain)
+            q = self.col(self.enter(cq), self.wuq, plain)
         else:
-            q = self.col(h, self.wq, plain)
+            q = self.col(self.enter(h), self.wq, plain)
         q = q.view(B, S, self.heads, dn + dr)
         return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
 
@@ -627,8 +670,9 @@ class DecoderLayer(nn.Module):
         q_nope, q_rope = self.mla_q(h, cfg, cos, sin, plain)
         q = torch.cat([q_nope, q_rope], dim=-1) * _yarn_q_scale(cfg)
         ckv, k_rope = self.mla_kv_latent(h, cfg, cos, sin, plain)
-        kv = self.col(ckv, self.wukv, plain).view(B, S, H, dn + dv)
-        k = torch.cat([kv[..., :dn], k_rope.expand(B, S, H, dr)], dim=-1)
+        kv = self.col(self.enter(ckv), self.wukv, plain).view(B, S, H, dn + dv)
+        # The shared rope key meets this rank's heads only.
+        k = torch.cat([kv[..., :dn], self.enter(k_rope).expand(B, S, H, dr)], dim=-1)
         v = torch.cat([kv[..., dn:], kv.new_zeros(B, S, H, dn + dr - dv)], dim=-1)
         if with_latent:
             latent = torch.cat([ckv[:, :, None, :], k_rope], dim=-1).to(h.dtype)
@@ -671,6 +715,13 @@ class DecoderLayer(nn.Module):
     def col(self, h: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
         return _col(h, w, plain, self.tp)
 
+    def enter(self, x: torch.Tensor, axes: tuple[str, ...] = (AXES.tp,)) -> torch.Tensor:
+        """A replicated tensor (or weight) entering this rank's share of a
+        sharded computation: itself, with its training gradient summed
+        over ``axes`` (``collectives.replicate``), since each rank
+        differentiates only its share."""
+        return replicate(x, self.mesh, axes)
+
     def row(self, h: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
         """A row-parallel product: ``_mm`` over this rank's input rows, the
         partial sums all-reduced over ``tp``."""
@@ -678,12 +729,13 @@ class DecoderLayer(nn.Module):
 
     # -- MLPs ---------------------------------------------------------------
     def mlp(self, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        h = self.enter(h)
         gate = F.silu(self.col(h, self.wg, plain)) * self.col(h, self.wu, plain)
         return self.row(gate, self.wd, plain)
 
     def moe_mlp(
         self, h: torch.Tensor, cfg: ModelConfig, plain: bool = False,
-        with_aux: bool = False,
+        with_aux: bool = False, data_axes: tuple[str, ...] = (),
     ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """JAX's ``_moe_mlp``: f32 router logits, softmax or sigmoid scores,
         ``router_bias`` added for selection only, group-limited top-k
@@ -701,7 +753,18 @@ class DecoderLayer(nn.Module):
         With a mesh, this rank's E/ep experts (of fe/tp columns) add their
         terms, and the sum is all-reduced over ``ep`` and, with the shared
         experts' partial sums, over ``tp``: the same sum in another
-        order."""
+        order. In training the tokens and combine weights enter the experts
+        through ``enter`` over ep and tp (each rank differentiates its
+        experts' terms only).
+
+        ``data_axes`` (training at dp or sp > 1 and pp = 1: one batch spread
+        over those ranks, ``h`` this rank's P(dp, sp) slice of it) makes
+        the layer the whole batch's function, as JAX's under GSPMD: the
+        grouped dispatch is chosen, and its capacity and queue slots
+        counted, over the whole batch; and the balance loss is this rank's
+        share of the whole batch's statistic, E · Σ_e f_e · P_e with f_e
+        counted over every rank's tokens and P_e's sum taken over this
+        rank's, so that the shares add up over the axes to JAX's value."""
         m = cfg.moe
         E, k = m.num_experts, m.num_experts_per_token
         B, S, d = h.shape
@@ -728,19 +791,23 @@ class DecoderLayer(nn.Module):
             vals = vals / (vals.sum(-1, keepdim=True) + 1e-20)
         if m.routed_scaling_factor != 1.0:
             vals = vals * m.routed_scaling_factor
+        axes = tuple(a for a in data_axes if self.mesh is not None and self.mesh.shape[a] > 1)
+        T = B * S
+        n = T * math.prod(self.mesh.shape[a] for a in axes)          # the whole batch's
         aux = None
         if with_aux:
             sel = torch.zeros_like(probs).scatter_(-1, idx, 1.0)
-            f_e = (sel / k).mean(dim=(0, 1))
-            aux = E * (f_e * probs.mean(dim=(0, 1))).sum()
-        T, x = B * S, h.reshape(B * S, d)
+            if axes:
+                f_e = reduce_sum(sel.sum(dim=(0, 1)), self.mesh, axes) / (k * n)
+                aux = E * (f_e * (probs.sum(dim=(0, 1)) / n)).sum()
+            else:
+                f_e = (sel / k).mean(dim=(0, 1))
+                aux = E * (f_e * probs.mean(dim=(0, 1))).sum()
+        x = self.enter(h, (AXES.ep, AXES.tp)).reshape(T, d)
+        vals = self.enter(vals, (AXES.ep, AXES.tp))
         El, e0 = self.eg.shape[0], self.expert0
-        if 0 < m.grouped_dispatch_min_tokens <= T:
-            if self.mesh is not None:
-                raise ValueError(
-                    "the grouped MoE dispatch is training's; it does not run at a "
-                    "mesh yet (ROADMAP item 11 (b))")
-            out = self._moe_grouped_dispatch(x, cfg, vals.reshape(T, k), idx.reshape(T, k))
+        if 0 < m.grouped_dispatch_min_tokens <= n:
+            out = self._moe_grouped_dispatch(x, cfg, vals.reshape(T, k), idx, axes)
         elif isinstance(self.eg, QuantizedBase):
             # JAX's scan: one expert at a time into an h.dtype accumulator.
             combine = torch.zeros_like(probs).scatter_(-1, idx, vals)
@@ -770,17 +837,20 @@ class DecoderLayer(nn.Module):
                 out = out + terms[:, j]
         out = _reduce(out.view(B, S, d), self.mesh, AXES.ep)
         if m.num_shared_experts:
+            hs = self.enter(h)
             out = out + _mm(
-                F.silu(self.col(h, self.sg, plain)) * self.col(h, self.su, plain), self.sd,
+                F.silu(self.col(hs, self.sg, plain)) * self.col(hs, self.su, plain), self.sd,
                 plain,
             )
         return _reduce(out, self.mesh, AXES.tp), aux
 
     def _moe_grouped_dispatch(
         self, x: torch.Tensor, cfg: ModelConfig, vals: torch.Tensor, idx: torch.Tensor,
+        data_axes: tuple[str, ...] = (),
     ) -> torch.Tensor:
         """JAX's ``_moe_grouped_dispatch`` over tokens ``x`` [T, d] with
-        combine weights ``vals`` and expert ids ``idx`` [T, k]: each (token,
+        combine weights ``vals`` [T, k] and expert ids ``idx`` [B, S, k]
+        (T = B·S): each (token,
         choice) assignment takes the next slot of its expert's queue of C =
         max(1, min(T, ceil(T·k/E · capacity_factor))) slots, counted in
         token-major order; the experts run as three batched products over
@@ -789,24 +859,47 @@ class DecoderLayer(nn.Module):
         An assignment past its expert's capacity is dropped: it is copied
         to a sentinel row E·C that is cut off, and adds nothing. Every step
         is differentiable (training runs it), and none reads the device
-        from the host."""
+        from the host.
+
+        At a mesh every rank fills the buckets of all E experts from its
+        replicated tokens and runs its own E/ep (of fe/tp columns); an
+        assignment to another rank's expert adds a zero here, and the
+        caller sums over ep and then tp: JAX's function under GSPMD. With
+        ``data_axes`` (``moe_mlp``) the tokens are this rank's P(dp, sp)
+        slice of the batch: the expert ids are all-gathered over those axes
+        so that capacity and queue slots are the whole batch's, and this
+        rank fills the buckets with its own tokens' assignments only."""
         m = cfg.moe
         E, k = m.num_experts, m.num_experts_per_token
         T, d = x.shape
-        C = max(1, min(T, math.ceil(T * k / E * m.capacity_factor)))
         flat_e = idx.reshape(T * k)
         flat_w = vals.reshape(T * k).to(x.dtype)
-        # [T*k, E] by comparison: F.one_hot checks its range on the host.
-        onehot = (flat_e[:, None] == torch.arange(E, device=x.device)).long()
+        every = idx
+        for a, dim in ((AXES.sp, 1), (AXES.dp, 0)):
+            if a in data_axes:
+                every = all_gather(every, self.mesh, a, dim)
+        n = every.shape[0] * every.shape[1]
+        C = max(1, min(n, math.ceil(n * k / E * m.capacity_factor)))
+        # [n*k, E] by comparison: F.one_hot checks its range on the host.
+        onehot = (every.reshape(n * k)[:, None] == torch.arange(E, device=x.device)).long()
         pos = ((onehot.cumsum(0) - 1) * onehot).sum(-1)                 # slot in queue
+        if data_axes:
+            B, S = idx.shape[:2]
+            r0 = self.mesh.coords[AXES.dp] * B if AXES.dp in data_axes else 0
+            c0 = self.mesh.coords[AXES.sp] * S if AXES.sp in data_axes else 0
+            pos = pos.view(every.shape)[r0:r0 + B, c0:c0 + S].reshape(T * k)
         keep = pos < C
         dest = torch.where(keep, flat_e * C + pos, E * C)
         src = x.repeat_interleave(k, dim=0)                             # token-major
         disp = x.new_zeros(E * C + 1, d).index_copy(0, dest, src)[: E * C].view(E, C, d)
-        up = F.silu(_ein(disp, self.eg)) * _ein(disp, self.eu)
-        y = _ein(up, self.ed).reshape(E * C, d)
+        El, e0 = self.eg.shape[0], self.expert0
+        mine = disp[e0:e0 + El]
+        up = F.silu(_ein(mine, self.eg)) * _ein(mine, self.eu)
+        y = _ein(up, self.ed).reshape(El * C, d)
+        row = dest - e0 * C
+        own = keep & (row >= 0) & (row < El * C)
         per_pair = torch.where(
-            keep[:, None], y[torch.where(keep, dest, 0)], x.new_zeros(())
+            own[:, None], y[torch.where(own, row, 0)], x.new_zeros(())
         ) * flat_w[:, None]
         return per_pair.view(T, k, d).sum(1)
 
@@ -829,7 +922,14 @@ class Llama(nn.Module):
     (the module docstring). A seed draws each full parameter from the same
     generator as the one-rank model, one at a time, and keeps this rank's
     slice, so the shards are slices of the one-rank model;
-    ``load_full_state_dict`` slices a full state dict the same way."""
+    ``load_full_state_dict`` slices a full state dict the same way.
+
+    At pp > 1 the model is one pipeline stage, which training runs
+    (``parallel.pipeline``): it holds the layers ``stage_layers`` gives it,
+    keyed by their global index (``layers`` is then a ``ModuleDict``, so
+    the state dict names them as the one-rank model does), beside the
+    embedding, final norm and head, which every stage holds whole as in
+    JAX. A stage holds full-precision weights only."""
 
     def __init__(
         self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
@@ -848,21 +948,32 @@ class Llama(nn.Module):
         _check_shards(cfg, self.mesh)
         self.tp = 1 if self.mesh is None else self.mesh.shape[AXES.tp]
         self.cfg, self.dtype, self.quantize = cfg, dtype, quantize
+        self.layer_ids = stage_layers(cfg, self.mesh)
+        if quantize and len(self.layer_ids) < cfg.num_layers:
+            raise ValueError("a pipeline stage (pp > 1) trains: it holds full-precision "
+                             f"weights, not {quantize}")
         d, v = cfg.hidden_size, cfg.vocab_size // self.tp
         self.embed = nn.Parameter(
             torch.empty(v, d, dtype=dtype, device=device), requires_grad=False
         )
         dense, _ = _layer_split(cfg)
-        self.layers = nn.ModuleList(
-            DecoderLayer(cfg, dtype, device, quantize, moe=i >= dense, mesh=self.mesh)
-            for i in range(cfg.num_layers)
-        )
+        made = [DecoderLayer(cfg, dtype, device, quantize, moe=i >= dense, mesh=self.mesh)
+                for i in self.layer_ids]
+        if len(made) == cfg.num_layers:
+            # Positional: callers index the whole stack as model.layers[i].
+            self.layers = nn.ModuleList(made)
+        else:
+            self.layers = nn.ModuleDict({str(i): m for i, m in zip(self.layer_ids, made)})
         self.final_norm = _vector(d, dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = _linear(d, v, dtype, device, quantize)
         self._specs = state_specs(cfg, quantize) if self.mesh is not None else {}
         if seed is not None:
             self.init_random(seed)
+
+    def stack(self) -> list[tuple[int, DecoderLayer]]:
+        """(global index, layer) of each layer this model holds, in order."""
+        return list(zip(self.layer_ids, self.layers.children()))
 
     def _local(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's slice of a full tensor drawn for ``name``."""
@@ -902,18 +1013,22 @@ class Llama(nn.Module):
         scaling. No full-precision copy of a quantized weight is ever
         built."""
         gen = torch.Generator(device=self.embed.device).manual_seed(seed)
-        for name, p in self.named_parameters():
+        for name, p, local_shape in self._draw_order():
             leaf = name.rsplit(".", 1)[-1]
             if leaf.endswith("norm") or leaf in ("qn", "kn"):
-                p.fill_(1.0)
+                if p is not None:
+                    p.fill_(1.0)
                 continue
             if leaf in ("bq", "bk", "bv", "router_bias"):
-                p.zero_()
+                if p is not None:
+                    p.zero_()
                 continue
-            shape = self._shape(name, p.shape)
-            p.copy_(self._local(name, torch.randn(
-                shape, generator=gen, device=p.device, dtype=torch.float32
-            ).mul_(self._fan_in(name, shape) ** -0.5)))
+            shape = self._shape(name, local_shape)
+            full = torch.randn(shape, generator=gen, device=self.embed.device,
+                               dtype=torch.float32)
+            if p is not None:
+                p.copy_(self._local(name, full.mul_(self._fan_in(name, shape) ** -0.5)))
+            del full
         for name, w in self.named_modules():
             if not isinstance(w, QuantizedBase):
                 continue
@@ -930,6 +1045,26 @@ class Llama(nn.Module):
             w.scale.fill_(self._fan_in(name, shape) ** -0.5 * 3.0 ** 0.5 / top)
             del codes
 
+    def _draw_order(self) -> list[tuple[str, nn.Parameter | None, tuple[int, ...]]]:
+        """(name, parameter, local shape) of every parameter of the one-rank
+        model, in its order: a pipeline stage draws the layers other stages
+        hold too (parameter None) so that the generator reaches its own at
+        the one-rank model's place."""
+        if len(self.layer_ids) == self.cfg.num_layers:
+            return [(n, p, tuple(p.shape)) for n, p in self.named_parameters()]
+        held = dict(self.named_parameters())
+        dense, _ = _layer_split(self.cfg)
+        meta = {moe: DecoderLayer(self.cfg, self.dtype, torch.device("meta"), moe=moe,
+                                  mesh=self.mesh)
+                for moe in ((False, True) if self.cfg.moe is not None else (False,))}
+        # The model's own parameters come first, then its layers'.
+        out = [(n, p, tuple(p.shape)) for n, p in self.named_parameters(recurse=False)]
+        for i in range(self.cfg.num_layers):
+            for n, p in meta[i >= dense].named_parameters():
+                name = f"layers.{i}.{n}"
+                out.append((name, held.get(name), tuple(p.shape)))
+        return out
+
     def make_cache(
         self, num_pages: int, page_size: int, kv_quantize: str = "",
     ) -> PagedKVCache:
@@ -945,7 +1080,7 @@ class Llama(nn.Module):
 
     def _layer(
         self, layer: DecoderLayer, li: int, x: torch.Tensor, attn_fn, plain: bool,
-        with_aux: bool,
+        with_aux: bool, data_axes: tuple[str, ...] = (),
     ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """One layer's body: (hidden states after it, its MoE balance loss
         or None)."""
@@ -954,29 +1089,31 @@ class Llama(nn.Module):
         x = x + layer.row(attn_fn(h, layer, li), layer.wo, plain)
         h = rms_norm(x, layer.mlp_norm, eps)
         if layer.moe:
-            y, aux = layer.moe_mlp(h, self.cfg, plain, with_aux)
+            y, aux = layer.moe_mlp(h, self.cfg, plain, with_aux, data_axes)
         else:
             y, aux = layer.mlp(h, plain), None
         return x + y, aux
 
     def _run_stack(
         self, x: torch.Tensor, attn_fn, plain: bool, with_aux: bool = False,
-        remat: bool = False,
+        remat: bool = False, layers: list[tuple[int, DecoderLayer]] | None = None,
+        data_axes: tuple[str, ...] = (),
     ) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """The layers in order, dense then MoE: (hidden states, summed MoE
-        balance loss, or None without ``with_aux``). ``remat`` runs each
-        layer under activation checkpointing (JAX's ``jax.checkpoint`` of
-        the scanned body): the backward recomputes the layer's activations
-        instead of keeping them."""
+        """The layers in order (``layers``, default all this model holds),
+        dense then MoE: (hidden states, summed MoE balance loss, or None
+        without ``with_aux``). ``remat`` runs each layer under activation
+        checkpointing (JAX's ``jax.checkpoint`` of the scanned body): the
+        backward recomputes the layer's activations instead of keeping
+        them."""
         aux = None
-        for li, layer in enumerate(self.layers):
+        for li, layer in self.stack() if layers is None else layers:
             if remat:
                 x, layer_aux = checkpoint(
-                    self._layer, layer, li, x, attn_fn, plain, with_aux,
+                    self._layer, layer, li, x, attn_fn, plain, with_aux, data_axes,
                     use_reentrant=False,
                 )
             else:
-                x, layer_aux = self._layer(layer, li, x, attn_fn, plain, with_aux)
+                x, layer_aux = self._layer(layer, li, x, attn_fn, plain, with_aux, data_axes)
             if layer_aux is not None:
                 aux = layer_aux if aux is None else aux + layer_aux
         if with_aux and aux is None:
@@ -999,13 +1136,45 @@ class Llama(nn.Module):
         """f32 logits over the whole vocab; at tp > 1 each rank's vocab
         columns all-gathered over ``tp``."""
         x = rms_norm(x, self.final_norm, self.cfg.rms_norm_eps)
+        if self.tp > 1:
+            x = replicate(x, self.mesh, AXES.tp)
         if self.cfg.tie_embeddings:
             logits = (x @ self.embed.T.to(x.dtype)).float()
         else:
             logits = _col(x, self.lm_head, plain, self.tp).float()
         if self.tp == 1:
             return logits
-        return all_gather(logits, self.mesh, AXES.tp, dim=-1)
+        return gather(logits, self.mesh, AXES.tp, dim=-1)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the head over hidden states [..., d]: f32
+        logits [..., V] (the training loss's)."""
+        return self._lm_head(x, True)
+
+    def full_attention(self, B: int, S: int, start: int = 0, attention=None):
+        """The ``attn_fn`` of an all-positions forward over rows of S
+        positions from global position ``start``: q/k/v with RoPE there
+        (MLA materialized), then ``attention(q, k, v)`` (default plain
+        causal attention over these positions; the trainer passes ring or
+        gathered attention over sp)."""
+        pos = start + torch.arange(S, device=self.embed.device)[None, :].expand(B, S)
+        cos, sin = self._rope(pos)
+        attend = causal_prefill_attention if attention is None else attention
+
+        def attn_fn(h, layer, li):
+            q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain=True)
+            return attend(q, k, v).reshape(B, S, -1)
+
+        return attn_fn
+
+    def hidden(
+        self, x: torch.Tensor, attn_fn, layers: list[tuple[int, DecoderLayer]] | None = None,
+        remat: bool = False, data_axes: tuple[str, ...] = (),
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Hidden states ``x`` [B, S, d] through ``layers`` (default all
+        this model holds) in plain PyTorch: (hidden states, summed MoE
+        balance loss, 0 without MoE layers), as training runs them."""
+        return self._run_stack(x, attn_fn, True, True, remat, layers, data_axes)
 
     def forward_full(
         self, tokens: torch.Tensor, return_aux: bool = False, remat: bool = False,
@@ -1015,13 +1184,7 @@ class Llama(nn.Module):
         also returns the summed MoE balance loss (0 for dense models);
         ``remat`` checkpoints each layer (the training step's option)."""
         B, S = tokens.shape
-        pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-        cos, sin = self._rope(pos)
-
-        def attn_fn(h, layer, li):
-            q, k, v = layer.qkv_rope(h, self.cfg, cos, sin, plain=True)
-            return causal_prefill_attention(q, k, v).reshape(B, S, -1)
-
+        attn_fn = self.full_attention(B, S)
         x, aux = self._run_stack(self._embed(tokens), attn_fn, True, return_aux, remat)
         logits = self._lm_head(x, True)
         return (logits, aux) if return_aux else logits

@@ -63,14 +63,17 @@ IDLE_TIMEOUT_S = 24 * 3600.0
 
 def local_rank() -> int:
     """This process's index on its host (torch's ``LOCAL_RANK``, else
-    ``RANK``, else 0)."""
+    ``RANK``, else 0). Under a multi-node launch ``RANK`` is global and
+    ``LOCAL_RANK`` counts from 0 on every host."""
     return int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
 
 
 def rank_device(device: str | None = None) -> str | None:
-    """The device a rank serves on: ``cuda:{LOCAL_RANK % device_count}``
-    for a CUDA (or unset) device in a launched job, so that ranks beyond
-    the cards share them; ``device`` as given otherwise."""
+    """The device a rank serves or trains on: ``cuda:{LOCAL_RANK %
+    device_count}`` for a CUDA (or unset) device in a launched job, so
+    that ranks beyond a host's cards share them (on every host of a
+    multi-node job, its first rank takes ``cuda:0``); ``device`` as given
+    otherwise."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return device
     if device is not None and torch.device(device).type == "cpu":
@@ -89,7 +92,10 @@ def init_distributed(
 ) -> int:
     """Join the job's default process group. Arguments default to torch's
     launch variables (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``,
-    ``RANK``); ``coordinator_address`` is ``host:port``. Returns the world
+    ``RANK``), which ``torchrun`` sets across hosts as on one: the global
+    rank and world, the device from ``LOCAL_RANK`` (``rank_device``); the
+    mesh then lays pp and dp outermost, over the hosts.
+    ``coordinator_address`` is ``host:port``. Returns the world
     size: 1, joining nothing, when neither arguments nor variables are
     present (a single process needs no group), as JAX's does. ``backend``
     is the caller's: ``nccl`` between cards, ``gloo`` on the CPU or for

@@ -1,5 +1,5 @@
 """Ragged ring attention: causal self-attention with the sequence split over
-the ``sp`` mesh axis (context parallelism), forward only.
+the ``sp`` mesh axis (context parallelism), and its backward.
 
 The port's counterpart of ``opsagent_tpu/parallel/ring.py``
 (``_local_ring_attention``, ``make_ring_attention``). Each rank holds S/sp
@@ -15,6 +15,16 @@ kernel: operands in the input dtype, accumulation in f32.
 
 Layout: q ``[B, S_l, H, D]`` with this rank's tensor-parallel heads, k/v
 ``[B, S_l, K, D]``.
+
+Training differentiates the ring loop as ``jax.grad`` differentiates JAX's
+``fori_loop``: autograd records each step's block products and rotates the
+K/V gradients back through ``ppermute_grad`` (the inverse permutation), so
+the skipped last rotation, the global-position causality and the ragged
+``lengths`` carry over as they are. ``ring_attention`` is the stage-local
+form, over this rank's own S/sp positions (what the trainer and the
+pipeline call); ``make_ring_attention`` the whole-sequence one. Without the
+ring, ``gathered_attention`` all-gathers K/V over sp, as XLA does for
+JAX's sequence-sharded step.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from typing import Callable
 
 import torch
 
-from .collectives import all_gather, ppermute
+from .collectives import gather, ppermute_grad, replicate
 from .mesh import AXES, Mesh
 
 NEG_INF = -1e30
@@ -38,7 +48,8 @@ def ring_attention(
     axis: str = AXES.sp,
 ) -> torch.Tensor:
     """JAX's ``_local_ring_attention`` on this rank's shard: [B, S_l, H, D]
-    in q's dtype."""
+    in q's dtype. Differentiable: the K/V rotation's gradient travels back
+    around the ring."""
     sp, idx = mesh.shape[axis], mesh.coords[axis]
     B, S_l, H, D = q.shape
     K = k.shape[2]
@@ -68,8 +79,8 @@ def ring_attention(
             "bkgst,btkd->bkgsd", probs.to(v_blk.dtype).float(), v_blk.float())
         m = m_new
         if s < sp - 1:
-            k_blk = ppermute(k_blk, mesh, axis, perm)
-            v_blk = ppermute(v_blk, mesh, axis, perm)
+            k_blk = ppermute_grad(k_blk, mesh, axis, perm)
+            v_blk = ppermute_grad(v_blk, mesh, axis, perm)
     out = acc / l.clamp_min(1e-30)                        # [B, K, G, S_l, D]
     return out.permute(0, 3, 1, 2, 4).reshape(B, S_l, H, D).to(q.dtype)
 
@@ -81,7 +92,11 @@ def make_ring_attention(
     ``ring_attn(q, k, v, lengths=None)``: this rank takes its S/sp slice of
     the positions, rings, and the outputs are all-gathered over ``axis``,
     so every rank returns [B, S, H, D]. ``lengths`` None: every row is
-    full. S must divide by sp (the engine checks its buckets)."""
+    full. S must divide by sp (the engine checks its buckets). For a loss
+    that every rank computes alike from the whole output, the backward
+    keeps this rank's slice of the output's gradient and sums the inputs'
+    gradients over ``axis``, so each rank holds the whole q/k/v
+    gradient."""
     sp, idx = mesh.shape[axis], mesh.coords[axis]
 
     def ring_attn(q, k, v, lengths=None):
@@ -92,7 +107,33 @@ def make_ring_attention(
             lengths = torch.full((B,), S, dtype=torch.int32, device=q.device)
         S_l = S // sp
         part = slice(idx * S_l, (idx + 1) * S_l)
-        out = ring_attention(q[:, part], k[:, part], v[:, part], lengths, mesh, axis)
-        return all_gather(out, mesh, axis, dim=1)
+        q, k, v = (replicate(t, mesh, axis)[:, part] for t in (q, k, v))
+        out = ring_attention(q, k, v, lengths, mesh, axis)
+        return gather(out, mesh, axis, dim=1)
 
     return ring_attn
+
+
+def gathered_attention(
+    q: torch.Tensor,        # [B, S_l, H, D] this rank's positions
+    k: torch.Tensor,        # [B, S_l, K, D]
+    v: torch.Tensor,        # [B, S_l, K, D]
+    mesh: Mesh,
+    axis: str = AXES.sp,
+) -> torch.Tensor:
+    """Causal attention of this rank's S/sp queries over the whole
+    sequence's K/V, all-gathered over ``axis`` (the sp step without the
+    ring). Each rank's queries go on to its own part of the loss, so the
+    K/V gradients are summed over the axis before each rank keeps its
+    slice. Plain PyTorch, f32 softmax: [B, S_l, H, D] in q's dtype."""
+    B, S_l, H, D = q.shape
+    K = k.shape[2]
+    k, v = (gather(t, mesh, axis, dim=1, grad="sum") for t in (k, v))
+    q_pos = mesh.coords[axis] * S_l + torch.arange(S_l, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    qg = q.float().reshape(B, S_l, K, H // K, D) * D ** -0.5
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    scores = scores.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S_l, H, D).to(q.dtype)

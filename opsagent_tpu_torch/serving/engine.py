@@ -576,11 +576,12 @@ class Engine:
             raise ValueError(
                 f"cuda_graphs=True at a mesh over {sharded}: the steps hold "
                 "collectives, which this engine does not capture (gloo's cannot "
-                "be); pass cuda_graphs=False to run the steps eagerly")
+                "be; NCCL capture across cards is ROADMAP item 11 (c)); pass "
+                "cuda_graphs=False to run the steps eagerly")
         if self.mesh.size > 1 and cfg.offload:
             raise ValueError(
                 f"offload=True at a mesh of {self.mesh.size} ranks: the host KV "
-                "tier runs on a one-rank engine only (ROADMAP item 11 (b))")
+                "tier runs on a one-rank engine only (ROADMAP item 11 (c))")
 
     def _build_model(self) -> Llama:
         """Random weights from the seed, built on the device; or the
@@ -2062,7 +2063,7 @@ class Engine:
         if self.mesh.size > 1:
             raise ValueError(
                 f"snapshot at a mesh of {self.mesh.size} ranks: snapshots hold one "
-                "rank's weights; sharded snapshots wait for ROADMAP item 11 (b)")
+                "rank's weights; sharded snapshots wait for ROADMAP item 11 (c)")
         with self.lock:
             return write_snapshot(self, path)
 

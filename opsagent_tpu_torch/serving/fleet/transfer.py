@@ -157,7 +157,7 @@ def migrate_chain(
             raise ValueError(
                 f"session migration with replica {getattr(handle, 'replica_id', '?')}: "
                 f"its engine runs on a mesh of {mesh.size} ranks, whose KV shards "
-                "the page wire format does not carry yet (ROADMAP item 11 (b))")
+                "the page wire format does not carry yet (ROADMAP item 11 (c))")
     t0 = time.perf_counter()
     rid_field = {"request_id": request_id} if request_id else {}
     obs.flight.record(

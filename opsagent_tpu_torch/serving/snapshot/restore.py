@@ -152,7 +152,7 @@ def restore_engine(path: str, warmup: bool = False, tokenizer: Any = None,
     if sharded:
         raise _refuse(f"refusing restore from {path}: its weights are laid out "
                       f"over {sharded}; restoring a sharded snapshot waits for ROADMAP "
-                      "item 11 (b)")
+                      "item 11 (c)")
     dev = resolve_device(device)
     if "torch" in man:
         want = int(man["torch"]["count"])

@@ -5,8 +5,9 @@
 
 Builds the kernels (``phase_build``), then runs each named phase
 (``phase_<PHASE>`` of ``chip_smoke.py``: e.g. ``prefill_lane``,
-``autoscale``, ``fleet``; these three by default; ``parallel`` with
-``--parallel-backend nccl`` puts its two ranks on two cards) and prints
+``autoscale``, ``fleet``; these three by default; ``parallel`` and
+``train_parallel`` with ``--parallel-backend nccl`` put their two ranks on
+two cards) and prints
 its JSON line,
 as ``chip_smoke.py`` does, with the card's name and power limit. A phase
 that fails prints its traceback and a ``failed`` line, and the next one
@@ -36,7 +37,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("phases", nargs="*", default=["prefill_lane", "autoscale", "fleet"])
     ap.add_argument("--parallel-backend", default=chip_smoke.PARALLEL_BACKEND,
-                    help="the parallel phase's backend: gloo (two ranks on one card) "
+                    help="the parallel phases' backend: gloo (two ranks on one card) "
                          "or nccl (a card a rank, on a machine with several)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -54,7 +55,8 @@ def main() -> int:
     for name in args.phases:
         t = time.perf_counter()
         try:
-            extra = {"backend": args.parallel_backend} if name == "parallel" else {}
+            extra = ({"backend": args.parallel_backend}
+                     if name in ("parallel", "train_parallel") else {})
             out = getattr(chip_smoke, f"phase_{name}")(args.seed, smi, **extra)
             chip_smoke.emit({"phase": name, "seconds": time.perf_counter() - t, **out})
         except Exception as e:  # noqa: BLE001 - reported; the next phase runs

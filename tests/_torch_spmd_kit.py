@@ -29,10 +29,15 @@ GROUP_TIMEOUT_S = 30.0
 def run_ranks(job: str, world: int, workdir, inputs: dict | None = None,
               params: dict | None = None, timeout: float = 120.0,
               env: dict[int, dict[str, str]] | None = None,
-              expect_ok: bool = True) -> list[dict]:
+              expect_ok: bool = True, hosts: int = 0) -> list[dict]:
     """Run ``job`` on ``world`` ranks; returns each rank's outputs (a dict
     of arrays, plus ``"rc"`` and ``"stderr"``). With ``expect_ok`` a rank
-    that fails or outlives ``timeout`` fails the call."""
+    that fails or outlives ``timeout`` fails the call. ``hosts`` > 0
+    launches the ranks as torch's multi-node launcher does, over that many
+    "hosts" on localhost: ``MASTER_ADDR``/``MASTER_PORT``, the global
+    ``RANK`` and ``WORLD_SIZE``, and ``LOCAL_RANK`` counted per host, from
+    which each rank joins the job (``init_distributed()`` with no
+    arguments)."""
     workdir = str(workdir)
     os.makedirs(workdir, exist_ok=True)
     np.savez(os.path.join(workdir, "inputs.npz"), **(inputs or {}))
@@ -43,6 +48,9 @@ def run_ranks(job: str, world: int, workdir, inputs: dict | None = None,
     for r in range(world):
         e = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
         e.pop("OPSAGENT_FAULTS", None)
+        if hosts:
+            e.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
+                     WORLD_SIZE=str(world), LOCAL_RANK=str(r % (world // hosts)))
         e.update((env or {}).get(r, {}))
         errf = open(os.path.join(workdir, f"stderr_{r}.txt"), "w")
         procs.append((subprocess.Popen(
@@ -372,11 +380,138 @@ def job_refusals(job, inputs, mesh):
     return out
 
 
+def _train_config(spec: dict):
+    """A preset with overrides (``{"preset": ..., "change": {...}}``; a
+    ``moe`` change is a ``MoEConfig``'s fields)."""
+    from opsagent_tpu_torch.models.config import MoEConfig, get_config_preset
+
+    change = dict(spec.get("change", {}))
+    if "moe" in change:
+        change["moe"] = MoEConfig(**change["moe"])
+    return dataclasses.replace(get_config_preset(spec["preset"]), **change)
+
+
+def _train_state(case, inputs, mesh, seed=None):
+    """(model, optimizer) of a train case at ``mesh`` (None: one rank):
+    the case's weights (``w/<weights>/...``), or drawn from ``seed``."""
+    import torch
+
+    from opsagent_tpu_torch.models.llama import Llama
+    from opsagent_tpu_torch.training import TrainConfig, init_train_state
+
+    cfg = _train_config(case["model"])
+    tc = TrainConfig(**case["tc"])
+    if seed is not None:
+        return init_train_state(cfg, tc, seed=seed, dtype=torch.float32, device="cpu",
+                                mesh=mesh)
+    prefix = f"w/{case['weights']}/"
+    model = Llama(cfg, torch.float32, "cpu", seed=None, mesh=mesh)
+    model.load_full_state_dict({k.removeprefix(prefix): _t(v) for k, v in inputs.items()
+                                if k.startswith(prefix)})
+    return init_train_state(cfg, tc, model=model)
+
+
+def _train_mesh(shape: dict, timeout_s: float = GROUP_TIMEOUT_S):
+    from opsagent_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh.make_mesh(tp=shape.get("tp", 1), dp=shape.get("dp", 1),
+                           sp=shape.get("sp", 1), pp=shape.get("pp", 1),
+                           ep=shape.get("ep", 1), timeout_s=timeout_s)
+
+
+def _record(out: dict, label: str, metrics: list, model, opt) -> None:
+    """The metrics of each step, the rank's shards after the last, and
+    AdamW's first moment of each shard."""
+    for key in ("loss", "moe_aux", "grad_norm"):
+        out[f"{label}/{key}"] = np.array([float(m[key]) for m in metrics])
+    for k, v in model.named_parameters():
+        out[f"{label}/state/{k}"] = v.detach().numpy()
+        out[f"{label}/mu/{k}"] = opt.state[v]["exp_avg"].numpy()
+
+
+def _batches(case, inputs):
+    return [(_t(inputs[f"batch/{b}/tokens"]), _t(inputs[f"batch/{b}/mask"]))
+            for b in case["batches"]]
+
+
+def job_train(job, inputs, mesh):
+    """Each train case in turn, every rank making its mesh's groups in one
+    order: the case's steps from its weights at its mesh (every rank given
+    the whole batch), its metrics and the rank's shards after them. Then
+    the ring's q/k/v gradients, a checkpoint resumed at other meshes, and
+    a step whose peer is lost (the rank past ``lost_peer`` leaves)."""
+    import torch
+
+    from opsagent_tpu_torch.parallel.ring import make_ring_attention
+    from opsagent_tpu_torch.training import (
+        TrainConfig,
+        make_train_step,
+        restore_train_state,
+        save_train_state,
+    )
+
+    out = {}
+    if "launch" in job:
+        out["launch/world"] = np.array(job["launch"]["world"])
+        out["launch/local_rank"] = np.array(job["launch"]["local_rank"])
+        out["launch/rank"] = np.array(torch.distributed.get_rank())
+    for case in job.get("cases", []):
+        t0 = time.monotonic()
+        m = _train_mesh(case["mesh"])
+        model, opt = _train_state(case, inputs, m)
+        step = make_train_step(model.cfg, TrainConfig(**case["tc"]))
+        metrics = [step(model, opt, tokens, mask) for tokens, mask in _batches(case, inputs)]
+        _record(out, case["name"], metrics, model, opt)
+        out[f"{case['name']}/seconds"] = np.array(time.monotonic() - t0)
+    for case in job.get("ring_grads", []):
+        m = _train_mesh({"sp": case["sp"]})
+        q, k, v = (_t(inputs[f"{case['name']}/{n}"]).requires_grad_() for n in "qkv")
+        lengths = inputs.get(f"{case['name']}/lengths")
+        o = make_ring_attention(m)(q, k, v, None if lengths is None else _t(lengths))
+        (o * o).sum().backward()
+        for n, t in zip("qkv", (q, k, v)):
+            out[f"{case['name']}/d{n}"] = t.grad.numpy()
+    if "checkpoint" in job:
+        case = job["checkpoint"]
+        where = os.path.join(job["workdir"], "ckpt")
+        cfg = _train_config(case["model"])
+        step = make_train_step(cfg, TrainConfig(**case["tc"]))
+        (t0, m0), (t1, m1) = _batches(case, inputs)
+        model, opt = _train_state(case, inputs, _train_mesh(case["save_mesh"]))
+        first = step(model, opt, t0, m0)
+        save_train_state(where, 1, model, opt)
+        _record(out, "ckpt/uninterrupted", [first, step(model, opt, t1, m1)], model, opt)
+        model, opt = _train_state(case, inputs, _train_mesh(case["restore_mesh"]), seed=11)
+        _, _, at = restore_train_state(where, model, opt)
+        _record(out, "ckpt/resumed", [step(model, opt, t1, m1)], model, opt)
+        out["ckpt/at"] = np.array(at)
+        if torch.distributed.get_rank() == 0:
+            model, opt = _train_state(case, inputs, None, seed=11)
+            restore_train_state(where, model, opt)
+            _record(out, "ckpt/one_rank", [step(model, opt, t1, m1)], model, opt)
+        torch.distributed.barrier()
+    if "lost_peer" in job:
+        case = job["lost_peer"]
+        m = _train_mesh(case["mesh"], timeout_s=case["timeout_s"])
+        if m.rank == 0:
+            model, opt = _train_state(case, inputs, m)
+            step = make_train_step(model.cfg, TrainConfig(**case["tc"]))
+            t0 = time.monotonic()
+            try:
+                step(model, opt, *_batches(case, inputs)[0])
+                out["lost/raised"] = np.array(0)
+            except Exception as e:  # noqa: BLE001 - the check reports it
+                out["lost/raised"] = np.array(1)
+                out["lost/error"] = np.array(f"{type(e).__name__}: {e}"[:300])
+            out["lost/seconds"] = np.array(time.monotonic() - t0)
+    return out
+
+
 JOBS = {
     "attention": job_attention, "quant": job_quant, "ring": job_ring,
     "collectives": job_collectives,
     "model": job_model, "engine": job_engine, "follower_fails": job_follower_fails,
-    "refusals": job_refusals,
+    "refusals": job_refusals, "train": job_train,
 }
 
 
@@ -388,14 +523,22 @@ def main(workdir: str, rank: int, world: int, port: int) -> int:
     job["workdir"] = workdir
     inputs = dict(np.load(os.path.join(workdir, "inputs.npz")))
     pmesh.GROUP_TIMEOUT_S = GROUP_TIMEOUT_S
-    pmesh.init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
-                           timeout_s=GROUP_TIMEOUT_S)
+    if "RANK" in os.environ:
+        joined = pmesh.init_distributed(backend="gloo", timeout_s=GROUP_TIMEOUT_S)
+        job["launch"] = {"world": joined, "local_rank": pmesh.local_rank()}
+    else:
+        pmesh.init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                               timeout_s=GROUP_TIMEOUT_S)
     shape = job.get("mesh", {"tp": world})
     mesh = pmesh.make_mesh(tp=shape.get("tp", 1), dp=shape.get("dp", 1),
                            sp=shape.get("sp", 1), ep=shape.get("ep", 1),
                            timeout_s=GROUP_TIMEOUT_S)
     out = JOBS[job["name"]](job, inputs, mesh)
     np.savez(os.path.join(workdir, f"out_{rank}.npz"), **out)
+    # Tear the groups down here, not in the interpreter's exit.
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     return 0
 
 

@@ -35,6 +35,7 @@ REQUIRED = (
     "opsagent_tpu_torch.parallel.mesh",
     "opsagent_tpu_torch.parallel.collectives",
     "opsagent_tpu_torch.parallel.ring",
+    "opsagent_tpu_torch.parallel.pipeline",
     "opsagent_tpu_torch.serving.spmd",
     "opsagent_tpu_torch.ops.paged_attention",
     "opsagent_tpu_torch.ops.cuda_build",
@@ -76,6 +77,7 @@ REQUIRED = (
     "opsagent_tpu_torch.training",
     "opsagent_tpu_torch.training.trainer",
     "opsagent_tpu_torch.training.checkpoint",
+    "opsagent_tpu_torch.training.parity",
     "opsagent_tpu_torch.utils.globalstore",
     "opsagent_tpu_torch.utils.yamlutil",
     "opsagent_tpu_torch.utils.yamlio",

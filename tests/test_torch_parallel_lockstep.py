@@ -83,7 +83,7 @@ def test_mesh_refusals_and_the_registered_mesh(tmp_path):
         for what in ("cuda_graphs", "offload", "snapshot", "migrate"):
             assert int(out[what]) == 1, what
         assert "cuda_graphs=False" in str(out["cuda_graphs_msg"])
-        assert "11 (b)" in str(out["snapshot_msg"]) and "11 (b)" in str(out["migrate_msg"])
+        assert "11 (c)" in str(out["snapshot_msg"]) and "11 (c)" in str(out["migrate_msg"])
     for key in ("local_mesh", "member_mesh"):
         assert json.loads(str(outs[0][key])) == {"tp": 2, "sp": 1, "ep": 1}
 

@@ -4,8 +4,8 @@ The spec tables (``param_specs``, ``cache_specs``, ``quantize_specs``)
 equal JAX's leaf by leaf for the dense, MoE, MLA and Qwen families;
 ``shard_params`` gives each rank exactly the shard JAX's ``shard_params``
 puts on that device of a tp = 2, dp = 2, sp = 2 mesh; a seeded sharded
-model is the slices of the one-rank model; what the mesh and the training
-path refuse raises. No process group is needed: a rank's view of a mesh
+model is the slices of the one-rank model; what the mesh refuses raises,
+and the training path builds a rank's shard at a mesh. No process group is needed: a rank's view of a mesh
 (``Mesh.for_rank``) is enough to slice.
 """
 
@@ -203,24 +203,45 @@ def test_sharded_model_refuses_what_does_not_divide():
         Llama(cfg, torch.float32, "cpu", seed=0, mesh=Mesh.for_rank({"tp": 4}, 0))
     with pytest.raises(ValueError, match="needs a MoE model"):
         Llama(cfg, torch.float32, "cpu", seed=0, mesh=Mesh.for_rank({"ep": 2}, 0))
-    with pytest.raises(ValueError, match="pp > 1"):
-        Llama(cfg, torch.float32, "cpu", seed=0, mesh=Mesh.for_rank({"pp": 2}, 0))
+    with pytest.raises(ValueError, match="num_layers=2 not divisible by pp=4"):
+        Llama(cfg, torch.float32, "cpu", seed=0, mesh=Mesh.for_rank({"pp": 4}, 0))
 
 
 @pytest.mark.parametrize("shape", [{"dp": 2}, {"sp": 2}, {"pp": 2}, {"tp": 2}])
 def test_training_refuses_a_mesh(shape):
-    """``init_train_state`` raises on a mesh of several ranks (the training
-    mesh paths are ROADMAP item 11 (b)), a sharded model's too."""
-    from opsagent_tpu_torch.training.trainer import TrainConfig, init_train_state
+    """``init_train_state`` accepts a mesh of several ranks (ROADMAP item
+    11 (b)): rank 0's model holds the shard shapes ``train_param_specs``
+    gives, from the seed or sliced from a whole model; a one-rank mesh is
+    no mesh."""
+    from opsagent_tpu_torch.parallel.pipeline import param_specs_pp
+    from opsagent_tpu_torch.training.trainer import (
+        TrainConfig,
+        init_train_state,
+        train_param_specs,
+    )
 
     cfg = tconfig.get_config_preset("tiny-test")
     mesh = Mesh.for_rank(shape, 0)
-    with pytest.raises(ValueError, match="11 \\(b\\)"):
-        init_train_state(cfg, TrainConfig(), dtype=torch.float32, device="cpu", mesh=mesh)
-    if "pp" not in shape:
-        model = Llama(cfg, torch.float32, "cpu", seed=0, mesh=mesh)
-        with pytest.raises(ValueError, match="11 \\(b\\)"):
-            init_train_state(cfg, TrainConfig(), model=model)
+    specs = train_param_specs(cfg, mesh)
+    assert specs == (param_specs_pp(cfg) if "pp" in shape else param_specs(cfg))
+    whole = Llama(cfg, torch.float32, "cpu", seed=0)
+    full = {k: v.shape for k, v in whole.state_dict().items()}
+    for model in (init_train_state(cfg, TrainConfig(), dtype=torch.float32, device="cpu",
+                                   mesh=mesh)[0],
+                  init_train_state(cfg, TrainConfig(), model=whole, mesh=mesh)[0]):
+        assert model.mesh is mesh and all(p.requires_grad for p in model.parameters())
+        got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        layers = sorted({int(k.split(".")[1]) for k in got if k.startswith("layers.")})
+        # The stacked layer axis: pp-sharded stages hold L/pp layers.
+        stacked = specs["layers"]["wq"][0]
+        assert len(layers) == cfg.num_layers // (mesh.shape[stacked] if stacked else 1)
+        for key, shp in got.items():
+            leaf = key.rsplit(".", 1)[-1]
+            spec = (specs["layers"][leaf][1:] if key.startswith("layers.")
+                    else specs[key])
+            want = tuple(n // (mesh.shape[a] if a else 1) for n, a in
+                         zip(full[key], tuple(spec) + (None,) * len(shp)))
+            assert shp == want, (shape, key)
     model, _ = init_train_state(cfg, TrainConfig(), dtype=torch.float32, device="cpu",
                                 mesh=Mesh.for_rank({}, 0))
     assert model.mesh is None

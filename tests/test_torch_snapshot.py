@@ -202,7 +202,7 @@ def test_leaf_order_drift_truncation_and_device_counts_refused(tmp_path):
     sharded = dict(man, engine={**man["engine"], "tp": 2})
     sharded["fingerprint"] = fingerprint(sharded["model"], sharded["engine"])
     write_manifest(path, sharded)
-    with pytest.raises(SnapshotError, match="item 11 \\(b\\)"):
+    with pytest.raises(SnapshotError, match="item 11 \\(c\\)"):
         Engine.from_snapshot(path, device="cpu")
     write_manifest(path, man)
     fpath = os.path.join(path, man["leaves"][0]["file"])
