@@ -225,11 +225,31 @@ Phases, each printing one JSON line with its seconds:
    tp = 2 (a mixed admission of three prompts and their decode blocks),
    sp = 2 (a 4096-token prompt through the split lane by ring attention)
    and DeepSeek-V2-Lite at 2 layers, ep = 2: tokens equal to one rank's,
-   every op's outputs equal on both ranks; bench-8b at full depth, bf16,
+   every op's outputs equal on both ranks; bench-8b at full width, bf16,
    tp = 2, eager: four concurrent 64-token completions through the
    leader's ServingStack (tok/s, TTFT p50, each rank's weights (half of
    one rank's) and peak memory, staged copies, launches equal on both
-   ranks and added to the kernel table's). One JSON line a check.
+   ranks and added to the kernel table's; over gloo the serve is cut to
+   ``PARALLEL_GLOO_SERVE_LAYERS`` layers, over NCCL it runs all 32). The
+   ``state`` line (the serve path's state at tp = 2, the 2-layer f32 cut
+   with the host KV tier): one rank first serves a prompt and its next turn, and parks a second
+   session whose records (``one_records.json``) the ranks import; at tp =
+   2 the leader serves the first prompt and its next turn, parks the
+   session (the pool's whole pages; ``tp2_records.json``) and serves the
+   turn again from the restored pages, imports one rank's session and
+   serves its turn, writes a snapshot at the mesh, which both ranks
+   restore and serve; CUDA graphs over gloo are refused. Then, in this
+   process, the snapshot restored on one rank serves the first prompt,
+   and the tp = 2 records imported there serve the turn. Tokens equal one
+   rank's and the never-parked run's, imported pages' bytes equal the
+   sender's; the line gives pages spilled, the park and restore
+   admission ms, the snapshot's bytes, write and restore seconds, and the
+   staged copies. With ``--parallel-backend nccl``
+   (``scripts/chip_phases.py``, a card a rank), the tp2 check is run
+   again with its steps captured with their NCCL collectives
+   (``tp2_captured``: tokens equal eager and one rank's) and the serve
+   again captured (``serve_captured``: tok/s and TTFT p50 beside the
+   eager serve's). One JSON line a check.
 6j. train_parallel: training at a mesh (``training/``,
    ``parallel/pipeline.py``), two ranks of this script (``--parallel-job
    train``) sharing the one card over gloo. One rank's f32 step of each
@@ -289,8 +309,12 @@ Phases, each printing one JSON line with its seconds:
    json_object, one unconstrained); each constrained reply is a live
    prefix of its DFA and parses when it stopped, every step replays, the
    ToolPrompt rows ride the device tables (loaded once) and only the
-   json_object row (over the table budget) takes hosted steps; the line
-   gives the table bytes, the load ms, the hosted steps and the decode
+   json_object row (over the table budget) takes hosted steps; the
+   ToolPrompt FSM holds the native matcher's tables and json_object's
+   none; the line gives the table bytes, the load ms, at bench-8b's 128k
+   vocab the host ms of the ToolPrompt tables' build, native against the
+   numpy walk of every state (``fsm_native_build_ms``,
+   ``fsm_numpy_walk_ms``), the hosted steps and the decode
    step's device time with the rows at their FSM states and at row 0.
    The decode step timed includes the constraint mask and the FSM
    advance, as the step body runs them; ``decode_device_ms_alternated``
@@ -360,6 +384,7 @@ from opsagent_tpu_torch.models.config import (
     get_config_preset,
 )
 from opsagent_tpu_torch.models.llama import Llama, PagedKVCache
+from opsagent_tpu_torch.models.convert import leaf_bytes
 from opsagent_tpu_torch.models.loader import load_checkpoint
 from opsagent_tpu_torch.models.quant import quantize_weight, quantize_weight4
 from opsagent_tpu_torch.ops import cuda_build
@@ -372,12 +397,20 @@ from opsagent_tpu_torch.serving import engine as engine_module
 from opsagent_tpu_torch.serving import spmd
 from opsagent_tpu_torch.serving.api import ServingStack, make_server
 from opsagent_tpu_torch.serving.chat_template import apply_chat_template
+from opsagent_tpu_torch.native import NativeFSMTables
 from opsagent_tpu_torch.serving.constrained import TOOLPROMPT_SCHEMA, json_constraint
 from opsagent_tpu_torch.serving.engine import Engine, EngineConfig, Sequence
+from opsagent_tpu_torch.serving.fleet.transfer import pack_entries, unpack_entries
 from opsagent_tpu_torch.serving.offload import PageCopyEngine
 from opsagent_tpu_torch.serving.scheduler import Request
 from opsagent_tpu_torch.serving.sampler import NEG_INF, SamplingParams
 from opsagent_tpu_torch.serving.snapshot import verify_snapshot
+from opsagent_tpu_torch.serving.snapshot.manifest import read_manifest
+from opsagent_tpu_torch.serving.snapshot.restore import (
+    engine_config_from_manifest,
+    model_config_from_manifest,
+    restore_state,
+)
 from opsagent_tpu_torch.serving.tokenizer import BPETokenizer, ByteTokenizer
 from opsagent_tpu_torch.utils.perf import get_perf_stats
 
@@ -3047,6 +3080,14 @@ def constrained_batch(engine: Engine, clock: TickClock, post, post_sse, prompt,
     toolprompt = json_constraint(engine.tokenizer, TOOLPROMPT_SCHEMA).fsm
     check(engine._fsm_loaded is toolprompt and loads == 1,
           f"{label}: {loads} table loads, the ToolPrompt tables not resident")
+    # The host side of the constraint: the native tables within the budget
+    # (ToolPrompt), none past it (json_object at this vocab), as in JAX.
+    check(toolprompt._native is not None, f"{label}: the ToolPrompt FSM holds no native tables")
+    check(json_constraint(engine.tokenizer, None).fsm._native is None,
+          f"{label}: the json_object FSM holds native tables past the budget")
+    # The build's host ms at the 128k vocab (bench-8b), native against numpy.
+    table_ms = (fsm_table_build_ms(toolprompt)
+                if engine.model_cfg.vocab_size == BENCH_8B.vocab_size else {})
     rid = replies[2][1]["id"]
     status, raw = http_get(port, f"/api/trace/{rid}")
     check(status == 200, f"{label}: /api/trace/{rid} status {status}")
@@ -3066,6 +3107,7 @@ def constrained_batch(engine: Engine, clock: TickClock, post, post_sse, prompt,
         "fsm_loaded_bytes": rows * V * 5,
         "fsm_loads": loads,
         "fsm_load_ms": load_s * 1e3,
+        **table_ms,
         "hosted_steps": hosted,
         **{k: ticks[k] for k in ("decode_steps", "mixed_ticks")},
         "decode_replays": replays, "decode_eager_steps": eager_steps,
@@ -3073,6 +3115,22 @@ def constrained_batch(engine: Engine, clock: TickClock, post, post_sse, prompt,
         "launches": launches,
         "block_args": clock.block_args,
     }
+
+
+def fsm_table_build_ms(fsm) -> dict:
+    """Host ms of a table build of ``fsm``'s DFA over its vocabulary: the
+    native matcher's (every state's mask and destination at once) against
+    the numpy walk of every state that the FSM would run without it."""
+    t = time.perf_counter()
+    tables = NativeFSMTables(fsm.dfa.next, fsm.dfa.accept, fsm.token_bytes, fsm.eos_id)
+    native_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    for state in range(fsm.dfa.num_states):
+        fsm._walk(state)
+    numpy_ms = (time.perf_counter() - t) * 1e3
+    del tables
+    return {"fsm_table_states": fsm.dfa.num_states, "fsm_native_build_ms": native_ms,
+            "fsm_numpy_walk_ms": numpy_ms}
 
 
 # -- phase 7: the serve's own observability ------------------------------------
@@ -4618,6 +4676,11 @@ PARALLEL_TIMEOUT_S = 600
 PARALLEL_TOKENS = 16              # greedy tokens of the f32 equality checks
 PARALLEL_LONG = 4096              # the sp = 2 prompt: one fresh 4096-token chunk
 PARALLEL_SERVE_TOKENS = 64        # each of the four concurrent completions
+PARALLEL_TURN = [11, 22, 33]      # a parked session's next turn, after its reply
+# The serve's depth over gloo on the one card (full width; NCCL serves all
+# 32 layers): cut to keep the whole command inside its time beside the
+# state checks. Over gloo the serve measures no collective speed.
+PARALLEL_GLOO_SERVE_LAYERS = 8
 PARALLEL_SERVE_CHARS = (300, 500, 800, 1200)
 PARALLEL_TP_SHAPES = {  # the column and row shards at tp = 2 of bench-8b: (In, Out)
     "wq (column)": (4096, 2048), "wk/wv (column)": (4096, 512),
@@ -4659,6 +4722,234 @@ def parallel_drive(eng: Engine, check: str, seed: int) -> list[list[int]]:
     if check == "sp2":
         return eng.generate([parallel_long_prompt(seed)], greedy)
     return eng.generate(parallel_prompts(seed), greedy)
+
+
+def state_config(seed: int, **mesh) -> tuple[EngineConfig, object]:
+    """The state checks' engine: the tp2 check's 2-layer f32 cut with the
+    host KV tier."""
+    cfg = parallel_configs()["tp2"]
+    return replace(parallel_engine_config("tp2", cfg, seed, **mesh), offload=True), cfg
+
+
+def pool_digest(trees: list[dict]) -> str:
+    """One digest over host pages' leaf bytes, in order."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for tree in trees:
+        for t in tree.values():
+            h.update(leaf_bytes(t))
+    return h.hexdigest()
+
+
+def admit_and_decode(eng: Engine, prompt: list[int]) -> tuple[list[int], float]:
+    """One greedy request alone: its tokens, and the wall ms of its
+    admission (a host tier restore included, the card synchronized)."""
+    t = time.perf_counter()
+    sid = eng.begin_request(prompt, SamplingParams(max_tokens=PARALLEL_TOKENS))
+    torch.cuda.synchronize()
+    admit_ms = (time.perf_counter() - t) * 1e3
+    while sid in eng._prefilling:
+        eng.step_mixed([], {sid: eng.cfg.mixed_buckets[-1]})
+    while not eng.sequences[sid].done:
+        eng.step_block([sid])
+    eng.drain()
+    return eng.finish(sid), admit_ms
+
+
+def state_references(seed: int) -> dict:
+    """(e) One rank's side of the state checks, before the ranks start:
+    the first prompt's reply and its next turn, never parked; the second
+    prompt's session parked, its records written for the tp = 2 engine to
+    import (``one_records.json``), and its next turn from its own pool."""
+    cfg, model_cfg = state_config(seed)
+    eng = Engine(cfg, model_cfg=model_cfg)
+    greedy = SamplingParams(max_tokens=PARALLEL_TOKENS)
+    first_prompt, moved_prompt = parallel_prompts(seed)[:2]
+    out = {"first": eng.generate([first_prompt], greedy)[0]}
+    hist = first_prompt + out["first"][:-1]
+    out["continued"] = eng.generate([hist + PARALLEL_TURN], greedy)[0]
+    moved = eng.generate([moved_prompt], greedy)[0]
+    out["moved_hist"] = moved_prompt + moved[:-1]
+    eng.park_chain(out["moved_hist"])
+    eng.offload_flush()
+    entries = eng.offload.pool.match(out["moved_hist"])
+    out["moved_pages"], out["moved_digest"] = len(entries), pool_digest([e.data for e in entries])
+    with open(os.path.join(PARALLEL_DIR, "one_records.json"), "w") as f:
+        json.dump({"hist": out["moved_hist"], "records": pack_entries(entries)}, f)
+    out["moved_continued"] = eng.generate([out["moved_hist"] + PARALLEL_TURN], greedy)[0]
+    check(eng.offload.restored_pages == len(entries),
+          f"parallel state: one rank restored {eng.offload.restored_pages} of "
+          f"{len(entries)} pages")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_state(seed: int) -> dict:
+    """(e) The serve path's state at tp = 2, this rank's side: the leader
+    serves the first prompt, its next turn never parked, then parks the
+    session (the pool's whole pages, ``tp2_records.json`` for one rank to
+    import) and serves the turn again from the restored pages; imports one
+    rank's parked session and serves its next turn; writes a snapshot at
+    the mesh. Then both ranks restore it and the leader serves the first
+    prompt from it. The followers follow. CUDA graphs over gloo are
+    refused."""
+    cfg, model_cfg = state_config(seed, tp=2)
+    collectives.reset_counts()
+    eng = Engine(cfg, model_cfg=model_cfg)
+    out: dict = {}
+    snap = os.path.join(PARALLEL_DIR, "snapshot")
+    greedy = SamplingParams(max_tokens=PARALLEL_TOKENS)
+    if eng.mesh.leader:
+        # Warmed as a served engine is: the copy buckets' buffers, and over
+        # NCCL the job's default group that a restore broadcasts over.
+        eng.warmup()
+        first_prompt = parallel_prompts(seed)[0]
+        out["first"] = eng.generate([first_prompt], greedy)[0]
+        hist = first_prompt + out["first"][:-1]
+        out["never_parked"] = eng.generate([hist + PARALLEL_TURN], greedy)[0]
+        t = time.perf_counter()
+        eng.park_chain(hist)
+        eng.offload_flush()
+        out["park_ms"] = (time.perf_counter() - t) * 1e3
+        entries = eng.offload.pool.match(hist)
+        out["pages_spilled"] = eng.offload.spilled_pages
+        out["pool_pages"], out["pool_digest"] = len(entries), pool_digest(
+            [e.data for e in entries])
+        out["pool_bytes"] = sum(e.nbytes for e in entries)
+        with open(os.path.join(PARALLEL_DIR, "tp2_records.json"), "w") as f:
+            json.dump(pack_entries(entries), f)
+        restored = eng.offload.restored_pages
+        out["parked"], out["restore_admit_ms"] = admit_and_decode(eng, hist + PARALLEL_TURN)
+        out["pages_restored"] = eng.offload.restored_pages - restored
+        with open(os.path.join(PARALLEL_DIR, "one_records.json")) as f:
+            moved = json.load(f)
+        trees = unpack_entries(moved["records"], eng.cache)
+        out["imported_digest"] = pool_digest([tree for _, tree in trees])
+        out["imported_pages"] = sum(eng.offload.pool.put(toks, tree) for toks, tree in trees)
+        restored = eng.offload.restored_pages
+        out["moved_continued"], out["moved_admit_ms"] = admit_and_decode(
+            eng, moved["hist"] + PARALLEL_TURN)
+        out["moved_pages_restored"] = eng.offload.restored_pages - restored
+        t = time.perf_counter()
+        man = eng.snapshot(snap)
+        out["snapshot_write_s"] = time.perf_counter() - t
+        out["snapshot_mesh"] = man["torch"]["mesh"]
+        out["snapshot_bytes"] = sum(r["nbytes"] for r in man["leaves"])
+        eng.stop_followers()
+    else:
+        eng.follow()
+    out["state_host_staged"] = dict(collectives.HOST_STAGED)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    eng = Engine.from_snapshot(snap, device=cfg.device, eager=True)
+    torch.cuda.synchronize()
+    out["snapshot_restore_s"] = time.perf_counter() - t
+    out["restored_mesh"] = eng.mesh.describe()
+    if eng.mesh.leader:
+        out["restored_first"] = eng.generate([parallel_prompts(seed)[0]], greedy)[0]
+        eng.stop_followers()
+    else:
+        eng.follow()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def state_line(refs: dict, reports: list[dict], one: dict, smi: str, backend: str) -> dict:
+    """(e) The state checks' line: tokens, bytes and routes held to one
+    rank's, and the copies' and the snapshot's times."""
+    lead = reports[0]["state"]
+    label = "parallel state"
+    check(lead["first"] == refs["first"],
+          f"{label}: tp = 2 tokens {lead['first']} != one rank's {refs['first']}")
+    check(lead["never_parked"] == refs["continued"] == lead["parked"],
+          f"{label}: the next turn: never parked {lead['never_parked']}, restored "
+          f"{lead['parked']}, one rank's {refs['continued']}")
+    # The turn's admission may also restore the page after the parked ones,
+    # spilled when the trie dropped that orphaned page.
+    check(lead["pages_restored"] >= lead["pool_pages"] > 0,
+          f"{label}: {lead['pages_restored']} of {lead['pool_pages']} parked pages restored")
+    check(lead["imported_digest"] == refs["moved_digest"]
+          and lead["imported_pages"] == lead["moved_pages_restored"] == refs["moved_pages"],
+          f"{label}: one rank's records at tp = 2: {lead['imported_pages']} imported, "
+          f"{lead['moved_pages_restored']} restored of {refs['moved_pages']}, bytes equal "
+          f"{lead['imported_digest'] == refs['moved_digest']}")
+    check(lead["moved_continued"] == refs["moved_continued"],
+          f"{label}: the moved session's next turn at tp = 2 {lead['moved_continued']} != "
+          f"one rank's {refs['moved_continued']}")
+    check(one["imported_digest"] == lead["pool_digest"]
+          and one["imported_pages"] == one["pages_restored"] == lead["pool_pages"],
+          f"{label}: tp = 2 records at one rank: {one['imported_pages']} imported, "
+          f"{one['pages_restored']} restored of {lead['pool_pages']}")
+    check(one["parked"] == lead["parked"],
+          f"{label}: the tp = 2 session's next turn at one rank {one['parked']} != "
+          f"{lead['parked']}")
+    check(lead["snapshot_mesh"]["tp"] == 2
+          and all(r["state"]["restored_mesh"]["tp"] == 2 for r in reports),
+          f"{label}: snapshot mesh {lead['snapshot_mesh']}")
+    check(lead["restored_first"] == lead["first"] == one["first"],
+          f"{label}: snapshot restored at tp = 2 {lead['restored_first']}, at one rank "
+          f"{one['first']}, writer {lead['first']}")
+    if backend == "gloo":
+        for r in reports:
+            msg = r["state"]["gloo_graphs_refused"]
+            check("gloo" in msg and "cuda_graphs=False" in msg,
+                  f"{label}: cuda_graphs=True over gloo not refused: {msg!r}")
+    return {
+        "card": smi, "backend": backend, "tokens_equal_one_rank": True,
+        "parked_equal_never_parked": True, "records_bytes_equal": True,
+        "pages_spilled": lead["pages_spilled"], "pool_pages": lead["pool_pages"],
+        "pool_bytes": lead["pool_bytes"], "park_ms": lead["park_ms"],
+        "restore_admit_ms": lead["restore_admit_ms"],
+        "moved_in_admit_ms": lead["moved_admit_ms"],
+        "one_rank_restore_admit_ms": one["restore_admit_ms"],
+        "snapshot_bytes": lead["snapshot_bytes"],
+        "snapshot_write_s": lead["snapshot_write_s"],
+        "snapshot_restore_s": [r["state"]["snapshot_restore_s"] for r in reports],
+        "snapshot_restore_one_rank_s": one["snapshot_restore_s"],
+        "host_staged": [r["state"]["state_host_staged"] for r in reports],
+        "seconds": [r["state"]["seconds"] for r in reports],
+    }
+
+
+def state_one_rank(seed: int) -> dict:
+    """(e) After the ranks: the tp = 2 snapshot restored on one rank (its
+    whole leaves through ``restore_state``) serving the first prompt; then
+    the tp = 2 engine's parked session imported there, in place of this
+    engine's own pages of it, and its next turn served from the imported
+    pages."""
+    snap = os.path.join(PARALLEL_DIR, "snapshot")
+    man = read_manifest(snap)
+    model_cfg = model_config_from_manifest(man)
+    cfg = replace(engine_config_from_manifest(man, state_config(seed)[0].device), tp=1,
+                  cuda_graphs=False)
+    t = time.perf_counter()
+    eng = Engine(cfg, model_cfg=model_cfg,
+                 state=restore_state(man, snap, model_cfg, cfg.quantize))
+    torch.cuda.synchronize()
+    out = {"snapshot_restore_s": time.perf_counter() - t}
+    prompt = parallel_prompts(seed)[0]
+    out["first"] = eng.generate([prompt], SamplingParams(max_tokens=PARALLEL_TOKENS))[0]
+    hist = prompt + out["first"][:-1]
+    eng.park_chain(hist)
+    eng.offload_flush()
+    eng.offload.pool.clear()
+    with open(os.path.join(PARALLEL_DIR, "tp2_records.json")) as f:
+        trees = unpack_entries(json.load(f), eng.cache)
+    out["imported_digest"] = pool_digest([tree for _, tree in trees])
+    out["imported_pages"] = sum(eng.offload.pool.put(toks, tree) for toks, tree in trees)
+    out["parked"], out["restore_admit_ms"] = admit_and_decode(eng, hist + PARALLEL_TURN)
+    out["pages_restored"] = eng.offload.restored_pages
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def parallel_references(seed: int) -> dict:
@@ -4778,14 +5069,11 @@ def one_rank_serve(seed: int) -> dict:
 
 def run_parallel_ranks(seed: int, backend: str, job: str = "serve") -> list[dict]:
     """Start the ranks (this script with ``--parallel-rank``) on ``job``
-    ("serve": the parallel phase's; "train": the train_parallel phase's,
-    whose directory the phase has prepared), wait for them, and return
+    ("serve": the parallel phase's; "train": the train_parallel phase's;
+    each phase has prepared its directory), wait for them, and return
     their reports. A rank that fails, or outlives ``PARALLEL_TIMEOUT_S``,
     fails the phase; every rank is stopped."""
     where = PARALLEL_DIR if job == "serve" else TRAIN_PARALLEL_DIR
-    if job == "serve":
-        shutil.rmtree(where, ignore_errors=True)
-        os.makedirs(where)
     port = free_port()
     procs = []
     try:
@@ -4832,8 +5120,11 @@ def phase_parallel(seed: int, smi: str, backend: str = PARALLEL_BACKEND) -> dict
     emit({"phase": "parallel", "check": "shard_kernels", "card": smi,
           "seconds": time.perf_counter() - t, "attention": out["shard_attention"],
           "matmul": out["shard_matmul"]})
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
     t = time.perf_counter()
     refs = parallel_references(seed)
+    state_refs = state_references(seed)
     out["references_s"] = time.perf_counter() - t
     t = time.perf_counter()
     reports = run_parallel_ranks(seed, backend)
@@ -4854,6 +5145,23 @@ def phase_parallel(seed: int, smi: str, backend: str = PARALLEL_BACKEND) -> dict
               "seconds": [r[check_name]["seconds"] for r in reports],
               "host_staged": [r[check_name]["host_staged"] for r in reports],
               "tokens": got})
+    t = time.perf_counter()
+    out["state"] = state_line(state_refs, reports, state_one_rank(seed), smi, backend)
+    shutil.rmtree(os.path.join(PARALLEL_DIR, "snapshot"), ignore_errors=True)
+    out["state"]["one_rank_s"] = time.perf_counter() - t
+    emit({"phase": "parallel", "check": "state", **out["state"]})
+    if backend == "nccl":
+        got = lead["tp2_graphs"]["tokens"]
+        check(got == refs["tp2"] == lead["tp2"]["tokens"],
+              f"parallel tp2 captured: tokens {got} != eager / one rank's {refs['tp2']}")
+        check(all(r["tp2_graphs"]["digest"] == lead["tp2_graphs"]["digest"] for r in reports),
+              "parallel tp2 captured: the ranks' outputs differ")
+        for r in reports:
+            check(r["tp2_graphs"]["decode_replays"] > 0 and r["tp2_graphs"]["eager"] == 0,
+                  f"parallel tp2 captured: routes {r['tp2_graphs']}")
+        emit({"phase": "parallel", "check": "tp2_captured", "tokens_equal_eager": True,
+              "tokens_equal_one_rank": True, "ranks_equal": True,
+              **{k: lead["tp2_graphs"][k] for k in ("ops", "decode_replays", "mixed_replays")}})
     serve = [r["serve"] for r in reports]
     check(all(s["digest"] == serve[0]["digest"] for s in serve),
           "parallel serve: the ranks' outputs differ")
@@ -4871,6 +5179,7 @@ def phase_parallel(seed: int, smi: str, backend: str = PARALLEL_BACKEND) -> dict
                                                 "peak_gb")}
         line["replies_equal_one_rank"] = sum(a == b for a, b in zip(texts, one["texts"]))
     line.update(card=smi, backend=backend, ranks_equal=True,
+                layers=BENCH_8B.num_layers if backend == "nccl" else PARALLEL_GLOO_SERVE_LAYERS,
                 peak_gb=[s["peak_gb"] for s in serve],
                 weights_gb=[s["weights_gb"] for s in serve],
                 one_rank_weights_gb=serve[0]["one_rank_weights_gb"],
@@ -4878,6 +5187,22 @@ def phase_parallel(seed: int, smi: str, backend: str = PARALLEL_BACKEND) -> dict
                 launches=[s["launches"] for s in serve])
     emit({"phase": "parallel", "check": "serve", **line})
     out["serve"] = line
+    if backend == "nccl":
+        captured = [r["serve_graphs"] for r in reports]
+        check(all(s["digest"] == captured[0]["digest"] for s in captured),
+              "parallel captured serve: the ranks' outputs differ")
+        cap = {k: captured[0][k] for k in ("tok_s", "ttft_p50_s", "wall_s", "completion_tokens",
+                                            "warmup_s", "ops", "decode_replays",
+                                            "mixed_replays", "eager")}
+        check(cap["decode_replays"] > 0 and cap["eager"] == 0,
+              f"parallel captured serve: routes {cap}")
+        cap.update(card=smi, backend=backend, eager_tok_s=line["tok_s"],
+                   eager_ttft_p50_s=line["ttft_p50_s"],
+                   replies_equal_eager=sum(a == b for a, b in zip(
+                       captured[0].pop("texts"), texts)),
+                   peak_gb=[s["peak_gb"] for s in captured])
+        emit({"phase": "parallel", "check": "serve_captured", **cap})
+        out["serve_captured"] = cap
     out["launches"] = {name: sum(s["launches"].get(name, 0) for s in serve) for name in KERNELS}
     return out
 
@@ -4930,34 +5255,43 @@ def digest(outputs: list) -> str:
     return h.hexdigest()
 
 
-def rank_check(check_name: str, seed: int) -> dict:
-    """One f32 check at this rank: the leader drives, the follower follows."""
+def rank_check(check_name: str, seed: int, graphs: bool = False) -> dict:
+    """One f32 check at this rank: the leader drives, the follower follows.
+    With ``graphs`` (NCCL) the steps are captured at warmup and replayed."""
     cfg = parallel_configs()[check_name]
     mesh = {"tp2": dict(tp=2), "sp2": dict(sp=2), "ep2": dict(ep=2)}[check_name]
     collectives.reset_counts()
-    eng = Engine(parallel_engine_config(check_name, cfg, seed, **mesh), model_cfg=cfg)
+    eng = Engine(replace(parallel_engine_config(check_name, cfg, seed, **mesh),
+                         cuda_graphs=graphs), model_cfg=cfg)
     eng.spmd_outputs = []
     out = {}
     if eng.mesh.leader:
+        if graphs:
+            eng.warmup()
         out["tokens"] = parallel_drive(eng, check_name, seed)
         eng.stop_followers()
     else:
         eng.follow()
     out.update(ops=len(eng.spmd_outputs), digest=digest(eng.spmd_outputs),
-               host_staged=sum(collectives.HOST_STAGED.values()))
+               host_staged=sum(collectives.HOST_STAGED.values()),
+               decode_replays=eng.decode_replays, mixed_replays=eng.mixed_replays,
+               eager=eng.decode_eager_steps + eng.mixed_eager_ticks)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def rank_serve(seed: int) -> dict:
-    """(d) bench-8b at full width and depth, bf16, tp = 2, eager: four
-    concurrent completions through the leader's ServingStack."""
+def rank_serve(seed: int, graphs: bool = False, layers: int = 0) -> dict:
+    """(d) bench-8b at full width and depth (``layers``: cut to so many),
+    bf16, tp = 2, eager (with ``graphs``, NCCL only: the steps captured at
+    warmup and replayed): four concurrent completions through the leader's
+    ServingStack."""
     collectives.reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(EngineConfig(model=BENCH_8B.name, dtype=torch.bfloat16, device="cuda",
-                              seed=seed, tp=2, cuda_graphs=False), model_cfg=BENCH_8B)
+    cfg = replace(BENCH_8B, num_layers=layers) if layers else BENCH_8B
+    eng = Engine(EngineConfig(model=cfg.name, dtype=torch.bfloat16, device="cuda",
+                              seed=seed, tp=2, cuda_graphs=graphs), model_cfg=cfg)
     model = eng.model
     weights = sum(t.numel() * t.element_size() for t in model.state_dict().values())
     one_rank = sum(math.prod(model._shape(n, p.shape)) * p.element_size()
@@ -4982,9 +5316,14 @@ def rank_serve(seed: int) -> dict:
         check(out["launches"].get(name, 0) > 0, f"parallel serve: no {name} launch")
     out.update(ops=len(eng.spmd_outputs), digest=digest(eng.spmd_outputs),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               host_staged=dict(collectives.HOST_STAGED))
+               host_staged=dict(collectives.HOST_STAGED),
+               decode_replays=eng.decode_replays, mixed_replays=eng.mixed_replays,
+               eager=eng.decode_eager_steps + eng.mixed_eager_ticks)
     ratio = out["weights_gb"] / out["one_rank_weights_gb"]
     check(0.49 < ratio < 0.52, f"parallel serve: a rank holds {ratio:.4f} of the weights")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5002,8 +5341,28 @@ def parallel_rank(rank: int, port: int, seed: int, backend: str) -> int:
         report[name] = rank_check(name, seed)
         report[name]["seconds"] = time.perf_counter() - t
     t = time.perf_counter()
-    report["serve"] = rank_serve(seed)
+    report["state"] = rank_state(seed)
+    if backend == "gloo":
+        cfg, model_cfg = state_config(seed, tp=2)
+        try:
+            Engine(replace(cfg, cuda_graphs=True), model_cfg=model_cfg)
+            report["state"]["gloo_graphs_refused"] = ""
+        except ValueError as e:
+            report["state"]["gloo_graphs_refused"] = str(e)[:300]
+    report["state"]["seconds"] = time.perf_counter() - t
+    if backend == "nccl":
+        # Steps captured with their NCCL collectives inside.
+        t = time.perf_counter()
+        report["tp2_graphs"] = rank_check("tp2", seed, graphs=True)
+        report["tp2_graphs"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    report["serve"] = rank_serve(seed, layers=0 if backend == "nccl"
+                                 else PARALLEL_GLOO_SERVE_LAYERS)
     report["serve"]["seconds"] = time.perf_counter() - t
+    if backend == "nccl":
+        t = time.perf_counter()
+        report["serve_graphs"] = rank_serve(seed, graphs=True)
+        report["serve_graphs"]["seconds"] = time.perf_counter() - t
     with open(os.path.join(PARALLEL_DIR, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.destroy_process_group()

@@ -24,8 +24,9 @@ Several ranks serve one model in lockstep (``serving/spmd.py``): ``--tp``,
 ring-attention prefill, expert-parallel experts; ``--tp 0`` takes every
 rank the others leave), ``--dist-backend`` picks the process groups'
 backend (``nccl`` between cards, ``gloo`` on the CPU or for ranks sharing
-a card), and ``--eager`` runs the steps without CUDA graphs, which a mesh
-with collectives requires. Launch the ranks under torch's launch variables
+a card), and ``--eager`` runs the steps without CUDA graphs, which a gloo
+mesh with collectives requires (over NCCL, a card a rank, the steps are
+captured with their collectives inside). Launch the ranks under torch's launch variables
 (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``;
 ``torchrun --nproc-per-node 2 -m opsagent_tpu_torch serve-engine --tp 2
 --eager``), or with ``--nproc N``, which spawns the N ranks itself. Rank 0
@@ -44,7 +45,10 @@ shed pressure (``--autoscale-max-replicas``, ``--autoscale-port-base``,
 
 ``python -m opsagent_tpu_torch snapshot create --out DIR --model-name
 bench-8b`` builds and warms an engine and writes its snapshot (weights in
-the JAX package's leaf layout, the kernel libraries, the KV plan);
+the JAX package's leaf layout, the kernel libraries, the KV plan; with
+``--tp``/``--sp``/``--ep`` and ``--nproc N`` at a mesh, every rank gathering
+its shards and rank 0 writing whole leaves, which ``serve-engine
+--restore-snapshot DIR --nproc N`` restores);
 ``snapshot verify DIR [--quick]`` checks one (the port's or the JAX
 package's): exit 0 when it is whole, 1 when it is not, 2 when it cannot be
 read.
@@ -150,8 +154,9 @@ def main(argv: list[str] | None = None) -> int:
     se.add_argument(
         "--restore-snapshot", default="",
         help="serve an engine restored from this snapshot directory, with "
-             "its model and engine configuration (--device and "
-             "--host-pool-bytes apply)",
+             "its model and engine configuration (--device, --host-pool-bytes "
+             "and --eager apply); a snapshot written at a mesh restores in a "
+             "job of as many ranks (--nproc)",
     )
     se.add_argument(
         "--join-fleet", default="",
@@ -255,6 +260,17 @@ def main(argv: list[str] | None = None) -> int:
     snc.add_argument("--speculative-k", type=int, default=0)
     snc.add_argument("--offload", action="store_true")
     snc.add_argument("--async-depth", type=int, default=2)
+    snc.add_argument("--tp", type=int, default=0,
+                     help="tensor-parallel ranks (0 = every rank the other axes leave)")
+    snc.add_argument("--sp", type=int, default=1)
+    snc.add_argument("--ep", type=int, default=1)
+    snc.add_argument("--dist-backend", default="nccl", choices=("nccl", "gloo"))
+    snc.add_argument("--nproc", type=int, default=0,
+                     help="spawn this many ranks on this host and write the "
+                          "snapshot from rank 0, every rank gathering its shards")
+    snc.add_argument("--eager", action="store_true",
+                     help="run the steps without CUDA graphs (required over gloo at "
+                          "tp, sp or ep > 1)")
     snv = snsub.add_parser(
         "verify", help="check a snapshot's manifest, fingerprint and weight "
                        "leaves (exit 0 ok / 1 failed / 2 unreadable)")
@@ -286,6 +302,20 @@ def main(argv: list[str] | None = None) -> int:
     return _serve(args)
 
 
+def _spawned(args: argparse.Namespace) -> int | None:
+    """With ``--nproc`` > 1: run this command line (without it) as that many
+    ranks of one host, and return the job's exit code; else None."""
+    if args.nproc <= 1:
+        return None
+    from .serving.spmd import spawn_ranks
+
+    argv = args.argv
+    cut = argv.index("--nproc") if "--nproc" in argv else None
+    rest = (argv[:cut] + argv[cut + 2:] if cut is not None
+            else [a for a in argv if not a.startswith("--nproc=")])
+    return spawn_ranks(args.nproc, ["-m", "opsagent_tpu_torch", *rest])
+
+
 def _snapshot(args: argparse.Namespace) -> int:
     if args.snapshot_cmd == "verify":
         from .serving.snapshot.manifest import SnapshotError, verify_snapshot
@@ -297,6 +327,12 @@ def _snapshot(args: argparse.Namespace) -> int:
             return 2
         print(json.dumps(report, indent=2))
         return 0 if report["ok"] else 1
+    spawned = _spawned(args)
+    if spawned is not None:
+        return spawned
+    from .parallel.mesh import init_distributed
+
+    init_distributed(backend=args.dist_backend)
     tokenizer = args.tokenizer
     if not tokenizer and args.checkpoint and os.path.exists(
             os.path.join(args.checkpoint, "tokenizer.json")):
@@ -307,10 +343,18 @@ def _snapshot(args: argparse.Namespace) -> int:
         paged_backend=args.paged_backend, quantize=args.quantize,
         kv_quantize=args.kv_quantize, offload=args.offload,
         async_depth=args.async_depth, speculative_k=args.speculative_k,
+        tp=args.tp, sp=args.sp, ep=args.ep, cuda_graphs=not args.eager,
     ))
-    # Warm first: the kernel libraries the snapshot carries are built.
-    engine.warmup()
-    man = engine.snapshot(args.out)
+    if not engine.mesh.leader:
+        # A follower gathers its shards for the leader's warmup and writes.
+        engine.follow()
+        return 0
+    try:
+        # Warm first: the kernel libraries the snapshot carries are built.
+        engine.warmup()
+        man = engine.snapshot(args.out)
+    finally:
+        engine.stop_followers()
     print(json.dumps({
         "path": os.path.abspath(args.out), "fingerprint": man["fingerprint"],
         "leaves": len(man["leaves"]),
@@ -320,14 +364,9 @@ def _snapshot(args: argparse.Namespace) -> int:
 
 
 def _serve(args: argparse.Namespace) -> int:
-    if args.nproc > 1:
-        from .serving.spmd import spawn_ranks
-
-        argv = args.argv
-        cut = argv.index("--nproc") if "--nproc" in argv else None
-        rest = (argv[:cut] + argv[cut + 2:] if cut is not None
-                else [a for a in argv if not a.startswith("--nproc=")])
-        return spawn_ranks(args.nproc, ["-m", "opsagent_tpu_torch", *rest])
+    spawned = _spawned(args)
+    if spawned is not None:
+        return spawned
     from .parallel.mesh import init_distributed
 
     init_distributed(backend=args.dist_backend)
@@ -341,7 +380,8 @@ def _serve(args: argparse.Namespace) -> int:
         # The snapshot's configuration holds (the host tier is on when it
         # was created with --offload); the pool's bound is the caller's.
         engine = Engine.from_snapshot(args.restore_snapshot, device=args.device,
-                                      host_pool_bytes=args.host_pool_bytes)
+                                      host_pool_bytes=args.host_pool_bytes,
+                                      eager=args.eager)
     else:
         engine = Engine(EngineConfig(
             model=args.model_name, checkpoint=args.checkpoint, tokenizer=tokenizer,

@@ -359,6 +359,23 @@ def _row_sharded(spec: tuple) -> str | None:
     return spec[-2] if len(spec) >= 2 else None
 
 
+def split_int4_scales(state: dict[str, torch.Tensor], cfg: ModelConfig, mesh: Mesh | None,
+                      quantize: str = "") -> set[str]:
+    """The int4 scale keys of a full state dict whose groups ``local_state``
+    splits over the contraction rows' axis (several groups, rows sharded):
+    the others keep their one whole-axis group on every rank."""
+    if quantize != "int4" or mesh is None or mesh.size == 1:
+        return set()
+    specs = state_specs(cfg, quantize)
+    out = set()
+    for key, t in state.items():
+        if key.endswith(".scale") and key in specs:
+            axis = _row_sharded(specs[key[: -len("scale")] + "q"])
+            if axis is not None and mesh.shape[axis] > 1 and t.shape[-3] > 1:
+                out.add(key)
+    return out
+
+
 def local_state(state: dict[str, torch.Tensor], cfg: ModelConfig, mesh: Mesh | None,
                 quantize: str = "") -> dict[str, torch.Tensor]:
     """This rank's shards of a full ``Llama`` state dict (``shard_params``
@@ -968,6 +985,9 @@ class Llama(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _linear(d, v, dtype, device, quantize)
         self._specs = state_specs(cfg, quantize) if self.mesh is not None else {}
+        # int4 scale keys whose groups shard with their rows (a loaded
+        # state's; a seed draws one whole-axis group).
+        self._split_scales: set[str] = set()
         if seed is not None:
             self.init_random(seed)
 
@@ -989,7 +1009,24 @@ class Llama(nn.Module):
         """Load a full (one-rank) state dict: each entry sliced to this
         rank's shard (``local_state``), e.g. ``models.convert``'s
         ``params_from_jax`` of a JAX tree."""
+        self._split_scales = split_int4_scales(state, self.cfg, self.mesh, self.quantize)
         self.load_state_dict(local_state(state, self.cfg, self.mesh, self.quantize))
+
+    def full_tensor(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """The full (one-rank) tensor of the state entry ``key`` from this
+        rank's shard ``t``: all-gathered over each axis its spec shards, in
+        order (``local_state`` inverted). At a mesh every rank calls it, for
+        the same keys in one order; at one rank it returns ``t``."""
+        if self.mesh is None:
+            return t
+        spec = self._specs[key]
+        if key in self._split_scales:
+            axis = _row_sharded(self._specs[key[: -len("scale")] + "q"])
+            spec = (*spec[:-3], axis, *spec[-2:])
+        for d, axis in enumerate(spec):
+            if axis is not None and self.mesh.shape[axis] > 1:
+                t = all_gather(t.contiguous(), self.mesh, axis, dim=d)
+        return t
 
     def _fan_in(self, name: str, shape) -> int:
         """The fan-in of a weight's init: its contraction dim ([in, out]

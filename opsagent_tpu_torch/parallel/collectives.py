@@ -8,7 +8,9 @@ What XLA inserts from JAX's shardings, the port's SPMD model calls itself:
   routed experts' sum over ``ep``; the vocab-parallel embedding lookup;
 - ``all_gather``: the vocab-parallel head's logits over ``tp``, ring
   attention's outputs over ``sp``;
-- ``broadcast``: from an axis's first rank;
+- ``broadcast``: from an axis's first rank; ``broadcast_from_leader``:
+  from global rank 0 to every rank of the job (the host KV tier's page
+  restores, whose data only the leader holds);
 - ``ppermute``: JAX's ``jax.lax.ppermute``, each rank sending to its pair
   in ``perm`` (``batch_isend_irecv``): ring attention's K/V rotation;
 - ``send`` / ``recv``: one tensor from one rank of an axis to another
@@ -143,6 +145,24 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axis: str, src: int = 0) -> torch.Ten
     if _stages(mesh, "broadcast", y):
         return _through_host("broadcast", [y], run)[0]
     return run([y])[0]
+
+
+def broadcast_from_leader(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` of global rank 0 on every rank of the job, over the default
+    group, in place: every rank passes a tensor of the same shape and dtype
+    (the others' contents are overwritten)."""
+    if mesh.size == 1:
+        return x
+
+    def run(ts: list[torch.Tensor]) -> list[torch.Tensor]:
+        dist.broadcast(ts[0], src=0)
+        return ts
+
+    if not x.is_contiguous():
+        raise ValueError("broadcast_from_leader writes in place: pass a contiguous tensor")
+    if _stages(mesh, "broadcast", x):
+        return x.copy_(_through_host("broadcast", [x], run)[0])
+    return run([x])[0]
 
 
 def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,

@@ -10,10 +10,13 @@ emit bytes that a JSON schema's automaton accepts.
    JSON nests without bound; bounding the depth (4 for a schemaless
    ``json_object``) makes the language regular.
 2. ``TokenFSM`` lifts the DFA to the tokenizer's vocabulary: a token is
-   admissible in a state when every one of its bytes survives the DFA. Host
-   masks are computed per state on demand and cached; ``dense_tables``
-   builds the full ``[states + 1, vocab]`` mask and destination tables that
-   the engine keeps on the device and steps inside its captured decode step.
+   admissible in a state when every one of its bytes survives the DFA.
+   Within ``NATIVE_TABLE_BUDGET`` the C++ matcher (``opsagent_tpu_torch.
+   native``) precomputes every state's mask and destination at once, and
+   host masks and advances read its tables; past it they are computed per
+   state on demand and cached. ``dense_tables`` builds the full ``[states
+   + 1, vocab]`` mask and destination tables that the engine keeps on the
+   device and steps inside its captured decode step, from the numpy walk.
 3. ``JsonConstraint`` is the engine-facing ``mask_fn``: given the generated
    tokens it returns the ``[vocab]`` bool mask. EOS is admissible exactly
    in accepting states.
@@ -22,9 +25,6 @@ emit bytes that a JSON schema's automaton accepts.
    one token forces it at any temperature, so the engine may append a
    whole run of forced tokens in one forward (``TokenFSM.forced_run``,
    ``JsonConstraint.forced_run``).
-
-The JAX package's optional C++ matcher (native tables) is not part of
-this copy.
 """
 
 from __future__ import annotations
@@ -295,10 +295,11 @@ def json_quote(value: Any) -> str:
 
 
 # -- Token-level FSM --------------------------------------------------------
-# Dense [states + 1, vocab] tables live on the device only within this many
-# entries: a schemaless json_object DFA has ~15k states, which at a 128k
-# vocab would be gigabytes from one request. Larger FSMs mask on the host,
-# per state visited.
+# Dense [states + 1, vocab] tables live on the device, and the native
+# [states, vocab] tables on the host, only within this many entries: a
+# schemaless json_object DFA has ~15k states, which at a 128k vocab would be
+# gigabytes from one request. Larger FSMs mask on the host, per state
+# visited.
 NATIVE_TABLE_BUDGET = 64_000_000
 
 # Longest forced run one fast-forward append carries: it bounds the walk (a
@@ -310,10 +311,13 @@ FORCED_RUN_CAP = 12
 class TokenFSM:
     """Lifts a byte DFA to token-level masks over a tokenizer vocabulary.
 
-    Host masks are computed per DFA state on demand and cached, each one
-    vectorized over the vocabulary (token bytes packed into a dense
-    ``[vocab, maxlen]`` matrix, advanced one byte position per numpy op),
-    so a cold state costs milliseconds even at 128k tokens."""
+    Within ``NATIVE_TABLE_BUDGET`` entries, the native tables
+    (``NativeFSMTables``, built when the FSM is; a failed build raises)
+    answer every host mask and advance. Past it, host masks are computed
+    per DFA state on demand and cached, each one vectorized over the
+    vocabulary (token bytes packed into a dense ``[vocab, maxlen]`` matrix,
+    advanced one byte position per numpy op), so a cold state costs
+    milliseconds even at 128k tokens."""
 
     def __init__(self, dfa: ByteDFA, token_bytes: list[bytes], eos_id: int):
         self.dfa = dfa
@@ -331,6 +335,13 @@ class TokenFSM:
         for tid, tb in enumerate(token_bytes):
             if tb:
                 self._bytes[tid, : len(tb)] = np.frombuffer(tb, np.uint8)
+        # The native tables within the budget, as the JAX package takes
+        # them (without its fallback: the build's failure is the caller's).
+        self._native = None
+        if dfa.num_states * self.vocab_size <= NATIVE_TABLE_BUDGET:
+            from ..native import NativeFSMTables
+
+            self._native = NativeFSMTables(dfa.next, dfa.accept, token_bytes, eos_id)
 
     def _walk(self, state: int) -> tuple[np.ndarray, np.ndarray]:
         """The vectorized byte walk: ([V] allow-mask, [V] final DFA state)
@@ -352,6 +363,8 @@ class TokenFSM:
         return mask, st
 
     def mask_for_state(self, state: int) -> np.ndarray:
+        if self._native is not None:
+            return self._native.mask_for_state(state)
         cached = self._mask_cache.get(state)
         if cached is not None:
             return cached
@@ -362,6 +375,8 @@ class TokenFSM:
         return mask
 
     def advance(self, state: int, token_id: int) -> int:
+        if self._native is not None:
+            return self._native.advance(state, token_id)
         return self.dfa.run(state, self.token_bytes[token_id])
 
     def _mask_dest_row(self, state: int) -> tuple[np.ndarray, np.ndarray]:

@@ -31,6 +31,15 @@ What a capture needs, and where it comes from:
   draws fresh numbers from the generator's current offset and advances it,
   as an eager step does.
 
+At a mesh over NCCL (a card a rank) a step's collectives are captured with
+it: each all-reduce and all-gather becomes a node of the graph, and a
+replay runs them over the same communicators, as JAX compiles a step at
+a mesh into one program. Every rank captures the same bodies in the same
+order (``Engine.warmup`` runs as one lockstep op), after eager runs of
+each body that have put every communicator to use, and the capture runs
+in thread-local mode: NCCL's watchdog thread polls its events meanwhile.
+gloo's collectives run on the host and cannot be captured.
+
 A capture is the port's counterpart of an XLA compile: its wall time goes
 to the compile watchdog (``obs.flight.on_compile``), so a capture after a
 completed ``Engine.warmup`` shows as ``opsagent_post_warmup_compiles`` and
@@ -61,12 +70,15 @@ COUNTERS = (paged_attention.LAUNCHES, quant_matmul.LAUNCHES, quant_matmul.INSTAN
 class StepGraph:
     """``body`` (one step over the static ``buffers`` and ``cache``)
     captured as a CUDA graph on the current device, with ``generator`` (the
-    one the body samples from, if any) registered. A failed capture raises
-    from the constructor; there is no fallback."""
+    one the body samples from, if any) registered. ``collectives``: the
+    body holds NCCL collectives (a step at a mesh), captured in
+    thread-local mode. A failed capture raises from the constructor; there
+    is no fallback."""
 
     def __init__(
         self, body: Callable[[], None], buffers: tuple[StaticBuffers, ...],
         cache: PagedKVCache, generator: torch.Generator | None = None,
+        collectives: bool = False,
     ):
         self._buffers, self._cache = buffers, cache
         self._pointers = self._addresses()
@@ -82,7 +94,8 @@ class StepGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph):
+            mode = {"capture_error_mode": "thread_local"} if collectives else {}
+            with torch.cuda.graph(self.graph, **mode):
                 body()
         finally:
             if collecting:

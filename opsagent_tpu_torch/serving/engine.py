@@ -339,12 +339,15 @@ class Engine:
         model_cfg: ModelConfig | None = None,
         model: Llama | None = None,
         tokenizer: Tokenizer | None = None,
+        state: dict[str, torch.Tensor] | None = None,
     ):
         """``model``: a ready ``Llama`` on the engine's device (tests and
-        the reference engine share one); otherwise the weights of
-        ``cfg.checkpoint`` or, without one, random weights from ``cfg.seed``
-        are built on the device. In a job of several ranks every rank
-        builds its engine (its shard); rank 0 serves, the others
+        the reference engine share one); ``state``: a full (one-rank) state
+        dict on the host, of which the model built on the device keeps this
+        rank's slice (a snapshot's memory-mapped leaves); otherwise the
+        weights of ``cfg.checkpoint`` or, without one, random weights from
+        ``cfg.seed`` are built on the device. In a job of several ranks
+        every rank builds its engine (its shard); rank 0 serves, the others
         ``follow``."""
         self.model_cfg = model_cfg or (
             model.cfg if model is not None
@@ -411,7 +414,7 @@ class Engine:
             raise ValueError(f"the given model is not sharded over the engine's mesh "
                              f"{self.mesh.shape}")
         with torch.inference_mode():
-            self.model = model if model is not None else self._build_model()
+            self.model = model if model is not None else self._build_model(state)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         # /healthz "init": how this engine came up. warmup() adds its wall
@@ -477,7 +480,7 @@ class Engine:
         if cfg.offload and cfg.prefix_cache:
             self.offload = OffloadManager(
                 HostPagePool(cfg.page_size, capacity_bytes=cfg.host_pool_bytes or None),
-                PageCopyEngine(copy_pages=cfg.offload_copy_pages),
+                PageCopyEngine(copy_pages=cfg.offload_copy_pages, mesh=self.mesh),
                 cfg.page_size,
             )
             self.alloc.attach_host_pool(self.offload.pool)
@@ -567,28 +570,30 @@ class Engine:
         return make_mesh(tp=tp, dp=cfg.dp, sp=cfg.sp, ep=cfg.ep)
 
     def _check_mesh(self, cfg: EngineConfig) -> None:
-        """What this slice refuses at a mesh: CUDA graphs wherever a step
-        holds a collective (tp, sp or ep > 1: the engine runs eagerly and
-        must be asked to), and the host KV tier at more than one rank."""
+        """What a mesh refuses: CUDA graphs wherever a step holds a
+        collective (tp, sp or ep > 1) over gloo, whose collectives run on
+        the host and cannot be captured (pass cuda_graphs=False). Over NCCL,
+        a card a rank, the steps capture with their collectives inside."""
         sharded = {a: self.mesh.shape[a] for a in (AXES.tp, AXES.sp, AXES.ep)
                    if self.mesh.shape[a] > 1}
-        if sharded and cfg.cuda_graphs:
+        if sharded and cfg.cuda_graphs and self.mesh.backend != "nccl":
             raise ValueError(
-                f"cuda_graphs=True at a mesh over {sharded}: the steps hold "
-                "collectives, which this engine does not capture (gloo's cannot "
-                "be; NCCL capture across cards is ROADMAP item 11 (c)); pass "
+                f"cuda_graphs=True at a mesh over {sharded} with the "
+                f"{self.mesh.backend} backend: the steps hold collectives, and "
+                "only NCCL's can be captured in a CUDA graph; pass "
                 "cuda_graphs=False to run the steps eagerly")
-        if self.mesh.size > 1 and cfg.offload:
-            raise ValueError(
-                f"offload=True at a mesh of {self.mesh.size} ranks: the host KV "
-                "tier runs on a one-rank engine only (ROADMAP item 11 (c))")
 
-    def _build_model(self) -> Llama:
-        """Random weights from the seed, built on the device; or the
-        checkpoint's, read (and quantized) on the host, then copied into a
-        model built on the device, so the device never holds two copies.
-        At a mesh, this rank's shard of either."""
+    def _build_model(self, state: dict[str, torch.Tensor] | None = None) -> Llama:
+        """Random weights from the seed, built on the device; or
+        ``state``'s, or the checkpoint's, read (and quantized) on the host,
+        then copied into a model built on the device, so the device never
+        holds two copies. At a mesh, this rank's shard of any of them."""
         cfg = self.cfg
+        if state is not None:
+            model = Llama(self.model_cfg, cfg.dtype, self.device, seed=None,
+                          quantize=cfg.quantize, mesh=self.mesh)
+            model.load_full_state_dict(state)
+            return model
         if not cfg.checkpoint:
             return Llama(self.model_cfg, cfg.dtype, self.device, seed=cfg.seed,
                          quantize=cfg.quantize, mesh=self.mesh)
@@ -750,11 +755,15 @@ class Engine:
             prompt_ids[: n - 1], start_page=shared_pages,
             max_pages=len(seq_pages) - shared_pages,
         )
+        # Only whole pages of this cache's shapes go to the ranks: a restore
+        # once published cannot fail on the leader alone.
+        entries = list(itertools.takewhile(
+            lambda e: self.offload.copier.fits(self.cache, e.data), entries))
         if not entries:
             return 0
         dst = seq_pages[shared_pages: shared_pages + len(entries)]
         try:
-            restored = self.offload.restore(self.cache, dst, entries, seq_id=seq_id)
+            restored = self._device("restore", dst, seq_id, data=entries)
         except Exception:  # noqa: BLE001 - falls back to re-prefill
             log.exception("host->device KV restore failed; re-prefilling "
                           "(the prefill chunks overwrite the pages)")
@@ -2042,9 +2051,6 @@ class Engine:
         # is an anomaly.
         with obs.flight.warmup_phase(), self.lock, torch.inference_mode():
             self._device("warmup")
-            if self.offload is not None:
-                # Staging and pinned buffers of every copy bucket.
-                self.offload.copier.warm(self.cache)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -2058,45 +2064,46 @@ class Engine:
         """Write this engine's restart snapshot under ``path``: the weights
         in the JAX package's leaf layout, the built kernel libraries and
         the paged-KV plan. Returns the manifest."""
-        from .snapshot.writer import write_snapshot
-
-        if self.mesh.size > 1:
-            raise ValueError(
-                f"snapshot at a mesh of {self.mesh.size} ranks: snapshots hold one "
-                "rank's weights; sharded snapshots wait for ROADMAP item 11 (c)")
         with self.lock:
-            return write_snapshot(self, path)
+            return self._device("snapshot", path)
 
     @classmethod
     def from_snapshot(
         cls, path: str, warmup: bool = False, tokenizer: Tokenizer | None = None,
-        device: str | None = None, host_pool_bytes: int = 0,
+        device: str | None = None, host_pool_bytes: int = 0, eager: bool = False,
     ) -> "Engine":
         """Restore an engine from a snapshot directory (the port's or the
         JAX package's): weight files memory-mapped into the model, the
         kernel libraries pre-seeded so that no ``nvcc`` runs, ``warmup``
-        to recapture the graphs. Refuses a mismatched fingerprint, device
-        count or leaf order, and a truncated leaf, with a
+        to recapture the graphs (on the leader; a follower warms up as it
+        follows). A snapshot written at a mesh restores in a job of as many
+        ranks, every rank calling this. Refuses a mismatched fingerprint,
+        world size, card count or leaf order, and a truncated leaf, with a
         ``SnapshotError``. ``host_pool_bytes`` bounds the host tier of a
-        snapshot taken with ``offload`` (not part of the fingerprint)."""
+        snapshot taken with ``offload`` (not part of the fingerprint);
+        ``eager`` runs the steps without CUDA graphs (a gloo mesh must)."""
         from .snapshot.restore import restore_engine
 
         return restore_engine(path, warmup=warmup, tokenizer=tokenizer, device=device,
-                              host_pool_bytes=host_pool_bytes)
+                              host_pool_bytes=host_pool_bytes, eager=eager)
 
     # -- the device steps: one choke point (serving.spmd) ---------------------
-    def _device(self, op: str, *args):
+    def _device(self, op: str, *args, data: Any = None):
         """Run the device op ``op`` (``_op_<op>``) over its host inputs
-        ``args``: every step and every load of the step state goes through
-        here. At a mesh of several ranks the leader first publishes the
-        record, and each follower runs the same op on its shard
-        (``follow``)."""
+        ``args``: every step, every load of the step state and every host
+        KV tier copy goes through here. At a mesh of several ranks the
+        leader first publishes the record, and each follower runs the same
+        op on its shard (``follow``). ``data`` goes to the leader's op only
+        (as ``data=``), never into the record: what only the leader holds
+        (host pages, token chains); a follower's op runs with ``data``
+        None."""
         if self._channel is not None:
             if not self.mesh.leader:
                 raise RuntimeError("a follower rank runs steps through follow() only")
             self._channel.publish(op, args)
+        fn = getattr(self, f"_op_{op}")
         with torch.inference_mode():
-            out = getattr(self, f"_op_{op}")(*args)
+            out = fn(*args) if data is None else fn(*args, data=data)
         if self.spmd_outputs is not None:
             self.spmd_outputs.append((op, spmd.kept(out)))
         return out
@@ -2127,6 +2134,33 @@ class Engine:
         if self._channel is not None and self.mesh.leader and not self._stopped:
             self._stopped = True
             self._channel.publish(spmd.STOP, ())
+
+    def _op_spill(self, pages: list[int], trigger: str,
+                  data: list[tuple[int, ...]] | None = None) -> None:
+        """Gather ``pages`` for the host tier (``_spill``): the leader's
+        ``data`` holds each page's token chain, the pool key; a follower
+        gathers its heads of them for the leader's pages."""
+        if data is None:
+            self.offload.copier.dispatch_gather(self.cache, pages, [None] * len(pages))
+        else:
+            self.offload.spill(self.cache, list(zip(pages, data)), trigger=trigger)
+
+    def _op_restore(self, pages: list[int], seq_id: int | None,
+                    data: list | None = None) -> int:
+        """Write host pool entries (the leader's ``data``) into device
+        ``pages``; a follower writes its heads of the leader's pages.
+        Returns the tokens restored (0 on a follower)."""
+        if data is None:
+            self.offload.copier.scatter(self.cache, pages, None)
+            return 0
+        return self.offload.restore(self.cache, pages, data, seq_id=seq_id)
+
+    def _op_snapshot(self, path: str) -> dict:
+        """Write the snapshot (``serving.snapshot.writer``): at a mesh every
+        rank gathers each leaf from its shards and the leader writes it."""
+        from .snapshot.writer import write_snapshot
+
+        return write_snapshot(self, path)
 
     def _op_fsm(self, mask: np.ndarray, dest: np.ndarray) -> None:
         """Load a constraint's dense tables (``_load_fsm``). Where steps
@@ -2224,9 +2258,12 @@ class Engine:
         )
 
     def _op_warmup(self) -> None:
-        """``warmup``'s device work: the warm steps and the captures, and
-        with the kernels and the split lane its programs."""
+        """``warmup``'s device work: the warm steps and the captures, with
+        the kernels and the split lane its programs, and with the host KV
+        tier the staging and pinned buffers of every copy bucket."""
         self._prepare()
+        if self.offload is not None:
+            self.offload.copier.warm(self.cache)
         if self.attn_impl == "cuda" and not self.cfg.mixed_batching:
             # The split lane admits every prompt: its programs run once here
             # (eagerly; they are never captured).
@@ -2301,7 +2338,8 @@ class Engine:
                     buffers = state
                 else:
                     buffers = (state, self._fsm) + ((self._extras,) if key[2] else ())
-                self._graphs[key] = StepGraph(body, buffers, self.cache, gen)
+                self._graphs[key] = StepGraph(body, buffers, self.cache, gen,
+                                              collectives=self.mesh.size > 1)
             torch.cuda.synchronize(self.device)
         self._warm = True
         return self._graphs
@@ -2365,7 +2403,18 @@ class Engine:
         if self._spill_batch is not None:
             self._spill_batch.append((page, chain_tokens))
         elif self.offload is not None:
-            self.offload.spill(self.cache, [(page, chain_tokens)])
+            self._spill([(page, chain_tokens)], "evict")
+
+    def _spill(self, chains: list[tuple[int, list[int]]], trigger: str) -> None:
+        """Enqueue the device->host copies of ``(page, token chain)`` pairs
+        whose chain is page-aligned (``OffloadManager.spill``), on every
+        rank of a mesh: the chains stay with the leader."""
+        P = self.cfg.page_size
+        good = [(page, tuple(chain)) for page, chain in chains
+                if chain and len(chain) % P == 0]
+        if good:
+            self._device("spill", [p for p, _ in good], trigger,
+                         data=[c for _, c in good])
 
     @_locked
     def offload_flush(self) -> int:
@@ -2448,7 +2497,7 @@ class Engine:
                   if chain_key_hex(token_ids[: (i + 1) * P]) not in have]
         if not chains:
             return 0
-        self.offload.spill(self.cache, chains, trigger="replicate")
+        self._spill(chains, "replicate")
         return self.offload.flush()
 
     @_locked
@@ -2469,7 +2518,7 @@ class Engine:
         finally:
             batch, self._spill_batch = self._spill_batch, None
         # Nothing is enqueued between the evictions and this gather.
-        self.offload.spill(self.cache, batch, trigger="tool")
+        self._spill(batch, "tool")
         if n:
             obs.OFFLOAD_PARKS.inc(trigger="tool")
             obs.flight.record("park", trigger="tool", pages=n,
@@ -2506,8 +2555,7 @@ class Engine:
         pages = self.alloc.pages_of(seq_id)
         chains = [(pages[i], written[: (i + 1) * P])
                   for i in range(min(len(written) // P, len(pages)))]
-        if chains:
-            self.offload.spill(self.cache, chains, trigger="pressure")
+        self._spill(chains, "pressure")
         # A plain free, no trie donation: the content lives in the host
         # tier now, and an HBM copy would defeat the parking.
         self.alloc.free(seq_id)

@@ -22,7 +22,8 @@ anomaly-dumped: the receiver then re-prefills, it never restores corrupt KV.
 (``fleet/router.py``): the source parks or copies the chain's pages into its
 host pool under its engine lock, on its engine's stream, and packs them; the
 destination checks them and puts them in its pool, where its next admission
-of the chain restores them.
+of the chain restores them. Records carry whole pages at any mesh: a
+tp-sharded engine's pool holds its ranks' heads side by side.
 """
 
 from __future__ import annotations
@@ -147,17 +148,11 @@ def migrate_chain(
     chain from its HBM trie into its host pool (``Engine.park_chain``);
     otherwise it copies what the trie holds (``replicate_chain``). Returns
     pages shipped, 0 on any failure: migration rides on a correct
-    re-prefill, so it never raises into routing, except that it refuses an
-    engine on a mesh of several ranks. ``request_id`` tags the
-    ``session_migrate`` flight events with the journey the transfer
+    re-prefill, so it never raises into routing. An engine on a mesh of
+    several ranks ships and takes whole pages, as a one-rank engine does
+    (its host pool holds them, ``offload/copy.py``). ``request_id`` tags
+    the ``session_migrate`` flight events with the journey the transfer
     serves."""
-    for handle in (src, dst):
-        mesh = getattr(getattr(getattr(handle, "stack", None), "engine", None), "mesh", None)
-        if mesh is not None and mesh.size > 1:
-            raise ValueError(
-                f"session migration with replica {getattr(handle, 'replica_id', '?')}: "
-                f"its engine runs on a mesh of {mesh.size} ranks, whose KV shards "
-                "the page wire format does not carry yet (ROADMAP item 11 (c))")
     t0 = time.perf_counter()
     rid_field = {"request_id": request_id} if request_id else {}
     obs.flight.record(

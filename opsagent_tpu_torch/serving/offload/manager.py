@@ -5,6 +5,11 @@ one engine's cache and allocator (the port's counterpart of
 Every entry point runs under the engine lock. The manager never raises
 into the serving path: a failed spill loses only a future restore (the
 tokens re-prefill), and a failed restore falls back to re-prefill.
+
+At a mesh the leader's manager is the tier: its pool holds whole pages and
+its digests, coverage and counters are the replica's. The engine runs its
+spills and restores as device ops (``Engine._op_spill``, ``_op_restore``),
+where each follower's copier gathers or writes its own heads.
 """
 
 from __future__ import annotations

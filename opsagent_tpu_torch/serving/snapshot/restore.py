@@ -3,16 +3,20 @@ libraries (the port's counterpart of
 ``opsagent_tpu/serving/snapshot/restore.py``).
 
 Each weight leaf file is memory-mapped copy-on-write and sliced into its
-layers as views, so the only copy is ``load_state_dict``'s into the model
-on the device. The leaf order is not read from the snapshot: it is derived
-from the manifest's configs (``models.convert.spec_leaf_paths``) and held
+layers as views, so the only copy is the load into the model on the
+device. The leaf order is not read from the snapshot: it is derived from
+the manifest's configs (``models.convert.spec_leaf_paths``) and held
 against the manifest's recorded paths before anything reaches the device.
-The snapshot may be the port's or the JAX package's (single device: a
-layout sharded over ``tp``, ``dp``, ``sp`` or ``ep`` is refused).
+The snapshot may be the port's or the JAX package's, written at one rank
+or at a mesh: its leaves are whole either way. At a mesh every rank of the
+job restores, each keeping its slice of every leaf
+(``Llama.load_full_state_dict``).
 
 Refused up front, with the offending field named: a fingerprint that does
-not match the configs, a device count other than this host's, a leaf
-order that drifted, and a leaf file of the wrong size.
+not match the configs, a mesh whose size is not the job's world size (as
+the JAX package refuses a device count unlike its own), a card count
+other than this host's, a leaf order that drifted, and a leaf file of the
+wrong size.
 """
 
 from __future__ import annotations
@@ -26,12 +30,12 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ... import obs
 from ...device import resolve_device
 from ...models.config import MLAConfig, MoEConfig, ModelConfig, RopeScalingConfig
 from ...models.convert import DTYPE_NAMES, jax_leaves, spec_leaf_paths
-from ...models.llama import Llama
 from ...ops import cuda_build
 from ..engine import Engine, EngineConfig
 from .manifest import COMPILE_CACHE_DIR, SnapshotError, fingerprint, read_manifest
@@ -131,8 +135,22 @@ def restore_state(man: dict[str, Any], path: str, model_cfg: ModelConfig,
     return state
 
 
+def snapshot_mesh(man: dict[str, Any]) -> dict[str, int]:
+    """The mesh axes a snapshot was written at: its engine block's, the
+    largest of it and the ``jax`` or ``torch`` block's resolved mesh (an
+    engine block's tp 0 means "every device")."""
+    axes: dict[str, int] = {}
+    for block in (man["engine"], man.get("jax", {}).get("mesh", {}),
+                  man.get("torch", {}).get("mesh", {})):
+        for a, v in block.items():
+            if a in _SHARD_AXES:
+                axes[a] = max(axes.get(a, 1), int(v or 1))
+    return axes
+
+
 def restore_engine(path: str, warmup: bool = False, tokenizer: Any = None,
-                   device: str | None = None, host_pool_bytes: int = 0) -> Engine:
+                   device: str | None = None, host_pool_bytes: int = 0,
+                   eager: bool = False) -> Engine:
     """``Engine.from_snapshot``'s body."""
     t0 = time.perf_counter()
     man = read_manifest(path)
@@ -142,17 +160,15 @@ def restore_engine(path: str, warmup: bool = False, tokenizer: Any = None,
             f"refusing restore from {path}: config fingerprint {fp} != manifest "
             f"fingerprint {man['fingerprint']} (the manifest's configs were "
             "edited after the snapshot was written, or the file is corrupt)")
-    axes: dict[str, int] = {}
-    for block in (man["engine"], man.get("jax", {}).get("mesh", {}),
-                  man.get("torch", {}).get("mesh", {})):
-        for a, v in block.items():
-            if a in _SHARD_AXES or block is not man["engine"]:
-                axes[a] = max(axes.get(a, 1), int(v or 1))
-    sharded = {a: v for a, v in axes.items() if v > 1}
-    if sharded:
-        raise _refuse(f"refusing restore from {path}: its weights are laid out "
-                      f"over {sharded}; restoring a sharded snapshot waits for ROADMAP "
-                      "item 11 (c)")
+    axes = snapshot_mesh(man)
+    need = int(np.prod(list(axes.values()) or [1]))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if need != world:
+        raise _refuse(
+            f"refusing restore from {path}: snapshot was written at the mesh "
+            f"{ {a: v for a, v in axes.items() if v > 1} or 'one rank'} of {need} "
+            f"rank(s), this job has a world size of {world}; restore it in a job of "
+            f"{need} rank(s)")
     dev = resolve_device(device)
     if "torch" in man:
         want = int(man["torch"]["count"])
@@ -162,7 +178,7 @@ def restore_engine(path: str, warmup: bool = False, tokenizer: Any = None,
                           f"with {want} cards visible, this host has {have}")
     model_cfg = model_config_from_manifest(man)
     cfg = dataclasses.replace(engine_config_from_manifest(man, device),
-                              host_pool_bytes=host_pool_bytes)
+                              host_pool_bytes=host_pool_bytes, cuda_graphs=not eager)
     expect = [rec["path"] for rec in man["leaves"]]
     got = spec_leaf_paths(model_cfg, cfg.quantize)
     if got != expect:
@@ -175,21 +191,15 @@ def restore_engine(path: str, warmup: bool = False, tokenizer: Any = None,
     state = restore_state(man, path, model_cfg, cfg.quantize)
     preseeded = preseed_kernels(path) if dev.type == "cuda" else 0
 
-    t_load = time.perf_counter()
-    with torch.inference_mode():
-        model = Llama(model_cfg, cfg.dtype, dev, seed=None, quantize=cfg.quantize)
-        model.load_state_dict(state)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    eng = Engine(cfg, model_cfg=model_cfg, tokenizer=tokenizer, state=state)
     del state
-    eng = Engine(cfg, model_cfg=model_cfg, model=model, tokenizer=tokenizer)
     eng.init_stats.update(
-        weights_load_s=round(time.perf_counter() - t_load, 3),
         restore_source=os.path.abspath(path),
         snapshot_fingerprint=man["fingerprint"],
         kernel_cache_preseeded=preseeded,
     )
-    if warmup:
+    if warmup and eng.mesh.leader:
+        # A follower warms up through the leader's op (``Engine.follow``).
         eng.warmup()
     dt = time.perf_counter() - t0
     obs.SNAPSHOT_OPS.inc(op="restore")

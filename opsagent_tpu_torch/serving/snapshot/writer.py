@@ -20,13 +20,21 @@ What it writes:
 
 The manifest (``manifest.py``, shared format) is written last: its
 presence marks a complete snapshot. Its ``engine`` block holds the JAX
-package's fingerprint fields (the fields the port lacks at the values that
-describe its single-device engine), and a ``torch`` block the torch
-version, the device and the paged-attention kernels.
+package's fingerprint fields (the mesh axes as the engine resolved them),
+and a ``torch`` block the torch version, the device, the paged-attention
+kernels and the mesh, as the JAX package's ``jax`` block records its own.
+
+At a mesh of several ranks every rank runs the writer (``Engine``'s
+``snapshot`` op): each leaf, one layer at a time, is all-gathered whole
+from the ranks' shards (``Llama.full_tensor``, by ``state_specs``:
+columns, rows and the vocab over tp, experts over ep), and the leader
+writes it. The files are the bytes a one-rank engine of the same weights
+writes; the host never holds more than one layer's leaf.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import logging
@@ -57,7 +65,7 @@ ENGINE_FINGERPRINT_FIELDS = (
     "quantize", "kv_quantize",
 )
 # The mesh fields, recorded as the engine resolved them (EngineConfig's tp
-# 0 means "every rank"); a snapshot is written at one rank only.
+# 0 means "every rank").
 PORT_ENGINE_FIELDS = {"tp": 1, "dp": 1, "sp": 1, "ep": 1}
 
 
@@ -77,47 +85,59 @@ def engine_config_dict(cfg: Any, mesh: dict[str, int] | None = None) -> dict[str
     return out
 
 
-def write_snapshot(engine: Any, path: str) -> dict[str, Any]:
+def write_snapshot(engine: Any, path: str) -> dict[str, Any] | None:
     """Write ``engine``'s restart snapshot under ``path`` (made if needed).
-    Returns the manifest. Reads only the weights, the kernel libraries and
-    the configs: the engine keeps serving."""
+    Returns the manifest (None on a follower rank, which only takes part in
+    the gathers). Reads only the weights, the kernel libraries and the
+    configs: the engine keeps serving."""
     t0 = time.perf_counter()
-    os.makedirs(os.path.join(path, WEIGHTS_DIR), exist_ok=True)
-    cfg, model_cfg = engine.cfg, engine.model_cfg
-    state = engine.model.state_dict()
+    lead = engine.mesh.leader
+    if lead:
+        os.makedirs(os.path.join(path, WEIGHTS_DIR), exist_ok=True)
+    cfg, model_cfg, model = engine.cfg, engine.model_cfg, engine.model
+    state = model.state_dict()
     empty_layer = None
     leaves = []
     weights_bytes = 0
     for i, (leaf_path, key, first, count) in enumerate(jax_leaves(model_cfg, cfg.quantize)):
         if "{i}" not in key:
-            parts = [state[key]]
-            shape = list(parts[0].shape)
+            keys = [key]
         elif count:
-            parts = [state[key.format(i=first + j)] for j in range(count)]
-            shape = [count, *parts[0].shape]
+            keys = [key.format(i=first + j) for j in range(count)]
         else:
-            # A stack without layers (every layer a MoE layer): JAX holds
-            # its leaves with a leading 0.
-            if empty_layer is None:
-                empty_layer = DecoderLayer(model_cfg, cfg.dtype, torch.device("meta"),
-                                           cfg.quantize).state_dict()
-            like = empty_layer[key.removeprefix("layers.{i}.")]
-            parts, shape = [], [0, *like.shape]
+            keys = []
+        # Each part gathered whole just before it is written.
+        parts = (model.full_tensor(k, state[k]) for k in keys)
         fname = os.path.join(WEIGHTS_DIR, f"leaf-{i:05d}.bin")
         h = hashlib.blake2b(digest_size=16)
         nbytes = 0
-        with open(os.path.join(path, fname), "wb") as f:
+        dtype = shape = None
+        with open(os.path.join(path, fname), "wb") if lead else contextlib.nullcontext() as f:
             for t in parts:
+                dtype, shape = t.dtype, list(t.shape)
+                if not lead:
+                    continue
                 data = leaf_bytes(t)
                 f.write(data)
                 h.update(data)
                 nbytes += len(data)
+        if "{i}" in key:
+            if not keys:
+                # A stack without layers (every layer a MoE layer): JAX
+                # holds its leaves with a leading 0.
+                if empty_layer is None:
+                    empty_layer = DecoderLayer(model_cfg, cfg.dtype, torch.device("meta"),
+                                               cfg.quantize).state_dict()
+                like = empty_layer[key.removeprefix("layers.{i}.")]
+                dtype, shape = like.dtype, list(like.shape)
+            shape = [len(keys), *shape]
         weights_bytes += nbytes
         leaves.append({
-            "path": leaf_path, "file": fname,
-            "dtype": DTYPE_NAMES[(parts[0] if parts else like).dtype],
+            "path": leaf_path, "file": fname, "dtype": DTYPE_NAMES[dtype],
             "shape": shape, "nbytes": nbytes, "digest": h.hexdigest(),
         })
+    if not lead:
+        return None
 
     # The built kernel libraries: the restoring engine finds them built.
     dst_cache = os.path.join(path, COMPILE_CACHE_DIR)
@@ -129,12 +149,16 @@ def write_snapshot(engine: Any, path: str) -> dict[str, Any]:
         cache_bytes += lib.stat().st_size
 
     kv_leaves = []
+    # The cache's global leaf shapes, as JAX records them: at tp > 1 a
+    # rank's pages hold K/tp of the kv heads (axis 3), the latent cache all.
+    heads = 1 if engine.cache.latent else engine.mesh.shape["tp"]
     for name, leaf in engine.cache.page_leaves().items():
         top, _, part = name.partition(".")
         kp = f"['{top}']" + ({"q": "[<flat index 0>]", "scale": "[<flat index 1>]"}[part]
                              if part else "")
-        kv_leaves.append({"path": kp, "dtype": DTYPE_NAMES[leaf.dtype],
-                          "shape": list(leaf.shape)})
+        shape = list(leaf.shape)
+        shape[3] *= heads
+        kv_leaves.append({"path": kp, "dtype": DTYPE_NAMES[leaf.dtype], "shape": shape})
     model = model_config_dict(model_cfg)
     eng_dict = engine_config_dict(cfg, engine.mesh.describe())
     dev = engine.device

@@ -7,7 +7,9 @@ Builds the kernels (``phase_build``), then runs each named phase
 (``phase_<PHASE>`` of ``chip_smoke.py``: e.g. ``prefill_lane``,
 ``autoscale``, ``fleet``; these three by default; ``parallel`` and
 ``train_parallel`` with ``--parallel-backend nccl`` put their two ranks on
-two cards) and prints
+two cards, where ``parallel`` also runs its tp = 2 check and its serve
+with the steps captured as CUDA graphs around their NCCL collectives)
+and prints
 its JSON line,
 as ``chip_smoke.py`` does, with the card's name and power limit. A phase
 that fails prints its traceback and a ``failed`` line, and the next one

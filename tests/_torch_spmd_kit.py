@@ -245,18 +245,24 @@ def job_model(job, inputs, mesh):
     return out
 
 
-def _engine(job, inputs, mesh):
+def _engine_config(job):
     import torch
 
-    from opsagent_tpu_torch.serving.engine import Engine, EngineConfig
+    from opsagent_tpu_torch.serving.engine import EngineConfig
 
-    model = _model(job, inputs, mesh) if any(k.startswith("state/") for k in inputs) else None
     kw = dict(job["engine"])
     kw["dtype"] = torch.float32
     for key in ("prefill_buckets", "mixed_buckets"):
         if key in kw:
             kw[key] = tuple(kw[key])
-    return Engine(EngineConfig(device="cpu", cuda_graphs=False, **kw), model=model)
+    return EngineConfig(device="cpu", cuda_graphs=False, **kw)
+
+
+def _engine(job, inputs, mesh):
+    from opsagent_tpu_torch.serving.engine import Engine
+
+    model = _model(job, inputs, mesh) if any(k.startswith("state/") for k in inputs) else None
+    return Engine(_engine_config(job), model=model)
 
 
 def drive(engine, prompts, sp, split_lane=False):
@@ -331,8 +337,147 @@ def job_follower_fails(job, inputs, mesh):
                 "error": np.array(f"{type(e).__name__}: {e}"[:500])}
 
 
+def _run(engine, prompt, max_tokens):
+    """Admit ``prompt`` alone, then decode it: its greedy tokens (the
+    sequence finished, its pages donated to the trie)."""
+    from opsagent_tpu_torch.serving.sampler import SamplingParams
+
+    sid = engine.begin_request(list(prompt), SamplingParams(max_tokens=max_tokens))
+    while sid in engine._prefilling:
+        engine.step_mixed([], {sid: engine.cfg.mixed_buckets[-1]})
+    while not engine.sequences[sid].done:
+        engine.step_block([sid])
+    engine.drain()
+    return engine.finish(sid)
+
+
+class _Peer:
+    """A replica handle of another process for ``migrate_chain``: it
+    exports the records it was given and keeps the records it imports."""
+
+    replica_id = "peer"
+
+    def __init__(self, records=None):
+        self.records, self.imported = records or [], []
+
+    def export_pages(self, token_ids, park=True):
+        return self.records
+
+    def import_pages(self, records):
+        self.imported = records
+        return len(records)
+
+
+def job_mesh_state(job, inputs, mesh):
+    """The serve path's state at a tp = 2 mesh, one engine after another on
+    every rank (the leader drives, the followers follow):
+
+    1. the host tier: a session served, parked (``park_chain``) and
+       continued from the restored pages; the pool's whole pages; a
+       session migrated out (``migrate_chain`` from this replica) and one
+       migrated in from a one-rank engine's records, and one from the JAX
+       engine's, each continued; then a snapshot written at the mesh;
+    2. the JAX package's tp = 2 snapshot restored here, and
+    3. the snapshot of 1 restored here, each serving ``prompts``;
+    4. a snapshot of int4 weights whose scale groups shard with their
+       rows (``q4/`` inputs);
+    5. refusals: a one-rank snapshot in this two-rank job, CUDA graphs
+       over gloo."""
+    import torch
+
+    from opsagent_tpu_torch.serving.api import ServingStack
+    from opsagent_tpu_torch.serving.engine import Engine
+    from opsagent_tpu_torch.serving.fleet.router import LocalReplica
+    from opsagent_tpu_torch.serving.fleet.transfer import migrate_chain
+    from opsagent_tpu_torch.serving.sampler import SamplingParams
+    from opsagent_tpu_torch.serving.snapshot import SnapshotError
+
+    out = {}
+    prompts = json.loads(job["prompts"])
+    greedy = SamplingParams(max_tokens=job["max_tokens"])
+    engine = _engine(job, inputs, mesh)
+    if mesh.leader:
+        parked = job["parked"]
+        first = _run(engine, parked, job["max_tokens"])
+        hist = parked + first[:-1]
+        out["first"] = np.array(json.dumps(first))
+        stack = ServingStack(engine)
+        try:
+            peer = _Peer()
+            out["migrated_out"] = np.array(migrate_chain(LocalReplica(stack, "tp2"), peer,
+                                                         hist, "test"))
+            entries = engine.offload.pool.match(hist)
+            for j, e in enumerate(entries):
+                for name, t in e.data.items():
+                    out[f"pool/{j}/{name}"] = t.numpy()
+            out["records"] = np.array(json.dumps(peer.imported))
+            before = engine.offload.restored_pages
+            out["continued"] = np.array(json.dumps(_run(engine, hist + job["turn"],
+                                                        job["max_tokens"])))
+            out["restored_pages"] = np.array(engine.offload.restored_pages - before)
+            for name in ("one", "jax"):
+                records = json.loads(str(inputs[f"{name}_records"]))
+                before = engine.offload.restored_pages
+                n = migrate_chain(_Peer(records), LocalReplica(stack, "tp2"),
+                                  records[-1]["tokens"], "test")
+                hist_in = list(records[-1]["tokens"])
+                out[f"{name}_imported"] = np.array(n)
+                out[f"{name}_continued"] = np.array(json.dumps(
+                    _run(engine, hist_in + job["turn"], job["max_tokens"])))
+                out[f"{name}_restored_pages"] = np.array(
+                    engine.offload.restored_pages - before)
+        finally:
+            stack.close()
+        man = engine.snapshot(job["port_snapshot"])
+        out["snapshot_mesh"] = np.array(json.dumps(man["torch"]["mesh"]))
+        engine.stop_followers()
+    else:
+        out["ops_run"] = np.array(engine.follow())
+        out["follower_pool_pages"] = np.array(engine.offload.pool.num_pages)
+    del engine
+    for name in ("jax", "port"):
+        restored = Engine.from_snapshot(job[f"{name}_snapshot"], device="cpu", eager=True)
+        out[f"{name}_restored_mesh"] = np.array(json.dumps(restored.mesh.describe()))
+        if mesh.leader:
+            out[f"{name}_restored_tokens"] = np.array(json.dumps(
+                restored.generate(prompts, greedy)))
+            restored.stop_followers()
+        else:
+            restored.follow()
+        del restored
+    from opsagent_tpu_torch.models.config import get_config_preset
+    from opsagent_tpu_torch.models.llama import Llama
+
+    model = Llama(get_config_preset(job["model"]), torch.float32, "cpu", seed=None,
+                  quantize="int4", mesh=mesh)
+    model.load_full_state_dict({k.removeprefix("q4/"): _t(v) for k, v in inputs.items()
+                                if k.startswith("q4/")})
+    out["int4_split_scales"] = np.array(len(model._split_scales))
+    engine = Engine(dataclasses.replace(_engine_config(job), quantize="int4"), model=model)
+    if mesh.leader:
+        engine.snapshot(job["int4_snapshot"])
+        engine.stop_followers()
+    else:
+        engine.follow()
+    del engine, model
+    try:
+        Engine.from_snapshot(job["one_snapshot"], device="cpu", eager=True)
+        out["one_snapshot_refused"] = np.array("")
+    except SnapshotError as e:
+        out["one_snapshot_refused"] = np.array(str(e)[:300])
+    try:
+        Engine(dataclasses.replace(_engine_config(job), cuda_graphs=True))
+        out["gloo_graphs_refused"] = np.array("")
+    except ValueError as e:
+        out["gloo_graphs_refused"] = np.array(str(e)[:300])
+    torch.distributed.barrier()
+    return out
+
+
 def job_refusals(job, inputs, mesh):
-    """What a mesh engine refuses, each as 1 (raised) or 0."""
+    """What a mesh engine refuses, each as 1 (raised) or 0: CUDA graphs
+    over gloo only. The host tier, a snapshot and a migration run (the
+    leader drives the snapshot while the follower follows)."""
     import torch
 
     from opsagent_tpu_torch.serving.engine import Engine, EngineConfig
@@ -352,19 +497,22 @@ def job_refusals(job, inputs, mesh):
             out[f"{name}_msg"] = np.array(str(e)[:300])
 
     raises("cuda_graphs", lambda: Engine(dataclasses.replace(base, cuda_graphs=True)))
-    raises("offload", lambda: Engine(dataclasses.replace(base, offload=True)))
-    engine = Engine(base)
-    raises("snapshot", lambda: engine.snapshot(os.path.join(job["workdir"], "snap")))
-
-    class Handle:
-        replica_id = "r0"
-
-        class stack:  # noqa: N801 - the replica handle's shape
-            pass
-
-    Handle.stack.engine = engine
-    raises("migrate", lambda: migrate_chain(Handle(), Handle(), [1, 2, 3], "test"))
+    engine = Engine(dataclasses.replace(base, offload=True))
+    out["offload"] = np.array(int(engine.offload is None))
+    path = os.path.join(job["workdir"], "snap")
     if mesh.leader:
+        raises("snapshot", lambda: engine.snapshot(path))
+        out["snapshot_written"] = np.array(int(os.path.exists(
+            os.path.join(path, "manifest.json"))))
+
+        class Handle:
+            replica_id = "r0"
+
+            class stack:  # noqa: N801 - the replica handle's shape
+                pass
+
+        Handle.stack.engine = engine
+        raises("migrate", lambda: migrate_chain(Handle(), Handle(), [1, 2, 3], "test"))
         from opsagent_tpu_torch.serving.api import ServingStack
         from opsagent_tpu_torch.serving.fleet.client import FleetMembership
         from opsagent_tpu_torch.serving.fleet.router import LocalReplica
@@ -377,6 +525,9 @@ def job_refusals(job, inputs, mesh):
             out["member_mesh"] = np.array(json.dumps(member._payload(full=True)["mesh"]))
         finally:
             stack.close()
+        engine.stop_followers()
+    else:
+        engine.follow()
     return out
 
 
@@ -511,7 +662,7 @@ JOBS = {
     "attention": job_attention, "quant": job_quant, "ring": job_ring,
     "collectives": job_collectives,
     "model": job_model, "engine": job_engine, "follower_fails": job_follower_fails,
-    "refusals": job_refusals, "train": job_train,
+    "refusals": job_refusals, "mesh_state": job_mesh_state, "train": job_train,
 }
 
 

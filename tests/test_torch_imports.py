@@ -78,6 +78,7 @@ REQUIRED = (
     "opsagent_tpu_torch.training.trainer",
     "opsagent_tpu_torch.training.checkpoint",
     "opsagent_tpu_torch.training.parity",
+    "opsagent_tpu_torch.native",
     "opsagent_tpu_torch.utils.globalstore",
     "opsagent_tpu_torch.utils.yamlutil",
     "opsagent_tpu_torch.utils.yamlio",

@@ -11,8 +11,9 @@ package's on the CPU.
   weights, int8 and int4 weights too (no second quantization), and so does
   a model whose every layer is a MoE layer (an empty dense stack).
 - A flipped byte, an edited config, a leaf-order drift, a truncated leaf,
-  a card-count mismatch and a sharded JAX layout are each refused (the
-  JAX package's ``tests/test_snapshot.py`` cases).
+  a card-count mismatch and a snapshot written at a mesh larger than the
+  job are each refused (the JAX package's ``tests/test_snapshot.py``
+  cases).
 - The kernel libraries: ``snapshot create`` copies the built ones into
   ``compile-cache/`` and a restore copies them back; ``snapshot verify``
   exits 0 / 1 / 2.
@@ -202,7 +203,7 @@ def test_leaf_order_drift_truncation_and_device_counts_refused(tmp_path):
     sharded = dict(man, engine={**man["engine"], "tp": 2})
     sharded["fingerprint"] = fingerprint(sharded["model"], sharded["engine"])
     write_manifest(path, sharded)
-    with pytest.raises(SnapshotError, match="item 11 \\(c\\)"):
+    with pytest.raises(SnapshotError, match="world size of 1"):
         Engine.from_snapshot(path, device="cpu")
     write_manifest(path, man)
     fpath = os.path.join(path, man["leaves"][0]["file"])
