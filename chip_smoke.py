@@ -18,7 +18,10 @@ Phases, each printing one JSON line with its seconds:
    bench-1b and tiny-test; and the dma kernels' MLA latent instances (one
    latent kv head of 576 columns read as k and v) at DeepSeek-V2-Lite's 16
    and V3's 128 heads, bf16 and f32, decode lengths on page and split
-   edges and 0; the main path's bf16 shapes are timed: device
+   edges and 0; and their materialized-MLA instances (a kv head per query
+   head, v zero-padded to the qk head dim) at tiny-mla's 4 heads of 24 and
+   DeepSeek-V2-Lite's 16 heads of 192, the same rows and lengths; the
+   main path's bf16 shapes are timed: device
    times by CUDA graph replay (the kernels cycling over copies of the
    pages that pass ``ROTATE_BYTES``; SDPA over K/V gathered once), and
    the kernels' calls from Python beside them (``event_ms``); then (the
@@ -43,7 +46,14 @@ Phases, each printing one JSON line with its seconds:
    of the same engine through the plain versions, with a prefix-cache
    hit. Then (``e2e_bf16``) the same cuts in bf16, bf16 pages and int8 KV
    (not for MLA): the first mixed step's last-position logits through the
-   kernels against the plain path's.
+   kernels against the plain path's (V2-Lite also with its materialized
+   cache). Then (``mla_materialized``) MLA with its materialized cache:
+   tiny-mla (head dim 24) in f32 and bf16, and DeepSeek-V2-Lite at full
+   width (16 heads of 192) cut to one dense and one MoE layer in f32 and
+   bf16, greedy tokens through the MLA instances equal to the plain
+   path's (V2-Lite's bf16 ones reported, not checked: a near-tie may part
+   them; their launches counted for the ``kernels`` line); the latent
+   pages as k beside other pages as v still raise.
 5. hf: the HF-written fixtures
    ``tests/fixtures/tiny-{llama,qwen2,qwen3,qwen3-moe}-hf`` and the DeepSeek
    MoE fixture ``tiny-deepseek-moe`` (``tiny-moe`` preset, dma only) loaded
@@ -324,11 +334,17 @@ Phases, each printing one JSON line with its seconds:
    device time by kernel group, the quantized matmul split by instance
    and the combine of both attention forms' split calls as one group
    (the trace slows the run: its tokens/s and TTFT are not the untraced
-   ones). After the Qwen2.5-7B bf16 serve, a ``bpe`` line: an engine over
-   that serve's model with ``BPETokenizer`` on ``tests/fixtures/tiny-bpe``
-   (1,027 ids against the model's 152,064) serves one json_schema request
-   over HTTP with a ChatML prompt, every step replayed; the reply parses
-   and the FSM is built from the BPE's token bytes.
+   ones). After the Qwen2.5-7B bf16 serve and after the bench-8b dma bf16
+   serve, a ``bpe`` line: for each of its fixtures
+   (``tests/fixtures/tiny-bpe``, no template of its own, at Qwen2.5-7B;
+   ``tiny-sp``, the SentencePiece form with a Mistral-style template, and
+   ``tiny-bpe-ds``, the DeepSeek form with its own template, at bench-8b),
+   an engine over that serve's model with ``BPETokenizer`` on the fixture
+   (about a thousand ids against the model's vocab) serves one json_schema
+   request over HTTP, every step replayed; the reply parses, the FSM is
+   built from the fixture's token bytes, and the prompt ids are ChatML
+   (tiny-bpe) or the ones the JAX package's path gives, written on the CPU
+   into the fixture's ``expected.json``.
 8. chat_api: bench-8b at full width and depth, dma kernels, bf16, one
    model under a replaying and an eager engine. A forced named
    ``tool_choice`` with ``n`` = 2 over HTTP (both choices call the tool,
@@ -351,6 +367,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import importlib.metadata
 import itertools
 import json
 import math
@@ -443,6 +460,10 @@ KERNELS = {  # name: (source in csrc/, the TPU kernel it replaces)
     # kernels compute it in interpret mode.
     "paged_ragged_attention_latent": ("paged_attention.cu", "opsagent_tpu/ops/attention.py:456"),
     "paged_decode_attention_latent": ("paged_attention.cu", "opsagent_tpu/ops/attention.py:608"),
+    # Their materialized-MLA instances (head dims 24 and 192, a kv head per
+    # query head): the same two dma kernels at those head dims.
+    "paged_ragged_attention_mla": ("paged_attention.cu", f"{PAGED}:830"),
+    "paged_decode_attention_mla": ("paged_attention.cu", f"{PAGED}:310"),
 }
 LATENT_KERNELS = ("paged_ragged_attention_latent", "paged_decode_attention_latent")
 # (model, paged backend, quantize, kv_quantize) of each serve run. The
@@ -474,14 +495,22 @@ E2E = (
 # (2-layer cut, paged backend) of each bf16 logits check, each with bf16
 # pages and with int8 KV; the q_lens of its first mixed step, all rows
 # from position 0.
-E2E_BF16 = ((BENCH_8B, "dma"), (QWEN25_7B, "grid"), (DEEPSEEK_V2_LITE, "dma"))
+# DeepSeek-V2-Lite with its materialized cache (16 heads of 192, no latent):
+# the dma kernels' MLA instances.
+V2_LITE_MATERIALIZED = replace(DEEPSEEK_V2_LITE, name=f"{DEEPSEEK_V2_LITE.name}-materialized",
+                               mla=replace(DEEPSEEK_V2_LITE.mla, latent_cache=False))
+E2E_BF16 = ((BENCH_8B, "dma"), (QWEN25_7B, "grid"), (DEEPSEEK_V2_LITE, "dma"),
+            (V2_LITE_MATERIALIZED, "dma"))
 E2E_BF16_Q_LENS = [128, 128, 77, 1, 33, 0, 128, 5]
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
 # Where the bench-8b dma bf16 serve's profiling routes write (gitignored,
 # removed once checked).
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                            "chip_smoke_profile")
-BPE_FIXTURE = os.path.join(FIXTURES, "tiny-bpe")
+# The bpe block's tokenizer directories by serve: tiny-bpe has no template
+# (ChatML at the Qwen serve); the other two carry their own, with JAX's
+# prompt ids in expected.json, served at bench-8b's width.
+BPE_FIXTURES = {"qwen2.5-7b-instruct": ("tiny-bpe",), "bench-8b": ("tiny-sp", "tiny-bpe-ds")}
 # fixture: (configuration, "auto" for its config.json or a preset; backends)
 HF_FIXTURES = {
     "tiny-llama-hf": ("auto", ("dma", "grid")),
@@ -614,10 +643,12 @@ def phase_build() -> dict:
                    if "decode" in r["kernel"] and "bfloat16" in r["kernel"]]
         m128 += [r for r in report if "qmm_m128_kernel" in r["kernel"]]
         m16 += [r for r in report if "qmm_m16_kernel" in r["kernel"]]
-    check(len(tensor_core) >= 16,
-          f"ptxas reported {len(tensor_core)} bf16 ragged instances, expected 16")
-    check(len(decode) == 16,
-          f"ptxas reported {len(decode)} bf16 decode instances, expected 16")
+    # Each form's four head dims over bf16 and int8 pages, and the dma
+    # form's materialized-MLA head dims 24 and 192.
+    check(len(tensor_core) >= 18,
+          f"ptxas reported {len(tensor_core)} bf16 ragged instances, expected 18")
+    check(len(decode) == 18,
+          f"ptxas reported {len(decode)} bf16 decode instances, expected 18")
     check(len(m128) == 4, f"ptxas reported {len(m128)} m128 matmul instances, expected 4")
     check(len(m16) == 4, f"ptxas reported {len(m16)} m16 matmul instances, expected 4")
     # f32 ragged and decode (CUDA cores); bf16 ragged and decode
@@ -914,6 +945,35 @@ def phase_kernels(seed: int) -> dict:
             latent("paged_decode_attention_latent", c, dtype, wname, 1, main)
             del c
             torch.cuda.empty_cache()
+
+    # The materialized-MLA instances (dma form): tiny-mla's 4 heads of 24
+    # and V2-Lite's 16 of 192, a kv head per query head, v zero past the
+    # v head dim (16 and 128) as the model writes it; the ragged rows and
+    # the latent decode lengths above. V2-Lite's bf16 shapes are timed.
+    def materialized(name, c, dtype, wname, v_dim, int_arrays, timed, **where):
+        c["v"][..., v_dim:] = 0
+        if timed:
+            c["bound"] = attention_bound_ms(c, int_arrays)
+            q = c["q"] if c["q"].ndim == 4 else c["q"][:, None]
+            c["sdpa"] = ragged_sdpa({**c, "q": q})
+        r = run_kernel_case(name, c, dtype, timed)
+        cases.append(dict(kernel=name, width=wname, **where, dtype=str(dtype)[6:],
+                          err=r["max_abs_err"], tol=TOL[dtype]))
+        if timed:
+            results[name] = r
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for wname, H, D, v_dim in (("tiny-mla", 4, 24, 16), ("deepseek-v2-lite", 16, 192, 128)):
+            main = dtype == torch.bfloat16 and wname == "deepseek-v2-lite"
+            for S, (starts, lens) in ragged_rows.items():
+                c = make_case(gen, 8, S, H, H, D, 16, starts, lens, dtype)
+                materialized("paged_ragged_attention_mla", c, dtype, wname, v_dim, 2,
+                             main and S == 128, S=S)
+                del c
+            c = decode_case(gen, 8, H, H, D, 16, latent_decode, dtype)
+            materialized("paged_decode_attention_mla", c, dtype, wname, v_dim, 1, main)
+            del c
+            torch.cuda.empty_cache()
     emit({"phase": "kernels_cases", "cases": cases})
     return results
 
@@ -1064,7 +1124,6 @@ def phase_e2e(seed: int) -> dict:
             toks = eng.generate([p0, p1], greedy) + eng.generate([p2], greedy)
             out[impl] = (toks, eng.alloc.hit_tokens)
             del eng
-        refusals = mla_refusals(model, cfg) if cfg.mla is not None and not quantize else None
         del model
         torch.cuda.empty_cache()
         label = (f"{cfg.name} {backend}, weights {quantize or 'f32'}, "
@@ -1074,36 +1133,76 @@ def phase_e2e(seed: int) -> dict:
         check(tk == tp, f"{label}: kernel-path tokens {tk} != plain-path tokens {tp}")
         check(hk > 0 and hp == hk, f"{label}: prefix hits {hk} / {hp}")
         report[label] = {"tokens_equal": True, "prefix_hit_tokens": hk, "tokens": tk}
-        if refusals is not None:
-            report[f"{cfg.name} refusals"] = refusals
+    report["mla_materialized"] = mla_materialized(seed, p0, p1)
     return report
 
 
-def mla_refusals(model: Llama, cfg) -> dict:
-    """On the card the MLA path raises where its kernels do not take the
-    shape, rather than running the plain version: a materialized cache
-    (latent_cache off: head dim 192 over 16 kv heads) through the dma
-    kernels, and the latent pages as k beside other pages as v."""
-    dense = replace(cfg, mla=replace(cfg.mla, latent_cache=False))
-    cache = PagedKVCache(dense, 8, 16, model.dtype, torch.device("cuda"))
+def mla_materialized(seed: int, p0: list[int], p1: list[int]) -> dict:
+    """MLA with its materialized cache (``latent_cache`` off: per-head k and
+    v, v zero-padded to the qk head dim) on the card through the dma
+    kernels' MLA instances: tiny-mla (4 heads of 24) in f32 and bf16, and
+    DeepSeek-V2-Lite at full width (16 heads of 192) cut to one dense and
+    one MoE layer in f32 and bf16. Greedy tokens through the kernels equal
+    the plain path's, checked except for V2-Lite in bf16: there a bf16
+    near-tie (an ulp of an attention output moving a top-6 expert choice
+    or the argmax) may part them, so they are reported, and the cut's bf16
+    kernel path is held by its logits in ``e2e_bf16``. The kernel runs
+    launch the MLA instances and no latent one; their launches are
+    returned for the kernels line. The latent pages as k beside other
+    pages as v still raise."""
+    greedy = SamplingParams(max_tokens=16)
+    launches = {name: 0 for name in KERNELS}
+    out = {}
+    tiny = get_config_preset("tiny-mla")
+    v2l = replace(V2_LITE_MATERIALIZED, name=f"{V2_LITE_MATERIALIZED.name}-2l", num_layers=2)
+    for cfg, dtype in ((tiny, torch.float32), (tiny, torch.bfloat16),
+                       (v2l, torch.float32), (v2l, torch.bfloat16)):
+        label = f"{cfg.name} {str(dtype)[6:]}"
+        checked = cfg is tiny or dtype == torch.float32
+        check(not cfg.mla.latent_cache, f"{label}: expected a materialized cache")
+        vocab = cfg.vocab_size
+        prompts = [[t % vocab for t in p0], [t % vocab for t in p1]]
+        model = Llama(cfg, dtype, "cuda", seed=seed)
+        toks = {}
+        for impl in ("cuda", "plain"):
+            eng = Engine(EngineConfig(model=cfg.name, dtype=dtype, device="cuda",
+                                      attn_impl=impl, seed=seed, num_pages=256),
+                         model_cfg=cfg, model=model)
+            reset_launch_counts()
+            toks[impl] = eng.generate(prompts, greedy)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            del eng
+            if impl == "cuda":
+                for name, n in counts.items():
+                    launches[name] += n
+                check(counts["paged_ragged_attention_mla"] > 0
+                      and counts["paged_decode_attention_mla"] > 0
+                      and not any(counts[n] for n in LATENT_KERNELS),
+                      f"{label}: launches {counts}")
+        got, want = toks["cuda"], toks["plain"]
+        check(all(len(t) == 16 for t in got), f"{label}: kernel path lengths "
+                                               f"{[len(t) for t in got]}")
+        check(got == want or not checked,
+              f"{label}: kernel-path tokens {got} != plain-path tokens {want}")
+        out[label] = {
+            "tokens_checked": checked, "tokens_equal": got == want,
+            # Per stream, the tokens before the two paths part.
+            "tokens_agreeing": [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                                     len(g)) for g, w in zip(got, want)],
+            "heads": cfg.num_heads, "head_dim": cfg.mla.qk_head_dim, "tokens": got}
+        del model
+        torch.cuda.empty_cache()
     ints = dict(dtype=torch.int32, device="cuda")
     table = torch.arange(8, **ints)[None]
-    out = {}
-    try:
-        with torch.inference_mode():
-            model.mixed_step(torch.ones(1, 16, dtype=torch.long, device="cuda"),
-                             torch.zeros(1, **ints), torch.full((1,), 16, **ints), cache, table)
-    except ValueError as e:
-        out["materialized_cache"] = str(e)
-    check("materialized_cache" in out and "head dim 192" in out["materialized_cache"],
-          f"a materialized MLA cache on the card: {out}")
-    pages = torch.zeros(8, 16, 1, pa.LATENT_DIM, dtype=model.dtype, device="cuda")
-    q = torch.zeros(1, cfg.num_heads, pa.LATENT_DIM, dtype=model.dtype, device="cuda")
+    pages = torch.zeros(8, 16, 1, pa.LATENT_DIM, dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros(1, 16, pa.LATENT_DIM, dtype=torch.bfloat16, device="cuda")
     try:
         pa.paged_decode_attention_cuda(q, pages, pages.clone(), table, torch.ones(1, **ints))
     except ValueError as e:
         out["k_is_not_v"] = str(e)
     check("k_is_not_v" in out, "latent pages beside other pages as v did not raise")
+    out["launches"] = launches
     return out
 
 
@@ -1139,8 +1238,9 @@ def phase_e2e_bf16(seed: int) -> dict:
                 with torch.inference_mode():
                     return m.mixed_step(tokens, start, q_lens, cache, table,
                                         plain=plain, backend=backend)[valid]
+            mla = "" if cfg.mla is None else "_latent" if cfg.mla.latent_cache else "_mla"
             name = ("paged_ragged_attention" + ("_grid" if backend == "grid" else "")
-                    + ("_int8" if kv_quantize else "") + ("_latent" if cfg.mla else ""))
+                    + ("_int8" if kv_quantize else "") + mla)
             before = pa.LAUNCHES[name]
             got = last_logits(model, False)
             launched = pa.LAUNCHES[name] - before
@@ -3508,9 +3608,9 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
                 decode_device_ms(engine, fsm_args, fsm_rows=rows))
         emit({"phase": "constrained", "model": model, "paged_backend": backend,
               "card": smi, **fsm_run})
-    if model.startswith("qwen") and not quantize:
+    if model in BPE_FIXTURES and not quantize:
         emit({"phase": "bpe", "model": model, "paged_backend": backend, "card": smi,
-              **bpe_serve(engine)})
+              **{name: bpe_serve(engine, name) for name in BPE_FIXTURES[model]}})
     # Every decode step and every mixed tick of the serve is a graph replay.
     check(replays == ticks["decode_steps"] > 0 and eager_steps == 0,
           f"{replays} replayed and {eager_steps} eager decode steps of "
@@ -3602,19 +3702,23 @@ def phase_serve(seed: int, smi: str, profile: bool, model: str, backend: str,
         **({"profile_capture": profiled} if profiled else {}),
     }
 
-# -- phase 7b: a byte-level-BPE tokenizer on the card ----------------------------------
+# -- phase 7b: a checkpoint's own tokenizer and chat template on the card -------------
 BPE_SCHEMA = {"type": "object", "properties": {"name": {"enum": ["kubectl", "trivy"]},
                                                "ok": {"type": "boolean"}}}
 
 
-def bpe_serve(served: Engine) -> dict:
+def bpe_serve(served: Engine, fixture: str) -> dict:
     """One json_schema chat completion over HTTP through ``BPETokenizer``
-    on ``tests/fixtures/tiny-bpe`` (ChatML prompt), on an engine over the
-    serve's own model (its weights reused), warmed up, steps replayed.
-    The reply parses and stops; the FSM is built from the BPE's
-    ``token_bytes`` and its tables are the ones loaded; ids past the
-    tokenizer's 1,027 (the model's padded vocab) never appear."""
-    tok = BPETokenizer(BPE_FIXTURE)
+    on ``tests/fixtures/<fixture>``, on an engine over the serve's own
+    model (its weights reused), warmed up, steps replayed. The reply
+    parses and stops; the FSM is built from the fixture's ``token_bytes``
+    and its tables are the ones loaded; ids past the tokenizer's vocab
+    (the model's is padded past it) never appear. The prompt is ChatML
+    where the fixture has no template, else the JAX package's ids for the
+    same messages (``expected.json``, written on the CPU through
+    ``transformers``, which this machine lacks)."""
+    path = os.path.join(FIXTURES, fixture)
+    tok = BPETokenizer(path)
     eng = Engine(replace(served.cfg, num_pages=256), model_cfg=served.model_cfg,
                  model=served.model, tokenizer=tok)
     warmup_s = eng.warmup()
@@ -3641,20 +3745,29 @@ def bpe_serve(served: Engine) -> dict:
         thread.join(timeout=30)
     ch = reply["choices"][0]
     text = ch["message"]["content"]
-    check(status == 200 and ch["finish_reason"] == "stop", f"bpe: {status} {ch}")
-    check(json.loads(text)["name"] in ("kubectl", "trivy"), f"bpe: reply {text!r}")
+    check(status == 200 and ch["finish_reason"] == "stop", f"bpe {fixture}: {status} {ch}")
+    check(json.loads(text)["name"] in ("kubectl", "trivy"), f"bpe {fixture}: reply {text!r}")
     con = json_constraint(tok, BPE_SCHEMA)
     check(con.fsm.token_bytes == [tok.token_bytes(i) for i in range(tok.vocab_size)]
-          and eng._fsm_loaded is con.fsm, "bpe: FSM not built from the BPE token bytes")
+          and eng._fsm_loaded is con.fsm, f"bpe {fixture}: FSM not built from its token bytes")
     prompt = apply_chat_template(tok, body["messages"], eng.model_cfg.name)
-    check(prompt[0] == tok.encode("<|im_start|>")[0]
-          and reply["usage"]["prompt_tokens"] == len(prompt), "bpe: prompt is not ChatML")
+    check(reply["usage"]["prompt_tokens"] == len(prompt),
+          f"bpe {fixture}: {reply['usage']['prompt_tokens']} prompt tokens served, "
+          f"{len(prompt)} rendered")
+    if tok.chat_template is None:
+        check(prompt[0] == tok.encode("<|im_start|>")[0], f"bpe {fixture}: prompt is not ChatML")
+    else:
+        with open(os.path.join(path, "expected.json"), encoding="utf-8") as f:
+            expected = json.load(f)
+        check(expected["messages"] == body["messages"] and prompt == expected["prompt_ids"],
+              f"bpe {fixture}: prompt ids {prompt} are not JAX's {expected['prompt_ids']}")
     check(eng.decode_eager_steps == eng.mixed_eager_ticks == eng.hosted_steps == 0
           # A constrained row decodes on the async ticks (fast-forward)
           # until it ends: its tokens may come from mixed replays alone.
           and eng.decode_replays + eng.mixed_replays > 0,
-          f"bpe: routes {routes(eng)}, {eng.hosted_steps} hosted")
-    out = {"reply": text, "prompt_tokens": len(prompt),
+          f"bpe {fixture}: routes {routes(eng)}, {eng.hosted_steps} hosted")
+    out = {"reply": text, "template": tok.chat_template is not None,
+           "prompt_tokens": len(prompt),
            "completion_tokens": reply["usage"]["completion_tokens"],
            "tokenizer_vocab": tok.vocab_size, "model_vocab": eng.model_cfg.vocab_size,
            "warmup_s": warmup_s, "wall_s": wall, "routes": routes(eng)}
@@ -5700,6 +5813,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "seconds": time.perf_counter() - t, "card": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
+          # Chat templates render with jinja2, which comes with PyTorch.
+          "jinja2": importlib.metadata.version("jinja2"),
           "capability": list(torch.cuda.get_device_capability(0))})
 
     t = time.perf_counter()
@@ -5735,6 +5850,8 @@ def main() -> int:
           **graphs})
 
     launches = {name: 0 for name in KERNELS}
+    for name, n in e2e["mla_materialized"]["launches"].items():
+        launches[name] += n
     t = time.perf_counter()
     loop = phase_serve_loop(args.seed, smi)
     emit({"phase": "serve_loop", "seconds": time.perf_counter() - t, **loop})
@@ -5799,6 +5916,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("event_ms", "dma_ms", "plan") if k in r},
         })
+    idle = [r["name"] for r in rows if r["launches"] == 0]
+    check(not idle, f"kernels launched no time on the main path: {idle}")
     print(smi)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

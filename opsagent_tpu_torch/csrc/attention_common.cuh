@@ -59,23 +59,31 @@ cudaError_t prepare(Kernel kernel, int bytes) {
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
 
 // Calls fn.run<T, PT, D>() for the runtime head dim and page type (PT = T,
-// or int8_t for int8 pages), or returns cudaErrorInvalidValue.
-template <typename T, typename Fn>
+// or int8_t for int8 pages), or returns cudaErrorInvalidValue. kMla adds
+// the materialized-MLA head dims, 24 (tiny-mla) and 192 (DeepSeek-V2/V3's
+// 128 + 64), for pages in q's dtype only: both packages refuse an int8 KV
+// cache for MLA. Only the dma source instantiates them.
+template <typename T, bool kMla, typename Fn>
 cudaError_t by_head_dim(int D, bool int8_pages, const Fn& fn) {
   switch (D) {
     case 16: return int8_pages ? fn.template run<T, int8_t, 16>() : fn.template run<T, T, 16>();
     case 32: return int8_pages ? fn.template run<T, int8_t, 32>() : fn.template run<T, T, 32>();
     case 64: return int8_pages ? fn.template run<T, int8_t, 64>() : fn.template run<T, T, 64>();
     case 128: return int8_pages ? fn.template run<T, int8_t, 128>() : fn.template run<T, T, 128>();
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (kMla) {
+    if (!int8_pages && D == 24) return fn.template run<T, T, 24>();
+    if (!int8_pages && D == 192) return fn.template run<T, T, 192>();
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The same over q's dtype code (kFloat32 or kBFloat16).
-template <typename Fn>
+template <bool kMla = false, typename Fn>
 cudaError_t dispatch(int dtype, int D, bool int8_pages, const Fn& fn) {
-  if (dtype == kFloat32) return by_head_dim<float>(D, int8_pages, fn);
-  if (dtype == kBFloat16) return by_head_dim<__nv_bfloat16>(D, int8_pages, fn);
+  if (dtype == kFloat32) return by_head_dim<float, kMla>(D, int8_pages, fn);
+  if (dtype == kBFloat16) return by_head_dim<__nv_bfloat16, kMla>(D, int8_pages, fn);
   return cudaErrorInvalidValue;
 }
 

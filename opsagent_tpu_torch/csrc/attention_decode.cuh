@@ -44,6 +44,10 @@
 //   - Numerics. q is loaded unscaled into bf16 A fragments straight from
 //     global memory (4 KB a warp, no barrier); D^-1/2 is applied to the
 //     f32 scores, as in attend_mma.
+//   - Materialized MLA's head dim 24 is padded to the k-step (32) with
+//     zeros, as in attend_mma: q's pad registers are zero, and each warp
+//     zeroes the pad columns of its ring's K slices once, which no copy
+//     writes; P V keeps three n8 tiles.
 //   - Output through TileOut: with one split the normalised bf16 rows,
 //     otherwise unnormalised partials (max in natural-log units, sum, acc)
 //     in the layout combine_kernel reads. A range with nothing visible
@@ -72,15 +76,15 @@ constexpr int kDecodeStage = kDecodeWarps * kDecodeSlice;  // positions of a sta
 constexpr int kDecodeRing = 2;                             // slices in a warp's cp.async ring
 
 // Shared memory of one warp: the row index of each position of a slice
-// [16] int32; then for bf16 pages the ring of K and V slices [16][D + 8]
-// bf16; for int8 pages the ring of K and V codes [16][D], the ring of their
-// f32 scales [16], and one bf16 K/V pair [16][D + 8]. After the walk the
-// same bytes hold the warp's state for the merge: m [16], l [16] and
-// o [16][D + 8] f32.
+// [16] int32; then for bf16 pages the ring of K and V slices
+// [16][mma_ld(D)] bf16; for int8 pages the ring of K and V codes [16][D],
+// the ring of their f32 scales [16], and one bf16 K/V pair [16][mma_ld(D)].
+// After the walk the same bytes hold the warp's state for the merge:
+// m [16], l [16] and o [16][mma_ld(D)] f32.
 template <typename PT, int D>
 __host__ __device__ constexpr int decode_warp_bytes() {
   constexpr int rows = kDecodeSlice * 4;
-  constexpr int pair = 2 * kDecodeSlice * (D + 8) * 2;
+  constexpr int pair = 2 * kDecodeSlice * mma_ld(D) * 2;
   if constexpr (std::is_same_v<PT, int8_t>) {
     return rows + kDecodeRing * 2 * kDecodeSlice * (D + 4) + pair;
   } else {
@@ -90,7 +94,7 @@ __host__ __device__ constexpr int decode_warp_bytes() {
 
 template <typename PT, int D>
 constexpr int decode_smem_bytes() {
-  static_assert(decode_warp_bytes<PT, D>() >= 4 * (2 * kDecodeRows + kDecodeRows * (D + 8)),
+  static_assert(decode_warp_bytes<PT, D>() >= 4 * (2 * kDecodeRows + kDecodeRows * mma_ld(D)),
                 "the merge state fits in a warp's ring");
   return kDecodeWarps * decode_warp_bytes<PT, D>();
 }
@@ -108,8 +112,9 @@ __device__ __forceinline__ void attend_decode(
     const TileOut& dst, int H, int K, int P, int kh, int tile, int t_begin, int t_end,
     float scale) {
   constexpr bool kInt8 = std::is_same_v<PT, int8_t>;
-  constexpr int LD = D + 8;                 // padded bf16 row of every smem slice
-  constexpr int KQ = D / 16;                // k-steps of Q K^T
+  constexpr int DK = mma_dk(D);             // contraction width, zero-padded
+  constexpr int LD = mma_ld(D);             // padded bf16 row of every smem slice
+  constexpr int KQ = DK / 16;               // k-steps of Q K^T
   constexpr int DT = D / 8;                 // 8-column tiles of the output
   constexpr int SLICE = kDecodeSlice * LD;  // bf16 elements of one K or V slice
   constexpr int CODES = kDecodeSlice * D;   // int8 codes of one K or V slice
@@ -144,7 +149,8 @@ __device__ __forceinline__ void attend_decode(
   bf16* pair = reinterpret_cast<bf16*>(scales + kDecodeRing * 2 * kDecodeSlice);
 
   // This thread's rows of every fragment: lane / 4 and lane / 4 + 8.
-  // Rows past the group's heads are zero, and never written.
+  // Rows past the group's heads are zero, and never written; so are the
+  // pad columns at and past D.
   uint32_t qa[KQ][4];
   {
     const int r0 = lane / 4, c = 2 * (lane & 3);
@@ -154,10 +160,11 @@ __device__ __forceinline__ void attend_decode(
 #pragma unroll
     for (int kq = 0; kq < KQ; ++kq) {
       const int k = kq * 16;
-      qa[kq][0] = live0 ? __ldg(reinterpret_cast<const unsigned*>(q0 + k)) : 0u;
-      qa[kq][1] = live1 ? __ldg(reinterpret_cast<const unsigned*>(q1 + k)) : 0u;
-      qa[kq][2] = live0 ? __ldg(reinterpret_cast<const unsigned*>(q0 + k + 8)) : 0u;
-      qa[kq][3] = live1 ? __ldg(reinterpret_cast<const unsigned*>(q1 + k + 8)) : 0u;
+      const bool lo = k < D, hi = k + 8 < D;   // compile-time once unrolled
+      qa[kq][0] = live0 && lo ? __ldg(reinterpret_cast<const unsigned*>(q0 + k)) : 0u;
+      qa[kq][1] = live1 && lo ? __ldg(reinterpret_cast<const unsigned*>(q1 + k)) : 0u;
+      qa[kq][2] = live0 && hi ? __ldg(reinterpret_cast<const unsigned*>(q0 + k + 8)) : 0u;
+      qa[kq][3] = live1 && hi ? __ldg(reinterpret_cast<const unsigned*>(q1 + k + 8)) : 0u;
     }
   }
 
@@ -185,6 +192,19 @@ __device__ __forceinline__ void attend_decode(
                                             ks + SLICE, kc, kc + CODES, ksc,
                                             ksc + kDecodeSlice, lane);
   };
+
+  if constexpr (DK != D) {
+    // The pad columns of the ring's K slices, read by Q K^T (ordered
+    // before the reads by the walk's __syncwarp).
+    static_assert(!kInt8, "int8 pages take head dims on the k-step");
+    constexpr int PV = (DK - D) / 8;
+    for (int i = lane; i < kDecodeRing * kDecodeSlice * PV; i += kWarp) {
+      const int r = i / PV;   // stage r / kDecodeSlice, row r % kDecodeSlice
+      *reinterpret_cast<uint4*>(ring_s + (r / kDecodeSlice) * 2 * SLICE +
+                                (r % kDecodeSlice) * LD + D + (i % PV) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 
   // Prologue: the first kDecodeRing - 1 slices in flight, their slots read
   // together.
@@ -300,11 +320,17 @@ __device__ __forceinline__ void attend_decode(
       mma_bf16(o[2 * dp], pl, b[0], b[1]);
       mma_bf16(o[2 * dp + 1], pl, b[2], b[3]);
     }
+    if constexpr (DT % 2) {  // the odd n8 tile (D = 24)
+      uint32_t b[2];
+      ldmatrix_x2_trans(b, vs + (lane & 15) * LD + (DT - 1) * 8);
+      mma_bf16(o[DT - 1], ph, b[0], b[1]);
+      mma_bf16(o[DT - 1], pl, b[0], b[1]);
+    }
     __syncwarp();   // slice j read before its stage is refilled
   }
 
   // The warp's state into its own bytes (its ring is drained): m and l of
-  // each row, then o [16][D + 8].
+  // each row, then o [16][mma_ld(D)].
   cp_async_wait<0>();
   __syncwarp();
   float* m_s = reinterpret_cast<float*>(own);

@@ -40,6 +40,11 @@
 //     the plain version's values (score-space scaling, as the TPU kernel
 //     does, misses 1e-2 by one bf16 ulp: paged_attention.cu says why).
 //   - Rows with nothing visible are written as exact zeros.
+//   - A head dim off the k-step of 16 (materialized MLA's 24) is padded to
+//     the next multiple (32) with zeros in shared memory: the q tile's and
+//     the K chunks' pad columns are zeroed once and no copy writes them,
+//     so Q K^T takes two k-steps; P V keeps D / 8 n8 tiles, the odd one
+//     through ldmatrix.x2.trans.
 //
 // f32 q keeps the CUDA-core bodies: the tensor cores have no f32 product
 // that holds the f32 tolerance of 1e-5 (TF32 keeps ~3 digits), so the
@@ -72,18 +77,26 @@ constexpr int kMmaChunk = 64;              // cache positions per pipeline stage
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// The contraction width of head dim D on mma.sync m16n8k16: D rounded up to
+// the k-step (24 -> 32; every other served head dim is a multiple of 16).
+__host__ __device__ constexpr int mma_dk(int D) { return (D + 15) / 16 * 16; }
+// The padded bf16 row of every shared-memory tile: the contraction width
+// plus 16 bytes, so ldmatrix has no bank conflicts.
+__host__ __device__ constexpr int mma_ld(int D) { return mma_dk(D) + 8; }
+
 // Dynamic shared memory of one block: the K/V row index of each position
 // of two chunks [2][chunk] int32; then for pages in q's dtype two stages of
-// K and V chunks [chunk][D + 8] bf16; for int8 pages one bf16 K/V pair, two
-// stages of K and V codes [chunk][D] and two stages of their f32 scales
-// [chunk]. The q tile [64][D + 8] is staged in the second stage (int8: in
+// K and V chunks [chunk][mma_ld(D)] bf16; for int8 pages one bf16 K/V pair,
+// two stages of K and V codes [chunk][D] and two stages of their f32 scales
+// [chunk]. The q tile [64][mma_ld(D)] is staged in the second stage (int8: in
 // the bf16 pair) before any chunk lands there.
 static_assert(2 * kMmaChunk >= kMmaRows, "the q tile is staged in one K/V pair");
 template <typename PT, int D>
 constexpr int mma_smem_bytes() {
   constexpr int rows = 2 * kMmaChunk * 4;
-  constexpr int pair = 2 * kMmaChunk * (D + 8) * 2;
+  constexpr int pair = 2 * kMmaChunk * mma_ld(D) * 2;
   if constexpr (std::is_same_v<PT, int8_t>) {
+    static_assert(mma_dk(D) == D, "int8 pages take head dims on the k-step");
     return rows + pair + 2 * 2 * kMmaChunk * D + 2 * 2 * kMmaChunk * 4;
   } else {
     return rows + 2 * pair;
@@ -101,7 +114,7 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
 // Gather ROWS K/V rows of the pages with THREADS threads, this one `idx`:
 // rows[j] is row j's index in the [N * P * K] rows of the pages, -1 for a
 // row past the range (zero-filled; nothing is read). 16-byte cp.async
-// copies, not committed. Pages in bf16 land in ks / vs [ROWS][D + 8];
+// copies, not committed. Pages in bf16 land in ks / vs [ROWS][mma_ld(D)];
 // int8 codes in kc / vc [ROWS][D] and their f32 scales in ksc / vsc
 // [ROWS] (the other pointers are not read).
 template <typename PT, int D, int ROWS, int THREADS>
@@ -110,7 +123,7 @@ __device__ __forceinline__ void gather_rows(
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     __nv_bfloat16* ks, __nv_bfloat16* vs, int8_t* kc, int8_t* vc, float* ksc, float* vsc,
     int idx) {
-  constexpr int LD = D + 8;
+  constexpr int LD = mma_ld(D);
   if constexpr (!std::is_same_v<PT, int8_t>) {
     constexpr int VPR = D / 8;                // 16-byte bf16 vectors per row
     constexpr int N = ROWS * VPR;
@@ -148,7 +161,7 @@ __device__ __forceinline__ void gather_rows(
 }
 
 // Dequantize ROWS gathered int8 K/V rows (codes kc / vc [ROWS][D], scales
-// ksc / vsc [ROWS]) into bf16 kb / vb [ROWS][D + 8] with THREADS threads,
+// ksc / vsc [ROWS]) into bf16 kb / vb [ROWS][mma_ld(D)] with THREADS threads,
 // this one `idx`: code * scale in f32 rounded to bf16, as the plain
 // version reads them (the code reaches f32 through a byte permute, not the
 // quarter-rate I2F). The caller orders it after the gather and before the
@@ -157,7 +170,7 @@ template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void dequantize_rows(
     const int8_t* kc, const int8_t* vc, const float* ksc, const float* vsc,
     __nv_bfloat16* kb, __nv_bfloat16* vb, int idx) {
-  constexpr int LD = D + 8;
+  constexpr int LD = mma_ld(D);
   constexpr int VPR = D / 8;
   static_assert(ROWS * VPR % THREADS == 0, "every thread converts whole steps");
 #pragma unroll
@@ -208,11 +221,11 @@ __device__ __forceinline__ void attend_mma(
     const TileOut& dst, int S, int H, int K, int P, int max_pages, int kh, int tile,
     int start, int qlen, int t_begin, int t_stop, float scale) {
   constexpr bool kInt8 = std::is_same_v<PT, int8_t>;
-  constexpr int LD = D + 8;                 // padded bf16 row of every smem tile
+  constexpr int DK = mma_dk(D);             // contraction width, zero-padded
+  constexpr int LD = mma_ld(D);             // padded bf16 row of every smem tile
   constexpr int NT = kMmaChunk / 8;         // 8-column tiles of a score fragment
-  constexpr int KQ = D / 16;                // k-steps of Q K^T
+  constexpr int KQ = DK / 16;               // k-steps of Q K^T
   constexpr int DT = D / 8;                 // 8-column tiles of the output
-  constexpr int VPR = D / 8;                // 16-byte bf16 vectors per row
   using bf16 = __nv_bfloat16;
 
   const int G = H / K;
@@ -274,16 +287,28 @@ __device__ __forceinline__ void attend_mma(
   for (int i = tid; i < 2 * kMmaChunk; i += kMmaThreads) {
     rows_s[i] = row_of(t_begin + i, slot_of(t_begin + i));
   }
-  for (int i = tid; i < kMmaRows * VPR; i += kMmaThreads) {
-    const int r = i / VPR, c = (i % VPR) * 8;
+  // The q tile, its pad columns (DK > D) as zeros; it lies in stage 1's K
+  // chunk, whose pad columns no copy writes after it. Stage 0's K pad
+  // columns are zeroed here too: Q K^T reads them.
+  constexpr int QV = DK / 8;                // 16-byte vectors of a padded row
+  for (int i = tid; i < kMmaRows * QV; i += kMmaThreads) {
+    const int r = i / QV, c = (i % QV) * 8;
     const int gr = row0 + r, s = gr / G, g = gr % G;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) {
+    if (s < S && c < D) {
       v = __ldg(reinterpret_cast<const uint4*>(q + (static_cast<size_t>(s) * H + kh * G + g) * D + c));
     }
     *reinterpret_cast<uint4*>(q_s + r * LD + c) = v;
   }
-  __syncthreads();  // rows and q tile written
+  if constexpr (DK != D) {
+    static_assert(!kInt8, "int8 pages take head dims on the k-step");
+    constexpr int PV = (DK - D) / 8;
+    for (int i = tid; i < kMmaChunk * PV; i += kMmaThreads) {
+      *reinterpret_cast<uint4*>(kv_s + (i / PV) * LD + D + (i % PV) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __syncthreads();  // rows, q tile and pad columns written
 
   // Gather the chunk whose rows are in rows_s slot `stage` into `stage`.
   auto issue = [&](int stage) {
@@ -433,6 +458,12 @@ __device__ __forceinline__ void attend_mma(
           mma_bf16(o[2 * dp + 1], ph, b[2], b[3]);
           mma_bf16(o[2 * dp], pl, b[0], b[1]);
           mma_bf16(o[2 * dp + 1], pl, b[2], b[3]);
+        }
+        if constexpr (DT % 2) {  // the odd n8 tile (D = 24)
+          uint32_t b[2];
+          ldmatrix_x2_trans(b, vs + (kc * 16 + (lane & 15)) * LD + (DT - 1) * 8);
+          mma_bf16(o[DT - 1], ph, b[0], b[1]);
+          mma_bf16(o[DT - 1], pl, b[0], b[1]);
         }
       }
     }

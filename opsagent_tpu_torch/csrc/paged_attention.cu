@@ -234,7 +234,7 @@ extern "C" int opsagent_paged_ragged_attention(
                B, H, K, P, max_pages, scale, static_cast<cudaStream_t>(stream)};
   const auto* st = static_cast<const int*>(start);
   const auto* ql = static_cast<const int*>(q_lens);
-  return dispatch(dtype, D, k_scale != nullptr, Ragged{a, st, ql, S});
+  return dispatch<true>(dtype, D, k_scale != nullptr, Ragged{a, st, ql, S});
 }
 
 extern "C" int opsagent_paged_decode_attention(
@@ -249,8 +249,8 @@ extern "C" int opsagent_paged_decode_attention(
                static_cast<const float*>(v_scale), static_cast<const int*>(table), out,
                B, H, K, P, max_pages, scale, static_cast<cudaStream_t>(stream)};
   const auto* ln = static_cast<const int*>(lengths);
-  return dispatch(dtype, D, k_scale != nullptr,
-                  Decode{a, ln, partials(workspace, B * H, splits, span)});
+  return dispatch<true>(dtype, D, k_scale != nullptr,
+                        Decode{a, ln, partials(workspace, B * H, splits, span)});
 }
 
 // The latent instances: q [B, S, H, 576] (decode [B, H, 576]) and pages

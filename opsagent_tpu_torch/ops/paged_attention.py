@@ -11,8 +11,12 @@ each with instances for pages in q's dtype and for int8 ``QuantizedPages``:
   the KV sequence, partials go to a workspace and a combine pass reduces
   them (with one split the split pass writes the output itself).
 
-The dma source also holds the latent instances of both functions, for
-multi-head latent attention: pages ``[N, P, 1, 576]`` (DeepSeek-V2/V3's
+The dma source also holds two more sets of instances of both functions,
+for multi-head latent attention (MLA). The materialized ones take head
+dims ``MLA_HEAD_DIMS`` (``tiny-mla``'s 24, DeepSeek-V2/V3's 192: per-head
+k and v, v zero-padded to the qk head dim as the model writes it) with
+pages in q's dtype, and count under ``*_mla``. The latent ones are
+for pages ``[N, P, 1, 576]`` (DeepSeek-V2/V3's
 ``kv_lora_rank`` 512 + rope 64) read as both keys and values, which is how
 the JAX model calls ``paged_ragged_attention`` and
 ``paged_decode_attention`` on that path (``csrc/attention_latent.cuh``).
@@ -37,8 +41,8 @@ both forms share it) for CPU tensors, or when the caller passes
 ``plain=True`` (the explicit way to build a reference on the card). For
 CUDA tensors it launches the kernel on the current stream or raises; there
 is no fallback. ``LAUNCHES`` counts the kernel launches of each wrapper,
-int8-page launches under their own names; a split call (split pass and,
-with more than one split, combine) counts once.
+int8-page and materialized-MLA launches under their own names; a split
+call (split pass and, with more than one split, combine) counts once.
 """
 
 from __future__ import annotations
@@ -54,6 +58,10 @@ from .attention import QuantizedPages, paged_decode_attention, paged_ragged_atte
 SOURCE = "paged_attention.cu"
 GRID_SOURCE = "paged_attention_grid.cu"
 HEAD_DIMS = (16, 32, 64, 128)
+# Materialized MLA's qk head dims (tiny-mla 16 + 8, DeepSeek-V2/V3 128 + 64):
+# the dma kernels' instances for pages in q's dtype (an int8 KV cache is
+# refused for MLA, as in the JAX engine).
+MLA_HEAD_DIMS = (24, 192)
 # The MLA latent (kv_lora_rank 512 + qk_rope_head_dim 64): the dma kernels'
 # latent instances, one kv head, k and v the same pages.
 LATENT_DIM = 576
@@ -92,6 +100,8 @@ LAUNCHES: dict[str, int] = {
     "paged_decode_attention_grid_int8": 0,
     "paged_ragged_attention_latent": 0,
     "paged_decode_attention_latent": 0,
+    "paged_ragged_attention_mla": 0,
+    "paged_decode_attention_mla": 0,
 }
 
 # Grid-kernel workspaces, one per (device, size), allocated at the first
@@ -157,9 +167,10 @@ def _check(
     latent: bool = False,
 ) -> None:
     """Raise on anything the kernels do not take. ``latent``: the caller
-    has the dma kernels' latent instances, which take head dim
-    ``LATENT_DIM`` with one kv head, pages in q's dtype and the same pages
-    as k and v."""
+    has the dma kernels' MLA instances: the latent ones, which take head
+    dim ``LATENT_DIM`` with one kv head, pages in q's dtype and the same
+    pages as k and v, and the materialized ones, which take
+    ``MLA_HEAD_DIMS`` with pages in q's dtype."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q dtype {q.dtype}: the kernels take float32 or bfloat16")
     if isinstance(k_pages, QuantizedPages) != isinstance(v_pages, QuantizedPages):
@@ -186,8 +197,12 @@ def _check(
                 f"head dim {LATENT_DIM} is the MLA latent: it takes one kv head, "
                 "pages in q's dtype and the same pages as k and v"
             )
+    elif q.shape[-1] == D and D in MLA_HEAD_DIMS and latent:
+        if ks is not None:
+            raise ValueError(f"head dim {D} is materialized MLA: it takes pages in q's "
+                             "dtype (no int8 KV cache for MLA)")
     elif q.shape[-1] != D or D not in HEAD_DIMS:
-        want = (*HEAD_DIMS, LATENT_DIM) if latent else HEAD_DIMS
+        want = (*HEAD_DIMS, *MLA_HEAD_DIMS, LATENT_DIM) if latent else HEAD_DIMS
         raise ValueError(f"head dim {q.shape[-1]} (pages {D}): expected one of {want}")
     if H % K:
         raise ValueError(f"{H} query heads are not a multiple of {K} kv heads")
@@ -207,7 +222,9 @@ def _check(
             raise ValueError(f"{name} has {t.shape[0]} rows, batch is {batch}")
 
 
-def _count(name: str, k_scale: torch.Tensor | None) -> None:
+def _count(name: str, k_scale: torch.Tensor | None, D: int) -> None:
+    if D in MLA_HEAD_DIMS:
+        name = f"{name}_mla"
     LAUNCHES[name if k_scale is None else f"{name}_int8"] += 1
 
 
@@ -251,7 +268,7 @@ def paged_ragged_attention_cuda(
         D ** -0.5, _DTYPE_CODES[q.dtype], cuda_build.stream(q.device),
     )
     cuda_build.raise_on(rc, "paged_ragged_attention")
-    _count("paged_ragged_attention", ks)
+    _count("paged_ragged_attention", ks, D)
     return out
 
 
@@ -298,7 +315,7 @@ def paged_decode_attention_cuda(
         D ** -0.5, _DTYPE_CODES[q.dtype], cuda_build.stream(q.device),
     )
     cuda_build.raise_on(rc, "paged_decode_attention")
-    _count("paged_decode_attention", ks)
+    _count("paged_decode_attention", ks, D)
     return out
 
 
@@ -456,7 +473,7 @@ def paged_ragged_attention_grid_cuda(
         D ** -0.5, _DTYPE_CODES[q.dtype], cuda_build.stream(q.device),
     )
     cuda_build.raise_on(rc, "paged_ragged_attention_grid")
-    _count("paged_ragged_attention_grid", ks)
+    _count("paged_ragged_attention_grid", ks, D)
     return out
 
 
@@ -491,7 +508,7 @@ def paged_decode_attention_grid_cuda(
         D ** -0.5, _DTYPE_CODES[q.dtype], cuda_build.stream(q.device),
     )
     cuda_build.raise_on(rc, "paged_decode_attention_grid")
-    _count("paged_decode_attention_grid", ks)
+    _count("paged_decode_attention_grid", ks, D)
     return out
 
 

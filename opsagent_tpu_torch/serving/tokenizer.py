@@ -5,17 +5,21 @@ Two implementations behind one interface:
 
 - ``ByteTokenizer``: UTF-8 bytes plus special tokens, deterministic, with
   no downloaded artifacts (tests and random-weight serving);
-- ``BPETokenizer``: a byte-level BPE read from a HuggingFace
-  ``tokenizer.json`` with ``json`` alone (Llama-3, Qwen2 and GPT-2 style
-  vocabularies), the counterpart of the JAX package's ``HFTokenizer``,
-  which wraps ``transformers``. It needs neither ``tokenizers`` nor
-  ``transformers`` nor ``regex``: the pre-tokenizer's ``\\p{L}`` and
-  ``\\p{N}`` classes are built from ``unicodedata`` into ``re`` classes.
+- ``BPETokenizer``: a BPE read from a HuggingFace ``tokenizer.json`` with
+  ``json`` alone, in the forms the supported families ship: byte-level
+  (Llama-3, Qwen2, DeepSeek, GPT-2) and SentencePiece-style with byte
+  fallback (Mistral, Llama-2). It is the counterpart of the JAX package's
+  ``HFTokenizer``, which wraps ``transformers``, and carries the
+  directory's chat template and the special-token strings a template
+  reads. It needs neither ``tokenizers`` nor ``transformers`` nor
+  ``regex``: the pre-tokenizers' ``\\p{..}`` classes are built from
+  ``unicodedata`` into ``re`` classes.
 """
 
 from __future__ import annotations
 
 import functools
+import heapq
 import json
 import os
 import re
@@ -74,7 +78,7 @@ class ByteTokenizer:
         return b""
 
 
-# -- byte-level BPE --------------------------------------------------------------
+# -- BPE from tokenizer.json ----------------------------------------------------
 # The pre-tokenizer of a bare ``ByteLevel`` with ``use_regex`` (GPT-2's).
 GPT2_PATTERN = (
     r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"
@@ -84,6 +88,9 @@ GPT2_PATTERN = (
 _WHITE_SPACE = (
     "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029\u202f\u205f\u3000"
 )
+# General categories a ``\p{..}`` may name: letters, marks, numbers,
+# punctuation, symbols.
+_CATEGORIES = ("L", "M", "N", "P", "S")
 
 
 def _escape_class_char(cp: int) -> str:
@@ -94,7 +101,8 @@ def _escape_class_char(cp: int) -> str:
 def _category_class(prefix: str) -> str:
     """The contents of an ``re`` character class (no brackets) holding
     every code point whose general category starts with ``prefix`` ("L":
-    letters, "N": numbers), as ranges."""
+    letters, "M": marks, "N": numbers, "P": punctuation, "S": symbols),
+    as ranges."""
     ranges: list[tuple[int, int]] = []
     for cp in range(sys.maxunicode + 1):
         if unicodedata.category(chr(cp)).startswith(prefix):
@@ -110,11 +118,12 @@ def _category_class(prefix: str) -> str:
 
 def translate_pattern(pattern: str) -> str:
     """A pre-tokenizer pattern of the tokenizers library as a Python ``re``
-    pattern with the same matches: ``\\p{L}`` and ``\\p{N}`` become the
-    exact classes of their categories, ``\\s`` and ``\\S`` Unicode
-    White_Space and its complement; everything else (``(?i:...)``,
-    lookaheads, counted repeats) is ``re`` syntax already. Raises
-    ValueError for a construct it cannot carry over exactly."""
+    pattern with the same matches: ``\\p{L}``, ``\\p{M}``, ``\\p{N}``,
+    ``\\p{P}`` and ``\\p{S}`` become the exact classes of their categories,
+    ``\\s`` and ``\\S`` Unicode White_Space and its complement; everything
+    else (``(?i:...)``, lookaheads, counted repeats, escaped punctuation)
+    is ``re`` syntax already. Raises ValueError for a construct it cannot
+    carry over exactly."""
     out: list[str] = []
     in_class = False
     i = 0
@@ -124,7 +133,7 @@ def translate_pattern(pattern: str) -> str:
             nxt = pattern[i + 1]
             if nxt in "pP":
                 m = re.match(r"\\([pP])\{(\w+)\}", pattern[i:])
-                if not m or m.group(1) == "P" or m.group(2) not in ("L", "N"):
+                if not m or m.group(1) == "P" or m.group(2) not in _CATEGORIES:
                     raise ValueError(f"unsupported class {pattern[i:i + 8]!r} in {pattern!r}")
                 body = _category_class(m.group(2))
                 out.append(body if in_class else f"[{body}]")
@@ -180,6 +189,19 @@ def _byte_decoder() -> dict[str, int]:
     return {c: b for b, c in _byte_encoder().items()}
 
 
+def _byte_level_bytes(s: str) -> bytes:
+    """The ByteLevel decoder's bytes of one token string: its characters
+    through the byte map, or its UTF-8 when one of them is outside the
+    map."""
+    dec = _byte_decoder()
+    if all(c in dec for c in s):
+        return bytes(dec[c] for c in s)
+    return s.encode("utf-8")
+
+
+_BYTE_TOKEN = re.compile(r"<0x([0-9A-Fa-f]{2})>")
+
+
 def _token_name(value: Any) -> str | None:
     """A special token of ``tokenizer_config.json``: a string, or an
     ``AddedToken`` object with its ``content``."""
@@ -188,34 +210,244 @@ def _token_name(value: Any) -> str | None:
     return value
 
 
+def _is_word_char(c: str) -> bool:
+    return c.isalnum() or c == "_"
+
+
+def _isolate(regex: re.Pattern, text: str) -> list[str]:
+    """``Split`` with the ``Isolated`` behavior: the matches and the gaps
+    between them, in order (empty matches cut nothing)."""
+    out: list[str] = []
+    pos = 0
+    for m in regex.finditer(text):
+        if m.start() == m.end():
+            continue
+        if m.start() > pos:
+            out.append(text[pos:m.start()])
+        out.append(m.group(0))
+        pos = m.end()
+    if pos < len(text):
+        out.append(text[pos:])
+    return out
+
+
+# A piece of text on its way to the model: (text, starts at offset 0 of the
+# input). Metaspace's prepend scheme "first" reads the flag.
+Piece = tuple[str, bool]
+
+
+def _normalizer_steps(spec: dict[str, Any] | None) -> list:
+    """The ``normalizer`` of tokenizer.json as functions over a string:
+    none, NFC, ``Prepend``, ``Replace`` of a string, or a ``Sequence`` of
+    them."""
+    if spec is None:
+        return []
+    kind = spec.get("type")
+    if kind == "Sequence":
+        return [step for sub in spec.get("normalizers") or [] for step in _normalizer_steps(sub)]
+    if kind == "NFC":
+        return [functools.partial(unicodedata.normalize, "NFC")]
+    if kind == "Prepend":
+        prefix = spec["prepend"]
+        return [lambda t: prefix + t if t else t]
+    if kind == "Replace" and "String" in (spec.get("pattern") or {}):
+        old, new = spec["pattern"]["String"], spec["content"]
+        return [lambda t: t.replace(old, new)]
+    raise ValueError(f"normalizer {kind!r} ({spec}) is not supported")
+
+
+def _metaspace(spec: dict[str, Any]):
+    """The ``Metaspace`` pre-tokenizer: spaces become the replacement, which
+    is prepended by its scheme (``always``; ``first``: to the piece at
+    offset 0 only; ``never``), and with ``split`` each replacement starts
+    a piece."""
+    rep = spec.get("replacement", "\u2581")
+    scheme = spec.get("prepend_scheme")
+    if scheme not in ("always", "first", "never"):
+        raise ValueError(f"Metaspace prepend_scheme {scheme!r} is not supported")
+    split = spec.get("split", True)
+
+    def step(pieces: list[Piece]) -> list[Piece]:
+        out: list[Piece] = []
+        for text, first in pieces:
+            text = text.replace(" ", rep)
+            if not text.startswith(rep) and (scheme == "always" or (scheme == "first" and first)):
+                text = rep + text
+            if not split:
+                out.append((text, first))
+                continue
+            cuts = [i for i, c in enumerate(text) if c == rep and i > 0]
+            for j, (a, b) in enumerate(zip([0, *cuts], [*cuts, len(text)])):
+                out.append((text[a:b], first and j == 0))
+        return out
+
+    return step
+
+
+def _pre_tokenizer_steps(spec: dict[str, Any] | None) -> tuple[list, bool]:
+    """(steps over lists of pieces, whether the pieces end byte-level) of
+    the ``pre_tokenizer``: none; ``Metaspace``; ``ByteLevel``
+    (``add_prefix_space``; ``use_regex``: GPT-2's pattern); or a
+    ``Sequence`` of ``Split`` (a regex, ``Isolated``) and ``Metaspace``
+    steps, with at most one ``ByteLevel`` and that one last."""
+    if spec is None:
+        return [], False
+    parts = spec.get("pretokenizers") or [] if spec.get("type") == "Sequence" else [spec]
+    steps, byte_level = [], False
+    for part in parts:
+        kind = part.get("type")
+        if byte_level:
+            raise ValueError(f"pre-tokenizer {kind!r} after ByteLevel is not supported")
+        if kind == "Split":
+            if (part.get("behavior") != "Isolated" or part.get("invert")
+                    or "Regex" not in (part.get("pattern") or {})):
+                raise ValueError(f"pre-tokenizer Split {part} is not supported")
+            regex = re.compile(translate_pattern(part["pattern"]["Regex"]))
+            steps.append(lambda ps, r=regex: [
+                (t, f and j == 0) for text, f in ps for j, t in enumerate(_isolate(r, text))])
+        elif kind == "Metaspace":
+            steps.append(_metaspace(part))
+        elif kind == "ByteLevel":
+            byte_level = True
+            prefix = bool(part.get("add_prefix_space"))
+            regex = re.compile(translate_pattern(GPT2_PATTERN)) if part.get(
+                "use_regex", True) else None
+
+            def step(ps, prefix=prefix, regex=regex):
+                out = []
+                for text, f in ps:
+                    if prefix and not text.startswith(" "):
+                        text = " " + text
+                    pieces = _isolate(regex, text) if regex is not None else [text]
+                    out += [(t, f and j == 0) for j, t in enumerate(pieces)]
+                return out
+
+            steps.append(step)
+        else:
+            raise ValueError(f"pre-tokenizer {kind!r} ({part}) is not supported")
+    return steps, byte_level
+
+
+def _decoder_steps(spec: dict[str, Any] | None) -> list:
+    """The ``decoder`` as functions over the list of token strings:
+    ``ByteLevel``, ``Metaspace``, or a ``Sequence`` of ``Replace`` (of a
+    string), ``ByteFallback``, ``Fuse``, ``Strip`` and those two, each as
+    the tokenizers library applies it."""
+    kind = (spec or {}).get("type")
+    if kind == "Sequence":
+        return [step for sub in spec.get("decoders") or [] for step in _decoder_steps(sub)]
+    if kind == "ByteLevel":
+        return [lambda toks: [
+            b"".join(_byte_level_bytes(t) for t in toks).decode("utf-8", errors="replace")]]
+    if kind == "Metaspace":
+        rep = spec.get("replacement", "\u2581")
+        scheme = spec.get("prepend_scheme")
+        # The first token loses every replacement character, the others
+        # turn them into spaces (the library's rule).
+        return [lambda toks: [
+            t.replace(rep, "" if i == 0 and scheme != "never" else " ")
+            for i, t in enumerate(toks)]]
+    if kind == "Replace" and "String" in (spec.get("pattern") or {}):
+        old, new = spec["pattern"]["String"], spec["content"]
+        return [lambda toks: [t.replace(old, new) for t in toks]]
+    if kind == "ByteFallback":
+        return [_byte_fallback]
+    if kind == "Fuse":
+        return [lambda toks: ["".join(toks)]]
+    if kind == "Strip":
+        content, start, stop = spec["content"], int(spec["start"]), int(spec["stop"])
+
+        def strip(toks):
+            out = []
+            for t in toks:
+                a = 0
+                while a < min(start, len(t)) and t[a] == content:
+                    a += 1
+                b = len(t)
+                while len(t) - b < stop and b > a and t[b - 1] == content:
+                    b -= 1
+                out.append(t[a:b])
+            return out
+
+        return [strip]
+    raise ValueError(f"decoder {kind!r} ({spec}) is not supported")
+
+
+def _byte_fallback(toks: list[str]) -> list[str]:
+    """Runs of ``<0xNN>`` tokens become the text of their bytes, or one
+    U+FFFD per byte when the run is not UTF-8."""
+    out: list[str] = []
+    run = bytearray()
+
+    def flush():
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("\ufffd" * len(run))
+            run.clear()
+
+    for t in toks:
+        m = _BYTE_TOKEN.fullmatch(t)
+        if m:
+            run.append(int(m.group(1), 16))
+        else:
+            flush()
+            out.append(t)
+    flush()
+    return out
+
+
 # Pieces whose BPE result is kept (the tokenizers library keeps 10,000).
 _BPE_CACHE_SIZE = 100_000
+# transformers' clean_up_tokenization, applied by decode when the config
+# sets clean_up_tokenization_spaces.
+_CLEAN_UP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+             (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"), (" 're", "'re"))
+# The special-token attributes a chat template sees, as transformers names
+# them (its ``special_tokens_map``: those set in the config).
+TEMPLATE_SPECIALS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token",
+                     "cls_token", "mask_token", "additional_special_tokens")
 
 
 class BPETokenizer:
-    """A byte-level BPE tokenizer from the HuggingFace ``tokenizer.json`` in
-    the directory ``path``, with ``bos``, ``eos`` and
-    ``pad`` from a ``tokenizer_config.json`` beside it, as the JAX
-    package's ``HFTokenizer`` takes them (missing: bos and eos 0, pad the
-    eos). Reads:
+    """A BPE tokenizer from the HuggingFace ``tokenizer.json`` in the
+    directory ``path``, with ``bos``, ``eos``, ``pad`` and the chat
+    template from a ``tokenizer_config.json`` beside it (and a
+    ``chat_template.jinja``, or ``additional_chat_templates/*.jinja``, which
+    take priority), as the JAX package's ``HFTokenizer`` takes them through
+    ``transformers`` (missing: bos and eos 0, pad the eos). Reads:
 
     - ``model``: a BPE ``vocab`` and ``merges`` (``"a b"`` or ``[a, b]``),
       applied by merge rank, lowest first, leftmost among equal ranks;
       ``ignore_merges`` (a piece that is one token is taken whole);
-    - ``added_tokens``: split out of the text before anything else (the
-      longest at each position); ``decode`` skips the special ones and
-      ``token_bytes`` gives b"" for them;
-    - ``normalizer``: none, or NFC;
-    - ``pre_tokenizer``: a bare ``ByteLevel`` (GPT-2's pattern with
-      ``use_regex``), or ``Sequence[Split(Regex), ByteLevel(use_regex=
-      false)]``, the Llama-3 and Qwen2 form;
-    - ``decoder``: ``ByteLevel``.
+      ``byte_fallback`` (a character with no token becomes its UTF-8
+      bytes' ``<0xNN>`` tokens), ``unk_token`` and ``fuse_unk``;
+    - ``added_tokens``: split out of the text first (the longest at each
+      position), the ``normalized`` ones out of the normalized text; with
+      ``lstrip`` / ``rstrip`` a token takes the whitespace beside it, with
+      ``single_word`` it matches only between non-word characters;
+      ``decode`` skips the special ones;
+    - ``normalizer``: none, NFC, ``Prepend``, ``Replace`` of a string, or a
+      ``Sequence`` of them (Mistral's and Llama-2's ``Prepend("▁")`` and
+      ``Replace(" ", "▁")``);
+    - ``pre_tokenizer``: none; ``Metaspace``; a bare ``ByteLevel`` (GPT-2's
+      pattern with ``use_regex``, ``add_prefix_space``); or a ``Sequence``
+      of ``Split(Regex, Isolated)`` steps before ``ByteLevel(use_regex=
+      false)`` (Llama-3 and Qwen2 one, DeepSeek three);
+    - ``decoder``: ``ByteLevel``, ``Metaspace``, or a ``Sequence`` of
+      ``Replace``, ``ByteFallback``, ``Fuse`` and ``Strip``.
 
-    Anything else raises ValueError naming it: a tokenizer this reader
-    would split differently is refused, never approximated."""
+    Anything else raises ValueError naming it (a Unigram or WordPiece
+    model, another normalizer, pre-tokenizer or decoder; a directory with
+    only ``tokenizer.model``): a tokenizer this reader would split
+    differently is refused, never approximated."""
 
     def __init__(self, path: str):
         file = os.path.join(path, "tokenizer.json")
+        if not os.path.exists(file):
+            raise ValueError(f"{path}: no tokenizer.json (a SentencePiece "
+                             "tokenizer.model alone is not supported)")
         with open(file, encoding="utf-8") as f:
             spec = json.load(f)
         config_file = os.path.join(path, "tokenizer_config.json")
@@ -226,42 +458,38 @@ class BPETokenizer:
         model = spec.get("model") or {}
         if model.get("type") != "BPE":
             raise ValueError(f"{file}: model type {model.get('type')!r}, expected BPE")
-        for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix",
-                    "byte_fallback"):
+        for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
             if model.get(key):
                 raise ValueError(f"{file}: BPE {key}={model[key]!r} is not supported")
         self._vocab: dict[str, int] = dict(model["vocab"])
         self._ignore_merges = bool(model.get("ignore_merges"))
+        self._byte_fallback = bool(model.get("byte_fallback"))
+        self._unk = model.get("unk_token")
+        self._fuse_unk = bool(model.get("fuse_unk"))
+        # (a, b) -> rank; a pair listed twice keeps its last rank, as the
+        # library's merge map does.
         self._ranks: dict[tuple[str, str], int] = {}
         for rank, merge in enumerate(model.get("merges") or []):
             a, b = merge.split(" ", 1) if isinstance(merge, str) else merge
-            self._ranks.setdefault((a, b), rank)
+            self._ranks[(a, b)] = rank
         self._id_str = {i: s for s, i in self._vocab.items()}
-        added: dict[str, int] = {}
-        self._special: set[int] = set()
+        self._normalize = _normalizer_steps(spec.get("normalizer"))
+        self._pre, self._byte_level = _pre_tokenizer_steps(spec.get("pre_tokenizer"))
+        self._decoder = _decoder_steps(spec.get("decoder"))
+
+        self._added: dict[str, dict[str, Any]] = {}
+        self._skipped: set[int] = set()   # decode skips these: the special tokens
         for tok in spec.get("added_tokens") or []:
-            for key in ("single_word", "lstrip", "rstrip"):
-                if tok.get(key):
-                    raise ValueError(
-                        f"{file}: added token {tok['content']!r} with {key} is not supported"
-                    )
-            added[tok["content"]] = tok["id"]
+            self._added[tok["content"]] = tok
             self._id_str[tok["id"]] = tok["content"]
             if tok.get("special"):
-                self._special.add(tok["id"])
-        # Longest first: at each position the longest added token wins.
-        self._added = added
-        self._added_re = re.compile(
-            "|".join(re.escape(s) for s in sorted(added, key=len, reverse=True))
-        ) if added else None
-        normalizer = spec.get("normalizer")
-        if normalizer is not None and normalizer.get("type") != "NFC":
-            raise ValueError(f"{file}: normalizer {normalizer.get('type')!r} is not supported")
-        self._nfc = normalizer is not None
-        self._split = re.compile(translate_pattern(self._split_pattern(spec.get("pre_tokenizer"))))
-        decoder = spec.get("decoder") or {}
-        if decoder.get("type") != "ByteLevel":
-            raise ValueError(f"{file}: decoder {decoder.get('type')!r}, expected ByteLevel")
+                self._skipped.add(tok["id"])
+        raw = [t for t in self._added.values() if not t.get("normalized")]
+        self._raw_re = self._added_regex({t["content"]: t for t in raw})
+        # A normalized token is matched by its normalized content.
+        self._norm_re = self._added_regex({
+            self._normalized(t["content"]): t for t in self._added.values()
+            if t.get("normalized")})
         self.vocab_size = max(self._id_str) + 1
 
         def config_id(key: str) -> int | None:
@@ -272,134 +500,238 @@ class BPETokenizer:
         self.eos_id = config_id("eos_token") or 0
         pad = config_id("pad_token")
         self.pad_id = pad if pad is not None else self.eos_id
-        # The config's named specials count as special too (they are what
-        # the JAX package's tokenizer skips).
-        named = [config.get(k) for k in ("bos_token", "eos_token", "pad_token", "unk_token")]
-        named += config.get("additional_special_tokens") or []
-        for value in named:
-            tid = self._token_id(_token_name(value)) if value is not None else None
-            if tid is not None:
-                self._special.add(tid)
+        # The config's named specials: transformers' all_special_ids, to
+        # which token_bytes gives b"" (and which decode skips too).
+        self.template_specials: dict[str, Any] = {}
+        for key in TEMPLATE_SPECIALS:
+            value = config.get(key)
+            value = ([_token_name(v) for v in value] if isinstance(value, list)
+                     else _token_name(value))
+            if value:
+                self.template_specials[key] = value
+        named = [v for k, v in self.template_specials.items() if k != "additional_special_tokens"]
+        named += self.template_specials.get("additional_special_tokens", [])
+        self._special = {tid for tid in map(self._token_id, named) if tid is not None}
+        self._skipped |= self._special
+        self._clean_up = bool(config.get("clean_up_tokenization_spaces"))
+        self.chat_template = _chat_template(path, config)
         self._cache: dict[str, list[int]] = {}
+
+    @staticmethod
+    def _added_regex(tokens: dict[str, dict[str, Any]]):
+        """(regex of the contents, longest first, content -> token), or
+        None: the leftmost match, and the longest there, wins."""
+        if not tokens:
+            return None
+        alt = "|".join(re.escape(s) for s in sorted(tokens, key=len, reverse=True) if s)
+        return (re.compile(alt), tokens) if alt else None
 
     def _token_id(self, name: str | None) -> int | None:
         if name is None:
             return None
-        return self._added.get(name, self._vocab.get(name))
+        tok = self._added.get(name)
+        return tok["id"] if tok is not None else self._vocab.get(name)
 
-    @staticmethod
-    def _split_pattern(pre: dict[str, Any] | None) -> str:
-        """The regex that cuts text into pieces, from the pre-tokenizer."""
-
-        def byte_level(p: dict[str, Any], regex: bool) -> None:
-            if p.get("add_prefix_space"):
-                raise ValueError("ByteLevel add_prefix_space is not supported")
-            if bool(p.get("use_regex", True)) != regex:
-                raise ValueError(f"ByteLevel use_regex={p.get('use_regex', True)} here "
-                                 "is not supported")
-
-        kind = (pre or {}).get("type")
-        if kind == "ByteLevel":
-            byte_level(pre, True)
-            return GPT2_PATTERN
-        if kind == "Sequence":
-            parts = pre.get("pretokenizers") or []
-            if (len(parts) == 2 and parts[0].get("type") == "Split"
-                    and parts[1].get("type") == "ByteLevel"):
-                split = parts[0]
-                if (split.get("behavior") != "Isolated" or split.get("invert")
-                        or "Regex" not in (split.get("pattern") or {})):
-                    raise ValueError(f"pre-tokenizer Split {split} is not supported")
-                byte_level(parts[1], False)
-                return split["pattern"]["Regex"]
-        raise ValueError(f"pre-tokenizer {pre!r} is not supported")
+    def _normalized(self, text: str) -> str:
+        for step in self._normalize:
+            text = step(text)
+        return text
 
     # -- encode -------------------------------------------------------------------
-    def encode(self, text: str) -> list[int]:
-        ids: list[int] = []
-        pos = 0
-        matches = self._added_re.finditer(text) if self._added_re is not None else ()
-        for m in matches:
-            self._encode_plain(text[pos:m.start()], ids)
-            ids.append(self._added[m.group(0)])
-            pos = m.end()
-        self._encode_plain(text[pos:], ids)
-        return ids
+    @staticmethod
+    def _split_added(text: str, matcher) -> list[tuple[str, int | None, int]]:
+        """The text cut at its added tokens, as the library's added
+        vocabulary cuts it: (text, None, offset) for the pieces between
+        tokens, (matched text, id, offset) for each token, which takes the
+        whitespace beside it with ``lstrip`` / ``rstrip`` and matches only
+        between non-word characters with ``single_word``."""
+        if matcher is None or not text:
+            return [(text, None, 0)]
+        regex, tokens = matcher
+        out: list[tuple[str, int | None, int]] = []
+        done = 0
+        for m in regex.finditer(text):
+            a, b = m.span()
+            tok = tokens[m.group(0)]
+            if tok.get("single_word") and (
+                    (a > 0 and _is_word_char(text[a - 1]))
+                    or (b < len(text) and _is_word_char(text[b]))):
+                continue
+            if tok.get("lstrip"):
+                a = max(len(text[:a].rstrip(_WS)), done)
+            if tok.get("rstrip"):
+                b = len(text) - len(text[b:].lstrip(_WS))
+            if a > done:
+                out.append((text[done:a], None, done))
+            out.append((text[a:b], tok["id"], a))
+            done = b
+        if done < len(text):
+            out.append((text[done:], None, done))
+        return out
 
-    def _encode_plain(self, text: str, ids: list[int]) -> None:
-        """Text with no added token in it: normalize, cut into pieces (the
-        pattern's matches and the gaps between them), BPE each piece."""
-        if not text:
-            return
-        if self._nfc:
-            text = unicodedata.normalize("NFC", text)
-        pos = 0
-        for m in self._split.finditer(text):
-            if m.start() > pos:
-                ids.extend(self._bpe(text[pos:m.start()]))
-            ids.extend(self._bpe(m.group(0)))
-            pos = m.end()
-        if pos < len(text):
-            ids.extend(self._bpe(text[pos:]))
+    def encode(self, text: str) -> list[int]:
+        """Token ids of ``text``, no special tokens added: added tokens cut
+        out, each piece between them normalized, then cut at the
+        normalized added tokens, pre-tokenized and BPE'd."""
+        ids: list[int] = []
+        for piece, tid, at in self._split_added(text, self._raw_re):
+            if tid is not None:
+                ids.append(tid)
+                continue
+            norm = self._normalized(piece)
+            for sub, tid2, at2 in self._split_added(norm, self._norm_re):
+                if tid2 is not None:
+                    ids.append(tid2)
+                    continue
+                pieces: list[Piece] = [(sub, at == 0 and at2 == 0)] if sub else []
+                for step in self._pre:
+                    pieces = step(pieces)
+                for p, _ in pieces:
+                    if p:
+                        ids.extend(self._bpe(p))
+        return ids
 
     def _bpe(self, piece: str) -> list[int]:
         cached = self._cache.get(piece)
         if cached is not None:
             return cached
-        enc = _byte_encoder()
-        word = "".join(enc[b] for b in piece.encode("utf-8"))
+        if self._byte_level:
+            enc = _byte_encoder()
+            word = "".join(enc[b] for b in piece.encode("utf-8"))
+        else:
+            word = piece
         if self._ignore_merges and word in self._vocab:
             out = [self._vocab[word]]
         else:
-            # Characters outside the vocab are dropped (no unk token).
-            syms = [c for c in word if c in self._vocab]
-            while len(syms) > 1:
-                best, at = None, -1
-                for i in range(len(syms) - 1):
-                    rank = self._ranks.get((syms[i], syms[i + 1]))
-                    if rank is not None and (best is None or rank < best):
-                        best, at = rank, i
-                if best is None:
-                    break
-                syms[at:at + 2] = [syms[at] + syms[at + 1]]
-            out = [self._vocab[s] for s in syms]
+            out = [self._vocab[s] for s in self._merge(self._symbols(word))]
         if len(self._cache) >= _BPE_CACHE_SIZE:
             self._cache.clear()
         self._cache[piece] = out
         return out
 
-    # -- decode -------------------------------------------------------------------
-    @staticmethod
-    def _string_bytes(s: str) -> bytes:
-        """The ByteLevel decoder's bytes of one token string: its
-        characters through the byte map, or its UTF-8 when one of them is
-        outside the map."""
-        dec = _byte_decoder()
-        if all(c in dec for c in s):
-            return bytes(dec[c] for c in s)
-        return s.encode("utf-8")
+    def _symbols(self, word: str) -> list[str]:
+        """The word's characters as tokens: a character in the vocab as
+        itself; otherwise, with byte fallback, its UTF-8 bytes' ``<0xNN>``
+        tokens when all exist; otherwise the unk token (one for a run of
+        them with ``fuse_unk``), or nothing when there is none."""
+        syms: list[str] = []
+        unk_pending = False
+        for c in word:
+            if c in self._vocab:
+                if unk_pending:
+                    syms.append(self._unk)
+                    unk_pending = False
+                syms.append(c)
+                continue
+            if self._byte_fallback:
+                codes = [f"<0x{b:02X}>" for b in c.encode("utf-8")]
+                if all(code in self._vocab for code in codes):
+                    syms.extend(codes)
+                    continue
+            if self._unk is not None:
+                if unk_pending and not self._fuse_unk:
+                    syms.append(self._unk)
+                unk_pending = True
+        if unk_pending:
+            syms.append(self._unk)
+        return syms
 
+    def _merge(self, syms: list[str]) -> list[str]:
+        """BPE merges over a linked list of symbols, lowest rank first and
+        leftmost among equal ranks, through a heap of candidate pairs whose
+        stale entries are skipped (the library's ``merge_all``)."""
+        n = len(syms)
+        if n < 2:
+            return syms
+        ranks = self._ranks
+        nxt = list(range(1, n + 1))
+        nxt[-1] = -1
+        prev = list(range(-1, n - 1))
+        alive = [True] * n
+        heap = [(r, i) for i in range(n - 1)
+                if (r := ranks.get((syms[i], syms[i + 1]))) is not None]
+        heapq.heapify(heap)
+        while heap:
+            rank, i = heapq.heappop(heap)
+            j = nxt[i]
+            if not alive[i] or j < 0 or ranks.get((syms[i], syms[j])) != rank:
+                continue
+            syms[i] += syms[j]
+            alive[j] = False
+            nxt[i] = nxt[j]
+            if nxt[j] >= 0:
+                prev[nxt[j]] = i
+            p, k = prev[i], nxt[i]
+            if p >= 0 and (r := ranks.get((syms[p], syms[i]))) is not None:
+                heapq.heappush(heap, (r, p))
+            if k >= 0 and (r := ranks.get((syms[i], syms[k]))) is not None:
+                heapq.heappush(heap, (r, i))
+        return [s for s, live in zip(syms, alive) if live]
+
+    # -- decode -------------------------------------------------------------------
     def decode(self, ids: list[int]) -> str:
-        """Text of ``ids``, special tokens skipped."""
-        out = bytearray()
-        for i in ids:
-            s = self._id_str.get(i)
-            if s is not None and i not in self._special:
-                out += self._string_bytes(s)
-        return out.decode("utf-8", errors="replace")
+        """Text of ``ids``, special tokens skipped: the token strings
+        through the decoder."""
+        toks = [self._id_str[i] for i in ids if i in self._id_str and i not in self._skipped]
+        for step in self._decoder:
+            toks = step(toks)
+        text = "".join(toks)
+        if self._clean_up:
+            for old, new in _CLEAN_UP:
+                text = text.replace(old, new)
+        return text
 
     def token_str(self, token_id: int) -> str:
-        """The vocabulary's string of the token (byte-level characters)."""
+        """The vocabulary's string of the token."""
         return self._id_str.get(token_id, "")
 
     def token_bytes(self, token_id: int) -> bytes:
-        """Raw bytes of one token, undoing byte-level BPE's printable-char
-        remapping; b"" for a special token and an id outside the vocab
-        (constrained decoding forbids those)."""
+        """The bytes one token adds to the output, by the JAX package's
+        rule (``HFTokenizer.token_bytes``): b"" for a special token (one
+        the config names) or an id outside the vocab; a token whose every
+        character is in the GPT-2 byte map through that map; otherwise
+        its text with ``▁`` as a space, in UTF-8. On a SentencePiece vocab
+        the map takes ``é`` to the byte 0xE9, and ``<0x0A>`` (six ASCII
+        characters, all in the map) to those six characters: JAX's rule
+        tests the map before the ``<0xNN>`` form, which it never reaches."""
         s = self._id_str.get(token_id)
         if s is None or token_id in self._special:
             return b""
-        return self._string_bytes(s)
+        dec = _byte_decoder()
+        if all(c in dec for c in s):
+            return bytes(dec[c] for c in s)
+        return s.replace("\u2581", " ").encode("utf-8")
+
+
+# Unicode White_Space as characters: what lstrip / rstrip of an added token
+# take (the library's char::is_whitespace).
+_WS = ("\t\n\x0b\x0c\r \x85\xa0\u1680" + "".join(map(chr, range(0x2000, 0x200B)))
+       + "\u2028\u2029\u202f\u205f\u3000")
+
+
+def _chat_template(path: str, config: dict[str, Any]) -> str | dict[str, str] | None:
+    """The directory's chat template where transformers finds it: a
+    ``chat_template.jinja`` ("default") and ``additional_chat_templates/
+    *.jinja`` (by name) take priority over ``tokenizer_config.json``'s
+    ``chat_template``, a string or a list of named templates. A dict of
+    several is resolved when rendered."""
+    templates: dict[str, str] = {}
+    main = os.path.join(path, "chat_template.jinja")
+    if os.path.exists(main):
+        with open(main, encoding="utf-8") as f:
+            templates["default"] = f.read()
+    extra = os.path.join(path, "additional_chat_templates")
+    if os.path.isdir(extra):
+        for name in sorted(os.listdir(extra)):
+            if name.endswith(".jinja"):
+                with open(os.path.join(extra, name), encoding="utf-8") as f:
+                    templates[name[:-len(".jinja")]] = f.read()
+    if templates:
+        return templates["default"] if list(templates) == ["default"] else templates
+    value = config.get("chat_template")
+    if isinstance(value, list):
+        return {t["name"]: t["template"] for t in value}
+    return value or None
 
 
 def load_tokenizer(path: str = "", vocab_size: int = 512) -> Tokenizer:

@@ -197,11 +197,16 @@ def test_translate_pattern_builds_exact_classes():
 
     letters = re.compile(translate_pattern(r"\p{L}+"))
     numbers = re.compile(translate_pattern(r"^\p{N}$"))
-    for cp in list(range(0x3000)) + [0x4E2D, 0x1F600, 0x2160, 0x0663, 0xFF10]:
+    # DeepSeek's classes: punctuation, symbols, marks, alone and in a class.
+    others = {k: re.compile(translate_pattern(rf"[x\p{{{k}}}]")) for k in "PSM"}
+    for cp in list(range(0x3000)) + [0x4E2D, 0x1F600, 0x2160, 0x0663, 0xFF10, 0xFF5C,
+                                     0x1F3FD, 0x20E3, 0xFE0F]:
         c = chr(cp)
         cat = unicodedata.category(c)
         assert bool(letters.fullmatch(c)) == cat.startswith("L"), hex(cp)
         assert bool(numbers.match(c)) == cat.startswith("N"), hex(cp)
+        for k, regex in others.items():
+            assert bool(regex.fullmatch(c)) == (cat.startswith(k) or c == "x"), (k, hex(cp))
     space = re.compile(translate_pattern(r"\s"))
     assert not space.match("\x1c") and space.match("　") and not space.match("​")
     for bad in (r"\p{Lu}", r"\P{L}", r"\w+", r"[\S]"):
@@ -209,16 +214,38 @@ def test_translate_pattern_builds_exact_classes():
             translate_pattern(bad)
 
 
-@pytest.mark.parametrize("change", [
-    {"pre_tokenizer": {"type": "Whitespace"}},
-    {"normalizer": {"type": "Lowercase"}},
-    {"decoder": {"type": "WordPiece"}},
-    {"model_extra": {"byte_fallback": True}},
-    {"added": {"lstrip": True}},
-    {"pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": True, "use_regex": True}},
-])
-def test_unsupported_tokenizer_json_is_refused(tmp_path, change):
-    with open(os.path.join(FIXTURE, "tokenizer.json"), encoding="utf-8") as f:
+SP_FIXTURE = os.path.join(os.path.dirname(FIXTURE), "tiny-sp")
+METASPACE = {"type": "Metaspace", "replacement": "\u2581", "prepend_scheme": "first",
+             "split": False}
+# (fixture, change): forms the reader takes, held to the tokenizers library.
+VARIANTS = {
+    "byte_fallback": (FIXTURE, {"model_extra": {"byte_fallback": True}}),
+    "lstrip": (FIXTURE, {"added": {"lstrip": True}}),
+    "rstrip": (FIXTURE, {"added": {"rstrip": True}}),
+    "single_word": (FIXTURE, {"added": {"single_word": True}}),
+    "normalized_added": (FIXTURE, {"added": {"normalized": True, "special": False}}),
+    "add_prefix_space": (FIXTURE, {"pre_tokenizer": {
+        "type": "ByteLevel", "add_prefix_space": True, "use_regex": True, "trim_offsets": True}}),
+    "nfc_prefix_space_split": (FIXTURE, {"normalizer": {"type": "NFC"}, "pre_tokenizer": {
+        "type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": True, "use_regex": False,
+             "trim_offsets": False}]}}),
+    **{f"metaspace_{scheme}_{'split' if split else 'whole'}": (SP_FIXTURE, {
+        "normalizer": None,
+        "pre_tokenizer": {**METASPACE, "prepend_scheme": scheme, "split": split},
+        "decoder": {**METASPACE, "prepend_scheme": scheme, "split": split}})
+       for scheme in ("first", "always", "never") for split in (False, True)},
+    "sp_unk_fused": (SP_FIXTURE, {"model_extra": {"byte_fallback": False}}),
+    "sp_unk_unfused": (SP_FIXTURE, {"model_extra": {"byte_fallback": False,
+                                                    "fuse_unk": False}}),
+}
+
+
+def _variant(tmp_path, fixture: str, change: dict) -> str:
+    """A copy of ``fixture`` with ``change`` made to its tokenizer.json."""
+    with open(os.path.join(fixture, "tokenizer.json"), encoding="utf-8") as f:
         spec = json.load(f)
     for key, value in change.items():
         if key == "model_extra":
@@ -229,7 +256,51 @@ def test_unsupported_tokenizer_json_is_refused(tmp_path, change):
             spec[key] = value
     with open(tmp_path / "tokenizer.json", "w", encoding="utf-8") as f:
         json.dump(spec, f)
-    with pytest.raises(ValueError):
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_tokenizer_json_variants_equal_tokenizers(tmp_path, variant):
+    """Byte fallback, added tokens with lstrip / rstrip / single_word /
+    normalized, ByteLevel's add_prefix_space, Metaspace at each prepend
+    scheme with and without split, unk with and without fuse_unk: encode,
+    decode and the token strings equal the tokenizers library's."""
+    path = _variant(tmp_path, *VARIANTS[variant])
+    hf, ours = Tokenizer.from_file(os.path.join(path, "tokenizer.json")), BPETokenizer(path)
+    # The last added token (the one the added-token variants change) beside
+    # spaces, word characters and itself.
+    edges = ["a <|endoftext|>  b<|endoftext|>x _<|endoftext|> y\t<|endoftext|>",
+             "<|endoftext|><|endoftext|>  <|endoftext|>", "\u2581 \u2581x"]
+    for text in CORPUS + edges:
+        want = hf.encode(text, add_special_tokens=False).ids
+        assert ours.encode(text) == want, text
+        assert ours.decode(want) == hf.decode(want, skip_special_tokens=True), text
+    assert [ours.token_str(i) for i in range(ours.vocab_size)] == [
+        hf.id_to_token(i) for i in range(ours.vocab_size)]
+
+
+@pytest.mark.parametrize("change,name", [
+    ({"pre_tokenizer": {"type": "Whitespace"}}, "Whitespace"),
+    ({"normalizer": {"type": "Lowercase"}}, "Lowercase"),
+    ({"decoder": {"type": "WordPiece"}}, "WordPiece"),
+    ({"model": {"type": "Unigram", "unk_id": 0, "vocab": [["<unk>", 0.0], ["a", -1.0]]}},
+     "Unigram"),
+    ({"model": {"type": "WordPiece", "unk_token": "[UNK]", "vocab": {"[UNK]": 0}}},
+     "WordPiece"),
+    ({"pre_tokenizer": {"type": "Digits", "individual_digits": True}}, "Digits"),
+    ({"normalizer": {"type": "Replace", "pattern": {"Regex": " +"}, "content": " "}},
+     "Replace"),
+])
+def test_unsupported_tokenizer_json_is_refused(tmp_path, change, name):
+    """A component outside the reader's forms raises ValueError naming it."""
+    path = _variant(tmp_path, FIXTURE, change)
+    with pytest.raises(ValueError, match=name):
+        BPETokenizer(path)
+
+
+def test_a_sentencepiece_model_alone_is_refused(tmp_path):
+    (tmp_path / "tokenizer.model").write_bytes(b"\n\x00")
+    with pytest.raises(ValueError, match="tokenizer.model"):
         BPETokenizer(str(tmp_path))
 
 

@@ -722,7 +722,8 @@ def test_latent_decode_kernel_split_edges(gen, H, dtype):
 
 def test_latent_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     """576 is taken only as the latent: one kv head, pages in q's dtype,
-    the same pages as k and v, and only by the dma kernels."""
+    the same pages as k and v, and only by the dma kernels; 192 (the
+    materialized MLA head dim) only with pages in q's dtype."""
     q, pages, table, start, ql = _latent_pages(gen, 2, 4, 16, 16, [0, 3], [4, 1],
                                                torch.bfloat16)
     with pytest.raises(ValueError, match="same pages"):
@@ -736,10 +737,10 @@ def test_latent_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         pa.paged_decode_attention_cuda(q[:, 0].contiguous(), qp, qp, table, start + ql)
     with pytest.raises(ValueError, match="head dim"):
         pa.paged_ragged_attention_grid_cuda(q, pages, pages, table, start, ql)
-    with pytest.raises(ValueError, match="head dim"):
-        pa.paged_decode_attention_cuda(q[:, 0, :, :192].contiguous(),
-                                       pages[..., :192].contiguous(),
-                                       pages[..., :192].contiguous(), table, start + ql)
+    qp192 = QuantizedPages(qp.q[..., :192].contiguous(), qp.scale)
+    with pytest.raises(ValueError, match="materialized MLA"):
+        pa.paged_decode_attention_cuda(q[:, 0, :, :192].contiguous(), qp192, qp192, table,
+                                       start + ql)
 
 
 # The bf16 latent kernels' plan (ops/paged_attention.py latent_plan): 64-row
@@ -990,3 +991,83 @@ def test_graph_replay_after_a_restore_equals_eager(gen, kv_quantize):
     assert gt == et
     assert all(torch.equal(x, y) for x, y in zip(gc, ec))
     assert g_eager == 0 and g_replays > 0
+
+
+# -- the materialized-MLA instances (head dims 24 and 192, pages in q's dtype) --
+# (H, K, D, P): tiny-mla's 4 heads of 24, DeepSeek-V2-Lite's 16 heads of 192,
+# each head its own kv head.
+MLA_WIDTHS = [(4, 4, 24, 4), (16, 16, 192, 16)]
+
+
+@pytest.mark.parametrize("S", sorted(RAGGED_ROWS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,D,P", MLA_WIDTHS)
+def test_mla_ragged_kernel_matches_plain(gen, dtype, H, K, D, P, S):
+    """Chunks from position 0 and from a cached prefix that starts
+    mid-page, a decode row and a q_len 0 row, through the materialized
+    instances; counted under ``paged_ragged_attention_mla``."""
+    q, k, v, table, start, q_lens = _ragged_case(gen, S, H, K, D, P, dtype)
+    before = dict(pa.LAUNCHES)
+    got = pa.paged_ragged_attention_cuda(q, k, v, table, start, q_lens)
+    want = pa.paged_ragged_attention_cuda(q, k, v, table, start, q_lens, plain=True)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_ragged_attention_mla"] == before["paged_ragged_attention_mla"] + 1
+    assert pa.LAUNCHES["paged_ragged_attention"] == before["paged_ragged_attention"]
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    _assert_zero_rows(got, q_lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,D,P", MLA_WIDTHS)
+def test_mla_decode_kernel_split_edges(gen, dtype, H, K, D, P):
+    """Lengths 0, 1, a page, a split (DECODE_WALK) and one either side, a
+    length past several splits, a -1 slot read as page 0; v zero past
+    two thirds of the columns, as the model pads it; two calls
+    bit-identical."""
+    walk = pa.DECODE_WALK
+    lengths = [0, 1, P, walk - 1, walk, walk + 1, 3 * walk + 5]
+    q, k, v, table, _, _ = _case(gen, len(lengths), 1, H, K, D, P,
+                                 [max(n - 1, 0) for n in lengths],
+                                 [1 if n else 0 for n in lengths], dtype)
+    q = q[:, 0].contiguous()
+    v[..., 2 * D // 3:] = 0
+    table[-1, 1] = -1
+    L = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = pa.LAUNCHES["paged_decode_attention_mla"]
+    got = pa.paged_decode_attention_cuda(q, k, v, table, L)
+    again = pa.paged_decode_attention_cuda(q, k, v, table, L)
+    want = pa.paged_decode_attention_cuda(q, k, v, table, L, plain=True)
+    assert pa.LAUNCHES["paged_decode_attention_mla"] == before + 2
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(got, again) and not got[0].any()
+    assert not got[..., 2 * D // 3:].any()
+
+
+def test_mla_instances_take_no_grid_form(gen):
+    """The materialized head dims are the dma kernels' only: the engine
+    serves MLA on dma, as the JAX engine serves it on one backend."""
+    q, k, v, table, start, q_lens = _ragged_case(gen, 24, 4, 4, 24, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_ragged_attention_grid_cuda(q, k, v, table, start, q_lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_materialized_mla_engine_kernel_path_matches_plain_path(gen, dtype):
+    """tiny-mla with its materialized cache (head dim 24): greedy tokens
+    through the MLA instances equal the plain path's."""
+    from opsagent_tpu_torch.models.config import get_config_preset
+    from opsagent_tpu_torch.models.llama import Llama
+
+    cfg = get_config_preset("tiny-mla")
+    assert not cfg.mla.latent_cache
+    model = Llama(cfg, dtype, "cuda", seed=0)
+    prompts = [[257] + list(range(10, 50)), [257, 5, 6, 7]]
+    outs = []
+    for impl in ("cuda", "plain"):
+        pa.reset_launch_counts()
+        eng = Engine(EngineConfig(model=cfg.name, dtype=dtype, page_size=16, num_pages=64,
+                                  decode_block=4, attn_impl=impl), model_cfg=cfg, model=model)
+        outs.append(eng.generate(prompts, SamplingParams(max_tokens=12)))
+        mla = pa.LAUNCHES["paged_ragged_attention_mla"] + pa.LAUNCHES["paged_decode_attention_mla"]
+        assert (mla > 0) == (impl == "cuda")
+    assert outs[0] == outs[1]

@@ -212,6 +212,88 @@ def test_latent_decode_plain_matches_jax_and_pallas_dma(H):
     np.testing.assert_array_equal(wrapped, got)
 
 
+def _materialized_case(seed, D, H=4, B=3, S=5):
+    """Materialized MLA pages [L, N, P, H, D] (a kv head per query head), v
+    zero past two thirds of the columns as the model pads it: row 0 a chunk
+    from mid-page, row 1 inactive, row 2 three rows; the decode lengths."""
+    rng = np.random.default_rng(seed)
+    L, N = 2, PAGES
+    start = np.array([2, 0, 9], np.int32)[:B]
+    q_lens = np.array([S, 0, 3], np.int32)[:B]
+    table = np.full((B, MAXP), -1, np.int32)
+    free = list(rng.permutation(N))
+    for b in range(B):
+        for i in range(-(-(start[b] + q_lens[b]) // PAGE)):
+            table[b, i] = free.pop()
+    v = rng.standard_normal((L, N, PAGE, H, D)).astype(np.float32)
+    v[..., 2 * D // 3:] = 0
+    return dict(
+        q=rng.standard_normal((B, S, H, D)).astype(np.float32),
+        k=rng.standard_normal((L, N, PAGE, H, D)).astype(np.float32), v=v,
+        table=table, start=start, q_lens=q_lens, lengths=(start + q_lens).astype(np.int32),
+    )
+
+
+@pytest.mark.parametrize("D", [24, 192])
+def test_materialized_head_dims_plain_matches_jax_and_pallas_dma(D):
+    """The function of the dma kernels' materialized-MLA instances (tiny-mla's
+    24, V2/V3's 192): the plain version equals JAX's paged_ragged_attention
+    / paged_decode_attention and its Pallas dma kernels in interpret mode,
+    and the wrappers take it for CPU tensors."""
+    c = _materialized_case(3, D)
+    valid = np.arange(c["q"].shape[1])[None, :] < c["q_lens"][:, None]
+    args = (c["table"], c["start"], c["q_lens"])
+    got = tattn.paged_ragged_attention(
+        _t(c["q"]), _t(c["k"]), _t(c["v"]), *map(_t, args), layer=1).numpy()
+    want = np.asarray(jax_ragged(c["q"], c["k"], c["v"], *args, layer=jnp.int32(1)))
+    np.testing.assert_allclose(got[valid], want[valid], rtol=TOL, atol=TOL)
+    kernel = np.asarray(paged_ragged_attention_pallas_dma(
+        c["q"], c["k"], c["v"], *args, interpret=True, layer=jnp.int32(1)))
+    np.testing.assert_allclose(got[valid], kernel[valid], rtol=TOL, atol=TOL)
+    assert np.all(got[~valid] == 0) and np.all(got[..., 2 * D // 3:] == 0)
+    wrapped = paged_ragged_attention_cuda(
+        _t(c["q"]), _t(c["k"]), _t(c["v"]), *map(_t, args), layer=1).numpy()
+    np.testing.assert_array_equal(wrapped, got)
+
+    q, live = c["q"][:, 0], c["lengths"] > 0
+    dargs = (c["table"], c["lengths"])
+    got = tattn.paged_decode_attention(
+        _t(q), _t(c["k"]), _t(c["v"]), *map(_t, dargs), layer=0).numpy()
+    want = np.asarray(jax_decode(q, c["k"], c["v"], *dargs, layer=jnp.int32(0)))
+    np.testing.assert_allclose(got[live], want[live], rtol=TOL, atol=TOL)
+    kernel = np.asarray(paged_decode_attention_pallas_dma(
+        q, c["k"], c["v"], *dargs, interpret=True, layer=jnp.int32(0)))
+    np.testing.assert_allclose(got[live], kernel[live], rtol=TOL, atol=TOL)
+    wrapped = paged_decode_attention_cuda(
+        _t(q), _t(c["k"]), _t(c["v"]), *map(_t, dargs), layer=0).numpy()
+    np.testing.assert_array_equal(wrapped, got)
+
+
+@pytest.mark.parametrize("D", [24, 192])
+def test_materialized_head_dims_pass_the_dma_check_only(D):
+    """The dma wrappers' check takes 24 and 192 with pages in q's dtype and
+    counts their launches under ``*_mla``; int8 pages at those dims, and
+    the grid wrappers' check, raise."""
+    from opsagent_tpu_torch.ops import paged_attention as pa
+
+    q = torch.zeros(2, 3, 4, D)
+    pages = torch.zeros(8, 4, 4, D)
+    ints = {"page_table": torch.zeros(2, 2, dtype=torch.int32),
+            "start": torch.zeros(2, dtype=torch.int32)}
+    pa._check(q, pages, pages, ints, 2, latent=True)
+    with pytest.raises(ValueError, match="head dim"):
+        pa._check(q, pages, pages, ints, 2)
+    qp = tattn.QuantizedPages(torch.zeros(8, 4, 4, D, dtype=torch.int8), torch.ones(8, 4, 4))
+    with pytest.raises(ValueError, match="materialized MLA"):
+        pa._check(q, qp, qp, ints, 2, latent=True)
+    before = dict(pa.LAUNCHES)
+    pa._count("paged_ragged_attention", None, D)
+    pa._count("paged_decode_attention", None, D)
+    assert pa.LAUNCHES["paged_ragged_attention_mla"] == before["paged_ragged_attention_mla"] + 1
+    assert pa.LAUNCHES["paged_decode_attention_mla"] == before["paged_decode_attention_mla"] + 1
+    assert pa.LAUNCHES["paged_ragged_attention"] == before["paged_ragged_attention"]
+
+
 def test_causal_prefill_takes_the_materialized_head_dims():
     """forward_full's oracle attention at MLA's materialized head dims
     (tiny-mla's 24, V2/V3's 192), against JAX's."""
