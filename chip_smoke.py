@@ -383,7 +383,7 @@ import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from dataclasses import replace
 from datetime import timedelta
 
@@ -461,9 +461,11 @@ KERNELS = {  # name: (source in csrc/, the TPU kernel it replaces)
     "paged_ragged_attention_latent": ("paged_attention.cu", "opsagent_tpu/ops/attention.py:456"),
     "paged_decode_attention_latent": ("paged_attention.cu", "opsagent_tpu/ops/attention.py:608"),
     # Their materialized-MLA instances (head dims 24 and 192, a kv head per
-    # query head): the same two dma kernels at those head dims.
+    # query head): the same two dma kernels at those head dims; the ragged
+    # one in bf16 at 192 is the warpgroup kernel of attention_mla.cuh.
     "paged_ragged_attention_mla": ("paged_attention.cu", f"{PAGED}:830"),
     "paged_decode_attention_mla": ("paged_attention.cu", f"{PAGED}:310"),
+    "paged_ragged_attention_mla_wg": ("paged_attention.cu", f"{PAGED}:830"),
 }
 LATENT_KERNELS = ("paged_ragged_attention_latent", "paged_decode_attention_latent")
 # (model, paged backend, quantize, kv_quantize) of each serve run. The
@@ -624,18 +626,21 @@ def phase_build() -> dict:
     """One nvcc per source, all started together; ptxas's reports go to
     stderr, and the registers and spills of the tensor-core instances (the
     bf16 ragged and decode kernels of both forms, the quantized matmul's
-    m128 and m16 instances) and of the six latent kernels (ragged and
+    m128 and m16 instances), of the six latent kernels (ragged and
     decode: f32 on CUDA cores, bf16 on warpgroups with their merge
-    kernels; the bf16 ones must not spill) into the phase line."""
+    kernels; the bf16 ones must not spill) and of the materialized-MLA
+    warpgroup kernel and its merge (the kernel must not spill) into the
+    phase line."""
     sources = sorted({src for src, _ in KERNELS.values()})
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(lambda s: cuda_build.build(s, verbose=True), sources))
-    tensor_core, decode, m128, m16, latent = [], [], [], [], []
+    tensor_core, decode, m128, m16, latent, mla = [], [], [], [], [], []
     for _, log in built:
         print(log, file=sys.stderr)
         report = ptxas_report(log)
         latent += [r for r in report if "latent" in r["kernel"]]
-        report = [r for r in report if "latent" not in r["kernel"]]
+        mla += [r for r in report if "mla_" in r["kernel"]]
+        report = [r for r in report if "latent" not in r["kernel"] and "mla_" not in r["kernel"]]
         tensor_core += [r for r in report
                         if "ragged" in r["kernel"] and "bfloat16" in r["kernel"]
                         and "decode" not in r["kernel"]]
@@ -644,9 +649,9 @@ def phase_build() -> dict:
         m128 += [r for r in report if "qmm_m128_kernel" in r["kernel"]]
         m16 += [r for r in report if "qmm_m16_kernel" in r["kernel"]]
     # Each form's four head dims over bf16 and int8 pages, and the dma
-    # form's materialized-MLA head dims 24 and 192.
-    check(len(tensor_core) >= 18,
-          f"ptxas reported {len(tensor_core)} bf16 ragged instances, expected 18")
+    # form's materialized-MLA head dim 24 (192 is the warpgroup kernel's).
+    check(len(tensor_core) == 17,
+          f"ptxas reported {len(tensor_core)} bf16 ragged instances, expected 17")
     check(len(decode) == 18,
           f"ptxas reported {len(decode)} bf16 decode instances, expected 18")
     check(len(m128) == 4, f"ptxas reported {len(m128)} m128 matmul instances, expected 4")
@@ -654,13 +659,15 @@ def phase_build() -> dict:
     # f32 ragged and decode (CUDA cores); bf16 ragged and decode
     # (warpgroups) and their merge kernels.
     check(len(latent) == 6, f"ptxas reported {len(latent)} latent kernels, expected 6")
-    for r in latent:
+    check(len(mla) == 2, f"ptxas reported {len(mla)} materialized-MLA warpgroup kernels, "
+                         "expected 2")
+    for r in latent + mla:
         if "_wg_kernel" in r["kernel"]:
             check(r.get("spill_stores", 0) == 0 and r.get("spill_loads", 0) == 0,
                   f"{r['kernel']} spills: {r}")
     return {"libraries": [lib.name for lib, _ in built], "ptxas_tensor_core": tensor_core,
             "ptxas_decode": decode, "ptxas_quant_matmul_m128": m128,
-            "ptxas_quant_matmul_m16": m16, "ptxas_latent": latent}
+            "ptxas_quant_matmul_m16": m16, "ptxas_latent": latent, "ptxas_mla": mla}
 
 
 # -- phase 3: attention kernels against their plain versions -------------------
@@ -949,7 +956,10 @@ def phase_kernels(seed: int) -> dict:
     # The materialized-MLA instances (dma form): tiny-mla's 4 heads of 24
     # and V2-Lite's 16 of 192, a kv head per query head, v zero past the
     # v head dim (16 and 128) as the model writes it; the ragged rows and
-    # the latent decode lengths above. V2-Lite's bf16 shapes are timed.
+    # the latent decode lengths above. bf16 ragged at 192 is the warpgroup
+    # kernel. Timed in bf16 at S = 128: the warpgroup kernel and decode at
+    # V2-Lite's width (decode's row), the D = 24 ragged instance at
+    # tiny-mla's (its row) and decode there (its row's ``d24``).
     def materialized(name, c, dtype, wname, v_dim, int_arrays, timed, **where):
         c["v"][..., v_dim:] = 0
         if timed:
@@ -959,23 +969,99 @@ def phase_kernels(seed: int) -> dict:
         r = run_kernel_case(name, c, dtype, timed)
         cases.append(dict(kernel=name, width=wname, **where, dtype=str(dtype)[6:],
                           err=r["max_abs_err"], tol=TOL[dtype]))
-        if timed:
-            results[name] = r
+        return r
 
     for dtype in (torch.bfloat16, torch.float32):
         for wname, H, D, v_dim in (("tiny-mla", 4, 24, 16), ("deepseek-v2-lite", 16, 192, 128)):
-            main = dtype == torch.bfloat16 and wname == "deepseek-v2-lite"
+            bf16 = dtype == torch.bfloat16
+            ragged = ("paged_ragged_attention_mla_wg" if bf16 and D == pa.MLA_WG_DIM
+                      else "paged_ragged_attention_mla")
             for S, (starts, lens) in ragged_rows.items():
                 c = make_case(gen, 8, S, H, H, D, 16, starts, lens, dtype)
-                materialized("paged_ragged_attention_mla", c, dtype, wname, v_dim, 2,
-                             main and S == 128, S=S)
+                r = materialized(ragged, c, dtype, wname, v_dim, 2, bf16 and S == 128, S=S)
+                if bf16 and S == 128:
+                    results[ragged] = r
+                    if ragged.endswith("_wg"):
+                        r["repeats"] = mla_wg_repeats(c)
                 del c
             c = decode_case(gen, 8, H, H, D, 16, latent_decode, dtype)
-            materialized("paged_decode_attention_mla", c, dtype, wname, v_dim, 1, main)
+            r = materialized("paged_decode_attention_mla", c, dtype, wname, v_dim, 1, bf16)
+            if bf16 and D == pa.MLA_WG_DIM:
+                results["paged_decode_attention_mla"] = {**r, **results.get(
+                    "paged_decode_attention_mla", {})}
+            elif bf16:
+                results.setdefault("paged_decode_attention_mla", {})["d24"] = r
             del c
             torch.cuda.empty_cache()
+    # The warpgroup kernel's plan edges: tiles cut between blocks (a row
+    # longer than a block's run), one block, one an SM, rows that see
+    # nothing and a call whose every row has q_len 0.
+    for label, (S, starts, lens) in MLA_WG_ROWS.items():
+        for blocks in ("default", 1, "sms"):
+            c = make_case(gen, len(starts), S, 16, 16, pa.MLA_WG_DIM, 16, starts, lens,
+                          torch.bfloat16)
+            c["v"][..., 128:] = 0
+            name = "paged_ragged_attention_mla_wg"
+            with mla_blocks_set(blocks):
+                r = run_kernel_case(name, c, torch.bfloat16, False)
+                got = wrapper(name)(*kernel_args(name, c))
+            torch.cuda.synchronize()
+            zero = all(not got[b, n:].any() for b, n in enumerate(lens))
+            check(zero, f"mla_wg {label} blocks={blocks}: rows past q_len not zero")
+            cases.append(dict(kernel=name, width="deepseek-v2-lite",
+                              rows=label, blocks=blocks, dtype="bfloat16",
+                              err=r["max_abs_err"], tol=TOL[torch.bfloat16]))
+            del c
+    torch.cuda.empty_cache()
     emit({"phase": "kernels_cases", "cases": cases})
     return results
+
+
+# (S, starts, q_lens) of the materialized-MLA warpgroup kernel's plan edges
+# (V2-Lite, 16 heads of 192): a row longer than a block's run beside a
+# decode row, every row at q_len 0, a row that sees nothing beside a tile
+# whose rows past q_len see nothing.
+MLA_WG_ROWS = {
+    "long_row": (128, [8064, 100], [128, 1]),
+    "all_empty": (16, [0, 40], [0, 0]),
+    "empty_beside": (77, [0, 1000, 3], [0, 77, 13]),
+}
+
+
+@contextmanager
+def mla_blocks_set(blocks):
+    """The warpgroup kernel's grid: ``"default"`` (two blocks an SM), an
+    int, or ``"sms"`` (one an SM)."""
+    saved = pa.mla_blocks
+    if blocks == "sms":
+        pa.mla_blocks = lambda sms: sms
+    elif blocks != "default":
+        pa.mla_blocks = lambda sms: blocks
+    try:
+        yield
+    finally:
+        pa.mla_blocks = saved
+
+
+def mla_wg_repeats(c) -> dict:
+    """The warpgroup kernel at the timed rows: two calls bit-identical, and
+    a CUDA graph of the call replaying to the eager output."""
+    name = "paged_ragged_attention_mla_wg"
+    fn, args = wrapper(name), kernel_args(name, c)
+    eager = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    out_eq = torch.equal(out, eager)
+    del graph
+    check(torch.equal(again, eager), "mla_wg: two calls differ")
+    check(out_eq, "mla_wg: graph replay differs from the eager call")
+    return {"bit_identical": True, "replay_equal": True}
 
 
 # -- phase 3: the quantized matmul against its plain version -------------------
@@ -1101,11 +1187,18 @@ def phase_matmul(seed: int) -> tuple[list[dict], dict]:
 
 
 # -- phase 4: end-to-end equality through kernels and plain versions -----------
-def phase_e2e(seed: int) -> dict:
+def e2e_prompts(seed: int) -> tuple[list[int], list[int], list[int]]:
+    """Two prompts of 300 and 200 tokens, and a third that shares the
+    first's first 100."""
     gen = torch.Generator().manual_seed(seed)
     p0 = [257] + torch.randint(0, 256, (299,), generator=gen).tolist()
     p1 = [257] + torch.randint(0, 256, (199,), generator=gen).tolist()
     p2 = p0[:100] + torch.randint(0, 256, (60,), generator=gen).tolist()
+    return p0, p1, p2
+
+
+def phase_e2e(seed: int) -> dict:
+    p0, p1, p2 = e2e_prompts(seed)
     greedy = SamplingParams(max_tokens=16)
     report = {}
     for base, backend, quantize, kv_quantize in E2E:
@@ -1140,17 +1233,17 @@ def phase_e2e(seed: int) -> dict:
 def mla_materialized(seed: int, p0: list[int], p1: list[int]) -> dict:
     """MLA with its materialized cache (``latent_cache`` off: per-head k and
     v, v zero-padded to the qk head dim) on the card through the dma
-    kernels' MLA instances: tiny-mla (4 heads of 24) in f32 and bf16, and
-    DeepSeek-V2-Lite at full width (16 heads of 192) cut to one dense and
-    one MoE layer in f32 and bf16. Greedy tokens through the kernels equal
-    the plain path's, checked except for V2-Lite in bf16: there a bf16
-    near-tie (an ulp of an attention output moving a top-6 expert choice
-    or the argmax) may part them, so they are reported, and the cut's bf16
-    kernel path is held by its logits in ``e2e_bf16``. The kernel runs
-    launch the MLA instances and no latent one; their launches are
-    returned for the kernels line. The latent pages as k beside other
-    pages as v still raise."""
-    greedy = SamplingParams(max_tokens=16)
+    kernels' MLA instances (bf16 ragged at 192: the warpgroup kernel):
+    tiny-mla (4 heads of 24) in f32 and bf16, and DeepSeek-V2-Lite at full
+    width (16 heads of 192) cut to one dense and one MoE layer in f32 and
+    bf16. Greedy tokens through the kernels equal the plain path's. For
+    V2-Lite in bf16 a near-tie (an ulp of an attention output moving a
+    top-6 expert choice or the argmax) may part them, so there they must be
+    equal up to the first near-tie step (``near_ties``): the first step
+    where the plain path's top-2 logit margin is at most the kernel path's
+    logit difference. The kernel runs launch the MLA instances and no
+    latent one; their launches are returned for the kernels line. The
+    latent pages as k beside other pages as v still raise."""
     launches = {name: 0 for name in KERNELS}
     out = {}
     tiny = get_config_preset("tiny-mla")
@@ -1158,39 +1251,25 @@ def mla_materialized(seed: int, p0: list[int], p1: list[int]) -> dict:
     for cfg, dtype in ((tiny, torch.float32), (tiny, torch.bfloat16),
                        (v2l, torch.float32), (v2l, torch.bfloat16)):
         label = f"{cfg.name} {str(dtype)[6:]}"
-        checked = cfg is tiny or dtype == torch.float32
+        exact = cfg is tiny or dtype == torch.float32
+        wg = cfg.mla.qk_head_dim == pa.MLA_WG_DIM and dtype == torch.bfloat16
+        ragged = "paged_ragged_attention_mla_wg" if wg else "paged_ragged_attention_mla"
         check(not cfg.mla.latent_cache, f"{label}: expected a materialized cache")
-        vocab = cfg.vocab_size
-        prompts = [[t % vocab for t in p0], [t % vocab for t in p1]]
-        model = Llama(cfg, dtype, "cuda", seed=seed)
-        toks = {}
-        for impl in ("cuda", "plain"):
-            eng = Engine(EngineConfig(model=cfg.name, dtype=dtype, device="cuda",
-                                      attn_impl=impl, seed=seed, num_pages=256),
-                         model_cfg=cfg, model=model)
-            reset_launch_counts()
-            toks[impl] = eng.generate(prompts, greedy)
-            torch.cuda.synchronize()
-            counts = launch_counts()
-            del eng
-            if impl == "cuda":
-                for name, n in counts.items():
-                    launches[name] += n
-                check(counts["paged_ragged_attention_mla"] > 0
-                      and counts["paged_decode_attention_mla"] > 0
-                      and not any(counts[n] for n in LATENT_KERNELS),
-                      f"{label}: launches {counts}")
+        prompts = [[t % cfg.vocab_size for t in p] for p in (p0, p1)]
+        model, toks, counts = mla_streams(cfg, dtype, seed, prompts)
+        for name, n in counts.items():
+            launches[name] += n
+        launched = {n for n, k in counts.items() if k}
+        check(launched == {ragged, "paged_decode_attention_mla"}, f"{label}: launches {counts}")
         got, want = toks["cuda"], toks["plain"]
         check(all(len(t) == 16 for t in got), f"{label}: kernel path lengths "
                                                f"{[len(t) for t in got]}")
-        check(got == want or not checked,
-              f"{label}: kernel-path tokens {got} != plain-path tokens {want}")
-        out[label] = {
-            "tokens_checked": checked, "tokens_equal": got == want,
-            # Per stream, the tokens before the two paths part.
-            "tokens_agreeing": [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
-                                     len(g)) for g, w in zip(got, want)],
-            "heads": cfg.num_heads, "head_dim": cfg.mla.qk_head_dim, "tokens": got}
+        out[label] = {"tokens_equal": got == want, "tokens_agreeing": tokens_agreeing(got, want),
+                      "heads": cfg.num_heads, "head_dim": cfg.mla.qk_head_dim, "tokens": got}
+        if exact:
+            check(got == want, f"{label}: kernel-path tokens {got} != plain-path tokens {want}")
+        else:
+            out[label]["near_ties"] = near_tie_rule(label, model, prompts, got, want)
         del model
         torch.cuda.empty_cache()
     ints = dict(dtype=torch.int32, device="cuda")
@@ -1203,6 +1282,88 @@ def mla_materialized(seed: int, p0: list[int], p1: list[int]) -> dict:
         out["k_is_not_v"] = str(e)
     check("k_is_not_v" in out, "latent pages beside other pages as v did not raise")
     out["launches"] = launches
+    return out
+
+
+def mla_streams(cfg, dtype, seed: int, prompts: list[list[int]]) -> tuple[Llama, dict, dict]:
+    """The model, the greedy tokens (16) of ``prompts`` through the kernels
+    (``"cuda"``) and the plain path, and the kernel run's launches."""
+    model = Llama(cfg, dtype, "cuda", seed=seed)
+    toks, counts = {}, {}
+    for impl in ("cuda", "plain"):
+        eng = Engine(EngineConfig(model=cfg.name, dtype=dtype, device="cuda",
+                                  attn_impl=impl, seed=seed, num_pages=256),
+                     model_cfg=cfg, model=model)
+        reset_launch_counts()
+        toks[impl] = eng.generate(prompts, SamplingParams(max_tokens=16))
+        torch.cuda.synchronize()
+        if impl == "cuda":
+            counts = launch_counts()
+        del eng
+    return model, toks, counts
+
+
+def tokens_agreeing(got: list[list[int]], want: list[list[int]]) -> list[int]:
+    """Per stream, the tokens before the two paths part."""
+    return [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), len(g))
+            for g, w in zip(got, want)]
+
+
+def near_tie_rule(label: str, model: Llama, prompts, got, want) -> list[dict]:
+    """The kernel path's streams ``got`` must equal the plain path's
+    ``want`` up to each stream's first near-tie step (``near_ties``); a
+    stream that parts before it is a fault. Returns the steps' margins and
+    differences, with the parting step and its margin and difference."""
+    ties = near_ties(model, prompts, want)
+    for i, (n, t) in enumerate(zip(tokens_agreeing(got, want), ties)):
+        t["parted_at"] = n
+        if n < len(want[i]):
+            t["margin_at_parting"], t["diff_at_parting"] = t["margin"][n], t["diff"][n]
+        check(n >= t["first_tie"],
+              f"{label}: stream {i} parted at step {n}, before its first near-tie step "
+              f"{t['first_tie']}: {t}")
+    return ties
+
+
+def near_ties(model: Llama, prompts: list[list[int]], want: list[list[int]]) -> list[dict]:
+    """Each stream's greedy steps teacher-forced along the plain path's
+    tokens ``want``, on the kernel path and on the plain path, each over
+    a cache of its own (the prompts in one mixed step, then decode steps):
+    at every step the plain path's top-2 logit margin and the largest
+    kernel-vs-plain logit difference, and ``first_tie``, the first step
+    where the margin is at most the difference (the stream's length when
+    none is). ``plain_argmax`` says whether this plain path's argmax
+    reproduces ``want`` there (its prompt is not chunked as the engine's)."""
+    B, P, steps = len(prompts), 16, len(want[0])
+    lens = [len(p) for p in prompts]
+    pages = -(-(max(lens) + steps) // P)
+    table = torch.arange(B * pages, dtype=torch.int32, device="cuda").reshape(B, pages)
+    ints = dict(dtype=torch.int32, device="cuda")
+    tokens = torch.zeros(B, max(lens), dtype=torch.long, device="cuda")
+    for b, p in enumerate(prompts):
+        tokens[b, :len(p)] = torch.tensor(p, device="cuda")
+    feed = torch.tensor(want, device="cuda")
+    logits = {}
+    with torch.inference_mode():
+        for plain in (False, True):
+            cache = model.make_cache(B * pages, P, "")
+            steps_out = [model.mixed_step(tokens, torch.zeros(B, **ints),
+                                          torch.tensor(lens, **ints), cache, table, plain=plain)]
+            for j in range(1, steps):
+                steps_out.append(model.decode_step(
+                    feed[:, j - 1], torch.tensor(lens, **ints) + j - 1, cache, table,
+                    torch.ones(B, dtype=torch.bool, device="cuda"), plain=plain))
+            logits[plain] = torch.stack(steps_out, 1).float()   # [B, steps, V]
+            del cache
+    top = logits[True].topk(2, dim=-1).values
+    margin = (top[..., 0] - top[..., 1]).tolist()
+    diff = (logits[False] - logits[True]).abs().amax(-1).tolist()
+    argmax = (logits[True].argmax(-1) == feed).tolist()
+    out = []
+    for b in range(B):
+        first = next((j for j in range(steps) if margin[b][j] <= diff[b][j]), steps)
+        out.append({"first_tie": first, "margin": margin[b], "diff": diff[b],
+                    "plain_argmax": argmax[b]})
     return out
 
 
@@ -1238,7 +1399,8 @@ def phase_e2e_bf16(seed: int) -> dict:
                 with torch.inference_mode():
                     return m.mixed_step(tokens, start, q_lens, cache, table,
                                         plain=plain, backend=backend)[valid]
-            mla = "" if cfg.mla is None else "_latent" if cfg.mla.latent_cache else "_mla"
+            mla = ("" if cfg.mla is None else "_latent" if cfg.mla.latent_cache
+                   else "_mla_wg" if cfg.mla.qk_head_dim == pa.MLA_WG_DIM else "_mla")
             name = ("paged_ragged_attention" + ("_grid" if backend == "grid" else "")
                     + ("_int8" if kv_quantize else "") + mla)
             before = pa.LAUNCHES[name]

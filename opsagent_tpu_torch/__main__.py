@@ -330,9 +330,13 @@ def _snapshot(args: argparse.Namespace) -> int:
     spawned = _spawned(args)
     if spawned is not None:
         return spawned
-    from .parallel.mesh import init_distributed
+    from .parallel.mesh import rank_job
 
-    init_distributed(backend=args.dist_backend)
+    return rank_job(args.dist_backend, _create_snapshot, args)
+
+
+def _create_snapshot(args: argparse.Namespace) -> int:
+    """This rank's part of ``snapshot create``."""
     tokenizer = args.tokenizer
     if not tokenizer and args.checkpoint and os.path.exists(
             os.path.join(args.checkpoint, "tokenizer.json")):
@@ -367,9 +371,14 @@ def _serve(args: argparse.Namespace) -> int:
     spawned = _spawned(args)
     if spawned is not None:
         return spawned
-    from .parallel.mesh import init_distributed
+    from .parallel.mesh import rank_job
 
-    init_distributed(backend=args.dist_backend)
+    return rank_job(args.dist_backend, _serve_rank, args)
+
+
+def _serve_rank(args: argparse.Namespace) -> int:
+    """This rank's part of ``serve-engine``: the leader serves, a follower
+    runs its steps."""
     if args.profile_dir:
         os.environ["OPSAGENT_PROFILE_DIR"] = args.profile_dir
     tokenizer = args.tokenizer

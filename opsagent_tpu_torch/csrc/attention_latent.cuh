@@ -28,20 +28,13 @@
 //     latent row serves 64 query rows. Decode at
 //     H = 16 fills 16 of the 64 rows; the other 48 cost tensor-core time
 //     that a memory-bound call has to spare.
-//   - Plan. The work of the call is laid out on one axis, tile after tile,
-//     each tile costing its visible positions plus kLatCost (its q load and
-//     output; kLatEmptyCost for a tile that only writes zeros); block k of
-//     a fixed grid (one block an SM, from the host's shapes) takes the run
-//     [k * per, (k + 1) * per), per = max(cdiv(total, blocks), kLatMinRun).
-//     Every block finds its run from start / q_lens (lengths) on the
-//     device, so the grid and workspace depend on shapes alone and the call
-//     replays in a CUDA graph. A tile that a block holds whole is written
-//     normalised; a tile cut between blocks leaves a partial (max, sum, 576
-//     accumulators of each row) in slot 2k (the block's first tile) or
-//     2k + 1 (its last), and the block where the tile starts leaves a task
-//     for the merge kernel, which reduces each cut tile once (grid: blocks
-//     x 9 column blocks). So long walks are split, and partials are written
-//     only where a run is cut: at most 2 * blocks tiles of 64 * 578 floats.
+//   - Plan (attention_plan.cuh): the call's tiles on one axis, each
+//     costing its visible positions plus a fixed cost, cut into equal runs
+//     of a fixed grid (one block an SM, from the host's shapes); every
+//     block finds its run on the device. A tile cut between blocks leaves
+//     partials (max, sum, 576 accumulators of each row), and the merge
+//     kernel reduces each cut tile once (grid: blocks x 9 column blocks):
+//     at most 2 * blocks tiles of 64 * 578 floats.
 //   - Block. 384 threads: two consumer warpgroups and one producer
 //     warpgroup (setmaxnreg moves registers to the consumers: 224 a thread
 //     there, 56 in the producer). The producer walks the same units, loads
@@ -81,7 +74,7 @@
 //     8 wgmma) that the two warpgroups run in step, about 2 us at the timed
 //     ragged shape against 0.2 us of pipeline overhead, and the gather is
 //     not fully hidden behind it; every tile the plan gives a block costs
-//     its q load and output store (kLatCost); the merge is a second launch.
+//     its q load and output store (kPlanCost); the merge is a second launch.
 //
 // f32 (on no served path): PR 15's CUDA-core body, one block per (tile of
 // 16 rows, sequence) or (tile, split, sequence) with the decode's splits
@@ -89,8 +82,8 @@
 
 #pragma once
 
+#include "attention_plan.cuh"
 #include "attention_split.cuh"
-#include "wgmma_ptx.cuh"
 
 namespace attn {
 
@@ -331,21 +324,14 @@ __global__ void __launch_bounds__(kThreads) latent_decode_kernel(
 }
 
 // -- bf16: warpgroups -----------------------------------------------------------
-// ops/paged_attention.py mirrors the plan's constants (LATENT_*) and the
-// plan itself (latent_plan), and sizes the workspace.
+// ops/paged_attention.py sizes the workspace (latent_workspace_bytes).
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kLatTile = 64;          // query rows of a tile: wgmma's m64
+constexpr int kLatTile = kPlanTile;   // query rows of a tile: wgmma's m64
 constexpr int kLatStage = 32;         // cache positions of a ring stage
 constexpr int kLatRing = 3;           // stages in the ring
-constexpr int kLatCost = 128;         // a tile's fixed cost in the plan, in positions
-constexpr int kLatEmptyCost = 32;     // ... a tile that sees nothing: zeros, no q load
-constexpr int kLatMinRun = 128;       // least positions of a block's run
 constexpr int kLatThreads = 384;      // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int kLatProducerRegs = 56;  // setmaxnreg: 128 * 56 + 256 * 224 = 384 * 168
 constexpr int kLatConsumerRegs = 224;
-constexpr int kLatMergeThreads = 256; // a merge block: (row, 4 columns) items of a cut tile
 constexpr int kLatSplitCols = 320;    // warpgroup 0's columns; warpgroup 1 the rest
 constexpr int kLatSwap = 1;           // named barrier: both warpgroups' score halves written
 constexpr int kLatChunks = kLatentDim / 8;                   // 16-byte chunks of a row
@@ -356,21 +342,11 @@ constexpr int kLatSmemBytes = 1024 + kLatQBytes + kLatRing * kLatStageBytes + kL
                               (2 * kLatRing + 2) * 8 + 16 * 8;
 static_assert(kLatSmemBytes <= 232448, "one block an SM");
 static_assert(kLatStage == 32 && kLatSplitCols % 64 == 0, "wgmma tiles: m64n32k16 scores");
-static_assert(kLatCost >= 1 && kLatEmptyCost >= 1,
-              "a tile ends before its run's end when the run ends the call");
 
-// A tile's cost on the plan's axis.
-__device__ __forceinline__ long long latent_cost(int len) {
-  return len + (len > 0 ? kLatCost : kLatEmptyCost);
-}
-
-// Byte offset of 16-byte chunk c of row r in a swizzled tile of `rows` rows.
-__device__ __forceinline__ int lat_swz(int rows, int r, int c) {
-  return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// A call's shapes. Ragged: `start` and `q_lens`; decode: `start` holds
-// lengths and q_lens is null (S = 1).
+// A call's shapes, the plan's job (attention_plan.cuh). Ragged: `start`
+// and `q_lens`; decode: `start` holds lengths and q_lens is null (S = 1).
+// Tile `item` is tile item % tiles of sequence item / tiles, rows r = s * H
+// + h.
 struct LatentJob {
   const int* start;
   const int* q_lens;
@@ -378,150 +354,39 @@ struct LatentJob {
   int tiles;   // tiles of a sequence: cdiv(S * H, 64)
   int items;   // B * tiles
   int cap;     // MaxP * P
-};
 
-// The positions the rows of tile `item` (sequence * tiles + tile) see: up
-// to its last real, valid row's window.
-__device__ __forceinline__ int latent_len(const LatentJob& j, int item) {
-  const int b = item / j.tiles, first = (item % j.tiles) * kLatTile;
-  if (j.q_lens == nullptr) return min(max(__ldg(j.start + b), 0), j.cap);
-  const int rows = min(kLatTile, j.S * j.H - first);
-  const int s_last = min((first + rows - 1) / j.H, __ldg(j.q_lens + b) - 1);
-  return s_last >= first / j.H ? min(__ldg(j.start + b) + s_last + 1, j.cap) : 0;
-}
-
-// A block's run on the plan's axis, [begin, end); `item` is the first tile
-// that reaches into it (-1: the block has no run) and `pre` its offset.
-struct LatentRun {
-  long long per, begin, end, pre;
-  int item;
-};
-
-// All threads of the block: the total cost, then the tile holding the
-// run's first position (two block scans over the tiles). `red` holds
-// kLatThreads / 32 + 2 values in shared memory.
-__device__ LatentRun latent_run(const LatentJob& j, int block, int blocks, long long* red) {
-  constexpr int NT = kLatThreads, W = NT / kWarp;
-  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
-  long long sum = 0;
-  for (int i = tid; i < j.items; i += NT) sum += latent_cost(latent_len(j, i));
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
-  if (lane == 0) red[warp] = sum;
-  __syncthreads();
-  long long total = 0;
-#pragma unroll
-  for (int w = 0; w < W; ++w) total += red[w];
-  LatentRun run;
-  run.per = max((total + blocks - 1) / blocks, static_cast<long long>(kLatMinRun));
-  run.begin = block * run.per;
-  run.end = min(run.begin + run.per, total);
-  run.item = -1;
-  run.pre = 0;
-  if (run.begin >= total) return run;
-  long long carry = 0;
-  for (int base = 0; base < j.items; base += NT) {
-    __syncthreads();  // red read by every thread
-    const int i = base + tid;
-    const long long c = i < j.items ? latent_cost(latent_len(j, i)) : 0;
-    long long x = c;   // inclusive scan in the warp
-#pragma unroll
-    for (int o = 1; o < kWarp; o <<= 1) {
-      const long long y = __shfl_up_sync(kFull, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == kWarp - 1) red[warp] = x;
-    if (tid == 0) red[W] = -1;
-    __syncthreads();
-    long long before = carry + x - c, chunk = 0;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      if (w < warp) before += red[w];
-      chunk += red[w];
-    }
-    __syncthreads();
-    if (c > 0 && before <= run.begin && run.begin < before + c) {
-      red[W] = i;
-      red[W + 1] = before;
-    }
-    __syncthreads();
-    if (red[W] >= 0) {
-      run.item = static_cast<int>(red[W]);
-      run.pre = red[W + 1];
-      return run;
-    }
-    carry += chunk;
+  // The positions the rows of tile `item` see: up to its last real, valid
+  // row's window.
+  __device__ __forceinline__ int len(int item) const {
+    const int b = item / tiles, first = (item % tiles) * kLatTile;
+    if (q_lens == nullptr) return min(max(__ldg(start + b), 0), cap);
+    const int n = min(kLatTile, S * H - first);
+    const int s_last = min((first + n - 1) / H, __ldg(q_lens + b) - 1);
+    return s_last >= first / H ? min(__ldg(start + b) + s_last + 1, cap) : 0;
   }
-  return run;  // not reached: begin < total lies in some tile
-}
-
-// A tile's piece in a block's run.
-struct LatentUnit {
-  long long pre;   // the tile's offset on the plan's axis
-  int item, len;   // the tile and the positions its rows see
-  int lo, hi;      // the piece's positions
-  int slot;        // its partials' slot, when cut
-  bool cut;        // the tile's positions are split over blocks
-};
-
-// The block's next unit (a piece with positions, or an empty tile that
-// starts in the run, whose zeros it writes); advances (item, pre).
-__device__ __forceinline__ bool latent_next(const LatentJob& j, const LatentRun& run, int block,
-                                            int& item, long long& pre, LatentUnit& u) {
-  while (item < j.items && pre < run.end) {
-    const int len = latent_len(j, item);
-    const long long lo = max(run.begin - pre, 0LL);
-    const long long hi = min(run.end - pre, static_cast<long long>(len));
-    const bool take = lo < hi || (len == 0 && pre >= run.begin);
-    if (take) {
-      u.pre = pre;
-      u.item = item;
-      u.len = len;
-      u.lo = static_cast<int>(lo);
-      u.hi = static_cast<int>(max(hi, lo));
-      // Cut: the tile reaches past the run on either side (no 64-bit
-      // division here: it would branch inside the consumers' loop).
-      u.cut = pre < run.begin || pre + max(len, 1) > run.end;
-      u.slot = 2 * block + (pre < run.begin ? 0 : 1);
-    }
-    pre += latent_cost(len);
-    ++item;
-    if (take) return true;
+  __device__ __forceinline__ int rows(int item) const {
+    return min(kLatTile, S * H - (item % tiles) * kLatTile);
   }
-  return false;
-}
+  __device__ __forceinline__ size_t out_row(int item, int r) const {
+    return static_cast<size_t>(item / tiles) * S * H + (item % tiles) * kLatTile + r;
+  }
+};
 
 // The producer warpgroup: each unit's q tile, then its latent rows into
 // the ring; warp w copies rows w, w + 4, ... of q and positions [8w, 8w +
 // 8) of each stage, every lane arriving on the stage's barrier.
-// The workspace of a bf16 call over `blocks` blocks: partial
-// accumulators [2 * blocks][64][576], their (max, sum) pairs [2 * blocks][64]
-// [2], then each block's merge task (the tile cut at the end of its run if
-// the tile starts in the run: its item, or -1 for none; its offset in the
-// run; its positions; the plan's per).
-__device__ __forceinline__ int4* latent_tasks(float* ws, int blocks) {
-  return reinterpret_cast<int4*>(ws + 2 * static_cast<size_t>(blocks) * kLatTile *
-                                           (kLatentDim + 2));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ void latent_produce(
     const bf16* __restrict__ q, const bf16* __restrict__ pages, const int* __restrict__ table,
-    const LatentJob& job, const LatentRun& run, int P, int max_pages, unsigned char* q_s,
+    const LatentJob& job, const PlanRun& run, int P, int max_pages, unsigned char* q_s,
     unsigned char* ring, uint64_t* full, uint64_t* empty, uint64_t* q_full, uint64_t* q_empty,
     int4* tasks) {
   constexpr int PW = kLatStage / 4;   // positions of a stage a warp copies
   const int lane = threadIdx.x % kWarp, w = (threadIdx.x / kWarp) % 4;
   int item = run.item, it = 0, qn = 0;
   long long pre = run.pre;
-  LatentUnit u;
+  PlanUnit u;
   int4 task = make_int4(-1, 0, 0, 1);   // the merge's: a cut tile that starts in the run
-  while (latent_next(job, run, blockIdx.x, item, pre, u)) {
+  while (plan_next(job, run, blockIdx.x, item, pre, u)) {
     if (u.cut && u.pre >= run.begin) {
       task = make_int4(u.item, static_cast<int>(u.pre - run.begin), u.len,
                        static_cast<int>(run.per));
@@ -534,7 +399,7 @@ __device__ __forceinline__ void latent_produce(
     const bf16* q0 = q + (static_cast<size_t>(b) * job.S * job.H + first) * kLatentDim;
     for (int r = w; r < rows; r += 4) {
       for (int c = lane; c < kLatChunks; c += kWarp) {
-        cp_async16(q_s + lat_swz(kLatTile, r, c), q0 + static_cast<size_t>(r) * kLatentDim + c * 8,
+        cp_async16(q_s + swz128(kLatTile, r, c), q0 + static_cast<size_t>(r) * kLatentDim + c * 8,
                    true);
       }
     }
@@ -556,7 +421,7 @@ __device__ __forceinline__ void latent_produce(
         const int row = __shfl_sync(kFull, cur, i);
         const bf16* src = pages + static_cast<size_t>(max(row, 0)) * kLatentDim;
         for (int c = lane; c < kLatChunks; c += kWarp) {
-          cp_async16(dst + lat_swz(kLatStage, p, c), src + c * 8, row >= 0);
+          cp_async16(dst + swz128(kLatStage, p, c), src + c * 8, row >= 0);
         }
       }
       cp_async_mbar_arrive(full + s);
@@ -569,7 +434,7 @@ __device__ __forceinline__ void latent_produce(
 // A consumer warpgroup: columns [64 * CB0, 64 * (CB0 + NB)) of every unit.
 template <int NB, int CB0, bool kDecode>
 __device__ __forceinline__ void latent_consume(
-    const LatentJob& job, const LatentRun& run, float* __restrict__ ws, bf16* __restrict__ out,
+    const LatentJob& job, const PlanRun& run, float* __restrict__ ws, bf16* __restrict__ out,
     const unsigned char* q_s, const unsigned char* ring, float* swap, uint64_t* full,
     uint64_t* empty, uint64_t* q_full, uint64_t* q_empty, float scale) {
   constexpr int NO = NB * 32;            // accumulators a thread: 64 rows x 64 NB columns / 128
@@ -585,11 +450,11 @@ __device__ __forceinline__ void latent_consume(
   float* ml = ws + 2 * static_cast<size_t>(gridDim.x) * kLatTile * kLatentDim;
   int item = run.item, it = 0, qn = 0;
   long long pre = run.pre;
-  LatentUnit u;
+  PlanUnit u;
   float o[NO];
   // Everything that steers the loops is broadcast from lane 0, so that
   // the compiler sees it warp-uniform and keeps the wgmma chains whole.
-  while (__shfl_sync(kFull, latent_next(job, run, blockIdx.x, item, pre, u), 0)) {
+  while (__shfl_sync(kFull, plan_next(job, run, blockIdx.x, item, pre, u), 0)) {
     u.lo = __shfl_sync(kFull, u.lo, 0);
     u.hi = __shfl_sync(kFull, u.hi, 0);
     u.cut = __shfl_sync(kFull, u.cut, 0);
@@ -796,16 +661,18 @@ __device__ __forceinline__ void latent_wg(const bf16* __restrict__ q,
     mbar_init_fence();
   }
   __syncthreads();
-  const LatentRun run = latent_run(job, blockIdx.x, gridDim.x, red);
+  const PlanRun run = plan_run<LatentJob, kLatThreads>(job, blockIdx.x, gridDim.x, red);
   if (__shfl_sync(kFull, run.item, 0) < 0) {
-    if (threadIdx.x == 0) latent_tasks(ws, gridDim.x)[blockIdx.x] = make_int4(-1, 0, 0, 1);
+    if (threadIdx.x == 0) {
+      plan_tasks<kLatentDim>(ws, gridDim.x)[blockIdx.x] = make_int4(-1, 0, 0, 1);
+    }
     return;
   }
   const int wg = __shfl_sync(kFull, threadIdx.x / 128, 0);   // warp-uniform
   if (wg == 2) {
     setmaxnreg_dec<kLatProducerRegs>();
     latent_produce(q, pages, table, job, run, P, max_pages, q_s, ring, full, empty, q_full,
-                   q_empty, latent_tasks(ws, gridDim.x));
+                   q_empty, plan_tasks<kLatentDim>(ws, gridDim.x));
   } else if (wg == 0) {
     setmaxnreg_inc<kLatConsumerRegs>();
     latent_consume<kLatSplitCols / 64, 0, kDecode>(job, run, ws, out, q_s, ring, swap, full,
@@ -814,52 +681,6 @@ __device__ __forceinline__ void latent_wg(const bf16* __restrict__ q,
     setmaxnreg_inc<kLatConsumerRegs>();
     latent_consume<(kLatentDim - kLatSplitCols) / 64, kLatSplitCols / 64, kDecode>(
         job, run, ws, out, q_s, ring, swap, full, empty, q_full, q_empty, scale);
-  }
-}
-
-// Block (x, y): block x's merge task, columns [64 y, 64 y + 64) of its
-// rows, each (row, 4 columns) folded over the pieces as the main kernel
-// folds positions (running max, rescaled sums).
-__device__ __forceinline__ void latent_merge(float* __restrict__ ws, bf16* __restrict__ out,
-                                             const LatentJob& job, int blocks) {
-  constexpr int QC = 16;   // float4 chunks of 64 columns
-  const int k0 = blockIdx.x;
-  const int4 task = latent_tasks(ws, blocks)[k0];
-  if (task.x < 0) return;
-  // The blocks from k0 on that hold the tile's positions.
-  const int pieces = static_cast<int>((static_cast<long long>(task.y) + task.z - 1) / task.w) + 1;
-  const int first = (task.x % job.tiles) * kLatTile;
-  const int rows = min(kLatTile, job.S * job.H - first);
-  const float* ml = ws + 2 * static_cast<size_t>(blocks) * kLatTile * kLatentDim;
-  const size_t seq_row = static_cast<size_t>(task.x / job.tiles) * job.S * job.H + first;
-  for (int i = threadIdx.x; i < rows * QC; i += kLatMergeThreads) {
-    const int r = i / QC, c = (blockIdx.y * QC + i % QC) * 4;
-    // Piece j's row: block k0's slot 2 k0 + 1, then block k0 + j's slot 2 (k0 + j).
-    const float* m0 = ml + 2 * ((2 * k0 + 1) * kLatTile + r);
-    const float* a0 = ws + ((2 * k0 + 1) * kLatTile + r) * static_cast<size_t>(kLatentDim) + c;
-    constexpr int SLOT2 = 2 * kLatTile;   // rows from slot 2k to slot 2(k + 1)
-    // Folded online (running max, rescaled sums): no load waits on another.
-    float mx = -CUDART_INF_F, den = 0.f;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 16
-    for (int j = 0; j < pieces; ++j) {
-      const int d = j == 0 ? 0 : j * SLOT2 - kLatTile;   // rows past piece 0's
-      const float2 p = __ldg(reinterpret_cast<const float2*>(m0 + 2 * d));
-      const float4 v =
-          __ldg(reinterpret_cast<const float4*>(a0 + static_cast<size_t>(d) * kLatentDim));
-      const float mn = fmaxf(mx, p.x);
-      const bool none = mn == -CUDART_INF_F;   // nothing seen yet
-      const float keep = none ? 1.f : exp2f(mx - mn), w = none ? 0.f : exp2f(p.x - mn);
-      mx = mn;
-      den = den * keep + w * p.y;
-      a.x = a.x * keep + w * v.x;
-      a.y = a.y * keep + w * v.y;
-      a.z = a.z * keep + w * v.z;
-      a.w = a.w * keep + w * v.w;
-    }
-    const float inv = den > 0.f ? 1.f / den : 0.f;
-    *reinterpret_cast<uint2*>(out + (seq_row + r) * kLatentDim + c) =
-        make_uint2(pack_bf16(a.x * inv, a.y * inv), pack_bf16(a.z * inv, a.w * inv));
   }
 }
 
@@ -879,14 +700,14 @@ __global__ void __launch_bounds__(kLatThreads, 1) latent_decode_wg_kernel(
   latent_wg<true>(q, pages, table, job, ws, out, P, max_pages, scale);
 }
 
-__global__ void __launch_bounds__(kLatMergeThreads) latent_ragged_merge_kernel(
+__global__ void __launch_bounds__(kPlanMergeThreads) latent_ragged_merge_kernel(
     float* __restrict__ ws, bf16* __restrict__ out, LatentJob job, int blocks) {
-  latent_merge(ws, out, job, blocks);
+  plan_merge<kLatentDim>(ws, out, job, blocks);
 }
 
-__global__ void __launch_bounds__(kLatMergeThreads) latent_decode_merge_kernel(
+__global__ void __launch_bounds__(kPlanMergeThreads) latent_decode_merge_kernel(
     float* __restrict__ ws, bf16* __restrict__ out, LatentJob job, int blocks) {
-  latent_merge(ws, out, job, blocks);
+  plan_merge<kLatentDim>(ws, out, job, blocks);
 }
 
 // Both passes of a bf16 call over `blocks` blocks; `ws` holds 2 * blocks *
@@ -908,7 +729,7 @@ cudaError_t launch_latent_wg(const void* q, const void* pages, const int* table,
       static_cast<bf16*>(out), P, max_pages, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge<<<dim3(blocks, kLatentDim / 64), kLatMergeThreads, 0, stream>>>(
+  merge<<<dim3(blocks, kLatentDim / 64), kPlanMergeThreads, 0, stream>>>(
       ws, static_cast<bf16*>(out), job, blocks);
   return cudaGetLastError();
 }

@@ -18,6 +18,9 @@
 //       (opsagent_tpu/ops/attention.py) with `kc, kc`; its Pallas dma
 //       kernels compute the same in interpret mode. Design in
 //       attention_latent.cuh.
+//   opsagent_paged_ragged_attention_mla  computes the ragged function at
+//       the materialized-MLA shape in bf16 (D = 192, pages in q's dtype):
+//       DeepSeek-V2/V3 with latent_cache off. Design in attention_mla.cuh.
 //
 // Contract (identical to the TPU kernels and to the plain PyTorch versions
 // in opsagent_tpu_torch/ops/attention.py): pages [N, P, K, D] contiguous,
@@ -39,7 +42,8 @@
 // of that kv head's group of G = H / K query heads: the G heads of one
 // position share every K/V row the block loads. The bf16 instances (pages
 // in bf16 or int8) run the tensor-core tile routine `attend_mma`
-// (attention_mma.cuh). The f32 instances run the CUDA-core body
+// (attention_mma.cuh), except at D = 192, whose bf16 call is the warpgroup
+// kernel of attention_mla.cuh. The f32 instances run the CUDA-core body
 // `attend_split` (attention_split.cuh) over one split that spans the
 // table: the tensor cores hold no f32 tolerance of 1e-5, and f32 is on no
 // served path.
@@ -72,6 +76,7 @@
 // block holding the longest row walks it alone.
 
 #include "attention_latent.cuh"
+#include "attention_mla.cuh"
 
 namespace {
 
@@ -130,6 +135,9 @@ struct Args {
 
 template <typename T, typename PT, int D>
 cudaError_t launch_ragged(const Args& a, const int* start, const int* q_lens, int S) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && D == kMlaDim) {
+    return cudaErrorInvalidValue;   // opsagent_paged_ragged_attention_mla's
+  } else {
   constexpr int RPW = kRaggedRowsPerWarp;
   static_assert(kWarps * RPW == kMmaRows && kThreads == kMmaThreads,
                 "both bodies tile the rows alike");
@@ -145,6 +153,7 @@ cudaError_t launch_ragged(const Args& a, const int* start, const int* q_lens, in
       a.k_scale, a.v_scale, a.table, start, q_lens, static_cast<T*>(a.out), S, a.H, a.K,
       a.P, a.max_pages, a.scale);
   return cudaGetLastError();
+  }
 }
 
 template <typename T, typename PT, int D>
@@ -235,6 +244,22 @@ extern "C" int opsagent_paged_ragged_attention(
   const auto* st = static_cast<const int*>(start);
   const auto* ql = static_cast<const int*>(q_lens);
   return dispatch<true>(dtype, D, k_scale != nullptr, Ragged{a, st, ql, S});
+}
+
+// The bf16 materialized-MLA ragged call: q [B, S, H, 192] and pages [N, P,
+// K, 192] in bf16; the rest as opsagent_paged_ragged_attention, over
+// `blocks` blocks (two an SM) with `workspace` holding 2 * blocks * 64 *
+// 194 + 4 * blocks floats.
+extern "C" int opsagent_paged_ragged_attention_mla(
+    const void* q, const void* k_pages, const void* v_pages, const void* table,
+    const void* start, const void* q_lens, void* workspace, void* out, int B, int S, int H,
+    int K, int P, int max_pages, int blocks, float scale, void* stream) {
+  if (B == 0 || S == 0) return cudaSuccess;
+  if (blocks < 1 || workspace == nullptr || K < 1 || H % K != 0) return cudaErrorInvalidValue;
+  return launch_mla_wg(q, k_pages, v_pages, static_cast<const int*>(table),
+                       static_cast<const int*>(start), static_cast<const int*>(q_lens),
+                       static_cast<float*>(workspace), out, B, S, H, K, P, max_pages, blocks,
+                       scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int opsagent_paged_decode_attention(

@@ -15,7 +15,11 @@ The dma source also holds two more sets of instances of both functions,
 for multi-head latent attention (MLA). The materialized ones take head
 dims ``MLA_HEAD_DIMS`` (``tiny-mla``'s 24, DeepSeek-V2/V3's 192: per-head
 k and v, v zero-padded to the qk head dim as the model writes it) with
-pages in q's dtype, and count under ``*_mla``. The latent ones are
+pages in q's dtype, and count under ``*_mla``; the ragged function in
+bf16 at 192 is a warpgroup kernel of its own (``csrc/attention_mla.cuh``),
+split over a fixed grid of ``mla_blocks`` blocks by the latent kernels'
+plan (``mla_lens`` and ``latent_plan`` mirror it), counted under
+``paged_ragged_attention_mla_wg``. The latent ones are
 for pages ``[N, P, 1, 576]`` (DeepSeek-V2/V3's
 ``kv_lora_rank`` 512 + rope 64) read as both keys and values, which is how
 the JAX model calls ``paged_ragged_attention`` and
@@ -62,6 +66,10 @@ HEAD_DIMS = (16, 32, 64, 128)
 # the dma kernels' instances for pages in q's dtype (an int8 KV cache is
 # refused for MLA, as in the JAX engine).
 MLA_HEAD_DIMS = (24, 192)
+# The bf16 ragged call at this head dim runs the warpgroup kernel
+# (csrc/attention_mla.cuh), two blocks an SM.
+MLA_WG_DIM = 192
+MLA_BLOCKS_PER_SM = 2
 # The MLA latent (kv_lora_rank 512 + qk_rope_head_dim 64): the dma kernels'
 # latent instances, one kv head, k and v the same pages.
 LATENT_DIM = 576
@@ -78,12 +86,13 @@ GRID_WORKSPACE_BYTES = 64 << 20
 GRID_RAGGED_WALK = 1024
 # Both decode kernels take enough splits that no block walks more than this.
 DECODE_WALK = 256
-# The bf16 latent kernels' plan (csrc/attention_latent.cuh kLatTile,
-# kLatCost, kLatEmptyCost, kLatMinRun): 64-row tiles, each costing its
+# The plan of the warpgroup kernels, the bf16 latent ones and the
+# materialized-MLA ragged one (csrc/attention_plan.cuh kPlanTile,
+# kPlanCost, kPlanEmptyCost, kPlanMinRun): 64-row tiles, each costing its
 # visible positions plus LATENT_COST (LATENT_EMPTY_COST when it sees none:
 # it only writes zeros), cut into runs of at least LATENT_MIN_RUN
-# positions, one run a block; a cut tile leaves LATENT_TILE_ROWS *
-# (LATENT_DIM + 2) floats of partials in one of two slots a block.
+# positions, one run a block; a cut tile leaves LATENT_TILE_ROWS * (D + 2)
+# floats of partials in one of two slots a block.
 LATENT_TILE_ROWS = 64
 LATENT_COST = 128
 LATENT_EMPTY_COST = 32
@@ -102,6 +111,7 @@ LAUNCHES: dict[str, int] = {
     "paged_decode_attention_latent": 0,
     "paged_ragged_attention_mla": 0,
     "paged_decode_attention_mla": 0,
+    "paged_ragged_attention_mla_wg": 0,
 }
 
 # Grid-kernel workspaces, one per (device, size), allocated at the first
@@ -133,6 +143,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         [p] * 6 + [i] * 7 + [ctypes.c_float, i, p]
     )
     lib.opsagent_paged_decode_attention_latent.restype = i
+    lib.opsagent_paged_ragged_attention_mla.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float, p]
+    lib.opsagent_paged_ragged_attention_mla.restype = i
 
 
 def _bind_grid(lib: ctypes.CDLL) -> None:
@@ -262,6 +274,16 @@ def paged_ragged_attention_cuda(
         cuda_build.raise_on(rc, "paged_ragged_attention_latent")
         LAUNCHES["paged_ragged_attention_latent"] += 1
         return out
+    if D == MLA_WG_DIM and q.dtype == torch.bfloat16:
+        blocks, ws = _mla_workspace(q)
+        rc = cuda_build.library(SOURCE, _bind).opsagent_paged_ragged_attention_mla(
+            ptr(q), ptr(kv), ptr(vv), ptr(page_table), ptr(start), ptr(q_lens), ptr(ws),
+            ptr(out), B, S, H, K, P, page_table.shape[1], blocks, D ** -0.5,
+            cuda_build.stream(q.device),
+        )
+        cuda_build.raise_on(rc, "paged_ragged_attention_mla_wg")
+        LAUNCHES["paged_ragged_attention_mla_wg"] += 1
+        return out
     rc = cuda_build.library(SOURCE, _bind).opsagent_paged_ragged_attention(
         ptr(q), ptr(kv), ptr(vv), ptr(ks), ptr(vs), ptr(page_table), ptr(start),
         ptr(q_lens), ptr(out), B, S, H, K, D, P, page_table.shape[1],
@@ -376,29 +398,59 @@ def _latent_workspace(q: torch.Tensor) -> tuple[int, torch.Tensor | None]:
     return blocks, _workspace(q.device, latent_workspace_bytes(blocks) // 4)
 
 
+def mla_blocks(sms: int) -> int:
+    """Blocks of a bf16 materialized-MLA ragged call: ``MLA_BLOCKS_PER_SM``
+    an SM, within ``GRID_WORKSPACE_BYTES`` of partials."""
+    return max(1, min(MLA_BLOCKS_PER_SM * sms,
+                      GRID_WORKSPACE_BYTES // mla_workspace_bytes(1)))
+
+
+def mla_workspace_bytes(blocks: int) -> int:
+    """As ``latent_workspace_bytes`` at head dim ``MLA_WG_DIM``."""
+    return (2 * blocks * LATENT_TILE_ROWS * (MLA_WG_DIM + 2) + 4 * blocks) * 4
+
+
+def _mla_workspace(q: torch.Tensor) -> tuple[int, torch.Tensor]:
+    blocks = mla_blocks(_sm_count(q.device))
+    return blocks, _workspace(q.device, mla_workspace_bytes(blocks) // 4)
+
+
+def mla_lens(S: int, H: int, K: int, cap: int, start, q_lens) -> list[int]:
+    """The positions each 64-row tile of a materialized-MLA ragged call
+    sees (the kernel's ``MlaJob::len``): tiles of the ``S * G`` rows (s, g)
+    of each (sequence, kv head), G = H / K, sequence after sequence and kv
+    head after kv head."""
+    G = H // K
+    tiles = -(-S * G // LATENT_TILE_ROWS)
+    out = []
+    for b in range(len(start)):
+        for _ in range(K):
+            for tile in range(tiles):
+                first = tile * LATENT_TILE_ROWS
+                rows = min(LATENT_TILE_ROWS, S * G - first)
+                s_last = min((first + rows - 1) // G, int(q_lens[b]) - 1)
+                out.append(min(int(start[b]) + s_last + 1, cap) if s_last >= first // G else 0)
+    return out
+
+
 def latent_lens(
     S: int, H: int, cap: int, start=None, q_lens=None, lengths=None,
 ) -> list[int]:
     """The positions each 64-row tile of a latent call sees, tile after
-    tile of each sequence (the kernels' ``latent_len``): ragged rows from
-    ``start`` and ``q_lens``, decode (S = 1) from ``lengths``."""
-    tiles = -(-S * H // LATENT_TILE_ROWS)
-    out = []
-    for b in range(len(lengths if lengths is not None else start)):
-        for tile in range(tiles):
-            first = tile * LATENT_TILE_ROWS
-            if lengths is not None:
-                out.append(min(max(int(lengths[b]), 0), cap))
-                continue
-            rows = min(LATENT_TILE_ROWS, S * H - first)
-            s_last = min((first + rows - 1) // H, int(q_lens[b]) - 1)
-            out.append(min(int(start[b]) + s_last + 1, cap) if s_last >= first // H else 0)
-    return out
+    tile of each sequence (the kernels' ``LatentJob::len``): ragged rows
+    from ``start`` and ``q_lens`` (``mla_lens`` at one kv head), decode (S
+    = 1) from ``lengths``."""
+    if lengths is None:
+        return mla_lens(S, H, 1, cap, start, q_lens)
+    tiles = -(-H // LATENT_TILE_ROWS)
+    return [min(max(int(n), 0), cap) for n in lengths for _ in range(tiles)]
 
 
 def latent_plan(lens: list[int], blocks: int) -> tuple[int, list[list[dict]]]:
-    """The plan every block of a bf16 latent call computes on the device
-    (``latent_run`` / ``latent_next``): ``per`` and, for each block, its
+    """The plan every block of a warpgroup call (bf16 latent, or bf16
+    materialized-MLA ragged) computes on the device from its tiles' ``lens``
+    (``latent_lens``, ``mla_lens``; csrc/attention_plan.cuh ``plan_run`` /
+    ``plan_next``): ``per`` and, for each block, its
     units, each a tile's piece ``[lo, hi)`` of its positions (an empty
     tile: a unit with no positions that writes its zeros), whether the
     tile is cut over blocks, and the partials slot it then writes."""

@@ -33,10 +33,11 @@ sharding object to build, so they have no counterpart here.
 
 from __future__ import annotations
 
+import gc
 import os
 from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
@@ -123,6 +124,41 @@ def init_distributed(
         timeout=timedelta(seconds=GROUP_TIMEOUT_S if timeout_s is None else timeout_s),
     )
     return dist.get_world_size()
+
+
+def rank_job(backend: str, fn: Callable[..., int], *args: Any) -> int:
+    """This process's part of a job launched under torch's launch variables
+    (``init_distributed``; a single process joins no group): run
+    ``fn(*args)``, then tear every process group down while the interpreter
+    still runs (``close_distributed``). ``fn`` holds the job's engine and
+    mesh, so they are garbage once it returns."""
+    init_distributed(backend=backend)
+    try:
+        rc = fn(*args)
+    except BaseException:
+        close_distributed(wait=False)
+        raise
+    close_distributed()
+    return rc
+
+
+def close_distributed(wait: bool = True) -> None:
+    """Destroy this rank's process groups and free them. With ``wait`` the
+    ranks first meet at a barrier of the default group, so that none closes
+    its connections while a peer still reads from them. Freed here, each
+    gloo group joins its threads (``gloo_tcp_loop``, ``pt_gloo_runloop``)
+    and rank 0's TCP store its listener (``pt_tcpstore_uv``); left running
+    into the interpreter's exit, those threads at times aborted a rank
+    ("terminate called without an active exception"). A mesh's groups
+    outlive ``destroy_process_group`` while anything holds the mesh: the
+    caller drops its engine first."""
+    if not dist.is_initialized():
+        return
+    gc.collect()  # an engine's reference cycles, and with them its mesh
+    if wait:
+        dist.barrier()
+    dist.destroy_process_group()
+    gc.collect()
 
 
 @dataclass

@@ -1005,14 +1005,17 @@ MLA_WIDTHS = [(4, 4, 24, 4), (16, 16, 192, 16)]
 def test_mla_ragged_kernel_matches_plain(gen, dtype, H, K, D, P, S):
     """Chunks from position 0 and from a cached prefix that starts
     mid-page, a decode row and a q_len 0 row, through the materialized
-    instances; counted under ``paged_ragged_attention_mla``."""
+    instances, counted under ``paged_ragged_attention_mla``; bf16 at 192
+    through the warpgroup kernel, counted under ``..._mla_wg``."""
     q, k, v, table, start, q_lens = _ragged_case(gen, S, H, K, D, P, dtype)
+    name = ("paged_ragged_attention_mla_wg" if D == pa.MLA_WG_DIM and dtype == torch.bfloat16
+            else "paged_ragged_attention_mla")
     before = dict(pa.LAUNCHES)
     got = pa.paged_ragged_attention_cuda(q, k, v, table, start, q_lens)
     want = pa.paged_ragged_attention_cuda(q, k, v, table, start, q_lens, plain=True)
     torch.cuda.synchronize()
-    assert pa.LAUNCHES["paged_ragged_attention_mla"] == before["paged_ragged_attention_mla"] + 1
-    assert pa.LAUNCHES["paged_ragged_attention"] == before["paged_ragged_attention"]
+    counted = {n for n in pa.LAUNCHES if pa.LAUNCHES[n] != before[n]}
+    assert counted == {name} and pa.LAUNCHES[name] == before[name] + 1
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     _assert_zero_rows(got, q_lens)
 
@@ -1049,6 +1052,96 @@ def test_mla_instances_take_no_grid_form(gen):
     q, k, v, table, start, q_lens = _ragged_case(gen, 24, 4, 4, 24, 4, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         pa.paged_ragged_attention_grid_cuda(q, k, v, table, start, q_lens)
+
+
+# The bf16 warpgroup kernel at 192 (csrc/attention_mla.cuh): its plan's
+# edges. (S, starts, q_lens): a prefix row longer than a block's run beside
+# a decode row, every row seeing nothing (q_len 0), a row that sees nothing
+# beside a tile whose rows past q_len see nothing, the card's timed rows.
+MLA_WG_ROWS = {
+    "long_row": (128, [8064, 100], [128, 1]),
+    "all_empty": (16, [0, 40], [0, 0]),
+    "empty_beside": (77, [0, 1000, 3], [0, 77, 13]),
+    "timed": (128, [3968, 0, 5, 1000, 3001, 0, 200, 17], [128, 128, 0, 1, 77, 1, 128, 33]),
+}
+
+
+def _mla_wg(gen, S, starts, q_lens, H=16):
+    q, k, v, table, start, ql = _case(gen, len(starts), S, H, H, pa.MLA_WG_DIM, 16, starts,
+                                      q_lens, torch.bfloat16)
+    v[..., 128:] = 0
+    return q, k, v, table, start, ql
+
+
+def _mla_wg_check(args, blocks=None, monkeypatch=None):
+    """The kernel (over ``blocks`` blocks, else the wrapper's) against
+    plain, rows past q_len zero."""
+    if blocks is not None:
+        monkeypatch.setattr(pa, "mla_blocks", blocks)
+    before = pa.LAUNCHES["paged_ragged_attention_mla_wg"]
+    got = pa.paged_ragged_attention_cuda(*args)
+    want = pa.paged_ragged_attention_cuda(*args, plain=True)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_ragged_attention_mla_wg"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    _assert_zero_rows(got, args[-1])
+    return got
+
+
+MLA_WG_BLOCKS = {"default": None, "one": lambda sms: 1, "one_an_sm": lambda sms: sms,
+                 "seven": lambda sms: 7}
+
+
+@pytest.mark.parametrize("blocks", sorted(MLA_WG_BLOCKS))
+@pytest.mark.parametrize("rows", sorted(MLA_WG_ROWS))
+def test_mla_wg_kernel_cuts_tiles_between_blocks(gen, monkeypatch, rows, blocks):
+    S, starts, q_lens = MLA_WG_ROWS[rows]
+    _mla_wg_check(_mla_wg(gen, S, starts, q_lens), MLA_WG_BLOCKS[blocks], monkeypatch)
+
+
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("runs", [1, 2, 5])
+def test_mla_wg_kernel_walks_at_the_run_edges(gen, runs, edge):
+    """One head's tile whose positions end one before, on and one past a
+    cut between blocks' runs (one kv head, so the plan's axis is that
+    tile's), beside a chunk at the same edge."""
+    L = runs * pa.LATENT_MIN_RUN + edge
+    _mla_wg_check(_mla_wg(gen, 64, [L - 4, L - 64], [4, 64], H=1))
+
+
+def test_mla_wg_kernel_groups_heads_of_a_kv_head(gen):
+    """G = 2 (two query heads a kv head): tile rows are (s, g) pairs."""
+    q, k, v, table, start, ql = _case(gen, 3, 40, 4, 2, pa.MLA_WG_DIM, 16, [0, 500, 7],
+                                      [40, 33, 0], torch.bfloat16)
+    _mla_wg_check((q, k, v, table, start, ql))
+
+
+def test_mla_wg_calls_bit_identical_and_replayed_as_eager(gen):
+    """At the card's timed rows: two calls are bit-identical, and a CUDA
+    graph of the call replays to the eager output; new rows in the same
+    tensors replay planned on the device."""
+    args = _mla_wg(gen, *MLA_WG_ROWS["timed"])
+    eager = _mla_wg_check(args)
+    assert torch.equal(pa.paged_ragged_attention_cuda(*args), eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm the launch path off the capture
+        pa.paged_ragged_attention_cuda(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_ragged_attention_cuda(*args)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    q, k, v, table, start, ql = args
+    ql.copy_(torch.tensor([1, 0, 0, 64, 128, 0, 3, 33], dtype=torch.int32, device="cuda"))
+    graph.replay()
+    want = pa.paged_ragged_attention_cuda(*args, plain=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), rtol=1e-2, atol=1e-2)
+    _assert_zero_rows(out, ql)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

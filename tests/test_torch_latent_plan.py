@@ -1,4 +1,5 @@
-"""The bf16 latent kernels' plan, and the plain latent attention at the
+"""The bf16 latent kernels' plan (and the materialized-MLA ragged kernel's,
+the same plan over other tiles), and the plain latent attention at the
 shapes that plan cuts, against the JAX package.
 
 The CUDA kernels (``csrc/attention_latent.cuh``) split a latent call's work
@@ -13,6 +14,12 @@ tiles it cuts within the workspace. The card tests
 version at the same edges; here the plain version is held to JAX's
 ``paged_ragged_attention`` / ``paged_decode_attention`` there (f32, 1e-5,
 the reference's own tolerance).
+
+The bf16 materialized-MLA ragged kernel (``csrc/attention_mla.cuh``) cuts
+its tiles, 64 query rows of one (sequence, kv head), by the same plan
+(``mla_lens``). Its split form is written out here in PyTorch: partials of
+each block's pieces, merged as the merge kernel folds them, equal the
+unsplit plain version.
 """
 
 import jax.numpy as jnp
@@ -48,10 +55,24 @@ DECODE = {
     "b32": (16, 1024, [(37 * i) % 1025 for i in range(32)]),
     "v3": (128, 4128, [0, 1, 2049, 4096]),
 }
+# (S, H, K, cap, starts, q_lens) of materialized-MLA ragged calls: the
+# card's timed rows at V2-Lite's 16 heads (a kv head each), a row longer
+# than a block's run beside a decode row, every row at q_len 0, two query
+# heads a kv head with a tile that straddles query positions.
+MLA = {
+    "timed": (128, 16, 16, 4128, [3968, 0, 5, 1000, 3001, 0, 200, 17],
+              [128, 128, 0, 1, 77, 1, 128, 33]),
+    "long_row": (128, 16, 16, 8192, [8064, 100], [128, 1]),
+    "all_empty": (16, 16, 16, 64, [0, 40], [0, 0]),
+    "gqa": (40, 4, 2, 1024, [0, 500, 7], [40, 33, 0]),
+}
 BLOCKS = [1, 7, 132]
 
 
 def _lens(kind, name):
+    if kind == "mla":
+        S, H, K, cap, starts, q_lens = MLA[name]
+        return pa.mla_lens(S, H, K, cap, starts, q_lens)
     if kind == "ragged":
         S, H, cap, starts, q_lens = RAGGED[name]
         return pa.latent_lens(S, H, cap, start=starts, q_lens=q_lens)
@@ -59,7 +80,8 @@ def _lens(kind, name):
     return pa.latent_lens(1, H, cap, lengths=lengths)
 
 
-CASES = [("ragged", n) for n in RAGGED] + [("decode", n) for n in DECODE]
+CASES = ([("ragged", n) for n in RAGGED] + [("decode", n) for n in DECODE]
+         + [("mla", n) for n in MLA])
 
 
 @pytest.mark.parametrize("blocks", BLOCKS)
@@ -71,6 +93,7 @@ def test_plan_covers_every_position_once(kind, name, blocks):
     seen = [np.zeros(n, np.int32) for n in lens]
     zeros = [0] * len(lens)
     for units in runs:
+        assert sum(u["hi"] - u["lo"] for u in units) <= per
         for u in units:
             assert 0 <= u["lo"] <= u["hi"] <= lens[u["item"]]
             if lens[u["item"]] == 0:
@@ -109,6 +132,96 @@ def test_latent_blocks_keep_the_partials_within_the_workspace_budget(sms):
     blocks = pa.latent_blocks(sms)
     assert 1 <= blocks <= sms
     assert pa.latent_workspace_bytes(blocks) <= pa.GRID_WORKSPACE_BYTES
+
+
+@pytest.mark.parametrize("sms", [1, 66, H100_SMS, 1000])
+def test_mla_blocks_keep_the_partials_within_the_workspace_budget(sms):
+    blocks = pa.mla_blocks(sms)
+    assert 1 <= blocks <= pa.MLA_BLOCKS_PER_SM * sms
+    assert pa.mla_workspace_bytes(blocks) <= pa.GRID_WORKSPACE_BYTES
+
+
+def test_mla_lens_follow_the_tiles_of_each_kv_head():
+    """Tile ``((b * K) + kh) * tiles + t`` holds rows (s, g) = divmod(64 t
+    + i, G) of kv head kh, and sees up to its last valid row's window."""
+    S, H, K, cap, starts, q_lens = MLA["gqa"]
+    lens = pa.mla_lens(S, H, K, cap, starts, q_lens)
+    G, tiles = H // K, -(-S * (H // K) // pa.LATENT_TILE_ROWS)
+    assert len(lens) == len(starts) * K * tiles
+    for item, n in enumerate(lens):
+        b, t = item // (K * tiles), item % tiles
+        last = min(S * G, (t + 1) * pa.LATENT_TILE_ROWS) - 1
+        s_last = min(last // G, q_lens[b] - 1)
+        first_s = t * pa.LATENT_TILE_ROWS // G
+        assert n == (min(starts[b] + s_last + 1, cap) if s_last >= first_s else 0)
+
+
+def _split_plain(q, k, v, table, start, q_lens, blocks):
+    """The materialized-MLA ragged kernel's split form in f32: each block's
+    pieces (``latent_plan`` over ``mla_lens``) as the kernel computes them,
+    a whole tile normalised, a cut tile's pieces as partials (max, sum,
+    accumulators of each row) merged in block order as the merge kernel
+    folds them. Rows that see nothing stay zero."""
+    B, S, H, D = q.shape
+    _, P, K, _ = k.shape
+    G, cap = H // K, table.shape[1] * P
+    tiles = -(-S * G // pa.LATENT_TILE_ROWS)
+    lens = pa.mla_lens(S, H, K, cap, start.tolist(), q_lens.tolist())
+    _, runs = pa.latent_plan(lens, blocks)
+    t_all = torch.arange(cap)
+    rows_of = table.long().clamp(min=0)[:, t_all // P] * P + t_all % P   # [B, cap]
+    out = torch.zeros_like(q)
+    parts: dict[int, list] = {}
+    for units in runs:
+        for u in units:
+            bk, tile = divmod(u["item"], tiles)
+            b, kh = divmod(bk, K)
+            r = torch.arange(tile * pa.LATENT_TILE_ROWS,
+                             min((tile + 1) * pa.LATENT_TILE_ROWS, S * G))
+            s, h = r // G, kh * G + r % G
+            lim = torch.where(s < q_lens[b], (start[b] + s + 1).clamp(max=cap), 0)
+            t = torch.arange(u["lo"], u["hi"])
+            kk = k.reshape(-1, K, D)[rows_of[b, t], kh]
+            vv = v.reshape(-1, K, D)[rows_of[b, t], kh]
+            sc = (q[b, s, h] @ kk.T) * D ** -0.5
+            sc = sc.masked_fill(t[None, :] >= lim[:, None], -torch.inf)
+            m = sc.amax(-1, keepdim=True) if len(t) else torch.full((len(r), 1), -torch.inf)
+            p = torch.where(torch.isinf(m), 0.0, torch.exp(sc - m))
+            piece = (m, p.sum(-1, keepdim=True), p @ vv, b, s, h)
+            if u["cut"]:
+                parts.setdefault(u["item"], []).append(piece)
+            else:
+                out[b, s, h] = torch.where(piece[1] > 0, piece[2] / piece[1], 0.0)
+    for pieces in parts.values():
+        b, s, h = pieces[0][3:]
+        mx = torch.stack([pc[0] for pc in pieces]).amax(0)
+        w = [torch.where(torch.isinf(mx), 0.0, torch.exp(pc[0] - mx)) for pc in pieces]
+        den = sum(wi * pc[1] for wi, pc in zip(w, pieces))
+        acc = sum(wi * pc[2] for wi, pc in zip(w, pieces))
+        out[b, s, h] = torch.where(den > 0, acc / den, 0.0)
+    return out
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+@pytest.mark.parametrize("name", sorted(MLA))
+def test_mla_partials_merge_to_the_unsplit_plain_version(name, blocks):
+    S, H, K, cap, starts, q_lens = MLA[name]
+    rng = np.random.default_rng(2)
+    B, D, P = len(starts), 192, 16
+    owned = [-(-(st + n) // P) for st, n in zip(starts, q_lens)]
+    max_pages = cap // P
+    N = sum(owned) + 1
+    table = np.full((B, max_pages), -1, np.int32)
+    free = list(rng.permutation(N))
+    for b, n in enumerate(owned):
+        table[b, :n] = [free.pop() for _ in range(n)]
+    q = _t(rng.standard_normal((B, S, H, D)).astype(np.float32))
+    k = _t(rng.standard_normal((N, P, K, D)).astype(np.float32))
+    v = _t(rng.standard_normal((N, P, K, D)).astype(np.float32))
+    args = (_t(table), _t(np.array(starts, np.int32)), _t(np.array(q_lens, np.int32)))
+    got = _split_plain(q, k, v, *args, blocks)
+    want = tattn.paged_ragged_attention(q, k, v, *args)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 
 def test_plan_spreads_the_timed_ragged_call_over_the_card():

@@ -212,15 +212,26 @@ def test_latent_decode_plain_matches_jax_and_pallas_dma(H):
     np.testing.assert_array_equal(wrapped, got)
 
 
-def _materialized_case(seed, D, H=4, B=3, S=5):
+# (S, starts, q_lens, pages, table width) of the materialized cases: row 0
+# a chunk from mid-page, row 1 inactive, row 2 three rows; "long" adds a
+# chunk of 70 rows (past a 64-row tile) at a context of 200 (past the
+# runs the warpgroup kernel's plan cuts), the shape of its cut tiles.
+MATERIALIZED = {
+    "short": (5, [2, 0, 9], [5, 0, 3], PAGES, MAXP),
+    "long": (70, [130, 0, 9], [70, 0, 3], 64, 56),
+}
+
+
+def _materialized_case(seed, D, H=4, shape="short"):
     """Materialized MLA pages [L, N, P, H, D] (a kv head per query head), v
-    zero past two thirds of the columns as the model pads it: row 0 a chunk
-    from mid-page, row 1 inactive, row 2 three rows; the decode lengths."""
+    zero past two thirds of the columns as the model pads it (rows from
+    ``MATERIALIZED``); the decode lengths."""
     rng = np.random.default_rng(seed)
-    L, N = 2, PAGES
-    start = np.array([2, 0, 9], np.int32)[:B]
-    q_lens = np.array([S, 0, 3], np.int32)[:B]
-    table = np.full((B, MAXP), -1, np.int32)
+    S, starts, lens, N, maxp = MATERIALIZED[shape]
+    L, B = 2, len(starts)
+    start = np.array(starts, np.int32)
+    q_lens = np.array(lens, np.int32)
+    table = np.full((B, maxp), -1, np.int32)
     free = list(rng.permutation(N))
     for b in range(B):
         for i in range(-(-(start[b] + q_lens[b]) // PAGE)):
@@ -234,13 +245,15 @@ def _materialized_case(seed, D, H=4, B=3, S=5):
     )
 
 
-@pytest.mark.parametrize("D", [24, 192])
-def test_materialized_head_dims_plain_matches_jax_and_pallas_dma(D):
+@pytest.mark.parametrize("D,shape", [
+    pytest.param(D, shape, id=str(D) if shape == "short" else f"{D}-{shape}")
+    for shape in sorted(MATERIALIZED, reverse=True) for D in (24, 192)])
+def test_materialized_head_dims_plain_matches_jax_and_pallas_dma(D, shape):
     """The function of the dma kernels' materialized-MLA instances (tiny-mla's
     24, V2/V3's 192): the plain version equals JAX's paged_ragged_attention
     / paged_decode_attention and its Pallas dma kernels in interpret mode,
     and the wrappers take it for CPU tensors."""
-    c = _materialized_case(3, D)
+    c = _materialized_case(3, D, shape=shape)
     valid = np.arange(c["q"].shape[1])[None, :] < c["q_lens"][:, None]
     args = (c["table"], c["start"], c["q_lens"])
     got = tattn.paged_ragged_attention(
